@@ -1,0 +1,31 @@
+"""accl_tpu_torch: the ACCL collective framework on PyTorch and CUDA.
+
+The port of ``accl_tpu`` (JAX/Pallas on a TPU) to an NVIDIA H100. It
+imports torch and numpy, never jax or the JAX package. W virtual ranks
+share one device; dense ring collectives run their per-hop work through
+hand-written CUDA C++ kernels (``csrc/``): the elementwise combine and
+the block-scaled fp8/int8 wire codec. On CPU tensors every kernel
+wrapper runs its plain PyTorch version instead.
+
+Layers: driver :class:`ACCL` -> backend :mod:`.device.cuda` ->
+dataplane :mod:`.parallel.collectives` -> kernels :mod:`.ops`.
+"""
+
+from .accl import ACCL
+from .arith import ArithConfig, DEFAULT_ARITH_CONFIGS, resolve_arith_config
+from .buffer import ACCLBuffer
+from .call import CallDescriptor, CallHandle, wait_all
+from .communicator import Communicator, Rank
+from .constants import (ACCLError, CCLOp, CfgFunc, Compression, ErrorCode,
+                        ReduceFunc, StreamFlags, TAG_ANY, decode_error)
+from .device.cuda import CudaContext, CudaDevice, cuda_world
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ACCL", "ACCLBuffer", "ACCLError", "ArithConfig", "CallDescriptor",
+    "CallHandle", "CCLOp", "CfgFunc", "Communicator", "Compression",
+    "CudaContext", "CudaDevice", "DEFAULT_ARITH_CONFIGS", "ErrorCode",
+    "Rank", "ReduceFunc", "StreamFlags", "TAG_ANY", "cuda_world",
+    "decode_error", "resolve_arith_config", "wait_all",
+]

@@ -1,0 +1,241 @@
+"""The ACCL driver: the user-facing host API.
+
+The port of ``accl_tpu/accl.py``, trimmed to the dense collectives of
+this slice: buffers, ``allreduce`` / ``reduce_scatter`` / ``allgather``,
+``barrier`` and ``nop``, with the reference's dtype resolution and
+wire-compression flags. ``compress_dtype`` with ``block_scale`` selects
+the block-scaled quantized wire; ``block_scale=True`` means
+``quant.DEFAULT_BLOCK`` (there is no tuner yet), an int is clamped into
+the legal envelope.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from . import quant
+from .arith import dtype_name, resolve_arith_config, to_torch_dtype
+from .buffer import ACCLBuffer
+from .call import CallDescriptor, CallHandle, CompletedHandle
+from .communicator import Communicator
+from .constants import (CCLOp, CfgFunc, CollectiveAlgorithm, Compression,
+                        ReduceFunc, StreamFlags, TAG_ANY)
+from .device.base import Device
+
+
+class ACCL:
+    """One rank's handle to the collective engine.
+
+    Args:
+        device: the execution backend (a :class:`CudaDevice`).
+        comm: the world communicator for this rank.
+        timeout: receive timeout in seconds.
+    """
+
+    def __init__(self, device: Device, comm: Communicator,
+                 timeout: float = 30.0):
+        self.device = device
+        self._arith_memo: dict = {}
+        self.communicators: list[Communicator] = [comm]
+        device.configure_communicator(comm)
+        # bring-up through the call path, as the reference driver does
+        self.set_timeout(timeout)
+        self._config_call(CfgFunc.enable_pkt, 1)
+
+    @property
+    def comm(self) -> Communicator:
+        return self.communicators[0]
+
+    @property
+    def rank(self) -> int:
+        return self.comm.local_rank
+
+    @property
+    def world_size(self) -> int:
+        return self.comm.size
+
+    def _config_call(self, fn: CfgFunc, value: int, comm_id: int = 0):
+        self._call(CallDescriptor(CCLOp.config, count=int(value),
+                                  comm_id=comm_id, tag=int(fn)),
+                   run_async=False, waitfor=())
+
+    def set_timeout(self, timeout: float):
+        self._config_call(CfgFunc.set_timeout, int(round(timeout * 1000)))
+        self.device.timeout = timeout
+
+    def deinit(self):
+        self.device.deinit()
+
+    # -- buffers ------------------------------------------------------------
+    def buffer(self, shape=None, dtype=torch.float32, data=None,
+               device_resident: bool = False) -> ACCLBuffer:
+        """Allocate a buffer registered with this rank's device.
+
+        ``data`` may be a torch tensor or anything numpy takes. A tensor
+        on a CUDA device, or any data with ``device_resident=True``,
+        makes a device-resident buffer (homed on the rank's device; calls
+        then read and write it in place with no host staging). Otherwise
+        the buffer is a host mirror: a CPU tensor sharing memory with a
+        contiguous ``data``."""
+        if isinstance(data, torch.Tensor) and data.device.type != "cpu":
+            device_resident = True
+        if data is not None and not isinstance(data, torch.Tensor):
+            data = torch.from_numpy(np.ascontiguousarray(data))
+        if device_resident:
+            t = (self.device.adopt_device_tensor(data) if data is not None
+                 else self.device.make_device_tensor(
+                     shape, to_torch_dtype(dtype)))
+        elif data is not None:
+            t = data.contiguous()
+        else:
+            t = torch.zeros(shape, dtype=to_torch_dtype(dtype))
+        return ACCLBuffer(t, device=self.device,
+                          device_resident=device_resident)
+
+    # -- call plumbing --------------------------------------------------------
+    def _quant_block_for(self, block_scale) -> int:
+        if block_scale is True:
+            return quant.DEFAULT_BLOCK
+        return quant.clamp_block(int(block_scale))
+
+    def _prepare(self, scenario: CCLOp, *, count: int, comm: Communicator,
+                 root_src_dst: int = 0, func: ReduceFunc = ReduceFunc.SUM,
+                 tag: int = TAG_ANY,
+                 op0: ACCLBuffer | None = None, op1: ACCLBuffer | None = None,
+                 res: ACCLBuffer | None = None,
+                 compress_dtype=None, block_scale: bool | int = False,
+                 stream_flags: StreamFlags = StreamFlags.NO_STREAM,
+                 algorithm: CollectiveAlgorithm | str = (
+                     CollectiveAlgorithm.AUTO)) -> CallDescriptor:
+        """Resolve operand dtypes to an arith config + compression flags
+        (the reference's prepare_call): mark each narrower-typed operand
+        OP{0,1}/RES_COMPRESSED and request ETH_COMPRESSED when the caller
+        asks for wire compression; ``block_scale`` upgrades the wire to
+        block-scaled quantization."""
+        dtypes = {b.dtype for b in (op0, op1, res) if b is not None}
+        compression = Compression.NONE
+        if compress_dtype is not None:
+            dtypes.add(to_torch_dtype(compress_dtype))
+            compression |= Compression.ETH_COMPRESSED
+            if block_scale:
+                compression |= Compression.BLOCK_SCALED
+        elif block_scale:
+            raise ValueError(
+                "block_scale needs a compress_dtype naming the quantized "
+                "wire dtype (int8 / float8_e4m3fn / float8_e5m2)")
+        if not dtypes:
+            dtypes = {torch.float32}
+        mk = frozenset(dtypes)
+        cfg = self._arith_memo.get(mk)
+        if cfg is None:
+            cfg = resolve_arith_config(dtypes)
+            self._arith_memo[mk] = cfg
+        if compression & Compression.BLOCK_SCALED:
+            qblock = self._quant_block_for(block_scale)
+            bk = (mk, qblock)
+            bcfg = self._arith_memo.get(bk)
+            if bcfg is None:
+                bcfg = self._arith_memo[bk] = dataclasses.replace(
+                    cfg, quant_block=qblock)
+            cfg = bcfg
+        elif (compression & Compression.ETH_COMPRESSED
+                and cfg.is_compressing
+                and not cfg.compressed_dtype.is_floating_point
+                and cfg.uncompressed_dtype.is_floating_point):
+            raise ValueError(
+                f"compress_dtype={dtype_name(cfg.compressed_dtype)} on "
+                f"{dtype_name(cfg.uncompressed_dtype)} operands requires "
+                f"block-scaled quantization (pass block_scale=): plain "
+                f"dtype narrowing to an integer wire would truncate")
+        if cfg.is_compressing:
+            if op0 is not None and op0.dtype == cfg.compressed_dtype:
+                compression |= Compression.OP0_COMPRESSED
+            if op1 is not None and op1.dtype == cfg.compressed_dtype:
+                compression |= Compression.OP1_COMPRESSED
+            if res is not None and res.dtype == cfg.compressed_dtype:
+                compression |= Compression.RES_COMPRESSED
+        if isinstance(algorithm, str):
+            algorithm = CollectiveAlgorithm[algorithm.upper()]
+        return CallDescriptor(
+            scenario=scenario, count=count, comm_id=comm.comm_id,
+            root_src_dst=root_src_dst, function=ReduceFunc(func), tag=tag,
+            arithcfg=cfg, compression=compression, stream_flags=stream_flags,
+            algorithm=CollectiveAlgorithm(algorithm),
+            addr_0=op0.address if op0 is not None else 0,
+            addr_1=op1.address if op1 is not None else 0,
+            addr_2=res.address if res is not None else 0)
+
+    def _call(self, desc: CallDescriptor, run_async: bool,
+              waitfor: Sequence[CallHandle]) -> CallHandle:
+        handle = self.device.call_async(desc, waitfor,
+                                        inline_ok=not run_async)
+        if run_async:
+            return handle
+        handle.wait()
+        return CompletedHandle(context=desc.scenario.name)
+
+    # -- operations -----------------------------------------------------------
+    def nop(self, run_async: bool = False,
+            waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """No-op through the full call path (call-latency probe)."""
+        return self._call(CallDescriptor(CCLOp.nop), run_async, waitfor)
+
+    def allgather(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer, count: int,
+                  *, comm: Communicator | None = None,
+                  algorithm: CollectiveAlgorithm | str = (
+                      CollectiveAlgorithm.AUTO),
+                  compress_dtype=None, block_scale: bool | int = False,
+                  run_async: bool = False,
+                  waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """count = per-rank chunk; dstbuf holds world_size*count."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.allgather, count=count, comm=comm,
+                             op0=srcbuf, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale, algorithm=algorithm)
+        return self._call(desc, run_async, waitfor)
+
+    def allreduce(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer, count: int,
+                  func: ReduceFunc = ReduceFunc.SUM, *,
+                  comm: Communicator | None = None,
+                  algorithm: CollectiveAlgorithm | str = (
+                      CollectiveAlgorithm.AUTO),
+                  compress_dtype=None, block_scale: bool | int = False,
+                  run_async: bool = False,
+                  waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """``compress_dtype`` names the wire dtype; with ``block_scale``
+        the wire is block-scale quantized: per-block scales, f32
+        accumulation, fresh scales on every hop."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.allreduce, count=count, comm=comm,
+                             func=func, op0=srcbuf, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale, algorithm=algorithm)
+        return self._call(desc, run_async, waitfor)
+
+    def reduce_scatter(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer,
+                       count: int, func: ReduceFunc = ReduceFunc.SUM, *,
+                       comm: Communicator | None = None,
+                       algorithm: CollectiveAlgorithm | str = (
+                           CollectiveAlgorithm.AUTO),
+                       compress_dtype=None, block_scale: bool | int = False,
+                       run_async: bool = False,
+                       waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """count = per-rank chunk; srcbuf holds world_size*count."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.reduce_scatter, count=count, comm=comm,
+                             func=func, op0=srcbuf, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale, algorithm=algorithm)
+        return self._call(desc, run_async, waitfor)
+
+    def barrier(self, *, comm: Communicator | None = None,
+                waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """Rendezvous of all ranks of ``comm``."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.barrier, count=0, comm=comm)
+        return self._call(desc, False, waitfor)

@@ -1,0 +1,464 @@
+"""CUDA backend: the ACCL call surface executed by W ranks on one device.
+
+The port of ``accl_tpu/device/tpu.py``. One process is the controller of
+all ranks; each rank still gets its own ``CudaDevice`` view and ``ACCL``
+driver, so the same rank-parallel code drives every tier. Collectives
+rendezvous on the host: member ranks' calls are matched in per-rank
+program order under the context lock, and the last rank to arrive
+launches ONE collective over all ranks (:class:`RankCollectives`) and
+completes every member's handle. Incomplete groups expire through a
+deadline sweeper.
+
+Buffers stage in two ways:
+
+* host-mirror buffers (CPU tensors) are read to the device, reduced, and
+  written back, with a synchronising copy before the handles complete;
+* device-resident buffers (tensors on the context's device) are read and
+  written in place with no host copy: the fast path. Its launches are
+  asynchronous on the launching thread's current stream, as JAX's
+  dispatch is; ``torch.cuda.synchronize()`` waits for them.
+
+This slice executes allreduce, reduce_scatter, allgather and barrier.
+Every other operation returns ``COLLECTIVE_NOT_IMPLEMENTED``.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+import time
+from typing import Sequence
+
+import torch
+
+from ..arith import dtype_name
+from ..buffer import ACCLBuffer
+from ..call import CallDescriptor, CallHandle
+from ..communicator import Communicator
+from ..constants import (ACCLError, CCLOp, CollectiveAlgorithm, Compression,
+                         DEFAULT_TIMEOUT_S, ErrorCode, ReduceFunc,
+                         check_algorithm)
+from ..log import get_logger
+from ..parallel.collectives import RankCollectives
+from ..parallel.mesh import RankGroup, make_group
+from ..quant import DEFAULT_BLOCK, WIRE_DTYPE_NAMES
+from .base import Device
+
+log = get_logger(__name__)
+
+_COLLECTIVES = {CCLOp.bcast, CCLOp.scatter, CCLOp.gather, CCLOp.reduce,
+                CCLOp.allgather, CCLOp.allreduce, CCLOp.reduce_scatter,
+                CCLOp.alltoall, CCLOp.barrier}
+
+# the ops this package executes; the rest of _COLLECTIVES rendezvous and
+# then report COLLECTIVE_NOT_IMPLEMENTED for the whole group
+_DENSE = {CCLOp.allreduce, CCLOp.reduce_scatter, CCLOp.allgather}
+
+
+class CudaContext:
+    """Shared state of an N-rank world on one torch device."""
+
+    def __init__(self, world_size: int, device="cuda",
+                 algorithm: str = "xla"):
+        self.group: RankGroup = make_group(world_size, device)
+        self.device = self.group.device
+        self.world_size = self.group.size
+        self.coll = RankCollectives(self.group)
+        self.algorithm = algorithm
+        self.devices: list[CudaDevice | None] = [None] * self.world_size
+        self._lock = threading.Condition()
+        # (comm_id, op_index) -> {comm-local rank: (desc, handle, deadline)}
+        self._pending: dict[tuple, dict] = {}
+        self._sweeper: threading.Thread | None = None
+
+    def device_of(self, rank: int) -> "CudaDevice":
+        if self.devices[rank] is None:
+            self.devices[rank] = CudaDevice(self, rank)
+        return self.devices[rank]
+
+    # -- deadline sweeper ---------------------------------------------------
+    def _ensure_sweeper(self):
+        """Start the (single, lazy) deadline sweeper. Caller holds _lock.
+        Members of an incomplete group park no thread; the sweeper fails
+        each deposit whose deadline passed with RECEIVE_TIMEOUT_ERROR."""
+        if self._sweeper is None:
+            self._sweeper = threading.Thread(target=self._sweep_loop,
+                                             daemon=True,
+                                             name="cuda-coll-sweeper")
+            self._sweeper.start()
+
+    def _sweep_loop(self):
+        idle_scans = 0
+        while True:
+            with self._lock:
+                now = time.monotonic()
+                expired = []
+                next_dl = None
+                for key, group in list(self._pending.items()):
+                    for r, (_d, h, dl) in list(group.items()):
+                        if dl <= now:
+                            group.pop(r)
+                            expired.append(h)
+                        elif next_dl is None or dl < next_dl:
+                            next_dl = dl
+                    if not group:
+                        self._pending.pop(key, None)
+                if not self._pending and not expired:
+                    idle_scans += 1
+                    if idle_scans >= 10:
+                        # idle for ~2 s: retire; the next incomplete
+                        # deposit restarts the sweeper
+                        self._sweeper = None
+                        return
+                else:
+                    idle_scans = 0
+            for h in expired:
+                err = int(ErrorCode.RECEIVE_TIMEOUT_ERROR)
+                h.complete(err, exception=ACCLError(
+                    err, "collective group incomplete at deadline"))
+            # polls: 200 ms when idle, the earliest deadline when groups
+            # are pending (a timeout may fire up to one poll late)
+            now = time.monotonic()
+            time.sleep(0.2 if next_dl is None
+                       else min(max(next_dl - now, 0.001), 0.2))
+
+
+class CudaDevice(Device):
+    """One rank's view of the world."""
+
+    # nop/config are trivial and always run inline; collectives always
+    # inline their deposit, and the launch runs inline only for callers
+    # that will block on the handle anyway
+    _TRIVIAL_OPS = {CCLOp.nop, CCLOp.config}
+
+    def __init__(self, ctx: CudaContext, rank: int):
+        super().__init__()
+        self.ctx = ctx
+        self.rank = rank
+        self.host_bufs: dict[int, ACCLBuffer] = {}
+        self.dev_bufs: dict[int, ACCLBuffer] = {}
+        self.comms: dict[int, Communicator] = {}
+        self.comm: Communicator | None = None
+        self.timeout = DEFAULT_TIMEOUT_S
+        self._coll_index: dict[int, int] = collections.defaultdict(int)
+        self._calls: queue.Queue = queue.Queue()
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name=f"cuda-rank{rank}")
+        self._worker.start()
+
+    # -- Device interface ---------------------------------------------------
+    def register_buffer(self, buf: ACCLBuffer):
+        (self.dev_bufs if buf.is_device_resident
+         else self.host_bufs)[buf.address] = buf
+
+    def deregister_buffer(self, buf: ACCLBuffer):
+        self.dev_bufs.pop(buf.address, None)
+        self.host_bufs.pop(buf.address, None)
+
+    def adopt_device_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """Home a tensor on this rank's device (zero-copy when it already
+        lives there and is contiguous)."""
+        if t.device != self.ctx.device:
+            t = t.to(self.ctx.device)
+        return t.contiguous()
+
+    def make_device_tensor(self, shape, dtype, init=None) -> torch.Tensor:
+        if init is None:
+            return torch.zeros(shape, dtype=dtype, device=self.ctx.device)
+        t = torch.as_tensor(init).to(dtype).reshape(shape)
+        return t.to(self.ctx.device, copy=True).contiguous()
+
+    def configure_communicator(self, comm: Communicator):
+        self.comms[comm.comm_id] = comm
+        if self.comm is None:
+            self.comm = comm
+
+    def set_timeout(self, timeout: float):
+        self.timeout = timeout
+
+    def call_async(self, desc: CallDescriptor,
+                   waitfor: Sequence[CallHandle] = (), *,
+                   inline_ok: bool = False) -> CallHandle:
+        handle = CallHandle(context=desc.scenario.name)
+        op = desc.scenario
+        # inline fast path whenever per-rank FIFO order is provable:
+        # nothing queued or running on the worker, dependencies retired
+        if (op in self._TRIVIAL_OPS or op in _COLLECTIVES) \
+                and self._inline_begin(waitfor):
+            try:
+                self._run_one(desc, waitfor, handle,
+                              defer_launch=(op in _COLLECTIVES
+                                            and not inline_ok))
+            finally:
+                self._inflight_done()
+            return handle
+        self._inflight_add()
+        self._calls.put((desc, tuple(waitfor), handle))
+        return handle
+
+    def soft_reset(self):
+        self._coll_index.clear()
+
+    def deinit(self):
+        self._calls.put(None)
+
+    # -- worker -------------------------------------------------------------
+    def _run(self):
+        while True:
+            item = self._calls.get()
+            if item is None:
+                return
+            try:
+                if callable(item):
+                    item()  # deferred group launch (async last arrival)
+                else:
+                    desc, waitfor, handle = item
+                    self._run_one(desc, waitfor, handle)
+            finally:
+                self._inflight_done()
+
+    def _run_one(self, desc: CallDescriptor, waitfor, handle: CallHandle,
+                 defer_launch: bool = False):
+        """Retire one call in the current thread. Completes ``handle``
+        unless the call parked in a rendezvous group."""
+        try:
+            if (desc.deadline is not None
+                    and time.monotonic() >= desc.deadline):
+                handle.complete(int(ErrorCode.RECEIVE_TIMEOUT_ERROR))
+                return
+            for dep in waitfor:
+                dep.wait(self.timeout if desc.deadline is None
+                         else max(0.0, desc.deadline - time.monotonic()))
+            err = self._execute(desc, handle, defer_launch)
+            if err is not None:
+                handle.complete(err)
+        except ACCLError as exc:
+            handle.complete(exc.error_word, exception=exc)
+        except TimeoutError as exc:
+            handle.complete(int(ErrorCode.RECEIVE_TIMEOUT_ERROR),
+                            exception=exc)
+        except Exception as exc:  # noqa: BLE001
+            handle.complete(int(ErrorCode.INVALID_CALL), exception=exc)
+
+    # -- operand staging ----------------------------------------------------
+    def _buffer(self, addr: int) -> ACCLBuffer | None:
+        buf = self.dev_bufs.get(addr)
+        return buf if buf is not None else self.host_bufs.get(addr)
+
+    def _read_operand(self, addr: int, count: int,
+                      desc) -> torch.Tensor:
+        """``count`` elements of the buffer at ``addr`` on the context's
+        device, in the call's uncompressed dtype."""
+        cfg = desc.arithcfg
+        buf = self._buffer(addr)
+        if buf is None:
+            raise ACCLError(int(ErrorCode.INVALID_CALL),
+                            f"no buffer at address {addr:#x}")
+        if count > buf.size:
+            raise ACCLError(int(ErrorCode.DMA_SIZE_ERROR),
+                            f"read past buffer end ({count} > {buf.size})")
+        flat = buf.storage.reshape(-1)[:count]
+        return flat.to(self.ctx.device).to(cfg.uncompressed_dtype)
+
+    def _write_result(self, addr: int, data: torch.Tensor, desc):
+        """Land a result in the buffer at ``addr`` (in place; stored in
+        the compressed dtype when the call says RES_COMPRESSED)."""
+        cfg = desc.arithcfg
+        out = (cfg.compressed_dtype
+               if desc.compression & Compression.RES_COMPRESSED
+               else cfg.uncompressed_dtype)
+        buf = self._buffer(addr)
+        if buf is None:
+            raise ACCLError(int(ErrorCode.INVALID_CALL),
+                            f"no buffer at address {addr:#x}")
+        n = data.numel()
+        if n > buf.size:
+            raise ACCLError(int(ErrorCode.DMA_SIZE_ERROR),
+                            f"write past buffer end ({n} > {buf.size})")
+        buf.storage.reshape(-1)[:n].copy_(data.reshape(-1).to(out))
+
+    # -- execution ----------------------------------------------------------
+    def _execute(self, desc: CallDescriptor, handle: CallHandle,
+                 defer_launch: bool = False) -> int | None:
+        """The call's error word, or None when it parked in a rendezvous
+        group whose last arrival completes ``handle``."""
+        op = desc.scenario
+        if op == CCLOp.nop:
+            return 0
+        if op == CCLOp.config:
+            return self.apply_config(desc)
+        if desc.stream_flags:
+            return int(ErrorCode.STREAM_NOT_SUPPORTED)
+        comm = self.comms.get(desc.comm_id)
+        if comm is None:
+            return int(ErrorCode.COMM_NOT_CONFIGURED)
+        if op in _COLLECTIVES:
+            return self._do_collective(desc, comm, handle, defer_launch)
+        return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
+
+    def _do_collective(self, desc: CallDescriptor, comm: Communicator,
+                       handle: CallHandle, defer_launch: bool = False):
+        """Deposit this rank's call; the group-completing arrival launches
+        and completes EVERY member's handle. No member blocks a thread
+        waiting for results; an incomplete group expires member by member
+        through the context's deadline sweeper."""
+        ctx = self.ctx
+        deadline = (desc.deadline if desc.deadline is not None
+                    else time.monotonic() + self.timeout)
+        with ctx._lock:
+            # index assignment under the ctx lock: deposit order IS the
+            # per-rank matching order (MPI program-order matching)
+            idx = self._coll_index[desc.comm_id]
+            self._coll_index[desc.comm_id] += 1
+            key = (desc.comm_id, idx)
+            group = ctx._pending.setdefault(key, {})
+            # an expired member must not count toward completion: fail it
+            # here (completion runs outside the lock)
+            now = time.monotonic()
+            expired = [group.pop(r)[1]
+                       for r in [r for r, (_, _, dl) in group.items()
+                                 if dl <= now]]
+            group[comm.local_rank] = (desc, handle, deadline)
+            is_last = len(group) == comm.size
+            if is_last:
+                del ctx._pending[key]
+            else:
+                ctx._ensure_sweeper()
+        for h in expired:
+            h.complete(int(ErrorCode.RECEIVE_TIMEOUT_ERROR),
+                       exception=ACCLError(
+                           int(ErrorCode.RECEIVE_TIMEOUT_ERROR),
+                           "collective member deadline expired"))
+        if not is_last:
+            return None
+        if defer_launch:
+            # async last arrival: the launch must not run in the
+            # submitter's thread; hop it to this rank's worker
+            self._inflight_add()
+            self._calls.put(lambda: self._finish_group(group, comm))
+            return None
+        self._finish_group(group, comm)
+        return None
+
+    def _finish_group(self, group: dict, comm: Communicator) -> None:
+        """Launch a claimed group and complete EVERY member's handle."""
+        err = int(ErrorCode.INVALID_CALL)
+        exc_out: BaseException | None = None
+        try:
+            descs = [group[r][0] for r in range(comm.size)]
+            err = self._launch(descs, comm)
+        except Exception as exc:  # noqa: BLE001
+            log.error("rank %s: collective group launch failed", self.rank,
+                      exc_info=True, extra={"rank": self.rank})
+            exc_out = exc
+        finally:
+            for _, h, _dl in group.values():
+                h.complete(err, exception=exc_out)
+
+    def _launch(self, descs: list, comm: Communicator) -> int:
+        """Execute one collective for all member ranks (no locks held)."""
+        ctx = self.ctx
+        d0 = descs[0]
+        op = d0.scenario
+        if any(d.scenario != op or d.count != d0.count for d in descs):
+            return int(ErrorCode.INVALID_CALL)
+        count = d0.count
+        W = comm.size
+        cfg = d0.arithcfg
+        wire = (cfg.compressed_dtype
+                if d0.compression & Compression.ETH_COMPRESSED else None)
+        devs = [ctx.devices[comm.ranks[r].global_rank] for r in range(W)]
+        coll, alg = ctx.coll, ctx.algorithm
+        try:
+            check_algorithm(op.name, d0.algorithm)
+        except ValueError:
+            return int(ErrorCode.INVALID_CALL)
+        if d0.algorithm in (CollectiveAlgorithm.RING,
+                            CollectiveAlgorithm.FUSED_RING):
+            alg = "ring"
+        elif d0.algorithm != CollectiveAlgorithm.AUTO:
+            alg = "xla"
+        # block-scaled quantized wire: the dense ring collectives take the
+        # codec-kernel ring (qblock selects it and pins the ring); other
+        # ops fall back to the full-precision wire
+        qblock = 0
+        if wire is not None and d0.compression & Compression.BLOCK_SCALED:
+            if op in _DENSE and dtype_name(wire) in WIRE_DTYPE_NAMES:
+                qblock = int(cfg.quant_block or DEFAULT_BLOCK)
+                alg = "ring"
+            else:
+                wire = None
+        if op == CCLOp.barrier:
+            return 0  # the rendezvous above IS the barrier
+        if op not in _DENSE:
+            return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
+        if wire is not None and not qblock:
+            # per-tensor wire lanes (fp16/bf16 casts, per-tensor fp8)
+            return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
+        n_in, n_out = {CCLOp.allreduce: (count, count),
+                       CCLOp.allgather: (count, W * count),
+                       CCLOp.reduce_scatter: (W * count, count)}[op]
+        func = (d0.function if op in (CCLOp.allreduce, CCLOp.reduce_scatter)
+                else ReduceFunc.SUM)
+        run = getattr(coll, op.name)
+        kw = dict(algorithm=alg, wire_dtype=wire, qblock=qblock)
+        if op != CCLOp.allgather:
+            kw["func"] = func
+
+        # -- device-resident fast path: no host copies at all ---------------
+        fast = self._resident_operands(descs, devs, cfg, n_in, n_out)
+        if fast is not None:
+            srcs, dsts = fast
+            run(srcs, out=dsts, **kw)
+            return 0
+
+        # -- host-staged path ------------------------------------------------
+        rows = [devs[r]._read_operand(d.addr_0, n_in, d)
+                for r, d in enumerate(descs)]
+        out = run(rows, **kw)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        for r, d in enumerate(descs):
+            devs[r]._write_result(d.addr_2, out[r], d)
+        return 0
+
+    def _resident_operands(self, descs, devs, cfg, n_in: int, n_out: int):
+        """(src tensors, dst tensors) when every member's src and dst are
+        device-resident with exact geometry and dtype, else None (the
+        caller stages through the host). OP*/RES_COMPRESSED disqualify: a
+        device buffer has one storage dtype."""
+        bad = (Compression.OP0_COMPRESSED | Compression.OP1_COMPRESSED
+               | Compression.RES_COMPRESSED)
+        uncomp = cfg.uncompressed_dtype
+        srcs, dsts = [], []
+        for r, d in enumerate(descs):
+            if d.compression & bad:
+                return None
+            sb = devs[r].dev_bufs.get(d.addr_0)
+            db = devs[r].dev_bufs.get(d.addr_2)
+            if (sb is None or db is None
+                    or sb.size != n_in or db.size != n_out
+                    or sb.dtype != uncomp or db.dtype != uncomp):
+                return None
+            srcs.append(sb.tensor.reshape(-1))
+            dsts.append(db.tensor.reshape(-1))
+        return srcs, dsts
+
+
+def cuda_world(world_size: int, device="cuda", algorithm: str = "xla",
+               timeout: float = DEFAULT_TIMEOUT_S) -> list:
+    """Create ``world_size`` ACCL drivers whose ranks share one torch
+    device: the counterpart of ``tpu_world``. ``device`` defaults to
+    ``"cuda"`` and raises when CUDA is unavailable; pass ``"cpu"`` to run
+    the plain versions on the CPU."""
+    from ..accl import ACCL
+    from ..communicator import Rank
+    ctx = CudaContext(world_size, device=device, algorithm=algorithm)
+    W = ctx.world_size
+    accls = []
+    for r in range(W):
+        comm = Communicator(ranks=[Rank(device=ctx.device)
+                                   for _ in range(W)], local_rank=r)
+        accls.append(ACCL(ctx.device_of(r), comm, timeout=timeout))
+    return accls

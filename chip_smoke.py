@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Drive accl_tpu_torch on an NVIDIA GPU: build, kernel phases, main path.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+1. Device and build: requires CUDA, prints the card's name and power
+   limit, builds the CUDA kernels from ``accl_tpu_torch/csrc``.
+2. Kernel phases: each kernel (B1 combine, B5 bs_quant, B6 bs_dequant,
+   B7 bs_combine) against its plain PyTorch version on the same CUDA
+   inputs, bitwise (a NaN matches a NaN; every other value bit for bit),
+   over an edge corpus (NaN, +-inf, +-0, f32 denormals, overflow past
+   qmax, all-zero blocks, ragged tails, blocks 32/128/4096, all wire
+   dtypes and funcs) and at the main path's shapes, where each is timed
+   with CUDA events (median of many launches after warm-up).
+3. Main path: ``cuda_world(8)`` with device-resident buffers of 64 Mi
+   fp32 per rank; ring allreduce, reduce_scatter and allgather, and the
+   fp8-e4m3 block-scaled (block 128) ring allreduce, through ``ACCL``.
+   Every result is held against the plain path (the same rings through
+   the plain versions) bitwise and against a float64 golden: fp32 within
+   W * 2^-24 * sum_r |x_r| per element (the recursive-summation bound of
+   W terms); the block-scaled wire within 0.07 * (W/4) * max(sum_r |x_r|)
+   + 1e-3, the W=4 bound of tests/test_pallas_quant.py scaled to W
+   quantizations per element. Every kernel's launch count must rise
+   during this run.
+4. Where the time goes: each call of the main path once more under
+   torch.profiler, device time summed per kernel family, beside the
+   call's host-clock time (the rest is the device's idle share).
+
+Prints per-kernel and per-call lines, then one JSON line of kernel
+records, then ``{"ok": true, "device": {...}}`` as the last line. Any
+failure raises: the exit code is then not 0 and no result line prints.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+W = 8                      # ranks
+N = 64 << 20               # fp32 elements per rank (256 MiB)
+QBLOCK = 128
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+SEED = 20261016
+# tests/test_pallas_quant.py holds the W=4 quantized allreduce within
+# 0.07 * max(sum_r |x_r|) + 1e-3: an allreduce quantizes each element W
+# times (W-1 on the reduce-scatter, once for the allgather), so per
+# quantization that is 0.07 / 4 of max(sum_r |x_r|)
+FP8_BOUND_PER_QUANT = 0.07 / 4
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def need(cond, what: str):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` in ms (CUDA events, enqueued back to
+    back so host overhead hides behind the previous launch)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        evs.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in evs)
+
+
+def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def same_bits(a, b) -> tuple[bool, float]:
+    """(bitwise equal with NaN matching NaN, max |a-b| over non-NaN)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False, float("inf")
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not torch.equal(na, nb):
+            return False, float("inf")
+        ia = a.masked_fill(na, 0).contiguous()
+        ib = b.masked_fill(nb, 0).contiguous()
+        iv = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+              8: torch.int64}[a.element_size()]
+        eq = torch.equal(ia.view(iv), ib.view(iv))
+        fin = torch.isfinite(ia) & torch.isfinite(ib)
+        d = (ia.double() - ib.double()).abs()[fin]
+        err = float(d.max()) if d.numel() else 0.0
+        return eq, err
+    eq = torch.equal(a, b)
+    return eq, float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
+def check_rows(got, ref, what: str) -> float:
+    worst = 0.0
+    for g, r in zip(got, ref):
+        eq, err = same_bits(g, r)
+        need(eq, f"{what}: kernel and plain version differ "
+                 f"(max abs err {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def edge_corpus(rng, n: int) -> np.ndarray:
+    x = (rng.standard_normal(n).astype(np.float32)
+         * np.float32(10.0) ** rng.integers(-24, 24, n).astype(np.float32))
+    specials = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e-40, -3e-42,
+                         500.0, -1e5, 7e4, 448.0, 57344.0, 6e4] * 8,
+                        np.float32)
+    x[:specials.size] = specials
+    rng.shuffle(x)
+    x[:4096] = 0.0                      # an all-zero block at every size
+    return x
+
+
+# -- phases ------------------------------------------------------------------
+
+def phase_device():
+    import torch
+    need(torch.cuda.is_available(), "CUDA is not available")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    need(smi.returncode == 0 and smi.stdout.strip(),
+         f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0])   # name, power limit
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    from accl_tpu_torch import _build
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.build_seconds})")
+    regs = [ln.strip() for ln in _build.build_log.splitlines()
+            if "registers" in ln]
+    spills = [ln.strip() for ln in _build.build_log.splitlines()
+              if "spill" in ln and not ln.strip().startswith("0 bytes")
+              and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    print(f"ptxas: {len(regs)} kernels; spill lines: {len(spills)}")
+    for ln in spills[:5]:
+        print(f"  {ln}")
+
+
+def corpus_combine(rng):
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops.combine import combine, combine_ref
+    n = 100_003
+    for dtype in (torch.float32, torch.float16, torch.bfloat16,
+                  torch.float64, torch.int32, torch.int64, torch.int8):
+        for func in ReduceFunc:
+            rows_a, rows_b = [], []
+            for _ in range(3):
+                if dtype.is_floating_point:
+                    a = torch.from_numpy(edge_corpus(rng, n)).to(dtype)
+                    b = torch.from_numpy(edge_corpus(rng, n)).to(dtype)
+                else:
+                    info = torch.iinfo(dtype)
+                    a = torch.from_numpy(rng.integers(
+                        info.min, info.max, n)).to(dtype)
+                    b = torch.from_numpy(rng.integers(
+                        info.min, info.max, n)).to(dtype)
+                rows_a.append(a.cuda())
+                rows_b.append(b.cuda())
+            ref = combine_ref(rows_a, rows_b, func)
+            check_rows(combine(rows_a, rows_b, func), ref,
+                       f"combine {dtype} {func.name}")
+            # unaligned rows (scalar path) and in place (out aliases a)
+            ua = [r[1:] for r in rows_a]
+            ub = [r[1:] for r in rows_b]
+            check_rows(combine(ua, ub, func), combine_ref(ua, ub, func),
+                       f"combine {dtype} {func.name} unaligned")
+            combine(rows_a, rows_b, func, out=rows_a)
+            check_rows(rows_a, ref, f"combine {dtype} {func.name} in place")
+    print("combine: edge corpus bitwise over 7 dtypes x 4 funcs")
+
+
+def corpus_codec(rng):
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops import compression as C
+    n = 3 * 4096 + 1001                 # ragged for every block size
+    for wire in ("int8", "float8_e4m3fn", "float8_e5m2"):
+        for block in (32, 128, 4096):
+            xs = [torch.from_numpy(edge_corpus(rng, n)).cuda()
+                  for _ in range(3)]
+            q, s = C.bs_quant(xs, wire, block)
+            rq, rs = C.bs_quant_ref(xs, wire, block)
+            check_rows(q, rq, f"bs_quant codes {wire}/{block}")
+            check_rows(s, rs, f"bs_quant scales {wire}/{block}")
+            check_rows(C.bs_dequant(q, s, wire, block),
+                       C.bs_dequant_ref(q, s, wire, block),
+                       f"bs_dequant {wire}/{block}")
+            for func in ReduceFunc:
+                others = [torch.from_numpy(edge_corpus(rng, n)).cuda()
+                          for _ in range(3)]
+                q2, s2 = C.bs_combine(q, s, others, func, wire, block)
+                rq2, rs2 = C.bs_combine_ref(q, s, others, func, wire, block)
+                what = f"bs_combine {wire}/{block} {func.name}"
+                check_rows(q2, rq2, what + " codes")
+                check_rows(s2, rs2, what + " scales")
+                check_rows(C.bs_combine(q, s, others, func, wire, block,
+                                        requant=False),
+                           C.bs_combine_ref(q, s, others, func, wire, block,
+                                            requant=False),
+                           what + " f32")
+    print("bs codec: edge corpus bitwise over 3 wires x 3 blocks "
+          "(x 4 funcs for bs_combine)")
+
+
+def kernel_records():
+    """Each kernel at the main path's shape (W rows of one 32 MiB ring
+    chunk: the per-hop launch), against its plain version, timed."""
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops import compression as C
+    from accl_tpu_torch.ops.combine import combine, combine_ref
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    c = N // W
+    nb = c // QBLOCK
+    wire = "float8_e4m3fn"
+    a = torch.randn(W, c, device="cuda", generator=g)
+    b = torch.randn(W, c, device="cuda", generator=g)
+    out = torch.empty_like(a)
+    ra, rb, ro = list(a), list(b), list(out)
+    recs = []
+
+    def rec(name, source, replaces, err, ms, plain_ms, nbytes, nops,
+            library_ms=None):
+        bms, by = bound_ms(nbytes, nops)
+        recs.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": library_ms})
+        print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms by {by}"
+              + (f", library {library_ms:.4f} ms" if library_ms else "")
+              + f"), max abs err vs plain {err}")
+
+    err = check_rows(combine(ra, rb, ReduceFunc.SUM, out=ro),
+                     combine_ref(ra, rb, ReduceFunc.SUM), "combine main")
+    flat_a, flat_b = a.view(-1), b.view(-1)
+    rec("combine", "accl_tpu_torch/csrc/combine.cu",
+        "accl_tpu/ops/combine.py:71", err,
+        time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=ro)),
+        time_ms(lambda: combine_ref(ra, rb, ReduceFunc.SUM, out=ro)),
+        3 * 4 * N, N,
+        library_ms=time_ms(lambda: torch.add(flat_a, flat_b, out=flat_a)))
+
+    q = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
+    s = list(torch.empty(W, nb, device="cuda"))
+    C.bs_quant(ra, wire, QBLOCK, q, s)
+    rq, rs = C.bs_quant_ref(ra, wire, QBLOCK)
+    err = max(check_rows(q, rq, "bs_quant main codes"),
+              check_rows(s, rs, "bs_quant main scales"))
+    rec("bs_quant", "accl_tpu_torch/csrc/bs_codec.cu",
+        "accl_tpu/ops/compression.py:358", err,
+        time_ms(lambda: C.bs_quant(ra, wire, QBLOCK, q, s)),
+        time_ms(lambda: C.bs_quant_ref(ra, wire, QBLOCK, q, s), reps=5),
+        4 * N + N + 4 * N // QBLOCK, 4 * N)
+
+    err = check_rows(C.bs_dequant(q, s, wire, QBLOCK, ro),
+                     C.bs_dequant_ref(q, s, wire, QBLOCK), "bs_dequant main")
+    rec("bs_dequant", "accl_tpu_torch/csrc/bs_codec.cu",
+        "accl_tpu/ops/compression.py:382", err,
+        time_ms(lambda: C.bs_dequant(q, s, wire, QBLOCK, ro)),
+        time_ms(lambda: C.bs_dequant_ref(q, s, wire, QBLOCK, ro), reps=5),
+        N + 4 * N // QBLOCK + 4 * N, N)
+
+    q2 = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
+    s2 = list(torch.empty(W, nb, device="cuda"))
+    C.bs_combine(q, s, rb, ReduceFunc.SUM, wire, QBLOCK, q2, s2)
+    rq2, rs2 = C.bs_combine_ref(q, s, rb, ReduceFunc.SUM, wire, QBLOCK)
+    err = max(check_rows(q2, rq2, "bs_combine main codes"),
+              check_rows(s2, rs2, "bs_combine main scales"))
+    rec("bs_combine", "accl_tpu_torch/csrc/bs_codec.cu",
+        "accl_tpu/ops/compression.py:439", err,
+        time_ms(lambda: C.bs_combine(q, s, rb, ReduceFunc.SUM, wire, QBLOCK,
+                                     q2, s2)),
+        time_ms(lambda: C.bs_combine_ref(q, s, rb, ReduceFunc.SUM, wire,
+                                         QBLOCK, q2, s2), reps=5),
+        2 * (N + 4 * N // QBLOCK) + 4 * N, 8 * N)
+    del a, b, out, ra, rb, ro, q, s, q2, s2, rq, rs, rq2, rs2
+    torch.cuda.empty_cache()
+    return recs
+
+
+# kernel family <- a substring of the device kernel's name (first match)
+FAMILIES = (("bs_quant", "bs_quant_kernel"),
+            ("bs_dequant", "bs_dequant_kernel"),
+            ("bs_combine", "bs_combine_kernel"),
+            ("combine", "combine_kernel"),
+            ("copy", "copy"), ("copy", "Memcpy"), ("fill", "Memset"),
+            ("fill", "Fill"))
+
+
+def device_ms_by_family(fn) -> dict:
+    """Device time in ms of the kernels ``fn`` runs, summed per family,
+    from torch.profiler's CUDA activity; empty when it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fams = collections.defaultdict(float)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = next((f for f, key in FAMILIES if key in ev.name), "other")
+        fams[fam] += ev.time_range.elapsed_us() / 1e3
+    return dict(fams)
+
+
+def counters():
+    from accl_tpu_torch.ops import combine
+    from accl_tpu_torch.ops import compression as C
+    return {"combine": combine, "bs_quant": C.bs_quant,
+            "bs_dequant": C.bs_dequant, "bs_combine": C.bs_combine}
+
+
+def main_path(recs):
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.parallel.collectives import PLAIN, RankCollectives
+    from accl_tpu_torch.testing import run_ranks
+    c = N // W
+    accls = cuda_world(W)            # device="cuda": no CPU fallback
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        xs = [torch.randn(N, device="cuda", generator=g) for _ in range(W)]
+        ags = [torch.randn(c, device="cuda", generator=g) for _ in range(W)]
+        bufs = {}
+
+        def setup(a):
+            r = a.rank
+            bufs[r] = {
+                "src": a.buffer(data=xs[r]),
+                "ar": a.buffer((N,), torch.float32, device_resident=True),
+                "rs": a.buffer((c,), torch.float32, device_resident=True),
+                "ag_src": a.buffer(data=ags[r]),
+                "ag": a.buffer((N,), torch.float32, device_resident=True),
+                "bs": a.buffer((N,), torch.float32, device_resident=True),
+            }
+        run_ranks(accls, setup)
+
+        calls = {
+            "allreduce": lambda a, b: a.allreduce(
+                b["src"], b["ar"], N, algorithm="ring"),
+            "reduce_scatter": lambda a, b: a.reduce_scatter(
+                b["src"], b["rs"], c, algorithm="ring"),
+            "allgather": lambda a, b: a.allgather(
+                b["ag_src"], b["ag"], c, algorithm="ring"),
+            "allreduce_fp8bs": lambda a, b: a.allreduce(
+                b["src"], b["bs"], N, algorithm="ring",
+                compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK),
+        }
+
+        def drive(name):
+            run_ranks(accls, lambda a: calls[name](a, bufs[a.rank]))
+
+        torch.cuda.synchronize()
+        cnt = counters()
+        for k in cnt.values():
+            k.launches = 0
+        for name in calls:                       # the main path, once
+            drive(name)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in cnt.items()}
+        print(f"main path launches: {launches}")
+        for r in recs:
+            r["launches"] = launches[r["name"]]
+            need(r["launches"] > 0,
+                 f"kernel {r['name']} was never launched on the main path")
+
+        # -- correctness ----------------------------------------------------
+        plain = RankCollectives(accls[0].device.ctx.group, kernels=PLAIN)
+        out = lambda key: [bufs[r][key].tensor for r in range(W)]  # noqa
+        x64 = torch.zeros(N, dtype=torch.float64, device="cuda")
+        absum = torch.zeros(N, dtype=torch.float64, device="cuda")
+        for x in xs:
+            x64 += x.double()
+            absum += x.double().abs()
+        tol = W * 2.0 ** -24 * absum
+
+        ref = plain.allreduce(xs, algorithm="ring")
+        check_rows(out("ar"), list(ref), "allreduce vs plain path")
+        del ref
+        for t in out("ar"):
+            need(bool(torch.isfinite(t).all()), "allreduce: non-finite")
+            need(bool(((t.double() - x64).abs() <= tol).all()),
+                 "allreduce: outside the fp32 bound of the f64 golden")
+
+        ref = plain.reduce_scatter(xs, algorithm="ring")
+        check_rows(out("rs"), list(ref), "reduce_scatter vs plain path")
+        for r, t in enumerate(out("rs")):
+            sl = slice(r * c, (r + 1) * c)
+            need(bool(((t.double() - x64[sl]).abs() <= tol[sl]).all()),
+                 "reduce_scatter: outside the fp32 bound")
+
+        ref = plain.allgather(ags, algorithm="ring")
+        check_rows(out("ag"), list(ref), "allgather vs plain path")
+        gold = torch.cat(ags)
+        for t in out("ag"):
+            need(torch.equal(t, gold), "allgather: not the exact gather")
+        del ref, gold
+
+        ref = plain.allreduce(xs, algorithm="ring",
+                              wire_dtype="float8_e4m3fn", qblock=QBLOCK)
+        check_rows(out("bs"), list(ref), "fp8 allreduce vs plain path")
+        del ref
+        amax = float(absum.max())
+        bound = FP8_BOUND_PER_QUANT * W * amax + 1e-3
+        errmax = 0.0
+        for t in out("bs"):
+            need(bool(torch.isfinite(t).all()), "fp8 allreduce: non-finite")
+            err = float((t.double() - x64).abs().max())
+            need(0 < err < bound, f"fp8 allreduce: error {err} not in "
+                                  f"(0, {bound}) (0: wire not quantized)")
+            errmax = max(errmax, err)
+        print(f"main path results: bitwise vs plain path, within golden "
+              f"bounds; fp8 max err {errmax} < {bound} "
+              f"(0.07*(W/4)*max sum|x| + 1e-3; the unscaled W=4 bound "
+              f"would be {amax * 0.07 + 1e-3})")
+        del x64, absum, tol
+
+        # -- timing -----------------------------------------------------------
+        nbq = -(-c // QBLOCK)
+        wire_bytes = {
+            "allreduce": 2 * (W - 1) * c * 4,
+            "reduce_scatter": (W - 1) * c * 4,
+            "allgather": (W - 1) * c * 4,
+            "allreduce_fp8bs": 2 * (W - 1) * (c + 4 * nbq),
+        }
+        timing = {}
+        for name in calls:
+            ts = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drive(name)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            timing[name] = statistics.median(ts[1:])
+            print(f"call {name}: {timing[name]:.3f} ms per call (host "
+                  f"clock, median of 3 after one warm-up); "
+                  f"{wire_bytes[name]} bytes per rank on the logical ring")
+
+        # -- where the time goes ---------------------------------------------
+        for name in calls:
+            fams = device_ms_by_family(lambda: drive(name))
+            if not fams:
+                print(f"device {name}: not measured (the profiler saw no "
+                      f"device activity)")
+                continue
+            busy = sum(fams.values())
+            print(f"device {name}: {busy:.3f} ms of kernels in a "
+                  f"{timing[name]:.3f} ms call, idle share "
+                  f"{1 - busy / timing[name]:.3f}; " + ", ".join(
+                      f"{f} {ms:.3f} ms" for f, ms in sorted(fams.items())))
+        return timing
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    phase_device()
+    rng = np.random.default_rng(SEED)
+    corpus_combine(rng)
+    corpus_codec(rng)
+    recs = kernel_records()
+    main_path(recs)
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": recs}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
