@@ -2,10 +2,12 @@
 
 The port of ``accl_tpu`` (JAX/Pallas on a TPU) to an NVIDIA H100. It
 imports torch and numpy, never jax or the JAX package. W virtual ranks
-share one device; dense ring collectives run their per-hop work through
-hand-written CUDA C++ kernels (``csrc/``): the elementwise combine and
-the block-scaled fp8/int8 wire codec. On CPU tensors every kernel
-wrapper runs its plain PyTorch version instead.
+share one device; the collectives (ring and fused dense ops, alltoall,
+binomial and 2D-tree rooted ops) run their per-hop work through
+hand-written CUDA C++ kernels (``csrc/``): the elementwise combine, the
+per-tensor wire lanes (casts and the scaled fp8 codec) and the
+block-scaled fp8/int8 wire codec. On CPU tensors every kernel wrapper
+runs its plain PyTorch version instead.
 
 Layers: driver :class:`ACCL` -> backend :mod:`.device.cuda` ->
 dataplane :mod:`.parallel.collectives` -> kernels :mod:`.ops`.

@@ -45,6 +45,10 @@ _SIGNATURES = {
     "accl_bs_dequant": [_I, _I, _I, _L, _P, _P, _P, _P],
     "accl_bs_combine": [_I, _I, _I, _I, _I, _L, _P, _P, _P, _P, _P, _P,
                         _P],
+    "accl_cast": [_I, _I, _I, _L, _P, _P, _P],
+    "accl_fp8_scale": [_I, _I, _L, _P, _P, _P, _P, _P],
+    "accl_fp8_quant": [_I, _I, _L, _P, _P, _P, _P],
+    "accl_fp8_dequant": [_I, _I, _L, _P, _P, _P, _P],
 }
 
 

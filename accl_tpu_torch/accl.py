@@ -1,12 +1,15 @@
 """The ACCL driver: the user-facing host API.
 
-The port of ``accl_tpu/accl.py``, trimmed to the dense collectives of
-this slice: buffers, ``allreduce`` / ``reduce_scatter`` / ``allgather``,
-``barrier`` and ``nop``, with the reference's dtype resolution and
-wire-compression flags. ``compress_dtype`` with ``block_scale`` selects
-the block-scaled quantized wire; ``block_scale=True`` means
-``quant.DEFAULT_BLOCK`` (there is no tuner yet), an int is clamped into
-the legal envelope.
+The port of ``accl_tpu/accl.py``, trimmed to the collectives: buffers,
+``allreduce`` / ``reduce_scatter`` / ``allgather`` / ``alltoall``, the
+rooted ``bcast`` / ``scatter`` / ``gather`` / ``reduce``, ``barrier`` and
+``nop``, with the reference's dtype resolution and wire-compression
+flags. ``compress_dtype`` names the wire dtype: f16, bf16 and fp8 ride
+the per-tensor lanes; with ``block_scale`` an int8/fp8 wire is
+block-scale quantized (``block_scale=True`` means ``quant.DEFAULT_BLOCK``
+— there is no tuner yet — an int is clamped into the legal envelope),
+on the ring-shaped collectives; the other ops then take the full-
+precision wire, as the reference does.
 """
 
 from __future__ import annotations
@@ -230,6 +233,87 @@ class ACCL:
         desc = self._prepare(CCLOp.reduce_scatter, count=count, comm=comm,
                              func=func, op0=srcbuf, res=dstbuf,
                              compress_dtype=compress_dtype,
+                             block_scale=block_scale, algorithm=algorithm)
+        return self._call(desc, run_async, waitfor)
+
+    def alltoall(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer, count: int,
+                 *, comm: Communicator | None = None, compress_dtype=None,
+                 block_scale: bool | int = False, run_async: bool = False,
+                 waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """count = per-peer chunk; srcbuf and dstbuf hold world_size*count.
+        Chunk j of srcbuf goes to rank j; a wire dtype casts every chunk
+        that leaves its rank (fp8 too: no scale)."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.alltoall, count=count, comm=comm,
+                             op0=srcbuf, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale)
+        return self._call(desc, run_async, waitfor)
+
+    def bcast(self, buf: ACCLBuffer, count: int | None = None, root: int = 0,
+              *, comm: Communicator | None = None,
+              algorithm: CollectiveAlgorithm | str = CollectiveAlgorithm.AUTO,
+              compress_dtype=None, block_scale: bool | int = False,
+              run_async: bool = False,
+              waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """In place: root's ``buf`` lands in every other rank's ``buf``
+        (the root's stays exact; a wire dtype is a pure cast per hop)."""
+        comm = comm or self.comm
+        count = count if count is not None else buf.size
+        desc = self._prepare(CCLOp.bcast, count=count, comm=comm,
+                             root_src_dst=root, op0=buf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale, algorithm=algorithm)
+        return self._call(desc, run_async, waitfor)
+
+    def scatter(self, srcbuf: ACCLBuffer | None, dstbuf: ACCLBuffer,
+                count: int, root: int = 0, *,
+                comm: Communicator | None = None, compress_dtype=None,
+                block_scale: bool | int = False, run_async: bool = False,
+                waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """count = per-rank chunk size; srcbuf holds world_size*count at
+        root (non-root ranks may pass None)."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.scatter, count=count, comm=comm,
+                             root_src_dst=root, op0=srcbuf, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale)
+        return self._call(desc, run_async, waitfor)
+
+    def gather(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer | None,
+               count: int, root: int = 0, *,
+               comm: Communicator | None = None,
+               algorithm: CollectiveAlgorithm | str = CollectiveAlgorithm.AUTO,
+               compress_dtype=None, block_scale: bool | int = False,
+               run_async: bool = False,
+               waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """count = per-rank chunk; dstbuf holds world_size*count at root.
+        Non-root ranks may pass None (their destination is never
+        written)."""
+        comm = comm or self.comm
+        if comm.local_rank == root and dstbuf is None:
+            raise ValueError("gather root requires a destination buffer")
+        desc = self._prepare(CCLOp.gather, count=count, comm=comm,
+                             root_src_dst=root, op0=srcbuf, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale, algorithm=algorithm)
+        return self._call(desc, run_async, waitfor)
+
+    def reduce(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer | None,
+               count: int, root: int = 0, func: ReduceFunc = ReduceFunc.SUM,
+               *, comm: Communicator | None = None,
+               algorithm: CollectiveAlgorithm | str = CollectiveAlgorithm.AUTO,
+               compress_dtype=None, block_scale: bool | int = False,
+               run_async: bool = False,
+               waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """The reduction of every rank's srcbuf lands in the root's
+        dstbuf (non-root ranks may pass None)."""
+        comm = comm or self.comm
+        if comm.local_rank == root and dstbuf is None:
+            raise ValueError("reduce root requires a destination buffer")
+        desc = self._prepare(CCLOp.reduce, count=count, comm=comm,
+                             root_src_dst=root, func=func, op0=srcbuf,
+                             res=dstbuf, compress_dtype=compress_dtype,
                              block_scale=block_scale, algorithm=algorithm)
         return self._call(desc, run_async, waitfor)
 

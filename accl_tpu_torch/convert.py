@@ -1,7 +1,10 @@
 """Per-rank operand data and wire formats between numpy and the port.
 
 The state that crosses from the reference to the port is operand data
-and wire formats. fp8 arrays travel as raw uint8 codes plus a dtype
+and wire payloads: per-tensor lanes (f16 / bf16 / fp8 codes, with one
+f32 scale per payload or per leading row for fp8) and the block-scaled
+lane (int8 / fp8 codes with per-block f32 scales). Wire codes travel as
+raw bits (uint8 for 1-byte types, uint16 for f16 / bf16) plus a dtype
 name, so this module needs no ``ml_dtypes``.
 """
 
@@ -14,28 +17,40 @@ import torch
 
 from .arith import to_torch_dtype
 
+# code width -> (numpy dtype the raw codes are returned in, the signed
+# view torch and numpy share for them)
+_RAW = {1: (np.uint8, np.uint8), 2: (np.uint16, np.int16)}
+
 
 def from_reference(arrays: Sequence[np.ndarray], device,
                    dtype: str | None = None) -> list[torch.Tensor]:
     """Per-rank numpy arrays -> rank tensors on ``device``. With
-    ``dtype`` naming a 1-byte type ("float8_e4m3fn", "float8_e5m2",
-    "int8"), the arrays hold its raw codes as uint8 and the tensors come
-    back in that dtype."""
+    ``dtype`` naming a wire type ("float16", "bfloat16", "float8_e4m3fn",
+    "float8_e5m2", "int8"), the arrays hold its raw codes (any dtype of
+    its width: uint16 bits, uint8 codes, or the ml_dtypes array itself)
+    and the tensors come back in that dtype."""
     out = []
     for a in arrays:
         a = np.ascontiguousarray(a)
         if dtype is not None:
-            t = torch.from_numpy(a.view(np.uint8).copy()).view(
-                to_torch_dtype(dtype))
+            tdt = to_torch_dtype(dtype)
+            t = torch.from_numpy(a.view(_RAW[tdt.itemsize][1]).copy())
+            t = t.view(tdt)
         else:
             t = torch.from_numpy(a.copy())
         out.append(t.to(device))
     return out
 
 
-def wire_to_numpy(q: torch.Tensor, scales: torch.Tensor
-                  ) -> tuple[np.ndarray, np.ndarray]:
-    """A block-scaled wire payload -> (uint8 codes, f32 scales) for a
-    bitwise comparison with the reference's ``bs_quantize`` outputs."""
-    codes = q.detach().contiguous().view(torch.uint8).cpu().numpy()
+def wire_to_numpy(q: torch.Tensor, scales: torch.Tensor | None = None
+                  ) -> tuple[np.ndarray, np.ndarray | None]:
+    """A wire payload -> (raw codes: uint8 for 1-byte types, uint16 for
+    f16 / bf16; f32 scales or None) for a bitwise comparison with the
+    reference's payloads (``bs_quantize``, ``fp8_quantize``,
+    ``compress_fp8``, ``cast_lane``)."""
+    out_np, shared = _RAW[q.element_size()]
+    codes = q.detach().contiguous().view(
+        getattr(torch, np.dtype(shared).name)).cpu().numpy().view(out_np)
+    if scales is None:
+        return codes, None
     return codes, scales.detach().to(torch.float32).cpu().numpy()

@@ -21,84 +21,12 @@
 // Bit-exactness with the reference: every division is __fdiv_rn, every
 // product __fmul_rn, every sum __fadd_rn, and the library is built with
 // --fmad=false. fp8 is encoded with integer round-to-nearest-even on the
-// f32 bits (the constants of `_BS_FP8`), never with the hardware cvt,
-// whose satfinite form clamps where the reference makes NaN (e4m3fn) or
-// inf (e5m2). A ragged last block reads zeros past the payload end:
+// f32 bits (common.cuh `encode`), never with the hardware cvt, whose
+// satfinite form clamps where the reference makes NaN (e4m3fn) or inf
+// (e5m2). A ragged last block reads zeros past the payload end:
 // zeros cannot change the amax, which matches the reference's padding.
 
 #include "common.cuh"
-
-__device__ __forceinline__ uint32_t encode(float v, int wire) {
-  const uint32_t u = __float_as_uint(v);
-  const uint32_t a = u & 0x7FFFFFFFu;
-  if (wire == W_INT8) {
-    if (a >= 0x7F800000u) return 0;  // non-finite -> 0
-    float r = rintf(v);
-    r = fminf(fmaxf(r, -127.0f), 127.0f);
-    return static_cast<uint32_t>(static_cast<uint8_t>(
-        static_cast<int8_t>(static_cast<int>(r))));
-  }
-  const uint32_t sign = (u >> 31) << 7;
-  const bool e4 = wire == W_E4M3;
-  const int shift = e4 ? 20 : 21;
-  const uint32_t rebias = e4 ? 960u : 448u;
-  const uint32_t nmin = e4 ? 0x3C800000u : 0x38800000u;
-  const uint32_t clamp = e4 ? 0x7Fu : 0x7Cu;
-  const float dscale = e4 ? 512.0f : 65536.0f;
-  uint32_t code;
-  if (a < nmin) {
-    // target denormal: scale into code units (exact) and round to even
-    code = static_cast<uint32_t>(rintf(__fmul_rn(__uint_as_float(a), dscale)));
-  } else {
-    const uint32_t lsb = (a >> shift) & 1u;
-    const uint32_t rne = (a + ((1u << (shift - 1)) - 1u) + lsb) >> shift;
-    code = rne - rebias;
-    if (code > clamp) code = clamp;
-    if (!e4 && a > 0x7F800000u) code = 0x7Eu;  // e5m2 NaN
-  }
-  return sign | code;
-}
-
-__device__ __forceinline__ float decode(uint32_t c, int wire) {
-  if (wire == W_INT8) return static_cast<float>(static_cast<int8_t>(c));
-  const uint32_t sign = (c & 0x80u) << 24;
-  uint32_t bits;
-  if (wire == W_E4M3) {
-    const uint32_t e = (c >> 3) & 0xFu, m = c & 7u;
-    if (e == 15u && m == 7u) {
-      bits = sign | 0x7FC00000u;
-    } else if (e == 0u) {
-      const float f = __fmul_rn(static_cast<float>(m), 0.001953125f);
-      return sign ? -f : f;
-    } else {
-      bits = sign | ((e + 120u) << 23) | (m << 20);
-    }
-  } else {
-    const uint32_t e = (c >> 2) & 0x1Fu, m = c & 3u;
-    if (e == 31u) {
-      bits = sign | (m ? 0x7FC00000u : 0x7F800000u);
-    } else if (e == 0u) {
-      const float f = __fmul_rn(static_cast<float>(m), 1.52587890625e-05f);
-      return sign ? -f : f;
-    } else {
-      bits = sign | ((e + 112u) << 23) | (m << 21);
-    }
-  }
-  return __uint_as_float(bits);
-}
-
-// running amax with NaN propagation: once m is NaN it stays NaN
-__device__ __forceinline__ float amax_step(float m, float v) {
-  v = fabsf(v);
-  return (v > m || v != v) ? v : m;
-}
-
-__device__ __forceinline__ float warp_amax(float m) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1)
-    m = amax_step(m, __shfl_xor_sync(0xffffffffu, m, off));
-  return m;
-}
 
 __device__ __forceinline__ float scale_of(float amax, float qmax) {
   const float s = __fdiv_rn(amax, qmax);

@@ -18,13 +18,19 @@ Buffers stage in two ways:
   asynchronous on the launching thread's current stream, as JAX's
   dispatch is; ``torch.cuda.synchronize()`` waits for them.
 
-This slice executes allreduce, reduce_scatter, allgather and barrier.
-Every other operation returns ``COLLECTIVE_NOT_IMPLEMENTED``.
+This package executes the collectives (allreduce, reduce_scatter,
+allgather, alltoall, bcast, scatter, gather, reduce, barrier) on every
+wire: full precision, the per-tensor lanes (f16, bf16, fp8 with one
+scale per payload) and the block-scaled fp8/int8 lane. Rooted ops take
+the 2D tree when the world folds into one (AUTO, or TREE where legal;
+a compressed reduce never does). Every other operation returns
+``COLLECTIVE_NOT_IMPLEMENTED``.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import queue
 import threading
 import time
@@ -37,11 +43,12 @@ from ..buffer import ACCLBuffer
 from ..call import CallDescriptor, CallHandle
 from ..communicator import Communicator
 from ..constants import (ACCLError, CCLOp, CollectiveAlgorithm, Compression,
-                         DEFAULT_TIMEOUT_S, ErrorCode, ReduceFunc,
+                         DEFAULT_TIMEOUT_S, ErrorCode,
                          check_algorithm)
 from ..log import get_logger
 from ..parallel.collectives import RankCollectives
 from ..parallel.mesh import RankGroup, make_group
+from ..parallel.tree import Tree2DCollectives
 from ..quant import DEFAULT_BLOCK, WIRE_DTYPE_NAMES
 from .base import Device
 
@@ -51,9 +58,10 @@ _COLLECTIVES = {CCLOp.bcast, CCLOp.scatter, CCLOp.gather, CCLOp.reduce,
                 CCLOp.allgather, CCLOp.allreduce, CCLOp.reduce_scatter,
                 CCLOp.alltoall, CCLOp.barrier}
 
-# the ops this package executes; the rest of _COLLECTIVES rendezvous and
-# then report COLLECTIVE_NOT_IMPLEMENTED for the whole group
-_DENSE = {CCLOp.allreduce, CCLOp.reduce_scatter, CCLOp.allgather}
+# (op) -> (input, output) elements per rank, in units of the call's count
+_DENSE = {CCLOp.allreduce: (1, 1), CCLOp.allgather: (1, "W"),
+          CCLOp.reduce_scatter: ("W", 1), CCLOp.alltoall: ("W", "W")}
+_ROOTED = (CCLOp.bcast, CCLOp.scatter, CCLOp.gather, CCLOp.reduce)
 
 
 class CudaContext:
@@ -65,6 +73,8 @@ class CudaContext:
         self.device = self.group.device
         self.world_size = self.group.size
         self.coll = RankCollectives(self.group)
+        # the rooted ops' 2D grid (None when the world does not fold)
+        self.tree = Tree2DCollectives.fold(self.coll)
         self.algorithm = algorithm
         self.devices: list[CudaDevice | None] = [None] * self.world_size
         self._lock = threading.Condition()
@@ -251,6 +261,9 @@ class CudaDevice(Device):
         """``count`` elements of the buffer at ``addr`` on the context's
         device, in the call's uncompressed dtype."""
         cfg = desc.arithcfg
+        if not addr:    # no buffer on this rank (a rooted op's non-root)
+            return torch.zeros(count, dtype=cfg.uncompressed_dtype,
+                               device=self.ctx.device)
         buf = self._buffer(addr)
         if buf is None:
             raise ACCLError(int(ErrorCode.INVALID_CALL),
@@ -379,37 +392,51 @@ class CudaDevice(Device):
             alg = "ring"
         elif d0.algorithm != CollectiveAlgorithm.AUTO:
             alg = "xla"
-        # block-scaled quantized wire: the dense ring collectives take the
-        # codec-kernel ring (qblock selects it and pins the ring); other
-        # ops fall back to the full-precision wire
+        # block-scaled quantized wire: the ring-shaped dense collectives
+        # take the codec-kernel ring (qblock selects it and pins the
+        # ring); other ops fall back to the full-precision wire
         qblock = 0
         if wire is not None and d0.compression & Compression.BLOCK_SCALED:
-            if op in _DENSE and dtype_name(wire) in WIRE_DTYPE_NAMES:
+            if (op in (CCLOp.allreduce, CCLOp.reduce_scatter,
+                       CCLOp.allgather)
+                    and dtype_name(wire) in WIRE_DTYPE_NAMES):
                 qblock = int(cfg.quant_block or DEFAULT_BLOCK)
                 alg = "ring"
             else:
                 wire = None
         if op == CCLOp.barrier:
             return 0  # the rendezvous above IS the barrier
-        if op not in _DENSE:
-            return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
-        if wire is not None and not qblock:
-            # per-tensor wire lanes (fp16/bf16 casts, per-tensor fp8)
-            return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
-        n_in, n_out = {CCLOp.allreduce: (count, count),
-                       CCLOp.allgather: (count, W * count),
-                       CCLOp.reduce_scatter: (W * count, count)}[op]
-        func = (d0.function if op in (CCLOp.allreduce, CCLOp.reduce_scatter)
-                else ReduceFunc.SUM)
+        if op in _DENSE:
+            return self._launch_dense(op, descs, devs, coll, alg, wire,
+                                      qblock, cfg, count, W)
+        if op in _ROOTED:
+            # AUTO and TREE take the 2D tree when the world folds; of the
+            # rooted ops only reduce differs there (bcast / scatter /
+            # gather run the same binomial schedule over the flattened
+            # grid). A compressed reduce keeps the 1-D path, whose
+            # decompress-before-arith numerics are the contract.
+            use_tree = (op == CCLOp.reduce and wire is None
+                        and d0.algorithm in (CollectiveAlgorithm.AUTO,
+                                             CollectiveAlgorithm.TREE))
+            tree = ctx.tree if use_tree and W == ctx.world_size else None
+            return self._launch_rooted(op, descs, devs, coll, tree, alg,
+                                       wire, cfg, count, W)
+        return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
+
+    def _launch_dense(self, op, descs, devs, coll, alg, wire, qblock, cfg,
+                      count: int, W: int) -> int:
+        n_in, n_out = (count * (W if m == "W" else m) for m in _DENSE[op])
         run = getattr(coll, op.name)
-        kw = dict(algorithm=alg, wire_dtype=wire, qblock=qblock)
-        if op != CCLOp.allgather:
-            kw["func"] = func
+        kw = dict(wire_dtype=wire)
+        if op != CCLOp.alltoall:
+            kw.update(algorithm=alg, qblock=qblock)
+        if op in (CCLOp.allreduce, CCLOp.reduce_scatter):
+            kw["func"] = descs[0].function
 
         # -- device-resident fast path: no host copies at all ---------------
-        fast = self._resident_operands(descs, devs, cfg, n_in, n_out)
-        if fast is not None:
-            srcs, dsts = fast
+        srcs = self._resident(descs, devs, cfg, "addr_0", n_in)
+        dsts = self._resident(descs, devs, cfg, "addr_2", n_out)
+        if srcs is not None and dsts is not None:
             run(srcs, out=dsts, **kw)
             return 0
 
@@ -417,33 +444,84 @@ class CudaDevice(Device):
         rows = [devs[r]._read_operand(d.addr_0, n_in, d)
                 for r, d in enumerate(descs)]
         out = run(rows, **kw)
-        if out.device.type == "cuda":
-            torch.cuda.synchronize(out.device)
-        for r, d in enumerate(descs):
-            devs[r]._write_result(d.addr_2, out[r], d)
+        self._land(out, descs, devs, "addr_2", range(W))
         return 0
 
-    def _resident_operands(self, descs, devs, cfg, n_in: int, n_out: int):
-        """(src tensors, dst tensors) when every member's src and dst are
-        device-resident with exact geometry and dtype, else None (the
-        caller stages through the host). OP*/RES_COMPRESSED disqualify: a
-        device buffer has one storage dtype."""
+    def _launch_rooted(self, op, descs, devs, coll, tree, alg, wire, cfg,
+                       count: int, W: int) -> int:
+        """bcast lands in place in every non-root's buffer; scatter in
+        every rank's destination; gather and reduce in the root's only.
+        Only the buffers a rank owns data in must exist: a scatter's
+        non-root sources and a gather's or reduce's non-root destinations
+        are never touched."""
+        d0 = descs[0]
+        root = d0.root_src_dst
+        if not 0 <= root < W:
+            return int(ErrorCode.INVALID_CALL)
+        n_in = W * count if op == CCLOp.scatter else count
+        n_out = W * count if op == CCLOp.gather else count
+        if op == CCLOp.reduce and tree is None:
+            call = functools.partial(coll.reduce, root=root,
+                                     func=d0.function, wire_dtype=wire,
+                                     algorithm=alg)
+        elif op == CCLOp.reduce:
+            call = functools.partial(tree.reduce, root=root,
+                                     func=d0.function)
+        else:
+            call = functools.partial(getattr(coll, op.name), root=root,
+                                     wire_dtype=wire)
+        src_ranks, dst_addr, dst_ranks = {
+            CCLOp.bcast: (range(W), "addr_0",
+                          [r for r in range(W) if r != root]),
+            CCLOp.scatter: ([root], "addr_2", range(W)),
+            CCLOp.gather: (range(W), "addr_2", [root]),
+            CCLOp.reduce: (range(W), "addr_2", [root]),
+        }[op]
+
+        # -- device-resident path: in place, no host copies -----------------
+        srcs = self._resident(descs, devs, cfg, "addr_0", n_in, src_ranks)
+        dsts = self._resident(descs, devs, cfg, dst_addr, n_out, dst_ranks)
+        if srcs is not None and dsts is not None:
+            if op == CCLOp.bcast:
+                dsts[root] = srcs[root]
+            call(srcs, out=dsts)
+            return 0
+
+        # -- host-staged path ------------------------------------------------
+        rows = [devs[r]._read_operand(d.addr_0, n_in, d)
+                for r, d in enumerate(descs)]
+        out = call(rows)
+        self._land(out, descs, devs, dst_addr, dst_ranks)
+        return 0
+
+    @staticmethod
+    def _land(out, descs, devs, addr: str, ranks) -> None:
+        """Write result rows ``ranks`` of ``out`` into each rank's buffer
+        at ``addr`` (after the device finished computing them)."""
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+        for r in ranks:
+            devs[r]._write_result(getattr(descs[r], addr), out[r], descs[r])
+
+    @staticmethod
+    def _resident(descs, devs, cfg, addr: str, n: int, ranks=None):
+        """The flat tensors of each listed rank's device-resident buffer
+        at ``addr`` (a list over all ranks, None for unlisted ones), when
+        every one has exactly ``n`` elements of the call's dtype; else
+        None (the caller stages through the host). OP*/RES_COMPRESSED
+        disqualify: a device buffer has one storage dtype."""
         bad = (Compression.OP0_COMPRESSED | Compression.OP1_COMPRESSED
                | Compression.RES_COMPRESSED)
-        uncomp = cfg.uncompressed_dtype
-        srcs, dsts = [], []
-        for r, d in enumerate(descs):
+        out = [None] * len(descs)
+        for r in (range(len(descs)) if ranks is None else ranks):
+            d = descs[r]
             if d.compression & bad:
                 return None
-            sb = devs[r].dev_bufs.get(d.addr_0)
-            db = devs[r].dev_bufs.get(d.addr_2)
-            if (sb is None or db is None
-                    or sb.size != n_in or db.size != n_out
-                    or sb.dtype != uncomp or db.dtype != uncomp):
+            b = devs[r].dev_bufs.get(getattr(d, addr))
+            if b is None or b.size != n or b.dtype != cfg.uncompressed_dtype:
                 return None
-            srcs.append(sb.tensor.reshape(-1))
-            dsts.append(db.tensor.reshape(-1))
-        return srcs, dsts
+            out[r] = b.tensor.reshape(-1)
+        return out
 
 
 def cuda_world(world_size: int, device="cuda", algorithm: str = "xla",

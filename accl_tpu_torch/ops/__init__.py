@@ -4,8 +4,14 @@ wrappers that run their plain PyTorch versions on CPU tensors."""
 from .combine import combine, combine_ref
 from .compression import (bs_combine, bs_combine_requant, bs_dequant,
                           bs_dequant_combine, bs_dequantize, bs_quant,
-                          bs_quantize)
+                          bs_quantize, cast, cast_lane, compress_fp8,
+                          decompress_fp8, fp8_dequant, fp8_dequantize,
+                          fp8_quant, fp8_quantize, fp8_scale, wire_compress,
+                          wire_decompress)
 
 __all__ = ["combine", "combine_ref", "bs_quant", "bs_dequant",
            "bs_combine", "bs_quantize", "bs_dequantize",
-           "bs_combine_requant", "bs_dequant_combine"]
+           "bs_combine_requant", "bs_dequant_combine", "cast", "cast_lane",
+           "fp8_scale", "fp8_quant", "fp8_dequant", "fp8_quantize",
+           "fp8_dequantize", "compress_fp8", "decompress_fp8",
+           "wire_compress", "wire_decompress"]

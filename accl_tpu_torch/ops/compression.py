@@ -1,25 +1,30 @@
-"""Kernels B5-B7: the block-scaled quantized wire codec.
+"""The wire codecs: kernels B2-B4 (per-tensor lanes) and B5-B7 (block-
+scaled lanes).
 
-Replaces ``accl_tpu/ops/compression.py`` ``_bs_quant_call`` (B5),
-``_bs_dequant_call`` (B6) and ``_bs_combine_call`` (B7), the per-hop
-kernels of the quantized ring collectives. Semantics are those of
-:mod:`accl_tpu_torch.quant`.
+Replaces ``accl_tpu/ops/compression.py``:
 
-Each kernel has a wrapper (``bs_quant``, ``bs_dequant``, ``bs_combine``)
-over lists of per-rank rows (one launch covers every row), a plain
-PyTorch version of the same arithmetic (``*_ref``), and a launch counter
-(``bs_quant.launches`` ...). A wrapper launches its kernel
-(``csrc/bs_codec.cu``) for CUDA tensors and runs the plain version for
-CPU tensors. Wire codes travel as raw bytes (uint8 rows); the public
-functions ``bs_quantize`` / ``bs_dequantize`` / ``bs_combine_requant`` /
-``bs_dequant_combine`` keep the reference's signatures and return codes
-in the wire dtype.
+* the per-tensor lanes of every compressed hop: ``_cast_kernel`` (B2,
+  f32 <-> f16 / bf16 / fp8 casts), ``_quant_kernel`` (B3, q = x * inv
+  cast to fp8, one scale per tensor) and ``_dequant_kernel`` (B4,
+  f32(q) * scale);
+* the block-scaled codec of the quantized rings: ``_bs_quant_call``
+  (B5), ``_bs_dequant_call`` (B6) and ``_bs_combine_call`` (B7), with the
+  semantics of :mod:`accl_tpu_torch.quant`.
 
-The plain fp8 encoder is integer bit-math on int64 tensors: torch's own
+Each kernel has a wrapper over lists of per-rank rows (one launch covers
+every row), a plain PyTorch version of the same arithmetic (``*_ref``),
+and a launch counter (``cast.launches`` ...). A wrapper launches its
+kernel (``csrc/wire_lanes.cu``, ``csrc/bs_codec.cu``) for CUDA tensors
+and runs the plain version for CPU tensors. The reference-shaped
+functions on top (``cast_lane``, ``fp8_quantize``, ``compress_fp8``,
+``wire_compress``, ``bs_quantize`` ...) keep the reference's signatures.
+
+The plain encoders are integer bit-math on int64 tensors: torch's own
 f32 -> fp8 cast saturates where the reference makes NaN (e4m3fn) and
-picks another NaN code (e5m2). Divisions take tensor divisors: torch's
-CUDA division by a Python scalar multiplies by the reciprocal, one ulp
-off IEEE.
+picks another NaN code (e5m2), and NaN payloads follow XLA's rules only
+when written by hand. Divisions take tensor divisors: torch's CUDA
+division by a Python scalar multiplies by the reciprocal, one ulp off
+IEEE.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..arith import dtype_name
+from ..arith import dtype_name, to_torch_dtype
 from ..constants import ReduceFunc
 from ..quant import _FLT_MIN, _QMAX, WIRE_CODES, WIRE_DTYPES, n_blocks
 from .combine import FUNCS, MAX_ROWS
@@ -344,3 +349,348 @@ def bs_dequant_combine(q, scales, other, func: ReduceFunc, block: int):
         [other.reshape(-1).to(torch.float32).contiguous()], func, wire,
         block, requant=False)
     return out.reshape(other.shape)
+
+
+# -- per-tensor wire lanes: kernels B2-B4 -------------------------------------
+
+FP8_DTYPE_NAMES = ("float8_e4m3fn", "float8_e5m2")
+# f32(1 / finfo(wire).max): under jit XLA folds the reference's division
+# by the constant into a multiply by this reciprocal
+_FP8_RCP = {"float8_e4m3fn": 1.0 / 448.0, "float8_e5m2": 1.0 / 57344.0}
+_SCALE_FLOOR = 1e-30
+# dtype -> lane code of csrc/wire_lanes.cu
+_LANES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
+          torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
+_PARTIALS = 2048          # amax scratch per launch (csrc/wire_lanes.cu)
+
+
+def fp8_name(wire) -> str:
+    name = dtype_name(wire)
+    if name not in FP8_DTYPE_NAMES:
+        raise ValueError(f"{name} is not a per-tensor fp8 wire dtype "
+                         f"({', '.join(FP8_DTYPE_NAMES)})")
+    return name
+
+
+def _bits16(v: torch.Tensor) -> torch.Tensor:
+    return v.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def _as16(code: torch.Tensor, dtype) -> torch.Tensor:
+    code = torch.where(code >= 2 ** 15, code - 2 ** 16, code)
+    return code.to(torch.int16).view(dtype)
+
+
+def _encode_f16(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> f16, round to nearest even, overflow to inf; a NaN stays
+    quiet with its top payload bits (XLA's conversion)."""
+    u = _f32_bits(v)
+    a = u & 0x7FFFFFFF
+    lsb = (a >> 13) & 1
+    code = torch.clamp(((a + 0xFFF + lsb) >> 13) - (112 << 10), max=0x7C00)
+    code_d = torch.round(v.abs() * 2.0 ** 24).to(torch.int64)
+    code = torch.where(a < 0x38800000, code_d, code)     # f16 denormals
+    code = torch.where(a > 0x7F800000, 0x7E00 | ((a & 0x7FFFFF) >> 13), code)
+    return _as16(((u >> 16) & 0x8000) | code, torch.float16)
+
+
+def _decode_f16(h: torch.Tensor) -> torch.Tensor:
+    h = _bits16(h)
+    sign = (h & 0x8000) << 16
+    e, m = (h >> 10) & 0x1F, h & 0x3FF
+    bits = sign | ((e + 112) << 23) | (m << 13)
+    special = sign | 0x7F800000 | (m << 13) | torch.where(m != 0, 0x400000, 0)
+    bits = torch.where(e == 31, special, bits)
+    den = m.to(torch.float32) * 2.0 ** -24
+    den = torch.where(sign != 0, -den, den)
+    return torch.where(e == 0, den, _bits_f32(bits))
+
+
+def _encode_bf16(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16, round to nearest even (denormals kept); a NaN becomes
+    the canonical quiet NaN, sign kept."""
+    u = _f32_bits(v)
+    a = u & 0x7FFFFFFF
+    code = (a + 0x7FFF + ((a >> 16) & 1)) >> 16
+    code = torch.where(a > 0x7F800000, 0x7FC0, code)
+    return _as16(((u >> 16) & 0x8000) | code, torch.bfloat16)
+
+
+def _decode_bf16(h: torch.Tensor) -> torch.Tensor:
+    return _bits_f32(_bits16(h) << 16)
+
+
+def _cast_one(x: torch.Tensor, dtype) -> torch.Tensor:
+    if x.dtype == torch.float32:
+        if dtype == torch.float16:
+            return _encode_f16(x)
+        if dtype == torch.bfloat16:
+            return _encode_bf16(x)
+        return encode_ref(x, dtype_name(dtype)).view(dtype)
+    if x.dtype == torch.float16:
+        return _decode_f16(x)
+    if x.dtype == torch.bfloat16:
+        return _decode_bf16(x)
+    return decode_ref(x.view(torch.uint8), dtype_name(x.dtype))
+
+
+def cast_ref(x_rows, dtype, out_rows=None):
+    """Plain version of :func:`cast`."""
+    dtype = to_torch_dtype(dtype)
+    res = [_cast_one(x, dtype) for x in x_rows]
+    if out_rows is None:
+        return res
+    for o, r in zip(out_rows, res):
+        o.copy_(r)
+    return list(out_rows)
+
+
+def fp8_scale_ref(x_rows, wire, scale_rows=None, inv_rows=None):
+    """Plain version of :func:`fp8_scale`."""
+    wire = fp8_name(wire)
+    dev = x_rows[0].device
+    rcp = torch.tensor(_FP8_RCP[wire], dtype=torch.float32, device=dev)
+    floor = torch.tensor(_SCALE_FLOOR, dtype=torch.float32, device=dev)
+    one = torch.ones(1, dtype=torch.float32, device=dev)
+    scales, invs = [], []
+    for x in x_rows:
+        amax = (x.abs().amax() if x.numel()
+                else torch.zeros((), dtype=torch.float32, device=dev))
+        s = torch.maximum(amax * rcp, floor).reshape(1)   # NaN propagates
+        scales.append(s)
+        invs.append(one / s)
+    if scale_rows is None:
+        return scales, invs
+    for so, io, s, i in zip(scale_rows, inv_rows, scales, invs):
+        so.copy_(s)
+        io.copy_(i)
+    return list(scale_rows), list(inv_rows)
+
+
+def fp8_quant_ref(x_rows, inv_rows, wire, q_rows=None):
+    """Plain version of :func:`fp8_quant`."""
+    wire = fp8_name(wire)
+    res = [encode_ref(x * i, wire).view(WIRE_DTYPES[wire])
+           for x, i in zip(x_rows, inv_rows)]
+    if q_rows is None:
+        return res
+    for o, r in zip(q_rows, res):
+        o.view(torch.uint8).copy_(r.view(torch.uint8))
+    return list(q_rows)
+
+
+def fp8_dequant_ref(q_rows, scale_rows, wire, out_rows=None):
+    """Plain version of :func:`fp8_dequant`."""
+    wire = fp8_name(wire)
+    res = [decode_ref(q.view(torch.uint8), wire) * s
+           for q, s in zip(q_rows, scale_rows)]
+    if out_rows is None:
+        return res
+    for o, r in zip(out_rows, res):
+        o.copy_(r)
+    return list(out_rows)
+
+
+def _lane(dtype) -> int:
+    code = _LANES.get(dtype)
+    if code is None:
+        raise TypeError(f"wire lanes: no lane for {dtype}")
+    return code
+
+
+def cast(x_rows, dtype, out_rows=None):
+    """B2: convert each row between f32 and a wire dtype (f16, bf16,
+    e4m3fn, e5m2), either direction. Returns the output rows; given rows
+    are filled in place."""
+    dtype = to_torch_dtype(dtype)
+    x_rows = list(x_rows)
+    dev = _device_of(x_rows)
+    src = x_rows[0].dtype
+    if torch.float32 not in (src, dtype) or src == dtype:
+        raise TypeError(f"cast: {src} -> {dtype}; one side must be "
+                        "float32, the other a wire dtype")
+    lanes = _lane(src), _lane(dtype)
+    n = x_rows[0].numel()
+    if out_rows is None:
+        out_rows = [torch.empty(n, dtype=dtype, device=dev) for _ in x_rows]
+    _check(x_rows, n, src, dev, "cast")
+    _check(out_rows, n, dtype, dev, "cast")
+    if dev.type == "cpu":
+        return cast_ref(x_rows, dtype, out_rows)
+    lib = _build.library()
+    stream = _build.stream_of(x_rows[0])
+    for i in range(0, len(x_rows), MAX_ROWS):
+        sl = slice(i, i + MAX_ROWS)
+        _build.check(lib.accl_cast(
+            *lanes, len(x_rows[sl]), n,
+            _build.ptr_array(x_rows[sl]), _build.ptr_array(out_rows[sl]),
+            stream), "cast")
+        cast.launches += 1
+    return list(out_rows)
+
+
+def fp8_scale(x_rows, wire, scale_rows=None, inv_rows=None):
+    """The scale of B3, per f32 row: amax = max |x| (NaN propagates),
+    scale = max(amax * f32(1/fp8_max), 1e-30), inv = 1 / scale. Each
+    scale and inverse row is one f32 element in device memory; nothing
+    syncs the host. Returns (scale_rows, inv_rows)."""
+    wire, x_rows = fp8_name(wire), list(x_rows)
+    dev = _device_of(x_rows)
+    n = x_rows[0].numel()
+    if scale_rows is None:
+        scale_rows = list(torch.empty((len(x_rows), 1), device=dev))
+        inv_rows = list(torch.empty((len(x_rows), 1), device=dev))
+    _check(x_rows, n, torch.float32, dev, "fp8_scale")
+    _check(scale_rows, 1, torch.float32, dev, "fp8_scale")
+    _check(inv_rows, 1, torch.float32, dev, "fp8_scale")
+    if dev.type == "cpu":
+        return fp8_scale_ref(x_rows, wire, scale_rows, inv_rows)
+    lib = _build.library()
+    stream = _build.stream_of(x_rows[0])
+    partial = torch.empty(_PARTIALS, dtype=torch.float32, device=dev)
+    for i in range(0, len(x_rows), MAX_ROWS):
+        sl = slice(i, i + MAX_ROWS)
+        _build.check(lib.accl_fp8_scale(
+            WIRE_CODES[wire], len(x_rows[sl]), n,
+            _build.ptr_array(x_rows[sl]), _build.ptr_array(scale_rows[sl]),
+            _build.ptr_array(inv_rows[sl]), partial.data_ptr(), stream),
+            "fp8_scale")
+        fp8_scale.launches += 1
+    return list(scale_rows), list(inv_rows)
+
+
+def fp8_quant(x_rows, inv_rows, wire, q_rows=None):
+    """B3: q = encode(x * inv) per f32 row, inv one f32 per row (from
+    :func:`fp8_scale`). Returns the code rows (1-byte)."""
+    wire, x_rows, inv_rows = fp8_name(wire), list(x_rows), list(inv_rows)
+    dev = _device_of(x_rows)
+    n = x_rows[0].numel()
+    if q_rows is None:
+        q_rows = [torch.empty(n, dtype=WIRE_DTYPES[wire], device=dev)
+                  for _ in x_rows]
+    _check(x_rows, n, torch.float32, dev, "fp8_quant")
+    _check(inv_rows, 1, torch.float32, dev, "fp8_quant")
+    _check(q_rows, n, None, dev, "fp8_quant")
+    if dev.type == "cpu":
+        return fp8_quant_ref(x_rows, inv_rows, wire, q_rows)
+    lib = _build.library()
+    stream = _build.stream_of(x_rows[0])
+    for i in range(0, len(x_rows), MAX_ROWS):
+        sl = slice(i, i + MAX_ROWS)
+        _build.check(lib.accl_fp8_quant(
+            WIRE_CODES[wire], len(x_rows[sl]), n,
+            _build.ptr_array(x_rows[sl]), _build.ptr_array(inv_rows[sl]),
+            _build.ptr_array(q_rows[sl]), stream), "fp8_quant")
+        fp8_quant.launches += 1
+    return list(q_rows)
+
+
+def fp8_dequant(q_rows, scale_rows, wire, out_rows=None):
+    """B4: f32(q) * scale per code row, one rounding; scale one f32 per
+    row. Returns the f32 rows."""
+    wire, q_rows, scale_rows = fp8_name(wire), list(q_rows), list(scale_rows)
+    dev = _device_of(q_rows)
+    n = q_rows[0].numel()
+    if out_rows is None:
+        out_rows = [torch.empty(n, dtype=torch.float32, device=dev)
+                    for _ in q_rows]
+    _check(q_rows, n, None, dev, "fp8_dequant")
+    _check(scale_rows, 1, torch.float32, dev, "fp8_dequant")
+    _check(out_rows, n, torch.float32, dev, "fp8_dequant")
+    if dev.type == "cpu":
+        return fp8_dequant_ref(q_rows, scale_rows, wire, out_rows)
+    lib = _build.library()
+    stream = _build.stream_of(q_rows[0])
+    for i in range(0, len(q_rows), MAX_ROWS):
+        sl = slice(i, i + MAX_ROWS)
+        _build.check(lib.accl_fp8_dequant(
+            WIRE_CODES[wire], len(q_rows[sl]), n,
+            _build.ptr_array(q_rows[sl]), _build.ptr_array(scale_rows[sl]),
+            _build.ptr_array(out_rows[sl]), stream), "fp8_dequant")
+        fp8_dequant.launches += 1
+    return list(out_rows)
+
+
+cast.launches = 0
+fp8_scale.launches = 0
+fp8_quant.launches = 0
+fp8_dequant.launches = 0
+
+
+# -- reference-shaped entry points: the per-tensor lanes -------------------
+
+def cast_lane(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Streamed dtype cast between f32 and a wire dtype (both directions:
+    the down and up lanes)."""
+    dtype = to_torch_dtype(dtype)
+    if x.dtype == dtype:
+        return x
+    (out,) = cast([x.reshape(-1).contiguous()], dtype)
+    return out.reshape(x.shape)
+
+
+def fp8_quantize(x: torch.Tensor, wire_dtype, axes=None):
+    """The per-tensor scaled fp8 codec: (fp8 payload, f32 scale). ``axes``
+    None gives one scale (shape ()); the trailing axes (1, ..., ndim-1)
+    give one scale per leading index (the per-(rank, chunk) scales of the
+    fused reduce-scatter)."""
+    wire = fp8_name(wire_dtype)
+    if x.dtype != torch.float32:
+        raise TypeError(f"fp8_quantize: {x.dtype} payload, expected "
+                        "float32")
+    if axes is None:
+        rows = [x.reshape(-1).contiguous()]
+    elif tuple(axes) == tuple(range(1, x.dim())):
+        rows = list(x.reshape(x.shape[0], -1).contiguous())
+    else:
+        raise ValueError(f"fp8_quantize: axes {axes} unsupported (None or "
+                         "the trailing axes)")
+    s, inv = (torch.empty((len(rows), 1), dtype=torch.float32,
+                          device=x.device) for _ in range(2))
+    fp8_scale(rows, wire, list(s), list(inv))
+    q = torch.empty((len(rows), rows[0].numel()), dtype=WIRE_DTYPES[wire],
+                    device=x.device)
+    fp8_quant(rows, list(inv), wire, list(q))
+    return q.reshape(x.shape), s.reshape(() if axes is None else (-1,))
+
+
+def fp8_dequantize(q: torch.Tensor, scale: torch.Tensor,
+                   dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`fp8_quantize`; the scale broadcasts over the
+    payload's trailing axes."""
+    wire = fp8_name(q.dtype)
+    nr = max(1, scale.numel())
+    rows = list(q.reshape(nr, -1))
+    out = torch.empty((nr, rows[0].numel()), dtype=torch.float32,
+                      device=q.device)
+    fp8_dequant(rows, list(scale.reshape(nr, 1).to(torch.float32)), wire,
+                list(out))
+    return cast_lane(out.reshape(q.shape), dtype)
+
+
+def compress_fp8(x: torch.Tensor, wire_dtype=torch.float8_e4m3fn):
+    """x -> (fp8 payload, (1, 1) f32 scale): the standalone lane."""
+    q, s = fp8_quantize(x, wire_dtype)
+    return q, s.reshape(1, 1)
+
+
+def decompress_fp8(q: torch.Tensor, scale: torch.Tensor,
+                   dtype=torch.float32) -> torch.Tensor:
+    return fp8_dequantize(q, scale.reshape(()), dtype)
+
+
+def wire_compress(x: torch.Tensor, wire_dtype):
+    """Encode a hop payload for the wire: (payload, aux), aux the fp8
+    scale or None. Cast lanes for f16/bf16; the scaled codec for fp8."""
+    wd = to_torch_dtype(wire_dtype)
+    if wd == x.dtype:
+        return x, None
+    if dtype_name(wd) in FP8_DTYPE_NAMES:
+        return compress_fp8(x, wd)
+    return cast_lane(x, wd), None
+
+
+def wire_decompress(payload: torch.Tensor, aux, dtype) -> torch.Tensor:
+    if aux is not None:
+        return decompress_fp8(payload, aux, dtype)
+    return cast_lane(payload, dtype)

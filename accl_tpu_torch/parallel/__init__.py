@@ -1,6 +1,7 @@
-"""The dataplane: dense collectives over W ranks on one device."""
+"""The dataplane: collectives over W ranks on one device."""
 
 from .collectives import RankCollectives
 from .mesh import RankGroup, make_group
+from .tree import Tree2DCollectives
 
-__all__ = ["RankCollectives", "RankGroup", "make_group"]
+__all__ = ["RankCollectives", "RankGroup", "Tree2DCollectives", "make_group"]

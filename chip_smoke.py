@@ -4,24 +4,31 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Device and build: requires CUDA, prints the card's name and power
-   limit, builds the CUDA kernels from ``accl_tpu_torch/csrc``.
-2. Kernel phases: each kernel (B1 combine, B5 bs_quant, B6 bs_dequant,
-   B7 bs_combine) against its plain PyTorch version on the same CUDA
+   limit, builds the CUDA kernels from ``accl_tpu_torch/csrc`` (one
+   nvcc per source, all started together).
+2. Kernel phases: each kernel (B1 combine, B2 cast, B3 fp8_quant with
+   its fp8_scale step, B4 fp8_dequant, B5 bs_quant, B6 bs_dequant, B7
+   bs_combine) against its plain PyTorch version on the same CUDA
    inputs, bitwise (a NaN matches a NaN; every other value bit for bit),
-   over an edge corpus (NaN, +-inf, +-0, f32 denormals, overflow past
-   qmax, all-zero blocks, ragged tails, blocks 32/128/4096, all wire
-   dtypes and funcs) and at the main path's shapes, where each is timed
-   with CUDA events (median of many launches after warm-up).
+   over an edge corpus (NaN, +-inf, +-0, f32 denormals, values past every
+   wire's max, all-zero blocks, ragged tails and unaligned rows, every
+   wire dtype, func and block size; every 16- and 8-bit code for the
+   up-casts) and at the main path's hop shape (8 rank rows of one 8 Mi-
+   element ring chunk), where each is timed with CUDA events (median of
+   many launches after warm-up).
 3. Main path: ``cuda_world(8)`` with device-resident buffers of 64 Mi
-   fp32 per rank; ring allreduce, reduce_scatter and allgather, and the
-   fp8-e4m3 block-scaled (block 128) ring allreduce, through ``ACCL``.
-   Every result is held against the plain path (the same rings through
-   the plain versions) bitwise and against a float64 golden: fp32 within
-   W * 2^-24 * sum_r |x_r| per element (the recursive-summation bound of
-   W terms); the block-scaled wire within 0.07 * (W/4) * max(sum_r |x_r|)
-   + 1e-3, the W=4 bound of tests/test_pallas_quant.py scaled to W
-   quantizations per element. Every kernel's launch count must rise
-   during this run.
+   fp32 per rank, through ``ACCL``: ring allreduce, reduce_scatter and
+   allgather (fp32), the fp8-e4m3 block-scaled (block 128) ring
+   allreduce, the ring allreduce on the f16, bf16 and per-tensor
+   fp8-e4m3 wires, the xla-family allreduce on per-tensor fp8-e4m3,
+   bcast (root 3, bf16 wire), reduce (root 5, fp32, AUTO: the 2x4 tree),
+   scatter and gather (root 3, f16 wire, 8 Mi per rank) and alltoall
+   (fp8-e4m3 pure cast, 8 Mi per peer). Every result is held against
+   the plain path (the same schedule through the plain versions) bitwise
+   (the xla family within rtol=1e-6, atol=1e-6: its rank-axis sum is a
+   torch reduction) and against a float64 golden within a bound printed
+   beside the measured error (see ``golden_bound``). Every kernel's
+   launch count must rise during this run.
 4. Where the time goes: each call of the main path once more under
    torch.profiler, device time summed per kernel family, beside the
    call's host-clock time (the rest is the device's idle share).
@@ -53,6 +60,17 @@ SEED = 20261016
 # times (W-1 on the reduce-scatter, once for the allgather), so per
 # quantization that is 0.07 / 4 of max(sum_r |x_r|)
 FP8_BOUND_PER_QUANT = 0.07 / 4
+ROOT = 3                   # bcast / scatter / gather
+REDUCE_ROOT = 5
+# per-tensor wires: unit roundoff u (half an ulp at 1), and the largest
+# absolute error of one rounding in the wire's denormal range, in units
+# of the payload's scale (1 for a pure cast; amax / fp8_max for the
+# scaled fp8 codec)
+WIRE_U = {"float16": 2.0 ** -11, "bfloat16": 2.0 ** -8,
+          "float8_e4m3fn": 2.0 ** -4, "float8_e5m2": 2.0 ** -3}
+WIRE_DENORMAL = {"float16": 2.0 ** -25, "bfloat16": 0.0,
+                 "float8_e4m3fn": 2.0 ** -10, "float8_e5m2": 2.0 ** -17}
+FP8_MAX = {"float8_e4m3fn": 448.0, "float8_e5m2": 57344.0}
 
 
 class SmokeFailure(RuntimeError):
@@ -93,6 +111,8 @@ def same_bits(a, b) -> tuple[bool, float]:
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         return False, float("inf")
+    if a.element_size() == 1:           # fp8 and int8 codes: as bytes
+        a, b = a.view(torch.uint8), b.view(torch.uint8)
     if a.is_floating_point():
         na, nb = torch.isnan(a), torch.isnan(b)
         if not torch.equal(na, nb):
@@ -228,6 +248,60 @@ def corpus_codec(rng):
           "(x 4 funcs for bs_combine)")
 
 
+LANE_WIRES = ("float16", "bfloat16", "float8_e4m3fn", "float8_e5m2")
+
+
+def corpus_lanes(rng):
+    """B2-B4 over the edge corpus, unaligned rows, every code, and
+    payloads whose amax is NaN, 0, tiny or huge."""
+    import torch
+    from accl_tpu_torch.ops import compression as C
+    n = 3 * 4096 + 1001
+    for wire in LANE_WIRES:
+        dt = getattr(torch, wire)
+        xs = [torch.from_numpy(edge_corpus(rng, n)).cuda() for _ in range(3)]
+        down = C.cast(xs, dt)
+        check_rows(down, C.cast_ref(xs, dt), f"cast f32->{wire}")
+        check_rows(C.cast(down, torch.float32),
+                   C.cast_ref(down, torch.float32), f"cast {wire}->f32")
+        ua = [x[1:] for x in xs]
+        check_rows(C.cast(ua, dt), C.cast_ref(ua, dt),
+                   f"cast f32->{wire} unaligned")
+        bits = 8 if dt.itemsize == 1 else 16
+        codes = torch.arange(1 << bits, device="cuda").to(
+            torch.uint8 if bits == 8 else torch.int32)
+        if bits == 16:
+            codes = (codes - (codes >= 1 << 15).int() * (1 << 16)).to(
+                torch.int16)
+        every = [codes.view(dt)]
+        check_rows(C.cast(every, torch.float32),
+                   C.cast_ref(every, torch.float32), f"cast every {wire}")
+        if wire not in C.FP8_DTYPE_NAMES:
+            continue
+        clean = torch.from_numpy(edge_corpus(rng, n)).cuda()
+        clean = torch.where(torch.isfinite(clean), clean,
+                            torch.zeros_like(clean))
+        rows = [xs[0], clean, torch.zeros(n, device="cuda"),
+                clean * 1e-30, clean * 1e-38, clean[:1].expand(n) + 0]
+        s, inv = C.fp8_scale(rows, wire)
+        rs, rinv = C.fp8_scale_ref(rows, wire)
+        check_rows(s, rs, f"fp8_scale {wire} scales")
+        check_rows(inv, rinv, f"fp8_scale {wire} inverses")
+        q = C.fp8_quant(rows, inv, wire)
+        check_rows(q, C.fp8_quant_ref(rows, inv, wire), f"fp8_quant {wire}")
+        check_rows(C.fp8_dequant(q, s, wire),
+                   C.fp8_dequant_ref(q, s, wire), f"fp8_dequant {wire}")
+        uq = C.fp8_quant([r[3:] for r in rows], inv, wire)
+        check_rows(uq, C.fp8_quant_ref([r[3:] for r in rows], inv, wire),
+                   f"fp8_quant {wire} unaligned")
+        check_rows(C.fp8_dequant(uq, s, wire),
+                   C.fp8_dequant_ref(uq, s, wire),
+                   f"fp8_dequant {wire} unaligned")
+    print("wire lanes: edge corpus bitwise over 4 wires (casts both ways, "
+          "every code; fp8 scale/quant/dequant incl. NaN, zero, tiny and "
+          "unaligned rows)")
+
+
 def kernel_records():
     """Each kernel at the main path's shape (W rows of one 32 MiB ring
     chunk: the per-hop launch), against its plain version, timed."""
@@ -301,7 +375,47 @@ def kernel_records():
         time_ms(lambda: C.bs_combine_ref(q, s, rb, ReduceFunc.SUM, wire,
                                          QBLOCK, q2, s2), reps=5),
         2 * (N + 4 * N // QBLOCK) + 4 * N, 8 * N)
-    del a, b, out, ra, rb, ro, q, s, q2, s2, rq, rs, rq2, rs2
+    del q, s, q2, s2, rq, rs, rq2, rs2
+
+    h = list(torch.empty(W, c, dtype=torch.float16, device="cuda"))
+    err = check_rows(C.cast(ra, torch.float16, h),
+                     C.cast_ref(ra, torch.float16), "cast main")
+    rec("cast", "accl_tpu_torch/csrc/wire_lanes.cu",
+        "accl_tpu/ops/compression.py:65", err,
+        time_ms(lambda: C.cast(ra, torch.float16, h)),
+        time_ms(lambda: C.cast_ref(ra, torch.float16, h), reps=5),
+        6 * N, N, library_ms=time_ms(lambda: flat_a.to(torch.float16)))
+    del h
+
+    sc = list(torch.empty(W, 1, device="cuda"))
+    iv = list(torch.empty(W, 1, device="cuda"))
+    C.fp8_scale(ra, wire, sc, iv)
+    rsc, riv = C.fp8_scale_ref(ra, wire)
+    err = max(check_rows(sc, rsc, "fp8_scale main scales"),
+              check_rows(iv, riv, "fp8_scale main inverses"))
+    rec("fp8_scale", "accl_tpu_torch/csrc/wire_lanes.cu",
+        "accl_tpu/ops/compression.py:149", err,
+        time_ms(lambda: C.fp8_scale(ra, wire, sc, iv)),
+        time_ms(lambda: C.fp8_scale_ref(ra, wire, sc, iv), reps=5),
+        4 * N + 8 * W, 2 * N)
+
+    q8 = list(torch.empty(W, c, dtype=torch.float8_e4m3fn, device="cuda"))
+    err = check_rows(C.fp8_quant(ra, iv, wire, q8),
+                     C.fp8_quant_ref(ra, iv, wire), "fp8_quant main")
+    rec("fp8_quant", "accl_tpu_torch/csrc/wire_lanes.cu",
+        "accl_tpu/ops/compression.py:154", err,
+        time_ms(lambda: C.fp8_quant(ra, iv, wire, q8)),
+        time_ms(lambda: C.fp8_quant_ref(ra, iv, wire, q8), reps=5),
+        5 * N + 4 * W, N)
+
+    err = check_rows(C.fp8_dequant(q8, sc, wire, ro),
+                     C.fp8_dequant_ref(q8, sc, wire), "fp8_dequant main")
+    rec("fp8_dequant", "accl_tpu_torch/csrc/wire_lanes.cu",
+        "accl_tpu/ops/compression.py:175", err,
+        time_ms(lambda: C.fp8_dequant(q8, sc, wire, ro)),
+        time_ms(lambda: C.fp8_dequant_ref(q8, sc, wire, ro), reps=5),
+        5 * N + 4 * W, N)
+    del a, b, out, ra, rb, ro, q8, sc, iv, rsc, riv
     torch.cuda.empty_cache()
     return recs
 
@@ -311,6 +425,12 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("bs_dequant", "bs_dequant_kernel"),
             ("bs_combine", "bs_combine_kernel"),
             ("combine", "combine_kernel"),
+            ("cast", "cast_kernel"),
+            ("fp8_scale", "amax_partial_kernel"),
+            ("fp8_scale", "scale_finish_kernel"),
+            ("fp8_quant", "fp8_quant_kernel"),
+            ("fp8_dequant", "fp8_dequant_kernel"),
+            ("torch_reduce", "reduce_kernel"),
             ("copy", "copy"), ("copy", "Memcpy"), ("fill", "Memset"),
             ("fill", "Fill"))
 
@@ -338,13 +458,34 @@ def counters():
     from accl_tpu_torch.ops import combine
     from accl_tpu_torch.ops import compression as C
     return {"combine": combine, "bs_quant": C.bs_quant,
-            "bs_dequant": C.bs_dequant, "bs_combine": C.bs_combine}
+            "bs_dequant": C.bs_dequant, "bs_combine": C.bs_combine,
+            "cast": C.cast, "fp8_scale": C.fp8_scale,
+            "fp8_quant": C.fp8_quant, "fp8_dequant": C.fp8_dequant}
+
+
+def golden_bound(absum, k32: int, wire=None, kw: int = 0, amax=None):
+    """Per-element bound on |result - float64 golden| for a result whose
+    every intermediate value is at most sum_r |x_r| (``absum``) in
+    magnitude and which took ``kw`` roundings to the wire dtype and
+    ``k32`` f32 roundings: ((1+u)^kw (1+2^-24)^k32 - 1) * absum, plus
+    ``kw`` times the wire's denormal-range error, which for the scaled
+    fp8 codec is in units of its scale (``amax`` / fp8_max, amax grown
+    by the same factor)."""
+    u = WIRE_U[wire] if wire else 0.0
+    grow = (1 + u) ** kw * (1 + 2.0 ** -24) ** k32
+    floor = 0.0
+    if wire:
+        unit = 1.0 if amax is None else amax * grow / FP8_MAX[wire]
+        floor = kw * WIRE_DENORMAL[wire] * unit
+    return (grow - 1) * absum + floor
 
 
 def main_path(recs):
     import torch
     from accl_tpu_torch import cuda_world
     from accl_tpu_torch.parallel.collectives import PLAIN, RankCollectives
+    from accl_tpu_torch.parallel.tree import (Tree2DCollectives,
+                                              gather_rounds, scatter_rounds)
     from accl_tpu_torch.testing import run_ranks
     c = N // W
     accls = cuda_world(W)            # device="cuda": no CPU fallback
@@ -356,15 +497,29 @@ def main_path(recs):
 
         def setup(a):
             r = a.rank
+
+            def dev(n):
+                return a.buffer((n,), torch.float32, device_resident=True)
+
             bufs[r] = {
                 "src": a.buffer(data=xs[r]),
-                "ar": a.buffer((N,), torch.float32, device_resident=True),
-                "rs": a.buffer((c,), torch.float32, device_resident=True),
-                "ag_src": a.buffer(data=ags[r]),
-                "ag": a.buffer((N,), torch.float32, device_resident=True),
-                "bs": a.buffer((N,), torch.float32, device_resident=True),
+                "ar": dev(N), "rs": dev(c),
+                "ag_src": a.buffer(data=ags[r]), "ag": dev(N), "bs": dev(N),
+                "ar_f16": dev(N), "ar_bf16": dev(N), "ar_fp8": dev(N),
+                "xla_fp8": dev(N),
+                "bc": (a.buffer(data=xs[r].clone(), device_resident=True)
+                       if r == ROOT
+                       else dev(N)),
+                "rd": dev(N) if r == REDUCE_ROOT else None,
+                "sc": dev(c), "ga": dev(N) if r == ROOT else None,
+                "a2a": dev(N),
             }
         run_ranks(accls, setup)
+
+        def ring_wire(key, wire):
+            return lambda a, b: a.allreduce(b["src"], b[key], N,
+                                            algorithm="ring",
+                                            compress_dtype=wire)
 
         calls = {
             "allreduce": lambda a, b: a.allreduce(
@@ -376,6 +531,24 @@ def main_path(recs):
             "allreduce_fp8bs": lambda a, b: a.allreduce(
                 b["src"], b["bs"], N, algorithm="ring",
                 compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK),
+            "allreduce_f16": ring_wire("ar_f16", torch.float16),
+            "allreduce_bf16": ring_wire("ar_bf16", torch.bfloat16),
+            "allreduce_fp8": ring_wire("ar_fp8", torch.float8_e4m3fn),
+            "allreduce_xla_fp8": lambda a, b: a.allreduce(
+                b["src"], b["xla_fp8"], N,
+                compress_dtype=torch.float8_e4m3fn),
+            "bcast_bf16": lambda a, b: a.bcast(
+                b["bc"], N, root=ROOT, compress_dtype=torch.bfloat16),
+            "reduce": lambda a, b: a.reduce(
+                b["src"], b["rd"], N, root=REDUCE_ROOT),
+            "scatter_f16": lambda a, b: a.scatter(
+                b["src"] if a.rank == ROOT else None, b["sc"], c, root=ROOT,
+                compress_dtype=torch.float16),
+            "gather_f16": lambda a, b: a.gather(
+                b["ag_src"], b["ga"], c, root=ROOT,
+                compress_dtype=torch.float16),
+            "alltoall_fp8": lambda a, b: a.alltoall(
+                b["src"], b["a2a"], c, compress_dtype=torch.float8_e4m3fn),
         }
 
         def drive(name):
@@ -397,6 +570,7 @@ def main_path(recs):
 
         # -- correctness ----------------------------------------------------
         plain = RankCollectives(accls[0].device.ctx.group, kernels=PLAIN)
+        plain_tree = Tree2DCollectives.fold(plain)
         out = lambda key: [bufs[r][key].tensor for r in range(W)]  # noqa
         x64 = torch.zeros(N, dtype=torch.float64, device="cuda")
         absum = torch.zeros(N, dtype=torch.float64, device="cuda")
@@ -444,15 +618,132 @@ def main_path(recs):
               f"bounds; fp8 max err {errmax} < {bound} "
               f"(0.07*(W/4)*max sum|x| + 1e-3; the unscaled W=4 bound "
               f"would be {amax * 0.07 + 1e-3})")
-        del x64, absum, tol
+
+        def hold(name, got, gold, bound, wired=True):
+            """Every element of ``got`` within ``bound`` of ``gold`` (f64
+            rows or tensors); a wired call must differ somewhere."""
+            worst, err_max, ratio = 0.0, 0.0, 0.0
+            for t, g64, bd in zip(got, gold, bound):
+                need(bool(torch.isfinite(t).all()), f"{name}: non-finite")
+                err = (t.double() - g64).abs()
+                need(bool((err <= bd).all()),
+                     f"{name}: outside its float64-golden bound")
+                err_max = max(err_max, float(err.max()))
+                ratio = max(ratio, float((err / bd.clamp_min(1e-300)).max()))
+                worst = max(worst, float(bd.max()))
+            need(err_max > 0 or not wired,
+                 f"{name}: no error at all (the wire was not used)")
+            print(f"golden {name}: max err {err_max:.6g}, bound up to "
+                  f"{worst:.6g}, worst err/bound {ratio:.4f}")
+
+        for wire in ("float16", "bfloat16", "float8_e4m3fn"):
+            key = {"float16": "ar_f16", "bfloat16": "ar_bf16",
+                   "float8_e4m3fn": "ar_fp8"}[wire]
+            ref = plain.allreduce(xs, algorithm="ring", wire_dtype=wire)
+            check_rows(out(key), list(ref), f"ring {wire} vs plain path")
+            del ref
+            if wire == "float8_e4m3fn":   # W-1 hops + W-1 relay requants,
+                kw, k32 = 2 * W - 2, (W - 1) + 3 * (2 * W - 2)
+                bd = golden_bound(absum, k32, wire, kw, amax)
+            else:                         # W-1 hops + one idempotent cast
+                bd = golden_bound(absum, W - 1, wire, W)
+            hold(f"allreduce ring {wire}", out(key), [x64] * W, [bd] * W)
+
+        ref = plain.allreduce(xs, algorithm="xla", wire_dtype="float8_e4m3fn")
+        for t, r in zip(out("xla_fp8"), ref):
+            need(torch.allclose(t, r, rtol=1e-6, atol=1e-6),
+                 "xla fp8 allreduce: outside rtol=1e-6, atol=1e-6 of the "
+                 "plain path")
+        xla_diff = max(float((t - r).abs().max())
+                       for t, r in zip(out("xla_fp8"), ref))
+        del ref
+        bd = golden_bound(absum, (W - 1) + 6, "float8_e4m3fn", 2, amax)
+        hold("allreduce xla float8_e4m3fn", out("xla_fp8"), [x64] * W,
+             [bd] * W)
+        print(f"xla fp8 allreduce vs plain path: max abs diff {xla_diff}")
+        del x64, tol
+
+        ref = plain_tree.reduce(xs, REDUCE_ROOT)
+        rd = bufs[REDUCE_ROOT]["rd"].tensor
+        check_rows([rd], [ref[REDUCE_ROOT]], "reduce (2x4 tree) vs plain")
+        del ref
+        gsum = torch.zeros(N, dtype=torch.float64, device="cuda")
+        for x in xs:
+            gsum += x.double()
+        hold("reduce tree fp32", [rd], [gsum],
+             [golden_bound(absum, W - 1)], wired=False)
+        del gsum, absum
+
+        ref = plain.bcast(xs, ROOT, "bfloat16")
+        bc = out("bc")
+        check_rows([bc[r] for r in range(W) if r != ROOT],
+                   [ref[r] for r in range(W) if r != ROOT],
+                   "bcast bf16 vs plain path")
+        need(torch.equal(bc[ROOT], xs[ROOT]), "bcast: root's buffer changed")
+        del ref
+        g64 = xs[ROOT].double()
+        bd = golden_bound(g64.abs(), 0, "bfloat16", 1)
+        hold("bcast bfloat16", [bc[r] for r in range(W) if r != ROOT],
+             [g64] * (W - 1), [bd] * (W - 1))
+        del g64, bd
+
+        ref = plain.scatter([xs[ROOT] if r == ROOT else None
+                             for r in range(W)], ROOT, "float16")
+        check_rows(out("sc"), list(ref), "scatter f16 vs plain path")
+        del ref
+        chunks = [xs[ROOT][r * c:(r + 1) * c].double() for r in range(W)]
+        need(torch.equal(out("sc")[ROOT], xs[ROOT][ROOT * c:(ROOT + 1) * c]),
+             "scatter: the root's own chunk is not exact")
+        hold("scatter float16", out("sc"), chunks,
+             [golden_bound(ch.abs(), 0, "float16", 1) for ch in chunks])
+        del chunks
+
+        ga = bufs[ROOT]["ga"].tensor
+        ref = plain.gather(ags, ROOT, "float16")
+        check_rows([ga], [ref[ROOT]], "gather f16 vs plain path")
+        del ref
+        need(torch.equal(ga[ROOT * c:(ROOT + 1) * c], ags[ROOT]),
+             "gather: the root's own chunk is not exact")
+        g64 = torch.cat(ags).double()
+        hold("gather float16", [ga], [g64],
+             [golden_bound(g64.abs(), 0, "float16", 1)])
+        del g64
+
+        ref = plain.alltoall(xs, "float8_e4m3fn")
+        check_rows(out("a2a"), list(ref), "alltoall fp8 vs plain path")
+        del ref
+        for r, t in enumerate(out("a2a")):
+            sl = slice(r * c, (r + 1) * c)
+            need(torch.equal(t[sl], xs[r][sl]),
+                 "alltoall: the own chunk is not exact")
+        gold = [torch.cat([xs[j][r * c:(r + 1) * c] for j in range(W)])
+                .double() for r in range(W)]
+        hold("alltoall float8_e4m3fn (pure cast)", out("a2a"), gold,
+             [golden_bound(gd.abs(), 0, "float8_e4m3fn", 1) for gd in gold])
+        del gold
+        torch.cuda.empty_cache()
 
         # -- timing -----------------------------------------------------------
         nbq = -(-c // QBLOCK)
+
+        def tree_bytes(rounds, b):
+            return sum(len(vs) * bs for _, bs, vs in rounds) * c * b
+
+        # logical wire bytes of one call, all ranks together
         wire_bytes = {
-            "allreduce": 2 * (W - 1) * c * 4,
-            "reduce_scatter": (W - 1) * c * 4,
-            "allgather": (W - 1) * c * 4,
-            "allreduce_fp8bs": 2 * (W - 1) * (c + 4 * nbq),
+            "allreduce": W * 2 * (W - 1) * c * 4,
+            "reduce_scatter": W * (W - 1) * c * 4,
+            "allgather": W * (W - 1) * c * 4,
+            "allreduce_fp8bs": W * 2 * (W - 1) * (c + 4 * nbq),
+            "allreduce_f16": W * 2 * (W - 1) * c * 2,
+            "allreduce_bf16": W * 2 * (W - 1) * c * 2,
+            "allreduce_fp8": W * 2 * (W - 1) * (c + 4),
+            "allreduce_xla_fp8": W * 2 * (W - 1) * (c + 4),
+            "bcast_bf16": (W - 1) * N * 2,
+            "reduce": 7 * N * 4,          # 2x4 tree: 4 outer + 3 inner
+            "scatter_f16": tree_bytes(scatter_rounds(W), 2),
+            "gather_f16": tree_bytes(gather_rounds(W), 2),
+            "alltoall_fp8": W * (W - 1) * c,
         }
         timing = {}
         for name in calls:
@@ -466,7 +757,7 @@ def main_path(recs):
             timing[name] = statistics.median(ts[1:])
             print(f"call {name}: {timing[name]:.3f} ms per call (host "
                   f"clock, median of 3 after one warm-up); "
-                  f"{wire_bytes[name]} bytes per rank on the logical ring")
+                  f"{wire_bytes[name] // W} logical wire bytes per rank")
 
         # -- where the time goes ---------------------------------------------
         for name in calls:
@@ -496,6 +787,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     corpus_combine(rng)
     corpus_codec(rng)
+    corpus_lanes(rng)
     recs = kernel_records()
     main_path(recs)
     print(f"total: {time.perf_counter() - t_start:.1f} s")

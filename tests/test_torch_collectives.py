@@ -188,14 +188,20 @@ def test_in_place_rows_and_plain_kernel_set(rank_coll):
 
 
 def test_eligibility_and_unported_wire(rank_coll):
+    """Block-scaled eligibility; an int8 wire without qblock (plain
+    integer narrowing, which the reference's driver refuses too) and the
+    point-to-point exchange (not ported yet) raise NotImplementedError."""
     ok = RankCollectives._bs_eligible
     assert ok("allreduce", "float8_e4m3fn", 128)
     assert ok("allgather", "int8", 32)
     assert not ok("allreduce", "int8", 0)
     assert not ok("allreduce", "float16", 64)
     assert not ok("bcast", "int8", 64)
+    assert not ok("alltoall", "float8_e4m3fn", 64)
     x = torch.zeros(W, 16)
     with pytest.raises(NotImplementedError):
-        rank_coll.allreduce(x, algorithm="ring", wire_dtype="float16")
+        rank_coll.allreduce(x, algorithm="ring", wire_dtype="int8")
+    with pytest.raises(NotImplementedError):
+        rank_coll._run("exchange", x, ReduceFunc.SUM, "xla", None, 0, None)
     with pytest.raises(ValueError):
         rank_coll.allreduce(torch.zeros(3, 16))

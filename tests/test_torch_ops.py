@@ -38,11 +38,16 @@ def _bits(a: np.ndarray) -> np.ndarray:
                    8: np.uint64}[a.itemsize])
 
 
-def assert_bitwise(got, ref, what: str):
+def assert_bitwise(got, ref, what: str, nan_sign: bool = True):
+    """Bit for bit; with ``nan_sign=False`` a NaN matches a NaN of any
+    sign and payload (f32 values) and a NaN code any NaN code of the
+    same wire (uint8 fp8 codes: pass ``nan_codes``)."""
     got, ref = np.asarray(got), np.asarray(ref)
     assert got.shape == ref.shape, (what, got.shape, ref.shape)
     gb, rb = _bits(got), _bits(ref)
     bad = gb != rb
+    if not nan_sign:
+        bad &= ~(np.isnan(got) & np.isnan(ref))
     assert not bad.any(), (
         f"{what}: {int(bad.sum())}/{bad.size} bit mismatches, first at "
         f"{int(np.argmax(bad))}: got {gb[bad][:4]} ref {rb[bad][:4]}")
@@ -149,21 +154,35 @@ def _no_denormals(x: np.ndarray) -> np.ndarray:
     return np.where(tiny, np.float32(0.0), x)
 
 
-def assert_bitwise_ftz(got, ref, what: str):
+def assert_bitwise_ftz(got, ref, what: str, nan_sign: bool = True):
     """Bitwise, except where the reference flushed an f32 denormal
     result to zero: XLA on the CPU runs with flush-to-zero and
     denormals-are-zero, while the port (on the CPU and the card alike)
     and the reference's own numpy codec (accl_tpu/quant.py) keep them."""
     got, ref = np.asarray(got), np.asarray(ref)
     flushed = (np.abs(got) < np.float32(1.1754944e-38)) & (ref == 0)
-    assert_bitwise(np.where(flushed, ref, got), ref, what)
+    assert_bitwise(np.where(flushed, ref, got), ref, what, nan_sign)
+
+
+def nan_codes_merged(codes: np.ndarray, wire: str) -> np.ndarray:
+    """fp8 codes with every NaN code (either sign) mapped to 0x7F."""
+    if wire == "int8":
+        return codes
+    mag = codes & 0x7F
+    nan = mag == 0x7F if wire == "float8_e4m3fn" else mag > 0x7C
+    return np.where(nan, np.uint8(0x7F), codes).astype(np.uint8)
 
 
 @pytest.mark.parametrize("func", FUNCS, ids=lambda f: f.name)
 @pytest.mark.parametrize("wire", WIRES)
 def test_bs_combine_matches_reference(wire, func):
-    """B7 against the Pallas kernel on denormal-free inputs, and against
-    the reference's numpy codec on the full corpus, denormals included."""
+    """B7 against the Pallas kernel on denormal-free inputs (and against
+    the reference's numpy codec on the full corpus, denormals included,
+    in the next test). The sign of a NaN is compared with the numpy
+    codec only: IEEE 754 leaves it unspecified, and XLA:CPU's fp8 -> f32
+    widening keeps it on some code paths and drops it on others (a
+    ragged e5m2 payload of -NaN codes widens to +NaN), so the Pallas
+    reference's NaN signs follow its code generation, not the codec."""
     block = 128
     x = _no_denormals(edge_corpus(9 + int(func)))
     other = _no_denormals(edge_corpus(21 + int(func))[::-1].copy())
@@ -176,13 +195,16 @@ def test_bs_combine_matches_reference(wire, func):
                                         block)
     tq2, ts2 = tcomp.bs_combine_requant(tq, ts, tother, func, wire, block)
     codes, scales = convert.wire_to_numpy(tq2, ts2)
-    assert_bitwise(codes, np.asarray(jq2).view(np.uint8),
+    assert_bitwise(nan_codes_merged(codes, wire),
+                   nan_codes_merged(np.asarray(jq2).view(np.uint8), wire),
                    f"requant q {wire} {func.name}")
-    assert_bitwise(scales, np.asarray(js2), f"requant s {wire} {func.name}")
+    assert_bitwise(scales, np.asarray(js2), f"requant s {wire} {func.name}",
+                   nan_sign=False)
     ref = np.asarray(jcomp.bs_dequant_combine(jq, js, jnp.asarray(other),
                                               JRF(int(func)), block))
     got = tcomp.bs_dequant_combine(tq, ts, tother, func, block)
-    assert_bitwise_ftz(got.numpy(), ref, f"dequant-combine {wire} {func.name}")
+    assert_bitwise_ftz(got.numpy(), ref, f"dequant-combine {wire} {func.name}",
+                       nan_sign=False)
 
 
 @pytest.mark.parametrize("func", FUNCS, ids=lambda f: f.name)
