@@ -6,11 +6,15 @@ share one device; the collectives (ring and fused dense ops, alltoall,
 binomial and 2D-tree rooted ops) run their per-hop work through
 hand-written CUDA C++ kernels (``csrc/``): the elementwise combine, the
 per-tensor wire lanes (casts and the scaled fp8 codec) and the
-block-scaled fp8/int8 wire codec. On CPU tensors every kernel wrapper
-runs its plain PyTorch version instead.
+block-scaled fp8/int8 wire codec. The Llama serving path
+(:mod:`.models`: forward, KV-cache prefill and decode, generate) runs its
+attention through hand-written kernels too (flash attention forward and
+cache decode, :mod:`.ops.attention`). On CPU tensors every kernel
+wrapper runs its plain PyTorch version instead.
 
 Layers: driver :class:`ACCL` -> backend :mod:`.device.cuda` ->
-dataplane :mod:`.parallel.collectives` -> kernels :mod:`.ops`.
+dataplane :mod:`.parallel.collectives` -> kernels :mod:`.ops`; model
+:mod:`.models` (``Llama``) -> attention kernels :mod:`.ops.attention`.
 """
 
 from .accl import ACCL
@@ -21,6 +25,7 @@ from .communicator import Communicator, Rank
 from .constants import (ACCLError, CCLOp, CfgFunc, Compression, ErrorCode,
                         ReduceFunc, StreamFlags, TAG_ANY, decode_error)
 from .device.cuda import CudaContext, CudaDevice, cuda_world
+from .models import Llama, LlamaConfig
 
 __version__ = "0.1.0"
 
@@ -28,6 +33,7 @@ __all__ = [
     "ACCL", "ACCLBuffer", "ACCLError", "ArithConfig", "CallDescriptor",
     "CallHandle", "CCLOp", "CfgFunc", "Communicator", "Compression",
     "CudaContext", "CudaDevice", "DEFAULT_ARITH_CONFIGS", "ErrorCode",
+    "Llama", "LlamaConfig",
     "Rank", "ReduceFunc", "StreamFlags", "TAG_ANY", "cuda_world",
     "decode_error", "resolve_arith_config", "wait_all",
 ]

@@ -39,6 +39,7 @@ build_log = ""                       # nvcc's messages (-Xptxas -v) of that buil
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "accl_combine": [_I, _I, _I, _L, _P, _P, _P, _P],
     "accl_bs_quant": [_I, _I, _I, _L, _P, _P, _P, _P],
@@ -49,6 +50,16 @@ _SIGNATURES = {
     "accl_fp8_scale": [_I, _I, _L, _P, _P, _P, _P, _P],
     "accl_fp8_quant": [_I, _I, _L, _P, _P, _P, _P],
     "accl_fp8_dequant": [_I, _I, _L, _P, _P, _P, _P],
+    # dtype, head_dim, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal, scale,
+    # stream
+    "accl_attn_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _F, _P],
+    "accl_attn_fwd_single": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _P],
+    # dtype, head_dim, q, k_cache, v_cache, o, B, H, Hkv, T, s_new, kv_len,
+    # scale, stream
+    "accl_attn_decode": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _P],
 }
 
 

@@ -5,7 +5,9 @@ and wire payloads: per-tensor lanes (f16 / bf16 / fp8 codes, with one
 f32 scale per payload or per leading row for fp8) and the block-scaled
 lane (int8 / fp8 codes with per-block f32 scales). Wire codes travel as
 raw bits (uint8 for 1-byte types, uint16 for f16 / bf16) plus a dtype
-name, so this module needs no ``ml_dtypes``.
+name, so this module needs no ``ml_dtypes``. The reference Llama's
+parameter pytree maps onto the port's ``state_dict`` the same way
+(``llama_params_from_reference``).
 """
 
 from __future__ import annotations
@@ -54,3 +56,48 @@ def wire_to_numpy(q: torch.Tensor, scales: torch.Tensor | None = None
     if scales is None:
         return codes, None
     return codes, scales.detach().to(torch.float32).cpu().numpy()
+
+
+# the reference Llama's parameter pytree (accl_tpu/models/llama.py
+# ``Llama.init``, dense FFN): top-level leaves and stacked layer leaves
+LLAMA_TOP_KEYS = ("embed", "final_norm", "lm_head")
+LLAMA_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
+                    "w_gate", "w_up", "w_down")
+
+
+def _leaf_tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf -> a CPU tensor of the same dtype; bf16 (ml_dtypes)
+    travels through its uint16 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _require_keys(got, want, where: str):
+    got, want = set(got), set(want)
+    if got != want:
+        raise KeyError(f"reference Llama params{where}: missing "
+                       f"{sorted(want - got)}, unexpected "
+                       f"{sorted(got - want)}")
+
+
+def llama_params_from_reference(params: dict) -> dict:
+    """The reference Llama's parameter pytree (numpy leaves; layer leaves
+    stacked along a leading n_layers axis) -> the port's ``state_dict``
+    (``embed``, ``layers.<i>.<name>``, ``final_norm``, ``lm_head``), one
+    slice per layer, dtypes kept. Raises ``KeyError`` on a missing or an
+    unexpected key."""
+    _require_keys(params, LLAMA_TOP_KEYS + ("layers",), "")
+    layers = params["layers"]
+    _require_keys(layers, LLAMA_LAYER_KEYS, "['layers']")
+    out = {k: _leaf_tensor(params[k]) for k in LLAMA_TOP_KEYS}
+    n_layers = {np.shape(layers[k])[0] for k in LLAMA_LAYER_KEYS}
+    if len(n_layers) != 1:
+        raise ValueError(f"reference Llama params: layer leaves disagree "
+                         f"on the layer count {sorted(n_layers)}")
+    for name in LLAMA_LAYER_KEYS:
+        stacked = _leaf_tensor(layers[name])
+        for i in range(stacked.shape[0]):
+            out[f"layers.{i}.{name}"] = stacked[i].clone()
+    return out

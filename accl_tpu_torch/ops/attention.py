@@ -1,0 +1,254 @@
+"""Kernels B8, B9 and B12: flash attention forward and KV-cache decode.
+
+The counterpart of ``accl_tpu/ops/attention.py``, forward and decode
+only (the backward kernels B10/B11 belong to the training slice). The
+layouts are the reference's: q (B, H, S, D); k/v (B, Hkv, S, D) with Hkv
+dividing H; the decode cache (B, T, Hkv, D), read as it is. GQA is index
+arithmetic (the counterpart of ``_kv_head_row``): KV is never repeated.
+
+Wrappers: on CUDA tensors they launch the hand-written kernels of
+``csrc/attention.cu``; on CPU tensors they run the plain PyTorch
+versions ``flash_attention_ref`` / ``flash_decode_ref``.
+
+- ``flash_attention`` / ``flash_attention_fwd``: B9
+  (``attn_fwd_single_kernel``) when the padded KV is one block of the
+  reference's block size (its ``nk == 1`` test, with ``_auto_block`` and
+  its clamp), B8 (``attn_fwd_kernel``) otherwise. The kernels' own tiles
+  are not the reference's 512-wide blocks: only this dispatch follows
+  them.
+- ``flash_decode``: B12 (``attn_decode_kernel``).
+
+Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
+and B12's two, ``decode_launches`` (one new token, S_new == 1) and
+``prefill_launches`` (a chunk, S_new > 1). ``plain_runs`` counts the
+plain versions' runs on the CPU under the branch the dispatch chose
+("fwd", "fwd_single", "decode").
+
+No gradients on the card yet: a CUDA input that requires grad raises
+``NotImplementedError`` (the training slice, ROADMAP A8, adds B10/B11).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+_NEG_INF = torch.finfo(torch.float32).min
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/attention.cu
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+SINGLE_MAX_KEYS = 2048   # B9 holds a 16-row tile of scores in shared memory
+
+fwd_launches = 0
+fwd_single_launches = 0
+decode_launches = 0
+prefill_launches = 0
+plain_runs = {"fwd": 0, "fwd_single": 0, "decode": 0}
+
+
+def _auto_block(s: int) -> int:
+    """The reference's block rule for length ``s`` (512 or 256 when it
+    divides ``s`` or ``s`` is at least 4 blocks long, else 128)."""
+    for b in (512, 256):
+        if s % b == 0 or s >= 4 * b:
+            return b
+    return 128
+
+
+def is_single_block(skv: int, block_k: int | None = None) -> bool:
+    """The reference's ``nk == 1``: the KV padded to its (clamped) block
+    is one block. Selects B9 over B8."""
+    bk = min(block_k or _auto_block(skv), max(skv, 8))
+    return -(-skv // bk) == 1
+
+
+def _check_grad(*ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "attention kernels have no backward on the card yet: the "
+            "training slice (ROADMAP A8, kernels B10/B11) adds it")
+
+
+def _check_fwd(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q (B, H, S, D), k/v (B, Hkv, "
+                         f"S, D); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError("flash_attention: q and k/v differ in batch or "
+                         "head dim")
+    if H % k.shape[1]:
+        raise ValueError(f"q heads {H} not a multiple of kv heads "
+                         f"{k.shape[1]}")
+
+
+def _kernel_ready(what: str, *ts):
+    t0 = ts[0]
+    for t in ts:
+        if t.device != t0.device or t.dtype != t0.dtype:
+            raise ValueError(f"{what}: operands differ in device or dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must start on a 16-byte "
+                             f"boundary (the kernels load 16-byte vectors)")
+    if t0.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what} kernel: unsupported dtype {t0.dtype} "
+                        f"(float32 or bfloat16)")
+    if t0.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what} kernel: head dim {t0.shape[-1]} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    _check_grad(*ts)
+
+
+def _softmax_parts(s, mask):
+    """(m, p, l) of masked scores, as the reference's kernels write them:
+    masked scores are finfo(f32).min, l is floored at 1e-30."""
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    return m, p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        sm_scale: float | None = None):
+    """Plain PyTorch version of B8/B9 (any device): softmax attention in
+    f32 with the reference's mask (top-left causal: key j is seen by query
+    i when j <= i) and its constants. Returns (O in q's dtype, LSE (B*H,
+    Sq) f32)."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale = float(D) ** -0.5 if sm_scale is None else sm_scale
+    # q head h = kv head * group + g: rows of one kv head side by side
+    qf = q.reshape(B, Hkv, (H // Hkv) * Sq, D).float()
+    s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale
+    rows = torch.arange(qf.shape[2], device=q.device) % Sq
+    keys = torch.arange(Skv, device=q.device)
+    mask = (keys[None, :] <= rows[:, None] if causal
+            else torch.ones(rows.numel(), Skv, dtype=torch.bool,
+                            device=q.device))
+    m, p, l = _softmax_parts(s, mask)
+    o = torch.matmul(p, v.float()) / l
+    lse = (m + torch.log(l)).reshape(B * H, Sq)
+    return o.reshape(B, H, Sq, D).to(q.dtype), lse
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True,
+                        sm_scale: float | None = None,
+                        block_q: int | None = None,
+                        block_k: int | None = None):
+    """Fused attention forward. q (B, H, Sq, D); k/v (B, Hkv, Skv, D).
+    Returns (O (B, H, Sq, D) in q's dtype, LSE (B*H, Sq) f32: the
+    residual the backward pass will read). ``block_k`` is the
+    reference's: with its clamp it selects B9 (one KV block) or B8, and
+    nothing else; ``block_q`` is accepted for the reference's signature
+    (the kernels' tiles are their own)."""
+    global fwd_launches, fwd_single_launches
+    _check_fwd(q, k, v)
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    scale = float(D) ** -0.5 if sm_scale is None else float(sm_scale)
+    single = is_single_block(Skv, block_k)
+    if q.device.type == "cpu":
+        plain_runs["fwd_single" if single else "fwd"] += 1
+        return flash_attention_ref(q, k, v, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _kernel_ready("flash_attention", q, k, v)
+    if single and Skv > SINGLE_MAX_KEYS:
+        raise ValueError(f"flash_attention: one KV block of {Skv} keys "
+                         f"exceeds B9's {SINGLE_MAX_KEYS}; pass a smaller "
+                         f"block_k")
+    o = torch.empty_like(q)
+    lse = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
+    fn = (_build.library().accl_attn_fwd_single if single
+          else _build.library().accl_attn_fwd)
+    _build.check(fn(_DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Hkv,
+                    Sq, Skv, int(causal), scale, _build.stream_of(q)),
+                 "flash_attention")
+    if single:
+        fwd_single_launches += 1
+    else:
+        fwd_launches += 1
+    return o, lse
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    sm_scale: float | None = None,
+                    block_q: int | None = None,
+                    block_k: int | None = None):
+    """Fused attention (see :func:`flash_attention_fwd`); returns O."""
+    return flash_attention_fwd(q, k, v, causal, sm_scale, block_q,
+                               block_k)[0]
+
+
+def _check_decode(q, k_cache, v_cache, kv_len: int):
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: q (B, H, S_new, D), cache (B, T, "
+                         f"Hkv, D); got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}")
+    B, H, S_new, D = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if k_cache.shape[0] != B or k_cache.shape[3] != D:
+        raise ValueError("flash_decode: q and cache differ in batch or "
+                         "head dim")
+    if H % Hkv:
+        raise ValueError(f"q heads {H} not a multiple of kv heads {Hkv}")
+    if not S_new <= kv_len <= T:
+        raise ValueError(f"flash_decode: need S_new ({S_new}) <= kv_len "
+                         f"({kv_len}) <= T ({T})")
+
+
+def flash_decode_ref(q, k_cache, v_cache, kv_len: int,
+                     sm_scale: float | None = None):
+    """Plain PyTorch version of B12 (any device). Query i of the S_new
+    new tokens sits at position kv_len - S_new + i and sees cache
+    positions up to its own; nothing at or past kv_len is read."""
+    B, H, S_new, D = q.shape
+    Hkv = k_cache.shape[2]
+    scale = float(D) ** -0.5 if sm_scale is None else sm_scale
+    qf = q.reshape(B, Hkv, (H // Hkv) * S_new, D).float()
+    kk = k_cache[:, :kv_len].float().permute(0, 2, 3, 1)   # (B, Hkv, D, n)
+    vv = v_cache[:, :kv_len].float().transpose(1, 2)       # (B, Hkv, n, D)
+    s = torch.matmul(qf, kk) * scale
+    qpos = kv_len - S_new + torch.arange(qf.shape[2], device=q.device) % S_new
+    mask = torch.arange(kv_len, device=q.device)[None, :] <= qpos[:, None]
+    _m, p, l = _softmax_parts(s, mask)
+    p = torch.where(mask, p, 0.0)
+    o = torch.matmul(p, vv) / l
+    return o.reshape(B, H, S_new, D).to(q.dtype)
+
+
+def flash_decode(q, k_cache, v_cache, kv_len: int,
+                 sm_scale: float | None = None,
+                 block_k: int | None = None):
+    """KV-cache attention for decode and chunked prefill. q (B, H, S_new,
+    D): the newest tokens' queries at positions kv_len - S_new ..
+    kv_len - 1; k_cache/v_cache (B, T, Hkv, D), filled through
+    ``kv_len`` (a host int: no device sync). Causal within the new
+    tokens. Returns (B, H, S_new, D). ``block_k`` is the reference's
+    argument; the kernel's key tile is its own."""
+    global decode_launches, prefill_launches
+    kv_len = int(kv_len)
+    _check_decode(q, k_cache, v_cache, kv_len)
+    B, H, S_new, D = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = float(D) ** -0.5 if sm_scale is None else float(sm_scale)
+    if q.device.type == "cpu":
+        plain_runs["decode"] += 1
+        return flash_decode_ref(q, k_cache, v_cache, kv_len, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    _kernel_ready("flash_decode", q, k_cache, v_cache)
+    o = torch.empty_like(q)
+    _build.check(_build.library().accl_attn_decode(
+        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), o.data_ptr(), B, H, Hkv, T, S_new, kv_len,
+        scale, _build.stream_of(q)), "flash_decode")
+    if S_new == 1:
+        decode_launches += 1
+    else:
+        prefill_launches += 1
+    return o

@@ -32,6 +32,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. Where the time goes: each call of the main path once more under
    torch.profiler, device time summed per kernel family, beside the
    call's host-clock time (the rest is the device's idle share).
+5. Attention kernels: B8 (``attn_fwd``), B9 (``attn_fwd_single``) and
+   B12 (``attn_decode``) against their plain versions on the same CUDA
+   inputs: the CPU tests' shapes, NaN in the cache past ``kv_len`` with
+   ``kv_len`` at 1, one key tile -1, +0, +1 and T, and the full-width
+   shapes of Llama-3-8B (H=32, Hkv=8, D=128) in bf16 and f32, each timed
+   with CUDA events beside the same function through PyTorch's
+   ``scaled_dot_product_attention`` (timed only; the port never calls it).
+6. Llama model, f32, full width, 4 layers: the same random weights
+   through ``attention="flash"`` (the kernels) and ``"dense"`` (the
+   reference's plain path): ``forward`` on (2, 2048) (B8) and (4, 128)
+   (B9), ``forward_cached`` over a 1000-token prefill and 8 decode steps
+   (B12), held within a stated tolerance.
+7. Serving: Llama-3-8B as published (32 layers, bf16 weights), four
+   random 1024-token prompts through ``generate(max_new=32)``; the
+   prefill logits of ``forward_cached`` against ``forward``; prefill and
+   per-step decode time, tokens/s, the device's busy share per kernel
+   family under torch.profiler and the peak memory. The attention launch
+   counters are zeroed before phase 6 and read after phase 7: every
+   attention kernel must have run there.
 
 Prints per-kernel and per-call lines, then one JSON line of kernel
 records, then ``{"ok": true, "device": {...}}`` as the last line. Any
@@ -41,6 +60,8 @@ failure raises: the exit code is then not 0 and no result line prints.
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -54,6 +75,7 @@ N = 64 << 20               # fp32 elements per rank (256 MiB)
 QBLOCK = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 SEED = 20261016
 # tests/test_pallas_quant.py holds the W=4 quantized allreduce within
 # 0.07 * max(sum_r |x_r|) + 1e-3: an allreduce quantizes each element W
@@ -101,8 +123,9 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
-def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+def bound_ms(nbytes: int, nops: int,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -430,6 +453,11 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("fp8_scale", "scale_finish_kernel"),
             ("fp8_quant", "fp8_quant_kernel"),
             ("fp8_dequant", "fp8_dequant_kernel"),
+            ("attn_fwd_single", "attn_fwd_single_kernel"),
+            ("attn_fwd", "attn_fwd_kernel"),
+            ("attn_decode", "attn_decode_kernel"),
+            ("gemm", "gemm"), ("gemm", "gemv"), ("gemm", "nvjet"),
+            ("gemm", "cutlass"), ("gemm", "xmma"),
             ("torch_reduce", "reduce_kernel"),
             ("copy", "copy"), ("copy", "Memcpy"), ("fill", "Memset"),
             ("fill", "Fill"))
@@ -777,6 +805,494 @@ def main_path(recs):
             a.deinit()
 
 
+# -- attention and the Llama serving path ----------------------------------
+
+ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"
+# one attention tolerance, stated once and held element by element:
+# f32 |got - plain| <= 2e-5 + 2e-5 * |plain| (one f32 softmax summed in
+# another order); bf16 <= 2^-7 * |plain| + 2^-7 * median |plain|: one
+# bf16 ulp of each element (both round an f32 value, which may sit on
+# either side of a rounding boundary), with a floor of one ulp of the
+# typical output for elements near zero; the LSE is f32 always
+F32_RTOL = F32_ATOL = 2e-5
+BF16_REL = 2.0 ** -7
+ATTN_TOL = ("f32 2e-5 + 2e-5*|plain|; bf16 2^-7*|plain| + "
+            "2^-7*median|plain|, per element")
+KEY_TILE = 64               # csrc/attention.cu BK
+# flash against dense, f32, 4 layers: the two attentions sum in other
+# orders (about 1e-7 relative per output), amplified through 4 layers and
+# the lm_head's 4096-term products: max |diff| <= 1e-4 * max |logit|
+MODEL_F32_RTOL = 1e-4
+# serving prefill, bf16, forward_cached (B12) against forward (B8): both
+# run 64-row query tiles over the same 64-key tiles in the same order, so
+# their f32 results agree but for rare roundings that 32 bf16 layers may
+# carry: max |diff| <= one bf16 ulp of the logit scale (2^-7 * max|logit|)
+# and the greedy token the same at 99 % of the positions
+SERVE_BF16_RTOL = 2.0 ** -7
+SERVE_MIN_AGREE = 0.99
+# serving, bf16, 32 layers, flash (the kernels) against dense (the plain
+# path) on the same weights: dense rounds its probabilities to bf16
+# before the PV product (2^-9 relative per term), flash keeps them f32;
+# that difference, about 2^-9 of each attention output, reaches the
+# logits through 32 residual layers as a random walk (sqrt(32) * 2^-9 =
+# 0.011 relative). A wiring fault (a head, a cache row, a rope position)
+# moves the logits by O(1) relative. Limit: ||flash - dense|| <= 2^-4 *
+# ||dense|| (Frobenius norms over all logits)
+SERVE_DENSE_REL = 2.0 ** -4
+# the path each attention record's ``launches`` is read from: serving
+# never runs B9 (its prompts exceed one key block); the f32 model
+# phase's (4, 128) forward does
+LAUNCH_PATH = {"attn_fwd": "serving", "attn_fwd_single": "model_f32",
+               "attn_decode": "serving", "attn_prefill": "serving"}
+
+
+def attention_counters() -> dict:
+    from accl_tpu_torch.ops import attention as A
+    return {"attn_fwd": A.fwd_launches,
+            "attn_fwd_single": A.fwd_single_launches,
+            "attn_decode": A.decode_launches,
+            "attn_prefill": A.prefill_launches}
+
+
+def zero_attention_counters():
+    from accl_tpu_torch.ops import attention as A
+    A.fwd_launches = A.fwd_single_launches = 0
+    A.decode_launches = A.prefill_launches = 0
+
+
+def attn_limit(plain):
+    """Per-element limit of |kernel - plain| (see ATTN_TOL)."""
+    import torch
+    p = plain.float().abs()
+    if plain.dtype == torch.bfloat16:
+        return BF16_REL * p + BF16_REL * float(p.median())
+    return F32_ATOL + F32_RTOL * p
+
+
+def hold_attn(got, plain, what: str, lse=None,
+              plain_lse=None) -> tuple[float, float]:
+    """Kernel output within the stated tolerance of its plain version,
+    element by element; returns (max abs error, largest ratio of an
+    error to its element's limit), over O and, where given, the LSE."""
+    import torch
+    need(got.shape == plain.shape and got.dtype == plain.dtype,
+         f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+         f"{tuple(plain.shape)} {plain.dtype}")
+    need(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    d = (got.float() - plain.float()).abs()
+    ratio = float((d / attn_limit(plain)).max())
+    err = float(d.max())
+    need(ratio <= 1.0, f"{what}: max abs err {err}, {ratio:.3g} times "
+         f"its element's limit ({ATTN_TOL})")
+    if lse is not None:
+        dl = (lse - plain_lse).abs()
+        r = float((dl / (F32_ATOL + F32_RTOL * plain_lse.abs())).max())
+        need(r <= 1.0, f"{what}: LSE max abs err {float(dl.max())}")
+        err, ratio = max(err, float(dl.max())), max(ratio, r)
+    return err, ratio
+
+
+def attn_work(B, H, Hkv, Sq, Skv, D, esize, s_new=None):
+    """(bytes, operations) causal attention needs: q, k, v read once (for
+    decode only the kv_len prefix of the cache), O (and the f32 LSE of the
+    forward) written once; 4*D operations per score entry a query sees."""
+    if s_new is None:              # forward: query i sees keys 0..i
+        n = min(Sq, Skv)
+        seen = n * (n + 1) // 2 + (Sq - n) * Skv
+        nbytes = (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D) * esize \
+            + 4 * B * H * Sq
+    else:                          # decode: kv_len = Skv, s_new new rows
+        seen = s_new * (Skv - s_new) + s_new * (s_new + 1) // 2
+        nbytes = (2 * B * H * s_new * D + 2 * B * Hkv * Skv * D) * esize
+    return nbytes, 4 * D * B * H * seen
+
+
+def attention_edges(rng):
+    """The CPU tests' shapes and the decode edge cases, f32 and bf16."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    fwd_cases = [  # B, H, Hkv, Sq, Skv, D, causal, block_k
+        (1, 2, 2, 64, 64, 16, True, None), (1, 2, 2, 130, 130, 32, False, None),
+        (1, 4, 2, 96, 96, 16, True, 32), (2, 4, 1, 96, 96, 16, False, None),
+        (1, 4, 2, 40, 96, 16, True, 32), (2, 8, 2, 300, 300, 64, True, None),
+        (1, 8, 1, 513, 513, 128, False, None)]
+    worst = (0.0, 0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, Hkv, Sq, Skv, D, causal, bk in fwd_cases:
+            q = torch.from_numpy(rng.standard_normal((B, H, Sq, D))).to(
+                "cuda", dt)
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (B, Hkv, Skv, D))).to("cuda", dt) for _ in range(2))
+            o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
+            ro, rl = A.flash_attention_ref(q, k, v, causal)
+            worst = max_pair(worst, hold_attn(
+                o, ro, f"attn fwd {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}",
+                lse, rl))
+        T = 3 * KEY_TILE + 8
+        for s_new in (1, 3):
+            for kv_len in (max(1, s_new), KEY_TILE - 1, KEY_TILE,
+                           KEY_TILE + 1, T):
+                q = torch.from_numpy(rng.standard_normal(
+                    (2, 8, s_new, 32))).to("cuda", dt)
+                kc, vc = (torch.from_numpy(rng.standard_normal(
+                    (2, T, 2, 32))).to("cuda", dt) for _ in range(2))
+                kc[:, kv_len:] = float("nan")
+                vc[:, kv_len:] = float("nan")
+                worst = max_pair(worst, hold_attn(
+                    A.flash_decode(q, kc, vc, kv_len),
+                    A.flash_decode_ref(q, kc, vc, kv_len),
+                    f"attn decode {dt} s_new={s_new} kv_len={kv_len}"))
+    print(f"attention edges: {2 * len(fwd_cases)} forward cases (B8 and "
+          f"B9, MHA/GQA/MQA, ragged, straddling blocks, Sq != Skv) and 20 "
+          f"decode cases (NaN past kv_len) within tolerance; max abs err "
+          f"{worst[0]}, largest error/limit {worst[1]:.3f} ({ATTN_TOL})")
+
+
+def max_pair(a, b):
+    """Element-wise max of two (max abs error, error/limit) pairs."""
+    return max(a[0], b[0]), max(a[1], b[1])
+
+
+def attention_records():
+    """B8, B9 and B12 at the full-width shapes, bf16 (the table's rows)
+    and f32 (checked and printed), against their plain versions and
+    PyTorch's SDPA, timed."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    H, Hkv, D = 32, 8, 128          # Llama-3-8B attention geometry
+    recs = []
+    shapes = [  # name, replaces, B, Sq/S_new, Skv/kv_len, T (decode)
+        ("attn_fwd", "accl_tpu/ops/attention.py:285", 4, 2048, 2048, None),
+        ("attn_fwd_single", "accl_tpu/ops/attention.py:252", 4, 128, 128,
+         None),
+        ("attn_decode", "accl_tpu/ops/attention.py:689", 4, 1, 2047, 4096),
+        ("attn_prefill", "accl_tpu/ops/attention.py:689", 4, 1024, 1024,
+         1024)]
+    for name, replaces, B, sq, skv, T in shapes:
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, H, sq, D, device="cuda", generator=g).to(dt)
+            if T is None:
+                k = torch.randn(B, Hkv, skv, D, device="cuda",
+                                generator=g).to(dt)
+                v = torch.randn_like(k)
+                o, lse = A.flash_attention_fwd(q, k, v, True)
+                ref, rl = A.flash_attention_ref(q, k, v, True)
+                err, ratio = hold_attn(o, ref, f"{name} {dt}", lse, rl)
+                kern = lambda: A.flash_attention_fwd(q, k, v, True)  # noqa
+                plain = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
+                lib = lambda: F.scaled_dot_product_attention(  # noqa
+                    q, k, v, is_causal=True, enable_gqa=True)
+                nbytes, nops = attn_work(B, H, Hkv, sq, skv, D,
+                                         q.element_size())
+            else:
+                kc = torch.randn(B, T, Hkv, D, device="cuda",
+                                 generator=g).to(dt)
+                vc = torch.randn_like(kc)
+                kc[:, skv:] = float("nan")
+                vc[:, skv:] = float("nan")
+                o = A.flash_decode(q, kc, vc, skv)
+                ref = A.flash_decode_ref(q, kc, vc, skv)
+                err, ratio = hold_attn(o, ref, f"{name} {dt}")
+                kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
+                plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
+                kt = kc[:, :skv].transpose(1, 2)
+                vt = vc[:, :skv].transpose(1, 2)
+                # q at the end of the prefix: causal (square) or no mask
+                lib = lambda: F.scaled_dot_product_attention(  # noqa
+                    q, kt, vt, is_causal=sq > 1, enable_gqa=True)
+                nbytes, nops = attn_work(B, H, Hkv, sq, skv, D,
+                                         q.element_size(), s_new=sq)
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, reps=5)
+            library_ms = time_ms(lib)
+            rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+            bms, by = bound_ms(nbytes, nops, rate)
+            print(f"kernel {name} {str(dt)[6:]} B={B} H={H} Hkv={Hkv} D={D} "
+                  f"{'Sq' if T is None else 'S_new'}={sq} "
+                  f"{'Skv' if T is None else 'kv_len'}={skv}"
+                  f"{'' if T is None else f' T={T}'}: {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), max abs "
+                  f"err vs plain {err}, largest error/limit {ratio:.3f} "
+                  f"({ATTN_TOL})")
+            if dt == torch.bfloat16:
+                recs.append({"name": name, "route": "cuda",
+                             "source": ATTN_SRC, "replaces": replaces,
+                             "launches": 0, "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bms,
+                             "bound_by": by, "library_ms": library_ms})
+            del q, o, ref
+            torch.cuda.empty_cache()
+    return recs
+
+
+def llama_model_phase():
+    """Flash (the kernels) against dense (the plain path), f32, full
+    width, 4 layers, the same weights."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"model phase: allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}")
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4,
+                              dtype=torch.float32,
+                              param_dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    flash = Llama(cfg).init(g)
+    dense = Llama(dataclasses.replace(cfg, attention="dense"))
+    dense.load_state_dict(flash.state_dict())
+    print(f"model: Llama-3-8B geometry, 4 of 32 layers, f32, "
+          f"{flash.param_count()} parameters")
+    tg = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def toks(b, s):
+        return torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                             generator=tg)
+
+    def compare(a, b, what):
+        need(bool(torch.isfinite(a).all()), f"model {what}: non-finite")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        tol = MODEL_F32_RTOL * scale
+        print(f"model {what}: max abs diff flash vs dense {err:.3g} "
+              f"(logit scale {scale:.3g}, tolerance {tol:.3g})")
+        need(err <= tol, f"model {what}: flash and dense differ by {err}")
+
+    with torch.no_grad(), attention_calls(cfg.n_layers) as calls:
+        for b, s in ((2, 2048), (4, 128)):
+            t = toks(b, s)
+            compare(flash(t), dense(t), f"forward ({b}, {s})")
+        t = toks(2, 1008)
+        cf, cd = flash.init_kv_cache(2, 1008), dense.init_kv_cache(2, 1008)
+        compare(flash.forward_cached(t[:, :1000], cf)[0],
+                dense.forward_cached(t[:, :1000], cd)[0],
+                "forward_cached prefill 1000")
+        for i in range(1000, 1008):
+            compare(flash.forward_cached(t[:, i:i + 1], cf)[0],
+                    dense.forward_cached(t[:, i:i + 1], cd)[0],
+                    f"decode step at {i}")
+    with torch.no_grad():
+        hold_path_calls(calls, "model")
+    del calls, flash, dense
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def attention_calls(n_layers: int):
+    """Record the Llama path's attention calls of its first and last
+    layer as (wrapper name, args, kwargs, output), so that the kernels'
+    outputs can be held against the plain versions at exactly the
+    shapes the path gave them. The wrappers are the model module's own
+    names; the kernels still count their launches."""
+    from accl_tpu_torch.models import llama as L
+    calls = []
+    seen = {"flash_attention": 0, "flash_decode": 0}
+    wrapped = {name: getattr(L, name) for name in seen}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            out = wrapped[name](*args, **kwargs)
+            if seen[name] % n_layers in (0, n_layers - 1):
+                calls.append((name, args, kwargs, out.clone()))
+            seen[name] += 1
+            return out
+        return call
+
+    for name in seen:
+        setattr(L, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in wrapped.items():
+            setattr(L, name, fn)
+
+
+def hold_path_calls(calls, what: str):
+    """Each recorded kernel output against its plain version on the same
+    inputs; one line per kernel with its shapes and kv_len range."""
+    from accl_tpu_torch.ops import attention as A
+    kinds = {}
+    for name, args, kwargs, out in calls:
+        q = args[0]
+        if name == "flash_attention":
+            kind = ("B9" if A.is_single_block(args[1].shape[2]) else "B8")
+            plain = A.flash_attention_ref(*args, **kwargs)[0]
+            at = args[1].shape[2]
+        else:
+            kind = "B12 decode" if q.shape[2] == 1 else "B12 prefill"
+            plain = A.flash_decode_ref(*args, **kwargs)
+            at = kwargs["kv_len"]
+        pair = hold_attn(out, plain, f"{what} {kind} q {tuple(q.shape)} "
+                         f"keys {at}")
+        k = kinds.setdefault(kind, {"n": 0, "q": tuple(q.shape),
+                                    "dtype": q.dtype, "keys": set(),
+                                    "worst": (0.0, 0.0)})
+        k["n"] += 1
+        k["keys"].add(at)
+        k["worst"] = max_pair(k["worst"], pair)
+        del plain
+    for kind, k in sorted(kinds.items()):
+        print(f"{what} {kind}: {k['n']} calls of the first and last layer "
+              f"held against the plain version at the path's own shapes "
+              f"(q {k['q']} {k['dtype']}, keys {min(k['keys'])}.."
+              f"{max(k['keys'])}); max abs err {k['worst'][0]}, largest "
+              f"error/limit {k['worst'][1]:.3f} ({ATTN_TOL})")
+    return kinds
+
+
+def serving_phase():
+    """Llama-3-8B as published (32 layers, bf16 weights): generate for
+    four 1024-token prompts, held against the plain path, timed and
+    profiled. Returns the serving path's launch counts."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              param_dtype=torch.bfloat16)
+    B, S, NEW = 4, 1024, 32
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    t0 = time.perf_counter()
+    model = Llama(cfg).init(g)
+    torch.cuda.synchronize()
+    print(f"serving: Llama-3-8B, {cfg.n_layers} layers, bf16, "
+          f"{model.param_count()} parameters, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=g)
+    # the serving path, once: generate, then one more prefill, a decode
+    # step and a full forward for the checks below
+    with torch.no_grad(), attention_calls(cfg.n_layers) as calls:
+        zero_attention_counters()
+        out = model.generate(prompts, max_new=NEW)
+        cache = model.init_kv_cache(B, S + NEW)
+        cached, _ = model.forward_cached(prompts, cache)
+        tok = cached[:, -1].argmax(-1)[:, None]
+        step, _ = model.forward_cached(tok, cache)
+        full = model(prompts)
+        torch.cuda.synchronize()
+        launches = attention_counters()
+    print(f"serving phase launches: {launches}")
+    need(launches["attn_fwd"] > 0 and launches["attn_decode"] > 0
+         and launches["attn_prefill"] > 0,
+         "serving: B8 or B12 (decode or prefill) not launched")
+    with torch.no_grad():
+        need(out.shape == (B, NEW), f"generate: shape {tuple(out.shape)}")
+        need(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+             "generate: token outside the vocabulary")
+        need(bool(torch.isfinite(cached).all() and torch.isfinite(full).all()
+                  and torch.isfinite(step).all()),
+             "serving: non-finite logits")
+        err = float((cached - full).abs().max())
+        scale = float(full.abs().max())
+        agree = float((cached.argmax(-1) == full.argmax(-1)).float().mean())
+        print(f"serving prefill logits, forward_cached (B12) vs forward (B8): "
+              f"max abs diff {err:.4g} (logit scale {scale:.4g}, tolerance "
+              f"{SERVE_BF16_RTOL * scale:.4g}); greedy agreement {agree:.4f} "
+              f"(at least {SERVE_MIN_AGREE})")
+        need(err <= SERVE_BF16_RTOL * scale and agree >= SERVE_MIN_AGREE,
+             "serving: forward_cached prefill and forward disagree")
+        hold_path_calls(calls, "serving")
+        del calls
+        # the plain path on the same weights: dense attention
+        model.config = dataclasses.replace(cfg, attention="dense")
+        try:
+            dcache = model.init_kv_cache(B, S + NEW)
+            for what, flash, dense in (
+                    ("prefill (forward_cached)", cached,
+                     lambda: model.forward_cached(prompts, dcache)[0]),
+                    ("decode step at 1024", step,
+                     lambda: model.forward_cached(tok, dcache)[0]),
+                    ("forward", full, lambda: model(prompts))):
+                ref = dense()
+                rel = float(torch.linalg.vector_norm(flash - ref)
+                            / torch.linalg.vector_norm(ref))
+                agree = float((flash.argmax(-1) == ref.argmax(-1)).float()
+                              .mean())
+                print(f"serving {what}, flash vs dense (bf16, 32 layers): "
+                      f"relative diff {rel:.4g} (limit {SERVE_DENSE_REL}), "
+                      f"max abs diff {float((flash - ref).abs().max()):.4g}, "
+                      f"greedy agreement {agree:.4f}")
+                need(rel <= SERVE_DENSE_REL,
+                     f"serving {what}: flash and dense differ")
+                del ref
+        finally:
+            model.config = cfg
+        del cached, full, step, cache, dcache
+        # the timing and profiling below drive the path again; its
+        # launch counts were read above
+
+        def prefill():
+            c = model.init_kv_cache(B, S + NEW)
+            return model.forward_cached(prompts, c)
+
+        def decode_steps(state, n):
+            """n greedy steps from ``state`` = (logits, cache); each
+            step's host-clock ms."""
+            logits, c = state
+            ts = []
+            for _ in range(n):
+                t1 = time.perf_counter()
+                tok = logits[:, -1].argmax(-1)
+                logits, c = model.forward_cached(tok[:, None], c)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            return ts
+
+        def host_ms(fn):
+            """Median host-clock ms of 3 calls that end synchronised."""
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            return statistics.median(ts)
+
+        fwd_ms = host_ms(lambda: model(prompts))
+        pre_ms = host_ms(prefill)
+        state = prefill()
+        dec_ms = statistics.median(decode_steps(state, 16))
+        print(f"serving forward (B8): {fwd_ms:.2f} ms for {B}x{S} tokens "
+              f"({B * S / fwd_ms * 1e3:.0f} tokens/s; host clock, median "
+              f"of 3)")
+        print(f"serving prefill: {pre_ms:.2f} ms for {B}x{S} tokens "
+              f"({B * S / pre_ms * 1e3:.0f} tokens/s; host clock, median "
+              f"of 3)")
+        print(f"serving decode: {dec_ms:.3f} ms per step of {B} tokens "
+              f"({B / dec_ms * 1e3:.1f} tokens/s; median of 16 steps at "
+              f"positions {S}..{S + 15})")
+        state = prefill()
+        for what, fn, window in (
+                ("forward", lambda: model(prompts), fwd_ms),
+                ("prefill", prefill, pre_ms),
+                ("decode x8", lambda: decode_steps(state, 8), 8 * dec_ms)):
+            fams = device_ms_by_family(fn)
+            if not fams:
+                print(f"serving {what}: busy share not measured (the "
+                      f"profiler saw no device activity)")
+                continue
+            busy = sum(fams.values())
+            print(f"serving {what}: {busy:.2f} ms of kernels in a "
+                  f"{window:.2f} ms host-clock window, busy share "
+                  f"{busy / window:.3f}; " + ", ".join(
+                      f"{f} {ms:.2f} ms" for f, ms in sorted(fams.items())))
+        del state
+    print(f"serving peak memory: "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
+          f"above the {held / 2 ** 30:.2f} GiB held before the phase")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -790,6 +1306,23 @@ def main() -> int:
     corpus_lanes(rng)
     recs = kernel_records()
     main_path(recs)
+    gc.collect()                      # the rank worlds' buffers sit in cycles
+    torch.cuda.empty_cache()
+    attention_edges(rng)
+    attn_recs = attention_records()
+    zero_attention_counters()         # the f32 model path's own counts
+    llama_model_phase()
+    by_path = {"model_f32": attention_counters()}
+    print(f"model phase launches: {by_path['model_f32']}")
+    need(by_path["model_f32"]["attn_fwd_single"] > 0,
+         "model phase: B9 never launched")
+    by_path["serving"] = serving_phase()     # zeroes the counts itself
+    for r in attn_recs:
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
+        need(r["launches"] > 0, f"kernel {r['name']} was never launched on "
+             f"the {LAUNCH_PATH[r['name']]} path")
+    recs += attn_recs
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {

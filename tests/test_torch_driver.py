@@ -196,7 +196,8 @@ def test_port_imports_no_jax():
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, accl_tpu_torch, accl_tpu_torch.testing, "
-            "accl_tpu_torch.convert; "
+            "accl_tpu_torch.convert, accl_tpu_torch.models, "
+            "accl_tpu_torch.ops.attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{_FORBIDDEN!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
