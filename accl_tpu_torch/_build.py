@@ -60,6 +60,14 @@ _SIGNATURES = {
     # scale, stream
     "accl_attn_decode": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _P],
+    # dtype, head_dim, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv, Sq,
+    # Skv, causal, scale, stream
+    "accl_attn_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _F, _P],
+    # dtype, head_dim, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq, Skv,
+    # causal, scale, stream
+    "accl_attn_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _F, _P],
 }
 
 

@@ -7,7 +7,9 @@ lane (int8 / fp8 codes with per-block f32 scales). Wire codes travel as
 raw bits (uint8 for 1-byte types, uint16 for f16 / bf16) plus a dtype
 name, so this module needs no ``ml_dtypes``. The reference Llama's
 parameter pytree maps onto the port's ``state_dict`` the same way
-(``llama_params_from_reference``).
+(``llama_params_from_reference``) and back
+(``llama_params_to_reference``, whose bf16 leaves take numpy's
+"bfloat16" type where ``ml_dtypes`` has registered it).
 """
 
 from __future__ import annotations
@@ -100,4 +102,37 @@ def llama_params_from_reference(params: dict) -> dict:
         stacked = _leaf_tensor(layers[name])
         for i in range(stacked.shape[0]):
             out[f"layers.{i}.{name}"] = stacked[i].clone()
+    return out
+
+
+def _leaf_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor -> a numpy leaf of the same dtype; bf16 travels through
+    its int16 bits into numpy's "bfloat16", the type ``ml_dtypes``
+    registers wherever the reference runs (this module imports none)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise TypeError("a bf16 leaf needs numpy's bfloat16 type: import "
+                        "ml_dtypes (or jax) first") from None
+    return t.view(torch.int16).numpy().view(bf16)
+
+
+def llama_params_to_reference(tensors: dict) -> dict:
+    """The inverse of :func:`llama_params_from_reference`: the port's
+    ``state_dict`` (or the same keys mapped to gradients) -> the
+    reference's parameter pytree of numpy leaves, layer leaves stacked
+    along a leading n_layers axis, dtypes kept. Raises ``KeyError`` on a
+    missing or an unexpected key."""
+    n_layers = len({k.split(".")[1] for k in tensors
+                    if k.startswith("layers.")})
+    _require_keys(tensors, LLAMA_TOP_KEYS + tuple(
+        f"layers.{i}.{name}" for i in range(n_layers)
+        for name in LLAMA_LAYER_KEYS), " (port keys)")
+    out = {k: _leaf_numpy(tensors[k]) for k in LLAMA_TOP_KEYS}
+    out["layers"] = {name: np.stack([
+        _leaf_numpy(tensors[f"layers.{i}.{name}"]) for i in range(n_layers)])
+        for name in LLAMA_LAYER_KEYS}
     return out

@@ -34,6 +34,7 @@ import functools
 import queue
 import threading
 import time
+import weakref
 from typing import Sequence
 
 import torch
@@ -81,6 +82,7 @@ class CudaContext:
         # (comm_id, op_index) -> {comm-local rank: (desc, handle, deadline)}
         self._pending: dict[tuple, dict] = {}
         self._sweeper: threading.Thread | None = None
+        self._idle_scans = 0
 
     def device_of(self, rank: int) -> "CudaDevice":
         if self.devices[rank] is None:
@@ -91,47 +93,64 @@ class CudaContext:
     def _ensure_sweeper(self):
         """Start the (single, lazy) deadline sweeper. Caller holds _lock.
         Members of an incomplete group park no thread; the sweeper fails
-        each deposit whose deadline passed with RECEIVE_TIMEOUT_ERROR."""
+        each deposit whose deadline passed with RECEIVE_TIMEOUT_ERROR.
+        The thread holds the context only weakly: a world whose ranks
+        were deinit'ed and dropped is freed (with every rank's buffers)
+        even while the sweeper still waits out its idle scans."""
         if self._sweeper is None:
-            self._sweeper = threading.Thread(target=self._sweep_loop,
+            self._idle_scans = 0
+            self._sweeper = threading.Thread(target=_sweep_loop,
+                                             args=(weakref.ref(self),),
                                              daemon=True,
                                              name="cuda-coll-sweeper")
             self._sweeper.start()
 
-    def _sweep_loop(self):
-        idle_scans = 0
-        while True:
-            with self._lock:
-                now = time.monotonic()
-                expired = []
-                next_dl = None
-                for key, group in list(self._pending.items()):
-                    for r, (_d, h, dl) in list(group.items()):
-                        if dl <= now:
-                            group.pop(r)
-                            expired.append(h)
-                        elif next_dl is None or dl < next_dl:
-                            next_dl = dl
-                    if not group:
-                        self._pending.pop(key, None)
-                if not self._pending and not expired:
-                    idle_scans += 1
-                    if idle_scans >= 10:
-                        # idle for ~2 s: retire; the next incomplete
-                        # deposit restarts the sweeper
-                        self._sweeper = None
-                        return
-                else:
-                    idle_scans = 0
-            for h in expired:
-                err = int(ErrorCode.RECEIVE_TIMEOUT_ERROR)
-                h.complete(err, exception=ACCLError(
-                    err, "collective group incomplete at deadline"))
-            # polls: 200 ms when idle, the earliest deadline when groups
-            # are pending (a timeout may fire up to one poll late)
+    def _sweep_once(self) -> float | None:
+        """One scan: fail the expired deposits; return the seconds to
+        wait before the next scan, or None when the sweeper retires."""
+        with self._lock:
             now = time.monotonic()
-            time.sleep(0.2 if next_dl is None
-                       else min(max(next_dl - now, 0.001), 0.2))
+            expired = []
+            next_dl = None
+            for key, group in list(self._pending.items()):
+                for r, (_d, h, dl) in list(group.items()):
+                    if dl <= now:
+                        group.pop(r)
+                        expired.append(h)
+                    elif next_dl is None or dl < next_dl:
+                        next_dl = dl
+                if not group:
+                    self._pending.pop(key, None)
+            if not self._pending and not expired:
+                self._idle_scans += 1
+                if self._idle_scans >= 10:
+                    # idle for ~2 s: retire; the next incomplete
+                    # deposit restarts the sweeper
+                    self._sweeper = None
+                    return None
+            else:
+                self._idle_scans = 0
+        for h in expired:
+            err = int(ErrorCode.RECEIVE_TIMEOUT_ERROR)
+            h.complete(err, exception=ACCLError(
+                err, "collective group incomplete at deadline"))
+        # polls: 200 ms when idle, the earliest deadline when groups
+        # are pending (a timeout may fire up to one poll late)
+        now = time.monotonic()
+        return (0.2 if next_dl is None
+                else min(max(next_dl - now, 0.001), 0.2))
+
+
+def _sweep_loop(ref: "weakref.ref[CudaContext]"):
+    while True:
+        ctx = ref()
+        if ctx is None:
+            return
+        wait = ctx._sweep_once()
+        del ctx
+        if wait is None:
+            return
+        time.sleep(wait)
 
 
 class CudaDevice(Device):
@@ -211,7 +230,12 @@ class CudaDevice(Device):
         self._coll_index.clear()
 
     def deinit(self):
+        """Retire the rank: its queued calls run, then its worker exits.
+        Returns once it has, so that the rank's buffers are free for the
+        collector when the caller drops them."""
         self._calls.put(None)
+        if threading.current_thread() is not self._worker:
+            self._worker.join()
 
     # -- worker -------------------------------------------------------------
     def _run(self):

@@ -1,18 +1,19 @@
-"""Llama-family transformer: the serving path of ``accl_tpu/models/llama.py``.
+"""Llama-family transformer: ``accl_tpu/models/llama.py`` on one device.
 
 Shapes follow the Llama-3 family (GQA, SwiGLU, RoPE, RMSNorm);
 ``LlamaConfig.llama3_8b()`` is the 8B geometry. Weights keep the
 reference's (in, out) orientation (``x @ w``), and a Python loop over
 the layers replaces its ``lax.scan``. Attention runs the fused kernels of
 :mod:`accl_tpu_torch.ops.attention` (``attention="flash"``: B8/B9 in
-``forward``, B12 in ``forward_cached``) or the reference's own
-score-materialising path (``attention="dense"``), which is the plain
-version of the model.
+``forward`` with B10/B11 in its backward, B12 in ``forward_cached``) or
+the reference's own score-materialising path (``attention="dense"``,
+trained by plain autograd), which is the plain version of the model.
 
-This slice serves: ``forward``, ``forward_cached`` (prefill and decode
-over a preallocated KV cache) and ``generate``. Parameters are created
-without gradients; training (``loss``, ``make_train_step``), the sharded
-paths and MoE are later slices (ROADMAP A8, A9).
+Serving: ``forward``, ``forward_cached`` (prefill and decode over a
+preallocated KV cache) and ``generate``, which build no autograd graph.
+Training: ``loss`` and ``make_train_step``. Parameters are created
+without gradients (serving needs none); ``make_train_step`` turns them
+on. The sharded paths and MoE are later slices (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -244,6 +245,7 @@ class Llama(nn.Module):
                 "v": torch.zeros(shape, dtype=dt, device=self.device),
                 "pos": 0}
 
+    @torch.no_grad()
     def forward_cached(self, tokens: torch.Tensor, cache: dict):
         """Logits (B, S_new, vocab) f32 for S_new tokens appended at
         ``cache["pos"]`` (prefill: the prompt; decode: one token), and
@@ -290,6 +292,7 @@ class Llama(nn.Module):
         cache["pos"] = pos + S
         return self._logits(x), cache
 
+    @torch.no_grad()
     def generate(self, prompt: torch.Tensor, max_new: int,
                  max_len: int | None = None, temperature: float = 0.0,
                  generator: torch.Generator | None = None) -> torch.Tensor:
@@ -318,3 +321,36 @@ class Llama(nn.Module):
                 logits, cache = self.forward_cached(tok[:, None], cache)
                 last = logits[:, -1]
         return torch.stack(out, dim=1)
+
+    # -- training ----------------------------------------------------------
+    def loss(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Next-token cross entropy of (B, S) tokens on the f32 logits:
+        the mean over the B * (S - 1) predicted positions (the reference's
+        ``loss``; MoE, and with it the aux term, is refused at
+        construction)."""
+        logits = self(tokens)[:, :-1]
+        targets = tokens[:, 1:]
+        return torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+    def make_train_step(self, optimizer: torch.optim.Optimizer):
+        """Returns ``train_step(tokens) -> loss``: zero the gradients, take
+        ``loss``, backpropagate, ``optimizer.step()``; the loss comes back
+        as a detached 0-dim f32 tensor. ``optimizer`` is built over
+        ``self.parameters()``, whose gradients this turns on.
+
+        This is the stateful PyTorch idiom for the reference's pure
+        ``train_step(params, opt_state, tokens) -> (params, opt_state,
+        loss)``: the module holds the parameters and the optimizer its
+        state, both updated in place. The reference's sharding arguments
+        (``dp``, ``sp``, ``mesh``, ``tp``) are not ported."""
+        self.requires_grad_(True)
+
+        def train_step(tokens: torch.Tensor) -> torch.Tensor:
+            optimizer.zero_grad(set_to_none=True)
+            loss = self.loss(tokens)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        return train_step

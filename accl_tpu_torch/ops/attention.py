@@ -1,14 +1,13 @@
-"""Kernels B8, B9 and B12: flash attention forward and KV-cache decode.
+"""Kernels B8-B12: flash attention forward and backward, KV-cache decode.
 
-The counterpart of ``accl_tpu/ops/attention.py``, forward and decode
-only (the backward kernels B10/B11 belong to the training slice). The
-layouts are the reference's: q (B, H, S, D); k/v (B, Hkv, S, D) with Hkv
-dividing H; the decode cache (B, T, Hkv, D), read as it is. GQA is index
-arithmetic (the counterpart of ``_kv_head_row``): KV is never repeated.
+The counterpart of ``accl_tpu/ops/attention.py``. The layouts are the
+reference's: q (B, H, S, D); k/v (B, Hkv, S, D) with Hkv dividing H; the
+decode cache (B, T, Hkv, D), read as it is. GQA is index arithmetic (the
+counterpart of ``_kv_head_row``): KV is never repeated.
 
 Wrappers: on CUDA tensors they launch the hand-written kernels of
-``csrc/attention.cu``; on CPU tensors they run the plain PyTorch
-versions ``flash_attention_ref`` / ``flash_decode_ref``.
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu``; on CPU tensors they
+run the plain PyTorch versions (``*_ref``).
 
 - ``flash_attention`` / ``flash_attention_fwd``: B9
   (``attn_fwd_single_kernel``) when the padded KV is one block of the
@@ -16,16 +15,19 @@ versions ``flash_attention_ref`` / ``flash_decode_ref``.
   its clamp), B8 (``attn_fwd_kernel``) otherwise. The kernels' own tiles
   are not the reference's 512-wide blocks: only this dispatch follows
   them.
+- ``flash_attention_bwd_dkv``: B10 (``attn_bwd_dkv_kernel``), per-q-head
+  f32 partials of dK and dV; ``flash_attention_bwd_dq``: B11
+  (``attn_bwd_dq_kernel``), dQ in q's dtype. ``flash_attention`` is
+  differentiable through ``_FlashAttention`` (the counterpart of the
+  reference's ``custom_vjp``), whose backward runs them.
 - ``flash_decode``: B12 (``attn_decode_kernel``).
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
-and B12's two, ``decode_launches`` (one new token, S_new == 1) and
-``prefill_launches`` (a chunk, S_new > 1). ``plain_runs`` counts the
-plain versions' runs on the CPU under the branch the dispatch chose
-("fwd", "fwd_single", "decode").
-
-No gradients on the card yet: a CUDA input that requires grad raises
-``NotImplementedError`` (the training slice, ROADMAP A8, adds B10/B11).
+``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
+``decode_launches`` (one new token, S_new == 1) and ``prefill_launches``
+(a chunk, S_new > 1). ``plain_runs`` counts the plain versions' runs on
+the CPU under the branch the dispatch chose ("fwd", "fwd_single",
+"bwd_dkv", "bwd_dq", "decode").
 """
 
 from __future__ import annotations
@@ -41,9 +43,12 @@ SINGLE_MAX_KEYS = 2048   # B9 holds a 16-row tile of scores in shared memory
 
 fwd_launches = 0
 fwd_single_launches = 0
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
 decode_launches = 0
 prefill_launches = 0
-plain_runs = {"fwd": 0, "fwd_single": 0, "decode": 0}
+plain_runs = {"fwd": 0, "fwd_single": 0, "bwd_dkv": 0, "bwd_dq": 0,
+              "decode": 0}
 
 
 def _auto_block(s: int) -> int:
@@ -60,13 +65,6 @@ def is_single_block(skv: int, block_k: int | None = None) -> bool:
     is one block. Selects B9 over B8."""
     bk = min(block_k or _auto_block(skv), max(skv, 8))
     return -(-skv // bk) == 1
-
-
-def _check_grad(*ts):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "attention kernels have no backward on the card yet: the "
-            "training slice (ROADMAP A8, kernels B10/B11) adds it")
 
 
 def _check_fwd(q, k, v):
@@ -99,7 +97,6 @@ def _kernel_ready(what: str, *ts):
     if t0.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what} kernel: head dim {t0.shape[-1]} not in "
                          f"{KERNEL_HEAD_DIMS}")
-    _check_grad(*ts)
 
 
 def _softmax_parts(s, mask):
@@ -175,11 +172,178 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     return o, lse
 
 
+def _check_bwd(q, do, k, v, lse, delta):
+    _check_fwd(q, k, v)
+    B, H, Sq, _ = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"flash_attention backward: dout {tuple(do.shape)} "
+                         f"is not q's shape {tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B * H, Sq) or t.dtype != torch.float32:
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"(B*H, Sq) = {(B * H, Sq)} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
+def _bwd_parts(q, do, k, v, lse, delta, causal, scale):
+    """The backward's shared step in f32, as the reference's
+    ``_recompute_p`` and kernels compute it: p = where(mask, exp(s - lse),
+    0) under the forward's mask (top-left causal), dp = do v^T, ds = p (dp
+    - delta). Shapes (B, Hkv, group, Sq, .): the q heads of one kv head
+    side by side, against that kv head's keys."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qf = q.reshape(B, Hkv, g, Sq, D).float()
+    dof = do.reshape(B, Hkv, g, Sq, D).float()
+    kf = k.float()[:, :, None]
+    vf = v.float()[:, :, None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keys = torch.arange(Skv, device=q.device)
+    rows = torch.arange(Sq, device=q.device)
+    mask = (keys[None, :] <= rows[:, None] if causal
+            else torch.ones(Sq, Skv, dtype=torch.bool, device=q.device))
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, Hkv, g, Sq, 1)), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, Hkv, g, Sq, 1))
+    return qf, dof, kf, p, ds
+
+
+def flash_attention_bwd_dkv_ref(q, do, k, v, lse, delta, causal: bool,
+                                scale: float):
+    """Plain PyTorch version of B10 (any device): the per-q-head f32
+    partials (dk_part, dv_part), each (B*H, Skv, D): dv = p^T do, dk =
+    scale ds^T q (the GQA group sum is the caller's)."""
+    qf, dof, _kf, p, ds = _bwd_parts(q, do, k, v, lse, delta, causal, scale)
+    B, H, _, D = q.shape
+    Skv = k.shape[2]
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dk.reshape(B * H, Skv, D), dv.reshape(B * H, Skv, D)
+
+
+def flash_attention_bwd_dq_ref(q, do, k, v, lse, delta, causal: bool,
+                               scale: float):
+    """Plain PyTorch version of B11 (any device): dq = scale ds k,
+    (B, H, Sq, D) in q's dtype."""
+    _qf, _dof, kf, _p, ds = _bwd_parts(q, do, k, v, lse, delta, causal,
+                                       scale)
+    return (torch.matmul(ds, kf) * scale).reshape(q.shape).to(q.dtype)
+
+
+def _bwd_launch(name, what, q, do, k, v, lse, delta, outs, causal, scale):
+    _kernel_ready(what, q, do, k, v)
+    for t in (lse, delta):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{what}: lse and delta must be contiguous on "
+                             f"q's device")
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    fn = getattr(_build.library(), name)
+    _build.check(fn(_DTYPE_CODES[q.dtype], D, q.data_ptr(), do.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr(), *(t.data_ptr() for t in outs), B, H,
+                    Hkv, Sq, Skv, int(causal), scale, _build.stream_of(q)),
+                 what)
+
+
+def flash_attention_bwd_dkv(q, do, k, v, lse, delta, causal: bool,
+                            scale: float):
+    """B10: the per-q-head f32 partials (dk_part, dv_part), each (B*H,
+    Skv, D), of the attention whose forward gave ``lse``; ``delta`` =
+    rowsum(do * o) (B*H, Sq) f32. q/do (B, H, Sq, D); k/v (B, Hkv, Skv,
+    D)."""
+    global bwd_dkv_launches
+    _check_bwd(q, do, k, v, lse, delta)
+    if q.device.type == "cpu":
+        plain_runs["bwd_dkv"] += 1
+        return flash_attention_bwd_dkv_ref(q, do, k, v, lse, delta, causal,
+                                           scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, H, _, D = q.shape
+    Skv = k.shape[2]
+    dk = torch.empty(B * H, Skv, D, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    _bwd_launch("accl_attn_bwd_dkv", "flash_attention_bwd_dkv", q, do, k, v,
+                lse, delta, (dk, dv), causal, scale)
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, do, k, v, lse, delta, causal: bool,
+                           scale: float):
+    """B11: dq (B, H, Sq, D) in q's dtype (operands as
+    :func:`flash_attention_bwd_dkv`)."""
+    global bwd_dq_launches
+    _check_bwd(q, do, k, v, lse, delta)
+    if q.device.type == "cpu":
+        plain_runs["bwd_dq"] += 1
+        return flash_attention_bwd_dq_ref(q, do, k, v, lse, delta, causal,
+                                          scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    dq = torch.empty_like(q)
+    _bwd_launch("accl_attn_bwd_dq", "flash_attention_bwd_dq", q, do, k, v,
+                lse, delta, (dq,), causal, scale)
+    bwd_dq_launches += 1
+    return dq
+
+
+def _dense(t):
+    """``t`` contiguous and on a 16-byte boundary (the kernels' vector
+    loads): a gradient may arrive as a strided or offset view."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Fused attention with the FlashAttention-2 backward (the reference's
+    ``_flash`` custom VJP, attention.py:527-538): forward B8/B9 keeps O
+    and the LSE; backward forms delta = rowsum(do * o) from O in q's dtype
+    (attention.py:433), runs B10 for the per-q-head partials, sums each
+    GQA group in f32 and casts to k's and v's dtype (:522-523), and runs
+    B11 for dq. On CPU tensors the same steps run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_k):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, None, block_k)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        B, H, Sq, D = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        do = _dense(do)
+        delta = (do.float() * o.float()).sum(dim=-1).reshape(B * H, Sq)
+        dk_part, dv_part = flash_attention_bwd_dkv(
+            q, do, k, v, lse, delta, ctx.causal, ctx.scale)
+        g = H // Hkv
+        dk = dk_part.reshape(B, Hkv, g, Skv, D).sum(2).to(k.dtype)
+        dv = dv_part.reshape(B, Hkv, g, Skv, D).sum(2).to(v.dtype)
+        dq = flash_attention_bwd_dq(q, do, k, v, lse, delta, ctx.causal,
+                                    ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True,
                     sm_scale: float | None = None,
                     block_q: int | None = None,
                     block_k: int | None = None):
-    """Fused attention (see :func:`flash_attention_fwd`); returns O."""
+    """Fused attention (see :func:`flash_attention_fwd`); returns O.
+    Differentiable: when grad is enabled and an input requires grad, it
+    runs through ``_FlashAttention`` (backward B10 and B11); otherwise it
+    calls the forward directly and saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        scale = (float(q.shape[-1]) ** -0.5 if sm_scale is None
+                 else float(sm_scale))
+        return _FlashAttention.apply(q, k, v, causal, scale, block_k)
     return flash_attention_fwd(q, k, v, causal, sm_scale, block_q,
                                block_k)[0]
 

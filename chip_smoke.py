@@ -51,6 +51,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    family under torch.profiler and the peak memory. The attention launch
    counters are zeroed before phase 6 and read after phase 7: every
    attention kernel must have run there.
+8. Attention backward: B10 (``attn_bwd_dkv``) and B11 (``attn_bwd_dq``)
+   against their plain versions on an edge corpus (MHA/GQA/MQA, causal
+   and not, ragged S, Sq != Skv both ways, D 16-128, f32 and bf16) and
+   at the full Llama-3-8B width (B=4, H=32, Hkv=8, S=2048, D=128) in
+   bf16 and f32, timed beside PyTorch's SDPA backward (timed only); the
+   autograd Function's gradients (B8 + B10 + B11) against torch autograd
+   through dense attention, f32, at the same shape. Then a gradient
+   check: a 2-layer f32 Llama-3-8B, flash against dense, on (1, 2048):
+   the loss and every parameter's gradient.
+9. Training: Llama-3-8B width, 8 of 32 layers, f32 parameters and bf16
+   activations, ``make_train_step`` with Adam(lr=1e-4), 4 steps on one
+   (2, 2048) batch: finite losses that fall, B8/B10/B11 once per layer
+   per step, the first and last layer's B10/B11 calls against their
+   plain versions, step time, tokens/s, model FLOPs, the busy share and
+   kernels by family under torch.profiler, peak memory. Less than 2 GiB
+   may be allocated when it starts.
+
+Each phase starts with a line of the device memory allocated.
 
 Prints per-kernel and per-call lines, then one JSON line of kernel
 records, then ``{"ok": true, "device": {...}}`` as the last line. Any
@@ -77,6 +95,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 SEED = 20261016
+T_START = time.perf_counter()   # the phase lines' clock
 # tests/test_pallas_quant.py holds the W=4 quantized allreduce within
 # 0.07 * max(sum_r |x_r|) + 1e-3: an allreduce quantizes each element W
 # times (W-1 on the reduce-scatter, once for the allgather), so per
@@ -455,7 +474,10 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("fp8_dequant", "fp8_dequant_kernel"),
             ("attn_fwd_single", "attn_fwd_single_kernel"),
             ("attn_fwd", "attn_fwd_kernel"),
+            ("attn_bwd_dkv", "attn_bwd_dkv_kernel"),
+            ("attn_bwd_dq", "attn_bwd_dq_kernel"),
             ("attn_decode", "attn_decode_kernel"),
+            ("optimizer", "multi_tensor_apply"),
             ("gemm", "gemm"), ("gemm", "gemv"), ("gemm", "nvjet"),
             ("gemm", "cutlass"), ("gemm", "xmma"),
             ("torch_reduce", "reduce_kernel"),
@@ -465,7 +487,9 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
 
 def device_ms_by_family(fn) -> dict:
     """Device time in ms of the kernels ``fn`` runs, summed per family,
-    from torch.profiler's CUDA activity; empty when it saw none."""
+    from torch.profiler's CUDA activity; empty when it saw none. GPU-side
+    user annotations (``Optimizer.step#Adam.step`` spans the optimizer's
+    kernels) are ranges, not kernels, and are skipped."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -475,7 +499,8 @@ def device_ms_by_family(fn) -> dict:
         torch.cuda.synchronize()
     fams = collections.defaultdict(float)
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.is_user_annotation):
             continue
         fam = next((f for f, key in FAMILIES if key in ev.name), "other")
         fams[fam] += ev.time_range.elapsed_us() / 1e3
@@ -843,13 +868,16 @@ SERVE_DENSE_REL = 2.0 ** -4
 # never runs B9 (its prompts exceed one key block); the f32 model
 # phase's (4, 128) forward does
 LAUNCH_PATH = {"attn_fwd": "serving", "attn_fwd_single": "model_f32",
-               "attn_decode": "serving", "attn_prefill": "serving"}
+               "attn_decode": "serving", "attn_prefill": "serving",
+               "attn_bwd_dkv": "training", "attn_bwd_dq": "training"}
 
 
 def attention_counters() -> dict:
     from accl_tpu_torch.ops import attention as A
     return {"attn_fwd": A.fwd_launches,
             "attn_fwd_single": A.fwd_single_launches,
+            "attn_bwd_dkv": A.bwd_dkv_launches,
+            "attn_bwd_dq": A.bwd_dq_launches,
             "attn_decode": A.decode_launches,
             "attn_prefill": A.prefill_launches}
 
@@ -857,6 +885,7 @@ def attention_counters() -> dict:
 def zero_attention_counters():
     from accl_tpu_torch.ops import attention as A
     A.fwd_launches = A.fwd_single_launches = 0
+    A.bwd_dkv_launches = A.bwd_dq_launches = 0
     A.decode_launches = A.prefill_launches = 0
 
 
@@ -1293,37 +1322,456 @@ def serving_phase():
     return launches
 
 
+# -- attention backward and the Llama training path --------------------------
+
+ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"
+# B10/B11 against their plain versions, per element: the same f32
+# FlashAttention-2 backward summed in another order over up to S*D terms
+# per output, whose error scales with the largest gradient of the tensor,
+# not with each element: f32 |got - plain| <= 2e-5*|plain| +
+# 2e-5*max|plain| (B10's partials are f32 for bf16 inputs too); B11's dq
+# in bf16 under the forward's bf16 rule (one ulp of the element, floored
+# at one ulp of the median)
+BWD_REL = 2e-5
+BWD_TOL = ("f32 2e-5*|plain| + 2e-5*max|plain|; bf16 2^-7*|plain| + "
+           "2^-7*median|plain|, per element")
+# the Function's gradients (B8 + B10 + B11) against torch autograd through
+# dense attention, f32: two algorithms (a dense softmax backward against
+# the recomputation from the LSE with delta from O), each rounding at its
+# own places: 5x the kernel-vs-plain limit, 1e-4*|dense| + 1e-4*max|dense|
+FN_DENSE_REL = 1e-4
+# flash against dense, 2-layer f32 Llama-3-8B, B=1, S=2048: the attention
+# outputs differ by ~1e-7 relative (phase 6 read ~6e-6 relative on 4
+# layers' logits); the loss within 1e-5 relative, every parameter's
+# gradient within 1e-4 relative L2 (||g_flash - g_dense|| / ||g_dense||)
+GRAD_LOSS_REL = 1e-5
+GRAD_REL_L2 = 1e-4
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2, 2048, 4
+TRAIN_MAX_PEAK = 75 * 2 ** 30
+
+
+def bwd_limit(plain):
+    import torch
+    if plain.dtype == torch.bfloat16:
+        return attn_limit(plain)
+    p = plain.float().abs()
+    return BWD_REL * p + BWD_REL * float(p.max())
+
+
+def hold_bwd(got, plain, what: str) -> tuple[float, float]:
+    """(max abs error, largest error/limit) of a B10/B11 output against
+    its plain version under BWD_TOL; fails past the limit."""
+    import torch
+    need(got.shape == plain.shape and got.dtype == plain.dtype,
+         f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+         f"{tuple(plain.shape)} {plain.dtype}")
+    need(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    d = (got.float() - plain.float()).abs()
+    ratio = float((d / bwd_limit(plain)).max())
+    err = float(d.max())
+    need(ratio <= 1.0, f"{what}: max abs err {err}, {ratio:.3g} times its "
+         f"element's limit ({BWD_TOL})")
+    return err, ratio
+
+
+def bwd_operands(q, k, v, do, causal):
+    """The forward's O and LSE (B8/B9) and delta = rowsum(do * o) from O
+    in q's dtype, as ``_FlashAttention.backward`` forms them."""
+    from accl_tpu_torch.ops import attention as A
+    B, H, Sq, _ = q.shape
+    o, lse = A.flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).reshape(B * H, Sq)
+    return o, lse, delta
+
+
+def hold_bwd_call(q, do, k, v, lse, delta, causal, what):
+    """B10 and B11 on one set of operands against their plain versions."""
+    from accl_tpu_torch.ops import attention as A
+    scale = q.shape[-1] ** -0.5
+    args = (q, do, k, v, lse, delta, causal, scale)
+    dk, dv = A.flash_attention_bwd_dkv(*args)
+    rdk, rdv = A.flash_attention_bwd_dkv_ref(*args)
+    w = max_pair(hold_bwd(dk, rdk, f"{what} B10 dk"),
+                 hold_bwd(dv, rdv, f"{what} B10 dv"))
+    del dk, dv, rdk, rdv
+    dq = A.flash_attention_bwd_dq(*args)
+    return max_pair(w, hold_bwd(dq, A.flash_attention_bwd_dq_ref(*args),
+                                f"{what} B11 dq"))
+
+
+def attention_bwd_edges(rng):
+    """B10 and B11 against their plain versions over an edge corpus:
+    MHA/GQA/MQA, causal and not, ragged S, Sq != Skv both ways, every
+    head dim, f32 and bf16."""
+    import torch
+    cases = [  # B, H, Hkv, Sq, Skv, D, causal
+        (1, 4, 4, 130, 130, 16, True), (1, 4, 4, 130, 130, 32, False),
+        (2, 8, 2, 300, 300, 64, True), (1, 8, 2, 300, 300, 64, False),
+        (1, 8, 1, 513, 513, 128, True), (1, 8, 1, 513, 513, 128, False),
+        (1, 4, 2, 40, 96, 16, True), (1, 4, 2, 40, 96, 32, False),
+        (1, 4, 2, 200, 70, 64, True), (2, 4, 4, 96, 40, 128, False)]
+    worst = (0.0, 0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        for B, H, Hkv, Sq, Skv, D, causal in cases:
+            q, do = (torch.from_numpy(rng.standard_normal(
+                (B, H, Sq, D))).to("cuda", dt) for _ in range(2))
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (B, Hkv, Skv, D))).to("cuda", dt) for _ in range(2))
+            _o, lse, delta = bwd_operands(q, k, v, do, causal)
+            worst = max_pair(worst, hold_bwd_call(
+                q, do, k, v, lse, delta, causal,
+                f"attn bwd {dt} {(B, H, Hkv, Sq, Skv, D, causal)}"))
+    print(f"attention backward edges: {2 * len(cases)} cases (B10 and B11; "
+          f"MHA/GQA/MQA, causal and not, ragged 130/300/513, Sq != Skv "
+          f"both ways, D 16-128, f32 and bf16) within tolerance; max abs "
+          f"err {worst[0]}, largest error/limit {worst[1]:.3f} ({BWD_TOL})")
+
+
+def dense_topleft(q, k, v, causal=True):
+    """Dense f32 attention with the reference's top-left causal mask, GQA
+    by repeating KV: differentiable by torch autograd."""
+    import torch
+    g = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if causal:
+        Sq, Skv = q.shape[2], k.shape[2]
+        rows = torch.arange(Sq, device=q.device)
+        mask = torch.arange(Skv, device=q.device)[None, :] <= rows[:, None]
+        s = torch.where(mask, s, torch.finfo(torch.float32).min)
+    return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def attention_bwd_records():
+    """B10 and B11 at the full Llama-3-8B width (B=4, H=32, Hkv=8, S=2048,
+    D=128, causal), bf16 (the table's rows) and f32, against their plain
+    versions, timed beside PyTorch's SDPA backward (dq, dk and dv
+    together: the library time of the pair; timed only). Then the whole
+    Function's gradients against torch autograd through dense attention,
+    f32, at the same shape."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"attention backward: allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    B, H, Hkv, S, D = 4, 32, 8, 2048, 128
+    n = S * (S + 1) // 2 * B * H           # visible scores, causal
+    recs = []
+    for dt in (torch.bfloat16, torch.float32):
+        q, do = (torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g).to(dt)
+                for _ in range(2))
+        _o, lse, delta = bwd_operands(q, k, v, do, True)
+        err, ratio = hold_bwd_call(q, do, k, v, lse, delta, True,
+                                   f"full width {dt}")
+        scale = D ** -0.5
+        args = (q, do, k, v, lse, delta, True, scale)
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            enable_gqa=True)
+        library_ms = time_ms(lambda: torch.autograd.grad(  # noqa: B023
+            lo, (lq, lk, lv), do, retain_graph=True))
+        del lo, lq, lk, lv
+        es = q.element_size()
+        qbytes, kvbytes = B * H * S * D * es, B * Hkv * S * D * es
+        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        for name, fn, plain, ops_per, out_bytes in (
+                ("attn_bwd_dkv", A.flash_attention_bwd_dkv,
+                 A.flash_attention_bwd_dkv_ref, 8, 2 * B * H * S * D * 4),
+                ("attn_bwd_dq", A.flash_attention_bwd_dq,
+                 A.flash_attention_bwd_dq_ref, 6, qbytes)):
+            ms = time_ms(lambda: fn(*args))  # noqa: B023
+            plain_ms = time_ms(lambda: plain(*args), reps=5)  # noqa: B023
+            nbytes = 2 * qbytes + 2 * kvbytes + 2 * 4 * B * H * S + out_bytes
+            bms, by = bound_ms(nbytes, ops_per * D * n, rate)
+            print(f"kernel {name} {str(dt)[6:]} B={B} H={H} Hkv={Hkv} D={D} "
+                  f"S={S} causal: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
+                  f"backward (dq, dk, dv together) {library_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound); B10+B11 "
+                  f"max abs err vs plain {err}, largest error/limit "
+                  f"{ratio:.3f} ({BWD_TOL})")
+            if dt == torch.bfloat16:
+                recs.append({"name": name, "route": "cuda",
+                             "source": ATTN_BWD_SRC,
+                             "replaces": {"attn_bwd_dkv":
+                                          "accl_tpu/ops/attention.py:461",
+                                          "attn_bwd_dq":
+                                          "accl_tpu/ops/attention.py:492"}[
+                                              name],
+                             "launches": 0, "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bms,
+                             "bound_by": by, "library_ms": library_ms})
+        del q, do, k, v, lse, delta, args
+        torch.cuda.empty_cache()
+
+    # the Function (B8 + B10 + B11) against dense autograd, f32
+    q, k, v = (torch.randn(B, h, S, D, device="cuda", generator=g)
+               .requires_grad_() for h in (H, Hkv, Hkv))
+    do = torch.randn(B, H, S, D, device="cuda", generator=g)
+    got = torch.autograd.grad(A.flash_attention(q, k, v, causal=True),
+                              (q, k, v), do)
+    want = torch.autograd.grad(dense_topleft(q, k, v), (q, k, v), do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        need(bool(torch.isfinite(a).all()), f"Function {name}: non-finite")
+        lim = FN_DENSE_REL * b.abs() + FN_DENSE_REL * float(b.abs().max())
+        r = float(((a - b).abs() / lim).max())
+        print(f"Function {name} (B8 + B10 + B11) vs dense autograd, f32, "
+              f"(4, 32/8, 2048, 128) causal: max abs diff "
+              f"{float((a - b).abs().max()):.4g}, largest error/limit "
+              f"{r:.3f} (1e-4*|dense| + 1e-4*max|dense|)")
+        need(r <= 1.0, f"Function {name}: flash and dense gradients differ")
+    del q, k, v, do, got, want
+    torch.cuda.empty_cache()
+    return recs
+
+
+def grad_check_phase():
+    """Flash against dense, f32, full width, 2 layers, B=1, S=2048: one
+    model, its config switched between the two; the loss and every
+    parameter's gradient."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    model = Llama(cfg).init(g).requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                           generator=g)
+    runs = {}
+    for attention in ("flash", "dense"):
+        model.config = dataclasses.replace(cfg, attention=attention)
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(tokens)
+        loss.backward()
+        runs[attention] = (loss.item(), {k: p.grad for k, p in
+                                         model.named_parameters()})
+    model.config = cfg
+    (lf, gf), (ld, gd) = runs["flash"], runs["dense"]
+    need(np.isfinite(lf) and np.isfinite(ld), "grad check: non-finite loss")
+    loss_rel = abs(lf - ld) / abs(ld)
+    rels = {k: float(torch.linalg.vector_norm(gf[k] - gd[k])
+                     / torch.linalg.vector_norm(gd[k])) for k in gd}
+    worst = max(rels, key=rels.get)
+    print(f"grad check, Llama-3-8B width, 2 layers, f32, (1, 2048), flash "
+          f"vs dense: loss {lf:.7f} vs {ld:.7f} (relative {loss_rel:.3g}, "
+          f"limit {GRAD_LOSS_REL}); worst gradient {worst} relative L2 "
+          f"{rels[worst]:.3g} (limit {GRAD_REL_L2}); median "
+          f"{statistics.median(rels.values()):.3g} over {len(rels)} "
+          f"parameters")
+    need(loss_rel <= GRAD_LOSS_REL, "grad check: flash and dense losses differ")
+    need(rels[worst] <= GRAD_REL_L2,
+         f"grad check: {worst} gradients of flash and dense differ")
+    del model, runs, gf, gd
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def backward_calls(n_layers: int):
+    """Record the training path's B10 and B11 calls of its first and last
+    layer in the first step (the first n_layers calls of each) as
+    (wrapper name, args, output). The wrappers are the attention module's
+    own names, which ``_FlashAttention.backward`` looks up at each call."""
+    from accl_tpu_torch.ops import attention as A
+    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    calls = []
+    seen = dict.fromkeys(names, 0)
+    wrapped = {name: getattr(A, name) for name in names}
+
+    def recorder(name):
+        def call(*args):
+            out = wrapped[name](*args)
+            if seen[name] in (0, n_layers - 1):
+                kept = tuple(t.clone() for t in (out if isinstance(out, tuple)
+                                                 else (out,)))
+                calls.append((name, args, kept))
+            seen[name] += 1
+            return out
+        return call
+
+    for name in names:
+        setattr(A, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in wrapped.items():
+            setattr(A, name, fn)
+
+
+def training_phase():
+    """Llama-3-8B width, 8 of 32 layers, f32 parameters and bf16
+    activations: ``make_train_step`` with Adam(lr=1e-4), 4 steps on one
+    batch of (2, 2048) random tokens. Returns the path's launch counts."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.ops import attention as A
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    model = Llama(cfg).init(g)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    step = model.make_train_step(opt)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                           device="cuda", generator=g)
+    N = model.param_count()
+    n_mat = N - model.embed.numel() - (2 * cfg.n_layers + 1) * cfg.dim
+    logits = TRAIN_B * TRAIN_S * cfg.vocab_size * 4
+    est = 16 * N + 2 * n_mat + 3 * logits + cfg.n_layers * 10 ** 9
+    print(f"training: Llama-3-8B width, {cfg.n_layers} of 32 layers, f32 "
+          f"parameters, bf16 activations, B={TRAIN_B}, S={TRAIN_S}, Adam "
+          f"lr=1e-4; {N} parameters. Memory reckoning: weights, gradients "
+          f"and Adam's two moments 16 B x N = {16 * N / 2 ** 30:.1f} GiB; "
+          f"bf16 weight casts saved for backward "
+          f"{2 * n_mat / 2 ** 30:.1f} GiB; activations ~1 GB per layer; f32 "
+          f"logits, their slice and gradient 3 x {logits / 2 ** 30:.1f} GiB;"
+          f" about {est / 2 ** 30:.1f} GiB in all")
+    zero_attention_counters()
+    losses, times = [], []
+    with backward_calls(cfg.n_layers) as calls:
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(tokens)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = attention_counters()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training losses {losses}; step ms (host clock) {times}")
+    print(f"training phase launches: {launches}")
+    per_run = cfg.n_layers * TRAIN_STEPS
+    need(all(np.isfinite(x) for x in losses), "training: non-finite loss")
+    need(losses[-1] < losses[0], "training: the loss did not fall")
+    for key in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq"):
+        need(launches[key] == per_run, f"training: {key} launched "
+             f"{launches[key]} times, not once per layer per step "
+             f"({per_run})")
+    print(f"training peak memory: {peak / 2 ** 30:.2f} GiB (the "
+          f"{held / 2 ** 30:.2f} GiB held before the phase included; limit "
+          f"{TRAIN_MAX_PEAK / 2 ** 30:.0f} GiB)")
+    need(peak <= TRAIN_MAX_PEAK, "training: peak memory past the limit")
+    kinds = {}
+    with torch.no_grad():
+        for name, args, outs in calls:
+            dkv = name.endswith("dkv")
+            plain = (A.flash_attention_bwd_dkv_ref(*args) if dkv
+                     else (A.flash_attention_bwd_dq_ref(*args),))
+            for got, want, part in zip(outs, plain,
+                                       ("dk", "dv") if dkv else ("dq",)):
+                kinds[name] = max_pair(kinds.get(name, (0.0, 0.0)),
+                                       hold_bwd(got, want, f"training {name} "
+                                                f"{part} q "
+                                                f"{tuple(args[0].shape)}"))
+            del plain
+    for name, w in sorted(kinds.items()):
+        print(f"training {name}: the first and last layer's calls of the "
+              f"first step held against the plain version at the path's "
+              f"shapes ({TRAIN_B}, 32/8, {TRAIN_S}, 128) bf16; max abs err "
+              f"{w[0]}, largest error/limit {w[1]:.3f} ({BWD_TOL})")
+    need(len(calls) == 4, f"training: {len(calls)} backward calls recorded")
+    del calls
+    step_ms = statistics.median(times[1:])
+    tokens_n = TRAIN_B * TRAIN_S
+    visible = TRAIN_S * (TRAIN_S + 1) // 2 * TRAIN_B * cfg.n_heads
+    flops = 6 * n_mat * tokens_n + 12 * cfg.head_dim * visible * cfg.n_layers
+    print(f"training step: {step_ms:.2f} ms (host clock, median of steps "
+          f"2-{TRAIN_STEPS}), {tokens_n / step_ms * 1e3:.0f} tokens/s; "
+          f"model FLOPs per step {flops:.4g} (6 x {n_mat} matmul "
+          f"parameters x {tokens_n} tokens + 12 x D per visible attention "
+          f"score), {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+          f"{flops / (step_ms / 1e3) / BF16_OPS_PER_S:.1%} of 989 TFLOP/s")
+    # the step's two halves on CUDA events (one more step, by hand as
+    # train_step runs it): loss and backward, then the optimizer
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    opt.zero_grad(set_to_none=True)
+    evs[0].record()
+    model.loss(tokens).backward()
+    evs[1].record()
+    opt.step()
+    evs[2].record()
+    torch.cuda.synchronize()
+    fb_ms, opt_ms = evs[0].elapsed_time(evs[1]), evs[1].elapsed_time(evs[2])
+    print(f"training step halves (CUDA events): loss + backward "
+          f"{fb_ms:.2f} ms, Adam step {opt_ms:.2f} ms")
+    fams = device_ms_by_family(lambda: step(tokens))
+    if fams:
+        busy = sum(fams.values())
+        print(f"training step under the profiler: {busy:.2f} ms of "
+              f"kernels; busy "
+              f"share {busy / step_ms:.3f} of the unprofiled {step_ms:.2f} "
+              f"ms step; " + ", ".join(f"{f} {ms:.2f} ms" for f, ms in
+                                       sorted(fams.items(),
+                                              key=lambda x: -x[1])))
+    else:
+        print("training step: busy share not measured (the profiler saw no "
+              "device activity)")
+    del model, opt, step, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase(name: str):
+    """One line at the start of each phase: the seconds since the script
+    started and what the device holds."""
+    import torch
+    print(f"== {name} at {time.perf_counter() - T_START:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
+    phase("phase 1: device and build")
     phase_device()
     rng = np.random.default_rng(SEED)
+    phase("phase 2: kernel corpora and records")
     corpus_combine(rng)
     corpus_codec(rng)
     corpus_lanes(rng)
     recs = kernel_records()
+    phase("phases 3-4: collectives main path")
     main_path(recs)
     gc.collect()                      # the rank worlds' buffers sit in cycles
     torch.cuda.empty_cache()
+    phase("phase 5: attention kernels")
     attention_edges(rng)
     attn_recs = attention_records()
     zero_attention_counters()         # the f32 model path's own counts
+    phase("phase 6: f32 model, flash vs dense")
     llama_model_phase()
     by_path = {"model_f32": attention_counters()}
     print(f"model phase launches: {by_path['model_f32']}")
     need(by_path["model_f32"]["attn_fwd_single"] > 0,
          "model phase: B9 never launched")
+    phase("phase 7: serving")
     by_path["serving"] = serving_phase()     # zeroes the counts itself
+    phase("phase 8: attention backward kernels")
+    attention_bwd_edges(rng)
+    attn_recs += attention_bwd_records()
+    phase("gradient check: flash vs dense, f32")
+    grad_check_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 9: training")
+    held = torch.cuda.memory_allocated()
+    need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still allocated "
+         f"before the training phase (limit 2 GiB)")
+    by_path["training"] = training_phase()   # zeroes the counts itself
     for r in attn_recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
         need(r["launches"] > 0, f"kernel {r['name']} was never launched on "
              f"the {LAUNCH_PATH[r['name']]} path")
     recs += attn_recs
-    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(f"total: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

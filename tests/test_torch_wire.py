@@ -41,6 +41,15 @@ from accl_tpu_torch.parallel.collectives import (  # noqa: E402
     PLAIN, RankCollectives)
 from accl_tpu_torch.parallel.mesh import make_group  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _shm_leak_sweep():
+    """Overrides conftest's /dev/shm sweep for this module: the port
+    creates no shm segment, and a segment another xdist worker's
+    ShmFabric world holds must not fail these tests at teardown."""
+    yield
+
+
 W = 4
 WIRES = ["float16", "bfloat16", "float8_e4m3fn", "float8_e5m2"]
 FP8 = ["float8_e4m3fn", "float8_e5m2"]
