@@ -34,7 +34,7 @@ CFLAGS = [ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None   # wall time of the last build (None: loaded)
-build_log = ""                       # nvcc's messages (-Xptxas -v) of that build
+build_log = ""                       # nvcc's messages (-Xptxas -v) of the build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -115,6 +115,9 @@ def build() -> Path:
     out_dir = BUILD_DIR / _digest()
     lib = out_dir / "libaccl_kernels.so"
     if lib.exists():
+        log = out_dir / "build.log"
+        if not build_log and log.exists():
+            build_log = log.read_text()
         return lib
     t0 = time.perf_counter()
     nvcc = nvcc_path()
@@ -125,6 +128,7 @@ def build() -> Path:
     tmp = out_dir / f"libaccl_kernels.{os.getpid()}.so"
     log += _run_all([[nvcc, ARCH, "-shared", "-o", str(tmp),
                       *map(str, objs)]])
+    (out_dir / "build.log").write_text(log)
     os.replace(tmp, lib)
     build_seconds = time.perf_counter() - t0
     build_log = log

@@ -1,6 +1,9 @@
-// Attention backward kernels B10 and B11 (CUDA C++, sm_90a): the
-// FlashAttention-2 backward, which rebuilds the probabilities from the
-// forward's per-row log-sum-exp (LSE) instead of storing them.
+// Attention backward kernels B10 and B11 (CUDA C++, sm_90a), the f32
+// route: the FlashAttention-2 backward on the CUDA cores, which rebuilds
+// the probabilities from the forward's per-row log-sum-exp (LSE) instead
+// of storing them. The C entry points below send bf16 operands (dtype
+// code 1) to the tensor-core kernels of attention_bwd_sm90.cu and f32
+// operands (code 0) to the kernels here: one kernel per route.
 //
 // Replace accl_tpu/ops/attention.py:
 //   B10 attn_bwd_dkv_kernel <- _bwd_dkv_kernel (pallas_call at :461):
@@ -18,17 +21,16 @@
 //
 // What bounds them on an H100: 8*D (B10: four products) and 6*D (B11:
 // three) operations per visible score against 2*D bytes per row, so at S
-// in the thousands they are bound by operations. Like the forward kernels
-// they run on the CUDA cores in f32, far above the 989 TFLOP/s bf16
-// tensor-core bound; tensor cores, wgmma and TMA are later work.
+// in the thousands they are bound by operations: 67 TFLOP/s of f32 on
+// the CUDA cores (f32 operands have no bf16 tensor-core route).
 //
 // Design: 256 threads per block, 64-key tiles (BK) against 32-row q tiles
 // (BQB). Both kernels share one step, `p_ds`: each thread forms S = Q K^T
 // and dP = dO V^T for 2 rows x 4 keys from shared memory, then p and ds
 // in registers.
 //   B10: one block per (q head row b*h, 64-key tile). K and V stay in
-//   shared memory as f32; a loop over 32-row q tiles (from the tile that
-//   holds query k0 under the causal mask: the reference's first =
+//   shared memory; a loop over 32-row q tiles (from the tile that holds
+//   query k0 under the causal mask: the reference's first =
 //   (kj*block_k)//block_q) loads Q, dO, LSE and delta, then accumulates
 //   dV += P^T dO and dK += dS^T Q in registers (4 keys x D/16 columns per
 //   thread each); P and then dS pass through one shared tile.
@@ -41,9 +43,9 @@
 // padded to an odd pitch so 16 threads reading 16 rows hit 16 banks. Rows
 // past Sq and keys past Skv are never read (zero rows in shared memory).
 //
-// Arithmetic: inputs read in their dtype (f32 or bf16) and computed in
-// f32; explicit fmaf (the library builds with --fmad=false), expf without
-// intrinsics; the scale of dK and dQ is applied once to the sum.
+// Arithmetic in f32: explicit fmaf (the library builds with
+// --fmad=false), expf without intrinsics; the scale of dK and dQ is
+// applied once to the sum.
 #include "attention_tile.cuh"
 
 namespace {
@@ -328,6 +330,28 @@ cudaError_t launch_bwd_dq(const void* q, const void* dout, const void* k,
 
 }  // namespace
 
+// the bf16 route (attention_bwd_sm90.cu)
+int attn_bwd_dkv_wgmma(int head_dim, const void* q, const void* dout,
+                       const void* k, const void* v, const void* lse,
+                       const void* delta, void* dk, void* dv, int B, int H,
+                       int Hkv, int Sq, int Skv, int causal, float scale,
+                       cudaStream_t st);
+int attn_bwd_dq_wgmma(int head_dim, const void* q, const void* dout,
+                      const void* k, const void* v, const void* lse,
+                      const void* delta, void* dq, int B, int H, int Hkv,
+                      int Sq, int Skv, int causal, float scale,
+                      cudaStream_t st);
+
+// head dim -> the f32 instantiation
+#define F32_DISPATCH(FN, ...)                                         \
+  switch (head_dim) {                                                 \
+    case 16: return FN<float, 16>(__VA_ARGS__);                       \
+    case 32: return FN<float, 32>(__VA_ARGS__);                       \
+    case 64: return FN<float, 64>(__VA_ARGS__);                       \
+    case 128: return FN<float, 128>(__VA_ARGS__);                     \
+    default: return cudaErrorInvalidValue;                            \
+  }
+
 extern "C" {
 
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
@@ -336,8 +360,12 @@ int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                       int B, int H, int Hkv, int Sq, int Skv, int causal,
                       float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  ATTN_DISPATCH(launch_bwd_dkv, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv,
-                Sq, Skv, causal, scale, st)
+  if (dtype == 1)
+    return attn_bwd_dkv_wgmma(head_dim, q, dout, k, v, lse, delta, dk, dv, B,
+                              H, Hkv, Sq, Skv, causal, scale, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  F32_DISPATCH(launch_bwd_dkv, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv,
+               Sq, Skv, causal, scale, st)
 }
 
 int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
@@ -346,8 +374,12 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
                      int H, int Hkv, int Sq, int Skv, int causal,
                      float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  ATTN_DISPATCH(launch_bwd_dq, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq,
-                Skv, causal, scale, st)
+  if (dtype == 1)
+    return attn_bwd_dq_wgmma(head_dim, q, dout, k, v, lse, delta, dq, B, H,
+                             Hkv, Sq, Skv, causal, scale, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  F32_DISPATCH(launch_bwd_dq, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq,
+               Skv, causal, scale, st)
 }
 
 }  // extern "C"

@@ -15,11 +15,16 @@ run the plain PyTorch versions (``*_ref``).
   its clamp), B8 (``attn_fwd_kernel``) otherwise. The kernels' own tiles
   are not the reference's 512-wide blocks: only this dispatch follows
   them.
-- ``flash_attention_bwd_dkv``: B10 (``attn_bwd_dkv_kernel``), per-q-head
-  f32 partials of dK and dV; ``flash_attention_bwd_dq``: B11
-  (``attn_bwd_dq_kernel``), dQ in q's dtype. ``flash_attention`` is
-  differentiable through ``_FlashAttention`` (the counterpart of the
-  reference's ``custom_vjp``), whose backward runs them.
+- ``flash_attention_bwd_dkv``: B10, per-q-head f32 partials of dK and
+  dV; ``flash_attention_bwd_dq``: B11, dQ in q's dtype. Two routes, one
+  kernel each: bf16 operands run on the tensor cores
+  (``attn_bwd_{dkv,dq}_wgmma_kernel`` of ``csrc/attention_bwd_sm90.cu``:
+  wgmma and TMA; P and dS rounded to bf16 before the second products,
+  see ``bwd_rounding_magnitudes``), f32 operands on the CUDA cores
+  (``attn_bwd_{dkv,dq}_kernel`` of ``csrc/attention_bwd.cu``).
+  ``flash_attention`` is differentiable through ``_FlashAttention`` (the
+  counterpart of the reference's ``custom_vjp``), whose backward runs
+  them.
 - ``flash_decode``: B12 (``attn_decode_kernel``).
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
@@ -229,6 +234,25 @@ def flash_attention_bwd_dq_ref(q, do, k, v, lse, delta, causal: bool,
     _qf, _dof, kf, _p, ds = _bwd_parts(q, do, k, v, lse, delta, causal,
                                        scale)
     return (torch.matmul(ds, kf) * scale).reshape(q.shape).to(q.dtype)
+
+
+def bwd_rounding_magnitudes(q, do, k, v, lse, delta, causal: bool,
+                            scale: float):
+    """Plain helper for the limits of B10/B11's bf16 route, which rounds
+    P and dS to bf16 as the first operand of dV, dK and dQ (any device;
+    the main path never calls it). The magnitudes of those sums, shaped
+    like the outputs, f32: (scale |dS|^T |Q|, |P|^T |dO|) as (B*H, Skv,
+    D) each, like (dk_part, dv_part), and scale |dS| |K| (B, H, Sq, D),
+    like dq."""
+    qf, dof, kf, p, ds = _bwd_parts(q, do, k, v, lse, delta, causal, scale)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    dsa = ds.abs()
+    dk = torch.matmul(dsa.transpose(-1, -2), qf.abs()) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof.abs())     # p >= 0
+    dq = torch.matmul(dsa, kf.abs()) * scale
+    return (dk.reshape(B * H, Skv, D), dv.reshape(B * H, Skv, D),
+            dq.reshape(B, H, Sq, D))
 
 
 def _bwd_launch(name, what, q, do, k, v, lse, delta, outs, causal, scale):

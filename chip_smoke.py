@@ -51,13 +51,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    family under torch.profiler and the peak memory. The attention launch
    counters are zeroed before phase 6 and read after phase 7: every
    attention kernel must have run there.
-8. Attention backward: B10 (``attn_bwd_dkv``) and B11 (``attn_bwd_dq``)
+8. Attention backward: the bf16 route's kernels (``attention_bwd_sm90.cu``)
+   hold HGMMA instructions in their SASS (``cuobjdump -sass``) and
+   no ptxas spills; B10 (``attn_bwd_dkv``) and B11 (``attn_bwd_dq``)
    against their plain versions on an edge corpus (MHA/GQA/MQA, causal
    and not, ragged S, Sq != Skv both ways, D 16-128, f32 and bf16) and
    at the full Llama-3-8B width (B=4, H=32, Hkv=8, S=2048, D=128) in
-   bf16 and f32, timed beside PyTorch's SDPA backward (timed only); the
+   bf16 and f32, timed beside PyTorch's SDPA backward (timed only), bf16
+   under the limit of its rounding of P and dS (``BWD_TOL``); the
    autograd Function's gradients (B8 + B10 + B11) against torch autograd
-   through dense attention, f32, at the same shape. Then a gradient
+   through dense attention at the same shape, bf16 (relative L2, SDPA's
+   beside it) and f32. Then a gradient
    check: a 2-layer f32 Llama-3-8B, flash against dense, on (1, 2048):
    the loss and every parameter's gradient.
 9. Training: Llama-3-8B width, 8 of 32 layers, f32 parameters and bf16
@@ -474,8 +478,8 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("fp8_dequant", "fp8_dequant_kernel"),
             ("attn_fwd_single", "attn_fwd_single_kernel"),
             ("attn_fwd", "attn_fwd_kernel"),
-            ("attn_bwd_dkv", "attn_bwd_dkv_kernel"),
-            ("attn_bwd_dq", "attn_bwd_dq_kernel"),
+            ("attn_bwd_dkv", "attn_bwd_dkv_"),   # both routes' kernels
+            ("attn_bwd_dq", "attn_bwd_dq_"),
             ("attn_decode", "attn_decode_kernel"),
             ("optimizer", "multi_tensor_apply"),
             ("gemm", "gemm"), ("gemm", "gemv"), ("gemm", "nvjet"),
@@ -1324,22 +1328,37 @@ def serving_phase():
 
 # -- attention backward and the Llama training path --------------------------
 
-ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"
-# B10/B11 against their plain versions, per element: the same f32
-# FlashAttention-2 backward summed in another order over up to S*D terms
-# per output, whose error scales with the largest gradient of the tensor,
-# not with each element: f32 |got - plain| <= 2e-5*|plain| +
-# 2e-5*max|plain| (B10's partials are f32 for bf16 inputs too); B11's dq
-# in bf16 under the forward's bf16 rule (one ulp of the element, floored
-# at one ulp of the median)
+ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"          # f32 route
+ATTN_BWD_SM90_SRC = "accl_tpu_torch/csrc/attention_bwd_sm90.cu"  # bf16 route
+WGMMA_KERNELS = ("attn_bwd_dkv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
+# B10/B11 against their plain versions, per element. f32 inputs: the same
+# f32 FlashAttention-2 backward summed in another order over up to S*D
+# terms per output, whose error scales with the largest gradient of the
+# tensor, not with each element: |got - plain| <= 2e-5*|plain| +
+# 2e-5*max|plain|. bf16 inputs (the tensor-core route): P and dS are
+# rounded to bf16 (8 significant bits) as the first operand of dV, dK
+# and dQ, which moves each term of those sums by less than 2^-8 of its
+# magnitude, so an output moves by less than 2^-8 * m, m the sum of the
+# terms' magnitudes (``bwd_rounding_magnitudes``); the floor
+# 2e-5*max|plain| covers the f32 order of the sums, dP's acting on dS
+# where dP ~ delta: dk, dv (f32) 2^-8*m + 2e-5*max|plain|; dq (bf16 out)
+# 2^-8*m + 2^-7*|plain| + 2^-7*median|plain| (one bf16 ulp of the
+# element, floored at one ulp of the median, as the forward)
 BWD_REL = 2e-5
-BWD_TOL = ("f32 2e-5*|plain| + 2e-5*max|plain|; bf16 2^-7*|plain| + "
-           "2^-7*median|plain|, per element")
+BWD_BF16_MARGIN = 2.0 ** -8
+BWD_TOL = ("f32 2e-5*|plain| + 2e-5*max|plain|; bf16 dk, dv 2^-8*m + "
+           "2e-5*max|plain|, dq 2^-8*m + 2^-7*|plain| + 2^-7*median|plain|, "
+           "m the magnitude of the rounded sum; per element")
 # the Function's gradients (B8 + B10 + B11) against torch autograd through
 # dense attention, f32: two algorithms (a dense softmax backward against
 # the recomputation from the LSE with delta from O), each rounding at its
 # own places: 5x the kernel-vs-plain limit, 1e-4*|dense| + 1e-4*max|dense|
 FN_DENSE_REL = 1e-4
+# the bf16 Function against f32 dense autograd on the same bf16-valued
+# inputs: O, P, dS and the gradients round to bf16 (under 2^-8 each),
+# so each gradient within 1e-2 relative L2; SDPA's bf16 backward is
+# printed beside it as the yardstick
+FN_BF16_REL_L2 = 1e-2
 # flash against dense, 2-layer f32 Llama-3-8B, B=1, S=2048: the attention
 # outputs differ by ~1e-7 relative (phase 6 read ~6e-6 relative on 4
 # layers' logits); the loss within 1e-5 relative, every parameter's
@@ -1350,15 +1369,21 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2, 2048, 4
 TRAIN_MAX_PEAK = 75 * 2 ** 30
 
 
-def bwd_limit(plain):
-    import torch
-    if plain.dtype == torch.bfloat16:
-        return attn_limit(plain)
+def bwd_limit(plain, part: str, mag=None):
+    """Per-element limit of a B10/B11 output ``part`` ("dk", "dv", "dq")
+    against its plain version (see BWD_TOL); ``mag``, the rounded sum's
+    magnitude, selects the bf16 route's rule."""
     p = plain.float().abs()
-    return BWD_REL * p + BWD_REL * float(p.max())
+    if mag is None:
+        return BWD_REL * p + BWD_REL * float(p.max())
+    if part == "dq":
+        return (BWD_BF16_MARGIN * mag + BF16_REL * p
+                + BF16_REL * float(p.median()))
+    return BWD_BF16_MARGIN * mag + BWD_REL * float(p.max())
 
 
-def hold_bwd(got, plain, what: str) -> tuple[float, float]:
+def hold_bwd(got, plain, what: str, part: str,
+             mag=None) -> tuple[float, float]:
     """(max abs error, largest error/limit) of a B10/B11 output against
     its plain version under BWD_TOL; fails past the limit."""
     import torch
@@ -1367,11 +1392,73 @@ def hold_bwd(got, plain, what: str) -> tuple[float, float]:
          f"{tuple(plain.shape)} {plain.dtype}")
     need(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     d = (got.float() - plain.float()).abs()
-    ratio = float((d / bwd_limit(plain)).max())
+    ratio = float((d / bwd_limit(plain, part, mag)).max())
     err = float(d.max())
     need(ratio <= 1.0, f"{what}: max abs err {err}, {ratio:.3g} times its "
          f"element's limit ({BWD_TOL})")
     return err, ratio
+
+
+def hold_bwd_outputs(args, outs, what: str) -> tuple[float, float]:
+    """B10's (dk, dv) or B11's (dq,) on ``args`` (the wrappers' operands)
+    against the plain versions, under the rule of the inputs' dtype."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    bf16 = args[0].dtype == torch.bfloat16
+    if len(outs) == 2:
+        plain, parts = A.flash_attention_bwd_dkv_ref(*args), ("dk", "dv")
+    else:
+        plain, parts = (A.flash_attention_bwd_dq_ref(*args),), ("dq",)
+    mags = dict(zip(("dk", "dv", "dq"), A.bwd_rounding_magnitudes(*args))) \
+        if bf16 else {}
+    w = (0.0, 0.0)
+    for got, want, part in zip(outs, plain, parts):
+        w = max_pair(w, hold_bwd(got, want, f"{what} {part}", part,
+                                 mags.get(part)))
+    return w
+
+
+def wgmma_kernels_checked():
+    """The bf16 route's kernels in the built library: their SASS holds
+    HGMMA (Hopper's warpgroup MMA: the tensor cores) and ptxas reports no
+    spills. Prints both; fails otherwise."""
+    import re
+    import shutil
+    from accl_tpu_torch import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True, timeout=300)
+    need(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    funcs = re.split(r"\n\s*Function : ", sass.stdout)[1:]
+    ptx = {}       # kernel -> (registers, spill bytes) per instantiation
+    name = None
+    for ln in _build.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            ptx.setdefault(name, [0, 0])[1] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            ptx.setdefault(name, [0, 0])[0] = int(m.group(1))
+    for kern in WGMMA_KERNELS:
+        bodies = [f for f in funcs if kern in f.split("\n", 1)[0]]
+        need(bodies, f"{kern}: not in the library's SASS")
+        counts = [f.count("HGMMA") for f in bodies]
+        need(min(counts) > 0, f"{kern}: an instantiation without HGMMA "
+             f"(counts {counts})")
+        info = [v for k, v in ptx.items() if kern in k]
+        need(info, f"{kern}: no ptxas report in the build log")
+        need(all(v[1] == 0 for v in info), f"{kern}: ptxas spills {info}")
+        print(f"{kern}: {len(bodies)} instantiations (D 16/32/64/128), "
+              f"HGMMA instructions {counts}; ptxas registers "
+              f"{[v[0] for v in info]}, spill bytes {[v[1] for v in info]}")
+    for ln in _build.build_log.splitlines():
+        if "wgmma" in ln.lower() and "warning" in ln.lower():
+            print(f"  ptxas: {ln.strip()}")
 
 
 def bwd_operands(q, k, v, do, causal):
@@ -1387,16 +1474,11 @@ def bwd_operands(q, k, v, do, causal):
 def hold_bwd_call(q, do, k, v, lse, delta, causal, what):
     """B10 and B11 on one set of operands against their plain versions."""
     from accl_tpu_torch.ops import attention as A
-    scale = q.shape[-1] ** -0.5
-    args = (q, do, k, v, lse, delta, causal, scale)
-    dk, dv = A.flash_attention_bwd_dkv(*args)
-    rdk, rdv = A.flash_attention_bwd_dkv_ref(*args)
-    w = max_pair(hold_bwd(dk, rdk, f"{what} B10 dk"),
-                 hold_bwd(dv, rdv, f"{what} B10 dv"))
-    del dk, dv, rdk, rdv
-    dq = A.flash_attention_bwd_dq(*args)
-    return max_pair(w, hold_bwd(dq, A.flash_attention_bwd_dq_ref(*args),
-                                f"{what} B11 dq"))
+    args = (q, do, k, v, lse, delta, causal, q.shape[-1] ** -0.5)
+    w = hold_bwd_outputs(args, A.flash_attention_bwd_dkv(*args),
+                         f"{what} B10")
+    return max_pair(w, hold_bwd_outputs(
+        args, (A.flash_attention_bwd_dq(*args),), f"{what} B11"))
 
 
 def attention_bwd_edges(rng):
@@ -1410,21 +1492,25 @@ def attention_bwd_edges(rng):
         (1, 8, 1, 513, 513, 128, True), (1, 8, 1, 513, 513, 128, False),
         (1, 4, 2, 40, 96, 16, True), (1, 4, 2, 40, 96, 32, False),
         (1, 4, 2, 200, 70, 64, True), (2, 4, 4, 96, 40, 128, False)]
-    worst = (0.0, 0.0)
     for dt in (torch.float32, torch.bfloat16):
+        worst, ratios = (0.0, 0.0), []
         for B, H, Hkv, Sq, Skv, D, causal in cases:
             q, do = (torch.from_numpy(rng.standard_normal(
                 (B, H, Sq, D))).to("cuda", dt) for _ in range(2))
             k, v = (torch.from_numpy(rng.standard_normal(
                 (B, Hkv, Skv, D))).to("cuda", dt) for _ in range(2))
             _o, lse, delta = bwd_operands(q, k, v, do, causal)
-            worst = max_pair(worst, hold_bwd_call(
-                q, do, k, v, lse, delta, causal,
-                f"attn bwd {dt} {(B, H, Hkv, Sq, Skv, D, causal)}"))
-    print(f"attention backward edges: {2 * len(cases)} cases (B10 and B11; "
-          f"MHA/GQA/MQA, causal and not, ragged 130/300/513, Sq != Skv "
-          f"both ways, D 16-128, f32 and bf16) within tolerance; max abs "
-          f"err {worst[0]}, largest error/limit {worst[1]:.3f} ({BWD_TOL})")
+            case = (B, H, Hkv, Sq, Skv, D, causal)
+            w = hold_bwd_call(q, do, k, v, lse, delta, causal,
+                              f"attn bwd {dt} {case}")
+            worst = max_pair(worst, w)
+            ratios.append(round(w[1], 3))
+        src = ATTN_BWD_SM90_SRC if dt == torch.bfloat16 else ATTN_BWD_SRC
+        print(f"attention backward edges, {str(dt)[6:]} ({src}): "
+              f"{len(cases)} cases (B10 and B11; MHA/GQA/MQA, causal and "
+              f"not, ragged 130/300/513, Sq != Skv both ways, D 16-128) "
+              f"within tolerance; max abs err {worst[0]}, largest "
+              f"error/limit {worst[1]:.3f}, per case {ratios} ({BWD_TOL})")
 
 
 def dense_topleft(q, k, v, causal=True):
@@ -1447,8 +1533,8 @@ def attention_bwd_records():
     D=128, causal), bf16 (the table's rows) and f32, against their plain
     versions, timed beside PyTorch's SDPA backward (dq, dk and dv
     together: the library time of the pair; timed only). Then the whole
-    Function's gradients against torch autograd through dense attention,
-    f32, at the same shape."""
+    Function's gradients against torch autograd through dense attention
+    at the same shape: bf16 (relative L2, SDPA's beside it) and f32."""
     import torch
     import torch.nn.functional as F
     from accl_tpu_torch.ops import attention as A
@@ -1489,7 +1575,9 @@ def attention_bwd_records():
             plain_ms = time_ms(lambda: plain(*args), reps=5)  # noqa: B023
             nbytes = 2 * qbytes + 2 * kvbytes + 2 * 4 * B * H * S + out_bytes
             bms, by = bound_ms(nbytes, ops_per * D * n, rate)
-            print(f"kernel {name} {str(dt)[6:]} B={B} H={H} Hkv={Hkv} D={D} "
+            src = ATTN_BWD_SM90_SRC if dt == torch.bfloat16 else ATTN_BWD_SRC
+            print(f"kernel {name} {str(dt)[6:]} ({src}) B={B} H={H} "
+                  f"Hkv={Hkv} D={D} "
                   f"S={S} causal: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
                   f"backward (dq, dk, dv together) {library_ms:.4f} ms, bound "
                   f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound); B10+B11 "
@@ -1497,7 +1585,7 @@ def attention_bwd_records():
                   f"{ratio:.3f} ({BWD_TOL})")
             if dt == torch.bfloat16:
                 recs.append({"name": name, "route": "cuda",
-                             "source": ATTN_BWD_SRC,
+                             "source": ATTN_BWD_SM90_SRC,
                              "replaces": {"attn_bwd_dkv":
                                           "accl_tpu/ops/attention.py:461",
                                           "attn_bwd_dq":
@@ -1508,6 +1596,37 @@ def attention_bwd_records():
                              "bound_by": by, "library_ms": library_ms})
         del q, do, k, v, lse, delta, args
         torch.cuda.empty_cache()
+
+    # the bf16 Function (B8 + B10 + B11 on the tensor-core route) and
+    # SDPA's bf16 backward against f32 dense autograd on the same
+    # bf16-valued inputs, relative L2
+    x = [torch.randn(B, h, S, D, device="cuda", generator=g).to(
+        torch.bfloat16) for h in (H, Hkv, Hkv, H)]
+    do = x[3]
+    leaves = [t.float().requires_grad_() for t in x[:3]]
+    want = torch.autograd.grad(dense_topleft(*leaves), leaves, do.float())
+    del leaves
+    torch.cuda.empty_cache()
+    fl = [t.clone().requires_grad_() for t in x[:3]]
+    got = torch.autograd.grad(A.flash_attention(*fl, causal=True), fl, do)
+    sl = [t.clone().requires_grad_() for t in x[:3]]
+    lib = torch.autograd.grad(F.scaled_dot_product_attention(
+        *sl, is_causal=True, enable_gqa=True), sl, do)
+    del fl, sl
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, lib):
+        need(a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all()),
+             f"bf16 Function {name}: dtype {a.dtype} or non-finite")
+        norm = torch.linalg.vector_norm(b)
+        rel = float(torch.linalg.vector_norm(a.float() - b) / norm)
+        rel_sdpa = float(torch.linalg.vector_norm(c.float() - b) / norm)
+        print(f"bf16 Function {name} (B8 + B10 + B11, tensor-core route) vs "
+              f"f32 dense autograd on the same bf16 inputs, (4, 32/8, 2048, "
+              f"128) causal: relative L2 {rel:.4g} (limit {FN_BF16_REL_L2}); "
+              f"SDPA bf16 backward {rel_sdpa:.4g}")
+        need(rel <= FN_BF16_REL_L2, f"bf16 Function {name}: relative L2 "
+             f"{rel:.4g} past {FN_BF16_REL_L2}")
+    del x, do, got, want, lib
+    torch.cuda.empty_cache()
 
     # the Function (B8 + B10 + B11) against dense autograd, f32
     q, k, v = (torch.randn(B, h, S, D, device="cuda", generator=g)
@@ -1610,7 +1729,6 @@ def training_phase():
     import dataclasses
     import torch
     from accl_tpu_torch.models import Llama, LlamaConfig
-    from accl_tpu_torch.ops import attention as A
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1659,16 +1777,10 @@ def training_phase():
     kinds = {}
     with torch.no_grad():
         for name, args, outs in calls:
-            dkv = name.endswith("dkv")
-            plain = (A.flash_attention_bwd_dkv_ref(*args) if dkv
-                     else (A.flash_attention_bwd_dq_ref(*args),))
-            for got, want, part in zip(outs, plain,
-                                       ("dk", "dv") if dkv else ("dq",)):
-                kinds[name] = max_pair(kinds.get(name, (0.0, 0.0)),
-                                       hold_bwd(got, want, f"training {name} "
-                                                f"{part} q "
-                                                f"{tuple(args[0].shape)}"))
-            del plain
+            kinds[name] = max_pair(kinds.get(name, (0.0, 0.0)),
+                                   hold_bwd_outputs(
+                                       args, outs, f"training {name} q "
+                                       f"{tuple(args[0].shape)}"))
     for name, w in sorted(kinds.items()):
         print(f"training {name}: the first and last layer's calls of the "
               f"first step held against the plain version at the path's "
@@ -1754,6 +1866,7 @@ def main() -> int:
     phase("phase 7: serving")
     by_path["serving"] = serving_phase()     # zeroes the counts itself
     phase("phase 8: attention backward kernels")
+    wgmma_kernels_checked()
     attention_bwd_edges(rng)
     attn_recs += attention_bwd_records()
     phase("gradient check: flash vs dense, f32")

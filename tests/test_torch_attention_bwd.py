@@ -11,6 +11,11 @@ mask. Tolerances: f32 gradients within rtol = atol = 1e-5 (the same f32
 FlashAttention-2 arithmetic summed in another order); a bf16 gradient
 within one bf16 ulp of its scale (2^-7 * max |grad|: both sides round the
 same f32 value, which may sit on either side of a rounding boundary).
+
+The card's bf16 route of B10/B11 (tensor cores) rounds P and dS to bf16
+before the second products; the tests below emulate it on the CPU and
+hold the emulation to the limit the card's kernels are held to in
+``chip_smoke.py`` (the kernels themselves run only on the card).
 """
 
 from __future__ import annotations
@@ -148,6 +153,119 @@ def test_plain_parts_match_dense_autograd(case):
     torch.testing.assert_close(tv.grad, v_rep.grad.reshape(
         B, Hkv, g, Skv, D).sum(2), **tol)
     torch.testing.assert_close(tq.grad, q.grad, **tol)
+
+
+# The bf16 route of B10/B11 (tensor cores) rounds P and dS to bf16 as the
+# first operand of dV, dK and dQ. Its limit against the plain versions,
+# per element, with m the magnitude of the rounded sum
+# (``bwd_rounding_magnitudes``): a rounding moves each term by less than
+# 2^-8 of its magnitude, and the f32 accumulation order of the card sits
+# in the floor: dk, dv (f32) 2^-8*m + 2e-5*max|plain|; dq (bf16)
+# 2^-8*m + 2^-7*|plain| + 2^-7*median|plain|.
+def _bf16_limit(plain, part, mag):
+    p = plain.float().abs()
+    if part == "dq":
+        return 2.0 ** -8 * mag + 2.0 ** -7 * p + 2.0 ** -7 * float(p.median())
+    return 2.0 ** -8 * mag + 2e-5 * float(p.max())
+
+
+def _bf16_operands(case):
+    """bf16-valued q, k, v, dout of ``case`` and the backward's operands:
+    the forward's LSE, delta from O in bf16 (as ``_FlashAttention``)."""
+    B, H, _, Sq, _, D, causal = CASES[case][:7]
+    xq, xk, xv, xdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in _inputs(case))
+    o, lse = A.flash_attention_fwd(xq, xk, xv, causal)
+    delta = (xdo.float() * o.float()).sum(-1).reshape(B * H, Sq)
+    return xq, xdo, xk, xv, lse, delta, causal, D ** -0.5
+
+
+def _bf16_route(q, do, k, v, lse, delta, causal, scale):
+    """An emulation of the bf16 route: the plain backward's f32 P and dS,
+    rounded to bf16 (round to nearest even) before the second products."""
+    qf, dof, kf, p, ds = A._bwd_parts(q, do, k, v, lse, delta, causal, scale)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.matmul(pb.transpose(-1, -2), dof).reshape(B * H, Skv, D)
+    dk = (torch.matmul(dsb.transpose(-1, -2), qf) * scale).reshape(
+        B * H, Skv, D)
+    dq = (torch.matmul(dsb, kf) * scale).reshape(q.shape).to(q.dtype)
+    return dk, dv, dq
+
+
+def _bf16_ratios(args, outs):
+    """Largest error/limit of (dk, dv, dq) against the plain versions."""
+    plain = (*A.flash_attention_bwd_dkv_ref(*args),
+             A.flash_attention_bwd_dq_ref(*args))
+    mags = A.bwd_rounding_magnitudes(*args)
+    return [float(((g.float() - w.float()).abs()
+                   / _bf16_limit(w, part, m)).max())
+            for g, w, m, part in zip(outs, plain, mags, ("dk", "dv", "dq"))]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_route_emulation_within_limit(case):
+    """The emulated bf16 route stays within the limit of the card's bf16
+    route on every case, and differs from the plain versions (the limit
+    is not vacuous)."""
+    args = _bf16_operands(case)
+    outs = _bf16_route(*args)
+    assert outs[0].dtype == outs[1].dtype == torch.float32
+    assert outs[2].dtype == torch.bfloat16
+    ratios = _bf16_ratios(args, outs)
+    assert max(ratios) <= 1.0, ratios
+    assert min(ratios) > 0.0, ratios
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_limit_catches_a_moved_element(case):
+    """dk with one element moved by 2^-5 * max|dk| fails the limit (at
+    its largest element and at its middle one), so the limit is not
+    loose."""
+    args = _bf16_operands(case)
+    dk, dv, dq = _bf16_route(*args)
+    step = 2.0 ** -5 * float(dk.abs().max())
+    for flat in (int(dk.abs().argmax()), dk.numel() // 2):
+        moved = dk.clone()
+        moved.view(-1)[flat] += step
+        assert _bf16_ratios(args, (moved, dv, dq))[0] > 1.0, (case, flat)
+
+
+def test_rounding_magnitudes_brute_force():
+    """``bwd_rounding_magnitudes`` against sums of |terms| written out
+    term by term on a small GQA causal case."""
+    rng = np.random.default_rng(7)
+    B, H, Hkv, Sq, Skv, D, causal = 1, 4, 2, 6, 5, 16, True
+    q, do = (torch.from_numpy(rng.standard_normal((B, H, Sq, D))).bfloat16()
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, Skv, D)))
+            .bfloat16() for _ in range(2))
+    o, lse = A.flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).reshape(B * H, Sq)
+    scale = D ** -0.5
+    mdk, mdv, mdq = A.bwd_rounding_magnitudes(q, do, k, v, lse, delta,
+                                              causal, scale)
+    qf, dof, kf, vf = (t.double() for t in (q, do, k, v))
+    want_dk, want_dv = torch.zeros(B * H, Skv, D), torch.zeros(B * H, Skv, D)
+    want_dq = torch.zeros(B, H, Sq, D)
+    for h in range(H):
+        kv = h // (H // Hkv)
+        for i in range(Sq):
+            for j in range(Skv):
+                if causal and j > i:
+                    continue
+                s = float(qf[0, h, i] @ kf[0, kv, j]) * scale
+                p = np.exp(s - float(lse[h, i]))
+                ds = p * (float(dof[0, h, i] @ vf[0, kv, j])
+                          - float(delta[h, i]))
+                want_dv[h, j] += p * dof[0, h, i].abs().float()
+                want_dk[h, j] += scale * abs(ds) * qf[0, h, i].abs().float()
+                want_dq[0, h, i] += (scale * abs(ds)
+                                     * kf[0, kv, j].abs().float())
+    for got, want in ((mdk, want_dk), (mdv, want_dv), (mdq, want_dq)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
 
 
 def test_no_grad_calls_the_forward_directly():
