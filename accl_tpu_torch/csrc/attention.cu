@@ -1,4 +1,4 @@
-// Attention kernels B8, B9 and B12 (CUDA C++, sm_90a).
+// Attention kernels B8, B9 and B12 on the CUDA cores (CUDA C++, sm_90a).
 //
 // Replace accl_tpu/ops/attention.py:
 //   B8  attn_fwd_kernel        <- _fwd_kernel (pallas_call at :285): the
@@ -9,13 +9,18 @@
 //   B12 attn_decode_kernel     <- _decode_kernel (:689): decode and chunked
 //       prefill over the KV cache in its native (B, T, Hkv, D) layout.
 //
+// Routes: the C entry points below send bf16 B8 and bf16 B12 chunks of
+// S_new > 1 new tokens to the tensor-core kernel of attention_sm90.cu
+// (wgmma, TMA). f32 B8, B9 in both dtypes and B12 in f32 or with
+// S_new == 1 (single-token decode) run the kernels of this file.
+//
 // What bounds them on an H100: B8, B9 and a long prefill in B12 do about
 // 4*S*D operations per score row against 2*D bytes per key, so at S in
 // the thousands they are bound by operations; single-token decode in B12
-// reads the filled cache prefix once and is bound by bytes. These first
+// reads the filled cache prefix once and is bound by bytes. These
 // kernels run on the CUDA cores in f32 (67 TFLOP/s on the data sheet, not
 // the 989 TFLOP/s of the bf16 tensor cores), so they sit far above their
-// bound at long S; wgmma, TMA and tensor cores are later work.
+// bound at long S.
 //
 // Design: one thread block of 256 threads per (head row set, q tile). A
 // loop over 64-key tiles stands in for the TPU's sequential grid axis;
@@ -406,14 +411,26 @@ cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
+// the bf16 tensor-core route (attention_sm90.cu)
+int attn_fwd_wgmma(int head_dim, const void* q, const void* k, const void* v,
+                   void* o, void* lse, int B, int H, int Hkv, int Sq, int Skv,
+                   int causal, float scale, cudaStream_t st);
+int attn_prefill_wgmma(int head_dim, const void* q, const void* kc,
+                       const void* vc, void* o, int B, int H, int Hkv, int T,
+                       int s_new, int kv_len, float scale, cudaStream_t st);
+
 extern "C" {
 
 int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
                   const void* v, void* o, void* lse, int B, int H, int Hkv,
                   int Sq, int Skv, int causal, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  ATTN_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
-                scale, st)
+  if (dtype == 1)
+    return attn_fwd_wgmma(head_dim, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
+                          causal, scale, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  F32_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
+               scale, st)
 }
 
 int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
@@ -429,6 +446,9 @@ int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
                      const void* vc, void* o, int B, int H, int Hkv, int Tlen,
                      int s_new, int kv_len, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && s_new > 1)
+    return attn_prefill_wgmma(head_dim, q, kc, vc, o, B, H, Hkv, Tlen, s_new,
+                              kv_len, scale, st);
   ATTN_DISPATCH(launch_decode, q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
                 scale, st)
 }

@@ -342,16 +342,6 @@ int attn_bwd_dq_wgmma(int head_dim, const void* q, const void* dout,
                       int Sq, int Skv, int causal, float scale,
                       cudaStream_t st);
 
-// head dim -> the f32 instantiation
-#define F32_DISPATCH(FN, ...)                                         \
-  switch (head_dim) {                                                 \
-    case 16: return FN<float, 16>(__VA_ARGS__);                       \
-    case 32: return FN<float, 32>(__VA_ARGS__);                       \
-    case 64: return FN<float, 64>(__VA_ARGS__);                       \
-    case 128: return FN<float, 128>(__VA_ARGS__);                     \
-    default: return cudaErrorInvalidValue;                            \
-  }
-
 extern "C" {
 
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,

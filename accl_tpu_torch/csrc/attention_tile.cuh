@@ -1,6 +1,7 @@
-// Tile helpers shared by the attention kernels (attention.cu: B8, B9, B12;
-// attention_bwd.cu: B10, B11): 16-byte vector loads of row tiles into
-// shared memory as f32, warp reductions, the dtype x head-dim dispatch.
+// Tile helpers shared by the CUDA-core attention kernels (attention.cu: B8,
+// B9, B12; attention_bwd.cu: B10, B11): 16-byte vector loads of row tiles
+// into shared memory as f32, warp reductions, the dtype x head-dim
+// dispatches.
 #pragma once
 
 #include <float.h>
@@ -124,5 +125,15 @@ cudaError_t allow_smem(K kernel, int bytes) {
     case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);             \
     case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);             \
     case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);            \
+    default: return cudaErrorInvalidValue;                            \
+  }
+
+// head dim -> the f32 instantiation
+#define F32_DISPATCH(FN, ...)                                         \
+  switch (head_dim) {                                                 \
+    case 16: return FN<float, 16>(__VA_ARGS__);                       \
+    case 32: return FN<float, 32>(__VA_ARGS__);                       \
+    case 64: return FN<float, 64>(__VA_ARGS__);                       \
+    case 128: return FN<float, 128>(__VA_ARGS__);                     \
     default: return cudaErrorInvalidValue;                            \
   }

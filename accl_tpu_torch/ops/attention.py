@@ -6,15 +6,20 @@ decode cache (B, T, Hkv, D), read as it is. GQA is index arithmetic (the
 counterpart of ``_kv_head_row``): KV is never repeated.
 
 Wrappers: on CUDA tensors they launch the hand-written kernels of
-``csrc/attention.cu`` and ``csrc/attention_bwd.cu``; on CPU tensors they
-run the plain PyTorch versions (``*_ref``).
+``csrc/attention.cu``, ``csrc/attention_sm90.cu``, ``csrc/attention_bwd.cu``
+and ``csrc/attention_bwd_sm90.cu``; on CPU tensors they run the plain
+PyTorch versions (``*_ref``).
 
 - ``flash_attention`` / ``flash_attention_fwd``: B9
   (``attn_fwd_single_kernel``) when the padded KV is one block of the
   reference's block size (its ``nk == 1`` test, with ``_auto_block`` and
-  its clamp), B8 (``attn_fwd_kernel``) otherwise. The kernels' own tiles
-  are not the reference's 512-wide blocks: only this dispatch follows
-  them.
+  its clamp), B8 otherwise. The kernels' own tiles are not the
+  reference's 512-wide blocks: only this dispatch follows them. B8 has
+  two routes: bf16 operands run on the tensor cores
+  (``attn_fwd_wgmma_kernel`` of ``csrc/attention_sm90.cu``: wgmma and
+  TMA; P rounded to bf16 before P V, see ``fwd_rounding_magnitudes``),
+  f32 operands on the CUDA cores (``attn_fwd_kernel`` of
+  ``csrc/attention.cu``).
 - ``flash_attention_bwd_dkv``: B10, per-q-head f32 partials of dK and
   dV; ``flash_attention_bwd_dq``: B11, dQ in q's dtype. Two routes, one
   kernel each: bf16 operands run on the tensor cores
@@ -25,14 +30,21 @@ run the plain PyTorch versions (``*_ref``).
   ``flash_attention`` is differentiable through ``_FlashAttention`` (the
   counterpart of the reference's ``custom_vjp``), whose backward runs
   them.
-- ``flash_decode``: B12 (``attn_decode_kernel``).
+- ``flash_decode``: B12. A bf16 chunk of S_new > 1 new tokens (prefill)
+  runs B8's tensor-core kernel over the cache in its own layout
+  (``attn_fwd_wgmma_kernel`` with a 4-D tensor map, bottom-right causal);
+  f32, and single-token decode in either dtype, run
+  ``attn_decode_kernel`` of ``csrc/attention.cu``.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
 ``decode_launches`` (one new token, S_new == 1) and ``prefill_launches``
-(a chunk, S_new > 1). ``plain_runs`` counts the plain versions' runs on
-the CPU under the branch the dispatch chose ("fwd", "fwd_single",
-"bwd_dkv", "bwd_dq", "decode").
+(a chunk, S_new > 1); beside them the tensor-core route's own,
+``fwd_wgmma_launches`` (the B8 launches that took it) and
+``prefill_wgmma_launches`` (the B12 prefill launches that took it).
+``plain_runs`` counts the plain versions' runs on the CPU under the
+branch the dispatch chose ("fwd", "fwd_single", "bwd_dkv", "bwd_dq",
+"decode").
 """
 
 from __future__ import annotations
@@ -52,6 +64,8 @@ bwd_dkv_launches = 0
 bwd_dq_launches = 0
 decode_launches = 0
 prefill_launches = 0
+fwd_wgmma_launches = 0
+prefill_wgmma_launches = 0
 plain_runs = {"fwd": 0, "fwd_single": 0, "bwd_dkv": 0, "bwd_dq": 0,
               "decode": 0}
 
@@ -113,6 +127,26 @@ def _softmax_parts(s, mask):
     return m, p, p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
+def _fwd_parts(q, k, v, causal: bool, scale: float, off: int = 0):
+    """The forward's softmax in f32, the q heads of one kv head side by
+    side: (m, p, l, v as f32), shapes (B, Hkv, group * Sq, .). q (B, H,
+    Sq, D); k/v (B, Hkv, Skv, D). Under ``causal`` key j is seen by query
+    i when j <= i + off (0: the reference's top-left mask; kv_len - S_new:
+    B12's bottom-right one); a hidden pair has p = 0."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    # q head h = kv head * group + g: rows of one kv head side by side
+    qf = q.reshape(B, Hkv, (H // Hkv) * Sq, D).float()
+    s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale
+    rows = torch.arange(qf.shape[2], device=q.device) % Sq
+    keys = torch.arange(Skv, device=q.device)
+    mask = (keys[None, :] <= rows[:, None] + off if causal
+            else torch.ones(rows.numel(), Skv, dtype=torch.bool,
+                            device=q.device))
+    m, p, l = _softmax_parts(s, mask)
+    return m, torch.where(mask, p, 0.0), l, v.float()
+
+
 def flash_attention_ref(q, k, v, causal: bool = True,
                         sm_scale: float | None = None):
     """Plain PyTorch version of B8/B9 (any device): softmax attention in
@@ -120,20 +154,25 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     i when j <= i) and its constants. Returns (O in q's dtype, LSE (B*H,
     Sq) f32)."""
     B, H, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
     scale = float(D) ** -0.5 if sm_scale is None else sm_scale
-    # q head h = kv head * group + g: rows of one kv head side by side
-    qf = q.reshape(B, Hkv, (H // Hkv) * Sq, D).float()
-    s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale
-    rows = torch.arange(qf.shape[2], device=q.device) % Sq
-    keys = torch.arange(Skv, device=q.device)
-    mask = (keys[None, :] <= rows[:, None] if causal
-            else torch.ones(rows.numel(), Skv, dtype=torch.bool,
-                            device=q.device))
-    m, p, l = _softmax_parts(s, mask)
-    o = torch.matmul(p, v.float()) / l
+    m, p, l, vf = _fwd_parts(q, k, v, causal, scale)
+    o = torch.matmul(p, vf) / l
     lse = (m + torch.log(l)).reshape(B * H, Sq)
     return o.reshape(B, H, Sq, D).to(q.dtype), lse
+
+
+def fwd_rounding_magnitudes(q, k, v, causal: bool = True,
+                            scale: float | None = None, off: int = 0):
+    """Plain helper for the limit of the forward's bf16 route (B8, and
+    B12 with S_new > 1), which rounds P to bf16 as the first operand of
+    P V (any device; the main path never calls it). The magnitude of each
+    output's rounded sum, m_i = sum_j p_ij |v_j| / l_i, shaped like O
+    (B, H, Sq, D), f32. q (B, H, Sq, D); k/v (B, Hkv, Skv, D); the mask
+    as ``_fwd_parts`` (for B12: the filled cache prefix as (B, Hkv,
+    kv_len, D) and off = kv_len - S_new)."""
+    scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
+    _m, p, l, vf = _fwd_parts(q, k, v, causal, scale, off)
+    return (torch.matmul(p, vf.abs()) / l).reshape(q.shape)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True,
@@ -146,7 +185,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     reference's: with its clamp it selects B9 (one KV block) or B8, and
     nothing else; ``block_q`` is accepted for the reference's signature
     (the kernels' tiles are their own)."""
-    global fwd_launches, fwd_single_launches
+    global fwd_launches, fwd_single_launches, fwd_wgmma_launches
     _check_fwd(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -174,6 +213,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         fwd_single_launches += 1
     else:
         fwd_launches += 1
+        if q.dtype == torch.bfloat16:
+            fwd_wgmma_launches += 1
     return o, lse
 
 
@@ -389,24 +430,23 @@ def _check_decode(q, k_cache, v_cache, kv_len: int):
                          f"({kv_len}) <= T ({T})")
 
 
+def cache_prefix(k_cache, v_cache, kv_len: int):
+    """The filled prefix of a (B, T, Hkv, D) cache as k/v (B, Hkv, kv_len,
+    D) views: the forward's layout."""
+    return (k_cache[:, :kv_len].transpose(1, 2),
+            v_cache[:, :kv_len].transpose(1, 2))
+
+
 def flash_decode_ref(q, k_cache, v_cache, kv_len: int,
                      sm_scale: float | None = None):
     """Plain PyTorch version of B12 (any device). Query i of the S_new
     new tokens sits at position kv_len - S_new + i and sees cache
     positions up to its own; nothing at or past kv_len is read."""
-    B, H, S_new, D = q.shape
-    Hkv = k_cache.shape[2]
+    S_new, D = q.shape[2], q.shape[3]
     scale = float(D) ** -0.5 if sm_scale is None else sm_scale
-    qf = q.reshape(B, Hkv, (H // Hkv) * S_new, D).float()
-    kk = k_cache[:, :kv_len].float().permute(0, 2, 3, 1)   # (B, Hkv, D, n)
-    vv = v_cache[:, :kv_len].float().transpose(1, 2)       # (B, Hkv, n, D)
-    s = torch.matmul(qf, kk) * scale
-    qpos = kv_len - S_new + torch.arange(qf.shape[2], device=q.device) % S_new
-    mask = torch.arange(kv_len, device=q.device)[None, :] <= qpos[:, None]
-    _m, p, l = _softmax_parts(s, mask)
-    p = torch.where(mask, p, 0.0)
-    o = torch.matmul(p, vv) / l
-    return o.reshape(B, H, S_new, D).to(q.dtype)
+    k, v = cache_prefix(k_cache, v_cache, kv_len)
+    _m, p, l, vf = _fwd_parts(q, k, v, True, scale, kv_len - S_new)
+    return (torch.matmul(p, vf) / l).reshape(q.shape).to(q.dtype)
 
 
 def flash_decode(q, k_cache, v_cache, kv_len: int,
@@ -418,7 +458,7 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     ``kv_len`` (a host int: no device sync). Causal within the new
     tokens. Returns (B, H, S_new, D). ``block_k`` is the reference's
     argument; the kernel's key tile is its own."""
-    global decode_launches, prefill_launches
+    global decode_launches, prefill_launches, prefill_wgmma_launches
     kv_len = int(kv_len)
     _check_decode(q, k_cache, v_cache, kv_len)
     B, H, S_new, D = q.shape
@@ -439,4 +479,6 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
         decode_launches += 1
     else:
         prefill_launches += 1
+        if q.dtype == torch.bfloat16:
+            prefill_wgmma_launches += 1
     return o

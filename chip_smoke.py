@@ -33,12 +33,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    torch.profiler, device time summed per kernel family, beside the
    call's host-clock time (the rest is the device's idle share).
 5. Attention kernels: B8 (``attn_fwd``), B9 (``attn_fwd_single``) and
-   B12 (``attn_decode``) against their plain versions on the same CUDA
-   inputs: the CPU tests' shapes, NaN in the cache past ``kv_len`` with
-   ``kv_len`` at 1, one key tile -1, +0, +1 and T, and the full-width
-   shapes of Llama-3-8B (H=32, Hkv=8, D=128) in bf16 and f32, each timed
-   with CUDA events beside the same function through PyTorch's
-   ``scaled_dot_product_attention`` (timed only; the port never calls it).
+   B12 (``attn_decode``, ``attn_prefill``) against their plain versions
+   on the same CUDA inputs: the CPU tests' shapes, NaN in the cache past
+   ``kv_len`` with ``kv_len`` at 1, one key tile -1, +0, +1 and T,
+   chunks of 3, 64 and 65 new tokens after a filled prefix, and the
+   full-width shapes of Llama-3-8B (H=32, Hkv=8, D=128) in bf16 and f32,
+   each timed with CUDA events beside the same function through
+   PyTorch's ``scaled_dot_product_attention`` (timed only; the port
+   never calls it). bf16 B8 and bf16 B12 chunks run on the tensor cores
+   (``attention_sm90.cu``) and are held under the limit of their
+   rounding of P (``FWD_TOL``).
 6. Llama model, f32, full width, 4 layers: the same random weights
    through ``attention="flash"`` (the kernels) and ``"dense"`` (the
    reference's plain path): ``forward`` on (2, 2048) (B8) and (4, 128)
@@ -50,12 +54,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    per-step decode time, tokens/s, the device's busy share per kernel
    family under torch.profiler and the peak memory. The attention launch
    counters are zeroed before phase 6 and read after phase 7: every
-   attention kernel must have run there.
-8. Attention backward: the bf16 route's kernels (``attention_bwd_sm90.cu``)
-   hold HGMMA instructions in their SASS (``cuobjdump -sass``) and
-   no ptxas spills; B10 (``attn_bwd_dkv``) and B11 (``attn_bwd_dq``)
-   against their plain versions on an edge corpus (MHA/GQA/MQA, causal
-   and not, ragged S, Sq != Skv both ways, D 16-128, f32 and bf16) and
+   attention kernel must have run there, every bf16 B8 and B12 prefill
+   launch on the tensor-core route and no f32 one (the route counters).
+8. Attention backward: the bf16 route's kernels (``attention_sm90.cu``,
+   ``attention_bwd_sm90.cu``) hold HGMMA instructions in their SASS
+   (``cuobjdump -sass``), with no ptxas spills and no wgmma that ptxas
+   serialized; B10 (``attn_bwd_dkv``) and B11 (``attn_bwd_dq``) against
+   their plain versions on an edge corpus (MHA/GQA/MQA, causal and not,
+   ragged S, Sq != Skv both ways, D 16-128, f32 and bf16) and
    at the full Llama-3-8B width (B=4, H=32, Hkv=8, S=2048, D=128) in
    bf16 and f32, timed beside PyTorch's SDPA backward (timed only), bf16
    under the limit of its rounding of P and dS (``BWD_TOL``); the
@@ -67,9 +73,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 9. Training: Llama-3-8B width, 8 of 32 layers, f32 parameters and bf16
    activations, ``make_train_step`` with Adam(lr=1e-4), 4 steps on one
    (2, 2048) batch: finite losses that fall, B8/B10/B11 once per layer
-   per step, the first and last layer's B10/B11 calls against their
-   plain versions, step time, tokens/s, model FLOPs, the busy share and
-   kernels by family under torch.profiler, peak memory. Less than 2 GiB
+   per step (B8 on the tensor-core route), the first and last layer's
+   B10 and B11 calls of the first step and B8 calls of one more forward
+   against their plain versions, step time,
+   tokens/s, model FLOPs, the busy share and kernels by family under
+   torch.profiler, peak memory. Less than 2 GiB
    may be allocated when it starts.
 
 Each phase starts with a line of the device memory allocated.
@@ -478,6 +486,8 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("fp8_dequant", "fp8_dequant_kernel"),
             ("attn_fwd_single", "attn_fwd_single_kernel"),
             ("attn_fwd", "attn_fwd_kernel"),
+            # bf16 B8 and B12 prefill: the tensor-core route's one kernel
+            ("attn_fwd_wgmma", "attn_fwd_wgmma_kernel"),
             ("attn_bwd_dkv", "attn_bwd_dkv_"),   # both routes' kernels
             ("attn_bwd_dq", "attn_bwd_dq_"),
             ("attn_decode", "attn_decode_kernel"),
@@ -836,7 +846,8 @@ def main_path(recs):
 
 # -- attention and the Llama serving path ----------------------------------
 
-ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"
+ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"              # CUDA cores
+ATTN_SM90_SRC = "accl_tpu_torch/csrc/attention_sm90.cu"    # bf16 B8, prefill
 # one attention tolerance, stated once and held element by element:
 # f32 |got - plain| <= 2e-5 + 2e-5 * |plain| (one f32 softmax summed in
 # another order); bf16 <= 2^-7 * |plain| + 2^-7 * median |plain|: one
@@ -847,6 +858,16 @@ F32_RTOL = F32_ATOL = 2e-5
 BF16_REL = 2.0 ** -7
 ATTN_TOL = ("f32 2e-5 + 2e-5*|plain|; bf16 2^-7*|plain| + "
             "2^-7*median|plain|, per element")
+# the forward's bf16 tensor-core route (B8, B12 with S_new > 1) rounds P
+# to bf16 (8 significant bits) as the first operand of P V, which moves
+# each term p*v by less than 2^-8 of its magnitude, so an output moves by
+# less than 2^-8 * m, m = sum_j p_ij |v_j| / l_i
+# (``fwd_rounding_magnitudes``), on top of the bf16 output limit; its
+# LSE keeps the f32 limit
+FWD_BF16_MARGIN = 2.0 ** -8
+FWD_TOL = ("bf16 tensor-core route 2^-8*m + 2^-7*|plain| + "
+           "2^-7*median|plain|, m the magnitude of the rounded sum P V; "
+           "LSE 2e-5 + 2e-5*|lse|; per element")
 KEY_TILE = 64               # csrc/attention.cu BK
 # flash against dense, f32, 4 layers: the two attentions sum in other
 # orders (about 1e-7 relative per output), amplified through 4 layers and
@@ -883,7 +904,9 @@ def attention_counters() -> dict:
             "attn_bwd_dkv": A.bwd_dkv_launches,
             "attn_bwd_dq": A.bwd_dq_launches,
             "attn_decode": A.decode_launches,
-            "attn_prefill": A.prefill_launches}
+            "attn_prefill": A.prefill_launches,
+            "attn_fwd_wgmma": A.fwd_wgmma_launches,
+            "attn_prefill_wgmma": A.prefill_wgmma_launches}
 
 
 def zero_attention_counters():
@@ -891,32 +914,80 @@ def zero_attention_counters():
     A.fwd_launches = A.fwd_single_launches = 0
     A.bwd_dkv_launches = A.bwd_dq_launches = 0
     A.decode_launches = A.prefill_launches = 0
+    A.fwd_wgmma_launches = A.prefill_wgmma_launches = 0
 
 
-def attn_limit(plain):
-    """Per-element limit of |kernel - plain| (see ATTN_TOL)."""
+def need_routes(launches: dict, bf16: bool, what: str):
+    """Every B8 and B12 prefill launch of a path took the tensor-core
+    route when the path runs bf16, none when it runs f32."""
+    for key in ("attn_fwd", "attn_prefill"):
+        want = launches[key] if bf16 else 0
+        need(launches[key + "_wgmma"] == want,
+             f"{what}: {launches[key + '_wgmma']} of {launches[key]} "
+             f"{key} launches on the tensor-core route, want {want}")
+    print(f"{what} routes: attn_fwd {launches['attn_fwd_wgmma']} of "
+          f"{launches['attn_fwd']}, attn_prefill "
+          f"{launches['attn_prefill_wgmma']} of {launches['attn_prefill']} "
+          f"launches on the tensor-core route ({ATTN_SM90_SRC}); the rest "
+          f"on the CUDA cores ({ATTN_SRC})")
+
+
+def attn_limit(plain, mag=None):
+    """Per-element limit of |kernel - plain| (see ATTN_TOL); ``mag``, the
+    magnitude of the rounded P V, selects the bf16 tensor-core route's
+    (FWD_TOL)."""
     import torch
     p = plain.float().abs()
     if plain.dtype == torch.bfloat16:
-        return BF16_REL * p + BF16_REL * float(p.median())
+        lim = BF16_REL * p + BF16_REL * float(p.median())
+        return lim if mag is None else lim + FWD_BF16_MARGIN * mag
     return F32_ATOL + F32_RTOL * p
 
 
-def hold_attn(got, plain, what: str, lse=None,
-              plain_lse=None) -> tuple[float, float]:
+def fwd_route_mag(kind: str, args, kwargs=None):
+    """For a bf16 call of B8 or B12 with S_new > 1 (the tensor-core
+    route), the magnitudes its limit takes (``fwd_rounding_magnitudes``);
+    None for every other call. ``kind`` "fwd": args as
+    ``flash_attention_fwd``'s; "decode": as ``flash_decode``'s."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    kwargs = kwargs or {}
+    q = args[0]
+    if q.dtype != torch.bfloat16:
+        return None
+    if kind == "fwd":
+        k, v = args[1], args[2]
+        causal = args[3] if len(args) > 3 else kwargs.get("causal", True)
+        block_k = args[6] if len(args) > 6 else kwargs.get("block_k")
+        if A.is_single_block(k.shape[2], block_k):
+            return None                        # B9: the CUDA cores
+        scale = args[4] if len(args) > 4 else kwargs.get("sm_scale")
+        return A.fwd_rounding_magnitudes(q, k, v, causal, scale)
+    kv_len = args[3] if len(args) > 3 else kwargs["kv_len"]
+    if q.shape[2] == 1:
+        return None                            # decode: the CUDA cores
+    k, v = A.cache_prefix(args[1], args[2], kv_len)
+    return A.fwd_rounding_magnitudes(q, k, v, True, kwargs.get("sm_scale"),
+                                     kv_len - q.shape[2])
+
+
+def hold_attn(got, plain, what: str, lse=None, plain_lse=None,
+              mag=None) -> tuple[float, float]:
     """Kernel output within the stated tolerance of its plain version,
     element by element; returns (max abs error, largest ratio of an
-    error to its element's limit), over O and, where given, the LSE."""
+    error to its element's limit), over O and, where given, the LSE.
+    ``mag`` (see ``fwd_route_mag``) selects the tensor-core route's
+    limit."""
     import torch
     need(got.shape == plain.shape and got.dtype == plain.dtype,
          f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
          f"{tuple(plain.shape)} {plain.dtype}")
     need(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     d = (got.float() - plain.float()).abs()
-    ratio = float((d / attn_limit(plain)).max())
+    ratio = float((d / attn_limit(plain, mag)).max())
     err = float(d.max())
     need(ratio <= 1.0, f"{what}: max abs err {err}, {ratio:.3g} times "
-         f"its element's limit ({ATTN_TOL})")
+         f"its element's limit ({ATTN_TOL if mag is None else FWD_TOL})")
     if lse is not None:
         dl = (lse - plain_lse).abs()
         r = float((dl / (F32_ATOL + F32_RTOL * plain_lse.abs())).max())
@@ -941,7 +1012,9 @@ def attn_work(B, H, Hkv, Sq, Skv, D, esize, s_new=None):
 
 
 def attention_edges(rng):
-    """The CPU tests' shapes and the decode edge cases, f32 and bf16."""
+    """The CPU tests' shapes and the decode and chunked-prefill edge
+    cases, f32 and bf16 (bf16 B8 and B12 chunks on the tensor-core
+    route, under FWD_TOL)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     fwd_cases = [  # B, H, Hkv, Sq, Skv, D, causal, block_k
@@ -949,7 +1022,19 @@ def attention_edges(rng):
         (1, 4, 2, 96, 96, 16, True, 32), (2, 4, 1, 96, 96, 16, False, None),
         (1, 4, 2, 40, 96, 16, True, 32), (2, 8, 2, 300, 300, 64, True, None),
         (1, 8, 1, 513, 513, 128, False, None)]
-    worst = (0.0, 0.0)
+    T = 3 * KEY_TILE + 8
+    # (S_new, kv_len, D, generator): decode and chunks of new tokens, the
+    # whole prefill (kv_len = S_new) and after a filled prefix (kv_len >
+    # S_new). The chunks of 64 and 65 and the other head dims draw from a
+    # generator of their own, so that the phases after this one see the
+    # inputs they saw before these cases were added.
+    more = np.random.default_rng(SEED + 13)
+    dec_cases = [(s, n, 32, rng) for s in (1, 3)
+                 for n in (s, KEY_TILE - 1, KEY_TILE, KEY_TILE + 1, T)]
+    dec_cases += [(s, n, d, more) for d in (16, 64, 128) for s, n in (
+        (3, 3), (3, KEY_TILE + 1), (KEY_TILE, KEY_TILE), (KEY_TILE, T),
+        (KEY_TILE + 1, KEY_TILE + 1), (KEY_TILE + 1, 2 * KEY_TILE + 3))]
+    worst = {}              # route -> (max abs err, largest error/limit)
     for dt in (torch.float32, torch.bfloat16):
         for B, H, Hkv, Sq, Skv, D, causal, bk in fwd_cases:
             q = torch.from_numpy(rng.standard_normal((B, H, Sq, D))).to(
@@ -958,27 +1043,33 @@ def attention_edges(rng):
                 (B, Hkv, Skv, D))).to("cuda", dt) for _ in range(2))
             o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
             ro, rl = A.flash_attention_ref(q, k, v, causal)
-            worst = max_pair(worst, hold_attn(
+            mag = fwd_route_mag("fwd", (q, k, v, causal, None, None, bk))
+            route = "tensor cores" if mag is not None else "CUDA cores"
+            worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
                 o, ro, f"attn fwd {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}",
-                lse, rl))
-        T = 3 * KEY_TILE + 8
-        for s_new in (1, 3):
-            for kv_len in (max(1, s_new), KEY_TILE - 1, KEY_TILE,
-                           KEY_TILE + 1, T):
-                q = torch.from_numpy(rng.standard_normal(
-                    (2, 8, s_new, 32))).to("cuda", dt)
-                kc, vc = (torch.from_numpy(rng.standard_normal(
-                    (2, T, 2, 32))).to("cuda", dt) for _ in range(2))
-                kc[:, kv_len:] = float("nan")
-                vc[:, kv_len:] = float("nan")
-                worst = max_pair(worst, hold_attn(
-                    A.flash_decode(q, kc, vc, kv_len),
-                    A.flash_decode_ref(q, kc, vc, kv_len),
-                    f"attn decode {dt} s_new={s_new} kv_len={kv_len}"))
+                lse, rl, mag))
+        for s_new, kv_len, D, gen in dec_cases:
+            q = torch.from_numpy(gen.standard_normal(
+                (2, 8, s_new, D))).to("cuda", dt)
+            kc, vc = (torch.from_numpy(gen.standard_normal(
+                (2, T, 2, D))).to("cuda", dt) for _ in range(2))
+            kc[:, kv_len:] = float("nan")
+            vc[:, kv_len:] = float("nan")
+            mag = fwd_route_mag("decode", (q, kc, vc, kv_len))
+            route = "tensor cores" if mag is not None else "CUDA cores"
+            worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
+                A.flash_decode(q, kc, vc, kv_len),
+                A.flash_decode_ref(q, kc, vc, kv_len),
+                f"attn decode {dt} s_new={s_new} kv_len={kv_len} D={D}",
+                mag=mag))
     print(f"attention edges: {2 * len(fwd_cases)} forward cases (B8 and "
-          f"B9, MHA/GQA/MQA, ragged, straddling blocks, Sq != Skv) and 20 "
-          f"decode cases (NaN past kv_len) within tolerance; max abs err "
-          f"{worst[0]}, largest error/limit {worst[1]:.3f} ({ATTN_TOL})")
+          f"B9, MHA/GQA/MQA, ragged, straddling blocks, Sq != Skv) and "
+          f"{2 * len(dec_cases)} decode and chunked-prefill cases (NaN past "
+          f"kv_len, S_new 1/3/64/65, kv_len = S_new and past it, D 16-128) "
+          f"within tolerance")
+    for route, (err, ratio) in sorted(worst.items()):
+        print(f"  {route}: max abs err {err}, largest error/limit "
+              f"{ratio:.3f} ({ATTN_TOL if route == 'CUDA cores' else FWD_TOL})")
 
 
 def max_pair(a, b):
@@ -1012,7 +1103,8 @@ def attention_records():
                 v = torch.randn_like(k)
                 o, lse = A.flash_attention_fwd(q, k, v, True)
                 ref, rl = A.flash_attention_ref(q, k, v, True)
-                err, ratio = hold_attn(o, ref, f"{name} {dt}", lse, rl)
+                mag = fwd_route_mag("fwd", (q, k, v, True))
+                err, ratio = hold_attn(o, ref, f"{name} {dt}", lse, rl, mag)
                 kern = lambda: A.flash_attention_fwd(q, k, v, True)  # noqa
                 plain = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
                 lib = lambda: F.scaled_dot_product_attention(  # noqa
@@ -1027,7 +1119,8 @@ def attention_records():
                 vc[:, skv:] = float("nan")
                 o = A.flash_decode(q, kc, vc, skv)
                 ref = A.flash_decode_ref(q, kc, vc, skv)
-                err, ratio = hold_attn(o, ref, f"{name} {dt}")
+                mag = fwd_route_mag("decode", (q, kc, vc, skv))
+                err, ratio = hold_attn(o, ref, f"{name} {dt}", mag=mag)
                 kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
                 plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
                 kt = kc[:, :skv].transpose(1, 2)
@@ -1042,21 +1135,24 @@ def attention_records():
             library_ms = time_ms(lib)
             rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
             bms, by = bound_ms(nbytes, nops, rate)
-            print(f"kernel {name} {str(dt)[6:]} B={B} H={H} Hkv={Hkv} D={D} "
+            src = ATTN_SRC if mag is None else ATTN_SM90_SRC
+            print(f"kernel {name} {str(dt)[6:]} ({src}) B={B} H={H} "
+                  f"Hkv={Hkv} D={D} "
                   f"{'Sq' if T is None else 'S_new'}={sq} "
                   f"{'Skv' if T is None else 'kv_len'}={skv}"
                   f"{'' if T is None else f' T={T}'}: {ms:.4f} ms (plain "
-                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms = "
+                  f"{ms / library_ms:.2f}x sdpa, bound "
                   f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), max abs "
                   f"err vs plain {err}, largest error/limit {ratio:.3f} "
-                  f"({ATTN_TOL})")
+                  f"({ATTN_TOL if mag is None else FWD_TOL})")
             if dt == torch.bfloat16:
                 recs.append({"name": name, "route": "cuda",
-                             "source": ATTN_SRC, "replaces": replaces,
+                             "source": src, "replaces": replaces,
                              "launches": 0, "max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bms,
                              "bound_by": by, "library_ms": library_ms})
-            del q, o, ref
+            del q, o, ref, mag
             torch.cuda.empty_cache()
     return recs
 
@@ -1156,25 +1252,30 @@ def hold_path_calls(calls, what: str):
             kind = ("B9" if A.is_single_block(args[1].shape[2]) else "B8")
             plain = A.flash_attention_ref(*args, **kwargs)[0]
             at = args[1].shape[2]
+            mag = fwd_route_mag("fwd", args, kwargs)
         else:
             kind = "B12 decode" if q.shape[2] == 1 else "B12 prefill"
             plain = A.flash_decode_ref(*args, **kwargs)
             at = kwargs["kv_len"]
+            mag = fwd_route_mag("decode", args, kwargs)
+        if mag is not None:
+            kind += " (tensor cores)"
         pair = hold_attn(out, plain, f"{what} {kind} q {tuple(q.shape)} "
-                         f"keys {at}")
+                         f"keys {at}", mag=mag)
         k = kinds.setdefault(kind, {"n": 0, "q": tuple(q.shape),
                                     "dtype": q.dtype, "keys": set(),
                                     "worst": (0.0, 0.0)})
         k["n"] += 1
         k["keys"].add(at)
         k["worst"] = max_pair(k["worst"], pair)
-        del plain
+        del plain, mag
     for kind, k in sorted(kinds.items()):
         print(f"{what} {kind}: {k['n']} calls of the first and last layer "
               f"held against the plain version at the path's own shapes "
               f"(q {k['q']} {k['dtype']}, keys {min(k['keys'])}.."
               f"{max(k['keys'])}); max abs err {k['worst'][0]}, largest "
-              f"error/limit {k['worst'][1]:.3f} ({ATTN_TOL})")
+              f"error/limit {k['worst'][1]:.3f} "
+              f"({FWD_TOL if 'tensor' in kind else ATTN_TOL})")
     return kinds
 
 
@@ -1215,6 +1316,7 @@ def serving_phase():
     need(launches["attn_fwd"] > 0 and launches["attn_decode"] > 0
          and launches["attn_prefill"] > 0,
          "serving: B8 or B12 (decode or prefill) not launched")
+    need_routes(launches, True, "serving")
     with torch.no_grad():
         need(out.shape == (B, NEW), f"generate: shape {tuple(out.shape)}")
         need(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -1228,7 +1330,8 @@ def serving_phase():
         print(f"serving prefill logits, forward_cached (B12) vs forward (B8): "
               f"max abs diff {err:.4g} (logit scale {scale:.4g}, tolerance "
               f"{SERVE_BF16_RTOL * scale:.4g}); greedy agreement {agree:.4f} "
-              f"(at least {SERVE_MIN_AGREE})")
+              f"(at least {SERVE_MIN_AGREE}); bitwise equal: "
+              f"{torch.equal(cached, full)}")
         need(err <= SERVE_BF16_RTOL * scale and agree >= SERVE_MIN_AGREE,
              "serving: forward_cached prefill and forward disagree")
         hold_path_calls(calls, "serving")
@@ -1330,7 +1433,8 @@ def serving_phase():
 
 ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"          # f32 route
 ATTN_BWD_SM90_SRC = "accl_tpu_torch/csrc/attention_bwd_sm90.cu"  # bf16 route
-WGMMA_KERNELS = ("attn_bwd_dkv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
+WGMMA_KERNELS = ("attn_fwd_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel",
+                 "attn_bwd_dq_wgmma_kernel")
 # B10/B11 against their plain versions, per element. f32 inputs: the same
 # f32 FlashAttention-2 backward summed in another order over up to S*D
 # terms per output, whose error scales with the largest gradient of the
@@ -1419,9 +1523,10 @@ def hold_bwd_outputs(args, outs, what: str) -> tuple[float, float]:
 
 
 def wgmma_kernels_checked():
-    """The bf16 route's kernels in the built library: their SASS holds
-    HGMMA (Hopper's warpgroup MMA: the tensor cores) and ptxas reports no
-    spills. Prints both; fails otherwise."""
+    """The bf16 route's kernels in the built library (B8 and B12's
+    prefill route, B10, B11): their SASS holds HGMMA (Hopper's warpgroup
+    MMA: the tensor cores) and ptxas reports no spills. Prints both, and
+    each instantiation's registers by head dim; fails otherwise."""
     import re
     import shutil
     from accl_tpu_torch import _build
@@ -1453,12 +1558,22 @@ def wgmma_kernels_checked():
         info = [v for k, v in ptx.items() if kern in k]
         need(info, f"{kern}: no ptxas report in the build log")
         need(all(v[1] == 0 for v in info), f"{kern}: ptxas spills {info}")
+        # the mangled name holds the head dim: ...ILi128EE...
+        by_d = {int(m.group(1)): v[0] for k, v in ptx.items() if kern in k
+                for m in [re.search(r"ILi(\d+)E", k)] if m}
         print(f"{kern}: {len(bodies)} instantiations (D 16/32/64/128), "
               f"HGMMA instructions {counts}; ptxas registers "
-              f"{[v[0] for v in info]}, spill bytes {[v[1] for v in info]}")
+              f"{[v[0] for v in info]} (by head dim "
+              f"{dict(sorted(by_d.items()))}), spill bytes "
+              f"{[v[1] for v in info]}")
     for ln in _build.build_log.splitlines():
-        if "wgmma" in ln.lower() and "warning" in ln.lower():
+        if "wgmma" in ln.lower() and ("warning" in ln.lower()
+                                      or "Performance" in ln):
             print(f"  ptxas: {ln.strip()}")
+            # ptxas waits out each wgmma before the next (C7515)
+            need("serialized" not in ln or not any(
+                k in ln for k in WGMMA_KERNELS),
+                "a tensor-core kernel's wgmma were serialized by ptxas")
 
 
 def bwd_operands(q, k, v, do, causal):
@@ -1691,13 +1806,12 @@ def grad_check_phase():
 
 
 @contextlib.contextmanager
-def backward_calls(n_layers: int):
-    """Record the training path's B10 and B11 calls of its first and last
-    layer in the first step (the first n_layers calls of each) as
-    (wrapper name, args, output). The wrappers are the attention module's
-    own names, which ``_FlashAttention.backward`` looks up at each call."""
+def recorded_calls(names, n_layers: int):
+    """Record the calls of the attention module's wrappers ``names`` that
+    the first and last layer of one model pass make (the first n_layers
+    calls of each) as (wrapper name, args, outputs). The model and
+    ``_FlashAttention`` look these names up at each call."""
     from accl_tpu_torch.ops import attention as A
-    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     calls = []
     seen = dict.fromkeys(names, 0)
     wrapped = {name: getattr(A, name) for name in names}
@@ -1729,6 +1843,7 @@ def training_phase():
     import dataclasses
     import torch
     from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.ops import attention as A
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1752,7 +1867,8 @@ def training_phase():
           f" about {est / 2 ** 30:.1f} GiB in all")
     zero_attention_counters()
     losses, times = [], []
-    with backward_calls(cfg.n_layers) as calls:
+    with recorded_calls(("flash_attention_bwd_dkv", "flash_attention_bwd_dq"),
+                        cfg.n_layers) as calls:
         for _ in range(TRAIN_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1770,23 +1886,37 @@ def training_phase():
         need(launches[key] == per_run, f"training: {key} launched "
              f"{launches[key]} times, not once per layer per step "
              f"({per_run})")
+    need_routes(launches, True, "training")
     print(f"training peak memory: {peak / 2 ** 30:.2f} GiB (the "
           f"{held / 2 ** 30:.2f} GiB held before the phase included; limit "
           f"{TRAIN_MAX_PEAK / 2 ** 30:.0f} GiB)")
     need(peak <= TRAIN_MAX_PEAK, "training: peak memory past the limit")
     kinds = {}
     with torch.no_grad():
+        # B8 on the training model and batch once more (after the steps,
+        # so that holding its outputs adds nothing to the peak above)
+        with recorded_calls(("flash_attention_fwd",), cfg.n_layers) as fwd:
+            model(tokens)
+        calls += fwd
         for name, args, outs in calls:
-            kinds[name] = max_pair(kinds.get(name, (0.0, 0.0)),
-                                   hold_bwd_outputs(
-                                       args, outs, f"training {name} q "
-                                       f"{tuple(args[0].shape)}"))
+            what = f"training {name} q {tuple(args[0].shape)}"
+            if name == "flash_attention_fwd":
+                plain, plain_lse = A.flash_attention_ref(*args[:5])
+                w = hold_attn(outs[0], plain, what, outs[1], plain_lse,
+                              fwd_route_mag("fwd", args))
+                del plain, plain_lse
+            else:
+                w = hold_bwd_outputs(args, outs, what)
+            kinds[name] = max_pair(kinds.get(name, (0.0, 0.0)), w)
     for name, w in sorted(kinds.items()):
-        print(f"training {name}: the first and last layer's calls of the "
-              f"first step held against the plain version at the path's "
+        when = ("a forward after the steps" if name == "flash_attention_fwd"
+                else "the first step")
+        print(f"training {name}: the first and last layer's calls of "
+              f"{when} held against the plain version at the path's "
               f"shapes ({TRAIN_B}, 32/8, {TRAIN_S}, 128) bf16; max abs err "
-              f"{w[0]}, largest error/limit {w[1]:.3f} ({BWD_TOL})")
-    need(len(calls) == 4, f"training: {len(calls)} backward calls recorded")
+              f"{w[0]}, largest error/limit {w[1]:.3f} "
+              f"({FWD_TOL if name == 'flash_attention_fwd' else BWD_TOL})")
+    need(len(calls) == 6, f"training: {len(calls)} attention calls recorded")
     del calls
     step_ms = statistics.median(times[1:])
     tokens_n = TRAIN_B * TRAIN_S
@@ -1863,6 +1993,7 @@ def main() -> int:
     print(f"model phase launches: {by_path['model_f32']}")
     need(by_path["model_f32"]["attn_fwd_single"] > 0,
          "model phase: B9 never launched")
+    need_routes(by_path["model_f32"], False, "model phase")
     phase("phase 7: serving")
     by_path["serving"] = serving_phase()     # zeroes the counts itself
     phase("phase 8: attention backward kernels")
