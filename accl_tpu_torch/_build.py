@@ -56,10 +56,10 @@ _SIGNATURES = {
                       _F, _P],
     "accl_attn_fwd_single": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _F, _P],
-    # dtype, head_dim, q, k_cache, v_cache, o, B, H, Hkv, T, s_new, kv_len,
-    # scale, stream
-    "accl_attn_decode": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                         _P],
+    # dtype, head_dim, q, k_cache, v_cache, o, workspace, counters, B, H,
+    # Hkv, T, s_new, kv_len, n_split, scale, stream
+    "accl_attn_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _P],
     # dtype, head_dim, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv, Sq,
     # Skv, causal, scale, stream
     "accl_attn_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -6,21 +6,20 @@
 //       log-sum-exp (LSE), the causal frontier skip and GQA routing.
 //   B9  attn_fwd_single_kernel <- _fwd_kernel_single (:252): the same when
 //       the whole padded KV is one reference block: plain softmax.
-//   B12 attn_decode_kernel     <- _decode_kernel (:689): decode and chunked
-//       prefill over the KV cache in its native (B, T, Hkv, D) layout.
+//   B12 attn_decode_kernel     <- _decode_kernel (:689): chunked prefill
+//       over the KV cache in its native (B, T, Hkv, D) layout.
 //
-// Routes: the C entry points below send bf16 B8 and bf16 B12 chunks of
-// S_new > 1 new tokens to the tensor-core kernel of attention_sm90.cu
-// (wgmma, TMA). f32 B8, B9 in both dtypes and B12 in f32 or with
-// S_new == 1 (single-token decode) run the kernels of this file.
+// Routes: the C entry points below send bf16 B8, bf16 B9 and bf16 B12
+// chunks of S_new > 1 new tokens to the tensor-core kernels of
+// attention_sm90.cu (wgmma, TMA), and every single-token decode (S_new ==
+// 1, f32 or bf16) to the split-KV kernel of attention_decode.cu. f32 B8,
+// f32 B9 and f32 B12 chunks run the kernels of this file.
 //
 // What bounds them on an H100: B8, B9 and a long prefill in B12 do about
 // 4*S*D operations per score row against 2*D bytes per key, so at S in
-// the thousands they are bound by operations; single-token decode in B12
-// reads the filled cache prefix once and is bound by bytes. These
-// kernels run on the CUDA cores in f32 (67 TFLOP/s on the data sheet, not
-// the 989 TFLOP/s of the bf16 tensor cores), so they sit far above their
-// bound at long S.
+// the thousands they are bound by operations. These kernels run on the
+// CUDA cores in f32 (67 TFLOP/s on the data sheet, not the 989 TFLOP/s of
+// the bf16 tensor cores), so they sit far above their bound at long S.
 //
 // Design: one thread block of 256 threads per (head row set, q tile). A
 // loop over 64-key tiles stands in for the TPU's sequential grid axis;
@@ -33,15 +32,14 @@
 // the tile's causal frontier (from the q tile's END, as attention.py:159)
 // or below the fill length are read; past them nothing is loaded.
 //
-// Arithmetic: q, k, v read in their dtype (f32 or bf16) and computed in
-// f32. The library builds with --fmad=false, so the dot products are
-// written as explicit fmaf. expf/logf (no intrinsics, no fast math), a
-// true division o = acc / l. Masked scores take part as finfo(f32).min
-// in the row max and contribute p = 0 (attention.py:617). A fully
-// masked row cannot occur on these paths (causal rows always see key 0;
-// decode rows see their own position), but it is handled as the
-// reference handles it: l is floored at 1e-30, so o = 0 and the LSE is
-// finite.
+// Arithmetic: q, k, v read as f32 and computed in f32. The library builds
+// with --fmad=false, so the dot products are written as explicit fmaf.
+// expf/logf (no intrinsics, no fast math), a true division o = acc / l.
+// Masked scores take part as finfo(f32).min in the row max and contribute
+// p = 0 (attention.py:617). A fully masked row cannot occur on these
+// paths (causal rows always see key 0; chunk rows see their own
+// position), but it is handled as the reference handles it: l is floored
+// at 1e-30, so o = 0 and the LSE is finite.
 #include <limits.h>
 
 #include "attention_tile.cuh"
@@ -378,12 +376,13 @@ cudaError_t launch_single(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D, int BQ>
-cudaError_t launch_decode_tile(const void* q, const void* kc, const void* vc,
-                               void* o, int B, int Hkv, int Tlen, int nrows,
-                               int s_new, int kv_len, float scale,
-                               cudaStream_t st) {
+template <typename T, int D>
+cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
+                          void* o, int B, int H, int Hkv, int Tlen, int s_new,
+                          int kv_len, float scale, cudaStream_t st) {
+  constexpr int BQ = 64;
   constexpr int smem = tile_smem<D, BQ>();
+  const int nrows = (H / Hkv) * s_new;
   auto kern = attn_decode_kernel<T, D, BQ>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -395,20 +394,6 @@ cudaError_t launch_decode_tile(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
-                          void* o, int B, int H, int Hkv, int Tlen, int s_new,
-                          int kv_len, float scale, cudaStream_t st) {
-  const int nrows = (H / Hkv) * s_new;
-  // decode steps have group rows (4 for Llama-3-8B): a 16-row tile wastes
-  // less; prefill rows fill 64-row tiles
-  if (nrows <= 16)
-    return launch_decode_tile<T, D, 16>(q, kc, vc, o, B, Hkv, Tlen, nrows,
-                                        s_new, kv_len, scale, st);
-  return launch_decode_tile<T, D, 64>(q, kc, vc, o, B, Hkv, Tlen, nrows,
-                                      s_new, kv_len, scale, st);
-}
-
 }  // namespace
 
 // the bf16 tensor-core route (attention_sm90.cu)
@@ -418,6 +403,15 @@ int attn_fwd_wgmma(int head_dim, const void* q, const void* k, const void* v,
 int attn_prefill_wgmma(int head_dim, const void* q, const void* kc,
                        const void* vc, void* o, int B, int H, int Hkv, int T,
                        int s_new, int kv_len, float scale, cudaStream_t st);
+int attn_fwd_single_wgmma(int head_dim, const void* q, const void* k,
+                          const void* v, void* o, void* lse, int B, int H,
+                          int Hkv, int Sq, int Skv, int causal, float scale,
+                          cudaStream_t st);
+// the single-token decode route (attention_decode.cu)
+int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
+                      const void* vc, void* o, void* ws, void* counters,
+                      int B, int H, int Hkv, int Tlen, int kv_len,
+                      int n_split, float scale, cudaStream_t st);
 
 extern "C" {
 
@@ -438,19 +432,30 @@ int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
                          int B, int H, int Hkv, int Sq, int Skv, int causal,
                          float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  ATTN_DISPATCH(launch_single, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
-                scale, st)
+  if (dtype == 1)
+    return attn_fwd_single_wgmma(head_dim, q, k, v, o, lse, B, H, Hkv, Sq,
+                                 Skv, causal, scale, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  F32_DISPATCH(launch_single, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
+               scale, st)
 }
 
+// ws, counters: the split route's f32 workspace and its zeroed counters
+// (S_new == 1), n_split its splits
 int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
-                     const void* vc, void* o, int B, int H, int Hkv, int Tlen,
-                     int s_new, int kv_len, float scale, void* stream) {
+                     const void* vc, void* o, void* ws, void* counters, int B,
+                     int H, int Hkv, int Tlen, int s_new, int kv_len,
+                     int n_split, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && s_new > 1)
+  if (s_new == 1)
+    return attn_decode_split(dtype, head_dim, q, kc, vc, o, ws, counters, B,
+                             H, Hkv, Tlen, kv_len, n_split, scale, st);
+  if (dtype == 1)
     return attn_prefill_wgmma(head_dim, q, kc, vc, o, B, H, Hkv, Tlen, s_new,
                               kv_len, scale, st);
-  ATTN_DISPATCH(launch_decode, q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
-                scale, st)
+  if (dtype != 0) return cudaErrorInvalidValue;
+  F32_DISPATCH(launch_decode, q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
+               scale, st)
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
-// Tile helpers shared by the CUDA-core attention kernels (attention.cu: B8,
-// B9, B12; attention_bwd.cu: B10, B11): 16-byte vector loads of row tiles
-// into shared memory as f32, warp reductions, the dtype x head-dim
-// dispatches.
+// Tile helpers shared by the CUDA-core attention kernels (attention.cu: f32
+// B8, B9, B12 prefill; attention_decode.cu: B12 decode; attention_bwd.cu:
+// B10, B11): 16-byte vector loads of row tiles into shared memory as f32,
+// warp reductions, the dtype x head-dim dispatches.
 #pragma once
 
 #include <float.h>

@@ -6,19 +6,20 @@ decode cache (B, T, Hkv, D), read as it is. GQA is index arithmetic (the
 counterpart of ``_kv_head_row``): KV is never repeated.
 
 Wrappers: on CUDA tensors they launch the hand-written kernels of
-``csrc/attention.cu``, ``csrc/attention_sm90.cu``, ``csrc/attention_bwd.cu``
-and ``csrc/attention_bwd_sm90.cu``; on CPU tensors they run the plain
+``csrc/attention.cu``, ``csrc/attention_sm90.cu``,
+``csrc/attention_decode.cu``, ``csrc/attention_bwd.cu`` and
+``csrc/attention_bwd_sm90.cu``; on CPU tensors they run the plain
 PyTorch versions (``*_ref``).
 
-- ``flash_attention`` / ``flash_attention_fwd``: B9
-  (``attn_fwd_single_kernel``) when the padded KV is one block of the
-  reference's block size (its ``nk == 1`` test, with ``_auto_block`` and
-  its clamp), B8 otherwise. The kernels' own tiles are not the
-  reference's 512-wide blocks: only this dispatch follows them. B8 has
-  two routes: bf16 operands run on the tensor cores
-  (``attn_fwd_wgmma_kernel`` of ``csrc/attention_sm90.cu``: wgmma and
-  TMA; P rounded to bf16 before P V, see ``fwd_rounding_magnitudes``),
-  f32 operands on the CUDA cores (``attn_fwd_kernel`` of
+- ``flash_attention`` / ``flash_attention_fwd``: B9 when the padded KV
+  is one block of the reference's block size (its ``nk == 1`` test, with
+  ``_auto_block`` and its clamp), B8 otherwise. The kernels' own tiles
+  are not the reference's 512-wide blocks: only this dispatch follows
+  them. B8 and B9 each have two routes: bf16 operands run on the tensor
+  cores (``attn_fwd_wgmma_kernel`` and ``attn_fwd_single_wgmma_kernel``
+  of ``csrc/attention_sm90.cu``: wgmma and TMA; P rounded to bf16 before
+  P V, see ``fwd_rounding_magnitudes``), f32 operands on the CUDA cores
+  (``attn_fwd_kernel`` and ``attn_fwd_single_kernel`` of
   ``csrc/attention.cu``).
 - ``flash_attention_bwd_dkv``: B10, per-q-head f32 partials of dK and
   dV; ``flash_attention_bwd_dq``: B11, dQ in q's dtype. Two routes, one
@@ -30,21 +31,32 @@ PyTorch versions (``*_ref``).
   ``flash_attention`` is differentiable through ``_FlashAttention`` (the
   counterpart of the reference's ``custom_vjp``), whose backward runs
   them.
-- ``flash_decode``: B12. A bf16 chunk of S_new > 1 new tokens (prefill)
-  runs B8's tensor-core kernel over the cache in its own layout
-  (``attn_fwd_wgmma_kernel`` with a 4-D tensor map, bottom-right causal);
-  f32, and single-token decode in either dtype, run
+- ``flash_decode``: B12. Single-token decode (S_new == 1), f32 or bf16,
+  runs the split-KV kernel of ``csrc/attention_decode.cu``
+  (``attn_decode_split_kernel``: ``decode_splits`` slices of the filled
+  prefix, merged by the last slice to finish; f32 arithmetic). A
+  bf16 chunk of S_new > 1 new tokens (prefill) runs B8's tensor-core
+  kernel over the cache in its own layout (``attn_fwd_wgmma_kernel`` with
+  a 4-D tensor map, bottom-right causal); an f32 chunk runs
   ``attn_decode_kernel`` of ``csrc/attention.cu``.
+
+The kernels take f32 or bf16 operands with head dim 16, 32, 64 or 128
+(``KERNEL_HEAD_DIMS``); a CUDA call outside that raises TypeError (the
+dtype) or ValueError (the head dim). The reference's wrappers check
+neither.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
 ``decode_launches`` (one new token, S_new == 1) and ``prefill_launches``
-(a chunk, S_new > 1); beside them the tensor-core route's own,
-``fwd_wgmma_launches`` (the B8 launches that took it) and
-``prefill_wgmma_launches`` (the B12 prefill launches that took it).
-``plain_runs`` counts the plain versions' runs on the CPU under the
-branch the dispatch chose ("fwd", "fwd_single", "bwd_dkv", "bwd_dq",
-"decode").
+(a chunk, S_new > 1); beside them the routes' own,
+``fwd_wgmma_launches`` (the B8 launches on the tensor cores),
+``fwd_single_wgmma_launches`` (the B9 launches on the tensor cores),
+``prefill_wgmma_launches`` (the B12 prefill launches on the tensor
+cores) and ``decode_split_launches`` (the B12 decode launches on the
+split-KV kernel; ``last_decode_splits`` holds the last one's
+``n_split``). ``plain_runs`` counts the plain versions' runs on the CPU
+under the branch the dispatch chose ("fwd", "fwd_single", "bwd_dkv",
+"bwd_dq", "decode").
 """
 
 from __future__ import annotations
@@ -56,7 +68,11 @@ from .. import _build
 _NEG_INF = torch.finfo(torch.float32).min
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/attention.cu
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-SINGLE_MAX_KEYS = 2048   # B9 holds a 16-row tile of scores in shared memory
+# f32 B9 holds a 16-row tile of scores in shared memory; the bf16 route
+# streams its key tiles and has no such limit
+SINGLE_MAX_KEYS = 2048
+SPLIT_TILE = 64          # a decode split's key range is a multiple of it
+DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 
 fwd_launches = 0
 fwd_single_launches = 0
@@ -65,7 +81,10 @@ bwd_dq_launches = 0
 decode_launches = 0
 prefill_launches = 0
 fwd_wgmma_launches = 0
+fwd_single_wgmma_launches = 0
 prefill_wgmma_launches = 0
+decode_split_launches = 0
+last_decode_splits = None
 plain_runs = {"fwd": 0, "fwd_single": 0, "bwd_dkv": 0, "bwd_dq": 0,
               "decode": 0}
 
@@ -186,6 +205,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     nothing else; ``block_q`` is accepted for the reference's signature
     (the kernels' tiles are their own)."""
     global fwd_launches, fwd_single_launches, fwd_wgmma_launches
+    global fwd_single_wgmma_launches
     _check_fwd(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -197,8 +217,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _kernel_ready("flash_attention", q, k, v)
-    if single and Skv > SINGLE_MAX_KEYS:
-        raise ValueError(f"flash_attention: one KV block of {Skv} keys "
+    if single and q.dtype == torch.float32 and Skv > SINGLE_MAX_KEYS:
+        raise ValueError(f"flash_attention: one f32 KV block of {Skv} keys "
                          f"exceeds B9's {SINGLE_MAX_KEYS}; pass a smaller "
                          f"block_k")
     o = torch.empty_like(q)
@@ -211,6 +231,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
                  "flash_attention")
     if single:
         fwd_single_launches += 1
+        if q.dtype == torch.bfloat16:
+            fwd_single_wgmma_launches += 1
     else:
         fwd_launches += 1
         if q.dtype == torch.bfloat16:
@@ -437,6 +459,60 @@ def cache_prefix(k_cache, v_cache, kv_len: int):
             v_cache[:, :kv_len].transpose(1, 2))
 
 
+_SM_COUNTS: dict = {}
+_SPLIT_COUNTERS: dict = {}
+
+
+def _sm_count(device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SM_COUNTS:
+        _SM_COUNTS[idx] = \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNTS[idx]
+
+
+def _ptr(t):
+    """A tensor's device pointer, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _split_counters(device, n: int):
+    """At least ``n`` zeroed int32 counters on ``device`` for the split
+    decode kernel, kept per device: the kernel's last block of each (b,
+    kv head) sets its counter back to zero."""
+    t = _SPLIT_COUNTERS.get(device)
+    if t is None or t.numel() < n:
+        t = _SPLIT_COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
+                                                  device=device)
+    return t
+
+
+def decode_splits(B: int, Hkv: int, T: int, sm_count: int) -> int:
+    """The number of key slices the split-KV decode kernel launches per
+    (b, kv head): as many as one wave holds, n_split * B * Hkv blocks at
+    most four an SM (what fits; a fifth would wait for a second wave),
+    which covers the SMs at least twice; capped so that every slice can
+    hold one 64-key tile of the cache (T keys). It does not depend on
+    kv_len, so the launch geometry stays the same from step to step."""
+    want = DECODE_BLOCKS_PER_SM * sm_count // (B * Hkv)
+    return max(1, min(want, -(-T // SPLIT_TILE)))
+
+
+def decode_split_ranges(kv_len: int, n_split: int) -> list:
+    """The key range [lo, hi) of each of the ``n_split`` slices of a
+    filled prefix of ``kv_len`` keys, as the kernel derives them: c =
+    ceil(kv_len / n_split) rounded up to 64 keys, slice s over [s*c,
+    min((s+1)*c, kv_len)); a slice past the prefix is empty (lo == hi)."""
+    c = -(-(-(-kv_len // n_split)) // SPLIT_TILE) * SPLIT_TILE
+    out = []
+    for s in range(n_split):
+        lo = min(s * c, kv_len)
+        out.append((lo, min(lo + c, kv_len)))
+    return out
+
+
 def flash_decode_ref(q, k_cache, v_cache, kv_len: int,
                      sm_scale: float | None = None):
     """Plain PyTorch version of B12 (any device). Query i of the S_new
@@ -459,6 +535,7 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     tokens. Returns (B, H, S_new, D). ``block_k`` is the reference's
     argument; the kernel's key tile is its own."""
     global decode_launches, prefill_launches, prefill_wgmma_launches
+    global decode_split_launches, last_decode_splits
     kv_len = int(kv_len)
     _check_decode(q, k_cache, v_cache, kv_len)
     B, H, S_new, D = q.shape
@@ -471,12 +548,21 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     _kernel_ready("flash_decode", q, k_cache, v_cache)
     o = torch.empty_like(q)
+    n_split, ws, counters = 0, None, None
+    if S_new == 1:    # the split route's counters and partials (acc, m, l)
+        n_split = decode_splits(B, Hkv, T, _sm_count(q.device))
+        counters = _split_counters(q.device, B * H)
+        ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                         device=q.device)
     _build.check(_build.library().accl_attn_decode(
         _DTYPE_CODES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), o.data_ptr(), B, H, Hkv, T, S_new, kv_len,
-        scale, _build.stream_of(q)), "flash_decode")
+        v_cache.data_ptr(), o.data_ptr(), _ptr(ws), _ptr(counters), B, H,
+        Hkv, T, S_new, kv_len, n_split, scale, _build.stream_of(q)),
+        "flash_decode")
     if S_new == 1:
         decode_launches += 1
+        decode_split_launches += 1
+        last_decode_splits = n_split
     else:
         prefill_launches += 1
         if q.dtype == torch.bfloat16:

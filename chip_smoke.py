@@ -34,42 +34,51 @@ Run from the root of a checkout:  python3 chip_smoke.py
    call's host-clock time (the rest is the device's idle share).
 5. Attention kernels: B8 (``attn_fwd``), B9 (``attn_fwd_single``) and
    B12 (``attn_decode``, ``attn_prefill``) against their plain versions
-   on the same CUDA inputs: the CPU tests' shapes, NaN in the cache past
-   ``kv_len`` with ``kv_len`` at 1, one key tile -1, +0, +1 and T,
-   chunks of 3, 64 and 65 new tokens after a filled prefix, and the
-   full-width shapes of Llama-3-8B (H=32, Hkv=8, D=128) in bf16 and f32,
-   each timed with CUDA events beside the same function through
-   PyTorch's ``scaled_dot_product_attention`` (timed only; the port
-   never calls it). bf16 B8 and bf16 B12 chunks run on the tensor cores
+   on the same CUDA inputs: the CPU tests' shapes, single-block B9 cases
+   (Skv 40 to 2048, MHA/GQA/MQA, causal and not, Sq != Skv), NaN in the
+   cache past ``kv_len`` with ``kv_len`` at 1, one key tile -1, +0, +1
+   and T, chunks of 3, 64 and 65 new tokens after a filled prefix,
+   single-token decode with more key slices than filled tiles, and the
+   full-width shapes of Llama-3-8B (H=32, Hkv=8, D=128) in bf16 and f32
+   (B9 at S=128 and at the serving path's S=512), each timed with CUDA
+   events beside the same function through PyTorch's
+   ``scaled_dot_product_attention`` (timed only; the port never calls
+   it). bf16 B8, bf16 B9 and bf16 B12 chunks run on the tensor cores
    (``attention_sm90.cu``) and are held under the limit of their
-   rounding of P (``FWD_TOL``).
+   rounding of P (``FWD_TOL``); single-token decode runs the split-KV
+   kernels (``attention_decode.cu``) in both dtypes, its ``n_split``
+   printed.
 6. Llama model, f32, full width, 4 layers: the same random weights
    through ``attention="flash"`` (the kernels) and ``"dense"`` (the
    reference's plain path): ``forward`` on (2, 2048) (B8) and (4, 128)
    (B9), ``forward_cached`` over a 1000-token prefill and 8 decode steps
    (B12), held within a stated tolerance.
 7. Serving: Llama-3-8B as published (32 layers, bf16 weights), four
-   random 1024-token prompts through ``generate(max_new=32)``; the
-   prefill logits of ``forward_cached`` against ``forward``; prefill and
-   per-step decode time, tokens/s, the device's busy share per kernel
-   family under torch.profiler and the peak memory. The attention launch
-   counters are zeroed before phase 6 and read after phase 7: every
-   attention kernel must have run there, every bf16 B8 and B12 prefill
-   launch on the tensor-core route and no f32 one (the route counters).
-8. Attention backward: the bf16 route's kernels (``attention_sm90.cu``,
-   ``attention_bwd_sm90.cu``) hold HGMMA instructions in their SASS
-   (``cuobjdump -sass``), with no ptxas spills and no wgmma that ptxas
-   serialized; B10 (``attn_bwd_dkv``) and B11 (``attn_bwd_dq``) against
-   their plain versions on an edge corpus (MHA/GQA/MQA, causal and not,
-   ragged S, Sq != Skv both ways, D 16-128, f32 and bf16) and
-   at the full Llama-3-8B width (B=4, H=32, Hkv=8, S=2048, D=128) in
-   bf16 and f32, timed beside PyTorch's SDPA backward (timed only), bf16
-   under the limit of its rounding of P and dS (``BWD_TOL``); the
-   autograd Function's gradients (B8 + B10 + B11) against torch autograd
-   through dense attention at the same shape, bf16 (relative L2, SDPA's
-   beside it) and f32. Then a gradient
-   check: a 2-layer f32 Llama-3-8B, flash against dense, on (1, 2048):
-   the loss and every parameter's gradient.
+   random 1024-token prompts through ``generate(max_new=32)``, and
+   ``forward`` on their first 512 tokens (B9: one key block); the
+   prefill logits of ``forward_cached`` against ``forward``, every
+   logit against the dense path; forward, prefill and per-step decode
+   time, tokens/s, the device's busy share per kernel family under
+   torch.profiler and the peak memory. The attention launch counters are
+   zeroed before phase 6 and again before phase 7's pass: every
+   attention kernel must have run there, every bf16 B8, B9 and B12
+   prefill launch on the tensor-core route and no f32 one, and every
+   single-token decode on the split-KV kernel (the route counters).
+8. Attention backward: the bf16 route's kernels (``attention_sm90.cu``:
+   B8, B9 and B12 prefill; ``attention_bwd_sm90.cu``) hold HGMMA
+   instructions in their SASS (``cuobjdump -sass``), with no ptxas spills
+   and no wgmma that ptxas serialized (the split-KV decode kernel's
+   registers and spills printed beside them); B10 (``attn_bwd_dkv``) and
+   B11 (``attn_bwd_dq``) against their plain versions on an edge corpus
+   (MHA/GQA/MQA, causal and not, ragged S, Sq != Skv both ways, D 16-128,
+   f32 and bf16) and at the full Llama-3-8B width (B=4, H=32, Hkv=8,
+   S=2048, D=128) in bf16 and f32, timed beside PyTorch's SDPA backward
+   (timed only), bf16 under the limit of its rounding of P and dS
+   (``BWD_TOL``); the autograd Function's gradients (B8 + B10 + B11)
+   against torch autograd through dense attention at the same shape, bf16
+   (relative L2, SDPA's beside it) and f32. Then a gradient check: a
+   2-layer f32 Llama-3-8B, flash against dense, on (1, 2048): the loss
+   and every parameter's gradient.
 9. Training: Llama-3-8B width, 8 of 32 layers, f32 parameters and bf16
    activations, ``make_train_step`` with Adam(lr=1e-4), 4 steps on one
    (2, 2048) batch: finite losses that fall, B8/B10/B11 once per layer
@@ -135,13 +144,19 @@ def need(cond, what: str):
         raise SmokeFailure(what)
 
 
+HEAD_START_CYCLES = 50_000_000   # ~25 ms of GPU sleep at the H100's clock
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events, enqueued back to
-    back so host overhead hides behind the previous launch)."""
+    """Median device time of ``fn`` in ms (CUDA events around each call).
+    The calls are enqueued behind a GPU sleep of ``HEAD_START_CYCLES``,
+    so the host runs ahead of the device and each event pair times the
+    kernels alone, not the host's Python between two short launches."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(HEAD_START_CYCLES)
     evs = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -485,12 +500,16 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("fp8_quant", "fp8_quant_kernel"),
             ("fp8_dequant", "fp8_dequant_kernel"),
             ("attn_fwd_single", "attn_fwd_single_kernel"),
+            # bf16 B9: its tensor-core kernel
+            ("attn_fwd_single", "attn_fwd_single_wgmma_kernel"),
             ("attn_fwd", "attn_fwd_kernel"),
             # bf16 B8 and B12 prefill: the tensor-core route's one kernel
             ("attn_fwd_wgmma", "attn_fwd_wgmma_kernel"),
             ("attn_bwd_dkv", "attn_bwd_dkv_"),   # both routes' kernels
             ("attn_bwd_dq", "attn_bwd_dq_"),
             ("attn_decode", "attn_decode_kernel"),
+            # single-token decode: the split-KV kernel
+            ("attn_decode", "attn_decode_split_kernel"),
             ("optimizer", "multi_tensor_apply"),
             ("gemm", "gemm"), ("gemm", "gemv"), ("gemm", "nvjet"),
             ("gemm", "cutlass"), ("gemm", "xmma"),
@@ -847,7 +866,8 @@ def main_path(recs):
 # -- attention and the Llama serving path ----------------------------------
 
 ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"              # CUDA cores
-ATTN_SM90_SRC = "accl_tpu_torch/csrc/attention_sm90.cu"    # bf16 B8, prefill
+ATTN_SM90_SRC = "accl_tpu_torch/csrc/attention_sm90.cu"  # bf16 B8, B9, prefill
+ATTN_DECODE_SRC = "accl_tpu_torch/csrc/attention_decode.cu"  # S_new == 1
 # one attention tolerance, stated once and held element by element:
 # f32 |got - plain| <= 2e-5 + 2e-5 * |plain| (one f32 softmax summed in
 # another order); bf16 <= 2^-7 * |plain| + 2^-7 * median |plain|: one
@@ -858,7 +878,7 @@ F32_RTOL = F32_ATOL = 2e-5
 BF16_REL = 2.0 ** -7
 ATTN_TOL = ("f32 2e-5 + 2e-5*|plain|; bf16 2^-7*|plain| + "
             "2^-7*median|plain|, per element")
-# the forward's bf16 tensor-core route (B8, B12 with S_new > 1) rounds P
+# the forward's bf16 tensor-core route (B8, B9, B12 with S_new > 1) rounds P
 # to bf16 (8 significant bits) as the first operand of P V, which moves
 # each term p*v by less than 2^-8 of its magnitude, so an output moves by
 # less than 2^-8 * m, m = sum_j p_ij |v_j| / l_i
@@ -890,9 +910,9 @@ SERVE_MIN_AGREE = 0.99
 # ||dense|| (Frobenius norms over all logits)
 SERVE_DENSE_REL = 2.0 ** -4
 # the path each attention record's ``launches`` is read from: serving
-# never runs B9 (its prompts exceed one key block); the f32 model
-# phase's (4, 128) forward does
-LAUNCH_PATH = {"attn_fwd": "serving", "attn_fwd_single": "model_f32",
+# runs B9 in its forward on the prompts' first 512 tokens (one key block)
+SERVE_B9_LEN = 512
+LAUNCH_PATH = {"attn_fwd": "serving", "attn_fwd_single": "serving",
                "attn_decode": "serving", "attn_prefill": "serving",
                "attn_bwd_dkv": "training", "attn_bwd_dq": "training"}
 
@@ -906,7 +926,9 @@ def attention_counters() -> dict:
             "attn_decode": A.decode_launches,
             "attn_prefill": A.prefill_launches,
             "attn_fwd_wgmma": A.fwd_wgmma_launches,
-            "attn_prefill_wgmma": A.prefill_wgmma_launches}
+            "attn_fwd_single_wgmma": A.fwd_single_wgmma_launches,
+            "attn_prefill_wgmma": A.prefill_wgmma_launches,
+            "attn_decode_split": A.decode_split_launches}
 
 
 def zero_attention_counters():
@@ -915,21 +937,31 @@ def zero_attention_counters():
     A.bwd_dkv_launches = A.bwd_dq_launches = 0
     A.decode_launches = A.prefill_launches = 0
     A.fwd_wgmma_launches = A.prefill_wgmma_launches = 0
+    A.fwd_single_wgmma_launches = A.decode_split_launches = 0
 
 
 def need_routes(launches: dict, bf16: bool, what: str):
-    """Every B8 and B12 prefill launch of a path took the tensor-core
-    route when the path runs bf16, none when it runs f32."""
-    for key in ("attn_fwd", "attn_prefill"):
+    """Every B8, B9 and B12 prefill launch of a path took the tensor-core
+    route when the path runs bf16, none when it runs f32; every
+    single-token decode launch took the split-KV kernel (both dtypes)."""
+    from accl_tpu_torch.ops import attention as A
+    keys = ("attn_fwd", "attn_fwd_single", "attn_prefill")
+    for key in keys:
         want = launches[key] if bf16 else 0
         need(launches[key + "_wgmma"] == want,
              f"{what}: {launches[key + '_wgmma']} of {launches[key]} "
              f"{key} launches on the tensor-core route, want {want}")
-    print(f"{what} routes: attn_fwd {launches['attn_fwd_wgmma']} of "
-          f"{launches['attn_fwd']}, attn_prefill "
-          f"{launches['attn_prefill_wgmma']} of {launches['attn_prefill']} "
-          f"launches on the tensor-core route ({ATTN_SM90_SRC}); the rest "
-          f"on the CUDA cores ({ATTN_SRC})")
+    need(launches["attn_decode_split"] == launches["attn_decode"],
+         f"{what}: {launches['attn_decode_split']} of "
+         f"{launches['attn_decode']} decode launches on the split-KV route")
+    print(f"{what} routes: " + ", ".join(
+        f"{k} {launches[k + '_wgmma']} of {launches[k]}" for k in keys)
+        + f" launches on the tensor-core route ({ATTN_SM90_SRC}), the rest "
+        f"on the CUDA cores ({ATTN_SRC}); attn_decode "
+        f"{launches['attn_decode_split']} of {launches['attn_decode']} on "
+        f"the split-KV kernel ({ATTN_DECODE_SRC}"
+        + (f", n_split {A.last_decode_splits} at the last"
+           if launches["attn_decode"] else "") + ")")
 
 
 def attn_limit(plain, mag=None):
@@ -945,7 +977,7 @@ def attn_limit(plain, mag=None):
 
 
 def fwd_route_mag(kind: str, args, kwargs=None):
-    """For a bf16 call of B8 or B12 with S_new > 1 (the tensor-core
+    """For a bf16 call of B8, B9 or B12 with S_new > 1 (the tensor-core
     route), the magnitudes its limit takes (``fwd_rounding_magnitudes``);
     None for every other call. ``kind`` "fwd": args as
     ``flash_attention_fwd``'s; "decode": as ``flash_decode``'s."""
@@ -958,14 +990,11 @@ def fwd_route_mag(kind: str, args, kwargs=None):
     if kind == "fwd":
         k, v = args[1], args[2]
         causal = args[3] if len(args) > 3 else kwargs.get("causal", True)
-        block_k = args[6] if len(args) > 6 else kwargs.get("block_k")
-        if A.is_single_block(k.shape[2], block_k):
-            return None                        # B9: the CUDA cores
         scale = args[4] if len(args) > 4 else kwargs.get("sm_scale")
         return A.fwd_rounding_magnitudes(q, k, v, causal, scale)
     kv_len = args[3] if len(args) > 3 else kwargs["kv_len"]
     if q.shape[2] == 1:
-        return None                            # decode: the CUDA cores
+        return None                            # decode: split-KV, f32
     k, v = A.cache_prefix(args[1], args[2], kv_len)
     return A.fwd_rounding_magnitudes(q, k, v, True, kwargs.get("sm_scale"),
                                      kv_len - q.shape[2])
@@ -1011,10 +1040,20 @@ def attn_work(B, H, Hkv, Sq, Skv, D, esize, s_new=None):
     return nbytes, 4 * D * B * H * seen
 
 
+def attn_source(kind: str, dtype, s_new: int = 0) -> str:
+    """The source of the kernel a call of ``kind`` ("fwd" for B8 and B9,
+    "decode" for B12) runs in ``dtype`` with ``s_new`` new tokens."""
+    import torch
+    if kind == "decode" and s_new == 1:
+        return ATTN_DECODE_SRC
+    return ATTN_SM90_SRC if dtype == torch.bfloat16 else ATTN_SRC
+
+
 def attention_edges(rng):
-    """The CPU tests' shapes and the decode and chunked-prefill edge
-    cases, f32 and bf16 (bf16 B8 and B12 chunks on the tensor-core
-    route, under FWD_TOL)."""
+    """The CPU tests' shapes, single-block B9 cases and the decode and
+    chunked-prefill edge cases, f32 and bf16 (bf16 B8, B9 and B12 chunks
+    on the tensor-core route, under FWD_TOL; single-token decode on the
+    split-KV kernel)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     fwd_cases = [  # B, H, Hkv, Sq, Skv, D, causal, block_k
@@ -1022,6 +1061,18 @@ def attention_edges(rng):
         (1, 4, 2, 96, 96, 16, True, 32), (2, 4, 1, 96, 96, 16, False, None),
         (1, 4, 2, 40, 96, 16, True, 32), (2, 8, 2, 300, 300, 64, True, None),
         (1, 8, 1, 513, 513, 128, False, None)]
+    # one key block (B9): Skv 40, 128, 130 (block_k 256), 256, 512 and
+    # 2048 (block_k 2048); MHA/GQA/MQA, causal and not, Sq != Skv
+    single_cases = [
+        (1, 4, 4, 40, 40, 64, True, None), (2, 4, 2, 128, 128, 128, True, None),
+        (1, 8, 1, 130, 130, 32, False, 256),
+        (1, 8, 2, 256, 256, 16, True, None),
+        (2, 4, 4, 512, 512, 128, True, None),
+        (1, 4, 1, 512, 512, 64, False, None),
+        (1, 4, 2, 96, 40, 128, True, None), (1, 4, 2, 40, 256, 32, True, None),
+        (1, 4, 2, 200, 512, 64, False, None),
+        (1, 2, 1, 64, 2048, 128, False, 2048),
+        (1, 4, 2, 2048, 2048, 64, True, 2048)]
     T = 3 * KEY_TILE + 8
     # (S_new, kv_len, D, generator): decode and chunks of new tokens, the
     # whole prefill (kv_len = S_new) and after a filled prefix (kv_len >
@@ -1034,7 +1085,19 @@ def attention_edges(rng):
     dec_cases += [(s, n, d, more) for d in (16, 64, 128) for s, n in (
         (3, 3), (3, KEY_TILE + 1), (KEY_TILE, KEY_TILE), (KEY_TILE, T),
         (KEY_TILE + 1, KEY_TILE + 1), (KEY_TILE + 1, 2 * KEY_TILE + 3))]
+    # single-token decode through the split-KV kernel: NaN past kv_len,
+    # kv_len 1, 63, 64, 65 and T at D 16-128, MHA/GQA/MQA (groups 1, 2, 4,
+    # 8), and a long cache whose 64 slices outnumber the filled tiles
+    # (B, H, Hkv, T, kv_len, D)
+    split_cases = [(2, 8, 2, T, n, d) for d in (16, 64, 128)
+                   for n in (1, KEY_TILE - 1, KEY_TILE, KEY_TILE + 1, T)]
+    split_cases += [(1, 4, 4, T, 65, 32), (2, 6, 3, T, T, 64),
+                    (1, 8, 1, T, 130, 128), (1, 8, 2, 4096, 1, 128),
+                    (1, 8, 2, 4096, 100, 128), (1, 8, 2, 4096, 4000, 64),
+                    (1, 8, 2, 4096, 4096, 128)]
+    split_rng = np.random.default_rng(SEED + 14)
     worst = {}              # route -> (max abs err, largest error/limit)
+    splits = set()
     for dt in (torch.float32, torch.bfloat16):
         for B, H, Hkv, Sq, Skv, D, causal, bk in fwd_cases:
             q = torch.from_numpy(rng.standard_normal((B, H, Sq, D))).to(
@@ -1048,6 +1111,40 @@ def attention_edges(rng):
             worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
                 o, ro, f"attn fwd {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}",
                 lse, rl, mag))
+        for B, H, Hkv, Sq, Skv, D, causal, bk in single_cases:
+            need(A.is_single_block(Skv, bk), f"B9 case {Skv}/{bk}: not one "
+                 f"key block")
+            q = torch.from_numpy(split_rng.standard_normal(
+                (B, H, Sq, D))).to("cuda", dt)
+            k, v = (torch.from_numpy(split_rng.standard_normal(
+                (B, Hkv, Skv, D))).to("cuda", dt) for _ in range(2))
+            before = A.fwd_single_launches
+            o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
+            need(A.fwd_single_launches == before + 1, "B9 case: not B9")
+            ro, rl = A.flash_attention_ref(q, k, v, causal)
+            mag = fwd_route_mag("fwd", (q, k, v, causal, None, None, bk))
+            route = ("B9 tensor cores" if mag is not None
+                     else "B9 CUDA cores")
+            worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
+                o, ro, f"attn B9 {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}",
+                lse, rl, mag))
+        for B, H, Hkv, Tc, kv_len, D in split_cases:
+            q = torch.from_numpy(split_rng.standard_normal(
+                (B, H, 1, D))).to("cuda", dt)
+            kc, vc = (torch.from_numpy(split_rng.standard_normal(
+                (B, Tc, Hkv, D))).to("cuda", dt) for _ in range(2))
+            kc[:, kv_len:] = float("nan")
+            vc[:, kv_len:] = float("nan")
+            before = A.decode_split_launches
+            o = A.flash_decode(q, kc, vc, kv_len)
+            need(A.decode_split_launches == before + 1, "decode: not split")
+            n = A.last_decode_splits
+            filled = sum(hi > lo for lo, hi in A.decode_split_ranges(kv_len, n))
+            splits.add((n, filled))
+            worst["split-KV"] = max_pair(worst.get("split-KV", (0.0, 0.0)),
+                                         hold_attn(
+                o, A.flash_decode_ref(q, kc, vc, kv_len),
+                f"attn decode {dt} {(B, H, Hkv, Tc, kv_len, D)} n_split {n}"))
         for s_new, kv_len, D, gen in dec_cases:
             q = torch.from_numpy(gen.standard_normal(
                 (2, 8, s_new, D))).to("cuda", dt)
@@ -1056,20 +1153,26 @@ def attention_edges(rng):
             kc[:, kv_len:] = float("nan")
             vc[:, kv_len:] = float("nan")
             mag = fwd_route_mag("decode", (q, kc, vc, kv_len))
-            route = "tensor cores" if mag is not None else "CUDA cores"
+            route = ("tensor cores" if mag is not None else
+                     "split-KV" if s_new == 1 else "CUDA cores")
             worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
                 A.flash_decode(q, kc, vc, kv_len),
                 A.flash_decode_ref(q, kc, vc, kv_len),
                 f"attn decode {dt} s_new={s_new} kv_len={kv_len} D={D}",
                 mag=mag))
     print(f"attention edges: {2 * len(fwd_cases)} forward cases (B8 and "
-          f"B9, MHA/GQA/MQA, ragged, straddling blocks, Sq != Skv) and "
+          f"B9, MHA/GQA/MQA, ragged, straddling blocks, Sq != Skv), "
+          f"{2 * len(single_cases)} single-block B9 cases (Skv 40-2048, "
+          f"MHA/GQA/MQA, causal and not, Sq != Skv), "
           f"{2 * len(dec_cases)} decode and chunked-prefill cases (NaN past "
           f"kv_len, S_new 1/3/64/65, kv_len = S_new and past it, D 16-128) "
-          f"within tolerance")
+          f"and {2 * len(split_cases)} single-token decode cases on the "
+          f"split-KV kernel (NaN past kv_len, kv_len 1 to T, groups 1-8, D "
+          f"16-128; (n_split, filled slices) {sorted(splits)}) within "
+          f"tolerance")
     for route, (err, ratio) in sorted(worst.items()):
         print(f"  {route}: max abs err {err}, largest error/limit "
-              f"{ratio:.3f} ({ATTN_TOL if route == 'CUDA cores' else FWD_TOL})")
+              f"{ratio:.3f} ({FWD_TOL if 'tensor' in route else ATTN_TOL})")
 
 
 def max_pair(a, b):
@@ -1080,7 +1183,8 @@ def max_pair(a, b):
 def attention_records():
     """B8, B9 and B12 at the full-width shapes, bf16 (the table's rows)
     and f32 (checked and printed), against their plain versions and
-    PyTorch's SDPA, timed."""
+    PyTorch's SDPA, timed. B9 at S=128 (printed) and at the serving
+    path's S=512 (the record)."""
     import torch
     import torch.nn.functional as F
     from accl_tpu_torch.ops import attention as A
@@ -1091,6 +1195,8 @@ def attention_records():
         ("attn_fwd", "accl_tpu/ops/attention.py:285", 4, 2048, 2048, None),
         ("attn_fwd_single", "accl_tpu/ops/attention.py:252", 4, 128, 128,
          None),
+        ("attn_fwd_single", "accl_tpu/ops/attention.py:252", 4,
+         SERVE_B9_LEN, SERVE_B9_LEN, None),
         ("attn_decode", "accl_tpu/ops/attention.py:689", 4, 1, 2047, 4096),
         ("attn_prefill", "accl_tpu/ops/attention.py:689", 4, 1024, 1024,
          1024)]
@@ -1135,23 +1241,30 @@ def attention_records():
             library_ms = time_ms(lib)
             rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
             bms, by = bound_ms(nbytes, nops, rate)
-            src = ATTN_SRC if mag is None else ATTN_SM90_SRC
+            src = attn_source("fwd" if T is None else "decode", dt, sq)
+            n_split = A.last_decode_splits if name == "attn_decode" else None
             print(f"kernel {name} {str(dt)[6:]} ({src}) B={B} H={H} "
                   f"Hkv={Hkv} D={D} "
                   f"{'Sq' if T is None else 'S_new'}={sq} "
                   f"{'Skv' if T is None else 'kv_len'}={skv}"
-                  f"{'' if T is None else f' T={T}'}: {ms:.4f} ms (plain "
+                  f"{'' if T is None else f' T={T}'}"
+                  f"{'' if n_split is None else f' n_split={n_split}'}: "
+                  f"{ms:.4f} ms (plain "
                   f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms = "
                   f"{ms / library_ms:.2f}x sdpa, bound "
                   f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), max abs "
                   f"err vs plain {err}, largest error/limit {ratio:.3f} "
                   f"({ATTN_TOL if mag is None else FWD_TOL})")
-            if dt == torch.bfloat16:
+            # the table's rows: bf16; B9 at the serving path's length
+            if dt == torch.bfloat16 and not (name == "attn_fwd_single"
+                                             and sq != SERVE_B9_LEN):
                 recs.append({"name": name, "route": "cuda",
                              "source": src, "replaces": replaces,
                              "launches": 0, "max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bms,
                              "bound_by": by, "library_ms": library_ms})
+                if n_split is not None:
+                    recs[-1]["n_split"] = n_split
             del q, o, ref, mag
             torch.cuda.empty_cache()
     return recs
@@ -1254,7 +1367,8 @@ def hold_path_calls(calls, what: str):
             at = args[1].shape[2]
             mag = fwd_route_mag("fwd", args, kwargs)
         else:
-            kind = "B12 decode" if q.shape[2] == 1 else "B12 prefill"
+            kind = ("B12 decode (split-KV)" if q.shape[2] == 1
+                    else "B12 prefill")
             plain = A.flash_decode_ref(*args, **kwargs)
             at = kwargs["kv_len"]
             mag = fwd_route_mag("decode", args, kwargs)
@@ -1300,11 +1414,42 @@ def serving_phase():
           f"{time.perf_counter() - t0:.1f} s")
     prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
                             generator=g)
-    # the serving path, once: generate, then one more prefill, a decode
-    # step and a full forward for the checks below
+    short = prompts[:, :SERVE_B9_LEN]      # one key block: B9
+
+    def against_dense(what, flash, dense):
+        """``flash`` logits against ``dense()`` on the same weights with
+        attention="dense" (the plain path), ||diff|| <= SERVE_DENSE_REL *
+        ||dense||."""
+        model.config = dataclasses.replace(cfg, attention="dense")
+        try:
+            ref = dense()
+        finally:
+            model.config = cfg
+        rel = float(torch.linalg.vector_norm(flash - ref)
+                    / torch.linalg.vector_norm(ref))
+        agree = float((flash.argmax(-1) == ref.argmax(-1)).float().mean())
+        print(f"serving {what}, flash vs dense (bf16, 32 layers): relative "
+              f"diff {rel:.4g} (limit {SERVE_DENSE_REL}), max abs diff "
+              f"{float((flash - ref).abs().max()):.4g}, greedy agreement "
+              f"{agree:.4f}")
+        need(rel <= SERVE_DENSE_REL, f"serving {what}: flash and dense "
+             f"differ")
+
+    # the serving path, once: generate, a forward on the prompts' first
+    # 512 tokens (checked and freed at once, so that the phase's peak
+    # memory stays that of the 1024-token checks), then one more prefill,
+    # a decode step and a full forward for the checks below
     with torch.no_grad(), attention_calls(cfg.n_layers) as calls:
         zero_attention_counters()
         out = model.generate(prompts, max_new=NEW)
+        full_short = model(short)
+        need(full_short.shape == (B, SERVE_B9_LEN, cfg.vocab_size)
+             and bool(torch.isfinite(full_short).all()),
+             f"serving forward {B}x{SERVE_B9_LEN}: shape "
+             f"{tuple(full_short.shape)} or non-finite logits")
+        against_dense(f"forward {B}x{SERVE_B9_LEN} (B9)", full_short,
+                      lambda: model(short))
+        del full_short
         cache = model.init_kv_cache(B, S + NEW)
         cached, _ = model.forward_cached(prompts, cache)
         tok = cached[:, -1].argmax(-1)[:, None]
@@ -1316,6 +1461,9 @@ def serving_phase():
     need(launches["attn_fwd"] > 0 and launches["attn_decode"] > 0
          and launches["attn_prefill"] > 0,
          "serving: B8 or B12 (decode or prefill) not launched")
+    need(launches["attn_fwd_single"] == cfg.n_layers,
+         f"serving: B9 launched {launches['attn_fwd_single']} times on the "
+         f"{B}x{SERVE_B9_LEN} forward, not once per layer ({cfg.n_layers})")
     need_routes(launches, True, "serving")
     with torch.no_grad():
         need(out.shape == (B, NEW), f"generate: shape {tuple(out.shape)}")
@@ -1337,29 +1485,14 @@ def serving_phase():
         hold_path_calls(calls, "serving")
         del calls
         # the plain path on the same weights: dense attention
-        model.config = dataclasses.replace(cfg, attention="dense")
-        try:
-            dcache = model.init_kv_cache(B, S + NEW)
-            for what, flash, dense in (
-                    ("prefill (forward_cached)", cached,
-                     lambda: model.forward_cached(prompts, dcache)[0]),
-                    ("decode step at 1024", step,
-                     lambda: model.forward_cached(tok, dcache)[0]),
-                    ("forward", full, lambda: model(prompts))):
-                ref = dense()
-                rel = float(torch.linalg.vector_norm(flash - ref)
-                            / torch.linalg.vector_norm(ref))
-                agree = float((flash.argmax(-1) == ref.argmax(-1)).float()
-                              .mean())
-                print(f"serving {what}, flash vs dense (bf16, 32 layers): "
-                      f"relative diff {rel:.4g} (limit {SERVE_DENSE_REL}), "
-                      f"max abs diff {float((flash - ref).abs().max()):.4g}, "
-                      f"greedy agreement {agree:.4f}")
-                need(rel <= SERVE_DENSE_REL,
-                     f"serving {what}: flash and dense differ")
-                del ref
-        finally:
-            model.config = cfg
+        dcache = model.init_kv_cache(B, S + NEW)
+        for what, flash, dense in (
+                ("prefill (forward_cached)", cached,
+                 lambda: model.forward_cached(prompts, dcache)[0]),
+                ("decode step at 1024", step,
+                 lambda: model.forward_cached(tok, dcache)[0]),
+                ("forward", full, lambda: model(prompts))):
+            against_dense(what, flash, dense)
         del cached, full, step, cache, dcache
         # the timing and profiling below drive the path again; its
         # launch counts were read above
@@ -1393,12 +1526,16 @@ def serving_phase():
             return statistics.median(ts)
 
         fwd_ms = host_ms(lambda: model(prompts))
+        short_ms = host_ms(lambda: model(short))
         pre_ms = host_ms(prefill)
         state = prefill()
         dec_ms = statistics.median(decode_steps(state, 16))
         print(f"serving forward (B8): {fwd_ms:.2f} ms for {B}x{S} tokens "
               f"({B * S / fwd_ms * 1e3:.0f} tokens/s; host clock, median "
               f"of 3)")
+        print(f"serving forward {B}x{SERVE_B9_LEN} (B9): {short_ms:.2f} ms "
+              f"({B * SERVE_B9_LEN / short_ms * 1e3:.0f} tokens/s; host "
+              f"clock, median of 3)")
         print(f"serving prefill: {pre_ms:.2f} ms for {B}x{S} tokens "
               f"({B * S / pre_ms * 1e3:.0f} tokens/s; host clock, median "
               f"of 3)")
@@ -1408,6 +1545,8 @@ def serving_phase():
         state = prefill()
         for what, fn, window in (
                 ("forward", lambda: model(prompts), fwd_ms),
+                (f"forward {B}x{SERVE_B9_LEN}", lambda: model(short),
+                 short_ms),
                 ("prefill", prefill, pre_ms),
                 ("decode x8", lambda: decode_steps(state, 8), 8 * dec_ms)):
             fams = device_ms_by_family(fn)
@@ -1424,7 +1563,7 @@ def serving_phase():
     print(f"serving peak memory: "
           f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
           f"above the {held / 2 ** 30:.2f} GiB held before the phase")
-    del model
+    del model, short
     torch.cuda.empty_cache()
     return launches
 
@@ -1433,8 +1572,10 @@ def serving_phase():
 
 ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"          # f32 route
 ATTN_BWD_SM90_SRC = "accl_tpu_torch/csrc/attention_bwd_sm90.cu"  # bf16 route
-WGMMA_KERNELS = ("attn_fwd_wgmma_kernel", "attn_bwd_dkv_wgmma_kernel",
-                 "attn_bwd_dq_wgmma_kernel")
+WGMMA_KERNELS = ("attn_fwd_wgmma_kernel", "attn_fwd_single_wgmma_kernel",
+                 "attn_bwd_dkv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
+# the single-token decode route: CUDA-core code, its registers printed
+SPLIT_KERNEL = "attn_decode_split_kernel"
 # B10/B11 against their plain versions, per element. f32 inputs: the same
 # f32 FlashAttention-2 backward summed in another order over up to S*D
 # terms per output, whose error scales with the largest gradient of the
@@ -1523,10 +1664,11 @@ def hold_bwd_outputs(args, outs, what: str) -> tuple[float, float]:
 
 
 def wgmma_kernels_checked():
-    """The bf16 route's kernels in the built library (B8 and B12's
+    """The bf16 route's kernels in the built library (B8, B9 and B12's
     prefill route, B10, B11): their SASS holds HGMMA (Hopper's warpgroup
     MMA: the tensor cores) and ptxas reports no spills. Prints both, and
-    each instantiation's registers by head dim; fails otherwise."""
+    each instantiation's registers by head dim; fails otherwise. Then the
+    split-KV decode kernels' registers and spill bytes (printed)."""
     import re
     import shutil
     from accl_tpu_torch import _build
@@ -1566,6 +1708,11 @@ def wgmma_kernels_checked():
               f"{[v[0] for v in info]} (by head dim "
               f"{dict(sorted(by_d.items()))}), spill bytes "
               f"{[v[1] for v in info]}")
+    info = [v for k, v in ptx.items() if SPLIT_KERNEL in k]
+    need(info, f"{SPLIT_KERNEL}: no ptxas report in the build log")
+    print(f"{SPLIT_KERNEL}: {len(info)} instantiations (f32/bf16 x D 16-128 "
+          f"x rows 1/2/4); ptxas registers {sorted(v[0] for v in info)}, "
+          f"spill bytes {sorted(v[1] for v in info)}")
     for ln in _build.build_log.splitlines():
         if "wgmma" in ln.lower() and ("warning" in ln.lower()
                                       or "Performance" in ln):

@@ -201,3 +201,36 @@ def test_cpu_path_keeps_autograd():
     A.flash_attention(q, k, v).square().sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+def _kernel_operands(dtype, D):
+    return [torch.zeros(1, 2, 8, D, dtype=dtype) for _ in range(3)]
+
+
+def test_kernel_contract_refuses_float16():
+    """The attention kernels take f32 or bf16 operands only: ``_kernel_ready``
+    (the check every CUDA call makes before a launch) raises TypeError
+    for f16, where the reference's wrappers check no dtype."""
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        A._kernel_ready("flash_attention", *_kernel_operands(torch.float16,
+                                                             64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [80, 96])
+def test_kernel_contract_refuses_other_head_dims(D, dtype):
+    """Head dims outside (16, 32, 64, 128) raise ValueError naming the
+    accepted ones (the reference's wrappers check no head dim; no path of
+    the port needs another: Llama-3-8B has D = 128)."""
+    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
+        A._kernel_ready("flash_decode",
+                        *_kernel_operands(getattr(torch, dtype), D))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_kernel_contract_accepts(D, dtype):
+    """f32 and bf16 with head dim 16, 32, 64 or 128 pass the check."""
+    assert A.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
+    A._kernel_ready("flash_attention",
+                    *_kernel_operands(getattr(torch, dtype), D))

@@ -1,8 +1,9 @@
-"""The bf16 route of the attention forward (B8, and B12 with S_new > 1)
-against its limit, on the CPU.
+"""The bf16 route of the attention forward (B8, B9, and B12 with S_new >
+1) against its limit, on the CPU.
 
-On the card, bf16 B8 and bf16 B12 chunks of S_new > 1 new tokens run on
-the tensor cores (``csrc/attention_sm90.cu``), which round the f32
+On the card, bf16 B8, bf16 B9 and bf16 B12 chunks of S_new > 1 new
+tokens run on the tensor cores (``csrc/attention_sm90.cu``), which round
+the f32
 probabilities P to bf16 (round to nearest even) as the first operand of
 P V, with the row sum l taken from the f32 P. The kernels run only on the
 card; the tests below emulate that rounding on the CPU and hold the
@@ -235,4 +236,107 @@ def test_route_counters_stay_zero_on_the_cpu():
     assert (A.fwd_wgmma_launches, A.prefill_wgmma_launches) == before[:2]
     ran = {key: A.plain_runs[key] - before[2][key] for key in before[2]}
     assert ran == {"fwd": 1, "fwd_single": 0, "bwd_dkv": 0, "bwd_dq": 0,
+                   "decode": 1}
+
+
+# B9: one key block under the reference's rule (Skv <= 128, 256 or 512 by
+# _auto_block and its clamp, or an explicit block_k): (B, H, Hkv, Sq, Skv,
+# D, causal, block_k)
+SINGLE = {
+    "mha-causal-40-d64": (1, 4, 4, 40, 40, 64, True, None),
+    "gqa-causal-128-d32": (1, 8, 2, 128, 128, 32, True, None),
+    "mqa-130-bk256-d16": (1, 8, 1, 130, 130, 16, False, 256),
+    "gqa-causal-256-d16": (2, 4, 2, 256, 256, 16, True, None),
+    "mqa-causal-sq96-skv40-d128": (1, 4, 1, 96, 40, 128, True, None),
+    "gqa-sq40-skv256-d32": (1, 4, 2, 40, 256, 32, False, None),
+}
+KEY_TILE = 64    # the kernel's key tile (csrc/sm90_tile.cuh BKV)
+
+
+def emulate_single(q, k, v, causal):
+    """B9's tensor-core route on the CPU, pass by pass over 64-key tiles:
+    pass 1 takes each row's max over every visible key; pass 2 walks the
+    tiles backwards with that final max, p = exp(s - m) in f32 (0 where
+    the mask hides the pair), l summed from the f32 p, O += P V with P
+    rounded to bf16. The q heads of one kv head side by side, as
+    ``_fwd_parts``. Returns (O in q's dtype, LSE (B*H, Sq) f32)."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qf = q.reshape(B, Hkv, (H // Hkv) * Sq, D).float()
+    s = torch.matmul(qf, k.float().transpose(-1, -2)) * D ** -0.5
+    rows = torch.arange(qf.shape[2]) % Sq
+    keys = torch.arange(Skv)
+    mask = (keys[None, :] <= rows[:, None] if causal
+            else torch.ones(rows.numel(), Skv, dtype=torch.bool))
+    s = torch.where(mask, s, torch.finfo(torch.float32).min)
+    tiles = [slice(j, j + KEY_TILE) for j in range(0, Skv, KEY_TILE)]
+    m = torch.full((*s.shape[:-1], 1), torch.finfo(torch.float32).min)
+    for t in tiles:                                    # pass 1
+        m = torch.maximum(m, s[..., t].amax(-1, keepdim=True))
+    acc = torch.zeros(*s.shape[:-1], D)
+    l = torch.zeros_like(m)
+    for t in reversed(tiles):                          # pass 2
+        p = torch.where(mask[:, t], torch.exp(s[..., t] - m), 0.0)
+        l = l + p.sum(-1, keepdim=True)
+        acc = acc + torch.matmul(p.bfloat16().float(), v[:, :, t].float())
+    l = l.clamp_min(1e-30)
+    o = (acc / l).reshape(q.shape).to(q.dtype)
+    return o, (m + torch.log(l)).reshape(B * H, Sq)
+
+
+def _single_case(case):
+    B, H, Hkv, Sq, Skv, D, causal, bk = SINGLE[case]
+    rng = np.random.default_rng(sorted(SINGLE).index(case) + 500)
+    xs = [rng.standard_normal(s).astype(np.float32)
+          for s in ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in xs)
+    return xs, q, k, v, causal, bk
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE))
+def test_single_emulation_within_limit(case):
+    """(a) B9: the emulated two-pass route within the forward's limit of
+    the plain version, not equal to it (the rounding shows), its LSE
+    within 2e-5 + 2e-5 * |lse|; the case is one key block."""
+    _xs, q, k, v, causal, bk = _single_case(case)
+    assert A.is_single_block(k.shape[2], bk)
+    plain, plain_lse = A.flash_attention_ref(q, k, v, causal)
+    mag = A.fwd_rounding_magnitudes(q, k, v, causal)
+    emu, lse = emulate_single(q, k, v, causal)
+    assert emu.dtype == torch.bfloat16 and emu.shape == plain.shape
+    assert 0.0 < ratio(emu, plain, mag) <= 1.0
+    assert float(((lse - plain_lse).abs()
+                  / (2e-5 + 2e-5 * plain_lse.abs())).max()) <= 1.0
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE))
+def test_single_emulation_against_jax(case):
+    """(d) The emulated B9 route against the JAX package's
+    ``flash_attention`` on the same bf16 inputs, whose one-block shapes
+    run ``_fwd_kernel_single`` (Pallas in interpret mode), within the
+    limit taken around the JAX output."""
+    xs, q, k, v, causal, bk = _single_case(case)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in xs)
+    want = torch.from_numpy(np.array(R.flash_attention(
+        jq, jk, jv, causal=causal, block_k=bk).astype(jnp.float32)))
+    mag = A.fwd_rounding_magnitudes(q, k, v, causal)
+    assert ratio(emulate_single(q, k, v, causal)[0], want, mag) <= 1.0
+
+
+def test_single_and_split_counters_stay_zero_on_the_cpu():
+    """B9's tensor-core counter and the split decode's count launches on
+    the card only: the CPU runs the plain versions under their own
+    branch counts."""
+    _xs, q, k, v, causal, bk = _single_case("gqa-causal-128-d32")
+    pq, kc, vc = (torch.from_numpy(x).bfloat16()[:, :, :1] if i == 0 else
+                  torch.from_numpy(x).bfloat16()
+                  for i, x in enumerate(_prefill_inputs(3, 65)))
+    before = (A.fwd_single_wgmma_launches, A.decode_split_launches,
+              dict(A.plain_runs))
+    A.flash_attention_fwd(q, k, v, causal, block_k=bk)     # B9
+    A.flash_decode(pq, kc, vc, 65)                          # one new token
+    assert (A.fwd_single_wgmma_launches,
+            A.decode_split_launches) == before[:2]
+    ran = {key: A.plain_runs[key] - before[2][key] for key in before[2]}
+    assert ran == {"fwd": 0, "fwd_single": 1, "bwd_dkv": 0, "bwd_dq": 0,
                    "decode": 1}
