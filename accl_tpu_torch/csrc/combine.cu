@@ -6,16 +6,18 @@
 //
 // Bound on the H100: bytes. Each element is read twice and written once
 // (12 bytes per f32 element) against one arithmetic operation, far
-// below the card's ops-per-byte balance, so the kernel is a stream:
-// 16-byte vector loads and stores where the three row pointers are
-// 16-byte aligned, a grid-stride loop, and a scalar loop for the tail.
-// out may alias a (the reference's result-over-operand-0 mode): each
-// element is read before it is written, by the same thread.
+// below the card's ops-per-byte balance, so the kernel is a stream
+// (stream.cuh): one 16-byte vector of each operand a thread, one tile of
+// 256 such steps a block, one block for each tile of the launch's rows.
+// Rows whose pointers are not all 16-byte aligned, and ragged tails,
+// take scalar accesses. out may alias a or b (the tree reduce works in
+// place): each element is read before it is written, by the same
+// thread.
 //
 // f16 and bf16 compute in f32 and round once; integers wrap (two's
 // complement), as XLA and torch do.
 
-#include "common.cuh"
+#include "stream.cuh"
 
 template <int F>
 struct OpF32 {
@@ -70,36 +72,27 @@ template <typename Op>
 __global__ void combine_kernel(Rows a, Rows b, MutRows o, long long n) {
   typedef typename Op::S S;
   constexpr int V = 16 / sizeof(S);
-  const int r = blockIdx.y;
-  const S* pa = static_cast<const S*>(a.p[r]);
-  const S* pb = static_cast<const S*>(b.p[r]);
-  S* po = static_cast<S*>(o.p[r]);
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(pa) |
-                         reinterpret_cast<uintptr_t>(pb) |
-                         reinterpret_cast<uintptr_t>(po)) & 15) == 0;
-  const long long nv = aligned ? n / V : 0;
-  for (long long i = tid; i < nv; i += stride) {
-    uint4 ua = reinterpret_cast<const uint4*>(pa)[i];
-    uint4 ub = reinterpret_cast<const uint4*>(pb)[i];
-    S* sa = reinterpret_cast<S*>(&ua);
-    const S* sb = reinterpret_cast<const S*>(&ub);
+  typedef Pack<S, V> P;
+  const S* pa = static_cast<const S*>(a.p[blockIdx.y]);
+  const S* pb = static_cast<const S*>(b.p[blockIdx.y]);
+  S* po = static_cast<S*>(o.p[blockIdx.y]);
+  const bool vec =
+      aligned_for<P>(pa) && aligned_for<P>(pb) && aligned_for<P>(po);
+  stream_tile<V>(vec, n, [&](long long s) {
+    P x = reinterpret_cast<const P*>(pa)[s];
+    const P y = reinterpret_cast<const P*>(pb)[s];
 #pragma unroll
-    for (int k = 0; k < V; ++k) sa[k] = Op::apply(sa[k], sb[k]);
-    reinterpret_cast<uint4*>(po)[i] = ua;
-  }
-  for (long long i = nv * V + tid; i < n; i += stride)
-    po[i] = Op::apply(pa[i], pb[i]);
+    for (int k = 0; k < V; ++k) x.v[k] = Op::apply(x.v[k], y.v[k]);
+    reinterpret_cast<P*>(po)[s] = x;
+  }, [&](long long i) { po[i] = Op::apply(pa[i], pb[i]); });
 }
 
 template <typename Op>
 static void launch(const Rows& a, const Rows& b, const MutRows& o,
                    int nrows, long long n, cudaStream_t st) {
   constexpr int V = 16 / sizeof(typename Op::S);
-  combine_kernel<Op><<<row_grid(n, 256LL * V, nrows), 256, 0, st>>>(a, b, o,
-                                                                     n);
+  combine_kernel<Op><<<stream_grid<V>(n, nrows), STREAM_THREADS, 0, st>>>(
+      a, b, o, n);
 }
 
 template <int F>

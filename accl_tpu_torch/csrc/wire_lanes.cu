@@ -19,14 +19,20 @@
 // stays an IEEE division.
 //
 // Bound on the H100: bytes (one conversion per 5 or 6 bytes moved).
-// Design: grid-stride loops over every rank row of the launch (grid.y =
-// row), 4 elements per thread and step: one 16-byte load of f32 and a
-// 4- or 8-byte store of wire codes (or the reverse), where both row
-// pointers allow it, else scalar accesses. The amax is a two-kernel
-// reduction: per-block partial maxima into a scratch array (no atomics,
-// so the result does not depend on block order), then one block per row
-// folds them and writes the row's scale and inverse. The scale and the
-// inverse stay in device memory: nothing syncs the host.
+// B2 is a stream (stream.cuh): a thread-step converts 4 elements, one
+// 16-byte f32 access and one 8- or 4-byte access of wire codes, a tile
+// of 256 steps a block, one block for each tile of the launch's rows.
+// (Wider steps, 16 bytes of codes a thread, measured slower: each
+// warp-wide f32 access then covers every other 16 bytes, and the
+// up-casts' strided stores cost most.) B3 and B4: grid-stride loops over
+// every rank row of the launch (grid.y = row), 4 elements per thread and
+// step: one 16-byte load of f32 and a 4-byte store of wire codes (or the
+// reverse), where both row pointers allow it, else scalar accesses. The
+// amax is a two-kernel reduction: per-block partial maxima into a
+// scratch array (no atomics, so the result does not depend on block
+// order), then one block per row folds them and writes the row's scale
+// and inverse. The scale and the inverse stay in device memory: nothing
+// syncs the host.
 //
 // Bit-exactness with the reference: f16 and bf16 round with
 // __float2half_rn / __float2bfloat16_rn (round to nearest even, f16
@@ -35,7 +41,7 @@
 // quiet NaN; back to f32 from f16: quiet, payload kept). fp8 uses the
 // integer encoder of common.cuh; every product is __fmul_rn.
 
-#include "common.cuh"
+#include "stream.cuh"
 
 enum { L_F32 = 0, L_F16 = 1, L_BF16 = 2, L_E4M3 = 3, L_E5M2 = 4 };
 
@@ -155,18 +161,25 @@ struct Stride4 {
 
 // -- B2 ---------------------------------------------------------------------
 
+#define CAST_STEP 4   // elements a thread-step
+
 template <int SRC, int DST>
 __global__ void cast_kernel(Rows x, MutRows y, long long n) {
-  const int r = blockIdx.y;
-  const void* px = x.p[r];
-  void* py = y.p[r];
-  const bool vec = vec_ok<SRC>(px) && vec_ok<DST>(py);
-  Stride4 g;
-  for (long long i = g.first; i < n; i += g.step) {
-    float v[4];
-    get4<SRC>(px, i, n, vec, v);
-    put4<DST>(py, i, n, vec, v);
-  }
+  typedef typename Lane<SRC>::S SS;
+  typedef typename Lane<DST>::S DS;
+  typedef Pack<SS, CAST_STEP> PI;
+  typedef Pack<DS, CAST_STEP> PO;
+  const SS* px = static_cast<const SS*>(x.p[blockIdx.y]);
+  DS* py = static_cast<DS*>(y.p[blockIdx.y]);
+  const bool vec = aligned_for<PI>(px) && aligned_for<PO>(py);
+  stream_tile<CAST_STEP>(vec, n, [&](long long s) {
+    const PI in = reinterpret_cast<const PI*>(px)[s];
+    PO out;
+#pragma unroll
+    for (int k = 0; k < CAST_STEP; ++k)
+      out.v[k] = Lane<DST>::put(Lane<SRC>::get(in.v[k]));
+    reinterpret_cast<PO*>(py)[s] = out;
+  }, [&](long long i) { py[i] = Lane<DST>::put(Lane<SRC>::get(px[i])); });
 }
 
 // -- B3: amax -> scale, inverse ----------------------------------------------
@@ -265,7 +278,8 @@ static bool bad_rows(int nrows, long long n) {
 template <int SRC, int DST>
 static void launch_cast(const Rows& x, const MutRows& y, int nrows,
                         long long n, cudaStream_t st) {
-  cast_kernel<SRC, DST><<<grid4(n, nrows), 256, 0, st>>>(x, y, n);
+  cast_kernel<SRC, DST><<<stream_grid<CAST_STEP>(n, nrows), STREAM_THREADS,
+                          0, st>>>(x, y, n);
 }
 
 // src, dst: lane codes (0 f32, 1 f16, 2 bf16, 3 e4m3fn, 4 e5m2); one of

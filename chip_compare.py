@@ -1,8 +1,14 @@
 #!/usr/bin/env python3
-"""Compare checkouts of the port on one card: B9, B12 decode and the
-32-layer Llama-3-8B forward on 4x512 tokens (the serving path's B9 call).
+"""Compare checkouts of the port on one card: the stream kernels B1-B7,
+B9, B12 decode and the 32-layer Llama-3-8B forward on 4x512 tokens (the
+serving path's B9 call).
 
-Run from the root of a checkout:  python3 chip_compare.py [TREE ...]
+Run from the root of a checkout:
+
+    python3 chip_compare.py [--part all|stream|model] [TREE ...]
+
+``--part stream`` times the stream kernels only (no model is built);
+``--part model`` B9, decode and the forward only; the default is both.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -11,6 +17,19 @@ one card. A process imports that tree's ``accl_tpu_torch`` (building its
 kernels into that tree's ``build/``) and prints one JSON line with the
 card's name and power limit and:
 
+- the stream part, at the collectives' hop shape (W=8 rank rows of one
+  8 Mi-element ring chunk): B1 ``combine`` SUM in f32 and bf16 in place
+  beside ``torch.add(a, b, out=a)`` on the same bytes, and in f32 out of
+  place as the ring calls it (``combine_sum_f32_out``, beside
+  ``torch.add(a, b, out=o)``); B2 ``cast`` in
+  six directions (f32 <-> f16, bf16, e4m3fn) beside ``.to(dtype)`` on
+  the same rows; B3 (``fp8_scale``, its amax step, and ``fp8_quant``),
+  B4 ``fp8_dequant``, B5 ``bs_quant``, B6 ``bs_dequant`` and B7
+  ``bs_combine`` (e4m3fn, block 128); and ``dst.copy_(src)`` over the
+  same 8 x 8 Mi f32, the stream rate the card reaches on a plain copy.
+  Each is the median device time of 20 launches behind the GPU sleep,
+  beside its bound (the bytes it must move over 3.35 TB/s). The ptxas
+  report of the B1 and B2 kernels is printed from the build log;
 - B9 (``flash_attention_fwd``, bf16, causal, one key block; H=32,
   Hkv=8, D=128) at B=4, S=128 and S=512, and B12 single-token decode
   (``flash_decode``, bf16 and f32) at B=4, kv_len 2047 of T=4096: the
@@ -21,8 +40,11 @@ card's name and power limit and:
   (median of 3 after one warm-up), then one more call under
   torch.profiler: its kernel time, and B9's share of it.
 
-It uses only the entry points every version of the port has, and it
-needs CUDA: without it, it exits with 1 and prints nothing.
+It uses only the entry points every version of the port has
+(``ops.combine.combine``, ``ops.compression.cast``, ``fp8_scale``,
+``fp8_quant``, ``fp8_dequant``, ``bs_quant``, ``bs_dequant``,
+``bs_combine``, ``ops.attention``, ``models.Llama``), and it needs CUDA:
+without it, it exits with 1 and prints nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +57,8 @@ import sys
 import time
 
 SEED = 20261017
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+PARTS = ("all", "stream", "model")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -58,19 +82,119 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
-def one(tree: str) -> dict:
-    """The measurements of one tree's port (in this process)."""
-    sys.path.insert(0, os.path.abspath(tree))
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of every B1 and B2 kernel instantiation
+    (mangled name -> [registers, spill bytes]) from nvcc's -Xptxas -v."""
+    import re
+    rep, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            keep = (re.search(r"\d(combine|cast)_", name)
+                    and "bs_combine" not in name)
+            name = name if keep else None
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            rep.setdefault(name, [0, 0])[0] = int(m.group(1))
+        elif name and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            rep.setdefault(name, [0, 0])[1] = int(m.group(1)) + int(
+                m.group(2))
+    return rep
+
+
+def timed(ms: float, nbytes: int, library_ms: float | None = None) -> dict:
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"ms": ms, "bound_ms": bound, "pct_of_bound": 100 * bound / ms}
+    if library_ms is not None:
+        rec["library_ms"] = library_ms
+        rec["vs_library"] = ms / library_ms
+    return rec
+
+
+def stream_part(out: dict) -> None:
+    """B1-B7 and a plain copy at the ring's hop shape (module docstring)."""
+    import torch
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops import compression as C
+    from accl_tpu_torch.ops.combine import combine
+    W, c = 8, 8 << 20
+    N = W * c
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    _build.library()
+    out["ptxas"] = ptxas_report(_build.build_log)
+    src = torch.randn(W, c, device="cuda", generator=g)
+    dst = torch.empty_like(src)
+    out["copy"] = timed(time_ms(lambda: dst.copy_(src)), 8 * N)
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        a = torch.randn(W, c, device="cuda", generator=g).to(dt)
+        b = torch.randn(W, c, device="cuda", generator=g).to(dt)
+        ra, rb = list(a), list(b)
+        fa, fb = a.view(-1), b.view(-1)
+        out[f"combine_sum_{name}"] = timed(
+            time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=ra)),
+            3 * a.element_size() * N,
+            time_ms(lambda: torch.add(fa, fb, out=fa)))
+        if name == "f32":
+            rd = list(dst)
+            fd = dst.view(-1)
+            out["combine_sum_f32_out"] = timed(
+                time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=rd)),
+                3 * 4 * N, time_ms(lambda: torch.add(fa, fb, out=fd)))
+        del a, b, ra, rb, fa, fb
+    rs = list(src)
+    for wire, name in ((torch.float16, "f16"), (torch.bfloat16, "bf16"),
+                       (torch.float8_e4m3fn, "e4m3")):
+        nbytes = (4 + torch.empty((), dtype=wire).element_size()) * N
+        low = torch.empty(W, c, dtype=wire, device="cuda")
+        rl, rd = list(low), list(dst)
+        out[f"cast_f32_{name}"] = timed(
+            time_ms(lambda: C.cast(rs, wire, rl)), nbytes,
+            time_ms(lambda: src.to(wire)))
+        out[f"cast_{name}_f32"] = timed(
+            time_ms(lambda: C.cast(rl, torch.float32, rd)), nbytes,
+            time_ms(lambda: low.to(torch.float32)))
+        del low, rl, rd
+    wire, block = "float8_e4m3fn", 128
+    nb = c // block
+    rd = list(dst)
+    sc = list(torch.empty(W, 1, device="cuda"))
+    iv = list(torch.empty(W, 1, device="cuda"))
+    q8 = list(torch.empty(W, c, dtype=torch.float8_e4m3fn, device="cuda"))
+    out["fp8_scale"] = timed(time_ms(lambda: C.fp8_scale(rs, wire, sc, iv)),
+                             4 * N + 8 * W)
+    out["fp8_quant"] = timed(time_ms(lambda: C.fp8_quant(rs, iv, wire, q8)),
+                             5 * N + 4 * W)
+    out["fp8_dequant"] = timed(
+        time_ms(lambda: C.fp8_dequant(q8, sc, wire, rd)), 5 * N + 4 * W)
+    q = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
+    s = list(torch.empty(W, nb, device="cuda"))
+    q2 = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
+    s2 = list(torch.empty(W, nb, device="cuda"))
+    other = list(torch.randn(W, c, device="cuda", generator=g))
+    out["bs_quant"] = timed(
+        time_ms(lambda: C.bs_quant(rs, wire, block, q, s)),
+        5 * N + 4 * N // block)
+    out["bs_dequant"] = timed(
+        time_ms(lambda: C.bs_dequant(q, s, wire, block, rd)),
+        5 * N + 4 * N // block)
+    out["bs_combine"] = timed(
+        time_ms(lambda: C.bs_combine(q, s, other, ReduceFunc.SUM, wire,
+                                     block, q2, s2)),
+        2 * (N + 4 * N // block) + 4 * N)
+    del src, dst, rs, rd, sc, iv, q8, q, s, q2, s2, other
+    torch.cuda.empty_cache()
+
+
+def model_part(out: dict) -> None:
+    """B9, B12 decode and the 4x512 forward (module docstring)."""
     import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
     from accl_tpu_torch.models import Llama, LlamaConfig
     from accl_tpu_torch.ops import attention as A
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    out = {"tree": tree, "card": smi.stdout.strip().splitlines()[0],
-           "module": A.__file__}
+    out["module"] = A.__file__
     g = torch.Generator(device="cuda").manual_seed(SEED)
     H, Hkv, D, B = 32, 8, 128, 4
     for S in (128, 512):
@@ -127,6 +251,19 @@ def one(tree: str) -> dict:
     out["forward_4x512"] = {"host_ms": statistics.median(ts),
                             "kernel_ms": kern, "b9_ms": b9,
                             "b9_launches": launches}
+
+
+def one(tree: str, part: str) -> dict:
+    """The measurements of one tree's port (in this process)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    out = {"tree": tree, "card": smi.stdout.strip().splitlines()[0]}
+    if part in ("all", "stream"):
+        stream_part(out)
+    if part in ("all", "model"):
+        model_part(out)
     return out
 
 
@@ -135,12 +272,19 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_compare: CUDA is not available", file=sys.stderr)
         return 1
+    part = "all"
+    if argv[:1] == ["--part"]:
+        part, argv = argv[1], argv[2:]
+    if part not in PARTS:
+        print(f"chip_compare: --part is one of {PARTS}", file=sys.stderr)
+        return 2
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(argv[1])))
+        print(json.dumps(one(argv[1], part)))
         return 0
     for tree in argv or ["."]:
         run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--one", tree], capture_output=True, text=True)
+                              "--part", part, "--one", tree],
+                             capture_output=True, text=True)
         print(run.stdout, end="")
         if run.returncode:
             print(run.stderr[-4000:], file=sys.stderr)

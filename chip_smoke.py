@@ -15,7 +15,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    wire dtype, func and block size; every 16- and 8-bit code for the
    up-casts) and at the main path's hop shape (8 rank rows of one 8 Mi-
    element ring chunk), where each is timed with CUDA events (median of
-   many launches after warm-up).
+   many launches after warm-up). B1 and B2 (one tile a block,
+   ``csrc/stream.cuh``) first show 128-bit global accesses in their
+   SASS and no ptxas spills, then meet the edges of their tiles: row
+   lengths 0, 1, one step - 1, one tile - 1, one tile, one tile + 1 and
+   one past what the card holds at once, 1, 7, 8, 32 and 33 rows, a
+   second operand or output one element off, out aliasing a and b; all
+   bitwise. B1's record times the ring's out-of-place call; B1 in place
+   in f32 and bf16 is timed beside ``torch.add(a, b, out=a)``, B2 in six
+   directions beside ``.to(dtype)``, each with its bound, beside the
+   ``copy_`` rate of the same bytes.
 3. Main path: ``cuda_world(8)`` with device-resident buffers of 64 Mi
    fp32 per rank, through ``ACCL``: ring allreduce, reduce_scatter and
    allgather (fp32), the fp8-e4m3 block-scaled (block 128) ring
@@ -31,7 +40,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    launch count must rise during this run.
 4. Where the time goes: each call of the main path once more under
    torch.profiler, device time summed per kernel family, beside the
-   call's host-clock time (the rest is the device's idle share).
+   call's host-clock time (the rest is the device's idle share); then
+   the combine (B1) and cast (B2) families' ms per call on one line.
 5. Attention kernels: B8 (``attn_fwd``), B9 (``attn_fwd_single``) and
    B12 (``attn_decode``, ``attn_prefill``) against their plain versions
    on the same CUDA inputs: the CPU tests' shapes, single-block B9 cases
@@ -371,6 +381,118 @@ def corpus_lanes(rng):
           "unaligned rows)")
 
 
+COMBINE_DTYPES = ("float32", "float16", "bfloat16", "float64", "int32",
+                  "int64", "int8")
+CAST_PAIRS = tuple((a, b) for w in LANE_WIRES
+                   for a, b in (("float32", w), (w, "float32")))
+EDGE_ROWS = (1, 7, 8, 32, 33)        # 33: two launches of 32 and 1 row
+
+
+# B1's and B2's tiles (csrc/stream.cuh: STREAM_THREADS thread-steps a
+# block; a step is 16 bytes of each B1 operand, CAST_STEP elements of B2)
+STREAM_THREADS = 256
+CAST_STEP = 4
+
+
+def combine_step(itemsize: int) -> int:
+    """Elements of one B1 thread-step: a 16-byte vector."""
+    return 16 // itemsize
+
+
+def edge_lengths(vec: int, tile: int, rows: int) -> list:
+    """Row lengths at the tiles' edges: 0, 1, one vector step - 1, one
+    tile - 1, one tile, one tile + 1, and one that gives a launch of
+    ``rows`` rows more blocks than the card holds at once (132 SMs of at
+    most 8 such blocks) with a ragged last tile."""
+    return [0, 1, vec - 1, tile - 1, tile, tile + 1,
+            (2048 // rows + 1) * tile - 3]
+
+
+def stream_operands(make, nrows: int, n: int, shift: int = 0):
+    """``nrows`` rows of ``n`` elements as views into one buffer, as the
+    ring's chunks are (a row is 16-byte aligned only where its offset
+    is), each starting ``shift`` elements into its slot."""
+    buf = make((nrows, n + shift))
+    return [r[shift:] for r in buf]
+
+
+def edge_values(rng, shape):
+    """f32 edge-corpus values of ``shape`` on the card, at any size: the
+    tail of a corpus longer than its leading zero block."""
+    import torch
+    n = shape[0] * shape[1]
+    x = edge_corpus(rng, n + 8192)[8192:]
+    return torch.from_numpy(x).cuda().view(shape)
+
+
+def stream_edges(rng):
+    """B1 and B2 at the edges of their tiles (csrc/stream.cuh), bitwise
+    against their plain versions: row lengths 0, 1, one vector step - 1,
+    one tile - 1, one tile, one tile + 1 and one past what the card
+    holds at once; nrows 1, 7, 8, 32 and 33 (two launches); rows whose
+    second operand (B1) or output (B2) is one element off; out aliasing
+    a and aliasing b."""
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops import compression as C
+    from accl_tpu_torch.ops.combine import combine, combine_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    cases = 0
+    for di, name in enumerate(COMBINE_DTYPES):
+        dt = getattr(torch, name)
+        vec = combine_step(dt.itemsize)
+
+        def make(shape, dt=dt):
+            if dt.is_floating_point:
+                return edge_values(rng, shape).to(dt)
+            info = torch.iinfo(dt)
+            return torch.randint(info.min, info.max, shape, dtype=dt,
+                                 device="cuda", generator=gen)
+
+        for ni, nrows in enumerate(EDGE_ROWS):
+            func = ReduceFunc((di + ni) % 4)
+            for n in edge_lengths(vec, STREAM_THREADS * vec, min(nrows, 32)):
+                what = f"combine edge {name} {func.name} {nrows}x{n}"
+                a = stream_operands(make, nrows, n)
+                b = stream_operands(make, nrows, n, shift=1)
+                ref = combine_ref(a, b, func)
+                check_rows(combine(a, b, func), ref, what)
+                a2 = [t.clone() for t in a]
+                combine(a2, b, func, out=a2)
+                check_rows(a2, ref, what + " out=a")
+                b2 = [t.clone() for t in b]
+                combine(a, b2, func, out=b2)
+                check_rows(b2, ref, what + " out=b")
+                cases += 1
+    for src, dst in CAST_PAIRS:
+        sdt, ddt = getattr(torch, src), getattr(torch, dst)
+
+        def make(shape, sdt=sdt):
+            if sdt == torch.float32:
+                return edge_values(rng, shape)
+            if sdt.itemsize == 1:           # every code, NaNs included
+                return torch.randint(0, 1 << 8, shape, dtype=torch.uint8,
+                                     device="cuda", generator=gen).view(sdt)
+            return torch.randint(-(1 << 15), 1 << 15, shape,
+                                 dtype=torch.int16, device="cuda",
+                                 generator=gen).view(sdt)
+
+        for nrows in EDGE_ROWS:
+            for n in edge_lengths(CAST_STEP, STREAM_THREADS * CAST_STEP,
+                                  min(nrows, 32)):
+                what = f"cast edge {src}->{dst} {nrows}x{n}"
+                x = stream_operands(make, nrows, n)
+                ref = C.cast_ref(x, ddt)
+                check_rows(C.cast(x, ddt), ref, what)
+                y = stream_operands(lambda shape: torch.empty(
+                    shape, dtype=ddt, device="cuda"), nrows, n, shift=1)
+                check_rows(C.cast(x, ddt, y), ref, what + " output off")
+                cases += 1
+    print(f"stream edges: B1 and B2 bitwise over {cases} (dtype or lane "
+          f"pair, nrows, length) cases, aligned, one element off and in "
+          f"place")
+
+
 def kernel_records():
     """Each kernel at the main path's shape (W rows of one 32 MiB ring
     chunk: the per-hop launch), against its plain version, timed."""
@@ -397,19 +519,45 @@ def kernel_records():
                      "bound_ms": bms, "bound_by": by,
                      "library_ms": library_ms})
         print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"bound {bms:.4f} ms by {by}"
+              f"bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f} % of it"
               + (f", library {library_ms:.4f} ms" if library_ms else "")
               + f"), max abs err vs plain {err}")
+
+    copy_ms = time_ms(lambda: out.copy_(a))
+    print(f"copy_ ceiling: {copy_ms:.4f} ms for 8 x 8 Mi f32 (bound "
+          f"{bound_ms(8 * N, 0)[0]:.4f} ms)")
+
+    def variant(ms, library_ms, nbytes):
+        bms = bound_ms(nbytes, 0)[0]
+        return {"ms": ms, "library_ms": library_ms, "bound_ms": bms,
+                "pct_of_bound": 100 * bms / ms}
 
     err = check_rows(combine(ra, rb, ReduceFunc.SUM, out=ro),
                      combine_ref(ra, rb, ReduceFunc.SUM), "combine main")
     flat_a, flat_b = a.view(-1), b.view(-1)
+    library_ms = time_ms(lambda: torch.add(flat_a, flat_b, out=flat_a))
+    # out of place, as the ring calls it (parallel/collectives.py)
     rec("combine", "accl_tpu_torch/csrc/combine.cu",
         "accl_tpu/ops/combine.py:71", err,
         time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=ro)),
         time_ms(lambda: combine_ref(ra, rb, ReduceFunc.SUM, out=ro)),
-        3 * 4 * N, N,
-        library_ms=time_ms(lambda: torch.add(flat_a, flat_b, out=flat_a)))
+        3 * 4 * N, N, library_ms=library_ms)
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    r16, s16 = list(a16), list(b16)
+    check_rows(combine(r16, s16, ReduceFunc.SUM),
+               combine_ref(r16, s16, ReduceFunc.SUM), "combine main bf16")
+    f16a, f16b = a16.view(-1), b16.view(-1)
+    # in place beside torch.add(out=a): the same call on the same bytes
+    recs[-1]["variants"] = {
+        "SUM float32 in place": variant(
+            time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=ra)),
+            library_ms, 3 * 4 * N),
+        "SUM bfloat16 in place": variant(
+            time_ms(lambda: combine(r16, s16, ReduceFunc.SUM, out=r16)),
+            time_ms(lambda: torch.add(f16a, f16b, out=f16a)), 3 * 2 * N)}
+    recs[-1]["copy_ceiling_ms"] = copy_ms
+    del a16, b16, r16, s16, f16a, f16b
+    a.copy_(torch.randn(W, c, device="cuda", generator=g))
 
     q = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
     s = list(torch.empty(W, nb, device="cuda"))
@@ -455,6 +603,31 @@ def kernel_records():
         time_ms(lambda: C.cast_ref(ra, torch.float16, h), reps=5),
         6 * N, N, library_ms=time_ms(lambda: flat_a.to(torch.float16)))
     del h
+    variants = {}
+    for wire in (torch.float16, torch.bfloat16, torch.float8_e4m3fn):
+        low = torch.empty(W, c, dtype=wire, device="cuda")
+        rl, flat_l = list(low), low.view(-1)
+        nbytes = (4 + wire.itemsize) * N
+        check_rows(C.cast(ra, wire, rl), C.cast_ref(ra, wire),
+                   f"cast main f32->{wire}")
+        check_rows(C.cast(rl, torch.float32, ro),
+                   C.cast_ref(rl, torch.float32), f"cast main {wire}->f32")
+        name = str(wire).split(".")[1]
+        if wire != torch.float16:
+            variants[f"float32->{name}"] = variant(
+                time_ms(lambda: C.cast(ra, wire, rl)),     # noqa: B023
+                time_ms(lambda: flat_a.to(wire)), nbytes)  # noqa: B023
+        variants[f"{name}->float32"] = variant(
+            time_ms(lambda: C.cast(rl, torch.float32, ro)),   # noqa: B023
+            time_ms(lambda: flat_l.to(torch.float32)), nbytes)  # noqa: B023
+        del low, rl, flat_l
+    recs[-1]["variants"] = variants
+    recs[-1]["copy_ceiling_ms"] = copy_ms
+    for r in recs:
+        for k, v in r.get("variants", {}).items():
+            print(f"kernel {r['name']} {k}: {v['ms']:.4f} ms (library "
+                  f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms, "
+                  f"{v['pct_of_bound']:.1f} % of bound)")
 
     sc = list(torch.empty(W, 1, device="cuda"))
     iv = list(torch.empty(W, 1, device="cuda"))
@@ -846,6 +1019,7 @@ def main_path(recs):
                   f"{wire_bytes[name] // W} logical wire bytes per rank")
 
         # -- where the time goes ---------------------------------------------
+        streams = {}
         for name in calls:
             fams = device_ms_by_family(lambda: drive(name))
             if not fams:
@@ -857,6 +1031,9 @@ def main_path(recs):
                   f"{timing[name]:.3f} ms call, idle share "
                   f"{1 - busy / timing[name]:.3f}; " + ", ".join(
                       f"{f} {ms:.3f} ms" for f, ms in sorted(fams.items())))
+            streams[name] = {f: round(fams[f], 4) for f in ("combine", "cast")
+                             if f in fams}
+        print(f"B1 combine and B2 cast families, ms per call: {streams}")
         return timing
     finally:
         for a in accls:
@@ -1663,12 +1840,10 @@ def hold_bwd_outputs(args, outs, what: str) -> tuple[float, float]:
     return w
 
 
-def wgmma_kernels_checked():
-    """The bf16 route's kernels in the built library (B8, B9 and B12's
-    prefill route, B10, B11): their SASS holds HGMMA (Hopper's warpgroup
-    MMA: the tensor cores) and ptxas reports no spills. Prints both, and
-    each instantiation's registers by head dim; fails otherwise. Then the
-    split-KV decode kernels' registers and spill bytes (printed)."""
+def sass_and_ptxas():
+    """The built library's SASS, one string per function (its first line
+    the mangled name), and ptxas's report of each kernel from the build
+    log: mangled name -> [registers, spill bytes]."""
     import re
     import shutil
     from accl_tpu_torch import _build
@@ -1677,7 +1852,7 @@ def wgmma_kernels_checked():
                           capture_output=True, text=True, timeout=300)
     need(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
     funcs = re.split(r"\n\s*Function : ", sass.stdout)[1:]
-    ptx = {}       # kernel -> (registers, spill bytes) per instantiation
+    ptx = {}
     name = None
     for ln in _build.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -1691,6 +1866,58 @@ def wgmma_kernels_checked():
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             ptx.setdefault(name, [0, 0])[0] = int(m.group(1))
+    return funcs, ptx
+
+
+# B1 and B2's stream kernels (csrc/stream.cuh): the mangled names hold the
+# name's length before it, which keeps bs_combine_kernel out
+STREAM_KERNELS = {"combine": r"\d+combine_kernel", "cast": r"\d+cast_kernel"}
+
+
+def stream_kernels_checked():
+    """B1's and B2's kernels carry 128-bit global accesses (LDG.E...128,
+    STG.E...128) where their design puts them: every B1 instantiation
+    loads and stores 16-byte vectors, every B2 instantiation reads or
+    writes its f32 side in 16-byte vectors (the wire codes' side in 8 or
+    4 bytes: a thread-step is 4 elements); ptxas reports no spills for
+    them. Prints the counts and the registers; fails otherwise."""
+    import re
+    funcs, ptx = sass_and_ptxas()
+    ldg, stg = r"LDG\.E(?:\.\w+)*\.128", r"STG\.E(?:\.\w+)*\.128"
+    for name, pat in STREAM_KERNELS.items():
+        bodies = {f.split("\n", 1)[0].strip(): f for f in funcs
+                  if re.search(pat, f.split("\n", 1)[0])}
+        need(bodies, f"{name}: no {pat} kernel in the library's SASS")
+        counts = []
+        for head, body in bodies.items():
+            nl, ns = len(re.findall(ldg, body)), len(re.findall(stg, body))
+            # cast_kernel<SRC, DST>: lane 0 is f32
+            m = re.search(r"cast_kernelILi(\d)ELi(\d)E", head)
+            want_l = m is None or m.group(1) == "0"
+            want_s = m is None or m.group(2) == "0"
+            need((nl > 0 or not want_l) and (ns > 0 or not want_s),
+                 f"{head}: 128-bit loads {nl}, stores {ns}")
+            counts.append((nl, ns))
+        info = {k: v for k, v in ptx.items() if re.search(pat, k)}
+        need(len(info) == len(bodies),
+             f"{name}: {len(info)} ptxas reports for {len(bodies)} kernels")
+        spills = {k: v for k, v in info.items() if v[1]}
+        need(not spills, f"{name}: ptxas spills {spills}")
+        regs = [v[0] for v in info.values()]
+        print(f"{name}_kernel: {len(bodies)} instantiations, 128-bit "
+              f"(LDG, STG) per instantiation {sorted(set(counts))}; ptxas "
+              f"registers {min(regs)}-{max(regs)}, no spills")
+
+
+def wgmma_kernels_checked():
+    """The bf16 route's kernels in the built library (B8, B9 and B12's
+    prefill route, B10, B11): their SASS holds HGMMA (Hopper's warpgroup
+    MMA: the tensor cores) and ptxas reports no spills. Prints both, and
+    each instantiation's registers by head dim; fails otherwise. Then the
+    split-KV decode kernels' registers and spill bytes (printed)."""
+    import re
+    from accl_tpu_torch import _build
+    funcs, ptx = sass_and_ptxas()
     for kern in WGMMA_KERNELS:
         bodies = [f for f in funcs if kern in f.split("\n", 1)[0]]
         need(bodies, f"{kern}: not in the library's SASS")
@@ -2125,6 +2352,8 @@ def main() -> int:
     corpus_combine(rng)
     corpus_codec(rng)
     corpus_lanes(rng)
+    stream_kernels_checked()
+    stream_edges(rng)
     recs = kernel_records()
     phase("phases 3-4: collectives main path")
     main_path(recs)
