@@ -11,16 +11,16 @@
 //   FLT_MIN <= s < inf, q = encode(x * (1/s)); x' = float(q) * s.
 //
 // Bound on the H100: bytes (a handful of operations per 5 bytes moved).
-// Design: one warp per scale block, grid-stride over the blocks of every
-// rank row. Each lane takes 4 consecutive elements (one 16-byte load, one
-// 4-byte code store) per step, so the warp covers 128 elements per step.
-// B5 and B7 read the block twice: once for the amax, once to encode;
-// the second read hits L1/L2. B7 recomputes the f32 partial in the
-// second pass rather than storing it: the partial never reaches memory.
+// B5 and B6: one warp per scale block, grid-stride over the blocks of
+// every rank row. Each lane takes 4 consecutive elements (one 16-byte
+// load, one 4-byte code store) per step, so the warp covers 128 elements
+// per step. B5 reads the block twice: once for the amax, once to encode;
+// the second read hits L1/L2. B7 is a one-pass tile kernel: its own
+// section below says how, and why it may use the hardware's fp8 cvt.
 //
 // Bit-exactness with the reference: every division is __fdiv_rn, every
 // product __fmul_rn, every sum __fadd_rn, and the library is built with
-// --fmad=false. fp8 is encoded with integer round-to-nearest-even on the
+// --fmad=false. B5 encodes fp8 with integer round-to-nearest-even on the
 // f32 bits (common.cuh `encode`), never with the hardware cvt, whose
 // satfinite form clamps where the reference makes NaN (e4m3fn) or inf
 // (e5m2). A ragged last block reads zeros past the payload end:
@@ -156,63 +156,210 @@ __global__ void bs_dequant_kernel(Rows q, Rows s, MutRows o, long long n,
 }
 
 // -- B7 ---------------------------------------------------------------------
+//
+// One block of BS_THREADS threads for each tile of a row, on a (tiles,
+// rows) grid as csrc/stream.cuh launches B1 and B2: no grid-stride loop
+// and no cap. A thread-step is BS_STEP consecutive elements (one 16-byte
+// load of `other`, one 4-byte load and store of codes); a tile is one
+// step of every thread (BS_TILE elements), or S = block / BS_TILE steps
+// when a scale block is larger, so a tile always holds whole scale
+// blocks. Element j of thread t's step k is e0 + k * BS_TILE + BS_STEP *
+// t + j, and its scale block is that index >> log2(block): no index is
+// divided at run time.
+//
+// One pass: each element is loaded, decoded and combined once, into
+// registers (acc). The requant mode takes the amax from those registers
+// (segmented shuffles over block / BS_STEP lanes for blocks of at most
+// 128; through shared memory, one barrier, for larger ones), computes
+// the block's scale and its inverse once, encodes and stores. Positions
+// past n stay out of the amax and are not stored.
+//
+// The encoder: in a scale block whose scale is good (FLT_MIN <= s < inf)
+// every acc * inv is finite and at most qmax (1 + 3 * 2^-24), so the
+// hardware's conversion (cvt.rn.satfinite.e4m3x2 / .e5m2x2, two values
+// an instruction; int8 by round-to-nearest-even to int, no clamp needed)
+// gives the integer encoder's codes, ties and denormals included. A
+// block whose scale fell back to 1 (amax NaN, inf, 0 or below FLT_MIN *
+// qmax) can hold NaN, inf or values past qmax, which satfinite would
+// clamp: it keeps common.cuh's `encode`. The choice is made once per
+// scale block.
 
-template <int WIRE, int F>
-__device__ __forceinline__ void combine4(const uint8_t* pq, const float* px,
-                                         long long i, long long n, bool vq,
-                                         bool vx, float sc, float acc[4]) {
-  uint32_t c[4];
-  float x[4];
-  load4q(pq, i, n, vq, c);
-  load4(px, i, n, vx, x);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    acc[k] = apply_f32<F>(x[k], __fmul_rn(decode(c[k], WIRE), sc));
+#define BS_THREADS 256
+#define BS_STEP 4
+#define BS_TILE (BS_THREADS * BS_STEP)
+
+// max with NaN propagation (any NaN wins; its bits do not matter: a NaN
+// amax gives the scale 1, as amax_step's does)
+__device__ __forceinline__ float nan_max_abs(float m, float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(m), "f"(fabsf(v)));
+  return r;
 }
 
-template <int WIRE, int F, bool REQUANT>
-__global__ void bs_combine_kernel(Rows q, Rows s, Rows other, MutRows q2,
-                                  MutRows s2, MutRows out, long long n,
-                                  int block, float qmax) {
-  const int r = blockIdx.y;
-  const uint8_t* pq = static_cast<const uint8_t*>(q.p[r]);
-  const float* ps = static_cast<const float*>(s.p[r]);
-  const float* px = static_cast<const float*>(other.p[r]);
-  const bool vq = al(pq, 3), vx = al(px, 15);
-  const long long nb = (n + block - 1) / block;
-  WarpGrid g;
-  for (long long blk = g.warp; blk < nb; blk += g.nwarps) {
-    const long long base = blk * block;
-    const float sc = ps[blk];
-    float acc[4];
-    if (!REQUANT) {
-      float* po = static_cast<float*>(out.p[r]);
-      for (int j = 4 * g.lane; j < block; j += 128) {
-        combine4<WIRE, F>(pq, px, base + j, n, vq, vx, sc, acc);
-        store4f(po, base + j, n, al(po, 15), acc);
-      }
-      continue;
-    }
-    uint8_t* pq2 = static_cast<uint8_t*>(q2.p[r]);
-    float* ps2 = static_cast<float*>(s2.p[r]);
-    float m = 0.0f;
-    for (int j = 4 * g.lane; j < block; j += 128) {
-      combine4<WIRE, F>(pq, px, base + j, n, vq, vx, sc, acc);
+// four products of a good scale block as one word of codes (element 0 in
+// the low byte)
+template <int WIRE>
+__device__ __forceinline__ uint32_t encode4_good(const float v[4]) {
+  if (WIRE == W_INT8) {
+    uint32_t w = 0;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (base + j + k < n) m = amax_step(m, acc[k]);
-    }
-    const float sc2 = scale_of(warp_amax(m), qmax);
-    const float inv = __fdiv_rn(1.0f, sc2);
-    for (int j = 4 * g.lane; j < block; j += 128) {
-      uint32_t c[4];
-      combine4<WIRE, F>(pq, px, base + j, n, vq, vx, sc, acc);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) c[k] = encode(__fmul_rn(acc[k], inv), WIRE);
-      store4q(pq2, base + j, n, al(pq2, 3), c);
-    }
-    if (g.lane == 0) ps2[blk] = sc2;
+    for (int k = 0; k < 4; ++k)
+      w |= (static_cast<uint32_t>(__float2int_rn(v[k])) & 0xFFu) << (8 * k);
+    return w;
   }
+  // cvt's first source lands in the upper byte
+  unsigned short lo, hi;
+  if (WIRE == W_E4M3) {
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(lo) : "f"(v[1]), "f"(v[0]));
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(hi) : "f"(v[3]), "f"(v[2]));
+  } else {
+    asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;" : "=h"(lo) : "f"(v[1]), "f"(v[0]));
+    asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;" : "=h"(hi) : "f"(v[3]), "f"(v[2]));
+  }
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// thread-steps of one tile: one, or as many as a scale block larger than
+// a tile needs
+static int bs_steps(int block) { return block > BS_TILE ? block / BS_TILE : 1; }
+
+// The tile's elements, decoded and combined: acc[k][j] = F(other, f32(q) *
+// s) of element j of step k. FULL: a whole tile of rows aligned for the
+// vector accesses; else bounds- and alignment-checked, zeros past n.
+template <int WIRE, int F, int S, bool FULL>
+__device__ __forceinline__ void combine_tile(const uint8_t* pq,
+                                             const float* ps,
+                                             const float* px, long long e0,
+                                             long long n, int bshift,
+                                             float acc[S][4]) {
+  uint32_t c[S][4];
+  float x[S][4], sc[S];
+  const bool vq = al(pq, 3), vx = al(px, 15);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const long long i = e0 + k * BS_TILE + BS_STEP * threadIdx.x;
+    if (FULL) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(pq + i);
+      const float4 f = *reinterpret_cast<const float4*>(px + i);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[k][j] = (w >> (8 * j)) & 0xFFu;
+      x[k][0] = f.x; x[k][1] = f.y; x[k][2] = f.z; x[k][3] = f.w;
+      sc[k] = ps[(S > 1 ? e0 : i) >> bshift];
+    } else {
+      load4q(pq, i, n, vq, c[k]);
+      load4(px, i, n, vx, x[k]);
+      sc[k] = i < n ? ps[(S > 1 ? e0 : i) >> bshift] : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[k][j] = apply_f32<F>(x[k][j], __fmul_rn(decode(c[k][j], WIRE), sc[k]));
+}
+
+// The amax of each thread's scale block, from each thread's own m.
+template <int S>
+__device__ __forceinline__ float tile_amax(float m, int bshift, float* red) {
+  const int lanes = S > 1 ? BS_THREADS : 1 << (bshift - 2);  // block / BS_STEP
+  if (lanes <= 32) {
+    for (int off = lanes >> 1; off; off >>= 1)
+      m = nan_max_abs(m, __shfl_xor_sync(0xffffffffu, m, off));
+    return m;
+  }
+#pragma unroll
+  for (int off = 16; off; off >>= 1)
+    m = nan_max_abs(m, __shfl_xor_sync(0xffffffffu, m, off));
+  const int warp = threadIdx.x >> 5, wpb = lanes >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = m;
+  __syncthreads();
+  const int w0 = warp & ~(wpb - 1);
+  m = red[w0];
+  for (int w = 1; w < wpb; ++w) m = nan_max_abs(m, red[w0 + w]);
+  return m;
+}
+
+template <int WIRE, int F, bool REQUANT, int S, bool FULL>
+__device__ __forceinline__ void bs_combine_tile(
+    const Rows& q, const Rows& s, const Rows& other, const MutRows& q2,
+    const MutRows& s2, const MutRows& out, long long n, int bshift,
+    float qmax, long long e0) {
+  const int r = blockIdx.y;
+  float acc[S][4];
+  combine_tile<WIRE, F, S, FULL>(static_cast<const uint8_t*>(q.p[r]),
+                                 static_cast<const float*>(s.p[r]),
+                                 static_cast<const float*>(other.p[r]), e0,
+                                 n, bshift, acc);
+  if (!REQUANT) {
+    float* po = static_cast<float*>(out.p[r]);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const long long i = e0 + k * BS_TILE + BS_STEP * threadIdx.x;
+      if (FULL)
+        *reinterpret_cast<float4*>(po + i) =
+            make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      else
+        store4f(po, i, n, al(po, 15), acc[k]);
+    }
+    return;
+  }
+  __shared__ float red[BS_THREADS / 32];
+  float m = 0.0f;
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (FULL || e0 + k * BS_TILE + BS_STEP * threadIdx.x + j < n)
+        m = nan_max_abs(m, acc[k][j]);
+  m = tile_amax<S>(m, bshift, red);
+  const float s0 = __fdiv_rn(m, qmax);
+  const bool good = s0 >= __uint_as_float(0x00800000u) &&
+                    s0 < __uint_as_float(0x7F800000u);
+  const float sc2 = good ? s0 : 1.0f;
+  const float inv = __fdiv_rn(1.0f, sc2);
+  uint8_t* pq2 = static_cast<uint8_t*>(q2.p[r]);
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const long long i = e0 + k * BS_TILE + BS_STEP * threadIdx.x;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = __fmul_rn(acc[k][j], inv);
+    uint32_t w;
+    if (good) {
+      w = encode4_good<WIRE>(v);
+    } else {
+      w = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w |= encode(v[j], WIRE) << (8 * j);
+    }
+    if (FULL) {
+      *reinterpret_cast<uint32_t*>(pq2 + i) = w;
+    } else {
+      const uint32_t c[4] = {w & 0xFFu, (w >> 8) & 0xFFu, (w >> 16) & 0xFFu,
+                             w >> 24};
+      store4q(pq2, i, n, al(pq2, 3), c);
+    }
+  }
+  // a scale block's first thread stores its scale
+  const long long i0 = e0 + BS_STEP * threadIdx.x;
+  if ((i0 & ((1LL << bshift) - 1)) == 0 && i0 < n)
+    static_cast<float*>(s2.p[r])[i0 >> bshift] = sc2;
+}
+
+template <int WIRE, int F, bool REQUANT, int S>
+__global__ void __launch_bounds__(BS_THREADS)
+    bs_combine_kernel(Rows q, Rows s, Rows other, MutRows q2, MutRows s2,
+                      MutRows out, long long n, int bshift, float qmax) {
+  const int r = blockIdx.y;
+  const long long e0 = static_cast<long long>(blockIdx.x) * BS_TILE * S;
+  const bool aligned = al(q.p[r], 3) && al(other.p[r], 15) &&
+                       (REQUANT ? al(q2.p[r], 3) : al(out.p[r], 15));
+  if (aligned && e0 + BS_TILE * S <= n)
+    bs_combine_tile<WIRE, F, REQUANT, S, true>(q, s, other, q2, s2, out, n,
+                                               bshift, qmax, e0);
+  else
+    bs_combine_tile<WIRE, F, REQUANT, S, false>(q, s, other, q2, s2, out, n,
+                                                bshift, qmax, e0);
 }
 
 // -- C entry points -----------------------------------------------------------
@@ -266,30 +413,46 @@ extern "C" int accl_bs_dequant(int wire, int block, int nrows, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int WIRE, int F, bool REQUANT, int S>
+static void launch_tiles(cudaStream_t st, int nrows, const Rows& rq,
+                         const Rows& rs, const Rows& rx, const MutRows& rq2,
+                         const MutRows& rs2, const MutRows& ro, long long n,
+                         int bshift) {
+  constexpr long long TILE = static_cast<long long>(BS_TILE) * S;
+  const dim3 grid(static_cast<unsigned>((n + TILE - 1) / TILE), nrows);
+  bs_combine_kernel<WIRE, F, REQUANT, S><<<grid, BS_THREADS, 0, st>>>(
+      rq, rs, rx, rq2, rs2, ro, n, bshift, qmax_of(WIRE));
+}
+
+// the round-closing mode needs no amax: one step a thread at every block
 template <int WIRE, int F>
-static void launch_combine(int requant, dim3 grid, cudaStream_t st,
-                           const Rows& rq, const Rows& rs, const Rows& rx,
-                           const MutRows& rq2, const MutRows& rs2,
-                           const MutRows& ro, long long n, int block) {
-  const float qm = qmax_of(WIRE);
-  if (requant)
-    bs_combine_kernel<WIRE, F, true><<<grid, 256, 0, st>>>(
-        rq, rs, rx, rq2, rs2, ro, n, block, qm);
-  else
-    bs_combine_kernel<WIRE, F, false><<<grid, 256, 0, st>>>(
-        rq, rs, rx, rq2, rs2, ro, n, block, qm);
+static void launch_combine(int requant, int block, cudaStream_t st,
+                           int nrows, const Rows& rq, const Rows& rs,
+                           const Rows& rx, const MutRows& rq2,
+                           const MutRows& rs2, const MutRows& ro,
+                           long long n) {
+  const int bshift = __builtin_ctz(static_cast<unsigned>(block));
+  if (!requant) {
+    launch_tiles<WIRE, F, false, 1>(st, nrows, rq, rs, rx, rq2, rs2, ro, n, bshift);
+    return;
+  }
+  switch (bs_steps(block)) {
+    case 1: launch_tiles<WIRE, F, true, 1>(st, nrows, rq, rs, rx, rq2, rs2, ro, n, bshift); break;
+    case 2: launch_tiles<WIRE, F, true, 2>(st, nrows, rq, rs, rx, rq2, rs2, ro, n, bshift); break;
+    default: launch_tiles<WIRE, F, true, 4>(st, nrows, rq, rs, rx, rq2, rs2, ro, n, bshift); break;
+  }
 }
 
 template <int WIRE>
-static int combine_func(int func, int requant, dim3 grid, cudaStream_t st,
-                        const Rows& rq, const Rows& rs, const Rows& rx,
-                        const MutRows& rq2, const MutRows& rs2,
-                        const MutRows& ro, long long n, int block) {
+static int combine_func(int func, int requant, int block, cudaStream_t st,
+                        int nrows, const Rows& rq, const Rows& rs,
+                        const Rows& rx, const MutRows& rq2,
+                        const MutRows& rs2, const MutRows& ro, long long n) {
   switch (func) {
-    case F_SUM: launch_combine<WIRE, F_SUM>(requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block); break;
-    case F_MAX: launch_combine<WIRE, F_MAX>(requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block); break;
-    case F_MIN: launch_combine<WIRE, F_MIN>(requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block); break;
-    case F_PROD: launch_combine<WIRE, F_PROD>(requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block); break;
+    case F_SUM: launch_combine<WIRE, F_SUM>(requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n); break;
+    case F_MAX: launch_combine<WIRE, F_MAX>(requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n); break;
+    case F_MIN: launch_combine<WIRE, F_MIN>(requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n); break;
+    case F_PROD: launch_combine<WIRE, F_PROD>(requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -308,10 +471,9 @@ extern "C" int accl_bs_combine(int func, int wire, int block, int requant,
   MutRows rq2 = make_mut_rows(q2, nrows), rs2 = make_mut_rows(s2, nrows),
           ro = make_mut_rows(out, nrows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid = warp_grid((n + block - 1) / block, nrows);
   switch (wire) {
-    case W_INT8: return combine_func<W_INT8>(func, requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block);
-    case W_E4M3: return combine_func<W_E4M3>(func, requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block);
-    default: return combine_func<W_E5M2>(func, requant, grid, st, rq, rs, rx, rq2, rs2, ro, n, block);
+    case W_INT8: return combine_func<W_INT8>(func, requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n);
+    case W_E4M3: return combine_func<W_E4M3>(func, requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n);
+    default: return combine_func<W_E5M2>(func, requant, block, st, nrows, rq, rs, rx, rq2, rs2, ro, n);
   }
 }

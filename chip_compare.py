@@ -25,11 +25,13 @@ card's name and power limit and:
   six directions (f32 <-> f16, bf16, e4m3fn) beside ``.to(dtype)`` on
   the same rows; B3 (``fp8_scale``, its amax step, and ``fp8_quant``),
   B4 ``fp8_dequant``, B5 ``bs_quant``, B6 ``bs_dequant`` and B7
-  ``bs_combine`` (e4m3fn, block 128); and ``dst.copy_(src)`` over the
+  ``bs_combine`` (e4m3fn, block 128, SUM) in its requant mode (a middle
+  hop) and its round-closing mode (``bs_combine_f32``, f32 out, bound
+  9 bytes an element plus scales); and ``dst.copy_(src)`` over the
   same 8 x 8 Mi f32, the stream rate the card reaches on a plain copy.
   Each is the median device time of 20 launches behind the GPU sleep,
   beside its bound (the bytes it must move over 3.35 TB/s). The ptxas
-  report of the B1 and B2 kernels is printed from the build log;
+  report of the B1, B2 and B7 kernels is printed from the build log;
 - B9 (``flash_attention_fwd``, bf16, causal, one key block; H=32,
   Hkv=8, D=128) at B=4, S=128 and S=512, and B12 single-token decode
   (``flash_decode``, bf16 and f32) at B=4, kv_len 2047 of T=4096: the
@@ -83,16 +85,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of every B1 and B2 kernel instantiation
-    (mangled name -> [registers, spill bytes]) from nvcc's -Xptxas -v."""
+    """Registers and spill bytes of every B1, B2 and B7 kernel
+    instantiation (mangled name -> [registers, spill bytes]) from nvcc's
+    -Xptxas -v."""
     import re
     rep, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
-            keep = (re.search(r"\d(combine|cast)_", name)
-                    and "bs_combine" not in name)
+            keep = re.search(r"\d(combine|cast|bs_combine)_kernel", name)
             name = name if keep else None
         elif name and (m := re.search(r"Used (\d+) registers", ln)):
             rep.setdefault(name, [0, 0])[0] = int(m.group(1))
@@ -183,6 +185,10 @@ def stream_part(out: dict) -> None:
         time_ms(lambda: C.bs_combine(q, s, other, ReduceFunc.SUM, wire,
                                      block, q2, s2)),
         2 * (N + 4 * N // block) + 4 * N)
+    out["bs_combine_f32"] = timed(
+        time_ms(lambda: C.bs_combine(q, s, other, ReduceFunc.SUM, wire,
+                                     block, out=rd, requant=False)),
+        9 * N + 4 * N // block)
     del src, dst, rs, rd, sc, iv, q8, q, s, q2, s2, other
     torch.cuda.empty_cache()
 

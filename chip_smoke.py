@@ -21,10 +21,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    lengths 0, 1, one step - 1, one tile - 1, one tile, one tile + 1 and
    one past what the card holds at once, 1, 7, 8, 32 and 33 rows, a
    second operand or output one element off, out aliasing a and b; all
-   bitwise. B1's record times the ring's out-of-place call; B1 in place
-   in f32 and bf16 is timed beside ``torch.add(a, b, out=a)``, B2 in six
-   directions beside ``.to(dtype)``, each with its bound, beside the
-   ``copy_`` rate of the same bytes.
+   bitwise. B7 (one tile a block, ``csrc/bs_codec.cu``) shows 128-bit
+   loads of ``other`` (and round-closing stores) in the SASS of every
+   instantiation and no spills, then meets its own edges in both modes
+   (``bs_edge_cases``): every wire and block size 32-4096, lengths 0,
+   1, 3, one scale block - 1, + 0, + 1 and one tile - 1, + 0, + 1, the
+   same row counts, ``other`` or the code rows one element off, blocks
+   whose amax is NaN, inf, 0, denormal or just above FLT_MIN * qmax,
+   rounding ties; guard bytes around every output row. B1's record times
+   the ring's out-of-place call; B1 in place in f32 and bf16 is timed
+   beside ``torch.add(a, b, out=a)``, B2 in six directions beside
+   ``.to(dtype)``, B7's round-closing mode beside its requant record,
+   each with its bound, beside the ``copy_`` rate of the same bytes.
 3. Main path: ``cuda_world(8)`` with device-resident buffers of 64 Mi
    fp32 per rank, through ``ACCL``: ring allreduce, reduce_scatter and
    allgather (fp32), the fp8-e4m3 block-scaled (block 128) ring
@@ -493,6 +501,151 @@ def stream_edges(rng):
           f"place")
 
 
+# B7's tiles (csrc/bs_codec.cu: BS_THREADS thread-steps of BS_STEP
+# elements a block, S = block / tile steps a thread where a scale block is
+# larger than one step of every thread, so that a tile holds whole scale
+# blocks); every block size the codec takes, its three amax reductions
+# (shuffles within a warp, shared memory, several steps a thread)
+BS_THREADS = 256
+BS_STEP = 4
+BS_BLOCKS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+BS_WIRES = ("int8", "float8_e4m3fn", "float8_e5m2")
+# where the rows lie: all at their slots; `other` one element off (its
+# scalar path); the code rows in and out one byte off
+BS_LAYOUTS = ("aligned", "other off", "codes off")
+# what block 0 of a row holds, rotated over the rows: the edge values as
+# they are; an amax that is NaN, inf, 0 or an f32 denormal (the scale
+# falls back to 1, the integer encoder); a scale just above FLT_MIN (the
+# largest inverse the hardware conversion meets); the wire's rounding
+# ties at scale 1
+BS_KINDS = (None, "nan", "inf", "zero", "denormal", "tiny", "ties")
+# values halfway between two codes of each wire at scale 1, the wire's
+# denormal range included (qmax itself sits in the block to fix s = 1),
+# and f32 denormals of either sign (codes +-0)
+BS_TIES = {"int8": (0.5, 1.5, 2.5, -2.5, 126.5, -0.5, -1e-40),
+           "float8_e4m3fn": (1.0625, 1.1875, -1.0625, 2.0 ** -10,
+                             3 * 2.0 ** -10, -(2.0 ** -10), 432.0, 232.0,
+                             -1e-40, 3e-42),
+           "float8_e5m2": (1.125, 1.375, -1.125, 2.0 ** -17, 3 * 2.0 ** -17,
+                           -(2.0 ** -17), 53248.0, 26624.0, -1e-40, 3e-42)}
+
+
+def bs_tile(block: int) -> int:
+    """Elements of one B7 tile: one step of every thread, or one scale
+    block where that is larger."""
+    return max(BS_THREADS * BS_STEP, block)
+
+
+def bs_edge_lengths(block: int) -> list:
+    """Row lengths at B7's edges: 0, 1, 3 (less than one step), one
+    scale block - 1, + 0 and + 1, one tile - 1, + 0 and + 1."""
+    tile = bs_tile(block)
+    return sorted({0, 1, 3, block - 1, block, block + 1, tile - 1, tile,
+                   tile + 1})
+
+
+def bs_edge_cases() -> list:
+    """(wire, block, nrows, n, func, layout) of B7's tile-edge check:
+    every wire, block size, row count and edge length; the four funcs
+    and the layouts rotated over them, as ``stream_edges`` rotates its
+    funcs. Each case runs both modes (requant and round-closing)."""
+    cases = []
+    for wi, wire in enumerate(BS_WIRES):
+        for bi, block in enumerate(BS_BLOCKS):
+            for ni, nrows in enumerate(EDGE_ROWS):
+                for li, n in enumerate(bs_edge_lengths(block)):
+                    cases.append((wire, block, nrows, n,
+                                  (wi + bi + ni + li) % 4,
+                                  BS_LAYOUTS[(ni + li) % len(BS_LAYOUTS)]))
+    return cases
+
+
+def bs_edge_payload(rng, wire: str, block: int, nrows: int, n: int,
+                    salt: int, device: str = "cuda"):
+    """The f32 rows that are quantized into the received codes, and the
+    local ``other`` rows, (nrows, n) edge values on ``device``; block 0
+    of row r holds BS_KINDS[(r + salt) % len(BS_KINDS)] in ``other``,
+    over a payload of zeros (codes 0: the combined value is func(other,
+    0))."""
+    import torch
+    from accl_tpu_torch.quant import _FLT_MIN, _QMAX
+    x, other = (edge_corpus(rng, nrows * n + 8192)[8192:].reshape(nrows, n)
+                for _ in range(2))
+    b = min(block, n)
+    for r in range(nrows if b else 0):
+        kind = BS_KINDS[(r + salt) % len(BS_KINDS)]
+        if kind is None:
+            continue
+        x[r, :b] = 0.0
+        mag = rng.uniform(1.0, 2.0, b) * rng.choice([-1.0, 1.0], b)
+        if kind == "nan":
+            other[r, b // 2] = np.nan
+        elif kind == "inf":
+            other[r, b - 1] = -np.inf
+        elif kind == "zero":
+            other[r, :b] = 0.0
+        elif kind == "denormal":
+            other[r, :b] = mag * 1e-40
+        elif kind == "tiny":
+            other[r, :b] = mag * (_FLT_MIN * _QMAX[wire])
+        else:
+            ties = BS_TIES[wire]
+            other[r, :b] = [ties[i % len(ties)] for i in range(b)]
+            other[r, 0] = _QMAX[wire]
+    return (torch.from_numpy(x).to(device), torch.from_numpy(other).to(device))
+
+
+def bs_edges(rng):
+    """B7 at the edges of its tiles (csrc/bs_codec.cu), bitwise against
+    ``bs_combine_ref`` in both modes (``bs_edge_cases``): outputs in
+    buffers of their own, with guard bytes around every row that must
+    stay as they were."""
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops import compression as C
+    from accl_tpu_torch.quant import n_blocks
+    cases = bs_edge_cases()
+    for ci, (wire, block, nrows, n, func, layout) in enumerate(cases):
+        func = ReduceFunc(func)
+        what = f"bs_combine edge {wire}/{block} {func.name} {nrows}x{n} {layout}"
+        nb = n_blocks(n, block)
+        x, xo = bs_edge_payload(rng, wire, block, nrows, n, ci)
+        q0, s = C.bs_quant(list(x), wire, block)
+        qs = 1 if layout == "codes off" else 0
+        xs = 1 if layout == "other off" else 0
+        q = stream_operands(lambda shape: torch.empty(
+            shape, dtype=torch.uint8, device="cuda"), nrows, n, shift=qs)
+        other = stream_operands(lambda shape: torch.empty(
+            shape, device="cuda"), nrows, n, shift=xs)
+        for r in range(nrows):
+            q[r].copy_(q0[r])
+            other[r].copy_(xo[r])
+        q2buf = torch.full((nrows, n + qs + 4), 0xA5, dtype=torch.uint8,
+                           device="cuda")
+        s2buf = torch.full((nrows, nb + 1), -7.5, device="cuda")
+        obuf = torch.full((nrows, n + qs + 4), 12345.0, device="cuda")
+        q2 = list(q2buf[:, qs:qs + n])
+        s2 = list(s2buf[:, :nb])
+        out = list(obuf[:, qs:qs + n])
+        C.bs_combine(q, s, other, func, wire, block, q2, s2)
+        C.bs_combine(q, s, other, func, wire, block, out=out, requant=False)
+        rq2, rs2 = C.bs_combine_ref(q, s, other, func, wire, block)
+        check_rows(q2, rq2, what + " codes")
+        check_rows(s2, rs2, what + " scales")
+        check_rows(out, C.bs_combine_ref(q, s, other, func, wire, block,
+                                         requant=False), what + " f32")
+        guard = torch.ones_like(q2buf, dtype=torch.bool)
+        guard[:, qs:qs + n] = False
+        need(bool((q2buf[guard] == 0xA5).all())
+             and bool((s2buf[:, nb] == -7.5).all())
+             and bool((obuf[guard] == 12345.0).all()),
+             f"{what}: a store outside the rows")
+    print(f"bs edges: B7 bitwise in both modes over {len(cases)} (wire, "
+          f"block, nrows, length) cases, {len(BS_BLOCKS)} block sizes, "
+          f"funcs and layouts ({', '.join(BS_LAYOUTS)}) rotated; amax NaN, "
+          f"inf, 0, denormal, just above FLT_MIN and rounding ties")
+
+
 def kernel_records():
     """Each kernel at the main path's shape (W rows of one 32 MiB ring
     chunk: the per-hop launch), against its plain version, timed."""
@@ -592,6 +745,15 @@ def kernel_records():
         time_ms(lambda: C.bs_combine_ref(q, s, rb, ReduceFunc.SUM, wire,
                                          QBLOCK, q2, s2), reps=5),
         2 * (N + 4 * N // QBLOCK) + 4 * N, 8 * N)
+    # the ring's round-closing hop: f32 out, 9 bytes an element + scales
+    check_rows(C.bs_combine(q, s, rb, ReduceFunc.SUM, wire, QBLOCK, out=ro,
+                            requant=False),
+               C.bs_combine_ref(q, s, rb, ReduceFunc.SUM, wire, QBLOCK,
+                                requant=False), "bs_combine main f32")
+    recs[-1]["variants"] = {"round-closing f32": variant(
+        time_ms(lambda: C.bs_combine(q, s, rb, ReduceFunc.SUM, wire, QBLOCK,
+                                     out=ro, requant=False)),
+        None, 9 * N + 4 * N // QBLOCK)}
     del q, s, q2, s2, rq, rs, rq2, rs2
 
     h = list(torch.empty(W, c, dtype=torch.float16, device="cuda"))
@@ -625,8 +787,10 @@ def kernel_records():
     recs[-1]["copy_ceiling_ms"] = copy_ms
     for r in recs:
         for k, v in r.get("variants", {}).items():
-            print(f"kernel {r['name']} {k}: {v['ms']:.4f} ms (library "
-                  f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms, "
+            lib = v["library_ms"]
+            print(f"kernel {r['name']} {k}: {v['ms']:.4f} ms ("
+                  + (f"library {lib:.4f} ms, " if lib else "")
+                  + f"bound {v['bound_ms']:.4f} ms, "
                   f"{v['pct_of_bound']:.1f} % of bound)")
 
     sc = list(torch.empty(W, 1, device="cuda"))
@@ -1874,13 +2038,29 @@ def sass_and_ptxas():
 STREAM_KERNELS = {"combine": r"\d+combine_kernel", "cast": r"\d+cast_kernel"}
 
 
+BS_COMBINE_KERNEL = "17bs_combine_kernel"
+
+
+def bs_combine_instantiations() -> set:
+    """(wire, func, requant, steps) of every B7 kernel accl_bs_combine
+    launches: the round-closing mode one step a thread at every block,
+    requant as many as bs_tile needs."""
+    steps = sorted({bs_tile(b) // (BS_THREADS * BS_STEP) for b in BS_BLOCKS})
+    return ({(w, f, True, s) for w in range(3) for f in range(4)
+             for s in steps}
+            | {(w, f, False, 1) for w in range(3) for f in range(4)})
+
+
 def stream_kernels_checked():
     """B1's and B2's kernels carry 128-bit global accesses (LDG.E...128,
     STG.E...128) where their design puts them: every B1 instantiation
     loads and stores 16-byte vectors, every B2 instantiation reads or
     writes its f32 side in 16-byte vectors (the wire codes' side in 8 or
     4 bytes: a thread-step is 4 elements); ptxas reports no spills for
-    them. Prints the counts and the registers; fails otherwise."""
+    them. So does B7 (``bs_combine_kernel``, every instantiation that
+    accl_bs_combine launches): 16-byte loads of ``other``, and in the
+    round-closing mode 16-byte f32 stores. Prints the counts and the
+    registers; fails otherwise."""
     import re
     funcs, ptx = sass_and_ptxas()
     ldg, stg = r"LDG\.E(?:\.\w+)*\.128", r"STG\.E(?:\.\w+)*\.128"
@@ -1907,6 +2087,37 @@ def stream_kernels_checked():
         print(f"{name}_kernel: {len(bodies)} instantiations, 128-bit "
               f"(LDG, STG) per instantiation {sorted(set(counts))}; ptxas "
               f"registers {min(regs)}-{max(regs)}, no spills")
+    # B7: bs_combine_kernel<WIRE, F, REQUANT, S>
+    bodies = {f.split("\n", 1)[0].strip(): f for f in funcs
+              if BS_COMBINE_KERNEL in f.split("\n", 1)[0]}
+    need(len(bodies) == len(bs_combine_instantiations()),
+         f"bs_combine_kernel: {len(bodies)} instantiations in the SASS, "
+         f"expected {len(bs_combine_instantiations())}")
+    counts = {}
+    for head, body in bodies.items():
+        m = re.search(BS_COMBINE_KERNEL + r"ILi(\d)ELi(\d)ELb([01])ELi(\d)E",
+                      head)
+        need(m, f"{head}: not bs_combine_kernel<WIRE, F, REQUANT, S>")
+        requant = m.group(3) == "1"
+        nl, ns = len(re.findall(ldg, body)), len(re.findall(stg, body))
+        need(nl > 0 and (ns > 0 or requant),
+             f"{head}: 128-bit loads {nl}, stores {ns}")
+        counts.setdefault("requant" if requant else "round-closing",
+                          set()).add((nl, ns))
+    info = {k: v for k, v in ptx.items() if BS_COMBINE_KERNEL in k}
+    need(len(info) == len(bodies),
+         f"bs_combine_kernel: {len(info)} ptxas reports for {len(bodies)}")
+    spills = {k: v for k, v in info.items() if v[1]}
+    need(not spills, f"bs_combine_kernel: ptxas spills {spills}")
+    by_mode = {}
+    for k, v in info.items():
+        m = re.search(BS_COMBINE_KERNEL + r"ILi\dELi\dELb([01])ELi(\d)E", k)
+        key = f"S={m.group(2)}" if m.group(1) == "1" else "round-closing"
+        by_mode.setdefault(key, []).append(v[0])
+    print(f"bs_combine_kernel: {len(bodies)} instantiations, 128-bit (LDG, "
+          f"STG) {dict((k, sorted(v)) for k, v in counts.items())}; ptxas "
+          f"registers {dict((k, f'{min(v)}-{max(v)}') for k, v in sorted(by_mode.items()))}, "
+          f"no spills")
 
 
 def wgmma_kernels_checked():
@@ -2354,6 +2565,7 @@ def main() -> int:
     corpus_lanes(rng)
     stream_kernels_checked()
     stream_edges(rng)
+    bs_edges(rng)
     recs = kernel_records()
     phase("phases 3-4: collectives main path")
     main_path(recs)

@@ -182,9 +182,17 @@ def nan_codes_merged(codes: np.ndarray, wire: str) -> np.ndarray:
     return np.where(nan, np.uint8(0x7F), codes).astype(np.uint8)
 
 
+# B7's kernel takes a block of at most 128 by warp shuffles, one up to a
+# tile (1024) through shared memory, a larger one over several steps a
+# thread: the plain version is held at a block of each (the corpus is
+# ragged for every one)
+COMBINE_BLOCKS = [32, 128, 1024, 4096]
+
+
+@pytest.mark.parametrize("block", COMBINE_BLOCKS)
 @pytest.mark.parametrize("func", FUNCS, ids=lambda f: f.name)
 @pytest.mark.parametrize("wire", WIRES)
-def test_bs_combine_matches_reference(wire, func):
+def test_bs_combine_matches_reference(wire, func, block):
     """B7 against the Pallas kernel on denormal-free inputs (and against
     the reference's numpy codec on the full corpus, denormals included,
     in the next test). The sign of a NaN is compared with the numpy
@@ -192,7 +200,6 @@ def test_bs_combine_matches_reference(wire, func):
     widening keeps it on some code paths and drops it on others (a
     ragged e5m2 payload of -NaN codes widens to +NaN), so the Pallas
     reference's NaN signs follow its code generation, not the codec."""
-    block = 128
     x = _no_denormals(edge_corpus(9 + int(func)))
     other = _no_denormals(edge_corpus(21 + int(func))[::-1].copy())
     jq, js = jcomp.bs_quantize(jnp.asarray(x), _np_wire(wire), block)
@@ -216,11 +223,11 @@ def test_bs_combine_matches_reference(wire, func):
                        nan_sign=False)
 
 
+@pytest.mark.parametrize("block", COMBINE_BLOCKS)
 @pytest.mark.parametrize("func", FUNCS, ids=lambda f: f.name)
 @pytest.mark.parametrize("wire", WIRES)
-def test_bs_combine_matches_numpy_codec_with_denormals(wire, func):
+def test_bs_combine_matches_numpy_codec_with_denormals(wire, func, block):
     from accl_tpu import quant
-    block = 128
     x = edge_corpus(9 + int(func))
     other = edge_corpus(21 + int(func))[::-1].copy()
     s, q = quant._np_quantize(x, _np_wire(wire), block)
