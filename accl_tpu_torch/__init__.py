@@ -6,7 +6,10 @@ share one device; the collectives (ring and fused dense ops, alltoall,
 binomial and 2D-tree rooted ops) run their per-hop work through
 hand-written CUDA C++ kernels (``csrc/``): the elementwise combine, the
 per-tensor wire lanes (casts and the scaled fp8 codec) and the
-block-scaled fp8/int8 wire codec. The Llama serving path
+block-scaled fp8/int8 wire codec. The local and point-to-point ops
+(``copy``, ``combine``, eager ``send`` / ``recv`` on every wire, the
+stream ports and ``stream_put``) run through the same kernels. RMA
+(``put``, ``get``) is not ported yet. The Llama serving path
 (:mod:`.models`: forward, KV-cache prefill and decode, generate) runs its
 attention through hand-written kernels too (flash attention forward and
 cache decode, :mod:`.ops.attention`). On CPU tensors every kernel

@@ -1,15 +1,20 @@
 """The ACCL driver: the user-facing host API.
 
-The port of ``accl_tpu/accl.py``, trimmed to the collectives: buffers,
-``allreduce`` / ``reduce_scatter`` / ``allgather`` / ``alltoall``, the
-rooted ``bcast`` / ``scatter`` / ``gather`` / ``reduce``, ``barrier`` and
-``nop``, with the reference's dtype resolution and wire-compression
-flags. ``compress_dtype`` names the wire dtype: f16, bf16 and fp8 ride
-the per-tensor lanes; with ``block_scale`` an int8/fp8 wire is
-block-scale quantized (``block_scale=True`` means ``quant.DEFAULT_BLOCK``
-— there is no tuner yet — an int is clamped into the legal envelope),
-on the ring-shaped collectives; the other ops then take the full-
-precision wire, as the reference does.
+The port of ``accl_tpu/accl.py``: buffers, the collectives
+(``allreduce`` / ``reduce_scatter`` / ``allgather`` / ``alltoall``, the
+rooted ``bcast`` / ``scatter`` / ``gather`` / ``reduce``, ``barrier``),
+the local ops ``copy`` and ``combine``, point to point ``send`` and
+``recv``, the stream ports (``stream_push``, ``stream_pop``, the
+remote-stream ``stream_put`` and ``stream_flags`` on the local and p2p
+ops), ``nop`` and ``soft_reset``, with the reference's dtype resolution
+and wire-compression flags. ``compress_dtype`` names the wire dtype: f16,
+bf16 and fp8 ride the per-tensor lanes; with ``block_scale`` an int8/fp8
+wire is block-scale quantized (``block_scale=True`` means
+``quant.DEFAULT_BLOCK`` — there is no tuner yet — an int is clamped into
+the legal envelope), on the ring-shaped collectives and on send/recv;
+the other collectives then take the full-precision wire, as the
+reference does. Not here yet: RMA (``put``, ``get``, windows), the
+tuner, the hierarchy, communicator splits and retry policies.
 """
 
 from __future__ import annotations
@@ -28,6 +33,29 @@ from .communicator import Communicator
 from .constants import (CCLOp, CfgFunc, CollectiveAlgorithm, Compression,
                         ReduceFunc, StreamFlags, TAG_ANY)
 from .device.base import Device
+
+
+def _check_block_scaled(cfg, compression: Compression,
+                        stream_flags: StreamFlags) -> None:
+    """The reference's checks of a block-scaled descriptor
+    (``accl_tpu/moveengine.py`` ``expand_call``), with its messages."""
+    if compression & (Compression.OP0_COMPRESSED | Compression.OP1_COMPRESSED
+                      | Compression.RES_COMPRESSED):
+        raise ValueError(
+            "BLOCK_SCALED requires uncompressed operand storage: the "
+            "combine lane dequantizes into (and requantizes from) the f32 "
+            "accumulator, so compressed-stored operands cannot ride the "
+            "block-scaled wire")
+    if stream_flags != StreamFlags.NO_STREAM:
+        raise ValueError(
+            "BLOCK_SCALED cannot combine with stream-port operands (stream "
+            "lanes carry raw elements, not scale-block payloads)")
+    if (cfg.uncompressed_dtype != torch.float32
+            or dtype_name(cfg.compressed_dtype) not in quant.WIRE_DTYPE_NAMES):
+        raise ValueError(
+            f"BLOCK_SCALED supports float32 operands over an int8/fp8 wire "
+            f"dtype; got {dtype_name(cfg.uncompressed_dtype)} over "
+            f"{dtype_name(cfg.compressed_dtype)}")
 
 
 class ACCL:
@@ -73,6 +101,11 @@ class ACCL:
     def deinit(self):
         self.device.deinit()
 
+    def soft_reset(self):
+        """Rank-local soft reset through the call path: drops the parked
+        sends and drains this rank's stream ports."""
+        self._config_call(CfgFunc.reset_periph, 0)
+
     # -- buffers ------------------------------------------------------------
     def buffer(self, shape=None, dtype=torch.float32, data=None,
                device_resident: bool = False) -> ACCLBuffer:
@@ -111,6 +144,7 @@ class ACCL:
                  op0: ACCLBuffer | None = None, op1: ACCLBuffer | None = None,
                  res: ACCLBuffer | None = None,
                  compress_dtype=None, block_scale: bool | int = False,
+                 stream_dtype=None,
                  stream_flags: StreamFlags = StreamFlags.NO_STREAM,
                  algorithm: CollectiveAlgorithm | str = (
                      CollectiveAlgorithm.AUTO)) -> CallDescriptor:
@@ -118,8 +152,11 @@ class ACCL:
         (the reference's prepare_call): mark each narrower-typed operand
         OP{0,1}/RES_COMPRESSED and request ETH_COMPRESSED when the caller
         asks for wire compression; ``block_scale`` upgrades the wire to
-        block-scaled quantization."""
+        block-scaled quantization. ``stream_dtype`` is the element type of
+        a streamed operand, which has no buffer to take it from."""
         dtypes = {b.dtype for b in (op0, op1, res) if b is not None}
+        if stream_dtype is not None:
+            dtypes.add(to_torch_dtype(stream_dtype))
         compression = Compression.NONE
         if compress_dtype is not None:
             dtypes.add(to_torch_dtype(compress_dtype))
@@ -161,6 +198,8 @@ class ACCL:
                 compression |= Compression.OP1_COMPRESSED
             if res is not None and res.dtype == cfg.compressed_dtype:
                 compression |= Compression.RES_COMPRESSED
+        if compression & Compression.BLOCK_SCALED:
+            _check_block_scaled(cfg, compression, stream_flags)
         if isinstance(algorithm, str):
             algorithm = CollectiveAlgorithm[algorithm.upper()]
         return CallDescriptor(
@@ -323,3 +362,108 @@ class ACCL:
         comm = comm or self.comm
         desc = self._prepare(CCLOp.barrier, count=0, comm=comm)
         return self._call(desc, False, waitfor)
+
+    # -- local and point-to-point operations ----------------------------------
+    def copy(self, srcbuf: ACCLBuffer | None, dstbuf: ACCLBuffer | None,
+             count: int | None = None, *, comm: Communicator | None = None,
+             stream_flags: StreamFlags = StreamFlags.NO_STREAM,
+             stream_dtype=None, run_async: bool = False,
+             waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """Local copy. With OP0_STREAM the source is this rank's stream-in
+        port (srcbuf may be None); with RES_STREAM the result goes to its
+        stream-out port (dstbuf may be None). A fully streamed copy takes
+        its element type from ``stream_dtype`` (default float32)."""
+        if count is None:
+            if srcbuf is not None:
+                count = srcbuf.size
+            elif dstbuf is not None:
+                count = dstbuf.size
+            else:
+                raise ValueError("copy with both operands streamed "
+                                 "requires an explicit count")
+        desc = self._prepare(CCLOp.copy, count=count, comm=comm or self.comm,
+                             op0=srcbuf, res=dstbuf,
+                             stream_dtype=stream_dtype,
+                             stream_flags=stream_flags)
+        return self._call(desc, run_async, waitfor)
+
+    def combine(self, count: int, func: ReduceFunc, op0: ACCLBuffer | None,
+                op1: ACCLBuffer, res: ACCLBuffer | None, *,
+                stream_dtype=None,
+                stream_flags: StreamFlags = StreamFlags.NO_STREAM,
+                run_async: bool = False,
+                waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """res = func(op0, op1) elementwise, on the device (B1). With
+        OP0_STREAM the first operand comes from the stream-in port (op0
+        may be None); with RES_STREAM the result goes to the stream-out
+        port (res may be None)."""
+        desc = self._prepare(CCLOp.combine, count=count, comm=self.comm,
+                             func=func, op0=op0, op1=op1, res=res,
+                             stream_dtype=stream_dtype,
+                             stream_flags=stream_flags)
+        return self._call(desc, run_async, waitfor)
+
+    def send(self, srcbuf: ACCLBuffer | None, count: int, dst: int,
+             tag: int = TAG_ANY, *, comm: Communicator | None = None,
+             compress_dtype=None, block_scale: bool | int = False,
+             stream_dtype=None,
+             stream_flags: StreamFlags = StreamFlags.NO_STREAM,
+             run_async: bool = False,
+             waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """Eager send: returns once the payload is snapshotted, before
+        the matching recv is posted; the source may be overwritten at
+        once. With OP0_STREAM the payload comes from the stream-in port
+        (srcbuf may be None). ``block_scale`` (with ``compress_dtype``)
+        sends block-scaled codes and scales; the receiver must post a
+        block-scaled recv."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.send, count=count, comm=comm,
+                             root_src_dst=dst, tag=tag, op0=srcbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale,
+                             stream_dtype=stream_dtype,
+                             stream_flags=stream_flags)
+        return self._call(desc, run_async, waitfor)
+
+    def recv(self, dstbuf: ACCLBuffer | None, count: int, src: int,
+             tag: int = TAG_ANY, *, comm: Communicator | None = None,
+             compress_dtype=None, block_scale: bool | int = False,
+             stream_dtype=None,
+             stream_flags: StreamFlags = StreamFlags.NO_STREAM,
+             run_async: bool = False,
+             waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """Receive ``count`` elements from ``src``, matched by tag in the
+        order the sends were made. With RES_STREAM the payload lands on
+        the stream-out port (dstbuf may be None)."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.recv, count=count, comm=comm,
+                             root_src_dst=src, tag=tag, res=dstbuf,
+                             compress_dtype=compress_dtype,
+                             block_scale=block_scale,
+                             stream_dtype=stream_dtype,
+                             stream_flags=stream_flags)
+        return self._call(desc, run_async, waitfor)
+
+    def stream_put(self, srcbuf: ACCLBuffer, count: int, dst: int,
+                   tag: int = TAG_ANY, *, run_async: bool = False,
+                   waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """Send into rank ``dst``'s stream-in port instead of its receive
+        matching (the reference's remote-stream send): no recv is posted
+        for it and it consumes no sequence number."""
+        desc = self._prepare(CCLOp.send, count=count, comm=self.comm,
+                             root_src_dst=dst, tag=tag, op0=srcbuf,
+                             stream_flags=StreamFlags.RES_STREAM)
+        return self._call(desc, run_async, waitfor)
+
+    def stream_push(self, data) -> None:
+        """Feed this rank's stream-in port (a copy of ``data``, a tensor or
+        anything numpy takes): the next OP0_STREAM operand comes from
+        here."""
+        self.device.push_stream(data)
+
+    def stream_pop(self, timeout: float = 0.0, count: int | None = None):
+        """Read this rank's stream-out port: ``count`` elements, across
+        the entries that produced them, or the next entry whole when
+        ``count`` is None. A tensor on the rank's device; IndexError when
+        it does not fill within ``timeout`` seconds."""
+        return self.device.pop_stream(timeout, count)

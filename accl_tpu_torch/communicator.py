@@ -40,3 +40,7 @@ class Communicator:
     @property
     def size(self) -> int:
         return len(self.ranks)
+
+    @property
+    def my_global_rank(self) -> int:
+        return self.ranks[self.local_rank].global_rank

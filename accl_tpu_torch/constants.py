@@ -72,8 +72,11 @@ class Compression(enum.IntFlag):
 
 
 class StreamFlags(enum.IntFlag):
-    """Operand streaming flags (stream ports are not in this package
-    yet; a streamed collective is refused)."""
+    """Operand streaming flags: OP0_STREAM takes the first operand from
+    the rank's stream-in port, RES_STREAM puts the result on its
+    stream-out port (on a send: the peer's stream-in port). Only the
+    local and point-to-point ops stream; a streamed collective is
+    refused."""
 
     NO_STREAM = 0
     OP0_STREAM = 1

@@ -568,6 +568,34 @@ class RankCollectives:
         return self._run("alltoall", x, ReduceFunc.SUM, "xla", wire_dtype,
                          0, out)
 
+    # -- point to point (the reference's send_recv / exchange) --------------
+
+    def exchange(self, rows, pairs, out=None) -> list:
+        """One permutation round: for each ``(src, dst)`` of ``pairs``
+        (every source and every destination at most once), rank dst
+        receives ``rows[src]``. Where ``out[dst]`` is a tensor the row is
+        copied into it (one device copy); elsewhere the received row is
+        ``rows[src]`` itself: the W ranks share one device's memory, so a
+        receiver that decodes the payload reads it where it lies. Returns
+        W entries, None where nothing lands. The reference's
+        ``exchange_flat`` is a ppermute, with no Pallas body."""
+        srcs = [s for s, _ in pairs]
+        dsts = [d for _, d in pairs]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            raise ValueError(f"exchange pairs are not a permutation: "
+                             f"{list(pairs)}")
+        if not all(0 <= r < self.W for r in srcs + dsts):
+            raise ValueError(f"exchange pairs outside {self.W} ranks")
+        got = [None] * self.W
+        for s, d in pairs:
+            tgt = None if out is None else out[d]
+            if tgt is None:
+                got[d] = rows[s]
+            else:
+                tgt.copy_(rows[s])
+                got[d] = tgt
+        return got
+
     # -- rooted collectives (binomial schedules, parallel/tree.py) ---------
 
     def bcast(self, x, root: int = 0, wire_dtype=None, out=None):

@@ -10,6 +10,11 @@ The port's own copy of what the device codec needs from
   clips to +-127 and quantizes non-finite values to 0;
 * ``x' = float32(q) * scale`` — one f32 rounding.
 
+A message on the block-scaled wire counts the reference's packed
+segment: an ``HDR_BYTES`` header (magic, code, block, count), one f32
+scale a block and one byte a code (:func:`packed_nbytes`). The port keeps
+codes and scales as two tensors; the header is a logical count.
+
 The kernels live in :mod:`accl_tpu_torch.ops.compression`.
 """
 
@@ -20,6 +25,7 @@ import torch
 MIN_BLOCK = 32
 MAX_BLOCK = 4096
 DEFAULT_BLOCK = 128
+HDR_BYTES = 8    # the packed segment's header: u8 magic, u8 code, u16, u32
 
 _FLT_MIN = 1.1754943508222875e-38   # smallest normal f32
 
@@ -45,3 +51,9 @@ def clamp_block(block: int) -> int:
 
 def n_blocks(count: int, block: int) -> int:
     return -(-int(count) // int(block))
+
+
+def packed_nbytes(count: int, block: int, qbytes: int = 1) -> int:
+    """Wire bytes of one packed block-scaled message of ``count``
+    elements: header, scales, codes."""
+    return HDR_BYTES + 4 * n_blocks(count, block) + int(count) * qbytes

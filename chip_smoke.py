@@ -50,6 +50,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
    torch.profiler, device time summed per kernel family, beside the
    call's host-clock time (the rest is the device's idle share); then
    the combine (B1) and cast (B2) families' ms per call on one line.
+4b. Point-to-point and local ops: ``cuda_world(8)`` with device-resident
+   buffers of 64 Mi fp32 a rank, through ``ACCL``: a ring shift (rank r
+   sends to r+1, receives from r-1, every call async) on the fp32, f16,
+   bf16 and fp8-e4m3 block-128 wires, a conflicting set (8 transfers,
+   every source twice), a host-mirror ring of 8 Mi, ``copy``, ``combine``
+   SUM and MAX in f32 and bf16, and at 8 Mi the stream ports: copy and
+   combine from ``stream_push``, recv to the stream-out port and
+   ``stream_pop``, ``stream_put``. Every result bitwise against the same
+   work through the plain versions and against numpy (exact, or within
+   the block codec's bound, printed beside the error); B1, B2, B5 and B6
+   must launch; a call takes at most one exchange round a transfer, and
+   with the exchange held busy until all its transfers wait, the ring
+   shift takes one round, the conflicting set two. Then phase 4's lines
+   for each call, with the library's share of its host time, its
+   logical wire bytes, exchange rounds and launches.
 5. Attention kernels: B8 (``attn_fwd``), B9 (``attn_fwd_single``) and
    B12 (``attn_decode``, ``attn_prefill``) against their plain versions
    on the same CUDA inputs: the CPU tests' shapes, single-block B9 cases
@@ -117,12 +132,14 @@ failure raises: the exit code is then not 0 and no result line prints.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import gc
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -163,6 +180,8 @@ def need(cond, what: str):
 
 
 HEAD_START_CYCLES = 50_000_000   # ~25 ms of GPU sleep at the H100's clock
+# ahead of one p2p call of phase 4b, whose host part takes 10-30 ms
+CALL_HEAD_START_CYCLES = 400_000_000
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -855,11 +874,12 @@ FAMILIES = (("bs_quant", "bs_quant_kernel"),
             ("fill", "Fill"))
 
 
-def device_ms_by_family(fn) -> dict:
+def device_ms_by_family(fn, counts: dict | None = None) -> dict:
     """Device time in ms of the kernels ``fn`` runs, summed per family,
     from torch.profiler's CUDA activity; empty when it saw none. GPU-side
     user annotations (``Optimizer.step#Adam.step`` spans the optimizer's
-    kernels) are ranges, not kernels, and are skipped."""
+    kernels) are ranges, not kernels, and are skipped. ``counts``, when
+    given, receives the number of kernel records per family."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -874,6 +894,8 @@ def device_ms_by_family(fn) -> dict:
             continue
         fam = next((f for f, key in FAMILIES if key in ev.name), "other")
         fams[fam] += ev.time_range.elapsed_us() / 1e3
+        if counts is not None:
+            counts[fam] = counts.get(fam, 0) + 1
     return dict(fams)
 
 
@@ -1199,6 +1221,370 @@ def main_path(recs):
                              if f in fams}
         print(f"B1 combine and B2 cast families, ms per call: {streams}")
         return timing
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+# -- phase 4b: point-to-point and local ops ---------------------------------
+
+P2P_N = 8 << 20            # host-mirror sendrecv and the streamed variants
+# the block-scaled codec's bound per element (accl_tpu/quant.py's error
+# model): half an e4m3 step at the block's scale, amax * 2^-4 / (1 - 2^-4)
+BS_BOUND_PER_AMAX = 2.0 ** -4 / (1 - 2.0 ** -4)
+# B1, B2, B5 and B6: the kernels the p2p path must launch
+P2P_KERNELS = ("combine", "cast", "bs_quant", "bs_dequant")
+
+
+def bf16_round(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 -> float32, round to nearest even (finite
+    values, whose bits plus 0x8000 stay below 2^32; numpy has no
+    bfloat16)."""
+    b = x.view(np.uint32)
+    return ((b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1)))
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def hold_exchange(ctx, cid: int, k: int, timeout: float = 60.0):
+    """Keep the exchange of communicator ``cid`` busy, as a running batch
+    does, until ``k`` transfers wait in its window; they then ride the
+    next batch together. Returns the thread that frees it."""
+    with ctx._lock:
+        ctx._xchg_running.add(cid)
+
+    def free():
+        end = time.monotonic() + timeout
+        with ctx._lock:
+            while (len(ctx._xchg_pending[cid]) < k
+                   and time.monotonic() < end):
+                ctx._lock.wait(0.01)
+            ctx._xchg_running.discard(cid)
+            ctx._lock.notify_all()
+
+    th = threading.Thread(target=free, daemon=True)
+    th.start()
+    return th
+
+
+def p2p_path(recs):
+    """Phase 4b: send/recv, copy, combine and the stream ports through
+    ``ACCL`` on ``cuda_world(8)``, device-resident buffers of 64 Mi fp32
+    a rank. Every result is held bitwise against the same work through
+    the plain versions (``PLAIN``) and against a numpy golden; B1, B2, B5
+    and B6 must launch; with the exchange held busy until every transfer
+    waits, the ring shift takes one exchange round, the conflicting set
+    two. Then each call's host time (the library's own, slowest rank),
+    device time by family, idle share, logical wire bytes a rank and
+    launches."""
+    import torch
+    from accl_tpu_torch import StreamFlags, cuda_world
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.parallel.collectives import PLAIN
+    from accl_tpu_torch.testing import run_ranks
+    wire8 = "float8_e4m3fn"
+    accls = cuda_world(W)            # device="cuda": no CPU fallback
+    ctx = accls[0].device.ctx
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        xs = [torch.randn(N, device="cuda", generator=g) for _ in range(W)]
+        ys = [torch.randn(N, device="cuda", generator=g) for _ in range(W)]
+        hosts = [x[:P2P_N].cpu() for x in xs]
+        bufs = {}
+
+        def setup(a):
+            r = a.rank
+
+            def dev(n=N, dtype=torch.float32):
+                return a.buffer((n,), dtype, device_resident=True)
+
+            def res(x):
+                return a.buffer(data=x, device_resident=True)
+
+            bufs[r] = {
+                "src": res(xs[r]), "y": res(ys[r]),
+                "src16": res(xs[r].bfloat16()), "y16": res(ys[r].bfloat16()),
+                "hsrc": a.buffer(data=hosts[r].clone()),
+                "hdst": a.buffer((P2P_N,), torch.float32),
+                "fp32": dev(), "float16": dev(), "bfloat16": dev(),
+                wire8: dev(), "cf1": dev(), "cf2": dev(), "copy": dev(),
+                "sum": dev(), "max": dev(), "sum16": dev(N, torch.bfloat16),
+                "max16": dev(N, torch.bfloat16),
+                "s_copy": dev(P2P_N), "s_comb": dev(P2P_N),
+                "s_put": dev(P2P_N), "s_pop": None,
+            }
+        run_ranks(accls, setup)
+
+        def ring(key, tag, **kw):
+            def fn(a, b):
+                r = a.rank
+                src = b["hsrc"] if key == "hdst" else b["src"]
+                n = src.size
+                hs = a.send(src, n, dst=(r + 1) % W, tag=tag, run_async=True,
+                            **kw)
+                hr = a.recv(b[key], n, src=(r - 1) % W, tag=tag,
+                            run_async=True, **kw)
+                hs.wait()
+                hr.wait()
+            return fn
+
+        def conflicting(a, b):
+            """Ranks 0-3 send twice, to r+4 and to (r+1) % 4: 8 transfers,
+            every source twice, every destination once."""
+            r = a.rank
+            hs = ([a.send(b["src"], N, dst=(r + 4), tag=20, run_async=True),
+                   a.send(b["src"], N, dst=(r + 1) % 4, tag=21,
+                          run_async=True)] if r < 4 else [])
+            hr = (a.recv(b["cf1"], N, src=r - 4, tag=20, run_async=True)
+                  if r >= 4 else
+                  a.recv(b["cf2"], N, src=(r - 1) % 4, tag=21,
+                         run_async=True))
+            for h in hs + [hr]:
+                h.wait()
+
+        def combine_call(func, key, dt=""):
+            return lambda a, b: a.combine(N, func, b["src" + dt],
+                                          b["y" + dt], b[key])
+
+        def streamed_local(a, b):
+            a.stream_push(xs[a.rank][:P2P_N])
+            a.copy(None, b["s_copy"], P2P_N,
+                   stream_flags=StreamFlags.OP0_STREAM)
+            a.stream_push(xs[a.rank][:P2P_N])
+            a.combine(P2P_N, ReduceFunc.SUM, None, b["y"], b["s_comb"],
+                      stream_flags=StreamFlags.OP0_STREAM)
+
+        def streamed_p2p(a, b):
+            r = a.rank
+            hs = a.send(b["src"], P2P_N, dst=(r + 1) % W, tag=30,
+                        run_async=True)
+            a.recv(None, P2P_N, src=(r - 1) % W, tag=30,
+                   stream_flags=StreamFlags.RES_STREAM)
+            hs.wait()
+            b["s_pop"] = a.stream_pop(30.0)
+            a.stream_put(b["src"], P2P_N, dst=(r + 1) % W)
+            a.copy(None, b["s_put"], P2P_N,
+                   stream_flags=StreamFlags.OP0_STREAM)
+
+        calls = {
+            "sendrecv_fp32": ring("fp32", 1),
+            "sendrecv_f16": ring("float16", 2, compress_dtype=torch.float16),
+            "sendrecv_bf16": ring("bfloat16", 3,
+                                  compress_dtype=torch.bfloat16),
+            "sendrecv_fp8bs": ring(wire8, 4,
+                                   compress_dtype=torch.float8_e4m3fn,
+                                   block_scale=QBLOCK),
+            "sendrecv_conflicting": conflicting,
+            "sendrecv_host_8Mi": ring("hdst", 5),
+            "copy": lambda a, b: a.copy(b["src"], b["copy"], N),
+            "combine_sum_f32": combine_call(ReduceFunc.SUM, "sum"),
+            "combine_max_f32": combine_call(ReduceFunc.MAX, "max"),
+            "combine_sum_bf16": combine_call(ReduceFunc.SUM, "sum16", "16"),
+            "combine_max_bf16": combine_call(ReduceFunc.MAX, "max16", "16"),
+            "streamed_copy_combine_8Mi": streamed_local,
+            "streamed_recv_pop_put_8Mi": streamed_p2p,
+        }
+        # exchange rounds with the window held until every transfer of
+        # the call waits (one batch), and the transfers of a call
+        want_rounds = {"sendrecv_fp32": 1, "sendrecv_f16": 1,
+                       "sendrecv_bf16": 1, "sendrecv_fp8bs": 1,
+                       "sendrecv_conflicting": 2, "sendrecv_host_8Mi": 1}
+        transfers = {"streamed_recv_pop_put_8Mi": 2 * W,
+                     **{name: W for name in want_rounds}}
+        lib = {}
+
+        def drive(name, hold=False):
+            """One call on every rank: (exchange rounds, logical wire bytes
+            a rank) it took; the slowest rank's seconds inside the library
+            land in ``lib[name]``. ``hold`` keeps the exchange busy, as a
+            running batch does, until every transfer of the call waits."""
+            def fn(a):
+                t0 = time.perf_counter()
+                calls[name](a, bufs[a.rank])
+                return time.perf_counter() - t0
+            r0, b0 = ctx.exchange_rounds, ctx.exchange_bytes
+            freer = (hold_exchange(ctx, accls[0].comm.comm_id,
+                                   transfers[name]) if hold else None)
+            lib[name] = max(run_ranks(accls, fn))
+            if freer is not None:
+                freer.join()
+            return ctx.exchange_rounds - r0, (ctx.exchange_bytes - b0) // W
+
+        for name in calls:                 # warm-up: the allocator's blocks
+            drive(name)
+        torch.cuda.synchronize()
+        cnt = counters()
+        for k in cnt.values():
+            k.launches = 0
+        rounds, wire = {}, {}
+        for name in calls:                 # the p2p path, once
+            rounds[name], wire[name] = drive(name)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in cnt.items()}
+        print(f"p2p path launches: {launches}")
+        print(f"p2p exchange rounds (batches as the transfers arrived): "
+              f"{rounds}")
+        for name, n in transfers.items():
+            need(1 <= rounds[name] <= n,
+                 f"{name}: {rounds[name]} exchange rounds for {n} transfers")
+        held = {name: drive(name, hold=True)[0] for name in want_rounds}
+        print(f"p2p exchange rounds, the window held until every transfer "
+              f"waits: {held}")
+        for name, n in want_rounds.items():
+            need(held[name] == n,
+                 f"{name}: {held[name]} exchange rounds held, expected {n}")
+        for k in P2P_KERNELS:
+            need(launches[k] > 0, f"kernel {k} never launched on the p2p path")
+        for r in recs:
+            if r["name"] in launches:
+                r["launches_by_path"] = {"collectives": r["launches"],
+                                         "p2p": launches[r["name"]]}
+
+        # -- correctness: the plain versions on the card -------------------
+        def t(key, r):
+            return bufs[r][key].tensor
+
+        for r in range(W):
+            s = (r - 1) % W
+            for wire_name in ("float16", "bfloat16"):
+                wd = getattr(torch, wire_name)
+                check_rows([t(wire_name, r)],
+                           PLAIN.cast(PLAIN.cast([xs[s]], wd), torch.float32),
+                           f"sendrecv {wire_name} vs plain")
+            q, sc = PLAIN.bs_quant([xs[s]], wire8, QBLOCK)
+            check_rows([t(wire8, r)], PLAIN.bs_dequant(q, sc, wire8, QBLOCK),
+                       "sendrecv fp8 block 128 vs plain")
+            del q, sc
+            for key, func, dt in (("sum", ReduceFunc.SUM, ""),
+                                  ("max", ReduceFunc.MAX, ""),
+                                  ("sum16", ReduceFunc.SUM, "16"),
+                                  ("max16", ReduceFunc.MAX, "16")):
+                check_rows([t(key, r)], [PLAIN.combine(
+                    t("src" + dt, r), t("y" + dt, r), func)],
+                    f"combine {key} vs plain")
+            check_rows([t("s_comb", r)], [PLAIN.combine(
+                xs[r][:P2P_N], ys[r][:P2P_N], ReduceFunc.SUM)],
+                "combine from stream vs plain")
+        torch.cuda.empty_cache()
+
+        # -- correctness: a numpy golden, one host thread a rank -----------
+        def golden(r):
+            """fp32, copy and the streams are the inputs themselves
+            (checked on the card, below); the rest against numpy."""
+            s = (r - 1) % W
+
+            def got(key):
+                x = t(key, r)
+                if x.dtype == torch.bfloat16:     # widened on the host
+                    u = x.view(torch.int16).cpu().numpy().view(np.uint16)
+                    return (u.astype(np.uint32) << 16).view(np.float32)
+                return x.cpu().numpy()
+
+            gx = xs[s].cpu().numpy()
+            need(np.array_equal(got("float16"),
+                                gx.astype(np.float16).astype(np.float32)),
+                 "sendrecv f16: not numpy's round trip")
+            need(np.array_equal(got("bfloat16"), bf16_round(gx)),
+                 "sendrecv bf16: not the bf16 round trip")
+            amax = np.abs(gx).reshape(-1, QBLOCK).max(axis=1)
+            bound = (amax * BS_BOUND_PER_AMAX)[:, None]
+            err = np.abs(got(wire8) - gx).reshape(-1, QBLOCK)
+            need(bool(np.isfinite(err).all() and (err <= bound).all()),
+                 "sendrecv fp8 block 128: outside the codec's bound")
+            need(float(err.max()) > 0, "sendrecv fp8: the wire was exact")
+            ratio = float((err / np.maximum(bound, 1e-30)).max())
+            del gx, err
+            mine, y = xs[r].cpu().numpy(), ys[r].cpu().numpy()
+            need(np.array_equal(got("sum"), mine + y), "combine sum f32")
+            need(np.array_equal(got("max"), np.maximum(mine, y)),
+                 "combine max f32")
+            need(np.array_equal(got("s_comb"),
+                                mine[:P2P_N] + y[:P2P_N]),
+                 "combine from stream: not numpy's")
+            del mine, y
+            a16, b16 = got("src16"), got("y16")
+            need(np.array_equal(got("sum16"), bf16_round(a16 + b16)),
+                 "combine sum bf16: not the rounded f32 sum")
+            need(np.array_equal(got("max16"), np.maximum(a16, b16)),
+                 "combine max bf16")
+            need(np.array_equal(bufs[r]["hdst"].storage.numpy(),
+                                hosts[s].numpy()),
+                 "host-mirror sendrecv: not exact")
+            return ratio
+
+        with concurrent.futures.ThreadPoolExecutor(W) as pool:
+            ratios = list(pool.map(golden, range(W)))
+        for r in range(W):
+            s = (r - 1) % W
+            for got, want, what in (
+                    (t("fp32", r), xs[s], "sendrecv fp32"),
+                    (t("copy", r), xs[r], "copy"),
+                    (t("s_copy", r), xs[r][:P2P_N], "copy from stream"),
+                    (bufs[r]["s_pop"], xs[s][:P2P_N], "recv to stream"),
+                    (t("s_put", r), xs[s][:P2P_N], "stream_put"),
+                    (t("cf1" if r >= 4 else "cf2", r),
+                     xs[r - 4 if r >= 4 else (r - 1) % 4],
+                     "the conflicting set")):
+                need(torch.equal(got, want), f"{what}: not exact")
+        print(f"p2p path results: bitwise vs the plain versions; fp32, "
+              f"copy and the streams exact; against numpy: the f16 and bf16 "
+              f"round trips and combine exact, fp8-e4m3 block {QBLOCK} "
+              f"worst err/bound {max(ratios):.4f} (bound amax(block) * 2^-4 "
+              f"/ (1 - 2^-4) per element); checks done at "
+              f"{time.perf_counter() - T_START:.1f} s")
+
+        # -- timing and where the time goes -------------------------------
+        for name in calls:
+            ts, libs = [], []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drive(name)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                libs.append(lib[name] * 1e3)
+            ms = statistics.median(ts[1:])
+            lib_ms = statistics.median(libs[1:])
+            msgs = {"sendrecv_conflicting": 8}.get(name, W)
+            line = (f"call {name}: {ms:.3f} ms per call (host clock, median "
+                    f"of 3 after one warm-up, {msgs} messages or local calls "
+                    f"over the 8 ranks; {lib_ms:.3f} ms of it inside the "
+                    f"library, slowest rank); {wire[name]} logical wire "
+                    f"bytes per rank; exchange rounds {rounds[name]}")
+            for k in cnt.values():
+                k.launches = 0
+            seen = {}
+            fams = device_ms_by_family(lambda: drive(name),   # noqa: B023
+                                       seen)
+            per = {k: f.launches for k, f in cnt.items() if f.launches}
+            print(line)
+            # the same call enqueued behind a GPU sleep: the events time
+            # its kernels back to back (a call that waits for the host,
+            # as the host-mirror ring does, still shows its gaps)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(CALL_HEAD_START_CYCLES)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            drive(name)
+            host = (time.perf_counter() - t0) * 1e3
+            e1.record()
+            torch.cuda.synchronize()
+            dev = e0.elapsed_time(e1)
+            print(f"device {name}: {dev:.3f} ms of device work behind a GPU "
+                  f"sleep ({dev / msgs:.4f} ms a message; the host enqueued "
+                  f"it in {host:.1f} ms), idle share {1 - dev / ms:.3f} of "
+                  f"the call, {1 - dev / lib_ms:.3f} of the library's time; "
+                  f"launches {per or 'none'}")
+            if not fams:
+                print(f"device {name} by family: not measured (the profiler "
+                      f"saw no device activity)")
+                continue
+            busy = sum(fams.values())
+            print(f"device {name} by family (torch.profiler): {busy:.3f} ms "
+                  f"in {sum(seen.values())} kernel records: " + ", ".join(
+                      f"{f} {v:.3f} ms ({seen[f]})"
+                      for f, v in sorted(fams.items())))
     finally:
         for a in accls:
             a.deinit()
@@ -2570,6 +2956,10 @@ def main() -> int:
     phase("phases 3-4: collectives main path")
     main_path(recs)
     gc.collect()                      # the rank worlds' buffers sit in cycles
+    torch.cuda.empty_cache()
+    phase("phase 4b: point-to-point and local ops")
+    p2p_path(recs)
+    gc.collect()
     torch.cuda.empty_cache()
     phase("phase 5: attention kernels")
     attention_edges(rng)

@@ -140,13 +140,13 @@ def test_block_scale_without_compress_dtype_raises(worlds):
 
 
 def test_unported_operations_report_not_implemented(worlds):
-    """Point-to-point and RMA calls (not ported yet) fail typed on every
-    rank instead of running or hanging."""
+    """RMA calls (not ported yet) fail typed on every rank instead of
+    running or hanging."""
     _, cw = worlds
 
     def fn(a):
         words = []
-        for op in (CCLOp.send, CCLOp.recv, CCLOp.put):
+        for op in (CCLOp.put, CCLOp.get):
             desc = CallDescriptor(op, count=4, comm_id=a.comm.comm_id)
             with pytest.raises(ACCLError) as ei:
                 a.device.call_sync(desc)
