@@ -8,8 +8,11 @@ hand-written CUDA C++ kernels (``csrc/``): the elementwise combine, the
 per-tensor wire lanes (casts and the scaled fp8 codec) and the
 block-scaled fp8/int8 wire codec. The local and point-to-point ops
 (``copy``, ``combine``, eager ``send`` / ``recv`` on every wire, the
-stream ports and ``stream_put``) run through the same kernels. RMA
-(``put``, ``get``) is not ported yet. The Llama serving path
+stream ports and ``stream_put``) run through the same kernels, and so
+does one-sided RMA (registered windows, ``put`` with notify, ``get``:
+:mod:`.rma`), which carries the serving control plane
+(:mod:`.serving`: KV-block placement and continuous batching). The
+Llama serving path
 (:mod:`.models`: forward, KV-cache prefill and decode, generate) runs its
 attention through hand-written kernels too (flash attention forward and
 cache decode, :mod:`.ops.attention`). On CPU tensors every kernel

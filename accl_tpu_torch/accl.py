@@ -13,13 +13,17 @@ wire is block-scale quantized (``block_scale=True`` means
 ``quant.DEFAULT_BLOCK`` — there is no tuner yet — an int is clamped into
 the legal envelope), on the ring-shaped collectives and on send/recv;
 the other collectives then take the full-precision wire, as the
-reference does. Not here yet: RMA (``put``, ``get``, windows), the
-tuner, the hierarchy, communicator splits and retry policies.
+reference does. One-sided RMA: ``register_window``, ``deregister_window``,
+``put`` (with ``notify=``), ``get`` and ``poll_notifications``. Every call
+but ``config`` is counted per (op, communicator) in ``accl_calls_total``
+and ``accl_bytes_total`` (:meth:`ACCL.metrics_snapshot`). Not here yet:
+the tuner, the hierarchy, communicator splits and retry policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -33,6 +37,8 @@ from .communicator import Communicator
 from .constants import (CCLOp, CfgFunc, CollectiveAlgorithm, Compression,
                         ReduceFunc, StreamFlags, TAG_ANY)
 from .device.base import Device
+from .rma import ANY_WINDOW
+from .tracing import METRICS
 
 
 def _check_block_scaled(cfg, compression: Compression,
@@ -72,6 +78,14 @@ class ACCL:
         self.device = device
         self._arith_memo: dict = {}
         self.communicators: list[Communicator] = [comm]
+        # one-sided windows this driver registered: id -> buffer
+        self._next_window = itertools.count(1)
+        self._windows: dict[int, ACCLBuffer] = {}
+        # (op name, comm_id) -> calls issued, bytes of their uncompressed
+        # operands; read by the metrics collector at snapshot time only
+        self._call_counts: dict[tuple, int] = {}
+        self._byte_counts: dict[tuple, int] = {}
+        METRICS.register_collector(self, ACCL._metrics_rows)
         device.configure_communicator(comm)
         # bring-up through the call path, as the reference driver does
         self.set_timeout(timeout)
@@ -99,7 +113,33 @@ class ACCL:
         self.device.timeout = timeout
 
     def deinit(self):
+        # withdraw THIS driver's windows only: other drivers on the same
+        # device keep theirs until they deinit
+        for wid in list(self._windows):
+            self.deregister_window(wid)
         self.device.deinit()
+
+    def metrics_snapshot(self) -> dict:
+        """Every counter, gauge and histogram of
+        :data:`~accl_tpu_torch.tracing.METRICS`: this process's drivers'
+        call and byte counts, the serving control plane's rows, and any
+        direct writes."""
+        return METRICS.snapshot()
+
+    def _metrics_rows(self):
+        """Collector rows of this driver's per-communicator call
+        accounting. ``rank`` keeps one world's drivers apart, ``ctx``
+        worlds of the same shape, whose comm ids agree."""
+        labels = {"rank": self.rank}
+        ctx = getattr(self.device, "ctx", None)
+        if ctx is not None:
+            labels["ctx"] = ctx.seq
+        for (op, comm_id), n in list(self._call_counts.items()):
+            yield ("counter", "accl_calls_total",
+                   dict(labels, op=op, comm_id=comm_id), n)
+        for (op, comm_id), n in list(self._byte_counts.items()):
+            yield ("counter", "accl_bytes_total",
+                   dict(labels, op=op, comm_id=comm_id), n)
 
     def soft_reset(self):
         """Rank-local soft reset through the call path: drops the parked
@@ -215,6 +255,13 @@ class ACCL:
               waitfor: Sequence[CallHandle]) -> CallHandle:
         handle = self.device.call_async(desc, waitfor,
                                         inline_ok=not run_async)
+        if desc.scenario != CCLOp.config:
+            key = (desc.scenario.name, desc.comm_id)
+            self._call_counts[key] = self._call_counts.get(key, 0) + 1
+            nb = desc.count * (desc.arithcfg.uncompressed_dtype.itemsize
+                               if desc.arithcfg is not None else 0)
+            if nb:
+                self._byte_counts[key] = self._byte_counts.get(key, 0) + nb
         if run_async:
             return handle
         handle.wait()
@@ -454,6 +501,81 @@ class ACCL:
                              root_src_dst=dst, tag=tag, op0=srcbuf,
                              stream_flags=StreamFlags.RES_STREAM)
         return self._call(desc, run_async, waitfor)
+
+    # -- one-sided RMA ----------------------------------------------------------
+    def register_window(self, buf: ACCLBuffer,
+                        window: int | None = None) -> int:
+        """Expose ``buf`` as a one-sided window peers can put/get
+        against; returns the window id. When every rank registers its
+        windows in the same order, the auto-assigned ids agree across
+        ranks without a handshake; ``window=`` pins an id instead. The
+        buffer stays usable locally; a remote put lands in it with no
+        local call posted."""
+        if window is None:
+            # skip pinned ids: an auto registration must not redirect the
+            # peers' puts at a pinned window into another buffer
+            wid = next(self._next_window)
+            while wid in self._windows:
+                wid = next(self._next_window)
+        else:
+            wid = int(window)
+        self.device.register_window(wid, buf.address, buf.nbytes)
+        self._windows[wid] = buf
+        return wid
+
+    def deregister_window(self, window: int):
+        """Withdraw a window registration: later puts/gets against it
+        fail typed (``RMA_WINDOW_ERROR``) at the initiator."""
+        self.device.deregister_window(int(window))
+        self._windows.pop(int(window), None)
+
+    def put(self, srcbuf: ACCLBuffer, count: int, dst: int, window: int,
+            offset: int = 0, *, comm: Communicator | None = None,
+            compress_dtype=None, notify: int | None = None,
+            run_async: bool = False,
+            waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """One-sided write: ``count`` elements of ``srcbuf`` land at byte
+        ``offset`` inside window ``window`` on rank ``dst`` (comm-local),
+        which posts no call. ``compress_dtype`` narrows the wire
+        (decompressed on landing; a float8 wire is a plain cast, with no
+        scale). The handle completes when the data is in the window.
+
+        ``notify=token`` (u64, 0 = none) makes the TARGET enqueue one
+        completion record on its notify queue once the put has landed
+        (an error record when the window does not resolve), which it
+        reads with :meth:`poll_notifications`."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.put, count=count, comm=comm,
+                             root_src_dst=dst, tag=int(window), op0=srcbuf,
+                             compress_dtype=compress_dtype)
+        desc.addr_1 = int(offset)   # byte offset INTO the window
+        if notify is not None:
+            # a put has no result buffer: addr_2 carries the token
+            desc.addr_2 = int(notify) & 0xFFFFFFFFFFFFFFFF
+        return self._call(desc, run_async, waitfor)
+
+    def get(self, dstbuf: ACCLBuffer, count: int, src: int, window: int,
+            offset: int = 0, *, comm: Communicator | None = None,
+            compress_dtype=None, run_async: bool = False,
+            waitfor: Sequence[CallHandle] = ()) -> CallHandle:
+        """One-sided read: ``count`` elements from byte ``offset`` of
+        window ``window`` on rank ``src`` land in ``dstbuf``; the source
+        posts no call."""
+        comm = comm or self.comm
+        desc = self._prepare(CCLOp.get, count=count, comm=comm,
+                             root_src_dst=src, tag=int(window), res=dstbuf,
+                             compress_dtype=compress_dtype)
+        desc.addr_1 = int(offset)   # byte offset INTO the window
+        return self._call(desc, run_async, waitfor)
+
+    def poll_notifications(self, window: int | None = None,
+                           max_records: int = 64):
+        """Drain up to ``max_records`` put-with-notify records
+        (:class:`~accl_tpu_torch.rma.NotifyRecord`) of ``window`` (every
+        window when None) from this rank's queue. A direct device
+        dequeue, not a call: it adds no ``accl_calls_total`` row."""
+        wid = ANY_WINDOW if window is None else int(window)
+        return self.device.poll_notifications(wid, int(max_records))
 
     def stream_push(self, data) -> None:
         """Feed this rank's stream-in port (a copy of ``data``, a tensor or

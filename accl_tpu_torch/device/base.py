@@ -85,6 +85,24 @@ class Device(abc.ABC):
         """Allocate a tensor on this rank's device (zeros, or ``init``)."""
         raise ValueError(f"{type(self).__name__} has no device tensors")
 
+    # -- one-sided RMA windows (accl_tpu_torch/rma) ---------------------------
+    def register_window(self, wid: int, addr: int, nbytes: int):
+        """Register ``[addr, addr+nbytes)`` as one-sided window ``wid``
+        so peers can put/get against it. A backend without RMA refuses
+        here, at registration, not later as a timeout."""
+        from ..constants import ACCLError, ErrorCode
+        raise ACCLError(int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED),
+                        f"{type(self).__name__} has no one-sided RMA")
+
+    def deregister_window(self, wid: int):
+        """Remove a window registration (no-op when absent)."""
+
+    def poll_notifications(self, window: int, max_records: int = 64):
+        """Drain put-with-notify completion records for ``window``
+        (``rma.ANY_WINDOW`` = all). Purely local: no call, no
+        collective. A backend without RMA has nothing pending."""
+        return []
+
     def soft_reset(self):
         """Parity: HOUSEKEEP_SWRST."""
 

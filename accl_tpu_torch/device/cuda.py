@@ -40,13 +40,35 @@ scale per payload) and the block-scaled fp8/int8 lane. Rooted ops take
 the 2D tree when the world folds into one (AUTO, or TREE where legal;
 a compressed reduce never does). ``copy`` and ``combine`` run on the
 device (``combine`` on B1, a compressed operand or result through B2).
-RMA (``put``, ``get``) returns ``COLLECTIVE_NOT_IMPLEMENTED``.
+
+One-sided RMA: each rank has a :class:`~accl_tpu_torch.rma.WindowRegistry`
+and a :class:`~accl_tpu_torch.rma.NotifyQueue`. ``put`` resolves
+``(window, byte offset)`` on the target and lands the payload in place in
+the target's window tensor: one device copy on a plain wire (the source
+is read in place, with no snapshot), B2 down and B2 up on a compressed
+one. A byte-misaligned offset, a window whose dtype is not the
+payload's, or a host-mirror window takes one byte copy through
+``uint8`` views. ``get`` is the mirror image and lands as ``recv`` does.
+Neither parks anything nor rides the exchange. A put with a notify token
+pushes one record on the target's queue after the data has landed (a
+typed-error record when the window does not resolve).
+
+Ordering rule of the notify records: every launch of this module goes to
+the launching thread's current stream, which is the device's default
+stream for every rank worker, so host enqueue order is device order. A
+record is pushed after the landing is enqueued (device window) or has
+completed (host-mirror window: the device-to-host copy synchronises); a
+landing enqueued on another stream (an inline call from a caller thread
+that set one) is made to precede later default-stream work through an
+event. A reader that polls a record and then reads the window on the
+default stream therefore sees the landed data.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import itertools
 import queue
 import threading
 import time
@@ -69,6 +91,7 @@ from ..parallel.collectives import WIRE_LANE_NAMES, RankCollectives
 from ..parallel.mesh import RankGroup, make_group
 from ..parallel.tree import Tree2DCollectives
 from ..quant import DEFAULT_BLOCK, WIRE_DTYPE_NAMES, packed_nbytes
+from ..rma import NotifyQueue, NotifyRecord, WindowRegistry
 from .base import Device
 
 log = get_logger(__name__)
@@ -84,6 +107,8 @@ _ROOTED = (CCLOp.bcast, CCLOp.scatter, CCLOp.gather, CCLOp.reduce)
 # the local and point-to-point ops: they stream, and they run inline
 # only for a caller that blocks on them at once
 _P2P = {CCLOp.send, CCLOp.recv, CCLOp.copy, CCLOp.combine}
+# one-sided ops: inline, like the p2p ops, only for a blocking caller
+_RMA = {CCLOp.put, CCLOp.get}
 # dtypes a device-resident buffer may not take a result in, nor a streamed
 # send carry (the reference's jax, with x64 off, would truncate them)
 _WIDE = {torch.int64, torch.float64}
@@ -252,11 +277,16 @@ class DeviceStreamPort:
             self._in_off = self._out_off = 0
 
 
+# labels the metrics rows of each world (comm ids repeat across worlds)
+_CTX_SEQ = itertools.count()
+
+
 class CudaContext:
     """Shared state of an N-rank world on one torch device."""
 
     def __init__(self, world_size: int, device="cuda",
                  algorithm: str = "xla"):
+        self.seq = next(_CTX_SEQ)
         self.group: RankGroup = make_group(world_size, device)
         self.device = self.group.device
         self.world_size = self.group.size
@@ -467,6 +497,9 @@ class CudaDevice(Device):
         self.timeout = DEFAULT_TIMEOUT_S
         self._coll_index: dict[int, int] = collections.defaultdict(int)
         self.sport = DeviceStreamPort(ctx.device)
+        self.windows = WindowRegistry(owner=f"cuda-rank{rank}")
+        self.notify = NotifyQueue()
+        self._closed = False                # set by deinit
         self._calls: queue.Queue = queue.Queue()
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name=f"cuda-rank{rank}")
@@ -507,10 +540,16 @@ class CudaDevice(Device):
                    inline_ok: bool = False) -> CallHandle:
         handle = CallHandle(context=desc.scenario.name)
         op = desc.scenario
+        if self._closed:
+            # the worker has exited: a queued call would never run
+            err = int(ErrorCode.CONNECTION_CLOSED)
+            handle.complete(err, exception=ACCLError(
+                err, f"rank {self.rank}: device deinitialised"))
+            return handle
         # inline fast path whenever per-rank FIFO order is provable:
         # nothing queued or running on the worker, dependencies retired
         if (op in self._TRIVIAL_OPS or op in _COLLECTIVES
-                or (op in _P2P and inline_ok)) \
+                or ((op in _P2P or op in _RMA) and inline_ok)) \
                 and self._inline_begin(waitfor):
             try:
                 self._run_one(desc, waitfor, handle,
@@ -524,13 +563,26 @@ class CudaDevice(Device):
         return handle
 
     def soft_reset(self):
-        """Drop the world's parked sends, this rank's collective indices
-        and its stream ports."""
+        """Drop the world's parked sends, this rank's collective indices,
+        its stream ports and its pending notify records. Windows stay
+        registered: they are configuration, like communicators."""
         with self.ctx._lock:
             self.ctx._sends.clear()
             self.ctx._parked_sends = 0
         self._coll_index.clear()
         self.sport.reset()
+        self.notify.clear()
+
+    # -- one-sided RMA windows ----------------------------------------------
+    def register_window(self, wid: int, addr: int, nbytes: int):
+        self.windows.register(wid, addr, nbytes)
+
+    def deregister_window(self, wid: int):
+        self.windows.deregister(wid)
+
+    def poll_notifications(self, window: int, max_records: int = 64):
+        """A local dequeue of the notify queue: no call, no collective."""
+        return self.notify.poll(window, max_records)
 
     def push_stream(self, data):
         self.sport.push(data)
@@ -539,12 +591,18 @@ class CudaDevice(Device):
         return self.sport.pop(timeout, count)
 
     def deinit(self):
-        """Retire the rank: its queued calls run, then its worker exits.
-        Returns once it has, so that the rank's buffers are free for the
-        collector when the caller drops them."""
+        """Retire the rank: its queued calls run, then its worker exits
+        and its window registry closes (a later put or get against it
+        fails with RMA_WINDOW_ERROR; a later call of its own with
+        CONNECTION_CLOSED). Returns once the worker has exited, so that
+        the rank's buffers are free for the collector when the caller
+        drops them."""
+        self._closed = True
         self._calls.put(None)
         if threading.current_thread() is not self._worker:
             self._worker.join()
+        self.windows.close()
+        self.notify.clear()
 
     # -- worker -------------------------------------------------------------
     def _run(self):
@@ -622,9 +680,12 @@ class CudaDevice(Device):
     def _aliases(self, t: torch.Tensor, addr: int) -> bool:
         """True when ``t`` lies in the memory of the buffer at ``addr``."""
         buf = self._buffer(addr) if addr else None
-        return buf is not None and (t.untyped_storage().data_ptr()
-                                    == buf.storage.untyped_storage()
-                                    .data_ptr())
+        return buf is not None and self._shares_memory(t, buf.storage)
+
+    @staticmethod
+    def _shares_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+        return (a.untyped_storage().data_ptr()
+                == b.untyped_storage().data_ptr())
 
     def _write_result(self, addr: int, data: torch.Tensor, desc):
         """Land a result in the buffer at ``addr``, in place, in the
@@ -711,8 +772,11 @@ class CudaDevice(Device):
             return self._do_recv(desc, comm)
         if op in _COLLECTIVES:
             return self._do_collective(desc, comm, handle, defer_launch)
-        # put and get: RMA is not in this package yet
-        return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
+        if op == CCLOp.put:
+            return self._do_put(desc, comm)
+        if op == CCLOp.get:
+            return self._do_get(desc, comm)
+        return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)   # alltoallv
 
     # -- streamed local ops (the stream ports' datapath) --------------------
     def _deadline(self, desc) -> float:
@@ -869,6 +933,130 @@ class CudaDevice(Device):
             self.sport.put_out(data)
         elif dst is None:
             self._write_result(desc.addr_2, data, desc)
+        return 0
+
+    # -- one-sided RMA (tpu.py _rma_peer, _do_put, _do_get) ------------------
+    def _rma_peer(self, desc: CallDescriptor,
+                  comm: Communicator) -> "CudaDevice":
+        if not 0 <= desc.root_src_dst < comm.size:
+            raise ACCLError(int(ErrorCode.INVALID_CALL),
+                            f"RMA peer {desc.root_src_dst} outside the "
+                            f"communicator of {comm.size}")
+        peer = self.ctx.devices[comm.ranks[desc.root_src_dst].global_rank]
+        if peer is None:
+            raise ACCLError(int(ErrorCode.COMM_NOT_CONFIGURED),
+                            "RMA peer rank has no device configured")
+        return peer
+
+    def _window(self, wid: int, offset: int,
+                nbytes: int) -> tuple[torch.Tensor, int]:
+        """The flat tensor of this rank's window ``wid`` and the byte
+        offset of ``[offset, offset+nbytes)`` in it; RMA_WINDOW_ERROR when
+        the window or the range does not resolve."""
+        base = self.windows.resolve(wid, offset, nbytes)
+        w = self.windows.get(wid)
+        buf = self._buffer(w.addr) if w is not None else None
+        if buf is None:
+            raise ACCLError(int(ErrorCode.RMA_WINDOW_ERROR),
+                            f"window {wid}: its buffer was freed")
+        return buf.storage.reshape(-1), base - w.addr
+
+    @staticmethod
+    def _wire(desc) -> torch.dtype | None:
+        """The compressed wire dtype of a one-sided call, or None."""
+        cfg = desc.arithcfg
+        if (desc.compression & Compression.ETH_COMPRESSED
+                and cfg.compressed_dtype != cfg.uncompressed_dtype):
+            return cfg.compressed_dtype
+        return None
+
+    def _publish(self) -> None:
+        """Order a landing enqueued on a side stream before later work on
+        the default stream, which every rank worker uses (see the module's
+        ordering rule)."""
+        dev = self.ctx.device
+        if dev.type == "cuda":
+            cur = torch.cuda.current_stream(dev)
+            default = torch.cuda.default_stream(dev)
+            if cur != default:
+                ev = torch.cuda.Event()
+                ev.record(cur)
+                default.wait_event(ev)
+
+    def _do_put(self, desc: CallDescriptor, comm: Communicator) -> int:
+        """One-sided write into a window of the TARGET rank, which posts
+        no call. The source is read in place; a compressed wire narrows
+        it (B2) before the hop and widens it (B2) on landing, in place in
+        the window where the window takes the payload's dtype at an
+        aligned offset, else through one byte copy. With a notify token
+        (``addr_2``; 0 = none) the target's queue gets one record after
+        the landing, or an error record when the window does not
+        resolve."""
+        tgt = self._rma_peer(desc, comm)
+        token = desc.addr_2 or None
+        uncomp = desc.arithcfg.uncompressed_dtype
+        nbytes = desc.count * uncomp.itemsize
+        try:
+            win, boff = tgt._window(desc.tag, desc.addr_1, nbytes)
+        except ACCLError as exc:
+            if token is not None:
+                tgt.notify.push(NotifyRecord(
+                    token, desc.tag, comm.my_global_rank, exc.error_word,
+                    desc.addr_1, 0))
+            raise
+        x = self._read_operand(desc.addr_0, desc.count, desc)
+        wire = self._wire(desc)
+        esz = uncomp.itemsize
+        direct = (win.dtype == uncomp and boff % esz == 0
+                  and win.device == x.device)
+        if wire is not None:
+            low = to_dtype(x, wire)                   # B2, before the hop
+            if direct:                                # B2, landing in place
+                to_dtype(low, uncomp,
+                         out=win[boff // esz:boff // esz + desc.count])
+                x = None
+            else:
+                x = to_dtype(low, uncomp)
+        if x is not None:
+            if self._shares_memory(x, win):           # a self-put
+                x = x.clone()
+            win.view(torch.uint8)[boff:boff + nbytes].copy_(
+                x.reshape(-1).view(torch.uint8))
+        self._publish()
+        if token is not None:
+            tgt.notify.push(NotifyRecord(token, desc.tag,
+                                         comm.my_global_rank, 0,
+                                         desc.addr_1, nbytes))
+        return 0
+
+    def _do_get(self, desc: CallDescriptor, comm: Communicator) -> int:
+        """One-sided read of ``count`` elements at a byte offset of a
+        window on the SOURCE rank, which posts no call, into the local
+        result buffer: in place where ``recv`` would land in place (a
+        device copy, or B2 up on a compressed wire after B2 down at the
+        window), else through ``_write_result``."""
+        src_dev = self._rma_peer(desc, comm)
+        uncomp = desc.arithcfg.uncompressed_dtype
+        nbytes = desc.count * uncomp.itemsize
+        win, boff = src_dev._window(desc.tag, desc.addr_1, nbytes)
+        esz = uncomp.itemsize
+        if win.dtype == uncomp and boff % esz == 0:
+            x = win[boff // esz:boff // esz + desc.count]     # in place
+        else:
+            x = torch.empty(nbytes, dtype=torch.uint8, device=win.device)
+            x.copy_(win.view(torch.uint8)[boff:boff + nbytes])
+            x = x.view(uncomp)
+        x = x.to(self.ctx.device)          # a host-mirror window's bytes
+        wire = self._wire(desc)
+        dst = self._landing(desc)
+        if wire is not None:
+            x = to_dtype(to_dtype(x, wire), uncomp, out=dst)   # B2, B2
+        elif self._aliases(x, desc.addr_2):                   # a self-get
+            x = x.clone()
+        if dst is None:
+            self._write_result(desc.addr_2, x, desc)
+        elif wire is None:
+            dst.copy_(x)
         return 0
 
     def _do_collective(self, desc: CallDescriptor, comm: Communicator,

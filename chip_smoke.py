@@ -65,6 +65,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    shift takes one round, the conflicting set two. Then phase 4's lines
    for each call, with the library's share of its host time, its
    logical wire bytes, exchange rounds and launches.
+4c. One-sided RMA: ``cuda_world(8)``, 64 Mi fp32 a message, through
+   ``ACCL``: a put ring (rank r into rank r+1's registered window) and a
+   get ring on the fp32, f16, bf16 and fp8-e4m3 wires (fp8 a plain
+   per-element cast), a put at byte offset 2, a put ring into host-mirror
+   windows of 8 Mi, and a storm of 256 puts with notify of 2 MiB into one
+   window, discovered by polling. Every landing bitwise against its plain
+   version on the card (a torch copy or ``.to()``), every token exactly
+   once, no ``accl_calls_total`` row added while polling, no parked send,
+   B2 launched; each case's device ms a message (CUDA events behind a GPU
+   sleep), library and host ms, idle share and B2 launches.
 5. Attention kernels: B8 (``attn_fwd``), B9 (``attn_fwd_single``) and
    B12 (``attn_decode``, ``attn_prefill``) against their plain versions
    on the same CUDA inputs: the CPU tests' shapes, single-block B9 cases
@@ -97,6 +107,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    attention kernel must have run there, every bf16 B8, B9 and B12
    prefill launch on the tensor-core route and no f32 one, and every
    single-token decode on the split-KV kernel (the route counters).
+7b. Disaggregated serving on phase 7's model: ``cuda_world(4)``, ranks
+   0-1 prefill and 2-3 decode, four 1024-token prompts (0 and 2 share
+   512 tokens) through ``serving.serve_disaggregated``: KVBlockManager
+   placement and ContinuousBatcher admission, B12 prefill, one
+   put-with-notify per missed 2 MiB KV block (16 tokens x 32 layers x K,
+   V) into the decode ranks' bf16 windows, polling, unpacking and 32
+   decode steps (B12 split-KV). Landed blocks bitwise their source, put
+   bytes = misses x 2 MiB, request 2's 32 shared blocks hits, no call
+   while polling, the first decode step within SERVE_DENSE_REL of
+   ``generate``'s local run; TTFT, KV GB/s, decode ms a step, puts,
+   hits, polls and busy share.
 8. Attention backward: the bf16 route's kernels (``attention_sm90.cu``:
    B8, B9 and B12 prefill; ``attention_bwd_sm90.cu``) hold HGMMA
    instructions in their SASS (``cuobjdump -sass``), with no ptxas spills
@@ -168,6 +189,9 @@ WIRE_U = {"float16": 2.0 ** -11, "bfloat16": 2.0 ** -8,
 WIRE_DENORMAL = {"float16": 2.0 ** -25, "bfloat16": 0.0,
                  "float8_e4m3fn": 2.0 ** -10, "float8_e5m2": 2.0 ** -17}
 FP8_MAX = {"float8_e4m3fn": 448.0, "float8_e5m2": 57344.0}
+
+
+CARD = ""                  # nvidia-smi's "name, power limit", phase 1
 
 
 class SmokeFailure(RuntimeError):
@@ -269,7 +293,9 @@ def phase_device():
         timeout=60)
     need(smi.returncode == 0 and smi.stdout.strip(),
          f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])   # name, power limit
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)                                  # name, power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     from accl_tpu_torch import _build
@@ -879,8 +905,12 @@ def device_ms_by_family(fn, counts: dict | None = None) -> dict:
     from torch.profiler's CUDA activity; empty when it saw none. GPU-side
     user annotations (``Optimizer.step#Adam.step`` spans the optimizer's
     kernels) are ranges, not kernels, and are skipped. ``counts``, when
-    given, receives the number of kernel records per family."""
+    given, receives the number of kernel records per family. Reads the
+    trace's raw records, with the filters ``prof.events()`` applies, but
+    without building its event tree (which took tens of seconds for a
+    trace of 10^5 records)."""
     import torch
+    from torch.autograd.profiler_util import _filter_name
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -888,12 +918,13 @@ def device_ms_by_family(fn, counts: dict | None = None) -> dict:
         fn()
         torch.cuda.synchronize()
     fams = collections.defaultdict(float)
-    for ev in prof.events():
-        if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.is_user_annotation):
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != torch.autograd.DeviceType.CUDA
+                or ev.is_user_annotation() or _filter_name(ev.name())
+                or getattr(ev, "is_hidden_event", lambda: False)()):
             continue
-        fam = next((f for f, key in FAMILIES if key in ev.name), "other")
-        fams[fam] += ev.time_range.elapsed_us() / 1e3
+        fam = next((f for f, key in FAMILIES if key in ev.name()), "other")
+        fams[fam] += ev.duration_ns() / 1e6
         if counts is not None:
             counts[fam] = counts.get(fam, 0) + 1
     return dict(fams)
@@ -1585,6 +1616,222 @@ def p2p_path(recs):
                   f"in {sum(seen.values())} kernel records: " + ", ".join(
                       f"{f} {v:.3f} ms ({seen[f]})"
                       for f, v in sorted(fams.items())))
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+# -- phase 4c: one-sided RMA -------------------------------------------------
+
+RMA_STORM = 256            # put-with-notify storm: puts into one window
+RMA_STORM_N = 512 << 10    # f32 elements a storm put (2 MiB)
+RMA_WIRES = (None, "float16", "bfloat16", "float8_e4m3fn")
+
+
+def rma_path(recs):
+    """Phase 4c: put and get through ``ACCL`` on ``cuda_world(8)``,
+    device-resident buffers of 64 Mi fp32 a rank: a put ring (rank r into
+    rank r+1's window) and a get ring (rank r from rank r+1's window) on
+    the fp32, f16, bf16 and fp8-e4m3 (per-element cast) wires, a put at
+    byte offset 2, a put ring into host-mirror windows of 8 Mi, and a
+    storm of 256 puts with notify of 2 MiB into one window, which its
+    rank discovers by polling. Every landing bitwise against its plain
+    version on the card (a torch copy or ``.to()``); every token exactly
+    once; no ``accl_calls_total`` row added while polling; B2 launched.
+    Then, for each case, its device ms a message behind a GPU sleep, the
+    library's host ms (slowest rank), the drive's host ms, the idle share
+    and the B2 launches."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.serving.disagg import counter_total
+    from accl_tpu_torch.testing import run_ranks
+    accls = cuda_world(W)            # device="cuda": no CPU fallback
+    per = RMA_STORM // W             # storm puts a rank
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        xs = [torch.randn(N, device="cuda", generator=g) for _ in range(W)]
+        bufs = {}
+
+        def setup(a):
+            r = a.rank
+            b = bufs[r] = {
+                "src": a.buffer(data=xs[r]),
+                "win": a.buffer((N,), torch.float32, device_resident=True),
+                "gwin": a.buffer(data=xs[r].clone()),
+                "dst": a.buffer((N,), torch.float32, device_resident=True),
+                "hwin": a.buffer((P2P_N,), torch.float32),   # host mirror
+                "hsrc": a.buffer(data=xs[r][:P2P_N]),
+                "ssrc": [a.buffer(data=xs[r][k * RMA_STORM_N:
+                                              (k + 1) * RMA_STORM_N])
+                         for k in range(per)]}
+            # the same registration order on every rank: agreeing ids
+            b["ids"] = {k: a.register_window(b[k])
+                        for k in ("win", "gwin", "hwin")}
+            if r == 0:
+                b["swin"] = a.buffer((RMA_STORM * RMA_STORM_N,),
+                                     torch.float32, device_resident=True)
+                b["ids"]["swin"] = a.register_window(b["swin"])
+        run_ranks(accls, setup)
+        ids = bufs[0]["ids"]
+        need(all(bufs[r]["ids"]["win"] == ids["win"] for r in range(W)),
+             "RMA window ids disagree across ranks")
+        storm = {"records": [], "calls": 0, "polls": 0}
+
+        def put_ring(wire):
+            return lambda a, b: a.put(b["src"], N, dst=(a.rank + 1) % W,
+                                      window=ids["win"],
+                                      compress_dtype=wire)
+
+        def get_ring(wire):
+            return lambda a, b: a.get(b["dst"], N, src=(a.rank + 1) % W,
+                                      window=ids["gwin"],
+                                      compress_dtype=wire)
+
+        def put_storm(a, b):
+            r = a.rank
+            hs = [a.put(s, RMA_STORM_N, dst=0, window=ids["swin"],
+                        offset=(r * per + k) * RMA_STORM_N * 4,
+                        notify=r * per + k + 1, run_async=True)
+                  for k, s in enumerate(b["ssrc"])]
+            if r == 0:                # discovery: polls, no call
+                recs_, polls = [], 0
+                calls0 = counter_total(a, "accl_calls_total")
+                end = time.monotonic() + 60.0
+                while len(recs_) < RMA_STORM and time.monotonic() < end:
+                    got = a.poll_notifications(ids["swin"], 1024)
+                    polls += 1
+                    if not got:
+                        time.sleep(0.0002)   # leave the GIL to the puts
+                    recs_ += got
+                storm.update(records=recs_, polls=polls, calls=counter_total(
+                    a, "accl_calls_total") - calls0)
+            for h in hs:
+                h.wait()
+
+        cases = {f"put_{w or 'fp32'}": (put_ring(w), W) for w in RMA_WIRES}
+        cases["put_offset2"] = (
+            lambda a, b: a.put(b["src"], N - 1, dst=(a.rank + 1) % W,
+                               window=ids["win"], offset=2), W)
+        cases.update({f"get_{w or 'fp32'}": (get_ring(w), W)
+                      for w in RMA_WIRES})
+        cases["put_host_8Mi"] = (
+            lambda a, b: a.put(b["hsrc"], P2P_N, dst=(a.rank + 1) % W,
+                               window=ids["hwin"]), W)
+        cases["put_notify_storm_2MiB"] = (put_storm, RMA_STORM)
+        lib = {}
+
+        def drive(name):
+            def fn(a):
+                t0 = time.perf_counter()
+                cases[name][0](a, bufs[a.rank])
+                return time.perf_counter() - t0
+            lib[name] = max(run_ranks(accls, fn))
+
+        def t(key, r):
+            return bufs[r][key].tensor
+
+        def plain(x, wire):
+            return x if wire is None else x.to(getattr(torch, wire)).float()
+
+        def check(name):
+            """The landing of ``name`` against its plain version."""
+            for r in range(W):
+                s, nxt = (r - 1) % W, (r + 1) % W
+                if name.startswith("put_") and name[4:] in (
+                        "fp32", "float16", "bfloat16", "float8_e4m3fn"):
+                    wire = None if name == "put_fp32" else name[4:]
+                    eq, err = same_bits(t("win", r), plain(xs[s], wire))
+                    need(eq, f"rma {name}: rank {r}'s window is not the "
+                         f"plain version (err {err})")
+                elif name.startswith("get_"):
+                    wire = None if name == "get_fp32" else name[4:]
+                    eq, err = same_bits(t("dst", r), plain(xs[nxt], wire))
+                    need(eq, f"rma {name}: rank {r}'s result is not the "
+                         f"plain version (err {err})")
+                elif name == "put_offset2":
+                    want = plain(xs[s], "float8_e4m3fn")  # the case before
+                    want.view(torch.uint8)[2:2 + 4 * (N - 1)].copy_(
+                        xs[s].view(torch.uint8)[:4 * (N - 1)])
+                    eq, _ = same_bits(t("win", r).view(torch.uint8),
+                                      want.view(torch.uint8))
+                    need(eq, f"rma {name}: rank {r}'s window bytes")
+                    del want
+                elif name == "put_host_8Mi":
+                    need(torch.equal(bufs[r]["hwin"].storage,
+                                     xs[s][:P2P_N].cpu()),
+                         f"rma {name}: rank {r}'s host window")
+            if name == "put_notify_storm_2MiB":
+                toks = sorted(rc.token for rc in storm["records"])
+                need(toks == list(range(1, RMA_STORM + 1)),
+                     f"rma storm: {len(toks)} records, tokens not each "
+                     f"exactly once")
+                need(all(rc.err == 0 and rc.nbytes == 4 * RMA_STORM_N
+                         and rc.offset == (rc.token - 1) * 4 * RMA_STORM_N
+                         for rc in storm["records"]),
+                     "rma storm: a record's error, offset or size")
+                need(storm["calls"] == 0, f"rma storm: polling added "
+                     f"{storm['calls']} accl_calls_total")
+                need(torch.equal(
+                    bufs[0]["swin"].tensor.view(W, per * RMA_STORM_N),
+                    torch.stack([x[:per * RMA_STORM_N] for x in xs])),
+                    "rma storm: the window is not the sources")
+
+        for name in cases:                 # warm-up: the allocator's blocks
+            drive(name)
+        torch.cuda.synchronize()
+        cnt = counters()
+        for k in cnt.values():
+            k.launches = 0
+        per_case = {}
+        parked0 = accls[0].device.ctx._parked_sends
+        for name in cases:                 # the RMA path, once
+            before = cnt["cast"].launches
+            drive(name)
+            torch.cuda.synchronize()
+            per_case[name] = cnt["cast"].launches - before
+            check(name)
+        launches = {k: f.launches for k, f in cnt.items()}
+        print(f"rma path launches: {launches}")
+        need(launches["cast"] > 0, "kernel cast (B2) never launched on the "
+             "RMA path")
+        need(accls[0].device.ctx._parked_sends == parked0 == 0,
+             "rma: a put parked a send")
+        for r in recs:
+            if r["name"] in launches:
+                r.setdefault("launches_by_path", {"collectives":
+                                                  r["launches"]})
+                r["launches_by_path"]["rma"] = launches[r["name"]]
+        print(f"rma path results: every landing bitwise equal to its plain "
+              f"version (torch copy or .to()); storm: {RMA_STORM} tokens "
+              f"each exactly once in {storm['polls']} polls, "
+              f"accl_calls_total delta across the polls 0; checks done at "
+              f"{time.perf_counter() - T_START:.1f} s ({CARD})")
+
+        # -- timing: host, library and device ms a case --------------------
+        for name, (_, msgs) in cases.items():
+            ts, libs = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drive(name)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+                libs.append(lib[name] * 1e3)
+            ms, lib_ms = statistics.median(ts), statistics.median(libs)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(CALL_HEAD_START_CYCLES)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            drive(name)
+            e1.record()
+            torch.cuda.synchronize()
+            dev = e0.elapsed_time(e1)
+            print(f"rma {name}: device {dev / msgs:.4f} ms a message "
+                  f"({dev:.3f} ms for {msgs} behind a GPU sleep), library "
+                  f"{lib_ms:.3f} ms (slowest rank), host {ms:.3f} ms (median "
+                  f"of 3), idle share {1 - dev / lib_ms:.3f} of the "
+                  f"library's time; B2 launches {per_case[name]} ({CARD})")
     finally:
         for a in accls:
             a.deinit()
@@ -2287,10 +2534,126 @@ def serving_phase():
                   f"{busy / window:.3f}; " + ", ".join(
                       f"{f} {ms:.2f} ms" for f, ms in sorted(fams.items())))
         del state
+        disagg = disaggregated_phase(model, prompts, NEW)
     print(f"serving peak memory: "
           f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
           f"above the {held / 2 ** 30:.2f} GiB held before the phase")
     del model, short
+    torch.cuda.empty_cache()
+    return launches, disagg
+
+
+# -- phase 7b: disaggregated serving over put-with-notify --------------------
+
+DISAGG_BLOCK = 16       # tokens a KV block: 32 layers x K, V x 8 x 128 bf16
+#                         = 2 MiB, Llama-3-8B's 128 KiB a token
+DISAGG_BLOCKS = 160     # blocks a decode rank's window holds (320 MiB)
+DISAGG_SHARED = 512     # leading tokens requests 0 and 2 share
+
+
+def disaggregated_phase(model, prompts, new: int) -> dict:
+    """Phase 7b, on phase 7's model: ``cuda_world(4)``, ranks 0-1 prefill
+    and 2-3 decode, four 1024-token prompts of which 0 and 2 share their
+    first 512 tokens; ``serve_disaggregated`` places and admits them
+    (KVBlockManager, ContinuousBatcher), prefills (B12 prefill), puts each
+    missed 2 MiB block with notify into its decode rank's bf16 window,
+    polls, unpacks and runs ``new`` decode steps (B12 split-KV). Checks:
+    landed blocks bitwise equal to their source, put bytes = misses x 2
+    MiB, request 2's 32 shared blocks hits, no call while polling, and
+    each request's first decode step against ``generate``'s local run on
+    the same prompt (SERVE_DENSE_REL). Returns the path's attention launch
+    counts."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.serving.disagg import serve_disaggregated
+    phase("phase 7b: disaggregated serving")
+    B, S = prompts.shape
+    dp = prompts.clone()
+    dp[2, :DISAGG_SHARED] = dp[0, :DISAGG_SHARED]
+    # the local run: generate's tokens, and its first decode step's logits
+    ref_tokens = model.generate(dp, max_new=new)
+    cache = model.init_kv_cache(B, S + new)
+    logits, cache = model.forward_cached(dp, cache)
+    ref_step, _ = model.forward_cached(logits[:, -1].argmax(-1)[:, None],
+                                       cache)
+    ref_step = ref_step[:, -1]
+    del cache, logits
+    accls = cuda_world(4)            # device="cuda": no CPU fallback
+
+    def drive():
+        return serve_disaggregated(
+            model, accls, dp, new, prefill_ranks=(0, 1), decode_ranks=(2, 3),
+            block_tokens=DISAGG_BLOCK, blocks_per_rank=DISAGG_BLOCKS)
+
+    try:
+        drive()                      # warm-up: the allocator's blocks
+        torch.cuda.synchronize()
+        zero_attention_counters()
+        t0 = time.perf_counter()
+        run = drive()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = attention_counters()
+        t0 = time.perf_counter()
+        fams = device_ms_by_family(drive)
+        prof_s = time.perf_counter() - t0
+    finally:
+        for a in accls:
+            a.deinit()
+    print(f"disaggregated path launches: {launches}")
+    need(launches["attn_prefill"] > 0 and launches["attn_decode"] > 0,
+         "disaggregated: B12 (prefill or decode) not launched")
+    need_routes(launches, True, "disaggregated")
+    cfg = model.config
+    nb = S // DISAGG_BLOCK
+    want = DISAGG_BLOCK * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    need(run.block_nbytes == want, f"disaggregated: a block is "
+         f"{run.block_nbytes} bytes, not {want}")
+    need(run.landed_mismatches == 0, f"disaggregated: "
+         f"{run.landed_mismatches} landed blocks differ from their source")
+    need(run.duplicates == 0 and run.records == run.puts == run.misses,
+         f"disaggregated: {run.records} records for {run.puts} puts "
+         f"({run.duplicates} duplicates)")
+    need(run.put_bytes == run.misses * run.block_nbytes,
+         f"disaggregated: {run.put_bytes} put bytes for {run.misses} misses")
+    need(run.hits == DISAGG_SHARED // DISAGG_BLOCK and run.shared == {2}
+         and run.misses == B * nb - run.hits,
+         f"disaggregated: {run.hits} hits, shared {run.shared}")
+    need(run.calls_while_polling == 0, f"disaggregated: polling added "
+         f"{run.calls_while_polling} accl_calls_total")
+    need(bool(torch.isfinite(run.step_logits).all()),
+         "disaggregated: non-finite logits")
+    worst = 0.0
+    for r in range(B):
+        rel = float(torch.linalg.vector_norm(run.step_logits[r, 0]
+                                             - ref_step[r])
+                    / torch.linalg.vector_norm(ref_step[r]))
+        worst = max(worst, rel)
+        need(rel <= SERVE_DENSE_REL, f"disaggregated: request {r}'s first "
+             f"decode step differs from the local run by {rel:.4g}")
+    agree = float((run.tokens[:, :new] == ref_tokens).float().mean())
+    busy = sum(fams.values()) if fams else None
+    ttft = ", ".join(f"{q.rid}: {q.ttft_s * 1e3:.1f}" for q in run.requests)
+    print(f"disaggregated results: {run.puts} puts of "
+          f"{run.block_nbytes / 2 ** 20:.3f} MiB, every landed "
+          f"block bitwise its source, {run.hits} hits (request 2's shared "
+          f"prefix, 0 wire bytes), put bytes {run.put_bytes} = misses x "
+          f"block, {run.polls} polls with no call; first decode step vs the "
+          f"local generate: worst relative diff {worst:.4g} (limit "
+          f"{SERVE_DENSE_REL}), greedy agreement {agree:.4f} over "
+          f"{B}x{new} tokens")
+    print(f"disaggregated serving ({CARD}): TTFT ms {{{ttft}}}; KV landed "
+          f"{run.put_bytes / run.kv_seconds / 1e9:.2f} GB/s ({run.put_bytes}"
+          f" bytes in {run.kv_seconds * 1e3:.1f} ms, first put to last "
+          f"poll); decode {statistics.median(run.decode_ms):.3f} ms a step "
+          f"(median of {len(run.decode_ms)}, 2 decode ranks of 2 "
+          f"sequences); drive {wall_ms:.1f} ms (profiled drive and its "
+          f"trace {prof_s:.1f} s); busy share "
+          + (f"{busy / wall_ms:.3f} ({busy:.1f} ms of kernels: "
+             + ", ".join(f"{f} {v:.2f}" for f, v in sorted(fams.items()))
+             + ")" if busy else "not measured (the profiler saw no device "
+             "activity)"))
+    del run, ref_step, ref_tokens, dp
     torch.cuda.empty_cache()
     return launches
 
@@ -2961,6 +3324,10 @@ def main() -> int:
     p2p_path(recs)
     gc.collect()
     torch.cuda.empty_cache()
+    phase("phase 4c: one-sided RMA")
+    rma_path(recs)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("phase 5: attention kernels")
     attention_edges(rng)
     attn_recs = attention_records()
@@ -2973,7 +3340,8 @@ def main() -> int:
          "model phase: B9 never launched")
     need_routes(by_path["model_f32"], False, "model phase")
     phase("phase 7: serving")
-    by_path["serving"] = serving_phase()     # zeroes the counts itself
+    # each path (7 and 7b) zeroes the counts itself
+    by_path["serving"], by_path["disaggregated"] = serving_phase()
     phase("phase 8: attention backward kernels")
     wgmma_kernels_checked()
     attention_bwd_edges(rng)

@@ -256,3 +256,84 @@ def test_llama3_8b_geometry():
               "ffn_dim", "rope_theta", "norm_eps", "head_dim"):
         assert getattr(c, f) == getattr(r, f), f
     assert c.head_dim == 128 and c.n_heads // c.n_kv_heads == 4
+
+
+# -- causality (ROADMAP §C) ----------------------------------------------------
+
+def _causality_inputs(vocab: int):
+    """The reference test's two inputs (``test_models.py::test_causality``):
+    16 seeded tokens, and the same with the last token changed."""
+    rng = np.random.default_rng(0)
+    t1 = rng.integers(0, vocab, (1, 16)).astype(np.int32)
+    t2 = t1.copy()
+    t2[0, -1] = (t2[0, -1] + 1) % vocab
+    return t1, t2
+
+
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_causality(attention):
+    """A future token must not move earlier logits (atol 1e-5): the
+    port's bf16 model on the CPU plain path, both attentions."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), attention=attention)
+    port = Llama(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    t1, t2 = _causality_inputs(cfg.vocab_size)
+    l1, l2 = port(_t(t1)), port(_t(t2))
+    np.testing.assert_allclose(l1[0, :-1].numpy(), l2[0, :-1].numpy(),
+                               atol=1e-5)
+    assert not torch.equal(l1[0, -1], l2[0, -1])
+
+
+def _oracle_forward(params: dict, tokens: np.ndarray, c) -> np.ndarray:
+    """The reference Llama's forward in float64 numpy: RMSNorm, RoPE,
+    causal GQA attention, SwiGLU, from its parameter pytree."""
+    p = jax.tree.map(lambda a: np.asarray(a, np.float64), params)
+    hd, nh, nkv = c.head_dim, c.n_heads, c.n_kv_heads
+    B, S = tokens.shape
+
+    def norm(x, w):
+        return x / np.sqrt(np.mean(x * x, -1, keepdims=True) + c.norm_eps) * w
+
+    ang = np.arange(S)[:, None] * (
+        1.0 / c.rope_theta ** (np.arange(0, hd, 2) / hd))[None]
+    cos, sin = np.cos(ang)[:, None], np.sin(ang)[:, None]
+
+    def rope(x):
+        x1, x2 = x[..., :hd // 2], x[..., hd // 2:]
+        return np.concatenate([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+    x = p["embed"][tokens]
+    mask = np.tril(np.ones((S, S), bool))
+    for i in range(c.n_layers):
+        ly = {k: v[i] for k, v in p["layers"].items()}
+        h = norm(x, ly["attn_norm"])
+        q = rope((h @ ly["wq"]).reshape(B, S, nh, hd))
+        k = rope((h @ ly["wk"]).reshape(B, S, nkv, hd))
+        v = (h @ ly["wv"]).reshape(B, S, nkv, hd)
+        k, v = (np.repeat(t, nh // nkv, axis=2) for t in (k, v))
+        s = np.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5
+        s = np.where(mask, s, -np.inf)
+        pr = np.exp(s - s.max(-1, keepdims=True))
+        pr /= pr.sum(-1, keepdims=True)
+        a = np.einsum("bhqk,bkhd->bqhd", pr, v).reshape(B, S, nh * hd)
+        x = x + a @ ly["wo"]
+        h = norm(x, ly["mlp_norm"])
+        g = h @ ly["w_gate"]
+        x = x + (g / (1 + np.exp(-g)) * (h @ ly["w_up"])) @ ly["w_down"]
+    return norm(x, p["final_norm"]) @ p["lm_head"]
+
+
+def test_reference_forward_on_causality_inputs_matches_oracle():
+    """The reference's forward (tiny, bf16 activations, flash) on the two
+    inputs of its causality test against a float64 numpy oracle: within
+    2^-4 of the oracle's norm (bf16 rounding through 2 layers), and the
+    oracle itself moves no earlier logit."""
+    cfg = RL.LlamaConfig.tiny()
+    ref = RL.Llama(cfg)
+    params = jax.tree.map(np.asarray, ref.init(jax.random.key(0)))
+    t1, t2 = _causality_inputs(cfg.vocab_size)
+    o1, o2 = (_oracle_forward(params, t, cfg) for t in (t1, t2))
+    np.testing.assert_allclose(o1[0, :-1], o2[0, :-1], rtol=0, atol=1e-12)
+    for t, o in ((t1, o1), (t2, o2)):
+        got = np.asarray(ref.forward(params, jnp.asarray(t)), np.float64)
+        rel = np.linalg.norm(got - o) / np.linalg.norm(o)
+        assert rel <= 2.0 ** -4, rel
