@@ -28,6 +28,7 @@ class Communicator:
     local_rank: int
     comm_id: int | None = None
     key: int = 0
+    mesh_axis: str | None = None  # the mesh axis name when bound to a mesh
 
     def __post_init__(self):
         for i, r in enumerate(self.ranks):

@@ -13,7 +13,13 @@ Serving: ``forward``, ``forward_cached`` (prefill and decode over a
 preallocated KV cache) and ``generate``, which build no autograd graph.
 Training: ``loss`` and ``make_train_step``. Parameters are created
 without gradients (serving needs none); ``make_train_step`` turns them
-on. The sharded paths and MoE are later slices (ROADMAP A9).
+on. Sequence parallelism is ported: ``forward``, ``loss`` and
+``make_train_step`` take the reference's ``dp``/``sp``/``mesh``
+arguments, and with a :class:`~accl_tpu_torch.parallel.RankMesh` and an
+sp axis their attention is ring attention over the sequence shards
+(:mod:`accl_tpu_torch.parallel.ring_attention`). Tensor parallelism (a
+mesh without ``sp``; ROADMAP §A item 5) and MoE (ROADMAP §A item 9) are
+later slices.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from torch import nn
 
 from ..convert import llama_params_from_reference
 from ..ops.attention import flash_attention, flash_decode
+from ..parallel.collectives import RankCollectives
 from ..parallel.mesh import resolve_device
+from ..parallel.ring_attention import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,23 +211,82 @@ class Llama(nn.Module):
         x = _rms_norm(x, self.final_norm.to(x.dtype), c.norm_eps)
         return (x @ self.lm_head.to(c.dtype)).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits (B, S, vocab) f32 for (B, S) integer tokens."""
+    def _attention_path(self, B: int, S: int, dp, sp, mesh, tp):
+        """The reference's choice of attention path (its ``forward``,
+        llama.py:326-383), as (the collectives of the sp axis when
+        attention is ring attention over the sequence shards, else None;
+        whether the kernels run, unsharded or on the ring)."""
+        c = self.config
+        if c.attention != "flash" or mesh is None:
+            # dense, or names without a mesh: the reference's sharding
+            # constraints place data and change no arithmetic
+            return None, (c.attention == "flash" and dp is None
+                          and sp is None and mesh is None)
+        if sp is None:
+            raise NotImplementedError(
+                f"tensor-parallel Llama (a mesh without sp, tp axis {tp!r}) "
+                f"is not ported yet (ROADMAP §A item 5)")
+        if sp not in mesh.shape:
+            raise ValueError(f"sp axis {sp!r} not in mesh "
+                             f"{tuple(mesh.shape)}")
+        if S % mesh.shape[sp]:
+            raise ValueError(
+                f"sequence length {S} not divisible by sp axis size "
+                f"{mesh.shape[sp]} — ring attention needs equal "
+                "sequence shards")
+        if dp is not None and dp not in mesh.shape:
+            raise ValueError(f"dp axis {dp!r} not in mesh "
+                             f"{tuple(mesh.shape)}")
+        if dp is not None and B % mesh.shape[dp]:
+            raise ValueError(
+                f"batch {B} not divisible by dp axis size "
+                f"{mesh.shape[dp]}")
+        if mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, model on "
+                             f"{self.device}")
+        return RankCollectives(mesh.group(sp)), True
+
+    def forward(self, tokens: torch.Tensor, dp: str | None = None,
+                sp: str | None = None, mesh=None,
+                tp: str = "tp") -> torch.Tensor:
+        """Logits (B, S, vocab) f32 for (B, S) integer tokens.
+
+        With ``mesh`` (a :class:`~accl_tpu_torch.parallel.RankMesh`) and
+        ``sp`` naming one of its axes, attention is ring attention over
+        the sp axis's W ranks: rank r holds tokens r*S/W .. of every
+        sequence, its q/k/v shards one contiguous copy a layer, and K/V
+        travel the ring un-repeated. The row-wise layers (norms, RoPE at
+        the global positions, GEMMs, FFN) run once over the whole
+        activation, every rank's slice in one launch, and the dp groups
+        ride the batch axis (B must divide by the dp axis size). ``sp``
+        or ``dp`` without a mesh, or ``attention="dense"``, take the
+        dense path, as the reference's do. A mesh without ``sp`` (tensor
+        parallelism, ``tp``) raises NotImplementedError."""
         c = self.config
         B, S = tokens.shape
+        ring, use_flash = self._attention_path(B, S, dp, sp, mesh, tp)
         x = self._embed(tokens)
         rope = _rope_tables(torch.arange(S, device=x.device), c.head_dim,
                             c.rope_theta)
         rep = c.n_heads // c.n_kv_heads
-        mask = (None if c.attention == "flash" else torch.tril(
+        mask = (None if use_flash else torch.tril(
             torch.ones(S, S, dtype=torch.bool, device=x.device)))
         for lyr in self.layers:
             q, k, v = self._qkv(x, lyr, rope)
-            if c.attention == "flash":
+            if ring is not None:
+                # rank rows (W, B, h, S/W, hd): rank r's sequence slice
+                W = ring.W
+                qr, kr, vr = (t.reshape(B, W, S // W, t.shape[2], c.head_dim)
+                              .permute(1, 0, 3, 2, 4).contiguous()
+                              for t in (q, k, v))
+                attn = ring_attention(qr, kr, vr, ring, causal=True)
+                attn = attn.permute(1, 0, 3, 2, 4)       # (B, W, S/W, H, hd)
+            elif use_flash:
                 # KV heads stay un-repeated: the kernel routes each q head
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
                 attn = flash_attention(qt, kt, vt, causal=True)
+                attn = attn.transpose(1, 2)
             else:
                 k = k.repeat_interleave(rep, dim=2)
                 v = v.repeat_interleave(rep, dim=2)
@@ -229,8 +296,8 @@ class Llama(nn.Module):
                 scores = torch.where(mask, scores,
                                      torch.finfo(torch.float32).min)
                 probs = torch.softmax(scores, dim=-1).to(x.dtype)
-                attn = torch.matmul(probs, vt)
-            attn = attn.transpose(1, 2).reshape(B, S, c.n_heads * c.head_dim)
+                attn = torch.matmul(probs, vt).transpose(1, 2)
+            attn = attn.reshape(B, S, c.n_heads * c.head_dim)
             x = self._finish_layer(x, lyr, attn)
         return self._logits(x)
 
@@ -323,32 +390,39 @@ class Llama(nn.Module):
         return torch.stack(out, dim=1)
 
     # -- training ----------------------------------------------------------
-    def loss(self, tokens: torch.Tensor) -> torch.Tensor:
+    def loss(self, tokens: torch.Tensor, dp: str | None = None,
+             sp: str | None = None, mesh=None,
+             tp: str = "tp") -> torch.Tensor:
         """Next-token cross entropy of (B, S) tokens on the f32 logits:
         the mean over the B * (S - 1) predicted positions (the reference's
         ``loss``; MoE, and with it the aux term, is refused at
-        construction)."""
-        logits = self(tokens)[:, :-1]
+        construction). ``dp``, ``sp``, ``mesh``, ``tp`` as
+        :meth:`forward`."""
+        logits = self(tokens, dp, sp, mesh, tp)[:, :-1]
         targets = tokens[:, 1:]
         return torch.nn.functional.cross_entropy(
             logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
 
-    def make_train_step(self, optimizer: torch.optim.Optimizer):
+    def make_train_step(self, optimizer: torch.optim.Optimizer,
+                        dp: str | None = None, sp: str | None = None,
+                        mesh=None, tp: str = "tp"):
         """Returns ``train_step(tokens) -> loss``: zero the gradients, take
-        ``loss``, backpropagate, ``optimizer.step()``; the loss comes back
-        as a detached 0-dim f32 tensor. ``optimizer`` is built over
-        ``self.parameters()``, whose gradients this turns on.
+        ``loss`` (with ``dp``, ``sp``, ``mesh``, ``tp`` as
+        :meth:`forward`: ring attention over the sp shards when a mesh
+        and sp are given), backpropagate, ``optimizer.step()``; the loss
+        comes back as a detached 0-dim f32 tensor. ``optimizer`` is built
+        over ``self.parameters()``, whose gradients this turns on.
 
         This is the stateful PyTorch idiom for the reference's pure
         ``train_step(params, opt_state, tokens) -> (params, opt_state,
         loss)``: the module holds the parameters and the optimizer its
-        state, both updated in place. The reference's sharding arguments
-        (``dp``, ``sp``, ``mesh``, ``tp``) are not ported."""
+        state, both updated in place. Tensor parallelism (a mesh without
+        sp) waits for ROADMAP §A item 5, MoE for item 9."""
         self.requires_grad_(True)
 
         def train_step(tokens: torch.Tensor) -> torch.Tensor:
             optimizer.zero_grad(set_to_none=True)
-            loss = self.loss(tokens)
+            loss = self.loss(tokens, dp, sp, mesh, tp)
             loss.backward()
             optimizer.step()
             return loss.detach()

@@ -1,7 +1,21 @@
-"""The dataplane: collectives over W ranks on one device."""
+"""The dataplane: collectives over W ranks on one device, and the
+sequence-parallel attentions over them (ring and Ulysses)."""
 
 from .collectives import RankCollectives
-from .mesh import RankGroup, make_group
+from .mesh import (RankGroup, RankMesh, communicator_from_mesh, cpu_mesh,
+                   make_group, make_mesh, mesh_from_communicator)
+from .ring_attention import (block_update, ring_attention,
+                             ring_attention_fwd, ring_attention_ref,
+                             ring_attention_sharded,
+                             ring_rounding_magnitudes)
 from .tree import Tree2DCollectives
+from .ulysses import (heads_to_seq, seq_to_heads, ulysses_attention,
+                      ulysses_attention_sharded)
 
-__all__ = ["RankCollectives", "RankGroup", "Tree2DCollectives", "make_group"]
+__all__ = ["RankCollectives", "RankGroup", "RankMesh", "Tree2DCollectives",
+           "block_update", "communicator_from_mesh", "cpu_mesh",
+           "heads_to_seq", "make_group", "make_mesh",
+           "mesh_from_communicator", "ring_attention", "ring_attention_fwd",
+           "ring_attention_ref", "ring_attention_sharded",
+           "ring_rounding_magnitudes", "seq_to_heads",
+           "ulysses_attention", "ulysses_attention_sharded"]

@@ -423,13 +423,23 @@ class RankCollectives:
     ``kernels=PLAIN`` runs every collective through the plain PyTorch
     versions instead of the hand-written kernels (the card-side
     yardstick). ``wire_dtype`` names a per-tensor wire (f16, bf16,
-    e4m3fn, e5m2) or, with ``qblock``, the block-scaled one."""
+    e4m3fn, e5m2) or, with ``qblock``, the block-scaled one.
+
+    Counters of the sequence-parallel dataplane: ``exchange_rounds``
+    (permutation rounds run) and ``wire_bytes``, the logical bytes that
+    left their rank in those rounds and in alltoalls (a rank's own
+    chunk stays and is not counted; the other collectives count
+    nothing here). They are plain counters, kept by whichever thread
+    calls; the device tier counts its own rounds under its lock
+    (``CudaContext.exchange_rounds``)."""
 
     def __init__(self, group: RankGroup, kernels: Kernels = KERNELS):
         self.group = group
         self.W = group.size
         self.device = group.device
         self.kernels = kernels
+        self.exchange_rounds = 0
+        self.wire_bytes = 0
 
     @staticmethod
     def _bs_eligible(op: str, wire: str | None, qblock: int) -> bool:
@@ -511,6 +521,8 @@ class RankCollectives:
         k = self.kernels
         if op == "alltoall":
             alltoall(rows, dst, k, wire)
+            esize = (to_torch_dtype(wire) if wire else dtype).itemsize
+            self.wire_bytes += (W - 1) * n_in * esize
         elif bs:
             if op == "allreduce":
                 ring_allreduce_bs(rows, func, wire, qblock, dst, k)
@@ -576,9 +588,11 @@ class RankCollectives:
         receives ``rows[src]``. Where ``out[dst]`` is a tensor the row is
         copied into it (one device copy); elsewhere the received row is
         ``rows[src]`` itself: the W ranks share one device's memory, so a
-        receiver that decodes the payload reads it where it lies. Returns
-        W entries, None where nothing lands. The reference's
-        ``exchange_flat`` is a ppermute, with no Pallas body."""
+        receiver that decodes the payload reads it where it lies. A row
+        may be a tuple of tensors that travel together in the round (the
+        ring's K and V; only without ``out``). Returns W entries, None
+        where nothing lands. The reference's ``exchange_flat`` is a
+        ppermute, with no Pallas body."""
         srcs = [s for s, _ in pairs]
         dsts = [d for _, d in pairs]
         if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
@@ -594,6 +608,10 @@ class RankCollectives:
             else:
                 tgt.copy_(rows[s])
                 got[d] = tgt
+            if s != d:
+                parts = rows[s] if isinstance(rows[s], tuple) else (rows[s],)
+                self.wire_bytes += sum(t.nbytes for t in parts)
+        self.exchange_rounds += 1
         return got
 
     # -- rooted collectives (binomial schedules, parallel/tree.py) ---------

@@ -143,6 +143,36 @@ Run from the root of a checkout:  python3 chip_smoke.py
    torch.profiler, peak memory. Less than 2 GiB
    may be allocated when it starts.
 
+10. Sequence parallelism at Llama-3-8B's attention width (H=32, Hkv=8,
+   D=128), in four parts. 10a (the last phase): the ring's kernel route
+   (``ring_attention_fwd``: one B8 launch a visible (rank, K/V block)
+   pair, B9 at 512-key shards, the LSE merge in f32; the Function's
+   backward, B10 and B11 a visible pair) at B=1, S=8192, W=8 causal in
+   bf16 and f32, non-causal in bf16, and W=4, S=2048 (B9) in both,
+   against the plain ring (``block_update`` through the reference's
+   schedule, autograd, on f32 copies) and against the unsharded kernels
+   over the whole sequence (B8, ``_FlashAttention``), under RING_TOL;
+   Ulysses (``ulysses_attention``: two alltoalls a side, one B8 launch
+   over all ranks) against the unsharded B8 and its gradients, expected
+   bitwise; launches (W(W+1)/2 causal, W^2 not), exchange rounds (W - 1
+   each way) and the logical K/V and alltoall bytes a rank; device ms
+   (CUDA events behind a GPU sleep) and host ms of the ring forward and
+   backward, Ulysses, the unsharded B8, B10 and B11 and SDPA (timed
+   only), and the ring's kernels by family. 10b (inside phase 7, on its
+   32-layer bf16 model): ``forward`` of one 8192-token sequence with a
+   mesh of 8 ranks on the sp axis against the unsharded ``forward``
+   (within SERVE_DENSE_REL), tokens/s, busy share and kernels by family
+   of both, peak memory. 10c (after the gradient check, on its 2-layer
+   f32 model): the loss and every gradient with sp = 4 against the
+   unsharded flash model's (GRAD_LOSS_REL, GRAD_REL_L2). 10d (inside
+   phase 9, after its steps): the same model re-initialised from phase
+   9's seed, a fresh Adam, ``make_train_step`` over a dp 2 x sp 4 mesh,
+   4 steps that must fall, the first loss within 2^-8 of phase 9's,
+   B9, B10 and B11 10 times a layer a step, step ms, tokens/s, model
+   FLOP/s, busy share and peak memory beside phase 9's. The launches of
+   10b and 10d make the ``sp`` entry of each attention record's
+   ``launches_by_path``.
+
 Each phase starts with a line of the device memory allocated.
 
 Prints per-kernel and per-call lines, then one JSON line of kernel
@@ -208,16 +238,18 @@ HEAD_START_CYCLES = 50_000_000   # ~25 ms of GPU sleep at the H100's clock
 CALL_HEAD_START_CYCLES = 400_000_000
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warmup: int = 3,
+            head_start: int = HEAD_START_CYCLES) -> float:
     """Median device time of ``fn`` in ms (CUDA events around each call).
-    The calls are enqueued behind a GPU sleep of ``HEAD_START_CYCLES``,
-    so the host runs ahead of the device and each event pair times the
-    kernels alone, not the host's Python between two short launches."""
+    The calls are enqueued behind a GPU sleep of ``head_start`` cycles
+    (``HEAD_START_CYCLES``), so the host runs ahead of the device and
+    each event pair times the kernels alone, not the host's Python
+    between two short launches."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(HEAD_START_CYCLES)
+    torch.cuda._sleep(head_start)
     evs = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -2488,17 +2520,6 @@ def serving_phase():
                 ts.append((time.perf_counter() - t1) * 1e3)
             return ts
 
-        def host_ms(fn):
-            """Median host-clock ms of 3 calls that end synchronised."""
-            ts = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                ts.append((time.perf_counter() - t1) * 1e3)
-            return statistics.median(ts)
-
         fwd_ms = host_ms(lambda: model(prompts))
         short_ms = host_ms(lambda: model(short))
         pre_ms = host_ms(prefill)
@@ -2535,12 +2556,13 @@ def serving_phase():
                       f"{f} {ms:.2f} ms" for f, ms in sorted(fams.items())))
         del state
         disagg = disaggregated_phase(model, prompts, NEW)
-    print(f"serving peak memory: "
-          f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
+    sp_launches, peak = sp_forward_phase(model)
+    print(f"serving peak memory (phases 7 and 7b): "
+          f"{(peak - held) / 2 ** 30:.2f} GiB "
           f"above the {held / 2 ** 30:.2f} GiB held before the phase")
     del model, short
     torch.cuda.empty_cache()
-    return launches, disagg
+    return launches, disagg, sp_launches
 
 
 # -- phase 7b: disaggregated serving over put-with-notify --------------------
@@ -3101,41 +3123,64 @@ def attention_bwd_records():
 def grad_check_phase():
     """Flash against dense, f32, full width, 2 layers, B=1, S=2048: one
     model, its config switched between the two; the loss and every
-    parameter's gradient."""
+    parameter's gradient. Phase 10c: the same model's loss over a mesh
+    of 4 ranks on the sp axis (ring attention, f32 B9, B10 and B11 a
+    visible block) against the unsharded flash run."""
     import dataclasses
     import torch
     from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.parallel import make_mesh
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
                               dtype=torch.float32)
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     model = Llama(cfg).init(g).requires_grad_(True)
     tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
                            generator=g)
+    sp_mesh = make_mesh((4,), ("sp",))
     runs = {}
-    for attention in ("flash", "dense"):
+    for run, attention, kw in (("flash", "flash", {}),
+                               ("dense", "dense", {}),
+                               ("sp", "flash", dict(sp="sp", mesh=sp_mesh))):
+        if run == "sp":
+            phase("phase 10c: sequence-parallel gradients, f32")
+            zero_attention_counters()
         model.config = dataclasses.replace(cfg, attention=attention)
         model.zero_grad(set_to_none=True)
-        loss = model.loss(tokens)
+        loss = model.loss(tokens, **kw)
         loss.backward()
-        runs[attention] = (loss.item(), {k: p.grad for k, p in
-                                         model.named_parameters()})
+        runs[run] = (loss.item(), {k: p.grad for k, p in
+                                   model.named_parameters()})
     model.config = cfg
-    (lf, gf), (ld, gd) = runs["flash"], runs["dense"]
-    need(np.isfinite(lf) and np.isfinite(ld), "grad check: non-finite loss")
-    loss_rel = abs(lf - ld) / abs(ld)
-    rels = {k: float(torch.linalg.vector_norm(gf[k] - gd[k])
-                     / torch.linalg.vector_norm(gd[k])) for k in gd}
-    worst = max(rels, key=rels.get)
-    print(f"grad check, Llama-3-8B width, 2 layers, f32, (1, 2048), flash "
-          f"vs dense: loss {lf:.7f} vs {ld:.7f} (relative {loss_rel:.3g}, "
-          f"limit {GRAD_LOSS_REL}); worst gradient {worst} relative L2 "
-          f"{rels[worst]:.3g} (limit {GRAD_REL_L2}); median "
-          f"{statistics.median(rels.values()):.3g} over {len(rels)} "
-          f"parameters")
-    need(loss_rel <= GRAD_LOSS_REL, "grad check: flash and dense losses differ")
-    need(rels[worst] <= GRAD_REL_L2,
-         f"grad check: {worst} gradients of flash and dense differ")
-    del model, runs, gf, gd
+    sp_launches = attention_counters()
+
+    def compare(a, b, what):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        need(np.isfinite(la) and np.isfinite(lb),
+             f"{what}: non-finite loss")
+        loss_rel = abs(la - lb) / abs(lb)
+        rels = {k: float(torch.linalg.vector_norm(ga[k] - gb[k])
+                         / torch.linalg.vector_norm(gb[k])) for k in gb}
+        worst = max(rels, key=rels.get)
+        print(f"{what}, Llama-3-8B width, 2 layers, f32, (1, 2048): loss "
+              f"{la:.7f} vs {lb:.7f} (relative {loss_rel:.3g}, limit "
+              f"{GRAD_LOSS_REL}); worst gradient {worst} relative L2 "
+              f"{rels[worst]:.3g} (limit {GRAD_REL_L2}); median "
+              f"{statistics.median(rels.values()):.3g} over {len(rels)} "
+              f"parameters")
+        need(loss_rel <= GRAD_LOSS_REL, f"{what}: losses differ")
+        need(rels[worst] <= GRAD_REL_L2, f"{what}: {worst} gradients "
+             f"differ")
+
+    compare("flash", "dense", "grad check, flash vs dense")
+    blocks = 4 * 5 // 2 * cfg.n_layers
+    print(f"sp gradient launches: {sp_launches}")
+    for key in ("attn_fwd_single", "attn_bwd_dkv", "attn_bwd_dq"):
+        need(sp_launches[key] == blocks, f"sp gradients: {key} launched "
+             f"{sp_launches[key]} times, want {blocks}")
+    need_routes(sp_launches, False, "sp gradients")
+    compare("sp", "flash", "sp gradients (sp = 4, ring attention) vs the "
+            "unsharded flash model")
+    del model, runs
     torch.cuda.empty_cache()
 
 
@@ -3287,8 +3332,464 @@ def training_phase():
     else:
         print("training step: busy share not measured (the profiler saw no "
               "device activity)")
-    del model, opt, step, tokens
+    phase9 = {"loss": losses[0], "step_ms": step_ms, "flops": flops,
+              "peak": peak, "busy": (f"{sum(fams.values()) / step_ms:.3f}"
+                                     if fams else "not measured")}
+    del opt, step
+    sp_launches = sp_training_phase(model, tokens, phase9)
+    del model, tokens
     torch.cuda.empty_cache()
+    return launches, sp_launches
+
+
+# -- phase 10: sequence parallelism (ring attention, Ulysses, the sp Llama) --
+
+# The ring's bf16 limits add one bf16 rounding of each block's partial to
+# FWD_TOL and BWD_TOL: B8/B9 write each block's O, and B11 each block's
+# dq, in q's dtype before the f32 merge, which moves O by at most 2^-8 *
+# sum_b w_b |o_b| (w_b = exp(lse_b - lse), the block's weight in the
+# merge) and dq by 2^-8 * sum_b |dq_b|. The plain ring (block_update
+# through the reference's schedule, torch autograd) runs on f32 copies of
+# the inputs, so its gradients carry no rounding of their own, and the
+# ring's carry one more: delta = rowsum(dO * O) is formed from O in q's
+# dtype, as _FlashAttention forms it; ``ring_rounding_magnitudes`` adds
+# that dependence to the dq and dk magnitudes m. dk and dv are bf16
+# outputs (f32 sums cast once) and take BWD_TOL's dq rule. So, bf16, per
+# element: O 2^-8*m + 2^-8*sum_b w_b|o_b| + 2^-7*|plain| +
+# 2^-7*median|plain|; dq 2^-8*m + 2^-8*sum_b|dq_b| + the same; dk, dv
+# 2^-8*m + the same. f32: O within ATTN_TOL, the gradients within
+# FN_DENSE_REL (phase 8's limit for the Function against autograd). The
+# unsharded kernels (B8, _FlashAttention over the whole sequence) are
+# held to the plain ring under the same rules without the partials' term,
+# and a ring result against the unsharded one within the sum of the two
+# limits (the triangle inequality).
+RING_TOL = ("bf16: O 2^-8*m + 2^-8*sum_b w_b|o_b| + 2^-7*|plain| + "
+            "2^-7*median|plain|, dq 2^-8*m + 2^-8*sum_b|dq_b| + the same, "
+            "dk and dv 2^-8*m + the same; f32: O 2e-5 + 2e-5*|plain|, "
+            "gradients 1e-4*|plain| + 1e-4*max|plain|; per element")
+SP_HEADS, SP_KV_HEADS, SP_D = 32, 8, 128     # Llama-3-8B's attention
+# (W, S, causal, dtype): B8 blocks at S/W = 1024, B9 at 512
+SP_CASES = ((8, 8192, True, "bfloat16"), (8, 8192, True, "float32"),
+            (8, 8192, False, "bfloat16"), (4, 2048, True, "bfloat16"),
+            (4, 2048, True, "float32"))
+SP_SERVE_LEN = 8192        # phase 10b: one max_seq_len sequence, sp = 8
+SP_SERVE_W = 8
+SP_TRAIN_MESH = (2, 4)     # phase 10d: dp x sp on phase 9's batch
+SP_TRAIN_LOSS_REL = 2.0 ** -8
+
+
+def sp_limit(plain, mag, part: str, ring: bool):
+    """Per-element limit of a result ``part`` ("o", "dq", "dk", "dv")
+    against the plain ring (RING_TOL): ``mag`` from
+    ``ring_rounding_magnitudes`` (bf16) or None (f32); ``ring`` adds the
+    rounded partials' term, which the unsharded kernels do not have."""
+    p = plain.float().abs()
+    if mag is None:
+        if part == "o":
+            return F32_ATOL + F32_RTOL * p
+        return FN_DENSE_REL * p + FN_DENSE_REL * float(p.max())
+    lim = BWD_BF16_MARGIN * mag[part] + BF16_REL * (p + float(p.median()))
+    if ring and part + "_parts" in mag:
+        lim = lim + BWD_BF16_MARGIN * mag[part + "_parts"]
+    return lim
+
+
+def rel_l2(a, b) -> float:
+    import torch
+    b = b.float()
+    return float(torch.linalg.vector_norm(a.float() - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def hold_sp(got, want, lim, what: str) -> tuple[float, float]:
+    """(max abs error, largest error/limit) of ``got`` against ``want``
+    under the per-element limit ``lim``; fails past it."""
+    import torch
+    need(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs "
+         f"{tuple(want.shape)}")
+    need(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    d = (got.float() - want.float()).abs()
+    ratio = float((d / lim).max())
+    need(ratio <= 1.0, f"{what}: max abs err {float(d.max())}, {ratio:.3g} "
+         f"times its element's limit ({RING_TOL})")
+    return float(d.max()), ratio
+
+
+def host_ms(fn, n: int = 3) -> float:
+    """Median host-clock ms of ``n`` calls, each ending synchronised."""
+    import torch
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
+    """Phase 10a, one case: the ring's kernel route (forward and the
+    Function's backward) against the plain ring and against the unsharded
+    kernels over the whole sequence, Ulysses against the unsharded B8;
+    launch, round and byte counts; device and host times. Returns the
+    case's numbers for the summary line."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import attention as A
+    from accl_tpu_torch.parallel import (RankCollectives, make_group,
+                                         ring_attention, ring_attention_fwd,
+                                         ring_attention_ref,
+                                         ring_rounding_magnitudes,
+                                         ulysses_attention)
+    from accl_tpu_torch.parallel.ring_attention import (from_rank_rows,
+                                                        to_rank_rows)
+    dt = getattr(torch, dtype)
+    bf16 = dt == torch.bfloat16
+    B, H, Hkv, D = 1, SP_HEADS, SP_KV_HEADS, SP_D
+    S_l, es = S // W, torch.finfo(dt).bits // 8
+    what = (f"sp ring W={W} S={S} {'causal' if causal else 'full'} "
+            f"{dtype}")
+    q, do = (torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g).to(dt)
+            for _ in range(2))
+    rows = [to_rank_rows(t, W).contiguous() for t in (q, k, v)]
+    dor = to_rank_rows(do, W).contiguous()
+    coll = RankCollectives(make_group(W))
+    blocks = W * (W + 1) // 2 if causal else W * W
+    fwd_key = ("attn_fwd_single" if A.is_single_block(S_l) else "attn_fwd")
+    kv_bytes = (W - 1) * 2 * B * Hkv * S_l * D * es    # a rank, a call
+
+    # the kernel route: forward, then the Function's backward
+    c0 = attention_counters()
+    o, lse = ring_attention_fwd(*rows, coll, causal)
+    c1 = attention_counters()
+    fwd_rounds, fwd_bytes = coll.exchange_rounds, coll.wire_bytes
+    moved = {key: c1[key] - c0[key] for key in c1 if c1[key] != c0[key]}
+    need(moved.pop(fwd_key, 0) == blocks and set(moved) <= {
+        fwd_key + "_wgmma"}, f"{what}: forward launches "
+         f"{ {key: c1[key] - c0[key] for key in c1} }, want {blocks} of "
+         f"{fwd_key} only")
+    need(c1[fwd_key + "_wgmma"] - c0[fwd_key + "_wgmma"]
+         == (blocks if bf16 else 0), f"{what}: tensor-core route launches")
+    need(fwd_rounds == W - 1 and fwd_bytes == W * kv_bytes,
+         f"{what}: forward exchange rounds {fwd_rounds} (want {W - 1}), "
+         f"bytes {fwd_bytes} (want {W * kv_bytes})")
+    need(bool(torch.isfinite(lse).all()), f"{what}: a merged LSE row is "
+         f"not finite")
+    leaves = [t.clone().requires_grad_() for t in rows]
+    out = ring_attention(*leaves, coll, causal)
+    same_fwd = torch.equal(out.detach(), o)
+    c2 = attention_counters()
+    grads = torch.autograd.grad(out, leaves, dor)
+    c3 = attention_counters()
+    bwd_rounds = coll.exchange_rounds - 2 * fwd_rounds
+    bwd_bytes = coll.wire_bytes - 2 * fwd_bytes
+    for key in ("attn_bwd_dkv", "attn_bwd_dq"):
+        need(c3[key] - c2[key] == blocks, f"{what}: {key} launched "
+             f"{c3[key] - c2[key]} times, want {blocks}")
+    need(bwd_rounds == W - 1, f"{what}: backward exchange rounds "
+         f"{bwd_rounds}, want {W - 1}")
+    del out, leaves
+
+    # the unsharded kernels over the whole sequence
+    whole_o, _whole_lse = A.flash_attention_fwd(q, k, v, causal)
+    wl = [t.clone().requires_grad_() for t in (q, k, v)]
+    whole_g = torch.autograd.grad(A.flash_attention(*wl, causal=causal), wl,
+                                  do)
+    del wl
+    # Ulysses: B8 over the whole sequence, H/W heads a rank
+    u0, c4 = coll.wire_bytes, attention_counters()
+    ul = [t.clone().requires_grad_() for t in rows]
+    uo = ulysses_attention(*ul, coll, causal)
+    u_total = coll.wire_bytes - u0
+    u_bytes = u_total // W
+    c5 = attention_counters()
+    whole_key = ("attn_fwd_single" if A.is_single_block(S)
+                 else "attn_fwd")
+    need(c5[whole_key] - c4[whole_key] == 1, f"{what}: Ulysses launched "
+         f"{whole_key} {c5[whole_key] - c4[whole_key]} times, want once")
+    need(u_total == (W - 1) * 2 * B * (H + Hkv) * S_l * D * es,
+         f"{what}: Ulysses alltoall bytes {u_total} over {W} ranks")
+    ug = torch.autograd.grad(uo, ul, dor)
+    del ul
+    # the plain ring on f32 copies; the limits' magnitudes
+    pl = [t.to(torch.float32, copy=True).requires_grad_() for t in rows]
+    plain_o = ring_attention_ref(*pl, causal=causal)
+    plain_g = torch.autograd.grad(plain_o, pl, dor.float())
+    plain_o = plain_o.detach()
+    del pl
+    torch.cuda.empty_cache()
+    mag = (ring_rounding_magnitudes(*rows, lse, dor, o, causal) if bf16
+           else None)
+    held = {}
+    ring_res = dict(zip(("o", "dq", "dk", "dv"), (o,) + tuple(grads)))
+    whole_res = dict(zip(("o", "dq", "dk", "dv"), (whole_o,) + whole_g))
+    uly_res = dict(zip(("o", "dq", "dk", "dv"), (uo.detach(),) + ug))
+    plain_res = dict(zip(("o", "dq", "dk", "dv"), (plain_o,) + plain_g))
+    uly_bitwise = {}
+    for part in ("o", "dq", "dk", "dv"):
+        plain = plain_res[part]
+        lr = sp_limit(plain, mag, part, True)
+        lw = sp_limit(plain, mag, part, False)
+        ring, whole = ring_res[part], to_rank_rows(whole_res[part], W)
+        held[part] = (
+            hold_sp(ring, plain, lr, f"{what} {part} ring vs plain ring"),
+            hold_sp(whole, plain, lw, f"{what} {part} unsharded vs plain "
+                    f"ring"),
+            hold_sp(ring, whole, lr + lw, f"{what} {part} ring vs "
+                    f"unsharded"),
+            rel_l2(ring, plain), rel_l2(ring, whole))
+        uly = uly_res[part]
+        uly_bitwise[part] = torch.equal(uly, whole)
+        if not uly_bitwise[part]:
+            e = float((uly.float() - whole.float()).abs().max())
+            r = hold_sp(uly, plain, lw, f"{what} {part} Ulysses vs plain "
+                        f"ring")
+            print(f"{what}: Ulysses {part} differs from the unsharded "
+                  f"kernel's (max abs diff {e}); within the unsharded "
+                  f"kernel's limit against the plain ring ({r[1]:.3f})")
+    del grads, whole_g, ug, plain_g, plain_res, whole_res, uly_res, mag
+    del uo, plain_o
+    torch.cuda.empty_cache()
+
+    # times: the kernel route behind a GPU sleep and on the host clock.
+    # A ring call enqueues 100-250 launches and merge ops, 5-14 ms of
+    # host work, so its reps wait behind CALL_HEAD_START_CYCLES (~200
+    # ms) and are fewer: behind HEAD_START_CYCLES the host would fall
+    # behind the device after a few reps and the events time the host.
+    reps = 10 if bf16 else 5
+    ring = dict(reps=reps, head_start=CALL_HEAD_START_CYCLES)
+    fwd_ms = time_ms(lambda: ring_attention_fwd(*rows, coll, causal),
+                     **ring)
+    fwd_host = host_ms(lambda: ring_attention_fwd(*rows, coll, causal))
+    leaves = [t.clone().requires_grad_() for t in rows]
+    out = ring_attention(*leaves, coll, causal)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, leaves, dor, retain_graph=True), **ring)
+    bwd_host = host_ms(lambda: torch.autograd.grad(
+        out, leaves, dor, retain_graph=True))
+    # where the time goes: one more forward and backward under the
+    # profiler, device time per kernel family
+    fams = {"forward": device_ms_by_family(
+        lambda: ring_attention_fwd(*rows, coll, causal)),
+        "backward": device_ms_by_family(lambda: torch.autograd.grad(
+            out, leaves, dor, retain_graph=True))}
+    del out, leaves
+    uly_ms = time_ms(lambda: ulysses_attention(*rows, coll, causal),
+                     **ring)
+    _o, wlse, wdelta = bwd_operands(q, k, v, do, causal)
+    args = (q, do, k, v, wlse, wdelta, causal, D ** -0.5)
+    b8_ms = time_ms(lambda: A.flash_attention_fwd(q, k, v, causal),
+                    reps=2 * reps)
+    b10_ms = time_ms(lambda: A.flash_attention_bwd_dkv(*args),
+                     reps=2 * reps)
+    b11_ms = time_ms(lambda: A.flash_attention_bwd_dq(*args), reps=2 * reps)
+    del _o, wlse, wdelta, args
+    sdpa = ""
+    if bf16:
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                            enable_gqa=True)
+        sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+        sdpa_b = time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True))
+        sdpa = f"; SDPA forward {sdpa_f:.4f} ms, backward {sdpa_b:.4f} ms"
+        del lq, lk, lv, lo
+    seen = S * (S + 1) // 2 if causal else S * S
+    bms, by = bound_ms((2 * B * H * S * D + 2 * B * Hkv * S * D) * es
+                       + 4 * B * H * S, 4 * D * B * H * seen,
+                       BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+    print(f"{what}: {blocks} {fwd_key} launches ({fwd_key} tensor cores "
+          f"{c1[fwd_key + '_wgmma'] - c0[fwd_key + '_wgmma']}), backward "
+          f"attn_bwd_dkv {blocks}, attn_bwd_dq {blocks}; exchange rounds "
+          f"{fwd_rounds} forward + {bwd_rounds} backward; logical bytes a "
+          f"rank a call: K/V {fwd_bytes // W:,} forward (un-repeated, "
+          f"{Hkv} heads), {bwd_bytes // W:,} backward (K, V and their f32 "
+          f"dK, dV accumulators); the Function's forward bitwise the "
+          f"forward's: {same_fwd}")
+    print(f"{what}: forward {fwd_ms:.4f} ms device ({fwd_host:.3f} ms host, "
+          f"ending in a synchronise), backward {bwd_ms:.4f} ms device "
+          f"({bwd_host:.3f} ms host); unsharded attn_fwd {b8_ms:.4f} "
+          f"ms (ring {fwd_ms / b8_ms:.2f}x), attn_bwd_dkv "
+          f"{b10_ms:.4f} ms + attn_bwd_dq {b11_ms:.4f} ms (ring backward "
+          f"{bwd_ms / (b10_ms + b11_ms):.2f}x); forward bound {bms:.4f} ms "
+          f"by {by} ({bms / fwd_ms:.1%} of it){sdpa}; Ulysses forward "
+          f"{uly_ms:.4f} ms, alltoall bytes a rank a call {u_bytes:,} "
+          f"(the (W - 1)/W of q, k, v and O that leave the rank; the own "
+          f"chunk not counted)")
+    print(f"{what}: kernels by family (torch.profiler, one call): "
+          + "; ".join(f"{half} " + (", ".join(
+              f"{f} {ms:.3f} ms" for f, ms in sorted(
+                  fam.items(), key=lambda x: -x[1]))
+              if fam else "not measured") for half, fam in fams.items()))
+    for part, (rp, wp, rw, l2p, l2w) in held.items():
+        print(f"{what} {part}: ring vs plain ring max abs err {rp[0]:.4g} "
+              f"(error/limit {rp[1]:.3f}, relative L2 {l2p:.3g}); "
+              f"unsharded vs plain ring {wp[0]:.4g} ({wp[1]:.3f}); ring vs "
+              f"unsharded {rw[0]:.4g} ({rw[1]:.3f}, relative L2 {l2w:.3g}); "
+              f"Ulysses bitwise the unsharded kernel's: {uly_bitwise[part]}")
+    del q, k, v, do, rows, dor, o, lse
+    torch.cuda.empty_cache()
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "uly_ms": uly_ms,
+            "b8_ms": b8_ms, "u_bytes": u_bytes, "kv_bytes": fwd_bytes // W}
+
+
+def sp_attention_phase():
+    """Phase 10a: every SP_CASES case at Llama-3-8B's attention width."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for W, S, causal, dtype in SP_CASES:
+        sp_ring_case(g, W, S, causal, dtype)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sp_forward_phase(model) -> tuple[dict, int]:
+    """Phase 10b, on phase 7's model (Llama-3-8B, bf16, 32 layers): one
+    SP_SERVE_LEN-token sequence through ``forward`` with ``mesh`` of
+    SP_SERVE_W ranks on the sp axis, against the unsharded ``forward`` of
+    the same tokens; tokens/s of both, busy share and kernels by family,
+    peak memory. Returns the path's launch counts and the peak allocated
+    before the phase (the serving phase's own)."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    from accl_tpu_torch.parallel import make_mesh
+    phase("phase 10b: sequence-parallel Llama forward")
+    cfg = model.config
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SP_SERVE_LEN),
+                           device="cuda", generator=g)
+    mesh = make_mesh((SP_SERVE_W,), ("sp",))
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    blocks = SP_SERVE_W * (SP_SERVE_W + 1) // 2
+    with torch.no_grad():
+        zero_attention_counters()
+        sp = model(tokens, sp="sp", mesh=mesh)
+        torch.cuda.synchronize()
+        launches = attention_counters()
+        full = model(tokens)
+        need(sp.shape == full.shape == (1, SP_SERVE_LEN, cfg.vocab_size)
+             and bool(torch.isfinite(sp).all()),
+             f"sp forward: shape {tuple(sp.shape)} or non-finite logits")
+        rel = rel_l2(sp, full)
+        agree = float((sp.argmax(-1) == full.argmax(-1)).float().mean())
+        del sp, full
+        print(f"sp forward launches: {launches}")
+        key = ("attn_fwd_single" if A.is_single_block(
+            SP_SERVE_LEN // SP_SERVE_W) else "attn_fwd")
+        need(launches[key] == blocks * cfg.n_layers and sum(
+            launches[k] for k in ("attn_fwd", "attn_fwd_single",
+                                  "attn_decode", "attn_prefill"))
+             == launches[key], f"sp forward: {key} launched "
+             f"{launches[key]} times, want {blocks} a layer "
+             f"({blocks * cfg.n_layers}) and no other attention kernel")
+        need_routes(launches, True, "sp forward")
+        print(f"sp forward, Llama-3-8B bf16 32 layers, 1x{SP_SERVE_LEN} "
+              f"tokens, sp = {SP_SERVE_W} (ring attention, {blocks} {key} "
+              f"launches a layer) vs the unsharded forward: relative L2 "
+              f"{rel:.4g} (limit {SERVE_DENSE_REL}), greedy agreement "
+              f"{agree:.4f}")
+        need(rel <= SERVE_DENSE_REL, "sp forward: sp and unsharded logits "
+             "differ")
+        times = {}
+        for what, fn in (("sp", lambda: model(tokens, sp="sp", mesh=mesh)),
+                         ("unsharded", lambda: model(tokens))):
+            times[what] = host_ms(fn)
+            fams = device_ms_by_family(fn)
+            busy = sum(fams.values())
+            print(f"sp forward {what}: {times[what]:.2f} ms host clock "
+                  f"(median of 3), {SP_SERVE_LEN / times[what] * 1e3:.0f} "
+                  f"tokens/s; " + (
+                      f"{busy:.2f} ms of kernels, busy share "
+                      f"{busy / times[what]:.3f}; " + ", ".join(
+                          f"{f} {ms:.2f} ms" for f, ms in sorted(
+                              fams.items(), key=lambda x: -x[1]))
+                      if fams else "busy share not measured (the profiler "
+                      "saw no device activity)"))
+        print(f"sp forward: {times['sp'] / times['unsharded']:.3f}x the "
+              f"unsharded forward's host time")
+    del tokens
+    print(f"sp forward peak memory: "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
+          f"above the {held / 2 ** 30:.2f} GiB held before it")
+    return launches, peak_before
+
+
+def sp_training_phase(model, tokens, phase9: dict) -> dict:
+    """Phase 10d, after phase 9's steps: the same model re-initialised in
+    place from phase 9's seed, a fresh Adam(lr=1e-4), the same batch,
+    ``make_train_step`` over a dp x sp mesh (SP_TRAIN_MESH): 4 steps.
+    Returns the path's launch counts."""
+    import torch
+    from accl_tpu_torch.parallel import make_mesh
+    phase("phase 10d: sequence-parallel training")
+    cfg = model.config
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 11))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    mesh = make_mesh(SP_TRAIN_MESH, ("dp", "sp"))
+    step = model.make_train_step(opt, dp="dp", sp="sp", mesh=mesh)
+    W = mesh.shape["sp"]
+    blocks = W * (W + 1) // 2
+    torch.cuda.reset_peak_memory_stats()
+    zero_attention_counters()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = attention_counters()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"sp training losses {losses}; step ms (host clock) {times}")
+    print(f"sp training launches: {launches}")
+    need(all(np.isfinite(x) for x in losses), "sp training: non-finite loss")
+    need(losses[-1] < losses[0], "sp training: the loss did not fall")
+    first_rel = abs(losses[0] - phase9["loss"]) / abs(phase9["loss"])
+    print(f"sp training first loss {losses[0]:.7f} vs phase 9's "
+          f"{phase9['loss']:.7f}: relative {first_rel:.3g} (limit "
+          f"{SP_TRAIN_LOSS_REL})")
+    need(first_rel <= SP_TRAIN_LOSS_REL, "sp training: the first loss "
+         "departs from phase 9's")
+    per_run = blocks * cfg.n_layers * TRAIN_STEPS
+    for key in ("attn_fwd_single", "attn_bwd_dkv", "attn_bwd_dq"):
+        need(launches[key] == per_run, f"sp training: {key} launched "
+             f"{launches[key]} times, not {blocks} a layer a step "
+             f"({per_run})")
+    need(launches["attn_fwd"] == 0, "sp training: B8 launched")
+    need_routes(launches, True, "sp training")
+    step_ms = statistics.median(times[1:])
+    tokens_n = tokens.numel()
+    flops = phase9["flops"]
+    fams = device_ms_by_family(lambda: step(tokens))
+    busy = sum(fams.values())
+    print(f"sp training step (dp {SP_TRAIN_MESH[0]} x sp {W}, B9 {blocks} "
+          f"a layer): {step_ms:.2f} ms (phase 9: {phase9['step_ms']:.2f}; "
+          f"host clock, median of steps 2-{TRAIN_STEPS}), "
+          f"{tokens_n / step_ms * 1e3:.0f} tokens/s (phase 9: "
+          f"{tokens_n / phase9['step_ms'] * 1e3:.0f}), "
+          f"{flops / (step_ms / 1e3) / 1e12:.1f} model TFLOP/s (phase 9: "
+          f"{flops / (phase9['step_ms'] / 1e3) / 1e12:.1f}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (phase 9: "
+          f"{phase9['peak'] / 2 ** 30:.2f})")
+    print("sp training step under the profiler: " + (
+        f"{busy:.2f} ms of kernels, busy share {busy / step_ms:.3f} "
+        f"(phase 9: {phase9['busy']}); " + ", ".join(
+            f"{f} {ms:.2f} ms" for f, ms in sorted(fams.items(),
+                                                   key=lambda x: -x[1]))
+        if fams else "busy share not measured (the profiler saw no device "
+        "activity)"))
+    need(peak <= TRAIN_MAX_PEAK, "sp training: peak memory past the limit")
+    del opt, step
     return launches
 
 
@@ -3340,8 +3841,8 @@ def main() -> int:
          "model phase: B9 never launched")
     need_routes(by_path["model_f32"], False, "model phase")
     phase("phase 7: serving")
-    # each path (7 and 7b) zeroes the counts itself
-    by_path["serving"], by_path["disaggregated"] = serving_phase()
+    # each path (7, 7b and 10b) zeroes the counts itself
+    by_path["serving"], by_path["disaggregated"], sp_fwd = serving_phase()
     phase("phase 8: attention backward kernels")
     wgmma_kernels_checked()
     attention_bwd_edges(rng)
@@ -3354,7 +3855,14 @@ def main() -> int:
     held = torch.cuda.memory_allocated()
     need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still allocated "
          f"before the training phase (limit 2 GiB)")
-    by_path["training"] = training_phase()   # zeroes the counts itself
+    # phases 9 and 10d zero the counts themselves
+    by_path["training"], sp_train = training_phase()
+    # the sequence-parallel path: the sp forward (10b) and training (10d)
+    by_path["sp"] = {k: sp_fwd[k] + sp_train[k] for k in sp_fwd}
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 10a: ring attention and Ulysses kernels")
+    sp_attention_phase()
     for r in attn_recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
         r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
