@@ -13,18 +13,23 @@ Serving: ``forward``, ``forward_cached`` (prefill and decode over a
 preallocated KV cache) and ``generate``, which build no autograd graph.
 Training: ``loss`` and ``make_train_step``. Parameters are created
 without gradients (serving needs none); ``make_train_step`` turns them
-on. Sequence parallelism is ported: ``forward``, ``loss`` and
-``make_train_step`` take the reference's ``dp``/``sp``/``mesh``
-arguments, and with a :class:`~accl_tpu_torch.parallel.RankMesh` and an
-sp axis their attention is ring attention over the sequence shards
-(:mod:`accl_tpu_torch.parallel.ring_attention`). Tensor parallelism (a
-mesh without ``sp``; ROADMAP §A item 5) and MoE (ROADMAP §A item 9) are
-later slices.
+on. The reference's parallel arguments are ported over a
+:class:`~accl_tpu_torch.parallel.RankMesh` of virtual ranks: with a mesh
+and an sp axis, ``forward``, ``loss`` and ``make_train_step`` run ring
+attention over the sequence shards
+(:mod:`accl_tpu_torch.parallel.ring_attention`); with a mesh and no sp,
+they and ``forward_cached``/``generate`` run the reference's
+Megatron-style tensor parallelism over the tp axis
+(:mod:`accl_tpu_torch.parallel.tensor_parallel`: ``param_specs``,
+``shard_params``, one attention launch a layer over every rank's head
+shard, decode over per-rank KV-head shards of the cache). MoE (ROADMAP
+§A item 9) is a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import torch
 from torch import nn
@@ -34,6 +39,9 @@ from ..ops.attention import flash_attention, flash_decode
 from ..parallel.collectives import RankCollectives
 from ..parallel.mesh import resolve_device
 from ..parallel.ring_attention import ring_attention
+from ..parallel.tensor_parallel import (rank_matmul, shard_view,
+                                        tp_allreduce, vocab_parallel_embed,
+                                        vocab_parallel_logits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +102,33 @@ def _apply_rope(x, tables):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _mm(x, w):
+    """``x @ w``; with rank shards w (T, K, N), one GEMM a rank over the
+    rank rows of x (T, ..., K)."""
+    return x @ w if w.dim() == 2 else rank_matmul(x, w)
+
+
+def _heads_major(*ts):
+    """(..., S, heads, hd) -> (batch, heads, S, hd) contiguous, a rank
+    axis folded into the batch: the attention kernels' layout."""
+    return tuple(t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
+                 for t in ts)
+
+
+# the reference's Megatron layout (its ``param_specs``): the dimension of
+# each parameter that the tp axis splits, None where it is replicated
+_TP_DIM = {"embed": 0, "final_norm": None, "lm_head": 1, "attn_norm": None,
+           "wq": 1, "wk": 1, "wv": 1, "wo": 0, "mlp_norm": None,
+           "w_gate": 1, "w_up": 1, "w_down": 0}
+_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
+                "w_up", "w_down")
+
+
+def _tp_dim(name: str):
+    """The split dimension of the parameter ``name`` (a state-dict key)."""
+    return _TP_DIM[name.rsplit(".", 1)[-1]]
 
 
 def _param(*shape, dtype, device):
@@ -184,56 +219,126 @@ class Llama(nn.Module):
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
+    # -- sharding ----------------------------------------------------------
+    def param_specs(self, dp: str = "dp", tp: str = "tp") -> dict:
+        """The reference's partition specs (its ``param_specs``: Megatron
+        tensor parallelism, qkv, gate and up column-parallel, wo and down
+        row-parallel, the embedding and the lm_head split by vocabulary),
+        keyed by this module's ``state_dict`` names: one entry a
+        dimension, the tp axis name where that dimension is split, else
+        None. A layer's entry drops the reference's leading layer axis.
+        ``dp`` names no parameter dimension, as in the reference."""
+        return {name: tuple(tp if d == _tp_dim(name) else None
+                            for d in range(p.dim()))
+                for name, p in self.named_parameters()}
+
+    def shard_params(self, mesh, dp: str = "dp", tp: str = "tp") -> dict:
+        """Per-rank shards for a mesh with a ``tp`` axis of T ranks, keyed
+        by ``state_dict`` names: each parameter whose spec names ``tp``
+        as T shards along that dimension, a rank-major view (T, ...) of
+        the parameter itself (:func:`~accl_tpu_torch.parallel.
+        tensor_parallel.shard_view`: row r is rank r's shard, the
+        reference's addressable shard on every device of tp index r);
+        each other parameter as itself, which every rank reads. No
+        weight is copied, and gradients through a shard land on the
+        parameter."""
+        if tp not in mesh.shape:
+            raise ValueError(f"tp axis {tp!r} not in mesh "
+                             f"{tuple(mesh.shape)}")
+        if mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, model on "
+                             f"{self.device}")
+        T = mesh.shape[tp]
+        return {name: p if _tp_dim(name) is None
+                else shard_view(p, _tp_dim(name), T)
+                for name, p in self.named_parameters()}
+
+    def _rank_weights(self, mesh, tp: str):
+        """(embedding shards, one namespace of weights a layer, lm_head
+        shards) for the tp path: the matrices as rank shards, the norms
+        as they are."""
+        w = self.shard_params(mesh, tp=tp)
+        layers = [types.SimpleNamespace(**{
+            name: w[f"layers.{i}.{name}"] for name in _LAYER_NAMES})
+            for i in range(len(self.layers))]
+        return w["embed"], layers, w["lm_head"]
+
     # -- forward -----------------------------------------------------------
-    def _embed(self, tokens):
+    def _embed(self, tokens, coll=None, shards=None):
+        if coll is not None:
+            return vocab_parallel_embed(tokens, shards, coll,
+                                        self.config.dtype)
         return self.embed[tokens].to(self.config.dtype)
 
     def _qkv(self, x, lyr, rope):
+        """q, k, v (..., S, heads, hd) from x (..., S, D); with rank rows
+        x (T, B, S, D) and shards, each rank's own heads."""
         c = self.config
-        B, S, _ = x.shape
-        hd = c.head_dim
         h = _rms_norm(x, lyr.attn_norm.to(x.dtype), c.norm_eps)
-        q = (h @ lyr.wq.to(x.dtype)).reshape(B, S, c.n_heads, hd)
-        k = (h @ lyr.wk.to(x.dtype)).reshape(B, S, c.n_kv_heads, hd)
-        v = (h @ lyr.wv.to(x.dtype)).reshape(B, S, c.n_kv_heads, hd)
+        q, k, v = (_mm(h, w.to(x.dtype)).unflatten(-1, (-1, c.head_dim))
+                   for w in (lyr.wq, lyr.wk, lyr.wv))
         return _apply_rope(q, rope), _apply_rope(k, rope), v
 
-    def _finish_layer(self, x, lyr, attn):
+    def _finish_layer(self, x, lyr, attn, coll=None):
+        """The output projection and the FFN, with their residuals; with
+        rank rows, wo and down leave partial sums that ``coll`` sums."""
         c = self.config
-        x = x + attn @ lyr.wo.to(x.dtype)
-        h = _rms_norm(x, lyr.mlp_norm.to(x.dtype), c.norm_eps)
-        gate = torch.nn.functional.silu(h @ lyr.w_gate.to(h.dtype))
-        up = h @ lyr.w_up.to(h.dtype)
-        return x + (gate * up) @ lyr.w_down.to(h.dtype)
 
-    def _logits(self, x):
+        def reduce(t):
+            return t if coll is None else tp_allreduce(t, coll)
+
+        x = x + reduce(_mm(attn, lyr.wo.to(x.dtype)))
+        h = _rms_norm(x, lyr.mlp_norm.to(x.dtype), c.norm_eps)
+        gate = torch.nn.functional.silu(_mm(h, lyr.w_gate.to(h.dtype)))
+        up = _mm(h, lyr.w_up.to(h.dtype))
+        return x + reduce(_mm(gate * up, lyr.w_down.to(h.dtype)))
+
+    def _logits(self, x, shards=None):
         c = self.config
         x = _rms_norm(x, self.final_norm.to(x.dtype), c.norm_eps)
+        if shards is not None:
+            return vocab_parallel_logits(x, shards.to(c.dtype))
         return (x @ self.lm_head.to(c.dtype)).float()
 
     def _attention_path(self, B: int, S: int, dp, sp, mesh, tp):
         """The reference's choice of attention path (its ``forward``,
-        llama.py:326-383), as (the collectives of the sp axis when
-        attention is ring attention over the sequence shards, else None;
-        whether the kernels run, unsharded or on the ring)."""
+        llama.py:326-383), as (path, collectives): "flash" (the kernels,
+        unsharded), "dense" (the plain path: the reference's sharding
+        constraints place data and change no arithmetic), "ring" (ring
+        attention over the sp axis's collectives) or "tp" (tensor
+        parallelism over the tp axis's)."""
         c = self.config
         if c.attention != "flash" or mesh is None:
-            # dense, or names without a mesh: the reference's sharding
-            # constraints place data and change no arithmetic
-            return None, (c.attention == "flash" and dp is None
-                          and sp is None and mesh is None)
+            unsharded = (c.attention == "flash" and dp is None
+                         and sp is None and mesh is None)
+            return ("flash" if unsharded else "dense"), None
         if sp is None:
-            raise NotImplementedError(
-                f"tensor-parallel Llama (a mesh without sp, tp axis {tp!r}) "
-                f"is not ported yet (ROADMAP §A item 5)")
-        if sp not in mesh.shape:
-            raise ValueError(f"sp axis {sp!r} not in mesh "
-                             f"{tuple(mesh.shape)}")
-        if S % mesh.shape[sp]:
-            raise ValueError(
-                f"sequence length {S} not divisible by sp axis size "
-                f"{mesh.shape[sp]} — ring attention needs equal "
-                "sequence shards")
+            if tp not in mesh.shape:
+                raise ValueError(
+                    f"mesh given but tp axis {tp!r} is not in mesh "
+                    f"{tuple(mesh.shape)}: name the model axis via tp=, "
+                    "or omit mesh= for the unsharded fused kernel")
+            T = mesh.shape[tp]
+            if c.n_heads % T or c.n_kv_heads % T:
+                raise ValueError(
+                    f"tp axis size {T} must divide the head counts "
+                    f"(n_heads={c.n_heads}, n_kv_heads={c.n_kv_heads})")
+        else:
+            if sp not in mesh.shape:
+                raise ValueError(f"sp axis {sp!r} not in mesh "
+                                 f"{tuple(mesh.shape)}")
+            if S % mesh.shape[sp]:
+                raise ValueError(
+                    f"sequence length {S} not divisible by sp axis size "
+                    f"{mesh.shape[sp]} — ring attention needs equal "
+                    "sequence shards")
+        self._check_mesh(B, dp, mesh)
+        return (("tp", RankCollectives(mesh.group(tp))) if sp is None
+                else ("ring", RankCollectives(mesh.group(sp))))
+
+    def _check_mesh(self, B: int, dp, mesh):
+        """The dp axis and the device: the checks the sp, tp and decode
+        paths share."""
         if dp is not None and dp not in mesh.shape:
             raise ValueError(f"dp axis {dp!r} not in mesh "
                              f"{tuple(mesh.shape)}")
@@ -244,7 +349,6 @@ class Llama(nn.Module):
         if mesh.device != self.device:
             raise ValueError(f"mesh on {mesh.device}, model on "
                              f"{self.device}")
-        return RankCollectives(mesh.group(sp)), True
 
     def forward(self, tokens: torch.Tensor, dp: str | None = None,
                 sp: str | None = None, mesh=None,
@@ -257,35 +361,49 @@ class Llama(nn.Module):
         sequence, its q/k/v shards one contiguous copy a layer, and K/V
         travel the ring un-repeated. The row-wise layers (norms, RoPE at
         the global positions, GEMMs, FFN) run once over the whole
-        activation, every rank's slice in one launch, and the dp groups
-        ride the batch axis (B must divide by the dp axis size). ``sp``
-        or ``dp`` without a mesh, or ``attention="dense"``, take the
-        dense path, as the reference's do. A mesh without ``sp`` (tensor
-        parallelism, ``tp``) raises NotImplementedError."""
+        activation, every rank's slice in one launch.
+
+        With ``mesh`` and no ``sp``, the model is tensor-parallel over
+        the ``tp`` axis's T ranks (T must divide both head counts): the
+        activation is T rank rows (T, B, S, D), the embedding and the
+        lm_head are split by vocabulary, q/k/v, gate and up are
+        column-parallel (rank r: q heads r*H/T .., KV heads r*Hkv/T ..),
+        wo and down row-parallel with their partial sums all-reduced (2
+        a layer, 1 for the embedding), and attention is one launch a
+        layer over every rank's heads, the rank folded into the batch.
+
+        The dp groups ride the batch axis (B must divide by the dp axis
+        size). ``sp`` or ``dp`` without a mesh, or
+        ``attention="dense"``, take the dense path unsharded, as the
+        reference's do."""
         c = self.config
         B, S = tokens.shape
-        ring, use_flash = self._attention_path(B, S, dp, sp, mesh, tp)
-        x = self._embed(tokens)
+        path, coll = self._attention_path(B, S, dp, sp, mesh, tp)
+        tp_coll = coll if path == "tp" else None
+        emb = head = None
+        layers = self.layers
+        if tp_coll is not None:
+            emb, layers, head = self._rank_weights(mesh, tp)
+        x = self._embed(tokens, tp_coll, emb)
         rope = _rope_tables(torch.arange(S, device=x.device), c.head_dim,
                             c.rope_theta)
         rep = c.n_heads // c.n_kv_heads
-        mask = (None if use_flash else torch.tril(
+        mask = (None if path != "dense" else torch.tril(
             torch.ones(S, S, dtype=torch.bool, device=x.device)))
-        for lyr in self.layers:
+        for lyr in layers:
             q, k, v = self._qkv(x, lyr, rope)
-            if ring is not None:
+            if path == "ring":
                 # rank rows (W, B, h, S/W, hd): rank r's sequence slice
-                W = ring.W
+                W = coll.W
                 qr, kr, vr = (t.reshape(B, W, S // W, t.shape[2], c.head_dim)
                               .permute(1, 0, 3, 2, 4).contiguous()
                               for t in (q, k, v))
-                attn = ring_attention(qr, kr, vr, ring, causal=True)
+                attn = ring_attention(qr, kr, vr, coll, causal=True)
                 attn = attn.permute(1, 0, 3, 2, 4)       # (B, W, S/W, H, hd)
-            elif use_flash:
-                # KV heads stay un-repeated: the kernel routes each q head
-                qt, kt, vt = (t.transpose(1, 2).contiguous()
-                              for t in (q, k, v))
-                attn = flash_attention(qt, kt, vt, causal=True)
+            elif path != "dense":
+                # KV heads stay un-repeated: the kernel routes each q
+                # head; tp rank rows fold into the batch
+                attn = flash_attention(*_heads_major(q, k, v), causal=True)
                 attn = attn.transpose(1, 2)
             else:
                 k = k.repeat_interleave(rep, dim=2)
@@ -297,49 +415,104 @@ class Llama(nn.Module):
                                      torch.finfo(torch.float32).min)
                 probs = torch.softmax(scores, dim=-1).to(x.dtype)
                 attn = torch.matmul(probs, vt).transpose(1, 2)
-            attn = attn.reshape(B, S, c.n_heads * c.head_dim)
-            x = self._finish_layer(x, lyr, attn)
-        return self._logits(x)
+            attn = attn.reshape(*x.shape[:-1], -1)
+            x = self._finish_layer(x, lyr, attn, tp_coll)
+        return self._logits(x, head)
 
     # -- inference: KV-cache decode ----------------------------------------
-    def init_kv_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+    def _decode_path(self, B: int, mesh, dp, tp) -> RankCollectives:
+        """The reference's checks of sharded decode (its
+        ``forward_cached``, llama.py:494-517), then the tp axis's
+        collectives."""
+        c = self.config
+        if c.attention != "flash":
+            raise ValueError("mesh-sharded decode requires "
+                             "attention='flash'")
+        if tp not in mesh.shape:
+            raise ValueError(f"tp axis {tp!r} not in mesh "
+                             f"{tuple(mesh.shape)}")
+        T = mesh.shape[tp]
+        if c.n_heads % T or c.n_kv_heads % T:
+            raise ValueError(
+                f"tp axis size {T} must divide the "
+                f"head counts ({c.n_heads} q / {c.n_kv_heads} kv) "
+                "for sharded decode")
+        self._check_mesh(B, dp, mesh)
+        return RankCollectives(mesh.group(tp))
+
+    def init_kv_cache(self, batch: int, max_len: int, dtype=None,
+                      mesh=None, tp: str = "tp") -> dict:
         """Preallocated KV cache: k and v (L, B, max_len, Hkv, hd) and the
-        fill position ``pos``, a host int (a step needs no device sync)."""
+        fill position ``pos``, a host int (a step needs no device sync).
+        With ``mesh``, the cache of tensor-parallel decode over its
+        ``tp`` axis of T ranks: k and v (L, T, B, max_len, Hkv/T, hd),
+        rank r's KV heads r*Hkv/T .. one contiguous shard, which the
+        decode kernel reads where it lies (it is never gathered)."""
         c = self.config
         shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.head_dim)
+        if mesh is not None:
+            T = self._decode_path(batch, mesh, None, tp).W
+            shape = (c.n_layers, T, batch, max_len, c.n_kv_heads // T,
+                     c.head_dim)
         dt = dtype or c.dtype
         return {"k": torch.zeros(shape, dtype=dt, device=self.device),
                 "v": torch.zeros(shape, dtype=dt, device=self.device),
                 "pos": 0}
 
     @torch.no_grad()
-    def forward_cached(self, tokens: torch.Tensor, cache: dict):
+    def forward_cached(self, tokens: torch.Tensor, cache: dict, mesh=None,
+                       dp: str | None = None, tp: str = "tp"):
         """Logits (B, S_new, vocab) f32 for S_new tokens appended at
         ``cache["pos"]`` (prefill: the prompt; decode: one token), and
         the cache. Unlike the reference, which returns a new cache
         (``dynamic_update_slice``), this writes the new keys and values
         into ``cache`` IN PLACE and advances ``cache["pos"]``; the
         returned cache is the same dict. Raises when the tokens do not
-        fit (the reference silently clamps the write position)."""
+        fit (the reference silently clamps the write position).
+
+        With ``mesh``, decode is tensor-parallel over its ``tp`` axis (as
+        :meth:`forward`), on a cache from ``init_kv_cache(..., mesh=)``:
+        each layer's B12 runs once over every rank's KV-head shard, the
+        rank folded into the batch. A cache whose layout does not match
+        the mesh (or a sharded cache without one) raises ValueError."""
         c = self.config
         B, S = tokens.shape
+        coll = None if mesh is None else self._decode_path(B, mesh, dp, tp)
+        kshape = tuple(cache["k"].shape)
+        if coll is None and len(kshape) != 5:
+            raise ValueError(f"forward_cached: a cache of k {kshape} is "
+                             f"sharded over tp ranks: pass the mesh it was "
+                             f"built for")
+        if coll is not None and (len(kshape) != 6 or kshape[1] != coll.W
+                                 or kshape[4] != c.n_kv_heads // coll.W):
+            raise ValueError(f"forward_cached: a cache of k {kshape} is not "
+                             f"laid out for the mesh's {coll.W} tp ranks: "
+                             f"build it with init_kv_cache(..., mesh=mesh, "
+                             f"tp={tp!r})")
         pos = int(cache["pos"])
-        max_len = cache["k"].shape[2]
+        max_len = kshape[-3]
         if pos + S > max_len:
             raise ValueError(f"forward_cached: {S} tokens at position {pos} "
                              f"overrun the cache of {max_len}")
-        x = self._embed(tokens)
+        emb = head = None
+        layers = self.layers
+        if coll is not None:
+            emb, layers, head = self._rank_weights(mesh, tp)
+        x = self._embed(tokens, coll, emb)
         positions = pos + torch.arange(S, device=x.device)
         rope = _rope_tables(positions, c.head_dim, c.rope_theta)
         rep = c.n_heads // c.n_kv_heads
-        for i, lyr in enumerate(self.layers):
-            kc, vc = cache["k"][i], cache["v"][i]     # (B, max_len, Hkv, hd)
+        for i, lyr in enumerate(layers):
+            # (B, max_len, Hkv, hd), or (T, B, max_len, Hkv/T, hd)
+            kc, vc = cache["k"][i], cache["v"][i]
             q, k, v = self._qkv(x, lyr, rope)
-            kc[:, pos:pos + S] = k.to(kc.dtype)
-            vc[:, pos:pos + S] = v.to(vc.dtype)
+            kc[..., pos:pos + S, :, :] = k.to(kc.dtype)
+            vc[..., pos:pos + S, :, :] = v.to(vc.dtype)
             if c.attention == "flash":
-                attn = flash_decode(q.transpose(1, 2).contiguous(), kc, vc,
-                                    kv_len=pos + S)
+                # tp rank rows fold into the batch: one launch a layer
+                attn = flash_decode(*_heads_major(q), *(
+                    t.reshape(-1, *t.shape[-3:]) for t in (kc, vc)),
+                    kv_len=pos + S)
                 attn = attn.transpose(1, 2)
             else:
                 # the q group of each kv head folds into the product: no
@@ -354,18 +527,20 @@ class Llama(nn.Module):
                                      torch.finfo(torch.float32).min)
                 probs = torch.softmax(scores, dim=-1).to(x.dtype)
                 attn = torch.einsum("bkrst,btkd->bskrd", probs, vt)
-            attn = attn.reshape(B, S, c.n_heads * c.head_dim)
-            x = self._finish_layer(x, lyr, attn)
+            attn = attn.reshape(*x.shape[:-1], -1)
+            x = self._finish_layer(x, lyr, attn, coll)
         cache["pos"] = pos + S
-        return self._logits(x), cache
+        return self._logits(x, head), cache
 
     @torch.no_grad()
     def generate(self, prompt: torch.Tensor, max_new: int,
                  max_len: int | None = None, temperature: float = 0.0,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None, mesh=None,
+                 dp: str | None = None, tp: str = "tp") -> torch.Tensor:
         """Greedy (argmax, first index on ties) or temperature decode:
         prefill the prompt, then one cached step per new token. Returns
-        (B, max_new) int64 tokens."""
+        (B, max_new) int64 tokens. With ``mesh``: tensor-parallel decode
+        over its ``tp`` axis on a sharded cache (:meth:`forward_cached`)."""
         B, S = prompt.shape
         max_len = max_len or (S + max_new)
         # the last sampled token is never stepped: S + max_new - 1 slots
@@ -373,8 +548,8 @@ class Llama(nn.Module):
             raise ValueError(
                 f"max_len={max_len} too small for prompt {S} + "
                 f"{max_new - 1} cached decode steps")
-        cache = self.init_kv_cache(B, max_len)
-        logits, cache = self.forward_cached(prompt, cache)
+        cache = self.init_kv_cache(B, max_len, mesh=mesh, tp=tp)
+        logits, cache = self.forward_cached(prompt, cache, mesh, dp, tp)
         last = logits[:, -1]
         out = []
         for i in range(max_new):
@@ -385,7 +560,8 @@ class Llama(nn.Module):
                 tok = torch.argmax(last, dim=-1)
             out.append(tok)
             if i + 1 < max_new:
-                logits, cache = self.forward_cached(tok[:, None], cache)
+                logits, cache = self.forward_cached(tok[:, None], cache,
+                                                    mesh, dp, tp)
                 last = logits[:, -1]
         return torch.stack(out, dim=1)
 
@@ -409,15 +585,16 @@ class Llama(nn.Module):
         """Returns ``train_step(tokens) -> loss``: zero the gradients, take
         ``loss`` (with ``dp``, ``sp``, ``mesh``, ``tp`` as
         :meth:`forward`: ring attention over the sp shards when a mesh
-        and sp are given), backpropagate, ``optimizer.step()``; the loss
+        and sp are given, tensor parallelism over the tp axis when a mesh
+        and no sp are), backpropagate, ``optimizer.step()``; the loss
         comes back as a detached 0-dim f32 tensor. ``optimizer`` is built
-        over ``self.parameters()``, whose gradients this turns on.
+        over ``self.parameters()``, whose gradients this turns on (the tp
+        shards are views of them, so their gradients land there).
 
         This is the stateful PyTorch idiom for the reference's pure
         ``train_step(params, opt_state, tokens) -> (params, opt_state,
         loss)``: the module holds the parameters and the optimizer its
-        state, both updated in place. Tensor parallelism (a mesh without
-        sp) waits for ROADMAP §A item 5, MoE for item 9."""
+        state, both updated in place. MoE waits for ROADMAP §A item 9."""
         self.requires_grad_(True)
 
         def train_step(tokens: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""The dataplane: collectives over W ranks on one device, and the
-sequence-parallel attentions over them (ring and Ulysses)."""
+"""The dataplane: collectives over W ranks on one device, the
+sequence-parallel attentions over them (ring and Ulysses) and the
+tensor-parallel pieces (shard views, rank GEMMs, the tp all-reduce, the
+vocabulary-parallel embedding and logits)."""
 
 from .collectives import RankCollectives
 from .mesh import (RankGroup, RankMesh, communicator_from_mesh, cpu_mesh,
@@ -8,6 +10,8 @@ from .ring_attention import (block_update, ring_attention,
                              ring_attention_fwd, ring_attention_ref,
                              ring_attention_sharded,
                              ring_rounding_magnitudes)
+from .tensor_parallel import (rank_matmul, shard_view, tp_allreduce,
+                              vocab_parallel_embed, vocab_parallel_logits)
 from .tree import Tree2DCollectives
 from .ulysses import (heads_to_seq, seq_to_heads, ulysses_attention,
                       ulysses_attention_sharded)
@@ -15,7 +19,9 @@ from .ulysses import (heads_to_seq, seq_to_heads, ulysses_attention,
 __all__ = ["RankCollectives", "RankGroup", "RankMesh", "Tree2DCollectives",
            "block_update", "communicator_from_mesh", "cpu_mesh",
            "heads_to_seq", "make_group", "make_mesh",
-           "mesh_from_communicator", "ring_attention", "ring_attention_fwd",
-           "ring_attention_ref", "ring_attention_sharded",
-           "ring_rounding_magnitudes", "seq_to_heads",
-           "ulysses_attention", "ulysses_attention_sharded"]
+           "mesh_from_communicator", "rank_matmul", "ring_attention",
+           "ring_attention_fwd", "ring_attention_ref",
+           "ring_attention_sharded", "ring_rounding_magnitudes",
+           "seq_to_heads", "shard_view", "tp_allreduce",
+           "ulysses_attention", "ulysses_attention_sharded",
+           "vocab_parallel_embed", "vocab_parallel_logits"]

@@ -172,6 +172,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
    FLOP/s, busy share and peak memory beside phase 9's. The launches of
    10b and 10d make the ``sp`` entry of each attention record's
    ``launches_by_path``.
+11. Tensor parallelism (the Megatron-sharded Llama over the virtual
+   ranks of a tp axis), in three parts. 11a (inside phase 7, after 10b,
+   on its 32-layer bf16 model and prompts): ``forward``,
+   ``generate(max_new=32)`` and ``forward_cached`` over a dp 2 x tp 4
+   mesh; the forward, the prefill and a decode step from the same token
+   within SERVE_DENSE_REL of the unsharded ones (greedy agreement
+   printed), generate's token agreement with phase 7's printed; B8 32 a
+   forward, B12 prefill 32 and decode 32 a step, 2 tp all-reduces a
+   layer and 1 for the embedding, every bf16 launch on the tensor-core
+   route, the first and last layer's kernel calls held against their
+   plain versions at the path's shapes; the sharded cache the same
+   tensors (data_ptr) through a prefill and 17 steps; forward, prefill
+   and decode times beside phase 7's, the tp all-reduce's device ms and
+   the shard views' host ms, a column GEMM on the strided shards
+   allocating no byte beyond its output (timed beside contiguous
+   shards), busy share, kernels by family, peak memory. 11b (after 10c): the 2-layer
+   f32 model's loss and every gradient with tp = 4 and tp = 2 against
+   the unsharded flash model's (GRAD_LOSS_REL, GRAD_REL_L2). 11c (inside
+   phase 9, after 10d): phase 9's model re-initialised from its seed, a
+   fresh Adam, ``make_train_step`` over a dp 2 x tp 4 mesh, 4 steps
+   that must fall, the first loss within 2^-8 of phase 9's, B8, B10 and
+   B11 8 a step, 34 tp all-reduces a step; step ms, tokens/s, model
+   FLOP/s, busy share and peak memory beside phase 9's. The launches of
+   11a and 11c make the ``tp`` entry of each attention record's
+   ``launches_by_path``.
 
 Each phase starts with a line of the device memory allocated.
 
@@ -2560,9 +2585,11 @@ def serving_phase():
     print(f"serving peak memory (phases 7 and 7b): "
           f"{(peak - held) / 2 ** 30:.2f} GiB "
           f"above the {held / 2 ** 30:.2f} GiB held before the phase")
+    tp_launches = tp_serving_phase(model, prompts, out, dict(
+        fwd_ms=fwd_ms, pre_ms=pre_ms, dec_ms=dec_ms))
     del model, short
     torch.cuda.empty_cache()
-    return launches, disagg, sp_launches
+    return launches, disagg, sp_launches, tp_launches
 
 
 # -- phase 7b: disaggregated serving over put-with-notify --------------------
@@ -3125,7 +3152,9 @@ def grad_check_phase():
     model, its config switched between the two; the loss and every
     parameter's gradient. Phase 10c: the same model's loss over a mesh
     of 4 ranks on the sp axis (ring attention, f32 B9, B10 and B11 a
-    visible block) against the unsharded flash run."""
+    visible block) against the unsharded flash run. Phase 11b: the same
+    over a tp axis of each TP_GRAD_SIZES size (B8, B10 and B11 once a
+    layer over every rank's head shard)."""
     import dataclasses
     import torch
     from accl_tpu_torch.models import Llama, LlamaConfig
@@ -3180,6 +3209,26 @@ def grad_check_phase():
     need_routes(sp_launches, False, "sp gradients")
     compare("sp", "flash", "sp gradients (sp = 4, ring attention) vs the "
             "unsharded flash model")
+    del runs["dense"], runs["sp"]
+    L = cfg.n_layers
+    for T in TP_GRAD_SIZES:
+        phase(f"phase 11b: tensor-parallel gradients, f32, tp = {T}")
+        zero_tp_counts()
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(tokens, mesh=make_mesh((T,), ("tp",)))
+        loss.backward()
+        runs["tp"] = (loss.item(), {k: p.grad for k, p in
+                                    model.named_parameters()})
+        launches = tp_counts()
+        print(f"tp gradient launches: {launches}")
+        need_tp_launches(launches, {
+            "attn_fwd": L, "attn_bwd_dkv": L, "attn_bwd_dq": L,
+            "tp_allreduce": 2 * (2 * L + 1)}, f"tp {T} gradients")
+        need_routes(launches, False, f"tp {T} gradients")
+        compare("tp", "flash", f"tp gradients (tp = {T}, "
+                f"{cfg.n_heads // T}/{cfg.n_kv_heads // T} heads a rank) vs "
+                f"the unsharded flash model")
+        del runs["tp"], loss
     del model, runs
     torch.cuda.empty_cache()
 
@@ -3337,9 +3386,10 @@ def training_phase():
                                      if fams else "not measured")}
     del opt, step
     sp_launches = sp_training_phase(model, tokens, phase9)
+    tp_launches = tp_training_phase(model, tokens, phase9)
     del model, tokens
     torch.cuda.empty_cache()
-    return launches, sp_launches
+    return launches, sp_launches, tp_launches
 
 
 # -- phase 10: sequence parallelism (ring attention, Ulysses, the sp Llama) --
@@ -3793,6 +3843,296 @@ def sp_training_phase(model, tokens, phase9: dict) -> dict:
     return launches
 
 
+# -- phase 11: tensor parallelism (the Megatron-sharded Llama) ---------------
+
+TP_MESH = (2, 4)           # phases 11a and 11c: dp x tp
+TP_GRAD_SIZES = (4, 2)     # phase 11b: tp axis sizes (both GQA at 32/8 heads)
+TP_TRAIN_LOSS_REL = 2.0 ** -8
+
+
+def tp_counts() -> dict:
+    """The attention launch counters and the tp all-reduces run."""
+    from accl_tpu_torch.parallel import tensor_parallel as TP
+    return {**attention_counters(), "tp_allreduce": TP.allreduce_calls}
+
+
+def zero_tp_counts():
+    from accl_tpu_torch.parallel import tensor_parallel as TP
+    zero_attention_counters()
+    TP.allreduce_calls = 0
+
+
+def need_tp_launches(got: dict, want: dict, what: str):
+    """Each counter of ``want`` at its value and every other attention
+    kernel not launched."""
+    for key in ("attn_fwd", "attn_fwd_single", "attn_decode",
+                "attn_prefill", "attn_bwd_dkv", "attn_bwd_dq",
+                "tp_allreduce"):
+        need(got[key] == want.get(key, 0), f"{what}: {key} ran {got[key]} "
+             f"times, want {want.get(key, 0)}")
+
+
+def tp_serving_phase(model, prompts, out, phase7: dict):
+    """Phase 11a, on phase 7's model (Llama-3-8B, bf16, 32 layers) and
+    prompts: ``forward``, ``generate`` and ``forward_cached`` with a dp x
+    tp mesh (TP_MESH) against the unsharded path; launches, the cache
+    left in place, times beside phase 7's, busy share, kernels by family,
+    peak memory."""
+    import torch
+    from accl_tpu_torch.parallel import RankCollectives, make_mesh
+    from accl_tpu_torch.parallel import tensor_parallel as TP
+    phase("phase 11a: tensor-parallel Llama serving")
+    cfg = model.config
+    L = cfg.n_layers
+    B, S = prompts.shape
+    NEW = out.shape[1]
+    mesh = make_mesh(TP_MESH, ("dp", "tp"), prompts.device)
+    T = mesh.shape["tp"]
+    tp_kw = dict(mesh=mesh, dp="dp")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), attention_calls(L) as calls:
+        zero_tp_counts()
+        tp_logits = model(prompts, **tp_kw)
+        torch.cuda.synchronize()
+        fwd = tp_counts()
+        need_tp_launches(fwd, {"attn_fwd": L, "tp_allreduce": 2 * L + 1},
+                         "tp forward")
+        need_routes(fwd, True, "tp forward")
+        full = model(prompts)
+        need(tp_logits.shape == full.shape == (B, S, cfg.vocab_size)
+             and bool(torch.isfinite(tp_logits).all()),
+             f"tp forward: shape {tuple(tp_logits.shape)} or non-finite "
+             f"logits")
+        rel = rel_l2(tp_logits, full)
+        agree = float((tp_logits.argmax(-1) == full.argmax(-1)).float()
+                      .mean())
+        del tp_logits, full
+        print(f"tp forward, Llama-3-8B bf16 {L} layers, {B}x{S} tokens, dp "
+              f"{TP_MESH[0]} x tp {T} (B8 once a layer over {T * B} rank "
+              f"rows of {cfg.n_heads // T}/{cfg.n_kv_heads // T} heads, "
+              f"{2 * L + 1} tp all-reduces) vs the unsharded forward: "
+              f"relative L2 {rel:.4g} (limit {SERVE_DENSE_REL}), greedy "
+              f"agreement {agree:.4f}")
+        need(rel <= SERVE_DENSE_REL, "tp forward: tp and unsharded logits "
+             "differ")
+        zero_tp_counts()
+        tp_out = model.generate(prompts, max_new=NEW, **tp_kw)
+        torch.cuda.synchronize()
+        gen = tp_counts()
+        need_tp_launches(gen, {"attn_prefill": L,
+                               "attn_decode": L * (NEW - 1),
+                               "tp_allreduce": (2 * L + 1) * NEW},
+                         "tp generate")
+        need_routes(gen, True, "tp generate")
+        need(tp_out.shape == (B, NEW) and bool(
+            ((tp_out >= 0) & (tp_out < cfg.vocab_size)).all()),
+             f"tp generate: shape {tuple(tp_out.shape)} or a token outside "
+             f"the vocabulary")
+        same = (tp_out == out).float()
+        lead = int(same.cumprod(1).sum(1).min())
+        print(f"tp generate (max_new={NEW}) vs the unsharded generate: "
+              f"token agreement {float(same.mean()):.4f}, every sequence "
+              f"equal through its first {lead} tokens")
+        hold_path_calls(calls, "tp serving")
+        del calls
+    launches = {k: fwd[k] + gen[k] for k in fwd}
+    print(f"tp serving launches (forward, generate): {launches}")
+
+    def prefill():
+        c = model.init_kv_cache(B, S + NEW, mesh=mesh)
+        return model.forward_cached(prompts, c, **tp_kw)
+
+    def decode_steps(state, n):
+        logits, c = state
+        ts = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            tok = logits[:, -1].argmax(-1)
+            logits, c = model.forward_cached(tok[:, None], c, **tp_kw)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return ts
+
+    with torch.no_grad():
+        # the cache stays where init_kv_cache put it: the same tensors,
+        # the same storage, no gathered copy, through a prefill and 16
+        # steps
+        state = prefill()
+        cache = state[1]
+        # one decode step from the same token, tp against unsharded
+        plain_cache = model.init_kv_cache(B, S + NEW)
+        plain_pre, _ = model.forward_cached(prompts, plain_cache)
+        tok = plain_pre[:, -1].argmax(-1)[:, None]
+        plain_step, _ = model.forward_cached(tok, plain_cache)
+        tp_step, _ = model.forward_cached(tok, cache, **tp_kw)
+        for what, a, b in (("prefill", state[0], plain_pre),
+                           (f"decode step at {S}", tp_step, plain_step)):
+            rel = rel_l2(a, b)
+            print(f"tp {what} (forward_cached) vs unsharded: relative L2 "
+                  f"{rel:.4g} (limit {SERVE_DENSE_REL}), greedy agreement "
+                  f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.4f}")
+            need(rel <= SERVE_DENSE_REL, f"tp {what}: tp and unsharded "
+                 f"logits differ")
+        del plain_cache, plain_pre, plain_step, tp_step
+        state = (state[0], cache)
+        ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
+        k_obj = cache["k"]
+        before = torch.cuda.memory_allocated()
+        dec_ms = statistics.median(decode_steps(state, 16))
+        need(cache["k"] is k_obj and (cache["k"].data_ptr(),
+                                      cache["v"].data_ptr()) == ptrs
+             and cache["k"].shape == (L, T, B, S + NEW, cfg.n_kv_heads // T,
+                                      cfg.head_dim),
+             "tp decode: the cache moved or changed its layout")
+        print(f"tp decode cache: k and v {tuple(cache['k'].shape)} "
+              f"{cache['k'].dtype}, data_ptr unchanged through the prefill "
+              f"and 17 steps (no gather); {(torch.cuda.memory_allocated() - before) / 2 ** 20:.1f} MiB "
+              f"more allocated after the steps")
+        del state, cache, k_obj
+        fwd_ms = host_ms(lambda: model(prompts, **tp_kw))
+        pre_ms = host_ms(prefill)
+        print(f"tp forward: {fwd_ms:.2f} ms for {B}x{S} tokens "
+              f"({B * S / fwd_ms * 1e3:.0f} tokens/s; phase 7: "
+              f"{phase7['fwd_ms']:.2f} ms, {B * S / phase7['fwd_ms'] * 1e3:.0f}"
+              f" tokens/s; {fwd_ms / phase7['fwd_ms']:.3f}x; host clock, "
+              f"median of 3)")
+        print(f"tp prefill: {pre_ms:.2f} ms ({B * S / pre_ms * 1e3:.0f} "
+              f"tokens/s; phase 7: {phase7['pre_ms']:.2f} ms, "
+              f"{B * S / phase7['pre_ms'] * 1e3:.0f} tokens/s)")
+        print(f"tp decode: {dec_ms:.3f} ms per step of {B} tokens (phase 7: "
+              f"{phase7['dec_ms']:.3f}; median of 16 steps at positions "
+              f"{S + 1}..{S + 16})")
+        # the tp all-reduce alone at the path's shape (T rows of the
+        # prefill's activation, bf16), and the host time of the shard
+        # views a forward builds
+        coll = RankCollectives(mesh.group("tp"))
+        rows = torch.randn(T, B, S, cfg.dim, device=prompts.device,
+                           dtype=cfg.dtype)
+        ar_ms = time_ms(lambda: TP.tp_allreduce(rows, coll))
+        views_ms = host_ms(lambda: model.shard_params(mesh))
+        print(f"tp all-reduce of {T} x {B}x{S}x{cfg.dim} bf16 rows: "
+              f"{ar_ms:.4f} ms device time (behind a GPU sleep, median of "
+              f"20), {(2 * L + 1) * ar_ms:.2f} ms for a forward's "
+              f"{2 * L + 1}; shard_params (the views a forward builds): "
+              f"{views_ms:.3f} ms host clock")
+        state = prefill()
+        for what, fn, window in (
+                ("forward", lambda: model(prompts, **tp_kw), fwd_ms),
+                ("prefill", prefill, pre_ms),
+                ("decode x8", lambda: decode_steps(state, 8), 8 * dec_ms)):
+            fams = device_ms_by_family(fn)
+            if not fams:
+                print(f"tp {what}: busy share not measured (the profiler "
+                      f"saw no device activity)")
+                continue
+            busy = sum(fams.values())
+            print(f"tp {what}: {busy:.2f} ms of kernels in a {window:.2f} "
+                  f"ms host-clock window, busy share {busy / window:.3f}; "
+                  + ", ".join(f"{f} {ms:.2f} ms" for f, ms in sorted(
+                      fams.items(), key=lambda x: -x[1])))
+        del state
+    print(f"tp serving peak memory: "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2 ** 30:.2f} GiB "
+          f"above the {held / 2 ** 30:.2f} GiB held before it")
+    with torch.no_grad():
+        # one column GEMM on the strided wq shards: a copy of the shards
+        # inside bmm would allocate their bytes beyond the output's, and
+        # the strided call would trail the same call on contiguous shards
+        wq = model.shard_params(mesh)["layers.0.wq"]
+        wq_c = wq.contiguous()
+        TP.rank_matmul(rows, wq)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = TP.rank_matmul(rows, wq)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before - y.nbytes
+        del y
+        strided_ms = time_ms(lambda: TP.rank_matmul(rows, wq))
+        contig_ms = time_ms(lambda: TP.rank_matmul(rows, wq_c))
+        print(f"tp column GEMM on the wq shards {tuple(wq.shape)} strides "
+              f"{wq.stride()}: {extra} bytes allocated beyond its output "
+              f"(a copy of the shards: {wq_c.nbytes}); {strided_ms:.4f} ms, "
+              f"on contiguous shards {contig_ms:.4f} ms (device, median of "
+              f"20)")
+        need(extra < wq_c.nbytes, "tp: bmm copied the strided weight shards")
+        del rows, wq, wq_c
+    return launches
+
+
+def tp_training_phase(model, tokens, phase9: dict) -> dict:
+    """Phase 11c, after phase 10d: the same model re-initialised in place
+    from phase 9's seed, a fresh Adam(lr=1e-4), the same batch,
+    ``make_train_step`` over a dp x tp mesh (TP_MESH): 4 steps. Returns
+    the path's launch counts."""
+    import torch
+    from accl_tpu_torch.parallel import make_mesh
+    phase("phase 11c: tensor-parallel training")
+    cfg = model.config
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.init(torch.Generator(device=tokens.device).manual_seed(SEED + 11))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    mesh = make_mesh(TP_MESH, ("dp", "tp"), tokens.device)
+    step = model.make_train_step(opt, dp="dp", mesh=mesh)
+    T = mesh.shape["tp"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_tp_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = tp_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"tp training losses {losses}; step ms (host clock) {times}")
+    print(f"tp training launches: {launches}")
+    need(all(np.isfinite(x) for x in losses), "tp training: non-finite loss")
+    need(losses[-1] < losses[0], "tp training: the loss did not fall")
+    first_rel = abs(losses[0] - phase9["loss"]) / abs(phase9["loss"])
+    print(f"tp training first loss {losses[0]:.7f} vs phase 9's "
+          f"{phase9['loss']:.7f}: relative {first_rel:.3g} (limit "
+          f"{TP_TRAIN_LOSS_REL})")
+    need(first_rel <= TP_TRAIN_LOSS_REL, "tp training: the first loss "
+         "departs from phase 9's")
+    per_run = cfg.n_layers * TRAIN_STEPS
+    # forward and backward: 2 all-reduces a layer and 1 for the embedding
+    need_tp_launches(launches, {
+        "attn_fwd": per_run, "attn_bwd_dkv": per_run, "attn_bwd_dq": per_run,
+        "tp_allreduce": 2 * (2 * cfg.n_layers + 1) * TRAIN_STEPS},
+        "tp training")
+    need_routes(launches, True, "tp training")
+    step_ms = statistics.median(times[1:])
+    tokens_n = tokens.numel()
+    flops = phase9["flops"]
+    fams = device_ms_by_family(lambda: step(tokens))
+    busy = sum(fams.values())
+    print(f"tp training step (dp {TP_MESH[0]} x tp {T}, B8, B10, B11 once a "
+          f"layer over {T * tokens.shape[0]} rank rows): {step_ms:.2f} ms "
+          f"(phase 9: {phase9['step_ms']:.2f}; {step_ms / phase9['step_ms']:.3f}x;"
+          f" host clock, median of steps 2-{TRAIN_STEPS}), "
+          f"{tokens_n / step_ms * 1e3:.0f} tokens/s (phase 9: "
+          f"{tokens_n / phase9['step_ms'] * 1e3:.0f}), "
+          f"{flops / (step_ms / 1e3) / 1e12:.1f} model TFLOP/s = "
+          f"{flops / (step_ms / 1e3) / BF16_OPS_PER_S:.1%} of 989 (phase 9: "
+          f"{flops / (phase9['step_ms'] / 1e3) / 1e12:.1f}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (phase 9: {phase9['peak'] / 2 ** 30:.2f})")
+    print("tp training step under the profiler: " + (
+        f"{busy:.2f} ms of kernels, busy share {busy / step_ms:.3f} "
+        f"(phase 9: {phase9['busy']}); " + ", ".join(
+            f"{f} {ms:.2f} ms" for f, ms in sorted(fams.items(),
+                                                   key=lambda x: -x[1]))
+        if fams else "busy share not measured (the profiler saw no device "
+        "activity)"))
+    need(peak <= TRAIN_MAX_PEAK, "tp training: peak memory past the limit")
+    del opt, step
+    return launches
+
+
 def phase(name: str):
     """One line at the start of each phase: the seconds since the script
     started and what the device holds."""
@@ -3842,7 +4182,8 @@ def main() -> int:
     need_routes(by_path["model_f32"], False, "model phase")
     phase("phase 7: serving")
     # each path (7, 7b and 10b) zeroes the counts itself
-    by_path["serving"], by_path["disaggregated"], sp_fwd = serving_phase()
+    (by_path["serving"], by_path["disaggregated"], sp_fwd,
+     tp_serve) = serving_phase()
     phase("phase 8: attention backward kernels")
     wgmma_kernels_checked()
     attention_bwd_edges(rng)
@@ -3855,10 +4196,12 @@ def main() -> int:
     held = torch.cuda.memory_allocated()
     need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still allocated "
          f"before the training phase (limit 2 GiB)")
-    # phases 9 and 10d zero the counts themselves
-    by_path["training"], sp_train = training_phase()
+    # phases 9, 10d and 11c zero the counts themselves
+    by_path["training"], sp_train, tp_train = training_phase()
     # the sequence-parallel path: the sp forward (10b) and training (10d)
     by_path["sp"] = {k: sp_fwd[k] + sp_train[k] for k in sp_fwd}
+    # the tensor-parallel path: serving (11a) and training (11c)
+    by_path["tp"] = {k: tp_serve[k] + tp_train[k] for k in sp_fwd}
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 10a: ring attention and Ulysses kernels")

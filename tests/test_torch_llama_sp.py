@@ -205,10 +205,3 @@ def test_sp_errors_match_reference(case, pair, tokens, ref_mesh):
                     "batch": 'f"batch {B} not divisible by dp axis size "'}
         assert template[case] in src
 
-
-def test_mesh_without_sp_is_not_implemented(pair, tokens):
-    port = _port(pair)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port(_t(tokens), mesh=cpu_mesh(4, (4,), ("tp",)))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port.loss(_t(tokens), dp="dp", mesh=_mesh())
