@@ -12,6 +12,12 @@ stream ports and ``stream_put``) run through the same kernels, and so
 does one-sided RMA (registered windows, ``put`` with notify, ``get``:
 :mod:`.rma`), which carries the serving control plane
 (:mod:`.serving`: KV-block placement and continuous batching). The
+driver's call contract (``retries=`` / ``retry_policy=``, :mod:`.retry`;
+``chain=``) covers every data call; communicators split, shrink, grow
+and are revoked; ``alltoallv`` moves uneven chunks and ``redistribute``
+changes an array's sharding (:mod:`.hier`), which carry the elastic
+decode pool (:mod:`.serving.elastic`) and the host workloads
+(:mod:`.workloads`: MoE dispatch and combine, ring attention). The
 Llama serving path
 (:mod:`.models`: forward, KV-cache prefill and decode, generate) runs its
 attention through hand-written kernels too (flash attention forward and
@@ -32,6 +38,7 @@ from .constants import (ACCLError, CCLOp, CfgFunc, Compression, ErrorCode,
                         ReduceFunc, StreamFlags, TAG_ANY, decode_error)
 from .device.cuda import CudaContext, CudaDevice, cuda_world
 from .models import Llama, LlamaConfig
+from .retry import RetryPolicy
 
 __version__ = "0.1.0"
 
@@ -40,6 +47,7 @@ __all__ = [
     "CallHandle", "CCLOp", "CfgFunc", "Communicator", "Compression",
     "CudaContext", "CudaDevice", "DEFAULT_ARITH_CONFIGS", "ErrorCode",
     "Llama", "LlamaConfig",
-    "Rank", "ReduceFunc", "StreamFlags", "TAG_ANY", "cuda_world",
+    "Rank", "ReduceFunc", "RetryPolicy", "StreamFlags", "TAG_ANY",
+    "cuda_world",
     "decode_error", "resolve_arith_config", "wait_all",
 ]

@@ -9,7 +9,9 @@ A buffer is either
   reference's ``to_from_fpga=False`` mode).
 
 Calls pass integer addresses (4 KiB aligned, like the reference's
-SimBuffer); the backend resolves an address back to its buffer.
+SimBuffer); the backend resolves an address back to its buffer. A basic
+slice of a buffer (``buf[a:b]``) is a sub-buffer view: the same memory,
+registered under an address of its own.
 ``.data`` returns numpy where numpy has the dtype (a view of a host
 mirror, a fresh snapshot of a device-resident tensor), else a CPU tensor.
 """
@@ -71,6 +73,7 @@ class ACCLBuffer:
         self.device = device
         self.address = (address if address is not None
                         else _alloc_addr(self.nbytes))
+        self._views: dict[tuple, "ACCLBuffer"] = {}
         if device is not None:
             device.register_buffer(self)
 
@@ -115,6 +118,27 @@ class ACCLBuffer:
 
     def __len__(self) -> int:
         return self._shape[0]
+
+    def __getitem__(self, key) -> "ACCLBuffer":
+        """A sub-buffer view of a basic, contiguous slice: writes through
+        it reach this buffer. Views are cached per (offset, shape), so
+        slicing the same range again registers nothing new."""
+        view = self._t[key]
+        if (not isinstance(view, torch.Tensor) or view.dim() == 0
+                or view.untyped_storage().data_ptr()
+                != self._t.untyped_storage().data_ptr()):
+            raise ValueError("buffer slices must be views (no fancy "
+                             "indexing)")
+        if not view.is_contiguous():
+            raise ValueError(
+                "buffer slices must be contiguous (calls transfer flat "
+                "element ranges); use a copy for strided access")
+        vk = (view.storage_offset(), tuple(view.shape))
+        sub = self._views.get(vk)
+        if sub is None:
+            sub = self._views[vk] = ACCLBuffer(
+                view, device=self.device, device_resident=self._resident)
+        return sub
 
     def free_buffer(self):
         if self.device is not None:

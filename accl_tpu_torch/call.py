@@ -1,9 +1,10 @@
 """Call descriptors and asynchronous call handles.
 
 The descriptor is the reference's 15-word call record as a dataclass;
-the handle is a future the backend completes with one error word.
-``waitfor=`` chaining is preserved: a backend starts a call only after
-its dependencies complete.
+the handle is a future the backend completes with one error word, and
+runs its done callbacks (:meth:`CallHandle.add_done_callback`) before
+it wakes its waiters. ``waitfor=`` chaining is preserved: a backend
+starts a call only after its dependencies complete.
 """
 
 from __future__ import annotations
@@ -36,6 +37,14 @@ class CallDescriptor:
     # caller's ABSOLUTE deadline (time.monotonic() seconds), set by
     # Device.call_sync: a parked rendezvous deposit never outlives it
     deadline: Any = None
+    # alltoallv's count vectors: (send_counts, recv_counts), comm.size
+    # elements each, in elements of the uncompressed dtype; None for
+    # every fixed-count op. ``count`` is max(sum(send), sum(recv)).
+    counts: Any = None
+    # the cross-call pipelining hint of an async ``chain=True`` call: its
+    # buffers are disjoint from the still-draining predecessor's. A
+    # backend without cross-call pipelining (this one) ignores it.
+    chain: bool = False
 
 
 class CallHandle:
@@ -48,6 +57,8 @@ class CallHandle:
         self._error_word = 0
         self._result: Any = None
         self._exception: BaseException | None = None
+        self._callbacks: list = []
+        self._cb_lock = threading.Lock()
         self.context = context
 
     def complete(self, error_word: int = 0, result: Any = None,
@@ -55,7 +66,28 @@ class CallHandle:
         self._error_word = int(error_word)
         self._result = result
         self._exception = exception
+        # callbacks run BEFORE the waiters wake: a thread returning from
+        # wait() sees every callback's effect
+        with self._cb_lock:
+            callbacks, self._callbacks = self._callbacks, []
+        for cb in callbacks:
+            try:
+                cb(self._error_word)
+            except Exception:  # noqa: BLE001 - a raising observer must
+                pass           # not fail the backend's completion
         self._done.set()
+
+    def add_done_callback(self, fn):
+        """Call ``fn(error_word)`` when the call retires (at once when it
+        already has)."""
+        with self._cb_lock:
+            if not self._done.is_set():
+                self._callbacks.append(fn)
+                return
+        try:
+            fn(self._error_word)
+        except Exception:  # noqa: BLE001
+            pass
 
     def wait(self, timeout: float | None = None) -> Any:
         if not self._done.wait(timeout):
@@ -86,6 +118,8 @@ class _AlwaysSet:
 
 
 _ALWAYS_SET = _AlwaysSet()
+_SHARED_CB_LOCK = threading.Lock()  # uncontended: callbacks of retired
+#                                     handles run at once
 
 
 class CompletedHandle(CallHandle):
@@ -97,6 +131,8 @@ class CompletedHandle(CallHandle):
         self._error_word = int(error_word)
         self._result = result
         self._exception = None
+        self._callbacks: list = []
+        self._cb_lock = _SHARED_CB_LOCK
         self.context = context
 
 

@@ -103,6 +103,19 @@ class Device(abc.ABC):
         collective. A backend without RMA has nothing pending."""
         return []
 
+    # -- elastic membership (ACCL.grow_communicator, ACCL.revoke) -------------
+    def join_handshake(self, comm: Communicator, timeout: float) -> int:
+        """Bootstrap handshake of a grown communicator: 0 once every
+        member agrees, else a typed error word. A single controller holds
+        every rank, so membership is a host-side fact and the handshake
+        succeeds at once, as on the reference's device tier."""
+        return 0
+
+    def abort_comm(self, comm_id: int, err: int):
+        """Fail this rank's calls in flight on ``comm_id`` with ``err``
+        now, and latch ``err`` for the ones still to run. Default: no-op
+        (the driver's revoked-comm check refuses the next call)."""
+
     def soft_reset(self):
         """Parity: HOUSEKEEP_SWRST."""
 

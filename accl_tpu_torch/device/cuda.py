@@ -34,12 +34,22 @@ Buffers stage in two ways:
   dispatch is; ``torch.cuda.synchronize()`` waits for them.
 
 This package executes the collectives (allreduce, reduce_scatter,
-allgather, alltoall, bcast, scatter, gather, reduce, barrier) on every
-wire: full precision, the per-tensor lanes (f16, bf16, fp8 with one
+allgather, alltoall, alltoallv, bcast, scatter, gather, reduce, barrier)
+on every wire: full precision, the per-tensor lanes (f16, bf16, fp8 with one
 scale per payload) and the block-scaled fp8/int8 lane. Rooted ops take
 the 2D tree when the world folds into one (AUTO, or TREE where legal;
 a compressed reduce never does). ``copy`` and ``combine`` run on the
 device (``combine`` on B1, a compressed operand or result through B2).
+``alltoallv`` is a rendezvous group like the others whose members' counts
+differ: the launch checks the members' count vectors against each other
+(``DMA_MISMATCH_ERROR`` for all of them when they disagree) and moves the
+chunks through :func:`~accl_tpu_torch.parallel.collectives.alltoallv`.
+
+Membership: :meth:`CudaDevice.abort_comm` (``ACCL.revoke``) fails this
+rank's parked collective deposits and waiting receives on the comm at
+once and latches the error for its calls still to run, until the comm id
+is configured again (a grow back to it), which also restarts the comm's
+call sequence.
 
 One-sided RMA: each rank has a :class:`~accl_tpu_torch.rma.WindowRegistry`
 and a :class:`~accl_tpu_torch.rma.NotifyQueue`. ``put`` resolves
@@ -98,7 +108,7 @@ log = get_logger(__name__)
 
 _COLLECTIVES = {CCLOp.bcast, CCLOp.scatter, CCLOp.gather, CCLOp.reduce,
                 CCLOp.allgather, CCLOp.allreduce, CCLOp.reduce_scatter,
-                CCLOp.alltoall, CCLOp.barrier}
+                CCLOp.alltoall, CCLOp.alltoallv, CCLOp.barrier}
 
 # (op) -> (input, output) elements per rank, in units of the call's count
 _DENSE = {CCLOp.allreduce: (1, 1), CCLOp.allgather: (1, "W"),
@@ -499,6 +509,8 @@ class CudaDevice(Device):
         self.sport = DeviceStreamPort(ctx.device)
         self.windows = WindowRegistry(owner=f"cuda-rank{rank}")
         self.notify = NotifyQueue()
+        # comm_id -> error word latched by abort_comm (ACCL.revoke)
+        self._aborted: dict[int, int] = {}
         self._closed = False                # set by deinit
         self._calls: queue.Queue = queue.Queue()
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -528,9 +540,42 @@ class CudaDevice(Device):
         return t.to(self.ctx.device, copy=True).contiguous()
 
     def configure_communicator(self, comm: Communicator):
-        self.comms[comm.comm_id] = comm
+        """Register ``comm``. Configuring an id this rank already has (a
+        grow back to it) clears the abort latch, fails this rank's
+        deposits still parked on it and restarts its call sequence."""
+        cid = comm.comm_id
+        if cid in self.comms:
+            self._drop_deposits(cid, int(ErrorCode.PEER_FAILED))
+            self._coll_index[cid] = 0
+        self._aborted.pop(cid, None)
+        self.comms[cid] = comm
         if self.comm is None:
             self.comm = comm
+
+    def abort_comm(self, comm_id: int, err: int):
+        """Fail this rank's calls in flight on ``comm_id`` with ``err``:
+        its parked collective deposits at once, its receives waiting for
+        a send when they next wake (now), and every later call on the
+        comm when it runs."""
+        self._aborted[comm_id] = int(err)
+        self._drop_deposits(comm_id, int(err))
+
+    def _drop_deposits(self, comm_id: int, err: int):
+        ctx = self.ctx
+        comm = self.comms.get(comm_id)
+        dropped = []
+        with ctx._lock:
+            if comm is not None:
+                me = comm.local_rank
+                for key, group in list(ctx._pending.items()):
+                    if key[0] == comm_id and me in group:
+                        dropped.append(group.pop(me)[1])
+                        if not group:
+                            del ctx._pending[key]
+            ctx._lock.notify_all()       # wake this rank's waiting recvs
+        for h in dropped:
+            h.complete(err, exception=ACCLError(
+                err, f"communicator {comm_id} aborted"))
 
     def set_timeout(self, timeout: float):
         self.timeout = timeout
@@ -720,14 +765,8 @@ class CudaDevice(Device):
         """The first ``count`` elements of the result buffer when it is
         device-resident and takes the call's uncompressed dtype as it is
         (the result then lands there directly), else None."""
-        buf = self.dev_bufs.get(desc.addr_2)
-        cfg = desc.arithcfg
-        if (buf is None or buf.size < desc.count
-                or desc.compression & Compression.RES_COMPRESSED
-                or buf.dtype != cfg.uncompressed_dtype
-                or buf.dtype in _WIDE):
-            return None
-        return buf.tensor.reshape(-1)[:desc.count]
+        return self._resident_prefix(desc, self, desc.arithcfg, desc.addr_2,
+                                     desc.count, Compression.RES_COMPRESSED)
 
     # -- execution ----------------------------------------------------------
     def _execute(self, desc: CallDescriptor, handle: CallHandle,
@@ -739,6 +778,8 @@ class CudaDevice(Device):
             return 0
         if op == CCLOp.config:
             return self.apply_config(desc)
+        if desc.comm_id in self._aborted:
+            return self._aborted[desc.comm_id]
         if desc.stream_flags and op not in _P2P:
             # a streamed operand of a collective belongs inside its
             # program: refused, never run as a memory-only variant
@@ -776,7 +817,7 @@ class CudaDevice(Device):
             return self._do_put(desc, comm)
         if op == CCLOp.get:
             return self._do_get(desc, comm)
-        return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)   # alltoallv
+        return int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
 
     # -- streamed local ops (the stream ports' datapath) --------------------
     def _deadline(self, desc) -> float:
@@ -900,6 +941,8 @@ class CudaDevice(Device):
                 parcel = self._match_send(key, desc.tag)
                 if parcel is not None:
                     break
+                if desc.comm_id in self._aborted:
+                    return self._aborted[desc.comm_id]
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or not ctx._lock.wait(remaining):
                     return int(ErrorCode.RECEIVE_TIMEOUT_ERROR)
@@ -1123,7 +1166,9 @@ class CudaDevice(Device):
         ctx = self.ctx
         d0 = descs[0]
         op = d0.scenario
-        if any(d.scenario != op or d.count != d0.count for d in descs):
+        if any(d.scenario != op for d in descs) or (
+                op != CCLOp.alltoallv
+                and any(d.count != d0.count for d in descs)):
             return int(ErrorCode.INVALID_CALL)
         count = d0.count
         W = comm.size
@@ -1143,11 +1188,12 @@ class CudaDevice(Device):
             alg = "xla"
         # block-scaled quantized wire: the ring-shaped dense collectives
         # take the codec-kernel ring (qblock selects it and pins the
-        # ring); other ops fall back to the full-precision wire
+        # ring), alltoallv the codec on each cross chunk (the emulator
+        # tier's); other ops fall back to the full-precision wire
         qblock = 0
         if wire is not None and d0.compression & Compression.BLOCK_SCALED:
             if (op in (CCLOp.allreduce, CCLOp.reduce_scatter,
-                       CCLOp.allgather)
+                       CCLOp.allgather, CCLOp.alltoallv)
                     and dtype_name(wire) in WIRE_DTYPE_NAMES):
                 qblock = int(cfg.quant_block or DEFAULT_BLOCK)
                 alg = "ring"
@@ -1155,6 +1201,9 @@ class CudaDevice(Device):
                 wire = None
         if op == CCLOp.barrier:
             return 0  # the rendezvous above IS the barrier
+        if op == CCLOp.alltoallv:
+            return self._launch_alltoallv(descs, devs, coll, wire, qblock,
+                                          cfg, W)
         if op in _DENSE:
             return self._launch_dense(op, descs, devs, coll, alg, wire,
                                       qblock, cfg, count, W)
@@ -1195,6 +1244,56 @@ class CudaDevice(Device):
         out = run(rows, **kw)
         self._land(out, descs, devs, "addr_2", range(W))
         return 0
+
+    def _launch_alltoallv(self, descs, devs, coll, wire, qblock, cfg,
+                          W: int) -> int:
+        """Every member's count vectors are checked against the others';
+        each rank reads its send interval in place from a device-resident
+        buffer of the call's dtype (else staged to the device) and lands
+        its receive interval in place likewise (else through the host)."""
+        if any(d.counts is None for d in descs):
+            return int(ErrorCode.INVALID_CALL)     # no count vectors
+        sends = [tuple(d.counts[0]) for d in descs]
+        recvs = [tuple(d.counts[1]) for d in descs]
+        if any(len(c) != W for c in sends + recvs):
+            return int(ErrorCode.INVALID_CALL)
+        if any(sends[i][j] != recvs[j][i]
+               for i in range(W) for j in range(W)):
+            return int(ErrorCode.DMA_MISMATCH_ERROR)
+        srcs, dsts, staged = [], [], []
+        for r, d in enumerate(descs):
+            n_send, n_recv = sum(sends[r]), sum(recvs[r])
+            src = self._resident_prefix(d, devs[r], cfg, d.addr_0, n_send,
+                                        Compression.OP0_COMPRESSED)
+            srcs.append(src if src is not None else
+                        devs[r]._read_operand(d.addr_0, n_send, d))
+            dst = self._resident_prefix(d, devs[r], cfg, d.addr_2, n_recv,
+                                        Compression.RES_COMPRESSED)
+            if dst is None:
+                dst = torch.empty(n_recv, dtype=cfg.uncompressed_dtype,
+                                  device=self.ctx.device)
+                staged.append(r)
+            dsts.append(dst)
+        coll.alltoallv(srcs, sends, recvs, wire_dtype=wire, qblock=qblock,
+                       out=dsts)
+        if staged:
+            if self.ctx.device.type == "cuda":
+                torch.cuda.synchronize(self.ctx.device)
+            for r in staged:
+                devs[r]._write_result(descs[r].addr_2, dsts[r], descs[r])
+        return 0
+
+    @staticmethod
+    def _resident_prefix(desc, dev, cfg, addr: int, n: int,
+                         flag: Compression):
+        """The first ``n`` elements of the device-resident buffer at
+        ``addr`` when it holds them in the call's dtype (uncompressed
+        storage), else None."""
+        b = dev.dev_bufs.get(addr)
+        if (b is None or b.size < n or desc.compression & flag
+                or b.dtype != cfg.uncompressed_dtype or b.dtype in _WIDE):
+            return None
+        return b.tensor.reshape(-1)[:n]
 
     def _launch_rooted(self, op, descs, devs, coll, tree, alg, wire, cfg,
                        count: int, W: int) -> int:
@@ -1274,11 +1373,13 @@ class CudaDevice(Device):
 
 
 def cuda_world(world_size: int, device="cuda", algorithm: str = "xla",
-               timeout: float = DEFAULT_TIMEOUT_S) -> list:
+               timeout: float = DEFAULT_TIMEOUT_S,
+               retry_policy=None) -> list:
     """Create ``world_size`` ACCL drivers whose ranks share one torch
     device: the counterpart of ``tpu_world``. ``device`` defaults to
     ``"cuda"`` and raises when CUDA is unavailable; pass ``"cpu"`` to run
-    the plain versions on the CPU."""
+    the plain versions on the CPU. ``retry_policy`` is every driver's
+    default :class:`~accl_tpu_torch.retry.RetryPolicy`."""
     from ..accl import ACCL
     from ..communicator import Rank
     ctx = CudaContext(world_size, device=device, algorithm=algorithm)
@@ -1287,5 +1388,6 @@ def cuda_world(world_size: int, device="cuda", algorithm: str = "xla",
     for r in range(W):
         comm = Communicator(ranks=[Rank(device=ctx.device)
                                    for _ in range(W)], local_rank=r)
-        accls.append(ACCL(ctx.device_of(r), comm, timeout=timeout))
+        accls.append(ACCL(ctx.device_of(r), comm, timeout=timeout,
+                          retry_policy=retry_policy))
     return accls

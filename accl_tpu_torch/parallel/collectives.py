@@ -29,7 +29,12 @@ families, as there:
   in f32.
 
 ``alltoall`` casts every chunk for transit (fp8 too: a pure cast, no
-scale) and restores each rank's own chunk exact. The rooted collectives
+scale) and restores each rank's own chunk exact. ``alltoallv`` moves
+chunks of per-pair counts (prefix-sum intervals of each rank's count
+vectors): the own chunk exact, each of the W(W-1) cross chunks through
+the wire (a cast, or the block-scaled codec as one message), the codec
+launched once for each distinct chunk length; zero-count pairs launch
+nothing. The rooted collectives
 (bcast, scatter, gather, reduce) live in :mod:`.tree`.
 
 Operands: a (W, n) tensor (row r is rank r's operand, the reference's
@@ -53,7 +58,7 @@ from ..ops.compression import (FP8_DTYPE_NAMES, bs_combine, bs_combine_ref,
                                bs_quant_ref, cast, cast_ref, fp8_dequant,
                                fp8_dequant_ref, fp8_quant, fp8_quant_ref,
                                fp8_scale, fp8_scale_ref)
-from ..quant import WIRE_DTYPE_NAMES, n_blocks
+from ..quant import WIRE_DTYPE_NAMES, n_blocks, packed_nbytes
 from .mesh import RankGroup
 
 
@@ -406,12 +411,86 @@ def alltoall(rows, out_rows, k: Kernels = KERNELS, wire: str | None = None):
     return out_rows
 
 
+def _prefix(counts) -> list[int]:
+    off = [0]
+    for c in counts:
+        off.append(off[-1] + int(c))
+    return off
+
+
+def alltoallv(rows, out_rows, send_counts, recv_counts,
+              k: Kernels = KERNELS, wire: str | None = None,
+              qblock: int = 0) -> int:
+    """Variable-count all-to-all: rank r sends ``send_counts[r][j]``
+    elements to rank j from the j-th prefix-sum interval of ``rows[r]``,
+    and the chunk lands in the r-th interval of ``out_rows[j]`` (whose
+    ``recv_counts[j][r]`` must equal it). The own chunk is copied exact;
+    a cross chunk crosses ``wire``: a pure cast (B2 down and up), or with
+    ``qblock`` the block-scaled codec (B5, then B6) with the chunk as one
+    message. The codec launches once for each distinct chunk length (its
+    rows share one length); zero-count pairs launch nothing. Returns the
+    logical wire bytes of the cross chunks."""
+    W = len(rows)
+    for i in range(W):
+        for j in range(W):
+            if int(send_counts[i][j]) != int(recv_counts[j][i]):
+                raise ValueError(
+                    f"alltoallv count vectors disagree: rank {i} sends "
+                    f"{send_counts[i][j]} to rank {j}, which expects "
+                    f"{recv_counts[j][i]}")
+    soff = [_prefix(c) for c in send_counts]
+    roff = [_prefix(c) for c in recv_counts]
+
+    def src(r, j):
+        return rows[r][soff[r][j]:soff[r][j + 1]]
+
+    def dst(r, j):                # the chunk of rank r at rank j
+        return out_rows[j][roff[j][r]:roff[j][r + 1]]
+
+    for r in range(W):
+        if send_counts[r][r]:
+            dst(r, r).copy_(src(r, r))
+    cross = [(r, j) for r in range(W) for j in range(W)
+             if j != r and send_counts[r][j]]
+    if wire is None:
+        for r, j in cross:
+            dst(r, j).copy_(src(r, j))
+        return sum(src(r, j).nbytes for r, j in cross)
+    by_len: dict[int, list] = {}
+    for r, j in cross:
+        by_len.setdefault(int(send_counts[r][j]), []).append((r, j))
+    nbytes = 0
+    for n, pairs in by_len.items():
+        xs = [src(r, j) for r, j in pairs]
+        outs = [dst(r, j) for r, j in pairs]
+        if qblock:
+            q, s = k.bs_quant(xs, wire, qblock)
+            k.bs_dequant(q, s, wire, qblock, outs)
+            nbytes += len(pairs) * packed_nbytes(n, qblock)
+        else:
+            q = k.cast(xs, wire)
+            k.cast(q, torch.float32, outs)
+            nbytes += len(pairs) * n * q[0].element_size()
+    return nbytes
+
+
 # -- the wrapper ------------------------------------------------------------
 
 def _shares_storage(a_rows, b_rows) -> bool:
     ptrs = {t.untyped_storage().data_ptr() for t in a_rows if t is not None}
     return any(t.untyped_storage().data_ptr() in ptrs
                for t in b_rows if t is not None)
+
+
+def _memory_overlaps(a_rows, b_rows) -> bool:
+    """True when an element range of ``a_rows`` and one of ``b_rows``
+    intersect in memory (finer than :func:`_shares_storage`: disjoint
+    views of one tensor do not)."""
+    spans = [(t.data_ptr(), t.data_ptr() + t.nbytes) for t in b_rows
+             if t is not None and t.nbytes]
+    return any(a0 < b1 and b0 < a0 + t.nbytes
+               for t in a_rows if t is not None and t.nbytes
+               for a0 in (t.data_ptr(),) for b0, b1 in spans)
 
 
 _DENSE = ("allreduce", "reduce_scatter", "allgather", "alltoall")
@@ -579,6 +658,30 @@ class RankCollectives:
         """x: W rows of W*c; out row r, chunk j = row j, chunk r."""
         return self._run("alltoall", x, ReduceFunc.SUM, "xla", wire_dtype,
                          0, out)
+
+    def alltoallv(self, x, send_counts, recv_counts, wire_dtype=None,
+                  qblock: int = 0, out=None):
+        """Rank r's row sends ``send_counts[r][j]`` elements to rank j
+        (prefix-sum intervals); ``out`` row j receives them in its r-th
+        interval. ``out`` rows must hold at least sum(recv_counts[j]);
+        a fresh (W, max) tensor when None. ``wire_dtype`` names a
+        per-tensor wire or, with ``qblock``, the block-scaled one."""
+        rows = self._rows(x)
+        dtype = rows[0].dtype
+        if out is None:
+            n = max(sum(int(c) for c in rc) for rc in recv_counts)
+            out = torch.zeros((self.W, n), dtype=dtype,
+                              device=rows[0].device)
+        out_rows = self._rows(out)
+        wire = None if wire_dtype is None else dtype_name(wire_dtype)
+        if not (qblock and wire in WIRE_DTYPE_NAMES):
+            qblock, wire = 0, self._lane_wire(wire, dtype)
+        if _memory_overlaps(rows, out_rows):
+            rows = [r.clone() for r in rows]
+        self.wire_bytes += alltoallv(rows, out_rows, send_counts,
+                                     recv_counts, self.kernels, wire,
+                                     qblock)
+        return out
 
     # -- point to point (the reference's send_recv / exchange) --------------
 

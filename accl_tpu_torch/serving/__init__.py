@@ -13,16 +13,19 @@ disaggregated prefill/decode deployment needs on top of them:
 * :class:`ContinuousBatcher` (batcher.py): per-step request admission
   and retirement against an in-flight token budget; the decode batch is
   rebuilt every step.
+* :func:`kv_shard_spec` and :func:`reshard_plan_counts` (elastic.py):
+  the decode pool's KV arena as a block-cyclic shard spec, whose grow or
+  shrink ``ACCL.redistribute`` carries out block by block.
 
-Both are host-side and transport-free: they decide what moves and the
-caller executes the puts. The reference's ``elastic.py`` (decode-pool
-resharding) is not ported yet.
+They are host-side and transport-free: they decide what moves and the
+caller executes the puts and reshards.
 """
 
 from .batcher import ContinuousBatcher, Request
+from .elastic import kv_shard_spec, reshard_plan_counts
 from .kvcache import BlockRef, KVBlockManager, prefix_hashes
 
 __all__ = [
     "KVBlockManager", "BlockRef", "prefix_hashes",
-    "ContinuousBatcher", "Request",
+    "ContinuousBatcher", "Request", "kv_shard_spec", "reshard_plan_counts",
 ]

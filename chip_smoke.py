@@ -197,6 +197,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
    FLOP/s, busy share and peak memory beside phase 9's. The launches of
    11a and 11c make the ``tp`` entry of each attention record's
    ``launches_by_path``.
+12. The call contract, membership and the uneven exchanges (after 4c;
+   its lines print when it ends, the first with its seconds): 12a
+   ``alltoallv`` on ``cuda_world(8)``, device-resident, 64 Mi fp32 sent a
+   rank with skewed counts (rank r sends floor(p_j N) to peer j, p =
+   roll(HOT_P, r)), on the fp32, bf16 and fp8-e4m3 block-128 wires, in
+   place (staged) and a routing collapse (8 Mi a rank, all to rank 0),
+   each landing bitwise the same schedule through the plain versions
+   and within the wire's bound of the exact values, with device ms
+   behind a GPU sleep, library ms, idle share, bytes and launches; 12b
+   MoE dispatch and combine (4096 tokens of 4096 a rank, top-1 with the
+   rotated hot expert, 2 chunks, the expert in f32 with TF32 off) on the
+   fp32 and fp8 block-128 dispatch wires, overlap on and off, against
+   ``moe_reference`` in float64 (fp32: rtol 1e-5, atol 1e-5; fp8: the
+   landed tokens bitwise the plain codecs' run and the output within
+   |dx| @ |W|); 12c the ring-attention workload (S = 8192 over 8 ranks,
+   d = 128, ``chain=True``) on fp32 and the fp8 block-128 rotation
+   against ``ring_attention_reference`` (rtol 1e-5, atol 1e-6; fp8
+   bitwise the plain codecs' run, relative L2 below 2^-3), with
+   ``overlap_frac``; 12d the elastic decode pool on ``cuda_world(4)``: a
+   bf16 arena of 224 blocks of 2 MiB over decode ranks (1, 2) reshards
+   as rank 3 joins (``grow_communicator``) and again over ranks 1, 3
+   and 0 after rank 2 is revoked and shrunk away, each landing bitwise
+   ``redistribute_oracle``, fewer elements moved than the oracle's and
+   no piece above one block; 12e the retry contract (a late peer
+   outlasted under ``retries=3``, RECEIVE_TIMEOUT_ERROR under 0,
+   CALL_RETRIES_EXHAUSTED when spent) and a revoke failing a call in
+   flight with PEER_FAILED within 1 s. B2, B5 and B6 must launch.
 
 Each phase starts with a line of the device memory allocated.
 
@@ -4133,6 +4160,650 @@ def tp_training_phase(model, tokens, phase9: dict) -> dict:
     return launches
 
 
+# -- phase 12: the call contract, membership and the uneven exchanges ---------
+
+# the skewed routing of 12a and 12b: rank r sends a share p_j of its
+# elements (or tokens) to peer j, p = roll(HOT_P, r); the remainder of
+# the floors goes to the hot peer
+HOT_P = (0.40, 0.20, 0.12, 0.09, 0.07, 0.06, 0.04, 0.02)
+A2AV_COLLAPSE_N = 8 << 20  # 12a's routing collapse: elements a rank
+MOE_T, MOE_D = 4096, 4096  # 12b: tokens a rank, Llama-3-8B's width
+RING_S, RING_D = 8192, 128  # 12c: sequence over W ranks, head dim
+KV_BLOCKS, KV_BLOCK = 224, 1 << 20   # 12d: 2 MiB bf16 blocks (phase 7b's)
+
+
+def skew_counts(n: int) -> list:
+    """Rank r's send vector of ``n`` elements: floor(p_j * n) to peer j
+    with p = roll(HOT_P, r), the remainder to the hot peer."""
+    out = []
+    for r in range(W):
+        p = np.roll(HOT_P, r)
+        c = [int(np.floor(pj * n)) for pj in p]
+        c[int(np.argmax(p))] += n - sum(c)
+        out.append(c)
+    return out
+
+
+@contextlib.contextmanager
+def plain_codecs(ctx):
+    """Route a world's dataplane and its p2p codecs through the plain
+    versions (``PLAIN``) for the duration: the yardstick run of the same
+    schedule. The plain versions count no launches."""
+    import accl_tpu_torch.device.cuda as cuda_mod
+    from accl_tpu_torch.parallel.collectives import PLAIN
+    saved = (ctx.coll.kernels, cuda_mod.bs_quant, cuda_mod.bs_dequant,
+             cuda_mod.cast)
+    ctx.coll.kernels = PLAIN
+    cuda_mod.bs_quant, cuda_mod.bs_dequant = PLAIN.bs_quant, PLAIN.bs_dequant
+    cuda_mod.cast = PLAIN.cast
+    try:
+        yield
+    finally:
+        (ctx.coll.kernels, cuda_mod.bs_quant, cuda_mod.bs_dequant,
+         cuda_mod.cast) = saved
+
+
+def timed_drive(accls, fn):
+    """One call on every rank: (device ms behind a GPU sleep, the slowest
+    rank's ms inside the library, the host ms of the drive)."""
+    import torch
+    from accl_tpu_torch.testing import run_ranks
+
+    def one(a):
+        t0 = time.perf_counter()
+        fn(a)
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(CALL_HEAD_START_CYCLES)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    t0 = time.perf_counter()
+    lib = max(run_ranks(accls, one))
+    host = (time.perf_counter() - t0) * 1e3
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), lib * 1e3, host
+
+
+def a2av_phase(say, launched):
+    """12a: alltoallv on ``cuda_world(8)``, device-resident, 64 Mi fp32
+    sent a rank with the skewed counts, on the fp32, bf16 and fp8-e4m3
+    block-128 wires, in place (staged), and a routing collapse (8 Mi a
+    rank, all to rank 0); each landing bitwise the same schedule through
+    the plain versions and within the wire's bound of the exact values."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.parallel import collectives as P
+    from accl_tpu_torch.testing import run_ranks
+    accls = cuda_world(W)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        xs = [torch.randn(N, device="cuda", generator=g) for _ in range(W)]
+        sends = skew_counts(N)
+        recvs = [[sends[i][j] for i in range(W)] for j in range(W)]
+        col = [[0] * W for _ in range(W)]
+        col_n = A2AV_COLLAPSE_N
+        for r in range(W):
+            col[r][0] = col_n
+        col_r = [[col[i][j] for i in range(W)] for j in range(W)]
+        bufs = {}
+
+        def setup(a):
+            r = a.rank
+            bufs[r] = {
+                "src": a.buffer(data=xs[r], device_resident=True),
+                "dst": a.buffer((N,), torch.float32, device_resident=True),
+                "inplace": a.buffer(data=xs[r].clone(),
+                                    device_resident=True),
+                "col": a.buffer((W * col_n if r == 0 else 1,),
+                                torch.float32, device_resident=True)}
+        run_ranks(accls, setup)
+
+        def case(name):
+            wire = {"fp32": None, "bf16": "bfloat16",
+                    "fp8_block128": "float8_e4m3fn", "in_place": None,
+                    "collapse_8Mi": None}[name]
+            kw = {}
+            if wire is not None:
+                kw["compress_dtype"] = getattr(torch, wire)
+            if name == "fp8_block128":
+                kw["block_scale"] = QBLOCK
+
+            def fn(a, refill=True):
+                b, r = bufs[a.rank], a.rank
+                if name == "in_place":
+                    if refill:
+                        b["inplace"].tensor.copy_(xs[r])
+                    a.alltoallv(b["inplace"], b["inplace"], sends[r],
+                                recvs[r])
+                elif name == "collapse_8Mi":
+                    a.alltoallv(b["src"], b["col"], col[r], col_r[r])
+                else:
+                    a.alltoallv(b["src"], b["dst"], sends[r], recvs[r],
+                                **kw)
+            return fn, wire
+
+        names = ("fp32", "bf16", "fp8_block128", "in_place", "collapse_8Mi")
+        exact = [torch.empty(N, device="cuda") for _ in range(W)]
+        P.alltoallv(xs, exact, sends, recvs, P.PLAIN)   # copies only
+        for name in names:
+            fn, wire = case(name)
+            cnt = counters()
+            before = {k: f.launches for k, f in cnt.items()}
+            run_ranks(accls, fn)
+            torch.cuda.synchronize()
+            per = {k: f.launches - before[k] for k, f in cnt.items()
+                   if f.launches - before[k]}
+            for k, v in per.items():
+                launched[k] = launched.get(k, 0) + v
+            # the same schedule through the plain versions
+            if name == "collapse_8Mi":
+                got = [bufs[0]["col"].tensor]
+                plain = [torch.empty(W * col_n, device="cuda")]
+                P.alltoallv([x[:col_n] for x in xs],
+                            plain + [torch.empty(0, device="cuda")] * (W - 1),
+                            col, col_r, P.PLAIN)
+                want = [torch.cat([x[:col_n] for x in xs])]
+            else:
+                key = "inplace" if name == "in_place" else "dst"
+                got = [bufs[r][key].tensor for r in range(W)]
+                plain = [torch.empty(N, device="cuda") for _ in range(W)]
+                qb = QBLOCK if name == "fp8_block128" else 0
+                P.alltoallv(xs, plain, sends, recvs, P.PLAIN, wire, qb)
+                want = exact
+            check_rows(got, plain, f"alltoallv {name} vs plain")
+            del plain
+            # against the exact values: chunk by chunk, the wire's bound
+            worst, ratio = 0.0, 0.0
+            for r, (gt, ex) in enumerate(zip(got, want)):
+                err = (gt.double() - ex.double()).abs()
+                worst = max(worst, float(err.max()))
+                if wire is None:
+                    need(worst == 0.0, f"alltoallv {name}: not exact")
+                    continue
+                off = 0
+                for s in range(W):
+                    c = recvs[r][s]
+                    e, x = err[off:off + c], ex[off:off + c].double().abs()
+                    if s == r:
+                        need(float(e.max()) == 0.0,
+                             f"alltoallv {name}: own chunk not exact")
+                    elif c:
+                        bound = (x * WIRE_U[wire] if wire == "bfloat16"
+                                 else x.max() * BS_BOUND_PER_AMAX)
+                        ratio = max(ratio, float((e / bound.clamp_min(
+                            1e-30)).max()))
+                    off += c
+                del err
+            need(ratio <= 1.0, f"alltoallv {name}: err/bound {ratio:.4f}")
+            bound_txt = {None: "exact (0)",
+                         "bfloat16": "2^-8 |x| per element",
+                         "float8_e4m3fn": "amax(chunk) 2^-4 / (1 - 2^-4)"}
+            # timed without re-filling the in-place buffer: the call alone
+            dev, lib, host = timed_drive(accls, lambda a: fn(a, False))
+            nbytes = (W * col_n if name == "collapse_8Mi" else N) * 4
+            say(f"12a alltoallv {name}: {dev:.4f} ms of device work behind a "
+                f"GPU sleep, library {lib:.3f} ms (slowest rank), host "
+                f"{host:.3f} ms, idle share {1 - dev / lib:.3f} of the "
+                f"library's time; {nbytes} logical bytes a rank (rank 0 "
+                f"for the collapse); launches {per or 'none'}; bitwise the "
+                f"plain versions, max abs err vs exact {worst:.6g} "
+                f"(bound {bound_txt[wire]}"
+                + (f", worst err/bound {ratio:.4f}" if wire else "") + ")")
+        fp32_bound = bound_ms(2 * W * N * 4, 0)[0]
+        say(f"12a bound: fp32 {fp32_bound:.4f} ms (each element read once "
+            f"and written once over 8 ranks at {HBM_BYTES_PER_S / 1e12} "
+            f"TB/s), fp8 block 128 {bound_ms(W * N * 10, 0)[0]:.4f} ms "
+            f"(~10 B an element through B5 and B6)")
+        del exact
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def moe_phase(say, launched):
+    """12b: MoE dispatch and combine, W = 8, 4096 tokens of 4096 a rank,
+    top-1 routing with the rotated hot expert, 2 chunks; fp32 and
+    fp8-e4m3 block-128 dispatch, overlap on and off; the expert in f32
+    (TF32 off). fp32 against ``moe_reference`` in float64 (rtol 1e-5,
+    atol 1e-5); fp8 bitwise the plain codecs' run and within the bound
+    the expert's Lipschitz constant gives against float64."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.testing import run_ranks
+    from accl_tpu_torch.workloads.moe import (default_expert,
+                                              moe_dispatch_combine,
+                                              moe_reference)
+    need(not torch.backends.cuda.matmul.allow_tf32,
+         "12b: TF32 matmuls are on")
+    accls = cuda_world(W)
+    try:
+        rng = np.random.default_rng(SEED + 120)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 121)
+        toks = [torch.randn(MOE_T, MOE_D, device="cuda", generator=g)
+                for _ in range(W)]
+        dest = [rng.choice(W, size=MOE_T, p=np.roll(HOT_P, r))
+                for r in range(W)]
+        experts = [default_expert(r, MOE_D, "cuda") for r in range(W)]
+        ctx = accls[0].device.ctx
+
+        def f64_expert(e):
+            w64, b64 = e.weight.double(), e.bias.double()
+
+            def f(x):
+                return torch.tanh(x.double() @ w64 + b64)
+            f.weight = w64
+            return f
+        f64 = [f64_expert(e) for e in experts]
+        oracle = moe_reference(toks, dest, f64)
+        fp8 = dict(compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK)
+
+        def leg(overlap, kw, identity=False):
+            def fn(a):
+                t0 = time.perf_counter()
+                out, stats = moe_dispatch_combine(
+                    a, toks[a.rank], dest[a.rank], n_chunks=2,
+                    expert_fn=(lambda x: x) if identity
+                    else experts[a.rank], overlap=overlap, **kw)
+                torch.cuda.synchronize()
+                return out, stats, time.perf_counter() - t0
+            return fn
+
+        run_ranks(accls, leg(True, fp8))   # warm-up: cuBLAS, the allocator
+        for wire, kw in (("fp32", {}), ("fp8_block128", fp8)):
+            outs = {}
+            for overlap in (True, False):
+                cnt = counters()
+                before = {k: f.launches for k, f in cnt.items()}
+                res = run_ranks(accls, leg(overlap, kw))
+                per = {k: f.launches - before[k] for k, f in cnt.items()
+                       if f.launches - before[k]}
+                for k, v in per.items():
+                    launched[k] = launched.get(k, 0) + v
+                outs[overlap] = [o for o, _, _ in res]
+                of = [s["overlap_frac"] for _, s, _ in res]
+                exp_ms = [s["exposed_s"] * 1e3 for _, s, _ in res]
+                skew = max(max(s["recv_counts"]) * W / max(1, s["tokens"])
+                           for _, s, _ in res)
+                ms = max(t for _, _, t in res) * 1e3
+                say(f"12b moe {wire} overlap {'on' if overlap else 'off'}: "
+                    f"{ms:.2f} ms (slowest rank, host clock), overlap_frac "
+                    f"{min(of):.4f}-{max(of):.4f}, exposed "
+                    f"{statistics.median(exp_ms):.2f} ms (median rank), "
+                    f"skew {skew:.3f} (largest peer share over the even "
+                    f"one), launches {per or 'none'}")
+            if wire == "fp32":
+                worst = 0.0
+                for overlap in (True, False):
+                    for r in range(W):
+                        err = (outs[overlap][r].double() - oracle[r]).abs()
+                        lim = 1e-5 * oracle[r].abs() + 1e-5
+                        need(bool((err <= lim).all()),
+                             "12b fp32: outside rtol 1e-5, atol 1e-5")
+                        worst = max(worst, float(err.max()))
+                say(f"12b moe fp32 vs float64 moe_reference: max abs err "
+                    f"{worst:.3g} (limit 1e-5 |ref| + 1e-5)")
+                continue
+            # what the dispatch landed, through an identity expert: the
+            # kernels' run bitwise the plain codecs' (no GEMM between)
+            landed = [o for o, _, _ in run_ranks(accls, leg(True, kw,
+                                                            True))]
+            with plain_codecs(ctx):
+                plain = [o for o, _, _ in run_ranks(accls, leg(True, kw,
+                                                               True))]
+            check_rows(landed, plain, "12b fp8 dispatch vs plain")
+            del landed, plain
+            ratio = 0.0
+            for r in range(W):
+                x = toks[r].double()
+                dx = 2.0 ** -4 * x.abs() + 2.0 ** -10 * x.abs().amax(
+                    dim=1, keepdim=True) / 448.0
+                bound = torch.empty_like(x)
+                d = torch.as_tensor(dest[r], device="cuda")
+                for p in range(W):
+                    sel = d == p
+                    bound[sel] = dx[sel] @ f64[p].weight.abs()
+                bound += 1e-5
+                for overlap in (True, False):
+                    err = (outs[overlap][r].double() - oracle[r]).abs()
+                    ratio = max(ratio, float((err / bound).max()))
+            need(ratio <= 1.0, f"12b fp8: err/bound {ratio:.4f}")
+            say(f"12b moe fp8 dispatch: the landed tokens bitwise the plain "
+                f"codecs' run (identity expert); vs "
+                f"float64 worst err/bound {ratio:.4f} (bound |dx| @ |W| + "
+                f"1e-5, |dx| <= 2^-4 |x| + 2^-10 amax/448)")
+        say(f"12b expert bound: 2 T d^2 = {2 * MOE_T * MOE_D ** 2 / 1e9:.1f} "
+            f"GFLOP a rank a pass, "
+            f"{bound_ms(0, W * 2 * MOE_T * MOE_D ** 2)[0]:.2f} ms for {W} "
+            f"ranks at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s f32")
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def ring_workload_phase(say, launched):
+    """12c: the ring-attention workload, W = 8, S = 8192 (1024 a rank),
+    d = 128, ``chain=True``; the rotation on fp32 and on the fp8-e4m3
+    block-128 wire, overlap on and off, against
+    ``ring_attention_reference`` (fp32: rtol 1e-5, atol 1e-6; fp8:
+    bitwise the plain codecs' run, relative L2 below 2^-3)."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.testing import run_ranks
+    from accl_tpu_torch.workloads.ring_attention import (
+        ring_attention_forward, ring_attention_reference)
+    accls = cuda_world(W)
+    try:
+        L = RING_S // W
+        g = torch.Generator(device="cuda").manual_seed(SEED + 122)
+        q, k, v = ([torch.randn(L, RING_D, device="cuda", generator=g)
+                    for _ in range(W)] for _ in range(3))
+        K, V = torch.cat(k), torch.cat(v)
+        gold = [ring_attention_reference(q[r], K, V) for r in range(W)]
+        ctx = accls[0].device.ctx
+        fp8 = dict(compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK)
+
+        def leg(overlap, kw):
+            def fn(a):
+                t0 = time.perf_counter()
+                out, stats = ring_attention_forward(
+                    a, q[a.rank], k[a.rank], v[a.rank], overlap=overlap,
+                    use_chain=True, **kw)
+                torch.cuda.synchronize()
+                return out, stats, time.perf_counter() - t0
+            return fn
+
+        run_ranks(accls, leg(True, fp8))   # warm-up: cuBLAS, the allocator
+        for wire, kw in (("fp32", {}), ("fp8_block128", fp8)):
+            outs = {}
+            for overlap in (True, False):
+                cnt = counters()
+                before = {k_: f.launches for k_, f in cnt.items()}
+                res = run_ranks(accls, leg(overlap, kw))
+                per = {k_: f.launches - before[k_] for k_, f in cnt.items()
+                       if f.launches - before[k_]}
+                for k_, n in per.items():
+                    launched[k_] = launched.get(k_, 0) + n
+                outs[overlap] = [o for o, _, _ in res]
+                of = [s["overlap_frac"] for _, s, _ in res]
+                ms = max(t for _, _, t in res) * 1e3
+                say(f"12c ring workload {wire} overlap "
+                    f"{'on' if overlap else 'off'}: {ms:.2f} ms (slowest "
+                    f"rank, host clock), overlap_frac {min(of):.4f}-"
+                    f"{max(of):.4f}, launches {per or 'none'}")
+            for r in range(W):
+                need(torch.equal(outs[True][r], outs[False][r]),
+                     f"12c {wire}: overlap on and off differ")
+            if wire == "fp32":
+                worst = 0.0
+                for r in range(W):
+                    err = (outs[True][r] - gold[r]).abs()
+                    need(bool((err <= 1e-5 * gold[r].abs() + 1e-6).all()),
+                         "12c fp32: outside rtol 1e-5, atol 1e-6")
+                    worst = max(worst, float(err.max()))
+                say(f"12c ring fp32 vs float64 reference: max abs err "
+                    f"{worst:.3g} (limit 1e-5 |ref| + 1e-6)")
+                continue
+            with plain_codecs(ctx):
+                plain = [o for o, _, _ in run_ranks(accls, leg(True, kw))]
+            check_rows(outs[True], plain, "12c fp8 rotation vs plain")
+            rel = max(float((outs[True][r] - gold[r]).norm()
+                            / gold[r].norm()) for r in range(W))
+            need(rel < 2.0 ** -3, f"12c fp8: relative L2 {rel:.4f}")
+            say(f"12c ring fp8 block 128: bitwise the plain codecs' run; "
+                f"relative L2 vs float64 {rel:.5f} (limit 2^-3)")
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def elastic_kv_phase(say):
+    """12d: the elastic decode pool on ``cuda_world(4)``: a bf16 KV arena
+    of 224 blocks of 2 MiB dealt over decode ranks (1, 2); rank 3 joins
+    (``grow_communicator``, the joiner by ``base_members``) and the arena
+    reshards block_cyclic -> block_cyclic; then rank 2 leaves (revoke,
+    ``shrink_communicator``) and the survivors' blocks re-deal over global
+    ranks 1, 3 and 0. Each landing bitwise ``redistribute_oracle``; fewer
+    elements moved than the gather-reshard-scatter oracle; no piece above
+    one block."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.hier import plan_redistribute, redistribute_oracle
+    from accl_tpu_torch.serving import kv_shard_spec, reshard_plan_counts
+    from accl_tpu_torch.testing import run_ranks
+    accls = cuda_world(4)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 123)
+        subs, grown = {}, {}
+
+        def split(a):
+            if a.rank < 3:
+                subs[a.rank] = a.split_communicator([0, 1, 2])
+        run_ranks(accls, split)
+
+        def grow(a):
+            if a.rank == 3:
+                grown[3] = a.grow_communicator([3], base_members=[0, 1, 2],
+                                               key=21)
+            else:
+                grown[a.rank] = a.grow_communicator([3], comm=subs[a.rank],
+                                                    key=21)
+        run_ranks(accls, grow)
+        need(len({c.comm_id for c in grown.values()}) == 1,
+             "12d: the members disagree on the grown comm id")
+
+        def reshard(what, members, comms, src, dst, src_bufs):
+            counts = reshard_plan_counts(src, dst)
+            need(counts["moved_elems"] < counts["oracle_moved_elems"],
+                 f"12d {what}: moved no fewer elements than the oracle")
+            p2p = 0
+            for me in range(src.world):
+                plan = plan_redistribute(src, dst, me)
+                big = [s.count for s in plan.steps
+                       if s.kind in ("send", "recv") and s.count > KV_BLOCK]
+                need(not big, f"12d {what}: a staged piece above one block")
+                p2p += sum(1 for s in plan.steps if s.kind in ("send",
+                                                               "recv"))
+            dst_bufs = {}
+
+            def fn(a):
+                me = comms[a.rank].local_rank
+                db = a.buffer((max(1, dst.local_count(me)),), torch.bfloat16,
+                              device_resident=True)
+                t0 = time.perf_counter()
+                a.redistribute(src_bufs[a.rank], src, db, dst,
+                               comm=comms[a.rank])
+                torch.cuda.synchronize()
+                dst_bufs[a.rank] = db
+                return time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lib = max(run_ranks([accls[g_] for g_ in members], fn))
+            host = (time.perf_counter() - t0) * 1e3
+            # the oracle on the bf16 bits (numpy has no bfloat16)
+            shards = [src_bufs[g_].tensor.view(torch.int16)[
+                :src.local_count(i)].cpu().numpy()
+                for i, g_ in enumerate(members)]
+            want = redistribute_oracle(shards, src, dst)
+            for i, g_ in enumerate(members):
+                got = dst_bufs[g_].tensor.view(torch.int16)[
+                    :dst.local_count(i)].cpu().numpy()
+                need(got.tobytes() == want[i].tobytes(),
+                     f"12d {what}: rank {g_}'s landing is not the oracle's")
+            frac = counts["moved_elems"] / counts["oracle_moved_elems"]
+            say(f"12d elastic {what}: {lib * 1e3:.1f} ms (slowest rank "
+                f"inside redistribute), host {host:.1f} ms; moved "
+                f"{counts['moved_elems']} of the oracle's "
+                f"{counts['oracle_moved_elems']} elements (fraction "
+                f"{frac:.3f}), {counts['local_elems']} copied locally, "
+                f"{p2p} p2p calls (peak a rank "
+                f"{counts['peak_rank_transfers']}); bitwise the oracle")
+            return dst_bufs
+
+        src = kv_shard_spec(KV_BLOCKS, KV_BLOCK, 4, order=(1, 2))
+        dst = kv_shard_spec(KV_BLOCKS, KV_BLOCK, 4, order=(1, 2, 3))
+        bufs = {}
+        for r in range(4):
+            n = max(1, src.local_count(r))
+            bits = torch.randint(-2 ** 15, 2 ** 15, (n,), dtype=torch.int32,
+                                 device="cuda", generator=g)
+            bufs[r] = accls[r].buffer(data=bits.to(torch.int16).view(
+                torch.bfloat16), device_resident=True)
+        landed = reshard("grow by rank 3", [0, 1, 2, 3], grown, src, dst,
+                         bufs)
+        del bufs
+
+        survivors = [0, 1, 3]
+        shrunk = {}
+
+        def shrink(a):
+            a.revoke(grown[a.rank])
+            shrunk[a.rank] = a.shrink_communicator([2], comm=grown[a.rank])
+        run_ranks([accls[g_] for g_ in survivors], shrink)
+        need(len({c.comm_id for c in shrunk.values()}) == 1,
+             "12d: the survivors disagree on the shrunken comm id")
+        # the survivors hold every third block but rank 2's: renumbered,
+        # they are a block-cyclic arena over global ranks 1 and 3 (local
+        # 1 and 2) as they lie; re-deal it over 1, 3 and 0
+        n_blocks = sum(1 for b in range(KV_BLOCKS) if b % 3 != 1)
+        src2 = kv_shard_spec(n_blocks, KV_BLOCK, 3, order=(1, 2))
+        dst2 = kv_shard_spec(n_blocks, KV_BLOCK, 3, order=(1, 2, 0))
+        for i, g_ in enumerate(survivors):
+            need(src2.local_count(i) == (dst.local_count(g_) if g_ else 0),
+                 "12d: the survivors' blocks are not the renumbered arena")
+        reshard("shrink away rank 2", survivors, shrunk, src2, dst2, landed)
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def retry_phase(say):
+    """12e: the call contract on the card: a recv with a 0.2 s deadline
+    posted before its peer's send succeeds under ``retries=3`` and counts
+    a retry, fails with RECEIVE_TIMEOUT_ERROR under ``retries=0``, and
+    with the attempts spent carries CALL_RETRIES_EXHAUSTED; an async
+    call in flight on a revoked comm finishes with PEER_FAILED within
+    1 s."""
+    import torch
+    from accl_tpu_torch import ACCLError, ErrorCode, cuda_world
+    from accl_tpu_torch.retry import RetryPolicy
+    from accl_tpu_torch.testing import run_ranks
+    from accl_tpu_torch.tracing import METRICS
+    accls = cuda_world(2)
+    try:
+        def late(retries, delay, policy=None):
+            def fn(a):
+                if a.rank == 0:
+                    if delay is not None:
+                        time.sleep(delay)
+                        a.send(a.buffer(data=torch.arange(
+                            16, dtype=torch.float32, device="cuda")), 16,
+                            dst=1, tag=5)
+                    return None
+                a.set_timeout(0.2)
+                dst = a.buffer((16,), torch.float32, device_resident=True)
+                try:
+                    a.recv(dst, 16, src=0, tag=5, retries=retries,
+                           retry_policy=policy)
+                    return 0, bool(torch.equal(dst.tensor, torch.arange(
+                        16, dtype=torch.float32, device="cuda")))
+                except ACCLError as exc:
+                    return exc.error_word, False
+                finally:
+                    a.set_timeout(30.0)
+            return fn
+
+        def n_retries():
+            return sum(METRICS.snapshot()["counters"].get(
+                "call_retries_total", {}).values())
+
+        r0 = n_retries()
+        t0 = time.perf_counter()
+        word, ok = run_ranks(accls, late(3, 0.3))[1]
+        ms = (time.perf_counter() - t0) * 1e3
+        n = n_retries() - r0
+        need(word == 0 and ok and n >= 1,
+             f"12e: retries=3 gave word {word:#x}, data ok {ok}, {n} retries")
+        # the send comes 0.6 s late where the recv must fail: a margin
+        word0, _ = run_ranks(accls, late(0, 0.6))[1]
+        need(word0 == int(ErrorCode.RECEIVE_TIMEOUT_ERROR),
+             f"12e: retries=0 gave {word0:#x}")
+        run_ranks(accls, lambda a: a.soft_reset())   # the late send
+        wordx, _ = run_ranks(accls, late(None, None, RetryPolicy(
+            retries=2, backoff_s=0.01)))[1]
+        need(wordx == int(ErrorCode.RECEIVE_TIMEOUT_ERROR)
+             | int(ErrorCode.CALL_RETRIES_EXHAUSTED),
+             f"12e: exhausted attempts gave {wordx:#x}")
+        a = accls[1]
+        dst = a.buffer((16,), torch.float32, device_resident=True)
+        h = a.recv(dst, 16, src=0, tag=77, run_async=True)
+        time.sleep(0.1)
+        need(not h.done(), "12e: the recv retired with no send")
+        t1 = time.perf_counter()
+        a.revoke()
+        try:
+            h.wait(1.0)
+            wordr = 0
+        except ACCLError as exc:
+            wordr = exc.error_word
+        abort_ms = (time.perf_counter() - t1) * 1e3
+        need(wordr == int(ErrorCode.PEER_FAILED) and abort_ms < 1000,
+             f"12e: revoke gave {wordr:#x} after {abort_ms:.1f} ms")
+        say(f"12e retries: a recv 0.3 s ahead of its send succeeded under "
+            f"retries=3 in {ms:.1f} ms with {n} retries counted; "
+            f"retries=0 {ErrorCode(word0).name}; exhausted "
+            f"{wordx:#x} (RECEIVE_TIMEOUT_ERROR | CALL_RETRIES_EXHAUSTED); "
+            f"an async recv in flight on a revoked comm failed "
+            f"{ErrorCode(wordr).name} {abort_ms:.2f} ms after the revoke")
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+ELASTIC_KERNELS = ("cast", "bs_quant", "bs_dequant")   # B2, B5, B6
+
+
+def elastic_phase(recs):
+    """Phase 12: 12a-12e, its lines printed after it ends, the first with
+    its seconds. The B2, B5 and B6 counts are zeroed before it and read
+    after it (the yardstick runs through the plain versions count none);
+    each must have launched."""
+    import torch
+    lines, launched = [], {}
+    t0 = time.perf_counter()
+    ok = False
+    try:
+        for k in counters().values():
+            k.launches = 0
+        a2av_phase(lines.append, launched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_phase(lines.append, launched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ring_workload_phase(lines.append, launched)
+        gc.collect()
+        torch.cuda.empty_cache()
+        elastic_kv_phase(lines.append)
+        retry_phase(lines.append)
+        ok = True
+    finally:
+        secs = time.perf_counter() - t0
+        print(f"phase 12: {secs:.1f} s of command time"
+              + ("" if ok else " (failed)") + f" ({CARD})")
+        for line in lines:
+            print(line)
+    print(f"phase 12 launches (the drives, not the timing repeats): "
+          f"{launched}")
+    for k in ELASTIC_KERNELS:
+        need(launched.get(k, 0) > 0, f"phase 12: kernel {k} never launched")
+    for r in recs:
+        if r["name"] in ELASTIC_KERNELS:
+            r.setdefault("launches_by_path", {"collectives": r["launches"]})
+            r["launches_by_path"]["elastic"] = launched[r["name"]]
+
+
 def phase(name: str):
     """One line at the start of each phase: the seconds since the script
     started and what the device holds."""
@@ -4167,6 +4838,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 4c: one-sided RMA")
     rma_path(recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 12: call contract, membership, uneven exchanges")
+    elastic_phase(recs)
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 5: attention kernels")

@@ -140,8 +140,9 @@ def test_block_scale_without_compress_dtype_raises(worlds):
 
 
 def test_unported_operations_report_not_implemented(worlds):
-    """alltoallv (not ported yet) fails typed on every rank instead of
-    running or hanging."""
+    """alltoallv is ported now; a descriptor of it without its count
+    vectors fails typed (INVALID_CALL) on every rank instead of running
+    or hanging."""
     _, cw = worlds
 
     def fn(a):
@@ -154,8 +155,7 @@ def test_unported_operations_report_not_implemented(worlds):
         return words
 
     for words in run_ranks(cw, fn):
-        assert all(w & int(ErrorCode.COLLECTIVE_NOT_IMPLEMENTED)
-                   for w in words)
+        assert all(w == int(ErrorCode.INVALID_CALL) for w in words)
 
 
 def test_incomplete_group_times_out():
