@@ -17,7 +17,10 @@ driver's call contract (``retries=`` / ``retry_policy=``, :mod:`.retry`;
 and are revoked; ``alltoallv`` moves uneven chunks and ``redistribute``
 changes an array's sharding (:mod:`.hier`), which carry the elastic
 decode pool (:mod:`.serving.elastic`) and the host workloads
-(:mod:`.workloads`: MoE dispatch and combine, ring attention). The
+(:mod:`.workloads`: MoE dispatch and combine, ring attention). A shared
+:class:`Tuner` (:mod:`.tuner`) resolves AUTO and ``compress_dtype="auto"``
+by size and topology, and ``HIERARCHICAL`` calls lower to phase programs
+over per-tier sub-communicators (:mod:`.hier`). The
 Llama serving path
 (:mod:`.models`: forward, KV-cache prefill and decode, generate) runs its
 attention through hand-written kernels too (flash attention forward and
@@ -39,6 +42,7 @@ from .constants import (ACCLError, CCLOp, CfgFunc, Compression, ErrorCode,
 from .device.cuda import CudaContext, CudaDevice, cuda_world
 from .models import Llama, LlamaConfig
 from .retry import RetryPolicy
+from .tuner import Topology, Tuner
 
 __version__ = "0.1.0"
 
@@ -48,6 +52,6 @@ __all__ = [
     "CudaContext", "CudaDevice", "DEFAULT_ARITH_CONFIGS", "ErrorCode",
     "Llama", "LlamaConfig",
     "Rank", "ReduceFunc", "RetryPolicy", "StreamFlags", "TAG_ANY",
-    "cuda_world",
+    "Topology", "Tuner", "cuda_world",
     "decode_error", "resolve_arith_config", "wait_all",
 ]

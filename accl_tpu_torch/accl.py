@@ -11,11 +11,10 @@ and wire-compression flags; the variable-count ``alltoallv`` and the
 sharding change ``redistribute`` (:mod:`.hier`). ``compress_dtype``
 names the wire dtype: f16, bf16 and fp8 ride the per-tensor lanes; with
 ``block_scale`` an int8/fp8 wire is block-scale quantized
-(``block_scale=True`` means ``quant.DEFAULT_BLOCK`` — there is no tuner
-yet — an int is clamped into the legal envelope), on the ring-shaped
-collectives, alltoallv and send/recv;
-the other collectives then take the full-precision wire, as the
-reference does. One-sided RMA: ``register_window``, ``deregister_window``,
+(``block_scale=True`` means the tuner's block, ``quant.DEFAULT_BLOCK``
+without one; an int is clamped into the legal envelope), on the
+ring-shaped collectives, alltoallv and send/recv; the other collectives
+then take the full-precision wire, as the reference does. One-sided RMA: ``register_window``, ``deregister_window``,
 ``put`` (with ``notify=``), ``get`` and ``poll_notifications``. Every call
 but ``config`` is counted per (op, communicator) in ``accl_calls_total``
 and ``accl_bytes_total`` (:meth:`ACCL.metrics_snapshot`).
@@ -28,11 +27,20 @@ ignores. Membership: ``split_communicator``, ``revoke`` (later calls
 refuse with PEER_FAILED; calls in flight abort), ``shrink_communicator``
 and ``grow_communicator``; ``comm_of`` and ``dump_communicator``.
 
-Not here yet: the tuner (``compress_dtype="auto"``, ``block_scale=True``
-from it), the hierarchy (``configure_hierarchy``, ``compress_phases``),
-``verify_integrity`` and ``fingerprint_of``, ``preflight``, custom arith
-registries, ``max_segment_size``, tenants and the service, the profiling
-and trace hooks, and ``plan_cache_stats``.
+Configuration: ``tuner=`` (:mod:`.tuner`) resolves every ``AUTO``
+algorithm of the dense collectives and ``compress_dtype="auto"`` per
+(op, world, size) and learns from retire-time measurements;
+``configure_hierarchy`` (or a tuner whose topology is a
+:class:`~accl_tpu_torch.hier.MeshTopology`) lowers ``HIERARCHICAL``
+allreduce, allgather, reduce_scatter and bcast to phase programs over
+per-tier sub-communicators (:mod:`.hier`), ``compress_phases=`` picking
+the tiers that take the wire compression; ``verify_integrity=``
+cross-checks a replicated result's crc32 (:meth:`ACCL.fingerprint_of`)
+across the ranks; ``preflight``, ``arith_registry``,
+``set_max_segment_size`` and ``plan_cache_stats`` (a stub: this tier
+has no plan cache).
+
+Not here yet: tenants and the service, the profiling and trace hooks.
 """
 
 from __future__ import annotations
@@ -42,19 +50,22 @@ import dataclasses
 import itertools
 import threading
 import time
+import zlib
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from . import quant
-from .arith import dtype_name, resolve_arith_config, to_torch_dtype
+from .arith import (DEFAULT_ARITH_CONFIGS, dtype_name, resolve_arith_config,
+                    to_torch_dtype)
 from .buffer import ACCLBuffer
 from .call import CallDescriptor, CallHandle, CompletedHandle, wait_all
 from .communicator import Communicator, Rank, grown_communicator
 from .constants import (ACCLError, CCLOp, CfgFunc, CollectiveAlgorithm,
-                        Compression, ErrorCode, ReduceFunc, StreamFlags,
-                        TAG_ANY)
+                        Compression, DEFAULT_ALGORITHMS, ErrorCode,
+                        HIERARCHICAL_OPS, ReduceFunc, StreamFlags, TAG_ANY,
+                        VALID_ALGORITHMS)
 from .device.base import Device
 from .log import get_logger
 from .retry import RetryPolicy, resolve_policy
@@ -87,6 +98,20 @@ def _check_block_scaled(cfg, compression: Compression,
             f"{dtype_name(cfg.compressed_dtype)}")
 
 
+def _phases_strip_flat(compress_phases) -> bool:
+    """Validate ``compress_phases`` of a call that runs FLAT and answer
+    whether it drops the wire compression: "inter" compresses only the
+    phases of a hierarchy that cross a boundary, and a flat call has
+    none."""
+    if compress_phases in (None, "all"):
+        return False
+    if compress_phases == "inter":
+        return True
+    raise ValueError(
+        f"compress_phases must be None, 'all' or 'inter', got "
+        f"{compress_phases!r}")
+
+
 def _overlap(a: ACCLBuffer, b: ACCLBuffer) -> bool:
     """True when the two buffers' memory ranges intersect (a buffer and
     its sub-buffer views share their parent's memory)."""
@@ -104,17 +129,52 @@ class ACCL:
         device: the execution backend (a :class:`CudaDevice`).
         comm: the world communicator for this rank.
         timeout: receive timeout in seconds.
+        max_segment_size: the segment size set at bring-up; None asks the
+            tuner against the backend's ``preferred_segment_size()`` (no
+            tuner: the preferred size).
+        arith_registry: the dtype-pair registry calls resolve against
+            (default: a copy of ``DEFAULT_ARITH_CONFIGS``).
+        tuner: a :class:`~accl_tpu_torch.tuner.Tuner` resolving AUTO and
+            ``compress_dtype="auto"``; the ranks of a world share ONE (all
+            members of a collective must agree on its algorithm).
         retry_policy: the driver-wide default :class:`RetryPolicy` of
             every data call (per-call ``retries=`` / ``retry_policy=``
             override it). Must be uniform across a communicator's ranks.
+        verify_integrity: cross-check the result fingerprints of every
+            synchronous allreduce, allgather and bcast across the ranks
+            (per-call ``verify_integrity=`` overrides it). Uniform across
+            a communicator's ranks, like the retry policy.
     """
 
     def __init__(self, device: Device, comm: Communicator,
                  timeout: float = 30.0,
-                 retry_policy: RetryPolicy | None = None):
+                 max_segment_size: int | None = None,
+                 arith_registry=None, tuner=None,
+                 retry_policy: RetryPolicy | None = None,
+                 verify_integrity: bool = False):
         self.device = device
         self.retry_policy = retry_policy
+        self.verify_integrity = bool(verify_integrity)
+        self._preflight_warned: set = set()
         self._arith_memo: dict = {}
+        self.arith_registry = (arith_registry if arith_registry is not None
+                               else dict(DEFAULT_ARITH_CONFIGS))
+        self.tuner = tuner
+        # the hierarchy: configure_hierarchy(), or derived once from a
+        # tuner's MeshTopology on the first AUTO-resolved collective
+        self._hier = None
+        self._hier_autoprobe = True
+        # set while the phases of one logical call (a hierarchy program)
+        # are issued: they stay flat and skip their own verification
+        self._parent_tag = ""
+        # async calls issued and not retired: the tuner learns only on a
+        # quiet device
+        self._async_mu = threading.Lock()
+        self._async_inflight = 0
+        # int64 fingerprint exchange buffers (W -> (src, dst)) and the
+        # pinned host buffer a device result is read back through
+        self._fp_bufs: dict[int, tuple] = {}
+        self._fp_host: torch.Tensor | None = None
         self.communicators: list[Communicator] = []
         # global rank -> the most recently registered Rank record of it
         # (grow_communicator resolves member records here)
@@ -134,11 +194,48 @@ class ACCL:
         self._call_counts: dict[tuple, int] = {}
         self._byte_counts: dict[tuple, int] = {}
         METRICS.register_collector(self, ACCL._metrics_rows)
+        if tuner is not None:
+            if tuner.topology is None:
+                tuner.topology = device.topology()
+            device.tuner = tuner
+            # the env tuning table pins once per tuner, best effort (a
+            # missing or stale table is not an error)
+            from .tuner import cache as _tcache
+            if (_tcache.default_cache_path()
+                    and not getattr(tuner, "_env_cache_loaded", False)):
+                tuner._env_cache_loaded = True
+                try:
+                    _tcache.load_into(tuner)
+                except (OSError, ValueError):
+                    pass
         device.configure_communicator(comm)
         self._register_comm(comm)
         # bring-up through the call path, as the reference driver does
         self.set_timeout(timeout)
         self._config_call(CfgFunc.enable_pkt, 1)
+        if max_segment_size is None:
+            max_segment_size = device.preferred_segment_size()
+            if tuner is not None:
+                max_segment_size = tuner.recommend_segment_size(
+                    max_segment_size)
+        self.set_max_segment_size(max_segment_size)
+
+    @property
+    def arith_registry(self) -> dict:
+        """The dtype-pair registry. Rebinding it drops the resolution
+        memo; after mutating it in place call
+        :meth:`invalidate_arith_cache`."""
+        return self._arith_registry
+
+    @arith_registry.setter
+    def arith_registry(self, registry: dict):
+        self._arith_registry = registry
+        self._arith_memo.clear()
+
+    def invalidate_arith_cache(self):
+        """Drop memoized arith-config resolutions (call after mutating
+        ``arith_registry`` in place)."""
+        self._arith_memo.clear()
 
     @property
     def comm(self) -> Communicator:
@@ -160,6 +257,9 @@ class ACCL:
     def set_timeout(self, timeout: float):
         self._config_call(CfgFunc.set_timeout, int(round(timeout * 1000)))
         self.device.timeout = timeout
+
+    def set_max_segment_size(self, nbytes: int):
+        self._config_call(CfgFunc.set_max_segment_size, int(nbytes))
 
     def deinit(self):
         # withdraw THIS driver's windows only: other drivers on the same
@@ -348,6 +448,152 @@ class ACCL:
     def dump_communicator(self) -> str:
         return self.comm.describe()
 
+    def plan_cache_stats(self) -> dict:
+        """Compiled-plan cache counters of this rank's backend, or the
+        ``{"enabled": False}`` stub: this tier compiles no move plans."""
+        cache = getattr(self.device, "plan_cache", None)
+        if cache is None:
+            return {"enabled": False, "entries": 0, "hits": 0, "misses": 0,
+                    "bypasses": 0, "evictions": 0, "invalidations": {}}
+        return cache.stats()
+
+    # -- configuration checks and the N-tier hierarchy ----------------------
+    def preflight(self, count: int, dtype=torch.float32,
+                  op: str = "allreduce",
+                  comm: Communicator | None = None) -> list[str]:
+        """Resource warnings for a planned collective (empty = clear):
+        the rx-pool check of a hierarchical lowering, on a backend that
+        has an rx pool (``rx_capacity``). This tier parks no phase chunks
+        in a finite pool, so it returns ``[]``, as the reference's device
+        tier does."""
+        comm = comm or self.comm
+        nbytes = int(count) * to_torch_dtype(dtype).itemsize
+        if comm is not self.comm or op not in HIERARCHICAL_OPS:
+            return []
+        return self._preflight_hier(op, nbytes)
+
+    def _preflight_hier(self, op: str, nbytes: int) -> list[str]:
+        """Price each boundary tier's exchange (blocks of about
+        ``nbytes / groups(tier)``) against the backend's rx pool; the
+        warning names the offending tier."""
+        cap_fn = getattr(self.device, "rx_capacity", None)
+        hier = self._hier
+        if cap_fn is None or hier is None:
+            return []
+        nbufs, bufsize = cap_fn()
+        pool_bytes = nbufs * bufsize
+        warnings = []
+        for k, grouping in enumerate(hier.nest):
+            n_groups = max(1, len(grouping))
+            chunk = -(-nbytes // n_groups)
+            if pool_bytes >= 2 * chunk:
+                continue
+            tier = "inter" if k == 0 else f"inter{k + 1}"
+            unit = "hosts" if k == 0 else "groups"
+            warnings.append(
+                f"rx pool ({nbufs} x {bufsize} B = {pool_bytes} B) cannot "
+                f"hold 2 chunks ({2 * chunk} B) of a hierarchical {op} of "
+                f"{nbytes} B on tier {tier} ({n_groups} {unit}): expect "
+                f"timeout-shaped backpressure — raise nbufs/bufsize or "
+                f"split the call")
+        return warnings
+
+    def configure_hierarchy(self, hosts: Sequence[int],
+                            levels: Sequence[Sequence[int]] = ()):
+        """Declare the world's tier structure: ``hosts[r]`` is the host
+        id of world rank ``r`` (each host's ranks contiguous), and each
+        entry of ``levels`` adds one coarser boundary (rack, pod, ...)
+        as another rank->group-id map, innermost-first. Every rank
+        configures the same mapping (the sub-communicator ids derive from
+        membership, as :meth:`split_communicator`'s do). Returns the
+        :class:`~accl_tpu_torch.hier.Hierarchy`."""
+        from .hier import Hierarchy
+        self._hier = Hierarchy(self, hosts, levels=levels)
+        return self._hier
+
+    @property
+    def hierarchy(self):
+        return self._hier
+
+    def _ensure_hier(self):
+        """Configure the hierarchy once from an attached tuner's
+        MeshTopology (its coarser ``outer`` boundaries too): the same on
+        every rank, since the ranks share the tuner."""
+        if self._hier is not None or not self._hier_autoprobe:
+            return self._hier
+        self._hier_autoprobe = False
+        topo = getattr(self.tuner, "topology", None)
+        groups = getattr(topo, "groups", None)
+        if groups and len(groups) > 1 \
+                and sum(len(g) for g in groups) == self.comm.size:
+            from .hier import Hierarchy
+            if getattr(topo, "outer", ()):
+                maps = topo.hosts_levels()
+                self._hier = Hierarchy(self, maps[0], levels=maps[1:])
+            else:
+                self._hier = Hierarchy(self, topo.hosts_list())
+        return self._hier
+
+    def _hier_route(self, op: str, comm: Communicator, count: int,
+                    elem_bytes: int, algorithm) -> bool:
+        """True when this collective lowers to a hierarchical phase
+        program instead of a flat descriptor: explicit HIERARCHICAL
+        demands a configured hierarchy over the world communicator; AUTO
+        routes when the shared tuner's cost model prefers the phase
+        program to every flat schedule."""
+        if isinstance(algorithm, str):
+            algorithm = CollectiveAlgorithm[algorithm.upper()]
+        alg = CollectiveAlgorithm(algorithm)
+        H = CollectiveAlgorithm.HIERARCHICAL
+        if alg == H:
+            if self._ensure_hier() is None:
+                raise ValueError(
+                    "HIERARCHICAL requires a configured hierarchy: call "
+                    "configure_hierarchy(hosts) on every rank (or attach "
+                    "a tuner whose topology is a MeshTopology)")
+            if comm is not self.comm:
+                raise ValueError(
+                    "hierarchical collectives run over the WORLD "
+                    "communicator (the hierarchy's sub-communicators are "
+                    "derived from it); got a split communicator")
+            self._warn_preflight(op, count * elem_bytes)
+            return True
+        if (alg != CollectiveAlgorithm.AUTO or self.tuner is None
+                or comm is not self.comm or op not in HIERARCHICAL_OPS):
+            return False
+        if self._parent_tag:
+            # inside a logical program already (a hierarchy phase): stay
+            # flat, or the phases would be re-chained under another call
+            return False
+        if self._ensure_hier() is None:
+            return False
+        routed = self.tuner.select(op, comm.size, count * elem_bytes) == H
+        if routed:
+            self._warn_preflight(op, count * elem_bytes)
+        return routed
+
+    def _warn_preflight(self, op: str, nbytes: int):
+        """Log the preflight warnings once per (op, size) at hierarchical
+        issue time (:meth:`preflight` is the query form)."""
+        key = (op, nbytes)
+        if key in self._preflight_warned:
+            return
+        self._preflight_warned.add(key)
+        for w in self._preflight_hier(op, nbytes):
+            log.warning("rank %d preflight: %s", self.rank, w,
+                        extra={"rank": self.rank})
+
+    @contextlib.contextmanager
+    def _attributed(self, tag: str):
+        """Scope marking every call issued inside it as a phase of one
+        logical call (one driver is used from one thread at a time)."""
+        prev = self._parent_tag
+        self._parent_tag = tag
+        try:
+            yield
+        finally:
+            self._parent_tag = prev
+
     # -- buffers ------------------------------------------------------------
     def buffer(self, shape=None, dtype=torch.float32, data=None,
                device_resident: bool = False) -> ACCLBuffer:
@@ -399,8 +645,38 @@ class ACCL:
         return buf, pool
 
     # -- call plumbing --------------------------------------------------------
-    def _quant_block_for(self, block_scale) -> int:
+    def _resolve_wire(self, op: str, comm: Communicator, count: int,
+                      operand_dtype, compress_dtype, block_scale):
+        """Resolve ``compress_dtype="auto"``: the tuner prices the
+        block-scaled fp8-e4m3 wire against the full-precision one per
+        (op, world, size) and picks it in the bandwidth-bound band; a
+        latency-bound call, a call without a tuner and a non-f32 call
+        stay uncompressed. AUTO algorithm selection alone never changes
+        numerics: only the literal "auto" does."""
+        if block_scale and compress_dtype is None:
+            # _prepare raises this too; a hierarchical lowering never
+            # reaches it with the caller's arguments
+            raise ValueError(
+                "block_scale needs a compress_dtype naming the quantized "
+                "wire dtype (int8 / float8_e4m3fn / float8_e5m2)")
+        if not (isinstance(compress_dtype, str)
+                and compress_dtype == "auto"):
+            return compress_dtype, block_scale
+        if operand_dtype == torch.float32 and self.tuner is not None \
+                and self.tuner.select_wire(op, comm.size,
+                                           count * operand_dtype.itemsize):
+            return torch.float8_e4m3fn, (block_scale if block_scale
+                                         else True)
+        return None, False
+
+    def _quant_block_for(self, count: int, elem_bytes: int,
+                         block_scale) -> int:
+        """The call's scale-block size: an int is clamped into the legal
+        envelope; ``True`` asks the tuner (the default block without
+        one)."""
         if block_scale is True:
+            if self.tuner is not None:
+                return self.tuner.recommend_quant_block(count * elem_bytes)
             return quant.DEFAULT_BLOCK
         return quant.clamp_block(int(block_scale))
 
@@ -420,7 +696,11 @@ class ACCL:
         asks for wire compression; ``block_scale`` upgrades the wire to
         block-scaled quantization. ``stream_dtype`` is the element type of
         a streamed operand, which has no buffer to take it from. A revoked
-        communicator refuses the call with PEER_FAILED."""
+        communicator refuses the call with PEER_FAILED. With a tuner, an
+        AUTO algorithm of an op the backend lets it resolve
+        (``auto_resolvable_ops``) takes the tuner's choice here; one that
+        leans HIERARCHICAL (a call no hierarchy route intercepted, such
+        as a phase of one) takes the flat default instead."""
         if comm.revoked:
             raise ACCLError(int(ErrorCode.PEER_FAILED),
                             f"{scenario.name} on revoked communicator "
@@ -443,10 +723,11 @@ class ACCL:
         mk = frozenset(dtypes)
         cfg = self._arith_memo.get(mk)
         if cfg is None:
-            cfg = resolve_arith_config(dtypes)
+            cfg = resolve_arith_config(dtypes, self.arith_registry)
             self._arith_memo[mk] = cfg
         if compression & Compression.BLOCK_SCALED:
-            qblock = self._quant_block_for(block_scale)
+            qblock = self._quant_block_for(
+                count, cfg.uncompressed_dtype.itemsize, block_scale)
             bk = (mk, qblock)
             bcfg = self._arith_memo.get(bk)
             if bcfg is None:
@@ -473,11 +754,21 @@ class ACCL:
             _check_block_scaled(cfg, compression, stream_flags)
         if isinstance(algorithm, str):
             algorithm = CollectiveAlgorithm[algorithm.upper()]
+        algorithm = CollectiveAlgorithm(algorithm)
+        if (algorithm == CollectiveAlgorithm.AUTO and self.tuner is not None
+                and scenario.name in VALID_ALGORITHMS):
+            resolvable = self.device.auto_resolvable_ops()
+            if resolvable is None or scenario.name in resolvable:
+                algorithm = self.tuner.select(
+                    scenario.name, comm.size,
+                    count * cfg.uncompressed_dtype.itemsize)
+                if algorithm == CollectiveAlgorithm.HIERARCHICAL:
+                    algorithm = DEFAULT_ALGORITHMS[scenario.name]
         return CallDescriptor(
             scenario=scenario, count=count, comm_id=comm.comm_id,
             root_src_dst=root_src_dst, function=ReduceFunc(func), tag=tag,
             arithcfg=cfg, compression=compression, stream_flags=stream_flags,
-            algorithm=CollectiveAlgorithm(algorithm),
+            algorithm=algorithm,
             addr_0=op0.address if op0 is not None else 0,
             addr_1=op1.address if op1 is not None else 0,
             addr_2=res.address if res is not None else 0)
@@ -564,9 +855,31 @@ class ACCL:
                    chain: bool = False) -> CallHandle:
         if chain and run_async:
             desc.chain = True
-        handle = self.device.call_async(desc, waitfor,
-                                        inline_ok=not run_async)
         op = desc.scenario.name
+        tunable = (op in VALID_ALGORITHMS
+                   and desc.algorithm != CollectiveAlgorithm.AUTO)
+        # only a synchronous call without dependencies, issued while no
+        # async call of any driver sharing the tuner is in flight, trains
+        # it: otherwise the window measures queueing, not the algorithm
+        observing = (self.tuner is not None and tunable
+                     and not run_async and not waitfor
+                     and self._async_inflight == 0
+                     and self.tuner.quiescent())
+        t0 = time.perf_counter() if observing else 0.0
+        if run_async:
+            # counted in flight before it launches: a sibling driver must
+            # not train on a window this call already inflates
+            with self._async_mu:
+                self._async_inflight += 1
+            if self.tuner is not None:
+                self.tuner.note_async_issue()
+        try:
+            handle = self.device.call_async(desc, waitfor,
+                                            inline_ok=not run_async)
+        except BaseException:
+            if run_async:
+                self._async_retired()
+            raise
         if desc.scenario != CCLOp.config:
             key = (op, desc.comm_id)
             self._call_counts[key] = self._call_counts.get(key, 0) + 1
@@ -574,10 +887,27 @@ class ACCL:
                                if desc.arithcfg is not None else 0)
             if nb:
                 self._byte_counts[key] = self._byte_counts.get(key, 0) + nb
+        if observing:
+            # the issue-to-retire window back to the tuner, per algorithm
+            # and per wire variant
+            tuner = self.tuner
+            world = self.comm_of(desc.comm_id).size
+            nbytes = desc.count * desc.arithcfg.uncompressed_dtype.itemsize
+            alg = desc.algorithm
+            quantized = bool(desc.compression & Compression.BLOCK_SCALED)
+
+            def _feed(error_word: int, _t0=t0):
+                dt = time.perf_counter() - _t0
+                tuner.observe(op, world, nbytes, alg, dt, error_word)
+                tuner.observe_wire(op, world, nbytes, quantized, dt,
+                                   error_word)
+
+            handle.add_done_callback(_feed)
         if run_async:
             comm_id = desc.comm_id
 
             def _retired(err):
+                self._async_retired()
                 if err:
                     METRICS.inc("accl_call_errors_total", op=op,
                                 comm_id=comm_id)
@@ -591,6 +921,12 @@ class ACCL:
                         comm_id=desc.comm_id)
             raise
         return CompletedHandle(context=op)
+
+    def _async_retired(self):
+        with self._async_mu:
+            self._async_inflight -= 1
+        if self.tuner is not None:
+            self.tuner.note_async_retire()
 
     @contextlib.contextmanager
     def _retry_scope(self, retries, retry_policy):
@@ -606,6 +942,106 @@ class ACCL:
         finally:
             self.retry_policy = prev
 
+    # -- result integrity: cross-rank fingerprints -------------------------
+    def _want_verify(self, explicit: bool | None, run_async: bool,
+                     compressing: bool = False) -> bool:
+        """Per-call ``verify_integrity=`` over the driver default, for
+        synchronous calls only (the check is a follow-up collective on
+        the calling thread): an explicit request on an async call raises,
+        the default skips it. A wire-compressed call is excluded the same
+        way, since lossy narrowing legitimately leaves the result bytes of
+        a bcast root and its receivers apart. The phases of a
+        hierarchical program are never verified one by one: the logical
+        call verifies its result once."""
+        if explicit is None and self._parent_tag:
+            return False
+        want = self.verify_integrity if explicit is None else bool(explicit)
+        if not want:
+            return False
+        if compressing:
+            if explicit:
+                raise ValueError(
+                    "verify_integrity cannot cover a compress_dtype "
+                    "call: lossy wire narrowing makes result bytes "
+                    "legitimately differ across ranks (the root/owner "
+                    "keeps original precision), so a fingerprint "
+                    "mismatch would not mean corruption")
+            return False
+        if run_async:
+            if explicit:
+                raise ValueError(
+                    "verify_integrity requires a synchronous call (the "
+                    "fingerprint exchange is a follow-up collective on "
+                    "the calling thread); wait the handle and verify "
+                    "via a sync call, or use the driver-wide default")
+            return False
+        return True
+
+    def fingerprint_of(self, buf: ACCLBuffer, nelems: int | None = None
+                       ) -> int:
+        """crc32 of the raw bytes of the first ``nelems`` elements of a
+        result buffer (the reference's fingerprint for the same bytes).
+        A device tensor is read back once, into a pinned host buffer this
+        driver keeps (grown to the largest result verified)."""
+        flat = buf.storage.reshape(-1)
+        if nelems is not None:
+            flat = flat[:nelems]
+        raw = flat.view(torch.uint8)
+        if raw.device.type != "cpu":
+            n = raw.numel()
+            if self._fp_host is None or self._fp_host.numel() < n:
+                self._fp_host = torch.empty(n, dtype=torch.uint8,
+                                            pin_memory=True)
+            host = self._fp_host[:n]
+            host.copy_(raw)         # synchronous: after the result's work
+            raw = host
+        return zlib.crc32(raw.numpy()) & 0xFFFFFFFF
+
+    def _verify_result(self, op: str, buf: ACCLBuffer, nelems: int,
+                       comm: Communicator):
+        """Allgather every rank's result fingerprint and compare: a
+        disagreement means some rank's RESULT bytes differ (local
+        corruption no wire check sees) and raises DATA_INTEGRITY_ERROR
+        naming the minority rank(s), or every rank when no strict
+        majority exists. Never retried."""
+        fp = self.fingerprint_of(buf, nelems)
+        W = comm.size
+        bufs = self._fp_bufs.get(W)
+        if bufs is None:
+            bufs = self._fp_bufs[W] = (self.buffer((1,), torch.int64),
+                                       self.buffer((W,), torch.int64))
+        src, dst = bufs
+        src.storage[0] = fp
+        self.allgather(src, dst, 1, comm=comm, verify_integrity=False)
+        fps = dst.data[:W].copy()
+        if (fps == fp).all():
+            METRICS.inc("integrity_verified_total", op=op,
+                        comm_id=comm.comm_id, rank=self.rank)
+            return
+        vals, counts = np.unique(fps, return_counts=True)
+        if counts.max() * 2 > W:
+            majority = vals[counts.argmax()]
+            bad = [r for r in range(W) if fps[r] != majority]
+            what = f"rank(s) {bad} disagree"
+        else:
+            # no strict majority (always so at W=2): name every rank
+            bad = list(range(W))
+            what = (f"no majority fingerprint — the split is "
+                    f"undecidable, any of rank(s) {bad} may hold the "
+                    f"corrupt result")
+        METRICS.inc("integrity_mismatch_total", op=op,
+                    comm_id=comm.comm_id, rank=self.rank)
+        log.error(
+            "rank %d: %s result fingerprint mismatch on comm %d — "
+            "%s (fingerprints %s). Local data "
+            "corruption: NOT retried (a re-execution could mask it).",
+            self.rank, op, comm.comm_id, what, [int(f) for f in fps],
+            extra={"rank": self.rank})
+        raise ACCLError(
+            int(ErrorCode.DATA_INTEGRITY_ERROR),
+            f"{op} on comm {comm.comm_id}: result fingerprint "
+            f"mismatch — {what}")
+
     # -- operations -----------------------------------------------------------
     def nop(self, run_async: bool = False, chain: bool = False,
             waitfor: Sequence[CallHandle] = (),
@@ -620,18 +1056,45 @@ class ACCL:
                   algorithm: CollectiveAlgorithm | str = (
                       CollectiveAlgorithm.AUTO),
                   compress_dtype=None, block_scale: bool | int = False,
+                  compress_phases=None,
                   run_async: bool = False, chain: bool = False,
                   waitfor: Sequence[CallHandle] = (),
                   retries: int | None = None,
-                  retry_policy: RetryPolicy | None = None) -> CallHandle:
+                  retry_policy: RetryPolicy | None = None,
+                  verify_integrity: bool | None = None) -> CallHandle:
         """count = per-rank chunk; dstbuf holds world_size*count."""
         comm = comm or self.comm
-        desc = self._prepare(CCLOp.allgather, count=count, comm=comm,
-                             op0=srcbuf, res=dstbuf,
-                             compress_dtype=compress_dtype,
-                             block_scale=block_scale, algorithm=algorithm)
-        return self._call(desc, run_async, waitfor, chain, retries,
-                          retry_policy)
+        compress_dtype, block_scale = self._resolve_wire(
+            "allgather", comm, count,
+            srcbuf.dtype if srcbuf.dtype == dstbuf.dtype else None,
+            compress_dtype, block_scale)
+        routed = self._hier_route(
+            "allgather", comm, count,
+            max(srcbuf.dtype.itemsize, dstbuf.dtype.itemsize), algorithm)
+        if not routed and _phases_strip_flat(compress_phases):
+            compress_dtype, block_scale = None, False
+        verify = self._want_verify(verify_integrity, run_async,
+                                   compress_dtype is not None)
+        if routed:
+            with self._retry_scope(retries, retry_policy):
+                handle = self._hier.run(
+                    "allgather", count=count, src=srcbuf, dst=dstbuf,
+                    compress_dtype=compress_dtype, block_scale=block_scale,
+                    compress_phases=compress_phases, run_async=run_async,
+                    waitfor=waitfor)
+        else:
+            desc = self._prepare(CCLOp.allgather, count=count, comm=comm,
+                                 op0=srcbuf, res=dstbuf,
+                                 compress_dtype=compress_dtype,
+                                 block_scale=block_scale,
+                                 algorithm=algorithm)
+            handle = self._call(desc, run_async, waitfor, chain, retries,
+                                retry_policy)
+        if verify:
+            # the replicated result is the whole gathered vector
+            self._verify_result("allgather", dstbuf, count * comm.size,
+                                comm)
+        return handle
 
     def allreduce(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer, count: int,
                   func: ReduceFunc = ReduceFunc.SUM, *,
@@ -639,20 +1102,51 @@ class ACCL:
                   algorithm: CollectiveAlgorithm | str = (
                       CollectiveAlgorithm.AUTO),
                   compress_dtype=None, block_scale: bool | int = False,
+                  compress_phases=None,
                   run_async: bool = False, chain: bool = False,
                   waitfor: Sequence[CallHandle] = (),
                   retries: int | None = None,
-                  retry_policy: RetryPolicy | None = None) -> CallHandle:
+                  retry_policy: RetryPolicy | None = None,
+                  verify_integrity: bool | None = None) -> CallHandle:
         """``compress_dtype`` names the wire dtype; with ``block_scale``
         the wire is block-scale quantized: per-block scales, f32
-        accumulation, fresh scales on every hop."""
+        accumulation, fresh scales on every hop. ``compress_dtype="auto"``
+        lets the tuner pick the quantized wire in the bandwidth-bound
+        band. ``compress_phases="inter"`` applies the wire compression
+        only to the phases of a HIERARCHICAL lowering that cross a
+        boundary; a flat call with "inter" runs uncompressed."""
         comm = comm or self.comm
-        desc = self._prepare(CCLOp.allreduce, count=count, comm=comm,
-                             func=func, op0=srcbuf, res=dstbuf,
-                             compress_dtype=compress_dtype,
-                             block_scale=block_scale, algorithm=algorithm)
-        return self._call(desc, run_async, waitfor, chain, retries,
-                          retry_policy)
+        compress_dtype, block_scale = self._resolve_wire(
+            "allreduce", comm, count,
+            srcbuf.dtype if srcbuf.dtype == dstbuf.dtype else None,
+            compress_dtype, block_scale)
+        routed = self._hier_route(
+            "allreduce", comm, count,
+            max(srcbuf.dtype.itemsize, dstbuf.dtype.itemsize), algorithm)
+        if not routed and _phases_strip_flat(compress_phases):
+            # stripped BEFORE the verify decision: a flat "inter" call
+            # runs uncompressed, where verification is valid
+            compress_dtype, block_scale = None, False
+        verify = self._want_verify(verify_integrity, run_async,
+                                   compress_dtype is not None)
+        if routed:
+            with self._retry_scope(retries, retry_policy):
+                handle = self._hier.run(
+                    "allreduce", count=count, src=srcbuf, dst=dstbuf,
+                    func=func, compress_dtype=compress_dtype,
+                    block_scale=block_scale, compress_phases=compress_phases,
+                    run_async=run_async, waitfor=waitfor)
+        else:
+            desc = self._prepare(CCLOp.allreduce, count=count, comm=comm,
+                                 func=func, op0=srcbuf, res=dstbuf,
+                                 compress_dtype=compress_dtype,
+                                 block_scale=block_scale,
+                                 algorithm=algorithm)
+            handle = self._call(desc, run_async, waitfor, chain, retries,
+                                retry_policy)
+        if verify:
+            self._verify_result("allreduce", dstbuf, count, comm)
+        return handle
 
     def reduce_scatter(self, srcbuf: ACCLBuffer, dstbuf: ACCLBuffer,
                        count: int, func: ReduceFunc = ReduceFunc.SUM, *,
@@ -660,6 +1154,7 @@ class ACCL:
                        algorithm: CollectiveAlgorithm | str = (
                            CollectiveAlgorithm.AUTO),
                        compress_dtype=None, block_scale: bool | int = False,
+                       compress_phases=None,
                        run_async: bool = False, chain: bool = False,
                        waitfor: Sequence[CallHandle] = (),
                        retries: int | None = None,
@@ -667,6 +1162,22 @@ class ACCL:
                        ) -> CallHandle:
         """count = per-rank chunk; srcbuf holds world_size*count."""
         comm = comm or self.comm
+        compress_dtype, block_scale = self._resolve_wire(
+            "reduce_scatter", comm, count,
+            srcbuf.dtype if srcbuf.dtype == dstbuf.dtype else None,
+            compress_dtype, block_scale)
+        if self._hier_route(
+                "reduce_scatter", comm, count,
+                max(srcbuf.dtype.itemsize, dstbuf.dtype.itemsize),
+                algorithm):
+            with self._retry_scope(retries, retry_policy):
+                return self._hier.run(
+                    "reduce_scatter", count=count, src=srcbuf, dst=dstbuf,
+                    func=func, compress_dtype=compress_dtype,
+                    block_scale=block_scale, compress_phases=compress_phases,
+                    run_async=run_async, waitfor=waitfor)
+        if _phases_strip_flat(compress_phases):
+            compress_dtype, block_scale = None, False
         desc = self._prepare(CCLOp.reduce_scatter, count=count, comm=comm,
                              func=func, op0=srcbuf, res=dstbuf,
                              compress_dtype=compress_dtype,
@@ -731,10 +1242,10 @@ class ACCL:
                 f"{n_send} elems (srcbuf {srcbuf.size}), recv needs "
                 f"{n_recv} (dstbuf {dstbuf.size})")
         count = max(n_send, n_recv)
-        if block_scale and compress_dtype is None:
-            raise ValueError(
-                "block_scale needs a compress_dtype naming the quantized "
-                "wire dtype (int8 / float8_e4m3fn / float8_e5m2)")
+        compress_dtype, block_scale = self._resolve_wire(
+            "alltoallv", comm, count,
+            srcbuf.dtype if srcbuf.dtype == dstbuf.dtype else None,
+            compress_dtype, block_scale)
         # the count vectors' shape is what tells this op apart: the bytes
         # and the skew (largest peer chunk over the even share) make a
         # routing collapse visible without a trace
@@ -938,20 +1449,42 @@ class ACCL:
               *, comm: Communicator | None = None,
               algorithm: CollectiveAlgorithm | str = CollectiveAlgorithm.AUTO,
               compress_dtype=None, block_scale: bool | int = False,
+              compress_phases=None,
               run_async: bool = False, chain: bool = False,
               waitfor: Sequence[CallHandle] = (),
               retries: int | None = None,
-              retry_policy: RetryPolicy | None = None) -> CallHandle:
+              retry_policy: RetryPolicy | None = None,
+              verify_integrity: bool | None = None) -> CallHandle:
         """In place: root's ``buf`` lands in every other rank's ``buf``
         (the root's stays exact; a wire dtype is a pure cast per hop)."""
         comm = comm or self.comm
         count = count if count is not None else buf.size
-        desc = self._prepare(CCLOp.bcast, count=count, comm=comm,
-                             root_src_dst=root, op0=buf,
-                             compress_dtype=compress_dtype,
-                             block_scale=block_scale, algorithm=algorithm)
-        return self._call(desc, run_async, waitfor, chain, retries,
-                          retry_policy)
+        compress_dtype, block_scale = self._resolve_wire(
+            "bcast", comm, count, buf.dtype, compress_dtype, block_scale)
+        routed = self._hier_route("bcast", comm, count, buf.dtype.itemsize,
+                                  algorithm)
+        if not routed and _phases_strip_flat(compress_phases):
+            compress_dtype, block_scale = None, False
+        verify = self._want_verify(verify_integrity, run_async,
+                                   compress_dtype is not None)
+        if routed:
+            with self._retry_scope(retries, retry_policy):
+                handle = self._hier.run(
+                    "bcast", count=count, src=buf, root=root,
+                    compress_dtype=compress_dtype, block_scale=block_scale,
+                    compress_phases=compress_phases, run_async=run_async,
+                    waitfor=waitfor)
+        else:
+            desc = self._prepare(CCLOp.bcast, count=count, comm=comm,
+                                 root_src_dst=root, op0=buf,
+                                 compress_dtype=compress_dtype,
+                                 block_scale=block_scale,
+                                 algorithm=algorithm)
+            handle = self._call(desc, run_async, waitfor, chain, retries,
+                                retry_policy)
+        if verify:
+            self._verify_result("bcast", buf, count, comm)
+        return handle
 
     def scatter(self, srcbuf: ACCLBuffer | None, dstbuf: ACCLBuffer,
                 count: int, root: int = 0, *,

@@ -3,7 +3,8 @@
 An :class:`ArithConfig` names, for a pair of (uncompressed, compressed)
 dtypes, how operands combine and travel on the wire. The registry is
 keyed by the same dtype-name strings as ``accl_tpu/arith.py``; its
-values hold torch dtypes.
+values hold torch dtypes. A driver resolves against its own registry
+(``ACCL(arith_registry=)``), the defaults unless it is given one.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ class ArithConfig:
         return self.uncompressed_dtype != self.compressed_dtype
 
 
-def _mk(u: str, c: str) -> ArithConfig:
-    return ArithConfig(to_torch_dtype(u), to_torch_dtype(c))
+def _mk(u: str, c: str, **kw) -> ArithConfig:
+    """A registry entry: ``kw`` sets further fields (``quant_block``)."""
+    return ArithConfig(to_torch_dtype(u), to_torch_dtype(c), **kw)
 
 
 DEFAULT_ARITH_CONFIGS: dict[tuple[str, str], ArithConfig] = {

@@ -124,6 +124,26 @@ VALID_ALGORITHMS: dict[str, frozenset] = {
 }
 
 
+# Ops the driver can lower to a hierarchical phase program (.hier).
+# HIERARCHICAL is never a static default and never reaches a backend in
+# a descriptor: the driver intercepts it before issue.
+HIERARCHICAL_OPS = frozenset({"bcast", "allgather", "allreduce",
+                              "reduce_scatter"})
+
+# What AUTO resolves to when the tuner's cost model has no answer (and
+# what a flat descriptor carries where a tuner leaned HIERARCHICAL): the
+# reference's table.
+DEFAULT_ALGORITHMS: dict[str, CollectiveAlgorithm] = {
+    "bcast": CollectiveAlgorithm.ROUND_ROBIN,
+    "scatter": CollectiveAlgorithm.ROUND_ROBIN,
+    "gather": CollectiveAlgorithm.RING,
+    "reduce": CollectiveAlgorithm.RING,
+    "allgather": CollectiveAlgorithm.RING,
+    "allreduce": CollectiveAlgorithm.FUSED_RING,
+    "reduce_scatter": CollectiveAlgorithm.RING,
+}
+
+
 def check_algorithm(scenario_name: str, algorithm) -> None:
     """Raise ValueError unless (scenario, algorithm) is a legal pair."""
     if algorithm == CollectiveAlgorithm.AUTO:
@@ -196,5 +216,8 @@ def decode_error(error_word: int) -> list[ErrorCode]:
             and error_word & e.value]
 
 
+# the driver's default segment size when no tuner recommends one (the
+# reference's 1 MiB)
+DEFAULT_MAX_SEGMENT_SIZE = 1 << 20
 DEFAULT_TIMEOUT_S = 30.0
 TAG_ANY = 0xFFFFFFFF

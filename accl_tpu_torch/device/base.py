@@ -12,10 +12,16 @@ from typing import Sequence
 from ..buffer import ACCLBuffer
 from ..call import CallDescriptor, CallHandle
 from ..communicator import Communicator
+from ..constants import DEFAULT_MAX_SEGMENT_SIZE
 
 
 class Device(abc.ABC):
     """One rank's execution backend."""
+
+    # the driver's attached Tuner (ACCL(tuner=) sets it), for a backend
+    # that resolves AUTO itself
+    tuner = None
+    max_segment_size = DEFAULT_MAX_SEGMENT_SIZE
 
     # -- shared inline fast-path gate ---------------------------------------
     # A backend that can retire a call in the caller's thread guards the
@@ -77,6 +83,27 @@ class Device(abc.ABC):
     @abc.abstractmethod
     def set_timeout(self, timeout: float): ...
 
+    def set_max_segment_size(self, nbytes: int):
+        self.max_segment_size = int(nbytes)
+
+    def preferred_segment_size(self) -> int:
+        """The segment size the driver sets at bring-up when no tuner
+        recommends one."""
+        return DEFAULT_MAX_SEGMENT_SIZE
+
+    def topology(self):
+        """Link descriptor of this backend's tier for the tuner's cost
+        model; a backend overrides it with its own figures. The generic
+        default only has to order algorithms sanely."""
+        from ..tuner.cost import Topology
+        return Topology(world_size=0, alpha_us=50.0, beta_gbps=1.0,
+                        tier="generic")
+
+    def auto_resolvable_ops(self):
+        """Ops whose AUTO the driver resolves through the tuner before
+        issue; None means every op with an algorithm axis."""
+        return None
+
     def adopt_device_tensor(self, t):
         """Accept a live tensor for a device-resident buffer."""
         raise ValueError(f"{type(self).__name__} has no device tensors")
@@ -124,10 +151,11 @@ class Device(abc.ABC):
 
     def apply_config(self, desc: CallDescriptor) -> int:
         """Shared ACCL_CONFIG dispatch: subfunction in ``tag``, value in
-        ``count`` (ms for timeout). The connection subfunctions succeed
-        as no-ops (an in-process world has no ports or sessions), and so
-        do segment size (a single-device ring does not segment) and the
-        profiling ones (no profiler is attached yet)."""
+        ``count`` (ms for timeout, bytes for segment size). The
+        connection subfunctions succeed as no-ops (an in-process world has
+        no ports or sessions), and so do the profiling ones (no profiler
+        is attached yet). The segment size is kept (``max_segment_size``)
+        and changes nothing: a single-device ring does not segment."""
         from ..constants import CfgFunc, ErrorCode
         try:
             fn = CfgFunc(desc.tag)
@@ -140,9 +168,11 @@ class Device(abc.ABC):
         if fn == CfgFunc.set_timeout:
             self.set_timeout(val / 1000.0)
             return 0
+        if fn == CfgFunc.set_max_segment_size:
+            self.set_max_segment_size(val)
+            return 0
         if fn in (CfgFunc.enable_pkt, CfgFunc.open_port, CfgFunc.open_con,
                   CfgFunc.close_con, CfgFunc.set_stack_type,
-                  CfgFunc.set_max_segment_size, CfgFunc.start_profiling,
-                  CfgFunc.end_profiling):
+                  CfgFunc.start_profiling, CfgFunc.end_profiling):
             return 0
         return int(ErrorCode.INVALID_CALL)

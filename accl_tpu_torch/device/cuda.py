@@ -124,6 +124,13 @@ _RMA = {CCLOp.put, CCLOp.get}
 _WIDE = {torch.int64, torch.float64}
 _LANE_DTYPES = {to_torch_dtype(n) for n in WIRE_LANE_NAMES}
 
+# CudaDevice.topology()'s figures, measured by chip_smoke.py phase 13c
+# on an NVIDIA H100 80GB HBM3 at 700 W: a 1-element allreduce over 8
+# ranks took 4147.9 us of library time on its slowest rank, and a ring
+# shift of 64 Mi f32 rows over 8 ranks moved 186.8 GB a second a rank
+CUDA_ALPHA_US = 4147.9
+CUDA_BETA_GBPS = 186.8
+
 
 def to_dtype(t: torch.Tensor, dtype: torch.dtype,
              out: torch.Tensor | None = None) -> torch.Tensor:
@@ -579,6 +586,26 @@ class CudaDevice(Device):
 
     def set_timeout(self, timeout: float):
         self.timeout = timeout
+
+    def topology(self):
+        """This tier's link figures for the tuner's cost model, measured
+        on the card (``chip_smoke.py`` phase 13c, ``CUDA_ALPHA_US`` and
+        ``CUDA_BETA_GBPS``): ``alpha_us`` is the host floor of a small
+        collective call (the slowest rank's library time of a 1-element
+        allreduce over 8 ranks) and ``beta_gbps`` the copy rate of the
+        exchange (a ring shift of 64 Mi f32 a rank through
+        ``RankCollectives.exchange``). They only have to order the
+        algorithms; measurement refines the rest."""
+        from ..tuner.cost import Topology
+        return Topology(world_size=self.ctx.world_size,
+                        alpha_us=CUDA_ALPHA_US, beta_gbps=CUDA_BETA_GBPS,
+                        tier="cuda")
+
+    def auto_resolvable_ops(self):
+        """The rooted ops keep their own AUTO (the 2-D tree where the
+        world folds), which no selector names; the tuner resolves the
+        dense collectives."""
+        return frozenset({"allreduce", "allgather", "reduce_scatter"})
 
     def call_async(self, desc: CallDescriptor,
                    waitfor: Sequence[CallHandle] = (), *,
@@ -1374,12 +1401,16 @@ class CudaDevice(Device):
 
 def cuda_world(world_size: int, device="cuda", algorithm: str = "xla",
                timeout: float = DEFAULT_TIMEOUT_S,
-               retry_policy=None) -> list:
+               retry_policy=None, tuner=None) -> list:
     """Create ``world_size`` ACCL drivers whose ranks share one torch
     device: the counterpart of ``tpu_world``. ``device`` defaults to
     ``"cuda"`` and raises when CUDA is unavailable; pass ``"cpu"`` to run
-    the plain versions on the CPU. ``retry_policy`` is every driver's
-    default :class:`~accl_tpu_torch.retry.RetryPolicy`."""
+    the plain versions on the CPU. ``algorithm`` is what a dense
+    collective's AUTO runs ("xla": one reduction over the rank axis;
+    "ring": the ring of B1 combines). ``retry_policy`` is every driver's
+    default :class:`~accl_tpu_torch.retry.RetryPolicy`; ``tuner`` (one
+    :class:`~accl_tpu_torch.tuner.Tuner` shared by the ranks) resolves
+    AUTO by size and topology."""
     from ..accl import ACCL
     from ..communicator import Rank
     ctx = CudaContext(world_size, device=device, algorithm=algorithm)
@@ -1389,5 +1420,5 @@ def cuda_world(world_size: int, device="cuda", algorithm: str = "xla",
         comm = Communicator(ranks=[Rank(device=ctx.device)
                                    for _ in range(W)], local_rank=r)
         accls.append(ACCL(ctx.device_of(r), comm, timeout=timeout,
-                          retry_policy=retry_policy))
+                          retry_policy=retry_policy, tuner=tuner))
     return accls

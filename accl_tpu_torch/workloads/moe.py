@@ -26,12 +26,13 @@ import torch
 __all__ = ["moe_dispatch_combine", "moe_reference", "default_expert"]
 
 
-def default_expert(rank: int, d: int, device=None,
+def default_expert(rank: int, d: int, device="cuda",
                    dtype: torch.dtype = torch.float32):
     """Rank ``rank``'s expert, tanh(x W + b), with the reference's weights
     (numpy ``default_rng(1000 + rank)``, float32) moved to ``device`` in
-    ``dtype``: both packages compute the same expert, and a float64 copy
-    of it is the oracle's."""
+    ``dtype`` (the card unless the caller names another device): both
+    packages compute the same expert, and a float64 copy of it is the
+    oracle's."""
     rng = np.random.default_rng(1000 + rank)
     w = rng.standard_normal((d, d)).astype(np.float32) / np.sqrt(d)
     b = rng.standard_normal(d).astype(np.float32) * 0.1

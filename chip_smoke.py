@@ -224,6 +224,34 @@ Run from the root of a checkout:  python3 chip_smoke.py
    outlasted under ``retries=3``, RECEIVE_TIMEOUT_ERROR under 0,
    CALL_RETRIES_EXHAUSTED when spent) and a revoke failing a call in
    flight with PEER_FAILED within 1 s. B2, B5 and B6 must launch.
+13. The tuner and the N-tier hierarchy (after 12; its lines print when
+   it ends): ``cuda_world(8, algorithm="ring")`` configured as 2 hosts
+   of 4 ranks, 64 Mi fp32 a rank, device-resident. 13a HIERARCHICAL
+   allreduce, allgather, reduce_scatter and bcast (root 5), each bitwise
+   the same phases issued by hand on split communicators and within
+   ``golden_bound`` of the float64 oracle (gathers and broadcasts
+   exact); the uneven leader shape and a 3-tier nest (chips of 2 in
+   racks of 4) at 8 Mi. 13b ``compress_phases="inter"``: fp8-e4m3 block
+   128 (``hier_phase_wire_total`` full on the intra phases, quantized on
+   the inter ones; B5, B6, B7 launched exactly as often as in the
+   program issued by hand with only its outer allreduce compressed;
+   bitwise that program; within the codec's bound of two quantizations)
+   and bf16 (B2 on the inter phases). Then the 64 Mi allreduce
+   hierarchical, fp8 inter and the flat ring: device ms behind a GPU
+   sleep, library ms, idle share, kernels by family, launches. 13d
+   ``verify_integrity`` (W verifications a logical call, a forced
+   mismatch on rank 1 failing every rank naming [1], the time of
+   ``fingerprint_of`` on 256 MiB with its read-back and crc32 apart).
+   13e ``preflight``, ``set_max_segment_size``, a custom arith registry
+   entry, ``plan_cache_stats``. 13c the card's own link figures
+   (``CudaDevice.topology()``: the host floor of a 1-element allreduce,
+   the copy rate of an exchange round), then a shared ``Tuner`` over
+   ``MeshTopology.from_hosts`` with epsilon 0: AUTO allreduces with
+   ``compress_dtype="auto"`` at 1 Ki, 64 Ki, 4 Mi and 64 Mi a rank, the
+   route, wire and block each equal to a fresh Tuner's and within its
+   bound, ``describe()`` after the measured calls, and one AUTO
+   allreduce under the card's own topology. B1, B5, B6 and B7 must
+   launch.
 
 Each phase starts with a line of the device memory allocated.
 
@@ -244,6 +272,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -4804,6 +4833,637 @@ def elastic_phase(recs):
             r["launches_by_path"]["elastic"] = launched[r["name"]]
 
 
+# -- phase 13: the tuner and the N-tier hierarchy ----------------------------
+
+HIER_HOSTS = [0, 0, 0, 0, 1, 1, 1, 1]       # 2 "hosts" of 4 virtual ranks
+HIER_UNEVEN = [0, 0, 0, 1, 1, 1, 1, 1]      # the leader shape
+HIER_CHIPS = [0, 0, 1, 1, 2, 2, 3, 3]       # 3 tiers: chips in racks
+HIER_RACKS = [0, 0, 0, 0, 1, 1, 1, 1]
+HIER_SMALL_N = 8 << 20     # the uneven and 3-tier allreduces, a rank
+HIER_BCAST_ROOT = 5
+TUNER_SIZES = (1 << 10, 64 << 10, 4 << 20, 64 << 20)   # 13c, a rank
+# B1, B5, B6, B7: the kernels phase 13 must launch (B2 rides 13b's bf16)
+HIER_KERNELS = ("combine", "bs_quant", "bs_dequant", "bs_combine")
+
+
+def hand_hier(a, op: str, src, dst, n: int, root: int = HIER_BCAST_ROOT,
+              outer_kw=None):
+    """The HIERARCHICAL program of ``op`` on HIER_HOSTS issued by hand,
+    phase by phase, on split communicators of the driver: the yardstick
+    its lowering is held to bitwise. ``n`` is the allreduce / bcast
+    count, the per-rank chunk for allgather and reduce_scatter;
+    ``outer_kw`` the wire of the inter phase (compress_phases="inter")."""
+    import torch
+    r = a.rank
+    host, j = divmod(r, 4)
+    inner = a.split_communicator([4 * host + i for i in range(4)],
+                                 key=0x13A1)
+    empty = lambda k: a.buffer((k,), torch.float32,  # noqa: E731
+                               device_resident=True)
+    if op == "allreduce":
+        outer = a.split_communicator([j, 4 + j], key=0x13A2 + j)
+        s1, s2 = empty(n // 4), empty(n // 4)
+        a.reduce_scatter(src, s1, n // 4, comm=inner)
+        a.allreduce(s1, s2, n // 4, comm=outer, **(outer_kw or {}))
+        a.allgather(s2, dst, n // 4, comm=inner)
+    elif op == "allgather":
+        blk = dst[4 * host * n:(4 * host + 4) * n]
+        a.gather(src, blk if j == 0 else None, n, root=0, comm=inner)
+        if j == 0:
+            leaders = a.split_communicator([0, 4], key=0x13B0)
+            a.allgather(blk, dst, 4 * n, comm=leaders)
+        a.bcast(dst, W * n, root=0, comm=inner)
+    elif op == "reduce_scatter":
+        sn = empty(W * n) if j == 0 else None
+        a.reduce(src, sn, W * n, root=0, comm=inner)
+        sb = None
+        if j == 0:
+            leaders = a.split_communicator([0, 4], key=0x13B0)
+            sb = empty(4 * n)
+            a.reduce_scatter(sn, sb, 4 * n, comm=leaders)
+        a.scatter(sb, dst, n, root=0, comm=inner)
+    else:                                   # bcast from root (host 1)
+        rep = root if root // 4 == host else 4 * host
+        if r in (0, root):
+            reps = a.split_communicator([0, root], key=0x13B1)
+            a.bcast(src, n, root=1, comm=reps)
+        a.bcast(src, n, root=rep - 4 * host, comm=inner)
+
+
+def hier_counts(metrics) -> dict:
+    """hier_phase_wire_total by (tier, wire)."""
+    rows = metrics.snapshot()["counters"].get("hier_phase_wire_total", {})
+    out = collections.Counter()
+    for labels, v in rows.items():
+        kv = dict(p.split("=", 1) for p in labels.split(","))
+        out[(kv["tier"], kv["wire"])] += v
+    return out
+
+
+def drive_counted(accls, fn, launched: dict):
+    """One run of ``fn`` on every rank; its kernel launches are added to
+    ``launched`` (the main path's count: comparison runs add nothing)."""
+    import torch
+    from accl_tpu_torch.testing import run_ranks
+    cnt = counters()
+    torch.cuda.synchronize()
+    before = {k: f.launches for k, f in cnt.items()}
+    out = run_ranks(accls, fn)
+    torch.cuda.synchronize()
+    per = {k: f.launches - before[k] for k, f in cnt.items()
+           if f.launches - before[k]}
+    for k, v in per.items():
+        launched[k] = launched.get(k, 0) + v
+    return out, per
+
+
+def oracle(xs):
+    """(float64 sum, float64 sum of |x|) of the rank rows, on the card."""
+    import torch
+    x64 = torch.zeros(xs[0].numel(), dtype=torch.float64, device="cuda")
+    absum = torch.zeros_like(x64)
+    for x in xs:
+        x64 += x.double()
+        absum += x.double().abs()
+    return x64, absum
+
+
+def hold_f32(name, got, x64, absum, k32: int = W - 1):
+    """Every row within ``golden_bound(absum, k32)`` of the float64 sum
+    (every intermediate of a sum is at most sum|x| in magnitude)."""
+    import torch
+    bd = golden_bound(absum, k32)
+    worst = 0.0
+    for t in got:
+        need(bool(torch.isfinite(t).all()), f"{name}: non-finite")
+        err = (t.double() - x64).abs()
+        need(bool((err <= bd).all()), f"{name}: outside the f32 bound of "
+                                      f"the float64 oracle")
+        worst = max(worst, float((err / bd.clamp_min(1e-300)).max()))
+    return worst
+
+
+def hier_main(say, launched, accls, bufs, xs, ags):
+    """13a and 13b on the aligned hierarchy, 64 Mi fp32 a rank, then the
+    uneven and the 3-tier nests at 8 Mi."""
+    import torch
+    from accl_tpu_torch.tracing import METRICS
+    from accl_tpu_torch.testing import run_ranks
+    c = N // W
+    H = "HIERARCHICAL"
+    for a in accls:
+        a.configure_hierarchy(HIER_HOSTS)
+    calls = {
+        "allreduce": lambda a, b: a.allreduce(b["src"], b["ar"], N,
+                                              algorithm=H),
+        "allgather": lambda a, b: a.allgather(b["ag_src"], b["ag"], c,
+                                              algorithm=H),
+        "reduce_scatter": lambda a, b: a.reduce_scatter(
+            b["src"], b["rs"], c, algorithm=H),
+        "bcast": lambda a, b: a.bcast(b["bc"], N, root=HIER_BCAST_ROOT,
+                                      algorithm=H),
+    }
+    x64, absum = oracle(xs)
+    for name, call in calls.items():
+        _, per = drive_counted(accls, lambda a: call(a, bufs[a.rank]),
+                               launched)
+        # the same phases by hand, on the driver's split communicators
+        hand = {}
+
+        def by_hand(a, name=name):
+            b = bufs[a.rank]
+            dst = a.buffer(b[{"allreduce": "ar", "allgather": "ag",
+                              "reduce_scatter": "rs",
+                              "bcast": "bc"}[name]].shape, torch.float32,
+                           device_resident=True)
+            if name == "bcast":
+                dst.tensor.copy_(b["bc_in"])
+            src = b["ag_src"] if name == "allgather" else b["src"]
+            n = N if name in ("allreduce", "bcast") else c
+            hand_hier(a, name, dst if name == "bcast" else src, dst, n)
+            hand[a.rank] = dst.tensor
+        run_ranks(accls, by_hand)
+        torch.cuda.synchronize()
+        key = {"allreduce": "ar", "allgather": "ag", "reduce_scatter": "rs",
+               "bcast": "bc"}[name]
+        got = [bufs[r][key].tensor for r in range(W)]
+        check_rows(got, [hand[r] for r in range(W)],
+                   f"hierarchical {name} vs its phases by hand")
+        del hand
+        if name == "allreduce":
+            ratio = hold_f32("hierarchical allreduce", got, x64, absum)
+        elif name == "reduce_scatter":
+            ratio = max(hold_f32(
+                "hierarchical reduce_scatter", [t], x64[r * c:(r + 1) * c],
+                absum[r * c:(r + 1) * c]) for r, t in enumerate(got))
+        elif name == "allgather":
+            gold = torch.cat(ags)
+            need(all(torch.equal(t, gold) for t in got),
+                 "hierarchical allgather: not the exact gather")
+            ratio = 0.0
+        else:
+            need(all(torch.equal(t, xs[HIER_BCAST_ROOT]) for t in got),
+                 "hierarchical bcast: not the root's values")
+            ratio = 0.0
+        say(f"13a {name}: bitwise its phases by hand; "
+            + ("exact" if name in ("allgather", "bcast") else
+               f"worst err/bound {ratio:.4f} against the float64 oracle "
+               f"(bound ((1+2^-24)^{W - 1} - 1) sum|x|)")
+            + f"; launches {per}")
+    # -- 13b: compress_phases="inter", fp8-e4m3 block 128 ------------------
+    fp8 = dict(compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK)
+    h0 = hier_counts(METRICS)
+    _, per = drive_counted(accls, lambda a: a.allreduce(
+        bufs[a.rank]["src"], bufs[a.rank]["ar8"], N, algorithm=H,
+        compress_phases="inter", **fp8), launched)
+    dh = hier_counts(METRICS) - h0
+    need(dh == {("intra", "full"): 2 * W, ("inter", "quantized"): W},
+         f"13b: hier_phase_wire_total moved {dict(dh)}")
+    need(all(per.get(k, 0) > 0 for k in ("bs_quant", "bs_dequant",
+                                          "bs_combine")),
+         f"13b: the codec did not launch ({per})")
+    hand = {}
+    cnt = counters()
+    before = {k: f.launches for k, f in cnt.items()}
+
+    def inter_by_hand(a):
+        dst = a.buffer((N,), torch.float32, device_resident=True)
+        hand_hier(a, "allreduce", bufs[a.rank]["src"], dst, N,
+                  outer_kw=fp8)
+        hand[a.rank] = dst.tensor
+    run_ranks(accls, inter_by_hand)
+    torch.cuda.synchronize()
+    by_hand = {k: f.launches - before[k] for k, f in cnt.items()
+               if f.launches - before[k]}
+    # codec launches only in the inter phases: as many as the hand-issued
+    # program's, whose only compressed phase is the outer allreduce
+    need({k: per.get(k, 0) for k in ("bs_quant", "bs_dequant", "bs_combine")}
+         == {k: by_hand.get(k, 0) for k in ("bs_quant", "bs_dequant",
+                                             "bs_combine")},
+         f"13b: codec launches {per} differ from the inter-only program's "
+         f"{by_hand}")
+    got = [bufs[r]["ar8"].tensor for r in range(W)]
+    check_rows(got, [hand[r] for r in range(W)],
+               "13b fp8 inter allreduce vs its phases by hand")
+    del hand
+    amax = float(absum.max())
+    bound = BS_BOUND_PER_AMAX * 2 * amax + 1e-3
+    err = max(float((t.double() - x64).abs().max()) for t in got)
+    need(all(bool(torch.isfinite(t).all()) for t in got),
+         "13b: non-finite")
+    need(0 < err <= bound, f"13b: error {err} not in (0, {bound}]")
+    say(f"13b compress_phases=inter fp8-e4m3 block {QBLOCK}: "
+        f"hier_phase_wire_total {dict(dh)}; launches {per} (the inter-only "
+        f"program by hand: {by_hand}); bitwise its phases by hand; max abs "
+        f"err vs float64 {err:.6g} <= {bound:.6g} (2 quantizations on the "
+        f"2-rank inter tier, amax 2^-4/(1-2^-4) each, + 1e-3)")
+    # a bf16 inter wire on the same program: B2 on the inter phases
+    h0 = hier_counts(METRICS)
+    _, per = drive_counted(accls, lambda a: a.allreduce(
+        bufs[a.rank]["src"], bufs[a.rank]["ar8"], N, algorithm=H,
+        compress_dtype=torch.bfloat16, compress_phases="inter"), launched)
+    dh = hier_counts(METRICS) - h0
+    need(dh == {("intra", "full"): 2 * W, ("inter", "narrowed"): W}
+         and per.get("cast", 0) > 0, f"13b bf16: {dict(dh)}, {per}")
+    ratio = 0.0
+    bd = golden_bound(absum, W - 1, "bfloat16", 2)
+    for t in got:
+        e = (t.double() - x64).abs()
+        need(bool((e <= bd).all()), "13b bf16: outside its bound")
+        ratio = max(ratio, float((e / bd.clamp_min(1e-300)).max()))
+    say(f"13b compress_phases=inter bf16: hier_phase_wire_total "
+        f"{dict(dh)}; launches {per}; worst err/bound {ratio:.4f}")
+    del x64, absum
+    # -- the uneven (leader) and 3-tier nests at 8 Mi a rank -------------
+    n = HIER_SMALL_N
+    small = [x[:n] for x in xs]
+    s64, sabs = oracle(small)
+    for what, hosts, levels in (("uneven [0,0,0,1,1,1,1,1]", HIER_UNEVEN,
+                                 ()),
+                                ("3-tier [0,0,1,1,2,2,3,3] in "
+                                 "[0,0,0,0,1,1,1,1]", HIER_CHIPS,
+                                 [HIER_RACKS])):
+        for a in accls:
+            a.configure_hierarchy(hosts, levels=levels)
+        out = {}
+
+        def small_ar(a):
+            src = a.buffer(data=small[a.rank], device_resident=True)
+            dst = a.buffer((n,), torch.float32, device_resident=True)
+            a.allreduce(src, dst, n, algorithm=H)
+            out[a.rank] = dst.tensor
+        _, per = drive_counted(accls, small_ar, launched)
+        got = [out[r] for r in range(W)]
+        need(all(torch.equal(t, got[0]) for t in got),
+             f"{what}: ranks' results differ")
+        ratio = hold_f32(f"hierarchical allreduce {what}", got, s64, sabs)
+        mode = accls[0].hierarchy.nest
+        say(f"13a allreduce {what}, 8 Mi a rank: the same on every rank, "
+            f"worst err/bound {ratio:.4f} against the float64 oracle; "
+            f"{len(mode)} boundary grouping(s); launches {per}")
+        del out, got
+    for a in accls:
+        a.configure_hierarchy(HIER_HOSTS)
+
+
+def hier_timing(say, accls, bufs):
+    """The 64 Mi allreduce three ways: hierarchical fp32, fp8 on the inter
+    tier, and the flat ring beside them."""
+    import torch
+    from accl_tpu_torch.testing import run_ranks
+    ways = {
+        "hierarchical fp32": lambda a: a.allreduce(
+            bufs[a.rank]["src"], bufs[a.rank]["ar"], N,
+            algorithm="HIERARCHICAL"),
+        "hierarchical, fp8-e4m3 block 128 inter": lambda a: a.allreduce(
+            bufs[a.rank]["src"], bufs[a.rank]["ar8"], N,
+            algorithm="HIERARCHICAL",
+            compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK,
+            compress_phases="inter"),
+        "flat ring fp32": lambda a: a.allreduce(
+            bufs[a.rank]["src"], bufs[a.rank]["ar"], N, algorithm="ring"),
+    }
+    for name, fn in ways.items():
+        run_ranks(accls, fn)                        # warm-up
+        runs = sorted(timed_drive(accls, fn) for _ in range(3))
+        dev, lib, host = runs[1]
+        cnt = counters()
+        before = {k: f.launches for k, f in cnt.items()}
+        kcounts = {}
+        fams = device_ms_by_family(lambda: run_ranks(accls, fn), kcounts)
+        per = {k: f.launches - before[k] for k, f in cnt.items()
+               if f.launches - before[k]}
+        say(f"13 timing, 64 Mi allreduce, {name}: {dev:.4f} ms of device "
+            f"work behind a GPU sleep (median of 3), library {lib:.3f} ms "
+            f"(slowest rank), host {host:.3f} ms, idle share "
+            f"{1 - dev / lib:.3f}; kernels by family (profiled) "
+            + (", ".join(f"{f} {ms:.3f}" for f, ms in sorted(fams.items()))
+               or "not measured (the profiler saw none)")
+            + f"; launches a call {per}")
+
+
+def hier_integrity(say, accls, bufs):
+    """13d: verify_integrity on a hierarchical allreduce and a flat
+    allgather and bcast; a forced fingerprint mismatch on rank 1; the
+    time of fingerprint_of on 256 MiB."""
+    import torch
+    from accl_tpu_torch import ACCLError, ErrorCode
+    from accl_tpu_torch.tracing import METRICS
+    from accl_tpu_torch.testing import run_ranks
+    c = N // W
+
+    def tot(name):
+        return sum(METRICS.snapshot()["counters"].get(name, {}).values())
+
+    calls = {
+        "hierarchical allreduce": lambda a, b: a.allreduce(
+            b["src"], b["ar"], N, algorithm="HIERARCHICAL",
+            verify_integrity=True),
+        "flat allgather": lambda a, b: a.allgather(
+            b["ag_src"], b["ag"], c, algorithm="ring",
+            verify_integrity=True),
+        "flat bcast": lambda a, b: a.bcast(b["bc"], N, root=HIER_BCAST_ROOT,
+                                           verify_integrity=True),
+    }
+    for name, call in calls.items():
+        v0 = tot("integrity_verified_total")
+        t0 = time.perf_counter()
+        run_ranks(accls, lambda a: call(a, bufs[a.rank]))
+        secs = time.perf_counter() - t0
+        dv = tot("integrity_verified_total") - v0
+        need(dv == W, f"13d {name}: integrity_verified_total rose {dv}, "
+                      f"not {W}")
+        say(f"13d {name} with verify_integrity: verified {dv:g} (once a "
+            f"rank), {secs * 1e3:.1f} ms host clock for the call")
+    saved = accls[1].fingerprint_of
+    accls[1].fingerprint_of = lambda buf, nelems=None: 0xDEAD
+    m0 = tot("integrity_mismatch_total")
+
+    def corrupt(a):
+        try:
+            calls["hierarchical allreduce"](a, bufs[a.rank])
+        except ACCLError as exc:
+            return (bool(exc.error_word
+                         & int(ErrorCode.DATA_INTEGRITY_ERROR)), str(exc))
+        return False, "no error"
+    try:
+        outs = run_ranks(accls, corrupt)
+    finally:
+        accls[1].fingerprint_of = saved
+    need(all(ok and "[1]" in msg for ok, msg in outs),
+         f"13d: a forced mismatch did not fail every rank naming [1]: "
+         f"{outs[:2]}")
+    say(f"13d forced mismatch on rank 1: every rank raised "
+        f"DATA_INTEGRITY_ERROR, e.g. {outs[0][1]!r}; "
+        f"integrity_mismatch_total +{tot('integrity_mismatch_total') - m0:g}")
+    # fingerprint_of on 256 MiB: the read-back into pinned memory and the
+    # crc32 apart
+    a, buf = accls[0], bufs[0]["ar"]
+    fp = a.fingerprint_of(buf)                   # allocates the pinned buffer
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        need(a.fingerprint_of(buf) == fp, "13d: fingerprint not stable")
+        ts.append((time.perf_counter() - t0) * 1e3)
+    host = torch.empty(buf.nbytes, dtype=torch.uint8, pin_memory=True)
+    e0, e1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    e0.record()
+    host.copy_(buf.tensor.view(torch.uint8))
+    e1.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zlib.crc32(host.numpy())
+    crc_ms = (time.perf_counter() - t0) * 1e3
+    say(f"13d fingerprint_of, 256 MiB device-resident: "
+        f"{statistics.median(ts):.2f} ms (median of 3, host clock); its "
+        f"read-back into pinned memory {e0.elapsed_time(e1):.2f} ms (CUDA "
+        f"events, {buf.nbytes / e0.elapsed_time(e1) / 1e6:.1f} GB/s), "
+        f"crc32 {crc_ms:.2f} ms")
+
+
+def hier_config(say, accls):
+    """13e: preflight, the segment size, a custom arith registry entry,
+    plan_cache_stats."""
+    import torch
+    from accl_tpu_torch import CCLOp
+    from accl_tpu_torch.arith import _mk
+    from accl_tpu_torch.testing import run_ranks
+    a = accls[0]
+    need(a.preflight(N) == [] and a.preflight(N, op="bcast") == [],
+         "13e: preflight warned")
+    a.set_max_segment_size(4096)
+    need(a.device.max_segment_size == 4096,
+         "13e: set_max_segment_size did not reach the device")
+    a.set_max_segment_size(1 << 20)
+    entry = _mk("float32", "bfloat16")
+
+    def custom(a):
+        a.arith_registry = {**a.arith_registry,
+                            ("float32", "bfloat16"): entry}
+        desc = a._prepare(CCLOp.allreduce, count=1024, comm=a.comm,
+                          op0=a.buffer((1024,), torch.float32),
+                          res=a.buffer((1024,), torch.float32),
+                          compress_dtype=torch.bfloat16)
+        return desc.arithcfg is entry
+    need(all(run_ranks(accls, custom)), "13e: the custom entry did not "
+                                        "resolve")
+    stub = {"enabled": False, "entries": 0, "hits": 0, "misses": 0,
+            "bypasses": 0, "evictions": 0, "invalidations": {}}
+    need(a.plan_cache_stats() == stub, "13e: plan_cache_stats")
+    say("13e preflight [] (no rx pool on this tier); set_max_segment_size "
+        "4096 reached the device; a custom (float32, bfloat16) registry "
+        "entry resolved; plan_cache_stats is the disabled stub")
+
+
+def card_topology(say):
+    """The figures CudaDevice.topology() carries, measured: the slowest
+    rank's library time of a 1-element allreduce over 8 ranks (median of
+    20) and the rate of one exchange round of 64 Mi f32 rows over 8
+    ranks (device time, CUDA events)."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.device import cuda as cuda_mod
+    from accl_tpu_torch.testing import run_ranks
+    accls = cuda_world(W)
+    try:
+        one = {}
+
+        def setup(a):
+            one[a.rank] = (a.buffer((1,), torch.float32, device_resident=True),
+                           a.buffer((1,), torch.float32, device_resident=True))
+        run_ranks(accls, setup)
+
+        def call(a):
+            t0 = time.perf_counter()
+            a.allreduce(*one[a.rank], 1)
+            return time.perf_counter() - t0
+        for _ in range(3):
+            run_ranks(accls, call)
+        alpha_us = statistics.median(max(run_ranks(accls, call)) * 1e6
+                                     for _ in range(20))
+        coll = accls[0].device.ctx.coll
+        rows = [torch.empty(N, device="cuda") for _ in range(W)]
+        outs = [torch.empty(N, device="cuda") for _ in range(W)]
+        pairs = [(r, (r + 1) % W) for r in range(W)]
+        ms = time_ms(lambda: coll.exchange(rows, pairs, outs), reps=5,
+                     warmup=1)
+        beta_gbps = N * 4 / (ms * 1e-3) / 1e9
+        del rows, outs
+        say(f"13c the card's link figures (CudaDevice.topology()): alpha "
+            f"{alpha_us:.1f} us measured (the code carries "
+            f"{cuda_mod.CUDA_ALPHA_US}), beta {beta_gbps:.1f} GB/s "
+            f"measured (a ring shift of 64 Mi f32 rows over 8 ranks in "
+            f"{ms:.4f} ms; the code carries {cuda_mod.CUDA_BETA_GBPS}) "
+            f"({CARD})")
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def hier_tuner(say, launched):
+    """13c: one shared Tuner over MeshTopology.from_hosts(HIER_HOSTS),
+    epsilon 0; AUTO allreduces with compress_dtype="auto" at 1 Ki, 64 Ki,
+    4 Mi and 64 Mi a rank, each decision held to a fresh Tuner's; then
+    one AUTO allreduce under the card's own topology."""
+    import torch
+    from accl_tpu_torch import Tuner, cuda_world
+    from accl_tpu_torch.hier import MeshTopology
+    from accl_tpu_torch.tracing import METRICS
+    tuner = Tuner(topology=MeshTopology.from_hosts(HIER_HOSTS), epsilon=0.0)
+    fresh = Tuner(topology=MeshTopology.from_hosts(HIER_HOSTS))
+    accls = cuda_world(W, tuner=tuner)
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        xs = [torch.randn(max(TUNER_SIZES), device="cuda", generator=g)
+              for _ in range(W)]
+        for n in TUNER_SIZES:
+            nb = 4 * n
+            outs = {}
+            h0 = hier_counts(METRICS)
+            subs0 = sum(v for (op, cid), v in accls[0]._call_counts.items()
+                        if op == "reduce_scatter")
+
+            def fn(a):
+                src = a.buffer(data=xs[a.rank][:n], device_resident=True)
+                dst = a.buffer((n,), torch.float32, device_resident=True)
+                a.allreduce(src, dst, n, compress_dtype="auto")
+                outs[a.rank] = dst.tensor
+            _, per = drive_counted(accls, fn, launched)
+            for _ in range(2):                    # measured calls
+                drive_counted(accls, fn, {})
+            routed = sum(v for (op, cid), v in accls[0]._call_counts.items()
+                         if op == "reduce_scatter") > subs0
+            dh = hier_counts(METRICS) - h0
+            quantized = (dh.get(("intra", "quantized"), 0) > 0 if routed
+                         else per.get("bs_quant", 0) > 0)
+            alg = tuner.select("allreduce", W, nb)
+            wire = tuner.select_wire("allreduce", W, nb)
+            block = tuner.recommend_quant_block(nb)
+            need(alg == fresh.select("allreduce", W, nb)
+                 and wire == fresh.select_wire("allreduce", W, nb)
+                 and block == fresh.recommend_quant_block(nb),
+                 f"13c {n}: the run's decisions differ from the Tuner's")
+            need(routed == (alg.name == "HIERARCHICAL")
+                 and quantized == wire,
+                 f"13c {n}: ran routed={routed} quantized={quantized}, "
+                 f"decided {alg.name} {wire}")
+            got = [outs[r] for r in range(W)]
+            x64, absum = oracle([x[:n] for x in xs])
+            if wire:
+                bound = BS_BOUND_PER_AMAX * 6 * float(absum.max()) + 1e-3
+                err = max(float((t.double() - x64).abs().max())
+                          for t in got)
+                need(0 < err <= bound, f"13c {n}: err {err} > {bound}")
+                txt = (f"max abs err {err:.6g} <= {bound:.6g} (6 "
+                       f"quantizations, amax 2^-4/(1-2^-4) each, + 1e-3)")
+            else:
+                ratio = hold_f32(f"13c {n}", got, x64, absum)
+                txt = f"f32, worst err/bound {ratio:.4f}"
+            say(f"13c AUTO allreduce {n} elements a rank: "
+                f"{alg.name}, wire {'fp8-e4m3 block-scaled' if wire else 'fp32'}"
+                f", block {block} (the Tuner's select / select_wire / "
+                f"recommend_quant_block alike); {txt}; launches {per}")
+            del outs, got, x64, absum
+        for line in tuner.describe().splitlines():
+            say(f"13c describe: {line}")
+    finally:
+        for a in accls:
+            a.deinit()
+    gc.collect()
+    card = Tuner()
+    accls = cuda_world(W, tuner=card)
+    try:
+        topo = card.topology
+        nb = 4 * N
+        x = torch.ones(N, device="cuda")
+
+        def fn(a):
+            src = a.buffer(data=x, device_resident=True)
+            dst = a.buffer((N,), torch.float32, device_resident=True)
+            a.allreduce(src, dst, N, compress_dtype="auto")
+            return bool((dst.tensor == W).all())
+        ok, per = drive_counted(accls, fn, launched)
+        need(all(ok), "13c card topology: wrong sum")
+        say(f"13c AUTO allreduce 64 Mi under the card's topology (tier "
+            f"{topo.tier}, alpha {topo.alpha_us} us, beta {topo.beta_gbps} "
+            f"GB/s): {card.select('allreduce', W, nb).name}, wire "
+            f"{'fp8' if card.select_wire('allreduce', W, nb) else 'fp32'}; "
+            f"launches {per}")
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def hier_phase(recs):
+    """Phase 13: 13a-13e on ``cuda_world(8)``, its lines printed after it
+    ends. B1, B5, B6 and B7 must launch in its main drives (the hand-
+    issued yardsticks count none)."""
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.testing import run_ranks
+    lines, launched = [], {}
+    t0 = time.perf_counter()
+    ok = False
+    c = N // W
+    try:
+        # AUTO phases run the ring of B1 combines (the world's algorithm)
+        accls = cuda_world(W, algorithm="ring")
+        try:
+            g = torch.Generator(device="cuda").manual_seed(SEED + 130)
+            xs = [torch.randn(N, device="cuda", generator=g)
+                  for _ in range(W)]
+            ags = [torch.randn(c, device="cuda", generator=g)
+                   for _ in range(W)]
+            bufs = {}
+
+            def setup(a):
+                r = a.rank
+
+                def dev(n):
+                    return a.buffer((n,), torch.float32,
+                                    device_resident=True)
+                bufs[r] = {"src": a.buffer(data=xs[r],
+                                           device_resident=True),
+                           "ag_src": a.buffer(data=ags[r],
+                                              device_resident=True),
+                           "ar": dev(N), "ar8": dev(N), "ag": dev(N),
+                           "rs": dev(c),
+                           "bc": a.buffer(data=xs[r].clone() if r ==
+                                          HIER_BCAST_ROOT else
+                                          torch.zeros_like(xs[r]),
+                                          device_resident=True)}
+                bufs[r]["bc_in"] = bufs[r]["bc"].tensor.clone()
+            run_ranks(accls, setup)
+            hier_main(lines.append, launched, accls, bufs, xs, ags)
+            hier_timing(lines.append, accls, bufs)
+            hier_integrity(lines.append, accls, bufs)
+            hier_config(lines.append, accls)
+        finally:
+            for a in accls:
+                a.deinit()
+            bufs = xs = ags = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        card_topology(lines.append)
+        hier_tuner(lines.append, launched)
+        ok = True
+    finally:
+        secs = time.perf_counter() - t0
+        print(f"phase 13: {secs:.1f} s of command time"
+              + ("" if ok else " (failed)") + f" ({CARD})")
+        for line in lines:
+            print(line)
+    print(f"phase 13 launches (the drives, not the yardsticks): {launched}")
+    for k in HIER_KERNELS:
+        need(launched.get(k, 0) > 0, f"phase 13: kernel {k} never launched")
+    for r in recs:
+        if r["name"] in launched:
+            r.setdefault("launches_by_path", {"collectives": r["launches"]})
+            r["launches_by_path"]["hier"] = launched[r["name"]]
+
+
 def phase(name: str):
     """One line at the start of each phase: the seconds since the script
     started and what the device holds."""
@@ -4842,6 +5502,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 12: call contract, membership, uneven exchanges")
     elastic_phase(recs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 13: the tuner and the N-tier hierarchy")
+    hier_phase(recs)
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 5: attention kernels")

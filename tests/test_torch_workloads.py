@@ -99,13 +99,23 @@ def test_default_expert_is_the_reference_expert():
     the reference's within the matmul's summation order."""
     x = np.random.default_rng(1).standard_normal((5, 16)).astype(np.float32)
     for r in range(W):
-        got = default_expert(r, 16)(t(x)).numpy()
+        got = default_expert(r, 16, "cpu")(t(x)).numpy()
         np.testing.assert_allclose(got, j_moe.default_expert(r, 16)(x),
                                    rtol=RTOL, atol=ATOL)
-        f = default_expert(r, 16, dtype=torch.float64)
+        f = default_expert(r, 16, "cpu", dtype=torch.float64)
         assert f.weight.dtype == torch.float64
         assert np.array_equal(f.weight.float().numpy(),
-                              default_expert(r, 16).weight.numpy())
+                              default_expert(r, 16, "cpu").weight.numpy())
+
+
+def test_default_expert_defaults_to_the_card():
+    """The expert's weights go to the card unless the caller names
+    another device: without CUDA the default raises instead of running
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA|cuda"):
+        default_expert(0, 16)
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2, 3])
@@ -119,7 +129,8 @@ def test_moe_matches_reference(cw, ew, n_chunks, overlap):
     toks, dest = moe_inputs(7, T, D)
     got, ref = run_moe(cw, ew, toks, dest, n_chunks=n_chunks,
                        overlap=overlap)
-    f64 = [default_expert(r, D, dtype=torch.float64) for r in range(W)]
+    f64 = [default_expert(r, D, "cpu", dtype=torch.float64)
+           for r in range(W)]
     oracle = moe_reference([t(x) for x in toks], dest, f64)
     j_oracle = j_moe.moe_reference(
         toks, dest, [j_moe.default_expert(r, D) for r in range(W)])
@@ -175,7 +186,8 @@ def test_moe_fp8_dispatch_lands_the_emulators_values(cw, ew):
         assert got[r].tobytes() == ref[r].tobytes()
     out = run_ranks(cw, lambda a: moe_dispatch_combine(
         a, t(toks[a.rank]), dest[a.rank], **kw)[0].numpy())
-    f64 = [default_expert(r, D, dtype=torch.float64) for r in range(W)]
+    f64 = [default_expert(r, D, "cpu", dtype=torch.float64)
+           for r in range(W)]
     oracle = moe_reference([t(x) for x in toks], dest, f64)
     for r in range(W):
         x = toks[r].astype(np.float64)
