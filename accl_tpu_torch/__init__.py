@@ -20,7 +20,11 @@ decode pool (:mod:`.serving.elastic`) and the host workloads
 (:mod:`.workloads`: MoE dispatch and combine, ring attention). A shared
 :class:`Tuner` (:mod:`.tuner`) resolves AUTO and ``compress_dtype="auto"``
 by size and topology, and ``HIERARCHICAL`` calls lower to phase programs
-over per-tier sub-communicators (:mod:`.hier`). The
+over per-tier sub-communicators (:mod:`.hier`); ``tuner.sweep`` measures
+the tuning table AUTO loads. The driver records its calls
+(:mod:`.tracing`: the profiler, the flight recorder, the Prometheus
+exposition) and labels them by tenant. Data-parallel training
+all-reduces its gradients in buckets (:mod:`.parallel.bucketing`). The
 Llama serving path
 (:mod:`.models`: forward, KV-cache prefill and decode, generate) runs its
 attention through hand-written kernels too (flash attention forward and

@@ -40,7 +40,17 @@ across the ranks; ``preflight``, ``arith_registry``,
 ``set_max_segment_size`` and ``plan_cache_stats`` (a stub: this tier
 has no plan cache).
 
-Not here yet: tenants and the service, the profiling and trace hooks.
+Observability: ``start_profiling`` / ``end_profiling`` arm this driver's
+:class:`~accl_tpu_torch.tracing.Profiler` (one ``CallRecord`` per
+retired call; the phases of a hierarchical program or a redistribute
+carry the logical call's tag as ``parent``, beside one logical record);
+``start_trace`` / ``stop_trace`` / ``export_trace`` drive the
+process-wide flight recorder; ``metrics_text`` is the Prometheus
+exposition. ``tenant=`` labels every communicator the driver registers
+(the ``tenant`` label of its metric rows, ``CallRecord.tenant``).
+Housekeeping: ``open_port``, ``init_connection``, ``close_connections``,
+``set_stack_type`` (config calls this tier answers as no-ops) and
+``dump_rx_buffers``.
 """
 
 from __future__ import annotations
@@ -70,7 +80,8 @@ from .device.base import Device
 from .log import get_logger
 from .retry import RetryPolicy, resolve_policy
 from .rma import ANY_WINDOW
-from .tracing import METRICS
+from .service import tenant_label, validate_tenant
+from .tracing import METRICS, TRACE, CallRecord, Profiler
 
 log = get_logger(__name__)
 
@@ -137,6 +148,10 @@ class ACCL:
         tuner: a :class:`~accl_tpu_torch.tuner.Tuner` resolving AUTO and
             ``compress_dtype="auto"``; the ranks of a world share ONE (all
             members of a collective must agree on its algorithm).
+        tenant: a tenant label (:func:`~accl_tpu_torch.service.
+            validate_tenant`) grouping every communicator this driver
+            registers, for per-tenant metric rows, call records and trace
+            tracks. Default: each communicator is its own tenant.
         retry_policy: the driver-wide default :class:`RetryPolicy` of
             every data call (per-call ``retries=`` / ``retry_policy=``
             override it). Must be uniform across a communicator's ranks.
@@ -150,9 +165,14 @@ class ACCL:
                  timeout: float = 30.0,
                  max_segment_size: int | None = None,
                  arith_registry=None, tuner=None,
+                 tenant: str | None = None,
                  retry_policy: RetryPolicy | None = None,
                  verify_integrity: bool = False):
         self.device = device
+        if tenant is not None:
+            validate_tenant(tenant)
+        self.tenant = tenant
+        self.profiler = Profiler()
         self.retry_policy = retry_policy
         self.verify_integrity = bool(verify_integrity)
         self._preflight_warned: set = set()
@@ -186,6 +206,7 @@ class ACCL:
         self._redist_plans: dict = {}
         self._redist_comms: dict = {}
         self._redist_stage_pool: dict = {}
+        self._redist_seq = itertools.count(1)
         # one-sided windows this driver registered: id -> buffer
         self._next_window = itertools.count(1)
         self._windows: dict[int, ACCLBuffer] = {}
@@ -208,7 +229,7 @@ class ACCL:
                     _tcache.load_into(tuner)
                 except (OSError, ValueError):
                     pass
-        device.configure_communicator(comm)
+        device.configure_communicator(comm, tenant=tenant)
         self._register_comm(comm)
         # bring-up through the call path, as the reference driver does
         self.set_timeout(timeout)
@@ -261,6 +282,57 @@ class ACCL:
     def set_max_segment_size(self, nbytes: int):
         self._config_call(CfgFunc.set_max_segment_size, int(nbytes))
 
+    # -- connection housekeeping (config calls; no ports on this tier) ------
+    def open_port(self):
+        """Arm the fabric listener: a no-op config call here."""
+        self._config_call(CfgFunc.open_port, 0)
+
+    def init_connection(self, comm: Communicator | None = None):
+        """Open sessions to every peer of ``comm`` (open_port, then
+        open_con on that communicator): no-op config calls here, where
+        every rank shares one process."""
+        comm = comm or self.comm
+        self._config_call(CfgFunc.open_port, 0, comm_id=comm.comm_id)
+        self._config_call(CfgFunc.open_con, 0, comm_id=comm.comm_id)
+
+    def close_connections(self):
+        self._config_call(CfgFunc.close_con, 0)
+
+    def set_stack_type(self, stack: str):
+        """Select the transport stack, 'tcp' or 'udp' (a no-op config call
+        here; any other name raises KeyError)."""
+        code = {"tcp": 0, "udp": 1}[stack]
+        self._config_call(CfgFunc.set_stack_type, code)
+
+    # -- profiling, the flight recorder, the exposition ----------------------
+    def start_profiling(self):
+        """Arm per-call records: the config call through the call path,
+        then this driver's profiler."""
+        self._config_call(CfgFunc.start_profiling, 0)
+        self.profiler.start()
+
+    def end_profiling(self):
+        self._config_call(CfgFunc.end_profiling, 0)
+        self.profiler.stop()
+
+    def start_trace(self):
+        """Arm the process-wide flight recorder
+        (:data:`~accl_tpu_torch.tracing.TRACE`); also armed by
+        ``ACCL_TPU_TRACE=1``."""
+        TRACE.start()
+
+    def stop_trace(self):
+        TRACE.stop()
+
+    def export_trace(self, path: str) -> int:
+        """Write the flight recorder's rings as Chrome/Perfetto trace-event
+        JSON; returns the number of events."""
+        return TRACE.export_chrome(path)
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of :meth:`metrics_snapshot`."""
+        return METRICS.to_prometheus()
+
     def deinit(self):
         # withdraw THIS driver's windows only: other drivers on the same
         # device keep theirs until they deinit
@@ -275,20 +347,28 @@ class ACCL:
         direct writes."""
         return METRICS.snapshot()
 
+    def _tenant_of(self, comm_id: int) -> str:
+        """The tenant of this driver's calls on ``comm_id``: the driver's
+        tenant, else the communicator's own."""
+        return self.tenant or tenant_label(comm_id)
+
     def _metrics_rows(self):
         """Collector rows of this driver's per-communicator call
         accounting. ``rank`` keeps one world's drivers apart, ``ctx``
-        worlds of the same shape, whose comm ids agree."""
+        worlds of the same shape, whose comm ids agree; ``tenant`` is the
+        driver's tenant, else the communicator's own ("comm-<id>")."""
         labels = {"rank": self.rank}
         ctx = getattr(self.device, "ctx", None)
         if ctx is not None:
             labels["ctx"] = ctx.seq
         for (op, comm_id), n in list(self._call_counts.items()):
             yield ("counter", "accl_calls_total",
-                   dict(labels, op=op, comm_id=comm_id), n)
+                   dict(labels, op=op, comm_id=comm_id,
+                        tenant=self._tenant_of(comm_id)), n)
         for (op, comm_id), n in list(self._byte_counts.items()):
             yield ("counter", "accl_bytes_total",
-                   dict(labels, op=op, comm_id=comm_id), n)
+                   dict(labels, op=op, comm_id=comm_id,
+                        tenant=self._tenant_of(comm_id)), n)
 
     def soft_reset(self):
         """Rank-local soft reset through the call path: drops the parked
@@ -304,7 +384,7 @@ class ACCL:
         several communicators over one member set apart), so the members
         agree without a handshake."""
         sub = self.comm.split(members, key=key)
-        self.device.configure_communicator(sub)
+        self.device.configure_communicator(sub, tenant=self.tenant)
         self._register_comm(sub)
         return sub
 
@@ -336,9 +416,12 @@ class ACCL:
             raise ValueError(f"no member of comm {comm.comm_id} is in "
                              f"dead_ranks {sorted(dead)}")
         sub = comm.split(survivors, key=key)
-        self.device.configure_communicator(sub)
+        self.device.configure_communicator(sub, tenant=self.tenant)
         self._register_comm(sub)
         METRICS.inc("membership_shrink_total", rank=self.rank)
+        if TRACE.enabled:
+            TRACE.emit("membership_shrink", rank=self.rank,
+                       nbytes=len(survivors), peer=-1)
         return sub
 
     def grow_communicator(self, new_ranks: Sequence,
@@ -401,7 +484,7 @@ class ACCL:
                                    mesh_axis=self.comm.mesh_axis, key=key)
         # configure first, then handshake: a member that finishes its
         # handshake may issue a call on the grown comm at once
-        self.device.configure_communicator(grown)
+        self.device.configure_communicator(grown, tenant=self.tenant)
         policy = resolve_policy(retries, retry_policy, self.retry_policy)
         timeout = (handshake_timeout if handshake_timeout is not None
                    else getattr(self.device, "timeout", 5.0))
@@ -422,6 +505,9 @@ class ACCL:
         self._register_comm(grown)
         METRICS.inc("membership_grow_total", rank=self.rank,
                     joiners=len(joiners))
+        if TRACE.enabled:
+            TRACE.emit("membership_grow", rank=self.rank,
+                       nbytes=len(members), peer=-1)
         return grown
 
     def _register_comm(self, comm: Communicator):
@@ -447,6 +533,11 @@ class ACCL:
 
     def dump_communicator(self) -> str:
         return self.comm.describe()
+
+    def dump_rx_buffers(self) -> str:
+        """The rx pool's description; this tier has none."""
+        pool = getattr(self.device, "pool", None)
+        return pool.describe() if pool is not None else "<no rx pool>"
 
     def plan_cache_stats(self) -> dict:
         """Compiled-plan cache counters of this rank's backend, or the
@@ -809,6 +900,9 @@ class ACCL:
     def _note_retry(self, desc: CallDescriptor, attempt: int, word: int):
         METRICS.inc("call_retries_total", op=desc.scenario.name,
                     comm_id=desc.comm_id, rank=self.rank)
+        if TRACE.enabled:
+            TRACE.emit("call_retry", rank=self.rank, seqn=attempt,
+                       nbytes=desc.count, peer=-1)
         log.warning(
             "rank %d: %s on comm %d failed (0x%x) — retry %d", self.rank,
             desc.scenario.name, desc.comm_id, word, attempt + 1,
@@ -856,6 +950,7 @@ class ACCL:
         if chain and run_async:
             desc.chain = True
         op = desc.scenario.name
+        profiling = self.profiler.enabled and desc.scenario != CCLOp.config
         tunable = (op in VALID_ALGORITHMS
                    and desc.algorithm != CollectiveAlgorithm.AUTO)
         # only a synchronous call without dependencies, issued while no
@@ -865,7 +960,7 @@ class ACCL:
                      and not run_async and not waitfor
                      and self._async_inflight == 0
                      and self.tuner.quiescent())
-        t0 = time.perf_counter() if observing else 0.0
+        t0 = time.perf_counter() if (profiling or observing) else 0.0
         if run_async:
             # counted in flight before it launches: a sibling driver must
             # not train on a window this call already inflates
@@ -880,13 +975,30 @@ class ACCL:
             if run_async:
                 self._async_retired()
             raise
+        nb = desc.count * (desc.arithcfg.uncompressed_dtype.itemsize
+                           if desc.arithcfg is not None else 0)
         if desc.scenario != CCLOp.config:
             key = (op, desc.comm_id)
             self._call_counts[key] = self._call_counts.get(key, 0) + 1
-            nb = desc.count * (desc.arithcfg.uncompressed_dtype.itemsize
-                               if desc.arithcfg is not None else 0)
             if nb:
                 self._byte_counts[key] = self._byte_counts.get(key, 0) + nb
+        if profiling:
+            if tunable:
+                alg_label = desc.algorithm.name
+            elif op in VALID_ALGORITHMS:
+                # an AUTO descriptor: the driver can name the default only
+                # where no tuner and no backend resolves it
+                alg_label = (DEFAULT_ALGORITHMS[op].name
+                             if (self.tuner is None and
+                                 self.device.auto_resolvable_ops() is None)
+                             else "AUTO")
+            else:
+                alg_label = ""
+            self.profiler.attach(handle, op=op, count=desc.count,
+                                 nbytes=nb, comm_id=desc.comm_id, t0=t0,
+                                 algorithm=alg_label,
+                                 tenant=self._tenant_of(desc.comm_id),
+                                 parent=self._parent_tag)
         if observing:
             # the issue-to-retire window back to the tuner, per algorithm
             # and per wire variant
@@ -1014,6 +1126,9 @@ class ACCL:
         src.storage[0] = fp
         self.allgather(src, dst, 1, comm=comm, verify_integrity=False)
         fps = dst.data[:W].copy()
+        if TRACE.enabled:
+            TRACE.emit("fingerprint", rank=self.rank, seqn=comm.comm_id,
+                       peer=-1, nbytes=int(fp))
         if (fps == fp).all():
             METRICS.inc("integrity_verified_total", op=op,
                         comm_id=comm.comm_id, rank=self.rank)
@@ -1337,11 +1452,16 @@ class ACCL:
         if plan is None:
             plan = self._redist_plans[pk] = plan_redistribute(
                 src_spec, dst_spec, me)
+        tag = f"redist#{next(self._redist_seq)}"
         key = ("redistribute", comm.comm_id)
         self._call_counts[key] = self._call_counts.get(key, 0) + 1
+        nbytes_global = src_spec.n * srcbuf.dtype.itemsize
         METRICS.inc("reshard_total", rank=self.rank, kind=plan.kind)
-        METRICS.inc("reshard_bytes_total",
-                    src_spec.n * srcbuf.dtype.itemsize, rank=self.rank)
+        METRICS.inc("reshard_bytes_total", nbytes_global, rank=self.rank)
+        if TRACE.enabled:
+            TRACE.emit("reshard", rank=self.rank, nbytes=nbytes_global,
+                       peer=-1)
+        t0 = time.perf_counter()
         # checked before anything is issued and the same on every rank:
         # a rank-local refusal halfway would strand its peers' recvs
         if plan.kind != "noop" and (len(srcbuf.shape) != 1
@@ -1359,7 +1479,8 @@ class ACCL:
         if plan.kind != "noop" and _overlap(srcbuf, dstbuf):
             src_arena, stage_pool = self._stage(srcbuf, run_async)
         handles: list[CallHandle] = []
-        with self._retry_scope(retries, retry_policy):
+        with self._retry_scope(retries, retry_policy), \
+                self._attributed(tag):
             if src_arena is not srcbuf and src_count:
                 handles.append(self.copy(
                     _slice(srcbuf, 0, src_count),
@@ -1407,6 +1528,14 @@ class ACCL:
                             waitfor=waitfor))
         if not run_async:
             wait_all(handles if handles else list(waitfor))
+            if self.profiler.enabled:
+                # the logical record: its phases carry the same tag
+                self.profiler.record(CallRecord(
+                    op="redistribute", count=src_spec.n,
+                    nbytes=nbytes_global, comm_id=comm.comm_id,
+                    t_start=t0, duration_s=time.perf_counter() - t0,
+                    algorithm=plan.kind.upper(), parent=tag,
+                    tenant=self._tenant_of(comm.comm_id)))
             return CompletedHandle(context="redistribute")
         if not handles:
             # nothing issued (a noop plan): the handle still carries

@@ -78,7 +78,10 @@ class Device(abc.ABC):
                                inline_ok=timeout is None).wait(timeout)
 
     @abc.abstractmethod
-    def configure_communicator(self, comm: Communicator): ...
+    def configure_communicator(self, comm: Communicator,
+                               tenant: str | None = None):
+        """Register a communicator; ``tenant`` optionally groups it under
+        a tenant label (a backend must accept it)."""
 
     @abc.abstractmethod
     def set_timeout(self, timeout: float): ...
@@ -153,9 +156,11 @@ class Device(abc.ABC):
         """Shared ACCL_CONFIG dispatch: subfunction in ``tag``, value in
         ``count`` (ms for timeout, bytes for segment size). The
         connection subfunctions succeed as no-ops (an in-process world has
-        no ports or sessions), and so do the profiling ones (no profiler
-        is attached yet). The segment size is kept (``max_segment_size``)
-        and changes nothing: a single-device ring does not segment."""
+        no ports or sessions), and so do the profiling ones (the records
+        are the driver's :class:`~accl_tpu_torch.tracing.Profiler`'s). The
+        segment size is kept
+        (``max_segment_size``) and changes nothing: a single-device ring
+        does not segment."""
         from ..constants import CfgFunc, ErrorCode
         try:
             fn = CfgFunc(desc.tag)

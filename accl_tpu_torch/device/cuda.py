@@ -102,6 +102,8 @@ from ..parallel.mesh import RankGroup, make_group
 from ..parallel.tree import Tree2DCollectives
 from ..quant import DEFAULT_BLOCK, WIRE_DTYPE_NAMES, packed_nbytes
 from ..rma import NotifyQueue, NotifyRecord, WindowRegistry
+from ..service import tenant_label
+from ..tracing import TRACE
 from .base import Device
 
 log = get_logger(__name__)
@@ -470,6 +472,10 @@ class CudaContext:
                     return None
             else:
                 self._idle_scans = 0
+        if expired and TRACE.enabled:
+            # a collective's deadline abort: dump the flight recorder
+            # before its members wake
+            TRACE.trigger_dump("collective_deadline_abort")
         for h in expired:
             err = int(ErrorCode.RECEIVE_TIMEOUT_ERROR)
             h.complete(err, exception=ACCLError(
@@ -510,6 +516,7 @@ class CudaDevice(Device):
         self.host_bufs: dict[int, ACCLBuffer] = {}
         self.dev_bufs: dict[int, ACCLBuffer] = {}
         self.comms: dict[int, Communicator] = {}
+        self.comm_tenants: dict[int, str] = {}   # comm_id -> tenant
         self.comm: Communicator | None = None
         self.timeout = DEFAULT_TIMEOUT_S
         self._coll_index: dict[int, int] = collections.defaultdict(int)
@@ -546,11 +553,16 @@ class CudaDevice(Device):
         t = torch.as_tensor(init).to(dtype).reshape(shape)
         return t.to(self.ctx.device, copy=True).contiguous()
 
-    def configure_communicator(self, comm: Communicator):
-        """Register ``comm``. Configuring an id this rank already has (a
-        grow back to it) clears the abort latch, fails this rank's
-        deposits still parked on it and restarts its call sequence."""
+    def configure_communicator(self, comm: Communicator,
+                               tenant: str | None = None):
+        """Register ``comm``, under ``tenant`` when one is given (drivers
+        of several tenants share this device, each on its own comm ids).
+        Configuring an id this rank already has (a grow back to it) clears
+        the abort latch, fails this rank's deposits still parked on it and
+        restarts its call sequence."""
         cid = comm.comm_id
+        if tenant:
+            self.comm_tenants[cid] = tenant
         if cid in self.comms:
             self._drop_deposits(cid, int(ErrorCode.PEER_FAILED))
             self._coll_index[cid] = 0
@@ -559,13 +571,22 @@ class CudaDevice(Device):
         if self.comm is None:
             self.comm = comm
 
+    def tenant_of(self, comm_id: int) -> str:
+        """The tenant ``comm_id`` was configured under, else the
+        communicator's own ("comm-<id>")."""
+        return tenant_label(comm_id, self.comm_tenants)
+
     def abort_comm(self, comm_id: int, err: int):
         """Fail this rank's calls in flight on ``comm_id`` with ``err``:
         its parked collective deposits at once, its receives waiting for
         a send when they next wake (now), and every later call on the
-        comm when it runs."""
+        comm when it runs. An armed flight recorder is dumped, as on a
+        receive's or a collective group's deadline abort."""
         self._aborted[comm_id] = int(err)
         self._drop_deposits(comm_id, int(err))
+        if TRACE.enabled:
+            TRACE.trigger_dump(f"comm{comm_id}_abort_0x{int(err):x}",
+                               rank=self.rank)
 
     def _drop_deposits(self, comm_id: int, err: int):
         ctx = self.ctx
@@ -837,7 +858,11 @@ class CudaDevice(Device):
         if op == CCLOp.send:
             return self._do_send(desc, comm)
         if op == CCLOp.recv:
-            return self._do_recv(desc, comm)
+            err = self._do_recv(desc, comm)
+            if err == ErrorCode.RECEIVE_TIMEOUT_ERROR and TRACE.enabled:
+                # recv-deadline abort: dump outside the context's lock
+                TRACE.trigger_dump("recv_deadline_abort", rank=self.rank)
+            return err
         if op in _COLLECTIVES:
             return self._do_collective(desc, comm, handle, defer_launch)
         if op == CCLOp.put:

@@ -67,7 +67,7 @@ import torch
 from ..call import CompletedHandle
 from ..constants import (CollectiveAlgorithm, HIERARCHICAL_OPS, ReduceFunc,
                          VALID_ALGORITHMS)
-from ..tracing import METRICS
+from ..tracing import METRICS, CallRecord
 from ..tuner.cost import rank_algorithms
 from .topology import MeshTopology, groups_from_hosts, validate_nest
 
@@ -753,8 +753,15 @@ class Hierarchy:
             last.add_done_callback(_recycle)
             return last
         last.wait()
+        dt = time.perf_counter() - t0
+        if accl.profiler.enabled:
+            # the logical record, tagged as its phases are
+            accl.profiler.record(CallRecord(
+                op=op, count=count, nbytes=nbytes,
+                comm_id=accl.comm.comm_id, t_start=t0, duration_s=dt,
+                algorithm="HIERARCHICAL", parent=tag,
+                tenant=accl._tenant_of(accl.comm.comm_id)))
         if observing:
             accl.tuner.observe(op, accl.comm.size, nbytes,
-                               CollectiveAlgorithm.HIERARCHICAL,
-                               time.perf_counter() - t0)
+                               CollectiveAlgorithm.HIERARCHICAL, dt)
         return CompletedHandle(context=op)

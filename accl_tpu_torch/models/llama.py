@@ -34,7 +34,8 @@ import types
 import torch
 from torch import nn
 
-from ..convert import llama_params_from_reference
+from ..convert import (LLAMA_LAYER_KEYS, LLAMA_TOP_KEYS,
+                       llama_params_from_reference)
 from ..ops.attention import flash_attention, flash_decode
 from ..parallel.collectives import RankCollectives
 from ..parallel.mesh import resolve_device
@@ -605,3 +606,32 @@ class Llama(nn.Module):
             return loss.detach()
 
         return train_step
+
+    def grad_buckets(self, bucket_bytes: int = 25 << 20) -> list[list[str]]:
+        """The reference's ``grad_buckets`` under the name mapping of
+        :mod:`~accl_tpu_torch.convert`: its parameter leaves (each layer
+        weight one leaf stacked over the layers) walked in reverse key
+        order and grouped into buckets of at least ``bucket_bytes`` (4
+        bytes an element, as there). A stacked leaf lists this module's
+        per-layer names in layer order, so a bucket fused in the order
+        listed is the reference's fused buffer
+        (:func:`~accl_tpu_torch.parallel.bucketing.plan_from_buckets`)."""
+        L = self.config.n_layers
+        shapes = dict(self.named_parameters())
+        leaves = []                      # the reference's leaf order
+        for key in sorted(LLAMA_TOP_KEYS + ("layers",)):
+            if key == "layers":
+                leaves += [[f"layers.{i}.{name}" for i in range(L)]
+                           for name in sorted(LLAMA_LAYER_KEYS)]
+            else:
+                leaves.append([key])
+        buckets, cur, cur_bytes = [], [], 0
+        for names in reversed(leaves):
+            cur += names
+            cur_bytes += sum(shapes[n].numel() for n in names) * 4
+            if cur_bytes >= bucket_bytes:
+                buckets.append(cur)
+                cur, cur_bytes = [], 0
+        if cur:
+            buckets.append(cur)
+        return buckets

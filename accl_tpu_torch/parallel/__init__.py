@@ -1,8 +1,12 @@
 """The dataplane: collectives over W ranks on one device, the
-sequence-parallel attentions over them (ring and Ulysses) and the
+sequence-parallel attentions over them (ring and Ulysses), the
 tensor-parallel pieces (shard views, rank GEMMs, the tp all-reduce, the
-vocabulary-parallel embedding and logits)."""
+vocabulary-parallel embedding and logits) and the data-parallel bucketed
+gradient all-reduce."""
 
+from .bucketing import (Bucket, BucketPlan, bucketed_allreduce,
+                        make_bucket_plan, make_ddp_train_step,
+                        plan_from_buckets)
 from .collectives import RankCollectives
 from .mesh import (RankGroup, RankMesh, communicator_from_mesh, cpu_mesh,
                    make_group, make_mesh, mesh_from_communicator)
@@ -16,10 +20,13 @@ from .tree import Tree2DCollectives
 from .ulysses import (heads_to_seq, seq_to_heads, ulysses_attention,
                       ulysses_attention_sharded)
 
-__all__ = ["RankCollectives", "RankGroup", "RankMesh", "Tree2DCollectives",
-           "block_update", "communicator_from_mesh", "cpu_mesh",
-           "heads_to_seq", "make_group", "make_mesh",
-           "mesh_from_communicator", "rank_matmul", "ring_attention",
+__all__ = ["Bucket", "BucketPlan", "RankCollectives", "RankGroup",
+           "RankMesh", "Tree2DCollectives", "block_update",
+           "bucketed_allreduce", "communicator_from_mesh", "cpu_mesh",
+           "heads_to_seq", "make_bucket_plan", "make_ddp_train_step",
+           "make_group", "make_mesh",
+           "mesh_from_communicator", "plan_from_buckets", "rank_matmul",
+           "ring_attention",
            "ring_attention_fwd", "ring_attention_ref",
            "ring_attention_sharded", "ring_rounding_magnitudes",
            "seq_to_heads", "shard_view", "tp_allreduce",

@@ -11,17 +11,18 @@ Three layers:
   retire-time measurements, with epsilon-greedy exploration and segment-
   size recommendation;
 * :mod:`~accl_tpu_torch.tuner.cache` — versioned JSON tuning tables
-  (``ACCL_TPU_TUNING_CACHE``) in the reference's format (its
-  ``python -m benchmarks --tune`` writes them; the port has no producer
-  yet).
+  (``ACCL_TPU_TUNING_CACHE``) in the reference's format;
+* :mod:`~accl_tpu_torch.tuner.sweep` — their producer on this tier:
+  ``run_tune`` forces every legal algorithm over ``cuda_world`` and saves
+  the measured table.
 
 Attach with ``ACCL(device, comm, tuner=Tuner())``.
 """
 
-from . import cache
+from . import cache, sweep
 from .cost import Topology, predict_us, rank_algorithms, \
     recommend_segment_size
 from .tuner import Tuner, nbytes_bucket
 
 __all__ = ["Topology", "Tuner", "cache", "nbytes_bucket", "predict_us",
-           "rank_algorithms", "recommend_segment_size"]
+           "rank_algorithms", "recommend_segment_size", "sweep"]

@@ -253,6 +253,47 @@ Run from the root of a checkout:  python3 chip_smoke.py
    allreduce under the card's own topology. B1, B5, B6 and B7 must
    launch.
 
+14. The driver's observability, tenants, the tuning table and DDP.
+   14a-14c (after 13; their lines print when they end): 14a on
+   ``cuda_world(8, algorithm="ring")`` at 64 Mi fp32 a rank, under
+   ``start_profiling``: the fp32 ring, the fp8-e4m3 block-128 ring and
+   the 2 x 4 hierarchical allreduce; one ``CallRecord`` a call issued on
+   every rank, the HIERARCHICAL record tagged as its phases, the table
+   and summary; each call's record (issue to enqueue: host time) beside
+   its device ms behind a GPU sleep and library ms; the armed flight
+   recorder over a ``verify_integrity`` allreduce and a recv retried
+   under ``retries=3``, exported as Chrome JSON whose kinds include
+   ``fingerprint`` and ``call_retry``, its first deadline dumping the
+   recorder (``recv_deadline_abort``); ``metrics_text`` parsed as
+   Prometheus text, every ``accl_calls_total`` row with a ``tenant``
+   label; ``measure_call_latency``; a 1-element allreduce's library time
+   with the hooks off, the profiler on and the trace armed. 14b
+   ``cuda_world(8)`` and ``add_tenant(..., "tenant-b", key=1)`` on the
+   same devices: interleaved async 64 Mi fp32 ring allreduces of both,
+   each bitwise its plain version, ``accl_calls_total`` and the records
+   split per tenant, an invalid label refused with the reference's
+   message. 14c ``tuner.sweep.run_tune`` on ``cuda_world(8)`` over the
+   reference's six ops at 1 Ki, 64 Ki, 4 Mi and 64 Mi f32 a rank, 3
+   reps, every window closed by a device synchronize, the sources seeded
+   random, the first warm-up of each (op, algorithm, wire) bitwise the
+   same call through the plain versions; the table and rows
+   written under ``build/``, loaded into a fresh Tuner through
+   ``tuner/cache.py``, AUTO at every swept size resolving to the chosen
+   row (and running it through a world's drivers); the forced and chosen
+   rows printed beside phase 13c's prediction. B1, B5, B6 and B7 must
+   launch in 14a and 14c, B1 in 14b. 14d (after phase 9, before 10a,
+   under the same 2 GiB check): Llama-3-8B width, 4 of 32 layers, f32
+   parameters, bf16 activations, ``make_ddp_train_step`` over a dp = 2
+   ``RankMesh`` with one 2048-token sequence a rank, Adam lr 1e-4, the
+   reference's 25 MiB buckets (``Llama.grad_buckets``): every bucket's
+   ring all-reduce bitwise the plain kernels' on the same rows on the
+   fp32 and bf16 wires; the ring, flatten, average and scatter timed; 4
+   steps on the fp32 wire and 2 on the bf16 wire, the first loss within
+   1e-2 of the full-batch loss, falling; before the first update every
+   leaf's averaged gradient within 1e-2 relative L2 of the full batch's
+   backward, after it a strided sample of each leaf Adam's first step on
+   those gradients; B1, B2, B8, B10 and B11 launch on path ``ddp``.
+
 Each phase starts with a line of the device memory allocated.
 
 Prints per-kernel and per-call lines, then one JSON line of kernel
@@ -267,6 +308,7 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -5464,6 +5506,784 @@ def hier_phase(recs):
             r["launches_by_path"]["hier"] = launched[r["name"]]
 
 
+# -- phase 14: the driver's profiler, flight recorder and tenants, the ------
+# -- tuning-table producer, DDP bucketed gradient all-reduce -----------------
+
+# 14a's hooks are timed on a 1-element allreduce: blocks of this many drives
+# a state (the first of a block a warm-up), the states in turns, 4 rounds
+HOOK_REPS = 10
+HOOK_MICRO = 20000          # 14a: records and emits timed alone
+TUNE_SIZES = (1 << 10, 64 << 10, 4 << 20, 64 << 20)   # 14c, f32 a rank
+TUNE_REPS = 3
+# the table phase 13c's link figures predict for the allreduce (ROADMAP §C2)
+TUNE_PREDICTED = {1 << 10: "NON_FUSED", 64 << 10: "NON_FUSED",
+                  4 << 20: "NON_FUSED", 64 << 20: "RECURSIVE_DOUBLING"}
+# B1, B5, B6, B7: what 14a's and 14c's drives must launch
+DRIVER_KERNELS = ("combine", "bs_quant", "bs_dequant", "bs_combine")
+DDP_LAYERS, DDP_STEPS, DDP_BF16_STEPS = 4, 4, 2
+DDP_DP, DDP_S = 2, 2048             # one 2048-token sequence a dp rank
+DDP_BUCKET = 25 << 20
+DDP_LOSS_REL = 1e-2
+# the DDP step's averaged gradients against the full batch's, per leaf,
+# relative L2: bf16 activations round each weight gradient to 2^-9 on
+# either side (about 1e-3 relative); a missing average is 1 and one
+# rank's gradient alone about 0.5
+DDP_GRAD_REL = 1e-2
+DDP_UPD_SAMPLE = 1 << 16            # elements a leaf in the update check
+DDP_LR = 1e-4
+BUILD_DIR = "build/accl_tpu_torch/phase14"
+PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="([^"]*)"')
+
+
+def prometheus_rows(text: str) -> list:
+    """(name, labels, value) of every sample line of an exposition; fails
+    on a line that is neither a sample nor a ``# TYPE`` line."""
+    rows = []
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            need(ln.split()[-1] in ("counter", "gauge", "histogram"),
+                 f"14a: bad TYPE line {ln!r}")
+            continue
+        m = PROM_LINE.match(ln)
+        need(m is not None, f"14a: not a Prometheus sample line: {ln!r}")
+        labels = dict(PROM_LABEL.findall(m.group(3) or ""))
+        need(",".join(f'{k}="{v}"' for k, v in labels.items())
+             == (m.group(3) or ""), f"14a: bad labels in {ln!r}")
+        rows.append((m.group(1), labels, float(m.group(4))))
+    return rows
+
+
+def hook_costs(accls, fn) -> dict:
+    """The slowest rank's library time of ``fn`` in microseconds with the
+    hooks off, the profiler on and the flight recorder armed: four rounds
+    of one block of HOOK_REPS drives a state, the states in turns (so
+    drift falls on all three alike), the first drive of a block dropped;
+    (median, first quartile, third quartile) of each state's drives."""
+    from accl_tpu_torch.testing import run_ranks
+    from accl_tpu_torch.tracing import TRACE
+
+    def one(a):
+        t0 = time.perf_counter()
+        fn(a)
+        return time.perf_counter() - t0
+    states = ("off", "profiler on", "trace armed")
+    samples = {k: [] for k in states}
+    for _ in range(4):
+        for k in states:
+            if k == "profiler on":
+                for a in accls:
+                    a.start_profiling()
+            elif k == "trace armed":
+                TRACE.start()
+            samples[k] += [max(run_ranks(accls, one)) * 1e6
+                           for _ in range(HOOK_REPS)][1:]
+            for a in accls:
+                if a.profiler.enabled:
+                    a.end_profiling()
+                a.profiler.clear()
+            TRACE.stop()
+            TRACE.clear()
+    out = {}
+    for k, v in samples.items():
+        q1, _, q3 = statistics.quantiles(v, n=4)
+        out[k] = (statistics.median(v), q1, q3)
+    return out
+
+
+def hook_micro() -> dict:
+    """Host microseconds of one record (attach on a retired handle, the
+    profiler armed), one armed emit and one disarmed ``TRACE.enabled``
+    test, each over HOOK_MICRO repetitions."""
+    from accl_tpu_torch.call import CompletedHandle
+    from accl_tpu_torch.tracing import TRACE, EventTrace, Profiler
+    prof, h = Profiler(), CompletedHandle()
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(HOOK_MICRO):
+        prof.attach(h, "allreduce", 1, 4, 1, algorithm="RING",
+                    tenant="comm-1")
+    rec = (time.perf_counter() - t0) / HOOK_MICRO * 1e6
+    tr = EventTrace(capacity=HOOK_MICRO)
+    tr.start()
+    t0 = time.perf_counter()
+    for i in range(HOOK_MICRO):
+        tr.emit("call_retry", rank=0, seqn=i, nbytes=4, peer=-1)
+    emit = (time.perf_counter() - t0) / HOOK_MICRO * 1e6
+    TRACE.stop()
+    n = 0
+    t0 = time.perf_counter()
+    for _ in range(HOOK_MICRO):
+        if TRACE.enabled:
+            n += 1
+    guard = (time.perf_counter() - t0) / HOOK_MICRO * 1e6
+    need(len(prof.records) == HOOK_MICRO and len(tr.events()) == HOOK_MICRO
+         and n == 0, "14a: the hook microbenchmark lost records")
+    return {"record": rec, "emit": emit, "guard": guard}
+
+
+def profiler_phase(say, launched):
+    """14a: under start_profiling, the fp32 ring allreduce, the fp8-e4m3
+    block-128 ring allreduce and the 2 x 4 hierarchical allreduce of
+    phase 13 at 64 Mi fp32 a rank; the records, the summary, the trace
+    (a verify_integrity call and one retried recv under the armed
+    recorder) and the exposition checked; the hooks' cost."""
+    import os
+    import torch
+    from accl_tpu_torch import cuda_world
+    from accl_tpu_torch.testing import run_ranks
+    from accl_tpu_torch.tracing import (TRACE, annotate,
+                                        measure_call_latency, trace_to)
+    accls = cuda_world(W, algorithm="ring")
+    try:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 140)
+        xs = [torch.randn(N, device="cuda", generator=g) for _ in range(W)]
+        bufs = {}
+
+        def setup(a):
+            bufs[a.rank] = (a.buffer(data=xs[a.rank], device_resident=True),
+                            a.buffer((N,), torch.float32,
+                                     device_resident=True))
+            a.configure_hierarchy(HIER_HOSTS)
+        run_ranks(accls, setup)
+        fp8 = dict(compress_dtype=torch.float8_e4m3fn, block_scale=QBLOCK)
+        calls = {
+            "fp32 ring": lambda a: a.allreduce(*bufs[a.rank], N,
+                                               algorithm="ring"),
+            "fp8-e4m3 block-128 ring": lambda a: a.allreduce(
+                *bufs[a.rank], N, algorithm="ring", **fp8),
+            "hierarchical 2 x 4": lambda a: a.allreduce(
+                *bufs[a.rank], N, algorithm="HIERARCHICAL"),
+        }
+        for fn in calls.values():                        # warm-up
+            run_ranks(accls, fn)
+        issued0 = [sum(a._call_counts.values()) for a in accls]
+        TRACE.clear()
+        for a in accls:
+            a.start_profiling()
+        TRACE.start()
+        for fn in calls.values():
+            drive_counted(accls, fn, launched)
+        for a in accls:
+            a.end_profiling()
+        issued = [sum(a._call_counts.values()) - i0
+                  for a, i0 in zip(accls, issued0)]
+        for a, n_issued in zip(accls, issued):
+            recs = a.profiler.records
+            need(len(recs) == n_issued,
+                 f"14a rank {a.rank}: {len(recs)} records for {n_issued} "
+                 f"calls issued (the logical one included)")
+            flat = [x for x in recs if not x.parent]
+            need(sorted(x.algorithm for x in flat) == ["RING", "RING"]
+                 and all(x.op == "allreduce" and x.count == N
+                         for x in flat),
+                 f"14a rank {a.rank}: flat records {flat}")
+            tags = {x.parent for x in recs if x.parent}
+            need(len(tags) == 1, f"14a rank {a.rank}: parent tags {tags}")
+            logical = [x for x in recs if x.algorithm == "HIERARCHICAL"]
+            need(len(logical) == 1 and logical[0].parent in tags
+                 and len(recs) - len(flat) > 1,
+                 f"14a rank {a.rank}: the logical record {logical}")
+            need(all(x.tenant == f"comm-{a.comm.comm_id}" or x.parent
+                     for x in recs), f"14a rank {a.rank}: tenant labels")
+        prof = accls[0].profiler
+        phases = len(prof.records) - 3
+        for line in prof.table().splitlines():
+            say(f"14a table (rank 0): {line}")
+        summ = prof.summary()["allreduce"]
+        say(f"14a records: {sum(issued)} over {W} ranks, one a call issued "
+            f"(rank 0: 2 flat rings, {phases} phases tagged "
+            f"{next(iter({x.parent for x in prof.records if x.parent}))!r} "
+            f"and their HIERARCHICAL record); ProfilerSummary allreduce n "
+            f"{summ.n}, p50 {summ.p50_us:.1f} us, p95 {summ.p95_us:.1f} us")
+        # each call's record beside its device and library time: a record
+        # ends when the rank's call retires, which on the card is when its
+        # kernels are enqueued
+        for name, fn in calls.items():
+            for a in accls:
+                a.profiler.clear()
+                a.start_profiling()
+            dev, lib, host = timed_drive(accls, fn)
+            for a in accls:
+                a.end_profiling()
+            rec_us = max(x.duration_us for a in accls
+                         for x in a.profiler.records if not x.parent
+                         or x.algorithm == "HIERARCHICAL")
+            fams = device_ms_by_family(lambda: run_ranks(accls, fn))
+            say(f"14a {name} allreduce, 64 Mi a rank: CallRecord "
+                f"duration_us {rec_us:.1f} (slowest rank: issue to retire, "
+                f"where retire means the kernels are enqueued, so this is "
+                f"host time) beside {dev:.4f} ms of device work (CUDA "
+                f"events behind a GPU sleep) and {lib:.3f} ms library time "
+                f"(slowest rank; host {host:.3f} ms); kernels by family "
+                + (", ".join(f"{f} {ms:.3f}" for f, ms in sorted(
+                    fams.items())) or "not measured") + f" ({CARD})")
+        # the flight recorder: a verified allreduce and a retried recv
+        run_ranks(accls, lambda a: a.allreduce(*bufs[a.rank], N,
+                                               algorithm="ring",
+                                               verify_integrity=True))
+
+        def late(a):
+            if a.rank == 0:
+                time.sleep(0.3)
+                a.send(bufs[0][0], 16, dst=1, tag=41)
+            elif a.rank == 1:
+                a.set_timeout(0.2)
+                try:
+                    a.recv(bufs[1][1], 16, src=0, tag=41, retries=3)
+                finally:
+                    a.set_timeout(30.0)
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        TRACE.dump_dir = BUILD_DIR
+        run_ranks(accls, late)
+        TRACE.stop()
+        # the first attempt's recv deadline dumped the armed recorder
+        dumps = [p for p in TRACE.dump_paths
+                 if p.endswith("_recv_deadline_abort.json")]
+        need(len(dumps) >= 1, f"14a: no recv-deadline dump in "
+             f"{TRACE.dump_paths}")
+        with open(dumps[0]) as f:
+            n_dump = sum(e["ph"] == "X" for e in json.load(f)["traceEvents"])
+        path = os.path.join(BUILD_DIR, "trace.json")
+        n_ev = accls[0].export_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+        kinds = collections.Counter(e["name"] for e in doc["traceEvents"]
+                                    if e["ph"] == "X")
+        need(kinds["fingerprint"] == W and kinds["call_retry"] >= 1
+             and n_ev == sum(kinds.values()),
+             f"14a: trace event kinds {dict(kinds)}, {n_ev} events")
+        TRACE.clear()
+        say(f"14a export_trace: {n_ev} events, valid Chrome JSON "
+            f"({os.path.getsize(path)} bytes), kinds {dict(kinds)}; the "
+            f"retried recv's first deadline dumped the recorder "
+            f"({len(dumps)} dump(s), the first with {n_dump} events)")
+        text = accls[0].metrics_text()
+        rows = prometheus_rows(text)
+        calls_rows = [lab for name, lab, _ in rows
+                      if name == "accl_calls_total"]
+        need(calls_rows and all("tenant" in lab for lab in calls_rows),
+             "14a: an accl_calls_total row without a tenant label")
+        say(f"14a metrics_text: {len(text.splitlines())} lines parse as "
+            f"Prometheus text, {len(rows)} samples; all "
+            f"{len(calls_rows)} accl_calls_total rows carry a tenant label")
+        lat = measure_call_latency(accls[0], n=200)
+        say(f"14a measure_call_latency (nop, rank 0, 200 calls): p50 "
+            f"{lat['p50_us']:.1f} us, p95 {lat['p95_us']:.1f} us, min "
+            f"{lat['min_us']:.1f} us")
+        one = {}
+
+        def setup1(a):
+            one[a.rank] = (a.buffer((1,), torch.float32, device_resident=True),
+                           a.buffer((1,), torch.float32, device_resident=True))
+        run_ranks(accls, setup1)
+
+        cost = hook_costs(accls, lambda a: a.allreduce(*one[a.rank], 1))
+        off = cost["off"][0]
+        micro = hook_micro()
+        say(f"14a the hooks' cost, a 1-element allreduce over {W} ranks "
+            f"(slowest rank's library time, median and quartiles of "
+            f"{4 * (HOOK_REPS - 1)} drives a state, 4 rounds of the states "
+            f"in turns): "
+            + ", ".join(f"{k} {m:.1f} us ({q1:.1f}-{q3:.1f}; {m - off:+.1f})"
+                        for k, (m, q1, q3) in cost.items())
+            + f" (the call has no emit site); alone, over {HOOK_MICRO} "
+            f"repetitions (host): one record {micro['record']:.2f} us, one "
+            f"armed emit {micro['emit']:.2f} us, one disarmed test "
+            f"{micro['guard'] * 1e3:.1f} ns ({CARD})")
+        # annotate and trace_to: a named range in a torch.profiler capture
+        prof_dir = os.path.join(BUILD_DIR, "profile")
+        with trace_to(prof_dir):
+            with annotate("accl_phase14a_ring"):
+                run_ranks(accls, calls["fp32 ring"])
+            torch.cuda.synchronize()
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        ranges = sum(1 for e in events
+                     if e.get("name") == "accl_phase14a_ring")
+        kern = sum(1 for e in events if e.get("cat") == "kernel")
+        need(ranges >= 1,
+             "14a: the annotate range is not in the trace_to capture")
+        say(f"14a trace_to: {len(events)} events in {prof_dir}/trace.json, "
+            f"the annotate range 'accl_phase14a_ring' {ranges} time(s), "
+            f"{kern} kernel records")
+    finally:
+        TRACE.stop()
+        TRACE.clear()
+        for a in accls:
+            a.deinit()
+
+
+def tenants_phase(say, launched):
+    """14b: ``cuda_world(8)`` and ``add_tenant(..., "tenant-b", key=1)``
+    on the same devices, 64 Mi fp32 ring allreduces of both interleaved,
+    each bitwise its plain version; the rows and records per tenant; an
+    invalid label refused."""
+    import torch
+    from accl_tpu_torch import ACCL, cuda_world
+    from accl_tpu_torch.testing import add_tenant, run_ranks
+    from accl_tpu_torch.tracing import METRICS
+    tenant_a = cuda_world(W, algorithm="ring")
+    tenant_b = add_tenant(tenant_a, "tenant-b", key=1)
+    ctx = tenant_a[0].device.ctx
+    try:
+        need(all(x.device is y.device for x, y in zip(tenant_a, tenant_b)),
+             "14b: the tenants do not share the devices")
+        g = torch.Generator(device="cuda").manual_seed(SEED + 141)
+        xs = {t: [torch.randn(N, device="cuda", generator=g)
+                  for _ in range(W)] for t in "ab"}
+        outs = {t: [[torch.empty(N, device="cuda") for _ in range(2)]
+                    for _ in range(W)] for t in "ab"}
+
+        def interleaved(a):
+            b = tenant_b[a.rank]
+            r = a.rank
+            src = {"a": a.buffer(data=xs["a"][r], device_resident=True),
+                   "b": b.buffer(data=xs["b"][r], device_resident=True)}
+            hs = []
+            for i in range(2):
+                for t, d in (("a", a), ("b", b)) if i == 0 else \
+                        (("b", b), ("a", a)):
+                    dst = d.buffer(data=outs[t][r][i], device_resident=True)
+                    hs.append(d.allreduce(src[t], dst, N, run_async=True))
+            for h in hs:
+                h.wait(60)
+        for d in tenant_a + tenant_b:
+            d.start_profiling()
+        before = METRICS.snapshot()
+        drive_counted(tenant_a, interleaved, launched)
+        after = METRICS.snapshot()
+        for d in tenant_a + tenant_b:
+            d.end_profiling()
+
+        def per_tenant(snap):
+            out = collections.Counter()
+            for labels, v in snap["counters"].get("accl_calls_total",
+                                                  {}).items():
+                kv = dict(p.split("=", 1) for p in labels.split(","))
+                if kv.get("ctx") == str(ctx.seq):
+                    out[(kv["tenant"], kv["op"])] += v
+            return out
+        rows = per_tenant(after) - per_tenant(before)
+        ta = f"comm-{tenant_a[0].comm.comm_id}"
+        need(rows == {(ta, "allreduce"): 2 * W,
+                      ("tenant-b", "allreduce"): 2 * W},
+             f"14b: accl_calls_total per tenant moved {dict(rows)}")
+        for drivers, t in ((tenant_a, ta), (tenant_b, "tenant-b")):
+            for d in drivers:
+                recs = d.profiler.records
+                need(len(recs) == 2 and all(x.tenant == t for x in recs),
+                     f"14b rank {d.rank}: records {recs}")
+                need(d.device.tenant_of(d.comm.comm_id) == t,
+                     f"14b rank {d.rank}: the device's tenant of its comm")
+        # the plain version of every result: the same rings through PLAIN
+        with plain_codecs(ctx):
+            plain = {}
+            for t, world in (("a", tenant_a), ("b", tenant_b)):
+                plain[t] = ctx.coll.allreduce(xs[t], algorithm="ring")
+        torch.cuda.synchronize()
+        for t in "ab":
+            check_rows([o for r in range(W) for o in outs[t][r]],
+                       [plain[t][r] for r in range(W) for _ in range(2)],
+                       f"14b tenant {t} interleaved ring allreduce")
+        try:
+            ACCL(tenant_a[0].device, tenant_a[0].comm, tenant="bad label")
+            msg = None
+        except ValueError as exc:
+            msg = str(exc)
+        want = ("invalid tenant label 'bad label': must match "
+                "[A-Za-z0-9][A-Za-z0-9._-]{0,63} (it is embedded in CSV, "
+                "Prometheus and trace encodings)")
+        need(msg == want, f"14b: an invalid tenant gave {msg!r}")
+        say(f"14b two tenants on the same {W} CudaDevices (comm ids "
+            f"{tenant_a[0].comm.comm_id} and {tenant_b[0].comm.comm_id}): "
+            f"2 + 2 interleaved async 64 Mi fp32 ring allreduces a rank, "
+            f"each bitwise its plain version; accl_calls_total moved "
+            f"{dict(rows)}; every CallRecord names its tenant; "
+            f"ACCL(tenant='bad label') raised the reference's ValueError")
+    finally:
+        for d in tenant_a:
+            d.deinit()
+
+
+def tune_phase(say, launched):
+    """14c: the port's ``run_tune`` on ``cuda_world(8)`` over the
+    reference's ops at 1 Ki, 64 Ki, 4 Mi and 64 Mi f32 a rank, 3 reps, the
+    window of each rep closed by a device synchronize, the sources seeded
+    random; the first warm-up of each (op, algorithm, wire) bitwise the
+    same call through the plain versions; the table loaded
+    into a fresh Tuner through ``tuner/cache.py``; AUTO at every swept
+    size resolving to the chosen row, also through a world's drivers."""
+    import os
+    import torch
+    from accl_tpu_torch import Tuner, cuda_world
+    from accl_tpu_torch.testing import run_ranks
+    from accl_tpu_torch.tuner import cache, sweep
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, "tuning.json")
+    cnt = counters()
+    before = {k: f.launches for k, f in cnt.items()}
+    yard = cuda_world(W)
+    checked = []
+
+    def check(op, count, alg, kw, kept):
+        """The sweep's first warm-up of (op, algorithm, wire) against the
+        same call on the same seeded sources through the plain versions,
+        bitwise; the yardstick launches no kernel."""
+        moved = {k: f.launches for k, f in cnt.items()}
+        with plain_codecs(yard[0].device.ctx):
+            again = run_ranks(yard, sweep._rank_body(
+                op, count, W, alg, 0, True,
+                sources=[src for src, _ in kept], **kw))
+        torch.cuda.synchronize()
+        need(all(f.launches == moved[k] for k, f in cnt.items()),
+             f"14c {op} {alg.name}: the plain yardstick launched kernels")
+        name = alg.name + ("+fp8-bs" if kw else "")
+        check_rows([out for _, out in kept], [k[1] for _, k in again],
+                   f"14c {op} {name} {count} f32 a rank")
+        checked.append(f"{op} {name}")
+
+    t0 = time.perf_counter()
+    try:
+        out = sweep.run_tune(W, sizes=[4 * n for n in TUNE_SIZES],
+                             reps=TUNE_REPS, cache_path=path, check=check)
+    finally:
+        for a in yard:
+            a.deinit()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for k, f in cnt.items():
+        if f.launches - before[k]:
+            launched[k] = launched.get(k, 0) + f.launches - before[k]
+    rows_path = sweep.write_rows(out["rows"], BUILD_DIR)
+    forced = [r for r in out["rows"] if r["source"] == "forced"]
+    chosen = [r for r in out["rows"] if r["source"] == "chosen"]
+    need(len(checked) == len({(r["op"], r["algorithm"]) for r in forced}),
+         f"14c: {len(checked)} (op, algorithm, wire) points checked")
+    say(f"14c run_tune: {len(forced)} forced rows ({TUNE_REPS} reps each, "
+        f"synchronized windows, seeded random sources) and {len(chosen)} "
+        f"chosen rows in {secs:.1f} s; the first warm-up of each of "
+        f"{len(checked)} (op, algorithm, wire) points, at "
+        f"{TUNE_SIZES[0]} f32 a rank, bitwise the plain versions' on the "
+        f"same sources; table {path}, rows {rows_path} ({CARD})")
+    by_point = collections.defaultdict(dict)
+    for r in forced:
+        by_point[(r["op"], r["count"])][r["algorithm"]] = \
+            r["seconds_per_op"] * 1e3
+    for (op, count), algs in by_point.items():
+        say(f"14c forced {op} {count} f32 a rank (ms, min of {TUNE_REPS}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in algs.items()))
+    fresh = Tuner()
+    n_pinned = cache.load_into(fresh, path, strict=True)
+    need(n_pinned == len(json.load(open(path))["entries"]) and n_pinned,
+         f"14c: {n_pinned} entries pinned")
+    for r in chosen:
+        alg = r["algorithm"].split("+")[0]
+        need(fresh.select(r["op"], W, r["nbytes"]).name == alg,
+             f"14c: AUTO {r['op']} {r['nbytes']} B resolves to "
+             f"{fresh.select(r['op'], W, r['nbytes']).name}, the table "
+             f"chose {alg}")
+    say("14c chosen: " + "; ".join(f"{r['op']} {r['count']} "
+                                   f"{r['algorithm']}" for r in chosen))
+    disagree = [(n, r["algorithm"], TUNE_PREDICTED[n]) for r in chosen
+                for n in TUNE_SIZES if r["op"] == "allreduce"
+                and r["count"] == n
+                and r["algorithm"].split("+")[0] != TUNE_PREDICTED[n]]
+    say("14c the allreduce table against phase 13c's link figures "
+        "(NON_FUSED to 4 Mi, RECURSIVE_DOUBLING at 64 Mi): "
+        + ("agrees" if not disagree else "differs at " + ", ".join(
+            f"{n} ({got}, predicted {want})" for n, got, want in disagree)))
+    # the drivers of a world with the table's tuner run the chosen rows
+    accls = cuda_world(W, tuner=fresh)
+    try:
+        ran = {}
+        for n in TUNE_SIZES:
+            def fn(a, n=n):
+                src = a.buffer(data=torch.ones(n, device="cuda"),
+                               device_resident=True)
+                dst = a.buffer((n,), torch.float32, device_resident=True)
+                a.start_profiling()
+                a.allreduce(src, dst, n)
+                a.end_profiling()
+                ok = bool((dst.tensor == W).all())
+                src.free_buffer()
+                dst.free_buffer()
+                return a.profiler.records[-1].algorithm, ok
+            got = run_ranks(accls, fn)
+            want = next(r["algorithm"].split("+")[0] for r in chosen
+                        if r["op"] == "allreduce" and r["count"] == n)
+            need(all(ok and alg == want for alg, ok in got),
+                 f"14c: AUTO allreduce {n} ran {got}, the table chose {want}")
+            ran[n] = want
+        say(f"14c a world with the loaded Tuner: AUTO allreduce ran the "
+            f"table's algorithm at every swept size {ran}, sums exact")
+    finally:
+        for a in accls:
+            a.deinit()
+
+
+def ddp_grad_rows(model, leaves, tokens):
+    """Each dp rank's gradients of its sequence, one row a rank, as the
+    DDP step forms them."""
+    rows = []
+    for shard in tokens.chunk(DDP_DP):
+        for p in leaves:
+            p.grad = None
+        model.loss(shard).backward()
+        rows.append([p.grad for p in leaves])
+    for p in leaves:
+        p.grad = None
+    return rows
+
+
+def ddp_hold_grads(model, leaves, tokens, held):
+    """Before the first DDP update (an optimizer pre-hook): the averaged
+    gradients the step set, each leaf's relative L2 distance from the
+    full batch's backward; then the gradients restored and a strided
+    sample of each leaf and its gradient kept for the update check."""
+    import torch
+    if "grad_rel" in held:
+        return
+    ddp = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    before = attention_counters()
+    model.loss(tokens).backward()
+    # the yardstick's attention launches are not the path's
+    held["check_launches"] = {k: v - before[k]
+                              for k, v in attention_counters().items()}
+    rel = []
+    for p, g in zip(leaves, ddp):
+        rel.append(float((g - p.grad).norm() / p.grad.norm()))
+        p.grad = g
+    held["grad_rel"] = rel
+    stride = [max(1, p.numel() // DDP_UPD_SAMPLE) for p in leaves]
+    held["sample"] = [(p.detach().view(-1)[::k].double(),
+                       p.grad.view(-1)[::k].double())
+                      for p, k in zip(leaves, stride)]
+    held["stride"] = stride
+    torch.cuda.synchronize()
+
+
+def ddp_hold_update(leaves, held):
+    """After the first DDP update (a post-hook): the sampled elements
+    against Adam's first step on the averaged gradients, in float64
+    (bias-corrected, it moves p by lr g / (|g| + eps))."""
+    if "sample" not in held:
+        return
+    err, ok = 0.0, True
+    for p, k, (before, g) in zip(leaves, held.pop("stride"),
+                                 held.pop("sample")):
+        want = before - DDP_LR * g / (g.abs() + 1e-8)   # Adam's eps
+        d = (p.detach().view(-1)[::k].double() - want).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= 2.0 ** -23 * want.abs() + 1e-9).all())
+    held["upd_err"], held["upd_ok"] = err, ok
+
+
+def ddp_phase():
+    """14d: Llama-3-8B width, 4 of 32 layers, f32 parameters, bf16
+    activations, a dp = 2 RankMesh, one 2048-token sequence a rank, Adam
+    lr 1e-4, the reference's 25 MiB buckets (``grad_buckets``): each
+    bucket's ring all-reduce on the fp32 and bf16 wires bitwise the same
+    through the plain kernels on the same rows, the copies and the ring
+    timed; 4 steps on the fp32 wire and 2 on the bf16 wire, the first loss
+    within 1e-2 of the full-batch loss, falling; the first step's
+    averaged gradients against the full batch's and its update against
+    Adam's (optimizer hooks). Returns the path's launch counts (B1, B2
+    and the attention kernels)."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.parallel import (RankCollectives, make_ddp_train_step,
+                                         make_mesh, plan_from_buckets)
+    from accl_tpu_torch.parallel.bucketing import (_flatten_bucket,
+                                                   _scatter_bucket,
+                                                   tree_flatten)
+    from accl_tpu_torch.parallel.collectives import PLAIN
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=DDP_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 142)
+    model = Llama(cfg).init(g)
+    tokens = torch.randint(0, cfg.vocab_size, (DDP_DP, DDP_S),
+                           device="cuda", generator=g)
+    params = dict(model.named_parameters())
+    leaves = tree_flatten(params)[0]
+    plan = plan_from_buckets(params, model.grad_buckets(DDP_BUCKET))
+    mesh = make_mesh((DDP_DP,), ("dp",))
+    coll = RankCollectives(mesh.group("dp"))
+    plain = RankCollectives(mesh.group("dp"), PLAIN)
+    N = model.param_count()
+    big = max(b.nbytes for b in plan.buckets)
+    print(f"14d DDP: Llama-3-8B width, {DDP_LAYERS} of 32 layers (the cut: "
+          f"depth only), f32 parameters, bf16 activations, dp {DDP_DP}, "
+          f"tokens ({DDP_DP}, {DDP_S}), Adam lr 1e-4; {N} parameters. "
+          f"Memory reckoning: parameters {4 * N / 1e9:.1f} GB, with Adam's "
+          f"moments {12 * N / 1e9:.1f} GB; {DDP_DP} gradient rows "
+          f"{DDP_DP * 4 * N / 1e9:.1f} GB; the largest bucket "
+          f"({big / 1e9:.2f} GB) in and out on {DDP_DP} ranks "
+          f"{2 * DDP_DP * big / 1e9:.1f} GB; plus activations, about "
+          f"{(12 + 4 * DDP_DP) * N / 1e9 + 2 * DDP_DP * big / 1e9 + 5:.0f} "
+          f"GB of 80")
+    print(f"14d buckets ({DDP_BUCKET >> 20} MiB, the reference's grouping): "
+          f"{len(plan.buckets)}, bytes "
+          f"{[b.nbytes for b in plan.buckets]}")
+    with torch.no_grad():
+        full_loss = float(model.loss(tokens))
+    model.requires_grad_(True)
+    # the reduced buckets against the plain kernels, on the same rows
+    timing = collections.defaultdict(float)
+    for wire in (None, torch.bfloat16):
+        rows = ddp_grad_rows(model, leaves, tokens)
+        for b in plan.buckets:
+            fused = _flatten_bucket(b, rows)
+            got = coll.allreduce(fused, algorithm="ring", wire_dtype=wire)
+            want = plain.allreduce(fused, algorithm="ring", wire_dtype=wire)
+            torch.cuda.synchronize()
+            check_rows(list(got), list(want),
+                       f"14d bucket of {b.nbytes} B, wire "
+                       f"{dtype_label(wire)}")
+            del want
+            name = dtype_label(wire)
+            timing[f"ring {name}"] += time_ms(
+                lambda: coll.allreduce(fused, algorithm="ring",
+                                       wire_dtype=wire), reps=3, warmup=1)
+            if wire is None:
+                timing["flatten"] += time_ms(
+                    lambda: _flatten_bucket(b, rows), reps=3, warmup=1)
+                timing["average"] += time_ms(lambda: got.div_(DDP_DP),
+                                             reps=3, warmup=1)
+                timing["scatter"] += time_ms(
+                    lambda: _scatter_bucket(b, got, rows), reps=3, warmup=1)
+            del fused, got
+        del rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"14d every bucket's ring all-reduce bitwise the plain kernels' "
+          f"on the same rows, fp32 and bf16 wires; device ms a step (CUDA "
+          f"events behind a GPU sleep, summed over the buckets): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
+          + f"; copies around the fp32 ring "
+          f"{timing['flatten'] + timing['average'] + timing['scatter']:.3f}"
+          f" ms ({CARD})")
+    for k in counters().values():
+        k.launches = 0
+    zero_attention_counters()
+    opt = torch.optim.Adam(model.parameters(), lr=DDP_LR)
+    held = {}
+    hooks = [opt.register_step_pre_hook(
+                 lambda *_: ddp_hold_grads(model, leaves, tokens, held)),
+             opt.register_step_post_hook(
+                 lambda *_: ddp_hold_update(leaves, held))]
+    losses, times = [], []
+    for wire, steps in ((None, DDP_STEPS), (torch.bfloat16, DDP_BF16_STEPS)):
+        step = make_ddp_train_step(model.loss, opt, params, mesh, plan=plan,
+                                   wire_dtype=wire, algorithm="ring")
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(tokens)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            print(f"14d step {len(losses) - 1} (wire "
+                  f"{dtype_label(wire)}): loss {losses[-1]:.6f}, "
+                  f"{times[-1]:.1f} ms (host clock"
+                  + (", with the gradient check's full-batch backward"
+                     if len(losses) == 1 else "") + "), "
+                  f"{DDP_DP * DDP_S / times[-1] * 1e3:.0f} tokens/s, "
+                  f"{len(plan.buckets)} buckets of {plan.total_bytes} B, "
+                  f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                  f"GiB")
+    for h in hooks:
+        h.remove()
+    launches = {k: v - held["check_launches"][k]
+                for k, v in attention_counters().items()}
+    launches.update({k: f.launches for k, f in counters().items()})
+    print(f"14d launches (path ddp; the gradient check's full-batch pass "
+          f"excluded): {launches}")
+    names = sorted(params)
+    rel_g = held["grad_rel"]
+    worst = max(range(len(names)), key=rel_g.__getitem__)
+    print(f"14d step 0 (fp32 wire), before its update: every leaf's "
+          f"averaged gradient against the full batch's backward "
+          f"(model.loss on tokens ({DDP_DP}, {DDP_S})), relative L2: worst "
+          f"{rel_g[worst]:.3e} ({names[worst]}), median "
+          f"{statistics.median(rel_g):.3e}, bound {DDP_GRAD_REL}; after "
+          f"it, {DDP_UPD_SAMPLE} strided elements a leaf against Adam's "
+          f"first step on those gradients (p - lr g / (|g| + eps), float64)"
+          f": max abs err {held['upd_err']:.3e}, bound 2^-23 |p| + 1e-9")
+    need(all(r <= DDP_GRAD_REL for r in rel_g),
+         f"14d: the averaged gradient of {names[worst]} is "
+         f"{rel_g[worst]} from the full batch's (> {DDP_GRAD_REL})")
+    need(held["upd_ok"], f"14d: the first update is not Adam's step on the "
+         f"averaged gradients (max abs err {held['upd_err']})")
+    need(all(np.isfinite(x) for x in losses), "14d: non-finite loss")
+    rel = abs(losses[0] - full_loss) / abs(full_loss)
+    need(rel <= DDP_LOSS_REL, f"14d: step-0 loss {losses[0]} vs the "
+         f"full-batch loss {full_loss}: rel {rel}")
+    need(losses[-1] < losses[0], "14d: the loss did not fall")
+    per_run = DDP_LAYERS * DDP_DP * (DDP_STEPS + DDP_BF16_STEPS)
+    for key in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq"):
+        need(launches[key] == per_run, f"14d: {key} launched "
+             f"{launches[key]} times, not {per_run}")
+    need(launches["combine"] > 0 and launches["cast"] > 0,
+         f"14d: B1 or B2 never launched ({launches})")
+    need_routes(launches, True, "14d DDP")
+    step_ms = statistics.median(times[1:DDP_STEPS])
+    print(f"14d DDP losses {losses}; the full-batch loss "
+          f"(model.loss, what make_train_step computes) {full_loss:.6f}, "
+          f"step 0 rel {rel:.2e} <= {DDP_LOSS_REL}; fp32-wire step "
+          f"{step_ms:.1f} ms (median of steps 1-{DDP_STEPS - 1}), "
+          f"{DDP_DP * DDP_S / step_ms * 1e3:.0f} tokens/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({CARD})")
+    del opt, step, model, params, leaves, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dtype_label(dt) -> str:
+    return "fp32" if dt is None else str(dt).removeprefix("torch.")
+
+
+def driver_phase(recs):
+    """Phase 14a-14c, its lines printed after it ends; B1, B5, B6 and B7
+    must launch in 14a's and 14c's drives, B1 in 14b's."""
+    import torch
+    lines, launched = [], {"profiler": {}, "tenants": {}, "tune": {}}
+    t0 = time.perf_counter()
+    ok = False
+    try:
+        profiler_phase(lines.append, launched["profiler"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        tenants_phase(lines.append, launched["tenants"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        tune_phase(lines.append, launched["tune"])
+        ok = True
+    finally:
+        secs = time.perf_counter() - t0
+        print(f"phase 14a-c: {secs:.1f} s of command time"
+              + ("" if ok else " (failed)") + f" ({CARD})")
+        for line in lines:
+            print(line)
+    print(f"phase 14a-c launches by path (the drives, not the yardsticks): "
+          f"{launched}")
+    for path in ("profiler", "tune"):
+        for k in DRIVER_KERNELS:
+            need(launched[path].get(k, 0) > 0,
+                 f"phase 14 {path}: kernel {k} never launched")
+    need(launched["tenants"].get("combine", 0) > 0,
+         "phase 14 tenants: B1 never launched")
+    for r in recs:
+        for path, per in launched.items():
+            if r["name"] in per:
+                r.setdefault("launches_by_path",
+                             {"collectives": r["launches"]})
+                r["launches_by_path"][path] = per[r["name"]]
+
+
 def phase(name: str):
     """One line at the start of each phase: the seconds since the script
     started and what the device holds."""
@@ -5508,6 +6328,10 @@ def main() -> int:
     hier_phase(recs)
     gc.collect()
     torch.cuda.empty_cache()
+    phase("phase 14a-c: profiler, flight recorder, tenants, tuning table")
+    driver_phase(recs)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("phase 5: attention kernels")
     attention_edges(rng)
     attn_recs = attention_records()
@@ -5543,6 +6367,16 @@ def main() -> int:
     by_path["tp"] = {k: tp_serve[k] + tp_train[k] for k in sp_fwd}
     gc.collect()
     torch.cuda.empty_cache()
+    phase("phase 14d: DDP bucketed gradient all-reduce")
+    held = torch.cuda.memory_allocated()
+    need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still allocated "
+         f"before the DDP phase (limit 2 GiB)")
+    ddp = ddp_phase()
+    by_path["ddp"] = {k: ddp[k] for k in sp_fwd}
+    for r in recs:
+        if r["name"] in ("combine", "cast"):
+            r.setdefault("launches_by_path", {"collectives": r["launches"]})
+            r["launches_by_path"]["ddp"] = ddp[r["name"]]
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
     for r in attn_recs:
