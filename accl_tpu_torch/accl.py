@@ -184,6 +184,8 @@ class ACCL:
         # tuner's MeshTopology on the first AUTO-resolved collective
         self._hier = None
         self._hier_autoprobe = True
+        # the barrier's 2-element f32 scratch (its allreduce's operands)
+        self._barrier_buf: ACCLBuffer | None = None
         # set while the phases of one logical call (a hierarchy program)
         # are issued: they stay flat and skip their own verification
         self._parent_tag = ""
@@ -1679,9 +1681,15 @@ class ACCL:
                 waitfor: Sequence[CallHandle] = (),
                 retries: int | None = None,
                 retry_policy: RetryPolicy | None = None) -> CallHandle:
-        """Rendezvous of all ranks of ``comm``."""
+        """Rendezvous of all ranks of ``comm``: a 1-element allreduce on a
+        scratch buffer, accounted as an ``allreduce`` in the call counts
+        and the profiler's records, as in the reference."""
         comm = comm or self.comm
-        desc = self._prepare(CCLOp.barrier, count=0, comm=comm)
+        if self._barrier_buf is None:
+            self._barrier_buf = self.buffer((2,), torch.float32)
+        buf = self._barrier_buf
+        desc = self._prepare(CCLOp.allreduce, count=1, comm=comm,
+                             op0=buf[0:1], res=buf[1:2])
         return self._call(desc, False, waitfor, False, retries,
                           retry_policy)
 

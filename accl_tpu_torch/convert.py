@@ -9,7 +9,10 @@ name, so this module needs no ``ml_dtypes``. The reference Llama's
 parameter pytree maps onto the port's ``state_dict`` the same way
 (``llama_params_from_reference``) and back
 (``llama_params_to_reference``, whose bf16 leaves take numpy's
-"bfloat16" type where ``ml_dtypes`` has registered it).
+"bfloat16" type where ``ml_dtypes`` has registered it), the
+mixture-of-experts Llama's expert leaves too, and so does a bare
+``MoELayer``'s dict (``moe_params_from_reference`` and
+``moe_params_to_reference``).
 """
 
 from __future__ import annotations
@@ -65,6 +68,22 @@ def wire_to_numpy(q: torch.Tensor, scales: torch.Tensor | None = None
 LLAMA_TOP_KEYS = ("embed", "final_norm", "lm_head")
 LLAMA_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
                     "w_gate", "w_up", "w_down")
+# an MoELayer's leaves (accl_tpu/models/moe.py ``MoELayer.init``): router
+# (d, E), w_gate and w_up (E, d, f), w_down (E, f, d); in the MoE Llama
+# each is stacked over the layers, its port name ``layers.<i>.moe.<key>``
+MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
+LLAMA_MOE_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
+                        *MOE_KEYS)
+
+
+def llama_layer_keys(moe: bool) -> tuple:
+    """The reference's stacked layer leaves, dense or with experts."""
+    return LLAMA_MOE_LAYER_KEYS if moe else LLAMA_LAYER_KEYS
+
+
+def port_layer_name(key: str, moe: bool) -> str:
+    """A reference layer leaf's name in one port layer's state dict."""
+    return f"moe.{key}" if moe and key in MOE_KEYS else key
 
 
 def _leaf_tensor(a: np.ndarray) -> torch.Tensor:
@@ -87,22 +106,39 @@ def _require_keys(got, want, where: str):
 def llama_params_from_reference(params: dict) -> dict:
     """The reference Llama's parameter pytree (numpy leaves; layer leaves
     stacked along a leading n_layers axis) -> the port's ``state_dict``
-    (``embed``, ``layers.<i>.<name>``, ``final_norm``, ``lm_head``), one
-    slice per layer, dtypes kept. Raises ``KeyError`` on a missing or an
-    unexpected key."""
+    (``embed``, ``layers.<i>.<name>``, ``final_norm``, ``lm_head``; an
+    expert leaf ``layers.<i>.moe.<name>``), one slice per layer, dtypes
+    kept. A ``router`` leaf marks the mixture-of-experts Llama. Raises
+    ``KeyError`` on a missing or an unexpected key."""
     _require_keys(params, LLAMA_TOP_KEYS + ("layers",), "")
     layers = params["layers"]
-    _require_keys(layers, LLAMA_LAYER_KEYS, "['layers']")
+    moe = "router" in layers
+    keys = llama_layer_keys(moe)
+    _require_keys(layers, keys, "['layers']")
     out = {k: _leaf_tensor(params[k]) for k in LLAMA_TOP_KEYS}
-    n_layers = {np.shape(layers[k])[0] for k in LLAMA_LAYER_KEYS}
+    n_layers = {np.shape(layers[k])[0] for k in keys}
     if len(n_layers) != 1:
         raise ValueError(f"reference Llama params: layer leaves disagree "
                          f"on the layer count {sorted(n_layers)}")
-    for name in LLAMA_LAYER_KEYS:
+    for name in keys:
         stacked = _leaf_tensor(layers[name])
         for i in range(stacked.shape[0]):
-            out[f"layers.{i}.{name}"] = stacked[i].clone()
+            out[f"layers.{i}.{port_layer_name(name, moe)}"] = \
+                stacked[i].clone()
     return out
+
+
+def moe_params_from_reference(params: dict) -> dict:
+    """A reference ``MoELayer``'s parameter dict (numpy leaves) -> the
+    port's ``MoELayer`` state dict, dtypes kept."""
+    _require_keys(params, MOE_KEYS, " (MoELayer)")
+    return {k: _leaf_tensor(params[k]) for k in MOE_KEYS}
+
+
+def moe_params_to_reference(tensors: dict) -> dict:
+    """The inverse of :func:`moe_params_from_reference`."""
+    _require_keys(tensors, MOE_KEYS, " (MoELayer port keys)")
+    return {k: _leaf_numpy(tensors[k]) for k in MOE_KEYS}
 
 
 def _leaf_numpy(t: torch.Tensor) -> np.ndarray:
@@ -128,11 +164,13 @@ def llama_params_to_reference(tensors: dict) -> dict:
     missing or an unexpected key."""
     n_layers = len({k.split(".")[1] for k in tensors
                     if k.startswith("layers.")})
+    moe = "layers.0.moe.router" in tensors
+    keys = llama_layer_keys(moe)
     _require_keys(tensors, LLAMA_TOP_KEYS + tuple(
-        f"layers.{i}.{name}" for i in range(n_layers)
-        for name in LLAMA_LAYER_KEYS), " (port keys)")
+        f"layers.{i}.{port_layer_name(name, moe)}" for i in range(n_layers)
+        for name in keys), " (port keys)")
     out = {k: _leaf_numpy(tensors[k]) for k in LLAMA_TOP_KEYS}
     out["layers"] = {name: np.stack([
-        _leaf_numpy(tensors[f"layers.{i}.{name}"]) for i in range(n_layers)])
-        for name in LLAMA_LAYER_KEYS}
+        _leaf_numpy(tensors[f"layers.{i}.{port_layer_name(name, moe)}"])
+        for i in range(n_layers)]) for name in keys}
     return out

@@ -1,5 +1,9 @@
-"""Models on the port's kernels: the Llama serving path."""
+"""Models on the port's kernels: the Llama (dense or Mixtral-style
+mixture of experts) and the expert block with its expert-parallel
+entry."""
 
 from .llama import Llama, LlamaConfig
+from .moe import MoEConfig, MoELayer, moe_apply_sharded
 
-__all__ = ["Llama", "LlamaConfig"]
+__all__ = ["Llama", "LlamaConfig", "MoEConfig", "MoELayer",
+           "moe_apply_sharded"]

@@ -22,8 +22,19 @@ they and ``forward_cached``/``generate`` run the reference's
 Megatron-style tensor parallelism over the tp axis
 (:mod:`accl_tpu_torch.parallel.tensor_parallel`: ``param_specs``,
 ``shard_params``, one attention launch a layer over every rank's head
-shard, decode over per-rank KV-head shards of the cache). MoE (ROADMAP
-§A item 9) is a later slice.
+shard, decode over per-rank KV-head shards of the cache).
+
+Mixture of experts (``n_experts > 0``, the Mixtral form): every layer's
+SwiGLU becomes a routed :class:`~accl_tpu_torch.models.moe.MoELayer`
+(state-dict names ``layers.<i>.moe.<router|w_gate|w_up|w_down>``),
+routed per sequence as the reference's vmap over the batch does, the B
+sequences' slots folded into one (E, B*C, d) expert product. ``loss``
+adds ``moe_aux_coef`` times the sum over layers of each layer's
+batch-mean Switch aux; serving drops the aux. Under tensor parallelism
+the router is replicated, gate and up are split on f and down on its
+f rows, and the experts' partial sums take the dense FFN's one
+all-reduce. Sequence parallelism with experts is refused (ROADMAP §A
+item 9b).
 """
 
 from __future__ import annotations
@@ -34,8 +45,8 @@ import types
 import torch
 from torch import nn
 
-from ..convert import (LLAMA_LAYER_KEYS, LLAMA_TOP_KEYS,
-                       llama_params_from_reference)
+from ..convert import (LLAMA_TOP_KEYS, MOE_KEYS, llama_layer_keys,
+                       llama_params_from_reference, port_layer_name)
 from ..ops.attention import flash_attention, flash_decode
 from ..parallel.collectives import RankCollectives
 from ..parallel.mesh import resolve_device
@@ -43,6 +54,8 @@ from ..parallel.ring_attention import ring_attention
 from ..parallel.tensor_parallel import (rank_matmul, shard_view,
                                         tp_allreduce, vocab_parallel_embed,
                                         vocab_parallel_logits)
+from . import moe as M
+from .moe import _param
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +72,9 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16      # activations
     param_dtype: torch.dtype = torch.float32
     attention: str = "flash"                 # "flash" or "dense"
-    # Mixture-of-experts FFN: kept for the reference's field set; any
-    # n_experts > 0 is refused until ROADMAP A9 ports it
+    # Mixture-of-experts FFN (Mixtral-style): n_experts > 0 replaces every
+    # layer's SwiGLU with a top-k routed expert block (models.moe), the
+    # Switch aux loss added in loss() with moe_aux_coef. 0 = dense FFN.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -123,22 +137,33 @@ def _heads_major(*ts):
 _TP_DIM = {"embed": 0, "final_norm": None, "lm_head": 1, "attn_norm": None,
            "wq": 1, "wk": 1, "wv": 1, "wo": 0, "mlp_norm": None,
            "w_gate": 1, "w_up": 1, "w_down": 0}
-_LAYER_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-                "w_up", "w_down")
+# an expert tensor (E, d, f) or (E, f, d) splits on f: the last dimension
+# of gate and up, dimension -2 of down; the router is replicated
+_TP_DIM_MOE = {"router": None, "w_gate": 2, "w_up": 2, "w_down": 1}
+_ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_FFN_NAMES = ("w_gate", "w_up", "w_down")
 
 
 def _tp_dim(name: str):
     """The split dimension of the parameter ``name`` (a state-dict key)."""
-    return _TP_DIM[name.rsplit(".", 1)[-1]]
+    parts = name.rsplit(".", 2)
+    if len(parts) == 3 and parts[1] == "moe":
+        return _TP_DIM_MOE[parts[2]]
+    return _TP_DIM[parts[-1]]
 
 
-def _param(*shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def moe_config(c: "LlamaConfig") -> M.MoEConfig:
+    """The expert block of a Llama config (the reference's
+    ``Llama._moe_layer``)."""
+    return M.MoEConfig(dim=c.dim, ffn_dim=c.ffn_dim, n_experts=c.n_experts,
+                       top_k=c.moe_top_k,
+                       capacity_factor=c.moe_capacity_factor,
+                       dtype=c.dtype, param_dtype=c.param_dtype)
 
 
 class _Layer(nn.Module):
-    """One decoder layer's weights (the reference's per-layer slices)."""
+    """One decoder layer's weights (the reference's per-layer slices):
+    the SwiGLU's three matrices, or with experts an ``moe`` block."""
 
     def __init__(self, c: LlamaConfig, device):
         super().__init__()
@@ -149,6 +174,9 @@ class _Layer(nn.Module):
         self.wv = _param(c.dim, c.n_kv_heads * hd, dtype=pd, device=device)
         self.wo = _param(c.n_heads * hd, c.dim, dtype=pd, device=device)
         self.mlp_norm = _param(c.dim, dtype=pd, device=device)
+        if c.n_experts:
+            self.moe = M.MoELayer(moe_config(c), device)
+            return
         self.w_gate = _param(c.dim, c.ffn_dim, dtype=pd, device=device)
         self.w_up = _param(c.dim, c.ffn_dim, dtype=pd, device=device)
         self.w_down = _param(c.ffn_dim, c.dim, dtype=pd, device=device)
@@ -162,10 +190,6 @@ class Llama(nn.Module):
 
     def __init__(self, config: LlamaConfig, device="cuda"):
         super().__init__()
-        if config.n_experts:
-            raise NotImplementedError(
-                "Mixture-of-experts Llama (n_experts > 0) is not ported "
-                "yet (ROADMAP A9)")
         if config.attention not in ("flash", "dense"):
             raise ValueError(f"attention must be 'flash' or 'dense', not "
                              f"{config.attention!r}")
@@ -202,10 +226,14 @@ class Llama(nn.Module):
         for lyr in self.layers:
             lyr.attn_norm.fill_(1)
             lyr.mlp_norm.fill_(1)
-            for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            for name in ("wq", "wk", "wv") + (() if c.n_experts
+                                              else ("w_gate", "w_up")):
                 dense(getattr(lyr, name), c.dim)
             dense(lyr.wo, c.n_heads * c.head_dim)
-            dense(lyr.w_down, c.ffn_dim)
+            if c.n_experts:
+                lyr.moe.init(generator)
+            else:
+                dense(lyr.w_down, c.ffn_dim)
         self.final_norm.fill_(1)
         dense(self.lm_head, c.dim)
         return self
@@ -257,11 +285,20 @@ class Llama(nn.Module):
     def _rank_weights(self, mesh, tp: str):
         """(embedding shards, one namespace of weights a layer, lm_head
         shards) for the tp path: the matrices as rank shards, the norms
-        as they are."""
+        and the router as they are; an expert block's four weights as
+        the mapping ``moe_w``."""
         w = self.shard_params(mesh, tp=tp)
-        layers = [types.SimpleNamespace(**{
-            name: w[f"layers.{i}.{name}"] for name in _LAYER_NAMES})
-            for i in range(len(self.layers))]
+        layers = []
+        for i in range(len(self.layers)):
+            ns = types.SimpleNamespace(**{
+                name: w[f"layers.{i}.{name}"] for name in _ATTN_NAMES})
+            if self.config.n_experts:
+                ns.moe_w = {name: w[f"layers.{i}.moe.{name}"]
+                            for name in MOE_KEYS}
+            else:
+                for name in _FFN_NAMES:
+                    setattr(ns, name, w[f"layers.{i}.{name}"])
+            layers.append(ns)
         return w["embed"], layers, w["lm_head"]
 
     # -- forward -----------------------------------------------------------
@@ -280,9 +317,11 @@ class Llama(nn.Module):
                    for w in (lyr.wq, lyr.wk, lyr.wv))
         return _apply_rope(q, rope), _apply_rope(k, rope), v
 
-    def _finish_layer(self, x, lyr, attn, coll=None):
+    def _finish_layer(self, x, lyr, attn, coll=None, auxes=None):
         """The output projection and the FFN, with their residuals; with
-        rank rows, wo and down leave partial sums that ``coll`` sums."""
+        rank rows, wo and down leave partial sums that ``coll`` sums. An
+        expert block's batch-mean aux is appended to ``auxes`` when it is
+        given."""
         c = self.config
 
         def reduce(t):
@@ -290,9 +329,34 @@ class Llama(nn.Module):
 
         x = x + reduce(_mm(attn, lyr.wo.to(x.dtype)))
         h = _rms_norm(x, lyr.mlp_norm.to(x.dtype), c.norm_eps)
+        if c.n_experts:
+            out, aux = self._moe_ffn(h, lyr, coll is not None)
+            if auxes is not None:
+                auxes.append(aux)
+            return x + reduce(out)
         gate = torch.nn.functional.silu(_mm(h, lyr.w_gate.to(h.dtype)))
         up = _mm(h, lyr.w_up.to(h.dtype))
         return x + reduce(_mm(gate * up, lyr.w_down.to(h.dtype)))
+
+    def _moe_ffn(self, h, lyr, ranked: bool):
+        """The routed expert block on normed activations h (B, S, D), or
+        tp rank rows (T, B, S, D) with ``ranked``: routed per sequence
+        (the reference vmaps ``apply_dense`` over the batch), the B
+        sequences' slots in one expert product. Rank rows are replicas
+        of one activation: the routing of row 0 serves every rank, which
+        gathers its own row's slots and runs its shards of the experts;
+        the gated partial sums go back for the caller's all-reduce.
+        Returns (out in h's dtype, the batch-mean aux)."""
+        cfg = moe_config(self.config)
+        params = lyr.moe_w if ranked else lyr.moe.weights()
+        B, S, D = h.shape[-3:]
+        r = M.route(cfg, params["router"], h[0] if ranked else h,
+                    cfg.capacity(S))
+        lead = h.shape[:-3]
+        y = M.expert_ffn(cfg, params, M.dispatch(r, h.reshape(
+            *lead, B * S, D)))
+        out = M.combine(r, y, B * S).view(h.shape)
+        return out.to(h.dtype), r.aux.mean()
 
     def _logits(self, x, shards=None):
         c = self.config
@@ -325,6 +389,12 @@ class Llama(nn.Module):
                     f"tp axis size {T} must divide the head counts "
                     f"(n_heads={c.n_heads}, n_kv_heads={c.n_kv_heads})")
         else:
+            if c.n_experts:
+                raise NotImplementedError(
+                    "sequence parallelism with n_experts > 0 is not ported "
+                    "(ROADMAP §A item 9b): each sequence's expert queue "
+                    "positions span the sp ranks and need an exclusive "
+                    "prefix of the per-expert counts")
             if sp not in mesh.shape:
                 raise ValueError(f"sp axis {sp!r} not in mesh "
                                  f"{tuple(mesh.shape)}")
@@ -376,7 +446,15 @@ class Llama(nn.Module):
         The dp groups ride the batch axis (B must divide by the dp axis
         size). ``sp`` or ``dp`` without a mesh, or
         ``attention="dense"``, take the dense path unsharded, as the
-        reference's do."""
+        reference's do. With experts, a mesh with ``sp`` raises
+        NotImplementedError (ROADMAP §A item 9b)."""
+        return self._forward_with_aux(tokens, dp, sp, mesh, tp)[0]
+
+    def _forward_with_aux(self, tokens: torch.Tensor, dp: str | None = None,
+                          sp: str | None = None, mesh=None, tp: str = "tp"):
+        """(logits, aux): :meth:`forward`'s logits and the sum over layers
+        of each expert block's batch-mean aux loss (a zero f32 scalar
+        without experts), the reference's ``_forward_with_aux``."""
         c = self.config
         B, S = tokens.shape
         path, coll = self._attention_path(B, S, dp, sp, mesh, tp)
@@ -391,6 +469,7 @@ class Llama(nn.Module):
         rep = c.n_heads // c.n_kv_heads
         mask = (None if path != "dense" else torch.tril(
             torch.ones(S, S, dtype=torch.bool, device=x.device)))
+        auxes = []
         for lyr in layers:
             q, k, v = self._qkv(x, lyr, rope)
             if path == "ring":
@@ -417,8 +496,10 @@ class Llama(nn.Module):
                 probs = torch.softmax(scores, dim=-1).to(x.dtype)
                 attn = torch.matmul(probs, vt).transpose(1, 2)
             attn = attn.reshape(*x.shape[:-1], -1)
-            x = self._finish_layer(x, lyr, attn, tp_coll)
-        return self._logits(x, head)
+            x = self._finish_layer(x, lyr, attn, tp_coll, auxes)
+        aux = (torch.stack(auxes).sum() if auxes else
+               torch.zeros((), dtype=torch.float32, device=x.device))
+        return self._logits(x, head), aux
 
     # -- inference: KV-cache decode ----------------------------------------
     def _decode_path(self, B: int, mesh, dp, tp) -> RankCollectives:
@@ -469,7 +550,10 @@ class Llama(nn.Module):
         (``dynamic_update_slice``), this writes the new keys and values
         into ``cache`` IN PLACE and advances ``cache["pos"]``; the
         returned cache is the same dict. Raises when the tokens do not
-        fit (the reference silently clamps the write position).
+        fit (the reference silently clamps the write position). Expert
+        blocks route the S_new tokens of each sequence as one group
+        (capacity ``capacity(S_new)``: a decode step's one token never
+        drops), as the reference does, and drop the aux.
 
         With ``mesh``, decode is tensor-parallel over its ``tp`` axis (as
         :meth:`forward`), on a cache from ``init_kv_cache(..., mesh=)``:
@@ -571,14 +655,18 @@ class Llama(nn.Module):
              sp: str | None = None, mesh=None,
              tp: str = "tp") -> torch.Tensor:
         """Next-token cross entropy of (B, S) tokens on the f32 logits:
-        the mean over the B * (S - 1) predicted positions (the reference's
-        ``loss``; MoE, and with it the aux term, is refused at
-        construction). ``dp``, ``sp``, ``mesh``, ``tp`` as
-        :meth:`forward`."""
-        logits = self(tokens, dp, sp, mesh, tp)[:, :-1]
+        the mean over the B * (S - 1) predicted positions, plus, with
+        experts, ``moe_aux_coef`` times the sum over layers of each
+        layer's batch-mean Switch aux (the reference's ``loss``).
+        ``dp``, ``sp``, ``mesh``, ``tp`` as :meth:`forward`."""
+        logits, aux = self._forward_with_aux(tokens, dp, sp, mesh, tp)
+        logits = logits[:, :-1]
         targets = tokens[:, 1:]
-        return torch.nn.functional.cross_entropy(
+        nll = torch.nn.functional.cross_entropy(
             logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+        if self.config.n_experts:
+            nll = nll + self.config.moe_aux_coef * aux
+        return nll
 
     def make_train_step(self, optimizer: torch.optim.Optimizer,
                         dp: str | None = None, sp: str | None = None,
@@ -595,7 +683,8 @@ class Llama(nn.Module):
         This is the stateful PyTorch idiom for the reference's pure
         ``train_step(params, opt_state, tokens) -> (params, opt_state,
         loss)``: the module holds the parameters and the optimizer its
-        state, both updated in place. MoE waits for ROADMAP §A item 9."""
+        state, both updated in place. With experts the loss carries the
+        aux term, whose gradient reaches the router."""
         self.requires_grad_(True)
 
         def train_step(tokens: torch.Tensor) -> torch.Tensor:
@@ -617,12 +706,14 @@ class Llama(nn.Module):
         listed is the reference's fused buffer
         (:func:`~accl_tpu_torch.parallel.bucketing.plan_from_buckets`)."""
         L = self.config.n_layers
+        moe = bool(self.config.n_experts)
         shapes = dict(self.named_parameters())
         leaves = []                      # the reference's leaf order
         for key in sorted(LLAMA_TOP_KEYS + ("layers",)):
             if key == "layers":
-                leaves += [[f"layers.{i}.{name}" for i in range(L)]
-                           for name in sorted(LLAMA_LAYER_KEYS)]
+                leaves += [[f"layers.{i}.{port_layer_name(name, moe)}"
+                            for i in range(L)]
+                           for name in sorted(llama_layer_keys(moe))]
             else:
                 leaves.append([key])
         buckets, cur, cur_bytes = [], [], 0

@@ -1,8 +1,8 @@
 """The dataplane: collectives over W ranks on one device, the
 sequence-parallel attentions over them (ring and Ulysses), the
 tensor-parallel pieces (shard views, rank GEMMs, the tp all-reduce, the
-vocabulary-parallel embedding and logits) and the data-parallel bucketed
-gradient all-reduce."""
+vocabulary-parallel embedding and logits), the data-parallel bucketed
+gradient all-reduce and the GPipe pipeline schedule."""
 
 from .bucketing import (Bucket, BucketPlan, bucketed_allreduce,
                         make_bucket_plan, make_ddp_train_step,
@@ -10,6 +10,7 @@ from .bucketing import (Bucket, BucketPlan, bucketed_allreduce,
 from .collectives import RankCollectives
 from .mesh import (RankGroup, RankMesh, communicator_from_mesh, cpu_mesh,
                    make_group, make_mesh, mesh_from_communicator)
+from .pipeline import pipeline_apply, pipeline_sharded
 from .ring_attention import (block_update, ring_attention,
                              ring_attention_fwd, ring_attention_ref,
                              ring_attention_sharded,
@@ -25,7 +26,8 @@ __all__ = ["Bucket", "BucketPlan", "RankCollectives", "RankGroup",
            "bucketed_allreduce", "communicator_from_mesh", "cpu_mesh",
            "heads_to_seq", "make_bucket_plan", "make_ddp_train_step",
            "make_group", "make_mesh",
-           "mesh_from_communicator", "plan_from_buckets", "rank_matmul",
+           "mesh_from_communicator", "pipeline_apply", "pipeline_sharded",
+           "plan_from_buckets", "rank_matmul",
            "ring_attention",
            "ring_attention_fwd", "ring_attention_ref",
            "ring_attention_sharded", "ring_rounding_magnitudes",

@@ -294,6 +294,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
    backward, after it a strided sample of each leaf Adam's first step on
    those gradients; B1, B2, B8, B10 and B11 launch on path ``ddp``.
 
+15. The Mixtral-style MoE Llama, expert parallelism and the pipeline
+   (after 14d, before 10a; each part under the 2 GiB check, its model
+   freed before the next). The configuration is Mixtral-8x7B's published
+   widths (``mixtral_8x7b``: vocab 32000, dim 4096, 32/8 heads, ffn
+   14336, 8 experts, top 2, rope_theta 1e6), routed as the reference
+   routes (capacity factor 1.25, drops, aux 0.01), random weights from
+   the seed. 15a serving, 16 of 32 layers, bf16: ``generate(max_new=32)``
+   for four 1024-token prompts, a 4 x 1024 ``forward`` (B8) and a 4 x
+   512 one (B9), B8/B9/B12 launches counted (path ``moe_serving``), every
+   bf16 launch on the tensor-core route; each pass against the plain
+   route (attention="dense", the same weights) and the prefill against
+   the forward: the share of tokens whose experts or drops differ in
+   some layer (bound MOE_FLIP_MAX) and the other tokens' logits within
+   SERVE_DENSE_REL; a decode step drops nothing; prefill and forward
+   tokens/s, decode ms a step, busy share and kernels by family
+   (``expert_gemm`` and ``route`` told apart by profiler ranges), one
+   layer's MoE pieces on CUDA events, peak memory. 15b training, 2 of
+   32 layers, f32 parameters and bf16 activations, (2, 2048), Adam:
+   step 0's gradients of the kernel route, the bf16 plain route and the
+   f32 plain route (the plain passes replaying the kernel pass's expert
+   choices), every leaf's kernel-route distance from f32 within
+   MOE_GRAD_RATIO times the bf16 plain route's; 3 steps that fall, B8,
+   B10 and B11 once a layer a step (path ``moe_training``), step ms,
+   tokens/s, peak memory. 15c one Mixtral-width ``MoELayer`` (f32
+   parameters, bf16 compute) over ep = 8 virtual ranks of 2048 tokens:
+   against the per-rank dense layer with the same capacity (MOE_EP_REL),
+   both alltoalls' rows bitwise the plain exchange, their device ms
+   beside the expert GEMMs'. 15d ``pipeline_sharded`` over pp = 4 stages
+   of ``x + MoELayer.apply_dense(x)``, 8 microbatches of 512 tokens:
+   bitwise the stages in sequence, W * n_micro stage calls, device ms
+   beside the sequence's.
+
 Each phase starts with a line of the device memory allocated.
 
 Prints per-kernel and per-call lines, then one JSON line of kernel
@@ -6242,6 +6274,704 @@ def ddp_phase():
     return launches
 
 
+# -- phase 15: the Mixtral-style MoE Llama, expert parallelism, the pipeline --
+
+MOE_SERVE_LAYERS = 16      # 15a: 16 of 32 layers, bf16: 46.4 GB of layers
+MOE_SERVE_B, MOE_SERVE_S, MOE_SERVE_NEW = 4, 1024, 32
+MOE_TRAIN_LAYERS = 2       # 15b: 2 of 32, f32 parameters: 50.6 GB with Adam
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 2, 2048, 3
+MOE_TRAIN_SEED = SEED + 151
+# 15b: step 0's gradients. Both bf16 routes carry bf16 activations through
+# the backward and round differently (the flash route rounds P before P V,
+# the dense route its normalised probabilities), each a few 1e-2 from f32
+# and about as far as the other: so every leaf's gradient of the kernel
+# route is held within MOE_GRAD_RATIO times the bf16 plain route's
+# relative L2 distance from the f32 plain route (attention="dense", f32
+# activations), both plain passes replaying the kernel pass's expert
+# choices (tests/test_torch_llama_moe.py::
+# test_bf16_route_gradients_within_the_chip_bound holds the same rule)
+MOE_GRAD_RATIO = 1.5
+# 15a: tokens whose route or drop differs between the kernel route and the
+# plain route. bf16 attention moves the normed input of every router by
+# its rounding, which flips ~1 % of a layer's near-tie choices
+# (MOE_FLIP_FIRST bounds the first layer's share on passes of at least
+# MOE_FLIP_TOKENS tokens); a flipped token's hidden state then differs by
+# O(1), and through attention so do later layers' inputs, so the share
+# that differs in some layer cascades with depth (54 % over 16 layers of
+# random weights on an H100): MOE_FLIP_MAX is a sanity bound on it. The
+# other tokens' logits are held to SERVE_DENSE_REL, phase 7's bf16 limit.
+MOE_FLIP_FIRST = 2.0 ** -5
+MOE_FLIP_TOKENS = 1024
+MOE_FLIP_MAX = 0.75
+MOE_EP, MOE_EP_T = 8, 2048  # 15c: ep ranks (one expert a rank), tokens a rank
+# 15c: ep against per-rank dense with the same capacity, relative L2 (bf16
+# expert GEMMs of other shapes: cuBLAS may sum in another order)
+MOE_EP_REL = 2.0 ** -7
+MOE_PP, MOE_PP_MICRO, MOE_PP_MB = 4, 8, 512    # 15d
+MOE_RANGE = "moe_family:"  # profiler ranges of the MoE families (15a)
+
+
+def mixtral_8x7b(n_layers: int, **kw):
+    """Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+    config.json: vocab 32000, dim 4096, 32 heads, 8 KV heads, ffn 14336,
+    8 experts, top 2, rope_theta 1e6, rms_norm_eps 1e-5) in LlamaConfig's
+    fields, routed as the reference routes: capacity factor 1.25, tokens
+    past it dropped, Switch aux coefficient 0.01."""
+    import dataclasses
+    from accl_tpu_torch.models import LlamaConfig
+    return dataclasses.replace(
+        LlamaConfig.llama3_8b(), vocab_size=32000, n_layers=n_layers,
+        max_seq_len=32768, rope_theta=1e6, norm_eps=1e-5, n_experts=8,
+        moe_top_k=2, moe_capacity_factor=1.25, moe_aux_coef=0.01, **kw)
+
+
+def mixtral_layer_config(**kw):
+    from accl_tpu_torch.models import MoEConfig
+    return MoEConfig(dim=4096, ffn_dim=14336, n_experts=8, top_k=2,
+                     capacity_factor=1.25, **kw)
+
+
+@contextlib.contextmanager
+def moe_hooks(record=None, replay=None, annotate=False, capture=None):
+    """Wrap ``accl_tpu_torch.models.moe``'s functions, which the Llama and
+    the layer look up at each call: ``record`` (a list) receives each
+    routing's (idx, keep); ``replay`` (a list of idx from an earlier pass)
+    makes each top-k choice the recorded one, and the yielded dict counts
+    the rows whose own choice differed; ``annotate`` opens a profiler range
+    per family (route: routing, dispatch, combine; expert_gemm: the expert
+    SwiGLU); ``capture`` (a dict) keeps the first call's arguments of each
+    function."""
+    from accl_tpu_torch.models import moe as M
+    import torch
+    names = ("route", "dispatch", "combine", "expert_ffn", "_top_k")
+    saved = {n: getattr(M, n) for n in names}
+    fams = {"route": "route", "dispatch": "route", "combine": "route",
+            "expert_ffn": "expert_gemm"}
+    stats = {"calls": 0, "rows": 0, "differ": 0}
+
+    def wrap(name):
+        def call(*args, **kw):
+            if capture is not None and name not in capture:
+                capture[name] = args
+            if annotate:
+                with torch.profiler.record_function(MOE_RANGE + fams[name]):
+                    out = saved[name](*args, **kw)
+            else:
+                out = saved[name](*args, **kw)
+            if name == "route" and record is not None:
+                record.append((out.idx, out.keep))
+            return out
+        return call
+
+    def top_k(probs, k):
+        own = saved["_top_k"](probs, k)
+        if replay is None:
+            return own
+        want = replay[stats["calls"]]
+        stats["calls"] += 1
+        stats["rows"] += own[..., 0].numel()
+        stats["differ"] += int((own.sort(-1)[0] != want.sort(-1)[0])
+                               .any(-1).sum())
+        return want
+
+    for name in names[:4]:
+        setattr(M, name, wrap(name))
+    M._top_k = top_k
+    try:
+        yield stats
+    finally:
+        for name, fn in saved.items():
+            setattr(M, name, fn)
+
+
+def routes_differ(a, b, per_layer: bool = False):
+    """(groups, tokens) bool: the tokens whose chosen experts or kept flags
+    differ in any layer between two passes' routing records; with
+    ``per_layer``, (layers, groups, tokens), one plane a layer."""
+    import torch
+    d = torch.stack([(ia.sort(-1)[0] != ib.sort(-1)[0]).any(-1)
+                     | (ka != kb).any(-1)
+                     for (ia, ka), (ib, kb) in zip(a, b, strict=True)])
+    return d if per_layer else d.any(0)
+
+
+def hold_routes(what: str, got, want, rec_got, rec_want,
+                limit: float = SERVE_DENSE_REL) -> float:
+    """Logits (B, S, V) of two routes with their routing records: the share
+    of tokens routed or dropped otherwise (bounded by MOE_FLIP_MAX), and
+    the other tokens' logits within ``limit`` relative L2."""
+    import torch
+    need(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    layers = routes_differ(rec_got, rec_want, per_layer=True)
+    differ = layers.any(0)
+    share = float(differ.float().mean())
+    first = float(layers[0].float().mean())
+    print(f"{what}: tokens routed or dropped otherwise, share a layer "
+          + " ".join(f"{float(x):.4f}" for x in layers.float().mean((1, 2)))
+          + "; share first differing at each layer "
+          + " ".join(f"{float(x):.4f}" for x in (
+              layers.int().cumsum(0).clamp(max=1).diff(
+                  dim=0, prepend=torch.zeros_like(layers[:1].int()))
+              .float().mean((1, 2)))))
+    same = ~differ
+    rel = rel_l2(got[same], want[same]) if bool(same.any()) else 0.0
+    rel_all = rel_l2(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"{what}: {int(differ.sum())} of {differ.numel()} tokens routed "
+          f"or dropped otherwise in some layer (share {share:.4%}, bound "
+          f"{MOE_FLIP_MAX:.0%}; in the first layer {first:.4%}"
+          + (f", bound {MOE_FLIP_FIRST:.4%}" if differ.numel()
+             >= MOE_FLIP_TOKENS else f", not bounded under "
+             f"{MOE_FLIP_TOKENS} tokens")
+          + f"); the other tokens' logits relative L2 {rel:.4g} (limit "
+          f"{limit}), all tokens {rel_all:.4g}; greedy "
+          f"agreement {agree:.4f}")
+    if differ.numel() >= MOE_FLIP_TOKENS:
+        need(first <= MOE_FLIP_FIRST, f"{what}: {first:.4%} of tokens "
+             f"routed otherwise in the first layer (bound "
+             f"{MOE_FLIP_FIRST:.4%})")
+    need(share <= MOE_FLIP_MAX, f"{what}: {share:.4%} of tokens routed "
+         f"otherwise (bound {MOE_FLIP_MAX:.0%})")
+    need(rel <= limit, f"{what}: the same-route tokens' logits differ by "
+         f"{rel} relative L2 (limit {limit})")
+    return share
+
+
+def moe_family_ms(fn) -> dict:
+    """Device ms by kernel family of ``fn`` (``device_ms_by_family``), with
+    the kernels launched inside ``moe_hooks(annotate=True)``'s ranges
+    counted as their range's family (``route``, ``expert_gemm``): each
+    kernel's launch (the CUDA runtime or driver call) found on the host
+    by its correlation id."""
+    import torch
+    from torch.autograd.profiler_util import _filter_name
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with moe_hooks(annotate=True), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    spans, launch_at = [], {}
+    for ev in evs:
+        if ev.device_type() == cuda:
+            continue
+        if ev.name().startswith(MOE_RANGE):
+            t0 = ev.start_ns()
+            spans.append((t0, t0 + ev.duration_ns(),
+                          ev.name()[len(MOE_RANGE):]))
+        elif ev.name().startswith("cu") and ev.correlation_id():
+            launch_at[ev.correlation_id()] = ev.start_ns()   # a launch
+    fams = collections.defaultdict(float)
+    for ev in evs:
+        if (ev.device_type() != cuda or ev.is_user_annotation()
+                or _filter_name(ev.name())
+                or getattr(ev, "is_hidden_event", lambda: False)()):
+            continue
+        t = launch_at.get(ev.correlation_id())
+        fam = None if t is None else next(
+            (f for a, b, f in spans if a <= t <= b), None)
+        fam = fam or next((f for f, key in FAMILIES if key in ev.name()),
+                          "other")
+        fams[fam] += ev.duration_ns() / 1e6
+    return dict(fams)
+
+
+def print_families(what: str, fams: dict, window_ms: float):
+    if not fams:
+        print(f"{what}: busy share not measured (the profiler saw no device "
+              f"activity)")
+        return
+    busy = sum(fams.values())
+    print(f"{what}: {busy:.2f} ms of kernels in a {window_ms:.2f} ms "
+          f"host-clock window, busy share {busy / window_ms:.3f}; "
+          + ", ".join(f"{f} {ms:.2f} ms" for f, ms in
+                      sorted(fams.items(), key=lambda x: -x[1]))
+          + ("" if "expert_gemm" in fams else
+             " (the expert GEMMs were not told apart: they count as gemm)"))
+
+
+def moe_piece_times(cap: dict, n_layers: int, what: str):
+    """One layer's MoE pieces at the path's shapes (the first call's
+    arguments), CUDA events behind a GPU sleep: the routing, dispatch,
+    expert SwiGLU (beside its bound) and combine."""
+    from accl_tpu_torch.models import moe as M
+    cfg, router, x, C = cap["route"]
+    r = M.route(cfg, router, x, C)
+    t = M.dispatch(r, cap["dispatch"][1])
+    params = cap["expert_ffn"][1]
+    y = M.expert_ffn(cfg, params, t)
+    n_tok = cap["combine"][2]
+    ms = {"route": time_ms(lambda: M.route(cfg, router, x, C), reps=5),
+          "dispatch": time_ms(lambda: M.dispatch(r, cap["dispatch"][1]),
+                              reps=5),
+          "expert_gemm": time_ms(lambda: M.expert_ffn(cfg, params, t),
+                                 reps=5),
+          "combine": time_ms(lambda: M.combine(r, y, n_tok), reps=5)}
+    E, slots, d = t.shape[-3:]
+    f = params["w_gate"].shape[-1]
+    esize = t.element_size()
+    nbytes = 3 * E * d * f * params["w_gate"].element_size() \
+        + 2 * E * slots * d * esize
+    b_ms, by = bound_ms(nbytes, 6 * E * slots * d * f, BF16_OPS_PER_S)
+    print(f"{what} one layer's MoE pieces (CUDA events, median of 5, "
+          f"routing of {tuple(x.shape[:2])} tokens, capacity {C}, slots "
+          f"(E, G*C) = ({E}, {slots})): route {ms['route']:.4f} ms, "
+          f"dispatch {ms['dispatch']:.4f}, expert SwiGLU (3 batched "
+          f"GEMMs) {ms['expert_gemm']:.4f} (bound {b_ms:.4f} ms by {by}, "
+          f"{b_ms / ms['expert_gemm']:.1%}), combine {ms['combine']:.4f}; "
+          f"x {n_layers} layers: route family "
+          f"{(ms['route'] + ms['dispatch'] + ms['combine']) * n_layers:.2f}"
+          f" ms, expert_gemm {ms['expert_gemm'] * n_layers:.2f} ms")
+    return ms
+
+
+def moe_serving_phase() -> dict:
+    """15a: the MoE Llama at Mixtral-8x7B's widths, 16 of 32 layers, bf16:
+    ``generate(max_new=32)`` for four 1024-token prompts, a 4 x 1024
+    ``forward`` (B8) and a 4 x 512 ``forward`` (B9); against the plain
+    route (attention="dense", the same weights) with the routes that
+    differ counted and bounded; timed, profiled. Returns the path's
+    launch counts."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama
+    cfg = mixtral_8x7b(MOE_SERVE_LAYERS, param_dtype=torch.bfloat16)
+    B, S, NEW = MOE_SERVE_B, MOE_SERVE_S, MOE_SERVE_NEW
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    t0 = time.perf_counter()
+    model = Llama(cfg).init(g)
+    torch.cuda.synchronize()
+    N = model.param_count()
+    emb = 2 * cfg.vocab_size * cfg.dim
+    per_layer = (N - emb - cfg.dim) // cfg.n_layers
+    print(f"15a MoE serving: Mixtral-8x7B widths, {cfg.n_layers} of 32 "
+          f"layers (the cut: depth only), bf16, {N} parameters "
+          f"({per_layer} a layer, embedding and lm_head {emb}), "
+          f"{2 * N / 1e9:.2f} GB; 32 layers would need "
+          f"{2 * (32 * per_layer + emb) / 1e9:.1f} GB; init "
+          f"{time.perf_counter() - t0:.1f} s; TF32 for f32 matmuls "
+          f"{torch.backends.cuda.matmul.allow_tf32} (precision "
+          f"{torch.get_float32_matmul_precision()})")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=g)
+    short = prompts[:, :SERVE_B9_LEN]
+    dense_cfg = dataclasses.replace(cfg, attention="dense")
+    L = cfg.n_layers
+
+    def dense(fn):
+        model.config = dense_cfg
+        try:
+            return fn()
+        finally:
+            model.config = cfg
+
+    with torch.no_grad():
+        # the serving path once, counted: generate, a 4 x 1024 forward (B8)
+        # and a 4 x 512 forward (B9), their routings recorded
+        zero_attention_counters()
+        before = {k: f.launches for k, f in counters().items()}
+        rec_fwd, rec_short = [], []
+        out = model.generate(prompts, max_new=NEW)
+        with moe_hooks(record=rec_fwd):
+            full = model(prompts)
+        with moe_hooks(record=rec_short):
+            full_short = model(short)
+        torch.cuda.synchronize()
+        launches = attention_counters()
+        launches.update({k: f.launches - before[k]
+                         for k, f in counters().items()})
+        print(f"15a launches (path moe_serving): {launches}")
+        need(out.shape == (B, NEW) and bool(((out >= 0)
+                                              & (out < cfg.vocab_size)).all()),
+             f"15a generate: shape {tuple(out.shape)} or a token outside "
+             f"the vocabulary")
+        need(launches["attn_fwd"] == L and launches["attn_fwd_single"] == L,
+             f"15a: B8 {launches['attn_fwd']}, B9 "
+             f"{launches['attn_fwd_single']} launches, not {L} each")
+        need(launches["attn_prefill"] == L
+             and launches["attn_decode"] == L * (NEW - 1),
+             f"15a: B12 prefill {launches['attn_prefill']}, decode "
+             f"{launches['attn_decode']}, not {L} and {L * (NEW - 1)}")
+        need_routes(launches, True, "15a")
+        # against the plain route, and prefill against forward
+        rec_dense = []
+        with moe_hooks(record=rec_dense):
+            dfull = dense(lambda: model(prompts))
+        hold_routes(f"15a forward {B}x{S} (B8) vs plain route", full, dfull,
+                    rec_fwd, rec_dense)
+        del dfull
+        rec_dense = []
+        with moe_hooks(record=rec_dense):
+            dshort = dense(lambda: model(short))
+        hold_routes(f"15a forward {B}x{SERVE_B9_LEN} (B9) vs plain route",
+                    full_short, dshort, rec_short, rec_dense)
+        del dshort, full_short
+        rec_pre, rec_dpre, rec_step, rec_dstep = [], [], [], []
+        cache = model.init_kv_cache(B, S + NEW)
+        with moe_hooks(record=rec_pre):
+            cached, _ = model.forward_cached(prompts, cache)
+        hold_routes(f"15a prefill {B}x{S} (B12) vs forward (B8)", cached,
+                    full, rec_pre, rec_fwd)
+        del full
+        dcache = model.init_kv_cache(B, S + NEW)
+        with moe_hooks(record=rec_dpre):
+            dcached = dense(lambda: model.forward_cached(prompts, dcache)[0])
+        hold_routes(f"15a prefill {B}x{S} (B12) vs plain route", cached,
+                    dcached, rec_pre, rec_dpre)
+        del dcached
+        tok = cached[:, -1].argmax(-1)[:, None]
+        del cached
+        # the decode step on both routes from the kernel route's cache
+        dcache = {"k": cache["k"].clone(), "v": cache["v"].clone(),
+                  "pos": cache["pos"]}
+        with moe_hooks(record=rec_step):
+            step = model.forward_cached(tok, cache)[0]
+        with moe_hooks(record=rec_dstep):
+            dstep = dense(lambda: model.forward_cached(tok, dcache)[0])
+        hold_routes(f"15a decode step at {S} (B12 split-KV) vs plain route "
+                    f"on the same cache", step, dstep, rec_step, rec_dstep)
+        need(all(bool((k.sum(-1) == cfg.moe_top_k).all())
+                 for _, k in rec_step),
+             "15a decode: a decode step dropped a token (capacity 1)")
+        del step, dstep, cache, dcache
+        torch.cuda.empty_cache()
+
+        def prefill():
+            c = model.init_kv_cache(B, S + NEW)
+            return model.forward_cached(prompts, c)
+
+        def decode_steps(state, n):
+            logits, c = state
+            ts = []
+            for _ in range(n):
+                t1 = time.perf_counter()
+                nxt = logits[:, -1].argmax(-1)
+                logits, c = model.forward_cached(nxt[:, None], c)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            return ts
+
+        fwd_ms = host_ms(lambda: model(prompts))
+        short_ms = host_ms(lambda: model(short))
+        pre_ms = host_ms(prefill)
+        dec_ms = statistics.median(decode_steps(prefill(), 16))
+        expert_bytes = 3 * cfg.n_experts * cfg.dim * cfg.ffn_dim * 2 * L
+        print(f"15a forward {B}x{S} (B8): {fwd_ms:.2f} ms, "
+              f"{B * S / fwd_ms * 1e3:.0f} tokens/s; forward "
+              f"{B}x{SERVE_B9_LEN} (B9): {short_ms:.2f} ms, "
+              f"{B * SERVE_B9_LEN / short_ms * 1e3:.0f} tokens/s; prefill: "
+              f"{pre_ms:.2f} ms, {B * S / pre_ms * 1e3:.0f} tokens/s (host "
+              f"clock, median of 3); decode: {dec_ms:.3f} ms a step of {B} "
+              f"tokens (median of 16 at {S}..{S + 15}; every step reads all "
+              f"{cfg.n_experts} experts' {expert_bytes / 1e9:.1f} GB: "
+              f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s) "
+              f"({CARD})")
+        state = prefill()
+        for what, fn, window in (
+                (f"forward {B}x{S}", lambda: model(prompts), fwd_ms),
+                ("prefill", prefill, pre_ms),
+                ("decode x8", lambda: decode_steps(state, 8), 8 * dec_ms)):
+            print_families(f"15a {what}", moe_family_ms(fn), window)
+        del state
+        cap = {}
+        with moe_hooks(capture=cap):
+            prefill()
+        moe_piece_times(cap, L, f"15a prefill {B}x{S}:")
+        del cap
+    peak = torch.cuda.max_memory_allocated()
+    print(f"15a peak memory {peak / 2 ** 30:.2f} GiB (the "
+          f"{held / 2 ** 30:.2f} GiB held before the phase included)")
+    del model, prompts, short, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_training_phase() -> dict:
+    """15b: the MoE Llama at Mixtral-8x7B's widths, 2 of 32 layers, f32
+    parameters and bf16 activations, batch (2, 2048), Adam lr 1e-4: step
+    0's gradients of the kernel route, the bf16 plain route and the f32
+    plain route (the plain passes replaying the kernel pass's expert
+    choices, so that all three weigh the same tokens; MOE_GRAD_RATIO),
+    then 3 steps. Returns the steps' launch counts."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama
+    cfg = mixtral_8x7b(MOE_TRAIN_LAYERS)
+    L, Bt, St = cfg.n_layers, MOE_TRAIN_B, MOE_TRAIN_S
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(MOE_TRAIN_SEED)
+    model = Llama(cfg).init(g)
+    tokens = torch.randint(0, cfg.vocab_size, (Bt, St), device="cuda",
+                           generator=g)
+    N = model.param_count()
+    n_exp = L * 3 * cfg.n_experts * cfg.dim * cfg.ffn_dim
+    print(f"15b MoE training: Mixtral-8x7B widths, {L} of 32 layers (the "
+          f"cut: depth only), f32 parameters, bf16 activations, tokens "
+          f"({Bt}, {St}), capacity {model.layers[0].moe.config.capacity(St)}"
+          f" a sequence, Adam lr 1e-4; {N} parameters. Memory reckoning: "
+          f"weights, gradients and Adam's moments 16 B x N = "
+          f"{16 * N / 1e9:.1f} GB; the bf16 expert casts saved for "
+          f"backward {2 * n_exp / 1e9:.1f} GB; 3 layers would need "
+          f"{16 * (N + (N - 2 * cfg.vocab_size * cfg.dim) // L) / 1e9:.1f} "
+          f"GB before activations")
+    model.requires_grad_(True)
+    rec, losses0, stats = [], {}, {}
+
+    def grads(route: str, **change):
+        """One loss backward on the route (the kernel route records its
+        expert choices, the plain routes replay them); its gradients."""
+        model.config = dataclasses.replace(cfg, **change)
+        try:
+            with moe_hooks(record=None if change else rec,
+                           replay=[i for i, _ in rec] if change else None
+                           ) as st:
+                loss = model.loss(tokens)
+                loss.backward()
+        finally:
+            model.config = cfg
+        losses0[route], stats[route] = float(loss.detach()), dict(st)
+        out = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    kernel = grads("kernel")
+    f32 = grads("f32 plain", attention="dense", dtype=torch.float32)
+    far_k = {n: rel_l2(g, f32[n]) for n, g in kernel.items()}
+    plain = grads("bf16 plain", attention="dense")
+    far_p = {n: rel_l2(g, f32[n]) for n, g in plain.items()}
+    k_vs_p = {n: rel_l2(g, plain[n]) for n, g in kernel.items()}
+    del kernel, f32, plain, rec
+    ratio = {n: far_k[n] / far_p[n] for n in far_k}
+    worst = max(ratio, key=ratio.get)
+    far = max(far_k, key=far_k.get)
+    print(f"15b step 0, before any update: losses {losses0}; expert "
+          f"choices of the plain passes replayed from the kernel pass (their "
+          f"own would differ in " + ", ".join(
+              f"{r}: {st['differ']} of {st['rows']}" for r, st in
+              stats.items() if st["rows"]) + " token-layers); every leaf's "
+          f"gradient, relative L2 from the f32 plain route's: kernel route "
+          f"worst {far_k[far]:.3e} ({far}; bf16 plain route {far_p[far]:.3e})"
+          f", median {statistics.median(far_k.values()):.3e} (bf16 plain "
+          f"{statistics.median(far_p.values()):.3e}); ratio kernel / bf16 "
+          f"plain worst {ratio[worst]:.3f} ({worst}), bound "
+          f"{MOE_GRAD_RATIO}; kernel vs bf16 plain route worst "
+          f"{max(k_vs_p.values()):.3e}, median "
+          f"{statistics.median(k_vs_p.values()):.3e}")
+    need(ratio[worst] <= MOE_GRAD_RATIO,
+         f"15b: the gradient of {worst} is {far_k[worst]} from the f32 "
+         f"route's, {ratio[worst]:.3f} times the bf16 plain route's "
+         f"(> {MOE_GRAD_RATIO})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    step = model.make_train_step(opt)
+    zero_attention_counters()
+    before = {k: f.launches for k, f in counters().items()}
+    losses, times = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = attention_counters()
+    launches.update({k: f.launches - before[k]
+                     for k, f in counters().items()})
+    peak = torch.cuda.max_memory_allocated()
+    print(f"15b launches (path moe_training): {launches}")
+    need(all(np.isfinite(x) for x in losses), "15b: non-finite loss")
+    need(losses[-1] < losses[0], f"15b: the loss did not fall ({losses})")
+    for key in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq"):
+        need(launches[key] == L * MOE_TRAIN_STEPS,
+             f"15b: {key} launched {launches[key]} times, not once a layer "
+             f"a step ({L * MOE_TRAIN_STEPS})")
+    need_routes(launches, True, "15b")
+    step_ms = statistics.median(times[1:])
+    fams = moe_family_ms(lambda: step(tokens))
+    print(f"15b losses {losses}; step ms (host clock) {times}; step "
+          f"{step_ms:.1f} ms (median of steps 1-{MOE_TRAIN_STEPS - 1}), "
+          f"{Bt * St / step_ms * 1e3:.0f} tokens/s; peak "
+          f"{peak / 2 ** 30:.2f} GiB (the {held / 2 ** 30:.2f} GiB held "
+          f"before the phase included) ({CARD})")
+    print_families("15b one more step", fams, step_ms)
+    del opt, step, model, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_ep_phase():
+    """15c: one Mixtral-width MoELayer (f32 parameters, bf16 compute) over
+    ep = 8 virtual ranks, one expert a rank, 2048 tokens a rank: against
+    the per-rank dense layer with the same capacity; each alltoall's
+    rows bitwise the plain exchange (a transpose of the rank blocks); the
+    two alltoalls' device ms beside the expert GEMMs'."""
+    import torch
+    from accl_tpu_torch.models import MoELayer
+    from accl_tpu_torch.models import moe as M
+    from accl_tpu_torch.parallel import RankCollectives, make_mesh
+    cfg = mixtral_layer_config(dtype=torch.bfloat16)
+    W, T, d = MOE_EP, MOE_EP_T, cfg.dim
+    g = torch.Generator(device="cuda").manual_seed(SEED + 152)
+    layer = MoELayer(cfg).init(g)
+    x = torch.randn(W * T, d, device="cuda", generator=g).to(torch.bfloat16)
+    C = cfg.capacity(T)
+    coll = RankCollectives(make_mesh((W,), ("ep",)).group("ep"))
+    seen = []
+    orig = coll.alltoall
+
+    def kept(rows, *a, **kw):
+        got = orig(rows, *a, **kw)
+        seen.append((rows.clone(), got.clone()))
+        return got
+
+    coll.alltoall = kept
+    rec_ep, rec_dense, cap = [], [], {}
+    with torch.no_grad():
+        with moe_hooks(record=rec_ep, capture=cap):
+            out, aux = layer.apply_ep(x.view(W, T, d), coll, C)
+        coll.alltoall = orig
+        parts = []
+        with moe_hooks(record=rec_dense):
+            for r in range(W):
+                parts.append(layer.apply_dense(x[r * T:(r + 1) * T], C))
+        torch.cuda.synchronize()
+    dense = torch.cat([o for o, _ in parts])
+    daux = torch.stack([a for _, a in parts])
+    need(len(seen) == 2, f"15c: {len(seen)} alltoalls, not 2")
+    for i, (rows, got) in enumerate(seen):
+        want = rows.view(W, W, -1).transpose(0, 1).reshape(W, -1)
+        ok, err = same_bits(got, want)
+        need(ok, f"15c alltoall {i}: rows differ from the plain exchange "
+                 f"(max abs err {err})")
+    idx_ep, keep_ep = rec_ep[0]
+    differ = routes_differ([(idx_ep, keep_ep)], [(
+        torch.cat([i for i, _ in rec_dense]),
+        torch.cat([k for _, k in rec_dense]))])
+    rel = rel_l2(out.reshape(W * T, d), dense)
+    aux_rel = float(((aux - daux).abs() / daux.abs()).max())
+    print(f"15c ep = {W}, one expert a rank, {T} tokens a rank, capacity "
+          f"{C}: two alltoalls of {tuple(seen[0][0].shape)} bf16 rows, "
+          f"each bitwise the plain exchange; {coll.wire_bytes} bytes left "
+          f"their ranks; against the per-rank dense layer: {int(differ.sum())}"
+          f" of {differ.numel()} tokens routed otherwise, relative L2 "
+          f"{rel:.4g} (limit {MOE_EP_REL}), aux max rel diff {aux_rel:.3g}")
+    need(rel <= MOE_EP_REL, f"15c: ep and dense differ by {rel}")
+    need(aux_rel <= 1e-5, f"15c: the aux differs by {aux_rel}")
+    local = {k: layer.weights()[k].view(W, 1, *layer.weights()[k].shape[1:])
+             for k in ("w_gate", "w_up", "w_down")}
+    t = cap["expert_ffn"][2]
+    with torch.no_grad():
+        a2a = [time_ms(lambda rows=rows: orig(rows), reps=5)
+               for rows, _ in seen]
+        gemm = time_ms(lambda: M.expert_ffn(cfg, local, t), reps=5)
+        ep_ms = time_ms(lambda: layer.apply_ep(x.view(W, T, d), coll, C),
+                        reps=3, warmup=1)
+        dense_ms = time_ms(lambda: [layer.apply_dense(
+            x[r * T:(r + 1) * T], C) for r in range(W)], reps=3, warmup=1)
+    nb = seen[0][0].numel() * seen[0][0].element_size()
+    print(f"15c device ms (CUDA events behind a GPU sleep): alltoall "
+          f"dispatch {a2a[0]:.4f}, combine {a2a[1]:.4f} ({nb} bytes each, "
+          f"{2 * nb / a2a[0] / 1e6:.0f} GB/s read + write); expert GEMMs "
+          f"(3 batched, (W, 1, {W * C}, {d}) x (W, 1, {d}, {cfg.ffn_dim})) "
+          f"{gemm:.4f}; apply_ep {ep_ms:.3f}, per-rank dense x {W} "
+          f"{dense_ms:.3f} ({CARD})")
+    del layer, x, seen, out, dense, parts, cap, t, local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_pipeline_phase():
+    """15d: pp = 4 stages, each ``x + MoELayer.apply_dense(x)`` at
+    Mixtral's layer width (bf16), 8 microbatches of 512 tokens through
+    ``pipeline_sharded``: bitwise the four stages applied in sequence to
+    each microbatch (the same products on the same shapes in the same
+    order); stage calls and time beside the sequence's."""
+    import torch
+    from accl_tpu_torch.models import MoELayer
+    from accl_tpu_torch.parallel import make_mesh, pipeline_sharded
+    cfg = mixtral_layer_config(dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
+    W, n_micro, mb = MOE_PP, MOE_PP_MICRO, MOE_PP_MB
+    g = torch.Generator(device="cuda").manual_seed(SEED + 153)
+    layer = MoELayer(cfg)
+    stacked = {k: torch.empty((W, *p.shape), dtype=p.dtype, device="cuda")
+               for k, p in layer.weights().items()}
+    for s in range(W):
+        layer.init(g)
+        for k, p in layer.weights().items():
+            stacked[k][s].copy_(p)
+    x = torch.randn(n_micro, mb, cfg.dim, device="cuda",
+                    generator=g).to(torch.bfloat16)
+    mesh = make_mesh((W,), ("pp",))
+    calls = [0]
+
+    def stage(p, h):
+        calls[0] += 1
+        return h + layer.apply_dense(h, params=p)[0]
+
+    def sequence():
+        outs = []
+        for m in range(n_micro):
+            h = x[m]
+            for s in range(W):
+                h = stage({k: v[s] for k, v in stacked.items()}, h)
+            outs.append(h)
+        return torch.stack(outs)
+
+    with torch.no_grad():
+        out = pipeline_sharded(stage, stacked, x, mesh, "pp")
+        piped = calls[0]
+        want = sequence()
+        torch.cuda.synchronize()
+        ok, err = same_bits(out, want)
+        need(ok, f"15d: the pipeline's outputs differ from the stages in "
+                 f"sequence (max abs err {err})")
+        pipe_ms = time_ms(lambda: pipeline_sharded(stage, stacked, x, mesh,
+                                                   "pp"), reps=3, warmup=1)
+        seq_ms = time_ms(sequence, reps=3, warmup=1)
+    print(f"15d pipeline pp = {W}, {n_micro} microbatches of {mb} tokens, "
+          f"each stage x + MoELayer.apply_dense(x) at Mixtral's width "
+          f"(capacity {cfg.capacity(mb)}): outputs bitwise the stages in "
+          f"sequence (limit: bitwise); {piped} stage calls over "
+          f"{n_micro + W - 1} steps (the masked schedule computes "
+          f"{W * (n_micro + W - 1)}); device ms (CUDA events behind a GPU "
+          f"sleep, median of 3): pipeline {pipe_ms:.3f}, sequence "
+          f"{seq_ms:.3f}, ratio {pipe_ms / seq_ms:.4f} ({CARD})")
+    need(piped == W * n_micro, f"15d: {piped} stage calls, not "
+         f"{W * n_micro}")
+    del layer, stacked, x, out, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_llama_phase() -> dict:
+    """Phase 15a-d, each under the 2 GiB check. Returns the launch counts
+    of the moe_serving and moe_training paths."""
+    import torch
+    by_path = {}
+    for name, fn, path in (("15a MoE serving", moe_serving_phase,
+                            "moe_serving"),
+                           ("15b MoE training", moe_training_phase,
+                            "moe_training"),
+                           ("15c expert parallelism", moe_ep_phase, None),
+                           ("15d the pipeline", moe_pipeline_phase, None)):
+        phase(f"phase {name}")
+        held = torch.cuda.memory_allocated()
+        need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still "
+             f"allocated before phase {name} (limit 2 GiB)")
+        got = fn()
+        if path is not None:
+            by_path[path] = got
+    return by_path
+
+
 def dtype_label(dt) -> str:
     return "fp32" if dt is None else str(dt).removeprefix("torch.")
 
@@ -6377,6 +7107,17 @@ def main() -> int:
         if r["name"] in ("combine", "cast"):
             r.setdefault("launches_by_path", {"collectives": r["launches"]})
             r["launches_by_path"]["ddp"] = ddp[r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15: the MoE Llama (15a, 15b), expert parallelism, the pipeline
+    moe = moe_llama_phase()
+    for path, counts in moe.items():
+        by_path[path] = {k: counts[k] for k in sp_fwd}
+        for r in recs:
+            if r["name"] in counts:
+                r.setdefault("launches_by_path",
+                             {"collectives": r["launches"]})
+                r["launches_by_path"][path] = counts[r["name"]]
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
     for r in attn_recs:

@@ -238,9 +238,6 @@ def test_temperature_sampling_follows_the_generator(f32_flash):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError, match="A9"):
-        Llama(dataclasses.replace(LlamaConfig.tiny(), n_experts=4),
-              device="cpu")
     with pytest.raises(ValueError, match="attention"):
         Llama(dataclasses.replace(LlamaConfig.tiny(), attention="ring"),
               device="cpu")

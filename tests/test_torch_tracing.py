@@ -503,3 +503,35 @@ def test_profiled_history_feeds_the_tuner(worlds, tmp_path):
     assert entry[("allreduce", W)]["samples"] >= 1
     assert entry[("allreduce", W)]["algorithm"] in (
         "RING", "RECURSIVE_DOUBLING", "NON_FUSED")
+
+
+def _barrier_calls(a):
+    a.start_profiling()
+    a.barrier()
+    a.barrier()
+    a.end_profiling()
+    return (a.profiler.records, dict(a._call_counts), dict(a._byte_counts))
+
+
+def test_barrier_accounted_as_allreduce(worlds):
+    """A barrier is a 1-element f32 allreduce on a scratch buffer in both
+    packages: its ``CallRecord`` and its ``accl_calls_total`` /
+    ``accl_bytes_total`` rows read ``allreduce``, call for call and byte
+    for byte."""
+    tw, cw = worlds
+    ref = j_run_ranks(tw, _barrier_calls)
+    got = run_ranks(cw, _barrier_calls)
+    for r in range(W):
+        (jrec, jcalls, jbytes), (prec, pcalls, pbytes) = ref[r], got[r]
+        assert sorted(map(_fields, prec)) == sorted(map(_fields, jrec))
+        assert {x.op for x in prec} == {"allreduce"}
+        assert [x.count for x in prec] == [1, 1]
+        assert pcalls == jcalls and pbytes == jbytes
+        comm_id = cw[r].comm.comm_id
+        assert pcalls == {("allreduce", comm_id): 2}
+        text = pt.METRICS.to_prometheus()
+        ctx = f'ctx="{cw[r].device.ctx.seq}"'
+        rows = [ln for ln in text.splitlines()
+                if ln.startswith(("accl_calls_total{", "accl_bytes_total{"))
+                and ctx in ln and f'rank="{r}"' in ln]
+        assert rows and all('op="allreduce"' in ln for ln in rows)
