@@ -33,8 +33,8 @@ adds ``moe_aux_coef`` times the sum over layers of each layer's
 batch-mean Switch aux; serving drops the aux. Under tensor parallelism
 the router is replicated, gate and up are split on f and down on its
 f rows, and the experts' partial sums take the dense FFN's one
-all-reduce. Sequence parallelism with experts is refused (ROADMAP §A
-item 9b).
+all-reduce. Under sequence parallelism the row-wise layers see the whole
+(B, S, D) activation, so each sequence still routes as one group.
 """
 
 from __future__ import annotations
@@ -389,12 +389,6 @@ class Llama(nn.Module):
                     f"tp axis size {T} must divide the head counts "
                     f"(n_heads={c.n_heads}, n_kv_heads={c.n_kv_heads})")
         else:
-            if c.n_experts:
-                raise NotImplementedError(
-                    "sequence parallelism with n_experts > 0 is not ported "
-                    "(ROADMAP §A item 9b): each sequence's expert queue "
-                    "positions span the sp ranks and need an exclusive "
-                    "prefix of the per-expert counts")
             if sp not in mesh.shape:
                 raise ValueError(f"sp axis {sp!r} not in mesh "
                                  f"{tuple(mesh.shape)}")
@@ -446,8 +440,8 @@ class Llama(nn.Module):
         The dp groups ride the batch axis (B must divide by the dp axis
         size). ``sp`` or ``dp`` without a mesh, or
         ``attention="dense"``, take the dense path unsharded, as the
-        reference's do. With experts, a mesh with ``sp`` raises
-        NotImplementedError (ROADMAP §A item 9b)."""
+        reference's do. With experts and ``sp``, the expert blocks route
+        each whole sequence as one group, as the reference's do."""
         return self._forward_with_aux(tokens, dp, sp, mesh, tp)[0]
 
     def _forward_with_aux(self, tokens: torch.Tensor, dp: str | None = None,

@@ -138,14 +138,23 @@ def _next(W: int) -> list[int]:
     return [(r + 1) % W for r in range(W)]
 
 
+def _hop(hops, src):
+    """Note a hop in which rank r received a row from rank ``src[r]``,
+    where the caller records its hops (``hops`` a list)."""
+    if hops is not None:
+        hops.extend(zip(src, range(len(src))))
+
+
 def ring_reduce_scatter(rows, func: ReduceFunc, out_rows,
-                        k: Kernels = KERNELS, wire: str | None = None):
+                        k: Kernels = KERNELS, wire: str | None = None,
+                        hops: list | None = None):
     """Ring reduce-scatter. ``rows``: W tensors of W*c elements;
     ``out_rows[r]`` receives rank r's fully reduced chunk r (c elements).
     Round i: rank r combines the partial received from rank r+1 with its
     chunk r+1+i (received partial first, as the reference). ``wire``: a
     per-tensor wire dtype; each hop's partial crosses it (down, then
-    back to f32) before the combine."""
+    back to f32) before the combine. ``hops``, a list, receives the
+    (source, destination) pair of every row a hop moved."""
     W = len(rows)
     c = rows[0].numel() // W
 
@@ -164,12 +173,14 @@ def ring_reduce_scatter(rows, func: ReduceFunc, out_rows,
     acc = [chunk(r, (r + 1) % W) for r in range(W)]
     for i in range(1, W):
         dst = out_rows if i == W - 1 else list(bufs[i % 2])
+        src = _next(W)
         if wire is None:
-            recv = [acc[j] for j in _next(W)]
+            recv = [acc[j] for j in src]
         else:
             lane.send(acc)
-            lane.land(_next(W), landed)
+            lane.land(src, landed)
             recv = landed
+        _hop(hops, src)
         k.combine(recv, [chunk(r, (r + 1 + i) % W) for r in range(W)],
                   func, dst)
         acc = dst
@@ -177,33 +188,36 @@ def ring_reduce_scatter(rows, func: ReduceFunc, out_rows,
 
 
 def ring_allgather(rows, out_rows, k: Kernels = KERNELS,
-                   wire: str | None = None):
+                   wire: str | None = None, hops: list | None = None):
     """Ring allgather. ``rows``: W tensors of c elements; ``out_rows[r]``
     (W*c) receives chunk j of rank j in slot j. Round i lands, at rank r,
-    the chunk that left rank r+i i hops earlier (round 0: its own). With
-    a per-tensor ``wire`` every relay re-encodes what it forwards (the
-    reference's ``_hop`` on the relayed buffer): a cast is idempotent,
-    the fp8 codec takes a fresh scale per hop; the own chunk is exact."""
+    the chunk that left rank r+i i hops earlier (round 0: its own), from
+    the slot rank r+1 landed it in a round before. With a per-tensor
+    ``wire`` every relay re-encodes what it forwards (the reference's
+    ``_hop`` on the relayed buffer): a cast is idempotent, the fp8 codec
+    takes a fresh scale per hop; the own chunk is exact. ``hops``, a
+    list, receives the (source, destination) pair of every row a hop
+    moved."""
     W = len(rows)
     c = rows[0].numel()
 
     def slot(r, j):
         return out_rows[r][j * c:(j + 1) * c]
 
-    if wire is None:
-        for i in range(W):
-            for r in range(W):
-                j = (r + i) % W
-                slot(r, j).copy_(rows[j])
-        return out_rows
     for r in range(W):
         slot(r, r).copy_(rows[r])
-    lane = Wire(wire, k, c, W, rows[0].device)
+    lane = None if wire is None else Wire(wire, k, c, W, rows[0].device)
     buf = list(rows)
     for i in range(1, W):
-        lane.send(buf)
+        src = _next(W)
         dst = [slot(r, (r + i) % W) for r in range(W)]
-        lane.land(_next(W), dst)
+        if lane is None:
+            for d, j in zip(dst, src):
+                d.copy_(buf[j])
+        else:
+            lane.send(buf)
+            lane.land(src, dst)
+        _hop(hops, src)
         buf = dst
     return out_rows
 
@@ -223,7 +237,7 @@ def _finish_padded(full, out_rows, n: int):
 
 
 def ring_allreduce(rows, func: ReduceFunc, out_rows, k: Kernels = KERNELS,
-                   wire: str | None = None):
+                   wire: str | None = None, hops: list | None = None):
     """Ring allreduce = ring reduce-scatter + ring allgather over W chunks
     of each rank's flattened operand (zero-padded to a multiple of W)."""
     W = len(rows)
@@ -231,12 +245,13 @@ def ring_allreduce(rows, func: ReduceFunc, out_rows, k: Kernels = KERNELS,
     c = rows[0].numel() // W
     mine = list(torch.empty((W, c), dtype=rows[0].dtype,
                             device=rows[0].device))
-    ring_reduce_scatter(rows, func, mine, k, wire)
+    ring_reduce_scatter(rows, func, mine, k, wire, hops)
     if not pad:
-        return ring_allgather(mine, out_rows, k, wire)
+        return ring_allgather(mine, out_rows, k, wire, hops)
     full = list(torch.empty((W, W * c), dtype=rows[0].dtype,
                             device=rows[0].device))
-    return _finish_padded(ring_allgather(mine, full, k, wire), out_rows, n)
+    return _finish_padded(ring_allgather(mine, full, k, wire, hops),
+                          out_rows, n)
 
 
 def ring_reduce_scatter_bs(rows, func: ReduceFunc, wire: str, qblock: int,
@@ -510,15 +525,34 @@ class RankCollectives:
     chunk stays and is not counted; the other collectives count
     nothing here). They are plain counters, kept by whichever thread
     calls; the device tier counts its own rounds under its lock
-    (``CudaContext.exchange_rounds``)."""
+    (``CudaContext.exchange_rounds``).
 
-    def __init__(self, group: RankGroup, kernels: Kernels = KERNELS):
+    ``ranks`` names the group's ranks by their flattened mesh indices
+    (``RankMesh.groups``); given, ``permutation_pairs`` records, in those
+    indices, the (source, destination) pair of every row that a ring
+    hop of the per-tensor lanes or an exchange round moved, as the hop
+    moved it (None when the group records nothing)."""
+
+    def __init__(self, group: RankGroup, kernels: Kernels = KERNELS,
+                 ranks=None):
         self.group = group
         self.W = group.size
         self.device = group.device
         self.kernels = kernels
         self.exchange_rounds = 0
         self.wire_bytes = 0
+        if ranks is not None and len(ranks) != self.W:
+            raise ValueError(f"{len(ranks)} rank indices for a group of "
+                             f"{self.W}")
+        self.ranks = None if ranks is None else [int(r) for r in ranks]
+        self.permutation_pairs = None if ranks is None else []
+
+    def _record(self, pairs):
+        """Note the (source, destination) ``pairs`` (group positions)
+        when the group records its permutations."""
+        if self.permutation_pairs is not None:
+            ids = self.ranks
+            self.permutation_pairs += [(ids[s], ids[d]) for s, d in pairs]
 
     @staticmethod
     def _bs_eligible(op: str, wire: str | None, qblock: int) -> bool:
@@ -598,6 +632,7 @@ class RankCollectives:
                 "allreduce", "reduce_scatter"):
             algorithm = "ring"
         k = self.kernels
+        hops = None if self.permutation_pairs is None else []
         if op == "alltoall":
             alltoall(rows, dst, k, wire)
             esize = (to_torch_dtype(wire) if wire else dtype).itemsize
@@ -611,11 +646,13 @@ class RankCollectives:
                 ring_allgather_bs(rows, wire, qblock, dst, k)
         elif algorithm == "ring":
             if op == "allreduce":
-                ring_allreduce(rows, func, dst, k, wire)
+                ring_allreduce(rows, func, dst, k, wire, hops)
             elif op == "reduce_scatter":
-                ring_reduce_scatter(rows, func, dst, k, wire)
+                ring_reduce_scatter(rows, func, dst, k, wire, hops)
             else:
-                ring_allgather(rows, dst, k, wire)
+                ring_allgather(rows, dst, k, wire, hops)
+            if hops:
+                self._record(hops)
         elif algorithm == "xla" and wire is not None:
             if op == "allreduce":
                 xla_compressed_allreduce(rows, func, wire, dst, k)
@@ -715,6 +752,7 @@ class RankCollectives:
                 parts = rows[s] if isinstance(rows[s], tuple) else (rows[s],)
                 self.wire_bytes += sum(t.nbytes for t in parts)
         self.exchange_rounds += 1
+        self._record(pairs)
         return got
 
     # -- rooted collectives (binomial schedules, parallel/tree.py) ---------
@@ -773,3 +811,69 @@ class RankCollectives:
             if o is not None and r != root:
                 o.zero_()
         return ret
+
+
+# -- over every axis of a mesh ------------------------------------------------
+
+def multi_axis_ring_allreduce(x, mesh, axis_names=None,
+                              func: ReduceFunc = ReduceFunc.SUM,
+                              wire_dtype=None, kernels: Kernels = KERNELS,
+                              colls: dict | None = None):
+    """Allreduce over an N-axis mesh that drives every axis's links at
+    once: the reference's ``multi_axis_ring_allreduce_shard``.
+
+    ``x``: the mesh's ranks' rows, (mesh.size, n) or a list, rank i the
+    row-major index of the mesh (``RankMesh``). The payload splits into
+    N parts (n must divide by N); part i runs a ring reduce-scatter
+    cascade down the axes in rotation order starting at axis i (each axis
+    scatters its factor of the shard, so the first and largest phase of
+    part i rides axis i), then an allgather cascade back up. Each hop is
+    one B1 launch a group; ``wire_dtype`` takes the per-tensor lanes of
+    :class:`RankCollectives`. ``colls``, when given, receives each axis's
+    groups' collectives (``{axis: [RankCollectives]}``), whose
+    ``permutation_pairs`` hold the hops in flattened mesh indices.
+    Returns a fresh (mesh.size, n) tensor."""
+    axis_names = tuple(axis_names or mesh.axis_names)
+    P = mesh.size
+    rows = list(x) if not isinstance(x, torch.Tensor) or x.dim() > 1 \
+        else None
+    if rows is None or len(rows) != P:
+        raise ValueError(f"expected {P} rank rows of the mesh")
+    rows = [r.reshape(-1) for r in rows]
+    n = rows[0].numel()
+    k = len(axis_names)
+    if n % k:
+        raise ValueError(f"a payload of {n} elements does not split into "
+                         f"{k} parts, one an axis")
+    groups = {ax: mesh.groups(ax) for ax in axis_names}
+    record = colls is not None
+    if colls is None:
+        colls = {}
+    for ax in axis_names:
+        colls[ax] = [RankCollectives(RankGroup(mesh.shape[ax], mesh.device),
+                                     kernels, ranks=g if record else None)
+                     for g in groups[ax]]
+    out = torch.empty((P, n), dtype=rows[0].dtype, device=rows[0].device)
+    part = n // k
+
+    def each_group(ax, call):
+        """The rows after ``call(coll, group)`` ran in every group."""
+        nxt = [None] * P
+        for g, coll in zip(groups[ax], colls[ax]):
+            for r, row in zip(g, call(coll, g)):
+                nxt[r] = row
+        return nxt
+
+    for i in range(k):
+        order = axis_names[i:] + axis_names[:i]
+        cols = slice(i * part, (i + 1) * part)
+        y = [r[cols] for r in rows]
+        for ax in order:
+            y = each_group(ax, lambda coll, g: coll.reduce_scatter(
+                [y[r] for r in g], func, "ring", wire_dtype))
+        for ax in reversed(order):
+            # the last gather lands in the output
+            y = each_group(ax, lambda coll, g: coll.allgather(
+                [y[r] for r in g], "ring", wire_dtype,
+                out=[out[r, cols] for r in g] if ax == order[0] else None))
+    return out

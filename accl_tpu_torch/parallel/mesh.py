@@ -81,6 +81,17 @@ class RankMesh:
                              f"{tuple(self.shape)}")
         return RankGroup(self.shape[axis], self.device)
 
+    def groups(self, axis: str) -> list[list[int]]:
+        """The flattened rank indices of each group along ``axis``: one
+        list for each index of the other axes (in their row-major
+        order), ordered by the position along ``axis``."""
+        if axis not in self.shape:
+            raise ValueError(f"axis {axis!r} not in mesh "
+                             f"{tuple(self.shape)}")
+        ids = torch.arange(self.size).reshape(tuple(self.shape.values()))
+        k = self.axis_names.index(axis)
+        return ids.movedim(k, -1).reshape(-1, self.shape[axis]).tolist()
+
     def __repr__(self):
         return f"RankMesh({self.shape}, device={self.device})"
 

@@ -2,6 +2,7 @@
 """Drive accl_tpu_torch on an NVIDIA GPU: build, kernel phases, main path.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--slice-child RANK PORT`` is phase 16c's child process, not an entry.)
 
 1. Device and build: requires CUDA, prints the card's name and power
    limit, builds the CUDA kernels from ``accl_tpu_torch/csrc`` (one
@@ -326,6 +327,35 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bitwise the stages in sequence, W * n_micro stage calls, device ms
    beside the sequence's.
 
+16. Checkpoint/resume, the multi-slice tier, sequence parallelism with
+   experts and the dry run (after 15, before 10a). 16a (under the 2 GiB
+   check): Llama-3-8B widths cut to 1 of 32 layers (15.2 GB of f32
+   parameters and Adam moments on disk), bf16 activations, (2, 2048),
+   Adam: step 1, ``CheckpointManager.save`` under ``build/`` (the free
+   space printed beside the state's bytes; a shortfall fails), steps 2
+   and 3; the unbroken run twice, to learn whether a step repeats itself
+   bitwise; the checkpoint restored into a model and optimizer from
+   another seed, every tensor's crc32 equal to the save's, steps 2 and 3
+   again, the losses bitwise the unbroken run's (or within the two
+   unbroken runs' spread, the varying parameters named); one flipped byte
+   of the largest file refused with DATA_INTEGRITY_ERROR; save, verify and
+   restore seconds and GB/s; B8, B10 and B11 launch (path checkpoint).
+   16b: ``hybrid_mesh((4,), 2)`` on the card, 64 Mi f32 a rank:
+   ``hierarchical_allreduce_sharded`` for SUM, MAX, MIN, PROD and SUM on
+   a bf16 dcn wire, and ``multi_axis_ring_allreduce`` on a (2, 2, 2) mesh
+   (64 Mi cut to a multiple of 24), each bitwise the same call through
+   ``kernels=PLAIN``, its hop strides {1, 2, 4}; device ms behind a GPU
+   sleep, the bound, a call's host ms and the library call over the rank
+   axis; B1 and B2 launch (path multislice). 16c: two processes of this
+   script (``--slice-child``) on the card, one slice each, over gloo on
+   a port the OS picked: SUM and the bf16 wire, each process's rows equal
+   16b's (sha256), a 120 s timeout; B1 and B2 launch in them (path
+   multiprocess). 16d (inside 15a, on its 16-layer model): an sp = 8
+   ``forward`` of the 4 x 1024 prompts over a (1, 8) ("dp", "sp") mesh
+   beside the unsharded one, held with 15a's route checks; host ms and
+   tokens/s (path sp_moe). 16e: ``dryrun_multichip(8)`` on the card, its
+   seven checks' seconds (path dryrun).
+
 Each phase starts with a line of the device memory allocated.
 
 Prints per-kernel and per-call lines, then one JSON line of kernel
@@ -340,6 +370,8 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -1126,6 +1158,14 @@ def counters():
             "fp8_quant": C.fp8_quant, "fp8_dequant": C.fp8_dequant}
 
 
+def add_path(recs, path: str, counts: dict):
+    """Record a path's launches on the stream kernels' records."""
+    for r in recs:
+        if r["name"] in counts:
+            r.setdefault("launches_by_path", {"collectives": r["launches"]})
+            r["launches_by_path"][path] = counts[r["name"]]
+
+
 def golden_bound(absum, k32: int, wire=None, kw: int = 0, amax=None):
     """Per-element bound on |result - float64 golden| for a result whose
     every intermediate value is at most sum_r |x_r| (``absum``) in
@@ -1652,10 +1692,7 @@ def p2p_path(recs):
                  f"{name}: {held[name]} exchange rounds held, expected {n}")
         for k in P2P_KERNELS:
             need(launches[k] > 0, f"kernel {k} never launched on the p2p path")
-        for r in recs:
-            if r["name"] in launches:
-                r["launches_by_path"] = {"collectives": r["launches"],
-                                         "p2p": launches[r["name"]]}
+        add_path(recs, "p2p", launches)
 
         # -- correctness: the plain versions on the card -------------------
         def t(key, r):
@@ -1983,11 +2020,7 @@ def rma_path(recs):
              "RMA path")
         need(accls[0].device.ctx._parked_sends == parked0 == 0,
              "rma: a put parked a send")
-        for r in recs:
-            if r["name"] in launches:
-                r.setdefault("launches_by_path", {"collectives":
-                                                  r["launches"]})
-                r["launches_by_path"]["rma"] = launches[r["name"]]
+        add_path(recs, "rma", launches)
         print(f"rma path results: every landing bitwise equal to its plain "
               f"version (torch copy or .to()); storm: {RMA_STORM} tokens "
               f"each exactly once in {storm['polls']} polls, "
@@ -4901,10 +4934,7 @@ def elastic_phase(recs):
           f"{launched}")
     for k in ELASTIC_KERNELS:
         need(launched.get(k, 0) > 0, f"phase 12: kernel {k} never launched")
-    for r in recs:
-        if r["name"] in ELASTIC_KERNELS:
-            r.setdefault("launches_by_path", {"collectives": r["launches"]})
-            r["launches_by_path"]["elastic"] = launched[r["name"]]
+    add_path(recs, "elastic", {k: launched[k] for k in ELASTIC_KERNELS})
 
 
 # -- phase 13: the tuner and the N-tier hierarchy ----------------------------
@@ -5532,10 +5562,7 @@ def hier_phase(recs):
     print(f"phase 13 launches (the drives, not the yardsticks): {launched}")
     for k in HIER_KERNELS:
         need(launched.get(k, 0) > 0, f"phase 13: kernel {k} never launched")
-    for r in recs:
-        if r["name"] in launched:
-            r.setdefault("launches_by_path", {"collectives": r["launches"]})
-            r["launches_by_path"]["hier"] = launched[r["name"]]
+    add_path(recs, "hier", launched)
 
 
 # -- phase 14: the driver's profiler, flight recorder and tenants, the ------
@@ -6685,10 +6712,12 @@ def moe_serving_phase() -> dict:
     peak = torch.cuda.max_memory_allocated()
     print(f"15a peak memory {peak / 2 ** 30:.2f} GiB (the "
           f"{held / 2 ** 30:.2f} GiB held before the phase included)")
+    phase("phase 16d: sequence parallelism with experts")
+    sp_launches = sp_moe_phase(model, prompts)
     del model, prompts, short, out
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return {"moe_serving": launches, "sp_moe": sp_launches}
 
 
 def moe_training_phase() -> dict:
@@ -6952,24 +6981,494 @@ def moe_pipeline_phase():
 
 
 def moe_llama_phase() -> dict:
-    """Phase 15a-d, each under the 2 GiB check. Returns the launch counts
-    of the moe_serving and moe_training paths."""
+    """Phase 15a-d (16d inside 15a), each under the 2 GiB check. Returns
+    the launch counts of the moe_serving, sp_moe and moe_training
+    paths."""
     import torch
     by_path = {}
-    for name, fn, path in (("15a MoE serving", moe_serving_phase,
-                            "moe_serving"),
-                           ("15b MoE training", moe_training_phase,
-                            "moe_training"),
-                           ("15c expert parallelism", moe_ep_phase, None),
-                           ("15d the pipeline", moe_pipeline_phase, None)):
+    for name, fn in (("15a MoE serving", moe_serving_phase),
+                     ("15b MoE training",
+                      lambda: {"moe_training": moe_training_phase()}),
+                     ("15c expert parallelism", moe_ep_phase),
+                     ("15d the pipeline", moe_pipeline_phase)):
         phase(f"phase {name}")
         held = torch.cuda.memory_allocated()
         need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still "
              f"allocated before phase {name} (limit 2 GiB)")
-        got = fn()
-        if path is not None:
-            by_path[path] = got
+        by_path.update(fn() or {})
     return by_path
+
+
+# -- phase 16: checkpoint/resume, the multi-slice tier, the dry run -----------
+
+CKPT_LAYERS = 1            # 16a: 1 of 32 Llama-3-8B layers (disk and time)
+CKPT_B, CKPT_S, CKPT_LR = 2, 2048, 1e-4
+CKPT_SEED = SEED + 161     # the unbroken runs' weights and tokens
+CKPT_OTHER_SEED = SEED + 162   # the fresh model the checkpoint lands in
+CKPT_PARENT = "build/accl_tpu_torch"    # the temporary directory's parent
+SLICE_SEED = SEED + 171    # 16b/16c: the 8 rank rows
+SLICE_SHAPE = (2, 4)       # 16b/16c: 2 slices of 4 ranks
+SLICE_AXES = (2, 2, 2)     # 16b: the multi-axis ring's mesh
+SLICE_CHILD_TIMEOUT_S = 120
+SP_MOE_W = 8               # 16d: sp ranks over 15a's prompts
+DRYRUN_RANKS = 8           # 16e
+
+
+def tree_crcs(tree, prefix: str = "") -> dict:
+    """crc32 and byte count of every tensor of a nested dict / list tree,
+    keyed by its path; each tensor copied to the host one at a time."""
+    import torch
+    out = {}
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    for k, v in items:
+        path = f"{prefix}/{k}"
+        if isinstance(v, torch.Tensor):
+            raw = v.detach().contiguous().reshape(-1).view(torch.uint8)
+            out[path] = (zlib.crc32(raw.cpu().numpy()), raw.numel())
+        else:
+            out.update(tree_crcs(v, path))
+    return out
+
+
+def param_prints(model) -> dict:
+    """A device-side fingerprint of each parameter's bits (the int32 words
+    summed in int64): two runs whose prints differ computed otherwise."""
+    import torch
+    return {n: int(p.detach().view(torch.int32).to(torch.int64).sum())
+            for n, p in model.named_parameters()}
+
+
+def checkpoint_phase() -> dict:
+    """16a: checkpoint/resume on the training path. Llama-3-8B widths, 1
+    of 32 layers, f32 parameters, Adam, bf16 activations, (2, 2048)
+    tokens: step 1, ``CheckpointManager.save(1, ...)`` into a temporary
+    directory, steps 2 and 3 (the unbroken run, twice, to learn whether a
+    step repeats itself bitwise); the checkpoint restored into a fresh
+    model and optimizer from another seed (every tensor's crc32 equal to
+    the one taken at save time), steps 2 and 3 again, their losses held
+    to the unbroken run's; a flipped byte refused with
+    DATA_INTEGRITY_ERROR. Returns the steps' attention launch counts."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from accl_tpu_torch.constants import ACCLError, ErrorCode
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.utils import CheckpointManager
+    from accl_tpu_torch.utils.checkpoint import verify_integrity_manifest
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=CKPT_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(CKPT_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (CKPT_B, CKPT_S),
+                           device="cuda", generator=g)
+
+    def fresh(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = Llama(cfg).init(gen)
+        opt = torch.optim.Adam(model.parameters(), lr=CKPT_LR)
+        return model, opt, model.make_train_step(opt)
+
+    def state(model, opt, step):
+        return {"params": model.state_dict(), "opt_state": opt.state_dict(),
+                "step": step}
+
+    os.makedirs(CKPT_PARENT, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=CKPT_PARENT)
+    zero_attention_counters()
+    try:
+        # the unbroken run, with the save after step 1
+        model, opt, step = fresh(CKPT_SEED)
+        N = model.param_count()
+        losses = [float(step(tokens))]
+        prints = [param_prints(model)]
+        tree = state(model, opt, 1)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree["params"].values()) + sum(
+            t.numel() * t.element_size() for s in tree["opt_state"]["state"]
+            .values() for t in s.values())
+        free = shutil.disk_usage(root).free
+        print(f"16a checkpoint: Llama-3-8B widths, {cfg.n_layers} of 32 "
+              f"layers (the cut: depth, for disk and time), {N} "
+              f"parameters, f32 parameters and Adam's two moments "
+              f"{nbytes / 1e9:.2f} GB to write; free on the checkpoint's "
+              f"disk {free / 1e9:.2f} GB")
+        need(free >= nbytes * 1.05 + (1 << 30),
+             f"16a: {free / 1e9:.2f} GB free under {root}, the state needs "
+             f"{nbytes / 1e9:.2f} GB (+5 % and 1 GiB)")
+        t0 = time.perf_counter()
+        saved = tree_crcs(tree)
+        crc_s = time.perf_counter() - t0
+        mgr = CheckpointManager(os.path.join(root, "run"))
+        t0 = time.perf_counter()
+        mgr.save(1, tree)
+        save_s = time.perf_counter() - t0
+        del tree
+        losses += [float(step(tokens)) for _ in range(2)]
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the unbroken run again, from the same seed
+        model, opt, step = fresh(CKPT_SEED)
+        again = [float(step(tokens))]
+        prints.append(param_prints(model))
+        again += [float(step(tokens)) for _ in range(2)]
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        repeats = again == losses and prints[0] == prints[1]
+        differ = [n for n in prints[0] if prints[0][n] != prints[1][n]]
+        print(f"16a unbroken losses {losses}, again {again}: the step "
+              + ("repeats itself bitwise" if repeats else
+                 "does not repeat itself; parameters differing after step "
+                 f"1: {differ or 'none'}"))
+        # verify alone, then restore into a fresh model and optimizer
+        step_dir = os.path.join(mgr.directory, "1")
+        manifest = os.path.join(mgr.directory, ".integrity", "1.json")
+        t0 = time.perf_counter()
+        verify_integrity_manifest(step_dir, manifest)
+        verify_s = time.perf_counter() - t0
+        model, opt, step = fresh(CKPT_OTHER_SEED)
+        need(tree_crcs({"params": {"embed": model.embed}})
+             != {k: v for k, v in saved.items() if k == "/params/embed"},
+             "16a: the fresh model's embedding is the saved one")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = mgr.restore()
+        model.load_state_dict(restored["params"])
+        opt.load_state_dict(restored["opt_state"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        need(restored["step"] == 1, f"16a: restored step {restored['step']}")
+        del restored
+        got = tree_crcs(state(model, opt, 1))
+        bad = [k for k in saved if got.get(k) != saved[k]]
+        need(set(got) == set(saved) and not bad,
+             f"16a: restored tensors differ from the saved ones: {bad[:5]}")
+        resumed = [losses[0]] + [float(step(tokens)) for _ in range(2)]
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if repeats:
+            need(resumed == losses, f"16a: resumed losses {resumed} differ "
+                 f"from the unbroken run's {losses}")
+            rule = "bitwise"
+        else:
+            spread = [abs(a - b) for a, b in zip(losses, again)]
+            need(all(min(a, b) - s <= r <= max(a, b) + s for a, b, r, s in
+                     zip(losses, again, resumed, spread)),
+                 f"16a: resumed losses {resumed} outside the unbroken "
+                 f"runs' spread {losses} / {again}")
+            rule = "within the unbroken runs' spread"
+        print(f"16a resumed losses {resumed} ({rule} the unbroken run's); "
+              f"{len(saved)} restored tensors' crc32 equal to the save's")
+        # one flipped byte of the largest file is refused
+        files = [os.path.join(dp, f) for dp, _, fs in os.walk(step_dir)
+                 for f in fs]
+        victim = max(files, key=os.path.getsize)
+        size = os.path.getsize(victim)
+        with open(victim, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0x01]))
+        try:
+            mgr.restore()
+            need(False, "16a: a flipped byte was restored")
+        except ACCLError as exc:
+            need(exc.error_word & int(ErrorCode.DATA_INTEGRITY_ERROR),
+                 f"16a: the flipped byte raised {exc}")
+            print(f"16a flipped byte at {size // 2} of "
+                  f"{os.path.basename(victim)} ({size} B): {exc}")
+        finally:
+            with open(victim, "r+b") as f:
+                f.seek(size // 2)
+                f.write(b)
+        print(f"16a seconds: save {save_s:.2f} ({nbytes / save_s / 1e9:.2f} "
+              f"GB/s, the manifest's crc32 pass included), verify "
+              f"{verify_s:.2f} ({size / verify_s / 1e9:.2f} GB/s), restore "
+              f"{restore_s:.2f} ({nbytes / restore_s / 1e9:.2f} GB/s: verify, "
+              f"load, load_state_dict to the card); the tensors' crc32 at "
+              f"save {crc_s:.2f}; file {size} B for {nbytes} B of tensors "
+              f"({CARD})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = attention_counters()
+    print(f"16a launches (path checkpoint): {launches}")
+    from accl_tpu_torch.ops import attention as A
+    fwd = "attn_fwd_single" if A.is_single_block(CKPT_S) else "attn_fwd"
+    for key in (fwd, "attn_bwd_dkv", "attn_bwd_dq"):
+        need(launches[key] == 8 * cfg.n_layers, f"16a: {key} launched "
+             f"{launches[key]} times, not once a layer in each of 8 steps")
+    need_routes(launches, True, "16a")
+    return launches
+
+
+def slice_rows():
+    """The 8 seeded rank rows of 16b and 16c, made on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(SLICE_SEED)
+    return torch.randn((math.prod(SLICE_SHAPE), N), device="cuda",
+                       generator=g)
+
+
+def rows_digest(t) -> str:
+    import hashlib
+    import torch
+    raw = t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw).hexdigest()
+
+
+def multislice_phase() -> tuple[dict, dict]:
+    """16b: ``hierarchical_allreduce_sharded`` on ``hybrid_mesh((4,), 2)``
+    (8 virtual ranks on the card, 64 Mi f32 a rank) for SUM, MAX, MIN and
+    PROD, and SUM with a bf16 dcn wire; ``multi_axis_ring_allreduce`` on a
+    (2, 2, 2) mesh; each bitwise the same call through the plain
+    versions, timed. Returns the drives' launch counts and the sha256 of
+    each slice's SUM and bf16 results (16c's yardstick)."""
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.parallel import (hierarchical_allreduce_sharded,
+                                         hybrid_mesh, make_mesh,
+                                         multi_axis_ring_allreduce)
+    from accl_tpu_torch.parallel.collectives import PLAIN
+    mesh = hybrid_mesh(SLICE_SHAPE[1:], SLICE_SHAPE[0])
+    x = slice_rows()
+    R, per = mesh.size, mesh.size // SLICE_SHAPE[0]
+    nbytes = 2 * x.numel() * 4              # each row read, each written
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    launched = {k: 0 for k in counters()}
+    digests = {}
+    print(f"16b multi-slice tier: {mesh}, {N} f32 a rank; bound "
+          f"{bound:.4f} ms ({nbytes} B at 3.35 TB/s); beside phase 13's "
+          f"64 Mi allreduce as 2 x 4 (device ms on an H100 80GB HBM3 at "
+          f"700 W): flat ring 3.4947, the hierarchy engine 3.8043")
+    library = {ReduceFunc.SUM: ("sum", lambda: torch.sum(x, 0)),
+               ReduceFunc.MAX: ("amax", lambda: torch.amax(x, 0)),
+               ReduceFunc.MIN: ("amin", lambda: torch.amin(x, 0)),
+               ReduceFunc.PROD: ("prod", lambda: torch.prod(x, 0))}
+    cases = [(f.name, f, None) for f in (ReduceFunc.SUM, ReduceFunc.MAX,
+                                        ReduceFunc.MIN, ReduceFunc.PROD)]
+    cases.append(("SUM, bf16 dcn wire", ReduceFunc.SUM, "bfloat16"))
+    for what, func, wire in cases:
+        before = {k: f.launches for k, f in counters().items()}
+        got = hierarchical_allreduce_sharded(x, mesh, func=func,
+                                             wire_dtype=wire)
+        torch.cuda.synchronize()
+        for k, f in counters().items():
+            launched[k] += f.launches - before[k]
+        plain = hierarchical_allreduce_sharded(x, mesh, func=func,
+                                               wire_dtype=wire,
+                                               kernels=PLAIN)
+        err = check_rows(got, plain, f"16b hierarchical {what}")
+        need(all(torch.equal(got[r], got[0]) for r in range(R)),
+             f"16b hierarchical {what}: ranks disagree")
+        if func == ReduceFunc.SUM:
+            digests["bf16" if wire else "sum"] = [
+                rows_digest(got[s * per:(s + 1) * per])
+                for s in range(SLICE_SHAPE[0])]
+        del got, plain
+
+        def run(func=func, wire=wire):
+            return hierarchical_allreduce_sharded(x, mesh, func=func,
+                                                  wire_dtype=wire)
+
+        dev_ms = time_ms(run, reps=10)
+        call_ms = host_ms(run)
+        lib_name, lib_fn = library[func]
+        lib_ms = time_ms(lib_fn, reps=10)
+        print(f"16b hierarchical allreduce {what}: bitwise the plain "
+              f"versions (max abs err {err}); device {dev_ms:.4f} ms "
+              f"({bound / dev_ms:.1%} of bound), a call {call_ms:.3f} ms "
+              f"host clock; library torch.{lib_name} over the rank axis "
+              f"{lib_ms:.4f} ms ({CARD})")
+    del x
+    # the multi-axis ring: 64 Mi cut to the multiple of 3 parts x 8 ranks
+    n = N - N % (len(SLICE_AXES) * math.prod(SLICE_AXES))
+    mesh3 = make_mesh(SLICE_AXES, ("a", "b", "c"))
+    x = slice_rows()[:, :n].contiguous()
+    before = {k: f.launches for k, f in counters().items()}
+    colls = {}
+    got = multi_axis_ring_allreduce(x, mesh3, colls=colls)
+    torch.cuda.synchronize()
+    for k, f in counters().items():
+        launched[k] += f.launches - before[k]
+    plain = multi_axis_ring_allreduce(x, mesh3, kernels=PLAIN)
+    err = check_rows(got, plain, "16b multi-axis ring")
+    strides = sorted({min(abs(a - b), 8 - abs(a - b)) for per_ax in
+                      colls.values() for c in per_ax
+                      for a, b in c.permutation_pairs})
+    need({1, 2, 4} <= set(strides), f"16b multi-axis: strides {strides}")
+    del got, plain
+    dev_ms = time_ms(lambda: multi_axis_ring_allreduce(x, mesh3), reps=10)
+    call_ms = host_ms(lambda: multi_axis_ring_allreduce(x, mesh3))
+    lib_ms = time_ms(lambda: torch.sum(x, 0), reps=10)
+    nb3 = 2 * x.numel() * 4
+    print(f"16b multi-axis ring allreduce on {mesh3}, {n} f32 a rank: "
+          f"bitwise the plain versions (max abs err {err}); hop strides "
+          f"{strides}; device {dev_ms:.4f} ms, bound "
+          f"{nb3 / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"({nb3 / HBM_BYTES_PER_S * 1e3 / dev_ms:.1%}); a call "
+          f"{call_ms:.3f} ms host clock; library torch.sum {lib_ms:.4f} ms "
+          f"({CARD})")
+    del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"16b launches (path multislice): {launched}")
+    for k in ("combine", "cast"):
+        need(launched[k] > 0, f"16b: {k} never launched")
+    return launched, digests
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def slice_child(rank: int, port: int) -> int:
+    """One process of 16c: slice ``rank`` of 2 over gloo on ``port``,
+    its 4 rank rows of the 8 seeded ones; prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+    from accl_tpu_torch.parallel import (distributed_init,
+                                         hierarchical_allreduce_sharded,
+                                         hybrid_mesh, slice_count)
+    need(distributed_init(f"127.0.0.1:{port}", SLICE_SHAPE[0], rank),
+         "16c: distributed_init refused")
+    mesh = hybrid_mesh(SLICE_SHAPE[1:], SLICE_SHAPE[0])
+    need(slice_count() == SLICE_SHAPE[0] and mesh.local_slice == rank,
+         f"16c: {mesh} in a group of {slice_count()}")
+    per = mesh.local_size
+    x = slice_rows()[rank * per:(rank + 1) * per].clone()
+    torch.cuda.empty_cache()
+    before = {k: f.launches for k, f in counters().items()}
+    res, ms = {}, {}
+    for name, wire in (("sum", None), ("bf16", "bfloat16")):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = hierarchical_allreduce_sharded(x, mesh, wire_dtype=wire)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        res[name] = rows_digest(out)
+        del out
+    launched = {k: f.launches - before[k] for k, f in counters().items()}
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "digests": res, "ms": ms,
+                      "launches": launched}))
+    return 0
+
+
+def multiprocess_phase(digests: dict) -> dict:
+    """16c: two processes on the card, one slice each, over gloo on a port
+    the OS picked: each runs ``hierarchical_allreduce_sharded`` for SUM
+    and the bf16 dcn wire on its 4 of the 8 seeded rows, and its rows must
+    equal 16b's one-process result (sha256 of their bytes). Returns the
+    children's launch counts, summed."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--slice-child",
+         str(r), str(port)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(SLICE_SHAPE[0])]
+    outs = []
+    try:
+        deadline = time.monotonic() + SLICE_CHILD_TIMEOUT_S
+        for p in procs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                need(False, f"16c: a child ran past "
+                     f"{SLICE_CHILD_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    launched = {k: 0 for k in counters()}
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        need(p.returncode == 0, f"16c: child {r} exited {p.returncode}: "
+             f"{se.strip()[-1500:]}")
+        rep = json.loads(so.strip().splitlines()[-1])
+        for name in ("sum", "bf16"):
+            need(rep["digests"][name] == digests[name][r],
+                 f"16c: child {r}'s {name} rows differ from 16b's")
+        for k, v in rep["launches"].items():
+            launched[k] += v
+        print(f"16c child {r} (slice {r}, gloo on 127.0.0.1:{port}): SUM "
+              f"and bf16 rows equal 16b's (sha256); a call "
+              f"{rep['ms']['sum']:.2f} / {rep['ms']['bf16']:.2f} ms host "
+              f"clock (the dcn hop staged through pinned host memory)")
+    print(f"16c: {len(procs)} processes in {secs:.1f} s; launches (path "
+          f"multiprocess, counted in the children): {launched} ({CARD})")
+    for k in ("combine", "cast"):
+        need(launched[k] > 0, f"16c: {k} never launched in the children")
+    return launched
+
+
+def sp_moe_phase(model, prompts) -> dict:
+    """16d, on 15a's model: an sp = 8 ``forward`` of the 4 x 1024 prompts
+    over a (1, 8) ("dp", "sp") mesh beside the unsharded kernel forward,
+    held with 15a's route checks; timed. Returns its launch counts."""
+    import torch
+    from accl_tpu_torch.parallel import make_mesh
+    B, S = prompts.shape
+    mesh = make_mesh((1, SP_MOE_W), ("dp", "sp"))
+    with torch.no_grad():
+        rec_full, rec_sp = [], []
+        with moe_hooks(record=rec_full):
+            full = model(prompts)
+        zero_attention_counters()
+        with moe_hooks(record=rec_sp):
+            sp = model(prompts, dp="dp", sp="sp", mesh=mesh)
+        torch.cuda.synchronize()
+        launches = attention_counters()
+        print(f"16d launches (path sp_moe): {launches}")
+        need(launches["attn_fwd"] + launches["attn_fwd_single"] > 0,
+             "16d: no attention forward kernel launched")
+        need_routes(launches, True, "16d")
+        hold_routes(f"16d sp = {SP_MOE_W} forward {B}x{S} vs the unsharded "
+                    f"forward", sp, full, rec_sp, rec_full)
+        del sp, full
+        sp_ms = host_ms(lambda: model(prompts, dp="dp", sp="sp", mesh=mesh))
+        full_ms = host_ms(lambda: model(prompts))
+    print(f"16d sp = {SP_MOE_W} forward {B}x{S}: {sp_ms:.2f} ms host clock "
+          f"(median of 3), {B * S / sp_ms * 1e3:.0f} tokens/s; the unsharded "
+          f"forward {full_ms:.2f} ms, {B * S / full_ms * 1e3:.0f} tokens/s "
+          f"({CARD})")
+    return launches
+
+
+def dryrun_phase() -> tuple[dict, dict]:
+    """16e: ``dryrun_multichip(8)`` on the card: its seven checks, their
+    seconds. Returns the attention and stream kernels' launch counts."""
+    import torch
+    from accl_tpu_torch.dryrun import CHECKS, dryrun_multichip
+    zero_attention_counters()
+    before = {k: f.launches for k, f in counters().items()}
+    t0 = time.perf_counter()
+    secs = dryrun_multichip(DRYRUN_RANKS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    attn = attention_counters()
+    stream = {k: f.launches - before[k] for k, f in counters().items()}
+    print(f"16e dryrun_multichip({DRYRUN_RANKS}) ok in {total:.2f} s: "
+          + ", ".join(f"{k} {s:.2f} s" for k, s in secs.items()))
+    print(f"16e launches (path dryrun): {attn}; {stream}")
+    need(tuple(secs) == CHECKS, f"16e: checks that did not run: "
+         f"{sorted(set(CHECKS) - set(secs))}")
+    need(attn["attn_fwd"] + attn["attn_fwd_single"] > 0,
+         "16e: no attention forward kernel launched")
+    for k in ("attn_bwd_dkv", "attn_bwd_dq", "attn_decode"):
+        need(attn[k] > 0, f"16e: {k} never launched")
+    need(stream["combine"] > 0, "16e: combine never launched")
+    return attn, stream
 
 
 def dtype_label(dt) -> str:
@@ -7006,12 +7505,8 @@ def driver_phase(recs):
                  f"phase 14 {path}: kernel {k} never launched")
     need(launched["tenants"].get("combine", 0) > 0,
          "phase 14 tenants: B1 never launched")
-    for r in recs:
-        for path, per in launched.items():
-            if r["name"] in per:
-                r.setdefault("launches_by_path",
-                             {"collectives": r["launches"]})
-                r["launches_by_path"][path] = per[r["name"]]
+    for path, per in launched.items():
+        add_path(recs, path, per)
 
 
 def phase(name: str):
@@ -7103,21 +7598,36 @@ def main() -> int:
          f"before the DDP phase (limit 2 GiB)")
     ddp = ddp_phase()
     by_path["ddp"] = {k: ddp[k] for k in sp_fwd}
-    for r in recs:
-        if r["name"] in ("combine", "cast"):
-            r.setdefault("launches_by_path", {"collectives": r["launches"]})
-            r["launches_by_path"]["ddp"] = ddp[r["name"]]
+    add_path(recs, "ddp", {k: ddp[k] for k in ("combine", "cast")})
     gc.collect()
     torch.cuda.empty_cache()
     # phase 15: the MoE Llama (15a, 15b), expert parallelism, the pipeline
     moe = moe_llama_phase()
     for path, counts in moe.items():
         by_path[path] = {k: counts[k] for k in sp_fwd}
-        for r in recs:
-            if r["name"] in counts:
-                r.setdefault("launches_by_path",
-                             {"collectives": r["launches"]})
-                r["launches_by_path"][path] = counts[r["name"]]
+        add_path(recs, path, counts)
+    # phase 16: checkpoint/resume, the multi-slice tier, the dry run
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 16a: checkpoint/resume on the training path")
+    held = torch.cuda.memory_allocated()
+    need(held < 2 * 2 ** 30, f"{held / 2 ** 30:.2f} GiB still allocated "
+         f"before phase 16a (limit 2 GiB)")
+    by_path["checkpoint"] = {k: v for k, v in checkpoint_phase().items()
+                             if k in sp_fwd}
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 16b: the multi-slice tier on 8 virtual ranks")
+    launched, digests = multislice_phase()
+    add_path(recs, "multislice", launched)
+    phase("phase 16c: two processes, one slice each, over gloo")
+    add_path(recs, "multiprocess", multiprocess_phase(digests))
+    phase("phase 16e: the dry run of every parallelism axis")
+    attn, stream = dryrun_phase()
+    by_path["dryrun"] = {k: attn[k] for k in sp_fwd}
+    add_path(recs, "dryrun", stream)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
     for r in attn_recs:
@@ -7135,4 +7645,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--slice-child"]:      # a process of phase 16c
+        sys.exit(slice_child(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

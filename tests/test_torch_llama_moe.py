@@ -14,7 +14,9 @@ bucket lists equal.
 The tensor-parallel cases are ``test_torch_llama_tp.py``'s: "mha-tp4"
 (4 KV heads on a (2, 4) ("dp", "tp") mesh) and "gqa-tp2" (2 KV heads on
 (2, 2)); the reference runs ``shard_params`` and ``forward`` / ``loss``
-with ``dp="dp", mesh=`` on the 8 virtual CPU devices.
+with ``dp="dp", mesh=`` on the 8 virtual CPU devices. The
+sequence-parallel cases run ``forward`` / ``loss`` with ``dp="dp",
+sp="sp"`` on a (2, 4) ("dp", "sp") mesh on both sides.
 """
 
 from __future__ import annotations
@@ -413,13 +415,110 @@ def test_tp_generate_matches_unsharded(case, tokens):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-def test_sequence_parallelism_with_experts_is_refused(tokens):
+# -- sequence parallelism with experts -----------------------------------------
+
+SP = dict(dp="dp", sp="sp")
+
+
+def _sp_ref_mesh() -> Mesh:
+    return Mesh(np.array(jax.devices("cpu")[:8]).reshape(2, 4), ("dp", "sp"))
+
+
+def _sp_on_mesh(mesh, params, tokens):
+    return (jax.device_put(params, NamedSharding(mesh, P())),
+            jax.device_put(tokens, NamedSharding(mesh, P("dp", "sp"))))
+
+
+class _RecordingLax:
+    """The reference's ``lax`` with ``top_k`` reporting each routed
+    group's probabilities and expert indices to the host."""
+
+    def __init__(self, picks: list):
+        self._picks = picks
+
+    def __getattr__(self, name):
+        return getattr(jax.lax, name)
+
+    def top_k(self, probs, k):
+        vals, idx = jax.lax.top_k(probs, k)
+        jax.debug.callback(
+            lambda p, i: self._picks.append((np.asarray(p), np.asarray(i))),
+            probs, idx)
+        return vals, idx
+
+
+def test_sp_forward_with_experts_matches_reference(tokens, monkeypatch):
+    """The sp forward (ring attention over a (2, 4) ("dp", "sp") mesh)
+    with expert blocks against the reference's sp forward, logits and aux
+    within TOL; every layer routes every sequence to the same experts."""
+    from accl_tpu.models import moe as RM
+    ref, params, _ = _pair()
+    mesh = _sp_ref_mesh()
+    want_probs = []
+    monkeypatch.setattr(RM, "lax", _RecordingLax(want_probs))
+    with set_mesh(mesh):
+        p, t = _sp_on_mesh(mesh, params, tokens)
+        want, want_aux = jax.jit(lambda p, t: ref._forward_with_aux(
+            p, t, mesh=mesh, **SP))(p, t)
+        want, want_aux = np.asarray(want), float(want_aux)
+    jax.effects_barrier()
+    monkeypatch.undo()
     port = _port()
-    mesh = cpu_mesh(8, (2, 4), ("dp", "sp"))
-    for call in (lambda: port(_t(tokens), dp="dp", sp="sp", mesh=mesh),
-                 lambda: port.loss(_t(tokens), dp="dp", sp="sp", mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A item 9b"):
-            call()
+    got_picks = []
+    top_k = M._top_k
+
+    def record(probs, k):
+        got_picks.append((probs, top_k(probs, k)))
+        return got_picks[-1][1]
+
+    monkeypatch.setattr(M, "_top_k", record)
+    with torch.no_grad():
+        got, aux = port._forward_with_aux(_t(tokens), mesh=cpu_mesh(
+            8, (2, 4), ("dp", "sp")), **SP)
+    assert got.shape == (B, S, 256)
+    _close(got, want, "sp logits")
+    _close(float(aux), want_aux, "sp aux")
+    # each of the port's (layer, sequence) groups is the reference's
+    # group of the nearest probabilities: the same experts, in order
+    L = TINY["n_layers"]
+    assert len(got_picks) == L and len(want_probs) == L * B
+    for i, (probs, idx) in enumerate(got_picks):
+        assert tuple(idx.shape) == (B, S, MOE["moe_top_k"])
+        for b in range(B):
+            j = min(range(len(want_probs)), key=lambda j: float(np.abs(
+                want_probs[j][0] - probs[b].numpy()).max()))
+            _close(probs[b], want_probs[j][0], f"layer {i} probs")
+            np.testing.assert_array_equal(
+                idx[b].numpy(), want_probs[j][1],
+                err_msg=f"layer {i}, sequence {b}")
+
+
+def test_sp_loss_and_gradients_with_experts_match_jax_grad(tokens):
+    """The sp loss (the aux term included) and every parameter's
+    gradient, the router's among them, against ``jax.grad`` of the
+    reference's sp loss on the same (2, 4) mesh; a train step with sp
+    returns that loss."""
+    ref, params, _ = _pair()
+    mesh = _sp_ref_mesh()
+    with set_mesh(mesh):
+        p, t = _sp_on_mesh(mesh, params, tokens)
+        want_loss, want = jax.jit(jax.value_and_grad(
+            lambda p, t: ref.loss(p, t, mesh=mesh, **SP)))(p, t)
+    want = jax.tree.map(np.asarray, want)
+    port = _port()
+    held = {}
+
+    class Probe(torch.optim.SGD):
+        def step(self, closure=None):
+            held.update(_grads(port))
+            return super().step(closure)
+
+    step = port.make_train_step(Probe(port.parameters(), lr=1e-3),
+                                mesh=cpu_mesh(8, (2, 4), ("dp", "sp")), **SP)
+    loss = step(_t(tokens))
+    _close(float(loss), float(want_loss))
+    _close_leaves(held, want)
+    assert float(np.abs(held["layers"]["router"]).max()) > 0
 
 
 def test_convert_round_trip_of_the_moe_leaves():
