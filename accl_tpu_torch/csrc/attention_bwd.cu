@@ -1,9 +1,10 @@
 // Attention backward kernels B10 and B11 (CUDA C++, sm_90a), the f32
-// route: the FlashAttention-2 backward on the CUDA cores, which rebuilds
-// the probabilities from the forward's per-row log-sum-exp (LSE) instead
-// of storing them. The C entry points below send bf16 operands (dtype
-// code 1) to the tensor-core kernels of attention_bwd_sm90.cu and f32
-// operands (code 0) to the kernels here: one kernel per route.
+// route: the FlashAttention-2 backward on the TF32 tensor cores with
+// 3xTF32 products, which rebuilds the probabilities from the forward's
+// per-row log-sum-exp (LSE) instead of storing them. The C entry points
+// below send bf16 operands (dtype code 1) to the wgmma kernels of
+// attention_bwd_sm90.cu and f32 operands (code 0) to the kernels here:
+// one kernel per route.
 //
 // Replace accl_tpu/ops/attention.py:
 //   B10 attn_bwd_dkv_kernel <- _bwd_dkv_kernel (pallas_call at :461):
@@ -11,282 +12,376 @@
 //       outside, as the reference's :522-523).
 //   B11 attn_bwd_dq_kernel  <- _bwd_dq_kernel (:492): dQ in q's dtype.
 //
-// For a score s = scale * q.k of a visible (query i, key j) pair:
-//   p = exp(s - lse_i), dp = do_i . v_j, ds = p * (dp - delta_i),
+// For a score s = q.k of a visible (query i, key j) pair:
+//   p = exp(scale*s - lse_i), dp = do_i . v_j, ds = p * (dp - delta_i),
 //   dv_j += p * do_i, dk_j += scale * ds * q_i, dq_i += scale * ds * k_j,
 // with delta_i = rowsum(do_i * o_i) computed by the caller from O in q's
 // dtype (attention.py:433). An invisible pair (key past Skv, query past
 // Sq, or key j > query i under the causal mask, top-left as the forward)
 // takes p = 0 through the mask, never through exp of a masked score.
 //
-// What bounds them on an H100: 8*D (B10: four products) and 6*D (B11:
-// three) operations per visible score against 2*D bytes per row, so at S
-// in the thousands they are bound by operations: 67 TFLOP/s of f32 on
-// the CUDA cores (f32 operands have no bf16 tensor-core route).
+// What bounds them on an H100: 8*D (B10: S, dP, dV, dK) and 6*D (B11: S,
+// dP, dQ) operations per visible score against 2*D*4 bytes per row, so
+// at S in the thousands they are bound by operations. On the CUDA cores
+// that is 67 TFLOP/s of f32 FMA; here every product runs three times on
+// the 495 TFLOP/s TF32 tensor cores (bound 3 * ops / 495 TFLOP/s, 2.7x
+// below the CUDA-core bound).
 //
-// Design: 256 threads per block, 64-key tiles (BK) against 32-row q tiles
-// (BQB). Both kernels share one step, `p_ds`: each thread forms S = Q K^T
-// and dP = dO V^T for 2 rows x 4 keys from shared memory, then p and ds
-// in registers.
-//   B10: one block per (q head row b*h, 64-key tile). K and V stay in
-//   shared memory; a loop over 32-row q tiles (from the tile that holds
-//   query k0 under the causal mask: the reference's first =
-//   (kj*block_k)//block_q) loads Q, dO, LSE and delta, then accumulates
-//   dV += P^T dO and dK += dS^T Q in registers (4 keys x D/16 columns per
-//   thread each); P and then dS pass through one shared tile.
-//   B11: one block per (b*h, 32-row q tile). Q and dO stay in shared
-//   memory; a loop over 64-key tiles up to the tile's causal frontier
-//   (from its END, attention.py:393) accumulates dQ += dS K in registers
-//   (2 rows x D/16 columns per thread).
-// Shared memory at D=128: K, V (2 x 33 KB), Q, dO (2 x 16.5 KB), one
-// 32x65 tile and the LSE/delta rows: 105 KB, two blocks per SM. Rows are
-// padded to an odd pitch so 16 threads reading 16 rows hit 16 banks. Rows
-// past Sq and keys past Skv are never read (zero rows in shared memory).
+// Numerics (tf32_mma.cuh): each f32 operand splits into hi = tf32(a) and
+// lo = tf32(a - hi) as it is loaded into registers, and a product is lo*hi
+// + hi*lo + hi*hi in f32 accumulators, which keeps all five products
+// (S, dP, dV, dK, dQ) near f32 accuracy: one TF32 product would move the
+// gradients some 25x past the f32 limit the card holds them to, three stay
+// some 20x inside it (tests/test_torch_attention_bwd.py emulates both).
+// The tensor core truncates as it accumulates, so a sum over thousands of
+// rows kept in one accumulator drifts toward zero by up to an ulp a
+// product; dV, dK and dQ therefore sum each streamed tile's 32 rows in a
+// fresh accumulator and add it to theirs with an f32 add.
 //
-// Arithmetic in f32: explicit fmaf (the library builds with
-// --fmad=false), expf without intrinsics; the scale of dK and dQ is
-// applied once to the sum.
+// Design: mma.sync m16n8k8 (tf32 x tf32 -> f32), 8 warps a block, one
+// block an SM (about 200 KB of shared memory at D = 128). wgmma takes
+// tf32 operands only K-major from shared memory and would need hi and lo
+// copies of every tile, past a block's shared memory at these tiles; one
+// f32 copy of each tile with the split made in registers fits.
+//   B10: one block per (b*h, 128-key tile), key tile 0 (the heaviest
+//   under the causal mask) dispatched first. K and V stay resident; a
+//   loop over 32-row q tiles from the tile that holds query k0 streams Q,
+//   dO, LSE and delta through two cp.async stages, so the next tile loads
+//   while this one computes. Each warp owns 16 keys: it forms S^T = K Q^T
+//   and dP^T = V dO^T (16 keys x 32 rows), P^T and dS^T in those
+//   registers, then dV += P^T dO and dK += dS^T Q (16 keys x D each, in
+//   registers for the whole loop). Keys are the rows, as in
+//   FlashAttention-2's backward, so P^T and dS^T already sit in the
+//   accumulators of the rows that need them: an accumulator holds columns
+//   2t and 2t+1 where the A operand wants t and t+4, and the reduction
+//   index is free to permute, so the second product reads B's rows in
+//   the same order (row 2t as k = t, 2t+1 as k = t+4) instead of moving
+//   P through shared memory.
+//   B11: one block per (b*h, 128-row q tile), the last q tile first. Q,
+//   dO, and the rows' LSE and delta stay resident; a loop over 32-key
+//   tiles up to the tile's causal frontier (from its END, attention.py:393)
+//   streams K and V through two stages. Each warp owns 16 rows: S = Q K^T,
+//   dP = dO V^T, then dQ += dS K (16 rows x D in registers).
+// A warp whose 16 rows see no pair of the streamed tile (under the causal
+// mask, or past Sq or Skv) skips its products. Rows are padded to a pitch
+// of D + 4 floats: the ldmatrix reads of the first products (8 rows of 16
+// bytes) and the 32-bit reads of the second (rows 2t, 2t+1, columns g)
+// both hit 32 distinct banks. Rows past Sq and keys past Skv are never
+// read (cp.async fills them with zeros).
+//
+// Arithmetic in f32: expf without intrinsics, the scale of dK and dQ
+// applied once to the sums. No atomics: one writer for each output
+// element, so two runs on the same inputs are bitwise equal.
+#include <type_traits>
+
 #include "attention_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BQB = 32;  // q rows per tile
+constexpr int RROWS = 16 * (NT / 32);  // resident rows a block: 16 a warp
+constexpr int SROWS = 32;              // streamed rows a stage
 
+// shared memory: two resident tiles (B10 K, V; B11 Q, dO), two stages of
+// two streamed tiles (B10 Q, dO; B11 K, V), and 2 * RROWS floats of LSE
+// and delta (B10: two stages of SROWS each)
 template <int D>
-constexpr int bwd_smem() {
-  return (2 * BK * (D + 1) + 2 * BQB * (D + 1) + BQB * (BK + 1) + 2 * BQB) *
-         4;
+struct BwdSmem {
+  static constexpr int P = D + 4;        // row pitch, floats
+  static constexpr int RES = RROWS * P;  // floats of a resident tile
+  static constexpr int STR = SROWS * P;  // floats of a streamed tile
+  static constexpr int BYTES = (2 * RES + 4 * STR + 2 * RROWS) * 4;
+  static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
+};
+
+// R rows of D floats (row r at src + r * D) into shared memory at pitch P
+// by 16-byte cp.async; rows at or past n are zeros, nothing past them read
+template <int D, int R, int P>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src,
+                                        int n) {
+  constexpr int CPR = D / 4, N = R * CPR;
+#pragma unroll
+  for (int p = 0; p < (N + NT - 1) / NT; ++p) {
+    const int i = threadIdx.x + p * NT;
+    if (N % NT != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = r < n;
+    cp_async16(dst + r * P + c, src + (ok ? r * D + c : 0), ok);
+  }
 }
 
-// The step shared by B10 and B11 on a BQB-row q tile (first row at query
-// position q0, nq valid) against a BK-key tile (first key k0, nk valid):
-// p and ds of this thread's rows ty*2+i and keys tx+16*j.
+// x (16 x 32) = A B^T over the D columns: A the 16 rows at a, B the SROWS
+// rows at b (pitch D + 4 each); x[j] holds columns 8j..8j+7. Operands by
+// ldmatrix: A's tile m is rows 8*(m&1).., words 4*(m>>1)..; a pair of B's
+// n-tiles is rows 8*(m>>1).., words 4*(m&1)..
 template <int D>
-__device__ __forceinline__ void p_ds(const float* sQ, const float* sDO,
-                                     const float* sK, const float* sV,
-                                     const float* sLse, const float* sDelta,
-                                     int q0, int nq, int k0, int nk,
-                                     bool causal, float scale, float p[2][4],
-                                     float ds[2][4]) {
-  constexpr int QP = D + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[2][4], dp[2][4];
+__device__ __forceinline__ void rows16_x_rows32(const float* a,
+                                                const float* b,
+                                                float (&x)[4][4]) {
+  constexpr int P = D + 4;
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  const float* pa = a + (r + 8 * (m & 1)) * P + 4 * (m >> 1);
+  const float* pb = b + (r + 8 * (m >> 1)) * P + 4 * (m & 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[2], oa[2], kb[4], vb[4];
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      qa[i] = sQ[(ty * 2 + i) * QP + d];
-      oa[i] = sDO[(ty * 2 + i) * QP + d];
+  for (int c = 0; c < D / 8; ++c) {
+    uint32_t w[4];
+    ldsm_x4(w, pa + 8 * c);
+    FragA fa;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fa.set(i, __uint_as_float(w[i]));
+#pragma unroll
+    for (int jj = 0; jj < 4; jj += 2) {
+      ldsm_x4(w, pb + 8 * jj * P + 8 * c);
+      FragB f0, f1;
+      f0.set(0, __uint_as_float(w[0]));
+      f0.set(1, __uint_as_float(w[1]));
+      f1.set(0, __uint_as_float(w[2]));
+      f1.set(1, __uint_as_float(w[3]));
+      mma_3xtf32(x[jj], fa, f0);
+      mma_3xtf32(x[jj + 1], fa, f1);
     }
+  }
+}
+
+// acc (16 x D) += x (16 x 32) B, B the SROWS rows at b (pitch D + 4). x is
+// an accumulator (columns 2t, 2t+1 of a thread) and serves as the A
+// operand with its columns standing as k = t, t + 4: B's rows are read in
+// the same order, row 8j + 2t as k = t and 8j + 2t + 1 as k = t + 4. The
+// tile's 32 rows sum in a fresh accumulator, added to acc with an f32
+// add: the tensor core's accumulation (truncating) spans 12 products, not
+// the whole sequence.
+template <int D>
+__device__ __forceinline__ void rows_accumulate(float (&x)[4][4],
+                                                const float* b,
+                                                float (&acc)[D / 8][4]) {
+  constexpr int P = D + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  FragA fa[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fa[j].set(0, x[j][0]);
+    fa[j].set(1, x[j][2]);
+    fa[j].set(2, x[j][1]);
+    fa[j].set(3, x[j][3]);
+  }
+  const float* row = b + 2 * t * P + g;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      kb[j] = sK[(tx + 16 * j) * QP + d];
-      vb[j] = sV[(tx + 16 * j) * QP + d];
+      FragB fb;
+      fb.set(0, row[8 * j * P + 8 * c]);
+      fb.set(1, row[(8 * j + 1) * P + 8 * c]);
+      mma_3xtf32(part, fa[j], fb);
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-        dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty * 2 + i;
-    const float lse = sLse[r], delta = sDelta[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const bool ok = r < nq && c < nk && (!causal || k0 + c <= q0 + r);
-      p[i][j] = ok ? expf(__fsub_rn(__fmul_rn(s[i][j], scale), lse)) : 0.0f;
-      ds[i][j] = __fmul_rn(p[i][j], __fsub_rn(dp[i][j], delta));
-    }
+    for (int e = 0; e < 4; ++e) acc[c][e] = __fadd_rn(acc[c][e], part[e]);
   }
 }
 
-// LSE and delta of a q tile's rows into shared memory (0 past nq).
-__device__ __forceinline__ void load_row_stats(float* sLse, float* sDelta,
-                                               const float* lse,
-                                               const float* delta, int nq) {
-  if (threadIdx.x < BQB) {
-    const int r = threadIdx.x;
-    sLse[r] = r < nq ? lse[r] : 0.0f;
-    sDelta[r] = r < nq ? delta[r] : 0.0f;
-  }
-}
-
-// B10: grid (key tiles, B*H). q/dout (B*H, Sq, D); k/v (B*Hkv, Skv, D);
+// B10: grid (B*H, key tiles). q/dout (B*H, Sq, D); k/v (B*Hkv, Skv, D);
 // lse/delta (B*H, Sq) f32; dk/dv (B*H, Skv, D) f32 per-q-head partials.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
-                    const T* __restrict__ k, const T* __restrict__ v,
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_dkv_kernel(const float* __restrict__ q,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ k, const float* __restrict__ v,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
                     int causal, float scale) {
-  constexpr int QP = D + 1, SP = BK + 1, CPT = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;              // BK x QP
-  float* sV = sK + BK * QP;      // BK x QP
-  float* sQ = sV + BK * QP;      // BQB x QP
-  float* sDO = sQ + BQB * QP;    // BQB x QP
-  float* sP = sDO + BQB * QP;    // BQB x SP: p, then ds
-  float* sLse = sP + BQB * SP;   // BQB
-  float* sDelta = sLse + BQB;    // BQB
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  using L = BwdSmem<D>;
+  constexpr int P = L::P, NC = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + L::RES;
+  float* sQ = sV + L::RES;         // stage s: Q at sQ + 2*s*STR, dO after
+  float* sStat = sQ + 4 * L::STR;  // stage s: LSE at sStat + 2*s*SROWS,
+                                   // delta after
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kw = 16 * (tid >> 5);  // the warp's first key in the tile
+  const int bh = blockIdx.x, k0 = blockIdx.y * RROWS;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nk = min(BK, Skv - k0);
-  const long long koff = (kvrow * Skv + k0) * D;
-  load_rows<T, D, BK, QP>(sK, k + koff, D, nk);
-  load_rows<T, D, BK, QP>(sV, v + koff, D, nk);
-  float adk[4][CPT], adv[4][CPT];  // keys ty*4+i, columns tx+16*j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) adk[i][j] = adv[i][j] = 0.0f;
-
+  const int nk = min(RROWS, Skv - k0);
+  const float* lse_row = lse + static_cast<long long>(bh) * Sq;
+  const float* delta_row = delta + static_cast<long long>(bh) * Sq;
   // under the causal mask queries before k0 see none of these keys
-  const int q_first = causal ? (k0 / BQB) * BQB : 0;
-  for (int q0 = q_first; q0 < Sq; q0 += BQB) {
-    const int nq = min(BQB, Sq - q0);
-    const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
-    const long long roff = static_cast<long long>(bh) * Sq + q0;
-    __syncthreads();  // the previous tile's reads of sQ, sDO, sP are done
-    load_rows<T, D, BQB, QP>(sQ, q + qoff, D, nq);
-    load_rows<T, D, BQB, QP>(sDO, dout + qoff, D, nq);
-    load_row_stats(sLse, sDelta, lse + roff, delta + roff, nq);
-    __syncthreads();
-    float p[2][4], ds[2][4];
-    p_ds<D>(sQ, sDO, sK, sV, sLse, sDelta, q0, nq, k0, nk, causal != 0,
-            scale, p, ds);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty * 2 + i) * SP + tx + 16 * j] = p[i][j];
-    __syncthreads();
-    // dV += P^T dO over the tile's rows
-    for (int r = 0; r < nq; ++r) {
-      float pa[4], ob[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sP[r * SP + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) ob[j] = sDO[r * QP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) adv[i][j] = fmaf(pa[i], ob[j], adv[i][j]);
+  const int q_first = causal ? (k0 / SROWS) * SROWS : 0;
+  const int n_it = q_first < Sq ? (Sq - q_first + SROWS - 1) / SROWS : 0;
+
+  auto load_q = [&](int s, int q0) {
+    const int nq = min(SROWS, Sq - q0);
+    const long long off = (static_cast<long long>(bh) * Sq + q0) * D;
+    float* dst = sQ + 2 * s * L::STR;
+    cp_rows<D, SROWS, P>(dst, q + off, nq);
+    cp_rows<D, SROWS, P>(dst + L::STR, dout + off, nq);
+    if (tid < 2 * SROWS) {
+      const int r = tid % SROWS;
+      const bool ok = r < nq;
+      cp_async4(sStat + 2 * s * SROWS + tid,
+                (tid < SROWS ? lse_row : delta_row) + q0 + (ok ? r : 0), ok);
     }
-    __syncthreads();
+  };
+  const long long koff = (kvrow * Skv + k0) * D;
+  cp_rows<D, RROWS, P>(sK, k + koff, nk);
+  cp_rows<D, RROWS, P>(sV, v + koff, nk);
+  if (n_it > 0) load_q(0, q_first);
+  cp_async_commit();
+
+  float adk[NC][4], adv[NC][4];  // keys kw+g, kw+g+8; columns 8c+2t, +1
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1, q0 = q_first + it * SROWS;
+    const int nq = min(SROWS, Sq - q0);
+    if (it + 1 < n_it) load_q(s ^ 1, q0 + SROWS);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) landed
+    __syncthreads();
+    // warp-uniform: do the warp's keys see a row of this tile?
+    if (kw < nk && (!causal || k0 + kw <= q0 + nq - 1)) {
+      const float* cQ = sQ + 2 * s * L::STR;
+      const float* cDO = cQ + L::STR;
+      const float* cLse = sStat + 2 * s * SROWS;
+      const float* cDelta = cLse + SROWS;
+      float x[4][4], y[4][4];  // S^T, then P^T; dP^T, then dS^T
+      rows16_x_rows32<D>(sK + kw * P, cQ, x);
+      rows16_x_rows32<D>(sV + kw * P, cDO, y);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        sP[(ty * 2 + i) * SP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dK += dS^T Q (scaled once at the end)
-    for (int r = 0; r < nq; ++r) {
-      float da[4], qb[CPT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = sP[r * SP + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) qb[j] = sQ[r * QP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) adk[i][j] = fmaf(da[i], qb[j], adk[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = kw + g + 8 * (e >> 1), r = 8 * j + 2 * t + (e & 1);
+          const bool ok =
+              r < nq && key < nk && (!causal || k0 + key <= q0 + r);
+          x[j][e] = ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), cLse[r]))
+                       : 0.0f;
+          y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], cDelta[r]));
+        }
+      rows_accumulate<D>(x, cDO, adv);  // dV += P^T dO
+      rows_accumulate<D>(y, cQ, adk);   // dK += dS^T Q (scaled at the end)
     }
+    __syncthreads();  // every warp is done with stage s before it reloads
   }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = ty * 4 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int key = kw + g + 8 * h;
     if (key >= nk) continue;
     const long long o = (static_cast<long long>(bh) * Skv + k0 + key) * D;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      dk[o + tx + 16 * j] = __fmul_rn(adk[i][j], scale);
-      dv[o + tx + 16 * j] = adv[i][j];
+    for (int c = 0; c < NC; ++c) {
+      *reinterpret_cast<float2*>(dk + o + 8 * c + 2 * t) =
+          make_float2(__fmul_rn(adk[c][2 * h], scale),
+                      __fmul_rn(adk[c][2 * h + 1], scale));
+      *reinterpret_cast<float2*>(dv + o + 8 * c + 2 * t) =
+          make_float2(adv[c][2 * h], adv[c][2 * h + 1]);
     }
   }
 }
 
-// B11: grid (q tiles, B*H); the same operands; dq (B*H, Sq, D) in T.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ dout,
-                   const T* __restrict__ k, const T* __restrict__ v,
+// B11: grid (B*H, q tiles); the same operands; dq (B*H, Sq, D) f32.
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_dq_kernel(const float* __restrict__ q,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq,
+                   const float* __restrict__ delta, float* __restrict__ dq,
                    int H, int Hkv, int Sq, int Skv, int causal, float scale) {
-  constexpr int QP = D + 1, SP = BK + 1, CPT = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;              // BK x QP
-  float* sV = sK + BK * QP;      // BK x QP
-  float* sQ = sV + BK * QP;      // BQB x QP
-  float* sDO = sQ + BQB * QP;    // BQB x QP
-  float* sDS = sDO + BQB * QP;   // BQB x SP
-  float* sLse = sDS + BQB * SP;  // BQB
-  float* sDelta = sLse + BQB;    // BQB
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQB;
+  using L = BwdSmem<D>;
+  constexpr int P = L::P, NC = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sDO = sQ + L::RES;
+  float* sK = sDO + L::RES;          // stage s: K at sK + 2*s*STR, V after
+  float* sLse = sK + 4 * L::STR;     // RROWS
+  float* sDelta = sLse + RROWS;      // RROWS
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int qw = 16 * (tid >> 5);  // the warp's first row in the tile
+  const int bh = blockIdx.x;
+  // the last q tile, the heaviest under the causal mask, first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * RROWS;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nq = min(BQB, Sq - q0);
+  const int nq = min(RROWS, Sq - q0);
   // causal frontier from the q tile's end: keys past its last row unseen
   const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
+  const int n_it = (kv_end + SROWS - 1) / SROWS;
+  const long long kvoff = kvrow * Skv * D;
+
+  auto load_kv = [&](int s, int kt0) {
+    const int n = min(SROWS, kv_end - kt0);
+    float* dst = sK + 2 * s * L::STR;
+    cp_rows<D, SROWS, P>(dst, k + kvoff + static_cast<long long>(kt0) * D, n);
+    cp_rows<D, SROWS, P>(dst + L::STR,
+                         v + kvoff + static_cast<long long>(kt0) * D, n);
+  };
   const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
   const long long roff = static_cast<long long>(bh) * Sq + q0;
-  load_rows<T, D, BQB, QP>(sQ, q + qoff, D, nq);
-  load_rows<T, D, BQB, QP>(sDO, dout + qoff, D, nq);
-  load_row_stats(sLse, sDelta, lse + roff, delta + roff, nq);
-  float acc[2][CPT];  // rows ty*2+i, columns tx+16*j
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
+  cp_rows<D, RROWS, P>(sQ, q + qoff, nq);
+  cp_rows<D, RROWS, P>(sDO, dout + qoff, nq);
+  for (int i = tid; i < 2 * RROWS; i += NT) {
+    const int r = i % RROWS;
+    const bool ok = r < nq;
+    cp_async4(sLse + i, (i < RROWS ? lse : delta) + roff + (ok ? r : 0), ok);
+  }
+  if (n_it > 0) load_kv(0, 0);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    const int nk = min(BK, kv_end - k0);
-    const long long koff = (kvrow * Skv + k0) * D;
-    __syncthreads();  // the previous tile's reads of sK, sDS are done
-    load_rows<T, D, BK, QP>(sK, k + koff, D, nk);
-    load_rows<T, D, BK, QP>(sV, v + koff, D, nk);
-    __syncthreads();
-    float p[2][4], ds[2][4];
-    p_ds<D>(sQ, sDO, sK, sV, sLse, sDelta, q0, nq, k0, nk, causal != 0,
-            scale, p, ds);
+  float acc[NC][4];  // rows qw+g, qw+g+8; columns 8c+2t, +1
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1, kt0 = it * SROWS;
+    const int nk = min(SROWS, kv_end - kt0);
+    if (it + 1 < n_it) load_kv(s ^ 1, kt0 + SROWS);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and Q, dO, the stats) landed
+    __syncthreads();
+    // warp-uniform: do the warp's rows see a key of this tile?
+    if (qw < nq && (!causal || kt0 <= q0 + qw + 15)) {
+      const float* cK = sK + 2 * s * L::STR;
+      const float* cV = cK + L::STR;
+      float x[4][4], y[4][4];  // S, then P; dP, then dS
+      rows16_x_rows32<D>(sQ + qw * P, cK, x);
+      rows16_x_rows32<D>(sDO + qw * P, cV, y);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        sDS[(ty * 2 + i) * SP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dQ += dS K (scaled once at the end)
-    for (int c = 0; c < nk; ++c) {
-      float da[2], kb[CPT];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) da[i] = sDS[(ty * 2 + i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kb[j] = sK[c * QP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(da[i], kb[j], acc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int r = qw + g + 8 * (e >> 1), key = 8 * j + 2 * t + (e & 1);
+          const bool ok =
+              r < nq && key < nk && (!causal || kt0 + key <= q0 + r);
+          x[j][e] = ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), sLse[r]))
+                       : 0.0f;
+          y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], sDelta[r]));
+        }
+      rows_accumulate<D>(y, cK, acc);  // dQ += dS K (scaled at the end)
     }
+    __syncthreads();  // every warp is done with stage s before it reloads
   }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty * 2 + i;
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw + g + 8 * h;
     if (r >= nq) continue;
+    float* o = dq + qoff + static_cast<long long>(r) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      st(dq + qoff + r * D + tx + 16 * j, __fmul_rn(acc[i][j], scale));
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float2*>(o + 8 * c) =
+          make_float2(__fmul_rn(acc[c][2 * h], scale),
+                      __fmul_rn(acc[c][2 * h + 1], scale));
   }
 }
 
@@ -296,14 +391,15 @@ cudaError_t launch_bwd_dkv(const void* q, const void* dout, const void* k,
                            void* dk, void* dv, int B, int H, int Hkv, int Sq,
                            int Skv, int causal, float scale,
                            cudaStream_t st) {
-  constexpr int smem = bwd_smem<D>();
-  auto kern = attn_bwd_dkv_kernel<T, D>;
+  static_assert(std::is_same<T, float>::value, "the f32 route");
+  constexpr int smem = BwdSmem<D>::BYTES;
+  auto kern = attn_bwd_dkv_kernel<D>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Skv + BK - 1) / BK, B * H);
+  dim3 grid(B * H, (Skv + RROWS - 1) / RROWS);
   kern<<<grid, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(dout),
-      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(q), static_cast<const float*>(dout),
+      static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Skv,
       causal, scale);
@@ -315,16 +411,17 @@ cudaError_t launch_bwd_dq(const void* q, const void* dout, const void* k,
                           const void* v, const void* lse, const void* delta,
                           void* dq, int B, int H, int Hkv, int Sq, int Skv,
                           int causal, float scale, cudaStream_t st) {
-  constexpr int smem = bwd_smem<D>();
-  auto kern = attn_bwd_dq_kernel<T, D>;
+  static_assert(std::is_same<T, float>::value, "the f32 route");
+  constexpr int smem = BwdSmem<D>::BYTES;
+  auto kern = attn_bwd_dq_kernel<D>;
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + BQB - 1) / BQB, B * H);
+  dim3 grid(B * H, (Sq + RROWS - 1) / RROWS);
   kern<<<grid, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(dout),
-      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(q), static_cast<const float*>(dout),
+      static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Hkv, Sq, Skv, causal, scale);
+      static_cast<float*>(dq), H, Hkv, Sq, Skv, causal, scale);
   return cudaGetLastError();
 }
 

@@ -26,8 +26,10 @@ PyTorch versions (``*_ref``).
   kernel each: bf16 operands run on the tensor cores
   (``attn_bwd_{dkv,dq}_wgmma_kernel`` of ``csrc/attention_bwd_sm90.cu``:
   wgmma and TMA; P and dS rounded to bf16 before the second products,
-  see ``bwd_rounding_magnitudes``), f32 operands on the CUDA cores
-  (``attn_bwd_{dkv,dq}_kernel`` of ``csrc/attention_bwd.cu``).
+  see ``bwd_rounding_magnitudes``), f32 operands on the TF32 tensor
+  cores with 3xTF32 products (``attn_bwd_{dkv,dq}_kernel`` of
+  ``csrc/attention_bwd.cu``: mma.sync, each f32 operand split into two
+  TF32 parts, so the products keep about f32 accuracy).
   ``flash_attention`` is differentiable through ``_FlashAttention`` (the
   counterpart of the reference's ``custom_vjp``), whose backward runs
   them.

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one card: the stream kernels B1-B7,
-B9, B12 decode and the 32-layer Llama-3-8B forward on 4x512 tokens (the
-serving path's B9 call).
+B9, B12 decode, the 32-layer Llama-3-8B forward on 4x512 tokens (the
+serving path's B9 call) and the attention backward B10, B11.
 
 Run from the root of a checkout:
 
-    python3 chip_compare.py [--part all|stream|model] [TREE ...]
+    python3 chip_compare.py [--part all|stream|model|bwd] [TREE ...]
 
 ``--part stream`` times the stream kernels only (no model is built);
-``--part model`` B9, decode and the forward only; the default is both.
+``--part model`` B9, decode and the forward only; ``--part bwd`` B10
+and B11 only; the default is all three.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -40,7 +41,14 @@ card's name and power limit and:
 - the 32-layer bf16 Llama-3-8B ``forward`` (random weights from a seed)
   on 4x512 random tokens, which runs B9 once per layer: host-clock ms
   (median of 3 after one warm-up), then one more call under
-  torch.profiler: its kernel time, and B9's share of it.
+  torch.profiler: its kernel time, and B9's share of it;
+- the backward part, at phase 8's shape of ``chip_smoke.py`` (B=4,
+  H=32, Hkv=8, S=2048, D=128, causal): B10 ``flash_attention_bwd_dkv``
+  and B11 ``flash_attention_bwd_dq`` in f32 and bf16 on the operands the
+  forward gives (its LSE, delta from O), the median device time of 20
+  launches and the largest error against the plain version, and
+  PyTorch's SDPA backward (dq, dk and dv together, f32 and bf16, with
+  ``allow_tf32`` off), the pair's yardstick.
 
 It uses only the entry points every version of the port has
 (``ops.combine.combine``, ``ops.compression.cast``, ``fp8_scale``,
@@ -60,7 +68,7 @@ import time
 
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PARTS = ("all", "stream", "model")
+PARTS = ("all", "stream", "model", "bwd")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -259,6 +267,45 @@ def model_part(out: dict) -> None:
                             "b9_launches": launches}
 
 
+def bwd_part(out: dict) -> None:
+    """B10, B11 and SDPA's backward at phase 8's shape (module
+    docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, Hkv, S, D = 4, 32, 8, 2048, 128
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        q, do = (torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g).to(dt)
+                for _ in range(2))
+        o, lse = A.flash_attention_fwd(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1).reshape(B * H, S)
+        args = (q, do, k, v, lse, delta, True, D ** -0.5)
+        for key, fn, ref in (
+                ("b10", A.flash_attention_bwd_dkv,
+                 A.flash_attention_bwd_dkv_ref),
+                ("b11", lambda *a: (A.flash_attention_bwd_dq(*a),),
+                 lambda *a: (A.flash_attention_bwd_dq_ref(*a),))):
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(fn(*args), ref(*args)))
+            out[f"{key}_{name}"] = {"ms": time_ms(
+                lambda: fn(*args)), "max_abs_err": err}  # noqa: B023
+        out[f"pair_{name}_ms"] = (out[f"b10_{name}"]["ms"]
+                                  + out[f"b11_{name}"]["ms"])
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            enable_gqa=True)
+        out[f"sdpa_bwd_{name}_ms"] = time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True))  # noqa: B023
+        del q, do, k, v, o, lse, delta, args, lq, lk, lv, lo
+        torch.cuda.empty_cache()
+
+
 def one(tree: str, part: str) -> dict:
     """The measurements of one tree's port (in this process)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -270,6 +317,8 @@ def one(tree: str, part: str) -> dict:
         stream_part(out)
     if part in ("all", "model"):
         model_part(out)
+    if part in ("all", "bwd"):
+        bwd_part(out)
     return out
 
 

@@ -123,17 +123,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    B8, B9 and B12 prefill; ``attention_bwd_sm90.cu``) hold HGMMA
    instructions in their SASS (``cuobjdump -sass``), with no ptxas spills
    and no wgmma that ptxas serialized (the split-KV decode kernel's
-   registers and spills printed beside them); B10 (``attn_bwd_dkv``) and
+   registers and spills printed beside them), and the f32 route of B10
+   and B11 (``attention_bwd.cu``, 3xTF32) holds TF32 HMMA instructions
+   with no spills; B10 (``attn_bwd_dkv``) and
    B11 (``attn_bwd_dq``) against their plain versions on an edge corpus
    (MHA/GQA/MQA, causal and not, ragged S, Sq != Skv both ways, D 16-128,
    f32 and bf16) and at the full Llama-3-8B width (B=4, H=32, Hkv=8,
    S=2048, D=128) in bf16 and f32, timed beside PyTorch's SDPA backward
    (timed only), bf16 under the limit of its rounding of P and dS
-   (``BWD_TOL``); the autograd Function's gradients (B8 + B10 + B11)
+   (``BWD_TOL``), the f32 route's repeat bitwise equal and its time
+   beside both of its bounds (the CUDA cores' f32 rate and three TF32
+   products at the tensor cores' rate); the autograd Function's gradients (B8 + B10 + B11)
    against torch autograd through dense attention at the same shape, bf16
    (relative L2, SDPA's beside it) and f32. Then a gradient check: a
    2-layer f32 Llama-3-8B, flash against dense, on (1, 2048): the loss
-   and every parameter's gradient.
+   and every parameter's gradient; the flash run is the f32 route's path
+   (``grad_check``), every B10 and B11 launch there on 3xTF32.
 9. Training: Llama-3-8B width, 8 of 32 layers, f32 parameters and bf16
    activations, ``make_train_step`` with Adam(lr=1e-4), 4 steps on one
    (2, 2048) batch: finite losses that fall, B8/B10/B11 once per layer
@@ -155,7 +160,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    over the whole sequence (B8, ``_FlashAttention``), under RING_TOL;
    Ulysses (``ulysses_attention``: two alltoalls a side, one B8 launch
    over all ranks) against the unsharded B8 and its gradients, expected
-   bitwise; launches (W(W+1)/2 causal, W^2 not), exchange rounds (W - 1
+   bitwise; in f32, the unsharded B10 and B11 against their plain
+   versions (run one kv head at a time) under phase 8's BWD_TOL, the
+   longest sequence the f32 route is held to it at; launches (W(W+1)/2
+   causal, W^2 not), exchange rounds (W - 1
    each way) and the logical K/V and alltoall bytes a rank; device ms
    (CUDA events behind a GPU sleep) and host ms of the ring forward and
    backward, Ulysses, the unsharded B8, B10 and B11 and SDPA (timed
@@ -368,6 +376,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -387,6 +396,7 @@ N = 64 << 20               # fp32 elements per rank (256 MiB)
 QBLOCK = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 SEED = 20261016
 T_START = time.perf_counter()   # the phase lines' clock
@@ -2108,7 +2118,9 @@ SERVE_DENSE_REL = 2.0 ** -4
 SERVE_B9_LEN = 512
 LAUNCH_PATH = {"attn_fwd": "serving", "attn_fwd_single": "serving",
                "attn_decode": "serving", "attn_prefill": "serving",
-               "attn_bwd_dkv": "training", "attn_bwd_dq": "training"}
+               "attn_bwd_dkv": "training", "attn_bwd_dq": "training",
+               "attn_bwd_dkv_tf32": "grad_check",
+               "attn_bwd_dq_tf32": "grad_check"}
 
 
 def attention_counters() -> dict:
@@ -2873,6 +2885,11 @@ def disaggregated_phase(model, prompts, new: int) -> dict:
 # -- attention backward and the Llama training path --------------------------
 
 ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"          # f32 route
+# the f32 route's kernels (mangled: the name's length before it, which
+# keeps the wgmma kernels out) and the SASS of a TF32 mma.sync
+TF32_KERNELS = {"attn_bwd_dkv": r"\d+attn_bwd_dkv_kernel",
+                "attn_bwd_dq": r"\d+attn_bwd_dq_kernel"}
+TF32_HMMA = r"HMMA\.\S*TF32"
 ATTN_BWD_SM90_SRC = "accl_tpu_torch/csrc/attention_bwd_sm90.cu"  # bf16 route
 WGMMA_KERNELS = ("attn_fwd_wgmma_kernel", "attn_fwd_single_wgmma_kernel",
                  "attn_bwd_dkv_wgmma_kernel", "attn_bwd_dq_wgmma_kernel")
@@ -2965,10 +2982,12 @@ def hold_bwd_outputs(args, outs, what: str) -> tuple[float, float]:
     return w
 
 
+@functools.lru_cache(maxsize=1)
 def sass_and_ptxas():
     """The built library's SASS, one string per function (its first line
     the mangled name), and ptxas's report of each kernel from the build
-    log: mangled name -> [registers, spill bytes]."""
+    log: mangled name -> [registers, spill bytes]. Read once a run (the
+    library does not change within one); callers only read them."""
     import re
     import shutil
     from accl_tpu_torch import _build
@@ -3122,6 +3141,38 @@ def wgmma_kernels_checked():
                 "a tensor-core kernel's wgmma were serialized by ptxas")
 
 
+def tf32_kernels_checked():
+    """The f32 route of B10 and B11 in the built library: every
+    instantiation (D 16/32/64/128) holds TF32 HMMA instructions (mma.sync
+    on the tensor cores) and ptxas reports no spills. Prints the counts
+    and the registers by head dim; fails otherwise."""
+    import re
+    funcs, ptx = sass_and_ptxas()
+    for name, pat in TF32_KERNELS.items():
+        bodies = {f.split("\n", 1)[0].strip(): f for f in funcs
+                  if re.search(pat, f.split("\n", 1)[0])}
+        need(len(bodies) == 4, f"{name}: {len(bodies)} f32-route "
+             f"instantiations in the SASS, want 4 (D 16/32/64/128)")
+        counts = {}
+        for head, body in bodies.items():
+            m = re.search(r"ILi(\d+)E", head)
+            counts[int(m.group(1)) if m else head] = len(
+                re.findall(TF32_HMMA, body))
+        need(min(counts.values()) > 0, f"{name}: an f32-route "
+             f"instantiation without TF32 HMMA ({counts})")
+        info = {k: v for k, v in ptx.items() if re.search(pat, k)}
+        need(len(info) == len(bodies), f"{name}: {len(info)} ptxas "
+             f"reports for {len(bodies)} kernels")
+        need(all(v[1] == 0 for v in info.values()),
+             f"{name}: ptxas spills {info}")
+        regs = {int(m.group(1)): v[0] for k, v in info.items()
+                for m in [re.search(r"ILi(\d+)E", k)] if m}
+        print(f"{name} f32 route ({ATTN_BWD_SRC}, 3xTF32 on mma.sync): "
+              f"{len(bodies)} instantiations, TF32 HMMA instructions by "
+              f"head dim {dict(sorted(counts.items()))}; ptxas registers "
+              f"{dict(sorted(regs.items()))}, no spills")
+
+
 def bwd_operands(q, k, v, do, causal):
     """The forward's O and LSE (B8/B9) and delta = rowsum(do * o) from O
     in q's dtype, as ``_FlashAttention.backward`` forms them."""
@@ -3130,6 +3181,38 @@ def bwd_operands(q, k, v, do, causal):
     o, lse = A.flash_attention_fwd(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1).reshape(B * H, Sq)
     return o, lse, delta
+
+
+def hold_bwd_by_kv_head(args, what: str) -> tuple[float, float]:
+    """B10 and B11 on f32 ``args`` (the wrappers' operands) against their
+    plain versions under BWD_TOL, the plain versions run one kv head at a
+    time: a long sequence's dense scores for every head would not fit."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    q, do, k, v, lse, delta, causal, scale = args
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    plain = {"dk": [], "dv": [], "dq": []}
+    for j in range(Hkv):
+        hs = slice(j * g, (j + 1) * g)
+        sub = (q[:, hs], do[:, hs], k[:, j:j + 1], v[:, j:j + 1],
+               lse.view(B, H, Sq)[:, hs].reshape(B * g, Sq),
+               delta.view(B, H, Sq)[:, hs].reshape(B * g, Sq), causal, scale)
+        dk, dv = A.flash_attention_bwd_dkv_ref(*sub)
+        plain["dk"].append(dk.view(B, g, Skv, D))
+        plain["dv"].append(dv.view(B, g, Skv, D))
+        plain["dq"].append(A.flash_attention_bwd_dq_ref(*sub))
+        del sub, dk, dv
+        torch.cuda.empty_cache()
+    plain = {part: torch.cat(ts, 1) for part, ts in plain.items()}
+    got = dict(zip(("dk", "dv"), A.flash_attention_bwd_dkv(*args)))
+    got["dq"] = A.flash_attention_bwd_dq(*args)
+    w = (0.0, 0.0)
+    for part in ("dk", "dv", "dq"):
+        want = plain[part].reshape(got[part].shape)
+        w = max_pair(w, hold_bwd(got[part], want, f"{what} {part}", part))
+    return w
 
 
 def hold_bwd_call(q, do, k, v, lse, delta, causal, what):
@@ -3191,11 +3274,15 @@ def dense_topleft(q, k, v, causal=True):
 
 def attention_bwd_records():
     """B10 and B11 at the full Llama-3-8B width (B=4, H=32, Hkv=8, S=2048,
-    D=128, causal), bf16 (the table's rows) and f32, against their plain
-    versions, timed beside PyTorch's SDPA backward (dq, dk and dv
-    together: the library time of the pair; timed only). Then the whole
-    Function's gradients against torch autograd through dense attention
-    at the same shape: bf16 (relative L2, SDPA's beside it) and f32."""
+    D=128, causal), bf16 and f32 (the table's rows, the f32 ones named
+    ``*_tf32``), against their plain versions, each kernel run twice on
+    the same inputs (the f32 route must repeat bitwise), timed beside
+    PyTorch's SDPA backward (dq, dk and dv together: the library time of
+    the pair; timed only). The f32 route's bound is three TF32 products
+    at the tensor cores' rate; the CUDA cores' f32 bound is printed
+    beside it. Then the whole Function's gradients against torch autograd
+    through dense attention at the same shape: bf16 (relative L2, SDPA's
+    beside it) and f32."""
     import torch
     import torch.nn.functional as F
     from accl_tpu_torch.ops import attention as A
@@ -3214,8 +3301,6 @@ def attention_bwd_records():
         k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g).to(dt)
                 for _ in range(2))
         _o, lse, delta = bwd_operands(q, k, v, do, True)
-        err, ratio = hold_bwd_call(q, do, k, v, lse, delta, True,
-                                   f"full width {dt}")
         scale = D ** -0.5
         args = (q, do, k, v, lse, delta, True, scale)
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -3226,35 +3311,63 @@ def attention_bwd_records():
         del lo, lq, lk, lv
         es = q.element_size()
         qbytes, kvbytes = B * H * S * D * es, B * Hkv * S * D * es
-        rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        bf16 = dt == torch.bfloat16
+        pair_ms, worst = 0.0, (0.0, 0.0)
         for name, fn, plain, ops_per, out_bytes in (
                 ("attn_bwd_dkv", A.flash_attention_bwd_dkv,
                  A.flash_attention_bwd_dkv_ref, 8, 2 * B * H * S * D * 4),
                 ("attn_bwd_dq", A.flash_attention_bwd_dq,
                  A.flash_attention_bwd_dq_ref, 6, qbytes)):
+            outs = fn(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            k_err, k_ratio = hold_bwd_outputs(args, outs, f"full width "
+                                              f"{dt} {name}")
+            worst = max_pair(worst, (k_err, k_ratio))
+            again = fn(*args)
+            again = again if isinstance(again, tuple) else (again,)
+            repeat = all(torch.equal(a, b) for a, b in zip(outs, again))
+            need(repeat or bf16, f"{name} f32: a repeat on the same inputs "
+                 f"is not bitwise equal")
+            del outs, again
             ms = time_ms(lambda: fn(*args))  # noqa: B023
             plain_ms = time_ms(lambda: plain(*args), reps=5)  # noqa: B023
+            pair_ms += ms
             nbytes = 2 * qbytes + 2 * kvbytes + 2 * 4 * B * H * S + out_bytes
-            bms, by = bound_ms(nbytes, ops_per * D * n, rate)
-            src = ATTN_BWD_SM90_SRC if dt == torch.bfloat16 else ATTN_BWD_SRC
-            print(f"kernel {name} {str(dt)[6:]} ({src}) B={B} H={H} "
-                  f"Hkv={Hkv} D={D} "
-                  f"S={S} causal: {ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa "
-                  f"backward (dq, dk, dv together) {library_ms:.4f} ms, bound "
-                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound); B10+B11 "
-                  f"max abs err vs plain {err}, largest error/limit "
-                  f"{ratio:.3f} ({BWD_TOL})")
-            if dt == torch.bfloat16:
-                recs.append({"name": name, "route": "cuda",
-                             "source": ATTN_BWD_SM90_SRC,
-                             "replaces": {"attn_bwd_dkv":
-                                          "accl_tpu/ops/attention.py:461",
-                                          "attn_bwd_dq":
-                                          "accl_tpu/ops/attention.py:492"}[
-                                              name],
-                             "launches": 0, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bms,
-                             "bound_by": by, "library_ms": library_ms})
+            ops = ops_per * D * n
+            if bf16:
+                bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+                src, route = ATTN_BWD_SM90_SRC, "tensor cores, wgmma"
+                bounds = (f"bound {bms:.4f} ms by {by}, {bms / ms:.1%} of "
+                          f"bound")
+            else:
+                # three TF32 products a product (3xTF32); beside it the
+                # CUDA cores' f32 rate for the same products
+                bms, by = bound_ms(nbytes, 3 * ops, TF32_OPS_PER_S)
+                core_ms, _ = bound_ms(nbytes, ops, F32_OPS_PER_S)
+                src, route = ATTN_BWD_SRC, "tensor cores, 3xTF32"
+                bounds = (f"bound {bms:.4f} ms by {by} at 3 x ops / 495 "
+                          f"TFLOP/s, {bms / ms:.1%} of it; CUDA-core bound "
+                          f"{core_ms:.4f} ms at ops / 67 TFLOP/s, "
+                          f"{core_ms / ms:.1%} of it")
+            print(f"kernel {name} {str(dt)[6:]} ({src}; {route}) B={B} "
+                  f"H={H} Hkv={Hkv} D={D} S={S} causal: {ms:.4f} ms (plain "
+                  f"{plain_ms:.4f} ms, sdpa backward (dq, dk, dv together) "
+                  f"{library_ms:.4f} ms, {bounds}); max abs err vs plain "
+                  f"{k_err}, largest error/limit {k_ratio:.3f}; a repeat "
+                  f"bitwise equal: {repeat} ({BWD_TOL})")
+            recs.append({"name": name if bf16 else name + "_tf32",
+                         "route": "cuda", "source": src,
+                         "replaces": {"attn_bwd_dkv":
+                                      "accl_tpu/ops/attention.py:461",
+                                      "attn_bwd_dq":
+                                      "accl_tpu/ops/attention.py:492"}[name],
+                         "launches": 0, "max_abs_err": k_err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": library_ms})
+        print(f"B10 + B11 {str(dt)[6:]}: {pair_ms:.4f} ms, "
+              f"{pair_ms / library_ms:.3f}x SDPA's backward "
+              f"({library_ms:.4f} ms); B10+B11 max abs err vs plain "
+              f"{worst[0]}, largest error/limit {worst[1]:.3f}")
         del q, do, k, v, lse, delta, args
         torch.cuda.empty_cache()
 
@@ -3317,7 +3430,8 @@ def grad_check_phase():
     of 4 ranks on the sp axis (ring attention, f32 B9, B10 and B11 a
     visible block) against the unsharded flash run. Phase 11b: the same
     over a tp axis of each TP_GRAD_SIZES size (B8, B10 and B11 once a
-    layer over every rank's head shard)."""
+    layer over every rank's head shard). Returns the flash run's
+    attention launches (the f32 path of B10 and B11: 3xTF32)."""
     import dataclasses
     import torch
     from accl_tpu_torch.models import Llama, LlamaConfig
@@ -3335,6 +3449,7 @@ def grad_check_phase():
                                ("sp", "flash", dict(sp="sp", mesh=sp_mesh))):
         if run == "sp":
             phase("phase 10c: sequence-parallel gradients, f32")
+        if run != "dense":
             zero_attention_counters()
         model.config = dataclasses.replace(cfg, attention=attention)
         model.zero_grad(set_to_none=True)
@@ -3342,6 +3457,8 @@ def grad_check_phase():
         loss.backward()
         runs[run] = (loss.item(), {k: p.grad for k, p in
                                    model.named_parameters()})
+        if run == "flash":
+            flash_launches = attention_counters()
     model.config = cfg
     sp_launches = attention_counters()
 
@@ -3364,6 +3481,12 @@ def grad_check_phase():
              f"differ")
 
     compare("flash", "dense", "grad check, flash vs dense")
+    print(f"grad check launches (path grad_check, the flash run): "
+          f"{flash_launches}")
+    for key in ("attn_bwd_dkv", "attn_bwd_dq"):
+        need(flash_launches[key] == cfg.n_layers, f"grad check: {key} "
+             f"launched {flash_launches[key]} times, want {cfg.n_layers}")
+    need_routes(flash_launches, False, "grad check")
     blocks = 4 * 5 // 2 * cfg.n_layers
     print(f"sp gradient launches: {sp_launches}")
     for key in ("attn_fwd_single", "attn_bwd_dkv", "attn_bwd_dq"):
@@ -3394,6 +3517,7 @@ def grad_check_phase():
         del runs["tp"], loss
     del model, runs
     torch.cuda.empty_cache()
+    return flash_launches
 
 
 @contextlib.contextmanager
@@ -3799,6 +3923,11 @@ def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
     b10_ms = time_ms(lambda: A.flash_attention_bwd_dkv(*args),
                      reps=2 * reps)
     b11_ms = time_ms(lambda: A.flash_attention_bwd_dq(*args), reps=2 * reps)
+    if not bf16:
+        k_err, k_ratio = hold_bwd_by_kv_head(args, f"{what} unsharded")
+        print(f"{what}: unsharded attn_bwd_dkv and attn_bwd_dq (f32 route, "
+              f"3xTF32) against their plain versions: max abs err {k_err}, "
+              f"largest error/limit {k_ratio:.3f} ({BWD_TOL})")
     del _o, wlse, wdelta, args
     sdpa = ""
     if bf16:
@@ -7574,10 +7703,11 @@ def main() -> int:
      tp_serve) = serving_phase()
     phase("phase 8: attention backward kernels")
     wgmma_kernels_checked()
+    tf32_kernels_checked()
     attention_bwd_edges(rng)
     attn_recs += attention_bwd_records()
     phase("gradient check: flash vs dense, f32")
-    grad_check_phase()
+    by_path["grad_check"] = grad_check_phase()
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 9: training")
@@ -7631,7 +7761,9 @@ def main() -> int:
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
     for r in attn_recs:
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        # the f32 records (``*_tf32``) count the same wrappers' launches
+        key = r["name"].removesuffix("_tf32")
+        r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
         need(r["launches"] > 0, f"kernel {r['name']} was never launched on "
              f"the {LAUNCH_PATH[r['name']]} path")

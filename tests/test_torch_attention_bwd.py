@@ -13,9 +13,11 @@ within one bf16 ulp of its scale (2^-7 * max |grad|: both sides round the
 same f32 value, which may sit on either side of a rounding boundary).
 
 The card's bf16 route of B10/B11 (tensor cores) rounds P and dS to bf16
-before the second products; the tests below emulate it on the CPU and
-hold the emulation to the limit the card's kernels are held to in
-``chip_smoke.py`` (the kernels themselves run only on the card).
+before the second products, and its f32 route (TF32 tensor cores) forms
+every product from two TF32 parts of each operand (3xTF32); the tests
+below emulate both on the CPU and hold the emulations to the limits the
+card's kernels are held to in ``chip_smoke.py`` (the kernels themselves
+run only on the card).
 """
 
 from __future__ import annotations
@@ -297,3 +299,141 @@ def test_backward_rejects_bad_operands():
     with pytest.raises(ValueError, match="dout"):
         A.flash_attention_bwd_dq(xq, xdo[:, :, 1:], xk, xv, lse, lse, False,
                                  0.25)
+
+
+# The f32 route of B10/B11 (TF32 tensor cores, csrc/attention_bwd.cu)
+# splits each f32 operand into hi = tf32(a) and lo = tf32(a - hi) and
+# forms every product as lo*hi + hi*lo + hi*hi in f32 (3xTF32). The tests
+# below emulate that arithmetic for all five products (S, dP, dV, dK, dQ)
+# and hold it to the f32 limit the card's kernels are held to in
+# ``chip_smoke.py`` (BWD_TOL: 2e-5*|plain| + 2e-5*max|plain| per
+# element); one TF32 product a product breaks that limit.
+def _tf32(x):
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32``: 10 mantissa bits,
+    ties away from zero (half an ulp added to the magnitude's bits, the
+    13 low bits cleared); infinities and NaN as they are."""
+    u = x.float().contiguous().view(torch.int32).to(torch.int64)
+    mag, sign = u & 0x7FFFFFFF, u & ~0x7FFFFFFF
+    out = torch.where(mag < 0x7F800000, (mag + 0x1000) & 0x7FFFE000, mag)
+    return (sign | out).to(torch.int32).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_tf32x3(a, b):
+    """a @ b in 3xTF32: the two small products first, then hi * hi, each
+    product exact (11 x 11 significant bits) and summed in f32."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(
+        ah, bh)
+
+
+def _mm_tf32x1(a, b):
+    """a @ b as one TF32 product."""
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _tf32_route(q, do, k, v, lse, delta, causal, scale, mm):
+    """The backward of the plain versions (``_bwd_parts``, dV, dK, dQ)
+    with each of its five products through ``mm``: (dk, dv, dq)."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qf, dof = (t.reshape(B, Hkv, g, Sq, D).float() for t in (q, do))
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = mm(qf, kf.transpose(-1, -2)) * scale
+    mask = (torch.arange(Skv)[None, :] <= torch.arange(Sq)[:, None]
+            if causal else torch.ones(Sq, Skv, dtype=torch.bool))
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, Hkv, g, Sq, 1)), 0.0)
+    dp = mm(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(B, Hkv, g, Sq, 1))
+    dv = mm(p.transpose(-1, -2), dof).reshape(B * H, Skv, D)
+    dk = (mm(ds.transpose(-1, -2), qf) * scale).reshape(B * H, Skv, D)
+    dq = (mm(ds, kf) * scale).reshape(q.shape)
+    return dk, dv, dq
+
+
+# the nine CASES and phase 8's head dim at a causal GQA S = 512
+TF32_CASES = {**{c: CASES[c][:7] for c in CASES},
+              "gqa-causal-d128-s512": (1, 4, 2, 512, 512, 128, True)}
+
+
+def _f32_operands(case):
+    """f32 q, dout, k, v of ``case`` and the backward's operands: the
+    forward's LSE, delta from O."""
+    B, H, Hkv, Sq, Skv, D, causal = TF32_CASES[case]
+    rng = np.random.default_rng(sorted(TF32_CASES).index(case) + 300)
+    xq, xdo = (torch.from_numpy(rng.standard_normal((B, H, Sq, D))
+                                .astype(np.float32)) for _ in range(2))
+    xk, xv = (torch.from_numpy(rng.standard_normal((B, Hkv, Skv, D))
+                               .astype(np.float32)) for _ in range(2))
+    o, lse = A.flash_attention_fwd(xq, xk, xv, causal)
+    delta = (xdo * o).sum(-1).reshape(B * H, Sq)
+    return xq, xdo, xk, xv, lse, delta, causal, D ** -0.5
+
+
+def _f32_ratios(args, outs):
+    """Largest error/limit of (dk, dv, dq) against the plain versions
+    under the f32 rule of BWD_TOL."""
+    plain = (*A.flash_attention_bwd_dkv_ref(*args),
+             A.flash_attention_bwd_dq_ref(*args))
+    return [float(((g - w).abs() / (2e-5 * w.abs()
+                                    + 2e-5 * float(w.abs().max()))).max())
+            for g, w in zip(outs, plain)]
+
+
+@pytest.mark.parametrize("x, want", [
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),              # a tie: away from 0
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),              # below the tie
+    (-3.0 - 2.0 ** -9 - 2.0 ** -12, -3.0 - 2.0 ** -9),  # negative, down
+    (float("inf"), float("inf")),
+    (float("-inf"), float("-inf")),
+    (1.5, 1.5),                                         # lo is 0
+])
+def test_tf32_rounds_as_cvt_rna(x, want):
+    """``_tf32`` on pinned bit patterns: a tie rounds away from zero (both
+    signs), infinities stay, and an exact TF32 value splits into itself
+    and lo = 0."""
+    t = torch.tensor([x], dtype=torch.float32)
+    got = _tf32(t)
+    assert got.item() == want
+    assert got.view(torch.int32).item() & 0x1FFF == 0
+    if np.isfinite(x):
+        hi, lo = _split(t)
+        assert hi.item() == want
+        assert lo.item() == _tf32(t - want).item()
+        assert (lo.item() == 0.0) == (float(np.float32(x)) == want)
+
+
+def test_tf32_split_recovers_f32():
+    """hi + lo holds an f32 value to 2^-21 of it (21 of its 24 bits), NaN
+    stays NaN."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = _split(x)
+    assert ((hi + lo - x).abs() <= 2.0 ** -21 * x.abs()).all()
+    assert torch.isnan(_tf32(torch.tensor([float("nan")]))).all()
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_tf32x3_route_emulation_within_f32_limit(case):
+    """The emulated f32 route (3xTF32 for all five products) stays within
+    the f32 limit of the card's kernels on every case, and differs from
+    the plain versions (the limit is not vacuous)."""
+    args = _f32_operands(case)
+    outs = _tf32_route(*args, _mm_tf32x3)
+    ratios = _f32_ratios(args, outs)
+    assert max(ratios) <= 1.0, ratios
+    assert min(ratios) > 0.0, ratios
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_single_tf32_product_exceeds_f32_limit(case):
+    """One TF32 product a product moves the gradients past the f32 limit:
+    the limit is not loose, and the route needs three."""
+    args = _f32_operands(case)
+    assert max(_f32_ratios(args, _tf32_route(*args, _mm_tf32x1))) > 1.0
