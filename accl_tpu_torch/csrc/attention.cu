@@ -1,13 +1,17 @@
-// Attention kernels B8, B9 and B12 on the CUDA cores (CUDA C++, sm_90a).
+// Attention forward kernels B8, B9 and B12 (CUDA C++, sm_90a), the f32
+// route: the FlashAttention-2 forward on the TF32 tensor cores with
+// 3xTF32 products.
 //
 // Replace accl_tpu/ops/attention.py:
 //   B8  attn_fwd_kernel        <- _fwd_kernel (pallas_call at :285): the
 //       online-softmax forward that streams KV, with O and the per-row
 //       log-sum-exp (LSE), the causal frontier skip and GQA routing.
 //   B9  attn_fwd_single_kernel <- _fwd_kernel_single (:252): the same when
-//       the whole padded KV is one reference block: plain softmax.
+//       the whole padded KV is one reference block. Its plain softmax is
+//       the online softmax here, over the block's key tiles.
 //   B12 attn_decode_kernel     <- _decode_kernel (:689): chunked prefill
-//       over the KV cache in its native (B, T, Hkv, D) layout.
+//       (S_new > 1) over the KV cache in its native (B, T, Hkv, D) layout,
+//       bottom-right causal.
 //
 // Routes: the C entry points below send bf16 B8, bf16 B9 and bf16 B12
 // chunks of S_new > 1 new tokens to the tensor-core kernels of
@@ -15,42 +19,79 @@
 // 1, f32 or bf16) to the split-KV kernel of attention_decode.cu. f32 B8,
 // f32 B9 and f32 B12 chunks run the kernels of this file.
 //
-// What bounds them on an H100: B8, B9 and a long prefill in B12 do about
-// 4*S*D operations per score row against 2*D bytes per key, so at S in
-// the thousands they are bound by operations. These kernels run on the
-// CUDA cores in f32 (67 TFLOP/s on the data sheet, not the 989 TFLOP/s of
-// the bf16 tensor cores), so they sit far above their bound at long S.
+// What bounds them on an H100: 4*D operations per visible score (S = Q K^T
+// and P V) against 2*D*4 bytes per key row, so at S in the hundreds and
+// above they are bound by operations. Every product runs three times on
+// the 495 TFLOP/s TF32 tensor cores (bound 3 * ops / 495 TFLOP/s, 2.7x
+// below the CUDA cores' ops / 67 TFLOP/s); at S = 128 the bytes bound.
 //
-// Design: one thread block of 256 threads per (head row set, q tile). A
-// loop over 64-key tiles stands in for the TPU's sequential grid axis;
-// the running max m, normaliser l and accumulator stay on chip in f32
-// (m, l in shared memory, acc in registers: a 64-row tile holds 64 x D
-// f32 accumulators, D/16 x 4 per thread). K and V tiles share one
-// shared-memory buffer (K, then V), so a 64-row, D=128 tile needs 83 KB
-// and two blocks fit on an SM. Rows are padded to an odd pitch so that
-// the 16 threads reading 16 keys (or rows) hit 16 banks. Only keys below
-// the tile's causal frontier (from the q tile's END, as attention.py:159)
-// or below the fill length are read; past them nothing is loaded.
-//
-// Arithmetic: q, k, v read as f32 and computed in f32. The library builds
-// with --fmad=false, so the dot products are written as explicit fmaf.
+// Numerics (tf32_mma.cuh): every f32 operand (Q, K, V and P) is split into
+// hi = tf32(a) and lo = tf32(a - hi), and a product is lo*hi + hi*lo +
+// hi*hi in f32 accumulators: about f32 accuracy, where one TF32 product
+// would break the f32 limit the card holds these kernels to
+// (tests/test_torch_attention_fwd_f32.py emulates both). The tensor core
+// truncates as it accumulates, so every sum over the keys starts fresh:
+// each key tile's S and each tile's P V go into fresh accumulators, and P
+// V is added into the running O as O = O * alpha + PV with f32 roundings.
 // expf/logf (no intrinsics, no fast math), a true division o = acc / l.
 // Masked scores take part as finfo(f32).min in the row max and contribute
 // p = 0 (attention.py:617). A fully masked row cannot occur on these
 // paths (causal rows always see key 0; chunk rows see their own
 // position), but it is handled as the reference handles it: l is floored
 // at 1e-30, so o = 0 and the LSE is finite.
+//
+// Design: mma.sync m16n8k8 (tf32 x tf32 -> f32). One block per (head row
+// set, q tile of BQ rows); two warps share each 16 query rows, so BQ / 8
+// warps. A loop over BK-key tiles stands in for the TPU's sequential grid
+// axis. Of a pair, warp h forms the scores of the tile's keys [BK/2 * h,
+// BK/2 * (h + 1)) and keeps output columns [D/2 * h, D/2 * (h + 1)): the
+// pair trades row maxima, row sums and its halves of P through shared
+// memory (two named barriers a tile), and each warp keeps the running max
+// m, normaliser l and its 16 x D/2 of the output in registers. A warp that
+// kept all D columns would hold 64 accumulators of O and 32 words of P at
+// D = 128, and ptxas spilled that kernel. The split costs about as many
+// instructions as the products it feeds, so it is made once per block:
+// Q is split into hi and lo planes in shared memory when the block
+// starts, and each K and V tile as it lands, from two f32 staging buffers
+// that cp.async fills two tiles ahead (tile t + 2 flies while tile t is
+// computed; two block barriers a tile); the inner loops are ldmatrix and
+// HMMA only. S = Q K^T sits in the accumulators as P does, and P serves
+// as the A operand of P V from those registers: an accumulator holds
+// columns 2t, 2t+1 where the A operand wants t, t+4, and the reduction
+// index is free to permute, so the V tile is stored transposed with the
+// keys of each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7.
+//
+// Shared memory (FwdSmem below), in 4-byte words: the hi and lo planes of
+// Q (BQ x D), K (BK x D) and V^T (D x BK), two stages of staged K and V
+// tiles (BK rows each), and the pairs' exchange; every row padded by 4
+// words (16 bytes), so the 8 rows an ldmatrix reads hit 32 distinct banks.
+// At D = 128 with BQ = 64, BK = 32: Q 2 x 33 KB, K 2 x 16.5 KB, V^T 2 x 18
+// KB, staging 4 x 16.5 KB, exchange 17 KB: 218 KB of the 227 KB a block
+// may use, one block an SM.
+//
+// Only keys below the tile's causal frontier (from the q tile's END, as
+// attention.py:159) and below the fill length are read; cp.async fills the
+// rest of a ragged tile with zeros. A warp whose 16 rows see no key of a
+// tile skips its products (that leaves m, l and O as a tile of p = 0
+// would). Rows are written by their one owner: two runs on the same
+// inputs are bitwise equal.
 #include <limits.h>
 
+#include <type_traits>
+
 #include "attention_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int SINGLE_ROWS = 16;  // q rows per B9 block
+// B8, B9 and the B12 prefill: 64 rows (8 warps) a block against 32-key
+// tiles (B9 at 32 rows, twice the blocks, ran slower at S = 128 and 512
+// on an H100: chip_compare.py --part fwd32)
+constexpr int FWD_BQ = 64, FWD_BK = 32;
 
 // Query row r of a tile sits at absolute position pos_off + (row0 + r) %
-// period: B8 passes period = INT_MAX (position = row), B12 the number of
-// new tokens (row g * S_new + i of a KV head's group is token i).
+// period: B8 and B9 pass period = INT_MAX (position = row), B12 the number
+// of new tokens (row g * S_new + i of a KV head's group is token i).
 struct QRows {
   int row0, nq, period, pos_off;
   __device__ __forceinline__ int pos(int r) const {
@@ -58,175 +99,459 @@ struct QRows {
   }
 };
 
-// The online-softmax tile shared by B8 and B12: BQ query rows (the first
-// nq valid, contiguous with pitch D) against keys [0, kv_end) of one KV
-// head (key c at k + c * kstride). Writes O (pitch D) and, if lse is
-// given, the LSE of each valid row.
-template <typename T, int D, int BQ>
-__device__ void flash_tile(const T* q, const T* k, const T* v,
-                           long long kstride, int kv_end, bool causal,
-                           QRows rows, float scale, T* o, float* lse,
-                           float* smem) {
-  constexpr int QP = D + 1, SP = BK + 1;
-  constexpr int RPT = BQ / 16;  // rows per thread
-  constexpr int CPT = D / 16;   // output columns per thread
-  float* sQ = smem;              // BQ x QP
-  float* sKV = sQ + BQ * QP;     // BK x QP: the K tile, then the V tile
-  float* sP = sKV + BK * QP;     // BQ x SP: scores, then probabilities
-  float* sM = sP + BQ * SP;      // BQ running max
-  float* sL = sM + BQ;           // BQ running normaliser
-  float* sA = sL + BQ;           // BQ rescale factor of this tile
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
+// An operand plane of R rows of W words in shared memory, rows padded to
+// a pitch of W + 4 words: the 8 rows an ldmatrix reads at one column sit
+// 16 bytes apart modulo 128, on 32 distinct banks, and every fragment's
+// address is its row's plus a constant.
+template <int W>
+struct Plane {
+  static constexpr int P = W + 4;
+  __device__ __forceinline__ static int at(int r, int c) { return r * P + c; }
+};
 
-  TileRegs<T, D, BK> kr, vr;
-  kr.fetch(k, kstride, min(BK, kv_end));
-  load_rows<T, D, BQ, QP>(sQ, q, D, rows.nq);
-  for (int r = tid; r < BQ; r += NT) {
-    sM[r] = NEG;
-    sL[r] = 0.0f;
+template <int D, int BQ, int BK>
+struct FwdSmem {
+  static constexpr int PAIRS = BQ / 16;  // warp pairs: 16 rows each
+  static constexpr int NTH = 64 * PAIRS;
+  static constexpr int SP = D + 4;       // staging pitch, words
+  static constexpr int Q = BQ * Plane<D>::P;   // words of a Q plane
+  static constexpr int K = BK * Plane<D>::P;   // of a K plane (rows: keys)
+  static constexpr int V = D * Plane<BK>::P;   // of a V^T plane (rows: d)
+  static constexpr int STAGE = BK * SP;  // one staged K or V tile
+  // what a warp hands its partner each tile: 16 row maxima, 16 row sums
+  // and, a lane, the hi and lo words of its half of P's A fragments
+  static constexpr int XW = BK / 2;            // words a lane
+  static constexpr int XHALF = 32 + 32 * XW;   // words a warp
+  static constexpr int BYTES =
+      (2 * Q + 2 * K + 2 * V + 4 * STAGE + 2 * PAIRS * XHALF) * 4;
+  static_assert(BQ % 16 == 0 && BK % 32 == 0 && BK <= 64 && D % 16 == 0,
+                "whole m16n8k8 tiles for each warp of a pair");
+  static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
+};
+
+// the four words of f split into hi (returned) and lo (split_tf32)
+__device__ __forceinline__ uint4 split4(const float4& f, uint4& lo) {
+  uint4 hi;
+  split_tf32(f.x, hi.x, lo.x);
+  split_tf32(f.y, hi.y, lo.y);
+  split_tf32(f.z, hi.z, lo.z);
+  split_tf32(f.w, hi.w, lo.w);
+  return hi;
+}
+
+// BK key rows of D floats (row r at src + r * stride) into the staging
+// tile by 16-byte cp.async; rows at or past n are zeros, nothing past them
+// is read
+template <int D, int BK, int NTH>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long stride, int n) {
+  constexpr int CPR = D / 4, N = BK * CPR;
+#pragma unroll
+  for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
+    const int i = threadIdx.x + p * NTH;
+    if (N % NTH != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = r < n;
+    cp_async16(dst + r * (D + 4) + c, src + (ok ? r * stride + c : 0), ok);
   }
-  float acc[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
+}
 
-  for (int kt = 0; kt < kv_end; kt += BK) {
-    const int nk = min(BK, kv_end - kt);
-    kr.template store<QP>(sKV);
-    __syncthreads();
-    // S = Q K^T for RPT rows x 4 keys per thread
-    float s[RPT][4];
+// the staged K tile into its hi and lo planes, a 16-byte chunk a thread
+template <int D, int BK, int NTH>
+__device__ __forceinline__ void split_k(const float* stage, float* kh,
+                                       float* kl) {
+  constexpr int CPR = D / 4, N = BK * CPR;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+  for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
+    const int i = threadIdx.x + p * NTH;
+    if (N % NTH != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    uint4 lo;
+    const uint4 hi = split4(
+        *reinterpret_cast<const float4*>(stage + r * (D + 4) + c), lo);
+    const int at = Plane<D>::at(r, c);
+    *reinterpret_cast<uint4*>(kh + at) = hi;
+    *reinterpret_cast<uint4*>(kl + at) = lo;
+  }
+}
+
+// the staged V tile into its transposed hi and lo planes. Within each
+// group of 8 keys the even keys come first (key 8j + 2t at word 8j + t,
+// 8j + 2t + 1 at 8j + t + 4), so plane words w..w + 3 of row d (w a
+// multiple of 4) hold column d of keys k0, k0 + 2, k0 + 4, k0 + 6 (k0 =
+// 8 * (w / 8) + (w / 4) % 2): a thread gathers the four and stores each
+// plane's 16 bytes at once; columns run fastest across the threads
+template <int D, int BK, int NTH>
+__device__ __forceinline__ void split_v(const float* stage, float* vh,
+                                       float* vl) {
+  constexpr int N = D * BK / 4, SP = D + 4;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[RPT], kb[4];
+  for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
+    const int i = threadIdx.x + p * NTH;
+    if (N % NTH != 0 && i >= N) break;
+    const int d = i % D, w = (i / D) * 4;
+    const float* src = stage + ((w & ~7) + ((w >> 2) & 1)) * SP + d;
+    uint4 lo;
+    const uint4 hi = split4(
+        make_float4(src[0], src[2 * SP], src[4 * SP], src[6 * SP]), lo);
+    const int at = Plane<BK>::at(d, w);
+    *reinterpret_cast<uint4*>(vh + at) = hi;
+    *reinterpret_cast<uint4*>(vl + at) = lo;
+  }
+}
+
+// ldmatrix .x4 of 32-bit words (as ldsm_x4) from a shared-space address
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// x, opaque to the compiler: the fragment addresses a key tile derives
+// from it are formed where they are used, not hoisted out of the key loop
+// into a register each (B8 at S = 2048 ran 4.3839-4.3845 ms with it,
+// 4.3939-4.4293 without, in turns on an H100: chip_compare.py)
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// x (16 x 8NJ) = Q K^T for the warp's 16 rows against 8NJ keys, fresh
+// accumulators; x[j] holds keys 8j..8j+7. Operands by ldmatrix: A's tile
+// m is rows 8*(m&1).., words 4*(m>>1).. of the warp's Q rows; a pair of
+// B's n-tiles is keys 8*(m>>1).., words 4*(m&1)... qa, ka: the
+// shared-space byte addresses of the lane's row and word in the hi planes
+// (column 0, the warp's first key); each lo plane lies QLO, KLO bytes
+// after its hi plane.
+template <int D, int NJ, int QLO, int KLO>
+__device__ __forceinline__ void scores(uint32_t qa, uint32_t ka,
+                                       float (&x)[NJ][4]) {
+  constexpr int RB = (D + 4) * 4;  // bytes a plane row
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qa[i] = sQ[(ty * RPT + i) * QP + d];
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = sKV[(tx + 16 * j) * QP + d];
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+  for (int c = 0; c < D / 8; ++c) {
+    FragA a;
+    ldsm_x4_at(a.hi, qa + 32 * c);
+    ldsm_x4_at(a.lo, qa + QLO + 32 * c);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    for (int j = 0; j < NJ; j += 2) {
+      uint32_t h[4], l[4];
+      ldsm_x4_at(h, ka + 8 * j * RB + 32 * c);
+      ldsm_x4_at(l, ka + KLO + 8 * j * RB + 32 * c);
+      mma_3xtf32(x[j], a, FragB{{h[0], h[1]}, {l[0], l[1]}});
+      mma_3xtf32(x[j + 1], a, FragB{{h[2], h[3]}, {l[2], l[3]}});
     }
+  }
+}
+
+// o = o * alpha + P V for the warp's 16 rows and 8NC output columns: P
+// (16 x BK) the A operand (key 8j + 2t as k = t, 8j + 2t + 1 as k = t +
+// 4), V^T's rows the output columns (tile m: rows r.., words 4m..; va the
+// lane's address in the hi plane at the warp's first column, the lo plane
+// VLO bytes after). Each 8-column block of P V sums the tile's keys in a
+// fresh accumulator; alpha0 scales rows g, alpha1 rows g + 8.
+template <int NC, int BK, int VLO>
+__device__ __forceinline__ void pv_update(const FragA (&pa)[BK / 8],
+                                          uint32_t va, float alpha0,
+                                          float alpha1, float (&o)[NC][4]) {
+  constexpr int RB = (BK + 4) * 4;  // bytes a V^T plane row
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+  for (int c = 0; c < NC; ++c) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty * RPT + i) * SP + tx + 16 * j] = __fmul_rn(s[i][j], scale);
+    for (int j = 0; j < BK / 8; j += 2) {
+      uint32_t h[4], l[4];
+      ldsm_x4_at(h, va + 8 * c * RB + 32 * j);
+      ldsm_x4_at(l, va + VLO + 8 * c * RB + 32 * j);
+      mma_3xtf32(part, pa[j], FragB{{h[0], h[1]}, {l[0], l[1]}});
+      mma_3xtf32(part, pa[j + 1], FragB{{h[2], h[3]}, {l[2], l[3]}});
+    }
+    o[c][0] = __fadd_rn(__fmul_rn(o[c][0], alpha0), part[0]);
+    o[c][1] = __fadd_rn(__fmul_rn(o[c][1], alpha0), part[1]);
+    o[c][2] = __fadd_rn(__fmul_rn(o[c][2], alpha1), part[2]);
+    o[c][3] = __fadd_rn(__fmul_rn(o[c][3], alpha1), part[3]);
+  }
+}
+
+// the named barrier of the two warps that share 16 rows
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// The online-softmax tile shared by B8, B9 and B12: BQ query rows (the
+// first nq valid, contiguous with pitch D) against keys [0, kv_end) of one
+// KV head (key c at k + c * kstride). Writes O (pitch D) and, if lse is
+// given, the LSE of each valid row. Two warps share 16 rows: warp `half`
+// forms the scores of the tile's keys [BK/2 * half, BK/2 * (half + 1)),
+// they trade row maxima, row sums and their halves of P through shared
+// memory, and each adds P V into its half of the output columns.
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void flash_tile(const float* q, const float* k,
+                                           const float* v, long long kstride,
+                                           int kv_end, bool causal,
+                                           QRows rows, float scale,
+                                           float* o, float* lse,
+                                           float* smem) {
+  using L = FwdSmem<D, BQ, BK>;
+  constexpr int NTH = L::NTH, NC = D / 16, NJ = BK / 8, NH = NJ / 2;
+  float* qh = smem;
+  float* ql = qh + L::Q;
+  float* kh = ql + L::Q;
+  float* kl = kh + L::K;
+  float* vh = kl + L::K;
+  float* vl = vh + L::V;
+  float* stage = vl + L::V;  // stage s: K at stage + 2s * STAGE, V after
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // partners are neighbours, so they sit on two of the SM's four
+  // schedulers and a pair waiting on itself leaves each with other work
+  const int pair = tid >> 6, half = (tid >> 5) & 1;
+  const int qw = 16 * pair;  // the pair's first row in the tile
+  float* mine = stage + 4 * L::STAGE + (2 * pair + half) * L::XHALF;
+  const float* theirs =
+      stage + 4 * L::STAGE + (2 * pair + 1 - half) * L::XHALF;
+  const int n_it = (kv_end + BK - 1) / BK;
+  // the lane's ldmatrix addresses in the hi planes: Q at the pair's rows,
+  // K at the warp's half of a tile's keys, V^T at its half of the columns
+  const int m = lane >> 3, r = lane & 7;
+  const uint32_t qa = smem_addr(qh + Plane<D>::at(qw + r + 8 * (m & 1),
+                                                  4 * (m >> 1)));
+  const uint32_t ka = smem_addr(kh + Plane<D>::at(
+      BK / 2 * half + r + 8 * (m >> 1), 4 * (m & 1)));
+  const uint32_t va = smem_addr(vh + Plane<BK>::at(D / 2 * half + r, 4 * m));
+
+  // tile i's K and V into stage i % 2, one commit group a tile
+  auto stage_tile = [&](int i) {
+    if (i < n_it) {
+      const long long off = static_cast<long long>(i) * BK * kstride;
+      const int n = min(BK, kv_end - i * BK);
+      float* dst = stage + 2 * (i & 1) * L::STAGE;
+      stage_rows<D, BK, NTH>(dst, k + off, kstride, n);
+      stage_rows<D, BK, NTH>(dst + L::STAGE, v + off, kstride, n);
+    }
+    cp_async_commit();
+  };
+  stage_tile(0);
+  stage_tile(1);
+  // Q into its planes while the first tiles fly; rows past nq are zeros
+  for (int i = tid; i < BQ * D / 4; i += NTH) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const float4 f = r < rows.nq
+                         ? *reinterpret_cast<const float4*>(q + r * D + c)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    uint4 lo;
+    const uint4 hi = split4(f, lo);
+    const int at = Plane<D>::at(r, c);
+    *reinterpret_cast<uint4*>(qh + at) = hi;
+    *reinterpret_cast<uint4*>(ql + at) = lo;
+  }
+  // the positions of the thread's two rows, and the pair's first and last
+  // positions among its valid rows (last -1 if it has none)
+  const int pos0 = rows.pos(qw + g), pos1 = rows.pos(qw + g + 8);
+  const bool valid = qw + (lane & 15) < rows.nq;
+  const int mine_pos = rows.pos(qw + (lane & 15));
+  int first = valid ? mine_pos : INT_MAX, last = valid ? mine_pos : -1;
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+    last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+  }
+
+  float acc[NC][4];  // rows qw+g, qw+g+8; columns D/2*half + 8c+2t, +1
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+  float mrow[2] = {NEG, NEG}, lrow[2] = {0.0f, 0.0f};
+
+  for (int it = 0; it < n_it; ++it) {
+    const int kt = it * BK, k0 = kt + BK / 2 * half;  // the warp's keys
+    cp_async_wait<1>();  // this tile landed; the next one may still fly
+    __syncthreads();     // ... for every thread; the planes are free
+    const float* cur = stage + 2 * (it & 1) * L::STAGE;
+    split_k<D, BK, NTH>(cur, kh, kl);
+    split_v<D, BK, NTH>(cur + L::STAGE, vh, vl);
     __syncthreads();
-    // the K tile is consumed: V's loads fly while one warp per row turns
-    // its scores into probabilities and updates m, l
-    vr.fetch(v + kt * kstride, kstride, nk);
-    for (int r = warp; r < BQ; r += NT / 32) {
-      const int qpos = rows.pos(r);
-      float sc[2], mx = NEG;
-      bool ok[2];
+    stage_tile(it + 2);
+    // pair-uniform: do the pair's rows see a key of this tile?
+    const bool live = last >= 0 && (!causal || kt <= last);
+    FragA pa[NJ];
+    float alpha[2] = {1.0f, 1.0f};
+    if (live) {
+      float x[NH][4];
+      scores<D, NH, 4 * L::Q, 4 * L::K>(opaque(qa), opaque(ka), x);
+      float mx[2] = {NEG, NEG};
+      uint32_t seen = ~0u;  // bit 4j + e: entry (j, e) visible
+      // warp-uniform: every row sees every key of the warp's half
+      if (k0 + BK / 2 <= kv_end && (!causal || k0 + BK / 2 - 1 <= first)) {
+#pragma unroll
+        for (int j = 0; j < NH; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            x[j][e] = __fmul_rn(x[j][e], scale);
+            mx[e >> 1] = fmaxf(mx[e >> 1], x[j][e]);
+          }
+      } else {
+        seen = 0;
+#pragma unroll
+        for (int j = 0; j < NH; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const bool ok = key < kv_end &&
+                            (!causal || key <= (e < 2 ? pos0 : pos1));
+            x[j][e] = ok ? __fmul_rn(x[j][e], scale) : NEG;
+            seen |= static_cast<uint32_t>(ok) << (4 * j + e);
+            mx[e >> 1] = fmaxf(mx[e >> 1], x[j][e]);
+          }
+      }
+      // the row's 4 threads (one quad) hold the warp's scores of it; the
+      // partner holds the rest
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int c = kt + lane + 32 * h;
-        ok[h] = c < kv_end && (!causal || c <= qpos);
-        sc[h] = ok[h] ? sP[r * SP + lane + 32 * h] : NEG;
-        mx = fmaxf(mx, sc[h]);
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       }
-      mx = warp_max(mx);
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
+      if (t == 0) {
+        mine[g] = mx[0];
+        mine[g + 8] = mx[1];
+      }
+      pair_sync(pair);
+      float mnew[2], sum[2] = {0.0f, 0.0f};
+      mnew[0] = fmaxf(mrow[0], fmaxf(mx[0], theirs[g]));
+      mnew[1] = fmaxf(mrow[1], fmaxf(mx[1], theirs[g + 8]));
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[j][e] = (seen >> (4 * j + e)) & 1u
+                        ? expf(__fsub_rn(x[j][e], mnew[e >> 1]))
+                        : 0.0f;
+          sum[e >> 1] = __fadd_rn(sum[e >> 1], x[j][e]);
+        }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float p = ok[h] ? expf(__fsub_rn(sc[h], m_new)) : 0.0f;
-        sP[r * SP + lane + 32 * h] = p;
-        sum = __fadd_rn(sum, p);
+        sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 1));
+        sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 2));
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(__fsub_rn(m_old, m_new));
-        sA[r] = alpha;
-        sL[r] = __fadd_rn(__fmul_rn(sL[r], alpha), sum);
-        sM[r] = m_new;
+      // the warp's half of P as A fragments, handed to the partner: the
+      // partner's lanes hold the same rows and key positions
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        FragA& a = pa[NH * half + j];
+        a.set(0, x[j][0]);
+        a.set(1, x[j][2]);
+        a.set(2, x[j][1]);
+        a.set(3, x[j][3]);
+        uint4* dst = reinterpret_cast<uint4*>(mine + 32) + 2 * j * 32 + lane;
+        dst[0] = make_uint4(a.hi[0], a.hi[1], a.hi[2], a.hi[3]);
+        dst[32] = make_uint4(a.lo[0], a.lo[1], a.lo[2], a.lo[3]);
       }
+      if (t == 0) {
+        mine[16 + g] = sum[0];
+        mine[24 + g] = sum[1];
+      }
+      pair_sync(pair);
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        FragA& a = pa[NH * (1 - half) + j];
+        const uint4* src =
+            reinterpret_cast<const uint4*>(theirs + 32) + 2 * j * 32 + lane;
+        const uint4 hi = src[0], lo = src[32];
+        a.hi[0] = hi.x, a.hi[1] = hi.y, a.hi[2] = hi.z, a.hi[3] = hi.w;
+        a.lo[0] = lo.x, a.lo[1] = lo.y, a.lo[2] = lo.z, a.lo[3] = lo.w;
+      }
+      // the tile's row sums: the two halves in the same order in both warps
+      const float s0 = half == 0 ? __fadd_rn(sum[0], theirs[16 + g])
+                                 : __fadd_rn(theirs[16 + g], sum[0]);
+      const float s1 = half == 0 ? __fadd_rn(sum[1], theirs[24 + g])
+                                 : __fadd_rn(theirs[24 + g], sum[1]);
+      alpha[0] = expf(__fsub_rn(mrow[0], mnew[0]));
+      alpha[1] = expf(__fsub_rn(mrow[1], mnew[1]));
+      lrow[0] = __fadd_rn(__fmul_rn(lrow[0], alpha[0]), s0);
+      lrow[1] = __fadd_rn(__fmul_rn(lrow[1], alpha[1]), s1);
+      mrow[0] = mnew[0];
+      mrow[1] = mnew[1];
     }
-    vr.template store<QP>(sKV);
-    __syncthreads();
-    // the next K tile's loads fly during P V
-    if (kt + BK < kv_end)
-      kr.fetch(k + (kt + BK) * kstride, kstride, min(BK, kv_end - kt - BK));
-    // acc = acc * alpha + P V
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const float a = sA[ty * RPT + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = __fmul_rn(acc[i][j], a);
-    }
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pa[RPT], vb[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pa[i] = sP[(ty * RPT + i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) vb[j] = sKV[c * QP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
-    }
-    __syncthreads();
+    if (live)
+      pv_update<NC, BK, 4 * L::V>(pa, opaque(va), alpha[0], alpha[1], acc);
   }
-  __syncthreads();
+  cp_async_wait<0>();
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i;
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw + g + 8 * h;
     if (r >= rows.nq) continue;
-    const float l = fmaxf(sL[r], 1e-30f);
+    const float l = fmaxf(lrow[h], 1e-30f);
+    float* out = o + static_cast<long long>(r) * D + D / 2 * half + 2 * t;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      st(o + r * D + tx + 16 * j, __fdiv_rn(acc[i][j], l));
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c) =
+          make_float2(__fdiv_rn(acc[c][2 * h], l),
+                      __fdiv_rn(acc[c][2 * h + 1], l));
+    if (lse != nullptr && half == 0 && t == 0)
+      lse[r] = __fadd_rn(mrow[h], logf(l));
   }
-  if (lse != nullptr && tid < rows.nq)
-    lse[tid] = __fadd_rn(sM[tid], logf(fmaxf(sL[tid], 1e-30f)));
 }
 
-template <int D, int BQ>
-constexpr int tile_smem() {
-  return ((BQ + BK) * (D + 1) + BQ * (BK + 1) + 3 * BQ) * 4;
-}
-
-// B8: grid (q tiles, B*H). q (B*H, Sq, D); k/v (B*Hkv, Skv, D); the
-// q head bh reads KV row (bh / H) * Hkv + (bh % H) / group (_kv_head_row).
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o,
-                float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
-                int causal, float scale) {
-  extern __shared__ float smem[];
-  const int bh = blockIdx.y, row0 = blockIdx.x * BQ;
+// B8 and B9: grid (B*H, q tiles), the last q tile (the heaviest under the
+// causal mask) first. q (B*H, Sq, D); k/v (B*Hkv, Skv, D); the q head bh
+// reads KV row (bh / H) * Hkv + (bh % H) / group (_kv_head_row).
+template <int D, int BQ, int BK>
+__device__ __forceinline__ void fwd_block(const float* q, const float* k,
+                                          const float* v, float* o,
+                                          float* lse, int H, int Hkv, int Sq,
+                                          int Skv, int causal, float scale,
+                                          float* smem) {
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   const int nq = min(BQ, Sq - row0);
   // causal frontier from the q tile's end: keys past its last row unseen
   const int kv_end = causal ? min(Skv, row0 + nq) : Skv;
   const long long qoff = (static_cast<long long>(bh) * Sq + row0) * D;
-  flash_tile<T, D, BQ>(q + qoff, k + kvrow * Skv * D, v + kvrow * Skv * D, D,
-                       kv_end, causal != 0, QRows{row0, nq, INT_MAX, 0},
-                       scale, o + qoff,
-                       lse + static_cast<long long>(bh) * Sq + row0, smem);
+  flash_tile<D, BQ, BK>(q + qoff, k + kvrow * Skv * D, v + kvrow * Skv * D,
+                        D, kv_end, causal != 0, QRows{row0, nq, INT_MAX, 0},
+                        scale, o + qoff,
+                        lse + static_cast<long long>(bh) * Sq + row0, smem);
+}
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(FwdSmem<D, BQ, BK>::NTH, 1)
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
+                int causal, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  fwd_block<D, BQ, BK>(q, k, v, o, lse, H, Hkv, Sq, Skv, causal, scale,
+                       smem);
+}
+
+// B9: B8's tile over the one key block, at B9's own tile height
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(FwdSmem<D, BQ, BK>::NTH, 1)
+attn_fwd_single_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int H, int Hkv, int Sq,
+                       int Skv, int causal, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  fwd_block<D, BQ, BK>(q, k, v, o, lse, H, Hkv, Sq, Skv, causal, scale,
+                       smem);
 }
 
 // B12: grid (row tiles, Hkv, B). q (B, Hkv, rows, D) with rows = group *
 // S_new (the q heads of one KV head, token-minor); the cache (B, T, Hkv,
 // D) as it is: key c of head h at ((b * T + c) * Hkv + h) * D.
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(NT)
-attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                   const T* __restrict__ vc, T* __restrict__ o, int Hkv,
-                   int Tlen, int nrows, int s_new, int kv_len, float scale) {
-  extern __shared__ float smem[];
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(FwdSmem<D, BQ, BK>::NTH, 1)
+attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
+                   const float* __restrict__ vc, float* __restrict__ o,
+                   int Hkv, int Tlen, int nrows, int s_new, int kv_len,
+                   float scale) {
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * BQ;
   const int nq = min(BQ, nrows - row0);
   const QRows rows{row0, nq, s_new, kv_len - s_new};
@@ -237,124 +562,34 @@ attn_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const long long qoff =
       ((static_cast<long long>(b) * Hkv + h) * nrows + row0) * D;
   const long long koff = (static_cast<long long>(b) * Tlen * Hkv + h) * D;
-  flash_tile<T, D, BQ>(q + qoff, kc + koff, vc + koff,
-                       static_cast<long long>(Hkv) * D, kv_end, true, rows,
-                       scale, o + qoff, nullptr, smem);
+  flash_tile<D, BQ, BK>(q + qoff, kc + koff, vc + koff,
+                        static_cast<long long>(Hkv) * D, kv_end, true, rows,
+                        scale, o + qoff, nullptr, smem);
 }
 
-// B9: grid (q tiles of 16 rows, B*H); all keys of the row set at once.
-// Pass 1 writes the scaled scores of the 16 rows to shared memory (pitch
-// sp) a 64-key K chunk at a time and takes each row's max; pass 2 turns
-// them into probabilities, sums them, and accumulates P V a 64-key V chunk
-// at a time. No online rescaling.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-attn_fwd_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
-                       float* __restrict__ lse, int H, int Hkv, int Sq,
-                       int Skv, int causal, float scale, int sp) {
-  constexpr int QP = D + 1, CPT = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;                        // 16 x QP
-  float* sKV = sQ + SINGLE_ROWS * QP;      // BK x QP
-  float* sS = sKV + BK * QP;               // 16 x sp
-  float* sM = sS + SINGLE_ROWS * sp;       // 16
-  float* sL = sM + SINGLE_ROWS;            // 16
-  const int tid = threadIdx.x, r = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y, row0 = blockIdx.x * SINGLE_ROWS;
-  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const T* kh = k + kvrow * Skv * D;
-  const T* vh = v + kvrow * Skv * D;
-  const int nq = min(SINGLE_ROWS, Sq - row0);
-  const int kv_end = causal ? min(Skv, row0 + nq) : Skv;
-  const long long qoff = (static_cast<long long>(bh) * Sq + row0) * D;
-
-  load_rows<T, D, SINGLE_ROWS, QP>(sQ, q + qoff, D, nq);
-  for (int kt = 0; kt < kv_end; kt += BK) {
-    load_rows<T, D, BK, QP>(sKV, kh + static_cast<long long>(kt) * D, D,
-                            min(BK, kv_end - kt));
-    __syncthreads();
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qa = sQ[r * QP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] = fmaf(qa, sKV[(tx + 16 * j) * QP + d],
-                                              s[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sS[r * sp + kt + tx + 16 * j] = __fmul_rn(s[j], scale);
-    __syncthreads();
-  }
-  // one warp per two rows: max, then p = exp(s - m) and the sum
-  for (int rr = warp; rr < SINGLE_ROWS; rr += NT / 32) {
-    const int qpos = row0 + rr;
-    float mx = NEG;
-    for (int c = lane; c < kv_end; c += 32)
-      if (!causal || c <= qpos) mx = fmaxf(mx, sS[rr * sp + c]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < kv_end; c += 32) {
-      const bool ok = !causal || c <= qpos;
-      const float p = ok ? expf(__fsub_rn(sS[rr * sp + c], mx)) : 0.0f;
-      sS[rr * sp + c] = p;
-      sum = __fadd_rn(sum, p);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      sM[rr] = mx;
-      sL[rr] = sum;
-    }
-  }
-  float acc[CPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) acc[j] = 0.0f;
-  for (int kt = 0; kt < kv_end; kt += BK) {
-    const int nk = min(BK, kv_end - kt);
-    __syncthreads();
-    load_rows<T, D, BK, QP>(sKV, vh + static_cast<long long>(kt) * D, D, nk);
-    __syncthreads();
-    for (int c = 0; c < nk; ++c) {
-      const float p = sS[r * sp + kt + c];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        acc[j] = fmaf(p, sKV[c * QP + tx + 16 * j], acc[j]);
-    }
-  }
-  __syncthreads();
-  if (r < nq) {
-    const float l = fmaxf(sL[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      st(o + qoff + r * D + tx + 16 * j, __fdiv_rn(acc[j], l));
-  }
-  if (tid < nq)
-    lse[static_cast<long long>(bh) * Sq + row0 + tid] =
-        __fadd_rn(sM[tid], logf(fmaxf(sL[tid], 1e-30f)));
-}
-
-constexpr int single_smem(int D, int sp) {
-  return ((SINGLE_ROWS + BK) * (D + 1) + SINGLE_ROWS * sp + 2 * SINGLE_ROWS) *
-         4;
+// B8 or B9 over grid (B*H, q tiles)
+template <int D, typename K>
+cudaError_t launch_rows(K kern, const void* q, const void* k, const void* v,
+                        void* o, void* lse, int B, int H, int Hkv, int Sq,
+                        int Skv, int causal, float scale, cudaStream_t st) {
+  using L = FwdSmem<D, FWD_BQ, FWD_BK>;
+  cudaError_t e = allow_smem(kern, L::BYTES);
+  if (e != cudaSuccess) return e;
+  dim3 grid(B * H, (Sq + FWD_BQ - 1) / FWD_BQ);
+  kern<<<grid, L::NTH, L::BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Hkv, Sq, Skv, causal, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Hkv, int Sq, int Skv,
                        int causal, float scale, cudaStream_t st) {
-  constexpr int BQ = 64;
-  constexpr int smem = tile_smem<D, BQ>();
-  auto kern = attn_fwd_kernel<T, D, BQ>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hkv, Sq, Skv, causal, scale);
-  return cudaGetLastError();
+  static_assert(std::is_same<T, float>::value, "the f32 route");
+  return launch_rows<D>(attn_fwd_kernel<D, FWD_BQ, FWD_BK>, q, k, v, o, lse,
+                        B, H, Hkv, Sq, Skv, causal, scale, st);
 }
 
 template <typename T, int D>
@@ -362,35 +597,26 @@ cudaError_t launch_single(const void* q, const void* k, const void* v,
                           void* o, void* lse, int B, int H, int Hkv, int Sq,
                           int Skv, int causal, float scale,
                           cudaStream_t st) {
-  const int sp = ((Skv + BK - 1) / BK) * BK + 1;  // odd pitch
-  const int smem = single_smem(D, sp);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kern = attn_fwd_single_kernel<T, D>;
-  cudaError_t e = allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((Sq + SINGLE_ROWS - 1) / SINGLE_ROWS, B * H);
-  kern<<<grid, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Hkv, Sq, Skv, causal, scale, sp);
-  return cudaGetLastError();
+  static_assert(std::is_same<T, float>::value, "the f32 route");
+  return launch_rows<D>(attn_fwd_single_kernel<D, FWD_BQ, FWD_BK>, q, k, v,
+                        o, lse, B, H, Hkv, Sq, Skv, causal, scale, st);
 }
 
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
                           void* o, int B, int H, int Hkv, int Tlen, int s_new,
                           int kv_len, float scale, cudaStream_t st) {
-  constexpr int BQ = 64;
-  constexpr int smem = tile_smem<D, BQ>();
+  static_assert(std::is_same<T, float>::value, "the f32 route");
+  using L = FwdSmem<D, FWD_BQ, FWD_BK>;
   const int nrows = (H / Hkv) * s_new;
-  auto kern = attn_decode_kernel<T, D, BQ>;
-  cudaError_t e = allow_smem(kern, smem);
+  auto kern = attn_decode_kernel<D, FWD_BQ, FWD_BK>;
+  cudaError_t e = allow_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid((nrows + BQ - 1) / BQ, Hkv, B);
-  kern<<<grid, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<T*>(o), Hkv, Tlen, nrows, s_new,
-      kv_len, scale);
+  dim3 grid((nrows + FWD_BQ - 1) / FWD_BQ, Hkv, B);
+  kern<<<grid, L::NTH, L::BYTES, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<float*>(o), Hkv, Tlen, nrows,
+      s_new, kv_len, scale);
   return cudaGetLastError();
 }
 

@@ -18,9 +18,11 @@ PyTorch versions (``*_ref``).
   them. B8 and B9 each have two routes: bf16 operands run on the tensor
   cores (``attn_fwd_wgmma_kernel`` and ``attn_fwd_single_wgmma_kernel``
   of ``csrc/attention_sm90.cu``: wgmma and TMA; P rounded to bf16 before
-  P V, see ``fwd_rounding_magnitudes``), f32 operands on the CUDA cores
-  (``attn_fwd_kernel`` and ``attn_fwd_single_kernel`` of
-  ``csrc/attention.cu``).
+  P V, see ``fwd_rounding_magnitudes``), f32 operands on the TF32 tensor
+  cores with 3xTF32 products (``attn_fwd_kernel`` and
+  ``attn_fwd_single_kernel`` of ``csrc/attention.cu``: mma.sync, Q, K, V
+  and P each split into two TF32 parts, so the products keep about f32
+  accuracy).
 - ``flash_attention_bwd_dkv``: B10, per-q-head f32 partials of dK and
   dV; ``flash_attention_bwd_dq``: B11, dQ in q's dtype. Two routes, one
   kernel each: bf16 operands run on the tensor cores
@@ -40,7 +42,8 @@ PyTorch versions (``*_ref``).
   bf16 chunk of S_new > 1 new tokens (prefill) runs B8's tensor-core
   kernel over the cache in its own layout (``attn_fwd_wgmma_kernel`` with
   a 4-D tensor map, bottom-right causal); an f32 chunk runs
-  ``attn_decode_kernel`` of ``csrc/attention.cu``.
+  ``attn_decode_kernel`` of ``csrc/attention.cu``, B8's 3xTF32 tile over
+  the cache in its own layout.
 
 The kernels take f32 or bf16 operands with head dim 16, 32, 64 or 128
 (``KERNEL_HEAD_DIMS``); a CUDA call outside that raises TypeError (the
@@ -70,9 +73,6 @@ from .. import _build
 _NEG_INF = torch.finfo(torch.float32).min
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/attention.cu
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-# f32 B9 holds a 16-row tile of scores in shared memory; the bf16 route
-# streams its key tiles and has no such limit
-SINGLE_MAX_KEYS = 2048
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 
@@ -219,10 +219,6 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _kernel_ready("flash_attention", q, k, v)
-    if single and q.dtype == torch.float32 and Skv > SINGLE_MAX_KEYS:
-        raise ValueError(f"flash_attention: one f32 KV block of {Skv} keys "
-                         f"exceeds B9's {SINGLE_MAX_KEYS}; pass a smaller "
-                         f"block_k")
     o = torch.empty_like(q)
     lse = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
     fn = (_build.library().accl_attn_fwd_single if single

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one card: the stream kernels B1-B7,
 B9, B12 decode, the 32-layer Llama-3-8B forward on 4x512 tokens (the
-serving path's B9 call) and the attention backward B10, B11.
+serving path's B9 call), the attention backward B10, B11 and the
+attention forward's f32 route (B8, B9, B12 prefill).
 
 Run from the root of a checkout:
 
-    python3 chip_compare.py [--part all|stream|model|bwd] [TREE ...]
+    python3 chip_compare.py [--part all|stream|model|bwd|fwd32] [TREE ...]
 
 ``--part stream`` times the stream kernels only (no model is built);
 ``--part model`` B9, decode and the forward only; ``--part bwd`` B10
-and B11 only; the default is all three.
+and B11 only; ``--part fwd32`` the forward's f32 route beside SDPA's f32
+forward, with the bf16 routes and decode at the same shapes as
+controls; the default is all but ``fwd32``.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -48,7 +51,16 @@ card's name and power limit and:
   forward gives (its LSE, delta from O), the median device time of 20
   launches and the largest error against the plain version, and
   PyTorch's SDPA backward (dq, dk and dv together, f32 and bf16, with
-  ``allow_tf32`` off), the pair's yardstick.
+  ``allow_tf32`` off), the pair's yardstick;
+- the fwd32 part, at phase 5's shapes of ``chip_smoke.py`` (B=4, H=32,
+  Hkv=8, D=128, causal): ``flash_attention_fwd`` in f32 as B9 at S=128
+  and S=512 and as B8 at S=2048, and the f32 prefill (``flash_decode``,
+  S_new = kv_len = 1024 of T = 1024), each the median device time of 20
+  launches behind the GPU sleep, the largest error against the plain
+  version on the same inputs, and PyTorch's SDPA forward on the same f32
+  inputs with ``allow_tf32`` off (timed only); then the same calls in
+  bf16 and the single-token decode (bf16 and f32, kv_len 2047 of T =
+  4096), whose kernels the f32 route does not share.
 
 It uses only the entry points every version of the port has
 (``ops.combine.combine``, ``ops.compression.cast``, ``fp8_scale``,
@@ -68,7 +80,7 @@ import time
 
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PARTS = ("all", "stream", "model", "bwd")
+PARTS = ("all", "stream", "model", "bwd", "fwd32")
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -306,6 +318,57 @@ def bwd_part(out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def fwd32_part(out: dict) -> None:
+    """The forward's f32 route beside SDPA, the bf16 routes and decode
+    as controls (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B, H, Hkv, D = 4, 32, 8, 128
+
+    def err_of(got, want) -> float:
+        return float((got.float() - want.float()).abs().max())
+
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        for key, S in (("b9_s128", 128), ("b9_s512", 512), ("b8_s2048", 2048)):
+            q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
+            k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
+                    .to(dt) for _ in range(2))
+            o, lse = A.flash_attention_fwd(q, k, v, True)
+            ro, rl = A.flash_attention_ref(q, k, v, True)
+            rec = {"ms": time_ms(lambda: A.flash_attention_fwd(
+                q, k, v, True)),  # noqa: B023
+                "max_abs_err": max(err_of(o, ro), err_of(lse, rl))}
+            if dt == torch.float32:
+                rec["sdpa_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(  # noqa: B023
+                        q, k, v, is_causal=True, enable_gqa=True))
+            out[f"{key}_{name}"] = rec
+            del q, k, v, o, lse, ro, rl
+        for key, s_new, T, kv_len in (("prefill_1024", 1024, 1024, 1024),
+                                      ("decode_2047", 1, 4096, 2047)):
+            q = torch.randn(B, H, s_new, D, device="cuda", generator=g).to(dt)
+            kc, vc = (torch.randn(B, T, Hkv, D, device="cuda", generator=g)
+                      .to(dt) for _ in range(2))
+            o = A.flash_decode(q, kc, vc, kv_len)
+            rec = {"ms": time_ms(lambda: A.flash_decode(
+                q, kc, vc, kv_len)),  # noqa: B023
+                "max_abs_err": err_of(o, A.flash_decode_ref(q, kc, vc,
+                                                            kv_len))}
+            if dt == torch.float32 and s_new > 1:
+                kt, vt = A.cache_prefix(kc, vc, kv_len)
+                rec["sdpa_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(  # noqa: B023
+                        q, kt, vt, is_causal=True, enable_gqa=True))
+            out[f"{key}_{name}"] = rec
+            del q, kc, vc, o
+        torch.cuda.empty_cache()
+
+
 def one(tree: str, part: str) -> dict:
     """The measurements of one tree's port (in this process)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -319,6 +382,8 @@ def one(tree: str, part: str) -> dict:
         model_part(out)
     if part in ("all", "bwd"):
         bwd_part(out)
+    if part == "fwd32":
+        fwd32_part(out)
     return out
 
 

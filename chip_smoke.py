@@ -89,9 +89,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``scaled_dot_product_attention`` (timed only; the port never calls
    it). bf16 B8, bf16 B9 and bf16 B12 chunks run on the tensor cores
    (``attention_sm90.cu``) and are held under the limit of their
-   rounding of P (``FWD_TOL``); single-token decode runs the split-KV
-   kernels (``attention_decode.cu``) in both dtypes, its ``n_split``
-   printed.
+   rounding of P (``FWD_TOL``); f32 B8, f32 B9 and f32 B12 chunks run
+   on the TF32 tensor cores with 3xTF32 products (``attention.cu``): their
+   SASS must hold TF32 HMMA with no spills (``tf32_kernels_checked``),
+   each f32 call runs twice and must repeat bitwise, and B8 at B=1,
+   S=8192 and B9 over one 4096-key block are held too
+   (``attention_long_f32``); their full-width rows ``attn_*_tf32`` join
+   the kernels line beside the 3xTF32 bound. Single-token decode runs the
+   split-KV kernels (``attention_decode.cu``) in both dtypes, its
+   ``n_split`` printed.
 6. Llama model, f32, full width, 4 layers: the same random weights
    through ``attention="flash"`` (the kernels) and ``"dense"`` (the
    reference's plain path): ``forward`` on (2, 2048) (B8) and (4, 128)
@@ -125,7 +131,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and no wgmma that ptxas serialized (the split-KV decode kernel's
    registers and spills printed beside them), and the f32 route of B10
    and B11 (``attention_bwd.cu``, 3xTF32) holds TF32 HMMA instructions
-   with no spills; B10 (``attn_bwd_dkv``) and
+   with no spills (checked with phase 5); B10 (``attn_bwd_dkv``) and
    B11 (``attn_bwd_dq``) against their plain versions on an edge corpus
    (MHA/GQA/MQA, causal and not, ragged S, Sq != Skv both ways, D 16-128,
    f32 and bf16) and at the full Llama-3-8B width (B=4, H=32, Hkv=8,
@@ -2069,7 +2075,7 @@ def rma_path(recs):
 
 # -- attention and the Llama serving path ----------------------------------
 
-ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"              # CUDA cores
+ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"   # f32 B8, B9, prefill: 3xTF32
 ATTN_SM90_SRC = "accl_tpu_torch/csrc/attention_sm90.cu"  # bf16 B8, B9, prefill
 ATTN_DECODE_SRC = "accl_tpu_torch/csrc/attention_decode.cu"  # S_new == 1
 # one attention tolerance, stated once and held element by element:
@@ -2092,7 +2098,9 @@ FWD_BF16_MARGIN = 2.0 ** -8
 FWD_TOL = ("bf16 tensor-core route 2^-8*m + 2^-7*|plain| + "
            "2^-7*median|plain|, m the magnitude of the rounded sum P V; "
            "LSE 2e-5 + 2e-5*|lse|; per element")
-KEY_TILE = 64               # csrc/attention.cu BK
+KEY_TILE = 64               # the bf16 and split-KV kernels' key tile
+# the f32 forward's route (B8, B9, B12 chunks): csrc/attention.cu
+F32_ROUTE = "f32 route (TF32 tensor cores, 3xTF32)"
 # flash against dense, f32, 4 layers: the two attentions sum in other
 # orders (about 1e-7 relative per output), amplified through 4 layers and
 # the lm_head's 4096-term products: max |diff| <= 1e-4 * max |logit|
@@ -2120,7 +2128,9 @@ LAUNCH_PATH = {"attn_fwd": "serving", "attn_fwd_single": "serving",
                "attn_decode": "serving", "attn_prefill": "serving",
                "attn_bwd_dkv": "training", "attn_bwd_dq": "training",
                "attn_bwd_dkv_tf32": "grad_check",
-               "attn_bwd_dq_tf32": "grad_check"}
+               "attn_bwd_dq_tf32": "grad_check",
+               "attn_fwd_tf32": "model_f32", "attn_fwd_single_tf32":
+               "model_f32", "attn_prefill_tf32": "model_f32"}
 
 
 def attention_counters() -> dict:
@@ -2147,9 +2157,10 @@ def zero_attention_counters():
 
 
 def need_routes(launches: dict, bf16: bool, what: str):
-    """Every B8, B9 and B12 prefill launch of a path took the tensor-core
-    route when the path runs bf16, none when it runs f32; every
-    single-token decode launch took the split-KV kernel (both dtypes)."""
+    """Every B8, B9 and B12 prefill launch of a path took the bf16
+    tensor-core (wgmma) route when the path runs bf16, none when it runs
+    f32 (the 3xTF32 route); every single-token decode launch took the
+    split-KV kernel (both dtypes)."""
     from accl_tpu_torch.ops import attention as A
     keys = ("attn_fwd", "attn_fwd_single", "attn_prefill")
     for key in keys:
@@ -2162,8 +2173,8 @@ def need_routes(launches: dict, bf16: bool, what: str):
          f"{launches['attn_decode']} decode launches on the split-KV route")
     print(f"{what} routes: " + ", ".join(
         f"{k} {launches[k + '_wgmma']} of {launches[k]}" for k in keys)
-        + f" launches on the tensor-core route ({ATTN_SM90_SRC}), the rest "
-        f"on the CUDA cores ({ATTN_SRC}); attn_decode "
+        + f" launches on the bf16 tensor-core route ({ATTN_SM90_SRC}), the "
+        f"rest on the f32 3xTF32 route ({ATTN_SRC}); attn_decode "
         f"{launches['attn_decode_split']} of {launches['attn_decode']} on "
         f"the split-KV kernel ({ATTN_DECODE_SRC}"
         + (f", n_split {A.last_decode_splits} at the last"
@@ -2255,11 +2266,23 @@ def attn_source(kind: str, dtype, s_new: int = 0) -> str:
     return ATTN_SM90_SRC if dtype == torch.bfloat16 else ATTN_SRC
 
 
+def need_repeat(fn, outs, what: str):
+    """A second call of ``fn`` (an f32-route kernel) on the same inputs
+    gives ``outs`` again, bitwise."""
+    import torch
+    again = fn()
+    again = again if isinstance(again, tuple) else (again,)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    need(all(torch.equal(a, b) for a, b in zip(outs, again)),
+         f"{what}: a repeat on the same inputs is not bitwise equal")
+
+
 def attention_edges(rng):
     """The CPU tests' shapes, single-block B9 cases and the decode and
     chunked-prefill edge cases, f32 and bf16 (bf16 B8, B9 and B12 chunks
-    on the tensor-core route, under FWD_TOL; single-token decode on the
-    split-KV kernel)."""
+    on the tensor-core route, under FWD_TOL; f32 B8, B9 and B12 chunks on
+    the 3xTF32 route, each run twice and bitwise equal; single-token
+    decode on the split-KV kernel)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     fwd_cases = [  # B, H, Hkv, Sq, Skv, D, causal, block_k
@@ -2313,10 +2336,13 @@ def attention_edges(rng):
             o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
             ro, rl = A.flash_attention_ref(q, k, v, causal)
             mag = fwd_route_mag("fwd", (q, k, v, causal, None, None, bk))
-            route = "tensor cores" if mag is not None else "CUDA cores"
+            route = "tensor cores" if mag is not None else F32_ROUTE
+            what = f"attn fwd {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}"
             worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
-                o, ro, f"attn fwd {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}",
-                lse, rl, mag))
+                o, ro, what, lse, rl, mag))
+            if mag is None:
+                need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+                    q, k, v, causal, block_k=bk), (o, lse), what)
         for B, H, Hkv, Sq, Skv, D, causal, bk in single_cases:
             need(A.is_single_block(Skv, bk), f"B9 case {Skv}/{bk}: not one "
                  f"key block")
@@ -2330,10 +2356,13 @@ def attention_edges(rng):
             ro, rl = A.flash_attention_ref(q, k, v, causal)
             mag = fwd_route_mag("fwd", (q, k, v, causal, None, None, bk))
             route = ("B9 tensor cores" if mag is not None
-                     else "B9 CUDA cores")
+                     else "B9 " + F32_ROUTE)
+            what = f"attn B9 {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}"
             worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
-                o, ro, f"attn B9 {dt} {(B, H, Hkv, Sq, Skv, D, causal, bk)}",
-                lse, rl, mag))
+                o, ro, what, lse, rl, mag))
+            if mag is None:
+                need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+                    q, k, v, causal, block_k=bk), (o, lse), what)
         for B, H, Hkv, Tc, kv_len, D in split_cases:
             q = torch.from_numpy(split_rng.standard_normal(
                 (B, H, 1, D))).to("cuda", dt)
@@ -2360,12 +2389,14 @@ def attention_edges(rng):
             vc[:, kv_len:] = float("nan")
             mag = fwd_route_mag("decode", (q, kc, vc, kv_len))
             route = ("tensor cores" if mag is not None else
-                     "split-KV" if s_new == 1 else "CUDA cores")
+                     "split-KV" if s_new == 1 else F32_ROUTE)
+            what = f"attn decode {dt} s_new={s_new} kv_len={kv_len} D={D}"
+            o = A.flash_decode(q, kc, vc, kv_len)
             worst[route] = max_pair(worst.get(route, (0.0, 0.0)), hold_attn(
-                A.flash_decode(q, kc, vc, kv_len),
-                A.flash_decode_ref(q, kc, vc, kv_len),
-                f"attn decode {dt} s_new={s_new} kv_len={kv_len} D={D}",
-                mag=mag))
+                o, A.flash_decode_ref(q, kc, vc, kv_len), what, mag=mag))
+            if route == F32_ROUTE:
+                need_repeat(lambda: A.flash_decode(  # noqa: B023
+                    q, kc, vc, kv_len), o, what)
     print(f"attention edges: {2 * len(fwd_cases)} forward cases (B8 and "
           f"B9, MHA/GQA/MQA, ragged, straddling blocks, Sq != Skv), "
           f"{2 * len(single_cases)} single-block B9 cases (Skv 40-2048, "
@@ -2375,10 +2406,72 @@ def attention_edges(rng):
           f"and {2 * len(split_cases)} single-token decode cases on the "
           f"split-KV kernel (NaN past kv_len, kv_len 1 to T, groups 1-8, D "
           f"16-128; (n_split, filled slices) {sorted(splits)}) within "
-          f"tolerance")
+          f"tolerance; every f32 B8, B9 and prefill case repeated bitwise")
     for route, (err, ratio) in sorted(worst.items()):
+        tol = FWD_TOL if route.endswith("tensor cores") else ATTN_TOL
         print(f"  {route}: max abs err {err}, largest error/limit "
-              f"{ratio:.3f} ({FWD_TOL if 'tensor' in route else ATTN_TOL})")
+              f"{ratio:.3f} ({tol})")
+
+
+# f32 forward cases at the longest lengths the port runs (the tensor
+# core's truncation grows with the length of a sum): B8 at phase 10a's
+# unsharded shape, B9 over one 4096-key block (block_k = 4096), causal
+# and not. (B, H, Hkv, Sq, Skv, D, causal, block_k)
+LONG_F32_CASES = ((1, 32, 8, 8192, 8192, 128, True, None),
+                  (1, 32, 8, 4096, 4096, 128, True, 4096),
+                  (1, 8, 2, 512, 4096, 64, False, 4096))
+
+
+def hold_attn_by_kv_head(q, k, v, causal, o, lse, what):
+    """An f32 forward's O and LSE against the plain version run one kv
+    head at a time (a long sequence's dense scores for every head would
+    not fit), under ATTN_TOL; returns (max abs error, error/limit)."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    B, H, Sq, _ = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    w = (0.0, 0.0)
+    for j in range(Hkv):
+        hs = slice(j * g, (j + 1) * g)
+        ro, rl = A.flash_attention_ref(q[:, hs], k[:, j:j + 1],
+                                       v[:, j:j + 1], causal)
+        w = max_pair(w, hold_attn(
+            o[:, hs], ro, f"{what} kv head {j}",
+            lse.view(B, H, Sq)[:, hs].reshape(B * g, Sq), rl))
+        del ro, rl
+        torch.cuda.empty_cache()
+    return w
+
+
+def attention_long_f32():
+    """LONG_F32_CASES: f32 B8 and B9 against their plain versions under
+    ATTN_TOL, each run twice and bitwise equal, timed."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    gen = np.random.default_rng(SEED + 20)
+    for B, H, Hkv, Sq, Skv, D, causal, bk in LONG_F32_CASES:
+        q = torch.from_numpy(gen.standard_normal((B, H, Sq, D))).to(
+            "cuda", torch.float32)
+        k, v = (torch.from_numpy(gen.standard_normal((B, Hkv, Skv, D))).to(
+            "cuda", torch.float32) for _ in range(2))
+        single = A.is_single_block(Skv, bk)
+        before = A.fwd_single_launches
+        o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
+        need((A.fwd_single_launches == before + 1) == single,
+             "long f32 case: the wrong kernel")
+        case = (B, H, Hkv, Sq, Skv, D, causal, bk)
+        what = f"attn {'B9' if single else 'B8'} f32 {case}"
+        err, ratio = hold_attn_by_kv_head(q, k, v, causal, o, lse, what)
+        need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+            q, k, v, causal, block_k=bk), (o, lse), what)
+        ms = time_ms(lambda: A.flash_attention_fwd(  # noqa: B023
+            q, k, v, causal, block_k=bk), reps=10)
+        print(f"{what} ({ATTN_SRC}, {F32_ROUTE}): {ms:.4f} ms, max abs err "
+              f"vs plain {err}, largest error/limit {ratio:.3f} (O and LSE, "
+              f"{ATTN_TOL}); a repeat bitwise equal")
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
 
 
 def max_pair(a, b):
@@ -2387,13 +2480,18 @@ def max_pair(a, b):
 
 
 def attention_records():
-    """B8, B9 and B12 at the full-width shapes, bf16 (the table's rows)
-    and f32 (checked and printed), against their plain versions and
-    PyTorch's SDPA, timed. B9 at S=128 (printed) and at the serving
-    path's S=512 (the record)."""
+    """B8, B9 and B12 at the full-width shapes, bf16 and f32 (the f32
+    rows named ``*_tf32``: the 3xTF32 route, each run twice and bitwise
+    equal), against their plain versions and PyTorch's SDPA (f32 with
+    ``allow_tf32`` off), timed. B9 at S=128 (printed) and at the serving
+    path's S=512 (the record). The f32 route's bound is three TF32
+    products at the tensor cores' rate (or the bytes); the CUDA cores'
+    f32 bound is printed beside it."""
     import torch
     import torch.nn.functional as F
     from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     H, Hkv, D = 32, 8, 128          # Llama-3-8B attention geometry
     recs = []
@@ -2417,6 +2515,7 @@ def attention_records():
                 ref, rl = A.flash_attention_ref(q, k, v, True)
                 mag = fwd_route_mag("fwd", (q, k, v, True))
                 err, ratio = hold_attn(o, ref, f"{name} {dt}", lse, rl, mag)
+                outs = (o, lse)
                 kern = lambda: A.flash_attention_fwd(q, k, v, True)  # noqa
                 plain = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
                 lib = lambda: F.scaled_dot_product_attention(  # noqa
@@ -2433,6 +2532,7 @@ def attention_records():
                 ref = A.flash_decode_ref(q, kc, vc, skv)
                 mag = fwd_route_mag("decode", (q, kc, vc, skv))
                 err, ratio = hold_attn(o, ref, f"{name} {dt}", mag=mag)
+                outs = o
                 kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
                 plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
                 kt = kc[:, :skv].transpose(1, 2)
@@ -2442,11 +2542,27 @@ def attention_records():
                     q, kt, vt, is_causal=sq > 1, enable_gqa=True)
                 nbytes, nops = attn_work(B, H, Hkv, sq, skv, D,
                                          q.element_size(), s_new=sq)
+            # the f32 route of B8, B9 and the prefill: 3xTF32
+            tf32 = dt == torch.float32 and name != "attn_decode"
+            repeat = ""
+            if tf32:
+                need_repeat(kern, outs, f"{name} {dt}")
+                repeat = "; a repeat bitwise equal"
             ms = time_ms(kern)
             plain_ms = time_ms(plain, reps=5)
             library_ms = time_ms(lib)
-            rate = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
-            bms, by = bound_ms(nbytes, nops, rate)
+            if tf32:
+                bms, by = bound_ms(nbytes, 3 * nops, TF32_OPS_PER_S)
+                core_ms, _ = bound_ms(nbytes, nops, F32_OPS_PER_S)
+                bounds = (f"bound {bms:.4f} ms by {by} (3 x ops / 495 "
+                          f"TFLOP/s or bytes / 3.35 TB/s), {bms / ms:.1%} "
+                          f"of it; CUDA-core bound {core_ms:.4f} ms, "
+                          f"{core_ms / ms:.1%} of it")
+            else:
+                rate = (BF16_OPS_PER_S if dt == torch.bfloat16
+                        else F32_OPS_PER_S)
+                bms, by = bound_ms(nbytes, nops, rate)
+                bounds = f"bound {bms:.4f} ms by {by}, {bms / ms:.1%} of bound"
             src = attn_source("fwd" if T is None else "decode", dt, sq)
             n_split = A.last_decode_splits if name == "attn_decode" else None
             print(f"kernel {name} {str(dt)[6:]} ({src}) B={B} H={H} "
@@ -2457,21 +2573,22 @@ def attention_records():
                   f"{'' if n_split is None else f' n_split={n_split}'}: "
                   f"{ms:.4f} ms (plain "
                   f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms = "
-                  f"{ms / library_ms:.2f}x sdpa, bound "
-                  f"{bms:.4f} ms by {by}, {bms / ms:.1%} of bound), max abs "
+                  f"{ms / library_ms:.2f}x sdpa, {bounds}), max abs "
                   f"err vs plain {err}, largest error/limit {ratio:.3f} "
-                  f"({ATTN_TOL if mag is None else FWD_TOL})")
-            # the table's rows: bf16; B9 at the serving path's length
-            if dt == torch.bfloat16 and not (name == "attn_fwd_single"
-                                             and sq != SERVE_B9_LEN):
-                recs.append({"name": name, "route": "cuda",
+                  f"({ATTN_TOL if mag is None else FWD_TOL}){repeat}")
+            # the table's rows: bf16 and the f32 route; B9 at the serving
+            # path's length
+            if (dt == torch.bfloat16 or tf32) and not (
+                    name == "attn_fwd_single" and sq != SERVE_B9_LEN):
+                recs.append({"name": name + ("_tf32" if tf32 else ""),
+                             "route": "cuda",
                              "source": src, "replaces": replaces,
                              "launches": 0, "max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bms,
                              "bound_by": by, "library_ms": library_ms})
                 if n_split is not None:
                     recs[-1]["n_split"] = n_split
-            del q, o, ref, mag
+            del q, o, ref, mag, outs
             torch.cuda.empty_cache()
     return recs
 
@@ -2885,10 +3002,14 @@ def disaggregated_phase(model, prompts, new: int) -> dict:
 # -- attention backward and the Llama training path --------------------------
 
 ATTN_BWD_SRC = "accl_tpu_torch/csrc/attention_bwd.cu"          # f32 route
-# the f32 route's kernels (mangled: the name's length before it, which
-# keeps the wgmma kernels out) and the SASS of a TF32 mma.sync
-TF32_KERNELS = {"attn_bwd_dkv": r"\d+attn_bwd_dkv_kernel",
-                "attn_bwd_dq": r"\d+attn_bwd_dq_kernel"}
+# the f32 routes' kernels on the TF32 tensor cores (mangled: the name's
+# length before it, which keeps the wgmma and split-KV kernels out), their
+# sources, and the SASS of a TF32 mma.sync
+TF32_KERNELS = {"attn_fwd": (r"\d+attn_fwd_kernel", ATTN_SRC),
+                "attn_fwd_single": (r"\d+attn_fwd_single_kernel", ATTN_SRC),
+                "attn_prefill": (r"\d+attn_decode_kernel", ATTN_SRC),
+                "attn_bwd_dkv": (r"\d+attn_bwd_dkv_kernel", ATTN_BWD_SRC),
+                "attn_bwd_dq": (r"\d+attn_bwd_dq_kernel", ATTN_BWD_SRC)}
 TF32_HMMA = r"HMMA\.\S*TF32"
 ATTN_BWD_SM90_SRC = "accl_tpu_torch/csrc/attention_bwd_sm90.cu"  # bf16 route
 WGMMA_KERNELS = ("attn_fwd_wgmma_kernel", "attn_fwd_single_wgmma_kernel",
@@ -3142,13 +3263,14 @@ def wgmma_kernels_checked():
 
 
 def tf32_kernels_checked():
-    """The f32 route of B10 and B11 in the built library: every
-    instantiation (D 16/32/64/128) holds TF32 HMMA instructions (mma.sync
-    on the tensor cores) and ptxas reports no spills. Prints the counts
-    and the registers by head dim; fails otherwise."""
+    """The f32 route of B8, B9, the B12 prefill, B10 and B11 in the built
+    library: every instantiation (D 16/32/64/128) holds TF32 HMMA
+    instructions (mma.sync on the tensor cores) and ptxas reports no
+    spills. Prints the counts and the registers by head dim; fails
+    otherwise."""
     import re
     funcs, ptx = sass_and_ptxas()
-    for name, pat in TF32_KERNELS.items():
+    for name, (pat, src) in TF32_KERNELS.items():
         bodies = {f.split("\n", 1)[0].strip(): f for f in funcs
                   if re.search(pat, f.split("\n", 1)[0])}
         need(len(bodies) == 4, f"{name}: {len(bodies)} f32-route "
@@ -3167,7 +3289,7 @@ def tf32_kernels_checked():
              f"{name}: ptxas spills {info}")
         regs = {int(m.group(1)): v[0] for k, v in info.items()
                 for m in [re.search(r"ILi(\d+)E", k)] if m}
-        print(f"{name} f32 route ({ATTN_BWD_SRC}, 3xTF32 on mma.sync): "
+        print(f"{name} f32 route ({src}, 3xTF32 on mma.sync): "
               f"{len(bodies)} instantiations, TF32 HMMA instructions by "
               f"head dim {dict(sorted(counts.items()))}; ptxas registers "
               f"{dict(sorted(regs.items()))}, no spills")
@@ -3941,9 +4063,10 @@ def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
         sdpa = f"; SDPA forward {sdpa_f:.4f} ms, backward {sdpa_b:.4f} ms"
         del lq, lk, lv, lo
     seen = S * (S + 1) // 2 if causal else S * S
+    # f32: the kernels' three TF32 products a product (3xTF32)
     bms, by = bound_ms((2 * B * H * S * D + 2 * B * Hkv * S * D) * es
-                       + 4 * B * H * S, 4 * D * B * H * seen,
-                       BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+                       + 4 * B * H * S, (1 if bf16 else 3) * 4 * D * B * H
+                       * seen, BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S)
     print(f"{what}: {blocks} {fwd_key} launches ({fwd_key} tensor cores "
           f"{c1[fwd_key + '_wgmma'] - c0[fwd_key + '_wgmma']}), backward "
           f"attn_bwd_dkv {blocks}, attn_bwd_dq {blocks}; exchange rounds "
@@ -3958,7 +4081,8 @@ def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
           f"ms (ring {fwd_ms / b8_ms:.2f}x), attn_bwd_dkv "
           f"{b10_ms:.4f} ms + attn_bwd_dq {b11_ms:.4f} ms (ring backward "
           f"{bwd_ms / (b10_ms + b11_ms):.2f}x); forward bound {bms:.4f} ms "
-          f"by {by} ({bms / fwd_ms:.1%} of it){sdpa}; Ulysses forward "
+          f"by {by}{'' if bf16 else ' at 3 x ops / 495 TFLOP/s'} "
+          f"({bms / fwd_ms:.1%} of it){sdpa}; Ulysses forward "
           f"{uly_ms:.4f} ms, alltoall bytes a rank a call {u_bytes:,} "
           f"(the (W - 1)/W of q, k, v and O that leave the rank; the own "
           f"chunk not counted)")
@@ -7687,7 +7811,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 5: attention kernels")
+    tf32_kernels_checked()
     attention_edges(rng)
+    attention_long_f32()
     attn_recs = attention_records()
     zero_attention_counters()         # the f32 model path's own counts
     phase("phase 6: f32 model, flash vs dense")
@@ -7703,7 +7829,6 @@ def main() -> int:
      tp_serve) = serving_phase()
     phase("phase 8: attention backward kernels")
     wgmma_kernels_checked()
-    tf32_kernels_checked()
     attention_bwd_edges(rng)
     attn_recs += attention_bwd_records()
     phase("gradient check: flash vs dense, f32")
