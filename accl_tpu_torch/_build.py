@@ -68,6 +68,9 @@ _SIGNATURES = {
     # causal, scale, stream
     "accl_attn_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _F, _P],
+    # the route the last attention launch took (kind << 16 | dtype << 12 |
+    # column tier)
+    "accl_attn_last_route": [],
 }
 
 

@@ -13,10 +13,10 @@
 //       (S_new > 1) over the KV cache in its native (B, T, Hkv, D) layout,
 //       bottom-right causal.
 //
-// Routes: the C entry points below send bf16 B8, bf16 B9 and bf16 B12
-// chunks of S_new > 1 new tokens to the tensor-core kernels of
+// Routes: the C entry points below send 16-bit (bf16 and f16) B8, B9 and
+// B12 chunks of S_new > 1 new tokens to the tensor-core kernels of
 // attention_sm90.cu (wgmma, TMA), and every single-token decode (S_new ==
-// 1, f32 or bf16) to the split-KV kernel of attention_decode.cu. f32 B8,
+// 1, any dtype) to the split-KV kernel of attention_decode.cu. f32 B8,
 // f32 B9 and f32 B12 chunks run the kernels of this file.
 //
 // What bounds them on an H100: 4*D operations per visible score (S = Q K^T
@@ -69,6 +69,20 @@
 // KB, staging 4 x 16.5 KB, exchange 17 KB: 218 KB of the 227 KB a block
 // may use, one block an SM.
 //
+// Head dims: instantiated on power-of-two column tiers DP (16 .. 256),
+// with the head dim D <= DP (a multiple of 8) at run time: cp.async and
+// the Q load fill the columns past D with zeros, which add nothing to a
+// score or an output column, and only D columns are stored. At DP = 256
+// the planes alone take 2 x 33 KB (Q at 64 rows), 2 x 33 KB (K) and 2 x
+// 36 KB (V^T): with the staging buffers (4 x 33 KB) that is twice a
+// block's shared memory. So DP = 256 runs 32 query rows a block (4 warps,
+// Q's planes 2 x 16.6 KB) and no staging: each K and V tile is read from
+// global memory straight into the split (210.5 KB in all), so its loads
+// are not overlapped with the previous tile's products. A warp's 64 O
+// accumulators beside P's 32 words spilled there, so P V reads P's
+// fragments from the pair's exchange buffer as it uses them
+// (pv_update_smem) instead of holding them.
+//
 // Only keys below the tile's causal frontier (from the q tile's END, as
 // attention.py:159) and below the fill length are read; cp.async fills the
 // rest of a ragged tile with zeros. A warp whose 16 rows see no key of a
@@ -77,17 +91,24 @@
 // inputs are bitwise equal.
 #include <limits.h>
 
-#include <type_traits>
-
 #include "attention_tile.cuh"
 #include "tf32_mma.cuh"
+
+static int g_attn_route = 0;
+void set_attn_route(int kind, int dtype, int tier) {
+  g_attn_route = kind << 16 | dtype << 12 | tier;
+}
 
 namespace {
 
 // B8, B9 and the B12 prefill: 64 rows (8 warps) a block against 32-key
 // tiles (B9 at 32 rows, twice the blocks, ran slower at S = 128 and 512
-// on an H100: chip_compare.py --part fwd32)
-constexpr int FWD_BQ = 64, FWD_BK = 32;
+// on an H100: chip_compare.py --part fwd32); 32 rows at DP = 256
+constexpr int FWD_BK = 32;
+template <int DP>
+__host__ __device__ constexpr int fwd_bq() {
+  return DP > 128 ? 32 : 64;
+}
 
 // Query row r of a tile sits at absolute position pos_off + (row0 + r) %
 // period: B8 and B9 pass period = INT_MAX (position = row), B12 the number
@@ -109,22 +130,24 @@ struct Plane {
   __device__ __forceinline__ static int at(int r, int c) { return r * P + c; }
 };
 
-template <int D, int BQ, int BK>
+template <int DP, int BQ, int BK>
 struct FwdSmem {
+  static constexpr bool STAGED = DP <= 128;  // cp.async staging buffers
   static constexpr int PAIRS = BQ / 16;  // warp pairs: 16 rows each
   static constexpr int NTH = 64 * PAIRS;
-  static constexpr int SP = D + 4;       // staging pitch, words
-  static constexpr int Q = BQ * Plane<D>::P;   // words of a Q plane
-  static constexpr int K = BK * Plane<D>::P;   // of a K plane (rows: keys)
-  static constexpr int V = D * Plane<BK>::P;   // of a V^T plane (rows: d)
+  static constexpr int SP = DP + 4;       // staging pitch, words
+  static constexpr int Q = BQ * Plane<DP>::P;   // words of a Q plane
+  static constexpr int K = BK * Plane<DP>::P;   // of a K plane (rows: keys)
+  static constexpr int V = DP * Plane<BK>::P;   // of a V^T plane (rows: d)
   static constexpr int STAGE = BK * SP;  // one staged K or V tile
+  static constexpr int STAGES = STAGED ? 4 : 0;  // K, V of two tiles
   // what a warp hands its partner each tile: 16 row maxima, 16 row sums
   // and, a lane, the hi and lo words of its half of P's A fragments
   static constexpr int XW = BK / 2;            // words a lane
   static constexpr int XHALF = 32 + 32 * XW;   // words a warp
   static constexpr int BYTES =
-      (2 * Q + 2 * K + 2 * V + 4 * STAGE + 2 * PAIRS * XHALF) * 4;
-  static_assert(BQ % 16 == 0 && BK % 32 == 0 && BK <= 64 && D % 16 == 0,
+      (2 * Q + 2 * K + 2 * V + STAGES * STAGE + 2 * PAIRS * XHALF) * 4;
+  static_assert(BQ % 16 == 0 && BK % 32 == 0 && BK <= 64 && DP % 16 == 0,
                 "whole m16n8k8 tiles for each warp of a pair");
   static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
 };
@@ -140,60 +163,79 @@ __device__ __forceinline__ uint4 split4(const float4& f, uint4& lo) {
 }
 
 // BK key rows of D floats (row r at src + r * stride) into the staging
-// tile by 16-byte cp.async; rows at or past n are zeros, nothing past them
-// is read
-template <int D, int BK, int NTH>
+// tile (DP columns) by 16-byte cp.async; rows at or past n and columns at
+// or past D are zeros, nothing past them is read
+template <int DP, int BK, int NTH>
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           long long stride, int n) {
-  constexpr int CPR = D / 4, N = BK * CPR;
+                                           long long stride, int n, int D) {
+  constexpr int CPR = DP / 4, N = BK * CPR;
 #pragma unroll
   for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
     const int i = threadIdx.x + p * NTH;
     if (N % NTH != 0 && i >= N) break;
     const int r = i / CPR, c = (i % CPR) * 4;
-    const bool ok = r < n;
-    cp_async16(dst + r * (D + 4) + c, src + (ok ? r * stride + c : 0), ok);
+    const bool ok = r < n && c < D;
+    cp_async16(dst + r * (DP + 4) + c, src + (ok ? r * stride + c : 0), ok);
   }
 }
 
-// the staged K tile into its hi and lo planes, a 16-byte chunk a thread
-template <int D, int BK, int NTH>
-__device__ __forceinline__ void split_k(const float* stage, float* kh,
-                                       float* kl) {
-  constexpr int CPR = D / 4, N = BK * CPR;
+// 16 bytes of row r, column c of a K or V tile: from the staging tile
+// (pitch DP + 4, every row and column there) or, at stride `pitch`, from
+// global memory (zeros at rows >= n or columns >= D)
+template <bool STAGED>
+__device__ __forceinline__ float4 tile4(const float* src, long long pitch,
+                                        int r, int c, int n, int D) {
+  if (STAGED || (r < n && c < D))
+    return *reinterpret_cast<const float4*>(src + r * pitch + c);
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+template <bool STAGED>
+__device__ __forceinline__ float tile1(const float* src, long long pitch,
+                                       int r, int c, int n, int D) {
+  return STAGED || (r < n && c < D) ? src[r * pitch + c] : 0.0f;
+}
+
+// the K tile into its hi and lo planes, a 16-byte chunk a thread
+template <int DP, int BK, int NTH, bool STAGED>
+__device__ __forceinline__ void split_k(const float* src, long long pitch,
+                                        int n, int D, float* kh, float* kl) {
+  constexpr int CPR = DP / 4, N = BK * CPR;
 #pragma unroll
   for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
     const int i = threadIdx.x + p * NTH;
     if (N % NTH != 0 && i >= N) break;
     const int r = i / CPR, c = (i % CPR) * 4;
     uint4 lo;
-    const uint4 hi = split4(
-        *reinterpret_cast<const float4*>(stage + r * (D + 4) + c), lo);
-    const int at = Plane<D>::at(r, c);
+    const uint4 hi = split4(tile4<STAGED>(src, pitch, r, c, n, D), lo);
+    const int at = Plane<DP>::at(r, c);
     *reinterpret_cast<uint4*>(kh + at) = hi;
     *reinterpret_cast<uint4*>(kl + at) = lo;
   }
 }
 
-// the staged V tile into its transposed hi and lo planes. Within each
+// the V tile (as split_k reads it) into its transposed hi and lo planes. Within each
 // group of 8 keys the even keys come first (key 8j + 2t at word 8j + t,
 // 8j + 2t + 1 at 8j + t + 4), so plane words w..w + 3 of row d (w a
 // multiple of 4) hold column d of keys k0, k0 + 2, k0 + 4, k0 + 6 (k0 =
 // 8 * (w / 8) + (w / 4) % 2): a thread gathers the four and stores each
 // plane's 16 bytes at once; columns run fastest across the threads
-template <int D, int BK, int NTH>
-__device__ __forceinline__ void split_v(const float* stage, float* vh,
-                                       float* vl) {
-  constexpr int N = D * BK / 4, SP = D + 4;
+template <int DP, int BK, int NTH, bool STAGED>
+__device__ __forceinline__ void split_v(const float* src, long long pitch,
+                                        int n, int D, float* vh, float* vl) {
+  constexpr int N = DP * BK / 4;
 #pragma unroll
   for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
     const int i = threadIdx.x + p * NTH;
     if (N % NTH != 0 && i >= N) break;
-    const int d = i % D, w = (i / D) * 4;
-    const float* src = stage + ((w & ~7) + ((w >> 2) & 1)) * SP + d;
+    const int d = i % DP, w = (i / DP) * 4;
+    const int r = (w & ~7) + ((w >> 2) & 1);
     uint4 lo;
     const uint4 hi = split4(
-        make_float4(src[0], src[2 * SP], src[4 * SP], src[6 * SP]), lo);
+        make_float4(tile1<STAGED>(src, pitch, r, d, n, D),
+                    tile1<STAGED>(src, pitch, r + 2, d, n, D),
+                    tile1<STAGED>(src, pitch, r + 4, d, n, D),
+                    tile1<STAGED>(src, pitch, r + 6, d, n, D)),
+        lo);
     const int at = Plane<BK>::at(d, w);
     *reinterpret_cast<uint4*>(vh + at) = hi;
     *reinterpret_cast<uint4*>(vl + at) = lo;
@@ -224,16 +266,18 @@ __device__ __forceinline__ uint32_t opaque(uint32_t x) {
 // shared-space byte addresses of the lane's row and word in the hi planes
 // (column 0, the warp's first key); each lo plane lies QLO, KLO bytes
 // after its hi plane.
-template <int D, int NJ, int QLO, int KLO>
+template <int DP, int NJ, int QLO, int KLO>
 __device__ __forceinline__ void scores(uint32_t qa, uint32_t ka,
                                        float (&x)[NJ][4]) {
-  constexpr int RB = (D + 4) * 4;  // bytes a plane row
+  constexpr int RB = (DP + 4) * 4;  // bytes a plane row
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
+  // at DP = 256, 8 column steps at a time: a whole unrolled sweep keeps
+  // too many fragments in flight beside the warp's 64 O accumulators
+#pragma unroll(DP > 128 ? 8 : DP / 8)
+  for (int c = 0; c < DP / 8; ++c) {
     FragA a;
     ldsm_x4_at(a.hi, qa + 32 * c);
     ldsm_x4_at(a.lo, qa + QLO + 32 * c);
@@ -277,6 +321,62 @@ __device__ __forceinline__ void pv_update(const FragA (&pa)[BK / 8],
   }
 }
 
+// The same from P's fragments in shared memory, for DP > 128, where O's
+// 64 accumulators a warp beside P's 32 words spilled: key group j of P
+// (the A fragment of keys 8j..8j+7) is read from the pair's exchange
+// buffer (xw, the warp's own half, for j in [NH*half, NH*(half+1)), else
+// xp, the partner's; each 32 words of hi, then of lo, a lane) when it is
+// used, CC output blocks at a time. Each block's products run in the
+// same order as pv_update's, so the result is the same.
+template <int NC, int BK, int VLO, int CC>
+__device__ __forceinline__ void pv_update_smem(const float* xw,
+                                               const float* xp, int half,
+                                               uint32_t va, float alpha0,
+                                               float alpha1,
+                                               float (&o)[NC][4]) {
+  constexpr int RB = (BK + 4) * 4;  // bytes a V^T plane row
+  constexpr int NH = BK / 16;       // key groups of a half
+  const int lane = threadIdx.x & 31;
+  auto frag = [&](int j, FragA& a) {
+    const float* buf = (j / NH == half ? xw : xp) + 32;
+    const uint4* src = reinterpret_cast<const uint4*>(buf) +
+                       2 * (j % NH) * 32 + lane;
+    const uint4 hi = src[0], lo = src[32];
+    a.hi[0] = hi.x, a.hi[1] = hi.y, a.hi[2] = hi.z, a.hi[3] = hi.w;
+    a.lo[0] = lo.x, a.lo[1] = lo.y, a.lo[2] = lo.z, a.lo[3] = lo.w;
+  };
+#pragma unroll
+  for (int c0 = 0; c0 < NC; c0 += CC) {
+    float part[CC][4];
+#pragma unroll
+    for (int cc = 0; cc < CC; ++cc)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[cc][e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; j += 2) {
+      FragA a0, a1;
+      frag(j, a0);
+      frag(j + 1, a1);
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) {
+        uint32_t h[4], l[4];
+        ldsm_x4_at(h, va + 8 * (c0 + cc) * RB + 32 * j);
+        ldsm_x4_at(l, va + VLO + 8 * (c0 + cc) * RB + 32 * j);
+        mma_3xtf32(part[cc], a0, FragB{{h[0], h[1]}, {l[0], l[1]}});
+        mma_3xtf32(part[cc], a1, FragB{{h[2], h[3]}, {l[2], l[3]}});
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < CC; ++cc) {
+      float (&oc)[4] = o[c0 + cc];
+      oc[0] = __fadd_rn(__fmul_rn(oc[0], alpha0), part[cc][0]);
+      oc[1] = __fadd_rn(__fmul_rn(oc[1], alpha0), part[cc][1]);
+      oc[2] = __fadd_rn(__fmul_rn(oc[2], alpha1), part[cc][2]);
+      oc[3] = __fadd_rn(__fmul_rn(oc[3], alpha1), part[cc][3]);
+    }
+  }
+}
+
 // the named barrier of the two warps that share 16 rows
 __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
@@ -284,20 +384,21 @@ __device__ __forceinline__ void pair_sync(int pair) {
 
 // The online-softmax tile shared by B8, B9 and B12: BQ query rows (the
 // first nq valid, contiguous with pitch D) against keys [0, kv_end) of one
-// KV head (key c at k + c * kstride). Writes O (pitch D) and, if lse is
-// given, the LSE of each valid row. Two warps share 16 rows: warp `half`
+// KV head (key c at k + c * kstride), D <= DP columns. Writes O (pitch D)
+// and, if lse is given, the LSE of each valid row. Two warps share 16 rows: warp `half`
 // forms the scores of the tile's keys [BK/2 * half, BK/2 * (half + 1)),
 // they trade row maxima, row sums and their halves of P through shared
 // memory, and each adds P V into its half of the output columns.
-template <int D, int BQ, int BK>
+template <int DP, int BQ, int BK>
 __device__ __forceinline__ void flash_tile(const float* q, const float* k,
                                            const float* v, long long kstride,
                                            int kv_end, bool causal,
                                            QRows rows, float scale,
-                                           float* o, float* lse,
+                                           float* o, float* lse, int D,
                                            float* smem) {
-  using L = FwdSmem<D, BQ, BK>;
-  constexpr int NTH = L::NTH, NC = D / 16, NJ = BK / 8, NH = NJ / 2;
+  using L = FwdSmem<DP, BQ, BK>;
+  constexpr int NTH = L::NTH, NC = DP / 16, NJ = BK / 8, NH = NJ / 2;
+  constexpr bool STAGED = L::STAGED;
   float* qh = smem;
   float* ql = qh + L::Q;
   float* kh = ql + L::Q;
@@ -310,41 +411,45 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
   // schedulers and a pair waiting on itself leaves each with other work
   const int pair = tid >> 6, half = (tid >> 5) & 1;
   const int qw = 16 * pair;  // the pair's first row in the tile
-  float* mine = stage + 4 * L::STAGE + (2 * pair + half) * L::XHALF;
+  float* mine = stage + L::STAGES * L::STAGE + (2 * pair + half) * L::XHALF;
   const float* theirs =
-      stage + 4 * L::STAGE + (2 * pair + 1 - half) * L::XHALF;
+      stage + L::STAGES * L::STAGE + (2 * pair + 1 - half) * L::XHALF;
   const int n_it = (kv_end + BK - 1) / BK;
   // the lane's ldmatrix addresses in the hi planes: Q at the pair's rows,
   // K at the warp's half of a tile's keys, V^T at its half of the columns
   const int m = lane >> 3, r = lane & 7;
-  const uint32_t qa = smem_addr(qh + Plane<D>::at(qw + r + 8 * (m & 1),
-                                                  4 * (m >> 1)));
-  const uint32_t ka = smem_addr(kh + Plane<D>::at(
+  const uint32_t qa = smem_addr(qh + Plane<DP>::at(qw + r + 8 * (m & 1),
+                                                   4 * (m >> 1)));
+  const uint32_t ka = smem_addr(kh + Plane<DP>::at(
       BK / 2 * half + r + 8 * (m >> 1), 4 * (m & 1)));
-  const uint32_t va = smem_addr(vh + Plane<BK>::at(D / 2 * half + r, 4 * m));
+  const uint32_t va =
+      smem_addr(vh + Plane<BK>::at(DP / 2 * half + r, 4 * m));
 
   // tile i's K and V into stage i % 2, one commit group a tile
   auto stage_tile = [&](int i) {
-    if (i < n_it) {
-      const long long off = static_cast<long long>(i) * BK * kstride;
-      const int n = min(BK, kv_end - i * BK);
-      float* dst = stage + 2 * (i & 1) * L::STAGE;
-      stage_rows<D, BK, NTH>(dst, k + off, kstride, n);
-      stage_rows<D, BK, NTH>(dst + L::STAGE, v + off, kstride, n);
+    if constexpr (STAGED) {
+      if (i < n_it) {
+        const long long off = static_cast<long long>(i) * BK * kstride;
+        const int n = min(BK, kv_end - i * BK);
+        float* dst = stage + 2 * (i & 1) * L::STAGE;
+        stage_rows<DP, BK, NTH>(dst, k + off, kstride, n, D);
+        stage_rows<DP, BK, NTH>(dst + L::STAGE, v + off, kstride, n, D);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
   };
   stage_tile(0);
   stage_tile(1);
-  // Q into its planes while the first tiles fly; rows past nq are zeros
-  for (int i = tid; i < BQ * D / 4; i += NTH) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const float4 f = r < rows.nq
+  // Q into its planes while the first tiles fly; rows past nq and columns
+  // past D are zeros
+  for (int i = tid; i < BQ * DP / 4; i += NTH) {
+    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+    const float4 f = r < rows.nq && c < D
                          ? *reinterpret_cast<const float4*>(q + r * D + c)
                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     uint4 lo;
     const uint4 hi = split4(f, lo);
-    const int at = Plane<D>::at(r, c);
+    const int at = Plane<DP>::at(r, c);
     *reinterpret_cast<uint4*>(qh + at) = hi;
     *reinterpret_cast<uint4*>(ql + at) = lo;
   }
@@ -360,7 +465,7 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
     last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
   }
 
-  float acc[NC][4];  // rows qw+g, qw+g+8; columns D/2*half + 8c+2t, +1
+  float acc[NC][4];  // rows qw+g, qw+g+8; columns DP/2*half + 8c+2t, +1
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
@@ -369,11 +474,19 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
 
   for (int it = 0; it < n_it; ++it) {
     const int kt = it * BK, k0 = kt + BK / 2 * half;  // the warp's keys
-    cp_async_wait<1>();  // this tile landed; the next one may still fly
-    __syncthreads();     // ... for every thread; the planes are free
-    const float* cur = stage + 2 * (it & 1) * L::STAGE;
-    split_k<D, BK, NTH>(cur, kh, kl);
-    split_v<D, BK, NTH>(cur + L::STAGE, vh, vl);
+    if constexpr (STAGED) {
+      cp_async_wait<1>();  // this tile landed; the next one may still fly
+      __syncthreads();     // ... for every thread; the planes are free
+      const float* cur = stage + 2 * (it & 1) * L::STAGE;
+      split_k<DP, BK, NTH, true>(cur, DP + 4, BK, DP, kh, kl);
+      split_v<DP, BK, NTH, true>(cur + L::STAGE, DP + 4, BK, DP, vh, vl);
+    } else {
+      __syncthreads();  // the planes are free
+      const long long off = static_cast<long long>(kt) * kstride;
+      const int n = min(BK, kv_end - kt);
+      split_k<DP, BK, NTH, false>(k + off, kstride, n, D, kh, kl);
+      split_v<DP, BK, NTH, false>(v + off, kstride, n, D, vh, vl);
+    }
     __syncthreads();
     stage_tile(it + 2);
     // pair-uniform: do the pair's rows see a key of this tile?
@@ -382,7 +495,7 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
     float alpha[2] = {1.0f, 1.0f};
     if (live) {
       float x[NH][4];
-      scores<D, NH, 4 * L::Q, 4 * L::K>(opaque(qa), opaque(ka), x);
+      scores<DP, NH, 4 * L::Q, 4 * L::K>(opaque(qa), opaque(ka), x);
       float mx[2] = {NEG, NEG};
       uint32_t seen = ~0u;  // bit 4j + e: entry (j, e) visible
       // warp-uniform: every row sees every key of the warp's half
@@ -456,7 +569,7 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
       }
       pair_sync(pair);
 #pragma unroll
-      for (int j = 0; j < NH; ++j) {
+      for (int j = 0; j < (STAGED ? NH : 0); ++j) {  // else read at P V
         FragA& a = pa[NH * (1 - half) + j];
         const uint4* src =
             reinterpret_cast<const uint4*>(theirs + 32) + 2 * j * 32 + lane;
@@ -476,21 +589,29 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
       mrow[0] = mnew[0];
       mrow[1] = mnew[1];
     }
-    if (live)
-      pv_update<NC, BK, 4 * L::V>(pa, opaque(va), alpha[0], alpha[1], acc);
+    if (live) {
+      if constexpr (STAGED)
+        pv_update<NC, BK, 4 * L::V>(pa, opaque(va), alpha[0], alpha[1],
+                                    acc);
+      else
+        pv_update_smem<NC, BK, 4 * L::V, 2>(mine, theirs, half, opaque(va),
+                                            alpha[0], alpha[1], acc);
+    }
   }
-  cp_async_wait<0>();
+  if constexpr (STAGED) cp_async_wait<0>();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = qw + g + 8 * h;
     if (r >= rows.nq) continue;
     const float l = fmaxf(lrow[h], 1e-30f);
-    float* out = o + static_cast<long long>(r) * D + D / 2 * half + 2 * t;
+    const int c0 = DP / 2 * half;
+    float* out = o + static_cast<long long>(r) * D + c0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float2*>(out + 8 * c) =
-          make_float2(__fdiv_rn(acc[c][2 * h], l),
-                      __fdiv_rn(acc[c][2 * h + 1], l));
+      if (c0 + 8 * c < D)
+        *reinterpret_cast<float2*>(out + 8 * c) =
+            make_float2(__fdiv_rn(acc[c][2 * h], l),
+                        __fdiv_rn(acc[c][2 * h + 1], l));
     if (lse != nullptr && half == 0 && t == 0)
       lse[r] = __fadd_rn(mrow[h], logf(l));
   }
@@ -499,12 +620,12 @@ __device__ __forceinline__ void flash_tile(const float* q, const float* k,
 // B8 and B9: grid (B*H, q tiles), the last q tile (the heaviest under the
 // causal mask) first. q (B*H, Sq, D); k/v (B*Hkv, Skv, D); the q head bh
 // reads KV row (bh / H) * Hkv + (bh % H) / group (_kv_head_row).
-template <int D, int BQ, int BK>
+template <int DP, int BQ, int BK>
 __device__ __forceinline__ void fwd_block(const float* q, const float* k,
                                           const float* v, float* o,
                                           float* lse, int H, int Hkv, int Sq,
-                                          int Skv, int causal, float scale,
-                                          float* smem) {
+                                          int Skv, int causal, int D,
+                                          float scale, float* smem) {
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
@@ -512,45 +633,46 @@ __device__ __forceinline__ void fwd_block(const float* q, const float* k,
   // causal frontier from the q tile's end: keys past its last row unseen
   const int kv_end = causal ? min(Skv, row0 + nq) : Skv;
   const long long qoff = (static_cast<long long>(bh) * Sq + row0) * D;
-  flash_tile<D, BQ, BK>(q + qoff, k + kvrow * Skv * D, v + kvrow * Skv * D,
-                        D, kv_end, causal != 0, QRows{row0, nq, INT_MAX, 0},
-                        scale, o + qoff,
-                        lse + static_cast<long long>(bh) * Sq + row0, smem);
+  flash_tile<DP, BQ, BK>(q + qoff, k + kvrow * Skv * D,
+                         v + kvrow * Skv * D, D, kv_end, causal != 0,
+                         QRows{row0, nq, INT_MAX, 0}, scale, o + qoff,
+                         lse + static_cast<long long>(bh) * Sq + row0, D,
+                         smem);
 }
 
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(FwdSmem<D, BQ, BK>::NTH, 1)
+template <int DP, int BQ, int BK>
+__global__ void __launch_bounds__(FwdSmem<DP, BQ, BK>::NTH, 1)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
-                int causal, float scale) {
+                int causal, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
-  fwd_block<D, BQ, BK>(q, k, v, o, lse, H, Hkv, Sq, Skv, causal, scale,
-                       smem);
+  fwd_block<DP, BQ, BK>(q, k, v, o, lse, H, Hkv, Sq, Skv, causal, D, scale,
+                        smem);
 }
 
 // B9: B8's tile over the one key block, at B9's own tile height
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(FwdSmem<D, BQ, BK>::NTH, 1)
+template <int DP, int BQ, int BK>
+__global__ void __launch_bounds__(FwdSmem<DP, BQ, BK>::NTH, 1)
 attn_fwd_single_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        float* __restrict__ lse, int H, int Hkv, int Sq,
-                       int Skv, int causal, float scale) {
+                       int Skv, int causal, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
-  fwd_block<D, BQ, BK>(q, k, v, o, lse, H, Hkv, Sq, Skv, causal, scale,
-                       smem);
+  fwd_block<DP, BQ, BK>(q, k, v, o, lse, H, Hkv, Sq, Skv, causal, D, scale,
+                        smem);
 }
 
 // B12: grid (row tiles, Hkv, B). q (B, Hkv, rows, D) with rows = group *
 // S_new (the q heads of one KV head, token-minor); the cache (B, T, Hkv,
 // D) as it is: key c of head h at ((b * T + c) * Hkv + h) * D.
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(FwdSmem<D, BQ, BK>::NTH, 1)
+template <int DP, int BQ, int BK>
+__global__ void __launch_bounds__(FwdSmem<DP, BQ, BK>::NTH, 1)
 attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                    const float* __restrict__ vc, float* __restrict__ o,
                    int Hkv, int Tlen, int nrows, int s_new, int kv_len,
-                   float scale) {
+                   int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * BQ;
   const int nq = min(BQ, nrows - row0);
@@ -562,77 +684,84 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const long long qoff =
       ((static_cast<long long>(b) * Hkv + h) * nrows + row0) * D;
   const long long koff = (static_cast<long long>(b) * Tlen * Hkv + h) * D;
-  flash_tile<D, BQ, BK>(q + qoff, kc + koff, vc + koff,
-                        static_cast<long long>(Hkv) * D, kv_end, true, rows,
-                        scale, o + qoff, nullptr, smem);
+  flash_tile<DP, BQ, BK>(q + qoff, kc + koff, vc + koff,
+                         static_cast<long long>(Hkv) * D, kv_end, true, rows,
+                         scale, o + qoff, nullptr, D, smem);
 }
 
-// B8 or B9 over grid (B*H, q tiles)
-template <int D, typename K>
-cudaError_t launch_rows(K kern, const void* q, const void* k, const void* v,
-                        void* o, void* lse, int B, int H, int Hkv, int Sq,
-                        int Skv, int causal, float scale, cudaStream_t st) {
-  using L = FwdSmem<D, FWD_BQ, FWD_BK>;
+// B8 or B9 (route `kind`) over grid (B*H, q tiles)
+template <int DP, typename K>
+cudaError_t launch_rows(K kern, int kind, const void* q, const void* k,
+                        const void* v, void* o, void* lse, int B, int H,
+                        int Hkv, int Sq, int Skv, int causal, int D,
+                        float scale, cudaStream_t st) {
+  constexpr int BQ = fwd_bq<DP>();
+  using L = FwdSmem<DP, BQ, FWD_BK>;
   cudaError_t e = allow_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (Sq + FWD_BQ - 1) / FWD_BQ);
+  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kern<<<grid, L::NTH, L::BYTES, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Hkv, Sq, Skv, causal, scale);
-  return cudaGetLastError();
+      static_cast<float*>(lse), H, Hkv, Sq, Skv, causal, D, scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(kind, 0, DP);
+  return e;
 }
 
-template <typename T, int D>
+template <int DP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Hkv, int Sq, int Skv,
-                       int causal, float scale, cudaStream_t st) {
-  static_assert(std::is_same<T, float>::value, "the f32 route");
-  return launch_rows<D>(attn_fwd_kernel<D, FWD_BQ, FWD_BK>, q, k, v, o, lse,
-                        B, H, Hkv, Sq, Skv, causal, scale, st);
+                       int causal, int D, float scale, cudaStream_t st) {
+  return launch_rows<DP>(attn_fwd_kernel<DP, fwd_bq<DP>(), FWD_BK>,
+                         ROUTE_FWD_TF32, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
+                         causal, D, scale, st);
 }
 
-template <typename T, int D>
+template <int DP>
 cudaError_t launch_single(const void* q, const void* k, const void* v,
                           void* o, void* lse, int B, int H, int Hkv, int Sq,
-                          int Skv, int causal, float scale,
+                          int Skv, int causal, int D, float scale,
                           cudaStream_t st) {
-  static_assert(std::is_same<T, float>::value, "the f32 route");
-  return launch_rows<D>(attn_fwd_single_kernel<D, FWD_BQ, FWD_BK>, q, k, v,
-                        o, lse, B, H, Hkv, Sq, Skv, causal, scale, st);
+  return launch_rows<DP>(attn_fwd_single_kernel<DP, fwd_bq<DP>(), FWD_BK>,
+                         ROUTE_FWD_SINGLE_TF32, q, k, v, o, lse, B, H, Hkv,
+                         Sq, Skv, causal, D, scale, st);
 }
 
-template <typename T, int D>
+template <int DP>
 cudaError_t launch_decode(const void* q, const void* kc, const void* vc,
                           void* o, int B, int H, int Hkv, int Tlen, int s_new,
-                          int kv_len, float scale, cudaStream_t st) {
-  static_assert(std::is_same<T, float>::value, "the f32 route");
-  using L = FwdSmem<D, FWD_BQ, FWD_BK>;
+                          int kv_len, int D, float scale, cudaStream_t st) {
+  constexpr int BQ = fwd_bq<DP>();
+  using L = FwdSmem<DP, BQ, FWD_BK>;
   const int nrows = (H / Hkv) * s_new;
-  auto kern = attn_decode_kernel<D, FWD_BQ, FWD_BK>;
+  auto kern = attn_decode_kernel<DP, BQ, FWD_BK>;
   cudaError_t e = allow_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid((nrows + FWD_BQ - 1) / FWD_BQ, Hkv, B);
+  dim3 grid((nrows + BQ - 1) / BQ, Hkv, B);
   kern<<<grid, L::NTH, L::BYTES, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(kc),
       static_cast<const float*>(vc), static_cast<float*>(o), Hkv, Tlen, nrows,
-      s_new, kv_len, scale);
-  return cudaGetLastError();
+      s_new, kv_len, D, scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(ROUTE_PREFILL_TF32, 0, DP);
+  return e;
 }
 
 }  // namespace
 
-// the bf16 tensor-core route (attention_sm90.cu)
-int attn_fwd_wgmma(int head_dim, const void* q, const void* k, const void* v,
-                   void* o, void* lse, int B, int H, int Hkv, int Sq, int Skv,
-                   int causal, float scale, cudaStream_t st);
-int attn_prefill_wgmma(int head_dim, const void* q, const void* kc,
-                       const void* vc, void* o, int B, int H, int Hkv, int T,
-                       int s_new, int kv_len, float scale, cudaStream_t st);
-int attn_fwd_single_wgmma(int head_dim, const void* q, const void* k,
-                          const void* v, void* o, void* lse, int B, int H,
-                          int Hkv, int Sq, int Skv, int causal, float scale,
-                          cudaStream_t st);
+// the 16-bit tensor-core route (attention_sm90.cu; dtype 1 bf16, 2 f16)
+int attn_fwd_wgmma(int dtype, int head_dim, const void* q, const void* k,
+                   const void* v, void* o, void* lse, int B, int H, int Hkv,
+                   int Sq, int Skv, int causal, float scale, cudaStream_t st);
+int attn_prefill_wgmma(int dtype, int head_dim, const void* q,
+                       const void* kc, const void* vc, void* o, int B, int H,
+                       int Hkv, int Tlen, int s_new, int kv_len, float scale,
+                       cudaStream_t st);
+int attn_fwd_single_wgmma(int dtype, int head_dim, const void* q,
+                          const void* k, const void* v, void* o, void* lse,
+                          int B, int H, int Hkv, int Sq, int Skv, int causal,
+                          float scale, cudaStream_t st);
 // the single-token decode route (attention_decode.cu)
 int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
                       const void* vc, void* o, void* ws, void* counters,
@@ -641,16 +770,20 @@ int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
 
 extern "C" {
 
+int accl_attn_last_route() { return g_attn_route; }
+
+// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8, at most 256
 int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
                   const void* v, void* o, void* lse, int B, int H, int Hkv,
                   int Sq, int Skv, int causal, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return attn_fwd_wgmma(head_dim, q, k, v, o, lse, B, H, Hkv, Sq, Skv,
-                          causal, scale, st);
+  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
+  if (dtype == 1 || dtype == 2)
+    return attn_fwd_wgmma(dtype, head_dim, q, k, v, o, lse, B, H, Hkv, Sq,
+                          Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
   F32_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
-               scale, st)
+               head_dim, scale, st)
 }
 
 int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
@@ -658,12 +791,13 @@ int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
                          int B, int H, int Hkv, int Sq, int Skv, int causal,
                          float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return attn_fwd_single_wgmma(head_dim, q, k, v, o, lse, B, H, Hkv, Sq,
-                                 Skv, causal, scale, st);
+  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
+  if (dtype == 1 || dtype == 2)
+    return attn_fwd_single_wgmma(dtype, head_dim, q, k, v, o, lse, B, H, Hkv,
+                                 Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
   F32_DISPATCH(launch_single, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
-               scale, st)
+               head_dim, scale, st)
 }
 
 // ws, counters: the split route's f32 workspace and its zeroed counters
@@ -673,15 +807,16 @@ int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
                      int H, int Hkv, int Tlen, int s_new, int kv_len,
                      int n_split, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
   if (s_new == 1)
     return attn_decode_split(dtype, head_dim, q, kc, vc, o, ws, counters, B,
                              H, Hkv, Tlen, kv_len, n_split, scale, st);
-  if (dtype == 1)
-    return attn_prefill_wgmma(head_dim, q, kc, vc, o, B, H, Hkv, Tlen, s_new,
-                              kv_len, scale, st);
+  if (dtype == 1 || dtype == 2)
+    return attn_prefill_wgmma(dtype, head_dim, q, kc, vc, o, B, H, Hkv, Tlen,
+                              s_new, kv_len, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
   F32_DISPATCH(launch_decode, q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
-               scale, st)
+               head_dim, scale, st)
 }
 
 }  // extern "C"

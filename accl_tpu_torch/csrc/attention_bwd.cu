@@ -2,9 +2,9 @@
 // route: the FlashAttention-2 backward on the TF32 tensor cores with
 // 3xTF32 products, which rebuilds the probabilities from the forward's
 // per-row log-sum-exp (LSE) instead of storing them. The C entry points
-// below send bf16 operands (dtype code 1) to the wgmma kernels of
-// attention_bwd_sm90.cu and f32 operands (code 0) to the kernels here:
-// one kernel per route.
+// below send 16-bit operands (dtype codes 1 bf16 and 2 f16) to the wgmma
+// kernels of attention_bwd_sm90.cu and f32 operands (code 0) to the
+// kernels here: one kernel per route.
 //
 // Replace accl_tpu/ops/attention.py:
 //   B10 attn_bwd_dkv_kernel <- _bwd_dkv_kernel (pallas_call at :461):
@@ -69,56 +69,75 @@
 // both hit 32 distinct banks. Rows past Sq and keys past Skv are never
 // read (cp.async fills them with zeros).
 //
+// Head dims: instantiated on power-of-two column tiers DP (16 .. 256) with
+// the head dim D <= DP (a multiple of 8) at run time: cp.async fills the
+// columns past D with zeros and only D columns are stored. At DP = 256 a
+// warp that kept 16 rows of dK and dV (or dQ) over all 256 columns would
+// hold 256 (128) accumulators, and two 128-row resident tiles with two
+// stages of streamed ones would take 400 KB. So at DP = 256 two warps
+// share each 16 resident rows, each keeping 128 of the output columns
+// (both form the same S and dP: 12 instead of 8 products of D a score in
+// B10, 10 instead of 6 in B11), a block holds 64 resident rows, and the
+// streamed tiles have one stage (200 KB in all; the next tile's loads
+// wait for this one's products).
+//
 // Arithmetic in f32: expf without intrinsics, the scale of dK and dQ
 // applied once to the sums. No atomics: one writer for each output
 // element, so two runs on the same inputs are bitwise equal.
-#include <type_traits>
-
 #include "attention_tile.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int RROWS = 16 * (NT / 32);  // resident rows a block: 16 a warp
-constexpr int SROWS = 32;              // streamed rows a stage
+constexpr int SROWS = 32;  // streamed rows a stage
 
-// shared memory: two resident tiles (B10 K, V; B11 Q, dO), two stages of
-// two streamed tiles (B10 Q, dO; B11 K, V), and 2 * RROWS floats of LSE
-// and delta (B10: two stages of SROWS each)
-template <int D>
+// The shape of a block at column tier DP: WPR warps share 16 resident
+// rows, each keeping CW of the output columns; RROWS resident rows;
+// NSTAGE stages of streamed tiles. Shared memory: two resident tiles
+// (B10 K, V; B11 Q, dO), NSTAGE stages of two streamed tiles (B10 Q, dO;
+// B11 K, V), and 2 * RROWS floats of LSE and delta (B10: NSTAGE stages
+// of SROWS each).
+template <int DP>
 struct BwdSmem {
-  static constexpr int P = D + 4;        // row pitch, floats
+  static constexpr int WPR = DP > 128 ? 2 : 1;
+  static constexpr int CW = DP / WPR;           // output columns a warp
+  static constexpr int RROWS = 16 * (NT / 32) / WPR;
+  static constexpr int NSTAGE = DP > 128 ? 1 : 2;
+  static constexpr int P = DP + 4;       // row pitch, floats
   static constexpr int RES = RROWS * P;  // floats of a resident tile
   static constexpr int STR = SROWS * P;  // floats of a streamed tile
-  static constexpr int BYTES = (2 * RES + 4 * STR + 2 * RROWS) * 4;
+  static constexpr int BYTES =
+      (2 * RES + 2 * NSTAGE * STR + 2 * RROWS) * 4;
+  static_assert(NSTAGE * 2 * SROWS <= 2 * RROWS, "B10's stats");
   static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
 };
 
-// R rows of D floats (row r at src + r * D) into shared memory at pitch P
-// by 16-byte cp.async; rows at or past n are zeros, nothing past them read
-template <int D, int R, int P>
-__device__ __forceinline__ void cp_rows(float* dst, const float* src,
-                                        int n) {
-  constexpr int CPR = D / 4, N = R * CPR;
+// R rows of D floats (row r at src + r * D) into shared memory at pitch P,
+// DP columns, by 16-byte cp.async; rows at or past n and columns at or
+// past D are zeros, nothing past them read
+template <int DP, int R, int P>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src, int n,
+                                        int D) {
+  constexpr int CPR = DP / 4, N = R * CPR;
 #pragma unroll
   for (int p = 0; p < (N + NT - 1) / NT; ++p) {
     const int i = threadIdx.x + p * NT;
     if (N % NT != 0 && i >= N) break;
     const int r = i / CPR, c = (i % CPR) * 4;
-    const bool ok = r < n;
+    const bool ok = r < n && c < D;
     cp_async16(dst + r * P + c, src + (ok ? r * D + c : 0), ok);
   }
 }
 
-// x (16 x 32) = A B^T over the D columns: A the 16 rows at a, B the SROWS
-// rows at b (pitch D + 4 each); x[j] holds columns 8j..8j+7. Operands by
-// ldmatrix: A's tile m is rows 8*(m&1).., words 4*(m>>1)..; a pair of B's
-// n-tiles is rows 8*(m>>1).., words 4*(m&1)..
-template <int D>
+// x (16 x 32) = A B^T over the DP columns: A the 16 rows at a, B the
+// SROWS rows at b (pitch DP + 4 each); x[j] holds columns 8j..8j+7.
+// Operands by ldmatrix: A's tile m is rows 8*(m&1).., words 4*(m>>1)..; a
+// pair of B's n-tiles is rows 8*(m>>1).., words 4*(m&1)..
+template <int DP>
 __device__ __forceinline__ void rows16_x_rows32(const float* a,
                                                 const float* b,
                                                 float (&x)[4][4]) {
-  constexpr int P = D + 4;
+  constexpr int P = DP + 4;
   const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
   const float* pa = a + (r + 8 * (m & 1)) * P + 4 * (m >> 1);
   const float* pb = b + (r + 8 * (m >> 1)) * P + 4 * (m & 1);
@@ -127,7 +146,7 @@ __device__ __forceinline__ void rows16_x_rows32(const float* a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
+  for (int c = 0; c < DP / 8; ++c) {
     uint32_t w[4];
     ldsm_x4(w, pa + 8 * c);
     FragA fa;
@@ -147,18 +166,18 @@ __device__ __forceinline__ void rows16_x_rows32(const float* a,
   }
 }
 
-// acc (16 x D) += x (16 x 32) B, B the SROWS rows at b (pitch D + 4). x is
-// an accumulator (columns 2t, 2t+1 of a thread) and serves as the A
-// operand with its columns standing as k = t, t + 4: B's rows are read in
-// the same order, row 8j + 2t as k = t and 8j + 2t + 1 as k = t + 4. The
-// tile's 32 rows sum in a fresh accumulator, added to acc with an f32
-// add: the tensor core's accumulation (truncating) spans 12 products, not
-// the whole sequence.
-template <int D>
+// acc (16 x CW) += x (16 x 32) B, B the CW columns at b of SROWS rows
+// (pitch DP + 4). x is an accumulator (columns 2t, 2t+1 of a thread) and
+// serves as the A operand with its columns standing as k = t, t + 4: B's
+// rows are read in the same order, row 8j + 2t as k = t and 8j + 2t + 1
+// as k = t + 4. The tile's 32 rows sum in a fresh accumulator, added to
+// acc with an f32 add: the tensor core's accumulation (truncating) spans
+// 12 products, not the whole sequence.
+template <int DP, int CW>
 __device__ __forceinline__ void rows_accumulate(float (&x)[4][4],
                                                 const float* b,
-                                                float (&acc)[D / 8][4]) {
-  constexpr int P = D + 4;
+                                                float (&acc)[CW / 8][4]) {
+  constexpr int P = DP + 4;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   FragA fa[4];
 #pragma unroll
@@ -170,7 +189,7 @@ __device__ __forceinline__ void rows_accumulate(float (&x)[4][4],
   }
   const float* row = b + 2 * t * P + g;
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
+  for (int c = 0; c < CW / 8; ++c) {
     float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -186,7 +205,7 @@ __device__ __forceinline__ void rows_accumulate(float (&x)[4][4],
 
 // B10: grid (B*H, key tiles). q/dout (B*H, Sq, D); k/v (B*Hkv, Skv, D);
 // lse/delta (B*H, Sq) f32; dk/dv (B*H, Skv, D) f32 per-q-head partials.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dkv_kernel(const float* __restrict__ q,
                     const float* __restrict__ dout,
@@ -194,17 +213,19 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dk,
                     float* __restrict__ dv, int H, int Hkv, int Sq, int Skv,
-                    int causal, float scale) {
-  using L = BwdSmem<D>;
-  constexpr int P = L::P, NC = D / 8;
+                    int causal, int D, float scale) {
+  using L = BwdSmem<DP>;
+  constexpr int P = L::P, CW = L::CW, NC = CW / 8, RROWS = L::RROWS;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;
   float* sV = sK + L::RES;
   float* sQ = sV + L::RES;         // stage s: Q at sQ + 2*s*STR, dO after
-  float* sStat = sQ + 4 * L::STR;  // stage s: LSE at sStat + 2*s*SROWS,
-                                   // delta after
+  float* sStat = sQ + 2 * L::NSTAGE * L::STR;  // stage s: LSE at sStat +
+                                               // 2*s*SROWS, delta after
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int kw = 16 * (tid >> 5);  // the warp's first key in the tile
+  const int warp = tid >> 5;
+  const int kw = 16 * (warp / L::WPR);  // the warp's first key in the tile
+  const int c0 = CW * (warp % L::WPR);  // ... and its first column
   const int bh = blockIdx.x, k0 = blockIdx.y * RROWS;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   const int nk = min(RROWS, Skv - k0);
@@ -218,8 +239,8 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
     const int nq = min(SROWS, Sq - q0);
     const long long off = (static_cast<long long>(bh) * Sq + q0) * D;
     float* dst = sQ + 2 * s * L::STR;
-    cp_rows<D, SROWS, P>(dst, q + off, nq);
-    cp_rows<D, SROWS, P>(dst + L::STR, dout + off, nq);
+    cp_rows<DP, SROWS, P>(dst, q + off, nq, D);
+    cp_rows<DP, SROWS, P>(dst + L::STR, dout + off, nq, D);
     if (tid < 2 * SROWS) {
       const int r = tid % SROWS;
       const bool ok = r < nq;
@@ -228,23 +249,32 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
     }
   };
   const long long koff = (kvrow * Skv + k0) * D;
-  cp_rows<D, RROWS, P>(sK, k + koff, nk);
-  cp_rows<D, RROWS, P>(sV, v + koff, nk);
+  cp_rows<DP, RROWS, P>(sK, k + koff, nk, D);
+  cp_rows<DP, RROWS, P>(sV, v + koff, nk, D);
   if (n_it > 0) load_q(0, q_first);
   cp_async_commit();
 
-  float adk[NC][4], adv[NC][4];  // keys kw+g, kw+g+8; columns 8c+2t, +1
+  float adk[NC][4], adv[NC][4];  // keys kw+g, kw+g+8; columns c0+8c+2t, +1
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
 
   for (int it = 0; it < n_it; ++it) {
-    const int s = it & 1, q0 = q_first + it * SROWS;
+    const int s = L::NSTAGE == 2 ? it & 1 : 0;
+    const int q0 = q_first + it * SROWS;
     const int nq = min(SROWS, Sq - q0);
-    if (it + 1 < n_it) load_q(s ^ 1, q0 + SROWS);
-    cp_async_commit();
-    cp_async_wait<1>();  // this stage (and K, V) landed
+    if constexpr (L::NSTAGE == 2) {
+      if (it + 1 < n_it) load_q(s ^ 1, q0 + SROWS);
+      cp_async_commit();
+      cp_async_wait<1>();  // this stage (and K, V) landed
+    } else {
+      if (it > 0) {
+        load_q(0, q0);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
     __syncthreads();
     // warp-uniform: do the warp's keys see a row of this tile?
     if (kw < nk && (!causal || k0 + kw <= q0 + nq - 1)) {
@@ -253,8 +283,8 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
       const float* cLse = sStat + 2 * s * SROWS;
       const float* cDelta = cLse + SROWS;
       float x[4][4], y[4][4];  // S^T, then P^T; dP^T, then dS^T
-      rows16_x_rows32<D>(sK + kw * P, cQ, x);
-      rows16_x_rows32<D>(sV + kw * P, cDO, y);
+      rows16_x_rows32<DP>(sK + kw * P, cQ, x);
+      rows16_x_rows32<DP>(sV + kw * P, cDO, y);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -266,8 +296,9 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
                        : 0.0f;
           y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], cDelta[r]));
         }
-      rows_accumulate<D>(x, cDO, adv);  // dV += P^T dO
-      rows_accumulate<D>(y, cQ, adk);   // dK += dS^T Q (scaled at the end)
+      rows_accumulate<DP, CW>(x, cDO + c0, adv);  // dV += P^T dO
+      rows_accumulate<DP, CW>(y, cQ + c0, adk);   // dK += dS^T Q (scaled
+                                                  // at the end)
     }
     __syncthreads();  // every warp is done with stage s before it reloads
   }
@@ -279,34 +310,39 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
     const long long o = (static_cast<long long>(bh) * Skv + k0 + key) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      *reinterpret_cast<float2*>(dk + o + 8 * c + 2 * t) =
+      const int col = c0 + 8 * c + 2 * t;
+      if (c0 + 8 * c >= D) continue;
+      *reinterpret_cast<float2*>(dk + o + col) =
           make_float2(__fmul_rn(adk[c][2 * h], scale),
                       __fmul_rn(adk[c][2 * h + 1], scale));
-      *reinterpret_cast<float2*>(dv + o + 8 * c + 2 * t) =
+      *reinterpret_cast<float2*>(dv + o + col) =
           make_float2(adv[c][2 * h], adv[c][2 * h + 1]);
     }
   }
 }
 
 // B11: grid (B*H, q tiles); the same operands; dq (B*H, Sq, D) f32.
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dq_kernel(const float* __restrict__ q,
                    const float* __restrict__ dout,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dq,
-                   int H, int Hkv, int Sq, int Skv, int causal, float scale) {
-  using L = BwdSmem<D>;
-  constexpr int P = L::P, NC = D / 8;
+                   int H, int Hkv, int Sq, int Skv, int causal, int D,
+                   float scale) {
+  using L = BwdSmem<DP>;
+  constexpr int P = L::P, CW = L::CW, NC = CW / 8, RROWS = L::RROWS;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
   float* sDO = sQ + L::RES;
   float* sK = sDO + L::RES;          // stage s: K at sK + 2*s*STR, V after
-  float* sLse = sK + 4 * L::STR;     // RROWS
-  float* sDelta = sLse + RROWS;      // RROWS
+  float* sLse = sK + 2 * L::NSTAGE * L::STR;  // RROWS
+  float* sDelta = sLse + RROWS;               // RROWS
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int qw = 16 * (tid >> 5);  // the warp's first row in the tile
+  const int warp = tid >> 5;
+  const int qw = 16 * (warp / L::WPR);  // the warp's first row in the tile
+  const int c0 = CW * (warp % L::WPR);  // ... and its first column
   const int bh = blockIdx.x;
   // the last q tile, the heaviest under the causal mask, first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * RROWS;
@@ -320,14 +356,15 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
   auto load_kv = [&](int s, int kt0) {
     const int n = min(SROWS, kv_end - kt0);
     float* dst = sK + 2 * s * L::STR;
-    cp_rows<D, SROWS, P>(dst, k + kvoff + static_cast<long long>(kt0) * D, n);
-    cp_rows<D, SROWS, P>(dst + L::STR,
-                         v + kvoff + static_cast<long long>(kt0) * D, n);
+    cp_rows<DP, SROWS, P>(dst, k + kvoff + static_cast<long long>(kt0) * D,
+                          n, D);
+    cp_rows<DP, SROWS, P>(dst + L::STR,
+                          v + kvoff + static_cast<long long>(kt0) * D, n, D);
   };
   const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
   const long long roff = static_cast<long long>(bh) * Sq + q0;
-  cp_rows<D, RROWS, P>(sQ, q + qoff, nq);
-  cp_rows<D, RROWS, P>(sDO, dout + qoff, nq);
+  cp_rows<DP, RROWS, P>(sQ, q + qoff, nq, D);
+  cp_rows<DP, RROWS, P>(sDO, dout + qoff, nq, D);
   for (int i = tid; i < 2 * RROWS; i += NT) {
     const int r = i % RROWS;
     const bool ok = r < nq;
@@ -336,26 +373,34 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
   if (n_it > 0) load_kv(0, 0);
   cp_async_commit();
 
-  float acc[NC][4];  // rows qw+g, qw+g+8; columns 8c+2t, +1
+  float acc[NC][4];  // rows qw+g, qw+g+8; columns c0+8c+2t, +1
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
 
   for (int it = 0; it < n_it; ++it) {
-    const int s = it & 1, kt0 = it * SROWS;
+    const int s = L::NSTAGE == 2 ? it & 1 : 0, kt0 = it * SROWS;
     const int nk = min(SROWS, kv_end - kt0);
-    if (it + 1 < n_it) load_kv(s ^ 1, kt0 + SROWS);
-    cp_async_commit();
-    cp_async_wait<1>();  // this stage (and Q, dO, the stats) landed
+    if constexpr (L::NSTAGE == 2) {
+      if (it + 1 < n_it) load_kv(s ^ 1, kt0 + SROWS);
+      cp_async_commit();
+      cp_async_wait<1>();  // this stage (and Q, dO, the stats) landed
+    } else {
+      if (it > 0) {
+        load_kv(0, kt0);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    }
     __syncthreads();
     // warp-uniform: do the warp's rows see a key of this tile?
     if (qw < nq && (!causal || kt0 <= q0 + qw + 15)) {
       const float* cK = sK + 2 * s * L::STR;
       const float* cV = cK + L::STR;
       float x[4][4], y[4][4];  // S, then P; dP, then dS
-      rows16_x_rows32<D>(sQ + qw * P, cK, x);
-      rows16_x_rows32<D>(sDO + qw * P, cV, y);
+      rows16_x_rows32<DP>(sQ + qw * P, cK, x);
+      rows16_x_rows32<DP>(sDO + qw * P, cV, y);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -367,7 +412,8 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
                        : 0.0f;
           y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], sDelta[r]));
         }
-      rows_accumulate<D>(y, cK, acc);  // dQ += dS K (scaled at the end)
+      rows_accumulate<DP, CW>(y, cK + c0, acc);  // dQ += dS K (scaled at
+                                                 // the end)
     }
     __syncthreads();  // every warp is done with stage s before it reloads
   }
@@ -376,83 +422,88 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
   for (int h = 0; h < 2; ++h) {
     const int r = qw + g + 8 * h;
     if (r >= nq) continue;
-    float* o = dq + qoff + static_cast<long long>(r) * D + 2 * t;
+    float* o = dq + qoff + static_cast<long long>(r) * D + c0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float2*>(o + 8 * c) =
-          make_float2(__fmul_rn(acc[c][2 * h], scale),
-                      __fmul_rn(acc[c][2 * h + 1], scale));
+      if (c0 + 8 * c < D)
+        *reinterpret_cast<float2*>(o + 8 * c) =
+            make_float2(__fmul_rn(acc[c][2 * h], scale),
+                        __fmul_rn(acc[c][2 * h + 1], scale));
   }
 }
 
-template <typename T, int D>
+template <int DP>
 cudaError_t launch_bwd_dkv(const void* q, const void* dout, const void* k,
                            const void* v, const void* lse, const void* delta,
                            void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                           int Skv, int causal, float scale,
+                           int Skv, int causal, int D, float scale,
                            cudaStream_t st) {
-  static_assert(std::is_same<T, float>::value, "the f32 route");
-  constexpr int smem = BwdSmem<D>::BYTES;
-  auto kern = attn_bwd_dkv_kernel<D>;
-  cudaError_t e = allow_smem(kern, smem);
+  using L = BwdSmem<DP>;
+  auto kern = attn_bwd_dkv_kernel<DP>;
+  cudaError_t e = allow_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (Skv + RROWS - 1) / RROWS);
-  kern<<<grid, NT, smem, st>>>(
+  dim3 grid(B * H, (Skv + L::RROWS - 1) / L::RROWS);
+  kern<<<grid, NT, L::BYTES, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(dout),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dk), static_cast<float*>(dv), H, Hkv, Sq, Skv,
-      causal, scale);
-  return cudaGetLastError();
+      causal, D, scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(ROUTE_BWD_DKV_TF32, 0, DP);
+  return e;
 }
 
-template <typename T, int D>
+template <int DP>
 cudaError_t launch_bwd_dq(const void* q, const void* dout, const void* k,
                           const void* v, const void* lse, const void* delta,
                           void* dq, int B, int H, int Hkv, int Sq, int Skv,
-                          int causal, float scale, cudaStream_t st) {
-  static_assert(std::is_same<T, float>::value, "the f32 route");
-  constexpr int smem = BwdSmem<D>::BYTES;
-  auto kern = attn_bwd_dq_kernel<D>;
-  cudaError_t e = allow_smem(kern, smem);
+                          int causal, int D, float scale, cudaStream_t st) {
+  using L = BwdSmem<DP>;
+  auto kern = attn_bwd_dq_kernel<DP>;
+  cudaError_t e = allow_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (Sq + RROWS - 1) / RROWS);
-  kern<<<grid, NT, smem, st>>>(
+  dim3 grid(B * H, (Sq + L::RROWS - 1) / L::RROWS);
+  kern<<<grid, NT, L::BYTES, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(dout),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), H, Hkv, Sq, Skv, causal, scale);
-  return cudaGetLastError();
+      static_cast<float*>(dq), H, Hkv, Sq, Skv, causal, D, scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(ROUTE_BWD_DQ_TF32, 0, DP);
+  return e;
 }
 
 }  // namespace
 
-// the bf16 route (attention_bwd_sm90.cu)
-int attn_bwd_dkv_wgmma(int head_dim, const void* q, const void* dout,
-                       const void* k, const void* v, const void* lse,
-                       const void* delta, void* dk, void* dv, int B, int H,
-                       int Hkv, int Sq, int Skv, int causal, float scale,
-                       cudaStream_t st);
-int attn_bwd_dq_wgmma(int head_dim, const void* q, const void* dout,
-                      const void* k, const void* v, const void* lse,
-                      const void* delta, void* dq, int B, int H, int Hkv,
-                      int Sq, int Skv, int causal, float scale,
-                      cudaStream_t st);
+// the 16-bit route (attention_bwd_sm90.cu; dtype 1 bf16, 2 f16)
+int attn_bwd_dkv_wgmma(int dtype, int head_dim, const void* q,
+                       const void* dout, const void* k, const void* v,
+                       const void* lse, const void* delta, void* dk, void* dv,
+                       int B, int H, int Hkv, int Sq, int Skv, int causal,
+                       float scale, cudaStream_t st);
+int attn_bwd_dq_wgmma(int dtype, int head_dim, const void* q,
+                      const void* dout, const void* k, const void* v,
+                      const void* lse, const void* delta, void* dq, int B,
+                      int H, int Hkv, int Sq, int Skv, int causal,
+                      float scale, cudaStream_t st);
 
 extern "C" {
 
+// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8, at most 256
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                       const void* dout, const void* k, const void* v,
                       const void* lse, const void* delta, void* dk, void* dv,
                       int B, int H, int Hkv, int Sq, int Skv, int causal,
                       float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return attn_bwd_dkv_wgmma(head_dim, q, dout, k, v, lse, delta, dk, dv, B,
-                              H, Hkv, Sq, Skv, causal, scale, st);
+  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
+  if (dtype == 1 || dtype == 2)
+    return attn_bwd_dkv_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dk,
+                              dv, B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
   F32_DISPATCH(launch_bwd_dkv, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv,
-               Sq, Skv, causal, scale, st)
+               Sq, Skv, causal, head_dim, scale, st)
 }
 
 int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
@@ -461,12 +512,13 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
                      int H, int Hkv, int Sq, int Skv, int causal,
                      float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return attn_bwd_dq_wgmma(head_dim, q, dout, k, v, lse, delta, dq, B, H,
-                             Hkv, Sq, Skv, causal, scale, st);
+  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
+  if (dtype == 1 || dtype == 2)
+    return attn_bwd_dq_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dq,
+                             B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
   F32_DISPATCH(launch_bwd_dq, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq,
-               Skv, causal, scale, st)
+               Skv, causal, head_dim, scale, st)
 }
 
 }  // extern "C"

@@ -1,14 +1,15 @@
-// Attention backward kernels B10 and B11 for bf16 inputs on Hopper's
-// tensor cores (CUDA C++, sm_90a): wgmma with bf16 operands and f32
-// accumulators, tiles brought into shared memory by TMA. The f32 inputs
-// keep the CUDA-core kernels of attention_bwd.cu, whose C entry points
-// send dtype code 1 (bf16) here.
+// Attention backward kernels B10 and B11 for 16-bit inputs (bf16 or f16,
+// one template each) on Hopper's tensor cores (CUDA C++, sm_90a): wgmma
+// with 16-bit operands and f32 accumulators, tiles brought into shared
+// memory by TMA. The f32 inputs keep the kernels of attention_bwd.cu,
+// whose C entry points send dtype codes 1 (bf16) and 2 (f16) here.
 //
 // Replace accl_tpu/ops/attention.py:
 //   B10 attn_bwd_dkv_wgmma_kernel <- _bwd_dkv_kernel (pallas_call at :461):
 //       per-q-head f32 partials of dK and dV (the GQA group sum runs
 //       outside, as the reference's :522-523).
-//   B11 attn_bwd_dq_wgmma_kernel  <- _bwd_dq_kernel (:492): dQ in bf16.
+//   B11 attn_bwd_dq_wgmma_kernel  <- _bwd_dq_kernel (:492): dQ in q's
+//       dtype.
 //
 // For a visible (query i, key j) pair, with s = q_i . k_j:
 //   p = exp(scale*s - lse_i), dp = do_i . v_j, ds = p * (dp - delta_i),
@@ -18,16 +19,16 @@
 // through exp of a masked score.
 //
 // Bound on an H100: 8*D (B10: S, dP, dV, dK) and 6*D (B11: S, dP, dQ)
-// operations per visible score, against 989 TFLOP/s of bf16 tensor
+// operations per visible score, against 989 TFLOP/s of 16-bit tensor
 // cores; the bytes (q, do, k, v once, lse and delta, the outputs) are
 // two orders of magnitude below that at S in the thousands, so both are
 // bound by operations.
 //
 // What the design does about it: every product is a warpgroup MMA
-// (wgmma m64nNk16, bf16 x bf16 -> f32), one warpgroup of 128 threads per
+// (wgmma m64nNk16, 16-bit x 16-bit -> f32), one warpgroup of 128 threads per
 // block. The products are formed with the key tile as the M rows in B10
 // (S^T = K Q^T, dP^T = V dO^T) and the q tile as the M rows in B11, so P
-// and dS leave the accumulators as the bf16 register operand A of the
+// and dS leave the accumulators as the 16-bit register operand A of the
 // second products (dV += P^T dO, dK += dS^T Q; dQ += dS K) without a trip
 // through shared memory. The second operand of those products is the
 // same shared tile read MN-major (wgmma's transpose bit). Tiles are 64
@@ -49,10 +50,24 @@
 // the mask. Two blocks share an SM (about 98 KB of shared memory each at
 // D = 128), so one block's exp and mask run beside the other's products.
 //
-// Rounding: q, do, k, v are bf16, so S and dP are exact products summed
-// in f32. P and dS are f32 and are rounded to bf16 (round to nearest
-// even) as the A operand of dV, dK and dQ, as FlashAttention-2 does; each
-// term of those sums moves by less than 2^-8 of its magnitude. exp is
+// Head dims: instantiated on the column tiers DP of 64, 128, 192 and 256
+// (sm90_tile.cuh Cols), the head dim D <= DP (a multiple of 8) at run
+// time, the maps' extent D zero-filling the columns past it. B10 keeps
+// dK and dV, 64 x NOUT f32 each, in one warpgroup's registers: NOUT = DP
+// up to 128 (128 registers a thread at 128), but 64 x 256 twice would be
+// 256 registers a thread. So at DP > 128 the output columns split across
+// blocks (grid z): NOUT = 128 at DP = 256 (two blocks), 64 at DP = 192
+// (three); each block forms S^T and dP^T over all DP columns and keeps
+// its NOUT columns of dK and dV, which costs 12 instead of 8 products of
+// D per score at DP = 256. B11 keeps dQ (64 x DP) whole: 128 registers a
+// thread at DP = 256, as B10's pair at 128. Products over DP columns run
+// one m64n128k16 for each 128 and one m64n64k16 for 64 left over.
+// Rounding: q, do, k, v are 16-bit, so S and dP are exact products
+// summed in f32. P and dS are f32 and are rounded to the input's type
+// (round to nearest even) as the A operand of dV, dK and dQ, as
+// FlashAttention-2 does; each term of those sums moves by less than one
+// unit u of its magnitude, u = 2^-8 for bf16 and 2^-11 for f16, and for
+// f16 a |dS| below 2^-14 (subnormal) by up to 2^-25 absolute. exp is
 // ex2.approx with log2(e) folded into the scale and the LSE. The scale
 // of dK and dQ is applied once, to the sums.
 #include "sm90_tile.cuh"
@@ -76,12 +91,18 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---- B10 ------------------------------------------------------------------
 
+// the dK and dV columns a B10 block keeps at column tier DP
+template <int DP>
+__host__ __device__ constexpr int dkv_cols() {
+  return DP <= 128 ? DP : DP % 128 == 0 ? 128 : 64;
+}
+
 // shared memory of B10: K, V (BKV rows), two stages of Q, dO (BQ rows) and
 // of LSE, delta (BQ floats each), three barriers
-template <int D>
+template <int DP>
 struct DkvSmem {
-  static constexpr int KV = BKV * Cols<D>::DP * 2;  // bytes of a K or V tile
-  static constexpr int Q = BQ * Cols<D>::DP * 2;    // bytes of a Q or dO tile
+  static constexpr int KV = BKV * DP * 2;  // bytes of a K or V tile
+  static constexpr int Q = BQ * DP * 2;    // bytes of a Q or dO tile
   static constexpr int STATS = 2 * KV + 4 * Q;      // offset of LSE, delta
   static constexpr int BARS = STATS + 4 * BQ * 4;
   static constexpr int BYTES = BARS + 3 * 8 + 1024;  // + alignment slack
@@ -89,8 +110,9 @@ struct DkvSmem {
 
 // q/do maps: (B*H, Sq, D), box rows BQ; k/v maps: (B*Hkv, Skv, D), box
 // rows BKV. lse/delta (B*H, Sq) f32; dk/dv (B*H, Skv, D) f32 per-q-head
-// partials.
-template <int D>
+// partials. Grid (B*H, key tiles, DP / NOUT): block z keeps columns
+// z*NOUT .. z*NOUT + NOUT - 1.
+template <typename T, int DP>
 __global__ void __launch_bounds__(WG, 1)
     attn_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                               __grid_constant__ const CUtensorMap tdo,
@@ -100,9 +122,9 @@ __global__ void __launch_bounds__(WG, 1)
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
                               int H, int Hkv, int Sq, int Skv, int causal,
-                              float scale) {
-  using L = DkvSmem<D>;
-  constexpr int DP = Cols<D>::DP, KS = Cols<D>::KS;
+                              int D, float scale) {
+  using L = DkvSmem<DP>;
+  constexpr int KS = Cols<DP>::KS, NOUT = dkv_cols<DP>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -116,6 +138,8 @@ __global__ void __launch_bounds__(WG, 1)
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, k0 = blockIdx.y * BKV;
+  const int c0 = blockIdx.z * NOUT;          // the block's first column
+  const uint32_t cb = c0 / 64 * BQ * ROW;    // its offset in a Q/dO tile
   const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
   // under the causal mask queries before k0 see none of these keys
   const int q_first = causal ? (k0 / BQ) * BQ : 0;
@@ -125,8 +149,8 @@ __global__ void __launch_bounds__(WG, 1)
 
   auto load_q = [&](int s, int q0) {  // one thread: Q, dO of stage s
     mbar_expect_tx(full(s), 2 * L::Q);
-    tma_tile<D, BQ>(sQ(s), &tq, full(s), q0, bh);
-    tma_tile<D, BQ>(sDO(s), &tdo, full(s), q0, bh);
+    tma_tile<DP, BQ>(sQ(s), &tq, full(s), q0, bh);
+    tma_tile<DP, BQ>(sDO(s), &tdo, full(s), q0, bh);
   };
   auto load_stats = [&](int s, int q0) {  // every thread
     for (int i = tid; i < 2 * BQ; i += WG) {
@@ -146,8 +170,8 @@ __global__ void __launch_bounds__(WG, 1)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar_kv, 2 * L::KV);
-    tma_tile<D, BKV>(sK, &tk, bar_kv, k0, kvrow);
-    tma_tile<D, BKV>(sV, &tv, bar_kv, k0, kvrow);
+    tma_tile<DP, BKV>(sK, &tk, bar_kv, k0, kvrow);
+    tma_tile<DP, BKV>(sV, &tv, bar_kv, k0, kvrow);
     for (int s = 0; s < 2 && s < n_it; ++s) load_q(s, q_first + s * BQ);
   }
   for (int s = 0; s < 2; ++s) {
@@ -157,9 +181,9 @@ __global__ void __launch_bounds__(WG, 1)
   cp_async_wait<1>();  // stage 0's LSE and delta
   __syncthreads();
 
-  float adk[DP / 2], adv[DP / 2];
+  float adk[NOUT / 2], adv[NOUT / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) adk[i] = adv[i] = 0.0f;
+  for (int i = 0; i < NOUT / 2; ++i) adk[i] = adv[i] = 0.0f;
   const float scale_log2 = scale * LOG2E;
   mbar_wait(bar_kv, 0);
 
@@ -174,11 +198,13 @@ __global__ void __launch_bounds__(WG, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      Wgmma<BQ>::ss(st, desc_k<BKV>(sK, kk), desc_k<BQ>(sQ(s), kk), kk > 0);
+      Wgmma<BQ>::ss<T>(st, desc_k<BKV>(sK, kk), desc_k<BQ>(sQ(s), kk),
+                       kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      Wgmma<BQ>::ss(dpt, desc_k<BKV>(sV, kk), desc_k<BQ>(sDO(s), kk), kk > 0);
+      Wgmma<BQ>::ss<T>(dpt, desc_k<BKV>(sV, kk), desc_k<BQ>(sDO(s), kk),
+                       kk > 0);
     wg_commit();
 
     const float* sl = stats + s * 2 * BQ;
@@ -204,19 +230,19 @@ __global__ void __launch_bounds__(WG, 1)
     for (int i = 0; i < BQ / 2; ++i)
       dpt[i] = __fmul_rn(st[i], __fsub_rn(dpt[i], sd[frag_col(i)]));
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
-    to_a<BQ>(st, pa);
-    to_a<BQ>(dpt, da);
+    to_a<T, BQ>(st, pa);
+    to_a<T, BQ>(dpt, da);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      Wgmma<DP>::rs(adv, pa[kk], desc_mn<BQ>(sDO(s), kk));
+      rs_cols<T, NOUT, BQ>(adv, pa[kk], sDO(s) + cb, kk);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      Wgmma<DP>::rs(adk, da[kk], desc_mn<BQ>(sQ(s), kk));
+      rs_cols<T, NOUT, BQ>(adk, da[kk], sQ(s) + cb, kk);
     wg_commit();
     wg_wait<0>();
-    fence_regs<DP / 2>(adv);
-    fence_regs<DP / 2>(adk);
+    fence_regs<NOUT / 2>(adv);
+    fence_regs<NOUT / 2>(adk);
 
     cp_async_wait<0>();  // the next stage's LSE and delta
     __syncthreads();     // every read of stage s is done
@@ -227,8 +253,8 @@ __global__ void __launch_bounds__(WG, 1)
   }
 
 #pragma unroll
-  for (int i = 0; i < DP / 2; i += 2) {
-    const int key = k0 + frag_row(i), c = frag_col(i);
+  for (int i = 0; i < NOUT / 2; i += 2) {
+    const int key = k0 + frag_row(i), c = c0 + frag_col(i);
     if (key >= Skv || c >= D) continue;
     const long long o = (static_cast<long long>(bh) * Skv + key) * D + c;
     *reinterpret_cast<float2*>(dk + o) =
@@ -241,16 +267,24 @@ __global__ void __launch_bounds__(WG, 1)
 
 // shared memory of B11: Q, dO (BQ rows), two stages of K, V (BKV rows),
 // three barriers
-template <int D>
+template <int DP>
 struct DqSmem {
-  static constexpr int Q = BQ * Cols<D>::DP * 2;
-  static constexpr int KV = BKV * Cols<D>::DP * 2;
+  static constexpr int Q = BQ * DP * 2;
+  static constexpr int KV = BKV * DP * 2;
   static constexpr int BARS = 2 * Q + 4 * KV;
   static constexpr int BYTES = BARS + 3 * 8 + 1024;
 };
 
-// the same maps and operands as B10; dq (B*H, Sq, D) bf16
-template <int D>
+// two f32 as T, rounded to nearest even, into o[0], o[1]
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* o, float a, float b) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(a, b);
+}
+
+// the same maps and operands as B10; dq (B*H, Sq, D) in T
+template <typename T, int DP>
 __global__ void __launch_bounds__(WG, 1)
     attn_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                              __grid_constant__ const CUtensorMap tdo,
@@ -258,10 +292,10 @@ __global__ void __launch_bounds__(WG, 1)
                              __grid_constant__ const CUtensorMap tv,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dq, int H, int Hkv,
-                             int Sq, int Skv, int causal, float scale) {
-  using L = DqSmem<D>;
-  constexpr int DP = Cols<D>::DP, KS = Cols<D>::KS;
+                             T* __restrict__ dq, int H, int Hkv, int Sq,
+                             int Skv, int causal, int D, float scale) {
+  using L = DqSmem<DP>;
+  constexpr int KS = Cols<DP>::KS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -283,8 +317,8 @@ __global__ void __launch_bounds__(WG, 1)
 
   auto load_kv = [&](int s, int k0) {  // one thread: K, V of stage s
     mbar_expect_tx(full(s), 2 * L::KV);
-    tma_tile<D, BKV>(sK(s), &tk, full(s), k0, kvrow);
-    tma_tile<D, BKV>(sV(s), &tv, full(s), k0, kvrow);
+    tma_tile<DP, BKV>(sK(s), &tk, full(s), k0, kvrow);
+    tma_tile<DP, BKV>(sV(s), &tv, full(s), k0, kvrow);
   };
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -295,8 +329,8 @@ __global__ void __launch_bounds__(WG, 1)
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bar_q, 2 * L::Q);
-    tma_tile<D, BQ>(sQ, &tq, bar_q, q0, bh);
-    tma_tile<D, BQ>(sDO, &tdo, bar_q, q0, bh);
+    tma_tile<DP, BQ>(sQ, &tq, bar_q, q0, bh);
+    tma_tile<DP, BQ>(sDO, &tdo, bar_q, q0, bh);
     for (int s = 0; s < 2 && s < n_it; ++s) load_kv(s, s * BKV);
   }
 
@@ -326,11 +360,13 @@ __global__ void __launch_bounds__(WG, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      Wgmma<BKV>::ss(sc, desc_k<BQ>(sQ, kk), desc_k<BKV>(sK(s), kk), kk > 0);
+      Wgmma<BKV>::ss<T>(sc, desc_k<BQ>(sQ, kk), desc_k<BKV>(sK(s), kk),
+                        kk > 0);
     wg_commit();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      Wgmma<BKV>::ss(dp, desc_k<BQ>(sDO, kk), desc_k<BKV>(sV(s), kk), kk > 0);
+      Wgmma<BKV>::ss<T>(dp, desc_k<BQ>(sDO, kk), desc_k<BKV>(sV(s), kk),
+                        kk > 0);
     wg_commit();
 
     wg_wait<1>();  // S; P is formed while dP completes
@@ -354,11 +390,11 @@ __global__ void __launch_bounds__(WG, 1)
     for (int i = 0; i < BKV / 2; ++i)
       dp[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], dl[(i >> 1) & 1]));
     uint32_t da[BKV / 16][4];
-    to_a<BKV>(dp, da);
+    to_a<T, BKV>(dp, da);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
-      Wgmma<DP>::rs(adq, da[kk], desc_mn<BKV>(sK(s), kk));
+      rs_cols<T, DP, BKV>(adq, da[kk], sK(s), kk);
     wg_commit();
     wg_wait<0>();
     fence_regs<DP / 2>(adq);
@@ -372,8 +408,7 @@ __global__ void __launch_bounds__(WG, 1)
     const int r = frag_row(i), c = frag_col(i);
     if (r >= nq || c >= D) continue;
     const long long o = (static_cast<long long>(bh) * Sq + q0 + r) * D + c;
-    *reinterpret_cast<__nv_bfloat162*>(dq + o) = __floats2bfloat162_rn(
-        __fmul_rn(adq[i], scale), __fmul_rn(adq[i + 1], scale));
+    store2(dq + o, __fmul_rn(adq[i], scale), __fmul_rn(adq[i + 1], scale));
   }
 }
 
@@ -389,84 +424,83 @@ struct Args {
   const float* delta;
   void* out0;  // dk (B10) or dq (B11)
   void* out1;  // dv (B10)
-  int B, H, Hkv, Sq, Skv, causal;
+  int B, H, Hkv, Sq, Skv, causal, D;
   float scale;
   cudaStream_t st;
 };
 
+template <typename T>
 cudaError_t make_maps(Maps* m, const void* q, const void* dout,
-                      const void* k, const void* v, const Args& a, int D) {
-  cudaError_t e = tile_map(&m->q, q, a.B * a.H, a.Sq, D, BQ);
-  if (e == cudaSuccess) e = tile_map(&m->dout, dout, a.B * a.H, a.Sq, D, BQ);
-  if (e == cudaSuccess) e = tile_map(&m->k, k, a.B * a.Hkv, a.Skv, D, BKV);
-  if (e == cudaSuccess) e = tile_map(&m->v, v, a.B * a.Hkv, a.Skv, D, BKV);
+                      const void* k, const void* v, const Args& a) {
+  cudaError_t e = tile_map<T>(&m->q, q, a.B * a.H, a.Sq, a.D, BQ);
+  if (e == cudaSuccess)
+    e = tile_map<T>(&m->dout, dout, a.B * a.H, a.Sq, a.D, BQ);
+  if (e == cudaSuccess) e = tile_map<T>(&m->k, k, a.B * a.Hkv, a.Skv, a.D, BKV);
+  if (e == cudaSuccess) e = tile_map<T>(&m->v, v, a.B * a.Hkv, a.Skv, a.D, BKV);
   return e;
 }
 
-template <int D>
-cudaError_t launch_dkv(const Maps& m, const Args& a) {
-  constexpr int smem = DkvSmem<D>::BYTES;
-  auto kern = attn_bwd_dkv_wgmma_kernel<D>;
-  cudaError_t e = set_smem(kern, smem);
+template <typename T, int DP>
+cudaError_t launch_dkv(const void* q, const void* dout, const void* k,
+                       const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.B * a.H, (a.Skv + BKV - 1) / BKV);
+  constexpr int smem = DkvSmem<DP>::BYTES;
+  auto kern = attn_bwd_dkv_wgmma_kernel<T, DP>;
+  e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.B * a.H, (a.Skv + BKV - 1) / BKV, DP / dkv_cols<DP>());
   kern<<<grid, WG, smem, a.st>>>(m.q, m.dout, m.k, m.v, a.lse, a.delta,
                                  static_cast<float*>(a.out0),
                                  static_cast<float*>(a.out1), a.H, a.Hkv,
-                                 a.Sq, a.Skv, a.causal, a.scale);
-  return cudaGetLastError();
+                                 a.Sq, a.Skv, a.causal, a.D, a.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_BWD_DKV_WGMMA, Elt<T>::F16 ? 2 : 1, DP);
+  return e;
 }
 
-template <int D>
-cudaError_t launch_dq(const Maps& m, const Args& a) {
-  constexpr int smem = DqSmem<D>::BYTES;
-  auto kern = attn_bwd_dq_wgmma_kernel<D>;
-  cudaError_t e = set_smem(kern, smem);
+template <typename T, int DP>
+cudaError_t launch_dq(const void* q, const void* dout, const void* k,
+                      const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = DqSmem<DP>::BYTES;
+  auto kern = attn_bwd_dq_wgmma_kernel<T, DP>;
+  e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
   kern<<<grid, WG, smem, a.st>>>(m.q, m.dout, m.k, m.v, a.lse, a.delta,
-                                 static_cast<__nv_bfloat16*>(a.out0), a.H,
-                                 a.Hkv, a.Sq, a.Skv, a.causal, a.scale);
-  return cudaGetLastError();
+                                 static_cast<T*>(a.out0), a.H, a.Hkv, a.Sq,
+                                 a.Skv, a.causal, a.D, a.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_BWD_DQ_WGMMA, Elt<T>::F16 ? 2 : 1, DP);
+  return e;
 }
 
 }  // namespace
 
-// Called by the C entry points of attention_bwd.cu for bf16 operands.
-int attn_bwd_dkv_wgmma(int head_dim, const void* q, const void* dout,
-                       const void* k, const void* v, const void* lse,
-                       const void* delta, void* dk, void* dv, int B, int H,
-                       int Hkv, int Sq, int Skv, int causal, float scale,
-                       cudaStream_t st) {
+// Called by the C entry points of attention_bwd.cu for 16-bit operands
+// (dtype code 1 bf16, 2 f16).
+int attn_bwd_dkv_wgmma(int dtype, int head_dim, const void* q,
+                       const void* dout, const void* k, const void* v,
+                       const void* lse, const void* delta, void* dk, void* dv,
+                       int B, int H, int Hkv, int Sq, int Skv, int causal,
+                       float scale, cudaStream_t st) {
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dk, dv, B, H, Hkv, Sq, Skv, causal, scale, st};
-  Maps m;
-  cudaError_t e = make_maps(&m, q, dout, k, v, a, head_dim);
-  if (e != cudaSuccess) return e;
-  switch (head_dim) {
-    case 16: return launch_dkv<16>(m, a);
-    case 32: return launch_dkv<32>(m, a);
-    case 64: return launch_dkv<64>(m, a);
-    case 128: return launch_dkv<128>(m, a);
-    default: return cudaErrorInvalidValue;
-  }
+               dk, dv, B, H, Hkv, Sq, Skv, causal, head_dim, scale, st};
+  SM90_DISPATCH(launch_dkv, q, dout, k, v, a)
 }
 
-int attn_bwd_dq_wgmma(int head_dim, const void* q, const void* dout,
-                      const void* k, const void* v, const void* lse,
-                      const void* delta, void* dq, int B, int H, int Hkv,
-                      int Sq, int Skv, int causal, float scale,
-                      cudaStream_t st) {
+int attn_bwd_dq_wgmma(int dtype, int head_dim, const void* q,
+                      const void* dout, const void* k, const void* v,
+                      const void* lse, const void* delta, void* dq, int B,
+                      int H, int Hkv, int Sq, int Skv, int causal,
+                      float scale, cudaStream_t st) {
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, nullptr, B, H, Hkv, Sq, Skv, causal, scale, st};
-  Maps m;
-  cudaError_t e = make_maps(&m, q, dout, k, v, a, head_dim);
-  if (e != cudaSuccess) return e;
-  switch (head_dim) {
-    case 16: return launch_dq<16>(m, a);
-    case 32: return launch_dq<32>(m, a);
-    case 64: return launch_dq<64>(m, a);
-    case 128: return launch_dq<128>(m, a);
-    default: return cudaErrorInvalidValue;
-  }
+               dq, nullptr, B, H, Hkv, Sq, Skv, causal, head_dim, scale, st};
+  SM90_DISPATCH(launch_dq, q, dout, k, v, a)
 }

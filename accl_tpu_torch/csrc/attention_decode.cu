@@ -1,5 +1,5 @@
 // Kernel B12's single-token decode (S_new == 1) as split-KV on the CUDA
-// cores (CUDA C++, sm_90a), f32 and bf16.
+// cores (CUDA C++, sm_90a), f32, bf16 and f16.
 //
 // Replaces accl_tpu/ops/attention.py _decode_kernel (pallas_call at :689)
 // for one new token: q (B, H, 1, D); the cache (B, T, Hkv, D) in its
@@ -25,15 +25,19 @@
 //   kv_len: each block derives its range from kv_len here, and a split
 //   whose range is empty writes an empty partial (m = finfo.min, l = 0).
 // - Inside a block (4 warps): the group's q rows (GR of them, 4 for
-//   Llama-3-8B) sit in registers as f32, each lane holding 16 bytes' worth
-//   of columns. K and V rows stream through a 3-stage ring of 16-byte
+//   Llama-3-8B) sit in registers as f32, each lane holding CPL chunks of
+//   16 bytes' worth of columns (one, or two for f32 at 256 columns). K and V rows stream through a 3-stage ring of 16-byte
 //   cp.async copies (16 KB a stage, so 32 KB in flight per block and
 //   four blocks, 16 warps, an SM: with the cache in L2, as it is when
 //   the same step is timed again, the block's chain of shuffles and
 //   exponents, not the bytes, sets the pace, and more warps hide it); a
 //   row at or past the range end is
-//   zero-filled by the copy, never read. D / (16 / sizeof(T)) lanes share
-//   one key (a key slot): their partial dot products meet through a
+//   zero-filled by the copy, never read. Head dims: the kernel is
+//   instantiated on power-of-two column tiers DP (16 .. 256) and takes
+//   D <= DP (a multiple of 8) at run time: the copies and q's loads fill
+//   the columns past D with zeros, which add nothing to a score, and only
+//   D columns of a partial or of O are written. LPR = min(DP / (16 /
+//   sizeof(T)), 32) lanes share one key (a key slot): their partial dot products meet through a
 //   reduce-scatter of warp shuffles that leaves each lane the full scores
 //   of GR / lanes of the rows (RowSplit), so each (key, row) exponent is
 //   computed once and reaches the other lanes by a shuffle. Each key slot
@@ -58,9 +62,11 @@
 //
 // Arithmetic: f32 throughout, explicit fmaf (the library builds with
 // --fmad=false), expf and a true division at the end; nothing is rounded
-// to bf16 before the output, so only the summation order differs from
+// to 16 bits before the output, so only the summation order differs from
 // the plain version (flash_decode_ref). Invalid keys take part in the
 // max as finfo(f32).min and contribute p = 0 through the mask.
+#include <type_traits>
+
 #include "attention_tile.cuh"
 
 namespace {
@@ -72,12 +78,15 @@ constexpr int SPLIT_TILE = 64;   // a split's key range is a multiple of it
 constexpr int BLOCKS_PER_SM = 4; // 48 KB of ring and <= 128 registers each
 constexpr int MERGE_CHUNK = 8;   // splits whose partials load at once
 
-template <typename T, int D>
+template <typename T, int DP>
 struct Geo {
   static constexpr int VEC = 16 / sizeof(T);   // elements per 16 bytes
-  static constexpr int LPR = D / VEC;          // lanes per key row
+  static constexpr int CH = DP / VEC;          // 16-byte chunks of a row
+  static constexpr int LPR = CH < 32 ? CH : 32;  // lanes per key row
+  static constexpr int CPL = CH / LPR;         // chunks a lane holds
+  static constexpr int VL = CPL * VEC;         // columns a lane holds
   static constexpr int KPW = 32 / LPR;         // keys per warp step
-  static constexpr int ROWB = D * sizeof(T);   // bytes of one key row
+  static constexpr int ROWB = DP * sizeof(T);  // bytes of one key row
   // keys per stage: 64, or fewer so that K and V of a stage fit 16 KB
   static constexpr int KT = 2 * 64 * ROWB <= 16384 ? 64 : 16384 / (2 * ROWB);
   static constexpr int STEPS = KT / (DWARPS * KPW);  // warp steps a stage
@@ -168,8 +177,8 @@ struct RowSplit {
 // grid (n_split, Hkv * group / GR, B). q, o (B, H, 1, D); kc, vc (B, T,
 // Hkv, D); partial row ((b * Hkv + h) * n_split + s) * group + g of
 // part_m, part_l and (times D) part_acc; counters (B * Hkv * group / GR)
-// zero between launches.
-template <typename T, int D, int GR>
+// zero between launches. Rows of D elements (D <= DP).
+template <typename T, int DP, int GR>
 __global__ void __launch_bounds__(DNT, BLOCKS_PER_SM)
 attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                          const T* __restrict__ vc, T* __restrict__ o,
@@ -177,10 +186,11 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                          float* __restrict__ part_l,
                          float* __restrict__ part_acc,
                          unsigned* __restrict__ counters, int H, int Hkv,
-                         int Tlen, int kv_len, float scale) {
-  using G_ = Geo<T, D>;
+                         int Tlen, int kv_len, int D, float scale) {
+  using G_ = Geo<T, DP>;
   using RS = RowSplit<GR, G_::LPR>;
   constexpr int VEC = G_::VEC, LPR = G_::LPR, KPW = G_::KPW, NR = RS::NR;
+  constexpr int CPL = G_::CPL, VL = G_::VL;
   constexpr int KT = G_::KT, ROWB = G_::ROWB, STEPS = G_::STEPS;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int s_last;
@@ -207,11 +217,11 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     if (t < ntiles) {
       const int key0 = lo + t * KT;
       const uint32_t dst = sbase + (t % STAGES) * G_::STAGE;
-      for (int i = threadIdx.x; i < KT * LPR; i += DNT) {
-        const int r = i / LPR, c = i % LPR;
-        const bool ok = key0 + r < hi;
+      for (int i = threadIdx.x; i < KT * G_::CH; i += DNT) {
+        const int r = i / G_::CH, c = i % G_::CH;
+        const bool ok = key0 + r < hi && c * VEC < D;
         const long long off =
-            (ok ? (key0 + r) * kstride : 0) + static_cast<long long>(c) * VEC;
+            ok ? (key0 + r) * kstride + static_cast<long long>(c) * VEC : 0;
         cp_async16(dst + i * 16, kb + off, ok ? 16 : 0);
         cp_async16(dst + KT * ROWB + i * 16, vb + off, ok ? 16 : 0);
       }
@@ -221,16 +231,27 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) issue(t);
 
-  // q and the accumulator: all GR rows, this lane's VEC columns; the
-  // running max and sum: this lane's NR rows
-  float qf[GR][VEC], acc[GR][VEC], m[NR], l[NR];
+  // q and the accumulator: all GR rows, this lane's VL columns (chunks
+  // cc, cc + LPR, ..., each VEC columns; zeros past D); the running max
+  // and sum: this lane's NR rows
+  float qf[GR][VL], acc[GR][VL], m[NR], l[NR];
 #pragma unroll
   for (int g = 0; g < GR; ++g) {
     const T* qrow =
-        q + (static_cast<long long>(b) * H + h * group + g0 + g) * D + cc * VEC;
-    unpack(*reinterpret_cast<const uint4*>(qrow), qf[g], T());
+        q + (static_cast<long long>(b) * H + h * group + g0 + g) * D;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.0f;
+    for (int j = 0; j < CPL; ++j) {
+      const int c = (cc + j * LPR) * VEC;
+      if (c < D) {
+        unpack(*reinterpret_cast<const uint4*>(qrow + c), qf[g] + j * VEC,
+               T());
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qf[g][j * VEC + e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < VL; ++e) acc[g][e] = 0.0f;
   }
 #pragma unroll
   for (int k = 0; k < NR; ++k) {
@@ -254,14 +275,17 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int j = 0; j < STEPS; ++j) {
       const int r = warp * (KT / DWARPS) + j * KPW + kr;
       const bool ok = key0 + r < hi;
-      float kf[VEC], d[GR];
-      unpack(*reinterpret_cast<const uint4*>(tk + r * ROWB + cc * 16), kf,
-             T());
+      float kf[VL], d[GR];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        unpack(*reinterpret_cast<const uint4*>(tk + r * ROWB +
+                                               (cc + j * LPR) * 16),
+               kf + j * VEC, T());
 #pragma unroll
       for (int g = 0; g < GR; ++g) {
         d[g] = 0.0f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) d[g] = fmaf(qf[g][e], kf[e], d[g]);
+        for (int e = 0; e < VL; ++e) d[g] = fmaf(qf[g][e], kf[e], d[g]);
       }
       RS::reduce(d, cc);
 #pragma unroll
@@ -295,20 +319,23 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const float a =
           __shfl_sync(0xffffffffu, alpha[g % NR], src0 + RS::src(g));
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] = __fmul_rn(acc[g][e], a);
+      for (int e = 0; e < VL; ++e) acc[g][e] = __fmul_rn(acc[g][e], a);
     }
 #pragma unroll
     for (int j = 0; j < STEPS; ++j) {
       const int r = warp * (KT / DWARPS) + j * KPW + kr;
-      float vf[VEC];
-      unpack(*reinterpret_cast<const uint4*>(tv + r * ROWB + cc * 16), vf,
-             T());
+      float vf[VL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        unpack(*reinterpret_cast<const uint4*>(tv + r * ROWB +
+                                               (cc + j * LPR) * 16),
+               vf + j * VEC, T());
 #pragma unroll
       for (int g = 0; g < GR; ++g) {
         const float p =
             __shfl_sync(0xffffffffu, sc[j][g % NR], src0 + RS::src(g));
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        for (int e = 0; e < VL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
   }
@@ -320,13 +347,16 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   constexpr int NS = G_::STREAMS;
   float* sm_m = reinterpret_cast<float*>(smem);  // NS x GR
   float* sm_l = sm_m + NS * GR;                  // NS x GR
-  float* sm_acc = sm_l + NS * GR;                // NS x GR x D
+  float* sm_acc = sm_l + NS * GR;                // NS x GR x DP
   const int stream = warp * KPW + kr;
 #pragma unroll
   for (int g = 0; g < GR; ++g)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      sm_acc[(stream * GR + g) * D + cc * VEC + e] = acc[g][e];
+    for (int j = 0; j < CPL; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        sm_acc[(stream * GR + g) * DP + (cc + j * LPR) * VEC + e] =
+            acc[g][j * VEC + e];
   if (cc == RS::src(row0)) {
 #pragma unroll
     for (int k = 0; k < NR; ++k) {
@@ -346,7 +376,7 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < NS; ++u) {
       const float w = expf(__fsub_rn(sm_m[u * GR + g], M));
       L = fmaf(w, sm_l[u * GR + g], L);
-      A = fmaf(w, sm_acc[(u * GR + g) * D + d], A);
+      A = fmaf(w, sm_acc[(u * GR + g) * DP + d], A);
     }
     part_acc[(prow + g) * D + d] = A;
     if (d == 0) {
@@ -414,16 +444,16 @@ attn_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   if (threadIdx.x == 0) counters[cidx] = 0u;
 }
 
-template <typename T, int D, int GR>
+template <typename T, int DP, int GR>
 cudaError_t launch_split(const void* q, const void* kc, const void* vc,
                          void* o, void* ws, void* counters, int B, int H,
                          int Hkv, int Tlen, int kv_len, int n_split,
-                         float scale, cudaStream_t st) {
-  using G_ = Geo<T, D>;
+                         int D, float scale, cudaStream_t st) {
+  using G_ = Geo<T, DP>;
   constexpr int ring = STAGES * G_::STAGE;
-  constexpr int merge = G_::STREAMS * GR * (D + 2) * 4;
+  constexpr int merge = G_::STREAMS * GR * (DP + 2) * 4;
   constexpr int smem = ring > merge ? ring : merge;
-  auto kern = attn_decode_split_kernel<T, D, GR>;
+  auto kern = attn_decode_split_kernel<T, DP, GR>;
   // always: with the kernel's static s_last a 48 KB ring passes the
   // default limit
   cudaError_t e = cudaFuncSetAttribute(
@@ -437,26 +467,32 @@ cudaError_t launch_split(const void* q, const void* kc, const void* vc,
   kern<<<grid, DNT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<T*>(o), part_m, part_l,
-      part_acc, static_cast<unsigned*>(counters), H, Hkv, Tlen, kv_len,
+      part_acc, static_cast<unsigned*>(counters), H, Hkv, Tlen, kv_len, D,
       scale);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_DECODE_SPLIT,
+                   sizeof(T) == 4 ? 0 : std::is_same<T, __half>::value ? 2 : 1,
+                   DP);
+  return e;
 }
 
 // the largest row count of the group that divides it: 4, 2 or 1
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch_split_group(const void* q, const void* kc, const void* vc,
                                void* o, void* ws, void* counters, int B,
                                int H, int Hkv, int Tlen, int kv_len,
-                               int n_split, float scale, cudaStream_t st) {
+                               int n_split, int D, float scale,
+                               cudaStream_t st) {
   const int group = H / Hkv;
   if (group % 4 == 0)
-    return launch_split<T, D, 4>(q, kc, vc, o, ws, counters, B, H, Hkv, Tlen,
-                                 kv_len, n_split, scale, st);
+    return launch_split<T, DP, 4>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                  Tlen, kv_len, n_split, D, scale, st);
   if (group % 2 == 0)
-    return launch_split<T, D, 2>(q, kc, vc, o, ws, counters, B, H, Hkv, Tlen,
-                                 kv_len, n_split, scale, st);
-  return launch_split<T, D, 1>(q, kc, vc, o, ws, counters, B, H, Hkv, Tlen,
-                               kv_len, n_split, scale, st);
+    return launch_split<T, DP, 2>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                  Tlen, kv_len, n_split, D, scale, st);
+  return launch_split<T, DP, 1>(q, kc, vc, o, ws, counters, B, H, Hkv, Tlen,
+                                kv_len, n_split, D, scale, st);
 }
 
 }  // namespace
@@ -469,6 +505,6 @@ int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
                       int B, int H, int Hkv, int Tlen, int kv_len,
                       int n_split, float scale, cudaStream_t st) {
   if (n_split < 1 || kv_len < 1 || kv_len > Tlen) return cudaErrorInvalidValue;
-  ATTN_DISPATCH(launch_split_group, q, kc, vc, o, ws, counters, B, H, Hkv,
-                Tlen, kv_len, n_split, scale, st)
+  POW2_DISPATCH(launch_split_group, q, kc, vc, o, ws, counters, B, H, Hkv,
+                Tlen, kv_len, n_split, head_dim, scale, st)
 }

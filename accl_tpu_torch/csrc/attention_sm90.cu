@@ -1,11 +1,23 @@
-// Attention forward kernels B8, B9 and B12's prefill route for bf16 inputs
-// on Hopper's tensor cores (CUDA C++, sm_90a): one online-softmax tile on
-// wgmma (bf16 operands, f32 accumulators) with K and V brought into
+// Attention forward kernels B8, B9 and B12's prefill route for 16-bit
+// inputs (bf16 or f16, one template for both) on Hopper's tensor cores
+// (CUDA C++, sm_90a): one online-softmax tile on wgmma (16-bit
+// operands, f32 accumulators) with K and V brought into
 // shared memory by TMA and two launchers (B8, B12 prefill), and B9's
 // two-pass plain-softmax kernel on the same tiles. The f32 inputs keep the
-// CUDA-core kernels of attention.cu, and B12's single-token decode (S_new
+// 3xTF32 kernels of attention.cu, and B12's single-token decode (S_new
 // == 1) the split-KV kernel of attention_decode.cu; the C entry points of
-// attention.cu send bf16 B8, bf16 B9 and bf16 chunks with S_new > 1 here.
+// attention.cu send 16-bit B8, B9 and chunks with S_new > 1 here.
+//
+// Head dims: the kernels are instantiated on column tiers DP of 64, 128,
+// 192 and 256 (sm90_tile.cuh Cols) and take the head dim D <= DP (a
+// multiple of 8) at run time: the tensor maps have extent D, so TMA fills
+// the columns past it with zeros, Q's registers past D are zeros, and only
+// D output columns are stored. Up to DP = 128 Q sits in registers as the
+// A operand of S = Q K^T; at DP = 192 and 256 it would take 48 or 64
+// registers a thread beside O's 96 or 128, so Q is brought into shared
+// memory by TMA once a block and S reads both operands from there. P V
+// runs one m64n128k16 for each 128 columns of O and one m64n64k16 for 64
+// left over (rs_cols).
 //
 // Replace accl_tpu/ops/attention.py:
 //   B8  attn_fwd_wgmma_kernel via attn_fwd_wgmma <- _fwd_kernel
@@ -22,14 +34,14 @@
 // j <= i + off (B8, B9: 0; B12: kv_len - S_new).
 //
 // Bound on an H100: 4*D operations per visible score (S = Q K^T and
-// O += P V) against 989 TFLOP/s of bf16 tensor cores; q, k, v are read
+// O += P V) against 989 TFLOP/s of bf16 or f16 tensor cores; q, k, v are read
 // once and O written once, two orders of magnitude fewer bytes at S in
 // the hundreds, so both launchers are bound by operations.
 //
 // What the design does about it: one warpgroup (128 threads) per block
 // owns 64 q rows of one q head; grid (B*H, q tiles), the last q tile,
 // the heaviest under the causal mask, dispatched first. Q is read once,
-// straight into registers as the bf16 A operand of S = Q K^T (a
+// straight into registers as the 16-bit A operand of S = Q K^T (a
 // register-A wgmma m64n64k16), so S reads only K from shared memory:
 // half the shared-memory traffic of a Q tile in shared memory, which
 // holds an m64n64k16 product at the SM's 128 bytes a clock. 64-key tiles
@@ -41,12 +53,14 @@
 // end); exp is ex2 with log2(e) folded into the scale; the mask runs
 // only on tiles on the causal diagonal or the ragged key edge. O is
 // rescaled by alpha, then O += P V is a register-A wgmma with P packed
-// to bf16 as the A operand and the V tile read MN-major, and it retires
+// to 16 bits as the A operand and the V tile read MN-major, and it retires
 // within the iteration: a P V left in flight across the loop's back edge
 // makes ptxas serialize every wgmma of the kernel (its C7515 warning).
 // About 66 KB of shared memory and 168 registers at D = 128, so three
 // blocks share an SM and one block's softmax runs beside the others'
-// products; a 3-stage ring, or S of the next tile started beside P V as
+// products (__launch_bounds__(WG, 3) up to DP = 128 holds it there: with
+// the head dim a run-time value ptxas otherwise took 204 registers, two
+// blocks an SM, and B8 ran 15 % slower on an H100); a 3-stage ring, or S of the next tile started beside P V as
 // FlashAttention-3 does (192 registers), leaves room for two and was
 // slower on an H100 SXM at B=4, H=32, Hkv=8, S=2048, D=128.
 //
@@ -64,7 +78,7 @@
 // as the A operand), but two passes over the key tiles: pass 1 computes
 // S = Q K^T tile by tile and keeps only the row max; pass 2 computes S
 // again, p with the final m (no alpha rescale of O, which is what tells
-// it from B8), l from the f32 p, and O += P V with P packed to bf16,
+// it from B8), l from the f32 p, and O += P V with P packed to 16 bits,
 // retired within the iteration. Pass 2 walks the tiles backwards, so it
 // starts from pass 1's last scores, still in registers, and the tile
 // before them, still in the 2-stage TMA ring: n tiles cost 2n - 1
@@ -78,11 +92,14 @@
 // by bytes against 0.0008, so the kernel is bound by bytes, by launch
 // latency and by the chain of loads and products in each block.
 //
-// Rounding: S is exact bf16 products summed in f32. P is f32 and is
-// rounded to bf16 (round to nearest even) as the A operand of P V, so
-// each term p * v moves by less than 2^-8 of its magnitude; the row sum
-// l is taken from the f32 P before that rounding. The output is
-// O / max(l, 1e-30) (a true division) rounded to bf16; the LSE is
+// Rounding: S is exact 16-bit products summed in f32. P is f32 and is
+// rounded to the input's type (round to nearest even) as the A operand
+// of P V, so each term p * v moves by less than one unit u of its
+// magnitude, u = 2^-8 for bf16 and 2^-11 for f16 (whose P in [0, 1]
+// never leaves f16's range: below 2^-14 it keeps an absolute step of
+// 2^-25); the row sum l is taken from the f32 P before that rounding.
+// The output is O / max(l, 1e-30) (a true division) rounded to the
+// input's type; the LSE is
 // m + log(max(l, 1e-30)) in natural-log units, f32. A masked pair gets
 // p = 0 through the mask, never through exp of a masked score.
 #include <float.h>
@@ -94,13 +111,16 @@ namespace {
 constexpr float NEG = -FLT_MAX;  // jnp.finfo(jnp.float32).min
 constexpr float LN2 = 0.6931471805599453f;
 
-// shared memory: two stages of K and V (BKV rows each), four barriers
-// (K of stages 0 and 1, V of stages 0 and 1)
-template <int D>
+// shared memory: two stages of K and V (BKV rows each), at DP > 128 the
+// Q tile (BQ rows), then five barriers (K of stages 0 and 1, V of stages
+// 0 and 1, Q)
+template <int DP>
 struct FwdSmem {
-  static constexpr int KV = BKV * Cols<D>::DP * 2;
-  static constexpr int BARS = 4 * KV;
-  static constexpr int BYTES = BARS + 4 * 8 + 1024;  // + alignment slack
+  static constexpr bool QS = DP > 128;  // Q in shared memory
+  static constexpr int KV = BKV * DP * 2;
+  static constexpr int Q = QS ? BQ * DP * 2 : 0;
+  static constexpr int BARS = 4 * KV + Q;
+  static constexpr int BYTES = BARS + 5 * 8 + 1024;  // + alignment slack
 };
 
 // Is the pair (q row r, key) visible under the launch's mask?
@@ -184,20 +204,20 @@ __device__ __forceinline__ void exp_tile(float* sc, const float* m2, float* l,
   }
 }
 
-// Q's A fragments for the KS k16 steps of the 64-row tile at q0 of row
-// set bh: register r of step kk holds columns 16kk + 8(r >> 1) + 2(tid &
-// 3) + {0, 1} of row frag_row(2r) (to_a's layout); zeros past Sq
-template <int D>
-__device__ __forceinline__ void load_q(uint32_t (*qa)[4],
-                                       const __nv_bfloat16* q, int bh, int Sq,
-                                       int q0) {
+// Q's A fragments for the k16 steps of the 64-row tile at q0 of row set
+// bh (rows of D elements): register r of step kk holds columns 16kk +
+// 8(r >> 1) + 2(tid & 3) + {0, 1} of row frag_row(2r) (to_a's layout);
+// zeros past Sq and past D (D even: a pair is all in or all out)
+template <typename T, int DP>
+__device__ __forceinline__ void load_q(uint32_t (*qa)[4], const T* q, int bh,
+                                       int Sq, int q0, int D) {
 #pragma unroll
-  for (int kk = 0; kk < Cols<D>::KS; ++kk)
+  for (int kk = 0; kk < Cols<DP>::KS; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = q0 + frag_row(2 * r);
       const int col = 16 * kk + 8 * (r >> 1) + 2 * (threadIdx.x & 3);
-      qa[kk][r] = row < Sq
+      qa[kk][r] = row < Sq && col < D
                       ? *reinterpret_cast<const uint32_t*>(
                             q + (static_cast<long long>(bh) * Sq + row) * D +
                             col)
@@ -205,15 +225,58 @@ __device__ __forceinline__ void load_q(uint32_t (*qa)[4],
     }
 }
 
-// O = acc / max(l, 1e-30) rounded to bf16 for the tile's nq valid rows,
-// and, if lse is given, LSE = m * ln 2 + log(max(l, 1e-30)); l is each
-// thread's part of its rows' sums until the four threads of a row meet
-template <int D>
+// S (64 rows x 64 keys) = Q K^T over the DP columns: Q from registers
+// (qa) or, with QS, from the shared tile sq
+template <typename T, int DP, bool QS>
+__device__ __forceinline__ void scores(float* sc, uint32_t (*qa)[4],
+                                       uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.0f;
+  fence_regs<BKV / 2>(sc);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < Cols<DP>::KS; ++kk) {
+    if constexpr (QS)
+      Wgmma<BKV>::ss<T>(sc, desc_k<BQ>(sq, kk), desc_k<BKV>(sk, kk), kk > 0);
+    else
+      Wgmma<BKV>::rs<T, 0>(sc, qa[kk], desc_k<BKV>(sk, kk), kk > 0);
+  }
+  wg_commit();
+  wg_wait<0>();
+  fence_regs<BKV / 2>(sc);
+}
+
+// O += P V over the tile's 64 keys, P packed to T, retired here
+template <typename T, int DP>
+__device__ __forceinline__ void pv(float* acc, const float* sc, uint32_t sv) {
+  uint32_t pa[BKV / 16][4];
+  to_a<T, BKV>(sc, pa);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    rs_cols<T, DP, BKV>(acc, pa[kk], sv, kk);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs<DP / 2>(acc);
+}
+
+// two f32 as T, rounded to nearest even, into o[0], o[1]
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* o, float a, float b) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(a, b);
+}
+
+// O = acc / max(l, 1e-30) rounded to T for the tile's nq valid rows and
+// D columns, and, if lse is given, LSE = m * ln 2 + log(max(l, 1e-30));
+// l is each thread's part of its rows' sums until the four threads of a
+// row meet
+template <typename T, int DP>
 __device__ __forceinline__ void store_o_lse(const float* acc, const float* m2,
-                                            float* l, __nv_bfloat16* o,
-                                            float* lse, int bh, int Sq,
-                                            int q0, int nq) {
-  constexpr int DP = Cols<D>::DP;
+                                            float* l, T* o, float* lse,
+                                            int bh, int Sq, int q0, int nq,
+                                            int D) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] = __fadd_rn(l[h], __shfl_xor_sync(0xffffffffu, l[h], 1));
@@ -226,8 +289,7 @@ __device__ __forceinline__ void store_o_lse(const float* acc, const float* m2,
     if (r >= nq || c >= D) continue;
     const float lr = l[(i >> 1) & 1];
     const long long e = (static_cast<long long>(bh) * Sq + q0 + r) * D + c;
-    *reinterpret_cast<__nv_bfloat162*>(o + e) = __floats2bfloat162_rn(
-        __fdiv_rn(acc[i], lr), __fdiv_rn(acc[i + 1], lr));
+    store2(o + e, __fdiv_rn(acc[i], lr), __fdiv_rn(acc[i + 1], lr));
   }
   if (lse != nullptr && (threadIdx.x & 3) == 0) {
 #pragma unroll
@@ -240,27 +302,48 @@ __device__ __forceinline__ void store_o_lse(const float* acc, const float* m2,
   }
 }
 
-// q, o (B*H, Sq, D) bf16. k/v maps: with `cache` 0 the 3-D map (B*Hkv,
-// Skv, D), with `cache` 1 the 4-D map {D, Hkv, Skv, B}; box rows BKV.
-// lse (B*H, Sq) f32 or null.
-template <int D>
-__global__ void __launch_bounds__(WG, 1)
-    attn_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+// The block's shared-memory layout (FwdSmem) as addresses
+template <int DP>
+struct FwdTiles {
+  using L = FwdSmem<DP>;
+  uint32_t base;
+  __device__ __forceinline__ FwdTiles(const uint8_t* smem_raw) {
+    const uint32_t raw = smem_u32(smem_raw);
+    base = (raw + 1023) & ~1023u;
+  }
+  __device__ __forceinline__ uint32_t k(int s) const {
+    return base + s * 2 * L::KV;
+  }
+  __device__ __forceinline__ uint32_t v(int s) const { return k(s) + L::KV; }
+  __device__ __forceinline__ uint32_t q() const { return base + 4 * L::KV; }
+  __device__ __forceinline__ uint32_t full_k(int s) const {
+    return base + L::BARS + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t full_v(int s) const {
+    return base + L::BARS + 16 + 8 * s;
+  }
+  __device__ __forceinline__ uint32_t full_q() const {
+    return base + L::BARS + 32;
+  }
+};
+
+// q, o (B*H, Sq, D); tq its 3-D map (B*H, Sq, D), box rows BQ (read at DP
+// > 128). k/v maps: with `cache` 0 the 3-D map (B*Hkv, Skv, D), with
+// `cache` 1 the 4-D map {D, Hkv, Skv, B}; box rows BKV. lse (B*H, Sq)
+// f32 or null.
+template <typename T, int DP>
+__global__ void __launch_bounds__(WG, DP <= 128 ? 3 : 1)
+    attn_fwd_wgmma_kernel(const T* __restrict__ q,
+                          __grid_constant__ const CUtensorMap tq,
                           __grid_constant__ const CUtensorMap tk,
                           __grid_constant__ const CUtensorMap tv,
-                          __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int H, int Hkv, int Sq,
-                          int Skv, int causal, int off, int cache,
-                          float scale) {
-  using L = FwdSmem<D>;
-  constexpr int DP = Cols<D>::DP, KS = Cols<D>::KS;
+                          T* __restrict__ o, float* __restrict__ lse, int H,
+                          int Hkv, int Sq, int Skv, int causal, int off,
+                          int cache, int D, float scale) {
+  using L = FwdSmem<DP>;
+  constexpr int KS = Cols<DP>::KS;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  auto full_k = [&](int s) { return base + L::BARS + 8 * s; };
-  auto full_v = [&](int s) { return base + L::BARS + 16 + 8 * s; };
-  auto sK = [&](int s) { return base + s * 2 * L::KV; };
-  auto sV = [&](int s) { return sK(s) + L::KV; };
+  const FwdTiles<DP> sm(smem_raw);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -277,27 +360,35 @@ __global__ void __launch_bounds__(WG, 1)
                   int k0) {
     mbar_expect_tx(bar, L::KV);
     if (cache)
-      tma_tile4<D, BKV>(dst, map, bar, hkv, k0, b);
+      tma_tile4<DP, BKV>(dst, map, bar, hkv, k0, b);
     else
-      tma_tile<D, BKV>(dst, map, bar, k0, b * Hkv + hkv);
+      tma_tile<DP, BKV>(dst, map, bar, k0, b * Hkv + hkv);
   };
   if (tid == 0) {
     for (int s = 0; s < 2; ++s) {
-      mbar_init(full_k(s), 1);
-      mbar_init(full_v(s), 1);
+      mbar_init(sm.full_k(s), 1);
+      mbar_init(sm.full_v(s), 1);
     }
+    mbar_init(sm.full_q(), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 0) {
+    if constexpr (L::QS) {
+      mbar_expect_tx(sm.full_q(), L::Q);
+      tma_tile<DP, BQ>(sm.q(), &tq, sm.full_q(), q0, bh);
+    }
     for (int s = 0; s < 2 && s < n_it; ++s) {
-      load(sK(s), &tk, full_k(s), s * BKV);
-      load(sV(s), &tv, full_v(s), s * BKV);
+      load(sm.k(s), &tk, sm.full_k(s), s * BKV);
+      load(sm.v(s), &tv, sm.full_v(s), s * BKV);
     }
   }
 
-  uint32_t qa[KS][4];
-  load_q<D>(qa, q, bh, Sq, q0);
+  uint32_t qa[L::QS ? 1 : KS][4];
+  if constexpr (L::QS)
+    mbar_wait(sm.full_q(), 0);
+  else
+    load_q<T, DP>(qa, q, bh, Sq, q0, D);
   float acc[DP / 2];                // O: q rows x DP columns
   float m2[2] = {NEG, NEG};         // running max, log2 units
   float l[2] = {0.0f, 0.0f};        // this thread's part of the row sum
@@ -308,23 +399,14 @@ __global__ void __launch_bounds__(WG, 1)
   for (int it = 0; it < n_it; ++it) {
     const int s = it & 1, k0 = it * BKV;
     const uint32_t parity = (it >> 1) & 1;
-    mbar_wait(full_k(s), parity);
+    mbar_wait(sm.full_k(s), parity);
     float sc[BKV / 2];  // S: q rows x keys
-#pragma unroll
-    for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.0f;
-    fence_regs<BKV / 2>(sc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      Wgmma<BKV>::rs_k(sc, qa[kk], desc_k<BKV>(sK(s), kk), kk > 0);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<BKV / 2>(sc);
+    scores<T, DP, L::QS>(sc, qa, sm.q(), sm.k(s));
     __syncthreads();  // every read of K(s) and of V(s ^ 1) is done
     if (tid == 0) {
-      if (it + 2 < n_it) load(sK(s), &tk, full_k(s), k0 + 2 * BKV);
+      if (it + 2 < n_it) load(sm.k(s), &tk, sm.full_k(s), k0 + 2 * BKV);
       if (it >= 1 && it + 1 < n_it)
-        load(sV(s ^ 1), &tv, full_v(s ^ 1), k0 + BKV);
+        load(sm.v(s ^ 1), &tv, sm.full_v(s ^ 1), k0 + BKV);
     }
 
     float alpha[2];
@@ -337,47 +419,35 @@ __global__ void __launch_bounds__(WG, 1)
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i)
       acc[i] = __fmul_rn(acc[i], alpha[(i >> 1) & 1]);
-    uint32_t pa[BKV / 16][4];  // P, bf16
-    to_a<BKV>(sc, pa);
-    mbar_wait(full_v(s), parity);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-      Wgmma<DP>::rs(acc, pa[kk], desc_mn<BKV>(sV(s), kk));
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<DP / 2>(acc);
+    mbar_wait(sm.full_v(s), parity);
+    pv<T, DP>(acc, sc, sm.v(s));
   }
 
-  store_o_lse<D>(acc, m2, l, o, lse, bh, Sq, q0, nq);
+  store_o_lse<T, DP>(acc, m2, l, o, lse, bh, Sq, q0, nq, D);
 }
 
-// B9: grid (B*H, q tiles), the last q tile first. q, o (B*H, Sq, D) bf16;
-// k/v the 3-D maps (B*Hkv, Skv, D), box rows BKV; lse (B*H, Sq) f32. Pass
-// 1 reads key tiles 0 .. n-1, pass 2 n-1 .. 0: its first tile is pass
-// 1's last, whose scores are still in registers, and its second is still
-// in the ring, so pass 2 computes n - 1 products Q K^T and reloads n - 2
-// tiles of K. K tile j always lands in stage j & 1; V tile n-1-t of pass
-// 2's step t in stage t & 1. Each K stage's barrier completes once per
-// load into it, and each thread waits once per load, so a running parity
-// per stage tells the phase to wait for.
-template <int D>
+// B9: grid (B*H, q tiles), the last q tile first. q, o (B*H, Sq, D), tq
+// as B8's; k/v the 3-D maps (B*Hkv, Skv, D), box rows BKV; lse (B*H, Sq)
+// f32. Pass 1 reads key tiles 0 .. n-1, pass 2 n-1 .. 0: its first tile
+// is pass 1's last, whose scores are still in registers, and its second
+// is still in the ring, so pass 2 computes n - 1 products Q K^T and
+// reloads n - 2 tiles of K. K tile j always lands in stage j & 1; V tile
+// n-1-t of pass 2's step t in stage t & 1. Each K stage's barrier
+// completes once per load into it, and each thread waits once per load,
+// so a running parity per stage tells the phase to wait for.
+template <typename T, int DP>
 __global__ void __launch_bounds__(WG, 1)
-    attn_fwd_single_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+    attn_fwd_single_wgmma_kernel(const T* __restrict__ q,
+                                 __grid_constant__ const CUtensorMap tq,
                                  __grid_constant__ const CUtensorMap tk,
                                  __grid_constant__ const CUtensorMap tv,
-                                 __nv_bfloat16* __restrict__ o,
-                                 float* __restrict__ lse, int H, int Hkv,
-                                 int Sq, int Skv, int causal, float scale) {
-  using L = FwdSmem<D>;
-  constexpr int DP = Cols<D>::DP, KS = Cols<D>::KS;
+                                 T* __restrict__ o, float* __restrict__ lse,
+                                 int H, int Hkv, int Sq, int Skv, int causal,
+                                 int D, float scale) {
+  using L = FwdSmem<DP>;
+  constexpr int KS = Cols<DP>::KS;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  auto full_k = [&](int s) { return base + L::BARS + 8 * s; };
-  auto full_v = [&](int s) { return base + L::BARS + 16 + 8 * s; };
-  auto sK = [&](int s) { return base + s * 2 * L::KV; };
-  auto sV = [&](int s) { return sK(s) + L::KV; };
+  const FwdTiles<DP> sm(smem_raw);
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
@@ -390,15 +460,15 @@ __global__ void __launch_bounds__(WG, 1)
   auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar,
                   int j) {
     mbar_expect_tx(bar, L::KV);
-    tma_tile<D, BKV>(dst, map, bar, j * BKV, kvrow);
+    tma_tile<DP, BKV>(dst, map, bar, j * BKV, kvrow);
   };
-  auto load_k = [&](int j) { load(sK(j & 1), &tk, full_k(j & 1), j); };
+  auto load_k = [&](int j) { load(sm.k(j & 1), &tk, sm.full_k(j & 1), j); };
   auto load_v = [&](int t) {  // pass 2's step t: V tile n-1-t
-    load(sV(t & 1), &tv, full_v(t & 1), n - 1 - t);
+    load(sm.v(t & 1), &tv, sm.full_v(t & 1), n - 1 - t);
   };
   // Q's loads fly while the barriers are set up and the first tiles asked
-  uint32_t qa[KS][4];
-  load_q<D>(qa, q, bh, Sq, q0);
+  uint32_t qa[L::QS ? 1 : KS][4];
+  if constexpr (!L::QS) load_q<T, DP>(qa, q, bh, Sq, q0, D);
   if (tid == 0) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<uint64_t>(&tk))
@@ -407,18 +477,24 @@ __global__ void __launch_bounds__(WG, 1)
                      reinterpret_cast<uint64_t>(&tv))
                  : "memory");
     for (int s = 0; s < 2; ++s) {
-      mbar_init(full_k(s), 1);
-      mbar_init(full_v(s), 1);
+      mbar_init(sm.full_k(s), 1);
+      mbar_init(sm.full_v(s), 1);
     }
+    mbar_init(sm.full_q(), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 0) {
+    if constexpr (L::QS) {
+      mbar_expect_tx(sm.full_q(), L::Q);
+      tma_tile<DP, BQ>(sm.q(), &tq, sm.full_q(), q0, bh);
+    }
     for (int s = 0; s < 2 && s < n; ++s) {
       load_k(s);
       load_v(s);
     }
   }
+  if constexpr (L::QS) mbar_wait(sm.full_q(), 0);
   const float scale_log2 = scale * LOG2E;
   uint32_t kpar[2] = {0u, 0u};  // the phase each K stage completes next
 
@@ -429,22 +505,13 @@ __global__ void __launch_bounds__(WG, 1)
   // a fresh one; then, if a load follows (`refill`), once every thread is
   // done with the stage it overwrites, that load
   float sc[BKV / 2];
-  auto scores = [&](int j, bool fresh, bool refill, auto loads) {
+  auto scores_j = [&](int j, bool fresh, bool refill, auto loads) {
     const int s = j & 1;
     if (fresh) {
-      mbar_wait(full_k(s), s ? kpar[1] : kpar[0]);
+      mbar_wait(sm.full_k(s), s ? kpar[1] : kpar[0]);
       if (s) kpar[1] ^= 1u; else kpar[0] ^= 1u;
     }
-#pragma unroll
-    for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.0f;
-    fence_regs<BKV / 2>(sc);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      Wgmma<BKV>::rs_k(sc, qa[kk], desc_k<BKV>(sK(s), kk), kk > 0);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<BKV / 2>(sc);
+    scores<T, DP, L::QS>(sc, qa, sm.q(), sm.k(s));
     if (refill) {
       __syncthreads();  // every read of K(s) (and of the V stage freed) done
       if (tid == 0) loads();
@@ -455,7 +522,7 @@ __global__ void __launch_bounds__(WG, 1)
   // reload
   float m2[2] = {NEG, NEG};  // log2 units
   for (int j = 0; j < n; ++j) {
-    scores(j, true, j + 2 < n || (j == n - 1 && n >= 3), [&] {
+    scores_j(j, true, j + 2 < n || (j == n - 1 && n >= 3), [&] {
       if (j + 2 < n) load_k(j + 2);
       if (j == n - 1 && n >= 3) load_k(n - 3);
     });
@@ -480,7 +547,7 @@ __global__ void __launch_bounds__(WG, 1)
     const int j = n - 1 - t;
     if (t > 0)  // tile j - 2 into j's stage; V of step t + 1 into the
                 // stage step t - 1 used
-      scores(j, t > 1, j >= 1, [&] {
+      scores_j(j, t > 1, j >= 1, [&] {
         if (j >= 2) load_k(j - 2);
         load_v(t + 1);
       });
@@ -488,18 +555,10 @@ __global__ void __launch_bounds__(WG, 1)
       exp_tile<true>(sc, m2, l, scale_log2, q0, j * BKV, Skv, causal);
     else
       exp_tile<false>(sc, m2, l, scale_log2, q0, j * BKV, Skv, causal);
-    uint32_t pa[BKV / 16][4];  // P, bf16
-    to_a<BKV>(sc, pa);
-    mbar_wait(full_v(t & 1), (t >> 1) & 1);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk)
-      Wgmma<DP>::rs(acc, pa[kk], desc_mn<BKV>(sV(t & 1), kk));
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<DP / 2>(acc);
+    mbar_wait(sm.full_v(t & 1), (t >> 1) & 1);
+    pv<T, DP>(acc, sc, sm.v(t & 1));
   }
-  store_o_lse<D>(acc, m2, l, o, lse, bh, Sq, q0, nq);
+  store_o_lse<T, DP>(acc, m2, l, o, lse, bh, Sq, q0, nq, D);
 }
 
 // the operands of one launch besides the maps
@@ -507,111 +566,135 @@ struct Args {
   const void* q;
   void* o;
   void* lse;
-  int B, H, Hkv, Sq, Skv, causal, off, cache;
+  int B, H, Hkv, Sq, Skv, causal, off, cache, D;
   float scale;
   cudaStream_t st;
 };
 
-template <int D>
-cudaError_t launch(const CUtensorMap& tk, const CUtensorMap& tv,
-                   const Args& a) {
-  constexpr int smem = FwdSmem<D>::BYTES;
-  auto kern = attn_fwd_wgmma_kernel<D>;
+struct Maps {
+  CUtensorMap q, k, v;
+};
+
+template <typename T, int DP>
+cudaError_t launch(const Maps& m, const Args& a) {
+  constexpr int smem = FwdSmem<DP>::BYTES;
+  auto kern = attn_fwd_wgmma_kernel<T, DP>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
-  kern<<<grid, WG, smem, a.st>>>(static_cast<const __nv_bfloat16*>(a.q),
-                                 tk, tv, static_cast<__nv_bfloat16*>(a.o),
+  kern<<<grid, WG, smem, a.st>>>(static_cast<const T*>(a.q), m.q, m.k, m.v,
+                                 static_cast<T*>(a.o),
                                  static_cast<float*>(a.lse), a.H, a.Hkv,
-                                 a.Sq, a.Skv, a.causal, a.off, a.cache,
+                                 a.Sq, a.Skv, a.causal, a.off, a.cache, a.D,
                                  a.scale);
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(a.cache ? ROUTE_PREFILL_WGMMA : ROUTE_FWD_WGMMA,
+                   Elt<T>::F16 ? 2 : 1, DP);
+  return e;
 }
 
-// head dim -> the instantiation of FN
-#define SM90_DISPATCH(FN, ...)                 \
-  switch (head_dim) {                          \
-    case 16: return FN<16>(__VA_ARGS__);       \
-    case 32: return FN<32>(__VA_ARGS__);       \
-    case 64: return FN<64>(__VA_ARGS__);       \
-    case 128: return FN<128>(__VA_ARGS__);     \
-    default: return cudaErrorInvalidValue;     \
-  }
-
-cudaError_t launch_d(int head_dim, const CUtensorMap& tk,
-                     const CUtensorMap& tv, const Args& a) {
-  SM90_DISPATCH(launch, tk, tv, a)
-}
-
-template <int D>
-cudaError_t launch_single(const CUtensorMap& tk, const CUtensorMap& tv,
-                          const Args& a) {
-  constexpr int smem = FwdSmem<D>::BYTES;
-  auto kern = attn_fwd_single_wgmma_kernel<D>;
+template <typename T, int DP>
+cudaError_t launch_single(const Maps& m, const Args& a) {
+  constexpr int smem = FwdSmem<DP>::BYTES;
+  auto kern = attn_fwd_single_wgmma_kernel<T, DP>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
-  kern<<<grid, WG, smem, a.st>>>(static_cast<const __nv_bfloat16*>(a.q),
-                                 tk, tv, static_cast<__nv_bfloat16*>(a.o),
+  kern<<<grid, WG, smem, a.st>>>(static_cast<const T*>(a.q), m.q, m.k, m.v,
+                                 static_cast<T*>(a.o),
                                  static_cast<float*>(a.lse), a.H, a.Hkv,
-                                 a.Sq, a.Skv, a.causal, a.scale);
-  return cudaGetLastError();
+                                 a.Sq, a.Skv, a.causal, a.D, a.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_FWD_SINGLE_WGMMA, Elt<T>::F16 ? 2 : 1, DP);
+  return e;
 }
 
-// a contiguous bf16 cache (B, T, Hkv, D) as the 4-D map {D, Hkv, kv_len,
-// B}: boxes of 64 columns x BKV rows of one head of one batch row; the T
-// extent is kv_len, so every row at or past it reads as zeros
-cudaError_t cache_map(CUtensorMap* map, const void* ptr, int B, int T,
+// a contiguous 16-bit cache (B, T, Hkv, D) as the 4-D map {D, Hkv,
+// kv_len, B}: boxes of 64 columns x BKV rows of one head of one batch
+// row; the T extent is kv_len, so every row at or past it reads as zeros
+template <typename T>
+cudaError_t cache_map(CUtensorMap* map, const void* ptr, int B, int Tlen,
                       int Hkv, int D, int kv_len) {
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(Hkv),
       static_cast<cuuint64_t>(kv_len), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {
       static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(Hkv) * D * 2,
-      static_cast<cuuint64_t>(T) * Hkv * D * 2};
+      static_cast<cuuint64_t>(Tlen) * Hkv * D * 2};
   const cuuint32_t box[4] = {64, 1, BKV, 1};
-  return encode_bf16(map, ptr, 4, dims, strides, box);
+  return encode16<T>(map, ptr, 4, dims, strides, box);
+}
+
+// the maps of B8 and B9: q (B*H, Sq, D), k and v (B*Hkv, Skv, D)
+template <typename T>
+cudaError_t fwd_maps(Maps* m, const void* q, const void* k, const void* v,
+                     const Args& a) {
+  cudaError_t e = tile_map<T>(&m->q, q, a.B * a.H, a.Sq, a.D, BQ);
+  if (e == cudaSuccess) e = tile_map<T>(&m->k, k, a.B * a.Hkv, a.Skv, a.D, BKV);
+  if (e == cudaSuccess) e = tile_map<T>(&m->v, v, a.B * a.Hkv, a.Skv, a.D, BKV);
+  return e;
+}
+
+template <typename T, int DP>
+cudaError_t run_fwd(const void* k, const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = fwd_maps<T>(&m, a.q, k, v, a);
+  return e == cudaSuccess ? launch<T, DP>(m, a) : e;
+}
+
+template <typename T, int DP>
+cudaError_t run_single(const void* k, const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = fwd_maps<T>(&m, a.q, k, v, a);
+  return e == cudaSuccess ? launch_single<T, DP>(m, a) : e;
+}
+
+// q (B, H, S_new, D) as (B*H, S_new, D); the caches through kv_len
+template <typename T, int DP>
+cudaError_t run_prefill(const void* kc, const void* vc, int Tlen,
+                        const Args& a) {
+  Maps m;
+  cudaError_t e = tile_map<T>(&m.q, a.q, a.B * a.H, a.Sq, a.D, BQ);
+  if (e == cudaSuccess)
+    e = cache_map<T>(&m.k, kc, a.B, Tlen, a.Hkv, a.D, a.Skv);
+  if (e == cudaSuccess)
+    e = cache_map<T>(&m.v, vc, a.B, Tlen, a.Hkv, a.D, a.Skv);
+  return e == cudaSuccess ? launch<T, DP>(m, a) : e;
 }
 
 }  // namespace
 
-// Called by accl_attn_fwd (attention.cu) for bf16 operands: B8.
-int attn_fwd_wgmma(int head_dim, const void* q, const void* k, const void* v,
-                   void* o, void* lse, int B, int H, int Hkv, int Sq, int Skv,
-                   int causal, float scale, cudaStream_t st) {
-  CUtensorMap tk, tv;
-  cudaError_t e = tile_map(&tk, k, B * Hkv, Skv, head_dim, BKV);
-  if (e == cudaSuccess) e = tile_map(&tv, v, B * Hkv, Skv, head_dim, BKV);
-  if (e != cudaSuccess) return e;
-  return launch_d(head_dim, tk, tv,
-                  Args{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, scale,
-                       st});
+// Called by accl_attn_fwd (attention.cu) for 16-bit operands (dtype code
+// 1 bf16, 2 f16): B8.
+int attn_fwd_wgmma(int dtype, int head_dim, const void* q, const void* k,
+                   const void* v, void* o, void* lse, int B, int H, int Hkv,
+                   int Sq, int Skv, int causal, float scale,
+                   cudaStream_t st) {
+  const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
+               st};
+  SM90_DISPATCH(run_fwd, k, v, a)
 }
 
-// Called by accl_attn_decode (attention.cu) for bf16 chunks of S_new > 1
+// Called by accl_attn_decode (attention.cu) for 16-bit chunks of S_new > 1
 // new tokens: B12's prefill route. q and o (B, H, S_new, D); the caches
 // (B, T, Hkv, D), filled through kv_len.
-int attn_prefill_wgmma(int head_dim, const void* q, const void* kc,
-                       const void* vc, void* o, int B, int H, int Hkv, int T,
-                       int s_new, int kv_len, float scale, cudaStream_t st) {
-  CUtensorMap tk, tv;
-  cudaError_t e = cache_map(&tk, kc, B, T, Hkv, head_dim, kv_len);
-  if (e == cudaSuccess) e = cache_map(&tv, vc, B, T, Hkv, head_dim, kv_len);
-  if (e != cudaSuccess) return e;
-  return launch_d(head_dim, tk, tv,
-                  Args{q, o, nullptr, B, H, Hkv, s_new, kv_len, 1,
-                       kv_len - s_new, 1, scale, st});
+int attn_prefill_wgmma(int dtype, int head_dim, const void* q,
+                       const void* kc, const void* vc, void* o, int B, int H,
+                       int Hkv, int Tlen, int s_new, int kv_len, float scale,
+                       cudaStream_t st) {
+  const Args a{q, o, nullptr, B, H, Hkv, s_new, kv_len, 1, kv_len - s_new,
+               1, head_dim, scale, st};
+  SM90_DISPATCH(run_prefill, kc, vc, Tlen, a)
 }
 
-// Called by accl_attn_fwd_single (attention.cu) for bf16 operands: B9.
-int attn_fwd_single_wgmma(int head_dim, const void* q, const void* k,
-                          const void* v, void* o, void* lse, int B, int H,
-                          int Hkv, int Sq, int Skv, int causal, float scale,
-                          cudaStream_t st) {
-  CUtensorMap tk, tv;
-  cudaError_t e = tile_map(&tk, k, B * Hkv, Skv, head_dim, BKV);
-  if (e == cudaSuccess) e = tile_map(&tv, v, B * Hkv, Skv, head_dim, BKV);
-  if (e != cudaSuccess) return e;
-  const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, scale, st};
-  SM90_DISPATCH(launch_single, tk, tv, a)
+// Called by accl_attn_fwd_single (attention.cu) for 16-bit operands: B9.
+int attn_fwd_single_wgmma(int dtype, int head_dim, const void* q,
+                          const void* k, const void* v, void* o, void* lse,
+                          int B, int H, int Hkv, int Sq, int Skv, int causal,
+                          float scale, cudaStream_t st) {
+  const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
+               st};
+  SM90_DISPATCH(run_single, k, v, a)
 }

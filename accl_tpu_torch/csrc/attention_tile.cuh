@@ -1,13 +1,27 @@
-// Helpers shared by the attention kernels outside the bf16 tensor-core
-// route (attention.cu: f32 B8, B9, B12 prefill; attention_decode.cu: B12
+// Helpers shared by the attention kernels outside the 16-bit tensor-core
+// routes (attention.cu: f32 B8, B9, B12 prefill; attention_decode.cu: B12
 // decode; attention_bwd.cu: f32 B10, B11): the masked score, stores and
 // 16-byte unpacking as f32, the shared-memory opt-in, the dtype x
-// head-dim dispatches.
+// head-dim tier dispatches.
 #pragma once
 
 #include <float.h>
 
 #include "common.cuh"
+
+#ifndef ACCL_ATTN_ROUTE
+#define ACCL_ATTN_ROUTE
+// The route of the last attention launch, set by the launcher that made
+// it: kind << 16 | dtype code << 12 | column tier (ROUTE_* below; read
+// through accl_attn_last_route, attention.cu).
+void set_attn_route(int kind, int dtype, int tier);
+enum {
+  ROUTE_FWD_WGMMA = 1, ROUTE_FWD_SINGLE_WGMMA = 2, ROUTE_PREFILL_WGMMA = 3,
+  ROUTE_DECODE_SPLIT = 4, ROUTE_FWD_TF32 = 5, ROUTE_FWD_SINGLE_TF32 = 6,
+  ROUTE_PREFILL_TF32 = 7, ROUTE_BWD_DKV_WGMMA = 8, ROUTE_BWD_DQ_WGMMA = 9,
+  ROUTE_BWD_DKV_TF32 = 10, ROUTE_BWD_DQ_TF32 = 11
+};
+#endif
 
 namespace {
 
@@ -17,6 +31,9 @@ constexpr float NEG = -FLT_MAX;  // jnp.finfo(jnp.float32).min
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void st(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 
 __device__ __forceinline__ void unpack(const uint4& u, float* f, float) {
@@ -35,6 +52,16 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f,
     f[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
   }
 }
+// f16 -> f32 is exact
+__device__ __forceinline__ void unpack(const uint4& u, float* f, __half) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
 
 // the largest dynamic shared memory a block may ask for on sm_90
 constexpr int MAX_SMEM = 232448;
@@ -49,26 +76,41 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 }  // namespace
 
-// dtype code (0 f32, 1 bf16) x head dim -> one instantiation
-#define ATTN_DISPATCH(FN, ...)                                        \
-  switch (dtype * 1000 + head_dim) {                                  \
+// the power-of-two column tier (16 .. 256) that holds head dim d
+__host__ __device__ constexpr int pow2_tier(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
+// dtype code (0 f32, 1 bf16, 2 f16) x the head dim's power-of-two tier
+// -> one instantiation FN<T, DP>
+#define POW2_DISPATCH(FN, ...)                                        \
+  switch (dtype * 1000 + pow2_tier(head_dim)) {                       \
     case 16: return FN<float, 16>(__VA_ARGS__);                       \
     case 32: return FN<float, 32>(__VA_ARGS__);                       \
     case 64: return FN<float, 64>(__VA_ARGS__);                       \
     case 128: return FN<float, 128>(__VA_ARGS__);                     \
+    case 256: return FN<float, 256>(__VA_ARGS__);                     \
     case 1016: return FN<__nv_bfloat16, 16>(__VA_ARGS__);             \
     case 1032: return FN<__nv_bfloat16, 32>(__VA_ARGS__);             \
     case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);             \
     case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);            \
+    case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);            \
+    case 2016: return FN<__half, 16>(__VA_ARGS__);                    \
+    case 2032: return FN<__half, 32>(__VA_ARGS__);                    \
+    case 2064: return FN<__half, 64>(__VA_ARGS__);                    \
+    case 2128: return FN<__half, 128>(__VA_ARGS__);                   \
+    case 2256: return FN<__half, 256>(__VA_ARGS__);                   \
     default: return cudaErrorInvalidValue;                            \
   }
 
-// head dim -> the f32 instantiation
+// the f32 route's head dim (a multiple of 8, at most 256) -> the
+// instantiation FN<DP> of its power-of-two tier
 #define F32_DISPATCH(FN, ...)                                         \
-  switch (head_dim) {                                                 \
-    case 16: return FN<float, 16>(__VA_ARGS__);                       \
-    case 32: return FN<float, 32>(__VA_ARGS__);                       \
-    case 64: return FN<float, 64>(__VA_ARGS__);                       \
-    case 128: return FN<float, 128>(__VA_ARGS__);                     \
+  switch (pow2_tier(head_dim)) {                                      \
+    case 16: return FN<16>(__VA_ARGS__);                              \
+    case 32: return FN<32>(__VA_ARGS__);                              \
+    case 64: return FN<64>(__VA_ARGS__);                              \
+    case 128: return FN<128>(__VA_ARGS__);                            \
+    case 256: return FN<256>(__VA_ARGS__);                            \
     default: return cudaErrorInvalidValue;                            \
   }

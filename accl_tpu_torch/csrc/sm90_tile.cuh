@@ -1,32 +1,136 @@
 // Hopper tile helpers shared by the tensor-core attention kernels
-// (attention_sm90.cu: B8 and B12's prefill route; attention_bwd_sm90.cu:
-// B10, B11): warpgroup MMA (wgmma) wrappers and descriptors for
-// 128-byte-swizzled bf16 tiles, mbarriers, TMA tile loads on 3-D and 4-D
-// tensor maps, and the register fragments of a wgmma accumulator.
+// (attention_sm90.cu: B8, B9 and B12's prefill route; attention_bwd_sm90.cu:
+// B10, B11): warpgroup MMA (wgmma) wrappers for 16-bit operands (bf16 or
+// f16, f32 accumulators) and descriptors for 128-byte-swizzled tiles,
+// mbarriers, TMA tile loads on 3-D and 4-D tensor maps, and the register
+// fragments of a wgmma accumulator.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the driver entry
                    // point is looked up at run time (no -lcuda)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef ACCL_ATTN_ROUTE
+#define ACCL_ATTN_ROUTE
+// The route of the last attention launch, set by the launcher that made
+// it: kind << 16 | dtype code << 12 | column tier (ROUTE_* below; read
+// through accl_attn_last_route, attention.cu).
+void set_attn_route(int kind, int dtype, int tier);
+enum {
+  ROUTE_FWD_WGMMA = 1, ROUTE_FWD_SINGLE_WGMMA = 2, ROUTE_PREFILL_WGMMA = 3,
+  ROUTE_DECODE_SPLIT = 4, ROUTE_FWD_TF32 = 5, ROUTE_FWD_SINGLE_TF32 = 6,
+  ROUTE_PREFILL_TF32 = 7, ROUTE_BWD_DKV_WGMMA = 8, ROUTE_BWD_DQ_WGMMA = 9,
+  ROUTE_BWD_DKV_TF32 = 10, ROUTE_BWD_DQ_TF32 = 11
+};
+#endif
 
 namespace {
 
 constexpr int WG = 128;   // threads per block: one warpgroup
 constexpr int BKV = 64;   // keys per tile
 constexpr int BQ = 64;    // q rows per tile
-constexpr int ROW = 128;  // bytes of one row of a 64-column bf16 block
+constexpr int ROW = 128;  // bytes of one row of a 64-column 16-bit block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A tile of R rows in shared memory: NB blocks of R x 64 bf16 columns,
-// each R * 128 bytes, written by TMA with the 128-byte swizzle.
-template <int D>
+// A tile of R rows in shared memory: NB blocks of R x 64 16-bit columns,
+// each R * 128 bytes, written by TMA with the 128-byte swizzle. DP, the
+// columns held, is a tier (64, 128, 192 or 256); the head dim D <= DP is
+// a run-time value: the tensor maps have extent D, so TMA fills the
+// columns past D with zeros, and zero columns add nothing to a product.
+template <int DP_>
 struct Cols {
-  static constexpr int DP = D < 64 ? 64 : D;  // columns held (zeros past D)
-  static constexpr int NB = DP / 64;          // 64-column blocks
-  static constexpr int KS = D / 16;           // k16 steps over the head dim
+  static_assert(DP_ % 64 == 0 && DP_ <= 256, "a column tier");
+  static constexpr int DP = DP_;      // columns held
+  static constexpr int NB = DP / 64;  // 64-column blocks
+  static constexpr int KS = DP / 16;  // k16 steps over the head dim
 };
+
+// the tier that holds head dim d (a multiple of 8, at most 256)
+__host__ __device__ constexpr int col_tier(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
+
+// The 16-bit element types: bf16 (8 significant bits) and f16 (11).
+template <typename T>
+struct Elt;
+template <>
+struct Elt<__nv_bfloat16> {
+  static constexpr bool F16 = false;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // two f32 as one bf16x2 register, each rounded to nearest even (the
+  // lower column in the low half, as wgmma's register fragments hold them)
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct Elt<__half> {
+  static constexpr bool F16 = true;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// the accumulator registers of a 64 x 64 and a 64 x 128 product
+#define WG_ACC32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9" \
+  ", %10, %11, %12, %13, %14, %15, %16, %17, %18, %19" \
+  ", %20, %21, %22, %23, %24, %25, %26, %27, %28, %29" \
+  ", %30, %31}"
+#define WG_ACC64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9" \
+  ", %10, %11, %12, %13, %14, %15, %16, %17, %18, %19" \
+  ", %20, %21, %22, %23, %24, %25, %26, %27, %28, %29" \
+  ", %30, %31, %32, %33, %34, %35, %36, %37, %38, %39" \
+  ", %40, %41, %42, %43, %44, %45, %46, %47, %48, %49" \
+  ", %50, %51, %52, %53, %54, %55, %56, %57, %58, %59" \
+  ", %60, %61, %62, %63}"
+#define WG_OUT32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_OUT64(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// One wgmma instruction: m64nNk16, f32 accumulators, operands of type TY
+// ("bf16" or "f16"), predicate P (0: overwrite, 1: accumulate). SS: both
+// operands from shared memory, K-major; RS: A from registers, B from
+// shared memory with transpose bit TB (1: MN-major, row k of B is a row
+// of the tile).
+#define WG_SS(N, TY, ACC, A, B, P)                                      \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                        \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " ACC   \
+  ", " A ", " B ", p, 1, 1, 0, 0;\n}\n"
+#define WG_RS(N, TY, ACC, A, B, P, TB)                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                        \
+  "wgmma.mma_async.sync.aligned.m64n" N "k16.f32." TY "." TY " " ACC   \
+  ", " A ", " B ", p, 1, 1, " TB ";\n}\n"
 
 template <int N>
 struct Wgmma;
@@ -34,140 +138,57 @@ struct Wgmma;
 template <>
 struct Wgmma<64> {
   // D(64x64) (+)= A(64x16, K-major in shared memory) * B(16x64, K-major)
+  template <typename T>
   static __device__ __forceinline__ void ss(float* d, uint64_t da,
                                             uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(acc));
+    if constexpr (Elt<T>::F16)
+      asm volatile(WG_SS("64", "f16", WG_ACC32, "%32", "%33", "%34")
+                   : WG_OUT32(d)
+                   : "l"(da), "l"(db), "r"(acc));
+    else
+      asm volatile(WG_SS("64", "bf16", WG_ACC32, "%32", "%33", "%34")
+                   : WG_OUT32(d)
+                   : "l"(da), "l"(db), "r"(acc));
   }
-  // D(64x64) += A(64x16, bf16 registers) * B(16x64, MN-major in shared
-  // memory: row k of B is a row of the tile)
+  // D(64x64) (+)= A(64x16, registers) * B(16x64 in shared memory),
+  // MN-major when TB is 1, K-major when it is 0
+  template <typename T, int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-  // D(64x64) (+)= A(64x16, bf16 registers) * B(16x64, K-major in shared
-  // memory)
-  static __device__ __forceinline__ void rs_k(float* d, const uint32_t* a,
-                                              uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+                                            uint64_t db, int acc) {
+    if constexpr (Elt<T>::F16)
+      asm volatile(WG_RS("64", "f16", WG_ACC32, "{%32, %33, %34, %35}",
+                         "%36", "%37", "%38")
+                   : WG_OUT32(d)
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                     "r"(acc), "n"(TB));
+    else
+      asm volatile(WG_RS("64", "bf16", WG_ACC32, "{%32, %33, %34, %35}",
+                         "%36", "%37", "%38")
+                   : WG_OUT32(d)
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                     "r"(acc), "n"(TB));
   }
 };
 
 template <>
 struct Wgmma<128> {
-  // D(64x128) (+)= A(64x16, K-major in shared memory) * B(16x128, K-major)
-  static __device__ __forceinline__ void ss(float* d, uint64_t da,
-                                            uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(acc));
-  }
-  // D(64x128) += A(64x16, bf16 registers) * B(16x128, MN-major in shared
-  // memory: row k of B is a row of the tile)
+  // D(64x128) += A(64x16, registers) * B(16x128, MN-major in shared
+  // memory)
+  template <typename T>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
                                             uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+    if constexpr (Elt<T>::F16)
+      asm volatile(WG_RS("128", "f16", WG_ACC64, "{%64, %65, %66, %67}",
+                         "%68", "%69", "1")
+                   : WG_OUT64(d)
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                     "r"(1));
+    else
+      asm volatile(WG_RS("128", "bf16", WG_ACC64, "{%64, %65, %66, %67}",
+                         "%68", "%69", "1")
+                   : WG_OUT64(d)
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+                     "r"(1));
   }
 };
 
@@ -267,22 +288,22 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
 
 // all NB column blocks of an R-row tile (rows row .. row + R - 1 of head
 // `head`) on barrier `bar`
-template <int D, int R>
+template <int DP, int R>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int row, int head) {
 #pragma unroll
-  for (int b = 0; b < Cols<D>::NB; ++b)
+  for (int b = 0; b < Cols<DP>::NB; ++b)
     tma_load(dst + b * R * ROW, map, bar, b * 64, row, head);
 }
 
 // the same from a 4-D map: rows row .. row + R - 1 of head `head` of
 // batch `batch`; the shared tile is laid out as tma_tile's
-template <int D, int R>
+template <int DP, int R>
 __device__ __forceinline__ void tma_tile4(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int head, int row,
                                           int batch) {
 #pragma unroll
-  for (int b = 0; b < Cols<D>::NB; ++b)
+  for (int b = 0; b < Cols<DP>::NB; ++b)
     tma_load4(dst + b * R * ROW, map, bar, b * 64, head, row, batch);
 }
 
@@ -292,22 +313,31 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// two f32 as one bf16x2 register, each rounded to nearest even (the lower
-// column in the low half, as wgmma's register fragments hold them)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The A fragments of a product over the N columns of a 64 x N f32
-// accumulator: k16 step kk takes accumulator registers 8kk .. 8kk + 7.
-template <int N>
+// accumulator, rounded to T: k16 step kk takes accumulator registers
+// 8kk .. 8kk + 7.
+template <typename T, int N>
 __device__ __forceinline__ void to_a(const float* acc, uint32_t (*a)[4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+      a[kk][r] = Elt<T>::pack(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+}
+
+// acc (64 x N) += A (64 x 16, registers) * B, B rows 16kk .. 16kk + 15
+// of the R-row tile at `tile` over its first N columns, MN-major: one
+// m64n128k16 for each 128 columns, one m64n64k16 for 64 left over
+template <typename T, int N, int R>
+__device__ __forceinline__ void rs_cols(float* acc, const uint32_t* a,
+                                        uint32_t tile, int kk) {
+#pragma unroll
+  for (int c = 0; c + 128 <= N; c += 128)
+    Wgmma<128>::rs<T>(acc + c / 2, a,
+                      desc_mn<R>(tile + c / 64 * R * ROW, kk));
+  if constexpr (N % 128 != 0)
+    Wgmma<64>::rs<T, 1>(acc + (N - 64) / 2, a,
+                        desc_mn<R>(tile + (N - 64) / 64 * R * ROW, kk), 1);
 }
 
 // Accumulator register i of a 64 x N wgmma result sits at row
@@ -341,16 +371,18 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a bf16 map of `rank` dims (innermost first; strides in bytes of dims 1..)
-// with boxes of 64 columns, 128-byte swizzle, zeros past every extent
-cudaError_t encode_bf16(CUtensorMap* map, const void* ptr, int rank,
-                        const cuuint64_t* dims, const cuuint64_t* strides,
-                        const cuuint32_t* box) {
+// a map of 16-bit elements T of `rank` dims (innermost first; strides in
+// bytes of dims 1..) with boxes of 64 columns, 128-byte swizzle, zeros
+// past every extent
+template <typename T>
+cudaError_t encode16(CUtensorMap* map, const void* ptr, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
   EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                         const_cast<void*>(ptr), dims, strides, box, step,
+  const CUresult r = enc(map, Elt<T>::MAP, rank, const_cast<void*>(ptr),
+                         dims, strides, box, step,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -358,8 +390,10 @@ cudaError_t encode_bf16(CUtensorMap* map, const void* ptr, int rank,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// a contiguous bf16 (heads, S, D) tensor as the 3-D map {D, S, heads}:
+// a contiguous 16-bit (heads, S, D) tensor as the 3-D map {D, S, heads}:
 // boxes of 64 columns x `rows` rows of one head, zeros past D and past S
+// (D a multiple of 8: TMA takes row strides of a multiple of 16 bytes)
+template <typename T>
 cudaError_t tile_map(CUtensorMap* map, const void* ptr, int heads, int S,
                      int D, int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
@@ -368,7 +402,7 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, int heads, int S,
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(S) * D * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  return encode_bf16(map, ptr, 3, dims, strides, box);
+  return encode16<T>(map, ptr, 3, dims, strides, box);
 }
 
 template <typename K>
@@ -378,3 +412,17 @@ cudaError_t set_smem(K kernel, int bytes) {
 }
 
 }  // namespace
+
+// dtype code (1 bf16, 2 f16) x the head dim's column tier -> FN<T, DP>
+#define SM90_DISPATCH(FN, ...)                                   \
+  switch (dtype * 1000 + col_tier(head_dim)) {                   \
+    case 1064: return FN<__nv_bfloat16, 64>(__VA_ARGS__);        \
+    case 1128: return FN<__nv_bfloat16, 128>(__VA_ARGS__);       \
+    case 1192: return FN<__nv_bfloat16, 192>(__VA_ARGS__);       \
+    case 1256: return FN<__nv_bfloat16, 256>(__VA_ARGS__);       \
+    case 2064: return FN<__half, 64>(__VA_ARGS__);               \
+    case 2128: return FN<__half, 128>(__VA_ARGS__);              \
+    case 2192: return FN<__half, 192>(__VA_ARGS__);              \
+    case 2256: return FN<__half, 256>(__VA_ARGS__);              \
+    default: return cudaErrorInvalidValue;                       \
+  }

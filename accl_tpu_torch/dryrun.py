@@ -87,8 +87,7 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
       5. ep: an MoE layer over n_ranks expert ranks against the dense
          layer at a capacity that drops nothing (rtol 1e-4, atol 1e-5).
       6. sp ring: causal ring attention against dense attention over the
-         whole sequence (rtol = atol = 2e-4); head dim 8, zero-padded to
-         the kernels' 16.
+         whole sequence (rtol = atol = 2e-4) at head dim 8.
       7. ddp: bucketed ring all-reduce of per-rank gradients r, averaged
          to the exact mean (rtol 1e-6).
 
@@ -188,12 +187,9 @@ def dryrun_multichip(n_ranks: int, device="cuda") -> dict:
     S, D = 8 * n, 8
     q, k, v = (t(rng.standard_normal((1, 2, S, D))) for _ in range(3))
     with torch.no_grad():
-        # the attention kernels take head dims of 16 and up: zero columns
-        # pad D = 8 to 16, which leaves every score and output unchanged
-        pad = [torch.nn.functional.pad(x, (0, 16 - D)) for x in (q, k, v)]
-        o = ring_attention_sharded(*pad, make_mesh((n,), ("sp",), dev),
+        o = ring_attention_sharded(q, k, v, make_mesh((n,), ("sp",), dev),
                                    axis_name="sp", causal=True,
-                                   sm_scale=D ** -0.5)[..., :D]
+                                   sm_scale=D ** -0.5)
         sf = torch.einsum("bhqd,bhkd->bhqk", q, k) * (D ** -0.5)
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=dev))
         sf = torch.where(mask, sf, torch.finfo(torch.float32).min)

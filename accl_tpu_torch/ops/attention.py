@@ -15,53 +15,64 @@ PyTorch versions (``*_ref``).
   is one block of the reference's block size (its ``nk == 1`` test, with
   ``_auto_block`` and its clamp), B8 otherwise. The kernels' own tiles
   are not the reference's 512-wide blocks: only this dispatch follows
-  them. B8 and B9 each have two routes: bf16 operands run on the tensor
-  cores (``attn_fwd_wgmma_kernel`` and ``attn_fwd_single_wgmma_kernel``
-  of ``csrc/attention_sm90.cu``: wgmma and TMA; P rounded to bf16 before
-  P V, see ``fwd_rounding_magnitudes``), f32 operands on the TF32 tensor
+  them. B8 and B9 each have two routes: bf16 and f16 operands run on the
+  tensor cores (``attn_fwd_wgmma_kernel`` and
+  ``attn_fwd_single_wgmma_kernel`` of ``csrc/attention_sm90.cu``: wgmma
+  and TMA; P rounded to the operands' type before P V, see
+  ``fwd_rounding_magnitudes``), f32 operands on the TF32 tensor
   cores with 3xTF32 products (``attn_fwd_kernel`` and
   ``attn_fwd_single_kernel`` of ``csrc/attention.cu``: mma.sync, Q, K, V
   and P each split into two TF32 parts, so the products keep about f32
   accuracy).
 - ``flash_attention_bwd_dkv``: B10, per-q-head f32 partials of dK and
   dV; ``flash_attention_bwd_dq``: B11, dQ in q's dtype. Two routes, one
-  kernel each: bf16 operands run on the tensor cores
+  kernel each: bf16 and f16 operands run on the tensor cores
   (``attn_bwd_{dkv,dq}_wgmma_kernel`` of ``csrc/attention_bwd_sm90.cu``:
-  wgmma and TMA; P and dS rounded to bf16 before the second products,
-  see ``bwd_rounding_magnitudes``), f32 operands on the TF32 tensor
+  wgmma and TMA; P and dS rounded to the operands' type before the
+  second products, see ``bwd_rounding_magnitudes``), f32 operands on the
+  TF32 tensor
   cores with 3xTF32 products (``attn_bwd_{dkv,dq}_kernel`` of
   ``csrc/attention_bwd.cu``: mma.sync, each f32 operand split into two
   TF32 parts, so the products keep about f32 accuracy).
   ``flash_attention`` is differentiable through ``_FlashAttention`` (the
   counterpart of the reference's ``custom_vjp``), whose backward runs
   them.
-- ``flash_decode``: B12. Single-token decode (S_new == 1), f32 or bf16,
+- ``flash_decode``: B12. Single-token decode (S_new == 1), any dtype,
   runs the split-KV kernel of ``csrc/attention_decode.cu``
   (``attn_decode_split_kernel``: ``decode_splits`` slices of the filled
   prefix, merged by the last slice to finish; f32 arithmetic). A
-  bf16 chunk of S_new > 1 new tokens (prefill) runs B8's tensor-core
+  16-bit chunk of S_new > 1 new tokens (prefill) runs B8's tensor-core
   kernel over the cache in its own layout (``attn_fwd_wgmma_kernel`` with
   a 4-D tensor map, bottom-right causal); an f32 chunk runs
   ``attn_decode_kernel`` of ``csrc/attention.cu``, B8's 3xTF32 tile over
   the cache in its own layout.
 
-The kernels take f32 or bf16 operands with head dim 16, 32, 64 or 128
-(``KERNEL_HEAD_DIMS``); a CUDA call outside that raises TypeError (the
-dtype) or ValueError (the head dim). The reference's wrappers check
+The kernels take f32, bf16 or f16 operands with any head dim D up to
+``MAX_HEAD_DIM`` (256): each kernel is built on a few column tiers and
+takes D at run time, a multiple of 8 (the tensor maps' 16-byte rows);
+for another D the wrapper zero-pads q, k and v (and dO) to the next
+multiple of 8, keeps the scale at the true D's, and slices the outputs:
+zero columns change no score and give zero output columns, and the same
+kernel runs. A CUDA call with another dtype raises TypeError, one with D
+past 256 ValueError: a 64 x D f32 accumulator no longer fits a
+warpgroup's registers (ROADMAP §C). The reference's wrappers check
 neither.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
 ``decode_launches`` (one new token, S_new == 1) and ``prefill_launches``
-(a chunk, S_new > 1); beside them the routes' own,
-``fwd_wgmma_launches`` (the B8 launches on the tensor cores),
-``fwd_single_wgmma_launches`` (the B9 launches on the tensor cores),
-``prefill_wgmma_launches`` (the B12 prefill launches on the tensor
-cores) and ``decode_split_launches`` (the B12 decode launches on the
-split-KV kernel; ``last_decode_splits`` holds the last one's
-``n_split``). ``plain_runs`` counts the plain versions' runs on the CPU
-under the branch the dispatch chose ("fwd", "fwd_single", "bwd_dkv",
-"bwd_dq", "decode").
+(a chunk, S_new > 1). The C entry points report the route each launch
+took (``accl_attn_last_route``: the kernel, the dtype and the column
+tier), and the wrapper counts it after the launch in ``route_launches``
+((route, dtype name, tier) -> launches; routes in ``ROUTES``) and in
+the routes' own counters, ``fwd_wgmma_launches``,
+``fwd_single_wgmma_launches``, ``prefill_wgmma_launches`` (the B8, B9
+and B12 prefill launches on the tensor cores) and
+``decode_split_launches`` (the B12 decode launches on the split-KV
+kernel; ``last_decode_splits`` holds the last one's ``n_split``).
+``plain_runs`` counts the plain versions' runs on the CPU under the
+branch the dispatch chose ("fwd", "fwd_single", "bwd_dkv", "bwd_dq",
+"decode").
 """
 
 from __future__ import annotations
@@ -71,8 +82,16 @@ import torch
 from .. import _build
 
 _NEG_INF = torch.finfo(torch.float32).min
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/attention.cu
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# csrc/attention.cu's dtype codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_HEAD_DIM = 256       # a 64 x D f32 accumulator per warpgroup
+KERNEL_D_STEP = 8        # the kernels' head dims: multiples of 8
+# the route codes of csrc/attention_tile.cuh (ROUTE_*)
+ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
+          4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
+          7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
+          10: "bwd_dkv_tf32", 11: "bwd_dq_tf32"}
+_DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 
@@ -87,6 +106,7 @@ fwd_single_wgmma_launches = 0
 prefill_wgmma_launches = 0
 decode_split_launches = 0
 last_decode_splits = None
+route_launches: dict = {}
 plain_runs = {"fwd": 0, "fwd_single": 0, "bwd_dkv": 0, "bwd_dq": 0,
               "decode": 0}
 
@@ -133,10 +153,48 @@ def _kernel_ready(what: str, *ts):
                              f"boundary (the kernels load 16-byte vectors)")
     if t0.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} kernel: unsupported dtype {t0.dtype} "
-                        f"(float32 or bfloat16)")
-    if t0.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what} kernel: head dim {t0.shape[-1]} not in "
-                         f"{KERNEL_HEAD_DIMS}")
+                        f"(float32, bfloat16 or float16)")
+    if t0.shape[-1] % KERNEL_D_STEP or t0.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{what} kernel: head dim {t0.shape[-1]} not a "
+                         f"multiple of {KERNEL_D_STEP} up to {MAX_HEAD_DIM}")
+
+
+def _check_head_dim(D: int, what: str):
+    """A CUDA call's head dim: at most MAX_HEAD_DIM (the wrapper pads any
+    smaller one to a multiple of KERNEL_D_STEP)."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {D} past the kernels' bound "
+                         f"{MAX_HEAD_DIM} (a 64 x D f32 accumulator per "
+                         f"warpgroup)")
+
+
+def _pad_d(*ts):
+    """``ts`` zero-padded in their last dim to the next multiple of
+    KERNEL_D_STEP (as they are when already a multiple)."""
+    pad = -ts[0].shape[-1] % KERNEL_D_STEP
+    if not pad:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+
+
+def _took_route():
+    """Count the route the last launch took, as the C entry point reported
+    it."""
+    global fwd_wgmma_launches, fwd_single_wgmma_launches
+    global prefill_wgmma_launches, decode_split_launches
+    code = _build.library().accl_attn_last_route()
+    route = ROUTES.get(code >> 16, f"unknown {code >> 16}")
+    key = (route, _DTYPE_NAMES.get((code >> 12) & 15, "unknown"),
+           code & 0xFFF)
+    route_launches[key] = route_launches.get(key, 0) + 1
+    if route == "fwd_wgmma":
+        fwd_wgmma_launches += 1
+    elif route == "fwd_single_wgmma":
+        fwd_single_wgmma_launches += 1
+    elif route == "prefill_wgmma":
+        prefill_wgmma_launches += 1
+    elif route == "decode_split":
+        decode_split_launches += 1
 
 
 def _softmax_parts(s, mask):
@@ -196,6 +254,19 @@ def fwd_rounding_magnitudes(q, k, v, causal: bool = True,
     return (torch.matmul(p, vf.abs()) / l).reshape(q.shape)
 
 
+def fwd_subnormal_magnitudes(q, k, v, causal: bool = True,
+                             scale: float | None = None, off: int = 0):
+    """Plain helper for the limit of the forward's f16 route, where a P
+    below 2^-14 rounds in f16's subnormal range with an absolute step of
+    2^-24 (any device; the main path never calls it): s_i = sum over the
+    visible keys j of |v_j| / l_i, shaped like O, f32, so that 2^-25 * s
+    bounds what those roundings move an output by. Arguments as
+    :func:`fwd_rounding_magnitudes`."""
+    scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
+    _m, p, l, vf = _fwd_parts(q, k, v, causal, scale, off)
+    return (torch.matmul((p > 0).float(), vf.abs()) / l).reshape(q.shape)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         sm_scale: float | None = None,
                         block_q: int | None = None,
@@ -206,8 +277,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     reference's: with its clamp it selects B9 (one KV block) or B8, and
     nothing else; ``block_q`` is accepted for the reference's signature
     (the kernels' tiles are their own)."""
-    global fwd_launches, fwd_single_launches, fwd_wgmma_launches
-    global fwd_single_wgmma_launches
+    global fwd_launches, fwd_single_launches
     _check_fwd(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -218,24 +288,24 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         return flash_attention_ref(q, k, v, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _check_head_dim(D, "flash_attention")
+    q, k, v = _pad_d(q, k, v)
     _kernel_ready("flash_attention", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
     fn = (_build.library().accl_attn_fwd_single if single
           else _build.library().accl_attn_fwd)
-    _build.check(fn(_DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Hkv,
-                    Sq, Skv, int(causal), scale, _build.stream_of(q)),
+    _build.check(fn(_DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                    B, H, Hkv, Sq, Skv, int(causal), scale,
+                    _build.stream_of(q)),
                  "flash_attention")
+    _took_route()
     if single:
         fwd_single_launches += 1
-        if q.dtype == torch.bfloat16:
-            fwd_single_wgmma_launches += 1
     else:
         fwd_launches += 1
-        if q.dtype == torch.bfloat16:
-            fwd_wgmma_launches += 1
-    return o, lse
+    return (o if o.shape[-1] == D else o[..., :D].contiguous()), lse
 
 
 def _check_bwd(q, do, k, v, lse, delta):
@@ -316,20 +386,50 @@ def bwd_rounding_magnitudes(q, do, k, v, lse, delta, causal: bool,
             dq.reshape(B, H, Sq, D))
 
 
-def _bwd_launch(name, what, q, do, k, v, lse, delta, outs, causal, scale):
+def bwd_subnormal_magnitudes(q, do, k, v, lse, delta, causal: bool,
+                             scale: float):
+    """Plain helper for the limits of B10/B11's f16 route (any device;
+    the main path never calls it): a P or dS below 2^-14 rounds in f16's
+    subnormal range with an absolute step of 2^-24. The sums of the
+    other operand's magnitudes over each output's visible pairs, shaped
+    like (dk_part, dv_part, dq), f32: scale sum_i |q_i|, sum_i |do_i|
+    (over the queries that see key j) and scale sum_j |k_j| (over the
+    keys query i sees), so that 2^-25 times each bounds what those
+    roundings move an output by."""
+    qf, dof, kf, p, _ds = _bwd_parts(q, do, k, v, lse, delta, causal, scale)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    vis = (p > 0).float()
+    dk = torch.matmul(vis.transpose(-1, -2), qf.abs()) * scale
+    dv = torch.matmul(vis.transpose(-1, -2), dof.abs())
+    dq = torch.matmul(vis, kf.abs()) * scale
+    return (dk.reshape(B * H, Skv, D), dv.reshape(B * H, Skv, D),
+            dq.reshape(B, H, Sq, D))
+
+
+def _bwd_launch(name, what, q, do, k, v, lse, delta, make_outs, causal,
+                scale):
+    """Launch B10 or B11 with outputs ``make_outs(q_padded)`` (a tuple);
+    returns them sliced back to the true head dim."""
+    D = q.shape[-1]
+    _check_head_dim(D, what)
+    q, do, k, v = _pad_d(q, do, k, v)
     _kernel_ready(what, q, do, k, v)
     for t in (lse, delta):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{what}: lse and delta must be contiguous on "
                              f"q's device")
-    B, H, Sq, D = q.shape
+    B, H, Sq, DK = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    outs = make_outs(q)
     fn = getattr(_build.library(), name)
-    _build.check(fn(_DTYPE_CODES[q.dtype], D, q.data_ptr(), do.data_ptr(),
+    _build.check(fn(_DTYPE_CODES[q.dtype], DK, q.data_ptr(), do.data_ptr(),
                     k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                     delta.data_ptr(), *(t.data_ptr() for t in outs), B, H,
                     Hkv, Sq, Skv, int(causal), scale, _build.stream_of(q)),
                  what)
+    _took_route()
+    return tuple(t if DK == D else t[..., :D].contiguous() for t in outs)
 
 
 def flash_attention_bwd_dkv(q, do, k, v, lse, delta, causal: bool,
@@ -346,12 +446,15 @@ def flash_attention_bwd_dkv(q, do, k, v, lse, delta, causal: bool,
                                            scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    B, H, _, D = q.shape
+    B, H = q.shape[:2]
     Skv = k.shape[2]
-    dk = torch.empty(B * H, Skv, D, dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
-    _bwd_launch("accl_attn_bwd_dkv", "flash_attention_bwd_dkv", q, do, k, v,
-                lse, delta, (dk, dv), causal, scale)
+
+    def outs(qp):
+        dk = torch.empty(B * H, Skv, qp.shape[-1], dtype=torch.float32,
+                         device=q.device)
+        return dk, torch.empty_like(dk)
+    dk, dv = _bwd_launch("accl_attn_bwd_dkv", "flash_attention_bwd_dkv", q,
+                         do, k, v, lse, delta, outs, causal, scale)
     bwd_dkv_launches += 1
     return dk, dv
 
@@ -368,9 +471,9 @@ def flash_attention_bwd_dq(q, do, k, v, lse, delta, causal: bool,
                                           scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    dq = torch.empty_like(q)
-    _bwd_launch("accl_attn_bwd_dq", "flash_attention_bwd_dq", q, do, k, v,
-                lse, delta, (dq,), causal, scale)
+    dq, = _bwd_launch("accl_attn_bwd_dq", "flash_attention_bwd_dq", q, do,
+                      k, v, lse, delta, lambda qp: (torch.empty_like(qp),),
+                      causal, scale)
     bwd_dq_launches += 1
     return dq
 
@@ -532,8 +635,7 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     ``kv_len`` (a host int: no device sync). Causal within the new
     tokens. Returns (B, H, S_new, D). ``block_k`` is the reference's
     argument; the kernel's key tile is its own."""
-    global decode_launches, prefill_launches, prefill_wgmma_launches
-    global decode_split_launches, last_decode_splits
+    global decode_launches, prefill_launches, last_decode_splits
     kv_len = int(kv_len)
     _check_decode(q, k_cache, v_cache, kv_len)
     B, H, S_new, D = q.shape
@@ -544,25 +646,26 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
         return flash_decode_ref(q, k_cache, v_cache, kv_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
+    _check_head_dim(D, "flash_decode")
+    q, k_cache, v_cache = _pad_d(q, k_cache, v_cache)
     _kernel_ready("flash_decode", q, k_cache, v_cache)
+    DK = q.shape[-1]
     o = torch.empty_like(q)
     n_split, ws, counters = 0, None, None
     if S_new == 1:    # the split route's counters and partials (acc, m, l)
         n_split = decode_splits(B, Hkv, T, _sm_count(q.device))
         counters = _split_counters(q.device, B * H)
-        ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+        ws = torch.empty(B * H * n_split * (DK + 2), dtype=torch.float32,
                          device=q.device)
     _build.check(_build.library().accl_attn_decode(
-        _DTYPE_CODES[q.dtype], D, q.data_ptr(), k_cache.data_ptr(),
+        _DTYPE_CODES[q.dtype], DK, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), o.data_ptr(), _ptr(ws), _ptr(counters), B, H,
         Hkv, T, S_new, kv_len, n_split, scale, _build.stream_of(q)),
         "flash_decode")
+    _took_route()
     if S_new == 1:
         decode_launches += 1
-        decode_split_launches += 1
         last_decode_splits = n_split
     else:
         prefill_launches += 1
-        if q.dtype == torch.bfloat16:
-            prefill_wgmma_launches += 1
-    return o
+    return o if DK == D else o[..., :D].contiguous()

@@ -88,14 +88,36 @@ _PSUM_LIKE = (ReduceFunc.SUM, ReduceFunc.MAX, ReduceFunc.MIN)
 WIRE_LANE_NAMES = ("float16", "bfloat16") + FP8_DTYPE_NAMES
 
 
-class Wire:
-    """The per-tensor wire of one collective: payload rows of ``n`` f32
-    elements go down to the wire dtype (B2 cast, or B3 with one fp8 scale
-    per row) into the slots of a wire buffer, and land back in f32 (B2,
-    or B4 with the slot's scale)."""
+def recast(k: Kernels, rows, dtype, out_rows=None) -> list:
+    """``rows`` converted to ``dtype`` by B2, which has f32 on one side:
+    one cast when either dtype is f32, else two, up to f32 (exact for
+    every wire and payload dtype) and down, so the result is rounded once,
+    as the reference's ``astype`` rounds it. Into ``out_rows`` when
+    given."""
+    dtype = to_torch_dtype(dtype)
+    src = rows[0].dtype
+    if src == dtype:
+        if out_rows is None:
+            return list(rows)
+        for o, r in zip(out_rows, rows):
+            o.copy_(r)
+        return list(out_rows)
+    if torch.float32 in (src, dtype):
+        return k.cast(rows, dtype, out_rows)
+    return k.cast(k.cast(rows, torch.float32), dtype, out_rows)
 
-    def __init__(self, wire: str, k: Kernels, n: int, slots: int, dev):
-        self.name, self.k = wire, k
+
+class Wire:
+    """The per-tensor wire of one collective: payload rows of ``n``
+    elements (f32, f16 or bf16: ``payload``) go down to the wire dtype
+    (B2 cast, or B3 with one fp8 scale per row, from the rows widened to
+    f32 by B2 as the reference's codec widens them) into the slots of a
+    wire buffer, and land back in the payload dtype (B2, or B4 with the
+    slot's scale to f32 and B2 down to the payload)."""
+
+    def __init__(self, wire: str, k: Kernels, n: int, slots: int, dev,
+                 payload=torch.float32):
+        self.name, self.k, self.payload = wire, k, payload
         self.dtype = to_torch_dtype(wire)
         self.fp8 = wire in FP8_DTYPE_NAMES
         self.q = list(torch.empty((slots, n), dtype=self.dtype, device=dev))
@@ -108,19 +130,25 @@ class Wire:
         """Encode ``rows[i]`` into slot i."""
         m = len(rows)
         if self.fp8:
+            rows = recast(self.k, rows, torch.float32)
             self.k.fp8_scale(rows, self.name, self.s[:m], self.inv[:m])
             self.k.fp8_quant(rows, self.inv[:m], self.name, self.q[:m])
         else:
-            self.k.cast(rows, self.dtype, self.q[:m])
+            recast(self.k, rows, self.dtype, self.q[:m])
 
     def land(self, slots, out_rows):
-        """Decode slot ``slots[i]`` into ``out_rows[i]`` (f32)."""
+        """Decode slot ``slots[i]`` into ``out_rows[i]`` (the payload
+        dtype)."""
         q = [self.q[i] for i in slots]
-        if self.fp8:
+        if not self.fp8:
+            recast(self.k, q, self.payload, out_rows)
+        elif self.payload == torch.float32:
             self.k.fp8_dequant(q, [self.s[i] for i in slots], self.name,
                                out_rows)
         else:
-            self.k.cast(q, torch.float32, out_rows)
+            wide = self.k.fp8_dequant(q, [self.s[i] for i in slots],
+                                      self.name)
+            self.k.cast(wide, self.payload, out_rows)
 
 
 def _axis_reduce(x: torch.Tensor, func: ReduceFunc) -> torch.Tensor:
@@ -153,8 +181,8 @@ def ring_reduce_scatter(rows, func: ReduceFunc, out_rows,
     Round i: rank r combines the partial received from rank r+1 with its
     chunk r+1+i (received partial first, as the reference). ``wire``: a
     per-tensor wire dtype; each hop's partial crosses it (down, then
-    back to f32) before the combine. ``hops``, a list, receives the
-    (source, destination) pair of every row a hop moved."""
+    back to the payload dtype) before the combine. ``hops``, a list,
+    receives the (source, destination) pair of every row a hop moved."""
     W = len(rows)
     c = rows[0].numel() // W
 
@@ -168,8 +196,8 @@ def ring_reduce_scatter(rows, func: ReduceFunc, out_rows,
     bufs = (torch.empty((2, W, c), dtype=rows[0].dtype, device=dev)
             if W > 2 else None)
     if wire is not None:
-        lane = Wire(wire, k, c, W, dev)
-        landed = list(torch.empty((W, c), dtype=torch.float32, device=dev))
+        lane = Wire(wire, k, c, W, dev, rows[0].dtype)
+        landed = list(torch.empty((W, c), dtype=rows[0].dtype, device=dev))
     acc = [chunk(r, (r + 1) % W) for r in range(W)]
     for i in range(1, W):
         dst = out_rows if i == W - 1 else list(bufs[i % 2])
@@ -206,7 +234,8 @@ def ring_allgather(rows, out_rows, k: Kernels = KERNELS,
 
     for r in range(W):
         slot(r, r).copy_(rows[r])
-    lane = None if wire is None else Wire(wire, k, c, W, rows[0].device)
+    lane = (None if wire is None
+            else Wire(wire, k, c, W, rows[0].device, rows[0].dtype))
     buf = list(rows)
     for i in range(1, W):
         src = _next(W)
@@ -354,18 +383,21 @@ def xla_allgather(rows, out_rows):
 
 def xla_compressed_reduce_scatter(rows, func: ReduceFunc, wire: str,
                                   out_rows, k: Kernels = KERNELS):
-    """Reduce-scatter with a compressed wire and f32 accumulation (the
-    reference's fused path): every (rank, chunk) payload crosses the wire
-    (fp8: one scale per (rank, chunk)), then rank r reduces the W chunks
-    r it received, its own included, over the rank axis."""
+    """Reduce-scatter with a compressed wire and uncompressed
+    accumulation (the reference's fused path): every (rank, chunk) payload
+    crosses the wire (fp8: one scale per (rank, chunk)) and lands in f32
+    (fp8) or back in the payload dtype (f16, bf16 wires), as the
+    reference's chunks land; then rank r reduces the W chunks r it
+    received, its own included, over the rank axis in that dtype."""
     W = len(rows)
     c = rows[0].numel() // W
-    lane = Wire(wire, k, c, W * W, rows[0].device)
+    land_dtype = (torch.float32 if wire in FP8_DTYPE_NAMES
+                  else rows[0].dtype)
+    lane = Wire(wire, k, c, W * W, rows[0].device, land_dtype)
     # slot j*W + r: chunk r of rank j
     lane.send([rows[j][r * c:(r + 1) * c] for j in range(W)
                for r in range(W)])
-    landed = torch.empty((W, W, c), dtype=torch.float32,
-                         device=rows[0].device)
+    landed = torch.empty((W, W, c), dtype=land_dtype, device=rows[0].device)
     lane.land([j * W + r for r in range(W) for j in range(W)],
               list(landed.view(W * W, c)))
     red = _axis_reduce(landed.transpose(0, 1), func)
@@ -381,7 +413,7 @@ def xla_compressed_allgather(rows, wire: str, out_rows,
     included."""
     W = len(rows)
     c = rows[0].numel()
-    lane = Wire(wire, k, c, W, rows[0].device)
+    lane = Wire(wire, k, c, W, rows[0].device, rows[0].dtype)
     lane.send(rows)
     lane.land([j for _ in range(W) for j in range(W)],
               [o[j * c:(j + 1) * c] for o in out_rows for j in range(W)])
@@ -395,12 +427,12 @@ def xla_compressed_allreduce(rows, func: ReduceFunc, wire: str, out_rows,
     W = len(rows)
     rows, n, pad = _pad_rows(rows, W)
     c = rows[0].numel() // W
-    dev = rows[0].device
-    mine = list(torch.empty((W, c), dtype=torch.float32, device=dev))
+    dev, dt = rows[0].device, rows[0].dtype
+    mine = list(torch.empty((W, c), dtype=dt, device=dev))
     xla_compressed_reduce_scatter(rows, func, wire, mine, k)
     if not pad:
         return xla_compressed_allgather(mine, wire, out_rows, k)
-    full = list(torch.empty((W, W * c), dtype=torch.float32, device=dev))
+    full = list(torch.empty((W, W * c), dtype=dt, device=dev))
     return _finish_padded(xla_compressed_allgather(mine, wire, full, k),
                           out_rows, n)
 
@@ -416,9 +448,9 @@ def alltoall(rows, out_rows, k: Kernels = KERNELS, wire: str | None = None):
         return t[j * c:(j + 1) * c]
 
     if wire is not None:
-        q = k.cast(rows, wire)
+        q = recast(k, rows, wire)
         pairs = [(r, j) for r in range(W) for j in range(W) if j != r]
-        k.cast([chunk(q[j], r) for r, j in pairs], torch.float32,
+        recast(k, [chunk(q[j], r) for r, j in pairs], rows[0].dtype,
                [chunk(out_rows[r], j) for r, j in pairs])
     for r in range(W):
         for j in range(W) if wire is None else (r,):
@@ -483,8 +515,8 @@ def alltoallv(rows, out_rows, send_counts, recv_counts,
             k.bs_dequant(q, s, wire, qblock, outs)
             nbytes += len(pairs) * packed_nbytes(n, qblock)
         else:
-            q = k.cast(xs, wire)
-            k.cast(q, torch.float32, outs)
+            q = recast(k, xs, wire)
+            recast(k, q, xs[0].dtype, outs)
             nbytes += len(pairs) * n * q[0].element_size()
     return nbytes
 
@@ -563,8 +595,9 @@ class RankCollectives:
 
     @staticmethod
     def _lane_wire(wire, dtype) -> str | None:
-        """The per-tensor wire a payload of ``dtype`` takes: None when
-        there is none or it is the payload's own dtype."""
+        """The per-tensor wire a payload of ``dtype`` (f32, f16 or bf16)
+        takes: None when there is none or it is the payload's own
+        dtype."""
         if wire is None:
             return None
         wire = dtype_name(wire)
@@ -574,9 +607,6 @@ class RankCollectives:
             raise NotImplementedError(
                 f"a {wire} wire without qblock: the per-tensor lanes carry "
                 f"{', '.join(WIRE_LANE_NAMES)} (int8 is block-scaled only)")
-        if dtype != torch.float32:
-            raise TypeError(f"a {wire} wire carries float32 payloads, "
-                            f"not {dtype}")
         return wire
 
     def _rows(self, x, allow_none: bool = False) -> list:

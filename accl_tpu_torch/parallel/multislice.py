@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from ..arith import dtype_name, to_torch_dtype
 from ..constants import ReduceFunc
-from .collectives import KERNELS, Kernels, RankCollectives
+from .collectives import KERNELS, Kernels, RankCollectives, recast
 from .mesh import RankGroup, RankMesh, resolve_device
 
 __all__ = ["HybridMesh", "hybrid_mesh", "hierarchical_allreduce",
@@ -226,9 +226,6 @@ def hierarchical_allreduce(rows, mesh: HybridMesh, ici_axis: str = "ici",
         raise NotImplementedError(
             f"a {wire} dcn wire: the hop combines in "
             f"{', '.join(DCN_WIRES)} (B1's dtypes)")
-    if wire is not None and dt != torch.float32:
-        raise TypeError(f"a {wire} dcn wire carries float32 payloads, "
-                        f"not {dt}")
     # phase 1: ring reduce-scatter inside each ici group
     owned = torch.empty((R, c), dtype=dt, device=dev)
     ici = _local_groups(mesh, ici_axis)
@@ -239,9 +236,9 @@ def hierarchical_allreduce(rows, mesh: HybridMesh, ici_axis: str = "ici",
     # phase 2: the owned shards across the slices, in slice order
     k = kernels
     send = owned
-    if wire is not None:
+    if wire is not None:    # one rounding to the wire (by f32 from f16/bf16)
         send = torch.empty((R, c), dtype=to_torch_dtype(wire), device=dev)
-        k.cast(list(owned), send.dtype, list(send))
+        recast(k, list(owned), send.dtype, list(send))
     if mesh.local_slice is None:
         S = mesh.shape[dcn_axis]
         per = R // S                   # a slice's rows: row-major, dcn outer
@@ -251,7 +248,7 @@ def hierarchical_allreduce(rows, mesh: HybridMesh, ici_axis: str = "ici",
         shards = [list(t) for t in _exchange_slices(send)]
     reduced = _dcn_combine(shards, func, k)
     if wire is not None:
-        reduced = k.cast(reduced, dt)
+        reduced = recast(k, reduced, dt)
     # every slice's rank at the same ici position owns the same shard
     mine = [reduced[r % per] for r in range(R)]
     # phase 3: allgather inside each ici group

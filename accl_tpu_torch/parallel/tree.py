@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import ReduceFunc
-from .collectives import KERNELS, Kernels
+from .collectives import KERNELS, Kernels, recast
 
 
 def factor_2d(w: int) -> tuple[int, int]:
@@ -72,13 +72,14 @@ def scatter_rounds(W: int) -> list[tuple[int, int, list[int]]]:
 
 def transit(srcs, dsts, k: Kernels, wire) -> None:
     """One round's transfers: ``dsts[i]`` receives ``srcs[i]``, through
-    a pure cast to ``wire`` and back (two B2 launches) when one is
-    given, else as a copy."""
+    a pure cast to ``wire`` and back to the payload's dtype (two B2
+    launches, four for an f16 or bf16 payload, which goes by f32) when
+    one is given, else as a copy."""
     if wire is None:
         for s, d in zip(srcs, dsts):
             d.copy_(s)
         return
-    k.cast(k.cast(srcs, wire), torch.float32, dsts)
+    recast(k, recast(k, srcs, wire), dsts[0].dtype, dsts)
 
 
 def binomial_bcast(rows, root: int, out_rows, k: Kernels = KERNELS,

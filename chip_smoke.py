@@ -1290,6 +1290,30 @@ def main_path(recs):
         # -- correctness ----------------------------------------------------
         plain = RankCollectives(accls[0].device.ctx.group, kernels=PLAIN)
         plain_tree = Tree2DCollectives.fold(plain)
+        # a bf16 payload on an f16 wire (ROADMAP F2): the ring allreduce
+        # of the rows cast to bf16, through the kernels (B2 widens, B2
+        # down to f16 and back through f32, B1 in bf16) and through the
+        # plain versions, bitwise
+        kern = RankCollectives(accls[0].device.ctx.group)
+        xb = [x.to(torch.bfloat16) for x in xs]
+        cast0, comb0 = cnt["cast"].launches, cnt["combine"].launches
+        got = kern.allreduce(xb, algorithm="ring", wire_dtype="float16")
+        casts = cnt["cast"].launches - cast0
+        combines = cnt["combine"].launches - comb0
+        want = plain.allreduce(xb, algorithm="ring", wire_dtype="float16")
+        same, diff = same_bits(got, want)
+        exact = torch.stack(xb).float().sum(0)
+        print(f"allreduce of a bf16 payload on an f16 wire, {W} ranks x "
+              f"{N} elements: bitwise the plain versions' {same}; B2 "
+              f"launches {casts}, B1 {combines}; max |got - f32 sum| "
+              f"{float((got[0].float() - exact).abs().max()):.4g}")
+        need(same and got.dtype == torch.bfloat16,
+             "bf16 payload on an f16 wire: the kernels and the plain "
+             "versions differ")
+        need(casts > 0 and combines > 0, "bf16 payload on an f16 wire: "
+             "B1 or B2 not launched")
+        del kern, xb, got, want, exact
+        torch.cuda.empty_cache()
         out = lambda key: [bufs[r][key].tensor for r in range(W)]  # noqa
         x64 = torch.zeros(N, dtype=torch.float64, device="cuda")
         absum = torch.zeros(N, dtype=torch.float64, device="cuda")
@@ -2086,8 +2110,11 @@ ATTN_DECODE_SRC = "accl_tpu_torch/csrc/attention_decode.cu"  # S_new == 1
 # typical output for elements near zero; the LSE is f32 always
 F32_RTOL = F32_ATOL = 2e-5
 BF16_REL = 2.0 ** -7
+# f16 outputs the same rule at f16's unit: one f16 ulp (2^-10 relative)
+HALF_REL = 2.0 ** -10
 ATTN_TOL = ("f32 2e-5 + 2e-5*|plain|; bf16 2^-7*|plain| + "
-            "2^-7*median|plain|, per element")
+            "2^-7*median|plain|; f16 2^-10*|plain| + 2^-10*median|plain|; "
+            "per element")
 # the forward's bf16 tensor-core route (B8, B9, B12 with S_new > 1) rounds P
 # to bf16 (8 significant bits) as the first operand of P V, which moves
 # each term p*v by less than 2^-8 of its magnitude, so an output moves by
@@ -2095,9 +2122,20 @@ ATTN_TOL = ("f32 2e-5 + 2e-5*|plain|; bf16 2^-7*|plain| + "
 # (``fwd_rounding_magnitudes``), on top of the bf16 output limit; its
 # LSE keeps the f32 limit
 FWD_BF16_MARGIN = 2.0 ** -8
-FWD_TOL = ("bf16 tensor-core route 2^-8*m + 2^-7*|plain| + "
-           "2^-7*median|plain|, m the magnitude of the rounded sum P V; "
-           "LSE 2e-5 + 2e-5*|lse|; per element")
+# the f16 route rounds P to f16 (11 significant bits): 2^-11 * m; a P
+# below 2^-14 is subnormal in f16, rounded with an absolute step of
+# 2^-24, which moves an output by at most 2^-25 * s, s = sum over the
+# visible keys of |v_j| / l_i (``fwd_subnormal_magnitudes``)
+FWD_HALF_MARGIN = 2.0 ** -11
+SUBNORMAL_STEP = 2.0 ** -25
+FWD_TOL = ("tensor-core route: bf16 2^-8*m + 2^-7*|plain| + "
+           "2^-7*median|plain|, f16 2^-11*m + 2^-25*s + 2^-10*|plain| + "
+           "2^-10*median|plain|, m the magnitude of the rounded sum P V, s "
+           "the sum of the visible |v| / l; LSE 2e-5 + 2e-5*|lse|; per "
+           "element")
+# the output rule of a 16-bit dtype: (relative term, P's rounding unit)
+HALF_UNITS = {"torch.bfloat16": (BF16_REL, FWD_BF16_MARGIN),
+              "torch.float16": (HALF_REL, FWD_HALF_MARGIN)}
 KEY_TILE = 64               # the bf16 and split-KV kernels' key tile
 # the f32 forward's route (B8, B9, B12 chunks): csrc/attention.cu
 F32_ROUTE = "f32 route (TF32 tensor cores, 3xTF32)"
@@ -2157,10 +2195,12 @@ def zero_attention_counters():
 
 
 def need_routes(launches: dict, bf16: bool, what: str):
-    """Every B8, B9 and B12 prefill launch of a path took the bf16
-    tensor-core (wgmma) route when the path runs bf16, none when it runs
-    f32 (the 3xTF32 route); every single-token decode launch took the
-    split-KV kernel (both dtypes)."""
+    """Every B8, B9 and B12 prefill launch of a path took the 16-bit
+    tensor-core (wgmma) route when the path runs bf16 or f16, none when it
+    runs f32 (the 3xTF32 route); every single-token decode launch took
+    the split-KV kernel (every dtype). The route counts are the ones the
+    C entry points reported (``accl_attn_last_route``), so a dispatch
+    that sent a launch elsewhere fails here."""
     from accl_tpu_torch.ops import attention as A
     keys = ("attn_fwd", "attn_fwd_single", "attn_prefill")
     for key in keys:
@@ -2173,7 +2213,7 @@ def need_routes(launches: dict, bf16: bool, what: str):
          f"{launches['attn_decode']} decode launches on the split-KV route")
     print(f"{what} routes: " + ", ".join(
         f"{k} {launches[k + '_wgmma']} of {launches[k]}" for k in keys)
-        + f" launches on the bf16 tensor-core route ({ATTN_SM90_SRC}), the "
+        + f" launches on the 16-bit tensor-core route ({ATTN_SM90_SRC}), the "
         f"rest on the f32 3xTF32 route ({ATTN_SRC}); attn_decode "
         f"{launches['attn_decode_split']} of {launches['attn_decode']} on "
         f"the split-KV kernel ({ATTN_DECODE_SRC}"
@@ -2183,38 +2223,46 @@ def need_routes(launches: dict, bf16: bool, what: str):
 
 def attn_limit(plain, mag=None):
     """Per-element limit of |kernel - plain| (see ATTN_TOL); ``mag``, the
-    magnitude of the rounded P V, selects the bf16 tensor-core route's
-    (FWD_TOL)."""
-    import torch
+    rounding allowance of the P V product (``fwd_route_mag``), selects
+    the 16-bit tensor-core route's (FWD_TOL)."""
     p = plain.float().abs()
-    if plain.dtype == torch.bfloat16:
-        lim = BF16_REL * p + BF16_REL * float(p.median())
-        return lim if mag is None else lim + FWD_BF16_MARGIN * mag
+    if str(plain.dtype) in HALF_UNITS:
+        rel = HALF_UNITS[str(plain.dtype)][0]
+        lim = rel * p + rel * float(p.median())
+        return lim if mag is None else lim + mag
     return F32_ATOL + F32_RTOL * p
 
 
 def fwd_route_mag(kind: str, args, kwargs=None):
-    """For a bf16 call of B8, B9 or B12 with S_new > 1 (the tensor-core
-    route), the magnitudes its limit takes (``fwd_rounding_magnitudes``);
-    None for every other call. ``kind`` "fwd": args as
-    ``flash_attention_fwd``'s; "decode": as ``flash_decode``'s."""
-    import torch
+    """For a 16-bit call of B8, B9 or B12 with S_new > 1 (the tensor-core
+    route), the allowance its limit adds for P's rounding (FWD_TOL): u *
+    m, u P's unit (2^-8 bf16, 2^-11 f16), m ``fwd_rounding_magnitudes``,
+    and for f16 2^-25 * s (``fwd_subnormal_magnitudes``); None for every
+    other call. ``kind`` "fwd": args as ``flash_attention_fwd``'s;
+    "decode": as ``flash_decode``'s."""
     from accl_tpu_torch.ops import attention as A
     kwargs = kwargs or {}
     q = args[0]
-    if q.dtype != torch.bfloat16:
+    if str(q.dtype) not in HALF_UNITS:
         return None
     if kind == "fwd":
         k, v = args[1], args[2]
         causal = args[3] if len(args) > 3 else kwargs.get("causal", True)
         scale = args[4] if len(args) > 4 else kwargs.get("sm_scale")
-        return A.fwd_rounding_magnitudes(q, k, v, causal, scale)
-    kv_len = args[3] if len(args) > 3 else kwargs["kv_len"]
-    if q.shape[2] == 1:
-        return None                            # decode: split-KV, f32
-    k, v = A.cache_prefix(args[1], args[2], kv_len)
-    return A.fwd_rounding_magnitudes(q, k, v, True, kwargs.get("sm_scale"),
-                                     kv_len - q.shape[2])
+        off = 0
+    else:
+        kv_len = args[3] if len(args) > 3 else kwargs["kv_len"]
+        if q.shape[2] == 1:
+            return None                        # decode: split-KV, f32
+        k, v = A.cache_prefix(args[1], args[2], kv_len)
+        causal, scale = True, kwargs.get("sm_scale")
+        off = kv_len - q.shape[2]
+    unit = HALF_UNITS[str(q.dtype)][1]
+    mag = unit * A.fwd_rounding_magnitudes(q, k, v, causal, scale, off)
+    if unit == FWD_HALF_MARGIN:
+        mag += SUBNORMAL_STEP * A.fwd_subnormal_magnitudes(q, k, v, causal,
+                                                           scale, off)
+    return mag
 
 
 def hold_attn(got, plain, what: str, lse=None, plain_lse=None,
@@ -2260,10 +2308,9 @@ def attn_work(B, H, Hkv, Sq, Skv, D, esize, s_new=None):
 def attn_source(kind: str, dtype, s_new: int = 0) -> str:
     """The source of the kernel a call of ``kind`` ("fwd" for B8 and B9,
     "decode" for B12) runs in ``dtype`` with ``s_new`` new tokens."""
-    import torch
     if kind == "decode" and s_new == 1:
         return ATTN_DECODE_SRC
-    return ATTN_SM90_SRC if dtype == torch.bfloat16 else ATTN_SRC
+    return ATTN_SM90_SRC if str(dtype) in HALF_UNITS else ATTN_SRC
 
 
 def need_repeat(fn, outs, what: str):
@@ -3031,9 +3078,15 @@ SPLIT_KERNEL = "attn_decode_split_kernel"
 # element, floored at one ulp of the median, as the forward)
 BWD_REL = 2e-5
 BWD_BF16_MARGIN = 2.0 ** -8
+# f16 inputs: the same at f16's unit (2^-11 a term, dq's output 2^-10),
+# plus 2^-25 * s for a P or dS below 2^-14 (subnormal in f16, rounded with
+# an absolute step of 2^-24), s the sum of the other operand's magnitudes
+# over the output's visible pairs (``bwd_subnormal_magnitudes``)
+BWD_HALF_MARGIN = 2.0 ** -11
 BWD_TOL = ("f32 2e-5*|plain| + 2e-5*max|plain|; bf16 dk, dv 2^-8*m + "
            "2e-5*max|plain|, dq 2^-8*m + 2^-7*|plain| + 2^-7*median|plain|, "
-           "m the magnitude of the rounded sum; per element")
+           "m the magnitude of the rounded sum; f16 the same with 2^-11*m + "
+           "2^-25*s and dq's 2^-10; per element")
 # the Function's gradients (B8 + B10 + B11) against torch autograd through
 # dense attention, f32: two algorithms (a dense softmax backward against
 # the recomputation from the LSE with delta from O), each rounding at its
@@ -3054,21 +3107,21 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 2, 2048, 4
 TRAIN_MAX_PEAK = 75 * 2 ** 30
 
 
-def bwd_limit(plain, part: str, mag=None):
+def bwd_limit(plain, part: str, mag=None, rel: float = BF16_REL):
     """Per-element limit of a B10/B11 output ``part`` ("dk", "dv", "dq")
-    against its plain version (see BWD_TOL); ``mag``, the rounded sum's
-    magnitude, selects the bf16 route's rule."""
+    against its plain version (see BWD_TOL); ``mag``, the allowance for
+    the rounded sum (u * m, and for f16 2^-25 * s), selects the 16-bit
+    route's rule, ``rel`` dq's output unit (2^-7 bf16, 2^-10 f16)."""
     p = plain.float().abs()
     if mag is None:
         return BWD_REL * p + BWD_REL * float(p.max())
     if part == "dq":
-        return (BWD_BF16_MARGIN * mag + BF16_REL * p
-                + BF16_REL * float(p.median()))
-    return BWD_BF16_MARGIN * mag + BWD_REL * float(p.max())
+        return mag + rel * p + rel * float(p.median())
+    return mag + BWD_REL * float(p.max())
 
 
-def hold_bwd(got, plain, what: str, part: str,
-             mag=None) -> tuple[float, float]:
+def hold_bwd(got, plain, what: str, part: str, mag=None,
+             rel: float = BF16_REL) -> tuple[float, float]:
     """(max abs error, largest error/limit) of a B10/B11 output against
     its plain version under BWD_TOL; fails past the limit."""
     import torch
@@ -3077,7 +3130,7 @@ def hold_bwd(got, plain, what: str, part: str,
          f"{tuple(plain.shape)} {plain.dtype}")
     need(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     d = (got.float() - plain.float()).abs()
-    ratio = float((d / bwd_limit(plain, part, mag)).max())
+    ratio = float((d / bwd_limit(plain, part, mag, rel)).max())
     err = float(d.max())
     need(ratio <= 1.0, f"{what}: max abs err {err}, {ratio:.3g} times its "
          f"element's limit ({BWD_TOL})")
@@ -3089,18 +3142,34 @@ def hold_bwd_outputs(args, outs, what: str) -> tuple[float, float]:
     against the plain versions, under the rule of the inputs' dtype."""
     import torch
     from accl_tpu_torch.ops import attention as A
-    bf16 = args[0].dtype == torch.bfloat16
     if len(outs) == 2:
         plain, parts = A.flash_attention_bwd_dkv_ref(*args), ("dk", "dv")
     else:
         plain, parts = (A.flash_attention_bwd_dq_ref(*args),), ("dq",)
-    mags = dict(zip(("dk", "dv", "dq"), A.bwd_rounding_magnitudes(*args))) \
-        if bf16 else {}
+    mags, rel = bwd_route_mags(args)
     w = (0.0, 0.0)
     for got, want, part in zip(outs, plain, parts):
         w = max_pair(w, hold_bwd(got, want, f"{what} {part}", part,
-                                 mags.get(part)))
+                                 mags.get(part), rel))
     return w
+
+
+def bwd_route_mags(args) -> tuple[dict, float]:
+    """For 16-bit B10/B11 operands ``args``, the allowances of BWD_TOL by
+    part (u * m, and for f16 2^-25 * s) and dq's output unit; ({}, 0)
+    for f32."""
+    from accl_tpu_torch.ops import attention as A
+    if str(args[0].dtype) not in HALF_UNITS:
+        return {}, 0.0
+    f16 = str(args[0].dtype) == "torch.float16"
+    unit = BWD_HALF_MARGIN if f16 else BWD_BF16_MARGIN
+    mags = {p: unit * m for p, m in zip(("dk", "dv", "dq"),
+                                        A.bwd_rounding_magnitudes(*args))}
+    if f16:
+        for p, sub in zip(("dk", "dv", "dq"),
+                          A.bwd_subnormal_magnitudes(*args)):
+            mags[p] = mags[p] + SUBNORMAL_STEP * sub
+    return mags, HALF_UNITS[str(args[0].dtype)][0]
 
 
 @functools.lru_cache(maxsize=1)
@@ -3221,37 +3290,68 @@ def stream_kernels_checked():
           f"no spills")
 
 
+# the 16-bit element types of the tensor-core route as the mangled names
+# hold them, and the column tiers it is built on
+WGMMA_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+WGMMA_TIERS = (64, 128, 192, 256)
+
+
 def wgmma_kernels_checked():
-    """The bf16 route's kernels in the built library (B8, B9 and B12's
-    prefill route, B10, B11): their SASS holds HGMMA (Hopper's warpgroup
-    MMA: the tensor cores) and ptxas reports no spills. Prints both, and
-    each instantiation's registers by head dim; fails otherwise. Then the
-    split-KV decode kernels' registers and spill bytes (printed)."""
+    """The 16-bit route's kernels in the built library (B8, B9 and B12's
+    prefill route, B10, B11), one instantiation per element type (bf16,
+    f16) and column tier (64, 128, 192, 256): each one's SASS holds
+    HGMMA (Hopper's warpgroup MMA: the tensor cores) on operands of its
+    type (the f16 ones without the BF16 suffix, the bf16 ones with it)
+    and ptxas reports no spills. Prints the HGMMA forms, counts and
+    registers by type and tier; fails otherwise. Then the split-KV
+    decode kernels' registers and spill bytes (printed, failing on a
+    spill)."""
     import re
     from accl_tpu_torch import _build
     funcs, ptx = sass_and_ptxas()
     for kern in WGMMA_KERNELS:
-        bodies = [f for f in funcs if kern in f.split("\n", 1)[0]]
-        need(bodies, f"{kern}: not in the library's SASS")
-        counts = [f.count("HGMMA") for f in bodies]
-        need(min(counts) > 0, f"{kern}: an instantiation without HGMMA "
-             f"(counts {counts})")
-        info = [v for k, v in ptx.items() if kern in k]
-        need(info, f"{kern}: no ptxas report in the build log")
-        need(all(v[1] == 0 for v in info), f"{kern}: ptxas spills {info}")
-        # the mangled name holds the head dim: ...ILi128EE...
-        by_d = {int(m.group(1)): v[0] for k, v in ptx.items() if kern in k
-                for m in [re.search(r"ILi(\d+)E", k)] if m}
-        print(f"{kern}: {len(bodies)} instantiations (D 16/32/64/128), "
-              f"HGMMA instructions {counts}; ptxas registers "
-              f"{[v[0] for v in info]} (by head dim "
-              f"{dict(sorted(by_d.items()))}), spill bytes "
-              f"{[v[1] for v in info]}")
-    info = [v for k, v in ptx.items() if SPLIT_KERNEL in k]
+        bodies = {}
+        for f in funcs:
+            head = f.split("\n", 1)[0]
+            m = re.search(r"I(\w+?)Li(\d+)E", head)
+            if kern in head and m and m.group(1) in WGMMA_TYPES:
+                bodies[(WGMMA_TYPES[m.group(1)], int(m.group(2)))] = f
+        want = {(t, d) for t in WGMMA_TYPES.values() for d in WGMMA_TIERS}
+        need(set(bodies) == want, f"{kern}: instantiations "
+             f"{sorted(bodies)} in the SASS, want {sorted(want)}")
+        counts, forms = {}, {}
+        for (t, d), body in bodies.items():
+            ops = re.findall(r"HGMMA\.(\S+)", body)
+            counts[f"{t}/{d}"] = len(ops)
+            forms.setdefault(t, set()).update(
+                re.sub(r"^\d+x\d+x\d+\.", "", o) for o in ops)
+            need(ops, f"{kern} {t} tier {d}: no HGMMA in its SASS")
+            bf = [o for o in ops if "BF16" in o]
+            need(len(bf) == (len(ops) if t == "bf16" else 0),
+                 f"{kern} {t} tier {d}: HGMMA forms {sorted(set(ops))} "
+                 f"do not take {t} operands")
+        info = {k: v for k, v in ptx.items() if kern in k}
+        need(len(info) == len(bodies), f"{kern}: {len(info)} ptxas reports "
+             f"for {len(bodies)} instantiations")
+        need(all(v[1] == 0 for v in info.values()),
+             f"{kern}: ptxas spills {info}")
+        regs = {}
+        for k, v in info.items():
+            m = re.search(r"I(\w+?)Li(\d+)E", k)
+            regs[f"{WGMMA_TYPES.get(m.group(1), m.group(1))}/"
+                 f"{m.group(2)}"] = v[0]
+        print(f"{kern}: {len(bodies)} instantiations (bf16, f16 x column "
+              f"tiers {WGMMA_TIERS}), HGMMA forms "
+              f"{ {t: sorted(f) for t, f in sorted(forms.items())} }, HGMMA "
+              f"instructions {dict(sorted(counts.items()))}; ptxas "
+              f"registers {dict(sorted(regs.items()))}, no spills")
+    info = {k: v for k, v in ptx.items() if SPLIT_KERNEL in k}
     need(info, f"{SPLIT_KERNEL}: no ptxas report in the build log")
-    print(f"{SPLIT_KERNEL}: {len(info)} instantiations (f32/bf16 x D 16-128 "
-          f"x rows 1/2/4); ptxas registers {sorted(v[0] for v in info)}, "
-          f"spill bytes {sorted(v[1] for v in info)}")
+    need(all(v[1] == 0 for v in info.values()),
+         f"{SPLIT_KERNEL}: ptxas spills {info}")
+    print(f"{SPLIT_KERNEL}: {len(info)} instantiations (f32/bf16/f16 x "
+          f"column tiers 16-256 x rows 1/2/4); ptxas registers "
+          f"{sorted(v[0] for v in info.values())}, no spills")
     for ln in _build.build_log.splitlines():
         if "wgmma" in ln.lower() and ("warning" in ln.lower()
                                       or "Performance" in ln):
@@ -3264,17 +3364,17 @@ def wgmma_kernels_checked():
 
 def tf32_kernels_checked():
     """The f32 route of B8, B9, the B12 prefill, B10 and B11 in the built
-    library: every instantiation (D 16/32/64/128) holds TF32 HMMA
-    instructions (mma.sync on the tensor cores) and ptxas reports no
-    spills. Prints the counts and the registers by head dim; fails
-    otherwise."""
+    library: every instantiation (column tiers 16/32/64/128/256) holds
+    TF32 HMMA instructions (mma.sync on the tensor cores) and ptxas
+    reports no spills. Prints the counts and the registers by tier;
+    fails otherwise."""
     import re
     funcs, ptx = sass_and_ptxas()
     for name, (pat, src) in TF32_KERNELS.items():
         bodies = {f.split("\n", 1)[0].strip(): f for f in funcs
                   if re.search(pat, f.split("\n", 1)[0])}
-        need(len(bodies) == 4, f"{name}: {len(bodies)} f32-route "
-             f"instantiations in the SASS, want 4 (D 16/32/64/128)")
+        need(len(bodies) == 5, f"{name}: {len(bodies)} f32-route "
+             f"instantiations in the SASS, want 5 (tiers 16-256)")
         counts = {}
         for head, body in bodies.items():
             m = re.search(r"ILi(\d+)E", head)
@@ -3291,7 +3391,7 @@ def tf32_kernels_checked():
                 for m in [re.search(r"ILi(\d+)E", k)] if m}
         print(f"{name} f32 route ({src}, 3xTF32 on mma.sync): "
               f"{len(bodies)} instantiations, TF32 HMMA instructions by "
-              f"head dim {dict(sorted(counts.items()))}; ptxas registers "
+              f"column tier {dict(sorted(counts.items()))}; ptxas registers "
               f"{dict(sorted(regs.items()))}, no spills")
 
 
@@ -3824,11 +3924,16 @@ def training_phase():
 # limits (the triangle inequality).
 RING_TOL = ("bf16: O 2^-8*m + 2^-8*sum_b w_b|o_b| + 2^-7*|plain| + "
             "2^-7*median|plain|, dq 2^-8*m + 2^-8*sum_b|dq_b| + the same, "
-            "dk and dv 2^-8*m + the same; f32: O 2e-5 + 2e-5*|plain|, "
-            "gradients 1e-4*|plain| + 1e-4*max|plain|; per element")
+            "dk and dv 2^-8*m + the same; f16: the same at 2^-11 and 2^-10, "
+            "plus 2^-25 * S * max|v| (O), * scale * S * max|k| (dq), * scale "
+            "* S * group * max|q| (dk), * S * group * max|do| (dv) for a P "
+            "or dS below 2^-14 (f16 subnormals); f32: O 2e-5 + "
+            "2e-5*|plain|, gradients 1e-4*|plain| + 1e-4*max|plain|; per "
+            "element")
 SP_HEADS, SP_KV_HEADS, SP_D = 32, 8, 128     # Llama-3-8B's attention
 # (W, S, causal, dtype): B8 blocks at S/W = 1024, B9 at 512
-SP_CASES = ((8, 8192, True, "bfloat16"), (8, 8192, True, "float32"),
+SP_CASES = ((8, 8192, True, "bfloat16"), (8, 8192, True, "float16"),
+            (8, 8192, True, "float32"),
             (8, 8192, False, "bfloat16"), (4, 2048, True, "bfloat16"),
             (4, 2048, True, "float32"))
 SP_SERVE_LEN = 8192        # phase 10b: one max_seq_len sequence, sp = 8
@@ -3837,19 +3942,24 @@ SP_TRAIN_MESH = (2, 4)     # phase 10d: dp x sp on phase 9's batch
 SP_TRAIN_LOSS_REL = 2.0 ** -8
 
 
-def sp_limit(plain, mag, part: str, ring: bool):
+def sp_limit(plain, mag, part: str, ring: bool, dt=None):
     """Per-element limit of a result ``part`` ("o", "dq", "dk", "dv")
     against the plain ring (RING_TOL): ``mag`` from
-    ``ring_rounding_magnitudes`` (bf16) or None (f32); ``ring`` adds the
-    rounded partials' term, which the unsharded kernels do not have."""
+    ``ring_rounding_magnitudes`` (bf16, f16: ``dt`` the ring's dtype,
+    whose unit scales the terms; for f16 ``mag["sub"]`` the subnormal
+    terms) or None (f32); ``ring`` adds the rounded partials' term, which
+    the unsharded kernels do not have."""
     p = plain.float().abs()
     if mag is None:
         if part == "o":
             return F32_ATOL + F32_RTOL * p
         return FN_DENSE_REL * p + FN_DENSE_REL * float(p.max())
-    lim = BWD_BF16_MARGIN * mag[part] + BF16_REL * (p + float(p.median()))
+    rel, unit = HALF_UNITS[str(dt)]
+    lim = unit * mag[part] + rel * (p + float(p.median()))
     if ring and part + "_parts" in mag:
-        lim = lim + BWD_BF16_MARGIN * mag[part + "_parts"]
+        lim = lim + unit * mag[part + "_parts"]
+    if "sub" in mag:
+        lim = lim + mag["sub"][part]
     return lim
 
 
@@ -3904,7 +4014,7 @@ def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
     from accl_tpu_torch.parallel.ring_attention import (from_rank_rows,
                                                         to_rank_rows)
     dt = getattr(torch, dtype)
-    bf16 = dt == torch.bfloat16
+    bf16 = str(dt) in HALF_UNITS         # the 16-bit tensor-core route
     B, H, Hkv, D = 1, SP_HEADS, SP_KV_HEADS, SP_D
     S_l, es = S // W, torch.finfo(dt).bits // 8
     what = (f"sp ring W={W} S={S} {'causal' if causal else 'full'} "
@@ -3982,6 +4092,12 @@ def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
     torch.cuda.empty_cache()
     mag = (ring_rounding_magnitudes(*rows, lse, dor, o, causal) if bf16
            else None)
+    if dt == torch.float16:     # P and dS below 2^-14: f16 subnormals
+        step, sc, grp = SUBNORMAL_STEP * S, D ** -0.5, H // Hkv
+        mag["sub"] = {"o": step * float(v.abs().max()),
+                      "dq": step * sc * float(k.abs().max()),
+                      "dk": step * sc * grp * float(q.abs().max()),
+                      "dv": step * grp * float(do.abs().max())}
     held = {}
     ring_res = dict(zip(("o", "dq", "dk", "dv"), (o,) + tuple(grads)))
     whole_res = dict(zip(("o", "dq", "dk", "dv"), (whole_o,) + whole_g))
@@ -3990,8 +4106,8 @@ def sp_ring_case(g, W: int, S: int, causal: bool, dtype: str) -> dict:
     uly_bitwise = {}
     for part in ("o", "dq", "dk", "dv"):
         plain = plain_res[part]
-        lr = sp_limit(plain, mag, part, True)
-        lw = sp_limit(plain, mag, part, False)
+        lr = sp_limit(plain, mag, part, True, dt)
+        lw = sp_limit(plain, mag, part, False, dt)
         ring, whole = ring_res[part], to_rank_rows(whole_res[part], W)
         held[part] = (
             hold_sp(ring, plain, lr, f"{what} {part} ring vs plain ring"),
@@ -7762,6 +7878,483 @@ def driver_phase(recs):
         add_path(recs, path, per)
 
 
+# -- phase 17: the attention kernels on every dtype and head dim ------------
+
+# the head layouts of public models at their widths: (model, H, Hkv, D)
+HEAD_DIM_CASES = (("Gemma-2B", 8, 1, 256), ("Phi-2", 32, 32, 80),
+                  ("Phi-3-mini", 32, 32, 96))
+HD_B, HD_S, HD_B9_S = 4, 2048, 512     # B8, B10/B11 at 2048; B9 at 512
+HD_T, HD_KV, HD_PREFILL = 4096, 2047, 1024   # decode and prefill
+DRY_D, DRY_S = 8, 64                   # the dry run's sp ring (8 ranks)
+HALF_DTYPES = ("float32", "bfloat16", "float16")
+F16_SERVE_SEED, F16_TRAIN_SEED, D256_SEED = SEED + 181, SEED + 182, SEED + 183
+F16_TRAIN_LAYERS, F16_TRAIN_STEPS = 2, 3
+# the f16 rows of the kernels line and where their launches are read
+F16_RECORDS = {"attn_fwd_f16": "accl_tpu/ops/attention.py:285",
+               "attn_fwd_single_f16": "accl_tpu/ops/attention.py:252",
+               "attn_decode_f16": "accl_tpu/ops/attention.py:689",
+               "attn_prefill_f16": "accl_tpu/ops/attention.py:689",
+               "attn_bwd_dkv_f16": "accl_tpu/ops/attention.py:461",
+               "attn_bwd_dq_f16": "accl_tpu/ops/attention.py:492"}
+LAUNCH_PATH.update({name: ("training_f16" if "bwd" in name
+                           else "serving_f16") for name in F16_RECORDS})
+
+
+def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
+    """The route a launch of ``kind`` ("fwd", "fwd_single", "prefill",
+    "decode", "bwd_dkv", "bwd_dq") must report for ``dtype`` and head dim
+    D: (route, dtype, column tier). The wrapper pads D to a multiple of
+    8; 16-bit tensor-core routes hold 64, 128, 192 or 256 columns, the
+    f32 routes and the split decode a power of two from 16."""
+    d = -(-D // 8) * 8
+    pow2 = next(t for t in (16, 32, 64, 128, 256) if d <= t)
+    if kind == "decode":
+        return "decode_split", dtype, pow2
+    if dtype == "float32":
+        return f"{kind}_tf32", dtype, pow2
+    return f"{kind}_wgmma", dtype, next(t for t in WGMMA_TIERS if d <= t)
+
+
+def routes_since(before: dict) -> dict:
+    """The route launches counted since the snapshot ``before`` of
+    ``ops.attention.route_launches``."""
+    from accl_tpu_torch.ops import attention as A
+    return {k: n - before.get(k, 0) for k, n in A.route_launches.items()
+            if n != before.get(k, 0)}
+
+
+def need_one_route(before: dict, kind: str, dtype: str, D: int, what: str):
+    """Exactly one launch since ``before``, on the route ``tier_of``
+    names, as the C entry point reported it."""
+    got = routes_since(before)
+    want = tier_of(kind, dtype, D)
+    need(got == {want: 1}, f"{what}: routes {got}, want {want} once")
+
+
+def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
+                skv: int, g, T: int | None = None,
+                reps: int = 20) -> dict:
+    """One launch of B8 (``kind`` "fwd"), B9 ("fwd_single"), B12 ("decode"
+    with S_new = ``sq`` = 1, "prefill" with S_new = ``sq`` over a cache of
+    T rows filled through ``skv``, NaN past it), or B10 and B11
+    ("bwd"), causal, on random operands of ``dt``: held against its plain
+    version (the limits of the dtype: ATTN_TOL/FWD_TOL, BWD_TOL), its
+    route checked as the C entry point reported it, timed behind the GPU
+    sleep beside the plain version, SDPA (forward, or its backward for
+    "bwd", the three gradients together) and the bound. Returns the
+    numbers."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch.ops import attention as A
+    dname = str(dt)[6:]
+    q = torch.randn(B, H, sq, D, device="cuda", generator=g).to(dt)
+    es = q.element_size()
+    half = dname != "float32"
+    rate = BF16_OPS_PER_S if half else TF32_OPS_PER_S
+    mult = 1 if half else 3          # the f32 route: three TF32 products
+    out = {}
+    if kind in ("fwd", "fwd_single", "bwd"):
+        k, v = (torch.randn(B, Hkv, skv, D, device="cuda",
+                            generator=g).to(dt) for _ in range(2))
+        bk = None if kind == "fwd_single" else 16
+        need(A.is_single_block(skv, bk) == (kind == "fwd_single"),
+             f"{kind} at Skv={skv}: the dispatch takes the other branch")
+    if kind in ("fwd", "fwd_single"):
+        before = dict(A.route_launches)
+        o, lse = A.flash_attention_fwd(q, k, v, True, None, None, bk)
+        need_one_route(before, kind, dname, D, f"{kind} {dname} D={D}")
+        ref, rl = A.flash_attention_ref(q, k, v, True)
+        err, ratio = hold_attn(o, ref, f"{kind} {dname} D={D}", lse, rl,
+                               fwd_route_mag("fwd", (q, k, v, True)))
+        kern = lambda: A.flash_attention_fwd(q, k, v, True, None, None, bk)  # noqa
+        plain = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
+        lib = lambda: F.scaled_dot_product_attention(  # noqa
+            q, k, v, is_causal=True, enable_gqa=True)
+        nbytes, nops = attn_work(B, H, Hkv, sq, skv, D, es)
+        del o, lse, ref, rl
+    elif kind in ("decode", "prefill"):
+        kc, vc = (torch.randn(B, T, Hkv, D, device="cuda",
+                              generator=g).to(dt) for _ in range(2))
+        kc[:, skv:] = float("nan")
+        vc[:, skv:] = float("nan")
+        before = dict(A.route_launches)
+        o = A.flash_decode(q, kc, vc, skv)
+        need_one_route(before, kind, dname, D, f"{kind} {dname} D={D}")
+        ref = A.flash_decode_ref(q, kc, vc, skv)
+        err, ratio = hold_attn(o, ref, f"{kind} {dname} D={D}",
+                               mag=fwd_route_mag("decode", (q, kc, vc, skv)))
+        kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
+        plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
+        kt, vt = (t[:, :skv].transpose(1, 2) for t in (kc, vc))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa
+            q, kt, vt, is_causal=sq > 1, enable_gqa=True)
+        nbytes, nops = attn_work(B, H, Hkv, sq, skv, D, es, s_new=sq)
+        if kind == "decode":
+            mult, rate = 1, F32_OPS_PER_S   # CUDA cores, f32 arithmetic
+        out["n_split"] = A.last_decode_splits
+        del o, ref
+    else:                                    # B10 and B11
+        do = torch.randn_like(q)
+        _o, lse, delta = bwd_operands(q, k, v, do, True)
+        args = (q, do, k, v, lse, delta, True, D ** -0.5)
+        before = dict(A.route_launches)
+        dk, dv = A.flash_attention_bwd_dkv(*args)
+        need_one_route(before, "bwd_dkv", dname, D, f"bwd_dkv {dname} D={D}")
+        before = dict(A.route_launches)
+        dq = A.flash_attention_bwd_dq(*args)
+        need_one_route(before, "bwd_dq", dname, D, f"bwd_dq {dname} D={D}")
+        err, ratio = max_pair(
+            hold_bwd_outputs(args, (dk, dv), f"bwd_dkv {dname} D={D}"),
+            hold_bwd_outputs(args, (dq,), f"bwd_dq {dname} D={D}"))
+        del dk, dv, dq
+        torch.cuda.empty_cache()
+        n = sq * (sq + 1) // 2 * B * H       # visible scores, causal
+        # each kernel: q, do, k, v, lse and delta read once; B10 writes
+        # the f32 dK, dV partials (8*D operations a visible score), B11
+        # dQ in q's dtype (6*D)
+        ins = ((2 * B * H * sq + 2 * B * Hkv * skv) * D * es
+               + 8 * B * H * sq)
+        for part, fn, ref, ops_per, outb in (
+                ("dkv", A.flash_attention_bwd_dkv,
+                 A.flash_attention_bwd_dkv_ref, 8, 8 * B * H * skv * D),
+                ("dq", A.flash_attention_bwd_dq,
+                 A.flash_attention_bwd_dq_ref, 6, B * H * sq * D * es)):
+            bms, by = bound_ms(ins + outb, mult * ops_per * D * n, rate)
+            out[part] = {"ms": time_ms(lambda: fn(*args), reps=reps),  # noqa: B023
+                         "plain_ms": time_ms(lambda: ref(*args), reps=3),  # noqa: B023
+                         "bound_ms": bms, "bound_by": by}
+        kern = lambda: (A.flash_attention_bwd_dkv(*args),  # noqa
+                        A.flash_attention_bwd_dq(*args))
+        plain = lambda: (A.flash_attention_bwd_dkv_ref(*args),  # noqa
+                         A.flash_attention_bwd_dq_ref(*args))
+        lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            enable_gqa=True)
+        lib = lambda: torch.autograd.grad(lo, (lq, lk, lv), do,  # noqa
+                                          retain_graph=True)
+        nops = 14 * D * n
+        nbytes = ins + 8 * B * H * skv * D + B * H * sq * D * es
+    out.update(err=err, ratio=ratio, ms=time_ms(kern, reps=reps),
+               plain_ms=time_ms(plain, reps=3),
+               library_ms=time_ms(lib, reps=reps))
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, mult * nops, rate)
+    torch.cuda.empty_cache()
+    return out
+
+
+def case_line(kind, dt, B, H, Hkv, D, sq, skv, r, T=None, model="") -> str:
+    """A kernel case's printed line."""
+    dname = str(dt)[6:]
+    route = tier_of("bwd_dkv" if kind == "bwd" else kind, dname, D)
+    extra = (f" (attn_bwd_dkv {r['dkv']['ms']:.4f} ms, bound "
+             f"{r['dkv']['bound_ms']:.4f}; attn_bwd_dq {r['dq']['ms']:.4f} "
+             f"ms, bound {r['dq']['bound_ms']:.4f}; the pair below)"
+             if kind == "bwd" else "")
+    return (f"kernel {kind} {dname} {model} B={B} H={H} Hkv={Hkv} D={D} "
+            f"{'S' if T is None else 'S_new'}={sq} "
+            f"{'Skv' if T is None else 'kv_len'}={skv}"
+            f"{'' if T is None else f' T={T}'} route {route}: "
+            f"{r['ms']:.4f} ms{extra} (plain {r['plain_ms']:.4f} ms, sdpa "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it), max abs "
+            f"err vs plain {r['err']:.4g}, largest error/limit "
+            f"{r['ratio']:.3f}")
+
+
+def head_dim_phase() -> list:
+    """17a: B8-B12 at the head layouts of Gemma-2B (D = 256, H = 8,
+    Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
+    on f32, bf16 and f16, and at D = 8 (the dry run's ring shapes); then
+    the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
+    8's). Returns the f16 records."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED + 184)
+    for model, H, Hkv, D in HEAD_DIM_CASES:
+        for dname in HALF_DTYPES:
+            dt = getattr(torch, dname)
+            for kind, sq, skv, T in (("fwd", HD_S, HD_S, None),
+                                     ("fwd_single", HD_B9_S, HD_B9_S, None),
+                                     ("bwd", HD_S, HD_S, None),
+                                     ("decode", 1, HD_KV, HD_T),
+                                     ("prefill", HD_PREFILL, HD_PREFILL,
+                                      HD_PREFILL)):
+                r = kernel_case(kind, dt, HD_B, H, Hkv, D, sq, skv, g, T,
+                                reps=10)
+                print(case_line(kind, dt, HD_B, H, Hkv, D, sq, skv, r, T,
+                                model))
+            gc.collect()
+            torch.cuda.empty_cache()
+    for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
+        dt = getattr(torch, dname)
+        for kind, sq, skv, T in (("fwd", DRY_S, DRY_S, None),
+                                 ("fwd_single", DRY_S, DRY_S, None),
+                                 ("bwd", DRY_S, DRY_S, None),
+                                 ("decode", 1, DRY_S - 1, DRY_S),
+                                 ("prefill", 16, DRY_S, DRY_S)):
+            r = kernel_case(kind, dt, 1, 2, 2, DRY_D, sq, skv, g, T)
+            print(case_line(kind, dt, 1, 2, 2, DRY_D, sq, skv, r, T,
+                            "dry-run"))
+    # the f16 rows at Llama-3-8B's attention (H 32, Hkv 8, D 128)
+    recs = []
+    for name, (kind, B, sq, skv, T) in (
+            ("attn_fwd_f16", ("fwd", 4, 2048, 2048, None)),
+            ("attn_fwd_single_f16", ("fwd_single", 4, SERVE_B9_LEN,
+                                     SERVE_B9_LEN, None)),
+            ("attn_decode_f16", ("decode", 4, 1, 2047, 4096)),
+            ("attn_prefill_f16", ("prefill", 4, 1024, 1024, 1024)),
+            ("attn_bwd_dkv_f16", ("bwd", 4, 2048, 2048, None))):
+        r = kernel_case(kind, torch.float16, B, 32, 8, 128, sq, skv, g, T)
+        print(case_line(kind, torch.float16, B, 32, 8, 128, sq, skv, r, T,
+                        "Llama-3-8B"))
+        src = (ATTN_BWD_SM90_SRC if kind == "bwd"
+               else attn_source("decode" if T else "fwd", torch.float16,
+                                sq))
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": F16_RECORDS[name], "launches": 0,
+               "max_abs_err": r["err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if kind == "bwd":            # B10 and B11 each their own row
+            for part, nm in (("dkv", "attn_bwd_dkv_f16"),
+                             ("dq", "attn_bwd_dq_f16")):
+                recs.append(dict(rec, name=nm, replaces=F16_RECORDS[nm],
+                                 **r[part]))
+        else:
+            if r.get("n_split"):
+                rec["n_split"] = r["n_split"]
+            recs.append(rec)
+    print(f"phase 17a routes: {dict(sorted(A.route_launches.items()))}")
+    return recs
+
+
+def f16_serving_phase() -> dict:
+    """17b: Llama-3-8B as published (32 layers) in f16, weights and
+    activations, random weights: ``generate(max_new=32)`` for four
+    1024-token prompts (the B12 prefill and decode), a forward on the
+    prompts (B8) and one on their first 512 tokens (B9), held against the
+    dense path on the same weights; tokens/s, decode ms a step, the busy
+    share and the peak memory. Returns the path's launch counts."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.ops import attention as A
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), dtype=torch.float16,
+                              param_dtype=torch.float16)
+    B, S, NEW = 4, 1024, 32
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(F16_SERVE_SEED)
+    t0 = time.perf_counter()
+    model = Llama(cfg).init(g)
+    torch.cuda.synchronize()
+    print(f"f16 serving: Llama-3-8B, {cfg.n_layers} layers, f16 weights and "
+          f"activations, {model.param_count()} parameters, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=g)
+    short = prompts[:, :SERVE_B9_LEN]
+    with torch.no_grad():
+        zero_attention_counters()
+        before = dict(A.route_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(prompts, max_new=NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        full = model(prompts)
+        full_short = model(short)
+        torch.cuda.synchronize()
+        launches = attention_counters()
+        routes = routes_since(before)
+    print(f"f16 serving launches: {launches}; routes {routes}")
+    need(launches["attn_fwd"] > 0 and launches["attn_decode"] > 0
+         and launches["attn_prefill"] > 0
+         and launches["attn_fwd_single"] == cfg.n_layers,
+         "f16 serving: B8, B9 or B12 (decode or prefill) not launched")
+    need(all(dt == "float16" for _r, dt, _t in routes),
+         f"f16 serving: a launch on another dtype's route: {routes}")
+    need_routes(launches, True, "f16 serving")
+    need(out.shape == (B, NEW) and bool(((out >= 0)
+                                         & (out < cfg.vocab_size)).all()),
+         f"f16 generate: shape {tuple(out.shape)} or a token outside the "
+         f"vocabulary")
+    for what, t in (("forward", full), ("forward 512", full_short)):
+        need(bool(torch.isfinite(t).all()), f"f16 serving {what}: "
+             f"non-finite logits")
+    with torch.no_grad():
+        for what, flash, fn in (("forward", full, lambda: model(prompts)),
+                                (f"forward {B}x{SERVE_B9_LEN} (B9)",
+                                 full_short, lambda: model(short))):
+            model.config = dataclasses.replace(cfg, attention="dense")
+            try:
+                ref = fn()
+            finally:
+                model.config = cfg
+            rel = float(torch.linalg.vector_norm((flash - ref).float())
+                        / torch.linalg.vector_norm(ref.float()))
+            agree = float((flash.argmax(-1) == ref.argmax(-1)).float()
+                          .mean())
+            print(f"f16 serving {what}, flash vs dense (32 layers): "
+                  f"relative diff {rel:.4g} (limit {SERVE_DENSE_REL}), "
+                  f"greedy agreement {agree:.4f}")
+            need(rel <= SERVE_DENSE_REL, f"f16 serving {what}: flash and "
+                 f"dense differ")
+            del ref
+        del full, full_short
+        torch.cuda.empty_cache()
+
+        def prefill():
+            c = model.init_kv_cache(B, S + NEW)
+            return model.forward_cached(prompts, c)
+
+        def decode_steps(state, n):
+            logits, c = state
+            ts = []
+            for _ in range(n):
+                t1 = time.perf_counter()
+                tok = logits[:, -1].argmax(-1)
+                logits, c = model.forward_cached(tok[:, None], c)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            return ts
+
+        fwd_ms = host_ms(lambda: model(prompts))
+        pre_ms = host_ms(prefill)
+        state = prefill()
+        dec_ms = statistics.median(decode_steps(state, 16))
+        print(f"f16 serving: generate {B}x{S} + {NEW} tokens in "
+              f"{gen_s:.3f} s ({B * NEW / gen_s:.1f} new tokens/s, host "
+              f"clock, the build's first calls included); forward "
+              f"{fwd_ms:.2f} ms for {B}x{S} tokens ({B * S / fwd_ms * 1e3:.0f}"
+              f" tokens/s); prefill {pre_ms:.2f} ms ({B * S / pre_ms * 1e3:.0f}"
+              f" tokens/s); decode {dec_ms:.3f} ms a step of {B} tokens "
+              f"({B / dec_ms * 1e3:.1f} tokens/s; median of 16 steps; host "
+              f"clock, median of 3 for the others)")
+        state = prefill()
+        for what, fn, window in (("forward", lambda: model(prompts), fwd_ms),
+                                 ("decode x8", lambda: decode_steps(state, 8),
+                                  8 * dec_ms)):
+            fams = device_ms_by_family(fn)
+            if not fams:
+                print(f"f16 serving {what}: busy share not measured (the "
+                      f"profiler saw no device activity)")
+                continue
+            busy = sum(fams.values())
+            print(f"f16 serving {what}: {busy:.2f} ms of kernels in a "
+                  f"{window:.2f} ms host-clock window, busy share "
+                  f"{busy / window:.3f}; " + ", ".join(
+                      f"{f} {ms:.2f} ms" for f, ms in sorted(fams.items())))
+        del state
+    peak = torch.cuda.max_memory_allocated()
+    print(f"f16 serving peak memory: {(peak - held) / 2 ** 30:.2f} GiB above "
+          f"the {held / 2 ** 30:.2f} GiB held before the phase")
+    del model, prompts, short, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def f16_training_phase() -> dict:
+    """17c: Llama-3-8B width, 2 of 32 layers, f32 parameters and f16
+    activations (phase 9's, with f16 for bf16), Adam(lr=1e-4), 3 steps on
+    one (2, 2048) batch: the losses finite and falling, B10 and B11 on
+    the f16 route once a layer a step. Returns the path's launch
+    counts."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.ops import attention as A
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                              n_layers=F16_TRAIN_LAYERS, dtype=torch.float16)
+    g = torch.Generator(device="cuda").manual_seed(F16_TRAIN_SEED)
+    model = Llama(cfg).init(g)
+    step = model.make_train_step(torch.optim.Adam(model.parameters(),
+                                                  lr=1e-4))
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S),
+                           device="cuda", generator=g)
+    zero_attention_counters()
+    before = dict(A.route_launches)
+    losses, times = [], []
+    for _ in range(F16_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(tokens)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = attention_counters()
+    routes = routes_since(before)
+    print(f"f16 training: {cfg.n_layers} of 32 layers, f32 parameters, f16 "
+          f"activations, B={TRAIN_B}, S={TRAIN_S}: losses {losses}; step ms "
+          f"(host clock) {times}; launches {launches}; routes {routes}")
+    need(all(np.isfinite(x) for x in losses), "f16 training: non-finite "
+         "loss")
+    need(losses[-1] < losses[0], "f16 training: the loss did not fall")
+    per_run = cfg.n_layers * F16_TRAIN_STEPS
+    for key in ("attn_fwd", "attn_bwd_dkv", "attn_bwd_dq"):
+        need(launches[key] == per_run, f"f16 training: {key} launched "
+             f"{launches[key]} times, not once a layer a step ({per_run})")
+    need(routes.get(("bwd_dkv_wgmma", "float16", 128)) == per_run
+         and routes.get(("bwd_dq_wgmma", "float16", 128)) == per_run,
+         f"f16 training: B10/B11 not on the f16 tensor-core route: {routes}")
+    need_routes(launches, True, "f16 training")
+    del model, step, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def head_dim_256_model_phase():
+    """17d: the port's Llama at Gemma-2B's attention widths (dim 2048, 8
+    q heads, 1 kv head: D = 256; Gemma-2B's ffn 16384, Llama-3's
+    vocabulary), 2 layers, bf16, random weights: a 1 x 2048 forward held
+    against the dense path, and ``generate`` 16 tokens from it; every
+    attention launch on a 256-column tier."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama, LlamaConfig
+    from accl_tpu_torch.ops import attention as A
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), dim=2048, n_heads=8,
+                              n_kv_heads=1, ffn_dim=16384, n_layers=2,
+                              param_dtype=torch.bfloat16)
+    need(cfg.head_dim == 256, f"head dim {cfg.head_dim}")
+    g = torch.Generator(device="cuda").manual_seed(D256_SEED)
+    model = Llama(cfg).init(g)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                           generator=g)
+    before = dict(A.route_launches)
+    with torch.no_grad():
+        logits = model(tokens)
+        out = model.generate(tokens, max_new=16)
+        model.config = dataclasses.replace(cfg, attention="dense")
+        try:
+            ref = model(tokens)
+        finally:
+            model.config = cfg
+    routes = routes_since(before)
+    rel = float(torch.linalg.vector_norm((logits - ref).float())
+                / torch.linalg.vector_norm(ref.float()))
+    print(f"D=256 model (dim 2048, 8/1 heads, 2 layers, bf16): 1x2048 "
+          f"forward flash vs dense relative diff {rel:.4g} (limit "
+          f"{SERVE_DENSE_REL}); generate 16 tokens {out.tolist()}; routes "
+          f"{routes}")
+    need(bool(torch.isfinite(logits).all()), "D=256 model: non-finite "
+         "logits")
+    need(rel <= SERVE_DENSE_REL, "D=256 model: flash and dense differ")
+    need(out.shape == (1, 16) and bool(((out >= 0)
+                                        & (out < cfg.vocab_size)).all()),
+         "D=256 model: generate's tokens")
+    need(routes and all(t == 256 for _r, _d, t in routes)
+         and {r for r, _d, _t in routes} >= {
+             "fwd_wgmma", "prefill_wgmma", "decode_split"},
+         f"D=256 model: routes {routes}")
+    del model, logits, ref, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase(name: str):
     """One line at the start of each phase: the seconds since the script
     started and what the device holds."""
@@ -7883,11 +8476,22 @@ def main() -> int:
     add_path(recs, "dryrun", stream)
     gc.collect()
     torch.cuda.empty_cache()
+    phase("phase 17a: the attention kernels on every dtype and head dim")
+    attn_recs += head_dim_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("phase 17b: f16 Llama-3-8B serving")
+    by_path["serving_f16"] = f16_serving_phase()
+    phase("phase 17c: f16 training")
+    by_path["training_f16"] = f16_training_phase()
+    phase("phase 17d: the Llama at D = 256")
+    head_dim_256_model_phase()
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
     for r in attn_recs:
-        # the f32 records (``*_tf32``) count the same wrappers' launches
-        key = r["name"].removesuffix("_tf32")
+        # the f32 and f16 records (``*_tf32``, ``*_f16``) count the same
+        # wrappers' launches, on their own paths
+        key = r["name"].removesuffix("_tf32").removesuffix("_f16")
         r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
         need(r["launches"] > 0, f"kernel {r['name']} was never launched on "

@@ -207,30 +207,34 @@ def _kernel_operands(dtype, D):
     return [torch.zeros(1, 2, 8, D, dtype=dtype) for _ in range(3)]
 
 
-def test_kernel_contract_refuses_float16():
-    """The attention kernels take f32 or bf16 operands only: ``_kernel_ready``
-    (the check every CUDA call makes before a launch) raises TypeError
-    for f16, where the reference's wrappers check no dtype."""
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        A._kernel_ready("flash_attention", *_kernel_operands(torch.float16,
-                                                             64))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("D", [8, 16, 80, 96, 128, 256])
+def test_kernel_contract_accepts(D, dtype):
+    """f32, bf16 and f16 with any head dim that is a multiple of 8 up to
+    256 pass the check every CUDA call makes before a launch (the wrapper
+    pads another head dim to the next multiple of 8 first)."""
+    assert A.MAX_HEAD_DIM == 256 and A.KERNEL_D_STEP == 8
+    A._kernel_ready("flash_attention",
+                    *_kernel_operands(getattr(torch, dtype), D))
+    A._check_head_dim(D, "flash_attention")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [80, 96])
-def test_kernel_contract_refuses_other_head_dims(D, dtype):
-    """Head dims outside (16, 32, 64, 128) raise ValueError naming the
-    accepted ones (the reference's wrappers check no head dim; no path of
-    the port needs another: Llama-3-8B has D = 128)."""
-    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("D", [264, 512])
+def test_kernel_contract_refuses_head_dims_past_256(D, dtype):
+    """A head dim past 256 raises ValueError naming the bound, where the
+    reference's Pallas kernels take any head dim: a 64 x D f32 accumulator
+    no longer fits a warpgroup's registers (ROADMAP §C)."""
+    with pytest.raises(ValueError, match="bound 256"):
+        A._check_head_dim(D, "flash_attention")
+    with pytest.raises(ValueError, match="up to 256"):
         A._kernel_ready("flash_decode",
                         *_kernel_operands(getattr(torch, dtype), D))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
-def test_kernel_contract_accepts(D, dtype):
-    """f32 and bf16 with head dim 16, 32, 64 or 128 pass the check."""
-    assert A.KERNEL_HEAD_DIMS == (16, 32, 64, 128)
-    A._kernel_ready("flash_attention",
-                    *_kernel_operands(getattr(torch, dtype), D))
+def test_kernel_contract_refuses_float64():
+    """The kernels take f32, bf16 or f16 operands: f64 raises TypeError
+    (the reference's Pallas kernels run none on a TPU)."""
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        A._kernel_ready("flash_attention", *_kernel_operands(torch.float64,
+                                                             64))

@@ -173,6 +173,45 @@ def test_hierarchical_allreduce_dcn_compression(mesh, ref_mesh):
     assert not np.array_equal(got, exact)
 
 
+@pytest.mark.parametrize("func", ["SUM", "MAX", "MIN"])
+@pytest.mark.parametrize("pay,wire", [("float16", "bfloat16"),
+                                      ("bfloat16", "float16")])
+def test_hierarchical_allreduce_payload_dcn_wire(mesh, ref_mesh, pay, wire,
+                                                 func):
+    """An f16 or bf16 payload on the other 16-bit dcn wire: the owned
+    shard widens to f32 and goes down to the wire once (B2 twice), the
+    slices' shards combine in the wire dtype, and the sum comes back
+    through f32 to the payload, as the reference's ``astype`` chain.
+    MAX and MIN are bitwise the reference's. SUM's in-slice ring adds in
+    another order than ``psum_scatter`` (as for f32), so it is held to
+    the reference within 2^-(p-1) * 3 * 8 * max|x| (p the wire's
+    significant bits: one wire rounding of each slice's shard and one of
+    their sum, at the scale of a sum of 8 rows), and it must differ from
+    the port's own result without a wire (the shards really crossed it)
+    by no more than that."""
+    tp, jp = getattr(torch, pay), getattr(jnp, pay)
+    x = _rank_major(515, seed=11)
+    x[2] *= 300.0
+    xt = torch.from_numpy(x).to(tp)
+    got = hierarchical_allreduce_sharded(xt, mesh, wire_dtype=wire,
+                                         func=ReduceFunc[func])
+    want = np.asarray(RP.hierarchical_allreduce_sharded(
+        jnp.asarray(x).astype(jp), ref_mesh, wire_dtype=getattr(jnp, wire),
+        func=RefReduceFunc[func]))
+    assert got.dtype == tp and got.shape == x.shape
+    if func != "SUM":
+        assert np.array_equal(got.view(torch.int16).numpy(),
+                              want.view(np.int16)), func
+        return
+    p = 8 if wire == "bfloat16" else 11
+    g = got.float().numpy()
+    tol = 2.0 ** -(p - 1) * 3 * 8 * np.abs(x).max()
+    np.testing.assert_allclose(g, want.astype(np.float32), rtol=0, atol=tol)
+    plain = hierarchical_allreduce_sharded(xt, mesh).float().numpy()
+    assert (g != plain).any()
+    np.testing.assert_allclose(g, plain, rtol=0, atol=tol)
+
+
 def test_distributed_init_single_process_noop(monkeypatch):
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)

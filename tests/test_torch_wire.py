@@ -17,6 +17,10 @@ kernel wrapper runs its plain PyTorch version:
   reference within W fp8 quanta of the result's magnitude.
 * The xla-compressed family: within rtol=1e-6, atol=1e-6 (the reduction
   order over ranks differs); the allgather bitwise.
+* f16 and bf16 payloads on every other per-tensor wire (the rings,
+  the xla-compressed allreduce and allgather, alltoall, bcast) on the
+  8-device mesh: bitwise, with the same fp8 SUM exception for bf16
+  payloads (the section's comment below).
 """
 
 from __future__ import annotations
@@ -417,3 +421,150 @@ def test_plain_kernel_set_gives_the_same_rings(rank_coll, wire):
         a = plain.allreduce(x, algorithm=alg, wire_dtype=wire)
         b = rank_coll.allreduce(x, algorithm=alg, wire_dtype=wire)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# -- f16 and bf16 payloads on every per-tensor wire ------------------------------
+#
+# B2 has f32 on one side, so a payload that is not f32 widens to f32 (exact)
+# before it goes down to the wire and lands back through f32 to its own
+# dtype: one rounding each way, as the reference's ``astype`` and fp8 codec
+# (which widens to f32 first) give. The combine runs in the payload dtype.
+# Held on the 8-device CPU mesh, bitwise (a NaN matches a NaN), except a
+# bf16 payload's SUM ring over an fp8 wire: as for f32 payloads, XLA:CPU
+# contracts the reference's dequantize-multiply and the add that follows
+# into one f32 fma rounded to bf16 once; the port equals a numpy oracle of
+# the unfused codec bitwise and the reference within W fp8 quanta.
+
+PAYLOADS = ["float16", "bfloat16"]
+PAIRS = [(p, w) for p in PAYLOADS for w in WIRES if w != p]
+W8 = 8
+
+
+@pytest.fixture(scope="module")
+def mesh8():
+    return MeshCollectives(cpu_mesh(W8))
+
+
+@pytest.fixture(scope="module")
+def rank8():
+    return RankCollectives(make_group(W8, "cpu"))
+
+
+def _payload(seed: int, n: int, pay: str, edges: bool = False):
+    """(W8, n) rows in the payload dtype (numpy) and as a torch tensor;
+    with ``edges`` the rows hold every magnitude, +-inf, +-0 and NaNs."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((W8, n)).astype(np.float32)
+    x[1] *= np.float32(300.0)             # chunks of different scales
+    if edges:
+        corpus = edge_corpus(seed, W8 * n - 23)    # 23 specials and NaNs
+        x = corpus.reshape(W8, n)
+    xp = x.astype(_np_dtype(pay))
+    t = torch.from_numpy(xp.view(np.int16)).view(getattr(torch, pay))
+    return xp, t
+
+
+def _same_payload(got: torch.Tensor, ref, pay: str, what: str):
+    g = got.view(torch.int16).numpy().view(_np_dtype(pay))
+    r = np.asarray(ref)
+    assert r.dtype == g.dtype, (what, r.dtype)
+    assert_same(g.astype(np.float32), r.astype(np.float32), what,
+                nan_sign=False)
+    assert_same(g[~np.isnan(g.astype(np.float32))],
+                r[~np.isnan(r.astype(np.float32))], what)
+
+
+def _payload_oracle(op: str, x: np.ndarray, wire: str) -> np.ndarray:
+    """The unfused ring (SUM) of a bf16 payload over an fp8 wire: each
+    hop's partial widens to f32, crosses the codec, lands in bf16, and is
+    added to the local chunk in f32 and rounded to bf16."""
+    wd, bf = _np_dtype(wire), _np_dtype("bfloat16")
+    n = x.shape[1]
+    if op == "allreduce":
+        x = np.pad(x, ((0, 0), (0, (-n) % W8)))
+    ch = x.reshape(W8, W8, -1)
+    acc = [ch[r, (r + 1) % W8] for r in range(W8)]
+    for i in range(1, W8):
+        landed = [_fp8_hop(a.astype(np.float32), wd).astype(bf)
+                  for a in acc]
+        acc = [(landed[(r + 1) % W8].astype(np.float32)
+                + ch[r, (r + 1 + i) % W8].astype(np.float32)).astype(bf)
+               for r in range(W8)]
+    if op == "reduce_scatter":
+        return np.stack(acc)
+    out = np.zeros_like(ch)
+    buf = acc
+    for r in range(W8):
+        out[r, r] = acc[r]
+    for i in range(1, W8):
+        buf = [_fp8_hop(b.astype(np.float32), wd).astype(bf)
+               for b in buf]
+        buf = [buf[(r + 1) % W8] for r in range(W8)]
+        for r in range(W8):
+            out[r, (r + i) % W8] = buf[r]
+    return out.reshape(W8, -1)[:, :n]
+
+
+@pytest.mark.parametrize("func", [ReduceFunc.SUM, ReduceFunc.MAX],
+                         ids=lambda f: f.name)
+@pytest.mark.parametrize("op", ["allreduce", "reduce_scatter"])
+@pytest.mark.parametrize("pay,wire", PAIRS)
+def test_payload_ring_reductions_match_reference(mesh8, rank8, pay, wire,
+                                                 op, func):
+    n = W8 * 40 - (3 if op == "allreduce" else 0)
+    xp, t = _payload(int(func) * 7 + len(op), n, pay)
+    ref = np.asarray(getattr(mesh8, op)(
+        mesh8.shard(list(xp)), func=JRF(int(func)), algorithm="ring",
+        wire_dtype=_np_dtype(wire)))
+    got = getattr(rank8, op)(t, func=func, algorithm="ring",
+                             wire_dtype=wire)
+    assert got.dtype == t.dtype
+    what = f"{pay} payload, {wire} wire, ring {op} {func.name}"
+    if func == ReduceFunc.SUM and pay == "bfloat16" and wire in FP8:
+        want = _payload_oracle(op, xp, wire)
+        _same_payload(got, want, pay, what + " vs oracle")
+        quantum = 2.0 ** -(3 if wire == "float8_e4m3fn" else 2)
+        np.testing.assert_allclose(
+            got.float().numpy(), ref.astype(np.float32), rtol=0,
+            atol=W8 * quantum * float(np.abs(ref.astype(np.float32)).max()))
+        return
+    _same_payload(got, ref, pay, what)
+    if func == ReduceFunc.SUM and op == "allreduce":   # really on the wire
+        exact = xp.astype(np.float32).sum(0).astype(_np_dtype(pay))
+        assert (got[0].view(torch.int16).numpy()
+                != exact.view(np.int16)).any()
+
+
+@pytest.mark.parametrize("pay,wire", PAIRS)
+def test_payload_allgather_alltoall_bcast_match_reference(mesh8, rank8, pay,
+                                                          wire):
+    """The ring and xla allgathers, alltoall and the binomial bcast on
+    rows with every magnitude, +-inf, +-0 and NaNs: bitwise."""
+    np_w = _np_dtype(wire)
+    xp, t = _payload(11, 96, pay, edges=True)
+    for alg in ("ring", "xla"):
+        ref = mesh8.allgather(mesh8.shard(list(xp)), algorithm=alg,
+                              wire_dtype=np_w)
+        got = rank8.allgather(t, algorithm=alg, wire_dtype=wire)
+        _same_payload(got, ref, pay, f"{pay}/{wire} {alg} allgather")
+    ref = mesh8.alltoall(mesh8.shard(list(xp)), wire_dtype=np_w)
+    _same_payload(rank8.alltoall(t, wire_dtype=wire), ref, pay,
+                  f"{pay}/{wire} alltoall")
+    ref = mesh8.bcast(mesh8.shard(list(xp)), root=3, wire_dtype=np_w)
+    _same_payload(rank8.bcast(t, root=3, wire_dtype=wire), ref, pay,
+                  f"{pay}/{wire} bcast")
+
+
+@pytest.mark.parametrize("pay,wire", PAIRS)
+def test_payload_xla_compressed_allreduce_matches_reference(mesh8, rank8,
+                                                            pay, wire):
+    """The xla-compressed allreduce: the chunks land in f32 (fp8) or in
+    the payload dtype (f16, bf16 wires) and reduce there, as the
+    reference's do; bitwise for SUM and MAX."""
+    for func in (ReduceFunc.SUM, ReduceFunc.MAX):
+        xp, t = _payload(20 + int(func), W8 * 30 - 5, pay)
+        ref = mesh8.allreduce(mesh8.shard(list(xp)), func=JRF(int(func)),
+                              algorithm="xla", wire_dtype=_np_dtype(wire))
+        got = rank8.allreduce(t, func=func, algorithm="xla",
+                              wire_dtype=wire)
+        _same_payload(got, ref, pay, f"{pay}/{wire} xla {func.name}")
