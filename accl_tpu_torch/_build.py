@@ -100,14 +100,16 @@ def _digest() -> str:
 
 
 def _run_all(cmds: list[list[str]]) -> str:
-    """Start every command at once, wait for all; raise on any failure."""
+    """Start every command at once, wait for all; raise on any failure,
+    with the output of every command that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
     outs = [p.communicate()[0] for p in procs]
-    for c, p, o in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {' '.join(c)}\n{o}")
+    failed = [f"{' '.join(c)}\n{o}" for c, p, o in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return "".join(outs)
 
 

@@ -112,97 +112,6 @@ struct BwdSmem {
   static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
 };
 
-// R rows of D floats (row r at src + r * D) into shared memory at pitch P,
-// DP columns, by 16-byte cp.async; rows at or past n and columns at or
-// past D are zeros, nothing past them read
-template <int DP, int R, int P>
-__device__ __forceinline__ void cp_rows(float* dst, const float* src, int n,
-                                        int D) {
-  constexpr int CPR = DP / 4, N = R * CPR;
-#pragma unroll
-  for (int p = 0; p < (N + NT - 1) / NT; ++p) {
-    const int i = threadIdx.x + p * NT;
-    if (N % NT != 0 && i >= N) break;
-    const int r = i / CPR, c = (i % CPR) * 4;
-    const bool ok = r < n && c < D;
-    cp_async16(dst + r * P + c, src + (ok ? r * D + c : 0), ok);
-  }
-}
-
-// x (16 x 32) = A B^T over the DP columns: A the 16 rows at a, B the
-// SROWS rows at b (pitch DP + 4 each); x[j] holds columns 8j..8j+7.
-// Operands by ldmatrix: A's tile m is rows 8*(m&1).., words 4*(m>>1)..; a
-// pair of B's n-tiles is rows 8*(m>>1).., words 4*(m&1)..
-template <int DP>
-__device__ __forceinline__ void rows16_x_rows32(const float* a,
-                                                const float* b,
-                                                float (&x)[4][4]) {
-  constexpr int P = DP + 4;
-  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
-  const float* pa = a + (r + 8 * (m & 1)) * P + 4 * (m >> 1);
-  const float* pb = b + (r + 8 * (m >> 1)) * P + 4 * (m & 1);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < DP / 8; ++c) {
-    uint32_t w[4];
-    ldsm_x4(w, pa + 8 * c);
-    FragA fa;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) fa.set(i, __uint_as_float(w[i]));
-#pragma unroll
-    for (int jj = 0; jj < 4; jj += 2) {
-      ldsm_x4(w, pb + 8 * jj * P + 8 * c);
-      FragB f0, f1;
-      f0.set(0, __uint_as_float(w[0]));
-      f0.set(1, __uint_as_float(w[1]));
-      f1.set(0, __uint_as_float(w[2]));
-      f1.set(1, __uint_as_float(w[3]));
-      mma_3xtf32(x[jj], fa, f0);
-      mma_3xtf32(x[jj + 1], fa, f1);
-    }
-  }
-}
-
-// acc (16 x CW) += x (16 x 32) B, B the CW columns at b of SROWS rows
-// (pitch DP + 4). x is an accumulator (columns 2t, 2t+1 of a thread) and
-// serves as the A operand with its columns standing as k = t, t + 4: B's
-// rows are read in the same order, row 8j + 2t as k = t and 8j + 2t + 1
-// as k = t + 4. The tile's 32 rows sum in a fresh accumulator, added to
-// acc with an f32 add: the tensor core's accumulation (truncating) spans
-// 12 products, not the whole sequence.
-template <int DP, int CW>
-__device__ __forceinline__ void rows_accumulate(float (&x)[4][4],
-                                                const float* b,
-                                                float (&acc)[CW / 8][4]) {
-  constexpr int P = DP + 4;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  FragA fa[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    fa[j].set(0, x[j][0]);
-    fa[j].set(1, x[j][2]);
-    fa[j].set(2, x[j][1]);
-    fa[j].set(3, x[j][3]);
-  }
-  const float* row = b + 2 * t * P + g;
-#pragma unroll
-  for (int c = 0; c < CW / 8; ++c) {
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      FragB fb;
-      fb.set(0, row[8 * j * P + 8 * c]);
-      fb.set(1, row[(8 * j + 1) * P + 8 * c]);
-      mma_3xtf32(part, fa[j], fb);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = __fadd_rn(acc[c][e], part[e]);
-  }
-}
-
 // B10: grid (B*H, key tiles). q/dout (B*H, Sq, D); k/v (B*Hkv, Skv, D);
 // lse/delta (B*H, Sq) f32; dk/dv (B*H, Skv, D) f32 per-q-head partials.
 template <int DP>
@@ -239,8 +148,8 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
     const int nq = min(SROWS, Sq - q0);
     const long long off = (static_cast<long long>(bh) * Sq + q0) * D;
     float* dst = sQ + 2 * s * L::STR;
-    cp_rows<DP, SROWS, P>(dst, q + off, nq, D);
-    cp_rows<DP, SROWS, P>(dst + L::STR, dout + off, nq, D);
+    cp_rows<DP, SROWS, P, NT>(dst, q + off, nq, D, D);
+    cp_rows<DP, SROWS, P, NT>(dst + L::STR, dout + off, nq, D, D);
     if (tid < 2 * SROWS) {
       const int r = tid % SROWS;
       const bool ok = r < nq;
@@ -249,8 +158,8 @@ attn_bwd_dkv_kernel(const float* __restrict__ q,
     }
   };
   const long long koff = (kvrow * Skv + k0) * D;
-  cp_rows<DP, RROWS, P>(sK, k + koff, nk, D);
-  cp_rows<DP, RROWS, P>(sV, v + koff, nk, D);
+  cp_rows<DP, RROWS, P, NT>(sK, k + koff, nk, D, D);
+  cp_rows<DP, RROWS, P, NT>(sV, v + koff, nk, D, D);
   if (n_it > 0) load_q(0, q_first);
   cp_async_commit();
 
@@ -356,15 +265,15 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
   auto load_kv = [&](int s, int kt0) {
     const int n = min(SROWS, kv_end - kt0);
     float* dst = sK + 2 * s * L::STR;
-    cp_rows<DP, SROWS, P>(dst, k + kvoff + static_cast<long long>(kt0) * D,
-                          n, D);
-    cp_rows<DP, SROWS, P>(dst + L::STR,
-                          v + kvoff + static_cast<long long>(kt0) * D, n, D);
+    cp_rows<DP, SROWS, P, NT>(
+        dst, k + kvoff + static_cast<long long>(kt0) * D, n, D, D);
+    cp_rows<DP, SROWS, P, NT>(
+        dst + L::STR, v + kvoff + static_cast<long long>(kt0) * D, n, D, D);
   };
   const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
   const long long roff = static_cast<long long>(bh) * Sq + q0;
-  cp_rows<DP, RROWS, P>(sQ, q + qoff, nq, D);
-  cp_rows<DP, RROWS, P>(sDO, dout + qoff, nq, D);
+  cp_rows<DP, RROWS, P, NT>(sQ, q + qoff, nq, D, D);
+  cp_rows<DP, RROWS, P, NT>(sDO, dout + qoff, nq, D, D);
   for (int i = tid; i < 2 * RROWS; i += NT) {
     const int r = i % RROWS;
     const bool ok = r < nq;
@@ -432,6 +341,240 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
   }
 }
 
+// ---- head dims past 256: the column-group form ------------------------------
+//
+// B10 and B11 at D > 256 on the same 3xTF32 products: a block (8 warps,
+// 128 resident rows, 16 a warp) keeps one group of CGRP output columns
+// (grid z; 64, as the forward's). For each streamed 32-row tile it forms
+// S and dP over the whole head dim, one FCH-column chunk of the four
+// operands at a time (cp.async, one stage; every group the same chunks in
+// the same order; each chunk summed in a fresh accumulator), then P and
+// dS as B10 and B11 do, and the second products on its group: Q's and
+// dO's columns of the tile (B10), K's (B11), loaded into the chunk's
+// buffers once the chunks are done. Shared memory: two 128-row and two
+// 32-row chunk tiles at a pitch of 132 floats (169 KB) and the stats.
+constexpr int FCH = 128, CGRP = 64, CRES = 128;
+constexpr int CP = FCH + 4;
+constexpr int COLS_BYTES = ((2 * CRES + 2 * SROWS) * CP + 2 * CRES) * 4;
+
+// B10 at D > 256: grid (B*H, key tiles of CRES, column groups); operands
+// as attn_bwd_dkv_kernel's
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_dkv_cols_kernel(const float* __restrict__ q,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int Hkv, int Sq, int Skv, int causal, int D,
+                         float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                  // chunks: K, V (CRES rows), Q, dO
+  float* sV = sK + CRES * CP;
+  float* sQ = sV + CRES * CP;        // then the group's Q and dO columns
+  float* sDO = sQ + SROWS * CP;
+  float* sLse = sDO + SROWS * CP;    // SROWS, then delta's SROWS
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kw = 16 * (tid >> 5);
+  const int bh = blockIdx.x, k0 = blockIdx.y * CRES, c0 = blockIdx.z * CGRP;
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nk = min(CRES, Skv - k0);
+  const int q_first = causal ? (k0 / SROWS) * SROWS : 0;
+  const int n_it = q_first < Sq ? (Sq - q_first + SROWS - 1) / SROWS : 0;
+  const int nch = (D + FCH - 1) / FCH;
+  const float* kb = k + (kvrow * Skv + k0) * D;
+  const float* vb = v + (kvrow * Skv + k0) * D;
+
+  float adk[CGRP / 8][4], adv[CGRP / 8][4];
+#pragma unroll
+  for (int c = 0; c < CGRP / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = q_first + it * SROWS, nq = min(SROWS, Sq - q0);
+    const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
+    // warp-uniform: do the warp's keys see a row of this tile?
+    const bool live = kw < nk && (!causal || k0 + kw <= q0 + nq - 1);
+    float x[4][4], y[4][4];  // S^T, then P^T; dP^T, then dS^T
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
+    for (int c = 0; c <= nch; ++c) {
+      __syncthreads();  // every read of the buffers is done
+      if (c < nch) {
+        const int col = c * FCH;
+        // one copy a step (not unrolled): the tiles' 16 a thread, unrolled,
+        // kept their addresses in registers and spilled
+        cp_rows<FCH, CRES, CP, NT, 1>(sK, kb + col, nk, D - col, D);
+        cp_rows<FCH, CRES, CP, NT, 1>(sV, vb + col, nk, D - col, D);
+        cp_rows<FCH, SROWS, CP, NT>(sQ, q + qoff + col, nq, D - col, D);
+        cp_rows<FCH, SROWS, CP, NT>(sDO, dout + qoff + col, nq, D - col, D);
+      } else {
+        cp_rows<CGRP, SROWS, CP, NT>(sQ, q + qoff + c0, nq, D - c0, D);
+        cp_rows<CGRP, SROWS, CP, NT>(sDO, dout + qoff + c0, nq, D - c0, D);
+        if (tid < 2 * SROWS) {
+          const int r = tid % SROWS;
+          const bool ok = r < nq;
+          cp_async4(sLse + tid,
+                    (tid < SROWS ? lse : delta) +
+                        static_cast<long long>(bh) * Sq + q0 + (ok ? r : 0),
+                    ok);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live && c < nch) {
+        add_rows16_x_rows32<FCH>(sK + kw * CP, sQ, x);
+        add_rows16_x_rows32<FCH>(sV + kw * CP, sDO, y);
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kw + g + 8 * (e >> 1), r = 8 * j + 2 * t + (e & 1);
+        const bool ok = r < nq && key < nk && (!causal || k0 + key <= q0 + r);
+        x[j][e] = ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), sLse[r]))
+                     : 0.0f;
+        y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], sLse[SROWS + r]));
+      }
+    rows_accumulate<FCH, CGRP>(x, sDO, adv);  // dV += P^T dO
+    rows_accumulate<FCH, CGRP>(y, sQ, adk);   // dK += dS^T Q
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = kw + g + 8 * h;
+    if (key >= nk) continue;
+    const long long o = (static_cast<long long>(bh) * Skv + k0 + key) * D;
+#pragma unroll
+    for (int c = 0; c < CGRP / 8; ++c) {
+      const int col = c0 + 8 * c + 2 * t;
+      if (c0 + 8 * c >= D) continue;
+      *reinterpret_cast<float2*>(dk + o + col) =
+          make_float2(__fmul_rn(adk[c][2 * h], scale),
+                      __fmul_rn(adk[c][2 * h + 1], scale));
+      *reinterpret_cast<float2*>(dv + o + col) =
+          make_float2(adv[c][2 * h], adv[c][2 * h + 1]);
+    }
+  }
+}
+
+// B11 at D > 256: grid (B*H, q tiles of CRES, column groups); operands as
+// attn_bwd_dq_kernel's
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_dq_cols_kernel(const float* __restrict__ q,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int Hkv, int Sq,
+                        int Skv, int causal, int D, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                  // chunks: Q, dO (CRES rows), K, V
+  float* sDO = sQ + CRES * CP;
+  float* sK = sDO + CRES * CP;       // then the group's K columns
+  float* sV = sK + SROWS * CP;
+  float* sLse = sV + SROWS * CP;     // CRES, then delta's CRES
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int qw = 16 * (tid >> 5);
+  const int bh = blockIdx.x, c0 = blockIdx.z * CGRP;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * CRES;
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nq = min(CRES, Sq - q0);
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
+  const int n_it = (kv_end + SROWS - 1) / SROWS;
+  const int nch = (D + FCH - 1) / FCH;
+  const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
+  const long long roff = static_cast<long long>(bh) * Sq + q0;
+  for (int i = tid; i < 2 * CRES; i += NT) {
+    const int r = i % CRES;
+    const bool ok = r < nq;
+    cp_async4(sLse + i, (i < CRES ? lse : delta) + roff + (ok ? r : 0), ok);
+  }
+  cp_async_commit();
+
+  float acc[CGRP / 8][4];
+#pragma unroll
+  for (int c = 0; c < CGRP / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int kt0 = it * SROWS, nk = min(SROWS, kv_end - kt0);
+    const long long koff = (kvrow * Skv + kt0) * D;
+    // warp-uniform: do the warp's rows see a key of this tile?
+    const bool live = qw < nq && (!causal || kt0 <= q0 + qw + 15);
+    float x[4][4], y[4][4];  // S, then P; dP, then dS
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
+    for (int c = 0; c <= nch; ++c) {
+      __syncthreads();  // every read of the buffers is done
+      if (c < nch) {
+        const int col = c * FCH;
+        cp_rows<FCH, CRES, CP, NT>(sQ, q + qoff + col, nq, D - col, D);
+        cp_rows<FCH, CRES, CP, NT>(sDO, dout + qoff + col, nq, D - col, D);
+        cp_rows<FCH, SROWS, CP, NT>(sK, k + koff + col, nk, D - col, D);
+        cp_rows<FCH, SROWS, CP, NT>(sV, v + koff + col, nk, D - col, D);
+      } else {
+        cp_rows<CGRP, SROWS, CP, NT>(sK, k + koff + c0, nk, D - c0, D);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live && c < nch) {
+        add_rows16_x_rows32<FCH>(sQ + qw * CP, sK, x);
+        add_rows16_x_rows32<FCH>(sDO + qw * CP, sV, y);
+      }
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = qw + g + 8 * (e >> 1), key = 8 * j + 2 * t + (e & 1);
+        const bool ok = r < nq && key < nk && (!causal || kt0 + key <= q0 + r);
+        x[j][e] = ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), sLse[r]))
+                     : 0.0f;
+        y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], sLse[CRES + r]));
+      }
+    rows_accumulate<FCH, CGRP>(y, sK, acc);  // dQ += dS K
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw + g + 8 * h;
+    if (r >= nq) continue;
+    float* o = dq + qoff + static_cast<long long>(r) * D + c0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < CGRP / 8; ++c)
+      if (c0 + 8 * c < D)
+        *reinterpret_cast<float2*>(o + 8 * c) =
+            make_float2(__fmul_rn(acc[c][2 * h], scale),
+                        __fmul_rn(acc[c][2 * h + 1], scale));
+  }
+}
+
+// B10 or B11 (kern, route) at D > 256 over grid (B*H, tiles of CRES rows
+// of `rows`, column groups)
+template <typename K, typename... A>
+cudaError_t launch_cols(K kern, int route, int rows, int B, int H, int D,
+                        cudaStream_t st, A... args) {
+  cudaError_t e = allow_smem(kern, COLS_BYTES);
+  if (e != cudaSuccess) return e;
+  dim3 grid(B * H, (rows + CRES - 1) / CRES, (D + CGRP - 1) / CGRP);
+  kern<<<grid, NT, COLS_BYTES, st>>>(args...);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(route, 0, CGRP);
+  return e;
+}
+
 template <int DP>
 cudaError_t launch_bwd_dkv(const void* q, const void* dout, const void* k,
                            const void* v, const void* lse, const void* delta,
@@ -488,20 +631,29 @@ int attn_bwd_dq_wgmma(int dtype, int head_dim, const void* q,
                       int H, int Hkv, int Sq, int Skv, int causal,
                       float scale, cudaStream_t st);
 
+static const float* F(const void* p) { return static_cast<const float*>(p); }
+
 extern "C" {
 
-// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8, at most 256
+// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (past 256: the
+// column-group kernels)
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                       const void* dout, const void* k, const void* v,
                       const void* lse, const void* delta, void* dk, void* dv,
                       int B, int H, int Hkv, int Sq, int Skv, int causal,
                       float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
+  if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
   if (dtype == 1 || dtype == 2)
     return attn_bwd_dkv_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dk,
                               dv, B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (head_dim > 256)
+    return launch_cols(attn_bwd_dkv_cols_kernel, ROUTE_BWD_DKV_COLS_TF32,
+                       Skv, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
+                       F(lse), F(delta), static_cast<float*>(dk),
+                       static_cast<float*>(dv), H, Hkv, Sq, Skv, causal,
+                       head_dim, scale);
   F32_DISPATCH(launch_bwd_dkv, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv,
                Sq, Skv, causal, head_dim, scale, st)
 }
@@ -512,11 +664,16 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
                      int H, int Hkv, int Sq, int Skv, int causal,
                      float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (head_dim % 8 || head_dim > 256) return cudaErrorInvalidValue;
+  if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
   if (dtype == 1 || dtype == 2)
     return attn_bwd_dq_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dq,
                              B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (head_dim > 256)
+    return launch_cols(attn_bwd_dq_cols_kernel, ROUTE_BWD_DQ_COLS_TF32, Sq,
+                       B, H, head_dim, st, F(q), F(dout), F(k), F(v), F(lse),
+                       F(delta), static_cast<float*>(dq), H, Hkv, Sq, Skv,
+                       causal, head_dim, scale);
   F32_DISPATCH(launch_bwd_dq, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq,
                Skv, causal, head_dim, scale, st)
 }

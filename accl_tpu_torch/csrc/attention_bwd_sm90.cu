@@ -412,6 +412,285 @@ __global__ void __launch_bounds__(WG, 1)
   }
 }
 
+// ---- head dims past 256: the column-group form ------------------------------
+//
+// B10 and B11 at D > 256 (sm90_tile.cuh WCH, WGRP; D a multiple of WCH,
+// which the wrapper pads it to, so every chunk and B10's groups are
+// whole): grid z is a group of
+// output columns (128 of dK and dV in B10, as B10 at DP = 256; WGRP of dQ
+// in B11). For each streamed tile the block forms S and dP over the whole
+// head dim, one WCH-column chunk a step (the chunks of Q, dO, K and V in
+// one ring slot, read from shared memory), then the probabilities and dS
+// as B10 and B11 do, and the second products on its group of columns (the
+// next slot: Q's and dO's group in B10, K's in B11). Every group forms the
+// same S and dP (the same chunks in the same order). LSE and delta are
+// read from global memory.
+
+constexpr int DKV_GRP = 128;  // dK, dV columns a B10 block keeps
+
+// the steps of one streamed tile: the nch chunks, then the group's tiles;
+// slot u & 1 holds step u, whose barrier completes phase (u >> 1) & 1
+struct WideRing {
+  uint32_t base;
+  int n_steps;
+  __device__ __forceinline__ uint32_t slot(int u) const {
+    return base + (u & 1) * WSLOT;
+  }
+  __device__ __forceinline__ uint32_t bar(int u) const {
+    return base + 2 * WSLOT + 8 * (u & 1);
+  }
+  __device__ __forceinline__ void wait(int u) const {
+    mbar_wait(bar(u), (u >> 1) & 1);
+  }
+};
+
+// S += A B^T over one chunk: A the RA-row chunk at sa, B the RB-row
+// chunk at sb (both WCH columns)
+template <typename T, int RA, int RB>
+__device__ __forceinline__ void chunk_product(float* d, uint32_t sa,
+                                              uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < Cols<WCH>::KS; ++kk)
+    Wgmma<RB>::template ss<T>(d, desc_k<RA>(sa, kk), desc_k<RB>(sb, kk), 1);
+}
+
+// B10 at D > 256: the maps and operands of attn_bwd_dkv_wgmma_kernel;
+// grid (B*H, key tiles, column groups of DKV_GRP)
+template <typename T>
+__global__ void __launch_bounds__(WG, 1)
+    attn_bwd_dkv_cols_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                                   __grid_constant__ const CUtensorMap tdo,
+                                   __grid_constant__ const CUtensorMap tk,
+                                   __grid_constant__ const CUtensorMap tv,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dk,
+                                   float* __restrict__ dv, int H, int Hkv,
+                                   int Sq, int Skv, int causal, int D,
+                                   float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t TB = BQ * WCH * 2;  // a 64-row chunk's bytes
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, k0 = blockIdx.y * BKV;
+  const int c0 = blockIdx.z * DKV_GRP;
+  const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int q_first = causal ? (k0 / BQ) * BQ : 0;
+  const int n_it = q_first < Sq ? (Sq - q_first + BQ - 1) / BQ : 0;
+  const int nch = wide_chunks(D), per = nch + 1;
+  const WideRing ring{(smem_u32(smem_raw) + 1023) & ~1023u, n_it * per};
+  const float* lse_row = lse + static_cast<long long>(bh) * Sq;
+  const float* delta_row = delta + static_cast<long long>(bh) * Sq;
+
+  // one thread: step u (chunk c of K, V, Q, dO; then Q's and dO's group)
+  auto issue = [&](int u) {
+    const int c = u % per, q0 = q_first + (u / per) * BQ;
+    const uint32_t dst = ring.slot(u), b = ring.bar(u);
+    if (c < nch) {
+      const int col = c * WCH;
+      mbar_expect_tx(b, 4 * TB);
+      tma_tile<WCH, BKV>(dst, &tk, b, k0, kvrow, col);
+      tma_tile<WCH, BKV>(dst + TB, &tv, b, k0, kvrow, col);
+      tma_tile<WCH, BQ>(dst + 2 * TB, &tq, b, q0, bh, col);
+      tma_tile<WCH, BQ>(dst + 3 * TB, &tdo, b, q0, bh, col);
+    } else {
+      mbar_expect_tx(b, 2 * TB);
+      tma_tile<DKV_GRP, BQ>(dst, &tq, b, q0, bh, c0);
+      tma_tile<DKV_GRP, BQ>(dst + TB, &tdo, b, q0, bh, c0);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(ring.bar(0), 1);
+    mbar_init(ring.bar(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int u = 0; u < 2 && u < ring.n_steps; ++u) issue(u);
+  auto release = [&](int u) {
+    __syncthreads();
+    if (tid == 0 && u + 2 < ring.n_steps) issue(u + 2);
+  };
+
+  float adk[DKV_GRP / 2], adv[DKV_GRP / 2];
+#pragma unroll
+  for (int i = 0; i < DKV_GRP / 2; ++i) adk[i] = adv[i] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = q_first + it * BQ;
+    float st[BQ / 2], dpt[BQ / 2];  // S^T and dP^T: keys x q rows
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      const int u = it * per + c;
+      ring.wait(u);
+      const uint32_t sl = ring.slot(u);
+      fence_regs<BQ / 2>(st);
+      fence_regs<BQ / 2>(dpt);
+      wg_fence();
+      chunk_product<T, BKV, BQ>(st, sl, sl + 2 * TB);
+      chunk_product<T, BKV, BQ>(dpt, sl + TB, sl + 3 * TB);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<BQ / 2>(st);
+      fence_regs<BQ / 2>(dpt);
+      release(u);
+    }
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) {
+      const int key = k0 + frag_row(i), q = q0 + frag_col(i);
+      const bool ok = key < Skv && q < Sq && (!causal || key <= q);
+      st[i] = ok ? ex2(fmaf(st[i], scale_log2, -lse_row[q] * LOG2E)) : 0.0f;
+      dpt[i] = __fmul_rn(st[i], __fsub_rn(dpt[i], ok ? delta_row[q] : 0.0f));
+    }
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    to_a<T, BQ>(st, pa);
+    to_a<T, BQ>(dpt, da);
+    const int u = it * per + nch;
+    ring.wait(u);
+    const uint32_t sq = ring.slot(u), sdo = sq + TB;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      rs_cols<T, DKV_GRP, BQ>(adv, pa[kk], sdo, kk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      rs_cols<T, DKV_GRP, BQ>(adk, da[kk], sq, kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<DKV_GRP / 2>(adv);
+    fence_regs<DKV_GRP / 2>(adk);
+    release(u);
+  }
+
+#pragma unroll
+  for (int i = 0; i < DKV_GRP / 2; i += 2) {
+    const int key = k0 + frag_row(i), c = c0 + frag_col(i);
+    if (key >= Skv || c >= D) continue;
+    const long long o = (static_cast<long long>(bh) * Skv + key) * D + c;
+    *reinterpret_cast<float2*>(dk + o) =
+        make_float2(__fmul_rn(adk[i], scale), __fmul_rn(adk[i + 1], scale));
+    *reinterpret_cast<float2*>(dv + o) = make_float2(adv[i], adv[i + 1]);
+  }
+}
+
+// B11 at D > 256: the maps and operands of attn_bwd_dq_wgmma_kernel; grid
+// (B*H, q tiles, column groups of WGRP)
+template <typename T>
+__global__ void __launch_bounds__(WG, 1)
+    attn_bwd_dq_cols_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                                  __grid_constant__ const CUtensorMap tdo,
+                                  __grid_constant__ const CUtensorMap tk,
+                                  __grid_constant__ const CUtensorMap tv,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  T* __restrict__ dq, int H, int Hkv, int Sq,
+                                  int Skv, int causal, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t TB = BQ * WCH * 2;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int c0 = blockIdx.z * WGRP;
+  const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nq = min(BQ, Sq - q0);
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
+  const int n_it = (kv_end + BKV - 1) / BKV;
+  const int nch = wide_chunks(D), per = nch + 1;
+  const WideRing ring{(smem_u32(smem_raw) + 1023) & ~1023u, n_it * per};
+
+  // one thread: step u (chunk c of Q, dO, K, V; then K's group)
+  auto issue = [&](int u) {
+    const int c = u % per, kt = (u / per) * BKV;
+    const uint32_t dst = ring.slot(u), b = ring.bar(u);
+    if (c < nch) {
+      const int col = c * WCH;
+      mbar_expect_tx(b, 4 * TB);
+      tma_tile<WCH, BQ>(dst, &tq, b, q0, bh, col);
+      tma_tile<WCH, BQ>(dst + TB, &tdo, b, q0, bh, col);
+      tma_tile<WCH, BKV>(dst + 2 * TB, &tk, b, kt, kvrow, col);
+      tma_tile<WCH, BKV>(dst + 3 * TB, &tv, b, kt, kvrow, col);
+    } else {
+      mbar_expect_tx(b, live_bytes<WGRP, BKV>(c0, D));
+      tma_tile_live<WGRP, BKV>(dst, &tk, b, kt, kvrow, c0, D);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(ring.bar(0), 1);
+    mbar_init(ring.bar(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int u = 0; u < 2 && u < ring.n_steps; ++u) issue(u);
+  auto release = [&](int u) {
+    __syncthreads();
+    if (tid == 0 && u + 2 < ring.n_steps) issue(u + 2);
+  };
+
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = q0 + frag_row(2 * h);
+    const long long o = static_cast<long long>(bh) * Sq + q;
+    lse2[h] = q < Sq ? lse[o] * LOG2E : 0.0f;
+    dl[h] = q < Sq ? delta[o] : 0.0f;
+  }
+  float adq[WGRP / 2];
+#pragma unroll
+  for (int i = 0; i < WGRP / 2; ++i) adq[i] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int k0 = it * BKV;
+    float sc[BKV / 2], dp[BKV / 2];  // S and dP: q rows x keys
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) sc[i] = dp[i] = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      const int u = it * per + c;
+      ring.wait(u);
+      const uint32_t sl = ring.slot(u);
+      fence_regs<BKV / 2>(sc);
+      fence_regs<BKV / 2>(dp);
+      wg_fence();
+      chunk_product<T, BQ, BKV>(sc, sl, sl + 2 * TB);
+      chunk_product<T, BQ, BKV>(dp, sl + TB, sl + 3 * TB);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<BKV / 2>(sc);
+      fence_regs<BKV / 2>(dp);
+      release(u);
+    }
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int q = q0 + frag_row(i), key = k0 + frag_col(i);
+      const bool ok = key < Skv && q < Sq && (!causal || key <= q);
+      sc[i] = ok ? ex2(fmaf(sc[i], scale_log2, -lse2[(i >> 1) & 1])) : 0.0f;
+      dp[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], dl[(i >> 1) & 1]));
+    }
+    uint32_t da[BKV / 16][4];
+    to_a<T, BKV>(dp, da);
+    const int u = it * per + nch;
+    ring.wait(u);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      rs_cols<T, WGRP, BKV>(adq, da[kk], ring.slot(u), kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<WGRP / 2>(adq);
+    release(u);
+  }
+
+#pragma unroll
+  for (int i = 0; i < WGRP / 2; i += 2) {
+    const int r = frag_row(i), c = c0 + frag_col(i);
+    if (r >= nq || c >= D) continue;
+    const long long o = (static_cast<long long>(bh) * Sq + q0 + r) * D + c;
+    store2(dq + o, __fmul_rn(adq[i], scale), __fmul_rn(adq[i + 1], scale));
+  }
+}
+
 // ---- host -----------------------------------------------------------------
 
 struct Maps {
@@ -481,6 +760,50 @@ cudaError_t launch_dq(const void* q, const void* dout, const void* k,
   return e;
 }
 
+// the column-group form (D > 256) of B10 and B11
+template <typename T>
+cudaError_t launch_dkv_cols(const void* q, const void* dout, const void* k,
+                            const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = 2 * WSLOT + 2 * 8 + 1024;
+  auto kern = attn_bwd_dkv_cols_wgmma_kernel<T>;
+  e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.B * a.H, (a.Skv + BKV - 1) / BKV,
+            (a.D + DKV_GRP - 1) / DKV_GRP);
+  kern<<<grid, WG, smem, a.st>>>(m.q, m.dout, m.k, m.v, a.lse, a.delta,
+                                 static_cast<float*>(a.out0),
+                                 static_cast<float*>(a.out1), a.H, a.Hkv,
+                                 a.Sq, a.Skv, a.causal, a.D, a.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_BWD_DKV_COLS_WGMMA, Elt<T>::F16 ? 2 : 1, DKV_GRP);
+  return e;
+}
+
+template <typename T>
+cudaError_t launch_dq_cols(const void* q, const void* dout, const void* k,
+                           const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
+  if (e != cudaSuccess) return e;
+  constexpr int smem = 2 * WSLOT + 2 * 8 + 1024;
+  auto kern = attn_bwd_dq_cols_wgmma_kernel<T>;
+  e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ, (a.D + WGRP - 1) / WGRP);
+  kern<<<grid, WG, smem, a.st>>>(m.q, m.dout, m.k, m.v, a.lse, a.delta,
+                                 static_cast<T*>(a.out0), a.H, a.Hkv, a.Sq,
+                                 a.Skv, a.causal, a.D, a.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_BWD_DQ_COLS_WGMMA, Elt<T>::F16 ? 2 : 1, WGRP);
+  return e;
+}
+
+
 }  // namespace
 
 // Called by the C entry points of attention_bwd.cu for 16-bit operands
@@ -492,6 +815,8 @@ int attn_bwd_dkv_wgmma(int dtype, int head_dim, const void* q,
                        float scale, cudaStream_t st) {
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                dk, dv, B, H, Hkv, Sq, Skv, causal, head_dim, scale, st};
+  if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > 256) SM90_COLS_DISPATCH(launch_dkv_cols, q, dout, k, v, a)
   SM90_DISPATCH(launch_dkv, q, dout, k, v, a)
 }
 
@@ -502,5 +827,7 @@ int attn_bwd_dq_wgmma(int dtype, int head_dim, const void* q,
                       float scale, cudaStream_t st) {
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                dq, nullptr, B, H, Hkv, Sq, Skv, causal, head_dim, scale, st};
+  if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > 256) SM90_COLS_DISPATCH(launch_dq_cols, q, dout, k, v, a)
   SM90_DISPATCH(launch_dq, q, dout, k, v, a)
 }

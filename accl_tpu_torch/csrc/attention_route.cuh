@@ -1,0 +1,22 @@
+// The route report of the attention kernels, shared by every attention
+// source: the launcher that made the last launch sets it to kind << 16 |
+// dtype code << 12 | column tier (the column group's width on the
+// column-group routes of head dims past 256); accl_attn_last_route
+// (attention.cu) reads it.
+#pragma once
+
+void set_attn_route(int kind, int dtype, int tier);
+enum {
+  ROUTE_FWD_WGMMA = 1, ROUTE_FWD_SINGLE_WGMMA = 2, ROUTE_PREFILL_WGMMA = 3,
+  ROUTE_DECODE_SPLIT = 4, ROUTE_FWD_TF32 = 5, ROUTE_FWD_SINGLE_TF32 = 6,
+  ROUTE_PREFILL_TF32 = 7, ROUTE_BWD_DKV_WGMMA = 8, ROUTE_BWD_DQ_WGMMA = 9,
+  ROUTE_BWD_DKV_TF32 = 10, ROUTE_BWD_DQ_TF32 = 11,
+  // the column-group form (D > 256); decode is S_new == 1 on the prefill
+  // form's kernel
+  ROUTE_FWD_COLS_WGMMA = 12, ROUTE_FWD_SINGLE_COLS_WGMMA = 13,
+  ROUTE_PREFILL_COLS_WGMMA = 14, ROUTE_DECODE_COLS_WGMMA = 15,
+  ROUTE_FWD_COLS_TF32 = 16, ROUTE_FWD_SINGLE_COLS_TF32 = 17,
+  ROUTE_PREFILL_COLS_TF32 = 18, ROUTE_DECODE_COLS_TF32 = 19,
+  ROUTE_BWD_DKV_COLS_WGMMA = 20, ROUTE_BWD_DQ_COLS_WGMMA = 21,
+  ROUTE_BWD_DKV_COLS_TF32 = 22, ROUTE_BWD_DQ_COLS_TF32 = 23
+};

@@ -269,14 +269,14 @@ __device__ __forceinline__ void store2(__half* o, float a, float b) {
 }
 
 // O = acc / max(l, 1e-30) rounded to T for the tile's nq valid rows and
-// D columns, and, if lse is given, LSE = m * ln 2 + log(max(l, 1e-30));
-// l is each thread's part of its rows' sums until the four threads of a
-// row meet
+// its columns c0 .. c0 + DP - 1 below D (rows of D elements), and, if lse
+// is given, LSE = m * ln 2 + log(max(l, 1e-30)); l is each thread's part
+// of its rows' sums until the four threads of a row meet
 template <typename T, int DP>
 __device__ __forceinline__ void store_o_lse(const float* acc, const float* m2,
                                             float* l, T* o, float* lse,
                                             int bh, int Sq, int q0, int nq,
-                                            int D) {
+                                            int D, int c0 = 0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] = __fadd_rn(l[h], __shfl_xor_sync(0xffffffffu, l[h], 1));
@@ -285,7 +285,7 @@ __device__ __forceinline__ void store_o_lse(const float* acc, const float* m2,
   }
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
-    const int r = frag_row(i), c = frag_col(i);
+    const int r = frag_row(i), c = c0 + frag_col(i);
     if (r >= nq || c >= D) continue;
     const float lr = l[(i >> 1) & 1];
     const long long e = (static_cast<long long>(bh) * Sq + q0 + r) * D + c;
@@ -561,6 +561,128 @@ __global__ void __launch_bounds__(WG, 1)
   store_o_lse<T, DP>(acc, m2, l, o, lse, bh, Sq, q0, nq, D);
 }
 
+// B8, B9 and B12's chunks (and single-token decode) at head dims past
+// 256: the column-group form (sm90_tile.cuh WCH, WGRP). D is a multiple
+// of WCH (the wrapper pads it), so every chunk is whole. Grid (B*H, q
+// tiles, column groups); block z keeps O's columns z*WGRP .. z*WGRP +
+// WGRP - 1 (a 64 x 256 f32 accumulator, as B8 at DP = 256). For each key
+// tile it forms S = Q K^T over the whole head dim, one WCH-column chunk a
+// step (Q's and K's chunk in one ring slot, read from shared memory), then
+// runs B8's online softmax and O += P V on its group of V's columns (the
+// next slot). Every group issues the same chunks in the same order, so
+// they reach the same m and l bit for bit; group 0 writes the LSE. B9
+// takes this online tile too (at these head dims its two passes would
+// form S twice more). Maps and masks as attn_fwd_wgmma_kernel's (`off`,
+// `cache`).
+template <typename T>
+__global__ void __launch_bounds__(WG, 1)
+    attn_fwd_cols_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                               __grid_constant__ const CUtensorMap tk,
+                               __grid_constant__ const CUtensorMap tv,
+                               T* __restrict__ o, float* __restrict__ lse,
+                               int H, int Hkv, int Sq, int Skv, int causal,
+                               int off, int cache, int D, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  auto slot = [&](int s) { return base + s * WSLOT; };
+  auto bar = [&](int s) { return base + 2 * WSLOT + 8 * s; };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int c0 = blockIdx.z * WGRP;  // the block's first output column
+  const int b = bh / H, hkv = (bh % H) / (H / Hkv);  // _kv_head_row
+  const int nq = min(BQ, Sq - q0);
+  const int kv_end = causal ? min(Skv, q0 + nq + off) : Skv;
+  const int n_it = (kv_end + BKV - 1) / BKV;
+  const int nch = wide_chunks(D), per = nch + 1;  // steps a key tile
+  const int n_steps = n_it * per;
+  constexpr uint32_t QB = BQ * WCH * 2;  // a Q chunk's bytes
+
+  // one thread: step u's tiles into slot u & 1 (chunk c of Q and K, or
+  // the group's V columns after the last chunk)
+  auto issue = [&](int u) {
+    const int s = u & 1, c = u % per, k0 = (u / per) * BKV;
+    const uint32_t dst = slot(s);
+    if (c < nch) {
+      const int col = c * WCH;
+      mbar_expect_tx(bar(s), QB + BKV * WCH * 2);
+      tma_tile<WCH, BQ>(dst, &tq, bar(s), q0, bh, col);
+      if (cache)
+        tma_tile4<WCH, BKV>(dst + QB, &tk, bar(s), hkv, k0, b, col);
+      else
+        tma_tile<WCH, BKV>(dst + QB, &tk, bar(s), k0, b * Hkv + hkv, col);
+    } else {
+      mbar_expect_tx(bar(s), live_bytes<WGRP, BKV>(c0, D));
+      if (cache)
+        tma_tile4_live<WGRP, BKV>(dst, &tv, bar(s), hkv, k0, b, c0, D);
+      else
+        tma_tile_live<WGRP, BKV>(dst, &tv, bar(s), k0, b * Hkv + hkv, c0,
+                                 D);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar(0), 1);
+    mbar_init(bar(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int u = 0; u < 2 && u < n_steps; ++u) issue(u);
+
+  float acc[WGRP / 2];              // O: q rows x the group's columns
+  float m2[2] = {NEG, NEG};         // running max, log2 units
+  float l[2] = {0.0f, 0.0f};        // this thread's part of the row sum
+#pragma unroll
+  for (int i = 0; i < WGRP / 2; ++i) acc[i] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+  // step u landed; then, once every thread is done with its slot, step
+  // u + 2 into it
+  auto wait = [&](int u) { mbar_wait(bar(u & 1), (u >> 1) & 1); };
+  auto release = [&](int u) {
+    __syncthreads();
+    if (tid == 0 && u + 2 < n_steps) issue(u + 2);
+  };
+
+  for (int it = 0; it < n_it; ++it) {
+    const int k0 = it * BKV;
+    float sc[BKV / 2];  // S: q rows x keys
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) sc[i] = 0.0f;
+    for (int c = 0; c < nch; ++c) {
+      const int u = it * per + c;
+      wait(u);
+      const uint32_t sq = slot(u & 1), sk = sq + QB;
+      fence_regs<BKV / 2>(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < Cols<WCH>::KS; ++kk)
+        Wgmma<BKV>::ss<T>(sc, desc_k<BQ>(sq, kk), desc_k<BKV>(sk, kk), 1);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<BKV / 2>(sc);
+      release(u);
+    }
+    float alpha[2];
+    if (k0 + BKV > Skv || (causal && k0 + BKV - 1 > q0 + off))
+      softmax_tile<true>(sc, m2, l, alpha, scale_log2, q0, k0, Skv, causal,
+                         off);
+    else
+      softmax_tile<false>(sc, m2, l, alpha, scale_log2, q0, k0, Skv, causal,
+                          off);
+#pragma unroll
+    for (int i = 0; i < WGRP / 2; ++i)
+      acc[i] = __fmul_rn(acc[i], alpha[(i >> 1) & 1]);
+    const int u = it * per + nch;
+    wait(u);
+    pv<T, WGRP>(acc, sc, slot(u & 1));
+    release(u);
+  }
+
+  store_o_lse<T, WGRP>(acc, m2, l, o, blockIdx.z == 0 ? lse : nullptr, bh,
+                       Sq, q0, nq, D, c0);
+}
+
 // the operands of one launch besides the maps
 struct Args {
   const void* q;
@@ -611,6 +733,23 @@ cudaError_t launch_single(const Maps& m, const Args& a) {
   return e;
 }
 
+// the column-group form (D > 256) of route `kind`
+template <typename T>
+cudaError_t launch_cols(const Maps& m, const Args& a, int kind) {
+  constexpr int smem = 2 * WSLOT + 2 * 8 + 1024;
+  auto kern = attn_fwd_cols_wgmma_kernel<T>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ, (a.D + WGRP - 1) / WGRP);
+  kern<<<grid, WG, smem, a.st>>>(m.q, m.k, m.v, static_cast<T*>(a.o),
+                                 static_cast<float*>(a.lse), a.H, a.Hkv,
+                                 a.Sq, a.Skv, a.causal, a.off, a.cache, a.D,
+                                 a.scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(kind, Elt<T>::F16 ? 2 : 1, WGRP);
+  return e;
+}
+
 // a contiguous 16-bit cache (B, T, Hkv, D) as the 4-D map {D, Hkv,
 // kv_len, B}: boxes of 64 columns x BKV rows of one head of one batch
 // row; the T extent is kv_len, so every row at or past it reads as zeros
@@ -652,17 +791,42 @@ cudaError_t run_single(const void* k, const void* v, const Args& a) {
 }
 
 // q (B, H, S_new, D) as (B*H, S_new, D); the caches through kv_len
+template <typename T>
+cudaError_t prefill_maps(Maps* m, const void* kc, const void* vc, int Tlen,
+                         const Args& a) {
+  cudaError_t e = tile_map<T>(&m->q, a.q, a.B * a.H, a.Sq, a.D, BQ);
+  if (e == cudaSuccess)
+    e = cache_map<T>(&m->k, kc, a.B, Tlen, a.Hkv, a.D, a.Skv);
+  if (e == cudaSuccess)
+    e = cache_map<T>(&m->v, vc, a.B, Tlen, a.Hkv, a.D, a.Skv);
+  return e;
+}
+
 template <typename T, int DP>
 cudaError_t run_prefill(const void* kc, const void* vc, int Tlen,
                         const Args& a) {
   Maps m;
-  cudaError_t e = tile_map<T>(&m.q, a.q, a.B * a.H, a.Sq, a.D, BQ);
-  if (e == cudaSuccess)
-    e = cache_map<T>(&m.k, kc, a.B, Tlen, a.Hkv, a.D, a.Skv);
-  if (e == cudaSuccess)
-    e = cache_map<T>(&m.v, vc, a.B, Tlen, a.Hkv, a.D, a.Skv);
+  cudaError_t e = prefill_maps<T>(&m, kc, vc, Tlen, a);
   return e == cudaSuccess ? launch<T, DP>(m, a) : e;
 }
+
+// D > 256: B8 and B9 (route kind) on the column-group kernel
+template <typename T>
+cudaError_t run_fwd_cols(const void* k, const void* v, const Args& a,
+                         int kind) {
+  Maps m;
+  cudaError_t e = fwd_maps<T>(&m, a.q, k, v, a);
+  return e == cudaSuccess ? launch_cols<T>(m, a, kind) : e;
+}
+
+template <typename T>
+cudaError_t run_prefill_cols(const void* kc, const void* vc, int Tlen,
+                             const Args& a, int kind) {
+  Maps m;
+  cudaError_t e = prefill_maps<T>(&m, kc, vc, Tlen, a);
+  return e == cudaSuccess ? launch_cols<T>(m, a, kind) : e;
+}
+
 
 }  // namespace
 
@@ -674,18 +838,27 @@ int attn_fwd_wgmma(int dtype, int head_dim, const void* q, const void* k,
                    cudaStream_t st) {
   const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
                st};
+  if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > 256)
+    SM90_COLS_DISPATCH(run_fwd_cols, k, v, a, ROUTE_FWD_COLS_WGMMA)
   SM90_DISPATCH(run_fwd, k, v, a)
 }
 
 // Called by accl_attn_decode (attention.cu) for 16-bit chunks of S_new > 1
-// new tokens: B12's prefill route. q and o (B, H, S_new, D); the caches
-// (B, T, Hkv, D), filled through kv_len.
+// new tokens: B12's prefill route; at D > 256 also for S_new == 1 (the
+// column-group kernel). q and o (B, H, S_new, D); the caches (B, T, Hkv,
+// D), filled through kv_len.
 int attn_prefill_wgmma(int dtype, int head_dim, const void* q,
                        const void* kc, const void* vc, void* o, int B, int H,
                        int Hkv, int Tlen, int s_new, int kv_len, float scale,
                        cudaStream_t st) {
   const Args a{q, o, nullptr, B, H, Hkv, s_new, kv_len, 1, kv_len - s_new,
                1, head_dim, scale, st};
+  if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > 256)
+    SM90_COLS_DISPATCH(run_prefill_cols, kc, vc, Tlen, a,
+                       s_new == 1 ? ROUTE_DECODE_COLS_WGMMA
+                                  : ROUTE_PREFILL_COLS_WGMMA)
   SM90_DISPATCH(run_prefill, kc, vc, Tlen, a)
 }
 
@@ -696,5 +869,8 @@ int attn_fwd_single_wgmma(int dtype, int head_dim, const void* q,
                           float scale, cudaStream_t st) {
   const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
                st};
+  if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > 256)
+    SM90_COLS_DISPATCH(run_fwd_cols, k, v, a, ROUTE_FWD_SINGLE_COLS_WGMMA)
   SM90_DISPATCH(run_single, k, v, a)
 }

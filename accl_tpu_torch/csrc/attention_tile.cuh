@@ -9,19 +9,7 @@
 
 #include "common.cuh"
 
-#ifndef ACCL_ATTN_ROUTE
-#define ACCL_ATTN_ROUTE
-// The route of the last attention launch, set by the launcher that made
-// it: kind << 16 | dtype code << 12 | column tier (ROUTE_* below; read
-// through accl_attn_last_route, attention.cu).
-void set_attn_route(int kind, int dtype, int tier);
-enum {
-  ROUTE_FWD_WGMMA = 1, ROUTE_FWD_SINGLE_WGMMA = 2, ROUTE_PREFILL_WGMMA = 3,
-  ROUTE_DECODE_SPLIT = 4, ROUTE_FWD_TF32 = 5, ROUTE_FWD_SINGLE_TF32 = 6,
-  ROUTE_PREFILL_TF32 = 7, ROUTE_BWD_DKV_WGMMA = 8, ROUTE_BWD_DQ_WGMMA = 9,
-  ROUTE_BWD_DKV_TF32 = 10, ROUTE_BWD_DQ_TF32 = 11
-};
-#endif
+#include "attention_route.cuh"
 
 namespace {
 

@@ -15,7 +15,11 @@
 // thread.
 //
 // f16 and bf16 compute in f32 and round once; integers wrap (two's
-// complement), as XLA and torch do.
+// complement), as XLA and torch do. fp8 (e4m3fn, e5m2) decodes each code
+// to f32, computes as f32 and encodes once with common.cuh's software
+// encode (the hardware cvt's satfinite form clamps where the reference
+// gives NaN or inf); NaN results take the reference's codes (OpFP8). A
+// thread-step is 16 fp8 values.
 
 #include "stream.cuh"
 
@@ -52,6 +56,29 @@ struct OpBF16 {
     float r = apply_f32<F>(__bfloat162float(__ushort_as_bfloat16(a)),
                            __bfloat162float(__ushort_as_bfloat16(b)));
     return __bfloat16_as_ushort(__float2bfloat16_rn(r));
+  }
+};
+
+// fp8 codes of wire W (W_E4M3, W_E5M2). NaN codes as XLA gives them: an
+// e5m2 NaN result is 0x7F; an e4m3fn SUM or PROD returns a NaN operand's
+// code (a's first), and MAX (MIN) of two NaNs the negative (positive)
+// one. Every other result is encode(f32 result): overflow to NaN (e4m3fn)
+// or inf (e5m2), round to nearest even.
+template <int F, int W>
+struct OpFP8 {
+  typedef uint8_t S;
+  static __device__ __forceinline__ S apply(S a, S b) {
+    const float fa = decode(a, W), fb = decode(b, W);
+    const float r = apply_f32<F>(fa, fb);
+    if (W == W_E5M2) return r != r ? 0x7F : static_cast<S>(encode(r, W));
+    const bool na = fa != fa, nb = fb != fb;
+    if (F == F_SUM || F == F_PROD) {
+      if (na) return a;
+      if (nb) return b;
+    } else if (na && nb) {
+      return F == F_MAX ? (a | b) : (a & b);
+    }
+    return static_cast<S>(encode(r, W));
   }
 };
 
@@ -107,13 +134,15 @@ static int launch_dtype(int dtype, const Rows& a, const Rows& b,
     case 4: launch<OpInt<F, int32_t, uint32_t> >(a, b, o, nrows, n, st); break;
     case 5: launch<OpInt<F, long long, unsigned long long> >(a, b, o, nrows, n, st); break;
     case 6: launch<OpInt<F, int8_t, uint32_t> >(a, b, o, nrows, n, st); break;
+    case 7: launch<OpFP8<F, W_E4M3> >(a, b, o, nrows, n, st); break;
+    case 8: launch<OpFP8<F, W_E5M2> >(a, b, o, nrows, n, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // func: 0 SUM, 1 MAX, 2 MIN, 3 PROD. dtype: 0 f32, 1 f16, 2 bf16, 3 f64,
-// 4 i32, 5 i64, 6 i8. a, b, out: host arrays of nrows device pointers,
+// 4 i32, 5 i64, 6 i8, 7 e4m3fn, 8 e5m2. a, b, out: host arrays of nrows device pointers,
 // each row n elements. Returns cudaGetLastError() after the launch.
 extern "C" int accl_combine(int func, int dtype, int nrows, long long n,
                             const u64* a, const u64* b, const u64* out,

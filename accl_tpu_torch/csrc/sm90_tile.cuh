@@ -13,19 +13,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef ACCL_ATTN_ROUTE
-#define ACCL_ATTN_ROUTE
-// The route of the last attention launch, set by the launcher that made
-// it: kind << 16 | dtype code << 12 | column tier (ROUTE_* below; read
-// through accl_attn_last_route, attention.cu).
-void set_attn_route(int kind, int dtype, int tier);
-enum {
-  ROUTE_FWD_WGMMA = 1, ROUTE_FWD_SINGLE_WGMMA = 2, ROUTE_PREFILL_WGMMA = 3,
-  ROUTE_DECODE_SPLIT = 4, ROUTE_FWD_TF32 = 5, ROUTE_FWD_SINGLE_TF32 = 6,
-  ROUTE_PREFILL_TF32 = 7, ROUTE_BWD_DKV_WGMMA = 8, ROUTE_BWD_DQ_WGMMA = 9,
-  ROUTE_BWD_DKV_TF32 = 10, ROUTE_BWD_DQ_TF32 = 11
-};
-#endif
+#include "attention_route.cuh"
 
 namespace {
 
@@ -287,13 +275,14 @@ __device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
 }
 
 // all NB column blocks of an R-row tile (rows row .. row + R - 1 of head
-// `head`) on barrier `bar`
+// `head`, columns col0 .. col0 + DP - 1) on barrier `bar`
 template <int DP, int R>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int head) {
+                                         uint32_t bar, int row, int head,
+                                         int col0 = 0) {
 #pragma unroll
   for (int b = 0; b < Cols<DP>::NB; ++b)
-    tma_load(dst + b * R * ROW, map, bar, b * 64, row, head);
+    tma_load(dst + b * R * ROW, map, bar, col0 + b * 64, row, head);
 }
 
 // the same from a 4-D map: rows row .. row + R - 1 of head `head` of
@@ -301,10 +290,57 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 template <int DP, int R>
 __device__ __forceinline__ void tma_tile4(uint32_t dst, const CUtensorMap* map,
                                           uint32_t bar, int head, int row,
-                                          int batch) {
+                                          int batch, int col0 = 0) {
 #pragma unroll
   for (int b = 0; b < Cols<DP>::NB; ++b)
-    tma_load4(dst + b * R * ROW, map, bar, b * 64, head, row, batch);
+    tma_load4(dst + b * R * ROW, map, bar, col0 + b * 64, head, row, batch);
+}
+
+// The column-group form of head dims past 256 (both sm90 sources): a
+// block keeps one group of WGRP output columns (grid z), and forms the
+// products over the head dim (S = Q K^T, the backward's dP) in chunks of
+// WCH columns (D a multiple of WCH), each group the same chunks in the
+// same order, so every group reaches the same scores bit for bit. Tiles stream through a ring
+// of two slots of WSLOT bytes on their own barriers, one load a step.
+constexpr int WCH = 128;   // a chunk of the head dim: two 64-column blocks
+constexpr int WGRP = 256;  // the columns of O or dQ a block keeps
+constexpr int WSLOT = 4 * BKV * WCH * 2;  // a ring slot: 64 KB
+
+// the chunks of head dim d
+__host__ __device__ constexpr int wide_chunks(int d) {
+  return (d + WCH - 1) / WCH;
+}
+
+// the bytes of an R-row tile's 64-column blocks from column col0 that
+// hold a column below d (tma_tile_live loads those; blocks wholly past d
+// are not loaded: they feed only columns of a result past d, which are
+// never stored)
+template <int DP, int R>
+__device__ __forceinline__ uint32_t live_bytes(int col0, int d) {
+  const int n = (d - col0 + 63) / 64;
+  return (n < 0 ? 0 : n > Cols<DP>::NB ? Cols<DP>::NB : n) * R * ROW;
+}
+
+// the live column blocks of an R-row tile (tma_tile's layout) from a
+// 3-D map
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile_live(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int row, int head,
+                                              int col0, int d) {
+  for (int b = 0; b < Cols<DP>::NB && col0 + b * 64 < d; ++b)
+    tma_load(dst + b * R * ROW, map, bar, col0 + b * 64, row, head);
+}
+
+// the same from a 4-D map {D, heads, S, batch}
+template <int DP, int R>
+__device__ __forceinline__ void tma_tile4_live(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int head,
+                                               int row, int batch, int col0,
+                                               int d) {
+  for (int b = 0; b < Cols<DP>::NB && col0 + b * 64 < d; ++b)
+    tma_load4(dst + b * R * ROW, map, bar, col0 + b * 64, head, row, batch);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -425,4 +461,12 @@ cudaError_t set_smem(K kernel, int bytes) {
     case 2192: return FN<__half, 192>(__VA_ARGS__);              \
     case 2256: return FN<__half, 256>(__VA_ARGS__);              \
     default: return cudaErrorInvalidValue;                       \
+  }
+
+// dtype code (1 bf16, 2 f16) -> FN<T>: the column-group kernels (D > 256)
+#define SM90_COLS_DISPATCH(FN, ...)                             \
+  switch (dtype) {                                              \
+    case 1: return FN<__nv_bfloat16>(__VA_ARGS__);              \
+    case 2: return FN<__half>(__VA_ARGS__);                     \
+    default: return cudaErrorInvalidValue;                      \
   }

@@ -1,6 +1,7 @@
-// Helpers of the f32 attention backward's tensor-core route
-// (attention_bwd.cu): 3xTF32 products on mma.sync m16n8k8, ldmatrix of
-// 32-bit words, and cp.async copies into shared memory.
+// Helpers of the f32 attention routes on the tensor cores (attention.cu,
+// attention_bwd.cu): 3xTF32 products on mma.sync m16n8k8, ldmatrix of
+// 32-bit words, cp.async copies into shared memory, and the row-tile
+// products of the backward and of the column-group forms.
 //
 // 3xTF32: an f32 operand a splits into hi = tf32(a) and lo = tf32(a - hi)
 // (cvt.rna: 10 mantissa bits, ties away from zero), and a product a*b is
@@ -97,6 +98,115 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
   mma_tf32(c, a.lo, b.hi);
   mma_tf32(c, a.hi, b.lo);
   mma_tf32(c, a.hi, b.hi);
+}
+
+// R rows of `cols` floats (row r at src + r * stride) into shared memory
+// at pitch P, DP columns, by 16-byte cp.async from NTH threads; rows at or
+// past n and columns at or past cols are zeros, nothing past them read.
+// UNROLL copies a thread are unrolled (all of them by default).
+template <int DP, int R, int P, int NTH,
+          int UNROLL = (R * DP / 4 + NTH - 1) / NTH>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src, int n,
+                                        int cols, long long stride) {
+  constexpr int CPR = DP / 4, N = R * CPR;
+#pragma unroll(UNROLL)
+  for (int p = 0; p < (N + NTH - 1) / NTH; ++p) {
+    const int i = threadIdx.x + p * NTH;
+    if (N % NTH != 0 && i >= N) break;
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool ok = r < n && c < cols;
+    cp_async16(dst + r * P + c, src + (ok ? r * stride + c : 0), ok);
+  }
+}
+
+// x (16 x 32) = A B^T over the DP columns: A the 16 rows at a, B the 32
+// rows at b (pitch DP + 4 each); x[j] holds columns 8j..8j+7. Operands by
+// ldmatrix: A's tile m is rows 8*(m&1).., words 4*(m>>1)..; a pair of B's
+// n-tiles is rows 8*(m>>1).., words 4*(m&1)..
+template <int DP>
+__device__ __forceinline__ void rows16_x_rows32(const float* a,
+                                                const float* b,
+                                                float (&x)[4][4]) {
+  constexpr int P = DP + 4;
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  const float* pa = a + (r + 8 * (m & 1)) * P + 4 * (m >> 1);
+  const float* pb = b + (r + 8 * (m >> 1)) * P + 4 * (m & 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c) {
+    uint32_t w[4];
+    ldsm_x4(w, pa + 8 * c);
+    FragA fa;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fa.set(i, __uint_as_float(w[i]));
+#pragma unroll
+    for (int jj = 0; jj < 4; jj += 2) {
+      ldsm_x4(w, pb + 8 * jj * P + 8 * c);
+      FragB f0, f1;
+      f0.set(0, __uint_as_float(w[0]));
+      f0.set(1, __uint_as_float(w[1]));
+      f1.set(0, __uint_as_float(w[2]));
+      f1.set(1, __uint_as_float(w[3]));
+      mma_3xtf32(x[jj], fa, f0);
+      mma_3xtf32(x[jj + 1], fa, f1);
+    }
+  }
+}
+
+// x += A B^T over DP columns, summed in a fresh accumulator and added in
+// f32 (the tensor core truncates as it accumulates: a long run of
+// products in one accumulator drifts, so the column-group forms add their
+// chunks this way)
+template <int DP>
+__device__ __forceinline__ void add_rows16_x_rows32(const float* a,
+                                                    const float* b,
+                                                    float (&x)[4][4]) {
+  float part[4][4];
+  rows16_x_rows32<DP>(a, b, part);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = __fadd_rn(x[j][e], part[j][e]);
+}
+
+// acc (16 x CW) += x (16 x 32) B, B the CW columns at b of 32 rows
+// (pitch DP + 4). x is an accumulator (columns 2t, 2t+1 of a thread) and
+// serves as the A operand with its columns standing as k = t, t + 4: B's
+// rows are read in the same order, row 8j + 2t as k = t and 8j + 2t + 1
+// as k = t + 4. The tile's 32 rows sum in a fresh accumulator, added to
+// acc with an f32 add: the tensor core's accumulation (truncating) spans
+// 12 products, not the whole sequence.
+template <int DP, int CW>
+__device__ __forceinline__ void rows_accumulate(float (&x)[4][4],
+                                                const float* b,
+                                                float (&acc)[CW / 8][4]) {
+  constexpr int P = DP + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  FragA fa[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fa[j].set(0, x[j][0]);
+    fa[j].set(1, x[j][2]);
+    fa[j].set(2, x[j][1]);
+    fa[j].set(3, x[j][3]);
+  }
+  const float* row = b + 2 * t * P + g;
+#pragma unroll
+  for (int c = 0; c < CW / 8; ++c) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      FragB fb;
+      fb.set(0, row[8 * j * P + 8 * c]);
+      fb.set(1, row[(8 * j + 1) * P + 8 * c]);
+      mma_3xtf32(part, fa[j], fb);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = __fadd_rn(acc[c][e], part[e]);
+  }
 }
 
 }  // namespace

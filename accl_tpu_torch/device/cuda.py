@@ -1379,17 +1379,32 @@ class CudaDevice(Device):
         }[op]
 
         # -- device-resident path: in place, no host copies -----------------
+        # On fp8 the reference's routes hold bitwise (its folds differ from
+        # a ring's or the tree's rounding at every step): a resident reduce
+        # is its 1-D program on the call's algorithm, never the tree.
+        fp8_reduce = (op == CCLOp.reduce and cfg.uncompressed_dtype in (
+            torch.float8_e4m3fn, torch.float8_e5m2))
         srcs = self._resident(descs, devs, cfg, "addr_0", n_in, src_ranks)
         dsts = self._resident(descs, devs, cfg, dst_addr, n_out, dst_ranks)
         if srcs is not None and dsts is not None:
             if op == CCLOp.bcast:
                 dsts[root] = srcs[root]
+            if fp8_reduce and tree is not None:
+                call = functools.partial(coll.reduce, root=root,
+                                         func=d0.function, wire_dtype=wire,
+                                         algorithm=alg)
             call(srcs, out=dsts)
             return 0
 
         # -- host-staged path ------------------------------------------------
         rows = [devs[r]._read_operand(d.addr_0, n_in, d)
                 for r, d in enumerate(descs)]
+        if fp8_reduce and tree is None:
+            # the reference's host-staged 1-D reduce runs its xla program
+            # whatever the selector
+            call = functools.partial(coll.reduce, root=root,
+                                     func=d0.function, wire_dtype=wire,
+                                     algorithm="xla")
         out = call(rows)
         self._land(out, descs, devs, dst_addr, dst_ranks)
         return 0

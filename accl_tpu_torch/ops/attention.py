@@ -47,16 +47,23 @@ PyTorch versions (``*_ref``).
   ``attn_decode_kernel`` of ``csrc/attention.cu``, B8's 3xTF32 tile over
   the cache in its own layout.
 
-The kernels take f32, bf16 or f16 operands with any head dim D up to
-``MAX_HEAD_DIM`` (256): each kernel is built on a few column tiers and
-takes D at run time, a multiple of 8 (the tensor maps' 16-byte rows);
-for another D the wrapper zero-pads q, k and v (and dO) to the next
-multiple of 8, keeps the scale at the true D's, and slices the outputs:
-zero columns change no score and give zero output columns, and the same
-kernel runs. A CUDA call with another dtype raises TypeError, one with D
-past 256 ValueError: a 64 x D f32 accumulator no longer fits a
-warpgroup's registers (ROADMAP §C). The reference's wrappers check
-neither.
+The kernels take f32, bf16 or f16 operands with any head dim D: each
+kernel is built on a few column tiers and takes D at run time, a
+multiple of 8 (the tensor maps' 16-byte rows); for another D the wrapper
+zero-pads q, k and v (and dO) to the next multiple of 8 (of 128 on the
+16-bit column-group kernels), keeps the scale at the true D's, and
+slices the outputs: zero columns change no score
+and give zero output columns, and the same kernel runs. Past
+``COLS_HEAD_DIM`` (256), where a 64 x D f32 accumulator no longer fits a
+warpgroup's registers, every kind runs its column-group form, one launch
+a call: a block keeps one group of the output columns (grid z) and
+forms S (and the backward's dP) over the whole head dim in chunks, each
+group the same chunks in the same order (``attn_fwd_cols_wgmma_kernel``
+and ``attn_bwd_{dkv,dq}_cols_wgmma_kernel`` for 16-bit operands,
+``attn_fwd_cols_kernel``, ``attn_decode_cols_kernel`` and
+``attn_bwd_{dkv,dq}_cols_kernel`` for f32; a single-token decode runs the
+prefill form). A CUDA call with another dtype raises TypeError. The
+reference's wrappers check neither.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
@@ -84,13 +91,22 @@ from .. import _build
 _NEG_INF = torch.finfo(torch.float32).min
 # csrc/attention.cu's dtype codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_HEAD_DIM = 256       # a 64 x D f32 accumulator per warpgroup
-KERNEL_D_STEP = 8        # the kernels' head dims: multiples of 8
-# the route codes of csrc/attention_tile.cuh (ROUTE_*)
+COLS_HEAD_DIM = 256      # past it: the column-group kernels
+KERNEL_D_STEP = 8        # the kernels' head dims: multiples of 8 ...
+COLS_CHUNK = 128         # ... and of 128 on the 16-bit column-group ones
+_HALF = (torch.bfloat16, torch.float16)
+# the route codes of csrc/attention_route.cuh (ROUTE_*); "_cols": the
+# column-group form of head dims past COLS_HEAD_DIM
 ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
           7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
-          10: "bwd_dkv_tf32", 11: "bwd_dq_tf32"}
+          10: "bwd_dkv_tf32", 11: "bwd_dq_tf32",
+          12: "fwd_wgmma_cols", 13: "fwd_single_wgmma_cols",
+          14: "prefill_wgmma_cols", 15: "decode_wgmma_cols",
+          16: "fwd_tf32_cols", 17: "fwd_single_tf32_cols",
+          18: "prefill_tf32_cols", 19: "decode_tf32_cols",
+          20: "bwd_dkv_wgmma_cols", 21: "bwd_dq_wgmma_cols",
+          22: "bwd_dkv_tf32_cols", 23: "bwd_dq_tf32_cols"}
 _DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
@@ -154,24 +170,23 @@ def _kernel_ready(what: str, *ts):
     if t0.dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} kernel: unsupported dtype {t0.dtype} "
                         f"(float32, bfloat16 or float16)")
-    if t0.shape[-1] % KERNEL_D_STEP or t0.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(f"{what} kernel: head dim {t0.shape[-1]} not a "
-                         f"multiple of {KERNEL_D_STEP} up to {MAX_HEAD_DIM}")
-
-
-def _check_head_dim(D: int, what: str):
-    """A CUDA call's head dim: at most MAX_HEAD_DIM (the wrapper pads any
-    smaller one to a multiple of KERNEL_D_STEP)."""
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {D} past the kernels' bound "
-                         f"{MAX_HEAD_DIM} (a 64 x D f32 accumulator per "
-                         f"warpgroup)")
+    D = t0.shape[-1]
+    step = (COLS_CHUNK if D > COLS_HEAD_DIM and t0.dtype in _HALF
+            else KERNEL_D_STEP)
+    if D % step or D < step:
+        raise ValueError(f"{what} kernel: head dim {D} not a positive "
+                         f"multiple of {step} (the wrapper pads to one)")
 
 
 def _pad_d(*ts):
     """``ts`` zero-padded in their last dim to the next multiple of
-    KERNEL_D_STEP (as they are when already a multiple)."""
-    pad = -ts[0].shape[-1] % KERNEL_D_STEP
+    KERNEL_D_STEP, or of COLS_CHUNK for the 16-bit column-group kernels
+    (D > COLS_HEAD_DIM: their chunks of S are whole TMA tiles); as they
+    are when already a multiple."""
+    D = ts[0].shape[-1]
+    step = (COLS_CHUNK if D > COLS_HEAD_DIM and ts[0].dtype in _HALF
+            else KERNEL_D_STEP)
+    pad = -D % step
     if not pad:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
@@ -187,11 +202,12 @@ def _took_route():
     key = (route, _DTYPE_NAMES.get((code >> 12) & 15, "unknown"),
            code & 0xFFF)
     route_launches[key] = route_launches.get(key, 0) + 1
-    if route == "fwd_wgmma":
+    base = route.removesuffix("_cols")   # the tensor-core counters: both forms
+    if base == "fwd_wgmma":
         fwd_wgmma_launches += 1
-    elif route == "fwd_single_wgmma":
+    elif base == "fwd_single_wgmma":
         fwd_single_wgmma_launches += 1
-    elif route == "prefill_wgmma":
+    elif base == "prefill_wgmma":
         prefill_wgmma_launches += 1
     elif route == "decode_split":
         decode_split_launches += 1
@@ -288,7 +304,6 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         return flash_attention_ref(q, k, v, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    _check_head_dim(D, "flash_attention")
     q, k, v = _pad_d(q, k, v)
     _kernel_ready("flash_attention", q, k, v)
     o = torch.empty_like(q)
@@ -412,7 +427,6 @@ def _bwd_launch(name, what, q, do, k, v, lse, delta, make_outs, causal,
     """Launch B10 or B11 with outputs ``make_outs(q_padded)`` (a tuple);
     returns them sliced back to the true head dim."""
     D = q.shape[-1]
-    _check_head_dim(D, what)
     q, do, k, v = _pad_d(q, do, k, v)
     _kernel_ready(what, q, do, k, v)
     for t in (lse, delta):
@@ -646,13 +660,13 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
         return flash_decode_ref(q, k_cache, v_cache, kv_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
-    _check_head_dim(D, "flash_decode")
     q, k_cache, v_cache = _pad_d(q, k_cache, v_cache)
     _kernel_ready("flash_decode", q, k_cache, v_cache)
     DK = q.shape[-1]
     o = torch.empty_like(q)
     n_split, ws, counters = 0, None, None
-    if S_new == 1:    # the split route's counters and partials (acc, m, l)
+    split = S_new == 1 and DK <= COLS_HEAD_DIM
+    if split:         # the split route's counters and partials (acc, m, l)
         n_split = decode_splits(B, Hkv, T, _sm_count(q.device))
         counters = _split_counters(q.device, B * H)
         ws = torch.empty(B * H * n_split * (DK + 2), dtype=torch.float32,
@@ -665,7 +679,7 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     _took_route()
     if S_new == 1:
         decode_launches += 1
-        last_decode_splits = n_split
+        last_decode_splits = n_split if split else None
     else:
         prefill_launches += 1
     return o if DK == D else o[..., :D].contiguous()

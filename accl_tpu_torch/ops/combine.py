@@ -9,6 +9,13 @@ the plain PyTorch version of the same arithmetic. It takes one operand
 pair, or lists of per-rank rows: one launch then covers every row (a
 ring hop over all W ranks). ``combine.launches`` counts the kernel's
 launches.
+
+fp8 operands (e4m3fn, e5m2) are decoded to f32, combined as f32 and
+encoded once with the reference's rounding (round to nearest even;
+e4m3fn overflow to NaN, e5m2 overflow to inf). The NaN codes are the
+reference's (XLA's): an e5m2 NaN result is 0x7F whatever its operands;
+an e4m3fn SUM or PROD returns a NaN operand as it is (the first one when
+both are), and MAX (MIN) of two NaNs is the negative (positive) one.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from ..constants import ReduceFunc
 # dtype -> the kernel's dtype code (csrc/combine.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
                 torch.float64: 3, torch.int32: 4, torch.int64: 5,
-                torch.int8: 6}
+                torch.int8: 6, torch.float8_e4m3fn: 7, torch.float8_e5m2: 8}
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 MAX_ROWS = 32   # ACCL_MAX_ROWS of csrc/common.cuh
 
 
@@ -58,11 +66,37 @@ def _rows(x) -> list:
     return [x] if isinstance(x, torch.Tensor) else list(x)
 
 
+def _fp8_apply(a: torch.Tensor, b: torch.Tensor,
+               func: ReduceFunc) -> torch.Tensor:
+    """func(a, b) of two fp8 tensors as the kernel computes it: in f32
+    from the decoded codes, encoded once, with the NaN codes of the
+    module docstring."""
+    from .compression import decode_ref, encode_ref
+    name = str(a.dtype).removeprefix("torch.")
+    ca, cb = a.view(torch.uint8), b.view(torch.uint8)
+    fa, fb = decode_ref(ca, name), decode_ref(cb, name)
+    r = FUNCS[func](fa, fb)
+    code = encode_ref(r, name)
+    if a.dtype == torch.float8_e5m2:
+        code = torch.where(torch.isnan(r), 0x7F, code)
+    else:
+        na, nb = torch.isnan(fa), torch.isnan(fb)
+        if func in (ReduceFunc.SUM, ReduceFunc.PROD):
+            code = torch.where(na, ca, torch.where(nb, cb, code))
+        else:
+            both = ca | cb if func == ReduceFunc.MAX else ca & cb
+            code = torch.where(na & nb, both, code)
+    return code.to(torch.uint8).view(a.dtype)
+
+
 def combine_ref(a, b, func: ReduceFunc = ReduceFunc.SUM, out=None):
     """Plain PyTorch version of :func:`combine` (any device)."""
     single = isinstance(a, torch.Tensor)
     a_rows, b_rows = _rows(a), _rows(b)
-    res = [FUNCS[ReduceFunc(func)](x, y) for x, y in zip(a_rows, b_rows)]
+    func = ReduceFunc(func)
+    op = _fp8_apply if a_rows[0].dtype in FP8_DTYPES else \
+        (lambda x, y, f: FUNCS[f](x, y))
+    res = [op(x, y, func) for x, y in zip(a_rows, b_rows)]
     if out is not None:
         for o, r in zip(_rows(out), res):
             o.copy_(r)

@@ -21,7 +21,8 @@ families, as there:
   requantizing; allgather lands the bytes its source quantized once
   (relays forward them unchanged), and the own chunk lands exact.
 * ``xla`` — what ``psum`` / ``psum_scatter`` / ``all_gather`` compute,
-  written as plain torch reductions over the rank axis. PROD has no
+  written as plain torch reductions over the rank axis (fp8 rows: the
+  f16 fold of ``ordered_fold`` on B1 and B2, as XLA sums fp8). PROD has no
   such reduction in the reference and falls back to the ring. With a
   per-tensor wire: the exchange moves wire payloads (fp8 with one scale
   per (rank, chunk) on the reduce-scatter, one per rank on the
@@ -359,16 +360,46 @@ def ring_allreduce_bs(rows, func: ReduceFunc, wire: str, qblock: int,
 
 # -- "xla" family: plain reductions over the rank axis ----------------------
 
-def xla_allreduce(rows, func: ReduceFunc, out_rows):
-    red = _axis_reduce(torch.stack(rows), func)
+def ordered_fold(parts, func: ReduceFunc, k: Kernels = KERNELS) -> list:
+    """Fold ``parts`` (equal lists of rows) in order with B1, one launch
+    a step over every row: ((p0 . p1) . p2) .... On fp8 rows a SUM folds
+    in f16 (B2 up, rounding to f16 after each add) and rounds once to the
+    fp8 format (B2 down), as XLA's psum of fp8 does (the reference's flat
+    mesh and dcn axis); MAX, MIN and PROD fold on B1's fp8 path, rounding
+    to fp8 after each step (the reference's all_gather and rank-order
+    product for PROD). Returns the folded rows."""
+    dt = parts[0][0].dtype
+    if _is_fp8(parts[0][0]) and func == ReduceFunc.SUM:
+        parts = [recast(k, list(p), torch.float16) for p in parts]
+    acc = list(parts[0])
+    for p in parts[1:]:
+        acc = k.combine(acc, list(p), func)
+    return recast(k, acc, dt)
+
+
+def _is_fp8(t: torch.Tensor) -> bool:
+    return str(t.dtype).removeprefix("torch.") in FP8_DTYPE_NAMES
+
+
+def _rank_reduce(rows, func: ReduceFunc, k: Kernels) -> torch.Tensor:
+    """``rows`` reduced over the rank axis: on fp8 rows the fold of
+    ``ordered_fold``, else a plain reduction."""
+    if _is_fp8(rows[0]):
+        return ordered_fold([[r] for r in rows], func, k)[0]
+    return _axis_reduce(torch.stack(list(rows)), func)
+
+
+def xla_allreduce(rows, func: ReduceFunc, out_rows, k: Kernels = KERNELS):
+    red = _rank_reduce(rows, func, k)
     for o in out_rows:
         o.copy_(red)
     return out_rows
 
 
-def xla_reduce_scatter(rows, func: ReduceFunc, out_rows):
+def xla_reduce_scatter(rows, func: ReduceFunc, out_rows,
+                       k: Kernels = KERNELS):
     W = len(rows)
-    red = _axis_reduce(torch.stack(rows).view(W, W, -1), func)
+    red = _rank_reduce(rows, func, k).view(W, -1)
     for r, o in enumerate(out_rows):
         o.copy_(red[r])
     return out_rows
@@ -692,9 +723,9 @@ class RankCollectives:
                 xla_compressed_allgather(rows, wire, dst, k)
         elif algorithm == "xla":
             if op == "allreduce":
-                xla_allreduce(rows, func, dst)
+                xla_allreduce(rows, func, dst, k)
             elif op == "reduce_scatter":
-                xla_reduce_scatter(rows, func, dst)
+                xla_reduce_scatter(rows, func, dst, k)
             else:
                 xla_allgather(rows, dst)
         else:

@@ -13,7 +13,8 @@ process or one a process of a ``torch.distributed`` group:
 * :func:`hierarchical_allreduce`: reduce-scatter inside each ici group
   (the ring: one B1 launch a hop), the owned shard reduced across the
   slices in a fixed slice order (B1, in the ``wire_dtype`` where one is
-  given: a B2 cast down, B1 in the wire dtype, a B2 cast back), then an
+  given: a B2 cast down, B1 in the wire dtype, a B2 cast back; on an fp8
+  wire a SUM folds in f16, as XLA's psum of fp8 does), then an
   allgather inside each ici group. Across processes the dcn hop moves
   the owned shards with ``all_gather`` over gloo, staged through pinned
   host memory as bytes, and the combine runs on this process's device.
@@ -33,15 +34,17 @@ import torch.nn.functional as F
 
 from ..arith import dtype_name, to_torch_dtype
 from ..constants import ReduceFunc
-from .collectives import KERNELS, Kernels, RankCollectives, recast
+from .collectives import (KERNELS, WIRE_LANE_NAMES, Kernels,
+                          RankCollectives, ordered_fold, recast)
 from .mesh import RankGroup, RankMesh, resolve_device
 
 __all__ = ["HybridMesh", "hybrid_mesh", "hierarchical_allreduce",
            "hierarchical_allreduce_sharded", "distributed_init",
            "slice_count"]
 
-# the dcn hop's wire: the dtypes B1 combines in
-DCN_WIRES = ("float16", "bfloat16")
+# the dcn hop's wires: the per-tensor lanes' (f16, bf16, e4m3fn, e5m2),
+# all of which B1 combines in; int8 is refused, as the lanes refuse it
+DCN_WIRES = WIRE_LANE_NAMES
 # the virtual ranks of a CPU process: the reference's 8-device CPU test
 # mesh, and cpu_mesh's default
 CPU_RANKS = 8
@@ -157,15 +160,6 @@ def _local_groups(mesh: HybridMesh, axis: str) -> list[list[int]]:
             if all(lo <= r < lo + mesh.local_size for r in g)]
 
 
-def _dcn_combine(shards, func: ReduceFunc, k: Kernels) -> list:
-    """Fold ``shards`` (n_slices lists of equal rows) in slice order:
-    ((s0 . s1) . s2) ..., one B1 launch over every row a step."""
-    acc = list(shards[0])
-    for s in range(1, len(shards)):
-        acc = k.combine(acc, list(shards[s]), func)
-    return acc
-
-
 def _exchange_slices(owned: torch.Tensor) -> torch.Tensor:
     """Every process's ``owned`` tensor, stacked in slice order: an
     all_gather over the process group, staged through (pinned) host
@@ -196,7 +190,9 @@ def hierarchical_allreduce(rows, mesh: HybridMesh, ici_axis: str = "ici",
     its full reduce and slice for MAX, MIN and PROD owns the same
     shard). Phase 2: the owned shard is reduced across the dcn groups in
     slice order (one launch a step; in ``wire_dtype`` where given, cast
-    down and back with B2). Phase 3: an allgather inside each ici group.
+    down and back with B2; an fp8 SUM folds in f16, see
+    ``collectives.ordered_fold``). Phase 3: an allgather inside each ici
+    group.
     Every rank gets the reduction over the ici and dcn axes. Returns a
     fresh (R, n) tensor."""
     if not isinstance(mesh, HybridMesh):
@@ -224,8 +220,9 @@ def hierarchical_allreduce(rows, mesh: HybridMesh, ici_axis: str = "ici",
         wire = None
     if wire is not None and wire not in DCN_WIRES:
         raise NotImplementedError(
-            f"a {wire} dcn wire: the hop combines in "
-            f"{', '.join(DCN_WIRES)} (B1's dtypes)")
+            f"a {wire} dcn wire: the hop takes {', '.join(DCN_WIRES)} "
+            f"(a plain int8 cast truncates; the per-tensor lanes refuse "
+            f"int8 too)")
     # phase 1: ring reduce-scatter inside each ici group
     owned = torch.empty((R, c), dtype=dt, device=dev)
     ici = _local_groups(mesh, ici_axis)
@@ -246,7 +243,7 @@ def hierarchical_allreduce(rows, mesh: HybridMesh, ici_axis: str = "ici",
     else:
         per = R
         shards = [list(t) for t in _exchange_slices(send)]
-    reduced = _dcn_combine(shards, func, k)
+    reduced = ordered_fold(shards, func, k)
     if wire is not None:
         reduced = recast(k, reduced, dt)
     # every slice's rank at the same ici position owns the same shard

@@ -579,7 +579,16 @@ def corpus_combine(rng):
                        f"combine {dtype} {func.name} unaligned")
             combine(rows_a, rows_b, func, out=rows_a)
             check_rows(rows_a, ref, f"combine {dtype} {func.name} in place")
-    print("combine: edge corpus bitwise over 7 dtypes x 4 funcs")
+    # fp8: every pair of codes (65,536 a format), NaN codes included
+    codes = torch.arange(256, dtype=torch.uint8, device="cuda")
+    for dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        a = codes.repeat_interleave(256).view(dtype)
+        b = codes.repeat(256).view(dtype)
+        for func in ReduceFunc:
+            check_rows([combine(a, b, func)], [combine_ref(a, b, func)],
+                       f"combine {dtype} {func.name} every code pair")
+    print("combine: edge corpus bitwise over 7 dtypes x 4 funcs; fp8 "
+          "(e4m3fn, e5m2) over every code pair x 4 funcs")
 
 
 def corpus_codec(rng):
@@ -670,7 +679,7 @@ def corpus_lanes(rng):
 
 
 COMBINE_DTYPES = ("float32", "float16", "bfloat16", "float64", "int32",
-                  "int64", "int8")
+                  "int64", "int8", "float8_e4m3fn", "float8_e5m2")
 CAST_PAIRS = tuple((a, b) for w in LANE_WIRES
                    for a, b in (("float32", w), (w, "float32")))
 EDGE_ROWS = (1, 7, 8, 32, 33)        # 33: two launches of 32 and 1 row
@@ -731,6 +740,9 @@ def stream_edges(rng):
         vec = combine_step(dt.itemsize)
 
         def make(shape, dt=dt):
+            if dt.itemsize == 1 and dt.is_floating_point:   # every code
+                return torch.randint(0, 1 << 8, shape, dtype=torch.uint8,
+                                     device="cuda", generator=gen).view(dt)
             if dt.is_floating_point:
                 return edge_values(rng, shape).to(dt)
             info = torch.iinfo(dt)
@@ -1104,6 +1116,86 @@ def kernel_records():
     del a, b, out, ra, rb, ro, q8, sc, iv, rsc, riv
     torch.cuda.empty_cache()
     return recs
+
+
+FP8_PAYLOADS = ("float8_e4m3fn", "float8_e5m2")
+
+
+def fp8_payload_phase(recs):
+    """3b: B1 on fp8 payloads. Each format's rows of the kernels line at
+    phase 3's shape (W rows of one 8 Mi ring chunk: one ring hop's launch,
+    random codes, NaN codes included): SUM, MAX, MIN and PROD bitwise
+    against the plain version, SUM timed beside it, the bound (3 bytes an
+    element) and torch.add where it takes fp8. Then the path: a W-rank
+    ring allreduce at 64 Mi fp8 a rank (``RankCollectives``, every hop one
+    B1 launch) bitwise the same call through the plain versions, with the
+    counts set to 0 just before it and read just after."""
+    import torch
+    from accl_tpu_torch.constants import ReduceFunc
+    from accl_tpu_torch.ops.combine import combine, combine_ref
+    from accl_tpu_torch.parallel.collectives import PLAIN, RankCollectives
+    from accl_tpu_torch.parallel.mesh import RankGroup
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    c = N // W
+    for name in FP8_PAYLOADS:
+        dt = getattr(torch, name)
+
+        def codes(shape):
+            return torch.randint(0, 256, shape, dtype=torch.uint8,
+                                 device="cuda", generator=g).view(dt)
+
+        a, b = codes((W, c)), codes((W, c))
+        ra, rb = list(a), list(b)
+        out = list(torch.empty_like(a))
+        err = 0.0
+        for func in ReduceFunc:
+            err = max(err, check_rows(combine(ra, rb, func, out=out),
+                                      combine_ref(ra, rb, func),
+                                      f"combine {name} {func.name} main"))
+        try:
+            fa, fb = a.view(-1), b.view(-1)
+            torch.add(fa, fb)
+            library_ms = time_ms(lambda: torch.add(fa, fb))  # noqa: B023
+        except (RuntimeError, NotImplementedError):
+            library_ms = None             # torch.add takes no fp8 here
+        bms, by = bound_ms(3 * N, N)
+        ms = time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=out))  # noqa: B023
+        plain_ms = time_ms(lambda: combine_ref(ra, rb, ReduceFunc.SUM,  # noqa: B023
+                                               out=out), reps=3)
+        recs.append({"name": f"combine_{name.removeprefix('float8_')}",
+                     "route": "cuda", "source": "accl_tpu_torch/csrc/combine.cu",
+                     "replaces": "accl_tpu/ops/combine.py:71", "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": library_ms})
+        print(f"kernel combine {name} (8 x 8 Mi, SUM, MAX, MIN and PROD "
+              f"bitwise the plain version): {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
+              f"{100 * bms / ms:.1f} % of it, library torch.add "
+              + (f"{library_ms:.4f} ms" if library_ms else "takes no fp8")
+              + f") ({CARD})")
+        del a, b, ra, rb, out
+        # the path: a W-rank ring allreduce of fp8 payloads
+        coll = RankCollectives(RankGroup(W, torch.device("cuda")))
+        plain = RankCollectives(RankGroup(W, torch.device("cuda")), PLAIN)
+        x = codes((W, N))
+        combine.launches = 0
+        got = coll.allreduce(x, ReduceFunc.SUM, "ring")
+        torch.cuda.synchronize()
+        n = combine.launches
+        check_rows(got, plain.allreduce(x, ReduceFunc.SUM, "ring"),
+                   f"fp8 ring allreduce {name}")
+        need(n > 0, f"fp8 ring allreduce {name}: B1 never launched")
+        recs[-1]["launches"] = n
+        recs[-1]["launches_by_path"] = {"fp8_payload": n}
+        dev_ms = time_ms(lambda: coll.allreduce(x, ReduceFunc.SUM, "ring"),  # noqa: B023
+                         reps=3)
+        print(f"fp8 ring allreduce {name}: {W} ranks x {N} a rank, bitwise "
+              f"the plain versions, {n} B1 launches, device {dev_ms:.3f} ms "
+              f"({CARD})")
+        del x, got
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # kernel family <- a substring of the device kernel's name (first match)
@@ -2238,8 +2330,10 @@ def fwd_route_mag(kind: str, args, kwargs=None):
     route), the allowance its limit adds for P's rounding (FWD_TOL): u *
     m, u P's unit (2^-8 bf16, 2^-11 f16), m ``fwd_rounding_magnitudes``,
     and for f16 2^-25 * s (``fwd_subnormal_magnitudes``); None for every
-    other call. ``kind`` "fwd": args as ``flash_attention_fwd``'s;
-    "decode": as ``flash_decode``'s."""
+    other call (a single-token decode on the split-KV kernel keeps f32;
+    past D = 256 it runs the tensor-core prefill form and rounds P too).
+    ``kind`` "fwd": args as ``flash_attention_fwd``'s; "decode": as
+    ``flash_decode``'s."""
     from accl_tpu_torch.ops import attention as A
     kwargs = kwargs or {}
     q = args[0]
@@ -2252,7 +2346,7 @@ def fwd_route_mag(kind: str, args, kwargs=None):
         off = 0
     else:
         kv_len = args[3] if len(args) > 3 else kwargs["kv_len"]
-        if q.shape[2] == 1:
+        if q.shape[2] == 1 and q.shape[-1] <= A.COLS_HEAD_DIM:
             return None                        # decode: split-KV, f32
         k, v = A.cache_prefix(args[1], args[2], kv_len)
         causal, scale = True, kwargs.get("sm_scale")
@@ -3393,6 +3487,56 @@ def tf32_kernels_checked():
               f"{len(bodies)} instantiations, TF32 HMMA instructions by "
               f"column tier {dict(sorted(counts.items()))}; ptxas registers "
               f"{dict(sorted(regs.items()))}, no spills")
+
+
+# the column-group forms (head dims past 256): the 16-bit kernels, one
+# instantiation per element type, and the f32 ones, one each
+COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel",
+                      "attn_bwd_dkv_cols_wgmma_kernel",
+                      "attn_bwd_dq_cols_wgmma_kernel")
+COLS_TF32_KERNELS = ("attn_fwd_cols_kernel", "attn_decode_cols_kernel",
+                     "attn_bwd_dkv_cols_kernel", "attn_bwd_dq_cols_kernel")
+
+
+def cols_kernels_checked():
+    """The column-group kernels in the built library: each 16-bit one
+    instantiated for bf16 and f16, with HGMMA on operands of its type;
+    each f32 one with TF32 HMMA; ptxas reports no spills for any. Prints
+    the counts and registers; fails otherwise."""
+    import re
+    funcs, ptx = sass_and_ptxas()
+    for kern in COLS_WGMMA_KERNELS:
+        bodies = {}
+        for f in funcs:
+            head = f.split("\n", 1)[0]
+            m = re.search(r"I(\w+?)EEv", head)
+            if kern in head and m and m.group(1) in WGMMA_TYPES:
+                bodies[WGMMA_TYPES[m.group(1)]] = f
+        need(set(bodies) == set(WGMMA_TYPES.values()),
+             f"{kern}: instantiations {sorted(bodies)} in the SASS")
+        counts = {}
+        for t, body in bodies.items():
+            ops = re.findall(r"HGMMA\.(\S+)", body)
+            bf = [o for o in ops if "BF16" in o]
+            need(ops and len(bf) == (len(ops) if t == "bf16" else 0),
+                 f"{kern} {t}: HGMMA forms {sorted(set(ops))}")
+            counts[t] = len(ops)
+        info = {k: v for k, v in ptx.items() if kern in k}
+        need(len(info) == 2 and all(v[1] == 0 for v in info.values()),
+             f"{kern}: ptxas reports {info}")
+        print(f"{kern}: bf16 and f16, HGMMA instructions {counts}; ptxas "
+              f"registers {sorted(v[0] for v in info.values())}, no spills")
+    for kern in COLS_TF32_KERNELS:
+        pat = rf"\d+{kern}"
+        bodies = [f for f in funcs if re.search(pat, f.split("\n", 1)[0])]
+        need(len(bodies) == 1, f"{kern}: {len(bodies)} bodies in the SASS")
+        n = len(re.findall(TF32_HMMA, bodies[0]))
+        need(n > 0, f"{kern}: no TF32 HMMA in its SASS")
+        info = {k: v for k, v in ptx.items() if re.search(pat, k)}
+        need(len(info) == 1 and all(v[1] == 0 for v in info.values()),
+             f"{kern}: ptxas reports {info}")
+        print(f"{kern}: TF32 HMMA instructions {n}; ptxas registers "
+              f"{[v[0] for v in info.values()]}, no spills")
 
 
 def bwd_operands(q, k, v, do, causal):
@@ -7590,9 +7734,10 @@ def rows_digest(t) -> str:
 def multislice_phase() -> tuple[dict, dict]:
     """16b: ``hierarchical_allreduce_sharded`` on ``hybrid_mesh((4,), 2)``
     (8 virtual ranks on the card, 64 Mi f32 a rank) for SUM, MAX, MIN and
-    PROD, and SUM with a bf16 dcn wire; ``multi_axis_ring_allreduce`` on a
-    (2, 2, 2) mesh; each bitwise the same call through the plain
-    versions, timed. Returns the drives' launch counts and the sha256 of
+    PROD, SUM with a bf16 dcn wire, and the four with an e4m3fn and an
+    e5m2 dcn wire; ``multi_axis_ring_allreduce`` on a (2, 2, 2) mesh, and
+    on it with the fp8 per-tensor wires; each bitwise the same call
+    through the plain versions, timed. Returns the drives' launch counts and the sha256 of
     each slice's SUM and bf16 results (16c's yardstick)."""
     import torch
     from accl_tpu_torch.constants import ReduceFunc
@@ -7618,6 +7763,9 @@ def multislice_phase() -> tuple[dict, dict]:
     cases = [(f.name, f, None) for f in (ReduceFunc.SUM, ReduceFunc.MAX,
                                         ReduceFunc.MIN, ReduceFunc.PROD)]
     cases.append(("SUM, bf16 dcn wire", ReduceFunc.SUM, "bfloat16"))
+    cases += [(f"{f.name}, {w} dcn wire", f, w) for w in FP8_PAYLOADS
+              for f in (ReduceFunc.SUM, ReduceFunc.MAX, ReduceFunc.MIN,
+                        ReduceFunc.PROD)]
     for what, func, wire in cases:
         before = {k: f.launches for k, f in counters().items()}
         got = hierarchical_allreduce_sharded(x, mesh, func=func,
@@ -7629,12 +7777,13 @@ def multislice_phase() -> tuple[dict, dict]:
                                                wire_dtype=wire,
                                                kernels=PLAIN)
         err = check_rows(got, plain, f"16b hierarchical {what}")
-        need(all(torch.equal(got[r], got[0]) for r in range(R)),
+        need(all(same_bits(got[r], got[0])[0] for r in range(R)),
              f"16b hierarchical {what}: ranks disagree")
-        if func == ReduceFunc.SUM:
-            digests["bf16" if wire else "sum"] = [
-                rows_digest(got[s * per:(s + 1) * per])
-                for s in range(SLICE_SHAPE[0])]
+        key = {None: "sum", "bfloat16": "bf16",
+               "float8_e4m3fn": "e4m3"}.get(wire)
+        if func == ReduceFunc.SUM and key:
+            digests[key] = [rows_digest(got[s * per:(s + 1) * per])
+                            for s in range(SLICE_SHAPE[0])]
         del got, plain
 
         def run(func=func, wire=wire):
@@ -7655,6 +7804,21 @@ def multislice_phase() -> tuple[dict, dict]:
     n = N - N % (len(SLICE_AXES) * math.prod(SLICE_AXES))
     mesh3 = make_mesh(SLICE_AXES, ("a", "b", "c"))
     x = slice_rows()[:, :n].contiguous()
+    for wire in FP8_PAYLOADS:           # the per-tensor fp8 lanes on it
+        before = {k: f.launches for k, f in counters().items()}
+        got = multi_axis_ring_allreduce(x, mesh3, wire_dtype=wire)
+        torch.cuda.synchronize()
+        for k, f in counters().items():
+            launched[k] += f.launches - before[k]
+        err = check_rows(got, multi_axis_ring_allreduce(
+            x, mesh3, wire_dtype=wire, kernels=PLAIN),
+            f"16b multi-axis ring, {wire} wire")
+        del got
+        dev_ms = time_ms(lambda: multi_axis_ring_allreduce(  # noqa: B023
+            x, mesh3, wire_dtype=wire), reps=3)  # noqa: B023
+        print(f"16b multi-axis ring allreduce, {wire} wire: bitwise the "
+              f"plain versions (max abs err {err}); device {dev_ms:.4f} ms "
+              f"({CARD})")
     before = {k: f.launches for k, f in counters().items()}
     colls = {}
     got = multi_axis_ring_allreduce(x, mesh3, colls=colls)
@@ -7713,7 +7877,8 @@ def slice_child(rank: int, port: int) -> int:
     torch.cuda.empty_cache()
     before = {k: f.launches for k, f in counters().items()}
     res, ms = {}, {}
-    for name, wire in (("sum", None), ("bf16", "bfloat16")):
+    for name, wire in (("sum", None), ("bf16", "bfloat16"),
+                       ("e4m3", "float8_e4m3fn")):
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -7733,8 +7898,8 @@ def slice_child(rank: int, port: int) -> int:
 def multiprocess_phase(digests: dict) -> dict:
     """16c: two processes on the card, one slice each, over gloo on a port
     the OS picked: each runs ``hierarchical_allreduce_sharded`` for SUM
-    and the bf16 dcn wire on its 4 of the 8 seeded rows, and its rows must
-    equal 16b's one-process result (sha256 of their bytes). Returns the
+    and the bf16 and e4m3fn dcn wires on its 4 of the 8 seeded rows, and
+    its rows must equal 16b's one-process result (sha256 of their bytes). Returns the
     children's launch counts, summed."""
     port = free_port()
     env = {k: v for k, v in os.environ.items()
@@ -7765,15 +7930,16 @@ def multiprocess_phase(digests: dict) -> dict:
         need(p.returncode == 0, f"16c: child {r} exited {p.returncode}: "
              f"{se.strip()[-1500:]}")
         rep = json.loads(so.strip().splitlines()[-1])
-        for name in ("sum", "bf16"):
+        for name in ("sum", "bf16", "e4m3"):
             need(rep["digests"][name] == digests[name][r],
                  f"16c: child {r}'s {name} rows differ from 16b's")
         for k, v in rep["launches"].items():
             launched[k] += v
-        print(f"16c child {r} (slice {r}, gloo on 127.0.0.1:{port}): SUM "
-              f"and bf16 rows equal 16b's (sha256); a call "
-              f"{rep['ms']['sum']:.2f} / {rep['ms']['bf16']:.2f} ms host "
-              f"clock (the dcn hop staged through pinned host memory)")
+        print(f"16c child {r} (slice {r}, gloo on 127.0.0.1:{port}): SUM, "
+              f"bf16 and e4m3fn wire rows equal 16b's (sha256); a call "
+              f"{rep['ms']['sum']:.2f} / {rep['ms']['bf16']:.2f} / "
+              f"{rep['ms']['e4m3']:.2f} ms host clock (the dcn hop staged "
+              f"through pinned host memory)")
     print(f"16c: {len(procs)} processes in {secs:.1f} s; launches (path "
           f"multiprocess, counted in the children): {launched} ({CARD})")
     for k in ("combine", "cast"):
@@ -7885,6 +8051,8 @@ HEAD_DIM_CASES = (("Gemma-2B", 8, 1, 256), ("Phi-2", 32, 32, 80),
                   ("Phi-3-mini", 32, 32, 96))
 HD_B, HD_S, HD_B9_S = 4, 2048, 512     # B8, B10/B11 at 2048; B9 at 512
 HD_T, HD_KV, HD_PREFILL = 4096, 2047, 1024   # decode and prefill
+WIDE_DIMS = (264, 512)     # head dims past 256: the column-group forms
+WIDE_MAX_D, WIDE_S = 1024, 1024
 DRY_D, DRY_S = 8, 64                   # the dry run's sp ring (8 ranks)
 HALF_DTYPES = ("float32", "bfloat16", "float16")
 F16_SERVE_SEED, F16_TRAIN_SEED, D256_SEED = SEED + 181, SEED + 182, SEED + 183
@@ -7905,8 +8073,15 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     "decode", "bwd_dkv", "bwd_dq") must report for ``dtype`` and head dim
     D: (route, dtype, column tier). The wrapper pads D to a multiple of
     8; 16-bit tensor-core routes hold 64, 128, 192 or 256 columns, the
-    f32 routes and the split decode a power of two from 16."""
+    f32 routes and the split decode a power of two from 16; past 256
+    every kind takes its column-group form ("_cols"), whose tier is the
+    group's width (64 for f32, 128 for 16-bit B10's dK and dV, else
+    256)."""
     d = -(-D // 8) * 8
+    if d > 256:                  # the column-group forms, by group width
+        f32 = dtype == "float32"
+        tier = 64 if f32 else 128 if kind == "bwd_dkv" else 256
+        return f"{kind}_{'tf32' if f32 else 'wgmma'}_cols", dtype, tier
     pow2 = next(t for t in (16, 32, 64, 128, 256) if d <= t)
     if kind == "decode":
         return "decode_split", dtype, pow2
@@ -7989,7 +8164,7 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         lib = lambda: F.scaled_dot_product_attention(  # noqa
             q, kt, vt, is_causal=sq > 1, enable_gqa=True)
         nbytes, nops = attn_work(B, H, Hkv, sq, skv, D, es, s_new=sq)
-        if kind == "decode":
+        if kind == "decode" and D <= 256:
             mult, rate = 1, F32_OPS_PER_S   # CUDA cores, f32 arithmetic
         out["n_split"] = A.last_decode_splits
         del o, ref
@@ -8032,14 +8207,39 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
                                             enable_gqa=True)
         lib = lambda: torch.autograd.grad(lo, (lq, lk, lv), do,  # noqa
                                           retain_graph=True)
+        probe = lambda: torch.autograd.grad(  # noqa: E731
+            F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                           enable_gqa=True),
+            (lq, lk, lv), do)
         nops = 14 * D * n
         nbytes = ins + 8 * B * H * skv * D + B * H * sq * D * es
     out.update(err=err, ratio=ratio, ms=time_ms(kern, reps=reps),
                plain_ms=time_ms(plain, reps=3),
                library_ms=time_ms(lib, reps=reps))
+    if D > 256:                     # which of SDPA's backends take it
+        out["sdpa"] = sdpa_backends(probe if kind == "bwd" else lib)
     out["bound_ms"], out["bound_by"] = bound_ms(nbytes, mult * nops, rate)
     torch.cuda.empty_cache()
     return out
+
+
+def sdpa_backends(call) -> str:
+    """The backends of scaled_dot_product_attention that take ``call``
+    (flash, cuDNN, memory-efficient, math, in that order), "none" if
+    none does."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")    # each refusal's reasons
+                call()
+            took.append(b.name.lower())
+        except RuntimeError:
+            continue
+    return "/".join(took) or "none"
 
 
 def case_line(kind, dt, B, H, Hkv, D, sq, skv, r, T=None, model="") -> str:
@@ -8055,16 +8255,94 @@ def case_line(kind, dt, B, H, Hkv, D, sq, skv, r, T=None, model="") -> str:
             f"{'Skv' if T is None else 'kv_len'}={skv}"
             f"{'' if T is None else f' T={T}'} route {route}: "
             f"{r['ms']:.4f} ms{extra} (plain {r['plain_ms']:.4f} ms, sdpa "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['library_ms']:.4f} ms"
+            + (f" on {r['sdpa']}" if "sdpa" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it), max abs "
             f"err vs plain {r['err']:.4g}, largest error/limit "
             f"{r['ratio']:.3f}")
 
 
+def wide_edges(g):
+    """The column-group forms (D 264 and 512, every dtype) at ragged and
+    uneven shapes, each on the route it must report and held against its
+    plain version: B8 at S = 300 causal (q tiles and key tiles past S) and
+    Sq 200 against Skv 300 unmasked; B9 over one block at S = 100 causal
+    and Sq 70 against Skv 130 unmasked; B10 and B11 on the first two;
+    B12 over a cache of 320 rows with NaN past kv_len 1, 65 and 300, one
+    new token and five; the f32 forward run twice, bitwise equal."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    n = 0
+    for D in WIDE_DIMS:
+        for dname in HALF_DTYPES:
+            dt = getattr(torch, dname)
+
+            def rnd(*shape, dt=dt):
+                return torch.randn(*shape, device="cuda", generator=g).to(dt)
+
+            for B, H, Hkv, Sq, Skv, causal, bk in (
+                    (1, 2, 1, 300, 300, True, None),
+                    (1, 4, 2, 200, 300, False, None),
+                    (1, 2, 1, 100, 100, True, None),
+                    (1, 4, 1, 70, 130, False, 256)):
+                q, k, v = rnd(B, H, Sq, D), rnd(B, Hkv, Skv, D), rnd(
+                    B, Hkv, Skv, D)
+                single = A.is_single_block(Skv, bk)
+                what = f"wide {dname} D={D} {(B, H, Hkv, Sq, Skv, causal)}"
+                before = dict(A.route_launches)
+                o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
+                need_one_route(before, "fwd_single" if single else "fwd",
+                               dname, D, what)
+                ro, rl = A.flash_attention_ref(q, k, v, causal)
+                hold_attn(o, ro, what, lse, rl, fwd_route_mag(
+                    "fwd", (q, k, v, causal, None, None, bk)))
+                if dt == torch.float32:
+                    need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+                        q, k, v, causal, block_k=bk), (o, lse), what)  # noqa: B023
+                if not single:
+                    do = rnd(B, H, Sq, D)
+                    delta = (do.float() * o.float()).sum(-1).reshape(B * H,
+                                                                     Sq)
+                    args = (q, do, k, v, lse, delta, causal, D ** -0.5)
+                    before = dict(A.route_launches)
+                    dkv = A.flash_attention_bwd_dkv(*args)
+                    need_one_route(before, "bwd_dkv", dname, D, what)
+                    before = dict(A.route_launches)
+                    dq = A.flash_attention_bwd_dq(*args)
+                    need_one_route(before, "bwd_dq", dname, D, what)
+                    hold_bwd_outputs(args, dkv, what + " bwd")
+                    hold_bwd_outputs(args, (dq,), what + " bwd")
+                n += 1
+            for kv_len in (1, 65, 300):
+                kc, vc = rnd(1, 320, 1, D), rnd(1, 320, 1, D)
+                kc[:, kv_len:] = float("nan")
+                vc[:, kv_len:] = float("nan")
+                for s_new in (1, 5):
+                    if s_new > kv_len:
+                        continue
+                    q = rnd(1, 4, s_new, D)
+                    what = f"wide {dname} D={D} kv_len {kv_len} S_new {s_new}"
+                    kind = "decode" if s_new == 1 else "prefill"
+                    before = dict(A.route_launches)
+                    o = A.flash_decode(q, kc, vc, kv_len)
+                    need_one_route(before, kind, dname, D, what)
+                    hold_attn(o, A.flash_decode_ref(q, kc, vc, kv_len), what,
+                              mag=fwd_route_mag("decode", (q, kc, vc,
+                                                           kv_len)))
+                    n += 1
+    print(f"wide edges: the column-group forms over {n} ragged, uneven "
+          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16, each on "
+          f"its route and within its limit")
+
+
 def head_dim_phase() -> list:
     """17a: B8-B12 at the head layouts of Gemma-2B (D = 256, H = 8,
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
-    on f32, bf16 and f16, and at D = 8 (the dry run's ring shapes); then
+    on f32, bf16 and f16; the column-group forms at Gemma-2B's heads with
+    D = 264 and 512 (every kind and dtype) and D = 1024 at S = 1024 (B8,
+    B10/B11 and decode in bf16 and f32); at D = 8 (the dry run's ring
+    shapes); then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
     8's). Returns the f16 records."""
     import torch
@@ -8087,6 +8365,34 @@ def head_dim_phase() -> list:
                                 model))
             gc.collect()
             torch.cuda.empty_cache()
+    # head dims past 256 at Gemma-2B's head layout: the column-group forms
+    wide_edges(g)
+    for D in WIDE_DIMS:
+        for dname in HALF_DTYPES:
+            dt = getattr(torch, dname)
+            for kind, sq, skv, T in (("fwd", HD_S, HD_S, None),
+                                     ("fwd_single", HD_B9_S, HD_B9_S, None),
+                                     ("bwd", HD_S, HD_S, None),
+                                     ("decode", 1, HD_KV, HD_T),
+                                     ("prefill", HD_PREFILL, HD_PREFILL,
+                                      HD_PREFILL)):
+                r = kernel_case(kind, dt, HD_B, 8, 1, D, sq, skv, g, T,
+                                reps=3)
+                print(case_line(kind, dt, HD_B, 8, 1, D, sq, skv, r, T,
+                                "Gemma-2B heads"))
+            gc.collect()
+            torch.cuda.empty_cache()
+    for dname in ("bfloat16", "float32"):     # D = 1024 at S = 1024
+        dt = getattr(torch, dname)
+        for kind, sq, skv, T in (("fwd", WIDE_S, WIDE_S, None),
+                                 ("bwd", WIDE_S, WIDE_S, None),
+                                 ("decode", 1, WIDE_S - 1, WIDE_S)):
+            r = kernel_case(kind, dt, HD_B, 8, 1, WIDE_MAX_D, sq, skv, g, T,
+                            reps=3)
+            print(case_line(kind, dt, HD_B, 8, 1, WIDE_MAX_D, sq, skv, r, T,
+                            "Gemma-2B heads"))
+        gc.collect()
+        torch.cuda.empty_cache()
     for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
         dt = getattr(torch, dname)
         for kind, sq, skv, T in (("fwd", DRY_S, DRY_S, None),
@@ -8355,6 +8661,148 @@ def head_dim_256_model_phase():
     torch.cuda.empty_cache()
 
 
+# 17e: the Llama at D = 512 (dim 4096, 8 q heads, 1 kv head, Gemma-2B's
+# ffn), 2 layers; the column-group rows of the kernels line, each from
+# its path at the path's shapes: (kind, S or S_new, kv length, cache T)
+D512_SEED, D512_F32_SEED = SEED + 185, SEED + 186
+D512_S, D512_F32_S, D512_NEW, D512_STEPS = 2048, 1024, 16, 3
+D512_RECORDS = {
+    "attn_fwd": ("fwd", "accl_tpu/ops/attention.py:285"),
+    "attn_fwd_single": ("fwd_single", "accl_tpu/ops/attention.py:252"),
+    "attn_prefill": ("prefill", "accl_tpu/ops/attention.py:689"),
+    "attn_decode": ("decode", "accl_tpu/ops/attention.py:689"),
+    "attn_bwd_dkv": ("bwd_dkv", "accl_tpu/ops/attention.py:461"),
+    "attn_bwd_dq": ("bwd_dq", "accl_tpu/ops/attention.py:492")}
+
+
+def d512_config(dtype):
+    """Llama-3's vocabulary at dim 4096 over 8 q heads and 1 kv head (head
+    dim 512), Gemma-2B's ffn 16384, 2 layers; f32 parameters, activations
+    of ``dtype``."""
+    import dataclasses
+    from accl_tpu_torch.models import LlamaConfig
+    return dataclasses.replace(LlamaConfig.llama3_8b(), dim=4096, n_heads=8,
+                               n_kv_heads=1, ffn_dim=16384, n_layers=2,
+                               dtype=dtype)
+
+
+def d512_records(dt, S: int, T: int, path: str, routes: dict) -> list:
+    """The column-group rows of the kernels line for ``dt``: each kind at
+    the path's shapes (B 1, 8 q heads, 1 kv head, D 512; S, a cache of T
+    rows), held against its plain version and timed (kernel_case), with
+    the launches the path made on its route."""
+    import torch
+    dname = str(dt)[6:]
+    g = torch.Generator(device="cuda").manual_seed(D512_SEED + 7)
+    cases = {"fwd": (S, S, None), "fwd_single": (HD_B9_S, HD_B9_S, None),
+             "prefill": (S, S, T), "decode": (1, T - 1, T),
+             "bwd": (S, S, None)}
+    res = {kind: kernel_case(kind, dt, 1, 8, 1, 512, sq, skv, g, t, reps=3)
+           for kind, (sq, skv, t) in cases.items()}
+    recs = []
+    suffix = "_cols_tf32" if dt == torch.float32 else "_cols"
+    for name, (kind, replaces) in D512_RECORDS.items():
+        r = res["bwd"] if kind.startswith("bwd") else res[kind]
+        part = r[kind.removeprefix("bwd_")] if kind.startswith("bwd") else r
+        route = tier_of(kind, dname, 512)
+        n = routes.get(route, 0)
+        need(n > 0, f"{path}: no launch on {route}")
+        src = (ATTN_BWD_SM90_SRC if dt != torch.float32 else ATTN_BWD_SRC) \
+            if kind.startswith("bwd") else \
+            (ATTN_SM90_SRC if dt != torch.float32 else ATTN_SRC)
+        recs.append({"name": name + suffix, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": n,
+                     "launches_by_path": {path: n},
+                     "max_abs_err": r["err"], "ms": part["ms"],
+                     "plain_ms": part["plain_ms"],
+                     "bound_ms": part["bound_ms"],
+                     "bound_by": part["bound_by"],
+                     "library_ms": r["library_ms"]})
+    for kind, (sq, skv, t) in cases.items():
+        print(case_line(kind, dt, 1, 8, 1, 512, sq, skv, res[kind], t,
+                        f"D=512 Llama ({path})"))
+    return recs
+
+
+def head_dim_512_model_phase() -> list:
+    """17e: the port's Llama with head dim 512 (d512_config), random
+    weights. bf16: a 1 x 2048 forward and a 512-token one held against
+    the dense path, ``generate`` 16 tokens from the 2048, and three Adam
+    steps at (1, 2048) with f32 parameters, the losses falling. f32 (the
+    3xTF32 routes): the same at 1024 tokens, one training step. Every
+    attention launch on a column-group route (``route_launches``).
+    Returns the kernels line's column-group rows."""
+    import dataclasses
+    import torch
+    from accl_tpu_torch.models import Llama
+    from accl_tpu_torch.ops import attention as A
+    recs = []
+    for dt, S, seed, path in ((torch.bfloat16, D512_S, D512_SEED,
+                               "model_d512"),
+                              (torch.float32, D512_F32_S, D512_F32_SEED,
+                               "model_d512_f32")):
+        cfg = d512_config(dt)
+        need(cfg.head_dim == 512, f"head dim {cfg.head_dim}")
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        serve_cfg = dataclasses.replace(cfg, param_dtype=dt)
+        model = Llama(serve_cfg).init(g)
+        tokens = torch.randint(0, cfg.vocab_size, (1, S), device="cuda",
+                               generator=g)
+        before = dict(A.route_launches)
+        rels = []
+        with torch.no_grad():
+            for toks in (tokens, tokens[:, :HD_B9_S]):
+                logits = model(toks)
+                need(bool(torch.isfinite(logits).all()),
+                     f"{path}: non-finite logits")
+                model.config = dataclasses.replace(serve_cfg,
+                                                   attention="dense")
+                try:
+                    ref = model(toks)
+                finally:
+                    model.config = serve_cfg
+                rels.append(float(torch.linalg.vector_norm(
+                    (logits - ref).float())
+                    / torch.linalg.vector_norm(ref.float())))
+                del logits, ref
+            out = model.generate(tokens, max_new=D512_NEW)
+        need(out.shape == (1, D512_NEW) and bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{path}: generate's tokens")
+        need(max(rels) <= SERVE_DENSE_REL, f"{path}: flash and dense "
+             f"differ: {rels}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Llama(cfg).init(g)           # f32 parameters for Adam
+        step = model.make_train_step(torch.optim.Adam(model.parameters(),
+                                                      lr=1e-4))
+        steps = D512_STEPS if dt != torch.float32 else 1
+        losses = [float(step(tokens)) for _ in range(steps)]
+        torch.cuda.synchronize()
+        routes = routes_since(before)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"D=512 model {path} (dim 4096, 8/1 heads, ffn 16384, 2 "
+              f"layers, {str(dt)[6:]} activations): 1x{S} and "
+              f"1x{HD_B9_S} forward flash vs dense relative diff {rels} "
+              f"(limit {SERVE_DENSE_REL}); generate {D512_NEW} tokens "
+              f"{out.tolist()}; losses {losses}; routes {routes}; peak "
+              f"{peak:.1f} GiB")
+        need(all(np.isfinite(x) for x in losses), f"{path}: non-finite "
+             f"loss")
+        need(steps == 1 or losses[-1] < losses[0],
+             f"{path}: the loss did not fall: {losses}")
+        need(routes and all(r.endswith("_cols") for r, _d, _t in routes),
+             f"{path}: a launch off the column-group routes: {routes}")
+        del model, step, tokens, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        recs += d512_records(dt, S, S + D512_NEW, path, routes)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
 def phase(name: str):
     """One line at the start of each phase: the seconds since the script
     started and what the device holds."""
@@ -8383,6 +8831,8 @@ def main() -> int:
     main_path(recs)
     gc.collect()                      # the rank worlds' buffers sit in cycles
     torch.cuda.empty_cache()
+    phase("phase 3b: B1 on fp8 payloads")
+    fp8_payload_phase(recs)
     phase("phase 4b: point-to-point and local ops")
     p2p_path(recs)
     gc.collect()
@@ -8422,6 +8872,7 @@ def main() -> int:
      tp_serve) = serving_phase()
     phase("phase 8: attention backward kernels")
     wgmma_kernels_checked()
+    cols_kernels_checked()
     attention_bwd_edges(rng)
     attn_recs += attention_bwd_records()
     phase("gradient check: flash vs dense, f32")
@@ -8486,6 +8937,8 @@ def main() -> int:
     by_path["training_f16"] = f16_training_phase()
     phase("phase 17d: the Llama at D = 256")
     head_dim_256_model_phase()
+    phase("phase 17e: the Llama at D = 512, the column-group routes")
+    wide_recs = head_dim_512_model_phase()
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
     for r in attn_recs:
@@ -8496,7 +8949,7 @@ def main() -> int:
         r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
         need(r["launches"] > 0, f"kernel {r['name']} was never launched on "
              f"the {LAUNCH_PATH[r['name']]} path")
-    recs += attn_recs
+    recs += attn_recs + wide_recs
     print(f"total: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {

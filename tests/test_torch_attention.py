@@ -210,26 +210,14 @@ def _kernel_operands(dtype, D):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("D", [8, 16, 80, 96, 128, 256])
 def test_kernel_contract_accepts(D, dtype):
-    """f32, bf16 and f16 with any head dim that is a multiple of 8 up to
-    256 pass the check every CUDA call makes before a launch (the wrapper
-    pads another head dim to the next multiple of 8 first)."""
-    assert A.MAX_HEAD_DIM == 256 and A.KERNEL_D_STEP == 8
+    """f32, bf16 and f16 with any head dim that is a multiple of 8 pass
+    the check every CUDA call makes before a launch (the wrapper pads
+    another head dim to the next multiple of 8 first); up to
+    COLS_HEAD_DIM (256) the tiered kernels take them, past it the
+    column-group forms (tests/test_torch_attention_wide.py)."""
+    assert A.COLS_HEAD_DIM == 256 and A.KERNEL_D_STEP == 8
     A._kernel_ready("flash_attention",
                     *_kernel_operands(getattr(torch, dtype), D))
-    A._check_head_dim(D, "flash_attention")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("D", [264, 512])
-def test_kernel_contract_refuses_head_dims_past_256(D, dtype):
-    """A head dim past 256 raises ValueError naming the bound, where the
-    reference's Pallas kernels take any head dim: a 64 x D f32 accumulator
-    no longer fits a warpgroup's registers (ROADMAP §C)."""
-    with pytest.raises(ValueError, match="bound 256"):
-        A._check_head_dim(D, "flash_attention")
-    with pytest.raises(ValueError, match="up to 256"):
-        A._kernel_ready("flash_decode",
-                        *_kernel_operands(getattr(torch, dtype), D))
 
 
 def test_kernel_contract_refuses_float64():

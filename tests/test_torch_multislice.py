@@ -212,6 +212,45 @@ def test_hierarchical_allreduce_payload_dcn_wire(mesh, ref_mesh, pay, wire,
     np.testing.assert_allclose(g, plain, rtol=0, atol=tol)
 
 
+FP8_WIRES = ("float8_e4m3fn", "float8_e5m2")
+
+
+@pytest.mark.parametrize("func", ["SUM", "MAX", "MIN", "PROD"])
+@pytest.mark.parametrize("wire", FP8_WIRES)
+@pytest.mark.parametrize("slices", [2, 4, 8])
+def test_hierarchical_allreduce_fp8_dcn_wire(slices, wire, func):
+    """An fp8 dcn wire at 2, 4 and 8 slices (8 ranks: 2x4, 4x2, 8x1),
+    bitwise the reference: SUM folds the slices' shards in f16 and rounds
+    once to the wire, PROD folds on the wire, rounding after each product
+    (e4m3fn's overflow to NaN included: at scale 3, PROD's NaNs are
+    checked to occur), MAX and MIN are exact. The payload is f32 with
+    values of scale 3; NaN matches NaN code for code in f32 only as a
+    NaN, so NaNs are compared by position."""
+    ici = 8 // slices
+    ref_mesh = RP.hybrid_mesh(ici_shape=(ici,), n_slices=slices)
+    mesh = hybrid_mesh((ici,), slices, device="cpu")
+    x = _rank_major(4096, seed=slices) * 3
+    if func == "PROD":
+        x = np.abs(x) + 0.25 if wire == "float8_e5m2" else x
+    got = hierarchical_allreduce_sharded(torch.from_numpy(x), mesh,
+                                         wire_dtype=wire,
+                                         func=ReduceFunc[func]).numpy()
+    want = np.asarray(RP.hierarchical_allreduce_sharded(
+        jnp.asarray(x), ref_mesh, wire_dtype=getattr(jnp, wire),
+        func=RefReduceFunc[func]))
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.uint32),
+                          want[~nan].view(np.uint32))
+    if func == "PROD" and wire == "float8_e4m3fn" and slices >= 4:
+        assert nan.any()            # products past 448 are NaN in e4m3fn
+    assert (got == got[0])[~nan].all()      # every rank alike
+    plain = hierarchical_allreduce_sharded(torch.from_numpy(x), mesh,
+                                           func=ReduceFunc[func]).numpy()
+    if func == "SUM":               # the shards really crossed the wire
+        assert not np.array_equal(got, plain)
+
+
 def test_distributed_init_single_process_noop(monkeypatch):
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
@@ -285,9 +324,10 @@ def test_argument_errors(mesh, ref_mesh):
     with pytest.raises(ValueError) as got:
         hierarchical_allreduce_sharded(torch.from_numpy(x), mesh)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="float8_e4m3fn dcn wire"):
+    with pytest.raises(NotImplementedError, match="int8 dcn wire.*"
+                                                  "plain int8 cast truncates"):
         hierarchical_allreduce_sharded(torch.zeros(8, 8), mesh,
-                                       wire_dtype="float8_e4m3fn")
+                                       wire_dtype="int8")
     if not torch.cuda.is_available():             # the default device
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             hybrid_mesh((4,), 2)
@@ -314,7 +354,8 @@ x = np.random.default_rng(0).standard_normal((8, n)).astype(np.float32)
 mine = torch.from_numpy(x[4 * rank:4 * rank + 4])
 res = {}
 for name, kw in (("sum", {}), ("bf16", {"wire_dtype": torch.bfloat16}),
-                 ("max", {"func": 1})):
+                 ("max", {"func": 1}),
+                 ("e4m3", {"wire_dtype": "float8_e4m3fn"})):
     res[name] = hierarchical_allreduce_sharded(mine, mesh, **kw).numpy()
 np.savez(out, **res)
 dist.barrier()
@@ -332,7 +373,7 @@ def _free_port() -> int:
 def test_two_processes_over_gloo_equal_one_process(mesh, tmp_path):
     """Two processes, one slice each, the dcn hop an all_gather over
     gloo: each process's rows bitwise the one-process result (SUM, the
-    bf16 wire, MAX), on an odd length."""
+    bf16 and e4m3fn wires, MAX), on an odd length."""
     n = 1001
     port = _free_port()
     env = {k: v for k, v in os.environ.items()
@@ -358,7 +399,9 @@ def test_two_processes_over_gloo_equal_one_process(mesh, tmp_path):
             "bf16": hierarchical_allreduce_sharded(
                 x, mesh, wire_dtype=torch.bfloat16),
             "max": hierarchical_allreduce_sharded(x, mesh,
-                                                  func=ReduceFunc.MAX)}
+                                                  func=ReduceFunc.MAX),
+            "e4m3": hierarchical_allreduce_sharded(
+                x, mesh, wire_dtype="float8_e4m3fn")}
     for r in range(2):
         got = np.load(tmp_path / f"r{r}.npz")
         for name, w in want.items():
