@@ -71,6 +71,10 @@ _SIGNATURES = {
     # the route the last attention launch took (kind << 16 | dtype << 12 |
     # column tier)
     "accl_attn_last_route": [],
+    # head_dim: the blocks of the f32 backward's clusters (0: no clusters)
+    "accl_attn_bwd_cluster_size": [_I],
+    # dkv, head_dim: the f32 backward's clusters the card holds at once
+    "accl_attn_bwd_active_clusters": [_I, _I],
 }
 
 

@@ -79,11 +79,17 @@
 // (both form the same S and dP: 12 instead of 8 products of D a score in
 // B10, 10 instead of 6 in B11), a block holds 64 resident rows, and the
 // streamed tiles have one stage (200 KB in all; the next tile's loads
-// wait for this one's products).
+// wait for this one's products). Past 256 columns up to 1024 a cluster of
+// blocks splits the head dim and exchanges S and dP through distributed
+// shared memory ("the cluster form" below); past 1024 each block of a
+// column group forms S and dP over the whole head dim itself ("the
+// column-group form").
 //
 // Arithmetic in f32: expf without intrinsics, the scale of dK and dQ
 // applied once to the sums. No atomics: one writer for each output
 // element, so two runs on the same inputs are bitwise equal.
+#include <cooperative_groups.h>
+
 #include "attention_tile.cuh"
 #include "tf32_mma.cuh"
 
@@ -341,23 +347,547 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
   }
 }
 
-// ---- head dims past 256: the column-group form ------------------------------
+// ---- head dims past 256: the cluster form -----------------------------------
 //
-// B10 and B11 at D > 256 on the same 3xTF32 products: a block (8 warps,
-// 128 resident rows, 16 a warp) keeps one group of CGRP output columns
-// (grid z; 64, as the forward's). For each streamed 32-row tile it forms
-// S and dP over the whole head dim, one FCH-column chunk of the four
-// operands at a time (cp.async, one stage; every group the same chunks in
-// the same order; each chunk summed in a fresh accumulator), then P and
-// dS as B10 and B11 do, and the second products on its group: Q's and
-// dO's columns of the tile (B10), K's (B11), loaded into the chunk's
-// buffers once the chunks are done. Shared memory: two 128-row and two
-// 32-row chunk tiles at a pitch of 132 floats (169 KB) and the stats.
+// B10 and B11 at 256 < D <= 1024 on the same 3xTF32 products, one launch a
+// call, with S and dP formed once for each (resident tile, streamed tile)
+// pair. The head dim is cut into Gs = ceil(D / 64) slices of 64 columns and
+// a thread-block cluster of C = ceil(Gs / 2) blocks (grid z; C <= 8,
+// portable) owns one (b*h, tile of 64 resident rows): block c holds slices
+// 2c and 2c + 1. It keeps only its slices of the resident operands (B10 K
+// and V, B11 Q and dO) in shared memory for the whole loop and streams only
+// its slices of the others (B10 Q and dO, B11 K and V) through two cp.async
+// stages, so the next tile's loads run under this tile's products. Its 8
+// warps form 4 groups of 16 resident rows, one warp of a group for each
+// slice. The partials' positions (a float4 of a 16 x 8 accumulator tile; a
+// "quarter" of 32 of them for 16 resident rows by 8 streamed ones) are
+// dealt to the blocks, quarter i to block i % C. For every streamed tile of
+// 32 rows (B11: keys):
+//   1. each warp forms its slice's partial S and dP (16 x 32, 3xTF32, each
+//      in a fresh accumulator); the two warps of a group add theirs (slice
+//      2c first) through shared memory, one S and one dP each, and store
+//      the block's partial, quarter by quarter, into the owners' receive
+//      buffers at the block's slot; cluster barrier;
+//   2. the owner of each position sums the C partials in block order with
+//      f32 adds, forms P = exp(scale*S - LSE) and dS = P*(dP - delta) under
+//      the mask, and stores them into every block's result buffer (B11: dS
+//      only); cluster barrier;
+//   3. each warp reads its group's P and dS from its own result buffer and
+//      updates its slice: dV += P^T dO and dK += dS^T Q (B10), dQ += dS K
+//      (B11), each tile's rows summed in a fresh accumulator.
+// So every block holds bitwise the same P and dS, and S and dP are formed
+// once, not once a column group (the column-group form's 3x to 11x excess
+// of products at D 264 to 1024). Every access to a peer's shared memory is
+// a store, which does not wait for an answer as a load from a peer does;
+// and a block exchanges (C-1)/C of 16 KB of partials and 16 KB of results a
+// tile (B11: 8 KB), half what 64-column partials would move. The receive
+// buffer is read before the second barrier and written after it, the
+// result buffer read before the next tile's first barrier and written
+// after it, so one of each suffices. Whether a group's rows see a pair of
+// the tile depends only on the tile, the same in every block of a cluster:
+// such a group skips its products, its positions are neither summed nor
+// read, and every thread arrives at every barrier. A first barrier makes
+// sure every block of the cluster runs before a peer stores to it; past a
+// tile's second barrier no block touches a peer's shared memory, so a
+// block may exit after its last tile. Columns past D load as zeros; a
+// slice wholly past D (Gs odd) takes no part. Shared memory 190 KB, one
+// block an SM. No atomics: one writer for each element.
+constexpr int SL = 64, SLP = SL + 4;  // a slice's columns; its row pitch
+constexpr int XRK = 64;               // resident rows of a block
+constexpr int XNQ = XRK / 16 * 4;     // quarters of positions (128 floats)
+constexpr int XSLOTS = 21;            // receive slots, ceil(XNQ / C) * C
+constexpr int XRES = XRK * SLP;       // floats of a slice's resident tile
+constexpr int XSTR = SROWS * SLP;     // ... of a slice's streamed tile
+constexpr int XRCV = XSLOTS * 128;    // ... of S's (dP's) receive slots
+constexpr int XRSL = XNQ * 128;       // ... of P's (dS's) results
+constexpr int XSUM = 8 * 512;         // ... of the groups' pair sums
+// resident K, V (Q, dO) and two stages of streamed Q, dO (K, V), two slices
+// each; the receive buffers of S and dP; the result buffers of P and dS;
+// the pair sums; the stats (B10 two stages of SROWS rows, B11 XRK rows,
+// LSE and delta each)
+constexpr int XBYTES =
+    (4 * XRES + 8 * XSTR + 2 * XRCV + 2 * XRSL + XSUM + 2 * XRK) * 4;
+static_assert(XBYTES <= MAX_SMEM, "a block's shared memory");
+static_assert(XRK >= 2 * SROWS, "B10's stats");
+// the head dims of the cluster form: two slices a block, at most 8 blocks
+// a cluster (the portable size)
+constexpr int CLUSTER_MAX_D = 8 * 2 * SL;
+__host__ __device__ constexpr int cluster_size(int D) {
+  return (D + 2 * SL - 1) / (2 * SL);
+}
+__host__ __device__ constexpr bool cluster_form(int D) {
+  return D > 256 && D <= CLUSTER_MAX_D;
+}
+__host__ __device__ constexpr int cluster_slots(int C) {
+  return (XNQ + C - 1) / C * C;
+}
+static_assert(cluster_slots(3) <= XSLOTS && cluster_slots(4) <= XSLOTS &&
+                  cluster_slots(5) <= XSLOTS && cluster_slots(6) <= XSLOTS &&
+                  cluster_slots(7) <= XSLOTS && cluster_slots(8) <= XSLOTS,
+              "receive slots");
+
+// step 1: the block's partial over its two slices for rows group grp. The
+// warp of slice h holds x (S) and y (dP) over its slice; its pair's warp
+// those over the other. The slice-0 warp stores y, the slice-1 warp x
+// (sum, a group's 2 x 512 floats), they meet at the group's named barrier,
+// and each adds the other's half to its own, slice 0's first: the slice-0
+// warp S, the slice-1 warp dP (one slice live: the slice-0 warp both).
+// Each quarter of the sum goes into its owner's receive buffer rcv (S's,
+// then dP's at rcv + XRCV) at slot `rank`.
+__device__ __forceinline__ void xch_push(
+    cooperative_groups::cluster_group& cluster, float* rcv, float* sum,
+    int grp, int h, bool pair, int rank, int C, const float (&x)[4][4],
+    const float (&y)[4][4]) {
+  const int l = threadIdx.x & 31;
+  float4* mine = reinterpret_cast<float4*>(sum + grp * 1024 + h * 512) + l;
+  const float4* other =
+      reinterpret_cast<const float4*>(sum + grp * 1024 + (h ^ 1) * 512) + l;
+  if (pair) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mine[32 * j] = h ? make_float4(x[j][0], x[j][1], x[j][2], x[j][3])
+                       : make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
+    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + grp) : "memory");
+  }
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    if (pair && part != h) continue;  // the pair's other warp sends it
+    const float(&z)[4][4] = part ? y : x;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 v = make_float4(z[j][0], z[j][1], z[j][2], z[j][3]);
+      if (pair) {  // slice 0's value first
+        const float4 o = other[32 * j];
+        v = h ? make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y),
+                            __fadd_rn(o.z, v.z), __fadd_rn(o.w, v.w))
+              : make_float4(__fadd_rn(v.x, o.x), __fadd_rn(v.y, o.y),
+                            __fadd_rn(v.z, o.z), __fadd_rn(v.w, o.w));
+      }
+      const int qi = grp * 4 + j;
+      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(
+                        rcv + part * XRCV, qi % C)) +
+                    ((qi / C) * C + rank) * 32 + l;
+      *dst = v;
+    }
+  }
+}
+
+// step 2: the sum, in block order, of the C partials at float offset off
+// (two elements) of the receive buffer rcv (a slot is 128 floats)
+__device__ __forceinline__ float2 xch_sum(const float* rcv, int off, int C) {
+  float2 s = *reinterpret_cast<const float2*>(rcv + off);
+  for (int b = 1; b < C; ++b) {
+    const float2 a = *reinterpret_cast<const float2*>(rcv + off + b * 128);
+    s = make_float2(__fadd_rn(s.x, a.x), __fadd_rn(s.y, a.y));
+  }
+  return s;
+}
+
+// step 2: v (two elements at float offset off) into the result buffer res
+// of every block of the cluster
+__device__ __forceinline__ void xch_bcast(
+    cooperative_groups::cluster_group& cluster, float* res, int off, int C,
+    float2 v) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (b < C)
+      *reinterpret_cast<float2*>(cluster.map_shared_rank(res, b) + off) = v;
+}
+
+// step 3: rows group grp's P (or dS), 16 x 32, from the result buffer res
+__device__ __forceinline__ void xch_read(const float* res, int grp,
+                                         float (&x)[4][4]) {
+  const float4* p =
+      reinterpret_cast<const float4*>(res) + grp * 128 + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 a = p[32 * j];
+    x[j][0] = a.x;
+    x[j][1] = a.y;
+    x[j][2] = a.z;
+    x[j][3] = a.w;
+  }
+}
+
+// B10 at 256 < D <= 1024: grid (B*H, key tiles of XRK, C), clusters (1, 1,
+// C); operands as attn_bwd_dkv_kernel's
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_dkv_cluster_kernel(const float* __restrict__ q,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int Hkv, int Sq, int Skv, int causal, int D,
+                            float scale) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;              // slice h at sK + h*XRES
+  float* sV = sK + 2 * XRES;
+  float* sQ = sV + 2 * XRES;     // stage s: Q's slices at sQ + 4*s*XSTR,
+                                 // dO's after
+  float* rS = sQ + 8 * XSTR;     // receive buffers: S, dP
+  float* xP = rS + 2 * XRCV;     // result buffers: P, dS
+  float* sSum = xP + 2 * XRSL;   // the groups' pair sums
+  float* sStat = sSum + XSUM;    // stage s: LSE at sStat + 2*s*SROWS,
+                                 // delta after
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5, grp = warp >> 1, h = warp & 1, kw = 16 * grp;
+  const int C = gridDim.z, rank = cluster.block_rank();
+  const int col0 = 2 * rank * SL, c0 = col0 + h * SL;  // the block's and
+                                                       // the warp's columns
+  const bool pair = col0 + SL < D;  // is the block's second slice live?
+  const int bh = blockIdx.x, k0 = blockIdx.y * XRK;
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nk = min(XRK, Skv - k0);
+  const float* lse_row = lse + static_cast<long long>(bh) * Sq;
+  const float* delta_row = delta + static_cast<long long>(bh) * Sq;
+  // under the causal mask queries before k0 see none of these keys
+  const int q_first = causal ? (k0 / SROWS) * SROWS : 0;
+  const int n_it = q_first < Sq ? (Sq - q_first + SROWS - 1) / SROWS : 0;
+
+  auto load_q = [&](int s, int q0) {
+    const int nq = min(SROWS, Sq - q0);
+    const long long off = (static_cast<long long>(bh) * Sq + q0) * D;
+    float* dst = sQ + 4 * s * XSTR;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = col0 + hh * SL;
+      cp_rows<SL, SROWS, SLP, NT>(dst + hh * XSTR, q + off + col, nq,
+                                  D - col, D);
+      cp_rows<SL, SROWS, SLP, NT>(dst + (2 + hh) * XSTR, dout + off + col,
+                                  nq, D - col, D);
+    }
+    if (tid < 2 * SROWS) {
+      const int r = tid % SROWS;
+      const bool ok = r < nq;
+      cp_async4(sStat + 2 * s * SROWS + tid,
+                (tid < SROWS ? lse_row : delta_row) + q0 + (ok ? r : 0), ok);
+    }
+  };
+  const long long koff = (kvrow * Skv + k0) * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int col = col0 + hh * SL;
+    cp_rows<SL, XRK, SLP, NT>(sK + hh * XRES, k + koff + col, nk, D - col, D);
+    cp_rows<SL, XRK, SLP, NT>(sV + hh * XRES, v + koff + col, nk, D - col, D);
+  }
+  if (n_it > 0) load_q(0, q_first);
+  cp_async_commit();
+
+  float adk[SL / 8][4], adv[SL / 8][4];  // keys kw+g, kw+g+8; columns
+                                         // c0+8c+2t, +1
+#pragma unroll
+  for (int c = 0; c < SL / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
+
+  cluster.sync();  // every block of the cluster runs: its peers may store
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1;
+    const int q0 = q_first + it * SROWS, nq = min(SROWS, Sq - q0);
+    cp_async_wait<0>();  // this stage (and K, V) landed
+    __syncthreads();     // ... for every thread; the other stage is free
+    if (it + 1 < n_it) load_q(s ^ 1, q0 + SROWS);
+    cp_async_commit();
+    const float* cQ = sQ + 4 * s * XSTR + h * XSTR;
+    const float* cDO = cQ + 2 * XSTR;
+    const float* cLse = sStat + 2 * s * SROWS;
+    const float* cDelta = cLse + SROWS;
+    // cluster-uniform: do the keys of group gr see a row of this tile?
+    auto live = [&](int gr) {
+      return 16 * gr < nk && (!causal || k0 + 16 * gr <= q0 + nq - 1);
+    };
+    const bool mine = live(grp) && c0 < D;
+    if (mine) {  // step 1
+      float x[4][4], y[4][4];  // partial S^T, dP^T over the warp's slice
+      rows16_x_rows32<SL>(sK + h * XRES + kw * SLP, cQ, x);
+      rows16_x_rows32<SL>(sV + h * XRES + kw * SLP, cDO, y);
+      xch_push(cluster, rS, sSum, grp, h, pair, rank, C, x, y);
+    }
+    cluster.sync();  // every partial of the tile is in place
+    // step 2 on this block's quarters, two elements a thread-step
+    for (int u = tid;; u += NT) {
+      const int m = u >> 6, qi = rank + C * m;  // the quarter, its position
+      if (qi >= XNQ) break;
+      const int pg = qi >> 2, j = qi & 3, pl = (u >> 1) & 31, half = u & 1;
+      if (!live(pg)) continue;  // no warp reads it
+      const int roff = (m * C * 32 + pl) * 4 + 2 * half;
+      const int off = (qi * 32 + pl) * 4 + 2 * half;
+      const float2 sv = xch_sum(rS, roff, C);
+      const float2 dpv = xch_sum(rS + XRCV, roff, C);
+      const int key = 16 * pg + (pl >> 2) + 8 * half, r0 = 8 * j + 2 * (pl & 3);
+      const float sx[2] = {sv.x, sv.y}, dx[2] = {dpv.x, dpv.y};
+      float pp[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = r0 + e;
+        const bool ok =
+            r < nq && key < nk && (!causal || k0 + key <= q0 + r);
+        pp[e] = ok ? expf(__fsub_rn(__fmul_rn(sx[e], scale), cLse[r])) : 0.0f;
+        ds[e] = __fmul_rn(pp[e], __fsub_rn(dx[e], cDelta[r]));
+      }
+      xch_bcast(cluster, xP, off, C, make_float2(pp[0], pp[1]));
+      xch_bcast(cluster, xP + XRSL, off, C, make_float2(ds[0], ds[1]));
+    }
+    cluster.sync();  // every P and dS of the tile is in place
+    if (mine) {  // step 3
+      float x[4][4], y[4][4];  // P^T, dS^T: 16 keys x 32 rows
+      xch_read(xP, grp, x);
+      xch_read(xP + XRSL, grp, y);
+      rows_accumulate<SL, SL>(x, cDO, adv);  // dV += P^T dO
+      rows_accumulate<SL, SL>(y, cQ, adk);   // dK += dS^T Q (scaled at the
+                                             // end)
+    }
+  }
+  cp_async_wait<0>();
+  if (c0 >= D) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = kw + g + 8 * hh;
+    if (key >= nk) continue;
+    const long long o = (static_cast<long long>(bh) * Skv + k0 + key) * D;
+#pragma unroll
+    for (int c = 0; c < SL / 8; ++c) {
+      const int col = c0 + 8 * c + 2 * t;
+      if (c0 + 8 * c >= D) continue;
+      *reinterpret_cast<float2*>(dk + o + col) =
+          make_float2(__fmul_rn(adk[c][2 * hh], scale),
+                      __fmul_rn(adk[c][2 * hh + 1], scale));
+      *reinterpret_cast<float2*>(dv + o + col) =
+          make_float2(adv[c][2 * hh], adv[c][2 * hh + 1]);
+    }
+  }
+}
+
+// B11 at 256 < D <= 1024: grid (B*H, q tiles of XRK, C), clusters (1, 1,
+// C); operands as attn_bwd_dq_kernel's
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int H, int Hkv, int Sq,
+                           int Skv, int causal, int D, float scale) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;              // slice h at sQ + h*XRES
+  float* sDO = sQ + 2 * XRES;
+  float* sK = sDO + 2 * XRES;    // stage s: K's slices at sK + 4*s*XSTR,
+                                 // V's after
+  float* rS = sK + 8 * XSTR;     // receive buffers: S, dP
+  float* xS = rS + 2 * XRCV;     // result buffer: dS
+  float* sSum = xS + 2 * XRSL;   // the groups' pair sums
+  float* sLse = sSum + XSUM;     // XRK, then delta's XRK
+  float* sDelta = sLse + XRK;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5, grp = warp >> 1, h = warp & 1, qw = 16 * grp;
+  const int C = gridDim.z, rank = cluster.block_rank();
+  const int col0 = 2 * rank * SL, c0 = col0 + h * SL;  // the block's and
+                                                       // the warp's columns
+  const bool pair = col0 + SL < D;  // is the block's second slice live?
+  const int bh = blockIdx.x;
+  // the last q tile, the heaviest under the causal mask, first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * XRK;
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nq = min(XRK, Sq - q0);
+  // causal frontier from the q tile's end: keys past its last row unseen
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
+  const int n_it = (kv_end + SROWS - 1) / SROWS;
+  const long long kvoff = kvrow * Skv * D;
+
+  auto load_kv = [&](int s, int kt0) {
+    const int n = min(SROWS, kv_end - kt0);
+    const long long off = kvoff + static_cast<long long>(kt0) * D;
+    float* dst = sK + 4 * s * XSTR;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = col0 + hh * SL;
+      cp_rows<SL, SROWS, SLP, NT>(dst + hh * XSTR, k + off + col, n, D - col,
+                                  D);
+      cp_rows<SL, SROWS, SLP, NT>(dst + (2 + hh) * XSTR, v + off + col, n,
+                                  D - col, D);
+    }
+  };
+  const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
+  const long long roff = static_cast<long long>(bh) * Sq + q0;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int col = col0 + hh * SL;
+    cp_rows<SL, XRK, SLP, NT>(sQ + hh * XRES, q + qoff + col, nq, D - col,
+                              D);
+    cp_rows<SL, XRK, SLP, NT>(sDO + hh * XRES, dout + qoff + col, nq,
+                              D - col, D);
+  }
+  for (int i = tid; i < 2 * XRK; i += NT) {
+    const int r = i % XRK;
+    const bool ok = r < nq;
+    cp_async4(sLse + i, (i < XRK ? lse : delta) + roff + (ok ? r : 0), ok);
+  }
+  if (n_it > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  float acc[SL / 8][4];  // rows qw+g, qw+g+8; columns c0+8c+2t, +1
+#pragma unroll
+  for (int c = 0; c < SL / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  cluster.sync();  // every block of the cluster runs: its peers may store
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1, kt0 = it * SROWS;
+    const int nk = min(SROWS, kv_end - kt0);
+    cp_async_wait<0>();  // this stage (and Q, dO, the stats) landed
+    __syncthreads();     // ... for every thread; the other stage is free
+    if (it + 1 < n_it) load_kv(s ^ 1, kt0 + SROWS);
+    cp_async_commit();
+    const float* cK = sK + 4 * s * XSTR + h * XSTR;
+    const float* cV = cK + 2 * XSTR;
+    // cluster-uniform: do the rows of group gr see a key of this tile?
+    auto live = [&](int gr) {
+      return 16 * gr < nq && (!causal || kt0 <= q0 + 16 * gr + 15);
+    };
+    const bool mine = live(grp) && c0 < D;
+    if (mine) {  // step 1
+      float x[4][4], y[4][4];  // partial S, dP over the warp's slice
+      rows16_x_rows32<SL>(sQ + h * XRES + qw * SLP, cK, x);
+      rows16_x_rows32<SL>(sDO + h * XRES + qw * SLP, cV, y);
+      xch_push(cluster, rS, sSum, grp, h, pair, rank, C, x, y);
+    }
+    cluster.sync();  // every partial of the tile is in place
+    // step 2 on this block's quarters, two elements a thread-step
+    for (int u = tid;; u += NT) {
+      const int m = u >> 6, qi = rank + C * m;  // the quarter, its position
+      if (qi >= XNQ) break;
+      const int pg = qi >> 2, j = qi & 3, pl = (u >> 1) & 31, half = u & 1;
+      if (!live(pg)) continue;  // no warp reads it
+      const int rof = (m * C * 32 + pl) * 4 + 2 * half;
+      const int off = (qi * 32 + pl) * 4 + 2 * half;
+      const float2 sv = xch_sum(rS, rof, C);
+      const float2 dpv = xch_sum(rS + XRCV, rof, C);
+      const int r = 16 * pg + (pl >> 2) + 8 * half, key0 = 8 * j + 2 * (pl & 3);
+      const float sx[2] = {sv.x, sv.y}, dx[2] = {dpv.x, dpv.y};
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + e;
+        const bool ok =
+            r < nq && key < nk && (!causal || kt0 + key <= q0 + r);
+        const float pp =
+            ok ? expf(__fsub_rn(__fmul_rn(sx[e], scale), sLse[r])) : 0.0f;
+        ds[e] = __fmul_rn(pp, __fsub_rn(dx[e], sDelta[r]));
+      }
+      xch_bcast(cluster, xS, off, C, make_float2(ds[0], ds[1]));
+    }
+    cluster.sync();  // every dS of the tile is in place
+    if (mine) {  // step 3
+      float y[4][4];  // dS: 16 rows x 32 keys
+      xch_read(xS, grp, y);
+      rows_accumulate<SL, SL>(y, cK, acc);  // dQ += dS K (scaled at the
+                                            // end)
+    }
+  }
+  cp_async_wait<0>();
+  if (c0 >= D) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = qw + g + 8 * hh;
+    if (r >= nq) continue;
+    float* o = dq + qoff + static_cast<long long>(r) * D + c0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < SL / 8; ++c)
+      if (c0 + 8 * c < D)
+        *reinterpret_cast<float2*>(o + 8 * c) =
+            make_float2(__fmul_rn(acc[c][2 * hh], scale),
+                        __fmul_rn(acc[c][2 * hh + 1], scale));
+  }
+}
+
+// the launch of a cluster kernel at head dim D over grid (x, y,
+// cluster_size(D)) on stream st; attr holds its cluster dimension
+cudaLaunchConfig_t cluster_config(int D, int x, int y, cudaStream_t st,
+                                  cudaLaunchAttribute (&attr)[1]) {
+  const int C = cluster_size(D);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(x, y, C);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = XBYTES;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of `kern` at head dim D that the card holds at once, one
+// block an SM (cudaOccupancyMaxActiveClusters) into *n
+template <typename K>
+cudaError_t active_clusters(K kern, int D, int* n) {
+  cudaError_t e = allow_smem(kern, XBYTES);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(D, 1, 1, nullptr, attr);
+  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+}
+
+// B10 or B11 (kern, route) at cluster_form(D): clusters of cluster_size(D)
+// blocks over grid (B*H, tiles of XRK rows of `rows`, C). The card must be
+// able to hold one such cluster at one block an SM (asked once for each
+// kernel, device and C), or the launch is refused with
+// cudaErrorLaunchOutOfResources.
+template <typename... P, typename... A>
+cudaError_t launch_cluster(void (*kern)(P...), int route, int rows, int B,
+                           int H, int D, cudaStream_t st, A... args) {
+  constexpr int NDEV = 16;
+  static int fits[NDEV][cluster_size(CLUSTER_MAX_D) + 1];  // 0 unknown, 1
+                                                           // fits, -1 not
+  int dev = 0, unknown = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = allow_smem(kern, XBYTES);
+  if (e != cudaSuccess) return e;
+  int& ok = dev < NDEV ? fits[dev][cluster_size(D)] : unknown;
+  if (ok == 0) {
+    int n = 0;
+    e = active_clusters(kern, D, &n);
+    if (e != cudaSuccess) return e;
+    ok = n > 0 ? 1 : -1;
+  }
+  if (ok < 0) return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(D, B * H, (rows + XRK - 1) / XRK, st, attr);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(route, 0, 2 * SL);
+  return e;
+}
+
+// ---- head dims past 1024: the column-group form ----------------------------
+//
+// B10 and B11 at D > 1024 (past the cluster form below) on the same
+// 3xTF32 products: a block (8 warps, 128 resident rows, 16 a warp) keeps
+// one group of CGRP output columns (grid z; 64, as the forward's). For
+// each streamed 32-row tile it forms S and dP over the whole head dim,
+// one FCH-column chunk of the four operands at a time (cp.async, one
+// stage; every group the same chunks in the same order; each chunk summed
+// in a fresh accumulator), then P and dS as B10 and B11 do, and the
+// second products on its group: Q's and dO's columns of the tile (B10),
+// K's (B11), loaded into the chunk's buffers once the chunks are done.
+// Shared memory: two 128-row and two 32-row chunk tiles at a pitch of 132
+// floats (169 KB) and the stats.
 constexpr int FCH = 128, CGRP = 64, CRES = 128;
 constexpr int CP = FCH + 4;
 constexpr int COLS_BYTES = ((2 * CRES + 2 * SROWS) * CP + 2 * CRES) * 4;
 
-// B10 at D > 256: grid (B*H, key tiles of CRES, column groups); operands
+// B10 at D > 1024: grid (B*H, key tiles of CRES, column groups); operands
 // as attn_bwd_dkv_kernel's
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dkv_cols_kernel(const float* __restrict__ q,
@@ -464,7 +994,7 @@ attn_bwd_dkv_cols_kernel(const float* __restrict__ q,
   }
 }
 
-// B11 at D > 256: grid (B*H, q tiles of CRES, column groups); operands as
+// B11 at D > 1024: grid (B*H, q tiles of CRES, column groups); operands as
 // attn_bwd_dq_kernel's
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dq_cols_kernel(const float* __restrict__ q,
@@ -561,7 +1091,7 @@ attn_bwd_dq_cols_kernel(const float* __restrict__ q,
   }
 }
 
-// B10 or B11 (kern, route) at D > 256 over grid (B*H, tiles of CRES rows
+// B10 or B11 (kern, route) at D > 1024 over grid (B*H, tiles of CRES rows
 // of `rows`, column groups)
 template <typename K, typename... A>
 cudaError_t launch_cols(K kern, int route, int rows, int B, int H, int D,
@@ -635,8 +1165,8 @@ static const float* F(const void* p) { return static_cast<const float*>(p); }
 
 extern "C" {
 
-// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (past 256: the
-// column-group kernels)
+// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (f32 past 256: the
+// cluster kernels, past 1024 the column-group ones)
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                       const void* dout, const void* k, const void* v,
                       const void* lse, const void* delta, void* dk, void* dv,
@@ -648,6 +1178,12 @@ int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
     return attn_bwd_dkv_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dk,
                               dv, B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (cluster_form(head_dim))
+    return launch_cluster(attn_bwd_dkv_cluster_kernel, ROUTE_BWD_DKV_COLS_TF32,
+                          Skv, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
+                          F(lse), F(delta), static_cast<float*>(dk),
+                          static_cast<float*>(dv), H, Hkv, Sq, Skv, causal,
+                          head_dim, scale);
   if (head_dim > 256)
     return launch_cols(attn_bwd_dkv_cols_kernel, ROUTE_BWD_DKV_COLS_TF32,
                        Skv, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
@@ -669,6 +1205,11 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
     return attn_bwd_dq_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dq,
                              B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (cluster_form(head_dim))
+    return launch_cluster(attn_bwd_dq_cluster_kernel, ROUTE_BWD_DQ_COLS_TF32,
+                          Sq, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
+                          F(lse), F(delta), static_cast<float*>(dq), H, Hkv,
+                          Sq, Skv, causal, head_dim, scale);
   if (head_dim > 256)
     return launch_cols(attn_bwd_dq_cols_kernel, ROUTE_BWD_DQ_COLS_TF32, Sq,
                        B, H, head_dim, st, F(q), F(dout), F(k), F(v), F(lse),
@@ -676,6 +1217,24 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
                        causal, head_dim, scale);
   F32_DISPATCH(launch_bwd_dq, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq,
                Skv, causal, head_dim, scale, st)
+}
+
+// the blocks of a cluster of the f32 cluster form at head_dim (for
+// reports): 0 where B10 and B11 do not take that form
+int accl_attn_bwd_cluster_size(int head_dim) {
+  return cluster_form(head_dim) ? cluster_size(head_dim) : 0;
+}
+
+// the clusters of the f32 cluster form (B10 if dkv, else B11) at head_dim
+// that the card holds at once (for reports): 0 where B10 and B11 do not
+// take that form, minus the CUDA error code if the query fails
+int accl_attn_bwd_active_clusters(int dkv, int head_dim) {
+  if (!cluster_form(head_dim)) return 0;
+  int n = 0;
+  const cudaError_t e =
+      dkv ? active_clusters(attn_bwd_dkv_cluster_kernel, head_dim, &n)
+          : active_clusters(attn_bwd_dq_cluster_kernel, head_dim, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port on one card: the stream kernels B1-B7,
 B9, B12 decode, the 32-layer Llama-3-8B forward on 4x512 tokens (the
-serving path's B9 call), the attention backward B10, B11 and the
-attention forward's f32 route (B8, B9, B12 prefill).
+serving path's B9 call), the attention backward B10, B11 (and their f32
+route past head dim 256) and the attention forward's f32 route (B8, B9,
+B12 prefill).
 
 Run from the root of a checkout:
 
-    python3 chip_compare.py [--part all|stream|model|bwd|fwd32] [TREE ...]
+    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32] [TREE ...]
 
 ``--part stream`` times the stream kernels only (no model is built);
 ``--part model`` B9, decode and the forward only; ``--part bwd`` B10
-and B11 only; ``--part fwd32`` the forward's f32 route beside SDPA's f32
-forward, with the bf16 routes and decode at the same shapes as
-controls; the default is all but ``fwd32``.
+and B11 only; ``--part bwd_wide`` the f32 B10 and B11 past head dim 256;
+``--part fwd32`` the forward's f32 route beside SDPA's f32 forward, with
+the bf16 routes and decode at the same shapes as controls; the default
+is all but ``bwd_wide`` and ``fwd32``.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -52,6 +54,16 @@ card's name and power limit and:
   launches and the largest error against the plain version, and
   PyTorch's SDPA backward (dq, dk and dv together, f32 and bf16, with
   ``allow_tf32`` off), the pair's yardstick;
+- the bwd_wide part, at phase 17a's shapes past head dim 256 (Gemma-2B's
+  heads, H=8, Hkv=1, B=4, causal; D=264 and D=512 at S=2048, D=1024 at
+  S=1024): f32 B10 and B11 on the operands the forward gives, each the
+  median device time of 5 launches behind the GPU sleep beside its bound
+  (three TF32 products of 8*D (B10) or 6*D (B11) operations a visible
+  score at 495 TFLOP/s), the pair's sum, the largest error against the
+  plain versions, and PyTorch's SDPA f32 backward (dq, dk and dv
+  together, ``allow_tf32`` off; its math backend, the one that takes
+  these head dims), timed only; where the tree has the cluster form,
+  the clusters of it the card holds at once and the SMs they fill;
 - the fwd32 part, at phase 5's shapes of ``chip_smoke.py`` (B=4, H=32,
   Hkv=8, D=128, causal): ``flash_attention_fwd`` in f32 as B9 at S=128
   and S=512 and as B8 at S=2048, and the f32 prefill (``flash_decode``,
@@ -80,7 +92,8 @@ import time
 
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PARTS = ("all", "stream", "model", "bwd", "fwd32")
+PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32")
+TF32_OPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -318,6 +331,60 @@ def bwd_part(out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def bwd_wide_part(out: dict) -> None:
+    """The f32 B10 and B11 past head dim 256 and SDPA's f32 backward at
+    phase 17a's shapes (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    # the cluster form's size and occupancy, where the tree has one
+    lib = _build.library()
+    size = getattr(lib, "accl_attn_bwd_cluster_size", None)
+    clusters = getattr(lib, "accl_attn_bwd_active_clusters", None)
+    B, H, Hkv = 4, 8, 1
+    for D, S in ((264, 2048), (512, 2048), (1024, 1024)):
+        q, do = (torch.randn(B, H, S, D, device="cuda", generator=g)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
+                for _ in range(2))
+        o, lse = A.flash_attention_fwd(q, k, v, True)
+        delta = (do * o).sum(-1).reshape(B * H, S)
+        args = (q, do, k, v, lse, delta, True, D ** -0.5)
+        visible = S * (S + 1) // 2 * B * H
+        rec = {}
+        for key, fn, ref, ops in (
+                ("b10", A.flash_attention_bwd_dkv,
+                 A.flash_attention_bwd_dkv_ref, 8),
+                ("b11", lambda *a: (A.flash_attention_bwd_dq(*a),),
+                 lambda *a: (A.flash_attention_bwd_dq_ref(*a),), 6)):
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(fn(*args), ref(*args)))
+            ms = time_ms(lambda: fn(*args), reps=5)  # noqa: B023
+            bound = 3 * ops * D * visible / TF32_OPS_PER_S * 1e3
+            rec[key] = {"ms": ms, "bound_ms": bound,
+                        "pct_of_bound": 100 * bound / ms,
+                        "max_abs_err": err}
+            torch.cuda.empty_cache()
+        rec["pair_ms"] = rec["b10"]["ms"] + rec["b11"]["ms"]
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                            enable_gqa=True)
+        rec["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), do, retain_graph=True), reps=5)  # noqa: B023
+        rec["pair_vs_sdpa"] = rec["pair_ms"] / rec["sdpa_bwd_ms"]
+        if size is not None and clusters is not None:
+            n = clusters(1, D)
+            rec["active_clusters"] = n
+            rec["sms_in_clusters"] = n * size(D)
+        out[f"d{D}_s{S}"] = rec
+        del q, do, k, v, o, lse, delta, args, lq, lk, lv, lo
+        torch.cuda.empty_cache()
+
+
 def fwd32_part(out: dict) -> None:
     """The forward's f32 route beside SDPA, the bf16 routes and decode
     as controls (module docstring)."""
@@ -382,6 +449,8 @@ def one(tree: str, part: str) -> dict:
         model_part(out)
     if part in ("all", "bwd"):
         bwd_part(out)
+    if part == "bwd_wide":
+        bwd_wide_part(out)
     if part == "fwd32":
         fwd32_part(out)
     return out

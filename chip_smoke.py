@@ -3490,11 +3490,14 @@ def tf32_kernels_checked():
 
 
 # the column-group forms (head dims past 256): the 16-bit kernels, one
-# instantiation per element type, and the f32 ones, one each
+# instantiation per element type, and the f32 ones, one each (the f32
+# backward's cluster form to D 1024, its column-group form past it)
 COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel",
                       "attn_bwd_dkv_cols_wgmma_kernel",
                       "attn_bwd_dq_cols_wgmma_kernel")
 COLS_TF32_KERNELS = ("attn_fwd_cols_kernel", "attn_decode_cols_kernel",
+                     "attn_bwd_dkv_cluster_kernel",
+                     "attn_bwd_dq_cluster_kernel",
                      "attn_bwd_dkv_cols_kernel", "attn_bwd_dq_cols_kernel")
 
 
@@ -8053,6 +8056,12 @@ HD_B, HD_S, HD_B9_S = 4, 2048, 512     # B8, B10/B11 at 2048; B9 at 512
 HD_T, HD_KV, HD_PREFILL = 4096, 2047, 1024   # decode and prefill
 WIDE_DIMS = (264, 512)     # head dims past 256: the column-group forms
 WIDE_MAX_D, WIDE_S = 1024, 1024
+# the f32 B10/B11's last head dim in the cluster form (attention_bwd.cu's
+# CLUSTER_MAX_D), and the f32 backward's own edge dims: clusters of 7
+# blocks over 13 slices (the most receive slots, an odd slice count), and
+# past the cluster form (the column-group kernels)
+F32_CLUSTER_MAX_D = 1024
+WIDE_BWD_F32_DIMS = (776, 1032)
 DRY_D, DRY_S = 8, 64                   # the dry run's sp ring (8 ranks)
 HALF_DTYPES = ("float32", "bfloat16", "float16")
 F16_SERVE_SEED, F16_TRAIN_SEED, D256_SEED = SEED + 181, SEED + 182, SEED + 183
@@ -8075,12 +8084,14 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     8; 16-bit tensor-core routes hold 64, 128, 192 or 256 columns, the
     f32 routes and the split decode a power of two from 16; past 256
     every kind takes its column-group form ("_cols"), whose tier is the
-    group's width (64 for f32, 128 for 16-bit B10's dK and dV, else
-    256)."""
+    group's width (f32: 64, but 128, a cluster block's two slices, for
+    B10 and B11 to D 1024; 16-bit: 128 for B10's dK and dV, else 256)."""
     d = -(-D // 8) * 8
     if d > 256:                  # the column-group forms, by group width
         f32 = dtype == "float32"
-        tier = 64 if f32 else 128 if kind == "bwd_dkv" else 256
+        bwd = kind in ("bwd_dkv", "bwd_dq")
+        tier = ((128 if bwd and d <= F32_CLUSTER_MAX_D else 64) if f32
+                else 128 if kind == "bwd_dkv" else 256)
         return f"{kind}_{'tf32' if f32 else 'wgmma'}_cols", dtype, tier
     pow2 = next(t for t in (16, 32, 64, 128, 256) if d <= t)
     if kind == "decode":
@@ -8181,6 +8192,11 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         err, ratio = max_pair(
             hold_bwd_outputs(args, (dk, dv), f"bwd_dkv {dname} D={D}"),
             hold_bwd_outputs(args, (dq,), f"bwd_dq {dname} D={D}"))
+        if dname == "float32" and D > 256:   # the cluster form's repeat
+            need_repeat(lambda: (*A.flash_attention_bwd_dkv(*args),  # noqa: B023
+                                 A.flash_attention_bwd_dq(*args)),  # noqa: B023
+                        (dk, dv, dq), f"bwd f32 D={D}")
+            out["repeat"] = "bitwise"
         del dk, dv, dq
         torch.cuda.empty_cache()
         n = sq * (sq + 1) // 2 * B * H       # visible scores, causal
@@ -8246,10 +8262,13 @@ def case_line(kind, dt, B, H, Hkv, D, sq, skv, r, T=None, model="") -> str:
     """A kernel case's printed line."""
     dname = str(dt)[6:]
     route = tier_of("bwd_dkv" if kind == "bwd" else kind, dname, D)
-    extra = (f" (attn_bwd_dkv {r['dkv']['ms']:.4f} ms, bound "
-             f"{r['dkv']['bound_ms']:.4f}; attn_bwd_dq {r['dq']['ms']:.4f} "
-             f"ms, bound {r['dq']['bound_ms']:.4f}; the pair below)"
-             if kind == "bwd" else "")
+    extra = "".join(
+        f"{'; ' if part == 'dq' else ' ('}attn_bwd_{part} "
+        f"{r[part]['ms']:.4f} ms, bound {r[part]['bound_ms']:.4f}, "
+        f"{r[part]['bound_ms'] / r[part]['ms']:.1%} of it"
+        for part in ("dkv", "dq")) + (
+        f"; repeat {r['repeat']}" if "repeat" in r else "") + (
+        "; the pair below)") if kind == "bwd" else ""
     return (f"kernel {kind} {dname} {model} B={B} H={H} Hkv={Hkv} D={D} "
             f"{'S' if T is None else 'S_new'}={sq} "
             f"{'Skv' if T is None else 'kv_len'}={skv}"
@@ -8270,7 +8289,9 @@ def wide_edges(g):
     Sq 200 against Skv 300 unmasked; B9 over one block at S = 100 causal
     and Sq 70 against Skv 130 unmasked; B10 and B11 on the first two;
     B12 over a cache of 320 rows with NaN past kv_len 1, 65 and 300, one
-    new token and five; the f32 forward run twice, bitwise equal."""
+    new token and five; the f32 forward run twice, bitwise equal. Then the
+    f32 B10 and B11 at D 776 and 1032 (``WIDE_BWD_F32_DIMS``) on the
+    ragged, uneven and GQA shapes of B8, each run twice, bitwise equal."""
     import torch
     from accl_tpu_torch.ops import attention as A
     n = 0
@@ -8331,9 +8352,35 @@ def wide_edges(g):
                               mag=fwd_route_mag("decode", (q, kc, vc,
                                                            kv_len)))
                     n += 1
+    m = 0
+    for D in WIDE_BWD_F32_DIMS:
+        for B, H, Hkv, Sq, Skv, causal in ((1, 2, 1, 300, 300, True),
+                                           (1, 4, 2, 200, 300, False),
+                                           (1, 8, 1, 130, 300, True)):
+            q, do = (torch.randn(B, H, Sq, D, device="cuda", generator=g)
+                     for _ in range(2))
+            k, v = (torch.randn(B, Hkv, Skv, D, device="cuda", generator=g)
+                    for _ in range(2))
+            what = f"wide bwd float32 D={D} {(B, H, Hkv, Sq, Skv, causal)}"
+            o, lse = A.flash_attention_fwd(q, k, v, causal)
+            delta = (do * o).sum(-1).reshape(B * H, Sq)
+            args = (q, do, k, v, lse, delta, causal, D ** -0.5)
+            before = dict(A.route_launches)
+            dkv = A.flash_attention_bwd_dkv(*args)
+            need_one_route(before, "bwd_dkv", "float32", D, what)
+            before = dict(A.route_launches)
+            dq = A.flash_attention_bwd_dq(*args)
+            need_one_route(before, "bwd_dq", "float32", D, what)
+            hold_bwd_outputs(args, dkv, what)
+            hold_bwd_outputs(args, (dq,), what)
+            need_repeat(lambda: (*A.flash_attention_bwd_dkv(*args),  # noqa: B023
+                                 A.flash_attention_bwd_dq(*args)),  # noqa: B023
+                        (*dkv, dq), what)
+            m += 1
     print(f"wide edges: the column-group forms over {n} ragged, uneven "
-          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16, each on "
-          f"its route and within its limit")
+          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16, and the "
+          f"f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on its "
+          f"route, within its limit and (f32) bitwise on a repeat")
 
 
 def head_dim_phase() -> list:
@@ -8341,7 +8388,8 @@ def head_dim_phase() -> list:
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
     on f32, bf16 and f16; the column-group forms at Gemma-2B's heads with
     D = 264 and 512 (every kind and dtype) and D = 1024 at S = 1024 (B8,
-    B10/B11 and decode in bf16 and f32); at D = 8 (the dry run's ring
+    B10/B11 and decode in bf16 and f32), f32 B10/B11 at D = 776 and 1032,
+    S = 1024; at D = 8 (the dry run's ring
     shapes); then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
     8's). Returns the f16 records."""
@@ -8391,6 +8439,13 @@ def head_dim_phase() -> list:
                             reps=3)
             print(case_line(kind, dt, HD_B, 8, 1, WIDE_MAX_D, sq, skv, r, T,
                             "Gemma-2B heads"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    for D in WIDE_BWD_F32_DIMS:         # the f32 backward's edge dims
+        r = kernel_case("bwd", torch.float32, HD_B, 8, 1, D, WIDE_S, WIDE_S,
+                        g, reps=3)
+        print(case_line("bwd", torch.float32, HD_B, 8, 1, D, WIDE_S, WIDE_S,
+                        r, model="Gemma-2B heads"))
         gc.collect()
         torch.cuda.empty_cache()
     for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
@@ -8665,7 +8720,8 @@ def head_dim_256_model_phase():
 # ffn), 2 layers; the column-group rows of the kernels line, each from
 # its path at the path's shapes: (kind, S or S_new, kv length, cache T)
 D512_SEED, D512_F32_SEED = SEED + 185, SEED + 186
-D512_S, D512_F32_S, D512_NEW, D512_STEPS = 2048, 1024, 16, 3
+D512_S, D512_F32_S, D512_NEW, D512_STEPS, D512_F32_STEPS = (2048, 1024, 16,
+                                                            3, 2)
 D512_RECORDS = {
     "attn_fwd": ("fwd", "accl_tpu/ops/attention.py:285"),
     "attn_fwd_single": ("fwd_single", "accl_tpu/ops/attention.py:252"),
@@ -8729,7 +8785,7 @@ def head_dim_512_model_phase() -> list:
     weights. bf16: a 1 x 2048 forward and a 512-token one held against
     the dense path, ``generate`` 16 tokens from the 2048, and three Adam
     steps at (1, 2048) with f32 parameters, the losses falling. f32 (the
-    3xTF32 routes): the same at 1024 tokens, one training step. Every
+    3xTF32 routes): the same at 1024 tokens, two training steps. Every
     attention launch on a column-group route (``route_launches``).
     Returns the kernels line's column-group rows."""
     import dataclasses
@@ -8777,7 +8833,7 @@ def head_dim_512_model_phase() -> list:
         model = Llama(cfg).init(g)           # f32 parameters for Adam
         step = model.make_train_step(torch.optim.Adam(model.parameters(),
                                                       lr=1e-4))
-        steps = D512_STEPS if dt != torch.float32 else 1
+        steps = D512_STEPS if dt != torch.float32 else D512_F32_STEPS
         losses = [float(step(tokens)) for _ in range(steps)]
         torch.cuda.synchronize()
         routes = routes_since(before)
@@ -8790,10 +8846,16 @@ def head_dim_512_model_phase() -> list:
               f"{peak:.1f} GiB")
         need(all(np.isfinite(x) for x in losses), f"{path}: non-finite "
              f"loss")
-        need(steps == 1 or losses[-1] < losses[0],
-             f"{path}: the loss did not fall: {losses}")
+        need(losses[-1] < losses[0], f"{path}: the loss did not fall: "
+             f"{losses}")
         need(routes and all(r.endswith("_cols") for r, _d, _t in routes),
              f"{path}: a launch off the column-group routes: {routes}")
+        per_run = cfg.n_layers * steps       # B10 and B11: a layer a step
+        need({k: n for k, n in routes.items() if k[0].startswith("bwd")}
+             == {tier_of(kind, str(dt)[6:], 512): per_run
+                 for kind in ("bwd_dkv", "bwd_dq")},
+             f"{path}: B10/B11 not once a layer a step on their "
+             f"column-group route: {routes}")
         del model, step, tokens, out
         gc.collect()
         torch.cuda.empty_cache()
