@@ -79,9 +79,9 @@
 // (both form the same S and dP: 12 instead of 8 products of D a score in
 // B10, 10 instead of 6 in B11), a block holds 64 resident rows, and the
 // streamed tiles have one stage (200 KB in all; the next tile's loads
-// wait for this one's products). Past 256 columns up to 1024 a cluster of
+// wait for this one's products). Past 256 columns up to 4096 a cluster of
 // blocks splits the head dim and exchanges S and dP through distributed
-// shared memory ("the cluster form" below); past 1024 each block of a
+// shared memory ("the cluster form" below); past 4096 each block of a
 // column group forms S and dP over the whole head dim itself ("the
 // column-group form").
 //
@@ -349,25 +349,37 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
 
 // ---- head dims past 256: the cluster form -----------------------------------
 //
-// B10 and B11 at 256 < D <= 1024 on the same 3xTF32 products, one launch a
+// B10 and B11 at 256 < D <= 4096 on the same 3xTF32 products, one launch a
 // call, with S and dP formed once for each (resident tile, streamed tile)
 // pair. The head dim is cut into Gs = ceil(D / 64) slices of 64 columns and
-// a thread-block cluster of C = ceil(Gs / 2) blocks (grid z; C <= 8,
-// portable) owns one (b*h, tile of 64 resident rows): block c holds slices
-// 2c and 2c + 1. It keeps only its slices of the resident operands (B10 K
-// and V, B11 Q and dO) in shared memory for the whole loop and streams only
-// its slices of the others (B10 Q and dO, B11 K and V) through two cp.async
-// stages, so the next tile's loads run under this tile's products. Its 8
-// warps form 4 groups of 16 resident rows, one warp of a group for each
-// slice. The partials' positions (a float4 of a 16 x 8 accumulator tile; a
-// "quarter" of 32 of them for 16 resident rows by 8 streamed ones) are
-// dealt to the blocks, quarter i to block i % C. For every streamed tile of
-// 32 rows (B11: keys):
+// a thread-block cluster of C = ceil(Gs / NS) blocks (grid z; C <= 8,
+// portable) owns one (b*h, tile of RK = 128 / NS resident rows): block c
+// holds the NS slices NS*c .. NS*c + NS - 1. The tier is the smallest NS
+// of 2, 4 and 8 with C <= 8: NS 2 to D 1024 (64 resident rows), 4 to 2048
+// (32), 8 to 4096 (16). A block keeps only its slices of the resident
+// operands (B10 K and V, B11 Q and dO) in shared memory for the whole loop
+// and streams only its slices of the others (B10 Q and dO, B11 K and V)
+// through NSL cp.async slots of one operand tile each, every load issued
+// as soon as its slot is free: four slots at NS 2 (two stages: the next
+// tile's loads run under this tile's products); three at NS 4, where two
+// stages do not fit (B10: the next Q under the whole tile, the next dO
+// under dV's product; B11: the next V under the whole tile, the next K
+// from step 2 on, V's slot being free after step 1); two at NS 8, whose
+// slices fill shared memory (B10: the next Q under dV's product, the next
+// dO under the next tile's S, formed before its dO is waited for; B11:
+// the next V from step 2 on, the next K under the next tile's dP, formed
+// first).
+// Its 8 warps form RK / 16 groups of 16 resident rows, one warp of a group
+// for each slice. The partials' positions (a float4 of a 16 x 8
+// accumulator tile; a "quarter" of 32 of them for 16 resident rows by 8
+// streamed ones) are dealt to the blocks, quarter i to block i % C. For
+// every streamed tile of 32 rows (B11: keys):
 //   1. each warp forms its slice's partial S and dP (16 x 32, 3xTF32, each
-//      in a fresh accumulator); the two warps of a group add theirs (slice
-//      2c first) through shared memory, one S and one dP each, and store
-//      the block's partial, quarter by quarter, into the owners' receive
-//      buffers at the block's slot; cluster barrier;
+//      in a fresh accumulator); the NS warps of a group add theirs in slice
+//      order through shared memory (xch_push), each warp summing a share of
+//      the positions, and store the block's partial, quarter by quarter,
+//      into the owners' receive buffers at the block's slot; cluster
+//      barrier;
 //   2. the owner of each position sums the C partials in block order with
 //      f32 adds, forms P = exp(scale*S - LSE) and dS = P*(dP - delta) under
 //      the mask, and stores them into every block's result buffer (B11: dS
@@ -377,98 +389,175 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
 //      (B11), each tile's rows summed in a fresh accumulator.
 // So every block holds bitwise the same P and dS, and S and dP are formed
 // once, not once a column group (the column-group form's 3x to 11x excess
-// of products at D 264 to 1024). Every access to a peer's shared memory is
-// a store, which does not wait for an answer as a load from a peer does;
-// and a block exchanges (C-1)/C of 16 KB of partials and 16 KB of results a
-// tile (B11: 8 KB), half what 64-column partials would move. The receive
-// buffer is read before the second barrier and written after it, the
-// result buffer read before the next tile's first barrier and written
-// after it, so one of each suffices. Whether a group's rows see a pair of
-// the tile depends only on the tile, the same in every block of a cluster:
-// such a group skips its products, its positions are neither summed nor
-// read, and every thread arrives at every barrier. A first barrier makes
-// sure every block of the cluster runs before a peer stores to it; past a
-// tile's second barrier no block touches a peer's shared memory, so a
-// block may exit after its last tile. Columns past D load as zeros; a
-// slice wholly past D (Gs odd) takes no part. Shared memory 190 KB, one
-// block an SM. No atomics: one writer for each element.
+// of products). Every access to a peer's shared memory is a store, which
+// does not wait for an answer as a load from a peer does; and a block
+// exchanges (C-1)/C of 8 * 16 * RK floats of partials and as many of
+// results a tile (B11: half). The receive buffer is read before the second
+// barrier and written after it, the result buffer read before the next
+// tile's first barrier and written after it, so one of each suffices; the
+// slice sums of step 1 share the result buffer's memory, used only between
+// a tile's block barrier and its first cluster barrier. Whether a group's
+// rows see a pair of the tile depends only on the tile, the same in every
+// block of a cluster: such a group skips its products, its positions are
+// neither summed nor read, and every thread arrives at every barrier. A
+// first barrier makes sure every block of the cluster runs before a peer
+// stores to it; past a tile's second barrier no block touches a peer's
+// shared memory, so a block may exit after its last tile. Columns past D
+// load as zeros; a slice wholly past D takes no part in the products and
+// its warp only sums its share of the live slices' partials. Shared memory
+// about 174, 209 and 227 KB at NS 2, 4 and 8, one block an SM. No atomics:
+// one writer for each element.
 constexpr int SL = 64, SLP = SL + 4;  // a slice's columns; its row pitch
-constexpr int XRK = 64;               // resident rows of a block
-constexpr int XNQ = XRK / 16 * 4;     // quarters of positions (128 floats)
-constexpr int XSLOTS = 21;            // receive slots, ceil(XNQ / C) * C
-constexpr int XRES = XRK * SLP;       // floats of a slice's resident tile
-constexpr int XSTR = SROWS * SLP;     // ... of a slice's streamed tile
-constexpr int XRCV = XSLOTS * 128;    // ... of S's (dP's) receive slots
-constexpr int XRSL = XNQ * 128;       // ... of P's (dS's) results
-constexpr int XSUM = 8 * 512;         // ... of the groups' pair sums
-// resident K, V (Q, dO) and two stages of streamed Q, dO (K, V), two slices
-// each; the receive buffers of S and dP; the result buffers of P and dS;
-// the pair sums; the stats (B10 two stages of SROWS rows, B11 XRK rows,
-// LSE and delta each)
-constexpr int XBYTES =
-    (4 * XRES + 8 * XSTR + 2 * XRCV + 2 * XRSL + XSUM + 2 * XRK) * 4;
-static_assert(XBYTES <= MAX_SMEM, "a block's shared memory");
-static_assert(XRK >= 2 * SROWS, "B10's stats");
-// the head dims of the cluster form: two slices a block, at most 8 blocks
-// a cluster (the portable size)
-constexpr int CLUSTER_MAX_D = 8 * 2 * SL;
+constexpr int XSTR = SROWS * SLP;     // floats of a slice's streamed tile
+// the head dims of the cluster form: at most 8 slices a block, at most 8
+// blocks a cluster (the portable size)
+constexpr int CLUSTER_MAX_D = 8 * 8 * SL;
+// the slices a block holds at head dim D: the fewest of 2, 4, 8 that keep
+// the cluster at 8 blocks
+__host__ __device__ constexpr int cluster_ns(int D) {
+  return D <= 8 * 2 * SL ? 2 : D <= 8 * 4 * SL ? 4 : 8;
+}
 __host__ __device__ constexpr int cluster_size(int D) {
-  return (D + 2 * SL - 1) / (2 * SL);
+  return ((D + SL - 1) / SL + cluster_ns(D) - 1) / cluster_ns(D);
 }
 __host__ __device__ constexpr bool cluster_form(int D) {
   return D > 256 && D <= CLUSTER_MAX_D;
 }
-__host__ __device__ constexpr int cluster_slots(int C) {
-  return (XNQ + C - 1) / C * C;
+// the receive slots of NQ quarters over C blocks: each owner holds C for
+// each of its quarters
+__host__ __device__ constexpr int cluster_slots(int NQ, int C) {
+  return (NQ + C - 1) / C * C;
 }
-static_assert(cluster_slots(3) <= XSLOTS && cluster_slots(4) <= XSLOTS &&
-                  cluster_slots(5) <= XSLOTS && cluster_slots(6) <= XSLOTS &&
-                  cluster_slots(7) <= XSLOTS && cluster_slots(8) <= XSLOTS,
-              "receive slots");
+__host__ __device__ constexpr int most_slots(int NQ, int cmin) {
+  int m = 0;
+  for (int c = cmin; c <= 8; ++c)
+    m = cluster_slots(NQ, c) > m ? cluster_slots(NQ, c) : m;
+  return m;
+}
 
-// step 1: the block's partial over its two slices for rows group grp. The
-// warp of slice h holds x (S) and y (dP) over its slice; its pair's warp
-// those over the other. The slice-0 warp stores y, the slice-1 warp x
-// (sum, a group's 2 x 512 floats), they meet at the group's named barrier,
-// and each adds the other's half to its own, slice 0's first: the slice-0
-// warp S, the slice-1 warp dP (one slice live: the slice-0 warp both).
-// Each quarter of the sum goes into its owner's receive buffer rcv (S's,
-// then dP's at rcv + XRCV) at slot `rank`.
-__device__ __forceinline__ void xch_push(
-    cooperative_groups::cluster_group& cluster, float* rcv, float* sum,
-    int grp, int h, bool pair, int rank, int C, const float (&x)[4][4],
-    const float (&y)[4][4]) {
-  const int l = threadIdx.x & 31;
-  float4* mine = reinterpret_cast<float4*>(sum + grp * 1024 + h * 512) + l;
-  const float4* other =
-      reinterpret_cast<const float4*>(sum + grp * 1024 + (h ^ 1) * 512) + l;
-  if (pair) {
+// The shape of a cluster block holding NS slices: RK resident rows, NQ
+// quarters of positions (128 floats each), NSL slots of streamed operand
+// tiles; the slice sums deal each warp UNITS of the eight float4 units a
+// lane holds (S's four, then dP's), WR slices storing theirs a round.
+// Shared memory: the resident tiles (B10 K, V; B11 Q, dO) and the slots
+// of the streamed ones (B10 Q, dO; B11 V, K), NS slices each; the receive
+// buffers of S and dP; the result buffers of P and dS, which the slice
+// sums share; the stats (B10 two tiles' SROWS rows, B11 RK rows, LSE and
+// delta each).
+template <int NS>
+struct Xch {
+  static constexpr int RK = 128 / NS;
+  static constexpr int NQ = RK / 16 * 4;
+  static constexpr int NSL = NS == 2 ? 4 : NS == 4 ? 3 : 2;
+  static constexpr int CMIN = NS == 2 ? 3 : 5;  // the tier's least C
+  static constexpr int UNITS = 8 / NS;
+  static constexpr int WR = NS < 8 ? NS : 4;
+  static constexpr int RES = RK * SLP;  // floats of a slice's resident tile
+  static constexpr int RCV = most_slots(NQ, CMIN) * 128;  // S's (dP's)
+  static constexpr int RSL = NQ * 128;                    // P's (dS's)
+  static constexpr int SUM = RK / 16 * WR * (8 - UNITS) * 128;
+  static constexpr int SHARE = SUM > 2 * RSL ? SUM : 2 * RSL;
+  static constexpr int STAT = 2 * (2 * SROWS > RK ? 2 * SROWS : RK);
+  static constexpr int BYTES =
+      (2 * NS * RES + NSL * NS * XSTR + 2 * RCV + SHARE + STAT) * 4;
+  static_assert(BYTES <= MAX_SMEM, "a block's shared memory");
+  static_assert(RK / 16 * NS * 32 == NT, "a warp for each (group, slice)");
+  static_assert(NS % WR == 0, "whole rounds");
+};
+static_assert(cluster_ns(CLUSTER_MAX_D) == 8 &&
+                  cluster_size(CLUSTER_MAX_D) == 8 &&
+                  cluster_size(257) == Xch<2>::CMIN &&
+                  cluster_size(8 * 2 * SL + 8) == Xch<4>::CMIN &&
+                  cluster_size(8 * 4 * SL + 8) == Xch<8>::CMIN,
+              "the tiers' cluster sizes");
+
+__device__ __forceinline__ void zero_tile(float (&x)[4][4],
+                                          float (&y)[4][4]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      mine[32 * j] = h ? make_float4(x[j][0], x[j][1], x[j][2], x[j][3])
-                       : make_float4(y[j][0], y[j][1], y[j][2], y[j][3]);
-    asm volatile("bar.sync %0, 64;\n" ::"r"(1 + grp) : "memory");
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
+}
+__device__ __forceinline__ float4 f4(const float (&z)[4]) {
+  return make_float4(z[0], z[1], z[2], z[3]);
+}
+__device__ __forceinline__ float4 f4_add(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// step 1: the block's partial over its nl live slices for rows group grp.
+// The warp of slice h holds x (S) and y (dP) over its slice; a lane's
+// eight float4 units (x's four, then y's) are dealt UNITS to a warp, slice
+// h owning units h*UNITS .. h*UNITS + UNITS - 1. Each live warp stores the
+// units it does not own into sum, the group's warps meet at their named
+// barrier, and each warp adds its units over the live slices in slice
+// order, its own slice's from its registers: at NS 2 the slice-0 warp sums
+// S, the slice-1 warp dP. Past WR slices (NS 8) they store and add in
+// rounds of WR. Each summed unit goes into its owner's receive buffer rcv
+// (S's, then dP's at rcv + RCV) at slot `rank`. The slice H is a template
+// parameter, so that the units' roles are known as the code is built;
+// xch_push below picks the warp's.
+template <int NS, int H>
+__device__ __forceinline__ void xch_push_as(
+    cooperative_groups::cluster_group& cluster, float* rcv, float* sum,
+    int grp, int nl, int rank, int C, const float (&x)[4][4],
+    const float (&y)[4][4]) {
+  using X = Xch<NS>;
+  constexpr int U = X::UNITS, NW = 8 - U, WR = X::WR;  // NW: units stored
+  const int l = threadIdx.x & 31;
+  // the group's WR slots of NW units; unit u of slice s at index u, or
+  // u - U past the slice's own units
+  float4* buf = reinterpret_cast<float4*>(sum) + grp * WR * NW * 32 + l;
+  float4 acc[U];
+#pragma unroll
+  for (int r = 0; r < NS / WR; ++r) {
+    if (H / WR == r && H < nl) {  // this round's writers
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (u / U != H)
+          buf[((H % WR) * NW + (u < H * U ? u : u - U)) * 32] =
+              u < 4 ? f4(x[u & 3]) : f4(y[u & 3]);
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(32 * NS)
+                 : "memory");
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int u = H * U + k;
+#pragma unroll
+      for (int w = 0; w < WR; ++w) {
+        const int s = r * WR + w;
+        if (s >= nl) break;
+        const float4 v =
+            s == H ? (u < 4 ? f4(x[u & 3]) : f4(y[u & 3]))
+                   : buf[(w * NW + (u < s * U ? u : u - U)) * 32];
+        acc[k] = s == 0 ? v : f4_add(acc[k], v);
+      }
+    }
+    if (r + 1 < NS / WR)  // every read of the round is done
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(32 * NS)
+                   : "memory");
   }
 #pragma unroll
-  for (int part = 0; part < 2; ++part) {
-    if (pair && part != h) continue;  // the pair's other warp sends it
-    const float(&z)[4][4] = part ? y : x;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float4 v = make_float4(z[j][0], z[j][1], z[j][2], z[j][3]);
-      if (pair) {  // slice 0's value first
-        const float4 o = other[32 * j];
-        v = h ? make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y),
-                            __fadd_rn(o.z, v.z), __fadd_rn(o.w, v.w))
-              : make_float4(__fadd_rn(v.x, o.x), __fadd_rn(v.y, o.y),
-                            __fadd_rn(v.z, o.z), __fadd_rn(v.w, o.w));
-      }
-      const int qi = grp * 4 + j;
-      float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(
-                        rcv + part * XRCV, qi % C)) +
-                    ((qi / C) * C + rank) * 32 + l;
-      *dst = v;
-    }
+  for (int k = 0; k < U; ++k) {
+    const int u = H * U + k, qi = grp * 4 + (u & 3);
+    float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(
+                      rcv + (u >> 2) * X::RCV, qi % C)) +
+                  ((qi / C) * C + rank) * 32 + l;
+    *dst = acc[k];
+  }
+}
+// xch_push_as for the warp's slice h
+template <int NS, int H = 0>
+__device__ __forceinline__ void xch_push(
+    cooperative_groups::cluster_group& cluster, float* rcv, float* sum,
+    int grp, int h, int nl, int rank, int C, const float (&x)[4][4],
+    const float (&y)[4][4]) {
+  if constexpr (H < NS) {
+    if (h == H)
+      xch_push_as<NS, H>(cluster, rcv, sum, grp, nl, rank, C, x, y);
+    else
+      xch_push<NS, H + 1>(cluster, rcv, sum, grp, h, nl, rank, C, x, y);
   }
 }
 
@@ -509,8 +598,9 @@ __device__ __forceinline__ void xch_read(const float* res, int grp,
   }
 }
 
-// B10 at 256 < D <= 1024: grid (B*H, key tiles of XRK, C), clusters (1, 1,
-// C); operands as attn_bwd_dkv_kernel's
+// B10 at cluster_form(D), NS = cluster_ns(D): grid (B*H, key tiles of RK,
+// C), clusters (1, 1, C); operands as attn_bwd_dkv_kernel's
+template <int NS>
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dkv_cluster_kernel(const float* __restrict__ q,
                             const float* __restrict__ dout,
@@ -521,60 +611,66 @@ attn_bwd_dkv_cluster_kernel(const float* __restrict__ q,
                             float* __restrict__ dk, float* __restrict__ dv,
                             int H, int Hkv, int Sq, int Skv, int causal, int D,
                             float scale) {
+  using X = Xch<NS>;
+  constexpr int RK = X::RK;
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;              // slice h at sK + h*XRES
-  float* sV = sK + 2 * XRES;
-  float* sQ = sV + 2 * XRES;     // stage s: Q's slices at sQ + 4*s*XSTR,
-                                 // dO's after
-  float* rS = sQ + 8 * XSTR;     // receive buffers: S, dP
-  float* xP = rS + 2 * XRCV;     // result buffers: P, dS
-  float* sSum = xP + 2 * XRSL;   // the groups' pair sums
-  float* sStat = sSum + XSUM;    // stage s: LSE at sStat + 2*s*SROWS,
-                                 // delta after
+  float* sK = smem;                // slice h at sK + h*RES
+  float* sV = sK + NS * X::RES;
+  float* sQ = sV + NS * X::RES;    // the streamed operands' slots
+  float* rS = sQ + X::NSL * NS * XSTR;  // receive buffers: S, dP
+  float* xP = rS + 2 * X::RCV;     // result buffers P, dS; the slice sums
+  float* sStat = xP + X::SHARE;    // tile i's LSE at sStat +
+                                   // 2*(i&1)*SROWS, delta after
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int warp = tid >> 5, grp = warp >> 1, h = warp & 1, kw = 16 * grp;
+  const int warp = tid >> 5, grp = warp / NS, h = warp % NS, kw = 16 * grp;
   const int C = gridDim.z, rank = cluster.block_rank();
-  const int col0 = 2 * rank * SL, c0 = col0 + h * SL;  // the block's and
-                                                       // the warp's columns
-  const bool pair = col0 + SL < D;  // is the block's second slice live?
-  const int bh = blockIdx.x, k0 = blockIdx.y * XRK;
+  const int col0 = NS * rank * SL, c0 = col0 + h * SL;  // the block's and
+                                                        // the warp's columns
+  const int nl = min(NS, (D - col0 + SL - 1) / SL);  // the live slices
+  const int bh = blockIdx.x, k0 = blockIdx.y * RK;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nk = min(XRK, Skv - k0);
+  const int nk = min(RK, Skv - k0);
   const float* lse_row = lse + static_cast<long long>(bh) * Sq;
   const float* delta_row = delta + static_cast<long long>(bh) * Sq;
   // under the causal mask queries before k0 see none of these keys
   const int q_first = causal ? (k0 / SROWS) * SROWS : 0;
   const int n_it = q_first < Sq ? (Sq - q_first + SROWS - 1) / SROWS : 0;
 
-  auto load_q = [&](int s, int q0) {
-    const int nq = min(SROWS, Sq - q0);
-    const long long off = (static_cast<long long>(bh) * Sq + q0) * D;
-    float* dst = sQ + 4 * s * XSTR;
+  // the streamed operand n (tile i = n / 2's Q if n is even, else its dO)
+  // into slot n % NSL, the tile's stats with its Q
+  auto load_op = [&](int n) {
+    const int i = n >> 1, q0 = q_first + i * SROWS, nq = min(SROWS, Sq - q0);
+    const float* src =
+        (n & 1 ? dout : q) + (static_cast<long long>(bh) * Sq + q0) * D;
+    float* dst = sQ + (n % X::NSL) * NS * XSTR;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
+    for (int hh = 0; hh < NS; ++hh) {
       const int col = col0 + hh * SL;
-      cp_rows<SL, SROWS, SLP, NT>(dst + hh * XSTR, q + off + col, nq,
-                                  D - col, D);
-      cp_rows<SL, SROWS, SLP, NT>(dst + (2 + hh) * XSTR, dout + off + col,
-                                  nq, D - col, D);
+      cp_rows<SL, SROWS, SLP, NT>(dst + hh * XSTR, src + col, nq, D - col,
+                                  D);
     }
-    if (tid < 2 * SROWS) {
+    if (!(n & 1) && tid < 2 * SROWS) {
       const int r = tid % SROWS;
       const bool ok = r < nq;
-      cp_async4(sStat + 2 * s * SROWS + tid,
+      cp_async4(sStat + 2 * (i & 1) * SROWS + tid,
                 (tid < SROWS ? lse_row : delta_row) + q0 + (ok ? r : 0), ok);
     }
   };
   const long long koff = (kvrow * Skv + k0) * D;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
+  for (int hh = 0; hh < NS; ++hh) {
     const int col = col0 + hh * SL;
-    cp_rows<SL, XRK, SLP, NT>(sK + hh * XRES, k + koff + col, nk, D - col, D);
-    cp_rows<SL, XRK, SLP, NT>(sV + hh * XRES, v + koff + col, nk, D - col, D);
+    cp_rows<SL, RK, SLP, NT>(sK + hh * X::RES, k + koff + col, nk, D - col,
+                             D);
+    cp_rows<SL, RK, SLP, NT>(sV + hh * X::RES, v + koff + col, nk, D - col,
+                             D);
   }
-  if (n_it > 0) load_q(0, q_first);
+  // at NS 8 in two groups, K, V and Q before dO: S may start first
+  if (n_it > 0) load_op(0);
+  if constexpr (X::NSL == 2) cp_async_commit();
+  if (n_it > 0) load_op(1);
   cp_async_commit();
 
   float adk[SL / 8][4], adv[SL / 8][4];  // keys kw+g, kw+g+8; columns
@@ -586,38 +682,58 @@ attn_bwd_dkv_cluster_kernel(const float* __restrict__ q,
 
   cluster.sync();  // every block of the cluster runs: its peers may store
   for (int it = 0; it < n_it; ++it) {
-    const int s = it & 1;
     const int q0 = q_first + it * SROWS, nq = min(SROWS, Sq - q0);
-    cp_async_wait<0>();  // this stage (and K, V) landed
-    __syncthreads();     // ... for every thread; the other stage is free
-    if (it + 1 < n_it) load_q(s ^ 1, q0 + SROWS);
-    cp_async_commit();
-    const float* cQ = sQ + 4 * s * XSTR + h * XSTR;
-    const float* cDO = cQ + 2 * XSTR;
-    const float* cLse = sStat + 2 * s * SROWS;
+    const bool more = it + 1 < n_it;
+    // this tile's Q and dO (NSL 2: Q only, dO the newest group; and K,
+    // V) landed
+    cp_async_wait<X::NSL == 2 ? 1 : 0>();
+    __syncthreads();  // ... for every thread; the last tile's are read
+    if (X::NSL >= 3 && more) {  // into the last tile's slots: the next Q
+      load_op(2 * it + 2);      // (NSL 4: and dO)
+      if (X::NSL == 4) load_op(2 * it + 3);
+      cp_async_commit();
+    }
+    const float* cQ = sQ + (2 * it % X::NSL) * NS * XSTR + h * XSTR;
+    const float* cDO = sQ + ((2 * it + 1) % X::NSL) * NS * XSTR + h * XSTR;
+    const float* cLse = sStat + 2 * (it & 1) * SROWS;
     const float* cDelta = cLse + SROWS;
     // cluster-uniform: do the keys of group gr see a row of this tile?
     auto live = [&](int gr) {
       return 16 * gr < nk && (!causal || k0 + 16 * gr <= q0 + nq - 1);
     };
     const bool mine = live(grp) && c0 < D;
-    if (mine) {  // step 1
-      float x[4][4], y[4][4];  // partial S^T, dP^T over the warp's slice
-      rows16_x_rows32<SL>(sK + h * XRES + kw * SLP, cQ, x);
-      rows16_x_rows32<SL>(sV + h * XRES + kw * SLP, cDO, y);
-      xch_push(cluster, rS, sSum, grp, h, pair, rank, C, x, y);
+    // step 1: partial S^T, dP^T over the warp's slice (zeros past D)
+    if constexpr (X::NSL == 2) {  // S, then dP once dO has landed
+      float x[4][4], y[4][4];
+      if (mine) rows16_x_rows32<SL>(sK + h * X::RES + kw * SLP, cQ, x);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (mine) rows16_x_rows32<SL>(sV + h * X::RES + kw * SLP, cDO, y);
+      if (live(grp)) {
+        if (!mine) zero_tile(x, y);
+        xch_push<NS>(cluster, rS, xP, grp, h, nl, rank, C, x, y);
+      }
+    } else if (live(grp)) {
+      float x[4][4], y[4][4];
+      if (mine) {
+        rows16_x_rows32<SL>(sK + h * X::RES + kw * SLP, cQ, x);
+        rows16_x_rows32<SL>(sV + h * X::RES + kw * SLP, cDO, y);
+      } else {
+        zero_tile(x, y);
+      }
+      xch_push<NS>(cluster, rS, xP, grp, h, nl, rank, C, x, y);
     }
     cluster.sync();  // every partial of the tile is in place
     // step 2 on this block's quarters, two elements a thread-step
     for (int u = tid;; u += NT) {
       const int m = u >> 6, qi = rank + C * m;  // the quarter, its position
-      if (qi >= XNQ) break;
+      if (qi >= X::NQ) break;
       const int pg = qi >> 2, j = qi & 3, pl = (u >> 1) & 31, half = u & 1;
       if (!live(pg)) continue;  // no warp reads it
       const int roff = (m * C * 32 + pl) * 4 + 2 * half;
       const int off = (qi * 32 + pl) * 4 + 2 * half;
       const float2 sv = xch_sum(rS, roff, C);
-      const float2 dpv = xch_sum(rS + XRCV, roff, C);
+      const float2 dpv = xch_sum(rS + X::RCV, roff, C);
       const int key = 16 * pg + (pl >> 2) + 8 * half, r0 = 8 * j + 2 * (pl & 3);
       const float sx[2] = {sv.x, sv.y}, dx[2] = {dpv.x, dpv.y};
       float pp[2], ds[2];
@@ -630,16 +746,28 @@ attn_bwd_dkv_cluster_kernel(const float* __restrict__ q,
         ds[e] = __fmul_rn(pp[e], __fsub_rn(dx[e], cDelta[r]));
       }
       xch_bcast(cluster, xP, off, C, make_float2(pp[0], pp[1]));
-      xch_bcast(cluster, xP + XRSL, off, C, make_float2(ds[0], ds[1]));
+      xch_bcast(cluster, xP + X::RSL, off, C, make_float2(ds[0], ds[1]));
     }
     cluster.sync();  // every P and dS of the tile is in place
-    if (mine) {  // step 3
-      float x[4][4], y[4][4];  // P^T, dS^T: 16 keys x 32 rows
+    float x[4][4];     // step 3: dS^T, then P^T, 16 keys x 32 rows
+    if (mine) {
+      xch_read(xP + X::RSL, grp, x);
+      rows_accumulate<SL, SL>(x, cQ, adk);  // dK += dS^T Q (scaled at the
+                                            // end)
+    }
+    if (X::NSL <= 3 && more) {  // Q's slot is free: the next dO (NSL 3) or
+      __syncthreads();          // Q (NSL 2)
+      load_op(2 * it + (X::NSL == 3 ? 3 : 2));
+      cp_async_commit();
+    }
+    if (mine) {
       xch_read(xP, grp, x);
-      xch_read(xP + XRSL, grp, y);
       rows_accumulate<SL, SL>(x, cDO, adv);  // dV += P^T dO
-      rows_accumulate<SL, SL>(y, cQ, adk);   // dK += dS^T Q (scaled at the
-                                             // end)
+    }
+    if (X::NSL == 2 && more) {  // dO's slot is free: the next dO
+      __syncthreads();
+      load_op(2 * it + 3);
+      cp_async_commit();
     }
   }
   cp_async_wait<0>();
@@ -662,8 +790,9 @@ attn_bwd_dkv_cluster_kernel(const float* __restrict__ q,
   }
 }
 
-// B11 at 256 < D <= 1024: grid (B*H, q tiles of XRK, C), clusters (1, 1,
-// C); operands as attn_bwd_dq_kernel's
+// B11 at cluster_form(D), NS = cluster_ns(D): grid (B*H, q tiles of RK,
+// C), clusters (1, 1, C); operands as attn_bwd_dq_kernel's
+template <int NS>
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
                            const float* __restrict__ dout,
@@ -673,63 +802,67 @@ attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
                            const float* __restrict__ delta,
                            float* __restrict__ dq, int H, int Hkv, int Sq,
                            int Skv, int causal, int D, float scale) {
+  using X = Xch<NS>;
+  constexpr int RK = X::RK;
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;              // slice h at sQ + h*XRES
-  float* sDO = sQ + 2 * XRES;
-  float* sK = sDO + 2 * XRES;    // stage s: K's slices at sK + 4*s*XSTR,
-                                 // V's after
-  float* rS = sK + 8 * XSTR;     // receive buffers: S, dP
-  float* xS = rS + 2 * XRCV;     // result buffer: dS
-  float* sSum = xS + 2 * XRSL;   // the groups' pair sums
-  float* sLse = sSum + XSUM;     // XRK, then delta's XRK
-  float* sDelta = sLse + XRK;
+  float* sQ = smem;                // slice h at sQ + h*RES
+  float* sDO = sQ + NS * X::RES;
+  float* sK = sDO + NS * X::RES;   // the streamed operands' slots
+  float* rS = sK + X::NSL * NS * XSTR;  // receive buffers: S, dP
+  float* xS = rS + 2 * X::RCV;     // result buffer dS; the slice sums
+  float* sLse = xS + X::SHARE;     // RK, then delta's RK
+  float* sDelta = sLse + RK;
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int warp = tid >> 5, grp = warp >> 1, h = warp & 1, qw = 16 * grp;
+  const int warp = tid >> 5, grp = warp / NS, h = warp % NS, qw = 16 * grp;
   const int C = gridDim.z, rank = cluster.block_rank();
-  const int col0 = 2 * rank * SL, c0 = col0 + h * SL;  // the block's and
-                                                       // the warp's columns
-  const bool pair = col0 + SL < D;  // is the block's second slice live?
+  const int col0 = NS * rank * SL, c0 = col0 + h * SL;  // the block's and
+                                                        // the warp's columns
+  const int nl = min(NS, (D - col0 + SL - 1) / SL);  // the live slices
   const int bh = blockIdx.x;
   // the last q tile, the heaviest under the causal mask, first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * XRK;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * RK;
   const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nq = min(XRK, Sq - q0);
+  const int nq = min(RK, Sq - q0);
   // causal frontier from the q tile's end: keys past its last row unseen
   const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
   const int n_it = (kv_end + SROWS - 1) / SROWS;
   const long long kvoff = kvrow * Skv * D;
 
-  auto load_kv = [&](int s, int kt0) {
-    const int n = min(SROWS, kv_end - kt0);
-    const long long off = kvoff + static_cast<long long>(kt0) * D;
-    float* dst = sK + 4 * s * XSTR;
+  // the streamed operand n (key tile i = n / 2's V if n is even, else
+  // its K) into slot n % NSL: V first, whose slot frees after step 1
+  auto load_op = [&](int n) {
+    const int kt0 = (n >> 1) * SROWS, cnt = min(SROWS, kv_end - kt0);
+    const float* src =
+        (n & 1 ? k : v) + kvoff + static_cast<long long>(kt0) * D;
+    float* dst = sK + (n % X::NSL) * NS * XSTR;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
+    for (int hh = 0; hh < NS; ++hh) {
       const int col = col0 + hh * SL;
-      cp_rows<SL, SROWS, SLP, NT>(dst + hh * XSTR, k + off + col, n, D - col,
+      cp_rows<SL, SROWS, SLP, NT>(dst + hh * XSTR, src + col, cnt, D - col,
                                   D);
-      cp_rows<SL, SROWS, SLP, NT>(dst + (2 + hh) * XSTR, v + off + col, n,
-                                  D - col, D);
     }
   };
   const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
   const long long roff = static_cast<long long>(bh) * Sq + q0;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
+  for (int hh = 0; hh < NS; ++hh) {
     const int col = col0 + hh * SL;
-    cp_rows<SL, XRK, SLP, NT>(sQ + hh * XRES, q + qoff + col, nq, D - col,
-                              D);
-    cp_rows<SL, XRK, SLP, NT>(sDO + hh * XRES, dout + qoff + col, nq,
-                              D - col, D);
+    cp_rows<SL, RK, SLP, NT>(sQ + hh * X::RES, q + qoff + col, nq, D - col,
+                             D);
+    cp_rows<SL, RK, SLP, NT>(sDO + hh * X::RES, dout + qoff + col, nq,
+                             D - col, D);
   }
-  for (int i = tid; i < 2 * XRK; i += NT) {
-    const int r = i % XRK;
+  for (int i = tid; i < 2 * RK; i += NT) {
+    const int r = i % RK;
     const bool ok = r < nq;
-    cp_async4(sLse + i, (i < XRK ? lse : delta) + roff + (ok ? r : 0), ok);
+    cp_async4(sLse + i, (i < RK ? lse : delta) + roff + (ok ? r : 0), ok);
   }
-  if (n_it > 0) load_kv(0, 0);
+  // at NS 8 in two groups, V before K: dP may start first
+  if (n_it > 0) load_op(0);
+  if constexpr (X::NSL == 2) cp_async_commit();
+  if (n_it > 0) load_op(1);
   cp_async_commit();
 
   float acc[SL / 8][4];  // rows qw+g, qw+g+8; columns c0+8c+2t, +1
@@ -740,36 +873,59 @@ attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
 
   cluster.sync();  // every block of the cluster runs: its peers may store
   for (int it = 0; it < n_it; ++it) {
-    const int s = it & 1, kt0 = it * SROWS;
-    const int nk = min(SROWS, kv_end - kt0);
-    cp_async_wait<0>();  // this stage (and Q, dO, the stats) landed
-    __syncthreads();     // ... for every thread; the other stage is free
-    if (it + 1 < n_it) load_kv(s ^ 1, kt0 + SROWS);
-    cp_async_commit();
-    const float* cK = sK + 4 * s * XSTR + h * XSTR;
-    const float* cV = cK + 2 * XSTR;
+    const int kt0 = it * SROWS, nk = min(SROWS, kv_end - kt0);
+    const bool more = it + 1 < n_it;
+    // this tile's V (past NSL 2: and K; and Q, dO, the stats) landed: its
+    // K is the newest group at NSL 2
+    cp_async_wait<X::NSL == 2 ? 1 : 0>();
+    __syncthreads();  // ... for every thread; the last tile's are read
+    if (X::NSL >= 3 && more) {  // into the last tile's slots: the next V
+      load_op(2 * it + 2);      // (NSL 4: and K)
+      if (X::NSL == 4) load_op(2 * it + 3);
+      cp_async_commit();
+    }
+    const float* cV = sK + (2 * it % X::NSL) * NS * XSTR + h * XSTR;
+    const float* cK = sK + ((2 * it + 1) % X::NSL) * NS * XSTR + h * XSTR;
     // cluster-uniform: do the rows of group gr see a key of this tile?
     auto live = [&](int gr) {
       return 16 * gr < nq && (!causal || kt0 <= q0 + 16 * gr + 15);
     };
     const bool mine = live(grp) && c0 < D;
-    if (mine) {  // step 1
-      float x[4][4], y[4][4];  // partial S, dP over the warp's slice
-      rows16_x_rows32<SL>(sQ + h * XRES + qw * SLP, cK, x);
-      rows16_x_rows32<SL>(sDO + h * XRES + qw * SLP, cV, y);
-      xch_push(cluster, rS, sSum, grp, h, pair, rank, C, x, y);
+    // step 1: partial S, dP over the warp's slice (zeros past D)
+    auto push = [&](float (&x)[4][4], float (&y)[4][4]) {
+      if (!mine) zero_tile(x, y);
+      xch_push<NS>(cluster, rS, xS, grp, h, nl, rank, C, x, y);
+    };
+    if constexpr (X::NSL == 2) {  // dP, then S once K has landed
+      float x[4][4], y[4][4];
+      if (mine) rows16_x_rows32<SL>(sDO + h * X::RES + qw * SLP, cV, y);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (mine) rows16_x_rows32<SL>(sQ + h * X::RES + qw * SLP, cK, x);
+      if (live(grp)) push(x, y);
+    } else if (live(grp)) {
+      float x[4][4], y[4][4];
+      if (mine) {
+        rows16_x_rows32<SL>(sQ + h * X::RES + qw * SLP, cK, x);
+        rows16_x_rows32<SL>(sDO + h * X::RES + qw * SLP, cV, y);
+      }
+      push(x, y);
     }
     cluster.sync();  // every partial of the tile is in place
+    if (X::NSL <= 3 && more) {  // V's slot is free: the next K (NSL 3) or V
+      load_op(2 * it + (X::NSL == 3 ? 3 : 2));  // (NSL 2)
+      cp_async_commit();
+    }
     // step 2 on this block's quarters, two elements a thread-step
     for (int u = tid;; u += NT) {
       const int m = u >> 6, qi = rank + C * m;  // the quarter, its position
-      if (qi >= XNQ) break;
+      if (qi >= X::NQ) break;
       const int pg = qi >> 2, j = qi & 3, pl = (u >> 1) & 31, half = u & 1;
       if (!live(pg)) continue;  // no warp reads it
       const int rof = (m * C * 32 + pl) * 4 + 2 * half;
       const int off = (qi * 32 + pl) * 4 + 2 * half;
       const float2 sv = xch_sum(rS, rof, C);
-      const float2 dpv = xch_sum(rS + XRCV, rof, C);
+      const float2 dpv = xch_sum(rS + X::RCV, rof, C);
       const int r = 16 * pg + (pl >> 2) + 8 * half, key0 = 8 * j + 2 * (pl & 3);
       const float sx[2] = {sv.x, sv.y}, dx[2] = {dpv.x, dpv.y};
       float ds[2];
@@ -791,6 +947,11 @@ attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
       rows_accumulate<SL, SL>(y, cK, acc);  // dQ += dS K (scaled at the
                                             // end)
     }
+    if (X::NSL == 2 && more) {  // K's slot is free: the next K
+      __syncthreads();
+      load_op(2 * it + 3);
+      cp_async_commit();
+    }
   }
   cp_async_wait<0>();
   if (c0 >= D) return;
@@ -808,8 +969,9 @@ attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
   }
 }
 
-// the launch of a cluster kernel at head dim D over grid (x, y,
+// the launch of an NS-slice cluster kernel at head dim D over grid (x, y,
 // cluster_size(D)) on stream st; attr holds its cluster dimension
+template <int NS>
 cudaLaunchConfig_t cluster_config(int D, int x, int y, cudaStream_t st,
                                   cudaLaunchAttribute (&attr)[1]) {
   const int C = cluster_size(D);
@@ -820,59 +982,101 @@ cudaLaunchConfig_t cluster_config(int D, int x, int y, cudaStream_t st,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(x, y, C);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = XBYTES;
+  cfg.dynamicSmemBytes = Xch<NS>::BYTES;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
 }
 
-// the clusters of `kern` at head dim D that the card holds at once, one
-// block an SM (cudaOccupancyMaxActiveClusters) into *n
-template <typename K>
+// the clusters of `kern` (NS slices a block) at head dim D that the card
+// holds at once, one block an SM (cudaOccupancyMaxActiveClusters) into *n
+template <int NS, typename K>
 cudaError_t active_clusters(K kern, int D, int* n) {
-  cudaError_t e = allow_smem(kern, XBYTES);
+  cudaError_t e = allow_smem(kern, Xch<NS>::BYTES);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config(D, 1, 1, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_config<NS>(D, 1, 1, nullptr, attr);
   return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
 }
 
-// B10 or B11 (kern, route) at cluster_form(D): clusters of cluster_size(D)
-// blocks over grid (B*H, tiles of XRK rows of `rows`, C). The card must be
-// able to hold one such cluster at one block an SM (asked once for each
-// kernel, device and C), or the launch is refused with
-// cudaErrorLaunchOutOfResources.
-template <typename... P, typename... A>
+// B10 or B11 (kern, route) at cluster_form(D), NS = cluster_ns(D):
+// clusters of cluster_size(D) blocks over grid (B*H, tiles of RK rows of
+// `rows`, C). The card must be able to hold one such cluster at one block
+// an SM (asked once for each kernel, device and C), or the launch is
+// refused with cudaErrorLaunchOutOfResources. The route's tier is the
+// block's columns, 64 * NS.
+template <int NS, typename... P, typename... A>
 cudaError_t launch_cluster(void (*kern)(P...), int route, int rows, int B,
                            int H, int D, cudaStream_t st, A... args) {
   constexpr int NDEV = 16;
-  static int fits[NDEV][cluster_size(CLUSTER_MAX_D) + 1];  // 0 unknown, 1
-                                                           // fits, -1 not
+  static int fits[NDEV][9];  // by C: 0 unknown, 1 fits, -1 not
   int dev = 0, unknown = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = allow_smem(kern, XBYTES);
+  if (e == cudaSuccess) e = allow_smem(kern, Xch<NS>::BYTES);
   if (e != cudaSuccess) return e;
   int& ok = dev < NDEV ? fits[dev][cluster_size(D)] : unknown;
   if (ok == 0) {
     int n = 0;
-    e = active_clusters(kern, D, &n);
+    e = active_clusters<NS>(kern, D, &n);
     if (e != cudaSuccess) return e;
     ok = n > 0 ? 1 : -1;
   }
   if (ok < 0) return cudaErrorLaunchOutOfResources;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(D, B * H, (rows + XRK - 1) / XRK, st, attr);
+  const cudaLaunchConfig_t cfg = cluster_config<NS>(
+      D, B * H, (rows + Xch<NS>::RK - 1) / Xch<NS>::RK, st, attr);
   e = cudaLaunchKernelEx(&cfg, kern, args...);
   if (e == cudaSuccess) e = cudaGetLastError();
-  if (e == cudaSuccess) set_attn_route(route, 0, 2 * SL);
+  if (e == cudaSuccess) set_attn_route(route, 0, NS * SL);
   return e;
 }
 
-// ---- head dims past 1024: the column-group form ----------------------------
+// B10 and B11 on the cluster form's instantiation for NS slices a block
+template <int NS>
+cudaError_t launch_dkv_cluster(const float* q, const float* dout,
+                               const float* k, const float* v,
+                               const float* lse, const float* delta,
+                               float* dk, float* dv, int B, int H, int Hkv,
+                               int Sq, int Skv, int causal, int D,
+                               float scale, cudaStream_t st) {
+  return launch_cluster<NS>(attn_bwd_dkv_cluster_kernel<NS>,
+                            ROUTE_BWD_DKV_COLS_TF32, Skv, B, H, D, st, q,
+                            dout, k, v, lse, delta, dk, dv, H, Hkv, Sq, Skv,
+                            causal, D, scale);
+}
+template <int NS>
+cudaError_t launch_dq_cluster(const float* q, const float* dout,
+                              const float* k, const float* v,
+                              const float* lse, const float* delta,
+                              float* dq, int B, int H, int Hkv, int Sq,
+                              int Skv, int causal, int D, float scale,
+                              cudaStream_t st) {
+  return launch_cluster<NS>(attn_bwd_dq_cluster_kernel<NS>,
+                            ROUTE_BWD_DQ_COLS_TF32, Sq, B, H, D, st, q, dout,
+                            k, v, lse, delta, dq, H, Hkv, Sq, Skv, causal, D,
+                            scale);
+}
+template <int NS>
+int active_of(int dkv, int D) {
+  int n = 0;
+  const cudaError_t e =
+      dkv ? active_clusters<NS>(attn_bwd_dkv_cluster_kernel<NS>, D, &n)
+          : active_clusters<NS>(attn_bwd_dq_cluster_kernel<NS>, D, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// FN<NS> for head dim D's cluster tier
+#define CLUSTER_NS_DISPATCH(FN, D, ...)   \
+  switch (cluster_ns(D)) {                \
+    case 2: return FN<2>(__VA_ARGS__);    \
+    case 4: return FN<4>(__VA_ARGS__);    \
+    default: return FN<8>(__VA_ARGS__);   \
+  }
+
+// ---- head dims past 4096: the column-group form ----------------------------
 //
-// B10 and B11 at D > 1024 (past the cluster form below) on the same
+// B10 and B11 at D > 4096 (past the cluster form above) on the same
 // 3xTF32 products: a block (8 warps, 128 resident rows, 16 a warp) keeps
 // one group of CGRP output columns (grid z; 64, as the forward's). For
 // each streamed 32-row tile it forms S and dP over the whole head dim,
@@ -887,7 +1091,7 @@ constexpr int FCH = 128, CGRP = 64, CRES = 128;
 constexpr int CP = FCH + 4;
 constexpr int COLS_BYTES = ((2 * CRES + 2 * SROWS) * CP + 2 * CRES) * 4;
 
-// B10 at D > 1024: grid (B*H, key tiles of CRES, column groups); operands
+// B10 at D > 4096: grid (B*H, key tiles of CRES, column groups); operands
 // as attn_bwd_dkv_kernel's
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dkv_cols_kernel(const float* __restrict__ q,
@@ -994,7 +1198,7 @@ attn_bwd_dkv_cols_kernel(const float* __restrict__ q,
   }
 }
 
-// B11 at D > 1024: grid (B*H, q tiles of CRES, column groups); operands as
+// B11 at D > 4096: grid (B*H, q tiles of CRES, column groups); operands as
 // attn_bwd_dq_kernel's
 __global__ void __launch_bounds__(NT, 1)
 attn_bwd_dq_cols_kernel(const float* __restrict__ q,
@@ -1091,7 +1295,7 @@ attn_bwd_dq_cols_kernel(const float* __restrict__ q,
   }
 }
 
-// B10 or B11 (kern, route) at D > 1024 over grid (B*H, tiles of CRES rows
+// B10 or B11 (kern, route) at D > 4096 over grid (B*H, tiles of CRES rows
 // of `rows`, column groups)
 template <typename K, typename... A>
 cudaError_t launch_cols(K kern, int route, int rows, int B, int H, int D,
@@ -1166,7 +1370,7 @@ static const float* F(const void* p) { return static_cast<const float*>(p); }
 extern "C" {
 
 // dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (f32 past 256: the
-// cluster kernels, past 1024 the column-group ones)
+// cluster kernels, past 4096 the column-group ones)
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                       const void* dout, const void* k, const void* v,
                       const void* lse, const void* delta, void* dk, void* dv,
@@ -1178,12 +1382,12 @@ int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
     return attn_bwd_dkv_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dk,
                               dv, B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
-  if (cluster_form(head_dim))
-    return launch_cluster(attn_bwd_dkv_cluster_kernel, ROUTE_BWD_DKV_COLS_TF32,
-                          Skv, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
-                          F(lse), F(delta), static_cast<float*>(dk),
-                          static_cast<float*>(dv), H, Hkv, Sq, Skv, causal,
-                          head_dim, scale);
+  if (cluster_form(head_dim)) {
+    CLUSTER_NS_DISPATCH(launch_dkv_cluster, head_dim, F(q), F(dout), F(k),
+                        F(v), F(lse), F(delta), static_cast<float*>(dk),
+                        static_cast<float*>(dv), B, H, Hkv, Sq, Skv, causal,
+                        head_dim, scale, st)
+  }
   if (head_dim > 256)
     return launch_cols(attn_bwd_dkv_cols_kernel, ROUTE_BWD_DKV_COLS_TF32,
                        Skv, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
@@ -1205,11 +1409,11 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
     return attn_bwd_dq_wgmma(dtype, head_dim, q, dout, k, v, lse, delta, dq,
                              B, H, Hkv, Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
-  if (cluster_form(head_dim))
-    return launch_cluster(attn_bwd_dq_cluster_kernel, ROUTE_BWD_DQ_COLS_TF32,
-                          Sq, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
-                          F(lse), F(delta), static_cast<float*>(dq), H, Hkv,
-                          Sq, Skv, causal, head_dim, scale);
+  if (cluster_form(head_dim)) {
+    CLUSTER_NS_DISPATCH(launch_dq_cluster, head_dim, F(q), F(dout), F(k),
+                        F(v), F(lse), F(delta), static_cast<float*>(dq), B,
+                        H, Hkv, Sq, Skv, causal, head_dim, scale, st)
+  }
   if (head_dim > 256)
     return launch_cols(attn_bwd_dq_cols_kernel, ROUTE_BWD_DQ_COLS_TF32, Sq,
                        B, H, head_dim, st, F(q), F(dout), F(k), F(v), F(lse),
@@ -1230,11 +1434,7 @@ int accl_attn_bwd_cluster_size(int head_dim) {
 // take that form, minus the CUDA error code if the query fails
 int accl_attn_bwd_active_clusters(int dkv, int head_dim) {
   if (!cluster_form(head_dim)) return 0;
-  int n = 0;
-  const cudaError_t e =
-      dkv ? active_clusters(attn_bwd_dkv_cluster_kernel, head_dim, &n)
-          : active_clusters(attn_bwd_dq_cluster_kernel, head_dim, &n);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
+  CLUSTER_NS_DISPATCH(active_of, head_dim, dkv, head_dim)
 }
 
 }  // extern "C"

@@ -55,15 +55,19 @@ card's name and power limit and:
   PyTorch's SDPA backward (dq, dk and dv together, f32 and bf16, with
   ``allow_tf32`` off), the pair's yardstick;
 - the bwd_wide part, at phase 17a's shapes past head dim 256 (Gemma-2B's
-  heads, H=8, Hkv=1, B=4, causal; D=264 and D=512 at S=2048, D=1024 at
-  S=1024): f32 B10 and B11 on the operands the forward gives, each the
-  median device time of 5 launches behind the GPU sleep beside its bound
-  (three TF32 products of 8*D (B10) or 6*D (B11) operations a visible
-  score at 495 TFLOP/s), the pair's sum, the largest error against the
-  plain versions, and PyTorch's SDPA f32 backward (dq, dk and dv
-  together, ``allow_tf32`` off; its math backend, the one that takes
-  these head dims), timed only; where the tree has the cluster form,
-  the clusters of it the card holds at once and the SMs they fill;
+  heads, H=8, Hkv=1, B=4, causal; D=264 and D=512 at S=2048, D=1024,
+  1032, 2048 and 4096 at S=1024): f32 B10 and B11 on the operands the
+  forward gives, each the median device time of 5 launches behind the
+  GPU sleep beside its bound (three TF32 products of 8*D (B10) or 6*D
+  (B11) operations a visible score at 495 TFLOP/s), the pair's sum, the
+  largest error against the plain versions, a SHA-256 of the outputs'
+  bits (the inputs come from one seed, so two trees whose kernels sum
+  in the same order print the same), the plain versions' pair (median
+  of 3), and PyTorch's SDPA f32 backward
+  (dq, dk and dv together, ``allow_tf32`` off; its math backend, the one
+  that takes these head dims), timed only; where the tree has the
+  cluster form at that head dim, its cluster size, the clusters of it
+  the card holds at once and the SMs they fill;
 - the fwd32 part, at phase 5's shapes of ``chip_smoke.py`` (B=4, H=32,
   Hkv=8, D=128, causal): ``flash_attention_fwd`` in f32 as B9 at S=128
   and S=512 and as B8 at S=2048, and the f32 prefill (``flash_decode``,
@@ -83,6 +87,7 @@ without it, it exits with 1 and prints nothing.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -94,6 +99,10 @@ SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32")
 TF32_OPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
+# the bwd_wide part's (head dim, sequence length): the cluster form's
+# tiers of 2 (D 264 to 1024), 4 (1032, 2048) and 8 (4096) slices a block
+BWD_WIDE_CASES = ((264, 2048), (512, 2048), (1024, 1024), (1032, 1024),
+                  (2048, 1024), (4096, 1024))
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -346,7 +355,7 @@ def bwd_wide_part(out: dict) -> None:
     size = getattr(lib, "accl_attn_bwd_cluster_size", None)
     clusters = getattr(lib, "accl_attn_bwd_active_clusters", None)
     B, H, Hkv = 4, 8, 1
-    for D, S in ((264, 2048), (512, 2048), (1024, 1024)):
+    for D, S in BWD_WIDE_CASES:
         q, do = (torch.randn(B, H, S, D, device="cuda", generator=g)
                  for _ in range(2))
         k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
@@ -361,25 +370,37 @@ def bwd_wide_part(out: dict) -> None:
                  A.flash_attention_bwd_dkv_ref, 8),
                 ("b11", lambda *a: (A.flash_attention_bwd_dq(*a),),
                  lambda *a: (A.flash_attention_bwd_dq_ref(*a),), 6)):
+            got = fn(*args)
             err = max(float((a - b).abs().max())
-                      for a, b in zip(fn(*args), ref(*args)))
+                      for a, b in zip(got, ref(*args)))
+            digest = hashlib.sha256()
+            for t in got:
+                digest.update(t.contiguous().view(torch.int32).cpu()
+                              .numpy().tobytes())
+            del got
             ms = time_ms(lambda: fn(*args), reps=5)  # noqa: B023
             bound = 3 * ops * D * visible / TF32_OPS_PER_S * 1e3
             rec[key] = {"ms": ms, "bound_ms": bound,
                         "pct_of_bound": 100 * bound / ms,
-                        "max_abs_err": err}
+                        "max_abs_err": err,
+                        "sha256": digest.hexdigest()[:16]}
             torch.cuda.empty_cache()
         rec["pair_ms"] = rec["b10"]["ms"] + rec["b11"]["ms"]
+        rec["plain_pair_ms"] = time_ms(lambda: (  # noqa: B023
+            A.flash_attention_bwd_dkv_ref(*args),  # noqa: B023
+            A.flash_attention_bwd_dq_ref(*args)), reps=3)  # noqa: B023
+        torch.cuda.empty_cache()
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
                                             enable_gqa=True)
         rec["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
             lo, (lq, lk, lv), do, retain_graph=True), reps=5)  # noqa: B023
         rec["pair_vs_sdpa"] = rec["pair_ms"] / rec["sdpa_bwd_ms"]
-        if size is not None and clusters is not None:
+        if size is not None and clusters is not None and size(D) > 0:
             n = clusters(1, D)
             rec["active_clusters"] = n
             rec["sms_in_clusters"] = n * size(D)
+            rec["cluster_size"] = size(D)
         out[f"d{D}_s{S}"] = rec
         del q, do, k, v, o, lse, delta, args, lq, lk, lv, lo
         torch.cuda.empty_cache()

@@ -3490,8 +3490,8 @@ def tf32_kernels_checked():
 
 
 # the column-group forms (head dims past 256): the 16-bit kernels, one
-# instantiation per element type, and the f32 ones, one each (the f32
-# backward's cluster form to D 1024, its column-group form past it)
+# instantiation per element type, and the f32 ones (the f32 backward's
+# cluster form to D 4096, its column-group form past it)
 COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel",
                       "attn_bwd_dkv_cols_wgmma_kernel",
                       "attn_bwd_dq_cols_wgmma_kernel")
@@ -3499,13 +3499,20 @@ COLS_TF32_KERNELS = ("attn_fwd_cols_kernel", "attn_decode_cols_kernel",
                      "attn_bwd_dkv_cluster_kernel",
                      "attn_bwd_dq_cluster_kernel",
                      "attn_bwd_dkv_cols_kernel", "attn_bwd_dq_cols_kernel")
+# the f32 backward's cluster kernels, one instantiation for each count of
+# 64-column slices a block holds (attention_bwd.cu's cluster_ns)
+F32_CLUSTER_KERNELS = ("attn_bwd_dkv_cluster_kernel",
+                       "attn_bwd_dq_cluster_kernel")
+F32_CLUSTER_NS = (2, 4, 8)
 
 
 def cols_kernels_checked():
     """The column-group kernels in the built library: each 16-bit one
     instantiated for bf16 and f16, with HGMMA on operands of its type;
-    each f32 one with TF32 HMMA; ptxas reports no spills for any. Prints
-    the counts and registers; fails otherwise."""
+    each f32 one with TF32 HMMA, the f32 backward's cluster kernels in
+    each of their instantiations (2, 4 and 8 slices a block); ptxas
+    reports no spills for any. Prints the counts, registers and spill
+    bytes; fails otherwise."""
     import re
     funcs, ptx = sass_and_ptxas()
     for kern in COLS_WGMMA_KERNELS:
@@ -3531,15 +3538,38 @@ def cols_kernels_checked():
               f"registers {sorted(v[0] for v in info.values())}, no spills")
     for kern in COLS_TF32_KERNELS:
         pat = rf"\d+{kern}"
-        bodies = [f for f in funcs if re.search(pat, f.split("\n", 1)[0])]
-        need(len(bodies) == 1, f"{kern}: {len(bodies)} bodies in the SASS")
-        n = len(re.findall(TF32_HMMA, bodies[0]))
-        need(n > 0, f"{kern}: no TF32 HMMA in its SASS")
-        info = {k: v for k, v in ptx.items() if re.search(pat, k)}
-        need(len(info) == 1 and all(v[1] == 0 for v in info.values()),
+        # by instantiation: the cluster kernels' slices a block (NS),
+        # None for the others, which are no templates
+        bodies, info = {}, {}
+        for f in funcs:
+            head = f.split("\n", 1)[0]
+            if re.search(pat, head):
+                m = re.search(r"ILi(\d+)E", head)
+                bodies[int(m.group(1)) if m else None] = f
+        for k, v in ptx.items():
+            if re.search(pat, k):
+                m = re.search(r"ILi(\d+)E", k)
+                info[int(m.group(1)) if m else None] = v
+        want = (set(F32_CLUSTER_NS) if kern in F32_CLUSTER_KERNELS
+                else {None})
+        need(set(bodies) == want, f"{kern}: instantiations "
+             f"{sorted(bodies, key=str)} in the SASS, want "
+             f"{sorted(want, key=str)}")
+        counts = {ns: len(re.findall(TF32_HMMA, body))
+                  for ns, body in bodies.items()}
+        need(min(counts.values()) > 0,
+             f"{kern}: an instantiation without TF32 HMMA ({counts})")
+        need(set(info) == want and all(v[1] == 0 for v in info.values()),
              f"{kern}: ptxas reports {info}")
-        print(f"{kern}: TF32 HMMA instructions {n}; ptxas registers "
-              f"{[v[0] for v in info.values()]}, no spills")
+        if want == {None}:
+            print(f"{kern}: TF32 HMMA instructions {counts[None]}; ptxas "
+                  f"registers {[info[None][0]]}, no spills")
+        else:
+            regs = {ns: v[0] for ns, v in sorted(info.items())}
+            spills = {ns: v[1] for ns, v in sorted(info.items())}
+            print(f"{kern}: {len(bodies)} instantiations by slices a block, "
+                  f"TF32 HMMA instructions {dict(sorted(counts.items()))}; "
+                  f"ptxas registers {regs}, spill bytes {spills}")
 
 
 def bwd_operands(q, k, v, do, causal):
@@ -8056,12 +8086,23 @@ HD_B, HD_S, HD_B9_S = 4, 2048, 512     # B8, B10/B11 at 2048; B9 at 512
 HD_T, HD_KV, HD_PREFILL = 4096, 2047, 1024   # decode and prefill
 WIDE_DIMS = (264, 512)     # head dims past 256: the column-group forms
 WIDE_MAX_D, WIDE_S = 1024, 1024
-# the f32 B10/B11's last head dim in the cluster form (attention_bwd.cu's
-# CLUSTER_MAX_D), and the f32 backward's own edge dims: clusters of 7
-# blocks over 13 slices (the most receive slots, an odd slice count), and
-# past the cluster form (the column-group kernels)
-F32_CLUSTER_MAX_D = 1024
-WIDE_BWD_F32_DIMS = (776, 1032)
+# the f32 B10/B11's cluster form (attention_bwd.cu): its last head dim
+# (CLUSTER_MAX_D) and the slices a block holds (cluster_ns: 2 to 1024, 4
+# to 2048, 8 past it); the f32 backward's own edge dims: clusters of 7
+# blocks over 13 slices (the most receive slots, an odd slice count), of
+# 5 blocks over 17 and 33 slices (the first head dims of the 4- and
+# 8-slice tiers, one live slice in the last block), of 8 full blocks at
+# 4096, and past the cluster form (the column-group kernels); the 17a
+# rows at S 1024
+F32_CLUSTER_MAX_D = 4096
+WIDE_BWD_F32_DIMS = (776, 1032, 2056, 4096, 4104)
+F32_BWD_ROW_DIMS = (776, 1032, 2048, 4096)
+
+
+def f32_cluster_ns(d: int) -> int:
+    """The 64-column slices a block of the f32 backward's cluster form
+    holds at head dim d (attention_bwd.cu's cluster_ns)."""
+    return 2 if d <= 1024 else 4 if d <= 2048 else 8
 DRY_D, DRY_S = 8, 64                   # the dry run's sp ring (8 ranks)
 HALF_DTYPES = ("float32", "bfloat16", "float16")
 F16_SERVE_SEED, F16_TRAIN_SEED, D256_SEED = SEED + 181, SEED + 182, SEED + 183
@@ -8084,13 +8125,15 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     8; 16-bit tensor-core routes hold 64, 128, 192 or 256 columns, the
     f32 routes and the split decode a power of two from 16; past 256
     every kind takes its column-group form ("_cols"), whose tier is the
-    group's width (f32: 64, but 128, a cluster block's two slices, for
-    B10 and B11 to D 1024; 16-bit: 128 for B10's dK and dV, else 256)."""
+    group's width (f32: 64, but a cluster block's columns, 64 times its
+    slices (128, 256 or 512), for B10 and B11 to D 4096; 16-bit: 128 for
+    B10's dK and dV, else 256)."""
     d = -(-D // 8) * 8
     if d > 256:                  # the column-group forms, by group width
         f32 = dtype == "float32"
         bwd = kind in ("bwd_dkv", "bwd_dq")
-        tier = ((128 if bwd and d <= F32_CLUSTER_MAX_D else 64) if f32
+        tier = ((64 * f32_cluster_ns(d) if bwd and d <= F32_CLUSTER_MAX_D
+                 else 64) if f32
                 else 128 if kind == "bwd_dkv" else 256)
         return f"{kind}_{'tf32' if f32 else 'wgmma'}_cols", dtype, tier
     pow2 = next(t for t in (16, 32, 64, 128, 256) if d <= t)
@@ -8290,8 +8333,10 @@ def wide_edges(g):
     and Sq 70 against Skv 130 unmasked; B10 and B11 on the first two;
     B12 over a cache of 320 rows with NaN past kv_len 1, 65 and 300, one
     new token and five; the f32 forward run twice, bitwise equal. Then the
-    f32 B10 and B11 at D 776 and 1032 (``WIDE_BWD_F32_DIMS``) on the
-    ragged, uneven and GQA shapes of B8, each run twice, bitwise equal."""
+    f32 B10 and B11 at D 776, 1032, 2056, 4096 (the cluster form's three
+    tiers) and 4104 (the column-group kernels; ``WIDE_BWD_F32_DIMS``) on
+    the ragged, uneven and GQA shapes of B8, each run twice, bitwise
+    equal."""
     import torch
     from accl_tpu_torch.ops import attention as A
     n = 0
@@ -8388,8 +8433,9 @@ def head_dim_phase() -> list:
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
     on f32, bf16 and f16; the column-group forms at Gemma-2B's heads with
     D = 264 and 512 (every kind and dtype) and D = 1024 at S = 1024 (B8,
-    B10/B11 and decode in bf16 and f32), f32 B10/B11 at D = 776 and 1032,
-    S = 1024; at D = 8 (the dry run's ring
+    B10/B11 and decode in bf16 and f32), f32 B10/B11 at D = 776, 1032,
+    2048 and 4096, S = 1024 (``F32_BWD_ROW_DIMS``: each tier of the
+    cluster form); at D = 8 (the dry run's ring
     shapes); then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
     8's). Returns the f16 records."""
@@ -8441,7 +8487,7 @@ def head_dim_phase() -> list:
                             "Gemma-2B heads"))
         gc.collect()
         torch.cuda.empty_cache()
-    for D in WIDE_BWD_F32_DIMS:         # the f32 backward's edge dims
+    for D in F32_BWD_ROW_DIMS:          # the f32 backward's cluster tiers
         r = kernel_case("bwd", torch.float32, HD_B, 8, 1, D, WIDE_S, WIDE_S,
                         g, reps=3)
         print(case_line("bwd", torch.float32, HD_B, 8, 1, D, WIDE_S, WIDE_S,

@@ -4,11 +4,13 @@ the gradients and KV-cache decode.
 The cases and tolerances of ``test_torch_attention_wide.py`` (D = 264,
 320 and 512 on f32, bf16 and f16): dq, dk and dv through the port's
 ``_FlashAttention`` (B10 and B11's plain versions on CPU tensors; on the
-card their column-group kernels) against ``jax.vjp`` of the reference's
-custom VJP in interpret mode, within four ulps of the gradient scale for
-16-bit (the reference also rounds dS to q's dtype), f32 rtol = atol =
-2e-5; B12's decode and chunked prefill over a part-full cache with NaN
-past kv_len, within two ulps of the output scale.
+card their column-group kernels, and for f32 the cluster form) against
+``jax.vjp`` of the reference's custom VJP in interpret mode, within four
+ulps of the gradient scale for 16-bit (the reference also rounds dS to
+q's dtype), f32 rtol = atol = 2e-5; the same in f32 past D = 1024 (the
+cluster form's 4- and 8-slice tiers on the card); B12's decode and
+chunked prefill over a part-full cache with NaN past kv_len, within two
+ulps of the output scale.
 """
 
 from __future__ import annotations
@@ -34,11 +36,27 @@ def _shm_leak_sweep():
     yield
 
 
+# f32 head dims past 1024: one live slice in a cluster's last block at
+# four and eight slices a block (1032, 2056), and the cluster form's last
+# head dim (4096)
+WIDE_F32_DIMS = (1032, 2056, 4096)
+
+
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_grads_match_reference(case):
     """dq, dk, dv through ``_FlashAttention`` against ``jax.vjp`` of the
     reference's custom VJP on the same cotangent, causal, GQA 2/1."""
-    dtype, D = case
+    _grads_case(*case)
+
+
+@pytest.mark.parametrize("D", WIDE_F32_DIMS)
+def test_f32_grads_past_1024_match_reference(D):
+    """As ``test_grads_match_reference`` in f32 at the head dims past 1024
+    (B 1, H 2, Hkv 1, S 16, rtol = atol = 2e-5)."""
+    _grads_case("float32", D)
+
+
+def _grads_case(dtype, D):
     B, H, Hkv, S = 1, 2, 1, 16
     xq, xk, xv, xdo = _inputs(3 * D, [(B, H, S, D), (B, Hkv, S, D),
                                       (B, Hkv, S, D), (B, H, S, D)])
@@ -54,7 +72,7 @@ def test_grads_match_reference(case):
     o.backward(torch.from_numpy(xdo).to(tdt))
     for t, w, name in zip((q, k, v), want, "qkv"):
         assert t.grad.dtype == tdt and t.grad.shape == t.shape
-        _close(t.grad, w, dtype, f"{case} d{name}", ulps=4)
+        _close(t.grad, w, dtype, f"{dtype} D={D} d{name}", ulps=4)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
