@@ -91,7 +91,9 @@
 // inputs are bitwise equal.
 #include <limits.h>
 
-#include "attention_tile.cuh"
+#include <type_traits>
+
+#include "attention_cluster.cuh"
 #include "tf32_mma.cuh"
 
 static int g_attn_route = 0;
@@ -865,6 +867,380 @@ attn_decode_cols_kernel(const float* __restrict__ q,
             o + qoff, nullptr, D, (blockIdx.z % groups) * CGRP, smem);
 }
 
+// ---- head dims past 256 up to 4096: the cluster form ------------------------
+//
+// f32 B8, B9 and the B12 chunks (S_new > 1) at cluster_form(D), one launch a
+// call, with S formed once for each (q tile, key tile) pair, not once a
+// column group. The head dim is cut into 64-column slices and a cluster of
+// C = cluster_size(D) blocks (attention_cluster.cuh: NS = 2 slices a block
+// to D 1024, 4 to 2048, 8 to 4096; C <= 8) owns one tile of RK = 128 / NS
+// query rows: block c holds slices NS*c .. NS*c + NS - 1 of the tile's Q,
+// loaded once and resident, and of its O accumulator. Its 8 warps are RK /
+// 16 groups of 16 rows by NS slices. For every 32-key tile:
+//   1. each warp forms its slice's partial S (16 x 32, 3xTF32, a fresh
+//      accumulator); the group's warps store theirs into shared memory and
+//      meet at their named barrier, and the first min(NS, 4) of them sum
+//      the four quarters of the group's positions over the live slices in
+//      slice order and store each into its owner's receive buffer at the
+//      block's slot (fwd_push); cluster barrier;
+//   2. the owner of each position sums the C partials in block order with
+//      f32 adds and stores the sum into every block's result buffer;
+//      cluster barrier;
+//   3. each warp reads its group's S from its own result buffer and runs
+//      cols_tile's online softmax on it (scale, mask, row max, exp, row
+//      sum, rescale): every warp of a group, in every block, holds the same
+//      S, so m, l and P are bitwise the same everywhere; then O = O * alpha
+//      + P V on its slice (rows_accumulate: the tile's keys in a fresh
+//      accumulator).
+// The tile's chain of products, barriers and exponents leaves an SM idle
+// while one block waits, so at NS 2 two blocks share an SM (103 KB of
+// shared memory and at most 128 registers a thread each), each hiding the
+// other's waits. K's and V's slices stream through NSL cp.async slots
+// of one operand tile each: four at NS 4 (two stages: the next tile's K
+// and V load under this tile's products and exchange); two at NS 2 and 8
+// (the next K loads from step 2 on, once every warp of the block has
+// formed its S; the next V from the next tile's start, under its S).
+// Whether a group's rows see a key of a tile depends on the rows alone,
+// the same in every block of a cluster: such a group skips the tile, its
+// positions are neither summed nor read, and every thread arrives at every
+// barrier. A first cluster barrier makes sure every block runs before a
+// peer stores to it; after a tile's second barrier no block touches a
+// peer's shared memory, so a block may exit after its last tile. Columns
+// past D load as zeros; a slice wholly past D forms no partial, and its
+// warp only sums. Block 0's slice-0 warps write the LSE. Shared memory
+// 103, 197 and 192 KB at NS 2, 4 and 8. No atomics: one writer for each
+// element, so two runs on the same inputs are bitwise equal.
+template <int NS>
+struct FwdX {
+  static constexpr int SLICES = NS;
+  static constexpr int RK = 128 / NS;      // the query rows of a tile
+  static constexpr int GROUPS = RK / 16;   // groups of 16 rows
+  static constexpr int NQ = GROUPS * 4;    // quarters of S (128 floats)
+  static constexpr int NSL = NS == 4 ? 4 : 2;  // slots of a K or V tile
+  static constexpr int SUMW = NS < 4 ? 4 / NS : 1;  // quarters a summer
+  static constexpr int BLOCKS = NS == 2 ? 2 : 1;   // blocks an SM
+  static constexpr int RES = RK * SLP;     // floats of a slice of Q's rows
+  static constexpr int XT = CBK * SLP;     // of a slice of a K or V tile
+  static constexpr int RCV = most_slots(NQ, cluster_cmin(NS)) * 128;
+  static constexpr int RSL = NQ * 128;     // the summed S
+  static constexpr int SUM = GROUPS * NS * 4 * 128;  // the slices' partials
+  static constexpr int BYTES =
+      (NS * RES + NSL * NS * XT + RCV + RSL + SUM + GROUPS) * 4;
+  static_assert(BLOCKS * (BYTES + 1024) <= MAX_SMEM + 1024,
+                "the blocks' shared memory on one SM");
+  static_assert(GROUPS * NS * 32 == NT, "a warp for each (group, slice)");
+};
+
+// step 1: the block's partial S over its nl live slices for rows group
+// grp. The warp of slice h < nl stores x's four float4 units (x[u], one a
+// lane) into the group's share of sum; the group meets at its named
+// barrier; warp h < 4 / SUMW then adds units h*SUMW .. h*SUMW + SUMW - 1
+// over the live slices in slice order and stores each sum (quarter qi =
+// grp * 4 + u) into its owner's receive buffer rcv at slot `rank`.
+template <int NS>
+__device__ __forceinline__ void fwd_push(
+    cooperative_groups::cluster_group& cluster, float* rcv, float* sum,
+    int grp, int h, int nl, int rank, int C, const float (&x)[4][4]) {
+  constexpr int U = FwdX<NS>::SUMW;
+  const int l = threadIdx.x & 31;
+  // unit u of slice s at float4 (s * 4 + u) * 32 + lane of the group's share
+  float4* buf = reinterpret_cast<float4*>(sum) + grp * NS * 4 * 32 + l;
+  if (h < nl) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) buf[(h * 4 + u) * 32] = f4(x[u]);
+  }
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(32 * NS) : "memory");
+  if (h * U >= 4) return;
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const int u = h * U + i, qi = grp * 4 + u;
+    float4 acc = buf[u * 32];
+    for (int s = 1; s < nl; ++s) acc = f4_add(acc, buf[(s * 4 + u) * 32]);
+    float4* dst = reinterpret_cast<float4*>(cluster.map_shared_rank(
+                      rcv, qi % C)) +
+                  ((qi / C) * C + rank) * 32 + l;
+    *dst = acc;
+  }
+}
+
+// The cluster form's tile: the RK query rows of `rows` (the first nq
+// valid, contiguous with pitch D) against keys [0, kv_end) of one KV head
+// (key c at k + c * kstride); this block's slices of O (pitch D) and, if
+// lse is given, the LSE of each valid row. LEAN (the B12 chunk kernel):
+// the key stride an int, the copies one slice a loop step and the S
+// product's column steps two at a time; at the 128 registers of two
+// blocks an SM, ptxas spilled that kernel without them and B8's with them
+template <int NS, bool LEAN>
+__device__ __forceinline__ void cluster_tile(
+    cooperative_groups::cluster_group& cluster, const float* q,
+    const float* k, const float* v, long long kstride_, int kv_end,
+    bool causal, QRows rows, float scale, float* o, float* lse, int D,
+    float* smem) {
+  using X = FwdX<NS>;
+  using Stride = typename std::conditional<LEAN, int, long long>::type;
+  const Stride kstride = static_cast<Stride>(kstride_);
+  float* sQ = smem;                       // slice hh at sQ + hh*RES
+  float* sKV = sQ + NS * X::RES;          // slot s at sKV + s*NS*XT, its
+                                          // slice hh at + hh*XT
+  float* rS = sKV + X::NSL * NS * X::XT;  // the receive buffer
+  float* xS = rS + X::RCV;                // the result buffer: summed S
+  float* sSum = xS + X::RSL;              // the slices' partials
+  int* sLast = reinterpret_cast<int*>(sSum + X::SUM);  // a group's last
+                                                       // position
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5, grp = warp / NS, h = warp % NS, qw = 16 * grp;
+  const int C = gridDim.z, rank = cluster.block_rank();
+  const int col0 = NS * rank * SL, c0 = col0 + h * SL;  // the block's and
+                                                        // the warp's columns
+  const int nl = min(NS, (D - col0 + SL - 1) / SL);  // the live slices
+  const int n_it = (kv_end + CBK - 1) / CBK;
+  const int pos0 = rows.pos(qw + g), pos1 = rows.pos(qw + g + 8);
+
+  // operand n (key tile n / 2's K if n is even, else its V) into slot n %
+  // NSL, the block's NS slices of it
+  auto load_op = [&](int n) {
+    const int kt0 = (n >> 1) * CBK, cnt = min(CBK, kv_end - kt0);
+    const float* src =
+        (n & 1 ? v : k) + static_cast<long long>(kt0) * kstride;
+    float* dst = sKV + (n % X::NSL) * NS * X::XT;
+#pragma unroll(LEAN ? 1 : NS)
+    for (int hh = 0; hh < NS; ++hh) {
+      const int col = col0 + hh * SL;
+      cp_rows<SL, CBK, SLP, NT>(dst + hh * X::XT, src + col, cnt, D - col,
+                                kstride);
+    }
+  };
+#pragma unroll
+  for (int hh = 0; hh < NS; ++hh) {
+    const int col = col0 + hh * SL;
+    cp_rows<SL, X::RK, SLP, NT>(sQ + hh * X::RES, q + col, rows.nq, D - col,
+                                D);
+  }
+  if (n_it > 0) {  // the first K (NSL 4: and V)
+    load_op(0);
+    if constexpr (X::NSL == 4) load_op(1);
+  }
+  cp_async_commit();
+  if (h == 0) {  // the group's last position among its valid rows, or -1
+    int last = qw + (lane & 15) < rows.nq ? rows.pos(qw + (lane & 15)) : -1;
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
+    if (lane == 0) sLast[grp] = last;
+  }
+
+  float acc[SL / 8][4];  // rows qw+g, qw+g+8; columns c0 + 8c+2t, +1
+#pragma unroll
+  for (int c = 0; c < SL / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+  float mrow[2] = {NEG, NEG}, lrow[2] = {0.0f, 0.0f};
+
+  cluster.sync();  // every block of the cluster runs: its peers may store
+  for (int it = 0; it < n_it; ++it) {
+    const int kt = it * CBK;
+    const bool more = it + 1 < n_it;
+    cp_async_wait<0>();  // this tile's K (NSL 4: and V) landed
+    __syncthreads();     // ... for every thread; the last tile's are read
+    if constexpr (X::NSL == 4) {  // the next tile's K and V
+      if (more) {
+        load_op(2 * it + 2);
+        load_op(2 * it + 3);
+      }
+    } else {  // this tile's V
+      load_op(2 * it + 1);
+    }
+    cp_async_commit();
+    const float* cK = sKV + (2 * it % X::NSL) * NS * X::XT + h * X::XT;
+    const float* cV = sKV + ((2 * it + 1) % X::NSL) * NS * X::XT + h * X::XT;
+    // cluster-uniform: do the rows of group gr see a key of this tile?
+    auto live = [&](int gr) {
+      const int last = sLast[gr];
+      return last >= 0 && (!causal || kt <= last);
+    };
+    const bool mine = live(grp) && c0 < D;
+    if (live(grp)) {  // step 1: the partial S over the warp's slice
+      float x[4][4];
+      if (mine) {
+        rows16_x_rows32<SL, LEAN ? 2 : SL / 8>(sQ + h * X::RES + qw * SLP,
+                                                cK, x);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
+      }
+      fwd_push<NS>(cluster, rS, sSum, grp, h, nl, rank, C, x);
+    }
+    cluster.sync();  // every partial of the tile is in place
+    if constexpr (X::NSL == 2) {  // K's slot is free: the next K
+      if (more) load_op(2 * it + 2);
+      cp_async_commit();
+    }
+    // step 2 on this block's quarters, two elements a thread-step
+    for (int u = tid;; u += NT) {
+      const int m = u >> 6, qi = rank + C * m;  // the quarter, its position
+      if (qi >= X::NQ) break;
+      if (!live(qi >> 2)) continue;  // no warp reads it
+      const int pl = (u >> 1) & 31, half = u & 1;
+      const int roff = (m * C * 32 + pl) * 4 + 2 * half;
+      const int off = (qi * 32 + pl) * 4 + 2 * half;
+      xch_bcast(cluster, xS, off, C, xch_sum(rS, roff, C));
+    }
+    cluster.sync();  // every S of the tile is in place
+    if constexpr (X::NSL == 2) {
+      cp_async_wait<1>();  // this tile's V landed (the next K may fly)
+      __syncthreads();
+    }
+    if (!mine) continue;
+    // step 3: cols_tile's online softmax on the summed S, then P V
+    float x[4][4];
+    xch_read(xS, grp, x);
+    float mx[2] = {NEG, NEG};
+    uint32_t seen = 0;  // bit 4j + e: entry (j, e) visible
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt + 8 * j + 2 * t + (e & 1);
+        const bool ok =
+            key < kv_end && (!causal || key <= (e < 2 ? pos0 : pos1));
+        x[j][e] = ok ? __fmul_rn(x[j][e], scale) : NEG;
+        seen |= static_cast<uint32_t>(ok) << (4 * j + e);
+        mx[e >> 1] = fmaxf(mx[e >> 1], x[j][e]);
+      }
+    float sum[2] = {0.0f, 0.0f}, alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(mrow[r], mx[r]);  // the new running max
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[j][e] = (seen >> (4 * j + e)) & 1u
+                      ? expf(__fsub_rn(x[j][e], mx[e >> 1]))
+                      : 0.0f;
+        sum[e >> 1] = __fadd_rn(sum[e >> 1], x[j][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+      sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
+      alpha[r] = expf(__fsub_rn(mrow[r], mx[r]));
+      lrow[r] = __fadd_rn(__fmul_rn(lrow[r], alpha[r]), sum[r]);
+      mrow[r] = mx[r];
+    }
+#pragma unroll
+    for (int c = 0; c < SL / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[c][e] = __fmul_rn(acc[c][e], alpha[e >> 1]);
+    rows_accumulate<SL, SL>(x, cV, acc);  // O += P V
+  }
+  cp_async_wait<0>();
+  if (c0 >= D) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    if (row >= rows.nq) continue;
+    const float l = fmaxf(lrow[r], 1e-30f);
+    float* out = o + static_cast<long long>(row) * D + c0 + 2 * t;
+#pragma unroll
+    for (int c = 0; c < SL / 8; ++c)
+      if (c0 + 8 * c < D)
+        *reinterpret_cast<float2*>(out + 8 * c) =
+            make_float2(__fdiv_rn(acc[c][2 * r], l),
+                        __fdiv_rn(acc[c][2 * r + 1], l));
+    if (lse != nullptr && h == 0 && t == 0)
+      lse[row] = __fadd_rn(mrow[r], logf(l));
+  }
+}
+
+// B8 and B9 at cluster_form(D), NS = cluster_ns(D): grid (B*H, q tiles of
+// RK, C), clusters (1, 1, C), the last q tile first; operands as
+// attn_fwd_kernel's
+template <int NS>
+__global__ void __launch_bounds__(NT, FwdX<NS>::BLOCKS)
+attn_fwd_cluster_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int Hkv, int Sq,
+                        int Skv, int causal, int D, float scale) {
+  constexpr int RK = FwdX<NS>::RK;
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * RK;
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nq = min(RK, Sq - row0);
+  const int kv_end = causal ? min(Skv, row0 + nq) : Skv;
+  const long long qoff = (static_cast<long long>(bh) * Sq + row0) * D;
+  cluster_tile<NS, false>(cluster, q + qoff, k + kvrow * Skv * D,
+                   v + kvrow * Skv * D, D, kv_end, causal != 0,
+                   QRows{row0, nq, INT_MAX, 0}, scale, o + qoff,
+                   cluster.block_rank() == 0
+                       ? lse + static_cast<long long>(bh) * Sq + row0
+                       : nullptr,
+                   D, smem);
+}
+
+// B12 chunks (S_new > 1) at cluster_form(D): grid (B*Hkv, row tiles of
+// RK, C), clusters (1, 1, C), the last row tile first; operands as
+// attn_decode_kernel's
+template <int NS>
+__global__ void __launch_bounds__(NT, FwdX<NS>::BLOCKS)
+attn_decode_cluster_kernel(const float* __restrict__ q,
+                           const float* __restrict__ kc,
+                           const float* __restrict__ vc,
+                           float* __restrict__ o, int Hkv, int Tlen,
+                           int nrows, int s_new, int kv_len, int D,
+                           float scale) {
+  constexpr int RK = FwdX<NS>::RK;
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * RK;
+  const int nq = min(RK, nrows - row0);
+  // last position among this tile's rows: kv_len - 1 once it wraps a group
+  const int i0 = row0 % s_new;
+  const int kv_end = i0 + nq - 1 >= s_new ? kv_len
+                                          : kv_len - s_new + i0 + nq;
+  const long long qoff =
+      ((static_cast<long long>(b) * Hkv + h) * nrows + row0) * D;
+  const long long koff = (static_cast<long long>(b) * Tlen * Hkv + h) * D;
+  cluster_tile<NS, true>(cluster, q + qoff, kc + koff, vc + koff,
+                   static_cast<long long>(Hkv) * D, kv_end, true,
+                   QRows{row0, nq, s_new, kv_len - s_new}, scale, o + qoff,
+                   nullptr, D, smem);
+}
+
+template <int NS>
+cudaError_t launch_fwd_cluster(int kind, const float* q, const float* k,
+                               const float* v, float* o, float* lse, int B,
+                               int H, int Hkv, int Sq, int Skv, int causal,
+                               int D, float scale, cudaStream_t st) {
+  return launch_cluster<FwdX<NS>>(attn_fwd_cluster_kernel<NS>, kind, Sq, B,
+                                  H, D, st, q, k, v, o, lse, H, Hkv, Sq, Skv,
+                                  causal, D, scale);
+}
+
+template <int NS>
+cudaError_t launch_decode_cluster(const float* q, const float* kc,
+                                  const float* vc, float* o, int B, int H,
+                                  int Hkv, int Tlen, int s_new, int kv_len,
+                                  int D, float scale, cudaStream_t st) {
+  const int nrows = (H / Hkv) * s_new;
+  return launch_cluster<FwdX<NS>>(attn_decode_cluster_kernel<NS>,
+                                  ROUTE_PREFILL_COLS_TF32, nrows, B, Hkv, D,
+                                  st, q, kc, vc, o, Hkv, Tlen, nrows, s_new,
+                                  kv_len, D, scale);
+}
+
 cudaError_t launch_fwd_cols(int kind, const void* q, const void* k,
                             const void* v, void* o, void* lse, int B, int H,
                             int Hkv, int Sq, int Skv, int causal, int D,
@@ -980,12 +1356,15 @@ int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
                       int B, int H, int Hkv, int Tlen, int kv_len,
                       int n_split, float scale, cudaStream_t st);
 
+static const float* F(const void* p) { return static_cast<const float*>(p); }
+
 extern "C" {
 
 int accl_attn_last_route() { return g_attn_route; }
 
-// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (past 256: the
-// column-group kernels)
+// dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (f32 past 256: the
+// cluster kernels, past 4096 the column-group ones; 16-bit past 256 the
+// column-group kernels of attention_sm90.cu)
 int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
                   const void* v, void* o, void* lse, int B, int H, int Hkv,
                   int Sq, int Skv, int causal, float scale, void* stream) {
@@ -995,6 +1374,12 @@ int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
     return attn_fwd_wgmma(dtype, head_dim, q, k, v, o, lse, B, H, Hkv, Sq,
                           Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (cluster_form(head_dim)) {
+    CLUSTER_NS_DISPATCH(launch_fwd_cluster, head_dim, ROUTE_FWD_COLS_TF32,
+                        F(q), F(k), F(v), static_cast<float*>(o),
+                        static_cast<float*>(lse), B, H, Hkv, Sq, Skv, causal,
+                        head_dim, scale, st)
+  }
   if (head_dim > 256)
     return launch_fwd_cols(ROUTE_FWD_COLS_TF32, q, k, v, o, lse, B, H, Hkv,
                            Sq, Skv, causal, head_dim, scale, st);
@@ -1012,6 +1397,12 @@ int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
     return attn_fwd_single_wgmma(dtype, head_dim, q, k, v, o, lse, B, H, Hkv,
                                  Sq, Skv, causal, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (cluster_form(head_dim)) {
+    CLUSTER_NS_DISPATCH(launch_fwd_cluster, head_dim,
+                        ROUTE_FWD_SINGLE_COLS_TF32, F(q), F(k), F(v),
+                        static_cast<float*>(o), static_cast<float*>(lse), B,
+                        H, Hkv, Sq, Skv, causal, head_dim, scale, st)
+  }
   if (head_dim > 256)
     return launch_fwd_cols(ROUTE_FWD_SINGLE_COLS_TF32, q, k, v, o, lse, B,
                            H, Hkv, Sq, Skv, causal, head_dim, scale, st);
@@ -1020,21 +1411,29 @@ int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
 }
 
 // ws, counters: the split route's f32 workspace and its zeroed counters
-// (S_new == 1 at head dims up to 256), n_split its splits; past 256 every
-// S_new runs the column-group kernels of the prefill route
+// (S_new == 1 at head dims up to 256, and f32 up to SPLIT_F32_MAX_D),
+// n_split its splits. Past those an f32 S_new == 1 runs the prefill
+// route's column-group kernel; f32 chunks of S_new > 1 past 256 run the
+// cluster form to 4096, the column-group kernel past it
 int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
                      const void* vc, void* o, void* ws, void* counters, int B,
                      int H, int Hkv, int Tlen, int s_new, int kv_len,
                      int n_split, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
-  if (s_new == 1 && head_dim <= 256)
+  if (s_new == 1 &&
+      (head_dim <= 256 || (dtype == 0 && head_dim <= SPLIT_F32_MAX_D)))
     return attn_decode_split(dtype, head_dim, q, kc, vc, o, ws, counters, B,
                              H, Hkv, Tlen, kv_len, n_split, scale, st);
   if (dtype == 1 || dtype == 2)
     return attn_prefill_wgmma(dtype, head_dim, q, kc, vc, o, B, H, Hkv, Tlen,
                               s_new, kv_len, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (s_new > 1 && cluster_form(head_dim)) {
+    CLUSTER_NS_DISPATCH(launch_decode_cluster, head_dim, F(q), F(kc), F(vc),
+                        static_cast<float*>(o), B, H, Hkv, Tlen, s_new,
+                        kv_len, head_dim, scale, st)
+  }
   if (head_dim > 256)
     return launch_decode_cols(q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
                               head_dim, scale, st);

@@ -88,9 +88,7 @@
 // Arithmetic in f32: expf without intrinsics, the scale of dK and dQ
 // applied once to the sums. No atomics: one writer for each output
 // element, so two runs on the same inputs are bitwise equal.
-#include <cooperative_groups.h>
-
-#include "attention_tile.cuh"
+#include "attention_cluster.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -406,34 +404,10 @@ attn_bwd_dq_kernel(const float* __restrict__ q,
 // load as zeros; a slice wholly past D takes no part in the products and
 // its warp only sums its share of the live slices' partials. Shared memory
 // about 174, 209 and 227 KB at NS 2, 4 and 8, one block an SM. No atomics:
-// one writer for each element.
-constexpr int SL = 64, SLP = SL + 4;  // a slice's columns; its row pitch
+// one writer for each element. The tiers, the exchange's sum, broadcast and
+// read and the launch are attention_cluster.cuh's, shared with the
+// forward's cluster form (attention.cu).
 constexpr int XSTR = SROWS * SLP;     // floats of a slice's streamed tile
-// the head dims of the cluster form: at most 8 slices a block, at most 8
-// blocks a cluster (the portable size)
-constexpr int CLUSTER_MAX_D = 8 * 8 * SL;
-// the slices a block holds at head dim D: the fewest of 2, 4, 8 that keep
-// the cluster at 8 blocks
-__host__ __device__ constexpr int cluster_ns(int D) {
-  return D <= 8 * 2 * SL ? 2 : D <= 8 * 4 * SL ? 4 : 8;
-}
-__host__ __device__ constexpr int cluster_size(int D) {
-  return ((D + SL - 1) / SL + cluster_ns(D) - 1) / cluster_ns(D);
-}
-__host__ __device__ constexpr bool cluster_form(int D) {
-  return D > 256 && D <= CLUSTER_MAX_D;
-}
-// the receive slots of NQ quarters over C blocks: each owner holds C for
-// each of its quarters
-__host__ __device__ constexpr int cluster_slots(int NQ, int C) {
-  return (NQ + C - 1) / C * C;
-}
-__host__ __device__ constexpr int most_slots(int NQ, int cmin) {
-  int m = 0;
-  for (int c = cmin; c <= 8; ++c)
-    m = cluster_slots(NQ, c) > m ? cluster_slots(NQ, c) : m;
-  return m;
-}
 
 // The shape of a cluster block holding NS slices: RK resident rows, NQ
 // quarters of positions (128 floats each), NSL slots of streamed operand
@@ -446,10 +420,11 @@ __host__ __device__ constexpr int most_slots(int NQ, int cmin) {
 // delta each).
 template <int NS>
 struct Xch {
+  static constexpr int SLICES = NS;
   static constexpr int RK = 128 / NS;
   static constexpr int NQ = RK / 16 * 4;
   static constexpr int NSL = NS == 2 ? 4 : NS == 4 ? 3 : 2;
-  static constexpr int CMIN = NS == 2 ? 3 : 5;  // the tier's least C
+  static constexpr int CMIN = cluster_cmin(NS);  // the tier's least C
   static constexpr int UNITS = 8 / NS;
   static constexpr int WR = NS < 8 ? NS : 4;
   static constexpr int RES = RK * SLP;  // floats of a slice's resident tile
@@ -464,13 +439,6 @@ struct Xch {
   static_assert(RK / 16 * NS * 32 == NT, "a warp for each (group, slice)");
   static_assert(NS % WR == 0, "whole rounds");
 };
-static_assert(cluster_ns(CLUSTER_MAX_D) == 8 &&
-                  cluster_size(CLUSTER_MAX_D) == 8 &&
-                  cluster_size(257) == Xch<2>::CMIN &&
-                  cluster_size(8 * 2 * SL + 8) == Xch<4>::CMIN &&
-                  cluster_size(8 * 4 * SL + 8) == Xch<8>::CMIN,
-              "the tiers' cluster sizes");
-
 __device__ __forceinline__ void zero_tile(float (&x)[4][4],
                                           float (&y)[4][4]) {
 #pragma unroll
@@ -478,14 +446,6 @@ __device__ __forceinline__ void zero_tile(float (&x)[4][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
 }
-__device__ __forceinline__ float4 f4(const float (&z)[4]) {
-  return make_float4(z[0], z[1], z[2], z[3]);
-}
-__device__ __forceinline__ float4 f4_add(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
-}
-
 // step 1: the block's partial over its nl live slices for rows group grp.
 // The warp of slice h holds x (S) and y (dP) over its slice; a lane's
 // eight float4 units (x's four, then y's) are dealt UNITS to a warp, slice
@@ -558,43 +518,6 @@ __device__ __forceinline__ void xch_push(
       xch_push_as<NS, H>(cluster, rcv, sum, grp, nl, rank, C, x, y);
     else
       xch_push<NS, H + 1>(cluster, rcv, sum, grp, h, nl, rank, C, x, y);
-  }
-}
-
-// step 2: the sum, in block order, of the C partials at float offset off
-// (two elements) of the receive buffer rcv (a slot is 128 floats)
-__device__ __forceinline__ float2 xch_sum(const float* rcv, int off, int C) {
-  float2 s = *reinterpret_cast<const float2*>(rcv + off);
-  for (int b = 1; b < C; ++b) {
-    const float2 a = *reinterpret_cast<const float2*>(rcv + off + b * 128);
-    s = make_float2(__fadd_rn(s.x, a.x), __fadd_rn(s.y, a.y));
-  }
-  return s;
-}
-
-// step 2: v (two elements at float offset off) into the result buffer res
-// of every block of the cluster
-__device__ __forceinline__ void xch_bcast(
-    cooperative_groups::cluster_group& cluster, float* res, int off, int C,
-    float2 v) {
-#pragma unroll
-  for (int b = 0; b < 8; ++b)
-    if (b < C)
-      *reinterpret_cast<float2*>(cluster.map_shared_rank(res, b) + off) = v;
-}
-
-// step 3: rows group grp's P (or dS), 16 x 32, from the result buffer res
-__device__ __forceinline__ void xch_read(const float* res, int grp,
-                                         float (&x)[4][4]) {
-  const float4* p =
-      reinterpret_cast<const float4*>(res) + grp * 128 + (threadIdx.x & 31);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float4 a = p[32 * j];
-    x[j][0] = a.x;
-    x[j][1] = a.y;
-    x[j][2] = a.z;
-    x[j][3] = a.w;
   }
 }
 
@@ -969,69 +892,6 @@ attn_bwd_dq_cluster_kernel(const float* __restrict__ q,
   }
 }
 
-// the launch of an NS-slice cluster kernel at head dim D over grid (x, y,
-// cluster_size(D)) on stream st; attr holds its cluster dimension
-template <int NS>
-cudaLaunchConfig_t cluster_config(int D, int x, int y, cudaStream_t st,
-                                  cudaLaunchAttribute (&attr)[1]) {
-  const int C = cluster_size(D);
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = C;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(x, y, C);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = Xch<NS>::BYTES;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// the clusters of `kern` (NS slices a block) at head dim D that the card
-// holds at once, one block an SM (cudaOccupancyMaxActiveClusters) into *n
-template <int NS, typename K>
-cudaError_t active_clusters(K kern, int D, int* n) {
-  cudaError_t e = allow_smem(kern, Xch<NS>::BYTES);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config<NS>(D, 1, 1, nullptr, attr);
-  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
-}
-
-// B10 or B11 (kern, route) at cluster_form(D), NS = cluster_ns(D):
-// clusters of cluster_size(D) blocks over grid (B*H, tiles of RK rows of
-// `rows`, C). The card must be able to hold one such cluster at one block
-// an SM (asked once for each kernel, device and C), or the launch is
-// refused with cudaErrorLaunchOutOfResources. The route's tier is the
-// block's columns, 64 * NS.
-template <int NS, typename... P, typename... A>
-cudaError_t launch_cluster(void (*kern)(P...), int route, int rows, int B,
-                           int H, int D, cudaStream_t st, A... args) {
-  constexpr int NDEV = 16;
-  static int fits[NDEV][9];  // by C: 0 unknown, 1 fits, -1 not
-  int dev = 0, unknown = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = allow_smem(kern, Xch<NS>::BYTES);
-  if (e != cudaSuccess) return e;
-  int& ok = dev < NDEV ? fits[dev][cluster_size(D)] : unknown;
-  if (ok == 0) {
-    int n = 0;
-    e = active_clusters<NS>(kern, D, &n);
-    if (e != cudaSuccess) return e;
-    ok = n > 0 ? 1 : -1;
-  }
-  if (ok < 0) return cudaErrorLaunchOutOfResources;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = cluster_config<NS>(
-      D, B * H, (rows + Xch<NS>::RK - 1) / Xch<NS>::RK, st, attr);
-  e = cudaLaunchKernelEx(&cfg, kern, args...);
-  if (e == cudaSuccess) e = cudaGetLastError();
-  if (e == cudaSuccess) set_attn_route(route, 0, NS * SL);
-  return e;
-}
-
 // B10 and B11 on the cluster form's instantiation for NS slices a block
 template <int NS>
 cudaError_t launch_dkv_cluster(const float* q, const float* dout,
@@ -1040,7 +900,7 @@ cudaError_t launch_dkv_cluster(const float* q, const float* dout,
                                float* dk, float* dv, int B, int H, int Hkv,
                                int Sq, int Skv, int causal, int D,
                                float scale, cudaStream_t st) {
-  return launch_cluster<NS>(attn_bwd_dkv_cluster_kernel<NS>,
+  return launch_cluster<Xch<NS>>(attn_bwd_dkv_cluster_kernel<NS>,
                             ROUTE_BWD_DKV_COLS_TF32, Skv, B, H, D, st, q,
                             dout, k, v, lse, delta, dk, dv, H, Hkv, Sq, Skv,
                             causal, D, scale);
@@ -1052,7 +912,7 @@ cudaError_t launch_dq_cluster(const float* q, const float* dout,
                               float* dq, int B, int H, int Hkv, int Sq,
                               int Skv, int causal, int D, float scale,
                               cudaStream_t st) {
-  return launch_cluster<NS>(attn_bwd_dq_cluster_kernel<NS>,
+  return launch_cluster<Xch<NS>>(attn_bwd_dq_cluster_kernel<NS>,
                             ROUTE_BWD_DQ_COLS_TF32, Sq, B, H, D, st, q, dout,
                             k, v, lse, delta, dq, H, Hkv, Sq, Skv, causal, D,
                             scale);
@@ -1061,18 +921,10 @@ template <int NS>
 int active_of(int dkv, int D) {
   int n = 0;
   const cudaError_t e =
-      dkv ? active_clusters<NS>(attn_bwd_dkv_cluster_kernel<NS>, D, &n)
-          : active_clusters<NS>(attn_bwd_dq_cluster_kernel<NS>, D, &n);
+      dkv ? active_clusters<Xch<NS>>(attn_bwd_dkv_cluster_kernel<NS>, D, &n)
+          : active_clusters<Xch<NS>>(attn_bwd_dq_cluster_kernel<NS>, D, &n);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
-
-// FN<NS> for head dim D's cluster tier
-#define CLUSTER_NS_DISPATCH(FN, D, ...)   \
-  switch (cluster_ns(D)) {                \
-    case 2: return FN<2>(__VA_ARGS__);    \
-    case 4: return FN<4>(__VA_ARGS__);    \
-    default: return FN<8>(__VA_ARGS__);   \
-  }
 
 // ---- head dims past 4096: the column-group form ----------------------------
 //

@@ -6,7 +6,9 @@
 // native layout, keys 0 .. kv_len-1 and nothing at or past kv_len read;
 // GQA by index (the group = H / Hkv q heads of one kv head share its K
 // and V); O in q's dtype. accl_attn_decode (attention.cu) sends every
-// S_new == 1 launch here; chunks of S_new > 1 keep their routes there.
+// S_new == 1 launch at head dims up to 256 here, and f32 ones up to
+// SPLIT_F32_MAX_D (the wide kernel at the end of this file); chunks of
+// S_new > 1 keep their routes there.
 //
 // Bound on an H100: a step reads the filled prefix once, 2 * kv_len * D
 // elements per (b, kv head), and does 4 * D operations per (q row, key):
@@ -495,16 +497,434 @@ cudaError_t launch_split_group(const void* q, const void* kc, const void* vc,
                                 kv_len, n_split, D, scale, st);
 }
 
+// ---- f32 head dims past 256: the wide split ---------------------------------
+//
+// f32 at 256 < D <= SPLIT_F32_MAX_D (2048), where a warp can no longer hold
+// its rows' q and accumulator over the whole head dim (GR x D floats each:
+// 32 KB at GR 8, D 1024). The grid and the partials are the split route's
+// above: (n_split, Hkv * group / GR, B) blocks, each over one key range of
+// its (b, kv head), its GR rows of the group, the whole head dim; the
+// blocks merge as a tree (merge_tree). Inside a block the columns are
+// dealt over the threads, four a thread: a key slot of DP / 4 threads at
+// column tier DP (512, 1024, 2048), thread i of a slot keeping columns 4i
+// .. 4i + 3 of each row's q and accumulator in registers (2 * GR * 4
+// floats), and KS slots (two to DP 1024, one at 2048: each slot a half of
+// every tile's keys, so that twice the warps share the tile's chain). K
+// and V rows stream through a 3-stage ring of KT = 8192 / DP keys a stage
+// (64 KB), each thread copying (16-byte cp.async) and reading only its own
+// columns of its slot's keys, so that each key's K and V row is read once
+// and the ring needs no barrier of its own. For each tile: each thread
+// forms its columns' part of its slot's (key, row) dot products, a warp's
+// 32 parts meet through RowSplit's reduce-scatter of shuffles, and each
+// warp's sums go to shared memory; block barrier; the first GR * KT
+// threads, one a (row, key), add the key's warps' sums in warp order,
+// scale and mask, and run the rows' one online softmax (the KT threads of
+// a row meet through shuffles and all hold its m and l), storing p and
+// the rescale alpha; block barrier; each thread rescales its columns and
+// adds p V for its slot's keys. At the end the slots' accumulators add
+// (slot 0's, then slot 1's) into the split's partial. Arithmetic f32 on
+// the CUDA cores, as above: the step is bound by bytes.
+constexpr int WIDE_STAGES = 3;
+constexpr int MERGE_FAN = 8;  // the merge tree's children a node
+template <int DP>
+struct Wide {
+  static constexpr int CT = DP / 4;      // a slot's threads: 4 columns each
+  static constexpr int KS = DP <= 1024 ? 2 : 1;  // key slots
+  static constexpr int NTH = KS * CT;
+  static constexpr int NW = CT / 32;     // a slot's warps: 128 columns each
+  static constexpr int KT = 8192 / DP;   // keys a stage: 64 KB of K and V
+  static constexpr int KH = KT / KS;     // a slot's keys of a tile
+  static constexpr int STAGE = 2 * KT * DP;  // floats: K rows, then V rows
+  static_assert(NW >= 1 && KH >= 1 && 32 % KT == 0, "geometry");
+};
+template <int DP, int GR>
+__host__ __device__ constexpr int wide_smem() {
+  // the ring, the warps' sums (KT x GR x NW), p (KT x GR), alpha (GR) and
+  // the merge's weights and sums ((MERGE_FAN + 2) x GR)
+  return (WIDE_STAGES * Wide<DP>::STAGE + Wide<DP>::KT * GR * Wide<DP>::NW +
+          Wide<DP>::KT * GR + GR + (MERGE_FAN + 2) * GR) * 4;
+}
+
+// The wide kernel's merge. Its partials are GR x D floats a split (32
+// times the narrow kernel's at D 512 and GR 8), too many for one block to
+// read in turn, so the splits merge as a tree of fan-in MERGE_FAN: the
+// last of a node's children to arrive (a ticket on the node's counter,
+// which it sets back to 0 for the next launch) merges their partials, in
+// child order, into its first child's slot, and goes up a level; the root
+// writes O. A node of children (m_i, l_i, acc_i): M = max m_i, w_i =
+// e^(m_i - M), l = sum w_i l_i, acc = sum w_i acc_i, the i in order
+// (merge_node), so the bits do not depend on the order of arrival; O =
+// acc / max(l, 1e-30). Split u's partial rows: prow0 + u * group + g.
+
+// cnt partials (split slots (first + i) * span) of the GR rows into slot
+// first * span, or into O if top; sw: (MERGE_FAN + 2) * GR floats of
+// shared memory. A thread takes four columns of RW rows at a time, the
+// RW * MERGE_FAN loads of them in flight at once.
+template <int GR, int NTH>
+__device__ __forceinline__ void merge_node(
+    float* __restrict__ o, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc, float* sw,
+    long long prow0, int group, int first, int cnt, int span, bool top,
+    int H, int h, int g0, int b, int D) {
+  constexpr int F = MERGE_FAN, RW = GR < 2 ? GR : 2;
+  float* sML = sw + F * GR;  // each row's M, then its l
+  auto row = [&](int i, int g) {  // child i's partial row g
+    return prow0 + static_cast<long long>(first + i) * span * group + g;
+  };
+  if (threadIdx.x < GR) {
+    const int g = threadIdx.x;
+    float mu[F], M = NEG;
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      mu[i] = i < cnt ? __ldcg(part_m + row(i, g)) : NEG;
+      M = fmaxf(M, mu[i]);
+    }
+    float L = 0.0f;
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      if (i >= cnt) break;
+      const float w = expf(__fsub_rn(mu[i], M));
+      sw[i * GR + g] = w;
+      L = fmaf(w, __ldcg(part_l + row(i, g)), L);
+    }
+    sML[g] = M;
+    sML[GR + g] = L;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < GR / RW * (D / 4); c += NTH) {
+    const int gr = c / (D / 4) * RW, d = (c % (D / 4)) * 4;
+    float4 x[RW][F];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int i = 0; i < F; ++i)  // past the last child: the last again
+        x[r][i] = __ldcg(reinterpret_cast<const float4*>(
+            part_acc + row(min(i, cnt - 1), gr + r) * D + d));
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const int g = gr + r;
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < F; ++i) {
+        const float w = i < cnt ? sw[i * GR + g] : 0.0f;
+        a[0] = fmaf(w, x[r][i].x, a[0]);
+        a[1] = fmaf(w, x[r][i].y, a[1]);
+        a[2] = fmaf(w, x[r][i].z, a[2]);
+        a[3] = fmaf(w, x[r][i].w, a[3]);
+      }
+      if (top) {
+        const float den = fmaxf(sML[GR + g], 1e-30f);
+        *reinterpret_cast<float4*>(
+            o + (static_cast<long long>(b) * H + h * group + g0 + g) * D +
+            d) = make_float4(__fdiv_rn(a[0], den), __fdiv_rn(a[1], den),
+                             __fdiv_rn(a[2], den), __fdiv_rn(a[3], den));
+      } else {  // into the first child's slot: this thread read its items
+        *reinterpret_cast<float4*>(part_acc + row(0, g) * D + d) =
+            make_float4(a[0], a[1], a[2], a[3]);
+      }
+    }
+  }
+  if (!top && threadIdx.x < GR) {
+    part_m[row(0, threadIdx.x)] = sML[threadIdx.x];
+    part_l[row(0, threadIdx.x)] = sML[GR + threadIdx.x];
+  }
+}
+
+// Split s's block after writing its partial: up the tree while it is the
+// last child of its node to arrive. counters: n_split a (b, kv head, row
+// chunk) at cidx, a node's at its level's base plus its index.
+template <int GR, int NTH>
+__device__ __forceinline__ void merge_tree(
+    float* __restrict__ o, float* __restrict__ part_m,
+    float* __restrict__ part_l, float* __restrict__ part_acc,
+    unsigned* __restrict__ counters, int& s_last, float* sw, long long prow0,
+    int group, int s, int n_split, int H, int h, int g0, int b, int D) {
+  constexpr int F = MERGE_FAN;
+  const long long cidx = blockIdx.z * gridDim.y + blockIdx.y;
+  int nodes = n_split, j = s, span = 1, base = 0;
+  for (;;) {
+    const int parents = (nodes + F - 1) / F, parent = j / F;
+    const int first = parent * F, cnt = min(F, nodes - first);
+    const bool top = parents == 1;
+    if (cnt > 1) {
+      __syncthreads();  // the block's partial (or merge) is written
+      if (threadIdx.x == 0) {
+        unsigned* ctr = counters + cidx * n_split + base + parent;
+        __threadfence();
+        s_last = atomicAdd(ctr, 1u) == static_cast<unsigned>(cnt - 1);
+        if (s_last) {
+          *ctr = 0u;
+          __threadfence();
+        }
+      }
+      __syncthreads();
+      if (!s_last) return;
+    }
+    if (cnt > 1 || top)  // (a lone child below the root passes up as it is)
+      merge_node<GR, NTH>(o, part_m, part_l, part_acc, sw, prow0, group,
+                          first, cnt, span, top, H, h, g0, b, D);
+    if (top) return;
+    base += parents;
+    nodes = parents;
+    j = parent;
+    span *= F;
+  }
+}
+
+// grid (n_split, Hkv * group / GR, B); operands and partials as
+// attn_decode_split_kernel's, f32, rows of D <= DP floats
+template <int DP, int GR>
+__global__ void __launch_bounds__(Wide<DP>::NTH, 1)
+attn_decode_split_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ kc,
+                              const float* __restrict__ vc,
+                              float* __restrict__ o,
+                              float* __restrict__ part_m,
+                              float* __restrict__ part_l,
+                              float* __restrict__ part_acc,
+                              unsigned* __restrict__ counters, int H,
+                              int Hkv, int Tlen, int kv_len, int D,
+                              float scale) {
+  using W = Wide<DP>;
+  using RS = RowSplit<GR, 32>;
+  constexpr int NW = W::NW, KT = W::KT, KH = W::KH;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_last;
+  float* ring = reinterpret_cast<float*>(smem);  // stage i: K, then V rows
+  float* red = ring + WIDE_STAGES * W::STAGE;    // (key, row, warp)
+  float* sp = red + KT * GR * NW;                // p: (key, row)
+  float* salpha = sp + KT * GR;                  // alpha: row
+  float* smerge = salpha + GR;                   // the merge's weights
+  const int s = blockIdx.x, n_split = gridDim.x;
+  const int group = H / Hkv, chunks = group / GR;
+  const int h = blockIdx.y / chunks, g0 = (blockIdx.y % chunks) * GR;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int slot = tid / W::CT, wslot = (tid >> 5) % NW;  // key slot, warp
+  const int c = 4 * (tid % W::CT);               // this thread's columns
+  const int k0 = slot * KH;                      // its keys of a tile
+  const int rrow = RS::row0(lane);               // the row a lane sums
+
+  int lo, hi;
+  split_range(s, n_split, kv_len, &lo, &hi);
+  const int ntiles = (hi - lo + KT - 1) / KT;
+  const long long kstride = static_cast<long long>(Hkv) * D;
+  const long long head = (static_cast<long long>(b) * Tlen * Hkv + h) * D;
+  const float* kb = kc + head;
+  const float* vb = vc + head;
+  const uint32_t sbase = smem_addr(smem);
+
+  // stage t % STAGES <- this thread's columns of its slot's keys of tile
+  // t's K and V rows (zeros past hi or D); one commit group a call, empty
+  // past the last tile
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      const int key0 = lo + t * KT + k0;
+      const uint32_t dst =
+          sbase + ((t % WIDE_STAGES) * W::STAGE + k0 * DP + c) * 4;
+#pragma unroll
+      for (int r = 0; r < KH; ++r) {
+        const bool ok = key0 + r < hi && c < D;
+        const long long off = ok ? (key0 + r) * kstride + c : 0;
+        cp_async16(dst + r * DP * 4, kb + off, ok ? 16 : 0);
+        cp_async16(dst + (KT + r) * DP * 4, vb + off, ok ? 16 : 0);
+      }
+    }
+    cp_commit();
+  };
+  issue(0);
+  issue(1);
+
+  float qf[GR][4], acc[GR][4];  // this thread's 4 columns of each row
+#pragma unroll
+  for (int g = 0; g < GR; ++g) {
+    const float4 v4 =
+        c < D ? *reinterpret_cast<const float4*>(
+                    q + (static_cast<long long>(b) * H + h * group + g0 + g) *
+                            D + c)
+              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    qf[g][0] = v4.x, qf[g][1] = v4.y, qf[g][2] = v4.z, qf[g][3] = v4.w;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = 0.0f;
+  }
+  // the softmax threads: (row srow, key skey) for tid < GR * KT, in the
+  // first warps; the KT threads of a row are neighbours in one warp
+  const bool soft = tid < GR * KT;
+  const int srow = soft ? tid / KT : 0, skey = tid % KT;
+  const bool soft_warp = (tid >> 5) < (GR * KT + 31) / 32;  // warp-uniform
+  float m = NEG, l = 0.0f;  // row srow's, in each of its KT threads
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_wait<1>();  // this thread's copies of tile t landed
+    const float* tk = ring + (t % WIDE_STAGES) * W::STAGE;
+    const float* tv = tk + KT * DP;
+    const int key0 = lo + t * KT;
+    // each warp's part of its slot's (key, row) dot products
+#pragma unroll
+    for (int r = k0; r < k0 + KH; ++r) {
+      const float4 k4 = *reinterpret_cast<const float4*>(tk + r * DP + c);
+      float d[GR];
+#pragma unroll
+      for (int g = 0; g < GR; ++g)
+        d[g] = fmaf(qf[g][3], k4.w,
+                    fmaf(qf[g][2], k4.z,
+                         fmaf(qf[g][1], k4.y, __fmul_rn(qf[g][0], k4.x))));
+      RS::reduce(d, lane);
+      if (lane == RS::src(rrow)) red[(r * GR + rrow) * NW + wslot] = d[0];
+    }
+    __syncthreads();  // the warps' sums are in place; tile t - 1's p, alpha
+                      // and ring stage are free
+    issue(t + 2);
+    if (soft_warp) {
+      const int key = key0 + skey;
+      const bool ok = soft && key < hi;
+      float sc = NEG;
+      if (soft) {
+        const float* w = red + (skey * GR + srow) * NW;
+        float dsum = w[0];
+#pragma unroll
+        for (int i = 1; i < NW; ++i) dsum = __fadd_rn(dsum, w[i]);
+        sc = ok ? __fmul_rn(dsum, scale) : NEG;
+      }
+      float mx = sc;
+#pragma unroll
+      for (int off = KT / 2; off; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m, mx);
+      const float p = ok ? expf(__fsub_rn(sc, m_new)) : 0.0f;
+      float psum = p;
+#pragma unroll
+      for (int off = KT / 2; off; off >>= 1)
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, off));
+      const float alpha = expf(__fsub_rn(m, m_new));
+      l = __fadd_rn(__fmul_rn(l, alpha), psum);
+      m = m_new;
+      if (soft) {
+        sp[skey * GR + srow] = p;
+        if (skey == 0) salpha[srow] = alpha;
+      }
+    }
+    __syncthreads();  // p and alpha are in place
+#pragma unroll
+    for (int g = 0; g < GR; ++g) {
+      const float a = salpha[g];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] = __fmul_rn(acc[g][e], a);
+    }
+#pragma unroll
+    for (int r = k0; r < k0 + KH; ++r) {
+      const float4 v4 = *reinterpret_cast<const float4*>(tv + r * DP + c);
+#pragma unroll
+      for (int g = 0; g < GR; ++g) {
+        const float p = sp[r * GR + g];
+        acc[g][0] = fmaf(p, v4.x, acc[g][0]);
+        acc[g][1] = fmaf(p, v4.y, acc[g][1]);
+        acc[g][2] = fmaf(p, v4.z, acc[g][2]);
+        acc[g][3] = fmaf(p, v4.w, acc[g][3]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // this split's partial: slot 0's columns of acc plus slot 1's (through
+  // the ring, free now), the softmax threads of key 0 each row's m and l
+  const long long prow0 =
+      ((static_cast<long long>(b) * Hkv + h) * n_split) * group + g0;
+  const long long prow = prow0 + static_cast<long long>(s) * group;
+  if constexpr (W::KS == 2) {
+    __syncthreads();  // every read of the ring is done
+    if (slot == 1) {
+#pragma unroll
+      for (int g = 0; g < GR; ++g)
+        *reinterpret_cast<float4*>(ring + g * DP + c) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    }
+    __syncthreads();
+  }
+  if (slot == 0 && c < D) {
+#pragma unroll
+    for (int g = 0; g < GR; ++g) {
+      float4 a = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      if constexpr (W::KS == 2) {
+        const float4 u = *reinterpret_cast<const float4*>(ring + g * DP + c);
+        a = make_float4(__fadd_rn(a.x, u.x), __fadd_rn(a.y, u.y),
+                        __fadd_rn(a.z, u.z), __fadd_rn(a.w, u.w));
+      }
+      *reinterpret_cast<float4*>(part_acc + (prow + g) * D + c) = a;
+    }
+  }
+  if (soft && skey == 0) {
+    part_m[prow + srow] = m;
+    part_l[prow + srow] = l;
+  }
+  merge_tree<GR, W::NTH>(o, part_m, part_l, part_acc, counters, s_last,
+                         smerge, prow0, group, s, n_split, H, h, g0, b, D);
+}
+
+template <int DP, int GR>
+cudaError_t launch_split_wide(const void* q, const void* kc, const void* vc,
+                              void* o, void* ws, void* counters, int B, int H,
+                              int Hkv, int Tlen, int kv_len, int n_split,
+                              int D, float scale, cudaStream_t st) {
+  constexpr int smem = wide_smem<DP, GR>();
+  auto kern = attn_decode_split_wide_kernel<DP, GR>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const long long rows = static_cast<long long>(B) * H * n_split;
+  float* part_acc = static_cast<float*>(ws);  // first: 16-byte rows
+  float* part_m = part_acc + rows * D;
+  float* part_l = part_m + rows;
+  dim3 grid(n_split, Hkv * (H / Hkv / GR), B);
+  kern<<<grid, Wide<DP>::NTH, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kc),
+      static_cast<const float*>(vc), static_cast<float*>(o), part_m, part_l,
+      part_acc, static_cast<unsigned*>(counters), H, Hkv, Tlen, kv_len, D,
+      scale);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(ROUTE_DECODE_SPLIT, 0, DP);
+  return e;
+}
+
+// the largest row count of the group that divides it: 8, 4, 2 or 1
+template <int DP>
+cudaError_t launch_wide_group(const void* q, const void* kc, const void* vc,
+                              void* o, void* ws, void* counters, int B, int H,
+                              int Hkv, int Tlen, int kv_len, int n_split,
+                              int D, float scale, cudaStream_t st) {
+  const int group = H / Hkv;
+  if (group % 8 == 0)
+    return launch_split_wide<DP, 8>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                    Tlen, kv_len, n_split, D, scale, st);
+  if (group % 4 == 0)
+    return launch_split_wide<DP, 4>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                    Tlen, kv_len, n_split, D, scale, st);
+  if (group % 2 == 0)
+    return launch_split_wide<DP, 2>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                    Tlen, kv_len, n_split, D, scale, st);
+  return launch_split_wide<DP, 1>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                  Tlen, kv_len, n_split, D, scale, st);
+}
+
 }  // namespace
 
-// Called by accl_attn_decode (attention.cu) for S_new == 1. ws: the f32
-// workspace of B * H * n_split * (D + 2) floats; counters: B * H unsigned
-// ints, zero (the kernel leaves them zero).
+// Called by accl_attn_decode (attention.cu) for S_new == 1 (f32 up to
+// SPLIT_F32_MAX_D, 16-bit up to 256). ws: the f32 workspace of B * H *
+// n_split * (D + 2) floats; counters: B * H unsigned ints (past 256: B * H
+// * n_split, the merge tree's), zero (the kernel leaves them zero).
 int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
                       const void* vc, void* o, void* ws, void* counters,
                       int B, int H, int Hkv, int Tlen, int kv_len,
                       int n_split, float scale, cudaStream_t st) {
   if (n_split < 1 || kv_len < 1 || kv_len > Tlen) return cudaErrorInvalidValue;
+  if (head_dim > 256) {  // f32 only: the wide split
+    if (dtype != 0 || head_dim > SPLIT_F32_MAX_D) return cudaErrorInvalidValue;
+    const auto wide = head_dim <= 512    ? &launch_wide_group<512>
+                      : head_dim <= 1024 ? &launch_wide_group<1024>
+                                         : &launch_wide_group<2048>;
+    return wide(q, kc, vc, o, ws, counters, B, H, Hkv, Tlen, kv_len, n_split,
+                head_dim, scale, st);
+  }
   POW2_DISPATCH(launch_split_group, q, kc, vc, o, ws, counters, B, H, Hkv,
                 Tlen, kv_len, n_split, head_dim, scale, st)
 }

@@ -122,8 +122,9 @@ __device__ __forceinline__ void cp_rows(float* dst, const float* src, int n,
 // x (16 x 32) = A B^T over the DP columns: A the 16 rows at a, B the 32
 // rows at b (pitch DP + 4 each); x[j] holds columns 8j..8j+7. Operands by
 // ldmatrix: A's tile m is rows 8*(m&1).., words 4*(m>>1)..; a pair of B's
-// n-tiles is rows 8*(m>>1).., words 4*(m&1)..
-template <int DP>
+// n-tiles is rows 8*(m>>1).., words 4*(m&1)... The column steps unrolled
+// U at a time (all by default).
+template <int DP, int U = DP / 8>
 __device__ __forceinline__ void rows16_x_rows32(const float* a,
                                                 const float* b,
                                                 float (&x)[4][4]) {
@@ -135,7 +136,7 @@ __device__ __forceinline__ void rows16_x_rows32(const float* a,
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
-#pragma unroll
+#pragma unroll(U)
   for (int c = 0; c < DP / 8; ++c) {
     uint32_t w[4];
     ldsm_x4(w, pa + 8 * c);

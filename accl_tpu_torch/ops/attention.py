@@ -40,7 +40,10 @@ PyTorch versions (``*_ref``).
 - ``flash_decode``: B12. Single-token decode (S_new == 1), any dtype,
   runs the split-KV kernel of ``csrc/attention_decode.cu``
   (``attn_decode_split_kernel``: ``decode_splits`` slices of the filled
-  prefix, merged by the last slice to finish; f32 arithmetic). A
+  prefix, merged by the last slice to finish; f32 arithmetic; f32 past
+  head dim 256 up to ``SPLIT_F32_MAX_D``, ``attn_decode_split_wide_kernel``,
+  its columns dealt over the threads and its slices merged as a tree of
+  fan-in 8: ``takes_split``). A
   16-bit chunk of S_new > 1 new tokens (prefill) runs B8's tensor-core
   kernel over the cache in its own layout (``attn_fwd_wgmma_kernel`` with
   a 4-D tensor map, bottom-right causal); an f32 chunk runs
@@ -59,11 +62,17 @@ warpgroup's registers, every kind runs its column-group form, one launch
 a call: a block keeps one group of the output columns (grid z) and
 forms S (and the backward's dP) over the whole head dim in chunks, each
 group the same chunks in the same order (``attn_fwd_cols_wgmma_kernel``
-and ``attn_bwd_{dkv,dq}_cols_wgmma_kernel`` for 16-bit operands,
-``attn_fwd_cols_kernel``, ``attn_decode_cols_kernel`` and
-``attn_bwd_{dkv,dq}_cols_kernel`` for f32; a single-token decode runs the
-prefill form). A CUDA call with another dtype raises TypeError. The
-reference's wrappers check neither.
+and ``attn_bwd_{dkv,dq}_cols_wgmma_kernel`` for 16-bit operands, whose
+single-token decode runs the prefill form). f32 operands past 256 up to
+4096 run the cluster form instead (``attn_fwd_cluster_kernel`` for B8
+and B9, ``attn_decode_cluster_kernel`` for B12 chunks of S_new > 1,
+``attn_bwd_{dkv,dq}_cluster_kernel``: a thread-block cluster splits the
+head dim into 64-column slices and forms S, and dP, once a tile), and
+their single-token decode the wide split-KV kernel up to
+``SPLIT_F32_MAX_D``; past those, ``attn_fwd_cols_kernel``,
+``attn_decode_cols_kernel`` and ``attn_bwd_{dkv,dq}_cols_kernel``. A
+CUDA call with another dtype raises TypeError. The reference's wrappers
+check neither.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
@@ -95,8 +104,9 @@ COLS_HEAD_DIM = 256      # past it: the column-group kernels
 KERNEL_D_STEP = 8        # the kernels' head dims: multiples of 8 ...
 COLS_CHUNK = 128         # ... and of 128 on the 16-bit column-group ones
 _HALF = (torch.bfloat16, torch.float16)
-# the route codes of csrc/attention_route.cuh (ROUTE_*); "_cols": the
-# column-group form of head dims past COLS_HEAD_DIM
+# the route codes of csrc/attention_route.cuh (ROUTE_*); "_cols": head
+# dims past COLS_HEAD_DIM (the column-group form, or for f32 to 4096 the
+# cluster form, whose tier is a block's columns: 128, 256 or 512)
 ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
           7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
@@ -109,6 +119,7 @@ ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           22: "bwd_dkv_tf32_cols", 23: "bwd_dq_tf32_cols"}
 _DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
+SPLIT_F32_MAX_D = 2048   # f32 single-token decode: split-KV up to it
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 
 fwd_launches = 0
@@ -615,6 +626,23 @@ def decode_splits(B: int, Hkv: int, T: int, sm_count: int) -> int:
     return max(1, min(want, -(-T // SPLIT_TILE)))
 
 
+def takes_split(dtype, head_dim: int) -> bool:
+    """Whether a single-token decode (S_new == 1) of ``dtype`` at the
+    kernel's head dim (a multiple of 8) runs the split-KV kernel: every
+    dtype up to ``COLS_HEAD_DIM``, f32 up to ``SPLIT_F32_MAX_D`` (the wide
+    kernel of ``csrc/attention_decode.cu``); past those it runs the
+    prefill route's column-group kernel."""
+    return head_dim <= COLS_HEAD_DIM or (dtype == torch.float32
+                                         and head_dim <= SPLIT_F32_MAX_D)
+
+
+def split_workspace_floats(B: int, H: int, n_split: int,
+                           head_dim: int) -> int:
+    """The f32 words of the split route's workspace: each of the B * H
+    rows' n_split partials (acc over head_dim columns, then m and l)."""
+    return B * H * n_split * (head_dim + 2)
+
+
 def decode_split_ranges(kv_len: int, n_split: int) -> list:
     """The key range [lo, hi) of each of the ``n_split`` slices of a
     filled prefix of ``kv_len`` keys, as the kernel derives them: c =
@@ -665,12 +693,14 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     DK = q.shape[-1]
     o = torch.empty_like(q)
     n_split, ws, counters = 0, None, None
-    split = S_new == 1 and DK <= COLS_HEAD_DIM
+    split = S_new == 1 and takes_split(q.dtype, DK)
     if split:         # the split route's counters and partials (acc, m, l)
         n_split = decode_splits(B, Hkv, T, _sm_count(q.device))
-        counters = _split_counters(q.device, B * H)
-        ws = torch.empty(B * H * n_split * (DK + 2), dtype=torch.float32,
-                         device=q.device)
+        # the wide kernel's merge tree: a counter a node, n_split a row
+        counters = _split_counters(
+            q.device, B * H * (n_split if DK > COLS_HEAD_DIM else 1))
+        ws = torch.empty(split_workspace_floats(B, H, n_split, DK),
+                         dtype=torch.float32, device=q.device)
     _build.check(_build.library().accl_attn_decode(
         _DTYPE_CODES[q.dtype], DK, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), o.data_ptr(), _ptr(ws), _ptr(counters), B, H,

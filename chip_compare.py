@@ -7,14 +7,15 @@ B12 prefill).
 
 Run from the root of a checkout:
 
-    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32] [TREE ...]
+    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32|fwd_wide] [TREE ...]
 
 ``--part stream`` times the stream kernels only (no model is built);
 ``--part model`` B9, decode and the forward only; ``--part bwd`` B10
 and B11 only; ``--part bwd_wide`` the f32 B10 and B11 past head dim 256;
 ``--part fwd32`` the forward's f32 route beside SDPA's f32 forward, with
-the bf16 routes and decode at the same shapes as controls; the default
-is all but ``bwd_wide`` and ``fwd32``.
+the bf16 routes and decode at the same shapes as controls; ``--part
+fwd_wide`` the f32 forward past head dim 256; the default is all but
+``bwd_wide``, ``fwd32`` and ``fwd_wide``.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -57,7 +58,8 @@ card's name and power limit and:
 - the bwd_wide part, at phase 17a's shapes past head dim 256 (Gemma-2B's
   heads, H=8, Hkv=1, B=4, causal; D=264 and D=512 at S=2048, D=1024,
   1032, 2048 and 4096 at S=1024): f32 B10 and B11 on the operands the
-  forward gives, each the median device time of 5 launches behind the
+  plain forward gives (``flash_attention_ref``: the same O and LSE in
+  every tree), each the median device time of 5 launches behind the
   GPU sleep beside its bound (three TF32 products of 8*D (B10) or 6*D
   (B11) operations a visible score at 495 TFLOP/s), the pair's sum, the
   largest error against the plain versions, a SHA-256 of the outputs'
@@ -76,7 +78,20 @@ card's name and power limit and:
   version on the same inputs, and PyTorch's SDPA forward on the same f32
   inputs with ``allow_tf32`` off (timed only); then the same calls in
   bf16 and the single-token decode (bf16 and f32, kv_len 2047 of T =
-  4096), whose kernels the f32 route does not share.
+  4096), whose kernels the f32 route does not share;
+- the fwd_wide part, at phase 17a's shapes past head dim 256 (Gemma-2B's
+  heads, H=8, Hkv=1, B=4, causal; ``FWD_WIDE_CASES``): f32 B8 at D 264
+  and 512 (S 2048) and 1024, 2048, 4096 (S 1024), B9 at S 512, the B12
+  prefill (S_new = kv_len = 1024), the single-token decode (kv_len 2047
+  of 4096 at D 264 and 512, 1023 of 1024 at 1024 and 2048), and the D
+  512 Llama's B8 and B9 at B 1, S 1024 and 512: each the median device
+  time of 5 launches (decode 20) behind the GPU sleep beside its bound
+  (three TF32 products of 4*D operations a visible score at 495
+  TFLOP/s; the decode: its K and V prefix over 3.35 TB/s), the route it
+  reported, the largest error against the plain version, a SHA-256 of
+  the outputs' bits, the plain version (median of 3) and PyTorch's SDPA
+  f32 forward (``allow_tf32`` off; its math backend at these head dims),
+  and the cluster size at that head dim.
 
 It uses only the entry points every version of the port has
 (``ops.combine.combine``, ``ops.compression.cast``, ``fp8_scale``,
@@ -97,12 +112,30 @@ import time
 
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32")
+PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32", "fwd_wide")
 TF32_OPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
 # the bwd_wide part's (head dim, sequence length): the cluster form's
 # tiers of 2 (D 264 to 1024), 4 (1032, 2048) and 8 (4096) slices a block
 BWD_WIDE_CASES = ((264, 2048), (512, 2048), (1024, 1024), (1032, 1024),
                   (2048, 1024), (4096, 1024))
+# the fwd_wide part's calls at Gemma-2B's heads (H 8, Hkv 1), B 4 unless
+# given: (name, kind, D, S or S_new, kv length, cache T, B)
+FWD_WIDE_CASES = (
+    ("b8_d264_s2048", "fwd", 264, 2048, 2048, None, 4),
+    ("b8_d512_s2048", "fwd", 512, 2048, 2048, None, 4),
+    ("b8_d1024_s1024", "fwd", 1024, 1024, 1024, None, 4),
+    ("b8_d2048_s1024", "fwd", 2048, 1024, 1024, None, 4),
+    ("b8_d4096_s1024", "fwd", 4096, 1024, 1024, None, 4),
+    ("b9_d264_s512", "fwd_single", 264, 512, 512, None, 4),
+    ("b9_d512_s512", "fwd_single", 512, 512, 512, None, 4),
+    ("prefill_d264_s1024", "prefill", 264, 1024, 1024, 1024, 4),
+    ("prefill_d512_s1024", "prefill", 512, 1024, 1024, 1024, 4),
+    ("decode_d264_kv2047", "decode", 264, 1, 2047, 4096, 4),
+    ("decode_d512_kv2047", "decode", 512, 1, 2047, 4096, 4),
+    ("decode_d1024_kv1023", "decode", 1024, 1, 1023, 1024, 4),
+    ("decode_d2048_kv1023", "decode", 2048, 1, 1023, 1024, 4),
+    ("llama_d512_b8_s1024", "fwd", 512, 1024, 1024, None, 1),
+    ("llama_d512_b9_s512", "fwd_single", 512, 512, 512, None, 1))
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -360,7 +393,9 @@ def bwd_wide_part(out: dict) -> None:
                  for _ in range(2))
         k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
                 for _ in range(2))
-        o, lse = A.flash_attention_fwd(q, k, v, True)
+        # O and the LSE from the plain forward, the same in every tree, so
+        # that two trees' B10 and B11 take the same bits
+        o, lse = A.flash_attention_ref(q, k, v, True)
         delta = (do * o).sum(-1).reshape(B * H, S)
         args = (q, do, k, v, lse, delta, True, D ** -0.5)
         visible = S * (S + 1) // 2 * B * H
@@ -457,6 +492,74 @@ def fwd32_part(out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def fwd_wide_part(out: dict) -> None:
+    """The f32 forward past head dim 256 (B8, B9, the B12 prefill and
+    decode) and SDPA's f32 forward at phase 17a's shapes (module
+    docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    lib = _build.library()
+    size = getattr(lib, "accl_attn_bwd_cluster_size", None)
+    H, Hkv = 8, 1
+    for name, kind, D, sq, kv, T, B in FWD_WIDE_CASES:
+        q = torch.randn(B, H, sq, D, device="cuda", generator=g)
+        if T is None:                         # B8 (block_k 16) and B9
+            k, v = (torch.randn(B, Hkv, kv, D, device="cuda", generator=g)
+                    for _ in range(2))
+            bk = 16 if kind == "fwd" else None
+            assert A.is_single_block(kv, bk) == (kind == "fwd_single")
+            fn = lambda: A.flash_attention_fwd(  # noqa: E731
+                q, k, v, True, block_k=bk)  # noqa: B023
+            ref = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
+            lib_call = lambda: F.scaled_dot_product_attention(  # noqa
+                q, k, v, is_causal=True, enable_gqa=True)
+            visible = sq * (sq + 1) // 2 * B * H
+        else:                                 # B12 over a (B, T, Hkv) cache
+            kc, vc = (torch.randn(B, T, Hkv, D, device="cuda", generator=g)
+                      for _ in range(2))
+            fn = lambda: A.flash_decode(q, kc, vc, kv)  # noqa
+            ref = lambda: A.flash_decode_ref(q, kc, vc, kv)  # noqa
+            kt, vt = A.cache_prefix(kc, vc, kv)
+            lib_call = lambda: F.scaled_dot_product_attention(  # noqa
+                q, kt, vt, is_causal=sq > 1, enable_gqa=True)  # noqa: B023
+            # query i of the S_new sees kv - S_new + i + 1 keys
+            visible = (sq * (kv - sq) + sq * (sq + 1) // 2) * B * H
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        want = ref()
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        digest = hashlib.sha256()
+        for t in got:
+            digest.update(t.contiguous().view(torch.int32).cpu().numpy()
+                          .tobytes())
+        del got, want
+        ms = time_ms(fn, reps=5 if kind != "decode" else 20)
+        ops = 4 * D * visible
+        if kind == "decode":       # bytes: the filled prefix of K and V
+            bound = 2 * B * Hkv * kv * D * 4 / HBM_BYTES_PER_S * 1e3
+        else:                      # three TF32 products an operation
+            bound = 3 * ops / TF32_OPS_PER_S * 1e3
+        rec = {"ms": ms, "bound_ms": bound, "pct_of_bound": 100 * bound / ms,
+               "max_abs_err": err, "sha256": digest.hexdigest()[:16],
+               "route": A.ROUTES.get(lib.accl_attn_last_route() >> 16),
+               "tier": lib.accl_attn_last_route() & 0xFFF}
+        rec["plain_ms"] = time_ms(ref, reps=3)
+        rec["sdpa_ms"] = time_ms(lib_call, reps=5 if kind != "decode"
+                                 else 20)
+        rec["vs_sdpa"] = ms / rec["sdpa_ms"]
+        if kind != "decode" and size is not None and size(D) > 0:
+            rec["cluster_size"] = size(D)   # the forward's as B10's
+        out[name] = rec
+        del q, fn, ref, lib_call
+        torch.cuda.empty_cache()
+
+
 def one(tree: str, part: str) -> dict:
     """The measurements of one tree's port (in this process)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -474,6 +577,8 @@ def one(tree: str, part: str) -> dict:
         bwd_wide_part(out)
     if part == "fwd32":
         fwd32_part(out)
+    if part == "fwd_wide":
+        fwd_wide_part(out)
     return out
 
 

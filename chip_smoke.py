@@ -3446,6 +3446,20 @@ def wgmma_kernels_checked():
     print(f"{SPLIT_KERNEL}: {len(info)} instantiations (f32/bf16/f16 x "
           f"column tiers 16-256 x rows 1/2/4); ptxas registers "
           f"{sorted(v[0] for v in info.values())}, no spills")
+    wide = {}
+    for k, v in ptx.items():
+        m = re.search(WIDE_SPLIT_KERNEL + r"ILi(\d+)ELi(\d+)E", k)
+        if m:
+            wide[(int(m.group(1)), int(m.group(2)))] = v
+    need(set(wide) == {(dp, gr) for dp in (512, 1024, 2048)
+                       for gr in (1, 2, 4, 8)},
+         f"{WIDE_SPLIT_KERNEL}: ptxas reports {sorted(wide)}")
+    need(all(v[1] == 0 for v in wide.values()),
+         f"{WIDE_SPLIT_KERNEL}: ptxas spills {wide}")
+    print(f"{WIDE_SPLIT_KERNEL}: {len(wide)} instantiations (f32, column "
+          f"tiers 512/1024/2048 x rows 1/2/4/8); ptxas registers "
+          f"{ {f'{dp}/{gr}': v[0] for (dp, gr), v in sorted(wide.items())} }"
+          f", no spills")
     for ln in _build.build_log.splitlines():
         if "wgmma" in ln.lower() and ("warning" in ln.lower()
                                       or "Performance" in ln):
@@ -3495,22 +3509,29 @@ def tf32_kernels_checked():
 COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel",
                       "attn_bwd_dkv_cols_wgmma_kernel",
                       "attn_bwd_dq_cols_wgmma_kernel")
-COLS_TF32_KERNELS = ("attn_fwd_cols_kernel", "attn_decode_cols_kernel",
+COLS_TF32_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
+                     "attn_fwd_cols_kernel", "attn_decode_cols_kernel",
                      "attn_bwd_dkv_cluster_kernel",
                      "attn_bwd_dq_cluster_kernel",
                      "attn_bwd_dkv_cols_kernel", "attn_bwd_dq_cols_kernel")
-# the f32 backward's cluster kernels, one instantiation for each count of
-# 64-column slices a block holds (attention_bwd.cu's cluster_ns)
-F32_CLUSTER_KERNELS = ("attn_bwd_dkv_cluster_kernel",
+# the f32 cluster kernels (forward and backward), one instantiation for
+# each count of 64-column slices a block holds (attention_cluster.cuh's
+# cluster_ns)
+F32_CLUSTER_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
+                       "attn_bwd_dkv_cluster_kernel",
                        "attn_bwd_dq_cluster_kernel")
 F32_CLUSTER_NS = (2, 4, 8)
+# the f32 single-token decode past 256: one instantiation for each column
+# tier (512, 1024, 2048) and rows of the group a block (8, 4, 2, 1)
+WIDE_SPLIT_KERNEL = "attn_decode_split_wide_kernel"
 
 
 def cols_kernels_checked():
     """The column-group kernels in the built library: each 16-bit one
     instantiated for bf16 and f16, with HGMMA on operands of its type;
-    each f32 one with TF32 HMMA, the f32 backward's cluster kernels in
-    each of their instantiations (2, 4 and 8 slices a block); ptxas
+    each f32 one with TF32 HMMA, the f32 cluster kernels (B8/B9, the B12
+    chunks, B10, B11) in each of their instantiations (2, 4 and 8 slices
+    a block); ptxas
     reports no spills for any. Prints the counts, registers and spill
     bytes; fails otherwise."""
     import re
@@ -8097,6 +8118,9 @@ WIDE_MAX_D, WIDE_S = 1024, 1024
 F32_CLUSTER_MAX_D = 4096
 WIDE_BWD_F32_DIMS = (776, 1032, 2056, 4096, 4104)
 F32_BWD_ROW_DIMS = (776, 1032, 2048, 4096)
+# the f32 single-token decode's wide split kernel (attention_decode.cu):
+# its last head dim (SPLIT_F32_MAX_D); past it the column-group kernel
+F32_SPLIT_MAX_D = 2048
 
 
 def f32_cluster_ns(d: int) -> int:
@@ -8126,15 +8150,19 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     f32 routes and the split decode a power of two from 16; past 256
     every kind takes its column-group form ("_cols"), whose tier is the
     group's width (f32: 64, but a cluster block's columns, 64 times its
-    slices (128, 256 or 512), for B10 and B11 to D 4096; 16-bit: 128 for
-    B10's dK and dV, else 256)."""
+    slices (128, 256 or 512), for every kind but the decode to D 4096;
+    16-bit: 128 for B10's dK and dV, else 256), except the f32 decode,
+    which takes the wide split kernel to ``F32_SPLIT_MAX_D`` (its tier
+    512, 1024 or 2048)."""
     d = -(-D // 8) * 8
+    f32 = dtype == "float32"
+    if f32 and kind == "decode" and 256 < d <= F32_SPLIT_MAX_D:
+        return "decode_split", dtype, next(t for t in (512, 1024, 2048)
+                                           if d <= t)
     if d > 256:                  # the column-group forms, by group width
-        f32 = dtype == "float32"
-        bwd = kind in ("bwd_dkv", "bwd_dq")
-        tier = ((64 * f32_cluster_ns(d) if bwd and d <= F32_CLUSTER_MAX_D
-                 else 64) if f32
-                else 128 if kind == "bwd_dkv" else 256)
+        tier = ((64 * f32_cluster_ns(d)
+                 if kind != "decode" and d <= F32_CLUSTER_MAX_D else 64)
+                if f32 else 128 if kind == "bwd_dkv" else 256)
         return f"{kind}_{'tf32' if f32 else 'wgmma'}_cols", dtype, tier
     pow2 = next(t for t in (16, 32, 64, 128, 256) if d <= t)
     if kind == "decode":
@@ -8196,6 +8224,9 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         err, ratio = hold_attn(o, ref, f"{kind} {dname} D={D}", lse, rl,
                                fwd_route_mag("fwd", (q, k, v, True)))
         kern = lambda: A.flash_attention_fwd(q, k, v, True, None, None, bk)  # noqa
+        if dname == "float32" and D > 256:   # the cluster form's repeat
+            need_repeat(kern, (o, lse), f"{kind} f32 D={D}")
+            out["repeat"] = "bitwise"
         plain = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
         lib = lambda: F.scaled_dot_product_attention(  # noqa
             q, k, v, is_causal=True, enable_gqa=True)
@@ -8213,12 +8244,16 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         err, ratio = hold_attn(o, ref, f"{kind} {dname} D={D}",
                                mag=fwd_route_mag("decode", (q, kc, vc, skv)))
         kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
+        if dname == "float32" and D > 256:   # the cluster form, wide split
+            need_repeat(kern, o, f"{kind} f32 D={D}")
+            out["repeat"] = "bitwise"
         plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
         kt, vt = (t[:, :skv].transpose(1, 2) for t in (kc, vc))
         lib = lambda: F.scaled_dot_product_attention(  # noqa
             q, kt, vt, is_causal=sq > 1, enable_gqa=True)
         nbytes, nops = attn_work(B, H, Hkv, sq, skv, D, es, s_new=sq)
-        if kind == "decode" and D <= 256:
+        if kind == "decode" and (D <= 256 or (
+                not half and D <= F32_SPLIT_MAX_D)):
             mult, rate = 1, F32_OPS_PER_S   # CUDA cores, f32 arithmetic
         out["n_split"] = A.last_decode_splits
         del o, ref
@@ -8311,7 +8346,8 @@ def case_line(kind, dt, B, H, Hkv, D, sq, skv, r, T=None, model="") -> str:
         f"{r[part]['bound_ms'] / r[part]['ms']:.1%} of it"
         for part in ("dkv", "dq")) + (
         f"; repeat {r['repeat']}" if "repeat" in r else "") + (
-        "; the pair below)") if kind == "bwd" else ""
+        "; the pair below)") if kind == "bwd" else (
+        f" (repeat {r['repeat']})" if "repeat" in r else "")
     return (f"kernel {kind} {dname} {model} B={B} H={H} Hkv={Hkv} D={D} "
             f"{'S' if T is None else 'S_new'}={sq} "
             f"{'Skv' if T is None else 'kv_len'}={skv}"
@@ -8333,10 +8369,12 @@ def wide_edges(g):
     and Sq 70 against Skv 130 unmasked; B10 and B11 on the first two;
     B12 over a cache of 320 rows with NaN past kv_len 1, 65 and 300, one
     new token and five; the f32 forward run twice, bitwise equal. Then the
-    f32 B10 and B11 at D 776, 1032, 2056, 4096 (the cluster form's three
-    tiers) and 4104 (the column-group kernels; ``WIDE_BWD_F32_DIMS``) on
-    the ragged, uneven and GQA shapes of B8, each run twice, bitwise
-    equal."""
+    f32 forward, B10 and B11 at D 776, 1032, 2056, 4096 (the cluster
+    form's three tiers) and 4104 (the column-group kernels;
+    ``WIDE_BWD_F32_DIMS``) on the ragged, uneven and GQA shapes of B8 (and
+    B9 at Sq 70 against Skv 130 unmasked), and B12 over a 320-row cache
+    with NaN past kv_len 1, 65 and 300 (one new token at 16/2 and 2/2
+    heads, five at 8/2), each run twice, bitwise equal."""
     import torch
     from accl_tpu_torch.ops import attention as A
     n = 0
@@ -8397,17 +8435,32 @@ def wide_edges(g):
                               mag=fwd_route_mag("decode", (q, kc, vc,
                                                            kv_len)))
                     n += 1
-    m = 0
+    m = f = 0
     for D in WIDE_BWD_F32_DIMS:
-        for B, H, Hkv, Sq, Skv, causal in ((1, 2, 1, 300, 300, True),
-                                           (1, 4, 2, 200, 300, False),
-                                           (1, 8, 1, 130, 300, True)):
+        for B, H, Hkv, Sq, Skv, causal, bk in (
+                (1, 2, 1, 300, 300, True, None),
+                (1, 4, 2, 200, 300, False, None),
+                (1, 8, 1, 130, 300, True, None),
+                (1, 4, 1, 70, 130, False, 256)):
             q, do = (torch.randn(B, H, Sq, D, device="cuda", generator=g)
                      for _ in range(2))
             k, v = (torch.randn(B, Hkv, Skv, D, device="cuda", generator=g)
                     for _ in range(2))
+            single = A.is_single_block(Skv, bk)
+            what = f"wide float32 D={D} {(B, H, Hkv, Sq, Skv, causal)}"
+            before = dict(A.route_launches)
+            o, lse = A.flash_attention_fwd(q, k, v, causal, block_k=bk)
+            need_one_route(before, "fwd_single" if single else "fwd",
+                           "float32", D, what)
+            ro, rl = A.flash_attention_ref(q, k, v, causal)
+            hold_attn(o, ro, what, lse, rl, fwd_route_mag(
+                "fwd", (q, k, v, causal, None, None, bk)))
+            need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+                q, k, v, causal, block_k=bk), (o, lse), what)  # noqa: B023
+            f += 1
+            if single:
+                continue
             what = f"wide bwd float32 D={D} {(B, H, Hkv, Sq, Skv, causal)}"
-            o, lse = A.flash_attention_fwd(q, k, v, causal)
             delta = (do * o).sum(-1).reshape(B * H, Sq)
             args = (q, do, k, v, lse, delta, causal, D ** -0.5)
             before = dict(A.route_launches)
@@ -8422,10 +8475,32 @@ def wide_edges(g):
                                  A.flash_attention_bwd_dq(*args)),  # noqa: B023
                         (*dkv, dq), what)
             m += 1
+        # B12 over a ragged cache: the f32 decode (the wide split to
+        # F32_SPLIT_MAX_D) and chunks (the cluster form to 4096)
+        for kv_len in (1, 65, 300):
+            kc, vc = (torch.randn(1, 320, 2, D, device="cuda", generator=g)
+                      for _ in range(2))
+            kc[:, kv_len:] = float("nan")
+            vc[:, kv_len:] = float("nan")
+            for s_new, H in ((1, 16), (1, 2), (5, 8)):
+                if s_new > kv_len:
+                    continue
+                q = torch.randn(1, H, s_new, D, device="cuda", generator=g)
+                what = (f"wide float32 D={D} H={H} kv_len {kv_len} S_new "
+                        f"{s_new}")
+                before = dict(A.route_launches)
+                o = A.flash_decode(q, kc, vc, kv_len)
+                need_one_route(before, "decode" if s_new == 1 else "prefill",
+                               "float32", D, what)
+                hold_attn(o, A.flash_decode_ref(q, kc, vc, kv_len), what)
+                need_repeat(lambda: A.flash_decode(  # noqa: B023
+                    q, kc, vc, kv_len), o, what)  # noqa: B023
+                f += 1
     print(f"wide edges: the column-group forms over {n} ragged, uneven "
-          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16, and the "
-          f"f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on its "
-          f"route, within its limit and (f32) bitwise on a repeat")
+          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16; the "
+          f"f32 forward (the cluster form, the wide split decode) over {f} "
+          f"and the f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on "
+          f"its route, within its limit and (f32) bitwise on a repeat")
 
 
 def head_dim_phase() -> list:
@@ -8433,9 +8508,10 @@ def head_dim_phase() -> list:
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
     on f32, bf16 and f16; the column-group forms at Gemma-2B's heads with
     D = 264 and 512 (every kind and dtype) and D = 1024 at S = 1024 (B8,
-    B10/B11 and decode in bf16 and f32), f32 B10/B11 at D = 776, 1032,
-    2048 and 4096, S = 1024 (``F32_BWD_ROW_DIMS``: each tier of the
-    cluster form); at D = 8 (the dry run's ring
+    B10/B11 and decode in bf16 and f32), f32 B8 and B10/B11 at D = 776,
+    1032, 2048 and 4096, S = 1024 (``F32_BWD_ROW_DIMS``: each tier of the
+    cluster form), the f32 decode at D = 2048 (``F32_SPLIT_MAX_D``, the
+    wide split's last); at D = 8 (the dry run's ring
     shapes); then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
     8's). Returns the f16 records."""
@@ -8487,13 +8563,19 @@ def head_dim_phase() -> list:
                             "Gemma-2B heads"))
         gc.collect()
         torch.cuda.empty_cache()
-    for D in F32_BWD_ROW_DIMS:          # the f32 backward's cluster tiers
-        r = kernel_case("bwd", torch.float32, HD_B, 8, 1, D, WIDE_S, WIDE_S,
-                        g, reps=3)
-        print(case_line("bwd", torch.float32, HD_B, 8, 1, D, WIDE_S, WIDE_S,
-                        r, model="Gemma-2B heads"))
-        gc.collect()
-        torch.cuda.empty_cache()
+    for D in F32_BWD_ROW_DIMS:          # the f32 cluster form's tiers
+        for kind in ("fwd", "bwd"):
+            r = kernel_case(kind, torch.float32, HD_B, 8, 1, D, WIDE_S,
+                            WIDE_S, g, reps=3)
+            print(case_line(kind, torch.float32, HD_B, 8, 1, D, WIDE_S,
+                            WIDE_S, r, model="Gemma-2B heads"))
+            gc.collect()
+            torch.cuda.empty_cache()
+    # the f32 decode at the wide split's last head dim
+    r = kernel_case("decode", torch.float32, HD_B, 8, 1, F32_SPLIT_MAX_D, 1,
+                    WIDE_S - 1, g, WIDE_S, reps=3)
+    print(case_line("decode", torch.float32, HD_B, 8, 1, F32_SPLIT_MAX_D, 1,
+                    WIDE_S - 1, r, WIDE_S, "Gemma-2B heads"))
     for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
         dt = getattr(torch, dname)
         for kind, sq, skv, T in (("fwd", DRY_S, DRY_S, None),
@@ -8811,7 +8893,8 @@ def d512_records(dt, S: int, T: int, path: str, routes: dict) -> list:
         need(n > 0, f"{path}: no launch on {route}")
         src = (ATTN_BWD_SM90_SRC if dt != torch.float32 else ATTN_BWD_SRC) \
             if kind.startswith("bwd") else \
-            (ATTN_SM90_SRC if dt != torch.float32 else ATTN_SRC)
+            (ATTN_SM90_SRC if dt != torch.float32 else ATTN_DECODE_SRC
+             if kind == "decode" else ATTN_SRC)
         recs.append({"name": name + suffix, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "launches_by_path": {path: n},
@@ -8832,7 +8915,9 @@ def head_dim_512_model_phase() -> list:
     the dense path, ``generate`` 16 tokens from the 2048, and three Adam
     steps at (1, 2048) with f32 parameters, the losses falling. f32 (the
     3xTF32 routes): the same at 1024 tokens, two training steps. Every
-    attention launch on a column-group route (``route_launches``).
+    attention launch on its route past 256 (``route_launches`` against
+    ``tier_of``: the column-group forms, f32's cluster form and its wide
+    split decode).
     Returns the kernels line's column-group rows."""
     import dataclasses
     import torch
@@ -8894,8 +8979,11 @@ def head_dim_512_model_phase() -> list:
              f"loss")
         need(losses[-1] < losses[0], f"{path}: the loss did not fall: "
              f"{losses}")
-        need(routes and all(r.endswith("_cols") for r, _d, _t in routes),
-             f"{path}: a launch off the column-group routes: {routes}")
+        want = {tier_of(kind, str(dt)[6:], 512) for kind in (
+            "fwd", "fwd_single", "prefill", "decode", "bwd_dkv", "bwd_dq")}
+        need(routes and set(routes) <= want, f"{path}: a launch off the "
+             f"routes past 256 (the column-group, cluster and split forms "
+             f"{sorted(want)}): {routes}")
         per_run = cfg.n_layers * steps       # B10 and B11: a layer a step
         need({k: n for k, n in routes.items() if k[0].startswith("bwd")}
              == {tier_of(kind, str(dt)[6:], 512): per_run
