@@ -75,6 +75,8 @@ _SIGNATURES = {
     "accl_attn_bwd_cluster_size": [_I],
     # dkv, head_dim: the f32 backward's clusters the card holds at once
     "accl_attn_bwd_active_clusters": [_I, _I],
+    # head_dim: the 16-bit B10's clusters the card holds at once
+    "accl_attn_bwd_dkv16_active_clusters": [_I],
 }
 
 

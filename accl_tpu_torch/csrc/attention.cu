@@ -1411,18 +1411,18 @@ int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
 }
 
 // ws, counters: the split route's f32 workspace and its zeroed counters
-// (S_new == 1 at head dims up to 256, and f32 up to SPLIT_F32_MAX_D),
-// n_split its splits. Past those an f32 S_new == 1 runs the prefill
-// route's column-group kernel; f32 chunks of S_new > 1 past 256 run the
-// cluster form to 4096, the column-group kernel past it
+// (S_new == 1 at head dims up to DECODE_SPLIT_MAX_D, every dtype), n_split
+// its splits. Past it an S_new == 1 runs its chunk's route: 16-bit the
+// tensor-core prefill form, f32 the column-group kernel; f32 chunks of
+// S_new > 1 past 256 run the cluster form to 4096, the column-group
+// kernel past it
 int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
                      const void* vc, void* o, void* ws, void* counters, int B,
                      int H, int Hkv, int Tlen, int s_new, int kv_len,
                      int n_split, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
-  if (s_new == 1 &&
-      (head_dim <= 256 || (dtype == 0 && head_dim <= SPLIT_F32_MAX_D)))
+  if (s_new == 1 && head_dim <= DECODE_SPLIT_MAX_D)
     return attn_decode_split(dtype, head_dim, q, kc, vc, o, ws, counters, B,
                              H, Hkv, Tlen, kv_len, n_split, scale, st);
   if (dtype == 1 || dtype == 2)

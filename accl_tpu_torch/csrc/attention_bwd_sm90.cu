@@ -7,9 +7,11 @@
 // Replace accl_tpu/ops/attention.py:
 //   B10 attn_bwd_dkv_wgmma_kernel <- _bwd_dkv_kernel (pallas_call at :461):
 //       per-q-head f32 partials of dK and dV (the GQA group sum runs
-//       outside, as the reference's :522-523).
+//       outside, as the reference's :522-523); past head dim 256
+//       attn_bwd_dkv_cluster_wgmma_kernel (to 1024, a thread-block
+//       cluster) and attn_bwd_dkv_cols_wgmma_kernel (past it).
 //   B11 attn_bwd_dq_wgmma_kernel  <- _bwd_dq_kernel (:492): dQ in q's
-//       dtype.
+//       dtype; past head dim 256 attn_bwd_dq_cols_wgmma_kernel.
 //
 // For a visible (query i, key j) pair, with s = q_i . k_j:
 //   p = exp(scale*s - lse_i), dp = do_i . v_j, ds = p * (dp - delta_i),
@@ -414,7 +416,8 @@ __global__ void __launch_bounds__(WG, 1)
 
 // ---- head dims past 256: the column-group form ------------------------------
 //
-// B10 and B11 at D > 256 (sm90_tile.cuh WCH, WGRP; D a multiple of WCH,
+// B11 at D > 256 and B10 past BWD16_CLUSTER_MAX_D (1024; up to it B10 runs
+// the cluster form below) (sm90_tile.cuh WCH, WGRP; D a multiple of WCH,
 // which the wrapper pads it to, so every chunk and B10's groups are
 // whole): grid z is a group of
 // output columns (128 of dK and dV in B10, as B10 at DP = 256; WGRP of dQ
@@ -567,6 +570,345 @@ __global__ void __launch_bounds__(WG, 1)
   for (int i = 0; i < DKV_GRP / 2; i += 2) {
     const int key = k0 + frag_row(i), c = c0 + frag_col(i);
     if (key >= Skv || c >= D) continue;
+    const long long o = (static_cast<long long>(bh) * Skv + key) * D + c;
+    *reinterpret_cast<float2*>(dk + o) =
+        make_float2(__fmul_rn(adk[i], scale), __fmul_rn(adk[i + 1], scale));
+    *reinterpret_cast<float2*>(dv + o) = make_float2(adv[i], adv[i + 1]);
+  }
+}
+
+// ---- B10 at 256 < D <= 1024: the cluster form ---------------------------
+//
+// The column-group form above forms S^T and dP^T over the whole head dim
+// in every group: (2C + 2) D products a tile for C groups where the work
+// needs 4 D (2.5x at D 512, 4.5x at D 1024), and it reloads K and V with
+// every q tile. Here a thread-block cluster of C = D / CSL blocks (grid z,
+// clusters (1, 1, C), C from 3 to 8: the wrapper pads D to a multiple of
+// CSL) owns one 64-key tile of one (b, h), and block c keeps one slice,
+// columns CSL*c .. CSL*c + CSL - 1: the DP = 128 work of
+// attn_bwd_dkv_wgmma_kernel on its slice, its register budget too (dK
+// and dV, 64 x 128 f32 each, in the warpgroup's registers). K_c and V_c
+// load once by TMA and stay resident; Q_c and dO_c stream through a ring
+// of CRING stages, one 64-row q tile a stage from the causal diagonal,
+// with the tile's LSE and delta. For each q tile:
+//   1. the slice's partials S^T_c = K_c Q_c^T and dP^T_c = V_c dO_c^T
+//      (m64n64k16, CSL / 16 k-steps each, exact 16-bit products summed in
+//      f32);
+//   2. the exchange. A thread's 32 + 32 accumulator registers form
+//      CUNITS = 16 units, unit u = S^T's registers 2u, 2u + 1 and dP^T's
+//      (one float4), and unit u of every thread belongs to block u % C,
+//      its owner. Each block sends each unit it does not own to its owner
+//      (st.async into the owner's receive slot for (unit, sender, thread),
+//      counted on the owner's receive mbarrier); the owner's thread t sums
+//      its own units over the C blocks in block order 0 .. C - 1 (its own
+//      partial from its registers), so the bits do not depend on
+//      arrival, forms P and dS at those two positions as the DP = 128
+//      kernel does (exp2 of the scaled score less the LSE, dS = P (dP -
+//      delta), the mask on the causal diagonal and ragged edges), rounds
+//      them to T as the A operands of the second products take them, and
+//      sends the two packed words to every other block (st.async into its
+//      result slot for (unit, thread), counted on its result mbarrier);
+//   3. every thread reads its other units' words from its own result
+//      slots, and dV_c += P^T dO_c and dK_c += dS^T Q_c (m64n128k16) run
+//      on the Q_c and dO_c tiles already in the ring.
+// So S^T and dP^T are formed once a tile across the cluster, every block
+// holds bitwise the same P and dS, and each position is summed and
+// exponentiated once. What it costs instead: a block sends (C - 1) / C of
+// 32 KB of partials and receives as much of 16 KB of results a tile over
+// the cluster's network, and the tile's steps wait on each other, one
+// warpgroup a block and one block an SM (about 190 KB of shared memory).
+// Every remote access is a store (st.async, which does not wait for an
+// answer as a remote load does), and no tile needs a cluster barrier:
+// the mbarriers count the bytes, and one receive and one result buffer
+// suffice, because a block sends tile i + 1's units only after it has
+// every word of tile i, which each owner sends only after it has read
+// tile i's units from its receive slots. The one cluster barrier before
+// the loop makes sure every block's mbarriers are initialized before a
+// peer stores to them; the one after it keeps every block resident until
+// the cluster's last stores have landed. Thread 0 re-arms both mbarriers
+// at the top of each tile (arrive plus the bytes expected), after its
+// waits of the tile before: a peer's bytes that land first leave the
+// phase pending until it does.
+constexpr int CSL = 128;             // a block's slice of the head dim
+constexpr int BWD16_CLUSTER_MAX_D = 8 * CSL;  // ops/attention.py's
+constexpr int CUNITS = BQ / 4;       // a thread's units of S^T and dP^T
+constexpr int CRING = 3;             // stages of Q_c and dO_c
+
+// the receive slots of CUNITS units dealt over C blocks (ceil(16 / C)
+// units an owner, a slot for each block), the most over C = 3 .. 8
+__host__ __device__ constexpr int cl_slots() {
+  int m = 0;
+  for (int c = 3; c <= BWD16_CLUSTER_MAX_D / CSL; ++c)
+    m = (CUNITS + c - 1) / c * c > m ? (CUNITS + c - 1) / c * c : m;
+  return m;
+}
+
+// shared memory of the cluster B10: K_c, V_c; CRING stages of Q_c, dO_c;
+// their LSE and delta; the receive slots (a float4 a thread); the result
+// slots (two packed words a thread); the barriers (K/V, the stages,
+// receive, result)
+struct ClSmem {
+  static constexpr int KV = BKV * CSL * 2;
+  static constexpr int Q = BQ * CSL * 2;
+  static constexpr int RING = 2 * KV;
+  static constexpr int STATS = RING + CRING * 2 * Q;
+  static constexpr int RCV = STATS + CRING * 2 * BQ * 4;
+  static constexpr int RES = RCV + cl_slots() * WG * 16;
+  static constexpr int BARS = RES + CUNITS * WG * 8;
+  static constexpr int BYTES = BARS + (CRING + 3) * 8 + 1024;
+  static_assert(BYTES <= 232448, "a block's shared memory");
+};
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of this block's shared address `a` in the
+// block of rank r
+__device__ __forceinline__ uint32_t peer(uint32_t a, int r) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(a), "r"(r));
+  return d;
+}
+// 16 and 8 bytes into a peer's shared memory, counted on its mbarrier
+__device__ __forceinline__ void st_async4(uint32_t a, float x, float y,
+                                          float z, float w, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a),
+      "f"(x), "f"(y), "f"(z), "f"(w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async2(uint32_t a, uint32_t x, uint32_t y,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(a),
+      "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+// mbar_wait, acquiring at cluster scope what the peers' st.async wrote
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins > (1ll << 26)) __trap();
+  }
+}
+
+// the maps and operands of attn_bwd_dkv_wgmma_kernel; grid (B*H, key
+// tiles, C), clusters (1, 1, C), D = C * CSL
+template <typename T>
+__global__ void __launch_bounds__(WG, 1)
+    attn_bwd_dkv_cluster_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                                      __grid_constant__ const CUtensorMap tdo,
+                                      __grid_constant__ const CUtensorMap tk,
+                                      __grid_constant__ const CUtensorMap tv,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta,
+                                      float* __restrict__ dk,
+                                      float* __restrict__ dv, int H, int Hkv,
+                                      int Sq, int Skv, int causal, int D,
+                                      float scale) {
+  using L = ClSmem;
+  constexpr int KS = Cols<CSL>::KS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + L::KV;
+  auto sQ = [&](int s) { return base + L::RING + s * 2 * L::Q; };
+  auto sDO = [&](int s) { return sQ(s) + L::Q; };
+  float* stats = reinterpret_cast<float*>(gbase + L::STATS);  // [s][2][BQ]
+  const float4* rcv = reinterpret_cast<const float4*>(gbase + L::RCV);
+  const uint2* res = reinterpret_cast<const uint2*>(gbase + L::RES);
+  const uint32_t bar_kv = base + L::BARS;
+  auto full = [&](int s) { return bar_kv + 8 + 8 * s; };
+  const uint32_t bar_rcv = full(CRING), bar_res = bar_rcv + 8;
+
+  const int tid = threadIdx.x;
+  const int C = gridDim.z, rank = cluster_rank();
+  const int bh = blockIdx.x, k0 = blockIdx.y * BKV, col0 = rank * CSL;
+  const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  // under the causal mask queries before k0 see none of these keys
+  const int q_first = causal ? (k0 / BQ) * BQ : 0;
+  const int n_it = q_first < Sq ? (Sq - q_first + BQ - 1) / BQ : 0;
+  const float* lse_row = lse + static_cast<long long>(bh) * Sq;
+  const float* delta_row = delta + static_cast<long long>(bh) * Sq;
+  const int own = (CUNITS - rank + C - 1) / C;  // the units this block owns
+
+  auto load_q = [&](int s, int q0) {  // one thread: Q_c, dO_c of stage s
+    mbar_expect_tx(full(s), 2 * L::Q);
+    tma_tile<CSL, BQ>(sQ(s), &tq, full(s), q0, bh, col0);
+    tma_tile<CSL, BQ>(sDO(s), &tdo, full(s), q0, bh, col0);
+  };
+  auto load_stats = [&](int s, int q0) {  // every thread
+    for (int i = tid; i < 2 * BQ; i += WG) {
+      const int r = i % BQ, q = q0 + r;
+      const float* src = (i < BQ ? lse_row : delta_row) + (q < Sq ? q : 0);
+      cp_async4(smem_u32(stats + s * 2 * BQ + i), src, q < Sq);
+    }
+    cp_async_commit();
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < CRING; ++s) mbar_init(full(s), 1);
+    mbar_init(bar_rcv, 1);
+    mbar_init(bar_res, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, 2 * L::KV);
+    tma_tile<CSL, BKV>(sK, &tk, bar_kv, k0, kvrow, col0);
+    tma_tile<CSL, BKV>(sV, &tv, bar_kv, k0, kvrow, col0);
+    for (int s = 0; s < CRING && s < n_it; ++s) load_q(s, q_first + s * BQ);
+  }
+  for (int s = 0; s < CRING; ++s) {
+    if (s < n_it) load_stats(s, q_first + s * BQ);
+    else cp_async_commit();
+  }
+  cp_async_wait<CRING - 1>();  // stage 0's LSE and delta
+  cluster_sync();  // every block's barriers are set: its peers may store
+
+  float adk[CSL / 2], adv[CSL / 2];
+#pragma unroll
+  for (int i = 0; i < CSL / 2; ++i) adk[i] = adv[i] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t rcv_a = base + L::RCV, res_a = base + L::RES;
+  mbar_wait(bar_kv, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % CRING, q0 = q_first + it * BQ;
+    if (tid == 0) {  // this tile's phase of the receive and result bars
+      mbar_expect_tx(bar_rcv, own * (C - 1) * WG * 16);
+      mbar_expect_tx(bar_res, (CUNITS - own) * WG * 8);
+    }
+    mbar_wait(full(s), (it / CRING) & 1);
+    float st[BQ / 2], dpt[BQ / 2];  // S^T_c and dP^T_c: keys x q rows
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.0f;
+    fence_regs<BQ / 2>(st);
+    fence_regs<BQ / 2>(dpt);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BQ>::ss<T>(st, desc_k<BKV>(sK, kk), desc_k<BQ>(sQ(s), kk),
+                       kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BQ>::ss<T>(dpt, desc_k<BKV>(sV, kk), desc_k<BQ>(sDO(s), kk),
+                       kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<BQ / 2>(st);
+    fence_regs<BQ / 2>(dpt);
+
+    // each unit this block does not own, to its owner's slot (unit,
+    // sender, thread)
+#pragma unroll
+    for (int u = 0; u < CUNITS; ++u) {
+      const int o = u % C;
+      if (o != rank)
+        st_async4(peer(rcv_a + (((u / C) * C + rank) * WG + tid) * 16, o),
+                  st[2 * u], st[2 * u + 1], dpt[2 * u], dpt[2 * u + 1],
+                  peer(bar_rcv, o));
+    }
+    const float* sl = stats + s * 2 * BQ;
+    const float* sd = sl + BQ;
+    const bool edge =
+        k0 + BKV > Skv || q0 + BQ > Sq || (causal && k0 + BKV - 1 > q0);
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+    mbar_wait_cluster(bar_rcv, it & 1);
+    // the units this block owns: the C partials in block order, P and dS
+#pragma unroll
+    for (int u = 0; u < CUNITS; ++u) {
+      if (u % C != rank) continue;
+      const float4 mine = make_float4(st[2 * u], st[2 * u + 1], dpt[2 * u],
+                                      dpt[2 * u + 1]);
+      const float4* slot = rcv + (u / C) * C * WG + tid;  // block b's:
+      float4 x = rank == 0 ? mine : slot[0];              // slot[b * WG]
+#pragma unroll
+      for (int b = 1; b < 8; ++b) {
+        if (b >= C) break;
+        const float4 y = b == rank ? mine : slot[b * WG];
+        x = make_float4(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y),
+                        __fadd_rn(x.z, y.z), __fadd_rn(x.w, y.w));
+      }
+      const float sx[2] = {x.x, x.y}, dx[2] = {x.z, x.w};
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * u + e, key = k0 + frag_row(i), c = frag_col(i);
+        const int q = q0 + c;
+        const bool ok =
+            !edge || (key < Skv && q < Sq && (!causal || key <= q));
+        p[e] = ok ? ex2(fmaf(sx[e], scale_log2, -sl[c] * LOG2E)) : 0.0f;
+        ds[e] = __fmul_rn(p[e], __fsub_rn(dx[e], sd[c]));
+      }
+      const uint32_t pw = Elt<T>::pack(p[0], p[1]);
+      const uint32_t dw = Elt<T>::pack(ds[0], ds[1]);
+      pa[u / 4][u % 4] = pw;
+      da[u / 4][u % 4] = dw;
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (b < C && b != rank)
+          st_async2(peer(res_a + (u * WG + tid) * 8, b), pw, dw,
+                    peer(bar_res, b));
+    }
+    mbar_wait_cluster(bar_res, it & 1);
+#pragma unroll
+    for (int u = 0; u < CUNITS; ++u) {
+      if (u % C == rank) continue;
+      const uint2 w = res[u * WG + tid];
+      pa[u / 4][u % 4] = w.x;
+      da[u / 4][u % 4] = w.y;
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      rs_cols<T, CSL, BQ>(adv, pa[kk], sDO(s), kk);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      rs_cols<T, CSL, BQ>(adk, da[kk], sQ(s), kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<CSL / 2>(adv);
+    fence_regs<CSL / 2>(adk);
+
+    cp_async_wait<CRING - 2>();  // the next stage's LSE and delta
+    __syncthreads();             // every read of stage s is done
+    if (it + CRING < n_it) {
+      if (tid == 0) load_q(s, q0 + CRING * BQ);
+      load_stats(s, q0 + CRING * BQ);
+    } else {
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+  cluster_sync();  // the cluster's last stores have landed
+
+#pragma unroll
+  for (int i = 0; i < CSL / 2; i += 2) {
+    const int key = k0 + frag_row(i), c = col0 + frag_col(i);
+    if (key >= Skv) continue;
     const long long o = (static_cast<long long>(bh) * Skv + key) * D + c;
     *reinterpret_cast<float2*>(dk + o) =
         make_float2(__fmul_rn(adk[i], scale), __fmul_rn(adk[i + 1], scale));
@@ -783,6 +1125,73 @@ cudaError_t launch_dkv_cols(const void* q, const void* dout, const void* k,
   return e;
 }
 
+// the cluster form (256 < D <= BWD16_CLUSTER_MAX_D) of B10. The card must
+// hold one cluster of D / CSL blocks at one block an SM (asked once for
+// each device and cluster size), or the launch is refused with
+// cudaErrorLaunchOutOfResources; there is no fallback.
+template <typename T>
+cudaLaunchConfig_t dkv_cluster_config(const Args& a,
+                                      cudaLaunchAttribute (&attr)[1]) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = a.D / CSL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * a.H, (a.Skv + BKV - 1) / BKV, a.D / CSL);
+  cfg.blockDim = dim3(WG);
+  cfg.dynamicSmemBytes = ClSmem::BYTES;
+  cfg.stream = a.st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of the cluster B10 (T) at head dim a.D the card holds at
+// once into *n
+template <typename T>
+cudaError_t dkv_active_clusters(const Args& a, int* n) {
+  auto kern = attn_bwd_dkv_cluster_wgmma_kernel<T>;
+  cudaError_t e = set_smem(kern, ClSmem::BYTES);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = dkv_cluster_config<T>(a, attr);
+  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+}
+
+template <typename T>
+cudaError_t launch_dkv_cluster(const void* q, const void* dout, const void* k,
+                               const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
+  if (e != cudaSuccess) return e;
+  auto kern = attn_bwd_dkv_cluster_wgmma_kernel<T>;
+  e = set_smem(kern, ClSmem::BYTES);
+  if (e != cudaSuccess) return e;
+  constexpr int NDEV = 16;
+  static int fits[NDEV][9];  // by C: 0 unknown, 1 fits, -1 not
+  int dev = 0, unknown = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int& ok = dev < NDEV ? fits[dev][a.D / CSL] : unknown;
+  if (ok == 0) {
+    int n = 0;
+    e = dkv_active_clusters<T>(a, &n);
+    if (e != cudaSuccess) return e;
+    ok = n > 0 ? 1 : -1;
+  }
+  if (ok < 0) return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = dkv_cluster_config<T>(a, attr);
+  e = cudaLaunchKernelEx(&cfg, kern, m.q, m.dout, m.k, m.v, a.lse, a.delta,
+                         static_cast<float*>(a.out0),
+                         static_cast<float*>(a.out1), a.H, a.Hkv, a.Sq,
+                         a.Skv, a.causal, a.D, a.scale);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_BWD_DKV_WGMMA_CLUSTER, Elt<T>::F16 ? 2 : 1, CSL);
+  return e;
+}
+
 template <typename T>
 cudaError_t launch_dq_cols(const void* q, const void* dout, const void* k,
                            const void* v, const Args& a) {
@@ -816,8 +1225,24 @@ int attn_bwd_dkv_wgmma(int dtype, int head_dim, const void* q,
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                dk, dv, B, H, Hkv, Sq, Skv, causal, head_dim, scale, st};
   if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > 256 && head_dim <= BWD16_CLUSTER_MAX_D)
+    SM90_COLS_DISPATCH(launch_dkv_cluster, q, dout, k, v, a)
   if (head_dim > 256) SM90_COLS_DISPATCH(launch_dkv_cols, q, dout, k, v, a)
   SM90_DISPATCH(launch_dkv, q, dout, k, v, a)
+}
+
+// the clusters of the 16-bit B10's cluster form (bf16; the f16 kernel
+// has the same shape) at head_dim that the card holds at once (for
+// reports): 0 where B10 does not take that form, minus the CUDA error
+// code if the query fails
+extern "C" int accl_attn_bwd_dkv16_active_clusters(int head_dim) {
+  if (head_dim <= 256 || head_dim > BWD16_CLUSTER_MAX_D || head_dim % CSL)
+    return 0;
+  const Args a{nullptr, nullptr, nullptr, nullptr, 1, 1, 1, BQ, BKV, 1,
+               head_dim, 1.0f, nullptr};
+  int n = 0;
+  const cudaError_t e = dkv_active_clusters<__nv_bfloat16>(a, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 int attn_bwd_dq_wgmma(int dtype, int head_dim, const void* q,

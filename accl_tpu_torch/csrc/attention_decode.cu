@@ -6,8 +6,8 @@
 // native layout, keys 0 .. kv_len-1 and nothing at or past kv_len read;
 // GQA by index (the group = H / Hkv q heads of one kv head share its K
 // and V); O in q's dtype. accl_attn_decode (attention.cu) sends every
-// S_new == 1 launch at head dims up to 256 here, and f32 ones up to
-// SPLIT_F32_MAX_D (the wide kernel at the end of this file); chunks of
+// S_new == 1 launch at head dims up to DECODE_SPLIT_MAX_D here, every
+// dtype (past 256 the wide kernel at the end of this file); chunks of
 // S_new > 1 keep their routes there.
 //
 // Bound on an H100: a step reads the filled prefix once, 2 * kv_len * D
@@ -55,12 +55,14 @@
 //   O = sum e^(m_s - M) acc_s / max(sum e^(m_s - M) l_s, 1e-30) (online,
 //   eight splits' loads in flight at a time), and sets the counter back to
 //   0 for the next launch (the wrapper keeps the counters, zeroed once,
-//   per device). Chosen over a second kernel: a second launch waits for
-//   the first to drain and reads every partial back, where here only the
-//   last block of each group does, while the others' loads still stream;
-//   and one self-resetting launch is as easy for a CUDA graph to hold.
-//   The counters make concurrent launches on two streams unsafe; the port
-//   launches on one.
+//   per (device, stream)). Chosen over a second kernel: a second launch
+//   waits for the first to drain and reads every partial back, where here
+//   only the last block of each group does, while the others' loads still
+//   stream; and one self-resetting launch is as easy for a CUDA graph to
+//   hold. The rule that keeps it right: two launches that may run at once
+//   never share counters. The wrapper keeps one set for each (device,
+//   stream) (ops/attention.py _split_counters), and launches on one stream
+//   run in order, each finding its counters back at zero.
 //
 // Arithmetic: f32 throughout, explicit fmaf (the library builds with
 // --fmad=false), expf and a true division at the end; nothing is rounded
@@ -497,52 +499,84 @@ cudaError_t launch_split_group(const void* q, const void* kc, const void* vc,
                                 kv_len, n_split, D, scale, st);
 }
 
-// ---- f32 head dims past 256: the wide split ---------------------------------
+// ---- head dims past 256: the wide split ------------------------------------
 //
-// f32 at 256 < D <= SPLIT_F32_MAX_D (2048), where a warp can no longer hold
-// its rows' q and accumulator over the whole head dim (GR x D floats each:
-// 32 KB at GR 8, D 1024). The grid and the partials are the split route's
-// above: (n_split, Hkv * group / GR, B) blocks, each over one key range of
-// its (b, kv head), its GR rows of the group, the whole head dim; the
-// blocks merge as a tree (merge_tree). Inside a block the columns are
-// dealt over the threads, four a thread: a key slot of DP / 4 threads at
-// column tier DP (512, 1024, 2048), thread i of a slot keeping columns 4i
-// .. 4i + 3 of each row's q and accumulator in registers (2 * GR * 4
-// floats), and KS slots (two to DP 1024, one at 2048: each slot a half of
-// every tile's keys, so that twice the warps share the tile's chain). K
-// and V rows stream through a 3-stage ring of KT = 8192 / DP keys a stage
-// (64 KB), each thread copying (16-byte cp.async) and reading only its own
-// columns of its slot's keys, so that each key's K and V row is read once
-// and the ring needs no barrier of its own. For each tile: each thread
-// forms its columns' part of its slot's (key, row) dot products, a warp's
-// 32 parts meet through RowSplit's reduce-scatter of shuffles, and each
-// warp's sums go to shared memory; block barrier; the first GR * KT
-// threads, one a (row, key), add the key's warps' sums in warp order,
-// scale and mask, and run the rows' one online softmax (the KT threads of
-// a row meet through shuffles and all hold its m and l), storing p and
-// the rescale alpha; block barrier; each thread rescales its columns and
-// adds p V for its slot's keys. At the end the slots' accumulators add
-// (slot 0's, then slot 1's) into the split's partial. Arithmetic f32 on
-// the CUDA cores, as above: the step is bound by bytes.
+// Every dtype at 256 < D <= DECODE_SPLIT_MAX_D (2048), where a warp can no
+// longer hold its rows' q and accumulator over the whole head dim (GR x D
+// floats each: 32 KB at GR 8, D 1024). The grid and the partials are the
+// split route's above: (n_split, Hkv * group / GR, B) blocks, each over
+// one key range of its (b, kv head), its GR rows of the group, the whole
+// head dim; the blocks merge as a tree (merge_tree). Inside a block the
+// columns are dealt over the threads, VEC a thread, so that one 16-byte
+// cp.async carries a thread's part of a K row and one its part of a V row
+// (4 columns of f32, 8 of bf16 or f16): a key slot of DP / VEC threads at
+// column tier DP (512, 1024, 2048), thread i of a slot keeping columns
+// VEC*i .. VEC*i + VEC - 1 of each row's q and accumulator in registers as
+// f32 (2 * GR * VEC floats), and KS slots, each a share of every tile's
+// keys, so that more warps share the tile's chain (f32: two to DP 1024,
+// one at 2048; 16-bit: 2048 / DP, eight warps a block at every tier). K
+// and V rows stream through a 3-stage ring of KT keys a stage (64 KB: 8192
+// / DP keys of f32, twice as many of 16 bits), each thread copying and
+// reading only its own columns of its slot's keys, so that each key's K
+// and V row is read once and the ring needs no barrier of its own. For
+// each tile: each thread forms its columns' part of its slot's (key, row)
+// dot products, a warp's 32 parts meet through RowSplit's reduce-scatter
+// of shuffles, and each warp's sums go to shared memory; block barrier;
+// the first GR * KT threads, one a (row, key), add the key's warps' sums
+// in warp order, scale and mask, and run the rows' one online softmax (the
+// KT threads of a row meet through shuffles and all hold its m and l),
+// storing p and the rescale alpha; block barrier; each thread rescales its
+// columns and adds p V for its slot's keys. At the end the slots'
+// accumulators add in slot order into the split's partial. Arithmetic f32
+// on the CUDA cores, as above (q and the cache widened exactly from 16
+// bits, the scores, softmax and partials f32; O rounded once to T at the
+// root of the merge): the step is bound by bytes.
 constexpr int WIDE_STAGES = 3;
 constexpr int MERGE_FAN = 8;  // the merge tree's children a node
-template <int DP>
+template <typename T, int DP>
 struct Wide {
-  static constexpr int CT = DP / 4;      // a slot's threads: 4 columns each
-  static constexpr int KS = DP <= 1024 ? 2 : 1;  // key slots
+  static constexpr int VEC = 16 / sizeof(T);  // a thread's columns
+  static constexpr int CT = DP / VEC;         // a slot's threads
+  static constexpr int KS =                   // key slots
+      sizeof(T) == 4 ? (DP <= 1024 ? 2 : 1) : 2048 / DP;
   static constexpr int NTH = KS * CT;
-  static constexpr int NW = CT / 32;     // a slot's warps: 128 columns each
-  static constexpr int KT = 8192 / DP;   // keys a stage: 64 KB of K and V
-  static constexpr int KH = KT / KS;     // a slot's keys of a tile
-  static constexpr int STAGE = 2 * KT * DP;  // floats: K rows, then V rows
-  static_assert(NW >= 1 && KH >= 1 && 32 % KT == 0, "geometry");
+  static constexpr int NW = CT / 32;          // a slot's warps
+  static constexpr int ROWB = DP * sizeof(T);  // bytes of a K or V row
+  static constexpr int KT = 32768 / ROWB;     // keys a stage: 64 KB of K, V
+  static constexpr int KH = KT / KS;          // a slot's keys of a tile
+  static constexpr int STAGE = 2 * KT * ROWB;  // bytes: K rows, then V rows
+  static_assert(NW >= 1 && KH >= 1 && 32 % KT == 0 && NTH <= 512,
+                "geometry");
 };
-template <int DP, int GR>
+template <typename T, int DP, int GR>
 __host__ __device__ constexpr int wide_smem() {
   // the ring, the warps' sums (KT x GR x NW), p (KT x GR), alpha (GR) and
   // the merge's weights and sums ((MERGE_FAN + 2) x GR)
-  return (WIDE_STAGES * Wide<DP>::STAGE + Wide<DP>::KT * GR * Wide<DP>::NW +
-          Wide<DP>::KT * GR + GR + (MERGE_FAN + 2) * GR) * 4;
+  using W = Wide<T, DP>;
+  return WIDE_STAGES * W::STAGE +
+         (W::KT * GR * W::NW + W::KT * GR + GR + (MERGE_FAN + 2) * GR) * 4;
+}
+
+// four f32 results as T at o (four columns, 16 bytes of f32, 8 of 16 bits)
+__device__ __forceinline__ void store4(float* o, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(o) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* o, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(o) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
+__device__ __forceinline__ void store4(__half* o, float a, float b, float c,
+                                       float d) {
+  const __half2 lo = __floats2half2_rn(a, b);
+  const __half2 hi = __floats2half2_rn(c, d);
+  *reinterpret_cast<uint2*>(o) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // The wide kernel's merge. Its partials are GR x D floats a split (32
@@ -557,12 +591,12 @@ __host__ __device__ constexpr int wide_smem() {
 // acc / max(l, 1e-30). Split u's partial rows: prow0 + u * group + g.
 
 // cnt partials (split slots (first + i) * span) of the GR rows into slot
-// first * span, or into O if top; sw: (MERGE_FAN + 2) * GR floats of
-// shared memory. A thread takes four columns of RW rows at a time, the
-// RW * MERGE_FAN loads of them in flight at once.
-template <int GR, int NTH>
+// first * span, or into O (rounded once to T) if top; sw: (MERGE_FAN + 2)
+// * GR floats of shared memory. A thread takes four columns of RW rows at
+// a time, the RW * MERGE_FAN loads of them in flight at once.
+template <typename T, int GR, int NTH>
 __device__ __forceinline__ void merge_node(
-    float* __restrict__ o, float* __restrict__ part_m,
+    T* __restrict__ o, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc, float* sw,
     long long prow0, int group, int first, int cnt, int span, bool top,
     int H, int h, int g0, int b, int D) {
@@ -614,10 +648,10 @@ __device__ __forceinline__ void merge_node(
       }
       if (top) {
         const float den = fmaxf(sML[GR + g], 1e-30f);
-        *reinterpret_cast<float4*>(
-            o + (static_cast<long long>(b) * H + h * group + g0 + g) * D +
-            d) = make_float4(__fdiv_rn(a[0], den), __fdiv_rn(a[1], den),
-                             __fdiv_rn(a[2], den), __fdiv_rn(a[3], den));
+        store4(o + (static_cast<long long>(b) * H + h * group + g0 + g) * D +
+                   d,
+               __fdiv_rn(a[0], den), __fdiv_rn(a[1], den),
+               __fdiv_rn(a[2], den), __fdiv_rn(a[3], den));
       } else {  // into the first child's slot: this thread read its items
         *reinterpret_cast<float4*>(part_acc + row(0, g) * D + d) =
             make_float4(a[0], a[1], a[2], a[3]);
@@ -633,9 +667,9 @@ __device__ __forceinline__ void merge_node(
 // Split s's block after writing its partial: up the tree while it is the
 // last child of its node to arrive. counters: n_split a (b, kv head, row
 // chunk) at cidx, a node's at its level's base plus its index.
-template <int GR, int NTH>
+template <typename T, int GR, int NTH>
 __device__ __forceinline__ void merge_tree(
-    float* __restrict__ o, float* __restrict__ part_m,
+    T* __restrict__ o, float* __restrict__ part_m,
     float* __restrict__ part_l, float* __restrict__ part_acc,
     unsigned* __restrict__ counters, int& s_last, float* sw, long long prow0,
     int group, int s, int n_split, int H, int h, int g0, int b, int D) {
@@ -661,8 +695,8 @@ __device__ __forceinline__ void merge_tree(
       if (!s_last) return;
     }
     if (cnt > 1 || top)  // (a lone child below the root passes up as it is)
-      merge_node<GR, NTH>(o, part_m, part_l, part_acc, sw, prow0, group,
-                          first, cnt, span, top, H, h, g0, b, D);
+      merge_node<T, GR, NTH>(o, part_m, part_l, part_acc, sw, prow0, group,
+                             first, cnt, span, top, H, h, g0, b, D);
     if (top) return;
     base += parents;
     nodes = parents;
@@ -672,36 +706,37 @@ __device__ __forceinline__ void merge_tree(
 }
 
 // grid (n_split, Hkv * group / GR, B); operands and partials as
-// attn_decode_split_kernel's, f32, rows of D <= DP floats
-template <int DP, int GR>
-__global__ void __launch_bounds__(Wide<DP>::NTH, 1)
-attn_decode_split_wide_kernel(const float* __restrict__ q,
-                              const float* __restrict__ kc,
-                              const float* __restrict__ vc,
-                              float* __restrict__ o,
+// attn_decode_split_kernel's, rows of D <= DP elements of T (a multiple
+// of 8)
+template <typename T, int DP, int GR>
+__global__ void __launch_bounds__(Wide<T, DP>::NTH, 1)
+attn_decode_split_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ kc,
+                              const T* __restrict__ vc, T* __restrict__ o,
                               float* __restrict__ part_m,
                               float* __restrict__ part_l,
                               float* __restrict__ part_acc,
                               unsigned* __restrict__ counters, int H,
                               int Hkv, int Tlen, int kv_len, int D,
                               float scale) {
-  using W = Wide<DP>;
+  using W = Wide<T, DP>;
   using RS = RowSplit<GR, 32>;
-  constexpr int NW = W::NW, KT = W::KT, KH = W::KH;
+  constexpr int NW = W::NW, KT = W::KT, KH = W::KH, VEC = W::VEC;
+  constexpr int ROWB = W::ROWB;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int s_last;
-  float* ring = reinterpret_cast<float*>(smem);  // stage i: K, then V rows
-  float* red = ring + WIDE_STAGES * W::STAGE;    // (key, row, warp)
-  float* sp = red + KT * GR * NW;                // p: (key, row)
-  float* salpha = sp + KT * GR;                  // alpha: row
-  float* smerge = salpha + GR;                   // the merge's weights
+  // stage i: K rows, then V rows, at smem + i * STAGE
+  float* red = reinterpret_cast<float*>(smem + WIDE_STAGES * W::STAGE);
+  float* sp = red + KT * GR * NW;   // p: (key, row); red: (key, row, warp)
+  float* salpha = sp + KT * GR;     // alpha: row
+  float* smerge = salpha + GR;      // the merge's weights
   const int s = blockIdx.x, n_split = gridDim.x;
   const int group = H / Hkv, chunks = group / GR;
   const int h = blockIdx.y / chunks, g0 = (blockIdx.y % chunks) * GR;
   const int b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31;
   const int slot = tid / W::CT, wslot = (tid >> 5) % NW;  // key slot, warp
-  const int c = 4 * (tid % W::CT);               // this thread's columns
+  const int c = VEC * (tid % W::CT);             // this thread's columns
   const int k0 = slot * KH;                      // its keys of a tile
   const int rrow = RS::row0(lane);               // the row a lane sums
 
@@ -710,8 +745,8 @@ attn_decode_split_wide_kernel(const float* __restrict__ q,
   const int ntiles = (hi - lo + KT - 1) / KT;
   const long long kstride = static_cast<long long>(Hkv) * D;
   const long long head = (static_cast<long long>(b) * Tlen * Hkv + h) * D;
-  const float* kb = kc + head;
-  const float* vb = vc + head;
+  const T* kb = kc + head;
+  const T* vb = vc + head;
   const uint32_t sbase = smem_addr(smem);
 
   // stage t % STAGES <- this thread's columns of its slot's keys of tile
@@ -720,14 +755,14 @@ attn_decode_split_wide_kernel(const float* __restrict__ q,
   auto issue = [&](int t) {
     if (t < ntiles) {
       const int key0 = lo + t * KT + k0;
-      const uint32_t dst =
-          sbase + ((t % WIDE_STAGES) * W::STAGE + k0 * DP + c) * 4;
+      const uint32_t dst = sbase + (t % WIDE_STAGES) * W::STAGE +
+                           k0 * ROWB + c * static_cast<int>(sizeof(T));
 #pragma unroll
       for (int r = 0; r < KH; ++r) {
         const bool ok = key0 + r < hi && c < D;
         const long long off = ok ? (key0 + r) * kstride + c : 0;
-        cp_async16(dst + r * DP * 4, kb + off, ok ? 16 : 0);
-        cp_async16(dst + (KT + r) * DP * 4, vb + off, ok ? 16 : 0);
+        cp_async16(dst + r * ROWB, kb + off, ok ? 16 : 0);
+        cp_async16(dst + (KT + r) * ROWB, vb + off, ok ? 16 : 0);
       }
     }
     cp_commit();
@@ -735,17 +770,20 @@ attn_decode_split_wide_kernel(const float* __restrict__ q,
   issue(0);
   issue(1);
 
-  float qf[GR][4], acc[GR][4];  // this thread's 4 columns of each row
+  float qf[GR][VEC], acc[GR][VEC];  // this thread's columns of each row
 #pragma unroll
   for (int g = 0; g < GR; ++g) {
-    const float4 v4 =
-        c < D ? *reinterpret_cast<const float4*>(
-                    q + (static_cast<long long>(b) * H + h * group + g0 + g) *
-                            D + c)
-              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    qf[g][0] = v4.x, qf[g][1] = v4.y, qf[g][2] = v4.z, qf[g][3] = v4.w;
+    if (c < D) {
+      unpack(*reinterpret_cast<const uint4*>(
+                 q + (static_cast<long long>(b) * H + h * group + g0 + g) *
+                         D + c),
+             qf[g], T());
+    } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[g][e] = 0.0f;
+      for (int e = 0; e < VEC; ++e) qf[g][e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.0f;
   }
   // the softmax threads: (row srow, key skey) for tid < GR * KT, in the
   // first warps; the KT threads of a row are neighbours in one warp
@@ -756,19 +794,21 @@ attn_decode_split_wide_kernel(const float* __restrict__ q,
 
   for (int t = 0; t < ntiles; ++t) {
     cp_wait<1>();  // this thread's copies of tile t landed
-    const float* tk = ring + (t % WIDE_STAGES) * W::STAGE;
-    const float* tv = tk + KT * DP;
+    const uint8_t* tk = smem + (t % WIDE_STAGES) * W::STAGE +
+                        c * static_cast<int>(sizeof(T));
+    const uint8_t* tv = tk + KT * ROWB;
     const int key0 = lo + t * KT;
     // each warp's part of its slot's (key, row) dot products
 #pragma unroll
     for (int r = k0; r < k0 + KH; ++r) {
-      const float4 k4 = *reinterpret_cast<const float4*>(tk + r * DP + c);
-      float d[GR];
+      float kf[VEC], d[GR];
+      unpack(*reinterpret_cast<const uint4*>(tk + r * ROWB), kf, T());
 #pragma unroll
-      for (int g = 0; g < GR; ++g)
-        d[g] = fmaf(qf[g][3], k4.w,
-                    fmaf(qf[g][2], k4.z,
-                         fmaf(qf[g][1], k4.y, __fmul_rn(qf[g][0], k4.x))));
+      for (int g = 0; g < GR; ++g) {
+        d[g] = __fmul_rn(qf[g][0], kf[0]);
+#pragma unroll
+        for (int e = 1; e < VEC; ++e) d[g] = fmaf(qf[g][e], kf[e], d[g]);
+      }
       RS::reduce(d, lane);
       if (lane == RS::src(rrow)) red[(r * GR + rrow) * NW + wslot] = d[0];
     }
@@ -809,65 +849,77 @@ attn_decode_split_wide_kernel(const float* __restrict__ q,
     for (int g = 0; g < GR; ++g) {
       const float a = salpha[g];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] = __fmul_rn(acc[g][e], a);
+      for (int e = 0; e < VEC; ++e) acc[g][e] = __fmul_rn(acc[g][e], a);
     }
 #pragma unroll
     for (int r = k0; r < k0 + KH; ++r) {
-      const float4 v4 = *reinterpret_cast<const float4*>(tv + r * DP + c);
+      float vf[VEC];
+      unpack(*reinterpret_cast<const uint4*>(tv + r * ROWB), vf, T());
 #pragma unroll
       for (int g = 0; g < GR; ++g) {
         const float p = sp[r * GR + g];
-        acc[g][0] = fmaf(p, v4.x, acc[g][0]);
-        acc[g][1] = fmaf(p, v4.y, acc[g][1]);
-        acc[g][2] = fmaf(p, v4.z, acc[g][2]);
-        acc[g][3] = fmaf(p, v4.w, acc[g][3]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
   }
   cp_wait<0>();
 
-  // this split's partial: slot 0's columns of acc plus slot 1's (through
-  // the ring, free now), the softmax threads of key 0 each row's m and l
+  // this split's partial: slot 0's columns of acc plus the other slots'
+  // in slot order (through the ring, free now), the softmax threads of key
+  // 0 each row's m and l
   const long long prow0 =
       ((static_cast<long long>(b) * Hkv + h) * n_split) * group + g0;
   const long long prow = prow0 + static_cast<long long>(s) * group;
-  if constexpr (W::KS == 2) {
+  float* xs = reinterpret_cast<float*>(smem);  // slot u's at (u - 1) GR DP
+  if constexpr (W::KS > 1) {
     __syncthreads();  // every read of the ring is done
-    if (slot == 1) {
+    if (slot > 0) {
 #pragma unroll
       for (int g = 0; g < GR; ++g)
-        *reinterpret_cast<float4*>(ring + g * DP + c) =
-            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(xs + ((slot - 1) * GR + g) * DP + c +
+                                     e) =
+              make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                          acc[g][e + 3]);
     }
     __syncthreads();
   }
   if (slot == 0 && c < D) {
 #pragma unroll
     for (int g = 0; g < GR; ++g) {
-      float4 a = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-      if constexpr (W::KS == 2) {
-        const float4 u = *reinterpret_cast<const float4*>(ring + g * DP + c);
-        a = make_float4(__fadd_rn(a.x, u.x), __fadd_rn(a.y, u.y),
-                        __fadd_rn(a.z, u.z), __fadd_rn(a.w, u.w));
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        float4 a = make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                               acc[g][e + 3]);
+#pragma unroll
+        for (int u = 1; u < W::KS; ++u) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              xs + ((u - 1) * GR + g) * DP + c + e);
+          a = make_float4(__fadd_rn(a.x, x.x), __fadd_rn(a.y, x.y),
+                          __fadd_rn(a.z, x.z), __fadd_rn(a.w, x.w));
+        }
+        *reinterpret_cast<float4*>(part_acc + (prow + g) * D + c + e) = a;
       }
-      *reinterpret_cast<float4*>(part_acc + (prow + g) * D + c) = a;
     }
   }
   if (soft && skey == 0) {
     part_m[prow + srow] = m;
     part_l[prow + srow] = l;
   }
-  merge_tree<GR, W::NTH>(o, part_m, part_l, part_acc, counters, s_last,
-                         smerge, prow0, group, s, n_split, H, h, g0, b, D);
+  merge_tree<T, GR, W::NTH>(o, part_m, part_l, part_acc, counters, s_last,
+                            smerge, prow0, group, s, n_split, H, h, g0, b,
+                            D);
 }
 
-template <int DP, int GR>
+template <typename T, int DP, int GR>
 cudaError_t launch_split_wide(const void* q, const void* kc, const void* vc,
                               void* o, void* ws, void* counters, int B, int H,
                               int Hkv, int Tlen, int kv_len, int n_split,
                               int D, float scale, cudaStream_t st) {
-  constexpr int smem = wide_smem<DP, GR>();
-  auto kern = attn_decode_split_wide_kernel<DP, GR>;
+  constexpr int smem = wide_smem<T, DP, GR>();
+  auto kern = attn_decode_split_wide_kernel<T, DP, GR>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -876,54 +928,83 @@ cudaError_t launch_split_wide(const void* q, const void* kc, const void* vc,
   float* part_m = part_acc + rows * D;
   float* part_l = part_m + rows;
   dim3 grid(n_split, Hkv * (H / Hkv / GR), B);
-  kern<<<grid, Wide<DP>::NTH, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<float*>(o), part_m, part_l,
+  kern<<<grid, Wide<T, DP>::NTH, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc),
+      static_cast<const T*>(vc), static_cast<T*>(o), part_m, part_l,
       part_acc, static_cast<unsigned*>(counters), H, Hkv, Tlen, kv_len, D,
       scale);
   e = cudaGetLastError();
-  if (e == cudaSuccess) set_attn_route(ROUTE_DECODE_SPLIT, 0, DP);
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_DECODE_SPLIT,
+                   sizeof(T) == 4 ? 0 : std::is_same<T, __half>::value ? 2 : 1,
+                   DP);
   return e;
 }
 
 // the largest row count of the group that divides it: 8, 4, 2 or 1
-template <int DP>
+template <typename T, int DP>
 cudaError_t launch_wide_group(const void* q, const void* kc, const void* vc,
                               void* o, void* ws, void* counters, int B, int H,
                               int Hkv, int Tlen, int kv_len, int n_split,
                               int D, float scale, cudaStream_t st) {
   const int group = H / Hkv;
   if (group % 8 == 0)
-    return launch_split_wide<DP, 8>(q, kc, vc, o, ws, counters, B, H, Hkv,
-                                    Tlen, kv_len, n_split, D, scale, st);
+    return launch_split_wide<T, DP, 8>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                       Tlen, kv_len, n_split, D, scale, st);
   if (group % 4 == 0)
-    return launch_split_wide<DP, 4>(q, kc, vc, o, ws, counters, B, H, Hkv,
-                                    Tlen, kv_len, n_split, D, scale, st);
+    return launch_split_wide<T, DP, 4>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                       Tlen, kv_len, n_split, D, scale, st);
   if (group % 2 == 0)
-    return launch_split_wide<DP, 2>(q, kc, vc, o, ws, counters, B, H, Hkv,
-                                    Tlen, kv_len, n_split, D, scale, st);
-  return launch_split_wide<DP, 1>(q, kc, vc, o, ws, counters, B, H, Hkv,
-                                  Tlen, kv_len, n_split, D, scale, st);
+    return launch_split_wide<T, DP, 2>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                       Tlen, kv_len, n_split, D, scale, st);
+  return launch_split_wide<T, DP, 1>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                     Tlen, kv_len, n_split, D, scale, st);
+}
+
+// dtype code (0 f32, 1 bf16, 2 f16) -> the wide split at column tier DP
+template <int DP>
+cudaError_t launch_wide(int dtype, const void* q, const void* kc,
+                        const void* vc, void* o, void* ws, void* counters,
+                        int B, int H, int Hkv, int Tlen, int kv_len,
+                        int n_split, int D, float scale, cudaStream_t st) {
+  switch (dtype) {
+    case 0:
+      return launch_wide_group<float, DP>(q, kc, vc, o, ws, counters, B, H,
+                                          Hkv, Tlen, kv_len, n_split, D,
+                                          scale, st);
+    case 1:
+      return launch_wide_group<__nv_bfloat16, DP>(q, kc, vc, o, ws, counters,
+                                                  B, H, Hkv, Tlen, kv_len,
+                                                  n_split, D, scale, st);
+    case 2:
+      return launch_wide_group<__half, DP>(q, kc, vc, o, ws, counters, B, H,
+                                           Hkv, Tlen, kv_len, n_split, D,
+                                           scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Called by accl_attn_decode (attention.cu) for S_new == 1 (f32 up to
-// SPLIT_F32_MAX_D, 16-bit up to 256). ws: the f32 workspace of B * H *
+// Called by accl_attn_decode (attention.cu) for S_new == 1 up to
+// DECODE_SPLIT_MAX_D, every dtype. ws: the f32 workspace of B * H *
 // n_split * (D + 2) floats; counters: B * H unsigned ints (past 256: B * H
-// * n_split, the merge tree's), zero (the kernel leaves them zero).
+// * n_split, the merge tree's), zero (the kernel leaves them zero), used
+// by no launch that may run at the same time as this one (the wrapper
+// keeps a set for each stream).
 int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
                       const void* vc, void* o, void* ws, void* counters,
                       int B, int H, int Hkv, int Tlen, int kv_len,
                       int n_split, float scale, cudaStream_t st) {
   if (n_split < 1 || kv_len < 1 || kv_len > Tlen) return cudaErrorInvalidValue;
-  if (head_dim > 256) {  // f32 only: the wide split
-    if (dtype != 0 || head_dim > SPLIT_F32_MAX_D) return cudaErrorInvalidValue;
-    const auto wide = head_dim <= 512    ? &launch_wide_group<512>
-                      : head_dim <= 1024 ? &launch_wide_group<1024>
-                                         : &launch_wide_group<2048>;
-    return wide(q, kc, vc, o, ws, counters, B, H, Hkv, Tlen, kv_len, n_split,
-                head_dim, scale, st);
+  if (head_dim > 256) {  // the wide split
+    if (head_dim > DECODE_SPLIT_MAX_D) return cudaErrorInvalidValue;
+    const auto wide = head_dim <= 512    ? &launch_wide<512>
+                      : head_dim <= 1024 ? &launch_wide<1024>
+                                         : &launch_wide<2048>;
+    return wide(dtype, q, kc, vc, o, ws, counters, B, H, Hkv, Tlen, kv_len,
+                n_split, head_dim, scale, st);
   }
   POW2_DISPATCH(launch_split_group, q, kc, vc, o, ws, counters, B, H, Hkv,
                 Tlen, kv_len, n_split, head_dim, scale, st)

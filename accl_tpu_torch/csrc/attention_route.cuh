@@ -18,5 +18,7 @@ enum {
   ROUTE_FWD_COLS_TF32 = 16, ROUTE_FWD_SINGLE_COLS_TF32 = 17,
   ROUTE_PREFILL_COLS_TF32 = 18, ROUTE_DECODE_COLS_TF32 = 19,
   ROUTE_BWD_DKV_COLS_WGMMA = 20, ROUTE_BWD_DQ_COLS_WGMMA = 21,
-  ROUTE_BWD_DKV_COLS_TF32 = 22, ROUTE_BWD_DQ_COLS_TF32 = 23
+  ROUTE_BWD_DKV_COLS_TF32 = 22, ROUTE_BWD_DQ_COLS_TF32 = 23,
+  // the 16-bit B10's cluster form (256 < D <= 1024), tier a block's slice
+  ROUTE_BWD_DKV_WGMMA_CLUSTER = 24
 };

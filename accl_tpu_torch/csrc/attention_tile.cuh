@@ -15,10 +15,10 @@ namespace {
 
 constexpr int NT = 256;  // threads per block of the backward (8 warps)
 constexpr float NEG = -FLT_MAX;  // jnp.finfo(jnp.float32).min
-// the last head dim of the f32 single-token decode's split-KV route
-// (attention_decode.cu's wide kernel past 256); ops/attention.py
-// SPLIT_F32_MAX_D
-constexpr int SPLIT_F32_MAX_D = 2048;
+// the last head dim of the single-token decode's split-KV route, every
+// dtype (attention_decode.cu's wide kernel past 256); ops/attention.py
+// DECODE_SPLIT_MAX_D
+constexpr int DECODE_SPLIT_MAX_D = 2048;
 
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {

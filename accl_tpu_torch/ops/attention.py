@@ -40,39 +40,45 @@ PyTorch versions (``*_ref``).
 - ``flash_decode``: B12. Single-token decode (S_new == 1), any dtype,
   runs the split-KV kernel of ``csrc/attention_decode.cu``
   (``attn_decode_split_kernel``: ``decode_splits`` slices of the filled
-  prefix, merged by the last slice to finish; f32 arithmetic; f32 past
-  head dim 256 up to ``SPLIT_F32_MAX_D``, ``attn_decode_split_wide_kernel``,
-  its columns dealt over the threads and its slices merged as a tree of
-  fan-in 8: ``takes_split``). A
-  16-bit chunk of S_new > 1 new tokens (prefill) runs B8's tensor-core
-  kernel over the cache in its own layout (``attn_fwd_wgmma_kernel`` with
-  a 4-D tensor map, bottom-right causal); an f32 chunk runs
-  ``attn_decode_kernel`` of ``csrc/attention.cu``, B8's 3xTF32 tile over
-  the cache in its own layout.
+  prefix, merged by the last slice to finish; f32 arithmetic; past head
+  dim 256 up to ``DECODE_SPLIT_MAX_D``, every dtype,
+  ``attn_decode_split_wide_kernel``, its columns dealt over the threads
+  and its slices merged as a tree of fan-in 8: ``takes_split``). Its
+  ticket counters are kept per (device, stream): two decodes on two
+  streams never share them (``_split_counters``). A 16-bit chunk of
+  S_new > 1 new tokens (prefill) runs B8's tensor-core kernel over the
+  cache in its own layout (``attn_fwd_wgmma_kernel`` with a 4-D tensor
+  map, bottom-right causal); an f32 chunk runs ``attn_decode_kernel`` of
+  ``csrc/attention.cu``, B8's 3xTF32 tile over the cache in its own
+  layout.
 
 The kernels take f32, bf16 or f16 operands with any head dim D: each
 kernel is built on a few column tiers and takes D at run time, a
 multiple of 8 (the tensor maps' 16-byte rows); for another D the wrapper
 zero-pads q, k and v (and dO) to the next multiple of 8 (of 128 on the
-16-bit column-group kernels), keeps the scale at the true D's, and
-slices the outputs: zero columns change no score
-and give zero output columns, and the same kernel runs. Past
+16-bit kernels past 256 but the split decode: ``_pad_d``), keeps the
+scale at the true D's, and slices the outputs: zero columns change no
+score and give zero output columns, and the same kernel runs. Past
 ``COLS_HEAD_DIM`` (256), where a 64 x D f32 accumulator no longer fits a
-warpgroup's registers, every kind runs its column-group form, one launch
-a call: a block keeps one group of the output columns (grid z) and
-forms S (and the backward's dP) over the whole head dim in chunks, each
-group the same chunks in the same order (``attn_fwd_cols_wgmma_kernel``
-and ``attn_bwd_{dkv,dq}_cols_wgmma_kernel`` for 16-bit operands, whose
-single-token decode runs the prefill form). f32 operands past 256 up to
-4096 run the cluster form instead (``attn_fwd_cluster_kernel`` for B8
-and B9, ``attn_decode_cluster_kernel`` for B12 chunks of S_new > 1,
+warpgroup's registers, every kind runs a form of its own, one launch a
+call. 16-bit operands: B8, B9, B11 and the B12 chunks the column-group
+form (``attn_fwd_cols_wgmma_kernel``, ``attn_bwd_dq_cols_wgmma_kernel``:
+a block keeps one group of the output columns (grid z) and forms S, and
+dP, over the whole head dim in chunks, each group the same chunks in the
+same order); B10 up to ``BWD16_CLUSTER_MAX_D`` (1024) the cluster form
+(``attn_bwd_dkv_cluster_wgmma_kernel``: a cluster of D / 128 blocks, each
+keeping one 128-column slice, forms S and dP once a tile and sums them
+through distributed shared memory), past it the column-group form
+(``attn_bwd_dkv_cols_wgmma_kernel``). f32 operands past 256 up to 4096
+run the cluster form (``attn_fwd_cluster_kernel`` for B8 and B9,
+``attn_decode_cluster_kernel`` for B12 chunks of S_new > 1,
 ``attn_bwd_{dkv,dq}_cluster_kernel``: a thread-block cluster splits the
-head dim into 64-column slices and forms S, and dP, once a tile), and
-their single-token decode the wide split-KV kernel up to
-``SPLIT_F32_MAX_D``; past those, ``attn_fwd_cols_kernel``,
-``attn_decode_cols_kernel`` and ``attn_bwd_{dkv,dq}_cols_kernel``. A
-CUDA call with another dtype raises TypeError. The reference's wrappers
-check neither.
+head dim into 64-column slices and forms S, and dP, once a tile); past
+4096 ``attn_fwd_cols_kernel``, ``attn_decode_cols_kernel`` and
+``attn_bwd_{dkv,dq}_cols_kernel``. A single-token decode past
+``DECODE_SPLIT_MAX_D`` runs the chunk's form at S_new = 1. A CUDA call
+with another dtype raises TypeError. The reference's wrappers check
+neither.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
@@ -102,11 +108,12 @@ _NEG_INF = torch.finfo(torch.float32).min
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 COLS_HEAD_DIM = 256      # past it: the column-group kernels
 KERNEL_D_STEP = 8        # the kernels' head dims: multiples of 8 ...
-COLS_CHUNK = 128         # ... and of 128 on the 16-bit column-group ones
+COLS_CHUNK = 128         # ... and of 128 on the 16-bit ones past 256
 _HALF = (torch.bfloat16, torch.float16)
 # the route codes of csrc/attention_route.cuh (ROUTE_*); "_cols": head
 # dims past COLS_HEAD_DIM (the column-group form, or for f32 to 4096 the
-# cluster form, whose tier is a block's columns: 128, 256 or 512)
+# cluster form, whose tier is a block's columns: 128, 256 or 512);
+# "_cluster": the 16-bit B10's cluster form (tier 128, a block's slice)
 ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
           7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
@@ -116,10 +123,12 @@ ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           16: "fwd_tf32_cols", 17: "fwd_single_tf32_cols",
           18: "prefill_tf32_cols", 19: "decode_tf32_cols",
           20: "bwd_dkv_wgmma_cols", 21: "bwd_dq_wgmma_cols",
-          22: "bwd_dkv_tf32_cols", 23: "bwd_dq_tf32_cols"}
+          22: "bwd_dkv_tf32_cols", 23: "bwd_dq_tf32_cols",
+          24: "bwd_dkv_wgmma_cluster"}
 _DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
-SPLIT_F32_MAX_D = 2048   # f32 single-token decode: split-KV up to it
+DECODE_SPLIT_MAX_D = 2048  # single-token decode: split-KV up to it
+BWD16_CLUSTER_MAX_D = 1024  # 16-bit B10: the cluster form up to it
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 
 fwd_launches = 0
@@ -168,7 +177,18 @@ def _check_fwd(q, k, v):
                          f"{k.shape[1]}")
 
 
-def _kernel_ready(what: str, *ts):
+def _d_step(dtype, D: int, split: bool = False) -> int:
+    """The multiple of which the kernels take head dim D: KERNEL_D_STEP,
+    or COLS_CHUNK for the 16-bit kernels past COLS_HEAD_DIM (their chunks
+    and slices are whole TMA tiles of 128 columns) but the split decode
+    (``split``), whose wide kernel takes any multiple of 8 up to its
+    tier."""
+    if D > COLS_HEAD_DIM and dtype in _HALF and not split:
+        return COLS_CHUNK
+    return KERNEL_D_STEP
+
+
+def _kernel_ready(what: str, *ts, split: bool = False):
     t0 = ts[0]
     for t in ts:
         if t.device != t0.device or t.dtype != t0.dtype:
@@ -182,22 +202,22 @@ def _kernel_ready(what: str, *ts):
         raise TypeError(f"{what} kernel: unsupported dtype {t0.dtype} "
                         f"(float32, bfloat16 or float16)")
     D = t0.shape[-1]
-    step = (COLS_CHUNK if D > COLS_HEAD_DIM and t0.dtype in _HALF
-            else KERNEL_D_STEP)
+    step = _d_step(t0.dtype, D, split)
     if D % step or D < step:
         raise ValueError(f"{what} kernel: head dim {D} not a positive "
                          f"multiple of {step} (the wrapper pads to one)")
 
 
-def _pad_d(*ts):
+def _pad_d(*ts, split: bool = False):
     """``ts`` zero-padded in their last dim to the next multiple of
-    KERNEL_D_STEP, or of COLS_CHUNK for the 16-bit column-group kernels
-    (D > COLS_HEAD_DIM: their chunks of S are whole TMA tiles); as they
-    are when already a multiple."""
+    ``_d_step``: KERNEL_D_STEP, or COLS_CHUNK for the 16-bit kernels past
+    COLS_HEAD_DIM (their chunks of S are whole TMA tiles) unless the call
+    takes the split decode (``split``: a single-token decode that
+    ``takes_split``; the wide kernel reads only the columns to the next
+    multiple of 8, where 128 would read up to 45 % more at D 264); as
+    they are when already a multiple."""
     D = ts[0].shape[-1]
-    step = (COLS_CHUNK if D > COLS_HEAD_DIM and ts[0].dtype in _HALF
-            else KERNEL_D_STEP)
-    pad = -D % step
+    pad = -D % _d_step(ts[0].dtype, D, split)
     if not pad:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
@@ -586,7 +606,7 @@ def cache_prefix(k_cache, v_cache, kv_len: int):
 
 
 _SM_COUNTS: dict = {}
-_SPLIT_COUNTERS: dict = {}
+_SPLIT_COUNTERS: dict = {}   # (device index, stream handle) -> counters
 
 
 def _sm_count(device) -> int:
@@ -604,14 +624,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _split_counters(device, n: int):
+def _split_counters(key, device, n: int):
     """At least ``n`` zeroed int32 counters on ``device`` for the split
-    decode kernel, kept per device: the kernel's last block of each (b,
-    kv head) sets its counter back to zero."""
-    t = _SPLIT_COUNTERS.get(device)
+    decode kernel, kept per ``key``: (device index, stream handle), the
+    stream the launch goes to. The kernel's last block of each (b, kv
+    head) takes a ticket and sets its counter back to zero, so two
+    launches in flight at once must not share counters: two streams get
+    two tensors, and one stream's launches run in order on its own. A
+    tensor is replaced (to hold more) only by a call on its own stream,
+    so the old one is freed behind that stream's earlier launches (the
+    caching allocator orders a free by the stream of its allocation).
+    Zeroed once, not a call: a memset would add a launch to every decode
+    step."""
+    t = _SPLIT_COUNTERS.get(key)
     if t is None or t.numel() < n:
-        t = _SPLIT_COUNTERS[device] = torch.zeros(n, dtype=torch.int32,
-                                                  device=device)
+        t = _SPLIT_COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                               device=device)
     return t
 
 
@@ -627,13 +655,13 @@ def decode_splits(B: int, Hkv: int, T: int, sm_count: int) -> int:
 
 
 def takes_split(dtype, head_dim: int) -> bool:
-    """Whether a single-token decode (S_new == 1) of ``dtype`` at the
-    kernel's head dim (a multiple of 8) runs the split-KV kernel: every
-    dtype up to ``COLS_HEAD_DIM``, f32 up to ``SPLIT_F32_MAX_D`` (the wide
-    kernel of ``csrc/attention_decode.cu``); past those it runs the
-    prefill route's column-group kernel."""
-    return head_dim <= COLS_HEAD_DIM or (dtype == torch.float32
-                                         and head_dim <= SPLIT_F32_MAX_D)
+    """Whether a single-token decode (S_new == 1) of ``dtype`` (f32, bf16
+    or f16) at head dim ``head_dim`` runs the split-KV kernel: up to
+    ``DECODE_SPLIT_MAX_D``, every dtype (past ``COLS_HEAD_DIM`` the wide
+    kernel of ``csrc/attention_decode.cu``); past it the chunk's route at
+    S_new = 1 (16-bit: the tensor-core prefill form, f32: the column-group
+    kernel)."""
+    return dtype in _DTYPE_CODES and head_dim <= DECODE_SPLIT_MAX_D
 
 
 def split_workspace_floats(B: int, H: int, n_split: int,
@@ -688,24 +716,25 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
         return flash_decode_ref(q, k_cache, v_cache, kv_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
-    q, k_cache, v_cache = _pad_d(q, k_cache, v_cache)
-    _kernel_ready("flash_decode", q, k_cache, v_cache)
+    split = S_new == 1 and takes_split(q.dtype, D)
+    q, k_cache, v_cache = _pad_d(q, k_cache, v_cache, split=split)
+    _kernel_ready("flash_decode", q, k_cache, v_cache, split=split)
     DK = q.shape[-1]
     o = torch.empty_like(q)
     n_split, ws, counters = 0, None, None
-    split = S_new == 1 and takes_split(q.dtype, DK)
+    stream = _build.stream_of(q)
     if split:         # the split route's counters and partials (acc, m, l)
         n_split = decode_splits(B, Hkv, T, _sm_count(q.device))
         # the wide kernel's merge tree: a counter a node, n_split a row
         counters = _split_counters(
-            q.device, B * H * (n_split if DK > COLS_HEAD_DIM else 1))
+            (q.device.index, stream), q.device,
+            B * H * (n_split if DK > COLS_HEAD_DIM else 1))
         ws = torch.empty(split_workspace_floats(B, H, n_split, DK),
                          dtype=torch.float32, device=q.device)
     _build.check(_build.library().accl_attn_decode(
         _DTYPE_CODES[q.dtype], DK, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), o.data_ptr(), _ptr(ws), _ptr(counters), B, H,
-        Hkv, T, S_new, kv_len, n_split, scale, _build.stream_of(q)),
-        "flash_decode")
+        Hkv, T, S_new, kv_len, n_split, scale, stream), "flash_decode")
     _took_route()
     if S_new == 1:
         decode_launches += 1

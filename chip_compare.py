@@ -7,15 +7,16 @@ B12 prefill).
 
 Run from the root of a checkout:
 
-    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32|fwd_wide] [TREE ...]
+    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32|fwd_wide|wide16] [TREE ...]
 
 ``--part stream`` times the stream kernels only (no model is built);
 ``--part model`` B9, decode and the forward only; ``--part bwd`` B10
 and B11 only; ``--part bwd_wide`` the f32 B10 and B11 past head dim 256;
 ``--part fwd32`` the forward's f32 route beside SDPA's f32 forward, with
 the bf16 routes and decode at the same shapes as controls; ``--part
-fwd_wide`` the f32 forward past head dim 256; the default is all but
-``bwd_wide``, ``fwd32`` and ``fwd_wide``.
+fwd_wide`` the f32 forward past head dim 256; ``--part wide16`` the
+16-bit B10, B11 and single-token decode past head dim 256; the default
+is all but ``bwd_wide``, ``fwd32``, ``fwd_wide`` and ``wide16``.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -91,7 +92,21 @@ card's name and power limit and:
   reported, the largest error against the plain version, a SHA-256 of
   the outputs' bits, the plain version (median of 3) and PyTorch's SDPA
   f32 forward (``allow_tf32`` off; its math backend at these head dims),
-  and the cluster size at that head dim.
+  and the cluster size at that head dim;
+- the wide16 part, at phase 17a's shapes past head dim 256 (Gemma-2B's
+  heads, H=8, Hkv=1, B=4, causal; ``WIDE16_CASES``) and at the D 512
+  Llama's (B=1): bf16 B10 and B11 (S 2048 at D 264 and 512, S 1024 at D
+  1024; the Llama's S 2048) on the operands the plain forward gives,
+  and the bf16 single-token decode (kv_len 2047 of 4096 at D 264 and
+  512, 1023 of 1024 at D 1024 and 2048; the Llama's 2063 of 2064): each
+  the median device time of 5 launches (decode 20) behind the GPU sleep
+  beside its bound (B10 8*D, B11 6*D operations a visible score at 989
+  TFLOP/s; the decode its K and V prefix over 3.35 TB/s), the route it
+  reported, the largest error against the plain version, a SHA-256 of
+  the outputs' bits, the plain version (median of 3), PyTorch's SDPA
+  (the backward's three gradients together, or the decode's forward;
+  its math backend at these head dims and heads) and, where the tree
+  has the 16-bit cluster form, the clusters of it the card holds.
 
 It uses only the entry points every version of the port has
 (``ops.combine.combine``, ``ops.compression.cast``, ``fp8_scale``,
@@ -112,7 +127,9 @@ import time
 
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32", "fwd_wide")
+PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32", "fwd_wide",
+         "wide16")
+BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16
 TF32_OPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
 # the bwd_wide part's (head dim, sequence length): the cluster form's
 # tiers of 2 (D 264 to 1024), 4 (1032, 2048) and 8 (4096) slices a block
@@ -560,6 +577,114 @@ def fwd_wide_part(out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the wide16 part's calls, bf16, H 8, Hkv 1: (name, kind, D, S or S_new,
+# kv length, cache T, B)
+WIDE16_CASES = (
+    ("bwd_d264_s2048", "bwd", 264, 2048, 2048, None, 4),
+    ("bwd_d512_s2048", "bwd", 512, 2048, 2048, None, 4),
+    ("bwd_d1024_s1024", "bwd", 1024, 1024, 1024, None, 4),
+    ("llama_d512_bwd_s2048", "bwd", 512, 2048, 2048, None, 1),
+    ("decode_d264_kv2047", "decode", 264, 1, 2047, 4096, 4),
+    ("decode_d512_kv2047", "decode", 512, 1, 2047, 4096, 4),
+    ("decode_d1024_kv1023", "decode", 1024, 1, 1023, 1024, 4),
+    ("decode_d2048_kv1023", "decode", 2048, 1, 1023, 1024, 4),
+    ("llama_d512_decode_kv2063", "decode", 512, 1, 2063, 2064, 1))
+
+
+def wide16_part(out: dict) -> None:
+    """The bf16 B10, B11 and decode past head dim 256 (module
+    docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    lib = _build.library()
+    clusters = getattr(lib, "accl_attn_bwd_dkv16_active_clusters", None)
+    dt, H, Hkv = torch.bfloat16, 8, 1
+
+    def digest_of(ts) -> str:
+        d = hashlib.sha256()
+        for t in ts:
+            d.update(t.contiguous().view(torch.int16 if t.element_size() == 2
+                                         else torch.int32).cpu().numpy()
+                     .tobytes())
+        return d.hexdigest()[:16]
+
+    def route() -> str:
+        code = lib.accl_attn_last_route()
+        return f"{A.ROUTES.get(code >> 16, code >> 16)}/{code & 0xFFF}"
+
+    for name, kind, D, sq, kv, T, B in WIDE16_CASES:
+        q = torch.randn(B, H, sq, D, device="cuda", generator=g).to(dt)
+        rec = {}
+        if kind == "bwd":
+            do = torch.randn(q.shape, device="cuda", generator=g).to(dt)
+            k, v = (torch.randn(B, Hkv, kv, D, device="cuda", generator=g)
+                    .to(dt) for _ in range(2))
+            # O and the LSE from the plain forward, the same in every tree
+            o, lse = A.flash_attention_ref(q, k, v, True)
+            delta = (do.float() * o.float()).sum(-1).reshape(B * H, sq)
+            args = (q, do, k, v, lse, delta, True, D ** -0.5)
+            visible = sq * (sq + 1) // 2 * B * H
+            for key, fn, ref, ops in (
+                    ("b10", A.flash_attention_bwd_dkv,
+                     A.flash_attention_bwd_dkv_ref, 8),
+                    ("b11", lambda *a: (A.flash_attention_bwd_dq(*a),),
+                     lambda *a: (A.flash_attention_bwd_dq_ref(*a),), 6)):
+                got = fn(*args)
+                r = route()
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, ref(*args)))
+                sha = digest_of(got)
+                del got
+                ms = time_ms(lambda: fn(*args), reps=5)  # noqa: B023
+                bound = ops * D * visible / BF16_OPS_PER_S * 1e3
+                rec[key] = {"ms": ms, "bound_ms": bound,
+                            "pct_of_bound": 100 * bound / ms, "route": r,
+                            "max_abs_err": err, "sha256": sha,
+                            "plain_ms": time_ms(lambda: ref(*args),  # noqa: B023
+                                                reps=3)}
+                torch.cuda.empty_cache()
+            rec["pair_ms"] = rec["b10"]["ms"] + rec["b11"]["ms"]
+            lq, lk, lv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True,
+                                                enable_gqa=True)
+            rec["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                lo, (lq, lk, lv), do, retain_graph=True), reps=5)  # noqa: B023
+            rec["pair_vs_sdpa"] = rec["pair_ms"] / rec["sdpa_bwd_ms"]
+            if clusters is not None:
+                n = clusters(-(-D // 128) * 128)
+                if n > 0:
+                    rec["active_clusters"] = n
+                    rec["cluster_size"] = -(-D // 128)
+            del do, k, v, o, lse, delta, args, lq, lk, lv, lo
+        else:
+            kc, vc = (torch.randn(B, T, Hkv, D, device="cuda", generator=g)
+                      .to(dt) for _ in range(2))
+            got = A.flash_decode(q, kc, vc, kv)
+            r = route()
+            err = float((got.float() - A.flash_decode_ref(q, kc, vc, kv)
+                         .float()).abs().max())
+            sha = digest_of((got,))
+            ms = time_ms(lambda: A.flash_decode(q, kc, vc, kv))  # noqa: B023
+            bound = 2 * B * Hkv * kv * D * 2 / HBM_BYTES_PER_S * 1e3
+            kt, vt = A.cache_prefix(kc, vc, kv)
+            rec = {"ms": ms, "bound_ms": bound,
+                   "pct_of_bound": 100 * bound / ms, "route": r,
+                   "max_abs_err": err, "sha256": sha,
+                   "plain_ms": time_ms(lambda: A.flash_decode_ref(  # noqa: B023
+                       q, kc, vc, kv), reps=3),  # noqa: B023
+                   "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(  # noqa: B023
+                       q, kt, vt, enable_gqa=True))}  # noqa: B023
+            rec["vs_sdpa"] = ms / rec["sdpa_ms"]
+            del kc, vc, got, kt, vt
+        out[name] = rec
+        del q
+        torch.cuda.empty_cache()
+
+
 def one(tree: str, part: str) -> dict:
     """The measurements of one tree's port (in this process)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -579,6 +704,8 @@ def one(tree: str, part: str) -> dict:
         fwd32_part(out)
     if part == "fwd_wide":
         fwd_wide_part(out)
+    if part == "wide16":
+        wide16_part(out)
     return out
 
 

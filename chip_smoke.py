@@ -2330,8 +2330,9 @@ def fwd_route_mag(kind: str, args, kwargs=None):
     route), the allowance its limit adds for P's rounding (FWD_TOL): u *
     m, u P's unit (2^-8 bf16, 2^-11 f16), m ``fwd_rounding_magnitudes``,
     and for f16 2^-25 * s (``fwd_subnormal_magnitudes``); None for every
-    other call (a single-token decode on the split-KV kernel keeps f32;
-    past D = 256 it runs the tensor-core prefill form and rounds P too).
+    other call (a single-token decode on the split-KV kernel keeps f32,
+    to ``SPLIT_MAX_D``; past it it runs the tensor-core prefill form and
+    rounds P too).
     ``kind`` "fwd": args as ``flash_attention_fwd``'s; "decode": as
     ``flash_decode``'s."""
     from accl_tpu_torch.ops import attention as A
@@ -2346,7 +2347,7 @@ def fwd_route_mag(kind: str, args, kwargs=None):
         off = 0
     else:
         kv_len = args[3] if len(args) > 3 else kwargs["kv_len"]
-        if q.shape[2] == 1 and q.shape[-1] <= A.COLS_HEAD_DIM:
+        if q.shape[2] == 1 and A.takes_split(q.dtype, q.shape[-1]):
             return None                        # decode: split-KV, f32
         k, v = A.cache_prefix(args[1], args[2], kv_len)
         causal, scale = True, kwargs.get("sm_scale")
@@ -3447,18 +3448,19 @@ def wgmma_kernels_checked():
           f"column tiers 16-256 x rows 1/2/4); ptxas registers "
           f"{sorted(v[0] for v in info.values())}, no spills")
     wide = {}
+    types = {"f": "f32", **WGMMA_TYPES}
     for k, v in ptx.items():
-        m = re.search(WIDE_SPLIT_KERNEL + r"ILi(\d+)ELi(\d+)E", k)
-        if m:
-            wide[(int(m.group(1)), int(m.group(2)))] = v
-    need(set(wide) == {(dp, gr) for dp in (512, 1024, 2048)
-                       for gr in (1, 2, 4, 8)},
+        m = re.search(WIDE_SPLIT_KERNEL + r"I(\w+?)Li(\d+)ELi(\d+)E", k)
+        if m and m.group(1) in types:
+            wide[(types[m.group(1)], int(m.group(2)), int(m.group(3)))] = v
+    need(set(wide) == {(t, dp, gr) for t in types.values()
+                       for dp in (512, 1024, 2048) for gr in (1, 2, 4, 8)},
          f"{WIDE_SPLIT_KERNEL}: ptxas reports {sorted(wide)}")
     need(all(v[1] == 0 for v in wide.values()),
          f"{WIDE_SPLIT_KERNEL}: ptxas spills {wide}")
-    print(f"{WIDE_SPLIT_KERNEL}: {len(wide)} instantiations (f32, column "
-          f"tiers 512/1024/2048 x rows 1/2/4/8); ptxas registers "
-          f"{ {f'{dp}/{gr}': v[0] for (dp, gr), v in sorted(wide.items())} }"
+    print(f"{WIDE_SPLIT_KERNEL}: {len(wide)} instantiations (f32, bf16, "
+          f"f16 x column tiers 512/1024/2048 x rows 1/2/4/8); ptxas "
+          f"registers { {f'{t}/{dp}/{gr}': v[0] for (t, dp, gr), v in sorted(wide.items())} }"
           f", no spills")
     for ln in _build.build_log.splitlines():
         if "wgmma" in ln.lower() and ("warning" in ln.lower()
@@ -3466,7 +3468,7 @@ def wgmma_kernels_checked():
             print(f"  ptxas: {ln.strip()}")
             # ptxas waits out each wgmma before the next (C7515)
             need("serialized" not in ln or not any(
-                k in ln for k in WGMMA_KERNELS),
+                k in ln for k in WGMMA_KERNELS + (CLUSTER_WGMMA_KERNEL,)),
                 "a tensor-core kernel's wgmma were serialized by ptxas")
 
 
@@ -3506,7 +3508,9 @@ def tf32_kernels_checked():
 # the column-group forms (head dims past 256): the 16-bit kernels, one
 # instantiation per element type, and the f32 ones (the f32 backward's
 # cluster form to D 4096, its column-group form past it)
-COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel",
+# the 16-bit B10's cluster form (head dims 256 < D <= 1024)
+CLUSTER_WGMMA_KERNEL = "attn_bwd_dkv_cluster_wgmma_kernel"
+COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel", CLUSTER_WGMMA_KERNEL,
                       "attn_bwd_dkv_cols_wgmma_kernel",
                       "attn_bwd_dq_cols_wgmma_kernel")
 COLS_TF32_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
@@ -8118,9 +8122,13 @@ WIDE_MAX_D, WIDE_S = 1024, 1024
 F32_CLUSTER_MAX_D = 4096
 WIDE_BWD_F32_DIMS = (776, 1032, 2056, 4096, 4104)
 F32_BWD_ROW_DIMS = (776, 1032, 2048, 4096)
-# the f32 single-token decode's wide split kernel (attention_decode.cu):
-# its last head dim (SPLIT_F32_MAX_D); past it the column-group kernel
-F32_SPLIT_MAX_D = 2048
+PAST_CLUSTER_D = 4104      # the f32 column-group kernels' timed rows
+# the single-token decode's wide split kernel (attention_decode.cu), every
+# dtype: its last head dim (DECODE_SPLIT_MAX_D); past it the chunk's form
+SPLIT_MAX_D = 2048
+# the 16-bit B10's cluster form (attention_bwd_sm90.cu): its last head dim
+# (BWD16_CLUSTER_MAX_D); past it the column-group kernel
+BWD16_CLUSTER_MAX_D = 1024
 
 
 def f32_cluster_ns(d: int) -> int:
@@ -8151,14 +8159,18 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     every kind takes its column-group form ("_cols"), whose tier is the
     group's width (f32: 64, but a cluster block's columns, 64 times its
     slices (128, 256 or 512), for every kind but the decode to D 4096;
-    16-bit: 128 for B10's dK and dV, else 256), except the f32 decode,
-    which takes the wide split kernel to ``F32_SPLIT_MAX_D`` (its tier
-    512, 1024 or 2048)."""
+    16-bit: 128 for B10's dK and dV, else 256), except the decode, which
+    takes the wide split kernel to ``SPLIT_MAX_D`` on every dtype (its
+    tier 512, 1024 or 2048), and the 16-bit B10 to
+    ``BWD16_CLUSTER_MAX_D``, which takes its cluster form
+    ("bwd_dkv_wgmma_cluster", tier 128: a block's slice)."""
     d = -(-D // 8) * 8
     f32 = dtype == "float32"
-    if f32 and kind == "decode" and 256 < d <= F32_SPLIT_MAX_D:
+    if kind == "decode" and 256 < d <= SPLIT_MAX_D:
         return "decode_split", dtype, next(t for t in (512, 1024, 2048)
                                            if d <= t)
+    if not f32 and kind == "bwd_dkv" and 256 < d <= BWD16_CLUSTER_MAX_D:
+        return "bwd_dkv_wgmma_cluster", dtype, 128
     if d > 256:                  # the column-group forms, by group width
         tier = ((64 * f32_cluster_ns(d)
                  if kind != "decode" and d <= F32_CLUSTER_MAX_D else 64)
@@ -8244,16 +8256,16 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         err, ratio = hold_attn(o, ref, f"{kind} {dname} D={D}",
                                mag=fwd_route_mag("decode", (q, kc, vc, skv)))
         kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
-        if dname == "float32" and D > 256:   # the cluster form, wide split
-            need_repeat(kern, o, f"{kind} f32 D={D}")
+        if D > 256 and (dname == "float32" or kind == "decode" and
+                        D <= SPLIT_MAX_D):   # the cluster form, wide split
+            need_repeat(kern, o, f"{kind} {dname} D={D}")
             out["repeat"] = "bitwise"
         plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
         kt, vt = (t[:, :skv].transpose(1, 2) for t in (kc, vc))
         lib = lambda: F.scaled_dot_product_attention(  # noqa
             q, kt, vt, is_causal=sq > 1, enable_gqa=True)
         nbytes, nops = attn_work(B, H, Hkv, sq, skv, D, es, s_new=sq)
-        if kind == "decode" and (D <= 256 or (
-                not half and D <= F32_SPLIT_MAX_D)):
+        if kind == "decode" and D <= SPLIT_MAX_D:
             mult, rate = 1, F32_OPS_PER_S   # CUDA cores, f32 arithmetic
         out["n_split"] = A.last_decode_splits
         del o, ref
@@ -8270,10 +8282,10 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         err, ratio = max_pair(
             hold_bwd_outputs(args, (dk, dv), f"bwd_dkv {dname} D={D}"),
             hold_bwd_outputs(args, (dq,), f"bwd_dq {dname} D={D}"))
-        if dname == "float32" and D > 256:   # the cluster form's repeat
+        if D > 256:   # the cluster forms' (and column groups') repeat
             need_repeat(lambda: (*A.flash_attention_bwd_dkv(*args),  # noqa: B023
                                  A.flash_attention_bwd_dq(*args)),  # noqa: B023
-                        (dk, dv, dq), f"bwd f32 D={D}")
+                        (dk, dv, dq), f"bwd {dname} D={D}")
             out["repeat"] = "bitwise"
         del dk, dv, dq
         torch.cuda.empty_cache()
@@ -8417,6 +8429,9 @@ def wide_edges(g):
                     need_one_route(before, "bwd_dq", dname, D, what)
                     hold_bwd_outputs(args, dkv, what + " bwd")
                     hold_bwd_outputs(args, (dq,), what + " bwd")
+                    if dt != torch.float32:   # the 16-bit cluster B10
+                        need_repeat(lambda: A.flash_attention_bwd_dkv(  # noqa: B023
+                            *args), dkv, what + " bwd")  # noqa: B023
                 n += 1
             for kv_len in (1, 65, 300):
                 kc, vc = rnd(1, 320, 1, D), rnd(1, 320, 1, D)
@@ -8434,7 +8449,11 @@ def wide_edges(g):
                     hold_attn(o, A.flash_decode_ref(q, kc, vc, kv_len), what,
                               mag=fwd_route_mag("decode", (q, kc, vc,
                                                            kv_len)))
+                    if s_new == 1:            # the wide split decode
+                        need_repeat(lambda: A.flash_decode(  # noqa: B023
+                            q, kc, vc, kv_len), o, what)  # noqa: B023
                     n += 1
+    w = wide16_edges(g)
     m = f = 0
     for D in WIDE_BWD_F32_DIMS:
         for B, H, Hkv, Sq, Skv, causal, bk in (
@@ -8476,7 +8495,7 @@ def wide_edges(g):
                         (*dkv, dq), what)
             m += 1
         # B12 over a ragged cache: the f32 decode (the wide split to
-        # F32_SPLIT_MAX_D) and chunks (the cluster form to 4096)
+        # SPLIT_MAX_D) and chunks (the cluster form to 4096)
         for kv_len in (1, 65, 300):
             kc, vc = (torch.randn(1, 320, 2, D, device="cuda", generator=g)
                       for _ in range(2))
@@ -8497,10 +8516,147 @@ def wide_edges(g):
                     q, kc, vc, kv_len), o, what)  # noqa: B023
                 f += 1
     print(f"wide edges: the column-group forms over {n} ragged, uneven "
-          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16; the "
+          f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16 (16-bit "
+          f"B10 on the cluster form, the decode on the wide split, each "
+          f"bitwise on a repeat); 16-bit B10 at D {WIDE16_BWD_DIMS} and "
+          f"decode at D {WIDE16_DECODE_DIMS} over {w} more; the "
           f"f32 forward (the cluster form, the wide split decode) over {f} "
           f"and the f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on "
           f"its route, within its limit and (f32) bitwise on a repeat")
+
+
+# 16-bit head dims of wide_edges past 512: B10 on the cluster form's other
+# sizes (5, 6, 7 blocks) and past it (D 1032, the column-group kernel);
+# the decode on the wide split's last two tiers and past it (D 2056, the
+# prefill form at S_new = 1)
+WIDE16_BWD_DIMS = (640, 768, 896, 1032)
+WIDE16_DECODE_DIMS = (1024, 2048, 2056)
+
+
+def wide16_edges(g) -> int:
+    """bf16 and f16 B10 at ``WIDE16_BWD_DIMS`` on the ragged causal and
+    the uneven unmasked shape of ``wide_edges`` (O and the LSE from B8),
+    and the single-token decode at ``WIDE16_DECODE_DIMS`` over a 320-row
+    cache with NaN past kv_len 1, 65 and 300 (16/2 and 2/2 heads: eight
+    rows and one of a kv head a block), each on its route, held against
+    its plain version and bitwise on a repeat. Returns the case count."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    n = 0
+    for dname in HALF_DTYPES[1:]:
+        dt = getattr(torch, dname)
+
+        def rnd(*shape, dt=dt):
+            return torch.randn(*shape, device="cuda", generator=g).to(dt)
+
+        for D in WIDE16_BWD_DIMS:
+            for B, H, Hkv, Sq, Skv, causal in ((1, 2, 1, 300, 300, True),
+                                               (1, 4, 2, 200, 300, False)):
+                q, do = rnd(B, H, Sq, D), rnd(B, H, Sq, D)
+                k, v = rnd(B, Hkv, Skv, D), rnd(B, Hkv, Skv, D)
+                o, lse = A.flash_attention_fwd(q, k, v, causal)
+                delta = (do.float() * o.float()).sum(-1).reshape(B * H, Sq)
+                args = (q, do, k, v, lse, delta, causal, D ** -0.5)
+                what = (f"wide16 bwd_dkv {dname} D={D} "
+                        f"{(B, H, Hkv, Sq, Skv, causal)}")
+                before = dict(A.route_launches)
+                dkv = A.flash_attention_bwd_dkv(*args)
+                need_one_route(before, "bwd_dkv", dname, D, what)
+                hold_bwd_outputs(args, dkv, what)
+                need_repeat(lambda: A.flash_attention_bwd_dkv(*args),  # noqa: B023
+                            dkv, what)
+                n += 1
+        for D in WIDE16_DECODE_DIMS:
+            for kv_len in (1, 65, 300):
+                kc, vc = rnd(1, 320, 2, D), rnd(1, 320, 2, D)
+                kc[:, kv_len:] = float("nan")
+                vc[:, kv_len:] = float("nan")
+                for H in (16, 2):
+                    q = rnd(1, H, 1, D)
+                    what = f"wide16 decode {dname} D={D} H={H} kv_len {kv_len}"
+                    before = dict(A.route_launches)
+                    o = A.flash_decode(q, kc, vc, kv_len)
+                    need_one_route(before, "decode", dname, D, what)
+                    hold_attn(o, A.flash_decode_ref(q, kc, vc, kv_len), what,
+                              mag=fwd_route_mag("decode", (q, kc, vc,
+                                                           kv_len)))
+                    need_repeat(lambda: A.flash_decode(  # noqa: B023
+                        q, kc, vc, kv_len), o, what)  # noqa: B023
+                    n += 1
+    return n
+
+
+# 17f: the split decode's ticket counters on two streams (ROADMAP C1-1).
+# The cases (name, B, H, Hkv, T, kv_len, D, dtype): the narrow split
+# kernel at Llama-3-8B's decode (bf16, D 128) and the wide kernel's merge
+# tree at Gemma-2B's heads (bf16 and f32, D 512); each stream launches
+# them in its own order, round after round, the two queues behind one
+# GPU sleep so that the device runs them side by side
+STREAM_CASES = (("bf16 D128", 4, 32, 8, 4096, 2047, 128, "bfloat16"),
+                ("bf16 D512", 4, 8, 1, 4096, 2047, 512, "bfloat16"),
+                ("f32 D512", 4, 8, 1, 4096, 2047, 512, "float32"))
+STREAM_ORDERS = (("bf16 D128", "f32 D512", "bf16 D512"),
+                 ("bf16 D128", "bf16 D512", "f32 D512"))
+STREAM_ROUNDS = 100
+
+
+def two_stream_decode(rounds: int = STREAM_ROUNDS) -> tuple[dict, dict]:
+    """Each case of ``STREAM_CASES`` decoded alone (held against its plain
+    version), then ``rounds`` rounds of all three on each of two CUDA
+    streams at once (``STREAM_ORDERS``), every output kept. Returns
+    ({case: launches whose output is not bitwise the one alone}, the
+    routes the launches reported)."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(SEED + 190)
+    ins, alone = {}, {}
+    for name, B, H, Hkv, T, kv, D, dname in STREAM_CASES:
+        dt = getattr(torch, dname)
+        q = torch.randn(B, H, 1, D, device="cuda", generator=g).to(dt)
+        kc, vc = (torch.randn(B, T, Hkv, D, device="cuda", generator=g)
+                  .to(dt) for _ in range(2))
+        ins[name] = (q, kc, vc, kv)
+        alone[name] = A.flash_decode(q, kc, vc, kv)
+        hold_attn(alone[name], A.flash_decode_ref(q, kc, vc, kv),
+                  f"two streams: {name} alone",
+                  mag=fwd_route_mag("decode", (q, kc, vc, kv)))
+    streams = [torch.cuda.Stream() for _ in STREAM_ORDERS]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(CALL_HEAD_START_CYCLES)
+    before = dict(A.route_launches)
+    outs = []
+    for _ in range(rounds):
+        for i in range(len(STREAM_CASES)):
+            for st, order in zip(streams, STREAM_ORDERS):
+                with torch.cuda.stream(st):
+                    outs.append((order[i], A.flash_decode(*ins[order[i]])))
+    torch.cuda.synchronize()
+    bad = {name: sum(not torch.equal(o, alone[name]) for n, o in outs
+                     if n == name) for name in alone}
+    return bad, routes_since(before)
+
+
+def two_stream_phase():
+    """17f: ``two_stream_decode``; fails on any launch that differs from
+    the same call alone, or off the split-KV route (the narrow kernel at
+    D 128, the wide one at D 512)."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    bad, routes = two_stream_decode()
+    want = {("decode_split", dname, 128 if D == 128 else 512):
+            2 * STREAM_ROUNDS for _n, _b, _h, _k, _t, _kv, D, dname
+            in STREAM_CASES}
+    need(routes == want, f"two streams: routes {routes}, want {want}")
+    keys = [k for k in A._SPLIT_COUNTERS if k[0] == torch.cuda.current_device()]
+    print(f"two streams: {STREAM_ROUNDS} rounds of {len(STREAM_CASES)} "
+          f"single-token decodes on each of {len(STREAM_ORDERS)} streams "
+          f"at once ({', '.join(n for n, *_ in STREAM_CASES)}), routes "
+          f"{routes}; launches not bitwise the call alone: {bad}; counter "
+          f"sets on the card: {len(keys)} (one a stream)")
+    need(not any(bad.values()), f"two streams: outputs differ from the "
+         f"same calls alone: {bad}")
 
 
 def head_dim_phase() -> list:
@@ -8510,8 +8666,12 @@ def head_dim_phase() -> list:
     D = 264 and 512 (every kind and dtype) and D = 1024 at S = 1024 (B8,
     B10/B11 and decode in bf16 and f32), f32 B8 and B10/B11 at D = 776,
     1032, 2048 and 4096, S = 1024 (``F32_BWD_ROW_DIMS``: each tier of the
-    cluster form), the f32 decode at D = 2048 (``F32_SPLIT_MAX_D``, the
-    wide split's last); at D = 8 (the dry run's ring
+    cluster form), the f32 and bf16 decode at D = 2048 (``SPLIT_MAX_D``,
+    the wide split's last); the f32 kernels past the cluster form at D =
+    4104, B = 1, S = 1024 (``attn_fwd_cols_kernel``,
+    ``attn_bwd_{dkv,dq}_cols_kernel``, ``attn_decode_cols_kernel``, two
+    timed launches where one takes over 100 ms); at D = 8 (the dry run's
+    ring
     shapes); then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
     8's). Returns the f16 records."""
@@ -8571,11 +8731,24 @@ def head_dim_phase() -> list:
                             WIDE_S, r, model="Gemma-2B heads"))
             gc.collect()
             torch.cuda.empty_cache()
-    # the f32 decode at the wide split's last head dim
-    r = kernel_case("decode", torch.float32, HD_B, 8, 1, F32_SPLIT_MAX_D, 1,
-                    WIDE_S - 1, g, WIDE_S, reps=3)
-    print(case_line("decode", torch.float32, HD_B, 8, 1, F32_SPLIT_MAX_D, 1,
-                    WIDE_S - 1, r, WIDE_S, "Gemma-2B heads"))
+    # the f32 and bf16 decode at the wide split's last head dim
+    for dt in (torch.float32, torch.bfloat16):
+        r = kernel_case("decode", dt, HD_B, 8, 1, SPLIT_MAX_D, 1,
+                        WIDE_S - 1, g, WIDE_S, reps=3)
+        print(case_line("decode", dt, HD_B, 8, 1, SPLIT_MAX_D, 1,
+                        WIDE_S - 1, r, WIDE_S, "Gemma-2B heads"))
+    # the f32 kernels past the cluster form (no public model's width): B8
+    # and the B10/B11 pair take 80-300 ms a launch here, so two timed
+    # launches after the warm-up (the decode twenty)
+    for kind, sq, skv, T, reps in (("fwd", WIDE_S, WIDE_S, None, 2),
+                                   ("bwd", WIDE_S, WIDE_S, None, 2),
+                                   ("decode", 1, WIDE_S - 1, WIDE_S, 20)):
+        r = kernel_case(kind, torch.float32, 1, 8, 1, PAST_CLUSTER_D, sq,
+                        skv, g, T, reps=reps)
+        print(case_line(kind, torch.float32, 1, 8, 1, PAST_CLUSTER_D, sq,
+                        skv, r, T, "Gemma-2B heads, past the cluster form"))
+        gc.collect()
+        torch.cuda.empty_cache()
     for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
         dt = getattr(torch, dname)
         for kind, sq, skv, T in (("fwd", DRY_S, DRY_S, None),
@@ -8850,6 +9023,8 @@ def head_dim_256_model_phase():
 D512_SEED, D512_F32_SEED = SEED + 185, SEED + 186
 D512_S, D512_F32_S, D512_NEW, D512_STEPS, D512_F32_STEPS = (2048, 1024, 16,
                                                             3, 2)
+# the 16-bit rows' names past the column-group form, by route
+D512_SUFFIX = {"decode_split": "_split", "bwd_dkv_wgmma_cluster": "_cluster"}
 D512_RECORDS = {
     "attn_fwd": ("fwd", "accl_tpu/ops/attention.py:285"),
     "attn_fwd_single": ("fwd_single", "accl_tpu/ops/attention.py:252"),
@@ -8884,17 +9059,19 @@ def d512_records(dt, S: int, T: int, path: str, routes: dict) -> list:
     res = {kind: kernel_case(kind, dt, 1, 8, 1, 512, sq, skv, g, t, reps=3)
            for kind, (sq, skv, t) in cases.items()}
     recs = []
-    suffix = "_cols_tf32" if dt == torch.float32 else "_cols"
     for name, (kind, replaces) in D512_RECORDS.items():
         r = res["bwd"] if kind.startswith("bwd") else res[kind]
         part = r[kind.removeprefix("bwd_")] if kind.startswith("bwd") else r
         route = tier_of(kind, dname, 512)
+        # the 16-bit rows on the cluster B10 and the wide split decode
+        suffix = ("_cols_tf32" if dt == torch.float32 else
+                  D512_SUFFIX.get(route[0], "_cols"))
         n = routes.get(route, 0)
         need(n > 0, f"{path}: no launch on {route}")
         src = (ATTN_BWD_SM90_SRC if dt != torch.float32 else ATTN_BWD_SRC) \
-            if kind.startswith("bwd") else \
-            (ATTN_SM90_SRC if dt != torch.float32 else ATTN_DECODE_SRC
-             if kind == "decode" else ATTN_SRC)
+            if kind.startswith("bwd") else ATTN_DECODE_SRC \
+            if kind == "decode" else \
+            (ATTN_SM90_SRC if dt != torch.float32 else ATTN_SRC)
         recs.append({"name": name + suffix, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "launches_by_path": {path: n},
@@ -9127,6 +9304,8 @@ def main() -> int:
     attn_recs += head_dim_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    phase("phase 17f: split decodes on two streams")
+    two_stream_phase()
     phase("phase 17b: f16 Llama-3-8B serving")
     by_path["serving_f16"] = f16_serving_phase()
     phase("phase 17c: f16 training")

@@ -12,7 +12,7 @@ block then runs the same online softmax on the same S and adds P V on its
 own columns, each tile's keys in a fresh 3xTF32 sum (O = O * alpha + PV).
 The emulation below follows that order with the slices and products of
 ``test_torch_attention_cols_tf32.py``. A single-token f32 decode up to
-``SPLIT_F32_MAX_D`` runs ``attn_decode_split_wide_kernel``: the slices of
+``DECODE_SPLIT_MAX_D`` runs ``attn_decode_split_wide_kernel``: the slices of
 ``decode_split_ranges``, each an online softmax over key tiles of 8192 /
 DP keys in f32 (DP the column tier: 512, 1024, 2048), merged as a tree of
 fan-in 8 (the last child of a node to finish merges its children in
@@ -250,15 +250,16 @@ def merge_node(parts):
             sum(wi * acc for wi, (_, _, acc) in zip(w, parts)))
 
 
-def wide_split(q, kc, vc, kv_len: int, n_split: int):
+def wide_split(q, kc, vc, kv_len: int, n_split: int, kt: int | None = None):
     """The wide kernel's arithmetic on the CPU: each slice of
     ``decode_split_ranges(kv_len, n_split)`` runs its rows' online softmax
-    in f32 over key tiles of 8192 / DP keys (an empty slice: m =
-    finfo.min, l = 0, acc = 0); then the merge tree, MERGE_FAN children a
-    node (``merge_node``) up to the root, O = acc / max(l, 1e-30)."""
+    in f32 over key tiles of ``kt`` keys (8192 / DP for f32; an empty
+    slice: m = finfo.min, l = 0, acc = 0); then the merge tree, MERGE_FAN
+    children a node (``merge_node``) up to the root, O = acc / max(l,
+    1e-30) in f32."""
     B, H, _, D = q.shape
     Hkv = kc.shape[2]
-    kt = 8192 // wide_tier(D)
+    kt = kt or 8192 // wide_tier(D)
     k, v = A.cache_prefix(kc, vc, kv_len)
     qf = q.reshape(B, Hkv, H // Hkv, D).float()
     parts = []
@@ -340,15 +341,22 @@ def test_wide_split_against_jax(kv_len, D):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("D", [256, 264, 512, 1024, 2048, 2056, 4096])
 def test_wrapper_routes_the_single_token_decode(D, dtype):
-    """Which kernel takes a single-token decode at the wrapper's (padded)
-    head dim: the split-KV kernel for every dtype up to 256 and for f32
-    up to ``SPLIT_F32_MAX_D`` (2048), the prefill route's column-group
-    kernel past those; the split route's workspace holds each row's
-    n_split partials of D + 2 floats (acc, m, l)."""
+    """Which kernel takes a single-token decode at the wrapper's head dim:
+    the split-KV kernel for every dtype up to ``DECODE_SPLIT_MAX_D``
+    (2048), the chunk's route at S_new = 1 past it; on the split route
+    the head dim pads to a multiple of 8 for every dtype (the wide kernel
+    takes any such D up to its tier), off it to 128 for 16 bits past
+    256; the split route's workspace holds each row's n_split partials of
+    D + 2 floats (acc, m, l)."""
     tdt = getattr(torch, dtype)
     split = A.takes_split(tdt, D)
-    assert split == (D <= 256 or (tdt == torch.float32 and D <= 2048))
-    assert A.SPLIT_F32_MAX_D == 2048
+    assert split == (D <= 2048)
+    assert A.DECODE_SPLIT_MAX_D == 2048
+    ops = [torch.zeros(1, 2, 1, D, dtype=tdt) for _ in range(3)]
+    step = 128 if D > 256 and tdt != torch.float32 and not split else 8
+    padded = A._pad_d(*ops, split=split)
+    assert padded[0].shape[-1] == -(-D // step) * step
+    A._kernel_ready("flash_decode", *padded, split=split)
     n_split = A.decode_splits(4, 1, 2048, 132)
     assert A.split_workspace_floats(4, 8, n_split, D) == 4 * 8 * n_split * (
         D + 2)
@@ -361,8 +369,8 @@ def test_emulated_constants_are_the_kernels():
     the forward cluster's key tile ``CBK`` and its RK = 128 / NS rows in
     ``attention.cu``, whose B8, B9 and B12 entry points take the cluster
     form at ``cluster_form(D)``; the wide split's key tile 8192 / DP at
-    tiers 512 to 2048, its merge tree's fan-in and ``SPLIT_F32_MAX_D`` as
-    the wrapper's."""
+    tiers 512 to 2048 (f32 rows: ``ROWB`` = 4 DP bytes), its merge
+    tree's fan-in and ``DECODE_SPLIT_MAX_D`` as the wrapper's."""
     hdr = (CSRC / "attention_cluster.cuh").read_text()
     fwd = (CSRC / "attention.cu").read_text()
     dec = (CSRC / "attention_decode.cu").read_text()
@@ -378,11 +386,12 @@ def test_emulated_constants_are_the_kernels():
     assert "static constexpr int RK = 128 / NS;" in fwd
     assert fwd.count("if (cluster_form(head_dim))") == 2   # B8, B9
     assert "if (s_new > 1 && cluster_form(head_dim))" in fwd  # B12 chunks
-    assert "static constexpr int KT = 8192 / DP;" in dec
+    assert "static constexpr int KT = 32768 / ROWB;" in dec
+    assert "static constexpr int ROWB = DP * sizeof(T);" in dec
     assert re.search(r"constexpr int MERGE_FAN = (\d+);", dec).group(1) == str(
         MERGE_FAN)
-    assert re.search(r"launch_wide_group<512>.*launch_wide_group<1024>.*"
-                     r"launch_wide_group<2048>", dec, re.S)
-    assert re.search(r"constexpr int SPLIT_F32_MAX_D = (\d+);", tile).group(
-        1) == str(A.SPLIT_F32_MAX_D)
-    assert wide_tier(A.SPLIT_F32_MAX_D) == A.SPLIT_F32_MAX_D
+    assert re.search(r"launch_wide<512>.*launch_wide<1024>.*"
+                     r"launch_wide<2048>", dec, re.S)
+    assert re.search(r"constexpr int DECODE_SPLIT_MAX_D = (\d+);",
+                     tile).group(1) == str(A.DECODE_SPLIT_MAX_D)
+    assert wide_tier(A.DECODE_SPLIT_MAX_D) == A.DECODE_SPLIT_MAX_D
