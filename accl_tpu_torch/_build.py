@@ -75,8 +75,18 @@ _SIGNATURES = {
     "accl_attn_bwd_cluster_size": [_I],
     # dkv, head_dim: the f32 backward's clusters the card holds at once
     "accl_attn_bwd_active_clusters": [_I, _I],
-    # head_dim: the 16-bit B10's clusters the card holds at once
+    # head_dim: the 16-bit B10's, forward's and B11's clusters the card
+    # holds at once
     "accl_attn_bwd_dkv16_active_clusters": [_I],
+    "accl_attn_fwd16_active_clusters": [_I],
+    "accl_attn_bwd_dq16_active_clusters": [_I],
+    # the 16-bit B8 and B11 on their cluster forms at any head dim of the
+    # forms' range (measurements beside the dispatch's choice): as
+    # accl_attn_fwd and accl_attn_bwd_dq
+    "accl_attn_fwd16_cluster": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _F, _P],
+    "accl_attn_bwd_dq16_cluster": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _I, _I, _I, _I, _I, _F, _P],
 }
 
 

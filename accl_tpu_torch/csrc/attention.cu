@@ -1364,7 +1364,7 @@ int accl_attn_last_route() { return g_attn_route; }
 
 // dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (f32 past 256: the
 // cluster kernels, past 4096 the column-group ones; 16-bit past 256 the
-// column-group kernels of attention_sm90.cu)
+// cluster or column-group kernels of attention_sm90.cu)
 int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
                   const void* v, void* o, void* lse, int B, int H, int Hkv,
                   int Sq, int Skv, int causal, float scale, void* stream) {

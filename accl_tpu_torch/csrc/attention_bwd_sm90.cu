@@ -11,7 +11,9 @@
 //       attn_bwd_dkv_cluster_wgmma_kernel (to 1024, a thread-block
 //       cluster) and attn_bwd_dkv_cols_wgmma_kernel (past it).
 //   B11 attn_bwd_dq_wgmma_kernel  <- _bwd_dq_kernel (:492): dQ in q's
-//       dtype; past head dim 256 attn_bwd_dq_cols_wgmma_kernel.
+//       dtype; past head dim 256 attn_bwd_dq_cluster_wgmma_kernel (past
+//       640 to 2048, a thread-block cluster) and
+//       attn_bwd_dq_cols_wgmma_kernel (the others).
 //
 // For a visible (query i, key j) pair, with s = q_i . k_j:
 //   p = exp(scale*s - lse_i), dp = do_i . v_j, ds = p * (dp - delta_i),
@@ -416,8 +418,10 @@ __global__ void __launch_bounds__(WG, 1)
 
 // ---- head dims past 256: the column-group form ------------------------------
 //
-// B11 at D > 256 and B10 past BWD16_CLUSTER_MAX_D (1024; up to it B10 runs
-// the cluster form below) (sm90_tile.cuh WCH, WGRP; D a multiple of WCH,
+// B11 at 256 < D <= BWD16_DQ_CLUSTER_MIN_D (640) and past
+// BWD16_DQ_CLUSTER_MAX_D (2048), and B10 past BWD16_CLUSTER_MAX_D (1024; up
+// to them both run the cluster forms below) (sm90_tile.cuh WCH, WGRP; D a
+// multiple of WCH,
 // which the wrapper pads it to, so every chunk and B10's groups are
 // whole): grid z is a group of
 // output columns (128 of dK and dV in B10, as B10 at DP = 256; WGRP of dQ
@@ -658,59 +662,6 @@ struct ClSmem {
   static constexpr int BYTES = BARS + (CRING + 3) * 8 + 1024;
   static_assert(BYTES <= 232448, "a block's shared memory");
 };
-
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return static_cast<int>(r);
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// the shared::cluster address of this block's shared address `a` in the
-// block of rank r
-__device__ __forceinline__ uint32_t peer(uint32_t a, int r) {
-  uint32_t d;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(d)
-               : "r"(a), "r"(r));
-  return d;
-}
-// 16 and 8 bytes into a peer's shared memory, counted on its mbarrier
-__device__ __forceinline__ void st_async4(uint32_t a, float x, float y,
-                                          float z, float w, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a),
-      "f"(x), "f"(y), "f"(z), "f"(w), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void st_async2(uint32_t a, uint32_t x, uint32_t y,
-                                          uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
-      "{%1, %2}, [%3];\n" ::"r"(a),
-      "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-// mbar_wait, acquiring at cluster scope what the peers' st.async wrote
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
-                                                  uint32_t parity) {
-  uint32_t done = 0;
-  for (long long spins = 0; !done; ++spins) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (spins > (1ll << 26)) __trap();
-  }
-}
 
 // the maps and operands of attn_bwd_dkv_wgmma_kernel; grid (B*H, key
 // tiles, C), clusters (1, 1, C), D = C * CSL
@@ -1033,6 +984,280 @@ __global__ void __launch_bounds__(WG, 1)
   }
 }
 
+// ---- B11 at 640 < D <= 2048: the cluster form --------------------------------
+//
+// The column-group form above forms S and dP over the whole head dim in
+// every group: C (2 D + 256) products a tile for C groups where the work
+// needs 3 D, and every group reloads all of Q's, dO's, K's and V's chunks.
+// Here a thread-block cluster of C = ceil(D / DSL) blocks (grid z,
+// clusters (1, 1, C), C from 2 to 8; D a multiple of WCH) owns one 64-row
+// q tile of one (b, h), and block c keeps one slice, dQ's columns DSL*c ..
+// DSL*c + DSL - 1 (64 x 256 f32, as B11 at DP = 256; the last block may
+// hold only 128 live columns: TMA loads only the live 64-column blocks,
+// and the others are zeros written once, zero_dead). Q_c and dO_c load
+// once by TMA and stay resident; K_c streams through two stages and V_c
+// through one, reloaded as soon as dP_c has read it (the shared memory
+// holds no second V stage beside the exchange's slots). For each key tile:
+//   1. the slice's partials S_c = Q_c K_c^T and dP_c = dO_c V_c^T
+//      (m64n64k16, DSL / 16 k-steps each, exact 16-bit products summed in
+//      f32);
+//   2. the exchange. A thread's 32 + 32 accumulator registers form
+//      DUNITS = 8 units, unit u = S's registers 4u .. 4u + 3 and dP's (two
+//      float4), and unit u of every thread belongs to block u % C, its
+//      owner. Each block sends each unit it does not own to its owner
+//      (st.async into the owner's slot for (unit, sender), xch_slot); the
+//      owner's thread t sums its units over the C blocks in block order
+//      0 .. C - 1, forms P = exp2(S scale log2 e - LSE log2 e) and dS =
+//      P (dP - delta) at those four positions as the DP <= 256 kernel
+//      does (the mask on the causal diagonal and ragged edges), rounds dS
+//      to T as the A operand of dQ takes it, and sends the two packed
+//      words to every other block (st.async into its result slot for
+//      (unit, thread)). B11 needs no P beside dS, so only dS goes back;
+//   3. every thread reads its other units' words from its own result
+//      slots, and dQ_c += dS K_c (m64n128k16, K_c read MN-major) runs on
+//      the K tile still in its stage, retired within the tile.
+// So S and dP are formed once a tile across the cluster, every block
+// holds bitwise the same dS, and each position is summed and
+// exponentiated once. A block moves about (C - 1) / C of 32 KB of
+// partials and of 8 KB of words a tile over the cluster's network
+// against 6.3 MFLOP. The buffers, barriers and their phases follow the
+// cluster B10's rules above: stores only, one receive and one result
+// buffer, thread 0 re-arming both after its waits of the tile before, a
+// cluster barrier before the first remote store and one after the loop.
+// The owner's loops over the other blocks run as loops: unrolled, the
+// kernel ran slower on an H100 (PERF.md). The dispatch keeps the column
+// groups up to BWD16_DQ_CLUSTER_MIN_D, where this form ran no faster
+// (clusters of two, and of three with a half-filled last block); a
+// one-round all-gather at C = 2 (two buffers of 32 KB) was slower still.
+constexpr int DSL = WGRP;                          // a block's columns of dQ
+// the head dims of the cluster form (ops/attention.py's):
+// BWD16_DQ_CLUSTER_MIN_D < D <= BWD16_DQ_CLUSTER_MAX_D; up to the first,
+// where the clusters of two and of three blocks with a half-filled last
+// one ran no faster than the column groups on an H100 (PERF.md), those run
+constexpr int BWD16_DQ_CLUSTER_MIN_D = 5 * WCH;   // 640
+constexpr int BWD16_DQ_CLUSTER_MAX_D = 8 * DSL;
+constexpr int DUNITS = BKV / 8;                   // a thread's units
+constexpr int DUB = WG * 32;                      // a unit's bytes (S, dP)
+
+// shared memory of the cluster B11: Q_c, dO_c; K_c of stages 0 and 1; V_c;
+// the receive slots (two float4 a thread); the result slots (two packed
+// words a thread); the barriers (Q and dO, K of both stages, V, receive,
+// result)
+struct DqClSmem {
+  static constexpr int Q = BQ * DSL * 2;
+  static constexpr int KV = BKV * DSL * 2;
+  static constexpr int RCV = 2 * Q + 3 * KV;
+  static constexpr int RES =
+      RCV + xch_slots(DUNITS, BWD16_DQ_CLUSTER_MAX_D / DSL) * DUB;
+  static constexpr int BARS = RES + DUNITS * WG * 8;
+  static constexpr int BYTES = BARS + 6 * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "a block's shared memory");
+};
+
+// the maps and operands of attn_bwd_dq_wgmma_kernel; grid (B*H, q tiles,
+// C), clusters (1, 1, C), C = ceil(D / DSL)
+template <typename T>
+__global__ void __launch_bounds__(WG, 1)
+    attn_bwd_dq_cluster_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                                     __grid_constant__ const CUtensorMap tdo,
+                                     __grid_constant__ const CUtensorMap tk,
+                                     __grid_constant__ const CUtensorMap tv,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta,
+                                     T* __restrict__ dq, int H, int Hkv,
+                                     int Sq, int Skv, int causal, int D,
+                                     float scale) {
+  using L = DqClSmem;
+  constexpr int KS = Cols<DSL>::KS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const float4* rcv = reinterpret_cast<const float4*>(gbase + L::RCV);
+  const uint2* res = reinterpret_cast<const uint2*>(gbase + L::RES);
+  const uint32_t sQ = base, sDO = base + L::Q, sV = base + 2 * L::Q + 2 * L::KV;
+  const uint32_t rcv_a = base + L::RCV, res_a = base + L::RES;
+  auto sK = [&](int s) { return base + 2 * L::Q + s * L::KV; };
+  const uint32_t bar_q = base + L::BARS;
+  auto full_k = [&](int s) { return bar_q + 8 + 8 * s; };
+  const uint32_t full_v = bar_q + 24, bar_rcv = bar_q + 32,
+                 bar_res = bar_q + 40;
+
+  const int tid = threadIdx.x;
+  const int C = gridDim.z, rank = cluster_rank();
+  const int bh = blockIdx.x, col0 = rank * DSL;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the heaviest first
+  const int kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const int nq = min(BQ, Sq - q0);
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
+  const int n_it = (kv_end + BKV - 1) / BKV;
+  const int own = (DUNITS - rank + C - 1) / C;  // the units this block owns
+
+  // one thread: key tile j of K_c into stage j & 1, or of V_c, the live
+  // column blocks only (the others hold the zeros zero_dead wrote)
+  auto load_k = [&](int j) {
+    mbar_expect_tx(full_k(j & 1), live_bytes<DSL, BKV>(col0, D));
+    tma_tile_live<DSL, BKV>(sK(j & 1), &tk, full_k(j & 1), j * BKV, kvrow,
+                            col0, D);
+  };
+  auto load_v = [&](int j) {
+    mbar_expect_tx(full_v, live_bytes<DSL, BKV>(col0, D));
+    tma_tile_live<DSL, BKV>(sV, &tv, full_v, j * BKV, kvrow, col0, D);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(full_k(0), 1);
+    mbar_init(full_k(1), 1);
+    mbar_init(full_v, 1);
+    mbar_init(bar_rcv, 1);
+    mbar_init(bar_res, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q_c's, dO_c's, both K_c stages' and V_c's column blocks past D: zeros,
+  // once
+  zero_dead<DSL, BQ>(gbase, col0, D);
+  zero_dead<DSL, BQ>(gbase + L::Q, col0, D);
+  for (int t = 0; t < 3; ++t)
+    zero_dead<DSL, BKV>(gbase + 2 * L::Q + t * L::KV, col0, D);
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * live_bytes<DSL, BQ>(col0, D));
+    tma_tile_live<DSL, BQ>(sQ, &tq, bar_q, q0, bh, col0, D);
+    tma_tile_live<DSL, BQ>(sDO, &tdo, bar_q, q0, bh, col0, D);
+    for (int j = 0; j < 2 && j < n_it; ++j) load_k(j);
+    load_v(0);
+  }
+
+  // this thread's two q rows: LSE (in log2 units) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = q0 + frag_row(2 * h);
+    const long long o = static_cast<long long>(bh) * Sq + q;
+    lse2[h] = q < Sq ? lse[o] * LOG2E : 0.0f;
+    dl[h] = q < Sq ? delta[o] : 0.0f;
+  }
+  float adq[DSL / 2];
+#pragma unroll
+  for (int i = 0; i < DSL / 2; ++i) adq[i] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+  cluster_sync();  // every block's barriers are set: its peers may store
+  mbar_wait(bar_q, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it & 1, k0 = it * BKV;
+    mbar_wait(full_k(s), (it >> 1) & 1);
+    mbar_wait(full_v, it & 1);
+    float sc[BKV / 2], dp[BKV / 2];  // S_c and dP_c: q rows x keys
+    fence_regs<BKV / 2>(sc);
+    fence_regs<BKV / 2>(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BKV>::ss<T>(sc, desc_k<BQ>(sQ, kk), desc_k<BKV>(sK(s), kk),
+                        kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BKV>::ss<T>(dp, desc_k<BQ>(sDO, kk), desc_k<BKV>(sV, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<BKV / 2>(sc);
+    fence_regs<BKV / 2>(dp);
+    __syncthreads();  // every read of V tile it is done
+    if (tid == 0) {
+      if (it + 1 < n_it) load_v(it + 1);
+      // this tile's phase of the receive and result bars
+      mbar_expect_tx(bar_rcv, own * (C - 1) * DUB);
+      mbar_expect_tx(bar_res, (DUNITS - own) * WG * 8);
+    }
+    // each unit this block does not own to its owner's slot for (unit,
+    // sender)
+#pragma unroll
+    for (int u = 0; u < DUNITS; ++u) {
+      if (u % C == rank) continue;
+      const uint32_t a =
+          peer(rcv_a + xch_slot(u, rank, C) * DUB + tid * 32, u % C);
+      const uint32_t bar = peer(bar_rcv, u % C);
+      st_async4(a, sc[4 * u], sc[4 * u + 1], sc[4 * u + 2], sc[4 * u + 3],
+                bar);
+      st_async4(a + 16, dp[4 * u], dp[4 * u + 1], dp[4 * u + 2],
+                dp[4 * u + 3], bar);
+    }
+    const bool edge =
+        k0 + BKV > Skv || q0 + BQ > Sq || (causal && k0 + BKV - 1 > q0);
+    uint32_t da[BKV / 16][4];
+    mbar_wait_cluster(bar_rcv, it & 1);
+    // the units this block owns: the C partials in block order, P and dS,
+    // dS rounded to T
+#pragma unroll
+    for (int u = 0; u < DUNITS; ++u) {
+      if (u % C != rank) continue;
+      const float4 ms = make_float4(sc[4 * u], sc[4 * u + 1], sc[4 * u + 2],
+                                    sc[4 * u + 3]);
+      const float4 md = make_float4(dp[4 * u], dp[4 * u + 1], dp[4 * u + 2],
+                                    dp[4 * u + 3]);
+      // sender b's: slot[2 b' WG] (S), slot[2 b' WG + 1] (dP)
+      const float4* slot = rcv + 2 * ((u / C) * (C - 1) * WG + tid);
+      float4 xs = rank == 0 ? ms : slot[0];
+      float4 xd = rank == 0 ? md : slot[1];
+#pragma unroll 1
+      for (int bb = 1; bb < C; ++bb) {
+        const int j = 2 * (bb < rank ? bb : bb - 1) * WG;
+        xs = add4(xs, bb == rank ? ms : slot[j]);
+        xd = add4(xd, bb == rank ? md : slot[j + 1]);
+      }
+      const float sx[4] = {xs.x, xs.y, xs.z, xs.w};
+      const float dx[4] = {xd.x, xd.y, xd.z, xd.w};
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * u + e, h = e >> 1;
+        const int q = q0 + frag_row(i), key = k0 + frag_col(i);
+        const bool ok =
+            !edge || (key < Skv && q < Sq && (!causal || key <= q));
+        const float p = ok ? ex2(fmaf(sx[e], scale_log2, -lse2[h])) : 0.0f;
+        ds[e] = __fmul_rn(p, __fsub_rn(dx[e], dl[h]));
+      }
+      const uint32_t w0 = Elt<T>::pack(ds[0], ds[1]);
+      const uint32_t w1 = Elt<T>::pack(ds[2], ds[3]);
+      da[u / 2][2 * (u & 1)] = w0;
+      da[u / 2][2 * (u & 1) + 1] = w1;
+#pragma unroll 1
+      for (int bb = 0; bb < C; ++bb)
+        if (bb != rank)
+          st_async2(peer(res_a + (u * WG + tid) * 8, bb), w0, w1,
+                    peer(bar_res, bb));
+    }
+    mbar_wait_cluster(bar_res, it & 1);
+#pragma unroll
+    for (int u = 0; u < DUNITS; ++u) {
+      if (u % C == rank) continue;
+      const uint2 w = res[u * WG + tid];
+      da[u / 2][2 * (u & 1)] = w.x;
+      da[u / 2][2 * (u & 1) + 1] = w.y;
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      rs_cols<T, DSL, BKV>(adq, da[kk], sK(s), kk);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs<DSL / 2>(adq);
+    __syncthreads();  // every read of K tile it is done
+    if (tid == 0 && it + 2 < n_it) load_k(it + 2);
+  }
+  cluster_sync();  // the cluster's last stores have landed
+
+#pragma unroll
+  for (int i = 0; i < DSL / 2; i += 2) {
+    const int r = frag_row(i), c = col0 + frag_col(i);
+    if (r >= nq || c >= D) continue;
+    const long long o = (static_cast<long long>(bh) * Sq + q0 + r) * D + c;
+    store2(dq + o, __fmul_rn(adq[i], scale), __fmul_rn(adq[i + 1], scale));
+  }
+}
+
 // ---- host -----------------------------------------------------------------
 
 struct Maps {
@@ -1125,68 +1350,21 @@ cudaError_t launch_dkv_cols(const void* q, const void* dout, const void* k,
   return e;
 }
 
-// the cluster form (256 < D <= BWD16_CLUSTER_MAX_D) of B10. The card must
-// hold one cluster of D / CSL blocks at one block an SM (asked once for
-// each device and cluster size), or the launch is refused with
-// cudaErrorLaunchOutOfResources; there is no fallback.
-template <typename T>
-cudaLaunchConfig_t dkv_cluster_config(const Args& a,
-                                      cudaLaunchAttribute (&attr)[1]) {
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = a.D / CSL;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.B * a.H, (a.Skv + BKV - 1) / BKV, a.D / CSL);
-  cfg.blockDim = dim3(WG);
-  cfg.dynamicSmemBytes = ClSmem::BYTES;
-  cfg.stream = a.st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// the clusters of the cluster B10 (T) at head dim a.D the card holds at
-// once into *n
-template <typename T>
-cudaError_t dkv_active_clusters(const Args& a, int* n) {
-  auto kern = attn_bwd_dkv_cluster_wgmma_kernel<T>;
-  cudaError_t e = set_smem(kern, ClSmem::BYTES);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = dkv_cluster_config<T>(a, attr);
-  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
-}
-
+// the cluster form (256 < D <= BWD16_CLUSTER_MAX_D) of B10: clusters of D /
+// CSL blocks, refused (cudaErrorLaunchOutOfResources) where the card
+// cannot hold one; there is no fallback
 template <typename T>
 cudaError_t launch_dkv_cluster(const void* q, const void* dout, const void* k,
                                const void* v, const Args& a) {
   Maps m;
   cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
   if (e != cudaSuccess) return e;
-  auto kern = attn_bwd_dkv_cluster_wgmma_kernel<T>;
-  e = set_smem(kern, ClSmem::BYTES);
-  if (e != cudaSuccess) return e;
-  constexpr int NDEV = 16;
-  static int fits[NDEV][9];  // by C: 0 unknown, 1 fits, -1 not
-  int dev = 0, unknown = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  int& ok = dev < NDEV ? fits[dev][a.D / CSL] : unknown;
-  if (ok == 0) {
-    int n = 0;
-    e = dkv_active_clusters<T>(a, &n);
-    if (e != cudaSuccess) return e;
-    ok = n > 0 ? 1 : -1;
-  }
-  if (ok < 0) return cudaErrorLaunchOutOfResources;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = dkv_cluster_config<T>(a, attr);
-  e = cudaLaunchKernelEx(&cfg, kern, m.q, m.dout, m.k, m.v, a.lse, a.delta,
-                         static_cast<float*>(a.out0),
-                         static_cast<float*>(a.out1), a.H, a.Hkv, a.Sq,
-                         a.Skv, a.causal, a.D, a.scale);
-  if (e == cudaSuccess) e = cudaGetLastError();
+  e = launch_cluster16(attn_bwd_dkv_cluster_wgmma_kernel<T>, a.B * a.H,
+                       (a.Skv + BKV - 1) / BKV, a.D / CSL, ClSmem::BYTES,
+                       a.st, m.q, m.dout, m.k, m.v, a.lse, a.delta,
+                       static_cast<float*>(a.out0),
+                       static_cast<float*>(a.out1), a.H, a.Hkv, a.Sq, a.Skv,
+                       a.causal, a.D, a.scale);
   if (e == cudaSuccess)
     set_attn_route(ROUTE_BWD_DKV_WGMMA_CLUSTER, Elt<T>::F16 ? 2 : 1, CSL);
   return e;
@@ -1213,6 +1391,25 @@ cudaError_t launch_dq_cols(const void* q, const void* dout, const void* k,
 }
 
 
+// the cluster form (256 < D <= BWD16_DQ_CLUSTER_MAX_D) of B11: clusters of
+// ceil(D / DSL) blocks, refused (cudaErrorLaunchOutOfResources) where the
+// card cannot hold one
+template <typename T>
+cudaError_t launch_dq_cluster(const void* q, const void* dout, const void* k,
+                              const void* v, const Args& a) {
+  Maps m;
+  cudaError_t e = make_maps<T>(&m, q, dout, k, v, a);
+  if (e != cudaSuccess) return e;
+  e = launch_cluster16(attn_bwd_dq_cluster_wgmma_kernel<T>, a.B * a.H,
+                       (a.Sq + BQ - 1) / BQ, (a.D + DSL - 1) / DSL,
+                       DqClSmem::BYTES, a.st, m.q, m.dout, m.k, m.v, a.lse,
+                       a.delta, static_cast<T*>(a.out0), a.H, a.Hkv, a.Sq,
+                       a.Skv, a.causal, a.D, a.scale);
+  if (e == cudaSuccess)
+    set_attn_route(ROUTE_BWD_DQ_WGMMA_CLUSTER, Elt<T>::F16 ? 2 : 1, DSL);
+  return e;
+}
+
 }  // namespace
 
 // Called by the C entry points of attention_bwd.cu for 16-bit operands
@@ -1238,10 +1435,10 @@ int attn_bwd_dkv_wgmma(int dtype, int head_dim, const void* q,
 extern "C" int accl_attn_bwd_dkv16_active_clusters(int head_dim) {
   if (head_dim <= 256 || head_dim > BWD16_CLUSTER_MAX_D || head_dim % CSL)
     return 0;
-  const Args a{nullptr, nullptr, nullptr, nullptr, 1, 1, 1, BQ, BKV, 1,
-               head_dim, 1.0f, nullptr};
   int n = 0;
-  const cudaError_t e = dkv_active_clusters<__nv_bfloat16>(a, &n);
+  const cudaError_t e =
+      cluster16_active(attn_bwd_dkv_cluster_wgmma_kernel<__nv_bfloat16>,
+                       head_dim / CSL, ClSmem::BYTES, &n);
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
@@ -1253,6 +1450,41 @@ int attn_bwd_dq_wgmma(int dtype, int head_dim, const void* q,
   const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
                dq, nullptr, B, H, Hkv, Sq, Skv, causal, head_dim, scale, st};
   if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (head_dim > BWD16_DQ_CLUSTER_MIN_D && head_dim <= BWD16_DQ_CLUSTER_MAX_D)
+    SM90_COLS_DISPATCH(launch_dq_cluster, q, dout, k, v, a)
   if (head_dim > 256) SM90_COLS_DISPATCH(launch_dq_cols, q, dout, k, v, a)
   SM90_DISPATCH(launch_dq, q, dout, k, v, a)
+}
+
+// the clusters of the 16-bit B11's cluster form (bf16; the f16 kernel has
+// the same shape) at head_dim that the card holds at once (for reports): 0
+// where B11 does not take that form, minus the CUDA error code if the
+// query fails
+extern "C" int accl_attn_bwd_dq16_active_clusters(int head_dim) {
+  if (head_dim <= 256 || head_dim > BWD16_DQ_CLUSTER_MAX_D || head_dim % WCH)
+    return 0;  // (also at the head dims that keep the column groups)
+  int n = 0;
+  const cudaError_t e = cluster16_active(
+      attn_bwd_dq_cluster_wgmma_kernel<__nv_bfloat16>,
+      (head_dim + DSL - 1) / DSL, DqClSmem::BYTES, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// B11 on the cluster form at any 16-bit head dim past 256 up to
+// BWD16_DQ_CLUSTER_MAX_D (a multiple of WCH), also where the dispatch keeps
+// the column groups: for measuring the two forms side by side
+// (chip_compare.py); attn_bwd_dq_wgmma dispatches
+extern "C" int accl_attn_bwd_dq16_cluster(int dtype, int head_dim,
+                                          const void* q, const void* dout,
+                                          const void* k, const void* v,
+                                          const void* lse, const void* delta,
+                                          void* dq, int B, int H, int Hkv,
+                                          int Sq, int Skv, int causal,
+                                          float scale, void* stream) {
+  if (head_dim <= 256 || head_dim > BWD16_DQ_CLUSTER_MAX_D || head_dim % WCH)
+    return cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(lse), static_cast<const float*>(delta),
+               dq, nullptr, B, H, Hkv, Sq, Skv, causal, head_dim, scale,
+               static_cast<cudaStream_t>(stream)};
+  SM90_COLS_DISPATCH(launch_dq_cluster, q, dout, k, v, a)
 }

@@ -19,6 +19,9 @@ enum {
   ROUTE_PREFILL_COLS_TF32 = 18, ROUTE_DECODE_COLS_TF32 = 19,
   ROUTE_BWD_DKV_COLS_WGMMA = 20, ROUTE_BWD_DQ_COLS_WGMMA = 21,
   ROUTE_BWD_DKV_COLS_TF32 = 22, ROUTE_BWD_DQ_COLS_TF32 = 23,
-  // the 16-bit B10's cluster form (256 < D <= 1024), tier a block's slice
-  ROUTE_BWD_DKV_WGMMA_CLUSTER = 24
+  // the 16-bit cluster forms, tier a block's slice: B10 (256 < D <= 1024,
+  // 128 columns), B8, B9, the B12 chunks and B11 (256 < D <= 2048, 256)
+  ROUTE_BWD_DKV_WGMMA_CLUSTER = 24, ROUTE_FWD_WGMMA_CLUSTER = 25,
+  ROUTE_FWD_SINGLE_WGMMA_CLUSTER = 26, ROUTE_PREFILL_WGMMA_CLUSTER = 27,
+  ROUTE_BWD_DQ_WGMMA_CLUSTER = 28
 };

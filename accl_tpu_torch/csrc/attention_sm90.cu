@@ -17,7 +17,15 @@
 // registers a thread beside O's 96 or 128, so Q is brought into shared
 // memory by TMA once a block and S reads both operands from there. P V
 // runs one m64n128k16 for each 128 columns of O and one m64n64k16 for 64
-// left over (rs_cols).
+// left over (rs_cols). Past 256 (D a multiple of 128, the wrapper's
+// padding) one online tile serves B8, B9 and the B12 chunks in two forms:
+// to FWD16_CLUSTER_MAX_D (2048) the cluster form,
+// attn_fwd_cluster_wgmma_kernel (clusters of ceil(D / 256) blocks, a
+// 256-column slice of O a block, S formed once a tile and summed across
+// the cluster in block order), but at 512 < D <= 768, where clusters of
+// three blocks ran slower than the column groups on an H100 (and for B9
+// up to 384), and past 2048 the column-group form, attn_fwd_cols_wgmma_kernel (which also takes a
+// single-token decode past DECODE_SPLIT_MAX_D, at S_new = 1).
 //
 // Replace accl_tpu/ops/attention.py:
 //   B8  attn_fwd_wgmma_kernel via attn_fwd_wgmma <- _fwd_kernel
@@ -103,6 +111,8 @@
 // m + log(max(l, 1e-30)) in natural-log units, f32. A masked pair gets
 // p = 0 through the mask, never through exp of a masked score.
 #include <float.h>
+
+#include <type_traits>
 
 #include "sm90_tile.cuh"
 
@@ -561,9 +571,10 @@ __global__ void __launch_bounds__(WG, 1)
   store_o_lse<T, DP>(acc, m2, l, o, lse, bh, Sq, q0, nq, D);
 }
 
-// B8, B9 and B12's chunks (and single-token decode) at head dims past
-// 256: the column-group form (sm90_tile.cuh WCH, WGRP). D is a multiple
-// of WCH (the wrapper pads it), so every chunk is whole. Grid (B*H, q
+// B8, B9 and B12's chunks (and single-token decode) at the head dims past
+// 256 that fwd16_cluster leaves to it (512 < D <= 768, B9 to 384, and
+// past 2048; the decode past DECODE_SPLIT_MAX_D): the column-group form (sm90_tile.cuh
+// WCH, WGRP). D is a multiple of WCH (the wrapper pads it), so every chunk is whole. Grid (B*H, q
 // tiles, column groups); block z keeps O's columns z*WGRP .. z*WGRP +
 // WGRP - 1 (a 64 x 256 f32 accumulator, as B8 at DP = 256). For each key
 // tile it forms S = Q K^T over the whole head dim, one WCH-column chunk a
@@ -683,6 +694,343 @@ __global__ void __launch_bounds__(WG, 1)
                        Sq, q0, nq, D, c0);
 }
 
+// B8, B9 and B12's chunks at 256 < D <= FWD16_CLUSTER_MAX_D (but where
+// fwd16_cluster keeps the column groups): the cluster form. The
+// column-group form above forms S over the whole head dim in every group,
+// C (D + 256) products a tile for C groups where the work needs 2 D, and
+// every group reloads all of Q's and K's chunks. Here a thread-block
+// cluster of C = ceil(D / FSL) blocks (grid z, clusters (1, 1, C), C from
+// 2 to 8; D a multiple of WCH, which the wrapper pads it to) owns one
+// 64-row q tile of one (b, h), and block c keeps one slice, O's columns
+// FSL*c .. FSL*c + FSL - 1 (a 64 x 256 f32 accumulator, as B8 at DP =
+// 256). The last block may hold only 128 live columns: TMA loads only the
+// live 64-column blocks (a box wholly past the map's extent loaded
+// slowly), and Q_c's and K_c's others are zeros written once (zero_dead).
+// Q_c loads once by TMA; K_c and V_c stream through two stages of 64 keys.
+// For each key tile:
+//   1. the slice's partial S_c = Q_c K_c^T (m64n64k16, FSL / 16 k-steps,
+//      exact 16-bit products summed in f32);
+//   2. the exchange, every position summed in block order 0 .. C - 1 so
+//      that the bits do not depend on arrival. A thread's 32 accumulator
+//      registers form FUNITS = 8 float4 units. At C = 2 each block stores
+//      every unit into the other block's buffer for the tile (st.async,
+//      counted on that block's receive mbarrier; two buffers, so a block
+//      stores tile j + 2 only after the other has sent tile j + 1, which
+//      it does after it has read tile j) and adds the two partials itself:
+//      one round. At C > 2 unit u of every thread belongs to block u % C,
+//      its owner: each block sends each unit it does not own to its
+//      owner's slot for (unit, sender) (xch_slot), the owner's thread t
+//      sums its units over the C blocks (its own partial from its
+//      registers) and sends the f32 sum to every other block's result
+//      slot, since every block needs whole rows for its softmax: two
+//      rounds, one receive and one result buffer (a block sends tile j +
+//      1's units only after it has every sum of tile j, which each owner
+//      sends only after it has read tile j's units, and an owner sends
+//      tile j + 1's sums only after every block's units of j + 1, which
+//      each sends after it has read tile j's sums);
+//   3. B8's online softmax (softmax_tile) on the summed S, so m, l and P
+//      are the same bits in every block, O_c rescaled, then O_c += P V_c
+//      (register-A wgmma over the slice, rs_cols), retired within the
+//      iteration.
+// The tiles overlap by one: tile j + 1's S_c is issued before tile j's
+// softmax, and its units are sent before tile j's P V is issued, so the
+// exchange of tile j + 1 runs beside tile j's P V. Thread 0 re-arms the
+// mbarriers for tile j + 1 after its waits of tile j (arrive plus the
+// bytes expected); bytes that land first leave the phase pending until it
+// does. The cluster barrier before the first tile makes sure every
+// block's mbarriers are initialized before a peer stores to them; the one
+// after the last keeps every block resident until the cluster's stores
+// have landed. Block 0 writes the LSE. Maps, masks and `off`/`cache` as
+// attn_fwd_cols_wgmma_kernel's, so one kernel serves B8, B9 (its online
+// tile) and the B12 chunks. A block moves 16 KB (C = 2) or about 2 (C -
+// 1) / C of 16 KB a tile over the cluster's network against 4.2 MFLOP of
+// S_c and P V_c. Code size moves this kernel's time: an owner's loops over
+// the other blocks run as loops (unrolled, they ran slower on an H100),
+// and its registers sit at 255 with no spills only when few values live
+// across the loop (PERF.md).
+constexpr int FSL = WGRP;                      // a block's columns of O
+constexpr int FUNITS = BKV / 8;                // a thread's units of S
+// The head dims that take the cluster form (ops/attention.py's
+// takes_cluster16): past 256 up to FWD16_CLUSTER_MAX_D, but for the
+// clusters of three blocks (FWD16_COLS_MIN_D < D <= FWD16_COLS_MAX_D) and
+// B9 up to FWD16_SINGLE_MIN_D (a pair with a half-filled block), which ran
+// slower than the column groups on an H100 (PERF.md), so those keep them
+constexpr int FWD16_CLUSTER_MAX_D = 8 * FSL;
+constexpr int FWD16_COLS_MIN_D = 2 * FSL, FWD16_COLS_MAX_D = 3 * FSL;
+constexpr int FWD16_SINGLE_MIN_D = 3 * WCH;
+__host__ __device__ constexpr bool fwd16_cluster(int d, bool single) {
+  return d > (single ? FWD16_SINGLE_MIN_D : 256) &&
+         d <= FWD16_CLUSTER_MAX_D &&
+         (d <= FWD16_COLS_MIN_D || d > FWD16_COLS_MAX_D);
+}
+constexpr uint32_t FUB = WG * 16;              // a unit's bytes, every thread's
+
+// shared memory of the cluster form: Q_c; K_c and V_c of stages 0 and 1;
+// the exchange region (at C = 2 two tiles' units of the other block, else
+// the owners' receive slots and then the sums received); the barriers (Q,
+// K of both stages, V of both, receive (two), result)
+struct FwdClSmem {
+  static constexpr int Q = BQ * FSL * 2;
+  static constexpr int KV = BKV * FSL * 2;
+  static constexpr int X = Q + 4 * KV;
+  static constexpr int NRCV = xch_slots(FUNITS, FWD16_CLUSTER_MAX_D / FSL);
+  static constexpr int RES = X + (NRCV > 2 * FUNITS ? NRCV : 2 * FUNITS) * FUB;
+  static constexpr int BARS = RES + FUNITS * FUB;
+  static constexpr int BYTES = BARS + 8 * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "a block's shared memory");
+};
+
+// q, o (B*H, Sq, D) through the map tq; k/v maps as
+// attn_fwd_cols_wgmma_kernel's; lse (B*H, Sq) f32 or null. Grid (B*H, q
+// tiles, C), clusters (1, 1, C), C = ceil(D / FSL).
+template <typename T>
+__global__ void __launch_bounds__(WG, 1)
+    attn_fwd_cluster_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                                  __grid_constant__ const CUtensorMap tk,
+                                  __grid_constant__ const CUtensorMap tv,
+                                  T* __restrict__ o, float* __restrict__ lse,
+                                  int H, int Hkv, int Sq, int Skv, int causal,
+                                  int off, int cache, int D, float scale) {
+  using L = FwdClSmem;
+  constexpr int KS = Cols<FSL>::KS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const float4* rcv = reinterpret_cast<const float4*>(gbase + L::X);
+  const float4* res = reinterpret_cast<const float4*>(gbase + L::RES);
+  const uint32_t sq = base, rcv_a = base + L::X, res_a = base + L::RES;
+  auto sk = [&](int s) { return base + L::Q + s * 2 * L::KV; };
+  auto sv = [&](int s) { return sk(s) + L::KV; };
+  const uint32_t bar_q = base + L::BARS;
+  auto full_k = [&](int s) { return bar_q + 8 + 8 * s; };
+  auto full_v = [&](int s) { return bar_q + 24 + 8 * s; };
+  auto bar_rcv = [&](int s) { return bar_q + 40 + 8 * s; };
+  const uint32_t bar_res = bar_q + 56;
+
+  const int tid = threadIdx.x;
+  const int C = gridDim.z, rank = cluster_rank();
+  const int bh = blockIdx.x, col0 = rank * FSL;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the heaviest first
+  const int b = bh / H, hkv = (bh % H) / (H / Hkv);  // _kv_head_row
+  const int n_it =
+      ((causal ? min(Skv, min(q0 + BQ, Sq) + off) : Skv) + BKV - 1) / BKV;
+  // two blocks: every unit to the other block (one round); else the owner
+  // scheme (two rounds)
+  const bool ag = C == 2;
+
+  // one thread: key tile j of K_c or V_c into stage j & 1, the live column
+  // blocks only (K's others hold the zeros zero_dead wrote; V's feed only
+  // columns of O past D, never stored)
+  auto load_k = [&](int j) {
+    const uint32_t bar = full_k(j & 1);
+    mbar_expect_tx(bar, live_bytes<FSL, BKV>(col0, D));
+    if (cache)
+      tma_tile4_live<FSL, BKV>(sk(j & 1), &tk, bar, hkv, j * BKV, b, col0,
+                               D);
+    else
+      tma_tile_live<FSL, BKV>(sk(j & 1), &tk, bar, j * BKV, b * Hkv + hkv,
+                              col0, D);
+  };
+  auto load_v = [&](int j) {
+    const uint32_t bar = full_v(j & 1);
+    mbar_expect_tx(bar, live_bytes<FSL, BKV>(col0, D));
+    if (cache)
+      tma_tile4_live<FSL, BKV>(sv(j & 1), &tv, bar, hkv, j * BKV, b, col0,
+                               D);
+    else
+      tma_tile_live<FSL, BKV>(sv(j & 1), &tv, bar, j * BKV, b * Hkv + hkv,
+                              col0, D);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(bar_rcv(s), 1);
+    }
+    mbar_init(bar_res, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q_c's and both K_c stages' column blocks past D: zeros, once
+  zero_dead<FSL, BQ>(gbase, col0, D);
+  zero_dead<FSL, BKV>(gbase + L::Q, col0, D);
+  zero_dead<FSL, BKV>(gbase + L::Q + 2 * L::KV, col0, D);
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, live_bytes<FSL, BQ>(col0, D));
+    tma_tile_live<FSL, BQ>(sq, &tq, bar_q, q0, bh, col0, D);
+    for (int j = 0; j < 2 && j < n_it; ++j) {
+      load_k(j);
+      load_v(j);
+    }
+  }
+  cluster_sync();  // every block's barriers are set: its peers may store
+
+  // thread 0: the receive (and result) bars' phase of tile t
+  auto arm = [&](int t) {
+    if (tid != 0) return;
+    if (ag) {
+      mbar_expect_tx(bar_rcv(t & 1), FUNITS * FUB);
+    } else {
+      const int own = (FUNITS - rank + C - 1) / C;  // the units it owns
+      mbar_expect_tx(bar_rcv(0), own * (C - 1) * FUB);
+      mbar_expect_tx(bar_res, (FUNITS - own) * FUB);
+    }
+  };
+  // S_c of key tile j into d, issued (not waited)
+  auto issue_s = [&](float* d, int j) {
+    mbar_wait(full_k(j & 1), (j >> 1) & 1);
+    fence_regs<BKV / 2>(d);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BKV>::ss<T>(d, desc_k<BQ>(sq, kk), desc_k<BKV>(sk(j & 1), kk),
+                        kk > 0);
+    wg_commit();
+  };
+  // tile t's units of d: at C = 2 every unit into the other block's
+  // buffer t & 1, else each unit this block does not own to its owner's
+  // slot for (unit, sender)
+  auto send = [&](const float* d, int t) {
+#pragma unroll
+    for (int u = 0; u < FUNITS; ++u) {
+      if (ag)
+        st_async4(peer(rcv_a + ((t & 1) * FUNITS + u) * FUB + tid * 16,
+                       rank ^ 1),
+                  d[4 * u], d[4 * u + 1], d[4 * u + 2], d[4 * u + 3],
+                  peer(bar_rcv(t & 1), rank ^ 1));
+      else if (u % C != rank)
+        st_async4(peer(rcv_a + xch_slot(u, rank, C) * FUB + tid * 16, u % C),
+                  d[4 * u], d[4 * u + 1], d[4 * u + 2], d[4 * u + 3],
+                  peer(bar_rcv(0), u % C));
+    }
+  };
+  // tile t's sums into d, each position summed in block order: at C = 2
+  // every unit here; else the owned units, sent on to every other block,
+  // then the others' sums
+  auto gather = [&](float* d, int t) {
+    if (ag) {
+      mbar_wait_cluster(bar_rcv(t & 1), (t >> 1) & 1);
+#pragma unroll
+      for (int u = 0; u < FUNITS; ++u) {
+        const float4 mine = make_float4(d[4 * u], d[4 * u + 1], d[4 * u + 2],
+                                        d[4 * u + 3]);
+        // two partials: the same bits in either order
+        const float4 x = add4(mine, rcv[((t & 1) * FUNITS + u) * WG + tid]);
+        d[4 * u] = x.x;
+        d[4 * u + 1] = x.y;
+        d[4 * u + 2] = x.z;
+        d[4 * u + 3] = x.w;
+      }
+      return;
+    }
+    mbar_wait_cluster(bar_rcv(0), t & 1);
+#pragma unroll
+    for (int u = 0; u < FUNITS; ++u) {
+      if (u % C != rank) continue;
+      const float4 mine =
+          make_float4(d[4 * u], d[4 * u + 1], d[4 * u + 2], d[4 * u + 3]);
+      const float4* slot = rcv + (u / C) * (C - 1) * WG + tid;
+      float4 x = rank == 0 ? mine : slot[0];  // sender b's: slot[b' * WG]
+#pragma unroll 1
+      for (int bb = 1; bb < C; ++bb)
+        x = add4(x, bb == rank ? mine : slot[(bb < rank ? bb : bb - 1) * WG]);
+      d[4 * u] = x.x;
+      d[4 * u + 1] = x.y;
+      d[4 * u + 2] = x.z;
+      d[4 * u + 3] = x.w;
+#pragma unroll 1
+      for (int bb = 0; bb < C; ++bb)
+        if (bb != rank)
+          st_async4(peer(res_a + u * FUB + tid * 16, bb), x.x, x.y, x.z, x.w,
+                    peer(bar_res, bb));
+    }
+    mbar_wait_cluster(bar_res, t & 1);
+#pragma unroll
+    for (int u = 0; u < FUNITS; ++u) {
+      if (u % C == rank) continue;
+      const float4 w = res[u * WG + tid];
+      d[4 * u] = w.x;
+      d[4 * u + 1] = w.y;
+      d[4 * u + 2] = w.z;
+      d[4 * u + 3] = w.w;
+    }
+  };
+
+  float acc[FSL / 2];               // O_c: q rows x the block's columns
+  float m2[2] = {NEG, NEG};         // running max, log2 units
+  float l[2] = {0.0f, 0.0f};        // this thread's part of the row sum
+#pragma unroll
+  for (int i = 0; i < FSL / 2; ++i) acc[i] = 0.0f;
+  const float scale_log2 = scale * LOG2E;
+  float sc[BKV / 2], nx[BKV / 2];   // S of this tile, S_c of the next
+
+  mbar_wait(bar_q, 0);
+  arm(0);
+  issue_s(sc, 0);
+  wg_wait<0>();
+  fence_regs<BKV / 2>(sc);
+  send(sc, 0);
+  gather(sc, 0);
+  __syncthreads();  // every read of K tile 0 is done
+  if (tid == 0 && n_it > 2) load_k(2);
+
+  // key tile it; with NEXT (every tile but the last) tile it + 1's S_c
+  // and its exchange beside it (a compile-time flag: no wgmma is issued
+  // or waited for under a run-time branch)
+  auto tile = [&](int it, auto next_c) {
+    constexpr bool NEXT = decltype(next_c)::value;
+    const int s = it & 1, k0 = it * BKV;
+    if constexpr (NEXT) {
+      arm(it + 1);
+      issue_s(nx, it + 1);
+    }
+    float alpha[2];
+    if (k0 + BKV > Skv || (causal && k0 + BKV - 1 > q0 + off))
+      softmax_tile<true>(sc, m2, l, alpha, scale_log2, q0, k0, Skv, causal,
+                         off);
+    else
+      softmax_tile<false>(sc, m2, l, alpha, scale_log2, q0, k0, Skv, causal,
+                          off);
+#pragma unroll
+    for (int i = 0; i < FSL / 2; ++i)
+      acc[i] = __fmul_rn(acc[i], alpha[(i >> 1) & 1]);
+    uint32_t pa[BKV / 16][4];
+    to_a<T, BKV>(sc, pa);
+    if constexpr (NEXT) {
+      wg_wait<0>();
+      fence_regs<BKV / 2>(nx);
+      send(nx, it + 1);
+    }
+    mbar_wait(full_v(s), (it >> 1) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      rs_cols<T, FSL, BKV>(acc, pa[kk], sv(s), kk);
+    wg_commit();
+    if constexpr (NEXT) gather(nx, it + 1);
+    wg_wait<0>();
+    fence_regs<FSL / 2>(acc);
+    if constexpr (NEXT) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) sc[i] = nx[i];
+      __syncthreads();  // every read of K tile it + 1 and V tile it is done
+      if (tid == 0) {
+        if (it + 3 < n_it) load_k(it + 3);
+        if (it + 2 < n_it) load_v(it + 2);
+      }
+    }
+  };
+  for (int it = 0; it + 1 < n_it; ++it) tile(it, std::true_type{});
+  tile(n_it - 1, std::false_type{});
+  cluster_sync();  // the cluster's last stores have landed
+
+  store_o_lse<T, FSL>(acc, m2, l, o, rank == 0 ? lse : nullptr, bh, Sq, q0,
+                      min(BQ, Sq - q0), D, col0);
+}
+
 // the operands of one launch besides the maps
 struct Args {
   const void* q;
@@ -747,6 +1095,21 @@ cudaError_t launch_cols(const Maps& m, const Args& a, int kind) {
                                  a.scale);
   e = cudaGetLastError();
   if (e == cudaSuccess) set_attn_route(kind, Elt<T>::F16 ? 2 : 1, WGRP);
+  return e;
+}
+
+// the cluster form (256 < D <= FWD16_CLUSTER_MAX_D) of route `kind`:
+// clusters of ceil(D / FSL) blocks, refused (cudaErrorLaunchOutOfResources)
+// where the card cannot hold one
+template <typename T>
+cudaError_t launch_cluster(const Maps& m, const Args& a, int kind) {
+  const int C = (a.D + FSL - 1) / FSL;
+  cudaError_t e = launch_cluster16(
+      attn_fwd_cluster_wgmma_kernel<T>, a.B * a.H, (a.Sq + BQ - 1) / BQ, C,
+      FwdClSmem::BYTES, a.st, m.q, m.k, m.v, static_cast<T*>(a.o),
+      static_cast<float*>(a.lse), a.H, a.Hkv, a.Sq, a.Skv, a.causal, a.off,
+      a.cache, a.D, a.scale);
+  if (e == cudaSuccess) set_attn_route(kind, Elt<T>::F16 ? 2 : 1, FSL);
   return e;
 }
 
@@ -828,6 +1191,25 @@ cudaError_t run_prefill_cols(const void* kc, const void* vc, int Tlen,
 }
 
 
+// 256 < D <= FWD16_CLUSTER_MAX_D: B8 and B9 (route kind) on the cluster
+// kernel
+template <typename T>
+cudaError_t run_fwd_cluster(const void* k, const void* v, const Args& a,
+                            int kind) {
+  Maps m;
+  cudaError_t e = fwd_maps<T>(&m, a.q, k, v, a);
+  return e == cudaSuccess ? launch_cluster<T>(m, a, kind) : e;
+}
+
+template <typename T>
+cudaError_t run_prefill_cluster(const void* kc, const void* vc, int Tlen,
+                                const Args& a, int kind) {
+  Maps m;
+  cudaError_t e = prefill_maps<T>(&m, kc, vc, Tlen, a);
+  return e == cudaSuccess ? launch_cluster<T>(m, a, kind) : e;
+}
+
+
 }  // namespace
 
 // Called by accl_attn_fwd (attention.cu) for 16-bit operands (dtype code
@@ -839,6 +1221,8 @@ int attn_fwd_wgmma(int dtype, int head_dim, const void* q, const void* k,
   const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
                st};
   if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (fwd16_cluster(head_dim, false))
+    SM90_COLS_DISPATCH(run_fwd_cluster, k, v, a, ROUTE_FWD_WGMMA_CLUSTER)
   if (head_dim > 256)
     SM90_COLS_DISPATCH(run_fwd_cols, k, v, a, ROUTE_FWD_COLS_WGMMA)
   SM90_DISPATCH(run_fwd, k, v, a)
@@ -855,6 +1239,9 @@ int attn_prefill_wgmma(int dtype, int head_dim, const void* q,
   const Args a{q, o, nullptr, B, H, Hkv, s_new, kv_len, 1, kv_len - s_new,
                1, head_dim, scale, st};
   if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (fwd16_cluster(head_dim, false) && s_new > 1)
+    SM90_COLS_DISPATCH(run_prefill_cluster, kc, vc, Tlen, a,
+                       ROUTE_PREFILL_WGMMA_CLUSTER)
   if (head_dim > 256)
     SM90_COLS_DISPATCH(run_prefill_cols, kc, vc, Tlen, a,
                        s_new == 1 ? ROUTE_DECODE_COLS_WGMMA
@@ -870,7 +1257,40 @@ int attn_fwd_single_wgmma(int dtype, int head_dim, const void* q,
   const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
                st};
   if (head_dim > 256 && head_dim % WCH) return cudaErrorInvalidValue;
+  if (fwd16_cluster(head_dim, true))
+    SM90_COLS_DISPATCH(run_fwd_cluster, k, v, a,
+                       ROUTE_FWD_SINGLE_WGMMA_CLUSTER)
   if (head_dim > 256)
     SM90_COLS_DISPATCH(run_fwd_cols, k, v, a, ROUTE_FWD_SINGLE_COLS_WGMMA)
   SM90_DISPATCH(run_single, k, v, a)
+}
+
+// the clusters of the 16-bit forward's cluster form (bf16; the f16 kernel
+// has the same shape) at head_dim that the card holds at once (for
+// reports): 0 where the forward does not take that form, minus the CUDA
+// error code if the query fails
+extern "C" int accl_attn_fwd16_active_clusters(int head_dim) {
+  if (head_dim <= 256 || head_dim > FWD16_CLUSTER_MAX_D || head_dim % WCH)
+    return 0;  // (also at the head dims that keep the column groups)
+  int n = 0;
+  const cudaError_t e = cluster16_active(
+      attn_fwd_cluster_wgmma_kernel<__nv_bfloat16>,
+      (head_dim + FSL - 1) / FSL, FwdClSmem::BYTES, &n);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// B8 on the cluster form at any 16-bit head dim past 256 up to
+// FWD16_CLUSTER_MAX_D (a multiple of WCH), also where fwd16_cluster keeps
+// the column groups: for measuring the two forms side by side
+// (chip_compare.py); the entry points above dispatch
+extern "C" int accl_attn_fwd16_cluster(int dtype, int head_dim, const void* q,
+                                       const void* k, const void* v, void* o,
+                                       void* lse, int B, int H, int Hkv,
+                                       int Sq, int Skv, int causal,
+                                       float scale, void* stream) {
+  if (head_dim <= 256 || head_dim > FWD16_CLUSTER_MAX_D || head_dim % WCH)
+    return cudaErrorInvalidValue;
+  const Args a{q, o, lse, B, H, Hkv, Sq, Skv, causal, 0, 0, head_dim, scale,
+               static_cast<cudaStream_t>(stream)};
+  SM90_COLS_DISPATCH(run_fwd_cluster, k, v, a, ROUTE_FWD_WGMMA_CLUSTER)
 }

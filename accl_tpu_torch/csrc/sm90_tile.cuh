@@ -2,8 +2,9 @@
 // (attention_sm90.cu: B8, B9 and B12's prefill route; attention_bwd_sm90.cu:
 // B10, B11): warpgroup MMA (wgmma) wrappers for 16-bit operands (bf16 or
 // f16, f32 accumulators) and descriptors for 128-byte-swizzled tiles,
-// mbarriers, TMA tile loads on 3-D and 4-D tensor maps, and the register
-// fragments of a wgmma accumulator.
+// mbarriers, TMA tile loads on 3-D and 4-D tensor maps, the register
+// fragments of a wgmma accumulator, and the thread-block clusters of the
+// 16-bit cluster forms (remote stores, their slots, the launch).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the driver entry
@@ -343,6 +344,22 @@ __device__ __forceinline__ void tma_tile4_live(uint32_t dst,
     tma_load4(dst + b * R * ROW, map, bar, col0 + b * 64, head, row, batch);
 }
 
+// zeros into the 64-column blocks of an R-row tile (tma_tile's layout) at
+// `tile` from column col0 that hold no column below d: every thread of
+// the block. The cluster forms load only the live blocks (tma_tile_live;
+// a box wholly past the map's extent loads slowly) and zero the others
+// once, so that they add nothing to a product over the head dim; the
+// caller fences (fence_async_smem) and syncs before wgmma reads them.
+template <int DP, int R>
+__device__ __forceinline__ void zero_dead(uint8_t* tile, int col0, int d) {
+  const int n = (d - col0 + 63) / 64;
+  const int live = n < 0 ? 0 : n > Cols<DP>::NB ? Cols<DP>::NB : n;
+  float4* p = reinterpret_cast<float4*>(tile + live * R * ROW);
+  const int words = (Cols<DP>::NB - live) * R * ROW / 16;
+  for (int i = threadIdx.x; i < words; i += blockDim.x)
+    p[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -383,6 +400,90 @@ __device__ __forceinline__ int frag_row(int i) {
 }
 __device__ __forceinline__ int frag_col(int i) {
   return (i >> 2) * 8 + (threadIdx.x & 3) * 2 + (i & 1);
+}
+
+// ---- thread-block clusters (the 16-bit cluster forms) -------------------
+//
+// A block reaches its peers' shared memory by stores only (st.async, each
+// counted on the receiving block's mbarrier), never by a remote load.
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of this block's shared address `a` in the
+// block of rank r
+__device__ __forceinline__ uint32_t peer(uint32_t a, int r) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(a), "r"(r));
+  return d;
+}
+// 16 and 8 bytes into a peer's shared memory, counted on its mbarrier
+__device__ __forceinline__ void st_async4(uint32_t a, float x, float y,
+                                          float z, float w, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a),
+      "f"(x), "f"(y), "f"(z), "f"(w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async2(uint32_t a, uint32_t x, uint32_t y,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(a),
+      "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+// this thread's shared-memory writes made visible to the async proxy
+// (TMA, wgmma) that reads them after a barrier
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// mbar_wait, acquiring at cluster scope what the peers' st.async wrote
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  for (long long spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins > (1ll << 26)) __trap();
+  }
+}
+
+// a + b, element by element, rounded to nearest
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+// the receive slot, at its owner u % C, of unit u from sender s != u % C:
+// the owner's units one after another, each with a slot for each other
+// block in block order
+__host__ __device__ constexpr int xch_slot(int u, int s, int C) {
+  return (u / C) * (C - 1) + (s < u % C ? s : s - 1);
+}
+// the receive slots an owner needs for `units` units dealt over clusters
+// of 2 to cmax blocks (unit u to block u % C): its units from each other
+// block, the most of ceil(units / C) (C - 1)
+__host__ __device__ constexpr int xch_slots(int units, int cmax) {
+  int m = 0;
+  for (int c = 2; c <= cmax; ++c)
+    m = (units + c - 1) / c * (c - 1) > m ? (units + c - 1) / c * (c - 1) : m;
+  return m;
 }
 
 // ---- host -----------------------------------------------------------------
@@ -445,6 +546,66 @@ template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The launch configuration of a 16-bit cluster kernel: grid (x, y, C),
+// clusters (1, 1, C), one warpgroup a block, `smem` bytes of shared
+// memory; attr holds the cluster dimension
+inline cudaLaunchConfig_t cluster16_config(int x, int y, int C, int smem,
+                                           cudaStream_t st,
+                                           cudaLaunchAttribute (&attr)[1]) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(x, y, C);
+  cfg.blockDim = dim3(WG);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of C blocks of `kern` (`smem` bytes a block) that the card
+// holds at once into *n
+template <typename K>
+cudaError_t cluster16_active(K kern, int C, int smem, int* n) {
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster16_config(1, 1, C, smem, nullptr,
+                                                  attr);
+  return cudaOccupancyMaxActiveClusters(n, kern, &cfg);
+}
+
+// `kern` over grid (x, y, C) in clusters of C <= 8 blocks. The card must
+// hold one such cluster at one block an SM (asked once for each kernel,
+// device and C), or the launch is refused with
+// cudaErrorLaunchOutOfResources; there is no fallback.
+template <typename... P, typename... A>
+cudaError_t launch_cluster16(void (*kern)(P...), int x, int y, int C,
+                             int smem, cudaStream_t st, A... args) {
+  constexpr int NDEV = 16;
+  static int fits[NDEV][9];  // by C: 0 unknown, 1 fits, -1 not
+  if (C < 2 || C > 8) return cudaErrorInvalidValue;
+  int dev = 0, unknown = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  int& ok = dev < NDEV ? fits[dev][C] : unknown;
+  if (ok == 0) {
+    int n = 0;
+    e = cluster16_active(kern, C, smem, &n);
+    if (e != cudaSuccess) return e;
+    ok = n > 0 ? 1 : -1;
+  }
+  if (ok < 0) return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster16_config(x, y, C, smem, st, attr);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  return e == cudaSuccess ? cudaGetLastError() : e;
 }
 
 }  // namespace

@@ -61,16 +61,25 @@ scale at the true D's, and slices the outputs: zero columns change no
 score and give zero output columns, and the same kernel runs. Past
 ``COLS_HEAD_DIM`` (256), where a 64 x D f32 accumulator no longer fits a
 warpgroup's registers, every kind runs a form of its own, one launch a
-call. 16-bit operands: B8, B9, B11 and the B12 chunks the column-group
-form (``attn_fwd_cols_wgmma_kernel``, ``attn_bwd_dq_cols_wgmma_kernel``:
-a block keeps one group of the output columns (grid z) and forms S, and
-dP, over the whole head dim in chunks, each group the same chunks in the
-same order); B10 up to ``BWD16_CLUSTER_MAX_D`` (1024) the cluster form
+call. 16-bit operands: B8, B9 and the B12 chunks up to
+``FWD16_CLUSTER_MAX_D`` (2048) the cluster form
+(``attn_fwd_cluster_wgmma_kernel``: a cluster of ceil(D / 256) blocks,
+each keeping one 256-column slice of O, forms S once a tile and sums it
+through distributed shared memory in block order, two blocks by an
+all-gather, more by owners) but in ``FWD16_COLS_BAND`` (512, 768] (and
+B9 up to ``FWD16_SINGLE_MIN_D``, 384), and
+B11 past ``BWD16_DQ_CLUSTER_MIN_D`` (640) up to 2048 its cluster form
+(``attn_bwd_dq_cluster_wgmma_kernel``: S and dP once a tile, the owners
+send dS back); B10 up to ``BWD16_CLUSTER_MAX_D`` (1024) the cluster form
 (``attn_bwd_dkv_cluster_wgmma_kernel``: a cluster of D / 128 blocks, each
 keeping one 128-column slice, forms S and dP once a tile and sums them
-through distributed shared memory), past it the column-group form
-(``attn_bwd_dkv_cols_wgmma_kernel``). f32 operands past 256 up to 4096
-run the cluster form (``attn_fwd_cluster_kernel`` for B8 and B9,
+through distributed shared memory); at the other head dims past 256,
+where the cluster forms ran no faster on an H100, the column-group form
+(``attn_fwd_cols_wgmma_kernel``, ``attn_bwd_{dkv,dq}_cols_wgmma_kernel``:
+a block keeps one group of the output columns (grid z) and forms S, and
+dP, over the whole head dim in chunks, each group the same chunks in the
+same order; ``takes_cluster16`` says which). f32 operands past 256 up
+to 4096 run the cluster form (``attn_fwd_cluster_kernel`` for B8 and B9,
 ``attn_decode_cluster_kernel`` for B12 chunks of S_new > 1,
 ``attn_bwd_{dkv,dq}_cluster_kernel``: a thread-block cluster splits the
 head dim into 64-column slices and forms S, and dP, once a tile); past
@@ -113,7 +122,8 @@ _HALF = (torch.bfloat16, torch.float16)
 # the route codes of csrc/attention_route.cuh (ROUTE_*); "_cols": head
 # dims past COLS_HEAD_DIM (the column-group form, or for f32 to 4096 the
 # cluster form, whose tier is a block's columns: 128, 256 or 512);
-# "_cluster": the 16-bit B10's cluster form (tier 128, a block's slice)
+# "_cluster": the 16-bit cluster forms (tier a block's slice: 128 for
+# B10, 256 for B8, B9, the B12 chunks and B11)
 ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
           7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
@@ -124,11 +134,23 @@ ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           18: "prefill_tf32_cols", 19: "decode_tf32_cols",
           20: "bwd_dkv_wgmma_cols", 21: "bwd_dq_wgmma_cols",
           22: "bwd_dkv_tf32_cols", 23: "bwd_dq_tf32_cols",
-          24: "bwd_dkv_wgmma_cluster"}
+          24: "bwd_dkv_wgmma_cluster", 25: "fwd_wgmma_cluster",
+          26: "fwd_single_wgmma_cluster", 27: "prefill_wgmma_cluster",
+          28: "bwd_dq_wgmma_cluster"}
 _DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
 DECODE_SPLIT_MAX_D = 2048  # single-token decode: split-KV up to it
 BWD16_CLUSTER_MAX_D = 1024  # 16-bit B10: the cluster form up to it
+# 16-bit B8, B9 and the B12 chunks: the cluster form past 256 (B9 past
+# FWD16_SINGLE_MIN_D) up to FWD16_CLUSTER_MAX_D, but at FWD16_COLS_BAND
+# (clusters of three blocks, slower than the column groups); B11 past
+# BWD16_DQ_CLUSTER_MIN_D up to
+# FWD16_CLUSTER_MAX_D (csrc/attention_sm90.cu fwd16_cluster,
+# csrc/attention_bwd_sm90.cu)
+FWD16_CLUSTER_MAX_D = 2048
+FWD16_COLS_BAND = (512, 768)
+FWD16_SINGLE_MIN_D = 384       # B9: the column groups up to it
+BWD16_DQ_CLUSTER_MIN_D = 640
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 
 fwd_launches = 0
@@ -223,6 +245,27 @@ def _pad_d(*ts, split: bool = False):
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
 
 
+def takes_cluster16(kind: str, head_dim: int) -> bool:
+    """Whether a 16-bit launch of ``kind`` ("fwd", "fwd_single", "prefill"
+    (a B12 chunk of S_new > 1), "bwd_dkv", "bwd_dq") at the padded head
+    dim ``head_dim`` takes its thread-block cluster form: B10 past
+    ``COLS_HEAD_DIM`` up to ``BWD16_CLUSTER_MAX_D``; B8, B9 (past
+    ``FWD16_SINGLE_MIN_D``) and the chunks up to ``FWD16_CLUSTER_MAX_D``
+    but in ``FWD16_COLS_BAND`` (lo, hi];
+    B11 past ``BWD16_DQ_CLUSTER_MIN_D`` up to ``FWD16_CLUSTER_MAX_D``. The
+    C entry points decide; this mirrors them."""
+    if kind == "bwd_dkv":
+        return COLS_HEAD_DIM < head_dim <= BWD16_CLUSTER_MAX_D
+    if kind == "bwd_dq":
+        return BWD16_DQ_CLUSTER_MIN_D < head_dim <= FWD16_CLUSTER_MAX_D
+    if kind not in ("fwd", "fwd_single", "prefill"):
+        return False
+    lo, hi = FWD16_COLS_BAND
+    first = FWD16_SINGLE_MIN_D if kind == "fwd_single" else COLS_HEAD_DIM
+    return (first < head_dim <= FWD16_CLUSTER_MAX_D
+            and not lo < head_dim <= hi)
+
+
 def _took_route():
     """Count the route the last launch took, as the C entry point reported
     it."""
@@ -233,7 +276,8 @@ def _took_route():
     key = (route, _DTYPE_NAMES.get((code >> 12) & 15, "unknown"),
            code & 0xFFF)
     route_launches[key] = route_launches.get(key, 0) + 1
-    base = route.removesuffix("_cols")   # the tensor-core counters: both forms
+    # the tensor-core counters: every form
+    base = route.removesuffix("_cols").removesuffix("_cluster")
     if base == "fwd_wgmma":
         fwd_wgmma_launches += 1
     elif base == "fwd_single_wgmma":

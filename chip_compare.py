@@ -7,7 +7,7 @@ B12 prefill).
 
 Run from the root of a checkout:
 
-    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32|fwd_wide|wide16] [TREE ...]
+    python3 chip_compare.py [--part all|stream|model|bwd|bwd_wide|fwd32|fwd_wide|wide16|band16] [TREE ...]
 
 ``--part stream`` times the stream kernels only (no model is built);
 ``--part model`` B9, decode and the forward only; ``--part bwd`` B10
@@ -15,8 +15,13 @@ and B11 only; ``--part bwd_wide`` the f32 B10 and B11 past head dim 256;
 ``--part fwd32`` the forward's f32 route beside SDPA's f32 forward, with
 the bf16 routes and decode at the same shapes as controls; ``--part
 fwd_wide`` the f32 forward past head dim 256; ``--part wide16`` the
-16-bit B10, B11 and single-token decode past head dim 256; the default
-is all but ``bwd_wide``, ``fwd32``, ``fwd_wide`` and ``wide16``.
+16-bit B8, B9, B12 (chunks and single-token decode), B10 and B11 past
+head dim 256; ``--part band16`` the 16-bit B8, B9 and B11 at the head
+dims past 256 where the dispatch keeps the column groups, on the
+cluster forms' measurement entry points where the tree has them; the
+default
+is all but ``bwd_wide``, ``fwd32``, ``fwd_wide``, ``wide16`` and
+``band16``.
 
 Each TREE is the root of a checkout of this repository (default: this
 one). Each runs in a process of its own, in the order given, so that
@@ -53,7 +58,8 @@ card's name and power limit and:
   H=32, Hkv=8, S=2048, D=128, causal): B10 ``flash_attention_bwd_dkv``
   and B11 ``flash_attention_bwd_dq`` in f32 and bf16 on the operands the
   forward gives (its LSE, delta from O), the median device time of 20
-  launches and the largest error against the plain version, and
+  launches, the largest error against the plain version and a SHA-256
+  of the outputs' bits, and
   PyTorch's SDPA backward (dq, dk and dv together, f32 and bf16, with
   ``allow_tf32`` off), the pair's yardstick;
 - the bwd_wide part, at phase 17a's shapes past head dim 256 (Gemma-2B's
@@ -76,7 +82,8 @@ card's name and power limit and:
   and S=512 and as B8 at S=2048, and the f32 prefill (``flash_decode``,
   S_new = kv_len = 1024 of T = 1024), each the median device time of 20
   launches behind the GPU sleep, the largest error against the plain
-  version on the same inputs, and PyTorch's SDPA forward on the same f32
+  version on the same inputs, a SHA-256 of the outputs' bits, and
+  PyTorch's SDPA forward on the same f32
   inputs with ``allow_tf32`` off (timed only); then the same calls in
   bf16 and the single-token decode (bf16 and f32, kv_len 2047 of T =
   4096), whose kernels the f32 route does not share;
@@ -95,18 +102,22 @@ card's name and power limit and:
   and the cluster size at that head dim;
 - the wide16 part, at phase 17a's shapes past head dim 256 (Gemma-2B's
   heads, H=8, Hkv=1, B=4, causal; ``WIDE16_CASES``) and at the D 512
-  Llama's (B=1): bf16 B10 and B11 (S 2048 at D 264 and 512, S 1024 at D
-  1024; the Llama's S 2048) on the operands the plain forward gives,
-  and the bf16 single-token decode (kv_len 2047 of 4096 at D 264 and
-  512, 1023 of 1024 at D 1024 and 2048; the Llama's 2063 of 2064): each
-  the median device time of 5 launches (decode 20) behind the GPU sleep
-  beside its bound (B10 8*D, B11 6*D operations a visible score at 989
-  TFLOP/s; the decode its K and V prefix over 3.35 TB/s), the route it
-  reported, the largest error against the plain version, a SHA-256 of
-  the outputs' bits, the plain version (median of 3), PyTorch's SDPA
-  (the backward's three gradients together, or the decode's forward;
-  its math backend at these head dims and heads) and, where the tree
-  has the 16-bit cluster form, the clusters of it the card holds.
+  Llama's (B=1): bf16 B8 (S 2048 at D 264 and 512, S 1024 at D 1024 and
+  2048; the Llama's S 2048), B9 (S 512), the B12 chunk (S_new 1024 over
+  as many cached keys; the Llama's 2048 of a 2064-row cache), B10 and
+  B11 (S 2048 at D 264 and 512, S 1024 at D 1024 and 2048; the Llama's
+  S 2048) on the operands the plain forward gives, and the bf16
+  single-token decode (kv_len 2047 of 4096 at D 264 and 512, 1023 of
+  1024 at D 1024 and 2048; the Llama's 2063 of 2064): each the median
+  device time of 5 launches (decode 20) behind the GPU sleep beside its
+  bound (B8, B9 and the chunk 4*D, B10 8*D, B11 6*D operations a visible
+  score at 989 TFLOP/s; the decode its K and V prefix over 3.35 TB/s),
+  the route it reported, the largest error against the plain version, a
+  SHA-256 of the outputs' bits, the plain version (median of 3),
+  PyTorch's SDPA (the forward, the backward's three gradients together,
+  or the decode's forward; its math backend at these head dims and
+  heads) and, where the tree has a 16-bit cluster form at that head dim,
+  the clusters of it the card holds.
 
 It uses only the entry points every version of the port has
 (``ops.combine.combine``, ``ops.compression.cast``, ``fp8_scale``,
@@ -128,7 +139,7 @@ import time
 SEED = 20261017
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32", "fwd_wide",
-         "wide16")
+         "wide16", "band16")
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16
 TF32_OPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
 # the bwd_wide part's (head dim, sequence length): the cluster form's
@@ -195,6 +206,17 @@ def ptxas_report(log: str) -> dict:
             rep.setdefault(name, [0, 0])[1] = int(m.group(1)) + int(
                 m.group(2))
     return rep
+
+
+def sha_of(ts) -> str:
+    """The first 16 hex digits of a SHA-256 of the tensors' bits."""
+    import torch
+    d = hashlib.sha256()
+    for t in ts:
+        d.update(t.contiguous().view(torch.int16 if t.element_size() == 2
+                                     else torch.int32).cpu().numpy()
+                 .tobytes())
+    return d.hexdigest()[:16]
 
 
 def timed(ms: float, nbytes: int, library_ms: float | None = None) -> dict:
@@ -375,10 +397,13 @@ def bwd_part(out: dict) -> None:
                  A.flash_attention_bwd_dkv_ref),
                 ("b11", lambda *a: (A.flash_attention_bwd_dq(*a),),
                  lambda *a: (A.flash_attention_bwd_dq_ref(*a),))):
+            got = fn(*args)
             err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(fn(*args), ref(*args)))
+                      for a, b in zip(got, ref(*args)))
             out[f"{key}_{name}"] = {"ms": time_ms(
-                lambda: fn(*args)), "max_abs_err": err}  # noqa: B023
+                lambda: fn(*args)), "max_abs_err": err,  # noqa: B023
+                "sha256": sha_of(got)}
+            del got
         out[f"pair_{name}_ms"] = (out[f"b10_{name}"]["ms"]
                                   + out[f"b11_{name}"]["ms"])
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -482,7 +507,8 @@ def fwd32_part(out: dict) -> None:
             ro, rl = A.flash_attention_ref(q, k, v, True)
             rec = {"ms": time_ms(lambda: A.flash_attention_fwd(
                 q, k, v, True)),  # noqa: B023
-                "max_abs_err": max(err_of(o, ro), err_of(lse, rl))}
+                "max_abs_err": max(err_of(o, ro), err_of(lse, rl)),
+                "sha256": sha_of((o, lse))}
             if dt == torch.float32:
                 rec["sdpa_ms"] = time_ms(
                     lambda: F.scaled_dot_product_attention(  # noqa: B023
@@ -498,7 +524,8 @@ def fwd32_part(out: dict) -> None:
             rec = {"ms": time_ms(lambda: A.flash_decode(
                 q, kc, vc, kv_len)),  # noqa: B023
                 "max_abs_err": err_of(o, A.flash_decode_ref(q, kc, vc,
-                                                            kv_len))}
+                                                            kv_len)),
+                "sha256": sha_of((o,))}
             if dt == torch.float32 and s_new > 1:
                 kt, vt = A.cache_prefix(kc, vc, kv_len)
                 rec["sdpa_ms"] = time_ms(
@@ -580,9 +607,21 @@ def fwd_wide_part(out: dict) -> None:
 # the wide16 part's calls, bf16, H 8, Hkv 1: (name, kind, D, S or S_new,
 # kv length, cache T, B)
 WIDE16_CASES = (
+    ("b8_d264_s2048", "fwd", 264, 2048, 2048, None, 4),
+    ("b8_d512_s2048", "fwd", 512, 2048, 2048, None, 4),
+    ("b8_d1024_s1024", "fwd", 1024, 1024, 1024, None, 4),
+    ("b8_d2048_s1024", "fwd", 2048, 1024, 1024, None, 4),
+    ("b9_d264_s512", "fwd_single", 264, 512, 512, None, 4),
+    ("b9_d512_s512", "fwd_single", 512, 512, 512, None, 4),
+    ("prefill_d264_s1024", "prefill", 264, 1024, 1024, 1024, 4),
+    ("prefill_d512_s1024", "prefill", 512, 1024, 1024, 1024, 4),
+    ("llama_d512_b8_s2048", "fwd", 512, 2048, 2048, None, 1),
+    ("llama_d512_b9_s512", "fwd_single", 512, 512, 512, None, 1),
+    ("llama_d512_prefill_s2048", "prefill", 512, 2048, 2048, 2064, 1),
     ("bwd_d264_s2048", "bwd", 264, 2048, 2048, None, 4),
     ("bwd_d512_s2048", "bwd", 512, 2048, 2048, None, 4),
     ("bwd_d1024_s1024", "bwd", 1024, 1024, 1024, None, 4),
+    ("bwd_d2048_s1024", "bwd", 2048, 1024, 1024, None, 4),
     ("llama_d512_bwd_s2048", "bwd", 512, 2048, 2048, None, 1),
     ("decode_d264_kv2047", "decode", 264, 1, 2047, 4096, 4),
     ("decode_d512_kv2047", "decode", 512, 1, 2047, 4096, 4),
@@ -592,7 +631,7 @@ WIDE16_CASES = (
 
 
 def wide16_part(out: dict) -> None:
-    """The bf16 B10, B11 and decode past head dim 256 (module
+    """The bf16 B8, B9, B12, B10 and B11 past head dim 256 (module
     docstring)."""
     import torch
     import torch.nn.functional as F
@@ -601,6 +640,8 @@ def wide16_part(out: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     lib = _build.library()
     clusters = getattr(lib, "accl_attn_bwd_dkv16_active_clusters", None)
+    fwd_clusters = getattr(lib, "accl_attn_fwd16_active_clusters", None)
+    dq_clusters = getattr(lib, "accl_attn_bwd_dq16_active_clusters", None)
     dt, H, Hkv = torch.bfloat16, 8, 1
 
     def digest_of(ts) -> str:
@@ -615,9 +656,55 @@ def wide16_part(out: dict) -> None:
         code = lib.accl_attn_last_route()
         return f"{A.ROUTES.get(code >> 16, code >> 16)}/{code & 0xFFF}"
 
+    def active(fn, D) -> dict:
+        """The clusters of a 16-bit cluster form the card holds at D (a
+        multiple of 128), where the tree has that form."""
+        n = fn(-(-D // 128) * 128) if fn is not None else 0
+        return {"active_clusters": n} if n > 0 else {}
+
     for name, kind, D, sq, kv, T, B in WIDE16_CASES:
         q = torch.randn(B, H, sq, D, device="cuda", generator=g).to(dt)
         rec = {}
+        if kind in ("fwd", "fwd_single", "prefill"):
+            if T is None:                     # B8 (block_k 16) and B9
+                k, v = (torch.randn(B, Hkv, kv, D, device="cuda",
+                                    generator=g).to(dt) for _ in range(2))
+                bk = 16 if kind == "fwd" else None
+                assert A.is_single_block(kv, bk) == (kind == "fwd_single")
+                fn = lambda: A.flash_attention_fwd(  # noqa: E731
+                    q, k, v, True, block_k=bk)  # noqa: B023
+                ref = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa
+                    q, k, v, is_causal=True, enable_gqa=True)
+                visible = sq * (sq + 1) // 2 * B * H
+            else:                             # a B12 chunk over the cache
+                kc, vc = (torch.randn(B, T, Hkv, D, device="cuda",
+                                      generator=g).to(dt) for _ in range(2))
+                fn = lambda: (A.flash_decode(q, kc, vc, kv),)  # noqa
+                ref = lambda: (A.flash_decode_ref(q, kc, vc, kv),)  # noqa
+                kt, vt = A.cache_prefix(kc, vc, kv)
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa
+                    q, kt, vt, is_causal=True, enable_gqa=True)  # noqa: B023
+                visible = (sq * (kv - sq) + sq * (sq + 1) // 2) * B * H
+            got = fn()
+            r = route()
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, ref()))
+            sha = digest_of(got)
+            del got
+            ms = time_ms(fn, reps=5)
+            bound = 4 * D * visible / BF16_OPS_PER_S * 1e3
+            rec = {"ms": ms, "bound_ms": bound,
+                   "pct_of_bound": 100 * bound / ms, "route": r,
+                   "max_abs_err": err, "sha256": sha,
+                   "plain_ms": time_ms(ref, reps=3),
+                   "sdpa_ms": time_ms(sdpa, reps=5),
+                   **(active(fwd_clusters, D) if "cluster" in r else {})}
+            rec["vs_sdpa"] = ms / rec["sdpa_ms"]
+            out[name] = rec
+            del q, fn, ref, sdpa
+            torch.cuda.empty_cache()
+            continue
         if kind == "bwd":
             do = torch.randn(q.shape, device="cuda", generator=g).to(dt)
             k, v = (torch.randn(B, Hkv, kv, D, device="cuda", generator=g)
@@ -645,6 +732,8 @@ def wide16_part(out: dict) -> None:
                             "max_abs_err": err, "sha256": sha,
                             "plain_ms": time_ms(lambda: ref(*args),  # noqa: B023
                                                 reps=3)}
+                if key == "b11" and "cluster" in r:
+                    rec[key].update(active(dq_clusters, D))
                 torch.cuda.empty_cache()
             rec["pair_ms"] = rec["b10"]["ms"] + rec["b11"]["ms"]
             lq, lk, lv = (t.detach().clone().requires_grad_()
@@ -685,6 +774,88 @@ def wide16_part(out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# the band16 part's calls, bf16, H 8, Hkv 1, causal: (name, kind, D, S, B):
+# the head dims past 256 where the dispatch keeps the column groups
+BAND16_CASES = (
+    ("b8_d640_s1024", "fwd", 640, 1024, 4),
+    ("b8_d768_s1024", "fwd", 768, 1024, 4),
+    ("b9_d264_s512", "fwd_single", 264, 512, 4),
+    ("b11_d264_s2048", "bwd_dq", 264, 2048, 4),
+    ("b11_d512_s2048", "bwd_dq", 512, 2048, 4),
+    ("b11_d640_s1024", "bwd_dq", 640, 1024, 4),
+    ("llama_d512_b11_s2048", "bwd_dq", 512, 2048, 1))
+
+
+def band16_part(out: dict) -> None:
+    """The 16-bit B8, B9 and B11 at the head dims past 256 where the
+    dispatch keeps the column groups (module docstring): a tree with the
+    cluster forms' measurement entry points (``accl_attn_fwd16_cluster``,
+    ``accl_attn_bwd_dq16_cluster``) runs the cluster form there, any
+    other tree its wrapper's route; each the median device time of 5
+    launches behind the GPU sleep, the route and the largest error
+    against the plain version."""
+    import torch
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.ops import attention as A
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    lib = _build.library()
+    fwd_hook = getattr(lib, "accl_attn_fwd16_cluster", None)
+    dq_hook = getattr(lib, "accl_attn_bwd_dq16_cluster", None)
+    dt, H, Hkv = torch.bfloat16, 8, 1
+    for name, kind, D, S, B in BAND16_CASES:
+        q, do = (torch.randn(B, H, S, D, device="cuda", generator=g).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g).to(dt)
+                for _ in range(2))
+        st = _build.stream_of(q)
+        # the entry points' calls do the wrapper's work too: the padding of
+        # D to a multiple of 128 and the outputs sliced back
+        if kind != "bwd_dq":
+            bk = 16 if kind == "fwd" else None
+
+            def fn():
+                if fwd_hook is None:
+                    return A.flash_attention_fwd(q, k, v, True, block_k=bk)
+                qp, kp, vp = A._pad_d(q, k, v)
+                o = torch.empty_like(qp)
+                lse = torch.empty(B * H, S, dtype=torch.float32,
+                                  device="cuda")
+                _build.check(fwd_hook(
+                    1, qp.shape[-1], qp.data_ptr(), kp.data_ptr(),
+                    vp.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Hkv,
+                    S, S, 1, D ** -0.5, st), name)
+                return (o if o.shape[-1] == D
+                        else o[..., :D].contiguous()), lse
+            got = fn()[0]
+            want = A.flash_attention_ref(q, k, v, True)[0]
+        else:
+            _o, rl = A.flash_attention_ref(q, k, v, True)
+            delta = (do.float() * _o.float()).sum(-1).reshape(B * H, S)
+            args = (q, do, k, v, rl, delta, True, D ** -0.5)
+
+            def fn():
+                if dq_hook is None:
+                    return A.flash_attention_bwd_dq(*args)
+                qp, dop, kp, vp = A._pad_d(q, do, k, v)
+                dq = torch.empty_like(qp)
+                _build.check(dq_hook(
+                    1, qp.shape[-1], qp.data_ptr(), dop.data_ptr(),
+                    kp.data_ptr(), vp.data_ptr(), rl.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), B, H, Hkv, S, S, 1,
+                    D ** -0.5, st), name)
+                return dq if dq.shape[-1] == D else dq[..., :D].contiguous()
+            got = fn()
+            want = A.flash_attention_bwd_dq_ref(*args)
+        code = lib.accl_attn_last_route()
+        out[name] = {"ms": time_ms(fn, reps=5),
+                     "route": f"{A.ROUTES.get(code >> 16, code >> 16)}/"
+                              f"{code & 0xFFF}",
+                     "max_abs_err": float((got.float() - want.float())
+                                          .abs().max())}
+        del q, do, k, v, got, want
+        torch.cuda.empty_cache()
+
+
 def one(tree: str, part: str) -> dict:
     """The measurements of one tree's port (in this process)."""
     sys.path.insert(0, os.path.abspath(tree))
@@ -706,6 +877,8 @@ def one(tree: str, part: str) -> dict:
         fwd_wide_part(out)
     if part == "wide16":
         wide16_part(out)
+    if part == "band16":
+        band16_part(out)
     return out
 
 

@@ -3468,7 +3468,7 @@ def wgmma_kernels_checked():
             print(f"  ptxas: {ln.strip()}")
             # ptxas waits out each wgmma before the next (C7515)
             need("serialized" not in ln or not any(
-                k in ln for k in WGMMA_KERNELS + (CLUSTER_WGMMA_KERNEL,)),
+                k in ln for k in WGMMA_KERNELS + CLUSTER_WGMMA_KERNELS),
                 "a tensor-core kernel's wgmma were serialized by ptxas")
 
 
@@ -3509,8 +3509,11 @@ def tf32_kernels_checked():
 # instantiation per element type, and the f32 ones (the f32 backward's
 # cluster form to D 4096, its column-group form past it)
 # the 16-bit B10's cluster form (head dims 256 < D <= 1024)
-CLUSTER_WGMMA_KERNEL = "attn_bwd_dkv_cluster_wgmma_kernel"
-COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel", CLUSTER_WGMMA_KERNEL,
+# and B8, B9, the B12 chunks and B11 (256 < D <= 2048)
+CLUSTER_WGMMA_KERNELS = ("attn_bwd_dkv_cluster_wgmma_kernel",
+                         "attn_fwd_cluster_wgmma_kernel",
+                         "attn_bwd_dq_cluster_wgmma_kernel")
+COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel", *CLUSTER_WGMMA_KERNELS,
                       "attn_bwd_dkv_cols_wgmma_kernel",
                       "attn_bwd_dq_cols_wgmma_kernel")
 COLS_TF32_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
@@ -8109,7 +8112,7 @@ HEAD_DIM_CASES = (("Gemma-2B", 8, 1, 256), ("Phi-2", 32, 32, 80),
                   ("Phi-3-mini", 32, 32, 96))
 HD_B, HD_S, HD_B9_S = 4, 2048, 512     # B8, B10/B11 at 2048; B9 at 512
 HD_T, HD_KV, HD_PREFILL = 4096, 2047, 1024   # decode and prefill
-WIDE_DIMS = (264, 512)     # head dims past 256: the column-group forms
+WIDE_DIMS = (264, 512)     # head dims past 256: the cluster forms
 WIDE_MAX_D, WIDE_S = 1024, 1024
 # the f32 B10/B11's cluster form (attention_bwd.cu): its last head dim
 # (CLUSTER_MAX_D) and the slices a block holds (cluster_ns: 2 to 1024, 4
@@ -8129,6 +8132,10 @@ SPLIT_MAX_D = 2048
 # the 16-bit B10's cluster form (attention_bwd_sm90.cu): its last head dim
 # (BWD16_CLUSTER_MAX_D); past it the column-group kernel
 BWD16_CLUSTER_MAX_D = 1024
+# the kinds with a 16-bit cluster form of 256-column slices (B8, B9, the
+# B12 chunks: attention_sm90.cu; B11: attention_bwd_sm90.cu), at the head
+# dims ops.attention.takes_cluster16 names
+CLUSTER16_KINDS = ("fwd", "fwd_single", "prefill", "bwd_dq")
 
 
 def f32_cluster_ns(d: int) -> int:
@@ -8162,8 +8169,11 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     16-bit: 128 for B10's dK and dV, else 256), except the decode, which
     takes the wide split kernel to ``SPLIT_MAX_D`` on every dtype (its
     tier 512, 1024 or 2048), and the 16-bit B10 to
-    ``BWD16_CLUSTER_MAX_D``, which takes its cluster form
-    ("bwd_dkv_wgmma_cluster", tier 128: a block's slice)."""
+    ``BWD16_CLUSTER_MAX_D`` and B8, B9, the B12 chunks and B11 where
+    ``ops.attention.takes_cluster16`` says (past 256 to 2048 but for some
+    head dims the column groups keep), which take their cluster forms
+    ("<kind>_wgmma_cluster", tier a block's slice: 128 for B10, 256 for
+    the others)."""
     d = -(-D // 8) * 8
     f32 = dtype == "float32"
     if kind == "decode" and 256 < d <= SPLIT_MAX_D:
@@ -8171,6 +8181,10 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
                                            if d <= t)
     if not f32 and kind == "bwd_dkv" and 256 < d <= BWD16_CLUSTER_MAX_D:
         return "bwd_dkv_wgmma_cluster", dtype, 128
+    from accl_tpu_torch.ops import attention as A
+    if (not f32 and kind in CLUSTER16_KINDS
+            and A.takes_cluster16(kind, -(-d // 128) * 128)):
+        return f"{kind}_wgmma_cluster", dtype, 256
     if d > 256:                  # the column-group forms, by group width
         tier = ((64 * f32_cluster_ns(d)
                  if kind != "decode" and d <= F32_CLUSTER_MAX_D else 64)
@@ -8236,8 +8250,9 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         err, ratio = hold_attn(o, ref, f"{kind} {dname} D={D}", lse, rl,
                                fwd_route_mag("fwd", (q, k, v, True)))
         kern = lambda: A.flash_attention_fwd(q, k, v, True, None, None, bk)  # noqa
-        if dname == "float32" and D > 256:   # the cluster form's repeat
-            need_repeat(kern, (o, lse), f"{kind} f32 D={D}")
+        if D > 256 and (dname == "float32" or A.takes_cluster16(
+                kind, -(-D // 128) * 128)):   # the cluster forms' repeat
+            need_repeat(kern, (o, lse), f"{kind} {dname} D={D}")
             out["repeat"] = "bitwise"
         plain = lambda: A.flash_attention_ref(q, k, v, True)  # noqa
         lib = lambda: F.scaled_dot_product_attention(  # noqa
@@ -8257,7 +8272,9 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
                                mag=fwd_route_mag("decode", (q, kc, vc, skv)))
         kern = lambda: A.flash_decode(q, kc, vc, skv)  # noqa
         if D > 256 and (dname == "float32" or kind == "decode" and
-                        D <= SPLIT_MAX_D):   # the cluster form, wide split
+                        D <= SPLIT_MAX_D or A.takes_cluster16(
+                            kind, -(-D // 128) * 128)):
+            # the cluster forms, the wide split
             need_repeat(kern, o, f"{kind} {dname} D={D}")
             out["repeat"] = "bitwise"
         plain = lambda: A.flash_decode_ref(q, kc, vc, skv)  # noqa
@@ -8374,7 +8391,7 @@ def case_line(kind, dt, B, H, Hkv, D, sq, skv, r, T=None, model="") -> str:
 
 
 def wide_edges(g):
-    """The column-group forms (D 264 and 512, every dtype) at ragged and
+    """The forms past 256 (D 264 and 512, every dtype) at ragged and
     uneven shapes, each on the route it must report and held against its
     plain version: B8 at S = 300 causal (q tiles and key tiles past S) and
     Sq 200 against Skv 300 unmasked; B9 over one block at S = 100 causal
@@ -8413,9 +8430,9 @@ def wide_edges(g):
                 ro, rl = A.flash_attention_ref(q, k, v, causal)
                 hold_attn(o, ro, what, lse, rl, fwd_route_mag(
                     "fwd", (q, k, v, causal, None, None, bk)))
-                if dt == torch.float32:
-                    need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
-                        q, k, v, causal, block_k=bk), (o, lse), what)  # noqa: B023
+                # f32's cluster form and the 16-bit cluster form
+                need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+                    q, k, v, causal, block_k=bk), (o, lse), what)  # noqa: B023
                 if not single:
                     do = rnd(B, H, Sq, D)
                     delta = (do.float() * o.float()).sum(-1).reshape(B * H,
@@ -8449,9 +8466,9 @@ def wide_edges(g):
                     hold_attn(o, A.flash_decode_ref(q, kc, vc, kv_len), what,
                               mag=fwd_route_mag("decode", (q, kc, vc,
                                                            kv_len)))
-                    if s_new == 1:            # the wide split decode
-                        need_repeat(lambda: A.flash_decode(  # noqa: B023
-                            q, kc, vc, kv_len), o, what)  # noqa: B023
+                    # the wide split decode, the 16-bit cluster chunks
+                    need_repeat(lambda: A.flash_decode(  # noqa: B023
+                        q, kc, vc, kv_len), o, what)  # noqa: B023
                     n += 1
     w = wide16_edges(g)
     m = f = 0
@@ -8515,11 +8532,13 @@ def wide_edges(g):
                 need_repeat(lambda: A.flash_decode(  # noqa: B023
                     q, kc, vc, kv_len), o, what)  # noqa: B023
                 f += 1
-    print(f"wide edges: the column-group forms over {n} ragged, uneven "
+    print(f"wide edges: the forms past 256 over {n} ragged, uneven "
           f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16 (16-bit "
           f"B10 on the cluster form, the decode on the wide split, each "
-          f"bitwise on a repeat); 16-bit B10 at D {WIDE16_BWD_DIMS} and "
-          f"decode at D {WIDE16_DECODE_DIMS} over {w} more; the "
+          f"bitwise on a repeat); 16-bit B8 at D "
+          f"{sorted(set(WIDE16_BWD_DIMS) | set(WIDE16_CLUSTER_DIMS))}, B10 at "
+          f"D {WIDE16_BWD_DIMS}, B11 at D {WIDE16_CLUSTER_DIMS} and decode at "
+          f"D {WIDE16_DECODE_DIMS} over {w} more; the "
           f"f32 forward (the cluster form, the wide split decode) over {f} "
           f"and the f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on "
           f"its route, within its limit and (f32) bitwise on a repeat")
@@ -8527,16 +8546,20 @@ def wide_edges(g):
 
 # 16-bit head dims of wide_edges past 512: B10 on the cluster form's other
 # sizes (5, 6, 7 blocks) and past it (D 1032, the column-group kernel);
+# B8 and B11 at clusters of 3 (D 640 and 768: the column groups but B11
+# at 768), 5, 6, 7 and 8 blocks (D 1280 to 2048) and past them (D 2056);
 # the decode on the wide split's last two tiers and past it (D 2056, the
 # prefill form at S_new = 1)
 WIDE16_BWD_DIMS = (640, 768, 896, 1032)
+WIDE16_CLUSTER_DIMS = (640, 768, 1280, 1536, 1792, 2048, 2056)
 WIDE16_DECODE_DIMS = (1024, 2048, 2056)
 
 
 def wide16_edges(g) -> int:
-    """bf16 and f16 B10 at ``WIDE16_BWD_DIMS`` on the ragged causal and
-    the uneven unmasked shape of ``wide_edges`` (O and the LSE from B8),
-    and the single-token decode at ``WIDE16_DECODE_DIMS`` over a 320-row
+    """bf16 and f16 B8 (O and the LSE), B10 at ``WIDE16_BWD_DIMS`` and B11
+    at ``WIDE16_CLUSTER_DIMS`` on the ragged causal and the uneven
+    unmasked shape of ``wide_edges`` (B10 and B11 on B8's O and LSE), and
+    the single-token decode at ``WIDE16_DECODE_DIMS`` over a 320-row
     cache with NaN past kv_len 1, 65 and 300 (16/2 and 2/2 heads: eight
     rows and one of a kv head a block), each on its route, held against
     its plain version and bitwise on a repeat. Returns the case count."""
@@ -8549,22 +8572,35 @@ def wide16_edges(g) -> int:
         def rnd(*shape, dt=dt):
             return torch.randn(*shape, device="cuda", generator=g).to(dt)
 
-        for D in WIDE16_BWD_DIMS:
+        for D in sorted(set(WIDE16_BWD_DIMS) | set(WIDE16_CLUSTER_DIMS)):
             for B, H, Hkv, Sq, Skv, causal in ((1, 2, 1, 300, 300, True),
                                                (1, 4, 2, 200, 300, False)):
                 q, do = rnd(B, H, Sq, D), rnd(B, H, Sq, D)
                 k, v = rnd(B, Hkv, Skv, D), rnd(B, Hkv, Skv, D)
+                what = f"wide16 {dname} D={D} {(B, H, Hkv, Sq, Skv, causal)}"
+                before = dict(A.route_launches)
                 o, lse = A.flash_attention_fwd(q, k, v, causal)
+                need_one_route(before, "fwd", dname, D, what)
+                ro, rl = A.flash_attention_ref(q, k, v, causal)
+                hold_attn(o, ro, what, lse, rl,
+                          fwd_route_mag("fwd", (q, k, v, causal)))
+                need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+                    q, k, v, causal), (o, lse), what)  # noqa: B023
                 delta = (do.float() * o.float()).sum(-1).reshape(B * H, Sq)
                 args = (q, do, k, v, lse, delta, causal, D ** -0.5)
-                what = (f"wide16 bwd_dkv {dname} D={D} "
-                        f"{(B, H, Hkv, Sq, Skv, causal)}")
-                before = dict(A.route_launches)
-                dkv = A.flash_attention_bwd_dkv(*args)
-                need_one_route(before, "bwd_dkv", dname, D, what)
-                hold_bwd_outputs(args, dkv, what)
-                need_repeat(lambda: A.flash_attention_bwd_dkv(*args),  # noqa: B023
-                            dkv, what)
+                for kind, fn, on in (
+                        ("bwd_dkv", A.flash_attention_bwd_dkv,
+                         WIDE16_BWD_DIMS),
+                        ("bwd_dq", lambda *a: (A.flash_attention_bwd_dq(*a),),
+                         WIDE16_CLUSTER_DIMS)):
+                    if D not in on:
+                        continue
+                    before = dict(A.route_launches)
+                    outs = fn(*args)
+                    need_one_route(before, kind, dname, D, f"{what} {kind}")
+                    hold_bwd_outputs(args, outs, f"{what} {kind}")
+                    need_repeat(lambda: fn(*args), outs,  # noqa: B023
+                                f"{what} {kind}")
                 n += 1
         for D in WIDE16_DECODE_DIMS:
             for kv_len in (1, 65, 300):
@@ -8659,12 +8695,35 @@ def two_stream_phase():
          f"same calls alone: {bad}")
 
 
+def cluster16_occupancy() -> str:
+    """The clusters of each 16-bit cluster form the card holds at once
+    (cudaOccupancyMaxActiveClusters, one block an SM), by blocks a
+    cluster: B8/B9/B12 chunks and B11 at D = 256 C (C 2 to 8; the form's
+    shape, also where the dispatch keeps the column groups), B10 at D =
+    128 C (C 3 to 8)."""
+    from accl_tpu_torch import _build
+    lib = _build.library()
+    fwd = {c: lib.accl_attn_fwd16_active_clusters(256 * c)
+           for c in range(2, 9)}
+    dq = {c: lib.accl_attn_bwd_dq16_active_clusters(256 * c)
+          for c in range(2, 9)}
+    dkv = {c: lib.accl_attn_bwd_dkv16_active_clusters(128 * c)
+           for c in range(3, 9)}
+    need(all(n > 0 for d in (fwd, dq, dkv) for n in d.values()),
+         f"16-bit cluster forms: a cluster size the card cannot hold: "
+         f"{fwd} {dq} {dkv}")
+    return (f"16-bit cluster forms, clusters the card holds at once by "
+            f"blocks a cluster: B8/B9/B12 chunks {fwd}, B11 {dq}, B10 {dkv}")
+
+
 def head_dim_phase() -> list:
     """17a: B8-B12 at the head layouts of Gemma-2B (D = 256, H = 8,
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
-    on f32, bf16 and f16; the column-group forms at Gemma-2B's heads with
+    on f32, bf16 and f16; the forms past 256 at Gemma-2B's heads with
     D = 264 and 512 (every kind and dtype) and D = 1024 at S = 1024 (B8,
-    B10/B11 and decode in bf16 and f32), f32 B8 and B10/B11 at D = 776,
+    B10/B11 and decode in bf16, f16 and f32), the wide edges and the
+    16-bit cluster forms' occupancy (``cluster16_occupancy``), f32 B8 and
+    B10/B11 at D = 776,
     1032, 2048 and 4096, S = 1024 (``F32_BWD_ROW_DIMS``: each tier of the
     cluster form), the f32 and bf16 decode at D = 2048 (``SPLIT_MAX_D``,
     the wide split's last); the f32 kernels past the cluster form at D =
@@ -8695,8 +8754,10 @@ def head_dim_phase() -> list:
                                 model))
             gc.collect()
             torch.cuda.empty_cache()
-    # head dims past 256 at Gemma-2B's head layout: the column-group forms
+    # head dims past 256 at Gemma-2B's head layout: the cluster forms, the
+    # column groups and the wide split
     wide_edges(g)
+    print(cluster16_occupancy())
     for D in WIDE_DIMS:
         for dname in HALF_DTYPES:
             dt = getattr(torch, dname)
@@ -8712,7 +8773,7 @@ def head_dim_phase() -> list:
                                 "Gemma-2B heads"))
             gc.collect()
             torch.cuda.empty_cache()
-    for dname in ("bfloat16", "float32"):     # D = 1024 at S = 1024
+    for dname in HALF_DTYPES[1:] + HALF_DTYPES[:1]:  # D = 1024, S = 1024
         dt = getattr(torch, dname)
         for kind, sq, skv, T in (("fwd", WIDE_S, WIDE_S, None),
                                  ("bwd", WIDE_S, WIDE_S, None),
@@ -9018,13 +9079,17 @@ def head_dim_256_model_phase():
 
 
 # 17e: the Llama at D = 512 (dim 4096, 8 q heads, 1 kv head, Gemma-2B's
-# ffn), 2 layers; the column-group rows of the kernels line, each from
+# ffn), 2 layers; the rows past 256 of the kernels line, each from
 # its path at the path's shapes: (kind, S or S_new, kv length, cache T)
 D512_SEED, D512_F32_SEED = SEED + 185, SEED + 186
 D512_S, D512_F32_S, D512_NEW, D512_STEPS, D512_F32_STEPS = (2048, 1024, 16,
                                                             3, 2)
 # the 16-bit rows' names past the column-group form, by route
-D512_SUFFIX = {"decode_split": "_split", "bwd_dkv_wgmma_cluster": "_cluster"}
+D512_SUFFIX = {"decode_split": "_split", "bwd_dkv_wgmma_cluster": "_cluster",
+               "fwd_wgmma_cluster": "_cluster",
+               "fwd_single_wgmma_cluster": "_cluster",
+               "prefill_wgmma_cluster": "_cluster",
+               "bwd_dq_wgmma_cluster": "_cluster"}
 D512_RECORDS = {
     "attn_fwd": ("fwd", "accl_tpu/ops/attention.py:285"),
     "attn_fwd_single": ("fwd_single", "accl_tpu/ops/attention.py:252"),
@@ -9046,7 +9111,7 @@ def d512_config(dtype):
 
 
 def d512_records(dt, S: int, T: int, path: str, routes: dict) -> list:
-    """The column-group rows of the kernels line for ``dt``: each kind at
+    """The rows past 256 of the kernels line for ``dt``: each kind at
     the path's shapes (B 1, 8 q heads, 1 kv head, D 512; S, a cache of T
     rows), held against its plain version and timed (kernel_case), with
     the launches the path made on its route."""
@@ -9093,9 +9158,9 @@ def head_dim_512_model_phase() -> list:
     steps at (1, 2048) with f32 parameters, the losses falling. f32 (the
     3xTF32 routes): the same at 1024 tokens, two training steps. Every
     attention launch on its route past 256 (``route_launches`` against
-    ``tier_of``: the column-group forms, f32's cluster form and its wide
-    split decode).
-    Returns the kernels line's column-group rows."""
+    ``tier_of``: the 16-bit cluster forms (B11 the column groups at D
+    512), f32's cluster form and the wide split decode).
+    Returns the kernels line's rows past 256."""
     import dataclasses
     import torch
     from accl_tpu_torch.models import Llama
@@ -9166,7 +9231,7 @@ def head_dim_512_model_phase() -> list:
              == {tier_of(kind, str(dt)[6:], 512): per_run
                  for kind in ("bwd_dkv", "bwd_dq")},
              f"{path}: B10/B11 not once a layer a step on their "
-             f"column-group route: {routes}")
+             f"route past 256: {routes}")
         del model, step, tokens, out
         gc.collect()
         torch.cuda.empty_cache()
@@ -9312,7 +9377,7 @@ def main() -> int:
     by_path["training_f16"] = f16_training_phase()
     phase("phase 17d: the Llama at D = 256")
     head_dim_256_model_phase()
-    phase("phase 17e: the Llama at D = 512, the column-group routes")
+    phase("phase 17e: the Llama at D = 512, the routes past 256")
     wide_recs = head_dim_512_model_phase()
     phase("phase 10a: ring attention and Ulysses kernels")
     sp_attention_phase()
