@@ -15,12 +15,13 @@
 // thread.
 //
 // f16 and bf16 compute in f32 and round once; integers wrap (two's
-// complement), as XLA and torch do. fp8 (e4m3fn, e5m2) decodes each code
-// to f32, computes as f32 and encodes once with common.cuh's software
-// encode (the hardware cvt's satfinite form clamps where the reference
-// gives NaN or inf); NaN results take the reference's codes (OpFP8). A
-// thread-step is 16 fp8 values.
+// complement), as XLA and torch do. fp8 (e4m3fn, e5m2) takes a
+// thread-step as four 32-bit words of four codes each, on the hardware's
+// fp8 conversions (fp8_hw.cuh): SUM and PROD in f16 and encoded once,
+// which gives the reference's codes (f32 arithmetic, one encode) for
+// every pair, with its overflow and NaN codes; MAX and MIN on the codes.
 
+#include "fp8_hw.cuh"
 #include "stream.cuh"
 
 template <int F>
@@ -59,26 +60,13 @@ struct OpBF16 {
   }
 };
 
-// fp8 codes of wire W (W_E4M3, W_E5M2). NaN codes as XLA gives them: an
-// e5m2 NaN result is 0x7F; an e4m3fn SUM or PROD returns a NaN operand's
-// code (a's first), and MAX (MIN) of two NaNs the negative (positive)
-// one. Every other result is encode(f32 result): overflow to NaN (e4m3fn)
-// or inf (e5m2), round to nearest even.
+// fp8 codes of wire W (W_E4M3, W_E5M2), four a word (fp8_hw.cuh); the
+// scalar accesses of a ragged or unaligned row take a word's low byte
 template <int F, int W>
 struct OpFP8 {
   typedef uint8_t S;
   static __device__ __forceinline__ S apply(S a, S b) {
-    const float fa = decode(a, W), fb = decode(b, W);
-    const float r = apply_f32<F>(fa, fb);
-    if (W == W_E5M2) return r != r ? 0x7F : static_cast<S>(encode(r, W));
-    const bool na = fa != fa, nb = fb != fb;
-    if (F == F_SUM || F == F_PROD) {
-      if (na) return a;
-      if (nb) return b;
-    } else if (na && nb) {
-      return F == F_MAX ? (a | b) : (a & b);
-    }
-    return static_cast<S>(encode(r, W));
+    return static_cast<S>(fp8_apply4<F, W>(a, b));
   }
 };
 
@@ -95,6 +83,34 @@ struct OpInt {
   }
 };
 
+// Thread-step s of a vector row: 16 bytes of each operand, one access
+// each, and one apply an element
+template <typename Op, typename S>
+__device__ __forceinline__ void vector_step(Op, const S* pa, const S* pb,
+                                            S* po, long long s) {
+  typedef Pack<S, 16 / sizeof(S)> P;
+  P x = reinterpret_cast<const P*>(pa)[s];
+  const P y = reinterpret_cast<const P*>(pb)[s];
+#pragma unroll
+  for (int k = 0; k < 16 / int(sizeof(S)); ++k)
+    x.v[k] = Op::apply(x.v[k], y.v[k]);
+  reinterpret_cast<P*>(po)[s] = x;
+}
+
+// fp8: the 16 bytes as four words of four codes
+template <int F, int W>
+__device__ __forceinline__ void vector_step(OpFP8<F, W>, const uint8_t* pa,
+                                            const uint8_t* pb, uint8_t* po,
+                                            long long s) {
+  uint4 x = reinterpret_cast<const uint4*>(pa)[s];
+  const uint4 y = reinterpret_cast<const uint4*>(pb)[s];
+  x.x = fp8_apply4<F, W>(x.x, y.x);
+  x.y = fp8_apply4<F, W>(x.y, y.y);
+  x.z = fp8_apply4<F, W>(x.z, y.z);
+  x.w = fp8_apply4<F, W>(x.w, y.w);
+  reinterpret_cast<uint4*>(po)[s] = x;
+}
+
 template <typename Op>
 __global__ void combine_kernel(Rows a, Rows b, MutRows o, long long n) {
   typedef typename Op::S S;
@@ -105,13 +121,9 @@ __global__ void combine_kernel(Rows a, Rows b, MutRows o, long long n) {
   S* po = static_cast<S*>(o.p[blockIdx.y]);
   const bool vec =
       aligned_for<P>(pa) && aligned_for<P>(pb) && aligned_for<P>(po);
-  stream_tile<V>(vec, n, [&](long long s) {
-    P x = reinterpret_cast<const P*>(pa)[s];
-    const P y = reinterpret_cast<const P*>(pb)[s];
-#pragma unroll
-    for (int k = 0; k < V; ++k) x.v[k] = Op::apply(x.v[k], y.v[k]);
-    reinterpret_cast<P*>(po)[s] = x;
-  }, [&](long long i) { po[i] = Op::apply(pa[i], pb[i]); });
+  stream_tile<V>(
+      vec, n, [&](long long s) { vector_step(Op(), pa, pb, po, s); },
+      [&](long long i) { po[i] = Op::apply(pa[i], pb[i]); });
 }
 
 template <typename Op>

@@ -34,7 +34,11 @@ card's name and power limit and:
   8 Mi-element ring chunk): B1 ``combine`` SUM in f32 and bf16 in place
   beside ``torch.add(a, b, out=a)`` on the same bytes, and in f32 out of
   place as the ring calls it (``combine_sum_f32_out``, beside
-  ``torch.add(a, b, out=o)``); B2 ``cast`` in
+  ``torch.add(a, b, out=o)``); B1 on fp8 payloads (e4m3fn and e5m2,
+  random codes, SUM, MAX, MIN and PROD, out of place; bound 3 bytes an
+  element, no library call: ``torch.add`` takes no fp8; ``b1_sass``
+  counts the SASS instructions of its eight fp8 instantiations and of
+  the bf16 SUM's); B2 ``cast`` in
   six directions (f32 <-> f16, bf16, e4m3fn) beside ``.to(dtype)`` on
   the same rows; B3 (``fp8_scale``, its amax step, and ``fp8_quant``),
   B4 ``fp8_dequant``, B5 ``bs_quant``, B6 ``bs_dequant`` and B7
@@ -43,8 +47,11 @@ card's name and power limit and:
   9 bytes an element plus scales); and ``dst.copy_(src)`` over the
   same 8 x 8 Mi f32, the stream rate the card reaches on a plain copy.
   Each is the median device time of 20 launches behind the GPU sleep,
-  beside its bound (the bytes it must move over 3.35 TB/s). The ptxas
-  report of the B1, B2 and B7 kernels is printed from the build log;
+  beside its bound (the bytes it must move over 3.35 TB/s), and
+  ``sha`` holds a SHA-256 of each kernel's outputs (B1 f32 and bf16 out
+  of place, B1 fp8, B2-B7), so two trees whose kernels compute the same
+  bits print the same. The ptxas report of the B1, B2 and B7 kernels is
+  printed from the build log;
 - B9 (``flash_attention_fwd``, bf16, causal, one key block; H=32,
   Hkv=8, D=128) at B=4, S=128 and S=512, and B12 single-token decode
   (``flash_decode``, bf16 and f32) at B=4, kv_len 2047 of T=4096: the
@@ -208,6 +215,30 @@ def ptxas_report(log: str) -> dict:
     return rep
 
 
+def b1_sass_counts(lib: str) -> dict:
+    """SASS instructions (NOPs left out) of B1's fp8 instantiations
+    (``combine_kernel<OpFP8<F, W>>``) and of its bf16 SUM, read with
+    cuobjdump from the tree's built library."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs = ("SUM", "MAX", "MIN", "PROD")
+    counts = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        head = f.split("\n", 1)[0]
+        m = re.search(r"combine_kernelI5OpFP8ILi(\d)ELi(\d)E", head)
+        wire = m and ("e4m3fn" if m.group(2) == "1" else "e5m2")
+        name = (f"{funcs[int(m.group(1))]}_{wire}" if m else "SUM_bf16"
+                if "combine_kernelI6OpBF16ILi0E" in head else None)
+        if name:
+            counts[name] = sum(
+                1 for o in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                                      r"([A-Z][A-Z0-9_.]*)", f) if o != "NOP")
+    return dict(sorted(counts.items()))
+
+
 def sha_of(ts) -> str:
     """The first 16 hex digits of a SHA-256 of the tensors' bits."""
     import torch
@@ -240,6 +271,8 @@ def stream_part(out: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     _build.library()
     out["ptxas"] = ptxas_report(_build.build_log)
+    out["b1_sass"] = b1_sass_counts(str(_build.build()))
+    sha = out["sha"] = {}
     src = torch.randn(W, c, device="cuda", generator=g)
     dst = torch.empty_like(src)
     out["copy"] = timed(time_ms(lambda: dst.copy_(src)), 8 * N)
@@ -248,6 +281,7 @@ def stream_part(out: dict) -> None:
         b = torch.randn(W, c, device="cuda", generator=g).to(dt)
         ra, rb = list(a), list(b)
         fa, fb = a.view(-1), b.view(-1)
+        sha[f"combine_sum_{name}"] = sha_of(combine(ra, rb, ReduceFunc.SUM))
         out[f"combine_sum_{name}"] = timed(
             time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=ra)),
             3 * a.element_size() * N,
@@ -259,6 +293,20 @@ def stream_part(out: dict) -> None:
                 time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=rd)),
                 3 * 4 * N, time_ms(lambda: torch.add(fa, fb, out=fd)))
         del a, b, ra, rb, fa, fb
+    # B1 on fp8 payloads: random codes (NaN codes included), out of
+    # place as the ring calls it; bound 3 bytes an element
+    for dt, name in ((torch.float8_e4m3fn, "e4m3fn"),
+                     (torch.float8_e5m2, "e5m2")):
+        a, b = (torch.randint(0, 256, (W, c), dtype=torch.uint8,
+                              device="cuda", generator=g).view(dt)
+                for _ in range(2))
+        ra, rb, ro = list(a), list(b), list(torch.empty_like(a))
+        for func in ReduceFunc:
+            key = f"combine_{func.name.lower()}_{name}"
+            out[key] = timed(
+                time_ms(lambda: combine(ra, rb, func, out=ro)), 3 * N)  # noqa: B023
+            sha[key] = sha_of(ro)
+        del a, b, ra, rb, ro
     rs = list(src)
     for wire, name in ((torch.float16, "f16"), (torch.bfloat16, "bf16"),
                        (torch.float8_e4m3fn, "e4m3")):
@@ -268,9 +316,11 @@ def stream_part(out: dict) -> None:
         out[f"cast_f32_{name}"] = timed(
             time_ms(lambda: C.cast(rs, wire, rl)), nbytes,
             time_ms(lambda: src.to(wire)))
+        sha[f"cast_f32_{name}"] = sha_of(rl)
         out[f"cast_{name}_f32"] = timed(
             time_ms(lambda: C.cast(rl, torch.float32, rd)), nbytes,
             time_ms(lambda: low.to(torch.float32)))
+        sha[f"cast_{name}_f32"] = sha_of(rd)
         del low, rl, rd
     wire, block = "float8_e4m3fn", 128
     nb = c // block
@@ -284,6 +334,7 @@ def stream_part(out: dict) -> None:
                              5 * N + 4 * W)
     out["fp8_dequant"] = timed(
         time_ms(lambda: C.fp8_dequant(q8, sc, wire, rd)), 5 * N + 4 * W)
+    sha["fp8_dequant"] = sha_of(rd)
     q = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
     s = list(torch.empty(W, nb, device="cuda"))
     q2 = list(torch.empty(W, c, dtype=torch.uint8, device="cuda"))
@@ -295,14 +346,19 @@ def stream_part(out: dict) -> None:
     out["bs_dequant"] = timed(
         time_ms(lambda: C.bs_dequant(q, s, wire, block, rd)),
         5 * N + 4 * N // block)
+    sha["bs_dequant"] = sha_of(rd)
     out["bs_combine"] = timed(
         time_ms(lambda: C.bs_combine(q, s, other, ReduceFunc.SUM, wire,
                                      block, q2, s2)),
         2 * (N + 4 * N // block) + 4 * N)
+    sha["fp8_scale"] = sha_of(sc + iv)
+    sha["fp8_quant"], sha["bs_quant"] = sha_of(q8), sha_of(q + s)
+    sha["bs_combine"] = sha_of(q2 + s2)
     out["bs_combine_f32"] = timed(
         time_ms(lambda: C.bs_combine(q, s, other, ReduceFunc.SUM, wire,
                                      block, out=rd, requant=False)),
         9 * N + 4 * N // block)
+    sha["bs_combine_f32"] = sha_of(rd)
     del src, dst, rs, rd, sc, iv, q8, q, s, q2, s2, other
     torch.cuda.empty_cache()
 

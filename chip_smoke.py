@@ -579,16 +579,8 @@ def corpus_combine(rng):
                        f"combine {dtype} {func.name} unaligned")
             combine(rows_a, rows_b, func, out=rows_a)
             check_rows(rows_a, ref, f"combine {dtype} {func.name} in place")
-    # fp8: every pair of codes (65,536 a format), NaN codes included
-    codes = torch.arange(256, dtype=torch.uint8, device="cuda")
-    for dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
-        a = codes.repeat_interleave(256).view(dtype)
-        b = codes.repeat(256).view(dtype)
-        for func in ReduceFunc:
-            check_rows([combine(a, b, func)], [combine_ref(a, b, func)],
-                       f"combine {dtype} {func.name} every code pair")
-    print("combine: edge corpus bitwise over 7 dtypes x 4 funcs; fp8 "
-          "(e4m3fn, e5m2) over every code pair x 4 funcs")
+    print("combine: edge corpus bitwise over 7 dtypes x 4 funcs (fp8: "
+          "every code pair in phase 3b)")
 
 
 def corpus_codec(rng):
@@ -1122,14 +1114,20 @@ FP8_PAYLOADS = ("float8_e4m3fn", "float8_e5m2")
 
 
 def fp8_payload_phase(recs):
-    """3b: B1 on fp8 payloads. Each format's rows of the kernels line at
-    phase 3's shape (W rows of one 8 Mi ring chunk: one ring hop's launch,
-    random codes, NaN codes included): SUM, MAX, MIN and PROD bitwise
-    against the plain version, SUM timed beside it, the bound (3 bytes an
-    element) and torch.add where it takes fp8. Then the path: a W-rank
-    ring allreduce at 64 Mi fp8 a rank (``RankCollectives``, every hop one
-    B1 launch) bitwise the same call through the plain versions, with the
-    counts set to 0 just before it and read just after."""
+    """3b: B1 on fp8 payloads (``csrc/fp8_hw.cuh``). For each format:
+    every one of the 65,536 code pairs (a the codes repeated, b the codes
+    tiled, as ``tests/test_torch_fp8_payload.py`` builds them) as W rank
+    rows of one launch, under SUM, MAX, MIN and PROD, out of place and
+    with ``out`` aliasing a, bitwise against the plain version. Then the
+    format's row of the kernels line at phase 3's shape (W rows of one 8
+    Mi ring chunk: one ring hop's launch, random codes, NaN codes
+    included): the four functions bitwise against the plain version and
+    each timed beside the bound (3 bytes an element); the row's ``ms`` is
+    SUM's, beside the plain version and torch.add where it takes fp8.
+    Then the path: a W-rank ring allreduce at 64 Mi fp8 a rank
+    (``RankCollectives``, every hop one B1 launch) bitwise the same call
+    through the plain versions, with the counts set to 0 just before it
+    and read just after."""
     import torch
     from accl_tpu_torch.constants import ReduceFunc
     from accl_tpu_torch.ops.combine import combine, combine_ref
@@ -1137,6 +1135,7 @@ def fp8_payload_phase(recs):
     from accl_tpu_torch.parallel.mesh import RankGroup
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
     c = N // W
+    every = torch.arange(256, dtype=torch.uint8, device="cuda")
     for name in FP8_PAYLOADS:
         dt = getattr(torch, name)
 
@@ -1144,6 +1143,23 @@ def fp8_payload_phase(recs):
             return torch.randint(0, 256, shape, dtype=torch.uint8,
                                  device="cuda", generator=g).view(dt)
 
+        pa = list(every.repeat_interleave(256).view(dt).view(W, -1))
+        pb = list(every.repeat(256).view(dt).view(W, -1))
+        for func in ReduceFunc:
+            want = combine_ref(pa, pb, func)
+            n0 = combine.launches
+            check_rows(combine(pa, pb, func), want,
+                       f"combine {name} {func.name} every code pair")
+            ia = [r.clone() for r in pa]
+            combine(ia, pb, func, out=ia)
+            check_rows(ia, want,
+                       f"combine {name} {func.name} every code pair in place")
+            need(combine.launches - n0 == 2,
+                 f"combine {name}: {W} rows took "
+                 f"{combine.launches - n0} launches for 2 calls")
+        print(f"combine {name}: every code pair ({W} rows x {256 * 256 // W}"
+              f" in one launch) bitwise the plain version under SUM, MAX, "
+              f"MIN and PROD, out of place and in place")
         a, b = codes((W, c)), codes((W, c))
         ra, rb = list(a), list(b)
         out = list(torch.empty_like(a))
@@ -1159,7 +1175,9 @@ def fp8_payload_phase(recs):
         except (RuntimeError, NotImplementedError):
             library_ms = None             # torch.add takes no fp8 here
         bms, by = bound_ms(3 * N, N)
-        ms = time_ms(lambda: combine(ra, rb, ReduceFunc.SUM, out=out))  # noqa: B023
+        by_func = {f.name: time_ms(lambda: combine(ra, rb, f, out=out))  # noqa: B023
+                   for f in ReduceFunc}
+        ms = by_func["SUM"]
         plain_ms = time_ms(lambda: combine_ref(ra, rb, ReduceFunc.SUM,  # noqa: B023
                                                out=out), reps=3)
         recs.append({"name": f"combine_{name.removeprefix('float8_')}",
@@ -1167,13 +1185,17 @@ def fp8_payload_phase(recs):
                      "replaces": "accl_tpu/ops/combine.py:71", "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bms, "bound_by": by,
-                     "library_ms": library_ms})
+                     "library_ms": library_ms, "ms_by_func": by_func})
         print(f"kernel combine {name} (8 x 8 Mi, SUM, MAX, MIN and PROD "
               f"bitwise the plain version): {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by}, "
               f"{100 * bms / ms:.1f} % of it, library torch.add "
               + (f"{library_ms:.4f} ms" if library_ms else "takes no fp8")
               + f") ({CARD})")
+        print(f"kernel combine {name} by function (8 x 8 Mi): "
+              + ", ".join(f"{f} {t:.4f} ms ({100 * bms / t:.1f} % of the "
+                          f"bound)" for f, t in by_func.items())
+              + f" ({CARD})")
         del a, b, ra, rb, out
         # the path: a W-rank ring allreduce of fp8 payloads
         coll = RankCollectives(RankGroup(W, torch.device("cuda")))
@@ -3383,6 +3405,78 @@ def stream_kernels_checked():
           f"STG) {dict((k, sorted(v)) for k, v in counts.items())}; ptxas "
           f"registers {dict((k, f'{min(v)}-{max(v)}') for k, v in sorted(by_mode.items()))}, "
           f"no spills")
+
+
+# B1 on fp8 payloads (csrc/combine.cu OpFP8<F, W>, csrc/fp8_hw.cuh): the
+# hardware fp8 conversions SUM and PROD must carry, by wire (W 1 e4m3fn:
+# the pairwise decode and the satfinite encode; W 2 e5m2: the encode, its
+# decode a byte move), and the opcodes of common.cuh's software decode
+# and encode (int -> float, float -> int, rintf) that no instantiation
+# may carry
+FP8_SASS = {"1": ("F2FP.F16.E4M3.UNPACK_B", "F2FP.SATFINITE.E4M3.F16"),
+            "2": ("F2FP.SATFINITE.E5M2.F16",)}
+SOFTWARE_FP8_OPS = ("I2F", "I2FP", "F2I", "FRND")
+
+
+def fp8_combine_checked():
+    """Each of B1's eight fp8 instantiations (``combine_kernel<OpFP8<F,
+    W>>``, F SUM/MAX/MIN/PROD, W e4m3fn/e5m2): SUM and PROD carry the
+    hardware fp8 conversions (``FP8_SASS``), MAX and MIN none (they work
+    on the codes), no instantiation the software decode's or encode's
+    opcodes (``SOFTWARE_FP8_OPS``); each loads and stores 16-byte
+    vectors; ptxas reports no spill. Prints each one's SASS instruction
+    count and registers beside ``OpBF16<SUM>``'s; fails otherwise."""
+    import re
+    from accl_tpu_torch.constants import ReduceFunc
+    funcs, ptx = sass_and_ptxas()
+    ldg, stg = r"LDG\.E(?:\.\w+)*\.128", r"STG\.E(?:\.\w+)*\.128"
+
+    def ops(body):                   # the opcodes, NOPs left out
+        return [o for o in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+"
+                                      r"\s+)?([A-Z][A-Z0-9_.]*)", body)
+                if o != "NOP"]
+
+    bodies, bf16 = {}, None
+    for f in funcs:
+        head = f.split("\n", 1)[0].strip()
+        m = re.search(r"\d+combine_kernelI5OpFP8ILi(\d)ELi(\d)EEEv", head)
+        if m:
+            bodies[(int(m.group(1)), m.group(2))] = (head, f)
+        elif re.search(r"\d+combine_kernelI6OpBF16ILi0EEEv", head):
+            bf16 = (head, f)
+    need(bf16 is not None, "combine_kernel<OpBF16<SUM>> not in the SASS")
+    want = {(f, w) for f in range(4) for w in FP8_SASS}
+    need(set(bodies) == want, f"combine_kernel<OpFP8>: instantiations "
+         f"{sorted(bodies)} in the SASS, want {sorted(want)}")
+    counts = {}
+    for (func, w), (head, body) in sorted(bodies.items()):
+        names = ops(body)
+        what = f"combine_kernel<OpFP8<{ReduceFunc(func).name}, {w}>>"
+        arith = func in (0, 3)
+        for form in FP8_SASS[w]:
+            have = any(o.startswith(form) for o in names)
+            need(have == arith,
+                 f"{what}: {form} {'missing' if arith else 'present'}")
+        if not arith:
+            need(not any(o.startswith("F2FP") for o in names),
+                 f"{what}: a conversion where MAX and MIN work on codes")
+        soft = sorted({o for o in names if o.split(".")[0] in
+                       SOFTWARE_FP8_OPS})
+        need(not soft, f"{what}: software decode/encode opcodes {soft}")
+        need(re.search(ldg, body) and re.search(stg, body),
+             f"{what}: no 128-bit loads or stores")
+        reg = ptx.get(head.split()[0])
+        need(reg is not None and reg[1] == 0, f"{what}: ptxas {reg}")
+        wire = "e4m3fn" if w == "1" else "e5m2"
+        counts[f"{ReduceFunc(func).name}/{wire}"] = (
+            f"{len(names)} ({reg[0]} registers)")
+    conv = sorted({o for (_, w), (_, body) in bodies.items()
+                   for o in ops(body) if o.startswith("F2FP")})
+    reg = ptx.get(bf16[0].split()[0], ["?"])
+    print(f"combine_kernel<OpFP8>: 8 instantiations, SASS instructions "
+          f"{counts}; OpBF16<SUM> {len(ops(bf16[1]))} ({reg[0]} registers);"
+          f" fp8 conversions {conv}; no software decode or encode, "
+          f"128-bit (LDG, STG), no spills")
 
 
 # the 16-bit element types of the tensor-core route as the mangled names
@@ -8552,6 +8646,7 @@ def wide_edges(g):
 # prefill form at S_new = 1)
 WIDE16_BWD_DIMS = (640, 768, 896, 1032)
 WIDE16_CLUSTER_DIMS = (640, 768, 1280, 1536, 1792, 2048, 2056)
+PAST_CLUSTER16_D = 2056    # 17a's timed rows of the 16-bit column groups
 WIDE16_DECODE_DIMS = (1024, 2048, 2056)
 
 
@@ -8716,6 +8811,30 @@ def cluster16_occupancy() -> str:
             f"blocks a cluster: B8/B9/B12 chunks {fwd}, B11 {dq}, B10 {dkv}")
 
 
+def column_groups16_rows(g):
+    """17a's rows of the 16-bit routes no other row times, bf16 at
+    Gemma-2B's heads, B 4, S 1024 (B9 512): B10 past its cluster form (D
+    2048, the column groups; B11 there on its cluster form) and every
+    kind past the 16-bit cluster forms (D 2056, the column groups; the
+    decode, kv_len 1023 of 1024, past the wide split), each beside SDPA
+    and its bound."""
+    import torch
+    for D, cases in ((SPLIT_MAX_D, (("bwd", WIDE_S, WIDE_S, None),)),
+                     (PAST_CLUSTER16_D,
+                      (("fwd", WIDE_S, WIDE_S, None),
+                       ("fwd_single", HD_B9_S, HD_B9_S, None),
+                       ("prefill", WIDE_S, WIDE_S, WIDE_S),
+                       ("bwd", WIDE_S, WIDE_S, None),
+                       ("decode", 1, WIDE_S - 1, WIDE_S)))):
+        for kind, sq, skv, T in cases:
+            r = kernel_case(kind, torch.bfloat16, HD_B, 8, 1, D, sq, skv, g,
+                            T, reps=3)
+            print(case_line(kind, torch.bfloat16, HD_B, 8, 1, D, sq, skv, r,
+                            T, "Gemma-2B heads, 16-bit column groups"))
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
 def head_dim_phase() -> list:
     """17a: B8-B12 at the head layouts of Gemma-2B (D = 256, H = 8,
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
@@ -8726,7 +8845,10 @@ def head_dim_phase() -> list:
     B10/B11 at D = 776,
     1032, 2048 and 4096, S = 1024 (``F32_BWD_ROW_DIMS``: each tier of the
     cluster form), the f32 and bf16 decode at D = 2048 (``SPLIT_MAX_D``,
-    the wide split's last); the f32 kernels past the cluster form at D =
+    the wide split's last); the bf16 column groups at S = 1024 (B9 512):
+    B10 at D = 2048 and B8, B9, the prefill, B10/B11 and the decode
+    (kv_len 1023 of 1024) at D = 2056 (``PAST_CLUSTER16_D``); the f32
+    kernels past the cluster form at D =
     4104, B = 1, S = 1024 (``attn_fwd_cols_kernel``,
     ``attn_bwd_{dkv,dq}_cols_kernel``, ``attn_decode_cols_kernel``, two
     timed launches where one takes over 100 ms); at D = 8 (the dry run's
@@ -8798,6 +8920,7 @@ def head_dim_phase() -> list:
                         WIDE_S - 1, g, WIDE_S, reps=3)
         print(case_line("decode", dt, HD_B, 8, 1, SPLIT_MAX_D, 1,
                         WIDE_S - 1, r, WIDE_S, "Gemma-2B heads"))
+    column_groups16_rows(g)
     # the f32 kernels past the cluster form (no public model's width): B8
     # and the B10/B11 pair take 80-300 ms a launch here, so two timed
     # launches after the warm-up (the decode twenty)
@@ -9262,6 +9385,7 @@ def main() -> int:
     corpus_codec(rng)
     corpus_lanes(rng)
     stream_kernels_checked()
+    fp8_combine_checked()
     stream_edges(rng)
     bs_edges(rng)
     recs = kernel_records()
