@@ -60,14 +60,20 @@ _SIGNATURES = {
     # Hkv, T, s_new, kv_len, n_split, scale, stream
     "accl_attn_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _F, _P],
-    # dtype, head_dim, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv, Sq,
-    # Skv, causal, scale, stream
-    "accl_attn_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _F, _P],
-    # dtype, head_dim, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq, Skv,
-    # causal, scale, stream
-    "accl_attn_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _F, _P],
+    # dtype, head_dim, q, dout, k, v, lse, delta, dk, dv, workspace, B, H,
+    # Hkv, Sq, Skv, causal, scale, stream
+    "accl_attn_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _F, _P],
+    # dtype, head_dim, q, dout, k, v, lse, delta, dq, workspace, B, H, Hkv,
+    # Sq, Skv, causal, scale, stream
+    "accl_attn_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _F, _P],
+    # the f32 B10 and B11 on the band form at any head dim past 256
+    # (measurements beside the dispatch's choice): as the two above
+    "accl_attn_bwd_dkv_band": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _F, _P],
+    "accl_attn_bwd_dq_band": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _F, _P],
     # the route the last attention launch took (kind << 16 | dtype << 12 |
     # column tier)
     "accl_attn_last_route": [],

@@ -81,9 +81,9 @@
 // streamed tiles have one stage (200 KB in all; the next tile's loads
 // wait for this one's products). Past 256 columns up to 4096 a cluster of
 // blocks splits the head dim and exchanges S and dP through distributed
-// shared memory ("the cluster form" below); past 4096 each block of a
-// column group forms S and dP over the whole head dim itself ("the
-// column-group form").
+// shared memory ("the cluster form" below); past 4096 S and dP are formed
+// once a tile over the whole head dim and kept in a workspace in device
+// memory for the second products ("the band form").
 //
 // Arithmetic in f32: expf without intrinsics, the scale of dK and dQ
 // applied once to the sums. No atomics: one writer for each output
@@ -926,239 +926,498 @@ int active_of(int dkv, int D) {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// ---- head dims past 4096: the column-group form ----------------------------
+// ---- head dims past 4096: the band form ------------------------------------
 //
 // B10 and B11 at D > 4096 (past the cluster form above) on the same
-// 3xTF32 products: a block (8 warps, 128 resident rows, 16 a warp) keeps
-// one group of CGRP output columns (grid z; 64, as the forward's). For
-// each streamed 32-row tile it forms S and dP over the whole head dim,
-// one FCH-column chunk of the four operands at a time (cp.async, one
-// stage; every group the same chunks in the same order; each chunk summed
-// in a fresh accumulator), then P and dS as B10 and B11 do, and the
-// second products on its group: Q's and dO's columns of the tile (B10),
-// K's (B11), loaded into the chunk's buffers once the chunks are done.
-// Shared memory: two 128-row and two 32-row chunk tiles at a pitch of 132
-// floats (169 KB) and the stats.
-constexpr int FCH = 128, CGRP = 64, CRES = 128;
-constexpr int CP = FCH + 4;
-constexpr int COLS_BYTES = ((2 * CRES + 2 * SROWS) * CP + 2 * CRES) * 4;
+// 3xTF32 products, as five D-long matrix products: S and dP formed once a
+// tile over the whole head dim, kept in a workspace in device memory, and
+// read back by the second products. A band of R query rows at a time
+// (band_rows: all of Sq where the workspace fits in q's own words, else
+// the largest multiple of BT that does), each band two launches:
+//   the score pass (attn_bwd_band_score_kernel): grid (the band's visible
+//   tiles of BTQ queries x BT keys, B*H); tiles wholly above the causal
+//   diagonal are not in the grid, and a warp whose 32 x 32 pairs are all
+//   hidden skips its products. Each block forms S = Q K^T and dP = dO V^T
+//   over the head dim in chunks of BCH columns (BSTAGE cp.async stages of
+//   the four operands' chunks), each chunk's product in a fresh
+//   accumulator added to the running sum in f32, then P = exp(scale*S -
+//   LSE) and dS = P*(dP - delta) under the mask, and stores them: B10 P^T
+//   and dS^T as [bh][key][row of the band], B11 dS as [bh][row][key];
+//   positions past Sq, Skv or the mask are zeros;
+//   the product pass: B10 (attn_bwd_band_dkv_kernel) dV = P^T dO and dK =
+//   scale * dS^T Q over grid (BOUT-column tiles, BT-key tiles, B*H), four
+//   warps a product, loops over the band's rows that see the key tile in
+//   steps of SROWS; B11 (attn_bwd_band_dq_kernel) dQ = scale * dS K over
+//   grid (BOUT-column tiles, BT-row tiles of the band, B*H), loops over the
+//   keys the rows see in steps of SROWS. Each step's product is summed in
+//   a fresh accumulator and added in f32.
+// Every warp holds 32 rows of its products (two 16-row tiles on the same
+// B fragments, split once for both): a 3xTF32 operand is split in
+// registers, so the larger warp tile splits and reads each B element half
+// as often. The score pass's tiles and the product pass's steps cover the
+// same visible tiles (a key tile's first step lies in a tile that sees
+// it), so nothing reads a tile that was not formed. With several bands
+// B10 stores on the first and adds in f32 on each later one that sees the
+// key tile, in band order; B11's bands own disjoint rows. So every run
+// gives the same bits. The workspace comes from the caller (band_words
+// floats a head); the kernels allocate nothing.
+constexpr int BT = 64;            // a score tile's keys; a band's granule
+constexpr int BTQ = 128;          // a score tile's queries
+constexpr int BCH = 32;           // head-dim columns a score chunk
+constexpr int BCP = BCH + 4;      // their row pitch
+constexpr int BSTAGE = 3;         // the score pass's cp.async stages
+constexpr int BOUT = 128;         // output columns of a product tile
+constexpr int BOP = BOUT + 8;     // their row pitch: rows t and t + 4 of a
+                                  // B fragment in distinct banks
+// a score stage: Q and dO chunks (BTQ rows), K and V chunks (BT rows)
+constexpr int BAND_SCORE_STAGE = 2 * (BTQ + BT) * BCP;
+constexpr int BAND_SCORE_BYTES = (BSTAGE * BAND_SCORE_STAGE + 2 * BTQ) * 4;
+// a product step: two BT x SROWS tiles of the workspace, two SROWS x BOUT
+// operand tiles (B10); one and one (B11); two stages each
+constexpr int BAND_DKV_STAGE = 2 * BT * BCP + 2 * SROWS * BOP;
+constexpr int BAND_DQ_STAGE = BT * BCP + SROWS * BOP;
+constexpr int BAND_DKV_BYTES = 2 * BAND_DKV_STAGE * 4;
+constexpr int BAND_DQ_BYTES = 2 * BAND_DQ_STAGE * 4;
+static_assert(BCH == SROWS, "a workspace tile's columns are a step's rows");
+static_assert(BAND_SCORE_BYTES <= MAX_SMEM, "a block's shared memory");
 
-// B10 at D > 4096: grid (B*H, key tiles of CRES, column groups); operands
-// as attn_bwd_dkv_kernel's
-__global__ void __launch_bounds__(NT, 1)
-attn_bwd_dkv_cols_kernel(const float* __restrict__ q,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int Hkv, int Sq, int Skv, int causal, int D,
-                         float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;                  // chunks: K, V (CRES rows), Q, dO
-  float* sV = sK + CRES * CP;
-  float* sQ = sV + CRES * CP;        // then the group's Q and dO columns
-  float* sDO = sQ + SROWS * CP;
-  float* sLse = sDO + SROWS * CP;    // SROWS, then delta's SROWS
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int kw = 16 * (tid >> 5);
-  const int bh = blockIdx.x, k0 = blockIdx.y * CRES, c0 = blockIdx.z * CGRP;
-  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nk = min(CRES, Skv - k0);
-  const int q_first = causal ? (k0 / SROWS) * SROWS : 0;
-  const int n_it = q_first < Sq ? (Sq - q_first + SROWS - 1) / SROWS : 0;
-  const int nch = (D + FCH - 1) / FCH;
-  const float* kb = k + (kvrow * Skv + k0) * D;
-  const float* vb = v + (kvrow * Skv + k0) * D;
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+// the workspace's floats a head for a band of R rows: B10 (dkv) two
+// buffers of Skv rows at a pitch of round4(R); B11 one of R rows at a
+// pitch of round4(Skv)
+__host__ __device__ constexpr long long band_words(int dkv, int R, int Skv) {
+  return dkv ? 2LL * Skv * round4(R) : static_cast<long long>(R) * round4(Skv);
+}
+// the rows a band: Sq where the workspace fits in q's own words (Sq * D a
+// head), else the largest multiple of BT that fits, at least min(Sq, BT)
+__host__ __device__ constexpr int band_rows(int dkv, int Sq, int Skv, int D) {
+  const long long budget = static_cast<long long>(Sq) * D;
+  if (band_words(dkv, Sq, Skv) <= budget) return Sq;
+  const long long r = budget / (dkv ? 2LL * Skv : round4(Skv)) / BT * BT;
+  const int lo = Sq < BT ? Sq : BT;
+  return r < lo ? lo : r > Sq ? Sq : static_cast<int>(r);
+}
+// the key tiles that a query tile from row q0 (nq rows) sees
+__host__ __device__ inline int band_keys(int q0, int nq, int Skv,
+                                         int causal) {
+  const int nkt = (Skv + BT - 1) / BT;
+  const int seen = (q0 + nq - 1) / BT + 1;
+  return causal && seen < nkt ? seen : nkt;
+}
+// the visible tiles of the band of nr rows from r0
+static int band_tiles(int r0, int nr, int Skv, int causal) {
+  int n = 0;
+  for (int q0 = r0; q0 < r0 + nr; q0 += BTQ)
+    n += band_keys(q0, r0 + nr - q0 < BTQ ? r0 + nr - q0 : BTQ, Skv, causal);
+  return n;
+}
 
-  float adk[CGRP / 8][4], adv[CGRP / 8][4];
+// x[m] (16 x 32, rows a + 16m) += A B^T over DP columns for m = 0, 1: A's
+// 32 rows at a, B's 32 rows at b (pitch DP + 4 each); each product in a
+// fresh accumulator added in f32; B's fragments split once for both
+template <int DP>
+__device__ __forceinline__ void add_rows32_x_rows32(const float* a,
+                                                    const float* b,
+                                                    float (&x)[2][4][4]) {
+  constexpr int P = DP + 4;
+  const int lane = threadIdx.x & 31, m = lane >> 3, r = lane & 7;
+  const float* pa = a + (r + 8 * (m & 1)) * P + 4 * (m >> 1);
+  const float* pb = b + (r + 8 * (m >> 1)) * P + 4 * (m & 1);
+  float part[2][4][4];
 #pragma unroll
-  for (int c = 0; c < CGRP / 8; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[c][e] = adv[c][e] = 0.0f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int q0 = q_first + it * SROWS, nq = min(SROWS, Sq - q0);
-    const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
-    // warp-uniform: do the warp's keys see a row of this tile?
-    const bool live = kw < nk && (!causal || k0 + kw <= q0 + nq - 1);
-    float x[4][4], y[4][4];  // S^T, then P^T; dP^T, then dS^T
+  for (int mm = 0; mm < 2; ++mm)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
-    for (int c = 0; c <= nch; ++c) {
-      __syncthreads();  // every read of the buffers is done
-      if (c < nch) {
-        const int col = c * FCH;
-        // one copy a step (not unrolled): the tiles' 16 a thread, unrolled,
-        // kept their addresses in registers and spilled
-        cp_rows<FCH, CRES, CP, NT, 1>(sK, kb + col, nk, D - col, D);
-        cp_rows<FCH, CRES, CP, NT, 1>(sV, vb + col, nk, D - col, D);
-        cp_rows<FCH, SROWS, CP, NT>(sQ, q + qoff + col, nq, D - col, D);
-        cp_rows<FCH, SROWS, CP, NT>(sDO, dout + qoff + col, nq, D - col, D);
-      } else {
-        cp_rows<CGRP, SROWS, CP, NT>(sQ, q + qoff + c0, nq, D - c0, D);
-        cp_rows<CGRP, SROWS, CP, NT>(sDO, dout + qoff + c0, nq, D - c0, D);
-        if (tid < 2 * SROWS) {
-          const int r = tid % SROWS;
-          const bool ok = r < nq;
-          cp_async4(sLse + tid,
-                    (tid < SROWS ? lse : delta) +
-                        static_cast<long long>(bh) * Sq + q0 + (ok ? r : 0),
-                    ok);
+      for (int e = 0; e < 4; ++e) part[mm][j][e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c) {
+    FragA fa[2];
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm) {
+      uint32_t w[4];
+      ldsm_x4(w, pa + 16 * mm * P + 8 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fa[mm].set(i, __uint_as_float(w[i]));
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; jj += 2) {
+      uint32_t w[4];
+      ldsm_x4(w, pb + 8 * jj * P + 8 * c);
+      FragB f0, f1;
+      f0.set(0, __uint_as_float(w[0]));
+      f0.set(1, __uint_as_float(w[1]));
+      f1.set(0, __uint_as_float(w[2]));
+      f1.set(1, __uint_as_float(w[3]));
+#pragma unroll
+      for (int mm = 0; mm < 2; ++mm) {
+        mma_3xtf32(part[mm][jj], fa[mm], f0);
+        mma_3xtf32(part[mm][jj + 1], fa[mm], f1);
+      }
+    }
+  }
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[mm][j][e] = __fadd_rn(x[mm][j][e], part[mm][j][e]);
+}
+
+// The score pass over the band of nr rows from r0: grid (visible tiles,
+// B*H). DKV: B10's P^T into wp and dS^T into wd at bh*bhs + key*pitch +
+// row; else B11's dS into wd at bh*bhs + row*pitch + key (rows of the
+// band). Operands as attn_bwd_dkv_kernel's. Warp w holds rows 32*(w/2)
+// and keys 32*(w%2) of the tile.
+template <bool DKV>
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_band_score_kernel(const float* __restrict__ q,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ wp, float* __restrict__ wd,
+                           int H, int Hkv, int Sq, int Skv, int causal, int D,
+                           float scale, int r0, int nr, int pitch,
+                           long long bhs) {
+  extern __shared__ __align__(16) float smem[];
+  float* sStat = smem + BSTAGE * BAND_SCORE_STAGE;  // LSE, then delta
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5;
+  const int qw = 32 * (warp >> 1), kw = 32 * (warp & 1);  // the warp's
+                                                          // rows and keys
+  const int bh = blockIdx.y;
+  // the tile: query tiles in order, each its visible key tiles
+  int q0 = r0, kt = blockIdx.x;
+  for (;;) {
+    const int n = band_keys(q0, min(BTQ, r0 + nr - q0), Skv, causal);
+    if (kt < n) break;
+    kt -= n;
+    q0 += BTQ;
+  }
+  const int k0 = kt * BT;
+  const int nq = min(BTQ, r0 + nr - q0), nk = min(BT, Skv - k0);
+  // warp-uniform: do the warp's rows see one of its keys?
+  const bool live =
+      qw < nq && kw < nk && (!causal || k0 + kw <= q0 + qw + 31);
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
+  const long long koff = (kvrow * Skv + k0) * D;
+  const int nch = (D + BCH - 1) / BCH;
+
+  // stage s: Q, dO (BTQ rows), then K, V (BT rows)
+  auto load = [&](int c) {
+    const int col = c * BCH;
+    float* s = smem + (c % BSTAGE) * BAND_SCORE_STAGE;
+    cp_rows<BCH, BTQ, BCP, NT>(s, q + qoff + col, nq, D - col, D);
+    cp_rows<BCH, BTQ, BCP, NT>(s + BTQ * BCP, dout + qoff + col, nq,
+                               D - col, D);
+    cp_rows<BCH, BT, BCP, NT>(s + 2 * BTQ * BCP, k + koff + col, nk, D - col,
+                              D);
+    cp_rows<BCH, BT, BCP, NT>(s + (2 * BTQ + BT) * BCP, v + koff + col, nk,
+                              D - col, D);
+  };
+  {
+    const int r = tid % BTQ;
+    const bool ok = r < nq;
+    cp_async4(sStat + tid,
+              (tid < BTQ ? lse : delta) + static_cast<long long>(bh) * Sq +
+                  q0 + (ok ? r : 0),
+              ok);
+  }
+  static_assert(2 * BTQ == NT, "a thread for each row's LSE and delta");
+#pragma unroll
+  for (int c = 0; c < BSTAGE - 1; ++c) {
+    if (c < nch) load(c);
+    cp_async_commit();
+  }
+
+  float x[2][4][4], y[2][4][4];  // S, then P; dP, then dS: rows
+                                 // qw+16m+g, +8, keys kw+8j+2t, +1
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm) zero_tile(x[mm], y[mm]);
+  for (int c = 0; c < nch; ++c) {
+    __syncthreads();  // every warp is done with the stage chunk c+2 takes
+    if (c + BSTAGE - 1 < nch) load(c + BSTAGE - 1);
+    cp_async_commit();
+    cp_async_wait<BSTAGE - 1>();  // chunk c (and the stats) landed
+    __syncthreads();
+    if (live) {
+      const float* s = smem + (c % BSTAGE) * BAND_SCORE_STAGE;
+      add_rows32_x_rows32<BCH>(s + qw * BCP, s + (2 * BTQ + kw) * BCP, x);
+      add_rows32_x_rows32<BCH>(s + (BTQ + qw) * BCP,
+                               s + (2 * BTQ + BT + kw) * BCP, y);
+    }
+  }
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = qw + 16 * mm + g + 8 * (e >> 1);
+        const int key = kw + 8 * j + 2 * t + (e & 1);
+        const bool ok =
+            r < nq && key < nk && (!causal || k0 + key <= q0 + r);
+        const float p =
+            ok ? expf(__fsub_rn(__fmul_rn(x[mm][j][e], scale), sStat[r]))
+               : 0.0f;
+        const float ds = __fmul_rn(p, __fsub_rn(y[mm][j][e], sStat[BTQ + r]));
+        // rows and keys past the ends as zeros up to the pitch, which the
+        // product pass reads in 16-byte pieces
+        const int row = q0 - r0 + r, kk = k0 + key;
+        if (DKV) {
+          if (kk < Skv && row < pitch) {
+            const long long o =
+                bh * bhs + static_cast<long long>(kk) * pitch + row;
+            wp[o] = p;
+            wd[o] = ds;
+          }
+        } else if (row < nr && kk < pitch) {
+          wd[bh * bhs + static_cast<long long>(row) * pitch + kk] = ds;
         }
       }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (live && c < nch) {
-        add_rows16_x_rows32<FCH>(sK + kw * CP, sQ, x);
-        add_rows16_x_rows32<FCH>(sV + kw * CP, sDO, y);
-      }
+}
+
+// acc[m] (16 x CW, rows 16m..) += A B over SROWS reduced rows for m = 0,
+// 1: A the 32 rows at a (pitch BCP), B the SROWS rows at b (CW columns,
+// pitch BOP); each 8 columns of acc summed over the rows in a fresh
+// accumulator and added in f32. A by ldmatrix, its hi and lo parts kept
+// over the columns; each B element read and split once for both m.
+template <int CW>
+__device__ __forceinline__ void band_accumulate(const float* a,
+                                                const float* b,
+                                                float (&acc)[2][CW / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m = lane >> 3, r = lane & 7;
+  const float* pa = a + (r + 8 * (m & 1)) * BCP + 4 * (m >> 1);
+  FragA fa[2][SROWS / 8];
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int kk = 0; kk < SROWS / 8; ++kk) {
+      uint32_t w[4];
+      ldsm_x4(w, pa + 16 * mm * BCP + 8 * kk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fa[mm][kk].set(i, __uint_as_float(w[i]));
     }
-    if (!live) continue;
+  const float* row = b + t * BOP + g;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int c = 0; c < CW / 8; ++c) {
+    float part[2][4] = {};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kw + g + 8 * (e >> 1), r = 8 * j + 2 * t + (e & 1);
-        const bool ok = r < nq && key < nk && (!causal || k0 + key <= q0 + r);
-        x[j][e] = ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), sLse[r]))
-                     : 0.0f;
-        y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], sLse[SROWS + r]));
-      }
-    rows_accumulate<FCH, CGRP>(x, sDO, adv);  // dV += P^T dO
-    rows_accumulate<FCH, CGRP>(y, sQ, adk);   // dK += dS^T Q
-  }
+    for (int kk = 0; kk < SROWS / 8; ++kk) {
+      FragB fb;
+      fb.set(0, row[8 * kk * BOP + 8 * c]);
+      fb.set(1, row[(8 * kk + 4) * BOP + 8 * c]);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = kw + g + 8 * h;
-    if (key >= nk) continue;
-    const long long o = (static_cast<long long>(bh) * Skv + k0 + key) * D;
-#pragma unroll
-    for (int c = 0; c < CGRP / 8; ++c) {
-      const int col = c0 + 8 * c + 2 * t;
-      if (c0 + 8 * c >= D) continue;
-      *reinterpret_cast<float2*>(dk + o + col) =
-          make_float2(__fmul_rn(adk[c][2 * h], scale),
-                      __fmul_rn(adk[c][2 * h + 1], scale));
-      *reinterpret_cast<float2*>(dv + o + col) =
-          make_float2(adv[c][2 * h], adv[c][2 * h + 1]);
+      for (int mm = 0; mm < 2; ++mm) mma_3xtf32(part[mm], fa[mm][kk], fb);
     }
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mm][c][e] = __fadd_rn(acc[mm][c][e], part[mm][e]);
   }
 }
 
-// B11 at D > 4096: grid (B*H, q tiles of CRES, column groups); operands as
-// attn_bwd_dq_kernel's
+// B10's product pass over the band of nr rows from r0: grid (BOUT-column
+// tiles, BT-key tiles, B*H). Warps 0-3 dV = P^T dO, warps 4-7 dK = scale *
+// dS^T Q, each 32 keys x 64 columns. add: a later band, added to dk and dv
+// (and a key tile no row of the band sees is left as it is).
 __global__ void __launch_bounds__(NT, 1)
-attn_bwd_dq_cols_kernel(const float* __restrict__ q,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dq, int H, int Hkv, int Sq,
-                        int Skv, int causal, int D, float scale) {
+attn_bwd_band_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ wp,
+                         const float* __restrict__ wd, float* __restrict__ dk,
+                         float* __restrict__ dv, int Sq, int Skv, int causal,
+                         int D, float scale, int r0, int nr, int pitch,
+                         long long bhs, int add) {
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                  // chunks: Q, dO (CRES rows), K, V
-  float* sDO = sQ + CRES * CP;
-  float* sK = sDO + CRES * CP;       // then the group's K columns
-  float* sV = sK + SROWS * CP;
-  float* sLse = sV + SROWS * CP;     // CRES, then delta's CRES
   const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int qw = 16 * (tid >> 5);
-  const int bh = blockIdx.x, c0 = blockIdx.z * CGRP;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * CRES;
-  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nq = min(CRES, Sq - q0);
-  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
-  const int n_it = (kv_end + SROWS - 1) / SROWS;
-  const int nch = (D + FCH - 1) / FCH;
-  const long long qoff = (static_cast<long long>(bh) * Sq + q0) * D;
-  const long long roff = static_cast<long long>(bh) * Sq + q0;
-  for (int i = tid; i < 2 * CRES; i += NT) {
-    const int r = i % CRES;
-    const bool ok = r < nq;
-    cp_async4(sLse + i, (i < CRES ? lse : delta) + roff + (ok ? r : 0), ok);
-  }
+  const int warp = tid >> 5, dkw = warp >> 2;  // dkw: the warp makes dK
+  const int kw = 32 * ((warp >> 1) & 1), cw = (BOUT / 2) * (warp & 1);
+  const int c0 = blockIdx.x * BOUT, k0 = blockIdx.y * BT, bh = blockIdx.z;
+  const int nk = min(BT, Skv - k0), end = r0 + nr;
+  // under the causal mask rows before k0 see none of these keys
+  const int first = causal ? max(r0, k0) : r0;
+  const int n_it = first < end ? (end - first + SROWS - 1) / SROWS : 0;
+  if (add && n_it == 0) return;
+  const float* wpk = wp + bh * bhs + static_cast<long long>(k0) * pitch;
+  const float* wdk = wd + bh * bhs + static_cast<long long>(k0) * pitch;
+
+  // stage s: P^T, dS^T (BT x SROWS), then dO, Q (SROWS x BOUT)
+  auto load = [&](int it) {
+    const int r = first + it * SROWS, n = min(SROWS, end - r);
+    float* s = smem + (it & 1) * BAND_DKV_STAGE;
+    const long long off = (static_cast<long long>(bh) * Sq + r) * D + c0;
+    cp_rows<SROWS, BT, BCP, NT>(s, wpk + (r - r0), nk, end - r, pitch);
+    cp_rows<SROWS, BT, BCP, NT>(s + BT * BCP, wdk + (r - r0), nk, end - r,
+                                pitch);
+    cp_rows<BOUT, SROWS, BOP, NT>(s + 2 * BT * BCP, dout + off, n, D - c0, D);
+    cp_rows<BOUT, SROWS, BOP, NT>(s + 2 * BT * BCP + SROWS * BOP, q + off, n,
+                                  D - c0, D);
+  };
+  if (n_it > 0) load(0);
   cp_async_commit();
 
-  float acc[CGRP / 8][4];
+  float acc[2][BOUT / 16][4];  // keys kw+16m+g, +8; columns c0+cw+8c+2t, +1
 #pragma unroll
-  for (int c = 0; c < CGRP / 8; ++c)
+  for (int mm = 0; mm < 2; ++mm)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
-
+    for (int c = 0; c < BOUT / 16; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mm][c][e] = 0.0f;
   for (int it = 0; it < n_it; ++it) {
-    const int kt0 = it * SROWS, nk = min(SROWS, kv_end - kt0);
-    const long long koff = (kvrow * Skv + kt0) * D;
-    // warp-uniform: do the warp's rows see a key of this tile?
-    const bool live = qw < nq && (!causal || kt0 <= q0 + qw + 15);
-    float x[4][4], y[4][4];  // S, then P; dP, then dS
+    if (it + 1 < n_it) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step landed
+    __syncthreads();
+    const float* s = smem + (it & 1) * BAND_DKV_STAGE;
+    band_accumulate<BOUT / 2>(s + (dkw * BT + kw) * BCP,
+                              s + 2 * BT * BCP + dkw * SROWS * BOP + cw, acc);
+    __syncthreads();  // every warp is done with the stage before it reloads
+  }
+  cp_async_wait<0>();
+  float* out = dkw ? dk : dv;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int mm = 0; mm < 2; ++mm)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
-    for (int c = 0; c <= nch; ++c) {
-      __syncthreads();  // every read of the buffers is done
-      if (c < nch) {
-        const int col = c * FCH;
-        cp_rows<FCH, CRES, CP, NT>(sQ, q + qoff + col, nq, D - col, D);
-        cp_rows<FCH, CRES, CP, NT>(sDO, dout + qoff + col, nq, D - col, D);
-        cp_rows<FCH, SROWS, CP, NT>(sK, k + koff + col, nk, D - col, D);
-        cp_rows<FCH, SROWS, CP, NT>(sV, v + koff + col, nk, D - col, D);
-      } else {
-        cp_rows<CGRP, SROWS, CP, NT>(sK, k + koff + c0, nk, D - c0, D);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (live && c < nch) {
-        add_rows16_x_rows32<FCH>(sQ + qw * CP, sK, x);
-        add_rows16_x_rows32<FCH>(sDO + qw * CP, sV, y);
+    for (int h = 0; h < 2; ++h) {
+      const int key = kw + 16 * mm + g + 8 * h;
+      if (key >= nk) continue;
+      float* o = out + (static_cast<long long>(bh) * Skv + k0 + key) * D +
+                 c0 + cw + 2 * t;
+#pragma unroll
+      for (int c = 0; c < BOUT / 16; ++c) {
+        if (c0 + cw + 8 * c >= D) continue;
+        const float a0 = acc[mm][c][2 * h], a1 = acc[mm][c][2 * h + 1];
+        float2 val = dkw ? make_float2(__fmul_rn(a0, scale),
+                                       __fmul_rn(a1, scale))
+                         : make_float2(a0, a1);
+        float2* p = reinterpret_cast<float2*>(o + 8 * c);
+        if (add) {
+          const float2 was = *p;
+          val = make_float2(__fadd_rn(was.x, val.x), __fadd_rn(was.y, val.y));
+        }
+        *p = val;
       }
     }
-    if (!live) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = qw + g + 8 * (e >> 1), key = 8 * j + 2 * t + (e & 1);
-        const bool ok = r < nq && key < nk && (!causal || kt0 + key <= q0 + r);
-        x[j][e] = ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), sLse[r]))
-                     : 0.0f;
-        y[j][e] = __fmul_rn(x[j][e], __fsub_rn(y[j][e], sLse[CRES + r]));
-      }
-    rows_accumulate<FCH, CGRP>(y, sK, acc);  // dQ += dS K
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = qw + g + 8 * h;
-    if (r >= nq) continue;
-    float* o = dq + qoff + static_cast<long long>(r) * D + c0 + 2 * t;
-#pragma unroll
-    for (int c = 0; c < CGRP / 8; ++c)
-      if (c0 + 8 * c < D)
-        *reinterpret_cast<float2*>(o + 8 * c) =
-            make_float2(__fmul_rn(acc[c][2 * h], scale),
-                        __fmul_rn(acc[c][2 * h + 1], scale));
-  }
 }
 
-// B10 or B11 (kern, route) at D > 4096 over grid (B*H, tiles of CRES rows
-// of `rows`, column groups)
-template <typename K, typename... A>
-cudaError_t launch_cols(K kern, int route, int rows, int B, int H, int D,
-                        cudaStream_t st, A... args) {
-  cudaError_t e = allow_smem(kern, COLS_BYTES);
+// B11's product pass over the band of nr rows from r0: grid (BOUT-column
+// tiles, BT-row tiles of the band, B*H). Each warp dQ = scale * dS K for
+// 32 rows and a quarter of the tile's columns.
+__global__ void __launch_bounds__(NT, 1)
+attn_bwd_band_dq_kernel(const float* __restrict__ k,
+                        const float* __restrict__ wd, float* __restrict__ dq,
+                        int H, int Hkv, int Sq, int Skv, int causal, int D,
+                        float scale, int r0, int nr, int pitch,
+                        long long bhs) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5, qw = 32 * (warp >> 2);
+  const int c0 = blockIdx.x * BOUT, cw = (BOUT / 4) * (warp & 3);
+  const int q0 = r0 + blockIdx.y * BT, bh = blockIdx.z;
+  const int nq = min(BT, r0 + nr - q0);
+  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
+  // the keys the tile's rows see: to its last row under the causal mask
+  const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
+  const int n_it = (kv_end + SROWS - 1) / SROWS;
+  const float* wdq = wd + bh * bhs + static_cast<long long>(q0 - r0) * pitch;
+
+  // stage s: dS (BT x SROWS), then K (SROWS x BOUT)
+  auto load = [&](int it) {
+    const int kt0 = it * SROWS, n = min(SROWS, kv_end - kt0);
+    float* s = smem + (it & 1) * BAND_DQ_STAGE;
+    cp_rows<SROWS, BT, BCP, NT>(s, wdq + kt0, nq, kv_end - kt0, pitch);
+    cp_rows<BOUT, SROWS, BOP, NT>(
+        s + BT * BCP, k + (kvrow * Skv + kt0) * D + c0, n, D - c0, D);
+  };
+  if (n_it > 0) load(0);
+  cp_async_commit();
+
+  float acc[2][BOUT / 32][4];  // rows qw+16m+g, +8; columns c0+cw+8c+2t, +1
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int c = 0; c < BOUT / 32; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mm][c][e] = 0.0f;
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step landed
+    __syncthreads();
+    const float* s = smem + (it & 1) * BAND_DQ_STAGE;
+    band_accumulate<BOUT / 4>(s + qw * BCP, s + BT * BCP + cw, acc);
+    __syncthreads();  // every warp is done with the stage before it reloads
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mm = 0; mm < 2; ++mm)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = qw + 16 * mm + g + 8 * h;
+      if (r >= nq) continue;
+      float* o = dq + (static_cast<long long>(bh) * Sq + q0 + r) * D + c0 +
+                 cw + 2 * t;
+#pragma unroll
+      for (int c = 0; c < BOUT / 32; ++c)
+        if (c0 + cw + 8 * c < D)
+          *reinterpret_cast<float2*>(o + 8 * c) =
+              make_float2(__fmul_rn(acc[mm][c][2 * h], scale),
+                          __fmul_rn(acc[mm][c][2 * h + 1], scale));
+    }
+}
+
+// B10 (dkv) or B11 on the band form at any head dim past 256, the
+// workspace ws of B*H*band_words(dkv, band_rows(...), Skv) floats from
+// the caller; each band a score pass and a product pass, in band order
+cudaError_t launch_band(int dkv, const float* q, const float* dout,
+                        const float* k, const float* v, const float* lse,
+                        const float* delta, float* o0, float* o1, float* ws,
+                        int B, int H, int Hkv, int Sq, int Skv, int causal,
+                        int D, float scale, cudaStream_t st) {
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  auto score = dkv ? attn_bwd_band_score_kernel<true>
+                   : attn_bwd_band_score_kernel<false>;
+  cudaError_t e = allow_smem(score, BAND_SCORE_BYTES);
+  if (e == cudaSuccess)
+    e = dkv ? allow_smem(attn_bwd_band_dkv_kernel, BAND_DKV_BYTES)
+            : allow_smem(attn_bwd_band_dq_kernel, BAND_DQ_BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (rows + CRES - 1) / CRES, (D + CGRP - 1) / CGRP);
-  kern<<<grid, NT, COLS_BYTES, st>>>(args...);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) set_attn_route(route, 0, CGRP);
-  return e;
+  const int R = band_rows(dkv, Sq, Skv, D);
+  const int pitch = dkv ? round4(R) : round4(Skv);
+  const long long bhs = band_words(dkv, R, Skv) / (dkv ? 2 : 1);
+  float* wp = ws;  // B10: P^T, then dS^T; B11: dS
+  float* wd = dkv ? ws + B * H * bhs : ws;
+  const int nb = R > 0 ? (Sq + R - 1) / R : 0;
+  const int ct = (D + BOUT - 1) / BOUT;
+  for (int b = 0; b < (nb > 0 ? nb : 1); ++b) {
+    const int r0 = b * R, nr = Sq - r0 < R ? Sq - r0 : R;
+    const int tiles = nr > 0 ? band_tiles(r0, nr, Skv, causal) : 0;
+    if (tiles > 0)
+      score<<<dim3(tiles, B * H), NT, BAND_SCORE_BYTES, st>>>(
+          q, dout, k, v, lse, delta, wp, wd, H, Hkv, Sq, Skv, causal, D,
+          scale, r0, nr, pitch, bhs);
+    if (dkv)
+      attn_bwd_band_dkv_kernel<<<dim3(ct, (Skv + BT - 1) / BT, B * H), NT,
+                                 BAND_DKV_BYTES, st>>>(
+          q, dout, wp, wd, o0, o1, Sq, Skv, causal, D, scale, r0, nr, pitch,
+          bhs, b > 0);
+    else if (nr > 0)
+      attn_bwd_band_dq_kernel<<<dim3(ct, (nr + BT - 1) / BT, B * H), NT,
+                                BAND_DQ_BYTES, st>>>(
+          k, wd, o0, H, Hkv, Sq, Skv, causal, D, scale, r0, nr, pitch, bhs);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  set_attn_route(dkv ? ROUTE_BWD_DKV_TF32_BAND : ROUTE_BWD_DQ_TF32_BAND, 0,
+                 BOUT);
+  return cudaSuccess;
 }
 
 template <int DP>
@@ -1222,12 +1481,13 @@ static const float* F(const void* p) { return static_cast<const float*>(p); }
 extern "C" {
 
 // dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (f32 past 256: the
-// cluster kernels, past 4096 the column-group ones)
+// cluster kernels, past 4096 the band form on the workspace ws of
+// B*H*band_words(...) floats; ws is used only there)
 int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                       const void* dout, const void* k, const void* v,
                       const void* lse, const void* delta, void* dk, void* dv,
-                      int B, int H, int Hkv, int Sq, int Skv, int causal,
-                      float scale, void* stream) {
+                      void* ws, int B, int H, int Hkv, int Sq, int Skv,
+                      int causal, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
   if (dtype == 1 || dtype == 2)
@@ -1240,20 +1500,19 @@ int accl_attn_bwd_dkv(int dtype, int head_dim, const void* q,
                         static_cast<float*>(dv), B, H, Hkv, Sq, Skv, causal,
                         head_dim, scale, st)
   }
-  if (head_dim > 256)
-    return launch_cols(attn_bwd_dkv_cols_kernel, ROUTE_BWD_DKV_COLS_TF32,
-                       Skv, B, H, head_dim, st, F(q), F(dout), F(k), F(v),
-                       F(lse), F(delta), static_cast<float*>(dk),
-                       static_cast<float*>(dv), H, Hkv, Sq, Skv, causal,
-                       head_dim, scale);
+  if (head_dim > CLUSTER_MAX_D)
+    return launch_band(1, F(q), F(dout), F(k), F(v), F(lse), F(delta),
+                       static_cast<float*>(dk), static_cast<float*>(dv),
+                       static_cast<float*>(ws), B, H, Hkv, Sq, Skv, causal,
+                       head_dim, scale, st);
   F32_DISPATCH(launch_bwd_dkv, q, dout, k, v, lse, delta, dk, dv, B, H, Hkv,
                Sq, Skv, causal, head_dim, scale, st)
 }
 
 int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
                      const void* dout, const void* k, const void* v,
-                     const void* lse, const void* delta, void* dq, int B,
-                     int H, int Hkv, int Sq, int Skv, int causal,
+                     const void* lse, const void* delta, void* dq, void* ws,
+                     int B, int H, int Hkv, int Sq, int Skv, int causal,
                      float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
@@ -1266,13 +1525,41 @@ int accl_attn_bwd_dq(int dtype, int head_dim, const void* q,
                         F(v), F(lse), F(delta), static_cast<float*>(dq), B,
                         H, Hkv, Sq, Skv, causal, head_dim, scale, st)
   }
-  if (head_dim > 256)
-    return launch_cols(attn_bwd_dq_cols_kernel, ROUTE_BWD_DQ_COLS_TF32, Sq,
-                       B, H, head_dim, st, F(q), F(dout), F(k), F(v), F(lse),
-                       F(delta), static_cast<float*>(dq), H, Hkv, Sq, Skv,
-                       causal, head_dim, scale);
+  if (head_dim > CLUSTER_MAX_D)
+    return launch_band(0, F(q), F(dout), F(k), F(v), F(lse), F(delta),
+                       static_cast<float*>(dq), nullptr,
+                       static_cast<float*>(ws), B, H, Hkv, Sq, Skv, causal,
+                       head_dim, scale, st);
   F32_DISPATCH(launch_bwd_dq, q, dout, k, v, lse, delta, dq, B, H, Hkv, Sq,
                Skv, causal, head_dim, scale, st)
+}
+
+// The f32 B10 (accl_attn_bwd_dkv_band) and B11 on the band form at any
+// head dim past 256 (measurements beside the dispatch's choice), as
+// accl_attn_bwd_dkv and accl_attn_bwd_dq with dtype 0
+int accl_attn_bwd_dkv_band(int dtype, int head_dim, const void* q,
+                           const void* dout, const void* k, const void* v,
+                           const void* lse, const void* delta, void* dk,
+                           void* dv, void* ws, int B, int H, int Hkv, int Sq,
+                           int Skv, int causal, float scale, void* stream) {
+  if (dtype != 0 || head_dim % 8 || head_dim <= 256)
+    return cudaErrorInvalidValue;
+  return launch_band(1, F(q), F(dout), F(k), F(v), F(lse), F(delta),
+                     static_cast<float*>(dk), static_cast<float*>(dv),
+                     static_cast<float*>(ws), B, H, Hkv, Sq, Skv, causal,
+                     head_dim, scale, static_cast<cudaStream_t>(stream));
+}
+int accl_attn_bwd_dq_band(int dtype, int head_dim, const void* q,
+                          const void* dout, const void* k, const void* v,
+                          const void* lse, const void* delta, void* dq,
+                          void* ws, int B, int H, int Hkv, int Sq, int Skv,
+                          int causal, float scale, void* stream) {
+  if (dtype != 0 || head_dim % 8 || head_dim <= 256)
+    return cudaErrorInvalidValue;
+  return launch_band(0, F(q), F(dout), F(k), F(v), F(lse), F(delta),
+                     static_cast<float*>(dq), nullptr,
+                     static_cast<float*>(ws), B, H, Hkv, Sq, Skv, causal,
+                     head_dim, scale, static_cast<cudaStream_t>(stream));
 }
 
 // the blocks of a cluster of the f32 cluster form at head_dim (for

@@ -23,5 +23,8 @@ enum {
   // 128 columns), B8, B9, the B12 chunks and B11 (256 < D <= 2048, 256)
   ROUTE_BWD_DKV_WGMMA_CLUSTER = 24, ROUTE_FWD_WGMMA_CLUSTER = 25,
   ROUTE_FWD_SINGLE_WGMMA_CLUSTER = 26, ROUTE_PREFILL_WGMMA_CLUSTER = 27,
-  ROUTE_BWD_DQ_WGMMA_CLUSTER = 28
+  ROUTE_BWD_DQ_WGMMA_CLUSTER = 28,
+  // the f32 band form of B10 and B11 (D > 4096), tier a product tile's
+  // columns
+  ROUTE_BWD_DKV_TF32_BAND = 29, ROUTE_BWD_DQ_TF32_BAND = 30
 };

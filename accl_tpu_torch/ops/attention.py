@@ -83,8 +83,14 @@ to 4096 run the cluster form (``attn_fwd_cluster_kernel`` for B8 and B9,
 ``attn_decode_cluster_kernel`` for B12 chunks of S_new > 1,
 ``attn_bwd_{dkv,dq}_cluster_kernel``: a thread-block cluster splits the
 head dim into 64-column slices and forms S, and dP, once a tile); past
-4096 ``attn_fwd_cols_kernel``, ``attn_decode_cols_kernel`` and
-``attn_bwd_{dkv,dq}_cols_kernel``. A single-token decode past
+``F32_CLUSTER_MAX_D`` (4096) ``attn_fwd_cols_kernel`` and
+``attn_decode_cols_kernel``, and B10 and B11 the band form
+(``attn_bwd_band_score_kernel`` forms S and dP once a 128 x 64 tile over
+the whole head dim and stores P and dS in a workspace, from which
+``attn_bwd_band_{dkv,dq}_kernel`` form dV, dK and dQ; a band of
+``band_rows`` query rows at a time, so that the workspace, which the
+wrapper allocates, ``band_workspace_floats``, stays within q's own
+bytes). A single-token decode past
 ``DECODE_SPLIT_MAX_D`` runs the chunk's form at S_new = 1. A CUDA call
 with another dtype raises TypeError. The reference's wrappers check
 neither.
@@ -123,7 +129,8 @@ _HALF = (torch.bfloat16, torch.float16)
 # dims past COLS_HEAD_DIM (the column-group form, or for f32 to 4096 the
 # cluster form, whose tier is a block's columns: 128, 256 or 512);
 # "_cluster": the 16-bit cluster forms (tier a block's slice: 128 for
-# B10, 256 for B8, B9, the B12 chunks and B11)
+# B10, 256 for B8, B9, the B12 chunks and B11); "_band": the f32 B10 and
+# B11 past F32_CLUSTER_MAX_D (tier a product tile's 128 columns)
 ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
           7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
@@ -136,7 +143,8 @@ ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           22: "bwd_dkv_tf32_cols", 23: "bwd_dq_tf32_cols",
           24: "bwd_dkv_wgmma_cluster", 25: "fwd_wgmma_cluster",
           26: "fwd_single_wgmma_cluster", 27: "prefill_wgmma_cluster",
-          28: "bwd_dq_wgmma_cluster"}
+          28: "bwd_dq_wgmma_cluster", 29: "bwd_dkv_tf32_band",
+          30: "bwd_dq_tf32_band"}
 _DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
 DECODE_SPLIT_MAX_D = 2048  # single-token decode: split-KV up to it
@@ -152,6 +160,11 @@ FWD16_COLS_BAND = (512, 768)
 FWD16_SINGLE_MIN_D = 384       # B9: the column groups up to it
 BWD16_DQ_CLUSTER_MIN_D = 640
 DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
+# the f32 cluster forms' last head dim (csrc/attention_cluster.cuh
+# CLUSTER_MAX_D); past it the f32 B10 and B11 take the band form, whose
+# bands are whole tiles of BAND_TILE rows (csrc/attention_bwd.cu BT)
+F32_CLUSTER_MAX_D = 4096
+BAND_TILE = 64
 
 fwd_launches = 0
 fwd_single_launches = 0
@@ -497,10 +510,48 @@ def bwd_subnormal_magnitudes(q, do, k, v, lse, delta, causal: bool,
             dq.reshape(B, H, Sq, D))
 
 
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _band_words(dkv: bool, R: int, Skv: int) -> int:
+    """A head's workspace words for a band of R rows (csrc/attention_bwd.cu
+    ``band_words``): B10 P^T and dS^T, Skv rows at a pitch of round4(R)
+    each; B11 dS, R rows at a pitch of round4(Skv)."""
+    return 2 * Skv * _round4(R) if dkv else R * _round4(Skv)
+
+
+def band_rows(dkv: bool, Sq: int, Skv: int, head_dim: int) -> int:
+    """The query rows a band of the f32 B10 (``dkv``) or B11 band form
+    takes (csrc/attention_bwd.cu ``band_rows``, which decides; this
+    mirrors it): Sq where the workspace fits in q's own words, Sq *
+    head_dim a head; else the largest multiple of ``BAND_TILE`` that
+    fits, at least min(Sq, BAND_TILE)."""
+    budget = Sq * head_dim
+    if _band_words(dkv, Sq, Skv) <= budget:
+        return Sq
+    r = budget // (2 * Skv if dkv else _round4(Skv)) // BAND_TILE * BAND_TILE
+    return min(max(r, min(Sq, BAND_TILE)), Sq)
+
+
+def band_workspace_floats(dkv: bool, B: int, H: int, Sq: int, Skv: int,
+                          head_dim: int) -> int:
+    """The f32 words of the band form's workspace for one call: each of
+    the B * H heads' buffers for a band of ``band_rows`` rows."""
+    return B * H * _band_words(dkv, band_rows(dkv, Sq, Skv, head_dim), Skv)
+
+
+def takes_band(dtype, head_dim: int) -> bool:
+    """Whether B10 and B11 of ``dtype`` at the padded ``head_dim`` run the
+    band form: f32 past ``F32_CLUSTER_MAX_D``."""
+    return dtype == torch.float32 and head_dim > F32_CLUSTER_MAX_D
+
+
 def _bwd_launch(name, what, q, do, k, v, lse, delta, make_outs, causal,
                 scale):
-    """Launch B10 or B11 with outputs ``make_outs(q_padded)`` (a tuple);
-    returns them sliced back to the true head dim."""
+    """Launch B10 or B11 with outputs ``make_outs(q_padded)`` (a tuple)
+    and, on the band form, its workspace; returns the outputs sliced back
+    to the true head dim."""
     D = q.shape[-1]
     q, do, k, v = _pad_d(q, do, k, v)
     _kernel_ready(what, q, do, k, v)
@@ -511,11 +562,17 @@ def _bwd_launch(name, what, q, do, k, v, lse, delta, make_outs, causal,
     B, H, Sq, DK = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     outs = make_outs(q)
+    ws = None
+    if takes_band(q.dtype, DK):
+        ws = torch.empty(band_workspace_floats(
+            name.endswith("dkv"), B, H, Sq, Skv, DK), dtype=torch.float32,
+            device=q.device)
     fn = getattr(_build.library(), name)
     _build.check(fn(_DTYPE_CODES[q.dtype], DK, q.data_ptr(), do.data_ptr(),
                     k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-                    delta.data_ptr(), *(t.data_ptr() for t in outs), B, H,
-                    Hkv, Sq, Skv, int(causal), scale, _build.stream_of(q)),
+                    delta.data_ptr(), *(t.data_ptr() for t in outs),
+                    _ptr(ws), B, H, Hkv, Sq, Skv, int(causal), scale,
+                    _build.stream_of(q)),
                  what)
     _took_route()
     return tuple(t if DK == D else t[..., :D].contiguous() for t in outs)

@@ -71,7 +71,8 @@ card's name and power limit and:
   ``allow_tf32`` off), the pair's yardstick;
 - the bwd_wide part, at phase 17a's shapes past head dim 256 (Gemma-2B's
   heads, H=8, Hkv=1, B=4, causal; D=264 and D=512 at S=2048, D=1024,
-  1032, 2048 and 4096 at S=1024): f32 B10 and B11 on the operands the
+  1032, 2048 and 4096 at S=1024; D=4104 at B=1, S=1024, past the cluster
+  form): f32 B10 and B11 on the operands the
   plain forward gives (``flash_attention_ref``: the same O and LSE in
   every tree), each the median device time of 5 launches behind the
   GPU sleep beside its bound (three TF32 products of 8*D (B10) or 6*D
@@ -81,9 +82,13 @@ card's name and power limit and:
   in the same order print the same), the plain versions' pair (median
   of 3), and PyTorch's SDPA f32 backward
   (dq, dk and dv together, ``allow_tf32`` off; its math backend, the one
-  that takes these head dims), timed only; where the tree has the
+  that takes these head dims), timed only; the route the last launch
+  reported; where the tree has the
   cluster form at that head dim, its cluster size, the clusters of it
-  the card holds at once and the SMs they fill;
+  the card holds at once and the SMs they fill; and where the tree has
+  the band form's measurement entry points, the band form at D 2056 and
+  4096 (B 4, S 1024) beside them (``band_d<D>_s1024``: times, errors
+  and SHA-256s);
 - the fwd32 part, at phase 5's shapes of ``chip_smoke.py`` (B=4, H=32,
   Hkv=8, D=128, causal): ``flash_attention_fwd`` in f32 as B9 at S=128
   and S=512 and as B8 at S=2048, and the f32 prefill (``flash_decode``,
@@ -149,10 +154,15 @@ PARTS = ("all", "stream", "model", "bwd", "bwd_wide", "fwd32", "fwd_wide",
          "wide16", "band16")
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16
 TF32_OPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32
-# the bwd_wide part's (head dim, sequence length): the cluster form's
-# tiers of 2 (D 264 to 1024), 4 (1032, 2048) and 8 (4096) slices a block
-BWD_WIDE_CASES = ((264, 2048), (512, 2048), (1024, 1024), (1032, 1024),
-                  (2048, 1024), (4096, 1024))
+# the bwd_wide part's (head dim, sequence length, batch): the cluster
+# form's tiers of 2 (D 264 to 1024), 4 (1032, 2048) and 8 (4096) slices a
+# block, and past it (4104, the band form; 17a's B 1)
+BWD_WIDE_CASES = ((264, 2048, 4), (512, 2048, 4), (1024, 1024, 4),
+                  (1032, 1024, 4), (2048, 1024, 4), (4096, 1024, 4),
+                  (4104, 1024, 1))
+# the head dims at which the bwd_wide part also times the band form
+# through its measurement entry points, where the tree has them
+BAND_MEASURE_DIMS = (2056, 4096)
 # the fwd_wide part's calls at Gemma-2B's heads (H 8, Hkv 1), B 4 unless
 # given: (name, kind, D, S or S_new, kv length, cache T, B)
 FWD_WIDE_CASES = (
@@ -485,8 +495,8 @@ def bwd_wide_part(out: dict) -> None:
     lib = _build.library()
     size = getattr(lib, "accl_attn_bwd_cluster_size", None)
     clusters = getattr(lib, "accl_attn_bwd_active_clusters", None)
-    B, H, Hkv = 4, 8, 1
-    for D, S in BWD_WIDE_CASES:
+    H, Hkv = 8, 1
+    for D, S, B in BWD_WIDE_CASES:
         q, do = (torch.randn(B, H, S, D, device="cuda", generator=g)
                  for _ in range(2))
         k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
@@ -534,8 +544,66 @@ def bwd_wide_part(out: dict) -> None:
             rec["active_clusters"] = n
             rec["sms_in_clusters"] = n * size(D)
             rec["cluster_size"] = size(D)
-        out[f"d{D}_s{S}"] = rec
+        code = lib.accl_attn_last_route()
+        rec["route"] = f"{A.ROUTES.get(code >> 16, code >> 16)}/{code & 0xFFF}"
+        out[f"d{D}_s{S}" + ("" if B == 4 else f"_b{B}")] = rec
         del q, do, k, v, o, lse, delta, args, lq, lk, lv, lo
+        torch.cuda.empty_cache()
+    band_measure(out, g)
+
+
+def band_measure(out: dict, g) -> None:
+    """The f32 B10 and B11 on the band form through the tree's measurement
+    entry points (``accl_attn_bwd_{dkv,dq}_band``), where it has them, at
+    ``BAND_MEASURE_DIMS`` (B 4, H 8/1, S 1024, causal; the cluster form's
+    shapes): each the median device time of 5 launches, the largest
+    error against the plain version and a SHA-256 of the outputs."""
+    import torch
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.ops import attention as A
+    lib = _build.library()
+    hooks = (getattr(lib, "accl_attn_bwd_dkv_band", None),
+             getattr(lib, "accl_attn_bwd_dq_band", None))
+    if None in hooks:
+        return
+    B, H, Hkv, S = 4, 8, 1, 1024
+    for D in BAND_MEASURE_DIMS:
+        q, do = (torch.randn(B, H, S, D, device="cuda", generator=g)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
+                for _ in range(2))
+        o, lse = A.flash_attention_ref(q, k, v, True)
+        delta = (do * o).sum(-1).reshape(B * H, S)
+        args = (q, do, k, v, lse, delta, True, D ** -0.5)
+        st = _build.stream_of(q)
+        rec = {}
+        for key, hook, dkv, ref in (
+                ("b10", hooks[0], True, A.flash_attention_bwd_dkv_ref),
+                ("b11", hooks[1], False,
+                 lambda *a: (A.flash_attention_bwd_dq_ref(*a),))):
+            ws = torch.empty(A.band_workspace_floats(dkv, B, H, S, S, D),
+                             device="cuda")
+            outs = ((torch.empty(B * H, S, D, device="cuda"),
+                     torch.empty(B * H, S, D, device="cuda")) if dkv
+                    else (torch.empty_like(q),))
+
+            def fn():
+                _build.check(hook(  # noqa: B023
+                    0, D, q.data_ptr(), do.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    *(t.data_ptr() for t in outs), ws.data_ptr(),  # noqa: B023
+                    B, H, Hkv, S, S, 1, D ** -0.5, st), key)  # noqa: B023
+                return outs  # noqa: B023
+            got = fn()
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(got, ref(*args)))
+            rec[key] = {"ms": time_ms(fn, reps=5), "max_abs_err": err,
+                        "sha256": sha_of(got)}
+            del ws, outs, got
+            torch.cuda.empty_cache()
+        rec["pair_ms"] = rec["b10"]["ms"] + rec["b11"]["ms"]
+        out[f"band_d{D}_s{S}"] = rec
+        del q, do, k, v, o, lse, delta, args
         torch.cuda.empty_cache()
 
 

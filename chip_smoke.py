@@ -3614,14 +3614,18 @@ COLS_TF32_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
                      "attn_fwd_cols_kernel", "attn_decode_cols_kernel",
                      "attn_bwd_dkv_cluster_kernel",
                      "attn_bwd_dq_cluster_kernel",
-                     "attn_bwd_dkv_cols_kernel", "attn_bwd_dq_cols_kernel")
-# the f32 cluster kernels (forward and backward), one instantiation for
-# each count of 64-column slices a block holds (attention_cluster.cuh's
-# cluster_ns)
-F32_CLUSTER_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
-                       "attn_bwd_dkv_cluster_kernel",
-                       "attn_bwd_dq_cluster_kernel")
+                     "attn_bwd_band_score_kernel", "attn_bwd_band_dkv_kernel",
+                     "attn_bwd_band_dq_kernel")
+# the f32 kernels built from templates, by their instantiations: the
+# cluster kernels (forward and backward) for each count of 64-column
+# slices a block holds (attention_cluster.cuh's cluster_ns); the band
+# form's score pass for B11's stores (0) and B10's (1)
 F32_CLUSTER_NS = (2, 4, 8)
+F32_TEMPLATES = {"attn_fwd_cluster_kernel": set(F32_CLUSTER_NS),
+                 "attn_decode_cluster_kernel": set(F32_CLUSTER_NS),
+                 "attn_bwd_dkv_cluster_kernel": set(F32_CLUSTER_NS),
+                 "attn_bwd_dq_cluster_kernel": set(F32_CLUSTER_NS),
+                 "attn_bwd_band_score_kernel": {0, 1}}
 # the f32 single-token decode past 256: one instantiation for each column
 # tier (512, 1024, 2048) and rows of the group a block (8, 4, 2, 1)
 WIDE_SPLIT_KERNEL = "attn_decode_split_wide_kernel"
@@ -3632,7 +3636,8 @@ def cols_kernels_checked():
     instantiated for bf16 and f16, with HGMMA on operands of its type;
     each f32 one with TF32 HMMA, the f32 cluster kernels (B8/B9, the B12
     chunks, B10, B11) in each of their instantiations (2, 4 and 8 slices
-    a block); ptxas
+    a block), and the band form's (its score pass for B10's and B11's
+    stores, its two product passes); ptxas
     reports no spills for any. Prints the counts, registers and spill
     bytes; fails otherwise."""
     import re
@@ -3660,20 +3665,19 @@ def cols_kernels_checked():
               f"registers {sorted(v[0] for v in info.values())}, no spills")
     for kern in COLS_TF32_KERNELS:
         pat = rf"\d+{kern}"
-        # by instantiation: the cluster kernels' slices a block (NS),
-        # None for the others, which are no templates
+        # by instantiation (F32_TEMPLATES), None for the kernels that are
+        # no templates
         bodies, info = {}, {}
         for f in funcs:
             head = f.split("\n", 1)[0]
             if re.search(pat, head):
-                m = re.search(r"ILi(\d+)E", head)
+                m = re.search(r"IL[ib](\d+)E", head)
                 bodies[int(m.group(1)) if m else None] = f
         for k, v in ptx.items():
             if re.search(pat, k):
-                m = re.search(r"ILi(\d+)E", k)
+                m = re.search(r"IL[ib](\d+)E", k)
                 info[int(m.group(1)) if m else None] = v
-        want = (set(F32_CLUSTER_NS) if kern in F32_CLUSTER_KERNELS
-                else {None})
+        want = F32_TEMPLATES.get(kern, {None})
         need(set(bodies) == want, f"{kern}: instantiations "
              f"{sorted(bodies, key=str)} in the SASS, want "
              f"{sorted(want, key=str)}")
@@ -3689,9 +3693,10 @@ def cols_kernels_checked():
         else:
             regs = {ns: v[0] for ns, v in sorted(info.items())}
             spills = {ns: v[1] for ns, v in sorted(info.items())}
-            print(f"{kern}: {len(bodies)} instantiations by slices a block, "
-                  f"TF32 HMMA instructions {dict(sorted(counts.items()))}; "
-                  f"ptxas registers {regs}, spill bytes {spills}")
+            print(f"{kern}: {len(bodies)} instantiations "
+                  f"{sorted(want)}, TF32 HMMA instructions "
+                  f"{dict(sorted(counts.items()))}; ptxas registers {regs}, "
+                  f"spill bytes {spills}")
 
 
 def bwd_operands(q, k, v, do, causal):
@@ -8214,12 +8219,22 @@ WIDE_MAX_D, WIDE_S = 1024, 1024
 # blocks over 13 slices (the most receive slots, an odd slice count), of
 # 5 blocks over 17 and 33 slices (the first head dims of the 4- and
 # 8-slice tiers, one live slice in the last block), of 8 full blocks at
-# 4096, and past the cluster form (the column-group kernels); the 17a
-# rows at S 1024
+# 4096, and past the cluster form (the forward's column-group kernels,
+# B10 and B11's band form); the 17a rows at S 1024
 F32_CLUSTER_MAX_D = 4096
 WIDE_BWD_F32_DIMS = (776, 1032, 2056, 4096, 4104)
 F32_BWD_ROW_DIMS = (776, 1032, 2048, 4096)
-PAST_CLUSTER_D = 4104      # the f32 column-group kernels' timed rows
+PAST_CLUSTER_D = 4104      # the f32 kernels past the cluster form, timed
+# the f32 B10 and B11's band form (attention_bwd.cu, past
+# F32_CLUSTER_MAX_D): wide_edges' cases of its own, (B, H, Hkv, Sq, Skv,
+# D, causal): D 8192 on the ragged causal and uneven unmasked shapes, and
+# a shape whose workspace takes several bands (B10 3 of 2048 rows, B11 2
+# of 4096); 17a's timed rows; the band path's shape (17a's, B 1)
+BAND_EDGE_CASES = ((1, 2, 1, 300, 300, 8192, True),
+                   (1, 4, 2, 200, 300, 8192, False),
+                   (1, 2, 1, 4160, 4160, 4104, True))
+BAND_ROW_DIMS = (PAST_CLUSTER_D, 8192)
+BAND_PATH = (1, 8, 1, 1024, PAST_CLUSTER_D)     # B, H, Hkv, S, D
 # the single-token decode's wide split kernel (attention_decode.cu), every
 # dtype: its last head dim (DECODE_SPLIT_MAX_D); past it the chunk's form
 SPLIT_MAX_D = 2048
@@ -8260,7 +8275,9 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     every kind takes its column-group form ("_cols"), whose tier is the
     group's width (f32: 64, but a cluster block's columns, 64 times its
     slices (128, 256 or 512), for every kind but the decode to D 4096;
-    16-bit: 128 for B10's dK and dV, else 256), except the decode, which
+    16-bit: 128 for B10's dK and dV, else 256), except f32 B10 and B11
+    past D 4096, which take the band form ("<kind>_tf32_band", tier a
+    product tile's 128 columns), the decode, which
     takes the wide split kernel to ``SPLIT_MAX_D`` on every dtype (its
     tier 512, 1024 or 2048), and the 16-bit B10 to
     ``BWD16_CLUSTER_MAX_D`` and B8, B9, the B12 chunks and B11 where
@@ -8279,6 +8296,8 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     if (not f32 and kind in CLUSTER16_KINDS
             and A.takes_cluster16(kind, -(-d // 128) * 128)):
         return f"{kind}_wgmma_cluster", dtype, 256
+    if f32 and kind in ("bwd_dkv", "bwd_dq") and d > F32_CLUSTER_MAX_D:
+        return f"{kind}_tf32_band", dtype, 128   # a product tile's columns
     if d > 256:                  # the column-group forms, by group width
         tier = ((64 * f32_cluster_ns(d)
                  if kind != "decode" and d <= F32_CLUSTER_MAX_D else 64)
@@ -8493,11 +8512,12 @@ def wide_edges(g):
     B12 over a cache of 320 rows with NaN past kv_len 1, 65 and 300, one
     new token and five; the f32 forward run twice, bitwise equal. Then the
     f32 forward, B10 and B11 at D 776, 1032, 2056, 4096 (the cluster
-    form's three tiers) and 4104 (the column-group kernels;
-    ``WIDE_BWD_F32_DIMS``) on the ragged, uneven and GQA shapes of B8 (and
-    B9 at Sq 70 against Skv 130 unmasked), and B12 over a 320-row cache
-    with NaN past kv_len 1, 65 and 300 (one new token at 16/2 and 2/2
-    heads, five at 8/2), each run twice, bitwise equal."""
+    form's three tiers) and 4104 (the forward's column-group kernels, B10
+    and B11's band form; ``WIDE_BWD_F32_DIMS``) on the ragged, uneven and
+    GQA shapes of B8 (and B9 at Sq 70 against Skv 130 unmasked), and B12
+    over a 320-row cache with NaN past kv_len 1, 65 and 300 (one new token
+    at 16/2 and 2/2 heads, five at 8/2), each run twice, bitwise equal;
+    then the band form on cases of its own (``band_edges``)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     n = 0
@@ -8626,6 +8646,7 @@ def wide_edges(g):
                 need_repeat(lambda: A.flash_decode(  # noqa: B023
                     q, kc, vc, kv_len), o, what)  # noqa: B023
                 f += 1
+    b = band_edges(g)
     print(f"wide edges: the forms past 256 over {n} ragged, uneven "
           f"and cache cases at D {WIDE_DIMS} on f32, bf16 and f16 (16-bit "
           f"B10 on the cluster form, the decode on the wide split, each "
@@ -8635,7 +8656,46 @@ def wide_edges(g):
           f"D {WIDE16_DECODE_DIMS} over {w} more; the "
           f"f32 forward (the cluster form, the wide split decode) over {f} "
           f"and the f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on "
-          f"its route, within its limit and (f32) bitwise on a repeat")
+          f"its route, within its limit and (f32) bitwise on a repeat; the "
+          f"band form over {b} more ({BAND_EDGE_CASES})")
+
+
+def band_edges(g) -> int:
+    """The f32 B10 and B11's band form on ``BAND_EDGE_CASES``: D 8192 and
+    a shape whose workspace takes several bands (the bands' count from
+    ``ops.attention.band_rows``), each launch on the band route, within
+    BWD_TOL of the plain versions and bitwise on a repeat. The operands'
+    O and LSE come from the plain forward."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    for B, H, Hkv, Sq, Skv, D, causal in BAND_EDGE_CASES:
+        q, do = (torch.randn(B, H, Sq, D, device="cuda", generator=g)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Hkv, Skv, D, device="cuda", generator=g)
+                for _ in range(2))
+        o, lse = A.flash_attention_ref(q, k, v, causal)
+        delta = (do * o).sum(-1).reshape(B * H, Sq)
+        args = (q, do, k, v, lse, delta, causal, D ** -0.5)
+        bands = [-(-Sq // A.band_rows(dkv, Sq, Skv, D)) for dkv in (True,
+                                                                    False)]
+        what = (f"band float32 D={D} {(B, H, Hkv, Sq, Skv, causal)} bands "
+                f"B10 {bands[0]}, B11 {bands[1]}")
+        before = dict(A.route_launches)
+        dkv = A.flash_attention_bwd_dkv(*args)
+        need_one_route(before, "bwd_dkv", "float32", D, what)
+        before = dict(A.route_launches)
+        dq = A.flash_attention_bwd_dq(*args)
+        need_one_route(before, "bwd_dq", "float32", D, what)
+        err, ratio = max_pair(hold_bwd_outputs(args, dkv, what),
+                              hold_bwd_outputs(args, (dq,), what))
+        need_repeat(lambda: (*A.flash_attention_bwd_dkv(*args),  # noqa: B023
+                             A.flash_attention_bwd_dq(*args)),  # noqa: B023
+                    (*dkv, dq), what)
+        print(f"{what}: max abs err vs plain {err:.4g}, largest error/limit "
+              f"{ratio:.3f}, bitwise on a repeat")
+        del q, do, k, v, o, lse, delta, args, dkv, dq
+        torch.cuda.empty_cache()
+    return len(BAND_EDGE_CASES)
 
 
 # 16-bit head dims of wide_edges past 512: B10 on the cluster form's other
@@ -8835,7 +8895,7 @@ def column_groups16_rows(g):
             torch.cuda.empty_cache()
 
 
-def head_dim_phase() -> list:
+def head_dim_phase() -> tuple[list, list]:
     """17a: B8-B12 at the head layouts of Gemma-2B (D = 256, H = 8,
     Hkv = 1), Phi-2 (D = 80) and Phi-3-mini (D = 96, both H = Hkv = 32)
     on f32, bf16 and f16; the forms past 256 at Gemma-2B's heads with
@@ -8848,14 +8908,12 @@ def head_dim_phase() -> list:
     the wide split's last); the bf16 column groups at S = 1024 (B9 512):
     B10 at D = 2048 and B8, B9, the prefill, B10/B11 and the decode
     (kv_len 1023 of 1024) at D = 2056 (``PAST_CLUSTER16_D``); the f32
-    kernels past the cluster form at D =
-    4104, B = 1, S = 1024 (``attn_fwd_cols_kernel``,
-    ``attn_bwd_{dkv,dq}_cols_kernel``, ``attn_decode_cols_kernel``, two
-    timed launches where one takes over 100 ms); at D = 8 (the dry run's
-    ring
-    shapes); then
+    kernels past the cluster form at D = 4104, B = 1, S = 1024
+    (``attn_fwd_cols_kernel``, two timed launches of about 85 ms,
+    ``attn_decode_cols_kernel``) and B10 and B11's band form with its
+    path (``band_phase``); at D = 8 (the dry run's ring shapes); then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
-    8's). Returns the f16 records."""
+    8's). Returns the f16 records and the band form's."""
     import torch
     from accl_tpu_torch.ops import attention as A
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8922,10 +8980,9 @@ def head_dim_phase() -> list:
                         WIDE_S - 1, r, WIDE_S, "Gemma-2B heads"))
     column_groups16_rows(g)
     # the f32 kernels past the cluster form (no public model's width): B8
-    # and the B10/B11 pair take 80-300 ms a launch here, so two timed
-    # launches after the warm-up (the decode twenty)
+    # takes about 85 ms a launch here, so two timed launches after the
+    # warm-up (the decode twenty); B10 and B11's band form in band_phase
     for kind, sq, skv, T, reps in (("fwd", WIDE_S, WIDE_S, None, 2),
-                                   ("bwd", WIDE_S, WIDE_S, None, 2),
                                    ("decode", 1, WIDE_S - 1, WIDE_S, 20)):
         r = kernel_case(kind, torch.float32, 1, 8, 1, PAST_CLUSTER_D, sq,
                         skv, g, T, reps=reps)
@@ -8933,6 +8990,7 @@ def head_dim_phase() -> list:
                         skv, r, T, "Gemma-2B heads, past the cluster form"))
         gc.collect()
         torch.cuda.empty_cache()
+    band_recs = band_phase(g)
     for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
         dt = getattr(torch, dname)
         for kind, sq, skv, T in (("fwd", DRY_S, DRY_S, None),
@@ -8973,7 +9031,65 @@ def head_dim_phase() -> list:
                 rec["n_split"] = r["n_split"]
             recs.append(rec)
     print(f"phase 17a routes: {dict(sorted(A.route_launches.items()))}")
-    return recs
+    return recs, band_recs
+
+
+def band_phase(g) -> list:
+    """17a's rows of the f32 B10 and B11's band form at Gemma-2B's heads,
+    B 1, S 1024, D ``BAND_ROW_DIMS`` (each beside the plain versions,
+    SDPA's backward and the bound), then the band path: the Function a
+    trainer calls (``flash_attention`` forward and backward) at
+    ``BAND_PATH``, its route launches counted from a snapshot taken just
+    before it, the gradients held against dense autograd (FN_DENSE_REL).
+    Returns the kernels line's rows of the band form, with the path's
+    launches."""
+    import torch
+    from accl_tpu_torch.ops import attention as A
+    rows = {}
+    for D in BAND_ROW_DIMS:
+        rows[D] = kernel_case("bwd", torch.float32, 1, 8, 1, D, WIDE_S,
+                              WIDE_S, g, reps=5)
+        print(case_line("bwd", torch.float32, 1, 8, 1, D, WIDE_S, WIDE_S,
+                        rows[D], model="Gemma-2B heads, the band form"))
+        gc.collect()
+        torch.cuda.empty_cache()
+    B, H, Hkv, S, D = BAND_PATH
+    q, k, v = (torch.randn(B, h, S, D, device="cuda", generator=g)
+               .requires_grad_() for h in (H, Hkv, Hkv))
+    do = torch.randn(B, H, S, D, device="cuda", generator=g)
+    before = dict(A.route_launches)
+    got = torch.autograd.grad(A.flash_attention(q, k, v, causal=True),
+                              (q, k, v), do)
+    routes = routes_since(before)
+    launches = {kind: routes.get(tier_of(kind, "float32", D), 0)
+                for kind in ("bwd_dkv", "bwd_dq")}
+    need(launches == {"bwd_dkv": 1, "bwd_dq": 1}, f"band path: B10 and B11 "
+         f"not once each on the band form: {routes}")
+    want = torch.autograd.grad(dense_topleft(q, k, v), (q, k, v), do)
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        need(bool(torch.isfinite(a).all()), f"band path {name}: non-finite")
+        lim = FN_DENSE_REL * b.abs() + FN_DENSE_REL * float(b.abs().max())
+        worst = max(worst, float(((a - b).abs() / lim).max()))
+    print(f"band path (Function forward and backward, f32, {BAND_PATH}): "
+          f"routes {routes}; dq, dk, dv vs dense autograd largest "
+          f"error/limit {worst:.3f} (1e-4*|dense| + 1e-4*max|dense|)")
+    need(worst <= 1.0, "band path: flash and dense gradients differ")
+    del q, k, v, do, got, want
+    torch.cuda.empty_cache()
+    r = rows[D]
+    return [{"name": name, "route": "cuda", "source": ATTN_BWD_SRC,
+             "replaces": f"accl_tpu/ops/attention.py:{line}",
+             "launches": launches[kind],
+             "launches_by_path": {"band_grad": launches[kind]},
+             "max_abs_err": r["err"], "ms": r[kind[4:]]["ms"],
+             "plain_ms": r[kind[4:]]["plain_ms"],
+             "bound_ms": r[kind[4:]]["bound_ms"],
+             "bound_by": r[kind[4:]]["bound_by"],
+             "library_ms": r["library_ms"]}
+            for kind, name, line in (
+                ("bwd_dkv", "attn_bwd_dkv_tf32_band", 461),
+                ("bwd_dq", "attn_bwd_dq_tf32_band", 492))]
 
 
 def f16_serving_phase() -> dict:
@@ -9490,7 +9606,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 17a: the attention kernels on every dtype and head dim")
-    attn_recs += head_dim_phase()
+    f16_recs, band_recs = head_dim_phase()
+    attn_recs += f16_recs
     gc.collect()
     torch.cuda.empty_cache()
     phase("phase 17f: split decodes on two streams")
@@ -9513,7 +9630,7 @@ def main() -> int:
         r["launches"] = r["launches_by_path"][LAUNCH_PATH[r["name"]]]
         need(r["launches"] > 0, f"kernel {r['name']} was never launched on "
              f"the {LAUNCH_PATH[r['name']]} path")
-    recs += attn_recs + wide_recs
+    recs += attn_recs + wide_recs + band_recs
     print(f"total: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {

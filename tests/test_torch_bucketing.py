@@ -36,6 +36,15 @@ from accl_tpu_torch.parallel import (  # noqa: E402
 from accl_tpu_torch.parallel.bucketing import (tree_flatten,  # noqa: E402
                                                tree_unflatten)
 
+@pytest.fixture(autouse=True)
+def _shm_leak_sweep():
+    """Overrides conftest's /dev/shm sweep for this module: the port
+    creates no shm segment, and /dev/shm is shared by every worker of a
+    parallel run, so the sweep would count another worker's live
+    segments against this module's tests."""
+    yield
+
+
 W = 8
 
 

@@ -36,6 +36,16 @@ from accl_tpu_torch.constants import ReduceFunc  # noqa: E402
 from accl_tpu_torch.ops.combine import FUNCS, combine_ref  # noqa: E402
 from accl_tpu_torch.ops.compression import decode_ref, encode_ref  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _shm_leak_sweep():
+    """Overrides conftest's /dev/shm sweep for this module: the port
+    creates no shm segment, and /dev/shm is shared by every worker of a
+    parallel run, so the sweep would count another worker's live
+    segments against this module's tests."""
+    yield
+
+
 SOURCE = (Path(__file__).resolve().parent.parent / "accl_tpu_torch" / "csrc"
           / "fp8_hw.cuh")
 FORMATS = ("float8_e4m3fn", "float8_e5m2")
