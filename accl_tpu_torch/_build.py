@@ -50,12 +50,16 @@ _SIGNATURES = {
     "accl_fp8_scale": [_I, _I, _L, _P, _P, _P, _P, _P],
     "accl_fp8_quant": [_I, _I, _L, _P, _P, _P, _P],
     "accl_fp8_dequant": [_I, _I, _L, _P, _P, _P, _P],
-    # dtype, head_dim, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal, scale,
-    # stream
-    "accl_attn_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _F, _P],
-    "accl_attn_fwd_single": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _P],
+    # dtype, head_dim, q, k, v, o, lse, workspace, B, H, Hkv, Sq, Skv,
+    # causal, scale, stream
+    "accl_attn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _F, _P],
+    "accl_attn_fwd_single": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _F, _P],
+    # the f32 B8 on the band form at any head dim past 256 (measurements
+    # beside the dispatch's choice): as accl_attn_fwd
+    "accl_attn_fwd_band": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _F, _P],
     # dtype, head_dim, q, k_cache, v_cache, o, workspace, counters, B, H,
     # Hkv, T, s_new, kv_len, n_split, scale, stream
     "accl_attn_decode": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -88,7 +92,7 @@ _SIGNATURES = {
     "accl_attn_bwd_dq16_active_clusters": [_I],
     # the 16-bit B8 and B11 on their cluster forms at any head dim of the
     # forms' range (measurements beside the dispatch's choice): as
-    # accl_attn_fwd and accl_attn_bwd_dq
+    # accl_attn_fwd without the workspace, and accl_attn_bwd_dq
     "accl_attn_fwd16_cluster": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _F, _P],
     "accl_attn_bwd_dq16_cluster": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,

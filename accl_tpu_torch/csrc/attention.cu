@@ -16,8 +16,10 @@
 // Routes: the C entry points below send 16-bit (bf16 and f16) B8, B9 and
 // B12 chunks of S_new > 1 new tokens to the tensor-core kernels of
 // attention_sm90.cu (wgmma, TMA), and every single-token decode (S_new ==
-// 1, any dtype) to the split-KV kernel of attention_decode.cu. f32 B8,
-// f32 B9 and f32 B12 chunks run the kernels of this file.
+// 1, any dtype) to attention_decode.cu (the split-KV kernels; f32 past head
+// dim 2048 the band decode). f32 B8, f32 B9 and f32 B12 chunks run the
+// kernels of this file, past head dim 4096 the band form of
+// attention_band_fwd.cu.
 //
 // What bounds them on an H100: 4*D operations per visible score (S = Q K^T
 // and P V) against 2*D*4 bytes per key row, so at S in the hundreds and
@@ -691,182 +693,6 @@ attn_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                          scale, o + qoff, nullptr, D, smem);
 }
 
-// ---- head dims past 256: the column-group form ------------------------------
-//
-// f32 B8, B9 and B12 (chunks and, at S_new == 1, the decode) at D > 256.
-// A block (8 warps, CQ = 128 query rows, 16 a warp) keeps one group of
-// CGRP output columns (grid z; 64, where 128 spilled at 255 registers).
-// For each 32-key tile it forms S = Q K^T over the whole head dim, one
-// FCH-column chunk of Q and K at a time (cp.async into shared memory, one
-// stage: the next chunk's loads wait for this one's products), on the
-// same 3xTF32 products as the backward's (split in registers; each chunk
-// summed in a fresh accumulator, add_rows16_x_rows32); the last chunk's
-// step also
-// brings the tile's V columns of the group. Then the online softmax of
-// flash_tile (each warp holds all 32 keys of its 16 rows, so a row's
-// max and sum meet within a quad) and O = O * alpha + P V
-// (rows_accumulate: the tile's keys summed in a fresh accumulator). Every
-// group forms the same S in the same order, so all reach the same m and
-// l bit for bit; group 0 writes the LSE. B9 takes this online tile too,
-// as it takes flash_tile. Shared memory: Q's chunk (128 rows), K's chunk
-// and V's group (32 rows each) at a pitch of 132 floats, 101 KB.
-constexpr int CQ = 128, FCH = 128, CGRP = 64, CBK = 32;
-constexpr int CP = FCH + 4;  // pitch, floats
-constexpr int COLS_SMEM = (CQ + 2 * CBK) * CP * 4;
-
-__device__ __forceinline__ void cols_tile(const float* q, const float* k,
-                                          const float* v, long long kstride,
-                                          int kv_end, bool causal,
-                                          QRows rows, float scale, float* o,
-                                          float* lse, int D, int c0,
-                                          float* smem) {
-  float* sQ = smem;
-  float* sK = sQ + CQ * CP;
-  float* sV = sK + CBK * CP;
-  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int qw = 16 * (tid >> 5);  // the warp's first row
-  const int pos0 = rows.pos(qw + g), pos1 = rows.pos(qw + g + 8);
-  const bool valid = qw + (lane & 15) < rows.nq;
-  int last = valid ? rows.pos(qw + (lane & 15)) : -1;
-#pragma unroll
-  for (int off = 16; off; off >>= 1)
-    last = max(last, __shfl_xor_sync(0xffffffffu, last, off));
-  const int n_it = (kv_end + CBK - 1) / CBK, nch = (D + FCH - 1) / FCH;
-
-  float acc[CGRP / 8][4];  // rows qw+g, qw+g+8; columns c0 + 8c+2t, +1
-#pragma unroll
-  for (int c = 0; c < CGRP / 8; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
-  float mrow[2] = {NEG, NEG}, lrow[2] = {0.0f, 0.0f};
-
-  for (int it = 0; it < n_it; ++it) {
-    const int kt = it * CBK, n = min(CBK, kv_end - kt);
-    const long long koff = static_cast<long long>(kt) * kstride;
-    // warp-uniform: do the warp's rows see a key of this tile?
-    const bool live = last >= 0 && (!causal || kt <= last);
-    float x[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
-    for (int c = 0; c < nch; ++c) {
-      __syncthreads();  // every read of the previous chunk (and V) is done
-      const int col = c * FCH;
-      cp_rows<FCH, CQ, CP, NT>(sQ, q + col, rows.nq, D - col, D);
-      cp_rows<FCH, CBK, CP, NT>(sK, k + koff + col, n, D - col, kstride);
-      if (c == nch - 1)
-        cp_rows<CGRP, CBK, CP, NT>(sV, v + koff + c0, n, D - c0, kstride);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (live) add_rows16_x_rows32<FCH>(sQ + qw * CP, sK, x);
-    }
-    if (!live) continue;
-    float mx[2] = {NEG, NEG};
-    uint32_t seen = 0;  // bit 4j + e: entry (j, e) visible
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + 8 * j + 2 * t + (e & 1);
-        const bool ok =
-            key < kv_end && (!causal || key <= (e < 2 ? pos0 : pos1));
-        x[j][e] = ok ? __fmul_rn(x[j][e], scale) : NEG;
-        seen |= static_cast<uint32_t>(ok) << (4 * j + e);
-        mx[e >> 1] = fmaxf(mx[e >> 1], x[j][e]);
-      }
-    float sum[2] = {0.0f, 0.0f}, alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      mx[h] = fmaxf(mrow[h], mx[h]);  // the new running max
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        x[j][e] = (seen >> (4 * j + e)) & 1u
-                      ? expf(__fsub_rn(x[j][e], mx[e >> 1]))
-                      : 0.0f;
-        sum[e >> 1] = __fadd_rn(sum[e >> 1], x[j][e]);
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 1));
-      sum[h] = __fadd_rn(sum[h], __shfl_xor_sync(0xffffffffu, sum[h], 2));
-      alpha[h] = expf(__fsub_rn(mrow[h], mx[h]));
-      lrow[h] = __fadd_rn(__fmul_rn(lrow[h], alpha[h]), sum[h]);
-      mrow[h] = mx[h];
-    }
-#pragma unroll
-    for (int c = 0; c < CGRP / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[c][e] = __fmul_rn(acc[c][e], alpha[e >> 1]);
-    rows_accumulate<FCH, CGRP>(x, sV, acc);  // O += P V
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = qw + g + 8 * h;
-    if (r >= rows.nq) continue;
-    const float l = fmaxf(lrow[h], 1e-30f);
-    float* out = o + static_cast<long long>(r) * D + c0 + 2 * t;
-#pragma unroll
-    for (int c = 0; c < CGRP / 8; ++c)
-      if (c0 + 8 * c < D)
-        *reinterpret_cast<float2*>(out + 8 * c) =
-            make_float2(__fdiv_rn(acc[c][2 * h], l),
-                        __fdiv_rn(acc[c][2 * h + 1], l));
-    if (lse != nullptr && t == 0) lse[r] = __fadd_rn(mrow[h], logf(l));
-  }
-}
-
-// B8 and B9 at D > 256: grid (B*H, q tiles, column groups), operands as
-// attn_fwd_kernel's
-__global__ void __launch_bounds__(NT, 1)
-attn_fwd_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int Hkv, int Sq, int Skv,
-                     int causal, int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int bh = blockIdx.x;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * CQ;
-  const long long kvrow = (bh / H) * Hkv + (bh % H) / (H / Hkv);
-  const int nq = min(CQ, Sq - row0);
-  const int kv_end = causal ? min(Skv, row0 + nq) : Skv;
-  const long long qoff = (static_cast<long long>(bh) * Sq + row0) * D;
-  cols_tile(q + qoff, k + kvrow * Skv * D, v + kvrow * Skv * D, D, kv_end,
-            causal != 0, QRows{row0, nq, INT_MAX, 0}, scale, o + qoff,
-            blockIdx.z == 0 ? lse + static_cast<long long>(bh) * Sq + row0
-                            : nullptr,
-            D, blockIdx.z * CGRP, smem);
-}
-
-// B12 at D > 256: grid (row tiles, Hkv, B * column groups), operands as
-// attn_decode_kernel's
-__global__ void __launch_bounds__(NT, 1)
-attn_decode_cols_kernel(const float* __restrict__ q,
-                        const float* __restrict__ kc,
-                        const float* __restrict__ vc, float* __restrict__ o,
-                        int Hkv, int Tlen, int nrows, int s_new, int kv_len,
-                        int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int groups = (D + CGRP - 1) / CGRP;
-  const int b = blockIdx.z / groups, h = blockIdx.y, row0 = blockIdx.x * CQ;
-  const int nq = min(CQ, nrows - row0);
-  const int i0 = row0 % s_new;
-  const int kv_end = i0 + nq - 1 >= s_new ? kv_len
-                                          : kv_len - s_new + i0 + nq;
-  const long long qoff =
-      ((static_cast<long long>(b) * Hkv + h) * nrows + row0) * D;
-  const long long koff = (static_cast<long long>(b) * Tlen * Hkv + h) * D;
-  cols_tile(q + qoff, kc + koff, vc + koff, static_cast<long long>(Hkv) * D,
-            kv_end, true, QRows{row0, nq, s_new, kv_len - s_new}, scale,
-            o + qoff, nullptr, D, (blockIdx.z % groups) * CGRP, smem);
-}
-
 // ---- head dims past 256 up to 4096: the cluster form ------------------------
 //
 // f32 B8, B9 and the B12 chunks (S_new > 1) at cluster_form(D), one launch a
@@ -887,7 +713,7 @@ attn_decode_cols_kernel(const float* __restrict__ q,
 //      f32 adds and stores the sum into every block's result buffer;
 //      cluster barrier;
 //   3. each warp reads its group's S from its own result buffer and runs
-//      cols_tile's online softmax on it (scale, mask, row max, exp, row
+//      flash_tile's online softmax on it (scale, mask, row max, exp, row
 //      sum, rescale): every warp of a group, in every block, holds the same
 //      S, so m, l and P are bitwise the same everywhere; then O = O * alpha
 //      + P V on its slice (rows_accumulate: the tile's keys in a fresh
@@ -910,6 +736,8 @@ attn_decode_cols_kernel(const float* __restrict__ q,
 // warp only sums. Block 0's slice-0 warps write the LSE. Shared memory
 // 103, 197 and 192 KB at NS 2, 4 and 8. No atomics: one writer for each
 // element, so two runs on the same inputs are bitwise equal.
+constexpr int CBK = 32;  // the cluster form's key tile
+
 template <int NS>
 struct FwdX {
   static constexpr int SLICES = NS;
@@ -1093,7 +921,7 @@ __device__ __forceinline__ void cluster_tile(
       __syncthreads();
     }
     if (!mine) continue;
-    // step 3: cols_tile's online softmax on the summed S, then P V
+    // step 3: flash_tile's online softmax on the summed S, then P V
     float x[4][4];
     xch_read(xS, grp, x);
     float mx[2] = {NEG, NEG};
@@ -1241,42 +1069,6 @@ cudaError_t launch_decode_cluster(const float* q, const float* kc,
                                   kv_len, D, scale);
 }
 
-cudaError_t launch_fwd_cols(int kind, const void* q, const void* k,
-                            const void* v, void* o, void* lse, int B, int H,
-                            int Hkv, int Sq, int Skv, int causal, int D,
-                            float scale, cudaStream_t st) {
-  cudaError_t e = allow_smem(attn_fwd_cols_kernel, COLS_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid(B * H, (Sq + CQ - 1) / CQ, (D + CGRP - 1) / CGRP);
-  attn_fwd_cols_kernel<<<grid, NT, COLS_SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, Hkv, Sq, Skv, causal, D, scale);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) set_attn_route(kind, 0, CGRP);
-  return e;
-}
-
-cudaError_t launch_decode_cols(const void* q, const void* kc, const void* vc,
-                               void* o, int B, int H, int Hkv, int Tlen,
-                               int s_new, int kv_len, int D, float scale,
-                               cudaStream_t st) {
-  const int nrows = (H / Hkv) * s_new;
-  cudaError_t e = allow_smem(attn_decode_cols_kernel, COLS_SMEM);
-  if (e != cudaSuccess) return e;
-  dim3 grid((nrows + CQ - 1) / CQ, Hkv, B * ((D + CGRP - 1) / CGRP));
-  attn_decode_cols_kernel<<<grid, NT, COLS_SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kc),
-      static_cast<const float*>(vc), static_cast<float*>(o), Hkv, Tlen, nrows,
-      s_new, kv_len, D, scale);
-  e = cudaGetLastError();
-  if (e == cudaSuccess)
-    set_attn_route(s_new == 1 ? ROUTE_DECODE_COLS_TF32
-                              : ROUTE_PREFILL_COLS_TF32,
-                   0, CGRP);
-  return e;
-}
-
 // B8 or B9 (route `kind`) over grid (B*H, q tiles)
 template <int DP, typename K>
 cudaError_t launch_rows(K kern, int kind, const void* q, const void* k,
@@ -1356,18 +1148,36 @@ int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
                       int B, int H, int Hkv, int Tlen, int kv_len,
                       int n_split, float scale, cudaStream_t st);
 
+// the single-token decode past it, f32 (attention_decode.cu)
+int attn_decode_band(int dtype, int head_dim, const void* q, const void* kc,
+                     const void* vc, void* o, void* ws, void* counters,
+                     int B, int H, int Hkv, int Tlen, int kv_len,
+                     int n_split, float scale, cudaStream_t st);
+// the f32 band form past CLUSTER_MAX_D (attention_band_fwd.cu)
+int attn_fwd_band(int kind, const float* q, const float* k, const float* v,
+                  float* o, float* lse, float* ws, int B, int H, int Hkv,
+                  int Sq, int Skv, int causal, int D, float scale,
+                  cudaStream_t st);
+int attn_prefill_band(const float* q, const float* kc, const float* vc,
+                      float* o, float* ws, int B, int H, int Hkv, int Tlen,
+                      int s_new, int kv_len, int D, float scale,
+                      cudaStream_t st);
+
 static const float* F(const void* p) { return static_cast<const float*>(p); }
+static float* W(void* p) { return static_cast<float*>(p); }
 
 extern "C" {
 
 int accl_attn_last_route() { return g_attn_route; }
 
 // dtype 0 f32, 1 bf16, 2 f16; head_dim a multiple of 8 (f32 past 256: the
-// cluster kernels, past 4096 the column-group ones; 16-bit past 256 the
+// cluster kernels, past 4096 the band form on the workspace ws of B * H *
+// fwd_band_words(...) floats, used only there; 16-bit past 256 the
 // cluster or column-group kernels of attention_sm90.cu)
 int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
-                  const void* v, void* o, void* lse, int B, int H, int Hkv,
-                  int Sq, int Skv, int causal, float scale, void* stream) {
+                  const void* v, void* o, void* lse, void* ws, int B, int H,
+                  int Hkv, int Sq, int Skv, int causal, float scale,
+                  void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
   if (dtype == 1 || dtype == 2)
@@ -1380,17 +1190,18 @@ int accl_attn_fwd(int dtype, int head_dim, const void* q, const void* k,
                         static_cast<float*>(lse), B, H, Hkv, Sq, Skv, causal,
                         head_dim, scale, st)
   }
-  if (head_dim > 256)
-    return launch_fwd_cols(ROUTE_FWD_COLS_TF32, q, k, v, o, lse, B, H, Hkv,
-                           Sq, Skv, causal, head_dim, scale, st);
+  if (head_dim > CLUSTER_MAX_D)
+    return attn_fwd_band(ROUTE_FWD_TF32_BAND, F(q), F(k), F(v), W(o), W(lse),
+                         W(ws), B, H, Hkv, Sq, Skv, causal, head_dim, scale,
+                         st);
   F32_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
                head_dim, scale, st)
 }
 
 int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, void* o, void* lse,
-                         int B, int H, int Hkv, int Sq, int Skv, int causal,
-                         float scale, void* stream) {
+                         void* ws, int B, int H, int Hkv, int Sq, int Skv,
+                         int causal, float scale, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (head_dim % 8 || head_dim < 8) return cudaErrorInvalidValue;
   if (dtype == 1 || dtype == 2)
@@ -1403,19 +1214,20 @@ int accl_attn_fwd_single(int dtype, int head_dim, const void* q,
                         static_cast<float*>(o), static_cast<float*>(lse), B,
                         H, Hkv, Sq, Skv, causal, head_dim, scale, st)
   }
-  if (head_dim > 256)
-    return launch_fwd_cols(ROUTE_FWD_SINGLE_COLS_TF32, q, k, v, o, lse, B,
-                           H, Hkv, Sq, Skv, causal, head_dim, scale, st);
+  if (head_dim > CLUSTER_MAX_D)
+    return attn_fwd_band(ROUTE_FWD_SINGLE_TF32_BAND, F(q), F(k), F(v), W(o),
+                         W(lse), W(ws), B, H, Hkv, Sq, Skv, causal, head_dim,
+                         scale, st);
   F32_DISPATCH(launch_single, q, k, v, o, lse, B, H, Hkv, Sq, Skv, causal,
                head_dim, scale, st)
 }
 
 // ws, counters: the split route's f32 workspace and its zeroed counters
 // (S_new == 1 at head dims up to DECODE_SPLIT_MAX_D, every dtype), n_split
-// its splits. Past it an S_new == 1 runs its chunk's route: 16-bit the
-// tensor-core prefill form, f32 the column-group kernel; f32 chunks of
-// S_new > 1 past 256 run the cluster form to 4096, the column-group
-// kernel past it
+// its splits. Past it an S_new == 1 runs, 16-bit, its chunk's route (the
+// tensor-core prefill form), f32 the band decode of attention_decode.cu
+// on ws and counters with n_split splits; f32 chunks of S_new > 1 past 256
+// run the cluster form to 4096, the band form past it on ws
 int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
                      const void* vc, void* o, void* ws, void* counters, int B,
                      int H, int Hkv, int Tlen, int s_new, int kv_len,
@@ -1429,16 +1241,32 @@ int accl_attn_decode(int dtype, int head_dim, const void* q, const void* kc,
     return attn_prefill_wgmma(dtype, head_dim, q, kc, vc, o, B, H, Hkv, Tlen,
                               s_new, kv_len, scale, st);
   if (dtype != 0) return cudaErrorInvalidValue;
+  if (s_new == 1)
+    return attn_decode_band(dtype, head_dim, q, kc, vc, o, ws, counters, B,
+                            H, Hkv, Tlen, kv_len, n_split, scale, st);
   if (s_new > 1 && cluster_form(head_dim)) {
     CLUSTER_NS_DISPATCH(launch_decode_cluster, head_dim, F(q), F(kc), F(vc),
                         static_cast<float*>(o), B, H, Hkv, Tlen, s_new,
                         kv_len, head_dim, scale, st)
   }
-  if (head_dim > 256)
-    return launch_decode_cols(q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
-                              head_dim, scale, st);
+  if (head_dim > CLUSTER_MAX_D)
+    return attn_prefill_band(F(q), F(kc), F(vc), W(o), W(ws), B, H, Hkv, Tlen,
+                             s_new, kv_len, head_dim, scale, st);
   F32_DISPATCH(launch_decode, q, kc, vc, o, B, H, Hkv, Tlen, s_new, kv_len,
                head_dim, scale, st)
+}
+
+// The f32 B8 on the band form at any head dim past 256 (measurements
+// beside the dispatch's choice), as accl_attn_fwd with dtype 0
+int accl_attn_fwd_band(int dtype, int head_dim, const void* q, const void* k,
+                       const void* v, void* o, void* lse, void* ws, int B,
+                       int H, int Hkv, int Sq, int Skv, int causal,
+                       float scale, void* stream) {
+  if (dtype != 0 || head_dim % 8 || head_dim <= 256)
+    return cudaErrorInvalidValue;
+  return attn_fwd_band(ROUTE_FWD_TF32_BAND, F(q), F(k), F(v), W(o), W(lse),
+                       W(ws), B, H, Hkv, Sq, Skv, causal, head_dim, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@
 // GQA by index (the group = H / Hkv q heads of one kv head share its K
 // and V); O in q's dtype. accl_attn_decode (attention.cu) sends every
 // S_new == 1 launch at head dims up to DECODE_SPLIT_MAX_D here, every
-// dtype (past 256 the wide kernel at the end of this file); chunks of
-// S_new > 1 keep their routes there.
+// dtype (past 256 the wide kernel below), and the f32 ones past it (the
+// band decode at the end of this file); chunks of S_new > 1 keep their
+// routes there.
 //
 // Bound on an H100: a step reads the filled prefix once, 2 * kv_len * D
 // elements per (b, kv head), and does 4 * D operations per (q row, key):
@@ -985,6 +986,380 @@ cudaError_t launch_wide(int dtype, const void* q, const void* kc,
   }
 }
 
+// ---- f32 head dims past DECODE_SPLIT_MAX_D: the band decode ---------------
+//
+// The single-token decode at f32 head dims past 2048, where the wide split
+// above would need more than a block's 1024 threads for one row's 16-byte
+// columns. A row's scores are kv_len floats (4 KB at 1023 keys) where K
+// and V are kv_len * D each (16.8 MB at D 4104), so the step is two
+// streaming passes over the cache with the scores kept in a workspace:
+//   the score pass (attn_decode_band_score_kernel): grid (the cache's tiles
+//   of BD_KEYS keys, Hkv * group / GR, B), blocks past kv_len returning at
+//   once. A block holds its kv head's GR query rows and its tile's keys and
+//   loops over the head dim in chunks of BD_CT * VEC columns (512 of f32)
+//   through a double-buffered cp.async ring: a thread copies and forms 16
+//   bytes of columns of the GR rows against its key group's BD_KEYS /
+//   BD_KG keys, summing every chunk into the same f32 accumulators (fmaf,
+//   in column order). At the end each warp's sums meet through RowSplit's
+//   reduce-scatter, the key group's warps add theirs in warp order, and the
+//   GR * BD_KEYS threads of the scores scale and mask them (finfo(f32).min
+//   past kv_len) and store them with each row's tile maximum m_t and sum
+//   l_t = sum exp(s - m_t);
+//   the product pass (attn_decode_band_pv_kernel): grid (BD_SLICE-column
+//   slices, n_split key splits, B * Hkv * group / GR), about two blocks an
+//   SM. Each block merges its rows' tile stats (a warp a row: M = max m_t,
+//   L = sum l_t exp(m_t - M), each lane its tiles in order, then a fixed
+//   tree of shuffles: the same order in every block), forms P = exp(s -
+//   LSE) for its split's keys in shared memory, and adds P V over them
+//   for its slice in four key groups, summed in group order, into a partial
+//   of the workspace. The last block of a (b, kv head's rows, slice) to
+//   finish (a ticket on its counter, which it sets back to 0) adds the
+//   n_split partials in split order into O.
+// The grid and the splits depend on the cache's T, not on kv_len
+// (ops/attention.py band_decode_splits), so the launch geometry stays the
+// same from step to step. The step is bound by bytes: f32 FMAs on the CUDA
+// cores, no tensor core. Keys at or past kv_len are never loaded. No float
+// atomics: one writer for each element, the sums in fixed orders, so two
+// runs on the same inputs are bitwise equal. Written for any T, routed
+// for f32 only.
+constexpr int BD_KEYS = 8;    // keys of a score tile
+constexpr int BD_KG = 2;      // key groups of a score block
+constexpr int BD_CT = 128;    // threads of a score key group
+constexpr int BD_NT = BD_KG * BD_CT;
+constexpr int BD_PKG = 4;     // key groups of a product block
+constexpr int BD_PT = 64;     // threads of a product key group
+constexpr int BD_PCH = 128;   // keys of P a product block holds at once
+constexpr int BD_PNT = BD_PKG * BD_PT;
+static_assert(BD_NT == 256 && BD_PNT == 256, "eight warps a block");
+
+template <typename T>
+__host__ __device__ constexpr int bd_slice() {  // a product slice's columns
+  return BD_PT * (16 / static_cast<int>(sizeof(T)));
+}
+template <typename T, int GR>
+__host__ __device__ constexpr int bd_score_smem() {  // two stages of q, K
+  return 2 * (GR + BD_KEYS) * BD_CT * 16;
+}
+template <typename T, int GR>
+__host__ __device__ constexpr int bd_pv_smem() {  // P, the groups' sums
+  return (BD_PCH * GR + (BD_PKG - 1) * GR * bd_slice<T>() + GR) * 4;
+}
+
+// grid (cache tiles, Hkv * group / GR, B). q (B, H, 1, D); kc (B, T, Hkv,
+// D); S (B*H, pitch) and stat (B*H, tiles) float2 of (m, l)
+template <typename T, int GR>
+__global__ void __launch_bounds__(BD_NT, 2)
+attn_decode_band_score_kernel(const T* __restrict__ q,
+                              const T* __restrict__ kc,
+                              float* __restrict__ S,
+                              float2* __restrict__ stat, int H, int Hkv,
+                              int Tlen, int kv_len, int D, float scale,
+                              int pitch, int tiles) {
+  constexpr int VEC = 16 / sizeof(T), KPG = BD_KEYS / BD_KG;
+  constexpr int NP = GR * KPG;  // a thread's (row, key) sums
+  constexpr int CW = BD_CT * VEC;  // a chunk's columns
+  constexpr int ROWB = BD_CT * 16;  // bytes of a chunk's row
+  using RS = RowSplit<NP, 32>;
+  static_assert(RS::NR == 1, "one (row, key) sum a lane");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int key0 = blockIdx.x * BD_KEYS;
+  if (key0 >= kv_len) return;
+  const int group = H / Hkv, chunks = group / GR;
+  const int h = blockIdx.y / chunks, g0 = (blockIdx.y % chunks) * GR;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kg = tid / BD_CT, ct = tid % BD_CT;
+  const long long qrow0 = static_cast<long long>(b) * H + h * group + g0;
+  const long long kstride = static_cast<long long>(Hkv) * D;
+  const T* kb = kc + (static_cast<long long>(b) * Tlen * Hkv + h) * D +
+                key0 * kstride;
+  const int nch = (D + CW - 1) / CW;
+  const uint32_t sbase = smem_addr(smem);
+
+  // stage c % 2 <- chunk c: the q rows g with g % BD_KG == kg and the key
+  // group's keys, this thread's 16 bytes of each (zeros past D or kv_len)
+  auto issue = [&](int c) {
+    if (c < nch) {
+      const int col = c * CW + ct * VEC;
+      const bool in = col < D;
+      const uint32_t dst = sbase + (c & 1) * (GR + BD_KEYS) * ROWB + ct * 16;
+#pragma unroll
+      for (int g = kg; g < GR; g += BD_KG)
+        cp_async16(dst + g * ROWB, q + (in ? (qrow0 + g) * D + col : 0),
+                   in ? 16 : 0);
+#pragma unroll
+      for (int i = 0; i < KPG; ++i) {
+        const int j = kg * KPG + i;
+        const bool ok = in && key0 + j < kv_len;
+        cp_async16(dst + (GR + j) * ROWB, kb + (ok ? j * kstride + col : 0),
+                   ok ? 16 : 0);
+      }
+    }
+    cp_commit();
+  };
+  issue(0);
+  float d[NP];  // rows g, keys kg * KPG + i at g * KPG + i
+#pragma unroll
+  for (int p = 0; p < NP; ++p) d[p] = 0.0f;
+  for (int c = 0; c < nch; ++c) {
+    issue(c + 1);
+    cp_wait<1>();
+    __syncthreads();  // chunk c landed for every thread
+    const uint8_t* s = smem + (c & 1) * (GR + BD_KEYS) * ROWB + ct * 16;
+    float kf[KPG][VEC];
+#pragma unroll
+    for (int i = 0; i < KPG; ++i)
+      unpack(*reinterpret_cast<const uint4*>(s + (GR + kg * KPG + i) * ROWB),
+             kf[i], T());
+#pragma unroll
+    for (int g = 0; g < GR; ++g) {
+      float qf[VEC];
+      unpack(*reinterpret_cast<const uint4*>(s + g * ROWB), qf, T());
+#pragma unroll
+      for (int i = 0; i < KPG; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          d[g * KPG + i] = fmaf(qf[e], kf[i][e], d[g * KPG + i]);
+    }
+    __syncthreads();  // every thread is done with the stage chunk c+2 takes
+  }
+  cp_wait<0>();
+  // the warp's sums of each (row, key), then the key group's warps in order
+  float* red = reinterpret_cast<float*>(smem);  // [warp][NP]
+  RS::reduce(d, lane);
+  const int p0 = RS::row0(lane);
+  if (lane == RS::src(p0)) red[warp * NP + p0] = d[0];
+  __syncthreads();
+  if (tid < GR * BD_KEYS) {  // (row g, key j): a row's keys in 8 lanes
+    // the lanes of warp tid / 32 that take part (all but at GR 1 and 2)
+    constexpr unsigned LANES =
+        GR * BD_KEYS >= 32 ? 0xffffffffu : (1u << (GR * BD_KEYS)) - 1;
+    const int g = tid / BD_KEYS, j = tid % BD_KEYS;
+    const int grp = j / KPG, p = g * KPG + j % KPG;
+    constexpr int WPG = BD_CT / 32;  // the key group's warps
+    float sum = red[grp * WPG * NP + p];
+#pragma unroll
+    for (int w = 1; w < WPG; ++w)
+      sum = __fadd_rn(sum, red[(grp * WPG + w) * NP + p]);
+    const bool ok = key0 + j < kv_len;
+    const float sc = ok ? __fmul_rn(sum, scale) : NEG;
+    float m = sc;
+#pragma unroll
+    for (int off = BD_KEYS / 2; off; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(LANES, m, off, BD_KEYS));
+    float l = ok ? expf(__fsub_rn(sc, m)) : 0.0f;
+#pragma unroll
+    for (int off = BD_KEYS / 2; off; off >>= 1)
+      l = __fadd_rn(l, __shfl_xor_sync(LANES, l, off, BD_KEYS));
+    S[(qrow0 + g) * pitch + key0 + j] = sc;
+    if (j == 0) stat[(qrow0 + g) * tiles + blockIdx.x] = make_float2(m, l);
+  }
+}
+
+// grid (slices, n_split, B * Hkv * group / GR). vc (B, T, Hkv, D); o (B,
+// H, 1, D); part (B*H, n_split, D) f32; counters (B * Hkv * group / GR *
+// slices) zero between launches
+template <typename T, int GR>
+__global__ void __launch_bounds__(BD_PNT, 2)
+attn_decode_band_pv_kernel(const T* __restrict__ vc, T* __restrict__ o,
+                           const float* __restrict__ S,
+                           const float2* __restrict__ stat,
+                           float* __restrict__ part,
+                           unsigned* __restrict__ counters, int H, int Hkv,
+                           int Tlen, int kv_len, int D, int pitch,
+                           int tiles) {
+  constexpr int VEC = 16 / sizeof(T), SW = bd_slice<T>();
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ int s_last;
+  float* sP = fsm;                    // [key][row] of a chunk of keys
+  float* red = sP + BD_PCH * GR;      // groups 1.. of [row][slice column]
+  float* sLse = red + (BD_PKG - 1) * GR * SW;
+  const int slice = blockIdx.x, s = blockIdx.y, n_split = gridDim.y;
+  const int group = H / Hkv, chunks = group / GR;
+  const int b = blockIdx.z / (Hkv * chunks), rc = blockIdx.z % (Hkv * chunks);
+  const int h = rc / chunks, g0 = (rc % chunks) * GR;
+  const long long qrow0 = static_cast<long long>(b) * H + h * group + g0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kg = tid / BD_PT, col = slice * SW + (tid % BD_PT) * VEC;
+  const bool in = col < D;
+  // this split's keys: whole tiles of the cache's, clipped to kv_len
+  const int per = (tiles + n_split - 1) / n_split * BD_KEYS;
+  const int lo = min(s * per, kv_len), hi = min(lo + per, kv_len);
+  const int live = (kv_len + BD_KEYS - 1) / BD_KEYS;  // tiles with keys
+
+  // each row's LSE: its tiles' stats, every lane its own in order, then a
+  // fixed tree of shuffles
+  for (int g = warp; g < GR; g += BD_PNT / 32) {
+    const float2* st = stat + (qrow0 + g) * tiles;
+    float M = NEG;
+    for (int i = lane; i < live; i += 32) M = fmaxf(M, st[i].x);
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.0f;
+    for (int i = lane; i < live; i += 32) {
+      const float2 x = st[i];
+      L = __fadd_rn(L, __fmul_rn(x.y, expf(__fsub_rn(x.x, M))));
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1)
+      L = __fadd_rn(L, __shfl_xor_sync(0xffffffffu, L, off));
+    if (lane == 0) sLse[g] = __fadd_rn(M, logf(fmaxf(L, 1e-30f)));
+  }
+  float acc[GR][VEC];
+#pragma unroll
+  for (int g = 0; g < GR; ++g)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.0f;
+  const long long vstride = static_cast<long long>(Hkv) * D;
+  const T* vb = vc + (static_cast<long long>(b) * Tlen * Hkv + h) * D + col;
+  for (int k0 = lo; k0 < hi; k0 += BD_PCH) {
+    const int n = min(BD_PCH, hi - k0);
+    __syncthreads();  // the LSE is in place; the last chunk's P is read
+    for (int i = tid; i < n * GR; i += BD_PNT) {
+      const int j = i / GR, g = i % GR;
+      sP[i] = expf(__fsub_rn(S[(qrow0 + g) * pitch + k0 + j], sLse[g]));
+    }
+    __syncthreads();
+    if (in) {
+#pragma unroll 4
+      for (int j = kg; j < n; j += BD_PKG) {
+        float vf[VEC];
+        unpack(__ldg(reinterpret_cast<const uint4*>(
+                   vb + static_cast<long long>(k0 + j) * vstride)),
+               vf, T());
+#pragma unroll
+        for (int g = 0; g < GR; ++g) {
+          const float p = sP[j * GR + g];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+    }
+  }
+  // the key groups' sums in group order into this split's partial
+  __syncthreads();
+  const int c = (tid % BD_PT) * VEC;  // the thread's column of the slice
+  if (kg > 0) {
+#pragma unroll
+    for (int g = 0; g < GR; ++g)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        red[((kg - 1) * GR + g) * SW + c + e] = acc[g][e];
+  }
+  __syncthreads();
+  if (kg == 0 && in) {
+#pragma unroll
+    for (int g = 0; g < GR; ++g) {
+      float* dst = part + ((qrow0 + g) * n_split + s) * D + col;
+#pragma unroll
+      for (int e = 0; e < VEC; e += 4) {
+        float4 a = make_float4(acc[g][e], acc[g][e + 1], acc[g][e + 2],
+                               acc[g][e + 3]);
+#pragma unroll
+        for (int u = 1; u < BD_PKG; ++u) {
+          const float* x = red + ((u - 1) * GR + g) * SW + c + e;
+          a = make_float4(__fadd_rn(a.x, x[0]), __fadd_rn(a.y, x[1]),
+                          __fadd_rn(a.z, x[2]), __fadd_rn(a.w, x[3]));
+        }
+        *reinterpret_cast<float4*>(dst + e) = a;
+      }
+    }
+  }
+  // the last split of (b, rows, slice) to finish adds the partials in
+  // split order into O and sets the counter back to 0
+  __syncthreads();
+  if (tid == 0) {
+    unsigned* ctr = counters + static_cast<long long>(blockIdx.z) *
+                                   gridDim.x + slice;
+    __threadfence();
+    s_last = atomicAdd(ctr, 1u) == static_cast<unsigned>(n_split - 1);
+    if (s_last) {
+      *ctr = 0u;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!s_last) return;
+  for (int i = tid; i < GR * BD_PT; i += BD_PNT) {
+    const int g = i / BD_PT, cc = slice * SW + (i % BD_PT) * VEC;
+    if (cc >= D) continue;
+    const float* src = part + (qrow0 + g) * n_split * D + cc;
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      float4 a = __ldcg(reinterpret_cast<const float4*>(src + e));
+      for (int u = 1; u < n_split; ++u) {
+        const float4 x = __ldcg(
+            reinterpret_cast<const float4*>(src + static_cast<long long>(u) *
+                                                      D + e));
+        a = make_float4(__fadd_rn(a.x, x.x), __fadd_rn(a.y, x.y),
+                        __fadd_rn(a.z, x.z), __fadd_rn(a.w, x.w));
+      }
+      store4(o + (qrow0 + g) * D + cc + e, a.x, a.y, a.z, a.w);
+    }
+  }
+}
+
+// the cache's score tiles and the scores' row pitch at T keys
+__host__ __device__ constexpr int bd_tiles(int T) {
+  return (T + BD_KEYS - 1) / BD_KEYS;
+}
+
+template <typename T, int GR>
+cudaError_t launch_band_decode(const void* q, const void* kc, const void* vc,
+                               void* o, void* ws, void* counters, int B,
+                               int H, int Hkv, int Tlen, int kv_len,
+                               int n_split, int D, float scale,
+                               cudaStream_t st) {
+  auto score = attn_decode_band_score_kernel<T, GR>;
+  auto pv = attn_decode_band_pv_kernel<T, GR>;
+  constexpr int ss = bd_score_smem<T, GR>(), ps = bd_pv_smem<T, GR>();
+  cudaError_t e = cudaFuncSetAttribute(
+      score, cudaFuncAttributeMaxDynamicSharedMemorySize, ss);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(pv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ps);
+  if (e != cudaSuccess) return e;
+  const int tiles = bd_tiles(Tlen), pitch = tiles * BD_KEYS;
+  const long long rows = static_cast<long long>(B) * H;
+  float* part = static_cast<float*>(ws);  // first: 16-byte rows
+  float* S = part + rows * n_split * D;
+  float2* stat = reinterpret_cast<float2*>(S + rows * pitch);
+  const int chunks = H / Hkv / GR;
+  score<<<dim3(tiles, Hkv * chunks, B), BD_NT, ss, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kc), S, stat, H, Hkv,
+      Tlen, kv_len, D, scale, pitch, tiles);
+  pv<<<dim3((D + bd_slice<T>() - 1) / bd_slice<T>(), n_split,
+            B * Hkv * chunks),
+       BD_PNT, ps, st>>>(static_cast<const T*>(vc), static_cast<T*>(o), S,
+                          stat, part, static_cast<unsigned*>(counters), H,
+                          Hkv, Tlen, kv_len, D, pitch, tiles);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) set_attn_route(ROUTE_DECODE_BAND, 0, bd_slice<T>());
+  return e;
+}
+
+// the largest row count of the group that divides it: 8, 4, 2 or 1
+template <typename T>
+cudaError_t launch_band_decode_group(const void* q, const void* kc,
+                                     const void* vc, void* o, void* ws,
+                                     void* counters, int B, int H, int Hkv,
+                                     int Tlen, int kv_len, int n_split, int D,
+                                     float scale, cudaStream_t st) {
+  const int group = H / Hkv;
+  if (group % 8 == 0)
+    return launch_band_decode<T, 8>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                    Tlen, kv_len, n_split, D, scale, st);
+  if (group % 4 == 0)
+    return launch_band_decode<T, 4>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                    Tlen, kv_len, n_split, D, scale, st);
+  if (group % 2 == 0)
+    return launch_band_decode<T, 2>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                    Tlen, kv_len, n_split, D, scale, st);
+  return launch_band_decode<T, 1>(q, kc, vc, o, ws, counters, B, H, Hkv,
+                                  Tlen, kv_len, n_split, D, scale, st);
+}
+
 }  // namespace
 
 // Called by accl_attn_decode (attention.cu) for S_new == 1 up to
@@ -1008,4 +1383,22 @@ int attn_decode_split(int dtype, int head_dim, const void* q, const void* kc,
   }
   POW2_DISPATCH(launch_split_group, q, kc, vc, o, ws, counters, B, H, Hkv,
                 Tlen, kv_len, n_split, head_dim, scale, st)
+}
+
+// Called by accl_attn_decode (attention.cu) for an f32 S_new == 1 past
+// DECODE_SPLIT_MAX_D. ws: the f32 workspace of B * H * (n_split * D +
+// pitch + 2 * tiles) floats (partials, scores, tile stats; tiles =
+// ceil(T / BD_KEYS), pitch = tiles * BD_KEYS); counters: B * H *
+// ceil(D / 256) unsigned ints, zero (the kernel leaves them zero), used by
+// no launch that may run at the same time as this one.
+int attn_decode_band(int dtype, int head_dim, const void* q, const void* kc,
+                     const void* vc, void* o, void* ws, void* counters,
+                     int B, int H, int Hkv, int Tlen, int kv_len,
+                     int n_split, float scale, cudaStream_t st) {
+  if (dtype != 0 || ws == nullptr || counters == nullptr || n_split < 1 ||
+      kv_len < 1 || kv_len > Tlen)
+    return cudaErrorInvalidValue;
+  return launch_band_decode_group<float>(q, kc, vc, o, ws, counters, B, H,
+                                         Hkv, Tlen, kv_len, n_split,
+                                         head_dim, scale, st);
 }

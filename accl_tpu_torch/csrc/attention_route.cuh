@@ -2,7 +2,9 @@
 // source: the launcher that made the last launch sets it to kind << 16 |
 // dtype code << 12 | column tier (the column group's width on the
 // column-group routes of head dims past 256); accl_attn_last_route
-// (attention.cu) reads it.
+// (attention.cu) reads it. No launch reports ROUTE_DECODE_COLS_TF32 (19)
+// any more: the f32 single-token decode past 2048 takes ROUTE_DECODE_BAND;
+// the code keeps its number.
 #pragma once
 
 void set_attn_route(int kind, int dtype, int tier);
@@ -26,5 +28,10 @@ enum {
   ROUTE_BWD_DQ_WGMMA_CLUSTER = 28,
   // the f32 band form of B10 and B11 (D > 4096), tier a product tile's
   // columns
-  ROUTE_BWD_DKV_TF32_BAND = 29, ROUTE_BWD_DQ_TF32_BAND = 30
+  ROUTE_BWD_DKV_TF32_BAND = 29, ROUTE_BWD_DQ_TF32_BAND = 30,
+  // the f32 band form of B8, B9 and the B12 chunks (D > 4096) and the f32
+  // single-token decode past 2048 (attention_decode.cu), tier a product
+  // tile's columns
+  ROUTE_FWD_TF32_BAND = 31, ROUTE_FWD_SINGLE_TF32_BAND = 32,
+  ROUTE_PREFILL_TF32_BAND = 33, ROUTE_DECODE_BAND = 34
 };

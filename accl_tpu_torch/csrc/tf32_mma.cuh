@@ -1,7 +1,7 @@
 // Helpers of the f32 attention routes on the tensor cores (attention.cu,
-// attention_bwd.cu): 3xTF32 products on mma.sync m16n8k8, ldmatrix of
+// attention_band_fwd.cu, attention_bwd.cu): 3xTF32 products on mma.sync m16n8k8, ldmatrix of
 // 32-bit words, cp.async copies into shared memory, and the row-tile
-// products of the backward and of the column-group forms.
+// products of the backward and of the cluster forms.
 //
 // 3xTF32: an f32 operand a splits into hi = tf32(a) and lo = tf32(a - hi)
 // (cvt.rna: 10 mantissa bits, ties away from zero), and a product a*b is
@@ -155,22 +155,6 @@ __device__ __forceinline__ void rows16_x_rows32(const float* a,
       mma_3xtf32(x[jj + 1], fa, f1);
     }
   }
-}
-
-// x += A B^T over DP columns, summed in a fresh accumulator and added in
-// f32 (the tensor core truncates as it accumulates: a long run of
-// products in one accumulator drifts, so the column-group forms add their
-// chunks this way)
-template <int DP>
-__device__ __forceinline__ void add_rows16_x_rows32(const float* a,
-                                                    const float* b,
-                                                    float (&x)[4][4]) {
-  float part[4][4];
-  rows16_x_rows32<DP>(a, b, part);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = __fadd_rn(x[j][e], part[j][e]);
 }
 
 // acc (16 x CW) += x (16 x 32) B, B the CW columns at b of 32 rows

@@ -83,17 +83,25 @@ to 4096 run the cluster form (``attn_fwd_cluster_kernel`` for B8 and B9,
 ``attn_decode_cluster_kernel`` for B12 chunks of S_new > 1,
 ``attn_bwd_{dkv,dq}_cluster_kernel``: a thread-block cluster splits the
 head dim into 64-column slices and forms S, and dP, once a tile); past
-``F32_CLUSTER_MAX_D`` (4096) ``attn_fwd_cols_kernel`` and
-``attn_decode_cols_kernel``, and B10 and B11 the band form
-(``attn_bwd_band_score_kernel`` forms S and dP once a 128 x 64 tile over
-the whole head dim and stores P and dS in a workspace, from which
-``attn_bwd_band_{dkv,dq}_kernel`` form dV, dK and dQ; a band of
-``band_rows`` query rows at a time, so that the workspace, which the
-wrapper allocates, ``band_workspace_floats``, stays within q's own
-bytes). A single-token decode past
-``DECODE_SPLIT_MAX_D`` runs the chunk's form at S_new = 1. A CUDA call
-with another dtype raises TypeError. The reference's wrappers check
-neither.
+``F32_CLUSTER_MAX_D`` (4096) the band form: B8, B9 and the B12 chunks
+(``csrc/attention_band_fwd.cu``: ``attn_fwd_band_score_kernel`` forms S
+once a 128 x 64 tile over the whole head dim and stores it, with each
+tile's row maxima and sums, in a workspace, ``attn_fwd_band_norm_kernel``
+merges each row's stats into its LSE and turns its S into P there, and
+``attn_fwd_band_pv_kernel`` forms O = P V; a band of ``fwd_band_rows`` query rows at a time, the workspace
+``fwd_band_workspace_floats``), and B10 and B11
+(``attn_bwd_band_score_kernel`` forms S and dP once a tile and stores P
+and dS, from which ``attn_bwd_band_{dkv,dq}_kernel`` form dV, dK and dQ;
+``band_rows`` rows a band, the workspace ``band_workspace_floats``);
+each workspace, which the wrapper allocates, stays within q's own bytes.
+A 16-bit single-token decode past ``DECODE_SPLIT_MAX_D`` runs the
+chunk's form at S_new = 1; an f32 one the band decode
+(``attn_decode_band_{score,pv}_kernel`` of ``csrc/attention_decode.cu``:
+the scores of 8-key tiles with their stats into a workspace, then P V
+over ``band_decode_splits`` key splits, 256-column slices, the splits'
+partials added in split order by the last to finish: ``takes_band_decode``).
+A CUDA call with another dtype raises TypeError. The reference's
+wrappers check neither.
 
 Launch counters: ``fwd_launches`` (B8), ``fwd_single_launches`` (B9),
 ``bwd_dkv_launches`` (B10), ``bwd_dq_launches`` (B11), and B12's two,
@@ -104,9 +112,10 @@ tier), and the wrapper counts it after the launch in ``route_launches``
 ((route, dtype name, tier) -> launches; routes in ``ROUTES``) and in
 the routes' own counters, ``fwd_wgmma_launches``,
 ``fwd_single_wgmma_launches``, ``prefill_wgmma_launches`` (the B8, B9
-and B12 prefill launches on the tensor cores) and
+and B12 prefill launches on the tensor cores),
 ``decode_split_launches`` (the B12 decode launches on the split-KV
-kernel; ``last_decode_splits`` holds the last one's ``n_split``).
+kernels) and ``decode_band_launches`` (on the band decode;
+``last_decode_splits`` holds the last decode's ``n_split`` on either).
 ``plain_runs`` counts the plain versions' runs on the CPU under the
 branch the dispatch chose ("fwd", "fwd_single", "bwd_dkv", "bwd_dq",
 "decode").
@@ -130,7 +139,10 @@ _HALF = (torch.bfloat16, torch.float16)
 # cluster form, whose tier is a block's columns: 128, 256 or 512);
 # "_cluster": the 16-bit cluster forms (tier a block's slice: 128 for
 # B10, 256 for B8, B9, the B12 chunks and B11); "_band": the f32 B10 and
-# B11 past F32_CLUSTER_MAX_D (tier a product tile's 128 columns)
+# B11 past F32_CLUSTER_MAX_D, "fwd_*_tf32_band", "prefill_tf32_band" the
+# f32 B8, B9 and B12 chunks there (tier a product tile's 128 columns), and
+# "decode_band" the f32 single-token decode past DECODE_SPLIT_MAX_D (tier
+# a product slice's 256 columns); no launch reports 19 any more
 ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           4: "decode_split", 5: "fwd_tf32", 6: "fwd_single_tf32",
           7: "prefill_tf32", 8: "bwd_dkv_wgmma", 9: "bwd_dq_wgmma",
@@ -144,7 +156,9 @@ ROUTES = {1: "fwd_wgmma", 2: "fwd_single_wgmma", 3: "prefill_wgmma",
           24: "bwd_dkv_wgmma_cluster", 25: "fwd_wgmma_cluster",
           26: "fwd_single_wgmma_cluster", 27: "prefill_wgmma_cluster",
           28: "bwd_dq_wgmma_cluster", 29: "bwd_dkv_tf32_band",
-          30: "bwd_dq_tf32_band"}
+          30: "bwd_dq_tf32_band", 31: "fwd_tf32_band",
+          32: "fwd_single_tf32_band", 33: "prefill_tf32_band",
+          34: "decode_band"}
 _DTYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "float16"}
 SPLIT_TILE = 64          # a decode split's key range is a multiple of it
 DECODE_SPLIT_MAX_D = 2048  # single-token decode: split-KV up to it
@@ -165,6 +179,11 @@ DECODE_BLOCKS_PER_SM = 4  # csrc/attention_decode.cu BLOCKS_PER_SM
 # bands are whole tiles of BAND_TILE rows (csrc/attention_bwd.cu BT)
 F32_CLUSTER_MAX_D = 4096
 BAND_TILE = 64
+# the f32 single-token decode's band form past DECODE_SPLIT_MAX_D
+# (csrc/attention_decode.cu): keys a score tile (BD_KEYS), f32 columns a
+# product slice (bd_slice<float>)
+BAND_DECODE_KEYS = 8
+BAND_DECODE_SLICE = 256
 
 fwd_launches = 0
 fwd_single_launches = 0
@@ -176,6 +195,7 @@ fwd_wgmma_launches = 0
 fwd_single_wgmma_launches = 0
 prefill_wgmma_launches = 0
 decode_split_launches = 0
+decode_band_launches = 0
 last_decode_splits = None
 route_launches: dict = {}
 plain_runs = {"fwd": 0, "fwd_single": 0, "bwd_dkv": 0, "bwd_dq": 0,
@@ -284,6 +304,7 @@ def _took_route():
     it."""
     global fwd_wgmma_launches, fwd_single_wgmma_launches
     global prefill_wgmma_launches, decode_split_launches
+    global decode_band_launches
     code = _build.library().accl_attn_last_route()
     route = ROUTES.get(code >> 16, f"unknown {code >> 16}")
     key = (route, _DTYPE_NAMES.get((code >> 12) & 15, "unknown"),
@@ -299,6 +320,8 @@ def _took_route():
         prefill_wgmma_launches += 1
     elif route == "decode_split":
         decode_split_launches += 1
+    elif route == "decode_band":
+        decode_band_launches += 1
 
 
 def _softmax_parts(s, mask):
@@ -394,13 +417,18 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     q, k, v = _pad_d(q, k, v)
     _kernel_ready("flash_attention", q, k, v)
+    DK = q.shape[-1]
     o = torch.empty_like(q)
     lse = torch.empty(B * H, Sq, dtype=torch.float32, device=q.device)
+    ws = None
+    if takes_band(q.dtype, DK):
+        ws = torch.empty(fwd_band_workspace_floats(B * H, Sq, Skv, DK),
+                         dtype=torch.float32, device=q.device)
     fn = (_build.library().accl_attn_fwd_single if single
           else _build.library().accl_attn_fwd)
-    _build.check(fn(_DTYPE_CODES[q.dtype], q.shape[-1], q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                    B, H, Hkv, Sq, Skv, int(causal), scale,
+    _build.check(fn(_DTYPE_CODES[q.dtype], DK, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(ws), B,
+                    H, Hkv, Sq, Skv, int(causal), scale,
                     _build.stream_of(q)),
                  "flash_attention")
     _took_route()
@@ -408,7 +436,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         fwd_single_launches += 1
     else:
         fwd_launches += 1
-    return (o if o.shape[-1] == D else o[..., :D].contiguous()), lse
+    return (o if DK == D else o[..., :D].contiguous()), lse
 
 
 def _check_bwd(q, do, k, v, lse, delta):
@@ -542,9 +570,40 @@ def band_workspace_floats(dkv: bool, B: int, H: int, Sq: int, Skv: int,
 
 
 def takes_band(dtype, head_dim: int) -> bool:
-    """Whether B10 and B11 of ``dtype`` at the padded ``head_dim`` run the
-    band form: f32 past ``F32_CLUSTER_MAX_D``."""
+    """Whether B8, B9, the B12 chunks, B10 and B11 of ``dtype`` at the
+    padded ``head_dim`` run the band form: f32 past ``F32_CLUSTER_MAX_D``."""
     return dtype == torch.float32 and head_dim > F32_CLUSTER_MAX_D
+
+
+def _fwd_band_words(R: int, keys: int) -> int:
+    """A head's workspace words of the forward's band form for a band of R
+    rows (csrc/attention_band_fwd.cu ``fwd_band_words``): S at a pitch of
+    round4(keys), then each row's (m, l) of every BAND_TILE-key tile."""
+    return R * (_round4(keys) + 2 * -(-keys // BAND_TILE))
+
+
+def fwd_band_rows(rows: int, keys: int, head_dim: int) -> int:
+    """The query rows a band of the f32 forward's band form takes
+    (csrc/attention_band_fwd.cu ``fwd_band_rows``, which decides; this
+    mirrors it): a head's ``rows`` (B8, B9: Sq; a B12 chunk: group *
+    S_new) where the workspace fits in q's own words, rows * head_dim a
+    head; else the largest multiple of ``BAND_TILE`` that fits, at least
+    min(rows, BAND_TILE)."""
+    budget = rows * head_dim
+    if _fwd_band_words(rows, keys) <= budget:
+        return rows
+    per_row = _round4(keys) + 2 * -(-keys // BAND_TILE)
+    r = budget // per_row // BAND_TILE * BAND_TILE
+    return min(max(r, min(rows, BAND_TILE)), rows)
+
+
+def fwd_band_workspace_floats(heads: int, rows: int, keys: int,
+                              head_dim: int) -> int:
+    """The f32 words of the forward band form's workspace for one call:
+    each of the ``heads`` heads' (B8, B9: B * H; a chunk: B * Hkv) S and
+    stats for a band of ``fwd_band_rows`` rows."""
+    return heads * _fwd_band_words(fwd_band_rows(rows, keys, head_dim),
+                                   keys)
 
 
 def _bwd_launch(name, what, q, do, k, v, lse, delta, make_outs, causal,
@@ -759,10 +818,44 @@ def takes_split(dtype, head_dim: int) -> bool:
     """Whether a single-token decode (S_new == 1) of ``dtype`` (f32, bf16
     or f16) at head dim ``head_dim`` runs the split-KV kernel: up to
     ``DECODE_SPLIT_MAX_D``, every dtype (past ``COLS_HEAD_DIM`` the wide
-    kernel of ``csrc/attention_decode.cu``); past it the chunk's route at
-    S_new = 1 (16-bit: the tensor-core prefill form, f32: the column-group
-    kernel)."""
+    kernel of ``csrc/attention_decode.cu``); past it 16-bit the chunk's
+    route at S_new = 1 (the tensor-core prefill form), f32 the band decode
+    (``takes_band_decode``)."""
     return dtype in _DTYPE_CODES and head_dim <= DECODE_SPLIT_MAX_D
+
+
+def takes_band_decode(dtype, head_dim: int) -> bool:
+    """Whether a single-token decode of ``dtype`` at the padded
+    ``head_dim`` runs the band decode of ``csrc/attention_decode.cu``: f32
+    past ``DECODE_SPLIT_MAX_D``."""
+    return dtype == torch.float32 and head_dim > DECODE_SPLIT_MAX_D
+
+
+def band_decode_tiles(T: int) -> int:
+    """The band decode's score tiles over a cache of T rows (the score
+    pass's grid; csrc/attention_decode.cu ``bd_tiles``)."""
+    return -(-T // BAND_DECODE_KEYS)
+
+
+def band_decode_splits(B: int, Hkv: int, T: int, head_dim: int,
+                       sm_count: int) -> int:
+    """The key splits of the band decode's product pass: about two blocks
+    an SM over its (slices of ``BAND_DECODE_SLICE`` columns, splits, B *
+    Hkv) grid, at most one a score tile of the T-row cache. It does not
+    depend on kv_len, so the launch geometry stays the same from step to
+    step."""
+    slices = -(-head_dim // BAND_DECODE_SLICE)
+    want = 2 * sm_count // (B * Hkv * slices)
+    return max(1, min(want, band_decode_tiles(T)))
+
+
+def band_decode_workspace_floats(B: int, H: int, T: int, n_split: int,
+                                 head_dim: int) -> int:
+    """The f32 words of the band decode's workspace: each of the B * H
+    rows' n_split partials of head_dim columns, its scores at a pitch of
+    the tiles' keys, and its (m, l) of every tile."""
+    tiles = band_decode_tiles(T)
+    return B * H * (n_split * head_dim + tiles * BAND_DECODE_KEYS + 2 * tiles)
 
 
 def split_workspace_floats(B: int, H: int, n_split: int,
@@ -821,6 +914,7 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     q, k_cache, v_cache = _pad_d(q, k_cache, v_cache, split=split)
     _kernel_ready("flash_decode", q, k_cache, v_cache, split=split)
     DK = q.shape[-1]
+    band = S_new == 1 and takes_band_decode(q.dtype, DK)
     o = torch.empty_like(q)
     n_split, ws, counters = 0, None, None
     stream = _build.stream_of(q)
@@ -832,6 +926,17 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
             B * H * (n_split if DK > COLS_HEAD_DIM else 1))
         ws = torch.empty(split_workspace_floats(B, H, n_split, DK),
                          dtype=torch.float32, device=q.device)
+    elif band:        # the band decode's counters, partials and scores
+        n_split = band_decode_splits(B, Hkv, T, DK, _sm_count(q.device))
+        counters = _split_counters(
+            (q.device.index, stream), q.device,
+            B * H * -(-DK // BAND_DECODE_SLICE))
+        ws = torch.empty(band_decode_workspace_floats(B, H, T, n_split, DK),
+                         dtype=torch.float32, device=q.device)
+    elif S_new > 1 and takes_band(q.dtype, DK):   # the chunk's band form
+        ws = torch.empty(fwd_band_workspace_floats(
+            B * Hkv, (H // Hkv) * S_new, kv_len, DK), dtype=torch.float32,
+            device=q.device)
     _build.check(_build.library().accl_attn_decode(
         _DTYPE_CODES[q.dtype], DK, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), o.data_ptr(), _ptr(ws), _ptr(counters), B, H,
@@ -839,7 +944,7 @@ def flash_decode(q, k_cache, v_cache, kv_len: int,
     _took_route()
     if S_new == 1:
         decode_launches += 1
-        last_decode_splits = n_split if split else None
+        last_decode_splits = n_split if split or band else None
     else:
         prefill_launches += 1
     return o if DK == D else o[..., :D].contiguous()

@@ -103,15 +103,19 @@ card's name and power limit and:
   heads, H=8, Hkv=1, B=4, causal; ``FWD_WIDE_CASES``): f32 B8 at D 264
   and 512 (S 2048) and 1024, 2048, 4096 (S 1024), B9 at S 512, the B12
   prefill (S_new = kv_len = 1024), the single-token decode (kv_len 2047
-  of 4096 at D 264 and 512, 1023 of 1024 at 1024 and 2048), and the D
-  512 Llama's B8 and B9 at B 1, S 1024 and 512: each the median device
+  of 4096 at D 264 and 512, 1023 of 1024 at 1024, 2048, 2056 and 4096),
+  the D 512 Llama's B8 and B9 at B 1, S 1024 and 512, and at B 1, D 4104
+  (past the cluster form) B8, B9 (S 512), the prefill and the decode
+  (kv_len 1023 of 1024): each the median device
   time of 5 launches (decode 20) behind the GPU sleep beside its bound
   (three TF32 products of 4*D operations a visible score at 495
   TFLOP/s; the decode: its K and V prefix over 3.35 TB/s), the route it
   reported, the largest error against the plain version, a SHA-256 of
   the outputs' bits, the plain version (median of 3) and PyTorch's SDPA
   f32 forward (``allow_tf32`` off; its math backend at these head dims),
-  and the cluster size at that head dim;
+  and the cluster size at that head dim; then, where the tree has it,
+  the band form's B8 through ``accl_attn_fwd_band`` at D 2056 and 4096
+  (B 4, S 1024) beside the dispatch's cluster form on the same inputs;
 - the wide16 part, at phase 17a's shapes past head dim 256 (Gemma-2B's
   heads, H=8, Hkv=1, B=4, causal; ``WIDE16_CASES``) and at the D 512
   Llama's (B=1): bf16 B8 (S 2048 at D 264 and 512, S 1024 at D 1024 and
@@ -180,7 +184,19 @@ FWD_WIDE_CASES = (
     ("decode_d1024_kv1023", "decode", 1024, 1, 1023, 1024, 4),
     ("decode_d2048_kv1023", "decode", 2048, 1, 1023, 1024, 4),
     ("llama_d512_b8_s1024", "fwd", 512, 1024, 1024, None, 1),
-    ("llama_d512_b9_s512", "fwd_single", 512, 512, 512, None, 1))
+    ("llama_d512_b9_s512", "fwd_single", 512, 512, 512, None, 1),
+    # past the cluster form (the band form) and the wide split (the band
+    # decode): 17a's B 1 at D 4104, the decode also at B 4, D 2056, 4096
+    ("b8_d4104_s1024_b1", "fwd", 4104, 1024, 1024, None, 1),
+    ("b9_d4104_s512_b1", "fwd_single", 4104, 512, 512, None, 1),
+    ("prefill_d4104_s1024_b1", "prefill", 4104, 1024, 1024, 1024, 1),
+    ("decode_d4104_kv1023_b1", "decode", 4104, 1, 1023, 1024, 1),
+    ("decode_d2056_kv1023", "decode", 2056, 1, 1023, 1024, 4),
+    ("decode_d4096_kv1023", "decode", 4096, 1, 1023, 1024, 4))
+# the head dims at which the fwd_wide part also times the f32 B8 on the
+# band form through its measurement entry point, where the tree has it,
+# beside the dispatch's cluster form (B 4, S 1024)
+FWD_BAND_MEASURE_DIMS = (2056, 4096)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -725,6 +741,57 @@ def fwd_wide_part(out: dict) -> None:
             rec["cluster_size"] = size(D)   # the forward's as B10's
         out[name] = rec
         del q, fn, ref, lib_call
+        torch.cuda.empty_cache()
+    fwd_band_measure(out, g)
+
+
+def fwd_band_measure(out: dict, g) -> None:
+    """The f32 B8 on the band form through the tree's measurement entry
+    point (``accl_attn_fwd_band``), where it has one, at
+    ``FWD_BAND_MEASURE_DIMS`` (B 4, H 8/1, S 1024, causal), beside the
+    dispatch's cluster form on the same inputs: each the median device
+    time of 5 launches, the band form's largest error against the plain
+    version and a SHA-256 of its outputs."""
+    import torch
+    from accl_tpu_torch import _build
+    from accl_tpu_torch.ops import attention as A
+    lib = _build.library()
+    hook = getattr(lib, "accl_attn_fwd_band", None)
+    if hook is None:
+        return
+    B, H, Hkv, S = 4, 8, 1, 1024
+    for D in FWD_BAND_MEASURE_DIMS:
+        q = torch.randn(B, H, S, D, device="cuda", generator=g)
+        k, v = (torch.randn(B, Hkv, S, D, device="cuda", generator=g)
+                for _ in range(2))
+        ws = torch.empty(A.fwd_band_workspace_floats(B * H, S, S, D),
+                         device="cuda")
+        o = torch.empty_like(q)
+        lse = torch.empty(B * H, S, device="cuda")
+        st = _build.stream_of(q)
+
+        def fn():
+            _build.check(hook(0, D, q.data_ptr(), k.data_ptr(),  # noqa: B023
+                              v.data_ptr(), o.data_ptr(),  # noqa: B023
+                              lse.data_ptr(), ws.data_ptr(),  # noqa: B023
+                              B, H, Hkv, S, S, 1, D ** -0.5, st),  # noqa: B023
+                         "band forward")
+            return o, lse  # noqa: B023
+        got = fn()
+        code = lib.accl_attn_last_route()
+        ro, rl = A.flash_attention_ref(q, k, v, True)
+        rec = {"ms": time_ms(fn, reps=5),
+               "max_abs_err": max(float((got[0] - ro).abs().max()),
+                                  float((got[1] - rl).abs().max())),
+               "sha256": sha_of(got),
+               "route": f"{A.ROUTES.get(code >> 16)}/{code & 0xFFF}"}
+        rec["cluster_ms"] = time_ms(lambda: A.flash_attention_fwd(  # noqa
+            q, k, v, True, block_k=16), reps=5)  # noqa: B023
+        code = lib.accl_attn_last_route()
+        rec["cluster_route"] = f"{A.ROUTES.get(code >> 16)}/{code & 0xFFF}"
+        rec["band_vs_cluster"] = rec["ms"] / rec["cluster_ms"]
+        out[f"band_d{D}_s{S}"] = rec
+        del q, k, v, ws, o, lse, got, ro, rl
         torch.cuda.empty_cache()
 
 

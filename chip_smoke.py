@@ -1222,6 +1222,12 @@ def fp8_payload_phase(recs):
 
 # kernel family <- a substring of the device kernel's name (first match)
 FAMILIES = (("bs_quant", "bs_quant_kernel"),
+            # the f32 band forms' passes past head dim 4096 (17a)
+            ("attn_fwd_band_score", "attn_fwd_band_score_kernel"),
+            ("attn_fwd_band_norm", "attn_fwd_band_norm_kernel"),
+            ("attn_fwd_band_pv", "attn_fwd_band_pv_kernel"),
+            ("attn_decode_band_score", "attn_decode_band_score_kernel"),
+            ("attn_decode_band_pv", "attn_decode_band_pv_kernel"),
             ("bs_dequant", "bs_dequant_kernel"),
             ("bs_combine", "bs_combine_kernel"),
             ("combine", "combine_kernel"),
@@ -2216,6 +2222,8 @@ def rma_path(recs):
 ATTN_SRC = "accl_tpu_torch/csrc/attention.cu"   # f32 B8, B9, prefill: 3xTF32
 ATTN_SM90_SRC = "accl_tpu_torch/csrc/attention_sm90.cu"  # bf16 B8, B9, prefill
 ATTN_DECODE_SRC = "accl_tpu_torch/csrc/attention_decode.cu"  # S_new == 1
+# f32 B8, B9 and the B12 chunks past head dim 4096: the band form
+ATTN_BAND_FWD_SRC = "accl_tpu_torch/csrc/attention_band_fwd.cu"
 # one attention tolerance, stated once and held element by element:
 # f32 |got - plain| <= 2e-5 + 2e-5 * |plain| (one f32 softmax summed in
 # another order); bf16 <= 2^-7 * |plain| + 2^-7 * median |plain|: one
@@ -3611,7 +3619,7 @@ COLS_WGMMA_KERNELS = ("attn_fwd_cols_wgmma_kernel", *CLUSTER_WGMMA_KERNELS,
                       "attn_bwd_dkv_cols_wgmma_kernel",
                       "attn_bwd_dq_cols_wgmma_kernel")
 COLS_TF32_KERNELS = ("attn_fwd_cluster_kernel", "attn_decode_cluster_kernel",
-                     "attn_fwd_cols_kernel", "attn_decode_cols_kernel",
+                     "attn_fwd_band_score_kernel", "attn_fwd_band_pv_kernel",
                      "attn_bwd_dkv_cluster_kernel",
                      "attn_bwd_dq_cluster_kernel",
                      "attn_bwd_band_score_kernel", "attn_bwd_band_dkv_kernel",
@@ -3629,6 +3637,13 @@ F32_TEMPLATES = {"attn_fwd_cluster_kernel": set(F32_CLUSTER_NS),
 # the f32 single-token decode past 256: one instantiation for each column
 # tier (512, 1024, 2048) and rows of the group a block (8, 4, 2, 1)
 WIDE_SPLIT_KERNEL = "attn_decode_split_wide_kernel"
+# the f32 single-token decode past 2048 (CUDA cores, no tensor core): its
+# two passes, one instantiation for each rows of the group a block
+BAND_DECODE_KERNELS = ("attn_decode_band_score_kernel",
+                       "attn_decode_band_pv_kernel")
+BAND_DECODE_ROWS = (1, 2, 4, 8)
+# the f32 band forward's normalisation pass (CUDA cores, no tensor core)
+BAND_NORM_KERNEL = "attn_fwd_band_norm_kernel"
 
 
 def cols_kernels_checked():
@@ -3636,10 +3651,12 @@ def cols_kernels_checked():
     instantiated for bf16 and f16, with HGMMA on operands of its type;
     each f32 one with TF32 HMMA, the f32 cluster kernels (B8/B9, the B12
     chunks, B10, B11) in each of their instantiations (2, 4 and 8 slices
-    a block), and the band form's (its score pass for B10's and B11's
-    stores, its two product passes); ptxas
-    reports no spills for any. Prints the counts, registers and spill
-    bytes; fails otherwise."""
+    a block), and the band forms' (the forward's score and product
+    passes; the backward's score pass for B10's and B11's stores, its two
+    product passes); the f32 band decode's two passes (CUDA cores) for
+    each rows of the group a block and the band forward's normalisation;
+    ptxas reports no spills for any.
+    Prints the counts, registers and spill bytes; fails otherwise."""
     import re
     funcs, ptx = sass_and_ptxas()
     for kern in COLS_WGMMA_KERNELS:
@@ -3697,6 +3714,23 @@ def cols_kernels_checked():
                   f"{sorted(want)}, TF32 HMMA instructions "
                   f"{dict(sorted(counts.items()))}; ptxas registers {regs}, "
                   f"spill bytes {spills}")
+    for kern in BAND_DECODE_KERNELS:
+        regs = {}
+        for k, v in ptx.items():
+            m = re.search(kern + r"IfLi(\d+)E", k)
+            if m:
+                need(v[1] == 0, f"{kern}<{m.group(1)}>: ptxas spills {v}")
+                regs[int(m.group(1))] = v[0]
+        need(set(regs) == set(BAND_DECODE_ROWS),
+             f"{kern}: f32 instantiations by rows {sorted(regs)}, want "
+             f"{BAND_DECODE_ROWS}")
+        print(f"{kern}: f32, rows of the group a block {BAND_DECODE_ROWS}; "
+              f"ptxas registers {dict(sorted(regs.items()))}, no spills")
+    norm = [v for k, v in ptx.items()
+            if re.search(rf"\d+{BAND_NORM_KERNEL}", k)]
+    need(len(norm) == 1 and norm[0][1] == 0,
+         f"{BAND_NORM_KERNEL}: ptxas reports {norm}")
+    print(f"{BAND_NORM_KERNEL}: ptxas registers {norm[0][0]}, no spills")
 
 
 def bwd_operands(q, k, v, do, causal):
@@ -8219,8 +8253,8 @@ WIDE_MAX_D, WIDE_S = 1024, 1024
 # blocks over 13 slices (the most receive slots, an odd slice count), of
 # 5 blocks over 17 and 33 slices (the first head dims of the 4- and
 # 8-slice tiers, one live slice in the last block), of 8 full blocks at
-# 4096, and past the cluster form (the forward's column-group kernels,
-# B10 and B11's band form); the 17a rows at S 1024
+# 4096, and past the cluster form (the band forms; the decode's band form
+# from 2056); the 17a rows at S 1024
 F32_CLUSTER_MAX_D = 4096
 WIDE_BWD_F32_DIMS = (776, 1032, 2056, 4096, 4104)
 F32_BWD_ROW_DIMS = (776, 1032, 2048, 4096)
@@ -8235,6 +8269,24 @@ BAND_EDGE_CASES = ((1, 2, 1, 300, 300, 8192, True),
                    (1, 2, 1, 4160, 4160, 4104, True))
 BAND_ROW_DIMS = (PAST_CLUSTER_D, 8192)
 BAND_PATH = (1, 8, 1, 1024, PAST_CLUSTER_D)     # B, H, Hkv, S, D
+# 17a's f32 forward rows past the cluster form and the decode's past the
+# wide split, B 1, H 8/1: (kind, D, S or S_new, kv length, cache T,
+# timed launches): B8, B9 (S 512), the chunk (S_new 1024) and the decode
+# (kv_len 1023 of 1024) at D 4104 (the band forms), B8 at D 8192, and B9,
+# the chunk (the cluster form) and the decode (the band decode) at D 2056
+# and 4096
+BAND_FWD_ROWS = tuple(
+    [("fwd", PAST_CLUSTER_D, 1024, 1024, None, 5),
+     ("fwd", 8192, 1024, 1024, None, 5)]
+    + [row for D in (2056, 4096, PAST_CLUSTER_D) for row in (
+        ("fwd_single", D, 512, 512, None, 5),
+        ("prefill", D, 1024, 1024, 1024, 5),
+        ("decode", D, 1, 1023, 1024, 20))])
+# the band serving path (band_phase): B9 on the prompt's first
+# BAND_SERVE_B9 tokens, the chunk of BAND_PATH's S tokens into a cache of
+# S + BAND_SERVE_STEPS rows, then BAND_SERVE_STEPS single-token decodes
+BAND_SERVE_B9 = 512
+BAND_SERVE_STEPS = 4
 # the single-token decode's wide split kernel (attention_decode.cu), every
 # dtype: its last head dim (DECODE_SPLIT_MAX_D); past it the chunk's form
 SPLIT_MAX_D = 2048
@@ -8274,12 +8326,13 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     f32 routes and the split decode a power of two from 16; past 256
     every kind takes its column-group form ("_cols"), whose tier is the
     group's width (f32: 64, but a cluster block's columns, 64 times its
-    slices (128, 256 or 512), for every kind but the decode to D 4096;
-    16-bit: 128 for B10's dK and dV, else 256), except f32 B10 and B11
-    past D 4096, which take the band form ("<kind>_tf32_band", tier a
-    product tile's 128 columns), the decode, which
-    takes the wide split kernel to ``SPLIT_MAX_D`` on every dtype (its
-    tier 512, 1024 or 2048), and the 16-bit B10 to
+    slices (128, 256 or 512), to D 4096; 16-bit: 128 for B10's dK and
+    dV, else 256), except f32 B8, B9, the B12 chunks, B10 and B11 past D
+    4096, which take the band form ("<kind>_tf32_band", tier a product
+    tile's 128 columns), the decode, which takes the wide split kernel to
+    ``SPLIT_MAX_D`` on every dtype (its tier 512, 1024 or 2048) and, f32,
+    the band decode past it ("decode_band", tier a product slice's 256
+    columns), and the 16-bit B10 to
     ``BWD16_CLUSTER_MAX_D`` and B8, B9, the B12 chunks and B11 where
     ``ops.attention.takes_cluster16`` says (past 256 to 2048 but for some
     head dims the column groups keep), which take their cluster forms
@@ -8296,12 +8349,13 @@ def tier_of(kind: str, dtype: str, D: int) -> tuple[str, str, int]:
     if (not f32 and kind in CLUSTER16_KINDS
             and A.takes_cluster16(kind, -(-d // 128) * 128)):
         return f"{kind}_wgmma_cluster", dtype, 256
-    if f32 and kind in ("bwd_dkv", "bwd_dq") and d > F32_CLUSTER_MAX_D:
+    if f32 and kind == "decode" and d > SPLIT_MAX_D:
+        return "decode_band", dtype, 256         # a product slice's columns
+    if f32 and d > F32_CLUSTER_MAX_D:
         return f"{kind}_tf32_band", dtype, 128   # a product tile's columns
     if d > 256:                  # the column-group forms, by group width
-        tier = ((64 * f32_cluster_ns(d)
-                 if kind != "decode" and d <= F32_CLUSTER_MAX_D else 64)
-                if f32 else 128 if kind == "bwd_dkv" else 256)
+        tier = (64 * f32_cluster_ns(d) if f32
+                else 128 if kind == "bwd_dkv" else 256)
         return f"{kind}_{'tf32' if f32 else 'wgmma'}_cols", dtype, tier
     pow2 = next(t for t in (16, 32, 64, 128, 256) if d <= t)
     if kind == "decode":
@@ -8395,7 +8449,7 @@ def kernel_case(kind: str, dt, B: int, H: int, Hkv: int, D: int, sq: int,
         lib = lambda: F.scaled_dot_product_attention(  # noqa
             q, kt, vt, is_causal=sq > 1, enable_gqa=True)
         nbytes, nops = attn_work(B, H, Hkv, sq, skv, D, es, s_new=sq)
-        if kind == "decode" and D <= SPLIT_MAX_D:
+        if kind == "decode" and (D <= SPLIT_MAX_D or not half):
             mult, rate = 1, F32_OPS_PER_S   # CUDA cores, f32 arithmetic
         out["n_split"] = A.last_decode_splits
         del o, ref
@@ -8512,12 +8566,13 @@ def wide_edges(g):
     B12 over a cache of 320 rows with NaN past kv_len 1, 65 and 300, one
     new token and five; the f32 forward run twice, bitwise equal. Then the
     f32 forward, B10 and B11 at D 776, 1032, 2056, 4096 (the cluster
-    form's three tiers) and 4104 (the forward's column-group kernels, B10
-    and B11's band form; ``WIDE_BWD_F32_DIMS``) on the ragged, uneven and
-    GQA shapes of B8 (and B9 at Sq 70 against Skv 130 unmasked), and B12
-    over a 320-row cache with NaN past kv_len 1, 65 and 300 (one new token
-    at 16/2 and 2/2 heads, five at 8/2), each run twice, bitwise equal;
-    then the band form on cases of its own (``band_edges``)."""
+    form's three tiers) and 4104 (the band forms; ``WIDE_BWD_F32_DIMS``)
+    on the ragged, uneven and GQA shapes of B8 (and B9 at Sq 70 against
+    Skv 130 unmasked), and B12 over a 320-row cache with NaN past kv_len
+    1, 65 and 300 (one new token at 16/2 and 2/2 heads: the wide split
+    decode to 2048, the band decode past it; five at 8/2), each run twice,
+    bitwise equal; then the band forms on cases of their own
+    (``band_edges``)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     n = 0
@@ -8654,26 +8709,45 @@ def wide_edges(g):
           f"{sorted(set(WIDE16_BWD_DIMS) | set(WIDE16_CLUSTER_DIMS))}, B10 at "
           f"D {WIDE16_BWD_DIMS}, B11 at D {WIDE16_CLUSTER_DIMS} and decode at "
           f"D {WIDE16_DECODE_DIMS} over {w} more; the "
-          f"f32 forward (the cluster form, the wide split decode) over {f} "
+          f"f32 forward (the cluster and band forms, the wide split and "
+          f"band decodes) over {f} "
           f"and the f32 backward over {m} at D {WIDE_BWD_F32_DIMS}, each on "
           f"its route, within its limit and (f32) bitwise on a repeat; the "
-          f"band form over {b} more ({BAND_EDGE_CASES})")
+          f"band forms over {b} more ({BAND_EDGE_CASES}, B12 at D "
+          f"{BAND_ROW_DIMS[-1]})")
 
 
 def band_edges(g) -> int:
-    """The f32 B10 and B11's band form on ``BAND_EDGE_CASES``: D 8192 and
-    a shape whose workspace takes several bands (the bands' count from
-    ``ops.attention.band_rows``), each launch on the band route, within
-    BWD_TOL of the plain versions and bitwise on a repeat. The operands'
-    O and LSE come from the plain forward."""
+    """The f32 band forms on ``BAND_EDGE_CASES``: D 8192 and a shape whose
+    workspaces take several bands (the bands' count from
+    ``ops.attention.fwd_band_rows`` and ``band_rows``): B8 (O and the LSE)
+    within ATTN_TOL of the plain forward, and B10 and B11, on the plain
+    forward's O and LSE, within BWD_TOL of their plain versions; then B12
+    at D 8192 over a 320-row cache with NaN past kv_len 65 and 300 (a
+    chunk of five new tokens at 8/2 heads on the band form, one new token
+    at 16/2 on the band decode) within ATTN_TOL. Each launch on its band
+    route and bitwise on a repeat. Returns the cases run."""
     import torch
     from accl_tpu_torch.ops import attention as A
+    n = 0
     for B, H, Hkv, Sq, Skv, D, causal in BAND_EDGE_CASES:
         q, do = (torch.randn(B, H, Sq, D, device="cuda", generator=g)
                  for _ in range(2))
         k, v = (torch.randn(B, Hkv, Skv, D, device="cuda", generator=g)
                 for _ in range(2))
         o, lse = A.flash_attention_ref(q, k, v, causal)
+        what = (f"band fwd float32 D={D} {(B, H, Hkv, Sq, Skv, causal)} "
+                f"bands {-(-Sq // A.fwd_band_rows(Sq, Skv, D))}")
+        before = dict(A.route_launches)
+        ko, klse = A.flash_attention_fwd(q, k, v, causal, block_k=16)
+        need_one_route(before, "fwd", "float32", D, what)
+        err, ratio = hold_attn(ko, o, what, klse, lse)
+        need_repeat(lambda: A.flash_attention_fwd(  # noqa: B023
+            q, k, v, causal, block_k=16), (ko, klse), what)  # noqa: B023
+        print(f"{what}: max abs err vs plain {err:.4g}, largest error/limit "
+              f"{ratio:.3f}, bitwise on a repeat")
+        del ko, klse
+        n += 1
         delta = (do * o).sum(-1).reshape(B * H, Sq)
         args = (q, do, k, v, lse, delta, causal, D ** -0.5)
         bands = [-(-Sq // A.band_rows(dkv, Sq, Skv, D)) for dkv in (True,
@@ -8695,7 +8769,28 @@ def band_edges(g) -> int:
               f"{ratio:.3f}, bitwise on a repeat")
         del q, do, k, v, o, lse, delta, args, dkv, dq
         torch.cuda.empty_cache()
-    return len(BAND_EDGE_CASES)
+        n += 1
+    D = BAND_ROW_DIMS[-1]
+    for kv_len in (65, 300):
+        kc, vc = (torch.randn(1, 320, 2, D, device="cuda", generator=g)
+                  for _ in range(2))
+        kc[:, kv_len:] = float("nan")
+        vc[:, kv_len:] = float("nan")
+        for s_new, H in ((5, 8), (1, 16)):
+            q = torch.randn(1, H, s_new, D, device="cuda", generator=g)
+            kind = "decode" if s_new == 1 else "prefill"
+            what = f"band {kind} float32 D={D} H={H} kv_len {kv_len}"
+            before = dict(A.route_launches)
+            o = A.flash_decode(q, kc, vc, kv_len)
+            need_one_route(before, kind, "float32", D, what)
+            err, ratio = hold_attn(o, A.flash_decode_ref(q, kc, vc, kv_len),
+                                   what)
+            need_repeat(lambda: A.flash_decode(  # noqa: B023
+                q, kc, vc, kv_len), o, what)  # noqa: B023
+            print(f"{what}: max abs err vs plain {err:.4g}, largest "
+                  f"error/limit {ratio:.3f}, bitwise on a repeat")
+            n += 1
+    return n
 
 
 # 16-bit head dims of wide_edges past 512: B10 on the cluster form's other
@@ -8779,21 +8874,23 @@ def wide16_edges(g) -> int:
 
 # 17f: the split decode's ticket counters on two streams (ROADMAP C1-1).
 # The cases (name, B, H, Hkv, T, kv_len, D, dtype): the narrow split
-# kernel at Llama-3-8B's decode (bf16, D 128) and the wide kernel's merge
-# tree at Gemma-2B's heads (bf16 and f32, D 512); each stream launches
-# them in its own order, round after round, the two queues behind one
-# GPU sleep so that the device runs them side by side
+# kernel at Llama-3-8B's decode (bf16, D 128), the wide kernel's merge
+# tree at Gemma-2B's heads (bf16 and f32, D 512) and the f32 band decode's
+# tickets past the wide split (D 4104, 17a's B 1, kv_len 1023 of 1024);
+# each stream launches them in its own order, round after round, the two
+# queues behind one GPU sleep so that the device runs them side by side
 STREAM_CASES = (("bf16 D128", 4, 32, 8, 4096, 2047, 128, "bfloat16"),
                 ("bf16 D512", 4, 8, 1, 4096, 2047, 512, "bfloat16"),
-                ("f32 D512", 4, 8, 1, 4096, 2047, 512, "float32"))
-STREAM_ORDERS = (("bf16 D128", "f32 D512", "bf16 D512"),
-                 ("bf16 D128", "bf16 D512", "f32 D512"))
+                ("f32 D512", 4, 8, 1, 4096, 2047, 512, "float32"),
+                ("f32 D4104", 1, 8, 1, 1024, 1023, 4104, "float32"))
+STREAM_ORDERS = (("bf16 D128", "f32 D512", "bf16 D512", "f32 D4104"),
+                 ("f32 D4104", "bf16 D128", "bf16 D512", "f32 D512"))
 STREAM_ROUNDS = 100
 
 
 def two_stream_decode(rounds: int = STREAM_ROUNDS) -> tuple[dict, dict]:
     """Each case of ``STREAM_CASES`` decoded alone (held against its plain
-    version), then ``rounds`` rounds of all three on each of two CUDA
+    version), then ``rounds`` rounds of all of them on each of two CUDA
     streams at once (``STREAM_ORDERS``), every output kept. Returns
     ({case: launches whose output is not bitwise the one alone}, the
     routes the launches reported)."""
@@ -8831,14 +8928,13 @@ def two_stream_decode(rounds: int = STREAM_ROUNDS) -> tuple[dict, dict]:
 
 def two_stream_phase():
     """17f: ``two_stream_decode``; fails on any launch that differs from
-    the same call alone, or off the split-KV route (the narrow kernel at
-    D 128, the wide one at D 512)."""
+    the same call alone, or off its route (the narrow split kernel at D
+    128, the wide one at D 512, the band decode at D 4104)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     bad, routes = two_stream_decode()
-    want = {("decode_split", dname, 128 if D == 128 else 512):
-            2 * STREAM_ROUNDS for _n, _b, _h, _k, _t, _kv, D, dname
-            in STREAM_CASES}
+    want = {tier_of("decode", dname, D): 2 * STREAM_ROUNDS
+            for _n, _b, _h, _k, _t, _kv, D, dname in STREAM_CASES}
     need(routes == want, f"two streams: routes {routes}, want {want}")
     keys = [k for k in A._SPLIT_COUNTERS if k[0] == torch.cuda.current_device()]
     print(f"two streams: {STREAM_ROUNDS} rounds of {len(STREAM_CASES)} "
@@ -8908,10 +9004,10 @@ def head_dim_phase() -> tuple[list, list]:
     the wide split's last); the bf16 column groups at S = 1024 (B9 512):
     B10 at D = 2048 and B8, B9, the prefill, B10/B11 and the decode
     (kv_len 1023 of 1024) at D = 2056 (``PAST_CLUSTER16_D``); the f32
-    kernels past the cluster form at D = 4104, B = 1, S = 1024
-    (``attn_fwd_cols_kernel``, two timed launches of about 85 ms,
-    ``attn_decode_cols_kernel``) and B10 and B11's band form with its
-    path (``band_phase``); at D = 8 (the dry run's ring shapes); then
+    forward's band forms and the f32 band decode at B = 1
+    (``BAND_FWD_ROWS``: D 2056 to 8192) and B10 and B11's band form with
+    the band paths (``band_phase``); at D = 8 (the dry run's ring shapes);
+    then
     the f16 rows of the kernels line at Llama-3-8B's shapes (phases 5 and
     8's). Returns the f16 records and the band form's."""
     import torch
@@ -8979,18 +9075,20 @@ def head_dim_phase() -> tuple[list, list]:
         print(case_line("decode", dt, HD_B, 8, 1, SPLIT_MAX_D, 1,
                         WIDE_S - 1, r, WIDE_S, "Gemma-2B heads"))
     column_groups16_rows(g)
-    # the f32 kernels past the cluster form (no public model's width): B8
-    # takes about 85 ms a launch here, so two timed launches after the
-    # warm-up (the decode twenty); B10 and B11's band form in band_phase
-    for kind, sq, skv, T, reps in (("fwd", WIDE_S, WIDE_S, None, 2),
-                                   ("decode", 1, WIDE_S - 1, WIDE_S, 20)):
-        r = kernel_case(kind, torch.float32, 1, 8, 1, PAST_CLUSTER_D, sq,
-                        skv, g, T, reps=reps)
-        print(case_line(kind, torch.float32, 1, 8, 1, PAST_CLUSTER_D, sq,
-                        skv, r, T, "Gemma-2B heads, past the cluster form"))
+    # the f32 kernels past the cluster form and the wide split (no public
+    # model's width; BAND_FWD_ROWS): B8, B9, the chunk and the decode on
+    # the band forms, the decode's band form from D 2056; B10 and B11's
+    # band form in band_phase, which takes the D 4104 rows' numbers
+    past = {}
+    for kind, D, sq, skv, T, reps in BAND_FWD_ROWS:
+        r = kernel_case(kind, torch.float32, 1, 8, 1, D, sq, skv, g, T,
+                        reps=reps)
+        print(case_line(kind, torch.float32, 1, 8, 1, D, sq, skv, r, T,
+                        "Gemma-2B heads, past the cluster form"))
+        past[kind, D] = r
         gc.collect()
         torch.cuda.empty_cache()
-    band_recs = band_phase(g)
+    band_recs = band_phase(g, past)
     for dname in HALF_DTYPES:           # the dry run's sp ring: D = 8
         dt = getattr(torch, dname)
         for kind, sq, skv, T in (("fwd", DRY_S, DRY_S, None),
@@ -9034,15 +9132,20 @@ def head_dim_phase() -> tuple[list, list]:
     return recs, band_recs
 
 
-def band_phase(g) -> list:
+def band_phase(g, past: dict) -> list:
     """17a's rows of the f32 B10 and B11's band form at Gemma-2B's heads,
     B 1, S 1024, D ``BAND_ROW_DIMS`` (each beside the plain versions,
-    SDPA's backward and the bound), then the band path: the Function a
-    trainer calls (``flash_attention`` forward and backward) at
-    ``BAND_PATH``, its route launches counted from a snapshot taken just
-    before it, the gradients held against dense autograd (FN_DENSE_REL).
-    Returns the kernels line's rows of the band form, with the path's
-    launches."""
+    SDPA's backward and the bound), then the band paths at ``BAND_PATH``,
+    each's route launches counted from a snapshot taken just before it:
+    training, the Function a trainer calls (``flash_attention`` forward
+    and backward: B8, B10 and B11 once each on the band forms), the
+    gradients held against dense autograd (FN_DENSE_REL); serving, B9 on
+    the prompt's first ``BAND_SERVE_B9`` tokens, the prompt's chunk into a
+    cache and ``BAND_SERVE_STEPS`` single-token decodes (B9, the chunk on
+    the band form, the decodes on the band decode), each held against its
+    plain version (ATTN_TOL). Returns the kernels line's rows of the band
+    forms, with the paths' launches; the forward's and decode's numbers
+    are ``past``'s (17a's rows at D 4104, kernel_case)."""
     import torch
     from accl_tpu_torch.ops import attention as A
     rows = {}
@@ -9062,9 +9165,9 @@ def band_phase(g) -> list:
                               (q, k, v), do)
     routes = routes_since(before)
     launches = {kind: routes.get(tier_of(kind, "float32", D), 0)
-                for kind in ("bwd_dkv", "bwd_dq")}
-    need(launches == {"bwd_dkv": 1, "bwd_dq": 1}, f"band path: B10 and B11 "
-         f"not once each on the band form: {routes}")
+                for kind in ("fwd", "bwd_dkv", "bwd_dq")}
+    need(launches == {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}, f"band path: "
+         f"B8, B10 and B11 not once each on the band forms: {routes}")
     want = torch.autograd.grad(dense_topleft(q, k, v), (q, k, v), do)
     worst = 0.0
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -9075,10 +9178,52 @@ def band_phase(g) -> list:
           f"routes {routes}; dq, dk, dv vs dense autograd largest "
           f"error/limit {worst:.3f} (1e-4*|dense| + 1e-4*max|dense|)")
     need(worst <= 1.0, "band path: flash and dense gradients differ")
-    del q, k, v, do, got, want
+    q, k, v = (t.detach() for t in (q, k, v))
+    del do, got, want
+    torch.cuda.empty_cache()
+    # serving: B9 on the first tokens, the chunk, then the decode steps
+    T = S + BAND_SERVE_STEPS
+    kc, vc = (torch.zeros(B, T, Hkv, D, device="cuda") for _ in range(2))
+    kc[:, :S] = k.transpose(1, 2)
+    vc[:, :S] = v.transpose(1, 2)
+    n9 = BAND_SERVE_B9
+    q9, k9, v9 = (t[:, :, :n9].contiguous() for t in (q, k, v))
+    before = dict(A.route_launches)
+    o9, lse9 = A.flash_attention_fwd(q9, k9, v9, True)
+    serve = [("B9", o9, A.flash_attention_ref(q9, k9, v9, True)[0])]
+    o = A.flash_decode(q, kc, vc, S)
+    serve.append(("chunk", o, A.flash_decode_ref(q, kc, vc, S)))
+    for step in range(BAND_SERVE_STEPS):
+        kv = S + step + 1
+        kc[:, kv - 1] = torch.randn(B, Hkv, D, device="cuda", generator=g)
+        vc[:, kv - 1] = torch.randn(B, Hkv, D, device="cuda", generator=g)
+        qs = torch.randn(B, H, 1, D, device="cuda", generator=g)
+        o = A.flash_decode(qs, kc, vc, kv)
+        serve.append((f"decode {kv}", o,
+                      A.flash_decode_ref(qs, kc, vc, kv)))
+    routes = routes_since(before)
+    for kind in ("fwd_single", "prefill", "decode"):
+        launches[kind] = routes.get(tier_of(kind, "float32", D), 0)
+    need([launches[k] for k in ("fwd_single", "prefill", "decode")]
+         == [1, 1, BAND_SERVE_STEPS], f"band serving path: B9, the chunk "
+         f"and the decodes not on the band forms: {routes}")
+    worst = max(hold_attn(got, want, f"band serving {name}")[1]
+                for name, got, want in serve)
+    print(f"band serving path (f32, {BAND_PATH}, B9 on {n9} tokens, the "
+          f"chunk into a {T}-row cache, {BAND_SERVE_STEPS} decodes): routes "
+          f"{routes}; largest error/limit {worst:.3f} ({ATTN_TOL})")
+    # where the band forms' time goes: each pass's device ms a launch
+    for what, fn in (("B8", lambda: A.flash_attention_fwd(q, k, v, True)),
+                     ("decode", lambda: A.flash_decode(qs, kc, vc, kv))):
+        fams = device_ms_by_family(lambda: [fn() for _ in range(5)])  # noqa: B023
+        passes = {f: round(ms / 5, 4) for f, ms in fams.items()
+                  if "band" in f}
+        print(f"band {what} passes at {BAND_PATH} (torch.profiler, device "
+              f"ms a launch): {passes or 'not measured (no device records)'}")
+    del q, k, v, q9, k9, v9, qs, kc, vc, o, o9, lse9, serve
     torch.cuda.empty_cache()
     r = rows[D]
-    return [{"name": name, "route": "cuda", "source": ATTN_BWD_SRC,
+    recs = [{"name": name, "route": "cuda", "source": ATTN_BWD_SRC,
              "replaces": f"accl_tpu/ops/attention.py:{line}",
              "launches": launches[kind],
              "launches_by_path": {"band_grad": launches[kind]},
@@ -9090,6 +9235,25 @@ def band_phase(g) -> list:
             for kind, name, line in (
                 ("bwd_dkv", "attn_bwd_dkv_tf32_band", 461),
                 ("bwd_dq", "attn_bwd_dq_tf32_band", 492))]
+    for kind, name, src, line, path in (
+            ("fwd", "attn_fwd_tf32_band", ATTN_BAND_FWD_SRC, 285,
+             "band_grad"),
+            ("fwd_single", "attn_fwd_single_tf32_band", ATTN_BAND_FWD_SRC,
+             252, "band_serve"),
+            ("prefill", "attn_prefill_tf32_band", ATTN_BAND_FWD_SRC, 689,
+             "band_serve"),
+            ("decode", "attn_decode_band", ATTN_DECODE_SRC, 689,
+             "band_serve")):
+        p = past[kind, D]
+        recs.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": f"accl_tpu/ops/attention.py:{line}",
+                     "launches": launches[kind],
+                     "launches_by_path": {path: launches[kind]},
+                     "max_abs_err": p["err"], "ms": p["ms"],
+                     "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+                     "bound_by": p["bound_by"],
+                     "library_ms": p["library_ms"]})
+    return recs
 
 
 def f16_serving_phase() -> dict:

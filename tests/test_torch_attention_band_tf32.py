@@ -230,7 +230,10 @@ def test_band_rule_and_routes_are_the_kernels():
     the form's head dims (past CLUSTER_MAX_D, f32 only); the route codes
     29 and 30 are the header's and the wrapper's; no column-group kernel
     of B10 or B11 is left."""
-    src = (CSRC / "attention_bwd.cu").read_text()
+    # the tile, chunk and step sizes live in the header the forward's band
+    # form shares
+    src = (CSRC / "attention_bwd.cu").read_text() + (
+        CSRC / "attention_band.cuh").read_text()
     assert re.search(r"constexpr int BT = (\d+);", src).group(1) == str(TILE)
     assert re.search(r"constexpr int BCH = (\d+);", src).group(1) == str(
         CHUNK)

@@ -381,7 +381,7 @@ def test_emulated_constants_are_the_kernels():
     assert re.search(r"return D > 256 && D <= CLUSTER_MAX_D;", hdr)
     assert TIERS == tuple((8 * ns * WIDTH, ns) for ns in (2, 4, 8))
     assert all(_blocks(D) <= 8 and _ns(D) in (2, 4, 8) for D in DIMS)
-    assert re.search(r"CGRP = 64, CBK = (\d+);", fwd).group(1) == str(
+    assert re.search(r"constexpr int CBK = (\d+);", fwd).group(1) == str(
         KEY_TILE)
     assert "static constexpr int RK = 128 / NS;" in fwd
     assert fwd.count("if (cluster_form(head_dim))") == 2   # B8, B9

@@ -166,12 +166,15 @@ def test_emulated_width_is_the_kernels():
     SL, 8 * 4 * SL and 8 * 8 * SL (``cluster_ns``), C = ceil(ceil(D / SL)
     / NS) blocks, at most 8: a portable cluster, so head dims past 256 up
     to 4096; ``SROWS`` streamed rows a step; and the cases reach each
-    tier's last head dim. The tiers live in ``attention_cluster.cuh``,
-    which the kernels' source includes."""
+    tier's last head dim. The tiers live in ``attention_cluster.cuh`` and
+    the streamed rows in ``attention_band.cuh``, which the kernels' source
+    includes."""
     csrc = ROOT / "accl_tpu_torch" / "csrc"
     src = (csrc / "attention_bwd.cu").read_text()
     assert '#include "attention_cluster.cuh"' in src
+    assert '#include "attention_band.cuh"' in src
     src += (csrc / "attention_cluster.cuh").read_text()
+    src += (csrc / "attention_band.cuh").read_text()
     assert re.search(r"constexpr int SL = (\d+),", src).group(1) == str(WIDTH)
     assert re.search(r"constexpr int SROWS = (\d+);", src).group(1) == str(
         TILE)

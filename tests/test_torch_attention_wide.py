@@ -1,12 +1,13 @@
 """Attention at head dims past 256 on the CPU, against the reference.
 
 The reference's Pallas kernels take any head dim; the port's kernels take
-any too: past ``COLS_HEAD_DIM`` (256) every kind runs its column-group
-form on the card (``csrc/attention_sm90.cu`` ``attn_fwd_cols_wgmma_kernel``,
-``csrc/attention_bwd_sm90.cu`` ``attn_bwd_{dkv,dq}_cols_wgmma_kernel``,
-``csrc/attention.cu`` ``attn_{fwd,decode}_cols_kernel``,
-``csrc/attention_bwd.cu`` ``attn_bwd_{dkv,dq}_cols_kernel``), which
-``chip_smoke.py`` holds to the plain versions (phases 17a and 17e). Here
+any too: past ``COLS_HEAD_DIM`` (256) every kind runs a form of its own on
+the card (the 16-bit column-group and cluster forms of
+``csrc/attention_sm90.cu`` and ``csrc/attention_bwd_sm90.cu``; the f32
+cluster forms of ``csrc/attention.cu`` and ``csrc/attention_bwd.cu``,
+their band forms past 4096 and the split and band decodes of
+``csrc/attention_decode.cu``), which ``chip_smoke.py`` holds to the plain
+versions (phases 17a and 17e). Here
 the same numpy inputs go through ``accl_tpu.ops.attention`` (Pallas in
 interpret mode) and the port's wrappers on CPU tensors (the plain
 versions) at D = 264, 320 and 512, per dtype: the forward (B8 and B9 by
